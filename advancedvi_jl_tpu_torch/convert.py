@@ -2,8 +2,8 @@
 
 Works on numpy arrays (anything ``np.asarray`` accepts, so JAX arrays pass
 through too) and imports no JAX.  The JAX fused engine keeps its state and
-its injected noise in TPU lane/sublane padding; the port keeps ``(d,)``
-tensors and ``(steps, n_samples, d)`` noise.  The padding widths are the JAX
+its injected noise in TPU lane/sublane padding; the port keeps ``(d,)`` and
+``(d, d)`` tensors and ``(steps, n_samples, d)`` noise.  The padding widths are the JAX
 package's ``d_pad_for`` and ``n_pad_for`` (ops/pallas/fused_advi.py), restated
 here so the port never imports it; a test pins the two against each other.
 """
@@ -15,9 +15,15 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from .families.location_scale import MeanFieldGaussian, MeanFieldLocationScale
+from .families.location_scale import (
+    FullRankGaussian,
+    FullRankLocationScale,
+    MeanFieldGaussian,
+    MeanFieldLocationScale,
+)
 from .models.logreg import LogReg
-from .ops.cuda.fused_advi import STATE_FIELDS, FusedADVIState
+from .models.normal import NormalTarget
+from .ops.cuda.fused_advi import FR_MAT_FIELDS, STATE_FIELDS, FusedADVIState
 
 D_PAD = 128  # JAX fused engine: lane padding unit
 N_PAD = 16   # JAX fused engine: minimum sample-row padding
@@ -52,14 +58,36 @@ def meanfield_from_numpy(location, scale_diag, device=None) -> MeanFieldLocation
     return MeanFieldGaussian(to_tensor(location, device), to_tensor(scale_diag, device))
 
 
+def fullrank_from_numpy(location, scale, solve_mode: str = "solve",
+                        device=None) -> FullRankLocationScale:
+    """The port's FullRankGaussian from a JAX one's ``location, scale``."""
+    return FullRankGaussian(to_tensor(location, device), to_tensor(scale, device),
+                            solve_mode=solve_mode)
+
+
+def normal_target_from_numpy(mu, scale_tril, inv_scale_tril=None,
+                             device=None) -> NormalTarget:
+    """The port's NormalTarget from a JAX one's ``mu, scale_tril`` (and
+    ``inv_scale_tril`` of a ``solve_free`` target)."""
+    return NormalTarget(
+        mu=to_tensor(mu, device), scale_tril=to_tensor(scale_tril, device),
+        inv_scale_tril=None if inv_scale_tril is None else to_tensor(inv_scale_tril, device),
+    )
+
+
 def fused_state_from_numpy(jax_state: Any, d: int, device=None) -> FusedADVIState:
     """The port's FusedADVIState from a JAX ``FusedADVIState`` (any object
     with its field names), stripping the padding: the first row and the
-    first ``d`` lanes of each ``(1, d_pad)`` field."""
-    rows = {
-        f: to_tensor(np.asarray(getattr(jax_state, f))[0, :d], device)
-        for f in STATE_FIELDS
-    }
+    first ``d`` lanes of each ``(1, d_pad)`` field, and the leading
+    ``(d, d)`` block of each ``(d_pad, d_pad)`` full-rank scale field (its
+    padded diagonal, 1.0 in the JAX engine, is dropped)."""
+    full_rank = np.asarray(jax_state.sig).shape[0] > 1
+
+    def strip(f):
+        a = np.asarray(getattr(jax_state, f))
+        return a[:d, :d] if full_rank and f in FR_MAT_FIELDS else a[0, :d]
+
+    rows = {f: to_tensor(strip(f), device) for f in STATE_FIELDS}
     return FusedADVIState(
         **rows, iteration=int(np.asarray(jax_state.iteration)),
         elbo=to_tensor(jax_state.elbo, device),

@@ -38,17 +38,14 @@
 // atomics), so a launch is deterministic: run_chunk(a + b) equals run_chunk(a)
 // then run_chunk(b) bit for bit.  The block uses one of the 132 SMs by nature;
 // spreading a step over several SMs is later work.
+#include "fused_common.cuh"
 #include "philox.cuh"
 
 namespace {
 
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
-constexpr float kLog2Pi = 1.8378770664093453f;  // log(2 pi) in float32
-
-struct Hyper {
-  float lr, b1, b2, eps, avg_eta, clip_eps, likeadj, prior_scale;
-};
+using avi::kLog2Pi;
 
 // Offsets (in floats) of the shared-memory arrays.
 struct Layout {
@@ -70,27 +67,13 @@ __host__ __device__ inline Layout make_layout(int n_data, int db, int n, int d) 
   return L;
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-  // butterfly: every lane ends with the same, order-fixed sum
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// optax scale_by_adam followed by scale(-lr), as _adam_candidate.
-__device__ __forceinline__ void adam_step(float& x, float& m, float& v, float g,
-                                          const Hyper& h, float bc1, float bc2) {
-  m = h.b1 * m + (1.0f - h.b1) * g;
-  v = h.b2 * v + (1.0f - h.b2) * g * g;
-  x = x + -h.lr * (m / bc1) / (sqrtf(v / bc2) + h.eps);
-}
-
 __global__ void __launch_bounds__(kThreads) fused_advi_meanfield_kernel(
     const float* __restrict__ X, const float* __restrict__ y, int n_data,
     int db, const float* __restrict__ state_in, float* __restrict__ state_out,
     float* __restrict__ elbo_out, float* __restrict__ trace,
     const float* __restrict__ noise, int n, int d, int steps, int log_every,
-    uint32_t k0, uint32_t k1, unsigned long long it0, Hyper h) {
+    uint32_t k0, uint32_t k1, unsigned long long it0, avi::Hyper h,
+    float likeadj, float prior_scale) {
   extern __shared__ float smem[];
   const Layout L = make_layout(n_data, db, n, d);
   float* Xs = smem + L.X;
@@ -98,7 +81,6 @@ __global__ void __launch_bounds__(kThreads) fused_advi_meanfield_kernel(
   float* us = smem + L.u;
   float* zs = smem + L.z;
   float* gs = smem + L.g;
-  float* ls = smem + L.l;
   float* st = smem + L.st;
   float* mu = st;
   float* sig = st + d;
@@ -114,6 +96,7 @@ __global__ void __launch_bounds__(kThreads) fused_advi_meanfield_kernel(
   float* logpi = inv_sig2 + n;
   float* u2 = logpi + n;
   float* logdet = u2 + n;
+  const avi::LogReg model{Xs, ys, smem + L.l, n_data, db, likeadj, prior_scale};
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -126,10 +109,6 @@ __global__ void __launch_bounds__(kThreads) fused_advi_meanfield_kernel(
   const float inv_n = 1.0f / static_cast<float>(n);
   const float ln_b1 = logf(h.b1);
   const float ln_b2 = logf(h.b2);
-  const float s2 = h.prior_scale * h.prior_scale;
-  const float log_s = logf(h.prior_scale);
-  const float fdb = static_cast<float>(db);
-  const float norm_const = 0.5f * static_cast<float>(db + 1) * kLog2Pi;
   const float ent_const = 0.5f * static_cast<float>(d) * kLog2Pi;
   const int groups = (d + 3) / 4;
   float elbo = 0.0f;
@@ -164,78 +143,32 @@ __global__ void __launch_bounds__(kThreads) fused_advi_meanfield_kernel(
       }
     }
     __syncthreads();
+    avi::logreg_rows(model, zs, n, d, beta_sq, tcol, inv_sig2, warp, kWarps, lane);
     for (int i = warp; i < n; i += kWarps) {
-      float bsq = 0.0f, uu = 0.0f;
-      for (int j = lane; j < db; j += 32) {
-        const float b = zs[i * d + j];
-        bsq += b * b;
-      }
+      float uu = 0.0f;
       for (int j = lane; j < d; j += 32) {
         const float v = us[i * d + j];
         uu += v * v;
       }
-      bsq = warp_sum(bsq);
-      uu = warp_sum(uu);
-      if (lane == 0) {
-        const float t = zs[i * d + db];
-        beta_sq[i] = bsq;
-        tcol[i] = t;
-        inv_sig2[i] = expf(-2.0f * t);
-        u2[i] = uu;
-      }
+      uu = avi::warp_sum(uu);
+      if (lane == 0) u2[i] = uu;
     }
     if (warp == kWarps - 1) {  // log det of the pre-update scale
       float ld = 0.0f;
       for (int j = lane; j < d; j += 32) ld += logf(sig[j]);
-      ld = warp_sum(ld);
+      ld = avi::warp_sum(ld);
       if (lane == 0) *logdet = ld;
     }
     __syncthreads();
 
     // B: logits, then likelihood weights and log pi per row
-    for (int idx = tid; idx < n * n_data; idx += kThreads) {
-      const int i = idx / n_data;
-      const int k = idx - i * n_data;
-      const float* zr = zs + i * d;
-      const float* xr = Xs + k * db;
-      float acc = 0.0f;
-      for (int j = 0; j < db; ++j) acc = fmaf(zr[j], xr[j], acc);
-      ls[idx] = acc;
-    }
+    avi::logreg_logits(model, zs, n, d, tid, kThreads);
     __syncthreads();
-    for (int i = warp; i < n; i += kWarps) {
-      float ll = 0.0f;
-      for (int k = lane; k < n_data; k += 32) {
-        const float l = ls[i * n_data + k];
-        const float p = 1.0f / (1.0f + expf(-l));
-        const float sp = fmaxf(l, 0.0f) + log1pf(expf(-fabsf(l)));
-        ll += ys[k] * l - sp;
-        ls[i * n_data + k] = h.likeadj * (ys[k] - p);
-      }
-      ll = warp_sum(ll);
-      if (lane == 0) {
-        const float t = tcol[i];
-        logpi[i] = h.likeadj * ll - 0.5f * beta_sq[i] * inv_sig2[i] - fdb * t -
-                   t * t / (2.0f * s2) - log_s - norm_const;
-      }
-    }
+    avi::logreg_logpi(model, n, beta_sq, tcol, inv_sig2, logpi, warp, kWarps, lane);
     __syncthreads();
 
     // C: grad log pi
-    for (int idx = tid; idx < n * d; idx += kThreads) {
-      const int i = idx / d;
-      const int j = idx - i * d;
-      float gv;
-      if (j < db) {
-        const float* gl = ls + i * n_data;
-        float acc = 0.0f;
-        for (int k = 0; k < n_data; ++k) acc = fmaf(gl[k], Xs[k * db + j], acc);
-        gv = acc - zs[idx] * inv_sig2[i];
-      } else {
-        gv = beta_sq[i] * inv_sig2[i] - fdb - tcol[i] / s2;
-      }
-      gs[idx] = gv;
-    }
+    avi::logreg_grad(model, zs, n, d, beta_sq, tcol, inv_sig2, gs, tid, kThreads);
     __syncthreads();
 
     // D: STL gradient, Adam, ClipScale, polynomial averaging
@@ -252,8 +185,8 @@ __global__ void __launch_bounds__(kThreads) fused_advi_meanfield_kernel(
         dmu += gz;
         dsig += gz * uij;
       }
-      adam_step(mu[j], m_mu[j], v_mu[j], dmu, h, bc1, bc2);
-      adam_step(sig[j], m_sig[j], v_sig[j], dsig, h, bc1, bc2);
+      avi::adam_step(mu[j], m_mu[j], v_mu[j], dmu, h, bc1, bc2);
+      avi::adam_step(sig[j], m_sig[j], v_sig[j], dsig, h, bc1, bc2);
       sig[j] = fmaxf(sig[j], h.clip_eps);
       a_mu[j] = (1.0f - w) * a_mu[j] + w * mu[j];
       a_sig[j] = (1.0f - w) * a_sig[j] + w * sig[j];
@@ -302,9 +235,9 @@ extern "C" int fused_advi_meanfield(
       fused_advi_meanfield_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const Hyper h{lr, b1, b2, eps, avg_eta, clip_eps, likeadj, prior_scale};
+  const avi::Hyper h{lr, b1, b2, eps, avg_eta, clip_eps};
   fused_advi_meanfield_kernel<<<1, kThreads, smem, stream>>>(
       X, y, n_data, db, state_in, state_out, elbo_out, trace, noise, n, d,
-      steps, log_every, seed0, seed1, it0, h);
+      steps, log_every, seed0, seed1, it0, h, likeadj, prior_scale);
   return static_cast<int>(cudaGetLastError());
 }

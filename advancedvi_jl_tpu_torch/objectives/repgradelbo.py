@@ -33,7 +33,7 @@ class RepGradELBO:
         return ()  # stateless
 
     def _draw_with_base(self, q, key, noise: Optional[torch.Tensor]):
-        """(z, u): the family's sampler, or z = u * scale + location for
+        """(z, u): the family's sampler, or z = scale u + location for
         injected base draws ``noise`` of shape (n_samples, d)."""
         if noise is None:
             return q.sample_with_base(key, self.n_samples)
@@ -43,7 +43,7 @@ class RepGradELBO:
                 f"noise must have shape {(self.n_samples, q.dim)}, got "
                 f"{tuple(u.shape)}"
             )
-        return u * q.scale_diag + q.location, u
+        return q.from_base(u), u
 
     def loss(self, q, prob, key, noise: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Differentiable -ELBO estimate (q_stop is a detached copy of q).

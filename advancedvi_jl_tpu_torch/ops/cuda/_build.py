@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``) into
 its own shared library with a plain C interface under ``build/kernels/`` at
-the root of the checkout.  The file name carries a hash of the sources and
-flags, so an edited source is rebuilt and an unchanged one is reused.  The
+the root of the checkout.  The file name carries a hash of the flags, the
+kernel's source and every shared header, so an edited source is rebuilt and
+an unchanged one is reused.  The
 compiler's ``-Xptxas -v`` report (registers, shared memory, spills) is kept
 beside the library as ``<lib>.log``.
 
@@ -28,7 +29,11 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
-KERNELS = ("meanfield_sample", "fused_advi_meanfield")
+# Dynamic shared memory one block may use on Hopper (227 KB); the wrappers
+# refuse a launch above it before making it.
+SMEM_LIMIT = 232448
+KERNELS = ("meanfield_sample", "fused_advi_meanfield", "fullrank_sample", "trisolve",
+           "fused_advi_fullrank")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _fns: Dict[Tuple[str, str], ctypes._CFuncPtr] = {}
@@ -50,31 +55,50 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
+    """The library's path: its name carries a hash of the flags, of
+    ``<name>.cu`` and of every shared header ``csrc/*.cuh``, so editing any
+    header a kernel may include rebuilds it."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in (CSRC / f"{name}.cu", CSRC / "philox.cuh"):
+    for src in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
+        h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` unless an up-to-date library exists."""
-    if name not in KERNELS:
-        raise ValueError(f"unknown kernel {name!r}; known: {KERNELS}")
-    out = library_path(name)
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-           str(CSRC / f"{name}.cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed for {name} ({proc.returncode}):\n{proc.stderr}"
-        )
-    out.with_suffix(".log").write_text(proc.stderr)
-    os.replace(tmp, out)  # atomic: a concurrent build never loads half a file
-    return out
+    return build_all([name])[name]
+
+
+def build_all(names: Sequence[str] = KERNELS) -> Dict[str, Path]:
+    """Compile the named kernels that have no up-to-date library, one
+    ``nvcc`` process per source, all started together; returns their paths."""
+    for name in names:
+        if name not in KERNELS:
+            raise ValueError(f"unknown kernel {name!r}; known: {KERNELS}")
+    paths = {name: library_path(name) for name in names}
+    jobs = []
+    for name, out in paths.items():
+        if out.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                text=True)
+        jobs.append((name, out, tmp, proc))
+    failed = []
+    for name, out, tmp, proc in jobs:
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for {name} ({proc.returncode}):\n{err}")
+            continue
+        out.with_suffix(".log").write_text(err)
+        os.replace(tmp, out)  # atomic: a concurrent build never loads half a file
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return paths
 
 
 def function(name: str, symbol: str, argtypes: Sequence, restype=ctypes.c_int):

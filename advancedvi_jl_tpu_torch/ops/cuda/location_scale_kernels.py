@@ -1,8 +1,9 @@
-"""Step-indexed Philox normals and the fused mean-field sampler (CUDA).
+"""Step-indexed Philox normals and the fused samplers (CUDA).
 
 Port of ops/pallas/location_scale_kernels.py (``_uniform01``,
-``_box_muller``, ``_meanfield_sample_raw`` and the ``meanfield_sample``
-custom VJP).  The TPU kernel drew its bits from the on-chip PRNG; here they
+``_box_muller``, ``_meanfield_sample_raw``, ``_fullrank_sample_raw`` and
+the ``meanfield_sample``/``fullrank_sample`` custom VJPs).  Both samplers
+draw the same u for the same (seed, iteration).  The TPU kernel drew its bits from the on-chip PRNG; here they
 come from Philox4x32-10 (Salmon et al., SC'11), a counter-based generator
 that is the same function on the card (csrc/philox.cuh) and in plain
 PyTorch (``philox4x32_reference``):
@@ -233,6 +234,88 @@ def meanfield_sample(
 ):
     """Fused z = u * sigma + m; returns (z, u), differentiable in (m, sigma)."""
     return _MeanFieldSample.apply(location, scale_diag, tuple(seed), int(it), int(n))
+
+
+# ---------------------------------------------------------------------------
+# K7b: the full-rank sampler
+# ---------------------------------------------------------------------------
+
+
+def fullrank_sample_reference(
+    seed: Tuple[int, int], it: int, location: torch.Tensor,
+    scale: torch.Tensor, n: int,
+):
+    """Plain version of the kernel: z = u tril(C)^T + m; returns (z, u).
+    u is the mean-field sampler's draw for the same (seed, it)."""
+    u = philox_normals_reference(
+        seed, it, n, location.shape[0], device=location.device
+    )
+    return u @ torch.tril(scale).T + location, u
+
+
+def fullrank_sample_cuda(
+    seed: Tuple[int, int], it: int, location: torch.Tensor,
+    scale: torch.Tensor, n: int,
+):
+    """Launch csrc/fullrank_sample.cu on the current stream; returns (z, u).
+    Only the lower triangle of ``scale`` is read.  Adds one to
+    ``fullrank_sample_cuda.launches`` per launch."""
+    if not location.is_cuda:
+        raise ValueError(f"fullrank_sample_cuda needs GPU tensors, got {location.device}")
+    d = location.shape[0]
+    check_f32("location", location, (d,), location.device)
+    check_f32("scale", scale, (d, d), location.device)
+    fn = _build.function("fullrank_sample", "fullrank_sample", _SAMPLE_ARGTYPES)
+    z = torch.empty((n, d), dtype=torch.float32, device=location.device)
+    u = torch.empty((n, d), dtype=torch.float32, device=location.device)
+    if n == 0:
+        return z, u
+    with torch.cuda.device(location.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(
+            location.data_ptr(), scale.data_ptr(), z.data_ptr(), u.data_ptr(),
+            n, d, seed[0], seed[1], it & _MASK32, stream,
+        )
+    _build.check(err, "fullrank_sample launch")
+    fullrank_sample_cuda.launches += 1
+    return z, u
+
+
+fullrank_sample_cuda.launches = 0
+
+
+def fullrank_sample_raw(seed, it, location, scale, n):
+    """Kernel for CUDA tensors, plain version for CPU tensors."""
+    if location.is_cuda:
+        return fullrank_sample_cuda(seed, it, location, scale, n)
+    if location.device.type == "cpu":
+        return fullrank_sample_reference(seed, it, location, scale, n)
+    raise ValueError(f"no sampler for device {location.device}")
+
+
+class _FullRankSample(torch.autograd.Function):
+    """z = u C^T + m with dm = sum ct_z and dC = tril(ct_z^T u) (the
+    reference's ``_fr_bwd``; the product runs outside the kernel)."""
+
+    @staticmethod
+    def forward(ctx, location, scale, seed, it, n):
+        z, u = fullrank_sample_raw(seed, it, location, scale, n)
+        ctx.save_for_backward(u)
+        ctx.mark_non_differentiable(u)
+        return z, u
+
+    @staticmethod
+    def backward(ctx, ct_z, ct_u):
+        (u,) = ctx.saved_tensors
+        return ct_z.sum(dim=0), torch.tril(ct_z.T @ u), None, None, None
+
+
+def fullrank_sample(
+    seed: Tuple[int, int], it: int, location: torch.Tensor,
+    scale: torch.Tensor, n: int,
+):
+    """Fused z = u tril(C)^T + m; returns (z, u), differentiable in (m, C)."""
+    return _FullRankSample.apply(location, scale, tuple(seed), int(it), int(n))
 
 
 def normal_moments_ok(u: torch.Tensor, sigmas: float = 5.0) -> bool:

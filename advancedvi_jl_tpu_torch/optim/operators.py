@@ -7,7 +7,7 @@ from dataclasses import dataclass
 
 import torch
 
-from ..families.location_scale import MeanFieldLocationScale
+from ..families.location_scale import FullRankLocationScale, MeanFieldLocationScale
 
 
 @dataclass(frozen=True)
@@ -20,8 +20,10 @@ class IdentityOperator:
 
 @dataclass(frozen=True)
 class ClipScale:
-    """Clamp the scale diagonal to >= epsilon (reference clip_scale.jl:8-41).
-    This slice has the mean-field family only."""
+    """Clamp the scale diagonal to >= epsilon (reference clip_scale.jl:8-41):
+    mean-field ``scale_diag``, or the full-rank diagonal through
+    ``with_scale_diag`` (clamped entries are exactly epsilon; the
+    off-diagonal, the inert upper triangle included, is kept as stored)."""
 
     epsilon: float = 1e-5
 
@@ -30,4 +32,6 @@ class ClipScale:
             return dataclasses.replace(
                 q, scale_diag=torch.clamp_min(q.scale_diag, self.epsilon)
             )
+        if isinstance(q, FullRankLocationScale):
+            return q.with_scale_diag(torch.clamp_min(q.scale_diag_view(), self.epsilon))
         raise TypeError(f"ClipScale is not defined for family {type(q).__name__}")

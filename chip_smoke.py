@@ -7,22 +7,36 @@ Run from the root of a checkout, on a machine with a CUDA card:
 
 It builds the port's CUDA kernels from advancedvi_jl_tpu_torch/csrc with
 nvcc, holds each kernel against its plain PyTorch version on the card, and
-drives the flagship path (mean-field ADVI + STL, 10 samples, Adam(1e-3),
-ClipScale, polynomial averaging on the 208 x 61 hierarchical logistic
-regression, d = 62) through both entry points a user calls: ``optimize``
-with ``KLMinRepGradDescent`` and ``FusedLogRegADVI.optimize``.  Phases:
+drives the port's paths through the entry points a user calls.  The
+flagship path: mean-field ADVI + STL, 10 samples, Adam(1e-3), ClipScale,
+polynomial averaging on the 208 x 61 hierarchical logistic regression,
+d = 62, through ``optimize`` with ``KLMinRepGradDescent`` and
+``FusedLogRegADVI.optimize``.  The full-rank paths: ``optimize`` with
+``FullRankGaussian`` at d = 1024 and 256 samples a step (solve-free
+normal_fullrank_wellcond target, the K8 solve), and
+``FusedADVI(family="fullrank")`` on the logreg (d = 62) and on a dense
+Gaussian (d = 512).  Phases:
 
   (a) the card (nvidia-smi name and power limit);  (b) kernel builds;
   (c) the mean-field sampler against its plain version, normal statistics;
   (d) the fused kernel against its plain version with injected noise;
   (e) the fused kernel with in-kernel Philox: chunking, tracing, plain version;
   (f) the general path on the card;  (g) the fused engine on the card;
-  (h) steps/s of both paths and each kernel's time beside its plain version.
+  (h) steps/s of both paths and each kernel's time beside its plain version;
+  (i) the full-rank sampler (K7b) against its plain version and K7a's draws;
+  (j) the triangular solve (K8), both modes, against a float64 solve;
+  (k) the full-rank fused kernel (K3-FR) against its plain version at
+      d = 62 (logreg) and d = 512 (dense Gaussian): noise, Philox, chunking;
+  (l) the full-rank paths: ``optimize`` with FullRankGaussian at d = 1024,
+      n = 256, the fused full-rank logreg engine to 20,000 steps, fused vs
+      general on the same key at d = 62 and d = 512;
+  (m) steps/s of the full-rank paths and the new kernels' times beside
+      their plain versions.
 
 Every failed check raises and the script exits non-zero; it also exits
 non-zero without a CUDA device, or when the package is not beside it.  The
 line before the last is a JSON object of the kernels (launch counts from the
-main-path run of (f) and (g), errors, times); the last line is
+main-path runs of (f), (g) and (l), errors, times); the last line is
 ``{"ok": true, "device": {...}}``.  It imports no JAX.
 """
 
@@ -46,6 +60,14 @@ GENERAL_STEPS = 2_000
 LOG_EVERY = 100
 TAIL_ROWS = 20  # ELBO at a horizon: mean of the last 20 logged rows
 SAMPLER_SHAPE = (65_536, 512)
+# the full-rank slice: bench_large.py bench_fullrank_flopbound's first size,
+# and the full-rank fused engine at the JAX engine's widest d
+FR_D, FR_N = 1024, 256
+FR_SHAPE = (FR_N, FR_D)
+FR_GENERAL_STEPS = 500
+FR_FUSED_D = 512
+FR_AGREE_STEPS = 2_000  # fused vs general, logreg d = 62
+FR_MV_STEPS = 1_000     # fused vs general, mvnormal d = 512
 
 
 def fail(msg: str) -> None:
@@ -100,13 +122,13 @@ def phase_a():
 def phase_b():
     from advancedvi_jl_tpu_torch.ops.cuda import _build
 
-    for name in _build.KERNELS:
-        t0 = time.perf_counter()
-        path = _build.build(name)
-        secs = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    paths = _build.build_all()  # one nvcc per source, all started together
+    say("b", kernels=len(paths), build_s=f"{time.perf_counter() - t0:.2f}")
+    for name, path in paths.items():
         ptxas = [ln.strip() for ln in path.with_suffix(".log").read_text().splitlines()
                  if "registers" in ln or "spill" in ln]
-        say("b", kernel=name, build_s=f"{secs:.2f}", lib=path.name)
+        say("b", kernel=name, lib=path.name)
         for ln in ptxas:
             print(f"    {ln}", flush=True)
 
@@ -263,20 +285,30 @@ def phase_e(dev):
         elbo_plain=float(r_elbo))
 
 
-def reset_launches():
-    from advancedvi_jl_tpu_torch.ops.cuda.fused_advi import fused_run_chunk_cuda
-    from advancedvi_jl_tpu_torch.ops.cuda.location_scale_kernels import meanfield_sample_cuda
+def wrappers():
+    """Each kernel's name and its wrapper (whose ``launches`` counts)."""
+    from advancedvi_jl_tpu_torch.ops.cuda.fused_advi import (
+        fused_fullrank_run_chunk_cuda, fused_run_chunk_cuda,
+    )
+    from advancedvi_jl_tpu_torch.ops.cuda.location_scale_kernels import (
+        fullrank_sample_cuda, meanfield_sample_cuda,
+    )
+    from advancedvi_jl_tpu_torch.ops.cuda.trisolve_kernels import solve_right_cuda
 
-    meanfield_sample_cuda.launches = 0
-    fused_run_chunk_cuda.launches = 0
+    return {"meanfield_sample": meanfield_sample_cuda,
+            "fused_advi_meanfield": fused_run_chunk_cuda,
+            "fullrank_sample": fullrank_sample_cuda,
+            "trisolve": solve_right_cuda,
+            "fused_advi_fullrank": fused_fullrank_run_chunk_cuda}
+
+
+def reset_launches():
+    for fn in wrappers().values():
+        fn.launches = 0
 
 
 def read_launches():
-    from advancedvi_jl_tpu_torch.ops.cuda.fused_advi import fused_run_chunk_cuda
-    from advancedvi_jl_tpu_torch.ops.cuda.location_scale_kernels import meanfield_sample_cuda
-
-    return {"meanfield_sample": meanfield_sample_cuda.launches,
-            "fused_advi_meanfield": fused_run_chunk_cuda.launches}
+    return {name: fn.launches for name, fn in wrappers().items()}
 
 
 def tail_elbo(infos) -> float:
@@ -379,6 +411,302 @@ def phase_h(dev, card):
             "fused_advi_meanfield": (fk_ms, fr_ms)}
 
 
+# ---------------------------------------------------------------------------
+# The full-rank slice: K7b, K8 and K3-FR, and the full-rank paths
+# ---------------------------------------------------------------------------
+
+
+def rel_err(a, b) -> float:
+    """Norm-wise relative difference ||a - b||_F / ||b||_F, in float64."""
+    return float((a.double() - b.double()).norm() / b.double().norm())
+
+
+def factor(d, dev, seed=3):
+    """The well-conditioned Cholesky factor of normal_fullrank_wellcond(d),
+    with ones written above the diagonal (no kernel may read them)."""
+    from advancedvi_jl_tpu_torch.models.normal import normal_fullrank_wellcond
+
+    _, _, L = normal_fullrank_wellcond(seed, d)
+    return L.to(dev), (L + torch.triu(torch.ones(d, d), 1)).to(dev)
+
+
+def phase_i(dev):
+    """K7b against its plain version and against K7a's draws."""
+    from advancedvi_jl_tpu_torch.ops.cuda.location_scale_kernels import (
+        fullrank_sample_cuda, fullrank_sample_reference, meanfield_sample_cuda, seed_words,
+    )
+
+    seed = seed_words(SEED)
+    worst = 0.0
+    for n, d in (FR_SHAPE, (N_SAMPLES, N_FEATURES + 2)):
+        _, C = factor(d, dev)
+        loc = torch.randn(d, generator=torch.Generator().manual_seed(d)).to(dev)
+        z, u = fullrank_sample_cuda(seed, 5, loc, C, n)
+        zr, ur = fullrank_sample_reference(seed, 5, loc, C, n)
+        _, umf = meanfield_sample_cuda(seed, 5, loc, torch.ones_like(loc), n)
+        torch.cuda.synchronize()
+        rel, err = rel_err(z, zr), max_err(z, zr)
+        say("i", shape=f"{n}x{d}", u_bitwise_plain=bool(torch.equal(u, ur)),
+            u_bitwise_meanfield=bool(torch.equal(u, umf)), z_rel_err=rel, z_max_abs_err=err)
+        check(torch.equal(u, ur), "full-rank sampler u differs from its plain version")
+        check(torch.equal(u, umf), "full-rank sampler u differs from the mean-field sampler's")
+        # z sums d products in another order than the plain product
+        check(rel <= 1e-6, f"full-rank sampler z: norm-wise error {rel} > 1e-6")
+        worst = max(worst, err)
+    return worst
+
+
+def phase_j(dev):
+    """K8 in both modes against a float64 solve (residual) and its plain version."""
+    from advancedvi_jl_tpu_torch.ops.cuda.trisolve_kernels import (
+        solve_right_cuda, solve_right_reference,
+    )
+
+    worst = 0.0
+    for n, d in (FR_SHAPE, (N_SAMPLES, FR_FUSED_D), (N_SAMPLES, N_FEATURES + 2)):
+        L, C = factor(d, dev)
+        V = torch.randn(n, d, generator=torch.Generator().manual_seed(n)).to(dev)
+        for mode in ("C", "CT"):
+            W = solve_right_cuda(C, V, mode)
+            Wr = solve_right_reference(C, V, mode)
+            torch.cuda.synchronize()
+            op = L.double() if mode == "C" else L.double().T
+            resid = float((W.double() @ op - V.double()).norm() / V.double().norm())
+            resid_plain = float((Wr.double() @ op - V.double()).norm() / V.double().norm())
+            err = max_err(W, Wr)
+            say("j", shape=f"{n}x{d}", mode=mode, residual=resid, plain_residual=resid_plain,
+                max_abs_err_vs_plain=err)
+            check(resid <= 1e-5, f"trisolve {mode} {n}x{d}: residual {resid} > 1e-5")
+            worst = max(worst, err)
+    return worst
+
+
+def fullrank_specs(dev):
+    """The two full-rank fused configurations: the flagship logreg at d = 62
+    (q0 = 0.1 I) and the dense Gaussian normal_fullrank_wellcond at d = 512
+    (q0 = I), each with its general-path target."""
+    import advancedvi_jl_tpu_torch as avt
+    from advancedvi_jl_tpu_torch.models.normal import normal_fullrank_wellcond
+
+    prob = flagship(dev)
+    target, mu, L = normal_fullrank_wellcond(3, FR_FUSED_D, device=dev)
+    d = prob.dim
+    return {
+        "logreg": (avt.logreg_spec(prob.X, prob.y), prob.unconstrained(),
+                   0.1 * torch.eye(d, device=dev)),
+        "mvnormal": (avt.mvnormal_spec(mu, L), target.solve_free(),
+                     torch.eye(FR_FUSED_D, device=dev)),
+    }
+
+
+def compare_fullrank(tag, kv, km, rv, rm, rtol):
+    """Norm-wise per field, as compare_state: max |a - b| <= rtol max |b|."""
+    from advancedvi_jl_tpu_torch.ops.cuda.fused_advi import FR_MAT_FIELDS, FR_VEC_FIELDS
+
+    worst, bad = 0.0, []
+    for f, a, b in zip(FR_VEC_FIELDS + FR_MAT_FIELDS, list(kv) + list(km), list(rv) + list(rm)):
+        err, scale = max_err(a, b), float(b.abs().max())
+        worst = max(worst, err)
+        print(f"    {f}: max_abs_err={err:.3e} max_abs={scale:.3e} "
+              f"rel={err / max(scale, 1e-30):.3e}", flush=True)
+        if not err <= rtol * scale:
+            bad.append(f)
+    check(not bad, f"{tag}: {bad} over rtol {rtol} (norm-wise)")
+    return worst
+
+
+def phase_k(dev):
+    """K3-FR against its plain version at d = 62 (logreg) and d = 512
+    (mvnormal): 50 steps of injected noise, 200 of Philox; chunking and
+    tracing bitwise."""
+    from advancedvi_jl_tpu_torch.ops.cuda.fused_advi import (
+        FusedHyper, fused_fullrank_run_chunk_cuda, fused_fullrank_run_chunk_reference,
+    )
+    from advancedvi_jl_tpu_torch.ops.cuda.location_scale_kernels import seed_words
+
+    seed, hyp, worst = seed_words(SEED), FusedHyper(lr=LR), 0.0
+    for name, (spec, _, C0) in fullrank_specs(dev).items():
+        d = spec.dim
+        vec = torch.zeros(4, d, device=dev)
+        mat = torch.stack([C0, torch.zeros_like(C0), torch.zeros_like(C0), C0])
+        base = (spec.model, spec.consts, spec.scalars)
+        noise = torch.randn((50, N_SAMPLES, d), generator=torch.Generator().manual_seed(5)).to(dev)
+        k = fused_fullrank_run_chunk_cuda(*base, vec, mat, seed, 0, 50, N_SAMPLES, hyp, noise, 5)
+        r = fused_fullrank_run_chunk_reference(*base, vec, mat, seed, 0, 50, N_SAMPLES, hyp,
+                                               noise, 5)
+        torch.cuda.synchronize()
+        worst = max(worst, compare_fullrank(f"{name} fused vs plain, injected noise",
+                                            k[0], k[1], r[0], r[1], 1e-5))
+        check(torch.allclose(k[2], r[2], rtol=1e-5, atol=1e-4), f"{name}: ELBO differs")
+        check(torch.allclose(k[3], r[3], rtol=1e-5, atol=1e-4), f"{name}: trace rows differ")
+        check(torch.equal(torch.triu(k[1][0], 1), torch.triu(mat[0], 1)),
+              f"{name}: the upper triangle of the scale moved")
+        say("k", model=name, d=d, steps=50, elbo_kernel=float(k[2]), elbo_plain=float(r[2]))
+        one = fused_fullrank_run_chunk_cuda(*base, vec, mat, seed, 0, 200, N_SAMPLES, hyp)
+        half = fused_fullrank_run_chunk_cuda(*base, vec, mat, seed, 0, 100, N_SAMPLES, hyp)
+        two = fused_fullrank_run_chunk_cuda(*base, half[0], half[1], seed, 100, 100,
+                                            N_SAMPLES, hyp)
+        traced = fused_fullrank_run_chunk_cuda(*base, vec, mat, seed, 0, 200, N_SAMPLES, hyp,
+                                               None, 50)
+        ref = fused_fullrank_run_chunk_reference(*base, vec, mat, seed, 0, 200, N_SAMPLES, hyp)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(one[:3], two[:3])),
+              f"{name}: run_chunk(200) differs from two run_chunk(100)")
+        check(all(torch.equal(a, b) for a, b in zip(one[:3], traced[:3]))
+              and float(traced[3][-1]) == float(one[2]), f"{name}: traced and untraced differ")
+        # float32 transcendentals and sums in another order, carried by 200
+        # steps of Adam
+        worst = max(worst, compare_fullrank(f"{name} fused vs plain, Philox, 200 steps",
+                                            one[0], one[1], ref[0], ref[1], 1e-4))
+        check(torch.allclose(one[2], ref[2], rtol=1e-4, atol=1e-3), f"{name}: ELBO after 200 steps")
+        say("k", model=name, d=d, steps=200, chunked_bitwise=True, traced_bitwise=True,
+            elbo_kernel=float(one[2]), elbo_plain=float(ref[2]))
+    return worst
+
+
+def fullrank_alg(n_samples):
+    import advancedvi_jl_tpu_torch as avt
+
+    return avt.KLMinRepGradDescent(entropy=avt.STL, n_samples=n_samples,
+                                   optimizer=avt.adam(LR), operator=avt.ClipScale())
+
+
+def wide_general(dev):
+    """The general full-rank path of bench_large.py bench_fullrank_flopbound
+    at d = 1024, n = 256: (solve-free target, q0, algorithm)."""
+    import advancedvi_jl_tpu_torch as avt
+    from advancedvi_jl_tpu_torch.models.normal import normal_fullrank_wellcond
+
+    target, _, _ = normal_fullrank_wellcond(3, FR_D, device=dev)
+    q0 = avt.FullRankGaussian(torch.zeros(FR_D, device=dev), solve_mode="pallas")
+    return target.solve_free(), q0, fullrank_alg(FR_N)
+
+
+def fullrank_paths(dev):
+    """(l) The full-rank main paths, each with counted launches: the general
+    path at d = 1024, n = 256 (bench_large.py bench_fullrank_flopbound), the
+    fused logreg engine to 20,000 steps, and fused vs general at d = 62 and
+    d = 512 on the same Philox key."""
+    import advancedvi_jl_tpu_torch as avt
+
+    target, q0, alg = wide_general(dev)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    _, infos, _ = avt.optimize(SEED, alg, FR_GENERAL_STEPS, target, q0, log_every=10)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = read_launches()
+    elbos = [r["elbo"] for r in infos]
+    first, last = sum(elbos[:5]) / 5, sum(elbos[-5:]) / 5
+    say("l", path="general", d=FR_D, n=FR_N, steps=FR_GENERAL_STEPS, elbo_first5=first,
+        elbo_last5=last, seconds=f"{secs:.2f}", fullrank_sample_launches=counts["fullrank_sample"],
+        trisolve_launches=counts["trisolve"])
+    check(all(math.isfinite(e) for e in elbos), "full-rank general ELBO not finite")
+    check(last > first, f"full-rank general ELBO did not rise: {first} -> {last}")
+    check(counts["fullrank_sample"] > 0, "the full-rank general path launched no sampler kernel")
+    check(counts["trisolve"] > 0, "the full-rank general path launched no trisolve kernel")
+
+    specs = fullrank_specs(dev)
+    spec, _, C0 = specs["logreg"]
+    d = spec.dim
+    lq0 = avt.FullRankGaussian(torch.zeros(d, device=dev), C0, solve_mode="pallas")
+    eng = avt.FusedADVI(spec, family="fullrank", n_samples=N_SAMPLES, lr=LR)
+    reset_launches()
+    t0 = time.perf_counter()
+    q_agree, rows_a, st = eng.optimize(SEED, FR_AGREE_STEPS, lq0, log_every=LOG_EVERY)
+    _, rows_b, st = eng.optimize(SEED, FUSED_STEPS - FR_AGREE_STEPS, state=st,
+                                 log_every=LOG_EVERY)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    fused_counts = read_launches()
+    rows = rows_a + rows_b
+    tail = tail_elbo(rows)
+    say("l", path="fused", model="logreg", d=d, steps=FUSED_STEPS, elbo_last=rows[-1]["elbo"],
+        elbo_tail_mean=tail, seconds=f"{secs:.2f}",
+        fused_launches=fused_counts["fused_advi_fullrank"])
+    check(all(math.isfinite(r["elbo"]) for r in rows), "full-rank fused ELBO not finite")
+    check(tail > -150.0, f"full-rank fused ELBO {tail} <= -150 (not converged)")
+    check(fused_counts["fused_advi_fullrank"] > 0, "the full-rank fused engine launched no kernel")
+    counts["fused_advi_fullrank"] = fused_counts["fused_advi_fullrank"]
+
+    for name, steps, fq in (("logreg", FR_AGREE_STEPS, q_agree), ("mvnormal", FR_MV_STEPS, None)):
+        spec, tgt, C0 = specs[name]
+        d = spec.dim
+        q0 = avt.FullRankGaussian(torch.zeros(d, device=dev), C0, solve_mode="pallas")
+        if fq is None:
+            eng = avt.FusedADVI(spec, family="fullrank", n_samples=N_SAMPLES, lr=LR)
+            fq, _, _ = eng.optimize(SEED, steps, q0, log_every=LOG_EVERY)
+        gq, ginfos, _ = avt.optimize(SEED, fullrank_alg(N_SAMPLES), steps, tgt, q0,
+                                     log_every=LOG_EVERY)
+        torch.cuda.synchronize()
+        loc_diff = max_err(fq.location, gq.location)
+        scale_diff = max_err(fq.scale, gq.scale)
+        say("l", compare=f"fused_vs_general_{name}", d=d, steps=steps,
+            averaged_location_max_abs_diff=loc_diff, averaged_scale_max_abs_diff=scale_diff,
+            general_elbo=ginfos[-1]["elbo"])
+        # same draws; the two paths round sums in other orders
+        check(loc_diff <= 1e-3, f"fused vs general {name}: location {loc_diff} > 1e-3 apart")
+    return counts
+
+
+def phase_m(dev, card):
+    """Steps/s of the full-rank paths and each new kernel's time beside its
+    plain version at the main path's shapes."""
+    from advancedvi_jl_tpu_torch.ops.cuda.fused_advi import (
+        FusedHyper, fused_fullrank_run_chunk_cuda, fused_fullrank_run_chunk_reference,
+    )
+    from advancedvi_jl_tpu_torch.ops.cuda.location_scale_kernels import (
+        fullrank_sample_cuda, fullrank_sample_reference, seed_words,
+    )
+    from advancedvi_jl_tpu_torch.ops.cuda.trisolve_kernels import (
+        solve_right_cuda, solve_right_reference,
+    )
+
+    seed = seed_words(SEED)
+    target, q0, alg = wide_general(dev)
+    s = alg.init(SEED, q0, target)
+    for _ in range(20):
+        s, _ = alg.step(s)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(100):
+        s, _ = alg.step(s)
+    torch.cuda.synchronize()
+    general_sps = 100 / (time.perf_counter() - t0)
+    out = {}
+    specs = fullrank_specs(dev)
+    hyp = FusedHyper(lr=LR)
+    for name, (spec, _, C0) in specs.items():
+        d = spec.dim
+        vec = torch.zeros(4, d, device=dev)
+        mat = torch.stack([C0, torch.zeros_like(C0), torch.zeros_like(C0), C0])
+        args = (spec.model, spec.consts, spec.scalars, vec, mat, seed, 0, 200, N_SAMPLES, hyp)
+        k_ms = cuda_ms(lambda: fused_fullrank_run_chunk_cuda(*args), 10)
+        p_ms = cuda_ms(lambda: fused_fullrank_run_chunk_reference(*args), 1)
+        k_ms2 = cuda_ms(lambda: fused_fullrank_run_chunk_cuda(*args), 10)
+        say("m", fused_fullrank_model=name, d=d, chunk_steps=200, kernel_ms=f"{k_ms},{k_ms2}",
+            plain_ms=p_ms, fused_steps_per_s=f"{200 / (min(k_ms, k_ms2) / 1e3):.1f}")
+        out[f"fused_advi_fullrank_{name}"] = (min(k_ms, k_ms2), p_ms)
+    say("m", card=f"'{card}'", fullrank_general_steps_per_s=f"{general_sps:.1f}",
+        d=FR_D, n=FR_N)
+    n, d = FR_SHAPE
+    _, C = factor(d, dev)
+    loc = torch.zeros(d, device=dev)
+    V = torch.randn(n, d, device=dev)
+    s_ms = cuda_ms(lambda: fullrank_sample_cuda(seed, 1, loc, C, n), 200)
+    s_plain = cuda_ms(lambda: fullrank_sample_reference(seed, 1, loc, C, n), 20)
+    say("m", fullrank_sample_ms=s_ms, fullrank_sample_plain_ms=s_plain, shape=f"{n}x{d}")
+    out["fullrank_sample"] = (s_ms, s_plain)
+    for mode in ("C", "CT"):
+        t_ms = cuda_ms(lambda: solve_right_cuda(C, V, mode), 200)
+        t_plain = cuda_ms(lambda: solve_right_reference(C, V, mode), 200)
+        say("m", trisolve_mode=mode, trisolve_ms=t_ms, trisolve_plain_ms=t_plain,
+            shape=f"{n}x{d}")
+        out[f"trisolve_{mode}"] = (t_ms, t_plain)
+    return out
+
+
 def main() -> int:
     card = phase_a()
     # full float32 matmuls for every comparison and both entry points
@@ -391,6 +719,11 @@ def main() -> int:
     phase_e(dev)
     counts = main_path(dev)
     times = phase_h(dev, card)
+    fr_samp_err = phase_i(dev)
+    tri_err = phase_j(dev)
+    fr_fused_err = phase_k(dev)
+    fr_counts = fullrank_paths(dev)
+    fr_times = phase_m(dev, card)
     src = "advancedvi_jl_tpu_torch/csrc/"
     kernels = [
         {"name": "meanfield_sample", "route": "cuda", "source": src + "meanfield_sample.cu",
@@ -403,6 +736,20 @@ def main() -> int:
          "launches": counts["fused_advi_meanfield"], "max_abs_err": fused_err,
          "ms": times["fused_advi_meanfield"][0],
          "plain_ms": times["fused_advi_meanfield"][1]},
+        {"name": "fullrank_sample", "route": "cuda", "source": src + "fullrank_sample.cu",
+         "replaces": "advancedvi_jl_tpu/ops/pallas/location_scale_kernels.py:110",
+         "launches": fr_counts["fullrank_sample"], "max_abs_err": fr_samp_err,
+         "ms": fr_times["fullrank_sample"][0], "plain_ms": fr_times["fullrank_sample"][1]},
+        {"name": "trisolve", "route": "cuda", "source": src + "trisolve.cu",
+         "replaces": "advancedvi_jl_tpu/ops/pallas/trisolve_kernels.py:115",
+         "launches": fr_counts["trisolve"], "max_abs_err": tri_err,
+         "ms": fr_times["trisolve_C"][0], "plain_ms": fr_times["trisolve_C"][1]},
+        {"name": "fused_advi_fullrank", "route": "cuda",
+         "source": src + "fused_advi_fullrank.cu",
+         "replaces": "advancedvi_jl_tpu/ops/pallas/fused_advi.py:681",
+         "launches": fr_counts["fused_advi_fullrank"], "max_abs_err": fr_fused_err,
+         "ms": fr_times["fused_advi_fullrank_logreg"][0],
+         "plain_ms": fr_times["fused_advi_fullrank_logreg"][1]},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

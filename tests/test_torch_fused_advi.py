@@ -207,12 +207,13 @@ def test_fused_optimize_rows_warm_start_and_divergence(flagship):
 def test_engine_checks(flagship):
     _, tprob = flagship
     spec = logreg_spec(tprob.X, tprob.y)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        FusedADVI(spec, family="fullrank")
+    assert FusedADVI(spec, family="fullrank").family == "fullrank"
     with pytest.raises(ValueError, match="family"):
         FusedADVI(spec, family="lowrank")
     with pytest.raises(NotImplementedError, match="K4"):
         FusedADVI(spec.__class__(dim=2, consts=(), scalars=(), model="gaussian"))
+    with pytest.raises(NotImplementedError, match="K4"):  # mvnormal is full-rank only
+        FusedADVI(spec.__class__(dim=2, consts=(), scalars=(), model="mvnormal"))
     eng = FusedADVI(spec, n_samples=N_SAMPLES)
     s = _init(eng)
     with pytest.raises(ValueError, match="noise"):

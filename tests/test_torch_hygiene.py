@@ -46,7 +46,8 @@ def test_port_imports_no_jax(path):
 def test_package_exports_the_slice():
     for name in ("optimize", "KLMinRepGradDescent", "MeanFieldGaussian", "STL",
                  "ClipScale", "PolynomialAveraging", "adam", "dowg",
-                 "FusedLogRegADVI", "DivergenceError"):
+                 "FusedLogRegADVI", "DivergenceError", "FullRankGaussian",
+                 "FullRankLocationScale", "mvnormal_spec", "FusedADVI"):
         assert hasattr(advancedvi_jl_tpu_torch, name), name
     assert not _build._libs, "importing the package must not build or load kernels"
 
@@ -60,6 +61,30 @@ def test_kernel_sources_and_build_flags():
     assert path.parent == _build.BUILD_DIR and path.name.endswith(".so")
     with pytest.raises(ValueError, match="unknown kernel"):
         _build.build("nope")
+
+
+def test_library_name_hashes_every_shared_header(monkeypatch, tmp_path):
+    """Editing any csrc/*.cuh header (not only philox.cuh) must change the
+    library's name, so a stale build is never loaded."""
+    for name in ("k.cu", "philox.cuh", "shared.cuh"):
+        (tmp_path / name).write_text(f"// {name}\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    before = _build.library_path("k")
+    assert _build.library_path("k") == before
+    (tmp_path / "shared.cuh").write_text("// edited\n")
+    edited = _build.library_path("k")
+    assert edited != before
+    (tmp_path / "new.cuh").write_text("// a new header\n")
+    assert _build.library_path("k") != edited
+    (tmp_path / "k.cu").write_text("// edited kernel\n")
+    assert _build.library_path("k") not in (before, edited)
+
+
+def test_every_kernel_includes_only_known_headers():
+    for name in _build.KERNELS:
+        for line in (_build.CSRC / f"{name}.cu").read_text().splitlines():
+            if line.startswith('#include "'):
+                assert (_build.CSRC / line.split('"')[1]).is_file(), line
 
 
 def test_missing_nvcc_raises(monkeypatch, tmp_path):
