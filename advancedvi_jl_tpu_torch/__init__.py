@@ -3,10 +3,15 @@
 The JAX package ``advancedvi_jl_tpu`` is the reference; this package mirrors
 its module tree and public names for the slices ported so far: mean-field
 and full-rank Gaussian ADVI (``KLMinRepGradDescent`` with the closed-form,
-Monte-Carlo or STL entropy, Adam or DoWG, ClipScale, polynomial averaging)
-driven by ``optimize``, and the whole-loop fused engine (``FusedADVI``,
-``FusedLogRegADVI``) on hierarchical logistic regression and, full-rank, on
-dense Gaussian targets (``mvnormal_spec``).  Families and states are
+Monte-Carlo or STL entropy), proximal ADVI (``KLMinRepGradProxDescent``
+with a zero-gradient entropy and the entropy's proximal step) and BBVI
+(``KLMinScoreGradDescent``, the VarGrad score gradient), with Adam,
+descent, DoWG, DoG or COCOB, ClipScale and polynomial averaging, driven by
+``optimize``; and the whole-loop fused engines (``FusedADVI``,
+``FusedLogRegADVI``, ``FusedProxADVI``, ``FusedScoreGradVI``) on
+hierarchical logistic regression, diagonal Gaussian targets
+(``gaussian_spec``, ``normallognormal_spec``) and, full-rank, dense
+Gaussian targets (``mvnormal_spec``).  Families and states are
 dataclasses of tensors; random draws are step-indexed Philox normals keyed
 by two uint32 seed words.  On CUDA tensors the draws, the triangular
 solves and the fused loops run in hand-written Hopper kernels (csrc/), built
@@ -34,19 +39,40 @@ from .families.location_scale import (
     MeanFieldGaussian,
     MeanFieldLocationScale,
 )
-from .objectives.entropy import CLOSED_FORM, MONTE_CARLO, STL, estimate_entropy
+from .objectives.entropy import (
+    ALL_ENTROPY_ESTIMATORS,
+    CLOSED_FORM,
+    CLOSED_FORM_ZERO_GRAD,
+    MONTE_CARLO,
+    STL,
+    STL_ZERO_GRAD,
+    ZERO_GRAD_ESTIMATORS,
+    estimate_entropy,
+)
 from .objectives.repgradelbo import RepGradELBO
+from .objectives.scoregradelbo import ScoreGradELBO
 from .optim.averaging import NoAveraging, PolynomialAveraging
-from .optim.operators import ClipScale, IdentityOperator
-from .optim.rules import adam, dowg
-from .algorithms.paramspace import ADVI, KLMinRepGradDescent, ParamSpaceSGD
+from .optim.operators import ClipScale, IdentityOperator, ProximalLocationScaleEntropy
+from .optim.rules import adam, cocob, descent, dog, dowg, stepsize_from_opt_state
+from .algorithms.paramspace import (
+    ADVI,
+    BBVI,
+    KLMinRepGradDescent,
+    KLMinRepGradProxDescent,
+    KLMinScoreGradDescent,
+    ParamSpaceSGD,
+)
 from .optimize import DivergenceError, optimize
-from .ops.cuda.fused_advi import (  # whole-loop fused engine (CUDA)
+from .ops.cuda.fused_advi import (  # whole-loop fused engines (CUDA)
     FusedADVI,
     FusedLogRegADVI,
     FusedModelSpec,
+    FusedProxADVI,
+    FusedScoreGradVI,
+    gaussian_spec,
     logreg_spec,
     mvnormal_spec,
+    normallognormal_spec,
 )
 
 __version__ = "0.5.0"

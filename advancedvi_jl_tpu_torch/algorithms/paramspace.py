@@ -1,4 +1,5 @@
-"""Parameter-space SGD: ADVI (port of algorithms/paramspace.py).
+"""Parameter-space SGD: ADVI, proximal ADVI and BBVI (port of
+algorithms/paramspace.py).
 
 One ``step`` is gradient estimate -> optimizer update -> operator ->
 averaging, run eagerly.  The iteration counter and the Philox seed words are
@@ -18,11 +19,18 @@ import torch
 
 from ..core.problem import ORDER_VALUE_ONLY, order_of
 from ..families.location_scale import is_location_scale
-from ..objectives.entropy import CLOSED_FORM, MONTE_CARLO, STL
+from ..objectives.entropy import (
+    CLOSED_FORM,
+    CLOSED_FORM_ZERO_GRAD,
+    MONTE_CARLO,
+    STL,
+    ZERO_GRAD_ESTIMATORS,
+)
 from ..objectives.repgradelbo import RepGradELBO
+from ..objectives.scoregradelbo import ScoreGradELBO
 from ..ops.cuda.location_scale_kernels import PhiloxKey, SeedLike, seed_words
 from ..optim.averaging import PolynomialAveraging
-from ..optim.operators import IdentityOperator
+from ..optim.operators import IdentityOperator, ProximalLocationScaleEntropy
 from ..optim.rules import apply_updates, dowg
 
 
@@ -53,11 +61,12 @@ class ParamSpaceSGD:
     def init(self, seed: SeedLike, q_init, prob) -> ParamSpaceSGDState:
         """``seed``: an int, a ``torch.Generator`` or two seed words; it is
         turned into the two uint32 Philox seed words here."""
-        if order_of(prob) <= ORDER_VALUE_ONLY:
+        if isinstance(self.objective, RepGradELBO) and order_of(prob) <= ORDER_VALUE_ONLY:
             raise ValueError(
                 "Target has capability order 0 (value-only, not "
                 "differentiable). Reparameterization-gradient objectives "
-                "require a differentiable target."
+                "require a differentiable target; use KLMinScoreGradDescent "
+                "instead."
             )
         if is_location_scale(q_init) and isinstance(self.operator, IdentityOperator):
             warnings.warn(
@@ -134,7 +143,8 @@ def KLMinRepGradDescent(
     if entropy not in (CLOSED_FORM, STL, MONTE_CARLO):
         raise ValueError(
             "KLMinRepGradDescent supports closed_form / stl / monte_carlo "
-            f"entropy, got {entropy!r}"
+            f"entropy, got {entropy!r}; use KLMinRepGradProxDescent for "
+            "zero-gradient variants."
         )
     return ParamSpaceSGD(
         objective=RepGradELBO(n_samples=n_samples, entropy=entropy),
@@ -145,3 +155,47 @@ def KLMinRepGradDescent(
 
 
 ADVI = KLMinRepGradDescent
+
+
+def KLMinRepGradProxDescent(
+    entropy_zerograd: str = CLOSED_FORM_ZERO_GRAD,
+    optimizer=None,
+    n_samples: int = 1,
+    averager=None,
+) -> ParamSpaceSGD:
+    """Proximal ADVI: the entropy enters through the closed-form proximal
+    step, so the entropy estimator's gradient must have mean zero and the
+    optimizer's step size must be readable from its state (descent, dog,
+    dowg) (reference constructors.jl:122-157; defaults DoWG + polynomial
+    averaging)."""
+    if entropy_zerograd not in ZERO_GRAD_ESTIMATORS:
+        raise ValueError(
+            "KLMinRepGradProxDescent requires a zero-gradient entropy "
+            f"estimator {ZERO_GRAD_ESTIMATORS}, got {entropy_zerograd!r}"
+        )
+    return ParamSpaceSGD(
+        objective=RepGradELBO(n_samples=n_samples, entropy=entropy_zerograd),
+        optimizer=optimizer if optimizer is not None else dowg(),
+        averager=averager if averager is not None else PolynomialAveraging(),
+        operator=ProximalLocationScaleEntropy(),
+    )
+
+
+def KLMinScoreGradDescent(
+    optimizer=None,
+    n_samples: int = 2,
+    averager=None,
+    operator=None,
+) -> ParamSpaceSGD:
+    """BBVI: SGD on the score-function (VarGrad) gradient (reference
+    constructors.jl:199-233; defaults DoWG + polynomial averaging +
+    IdentityOperator).  Takes value-only targets."""
+    return ParamSpaceSGD(
+        objective=ScoreGradELBO(n_samples=n_samples),
+        optimizer=optimizer if optimizer is not None else dowg(),
+        averager=averager if averager is not None else PolynomialAveraging(),
+        operator=operator if operator is not None else IdentityOperator(),
+    )
+
+
+BBVI = KLMinScoreGradDescent

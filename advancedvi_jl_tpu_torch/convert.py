@@ -23,6 +23,7 @@ from .families.location_scale import (
 )
 from .models.logreg import LogReg
 from .models.normal import NormalTarget
+from .models.normallognormal import NormalLogNormal
 from .ops.cuda.fused_advi import FR_MAT_FIELDS, STATE_FIELDS, FusedADVIState
 
 D_PAD = 128  # JAX fused engine: lane padding unit
@@ -75,22 +76,39 @@ def normal_target_from_numpy(mu, scale_tril, inv_scale_tril=None,
     )
 
 
+def normallognormal_from_numpy(mu_y, sigma_y, mu_x, sigma_x,
+                               device=None) -> NormalLogNormal:
+    """The port's NormalLogNormal from a JAX one's ``mu_y, sigma_y, mu_x,
+    sigma_x``."""
+    return NormalLogNormal(mu_y=to_tensor(mu_y, device), sigma_y=to_tensor(sigma_y, device),
+                           mu_x=to_tensor(mu_x, device), sigma_x=to_tensor(sigma_x, device))
+
+
 def fused_state_from_numpy(jax_state: Any, d: int, device=None) -> FusedADVIState:
     """The port's FusedADVIState from a JAX ``FusedADVIState`` (any object
     with its field names), stripping the padding: the first row and the
     first ``d`` lanes of each ``(1, d_pad)`` field, and the leading
     ``(d, d)`` block of each ``(d_pad, d_pad)`` full-rank scale field (its
-    padded diagonal, 1.0 in the JAX engine, is dropped)."""
+    padded diagonal, 1.0 in the JAX engine, is dropped).  COCOB's ``ext``
+    rows come across the same way (three location-shaped, then three
+    scale-shaped); DoWG's and DoG's [v, r] sit in lanes 0 and 1 of
+    ``v_mu``, so they need d >= 2, as the port's engine does."""
     full_rank = np.asarray(jax_state.sig).shape[0] > 1
 
-    def strip(f):
-        a = np.asarray(getattr(jax_state, f))
-        return a[:d, :d] if full_rank and f in FR_MAT_FIELDS else a[0, :d]
+    def strip(a, scale_shaped):
+        a = np.asarray(a)
+        return a[:d, :d] if full_rank and scale_shaped else a[0, :d]
 
-    rows = {f: to_tensor(strip(f), device) for f in STATE_FIELDS}
+    rows = {f: to_tensor(strip(getattr(jax_state, f), f in FR_MAT_FIELDS), device)
+            for f in STATE_FIELDS}
+    if d < 2 and np.any(np.asarray(jax_state.v_mu)[0, 1:2] != 0.0):
+        raise ValueError("a DoWG/DoG state keeps r in lane 1 of v_mu: it needs d >= 2")
+    ext = getattr(jax_state, "ext", None)
+    if ext is not None:
+        ext = tuple(to_tensor(strip(a, k >= 3), device) for k, a in enumerate(ext))
     return FusedADVIState(
         **rows, iteration=int(np.asarray(jax_state.iteration)),
-        elbo=to_tensor(jax_state.elbo, device),
+        elbo=to_tensor(jax_state.elbo, device), ext=ext,
     )
 
 

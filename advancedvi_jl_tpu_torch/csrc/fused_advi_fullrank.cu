@@ -1,57 +1,69 @@
-// K3 (full-rank branch) with K4's dense-Gaussian body: the whole ADVI loop in
-// one launch, full-rank Gaussian family x STL x Adam x ClipScale (diagonal)
-// x polynomial averaging, on hierarchical logistic regression or a dense
-// Gaussian target N(m, P^{-1}).
+// K3 (full-rank branches) with K4's dense- and diagonal-Gaussian bodies: the
+// whole optimisation loop in one launch, full-rank Gaussian family x {Adam,
+// descent, DoWG, DoG, COCOB} x {STL, closed-form zero-gradient, STL
+// zero-gradient entropy} x {ClipScale, entropy prox, identity} on the
+// diagonal x polynomial averaging, on hierarchical logistic regression, a
+// dense Gaussian target N(m, P^{-1}) or a diagonal Gaussian.
 //
 // Replaces ops/pallas/fused_advi.py::_run_chunk (both pallas_calls, plain and
-// traced grid) in the FULLRANK x REPGRAD x STL x ADAM x CLIP branch of
-// _kernel (fused_advi.py:441-447, 480-485, 518-534, 544-553, 609-615,
-// 631-634), with _backsub_ct / _backsub_ct_blocked as the whitening and
-// _logreg_step_factory or _mvnormal_step_factory as the model.  The plain
-// PyTorch version is fused_fullrank_run_chunk_reference in
+// traced grid) in the FULLRANK x REPGRAD branches of _kernel
+// (fused_advi.py:356-669; VarGrad is mean-field only, as there), with
+// _backsub_ct / _backsub_ct_blocked as the whitening, _logreg_step_factory,
+// _mvnormal_step_factory or _gaussian_step_factory as the model, and
+// _adam_candidate, _dowg_step, _dog_step and _cocob_update as the rules.
+// The plain PyTorch version is fused_fullrank_run_chunk_reference in
 // ops/cuda/fused_advi.py.
 //
 // What bounds it on an H100: latency, as in the mean-field kernel: steps are
 // sequential.  A step at d = 62 (logreg, n = 10) is the mean-field step's
-// 254k multiply-adds plus a 62-long back-substitution per sample row and an
-// Adam pass over 1,953 lower-triangle entries.  At d = 512 (mvnormal) it is
+// 254k multiply-adds plus a 62-long back-substitution per sample row and a
+// rule pass over 1,953 lower-triangle entries.  At d = 512 (mvnormal) it is
 // 2.6M multiply-adds for the gradient (P is 1 MB), 1.3M for z = m + u C^T,
-// a 512-long substitution per row, and an Adam pass that reads and writes
-// four 131k-entry lower triangles (sig, its two moments, its average):
-// about 5 MB of L2 traffic a step through one SM, whose 16 warps cannot
-// hide the L2 latency, plus 16 panels of the substitution chain.  Measured
-// on an H100, the wide step is bound by that latency, not by FMAs or bytes
-// (about 0.7 ms a step; the d = 62 step about 35 us).
+// a 512-long substitution per row, and a rule pass that reads and writes
+// four 131k-entry lower triangles (seven with COCOB): megabytes of L2
+// traffic a step through one SM, whose 16 warps cannot hide the L2 latency.
 //
 // Design: one thread block runs the whole chunk, a loop over steps inside
 // the block.  The draws u, the samples z, grad log pi and the whitened
 // draws w (n x d each), the location rows and, for logreg, X, y and the
-// logits live in dynamic shared memory.  The four (d, d) scale matrices
-// live in shared memory when everything fits in one block's 227 KB (d = 62:
-// 61.5 KB of them), and otherwise in the output buffer in device memory,
-// where they stay resident in the 50 MB L2 (d = 512: 4 MB); one code path
-// serves both through a generic pointer.  A cooperative grid over all SMs
-// would spread the wide step's Adam pass and products, at the price of four
-// grid-wide barriers a step; it is left for a later change, with this
-// kernel's times as its baseline.  Each step:
+// logits live in dynamic shared memory.  The k (d, d) scale matrices (4, or
+// 7 with COCOB's G, reward and theta) live in shared memory when everything
+// fits in one block's 227 KB (d = 62: 61.5 KB, or 107.6 KB with COCOB),
+// and otherwise in the output buffer in device memory, where they stay
+// resident in the 50 MB L2 (d = 512: 4 MB, or 7 MB); one code path serves
+// both through a generic pointer.  The branch is a set of runtime codes
+// (avi::Branch), uniform over the launch, and one compiled kernel serves
+// every branch: an instance with the flagship branch's codes constant, as
+// the mean-field kernel has, spilled and was slower.  Each step:
 //
 //   A  draw u (Philox keyed by the global iteration, or injected noise);
 //      z = m + u C^T over the lower triangle (one warp per row of C, all
 //      sample rows at once, so C is read once and coalesced); |u|^2 per
 //      row and log det C = sum log C[j, j];
-//   B  the model: logreg (fused_common.cuh) or the dense Gaussian,
-//      grad = -(z - m) P (one thread per column of P, all sample rows at
-//      once) and log pi = (z - m) . grad / 2 + lognorm;
+//   B  the model: logreg (fused_common.cuh), the dense Gaussian, grad =
+//      -(z - m) P (one thread per column of P, all sample rows at once) and
+//      log pi = (z - m) . grad / 2 + lognorm, or the diagonal Gaussian;
 //   C  whitening w = C^{-T} u: the rows of U C^{-1}, solved by the
 //      triangular solve's panel substitution (trisolve_rows.cuh, K8's mode
-//      C), one warp per sample row on each 32-column panel;
-//   D  g_z = -(1/n)(grad + w); dmu = sum g_z; for each lower entry (a, b)
-//      (one warp per row, coalesced) dC = sum_i g_z[i, a] u[i, b] formed
-//      where it is used, Adam, the clip of the diagonal and the averaging
-//      in the same pass: no d^2
-//      temporaries, and the strict upper triangle is never touched (its
-//      gradient is zero, so its moments stay zero, as in the reference);
-//   E  thread 0: the STL ELBO estimate at the pre-update parameters.
+//      C), one warp per sample row on each 32-column panel.  The closed-form
+//      zero-gradient entropy has no whitening term and skips this phase;
+//   D  g_z = -(1/n)(grad + w) (without w for the closed-form zero-gradient
+//      entropy); dmu = sum g_z; for each lower entry (a, b) (one warp per
+//      row, coalesced) dC = sum_i g_z[i, a] u[i, b], + 1 / C[a, a] on the
+//      diagonal for the STL zero-gradient entropy, formed where it is used;
+//      then the rule, the operator on the diagonal (ClipScale, or the prox
+//      on the post-update diagonal with the step's eta) and the averaging
+//      in the same pass: no d^2 temporaries, and the strict upper triangle
+//      is never touched (its gradient is zero, so it stays as it came, as in
+//      the reference).  DoWG and DoG need |g|^2 and |x - x0|^2 over every
+//      entry before any entry moves: a first pass forms dC for the sums
+//      only, a fixed-order block reduction gives thread 0 eta and [v, r],
+//      and the update pass forms dC again.  Forming dC twice costs n
+//      multiply-adds per lower entry (19,530 at d = 62) and keeps the pass
+//      free of a d^2 store; storing dC in the unused v_sig would cost as
+//      many shared-memory writes and reads, and a zeroing pass;
+//   E  thread 0: the ELBO estimate at the pre-update parameters (STL value,
+//      or the closed-form entropy for the closed-form zero-gradient one).
 //
 // Every sum runs in a fixed order, so run_chunk(a + b) equals run_chunk(a)
 // then run_chunk(b) bit for bit, and one kernel serves the traced and
@@ -65,20 +77,19 @@ namespace {
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
 constexpr size_t kSmemLimit = 232448;  // dynamic shared memory of one block
-constexpr int kLogReg = 0;  // model codes: 0 logreg, 1 mvnormal
 constexpr int kRowChunk = 16;  // sample rows a thread accumulates at once
 using avi::kLog2Pi;
 
 // Offsets (in floats) of the shared-memory arrays.
 struct Layout {
-  int X, y, l, u, z, g, w, vec, row, tri, mat, total;
+  int X, y, l, u, z, g, w, vec, dm, row, red, tri, mat, total;
 };
 
 __host__ __device__ inline Layout make_layout(int model, int n_data, int db, int n,
-                                              int d, bool mat_in_smem) {
+                                              int d, int k, bool mat_in_smem) {
   Layout L;
   int o = 0;
-  const bool lr = model == kLogReg;
+  const bool lr = model == avi::kLogReg;
   L.X = o;   o += lr ? n_data * db : 0;  // design matrix (n_data, db)
   L.y = o;   o += lr ? n_data : 0;       // labels
   L.l = o;   o += lr ? n * n_data : 0;   // logits, then likelihood weights
@@ -86,32 +97,46 @@ __host__ __device__ inline Layout make_layout(int model, int n_data, int db, int
   L.z = o;   o += n * d;                 // samples
   L.g = o;   o += n * d;                 // grad log pi, then g_z
   L.w = o;   o += n * d;                 // (z - m) for mvnormal, then C^{-T} u
-  L.vec = o; o += 4 * d;                 // mu m_mu v_mu avg_mu
+  L.vec = o; o += k * d;                 // mu m_mu v_mu avg_mu [G R theta of mu]
+  L.dm = o;  o += d;                     // dmu of the step
   L.row = o; o += 5 * n + 1;             // beta_sq t inv_sig2 logpi u2, logdet
+  L.red = o; o += 2 * kWarps + 1;        // block reduction, then eta
   L.tri = o; o += avi::kTriScratch;      // the whitening's panel scratch
-  L.mat = o; o += mat_in_smem ? 4 * d * d : 0;  // sig m_sig v_sig avg_sig
+  L.mat = o; o += mat_in_smem ? k * d * d : 0;  // sig m_sig v_sig avg_sig [G R theta]
   L.total = o;
   return L;
 }
 
-inline bool mat_fits(int model, int n_data, int db, int n, int d) {
+inline bool mat_fits(int model, int n_data, int db, int n, int d, int k) {
   return sizeof(float) * static_cast<size_t>(
-                             make_layout(model, n_data, db, n, d, true).total) <=
+                             make_layout(model, n_data, db, n, d, k, true).total) <=
          kSmemLimit;
 }
 
-// one block per SM by nature: let it have up to 128 registers a thread
-__global__ void __launch_bounds__(kThreads, 1) fused_advi_fullrank_kernel(
+// dC of lower entry (a, b): sum_i g_z[i, a] u[i, b] (the same arithmetic in
+// both passes of DoWG and DoG).
+__device__ __forceinline__ float lower_grad(const float* gs, const float* us, int n, int d,
+                                            int a, int b) {
+  float dc = 0.0f;
+  for (int i = 0; i < n; ++i) dc = fmaf(gs[i * d + a], us[i * d + b], dc);
+  return dc;
+}
+
+// One block per SM by nature.  Capped at 88 registers a thread: left free
+// to take the 128 a 512-thread block allows, ptxas took them all and the
+// default branch ran 2-3% slower than at 88, the lowest cap without
+// spills (H100 measurements at d = 62 and d = 512).
+__global__ void __maxnreg__(88) fused_advi_fullrank_kernel(
     int model, const float* __restrict__ c0, const float* __restrict__ c1,
     int n_data, int db, float s0, float s1, const float* __restrict__ vec_in,
     const float* __restrict__ mat_in, float* __restrict__ vec_out, float* mat_out,
     float* __restrict__ elbo_out, float* __restrict__ trace,
-    const float* __restrict__ noise, int n, int d, int steps, int log_every,
-    uint32_t k0, uint32_t k1, unsigned long long it0, avi::Hyper h,
+    const float* __restrict__ noise, int n, int d, int k, int steps, int log_every,
+    uint32_t k0, uint32_t k1, unsigned long long it0, avi::Hyper h, avi::Branch br,
     bool mat_in_smem) {
   extern __shared__ float smem[];
-  const Layout L = make_layout(model, n_data, db, n, d, mat_in_smem);
-  const bool logreg = model == kLogReg;
+  const Layout L = make_layout(model, n_data, db, n, d, k, mat_in_smem);
+  const bool logreg = model == avi::kLogReg;
   float* us = smem + L.u;
   float* zs = smem + L.z;
   float* gs = smem + L.g;
@@ -120,20 +145,25 @@ __global__ void __launch_bounds__(kThreads, 1) fused_advi_fullrank_kernel(
   float* m_mu = mu + d;
   float* v_mu = mu + 2 * d;
   float* a_mu = mu + 3 * d;
+  float* ext_mu = mu + 4 * d;  // COCOB: G, reward, theta of mu
+  float* dm = smem + L.dm;
   float* beta_sq = smem + L.row;
   float* tcol = beta_sq + n;
   float* inv_sig2 = tcol + n;
   float* logpi = inv_sig2 + n;
   float* u2 = logpi + n;
   float* logdet = u2 + n;
+  float* red = smem + L.red;
+  float* eta_s = red + 2 * kWarps;
   const size_t dd = static_cast<size_t>(d) * d;
   float* sig = mat_in_smem ? smem + L.mat : mat_out;  // smem or device memory
   float* m_sig = sig + dd;
   float* v_sig = sig + 2 * dd;
   float* a_sig = sig + 3 * dd;
+  float* ext_sig = sig + 4 * dd;  // COCOB: G, reward, theta of the scale
   const avi::LogReg lrm{smem + L.X, smem + L.y, smem + L.l, n_data, db, s0, s1};
   const float* mean = c0;  // mvnormal: mean (d,) and precision (d, d)
-  const float* prec = c1;
+  const float* prec = c1;  // gaussian: mean (d,) and inverse variances (d,)
   const float lognorm = s0;
 
   const int tid = threadIdx.x;
@@ -143,14 +173,19 @@ __global__ void __launch_bounds__(kThreads, 1) fused_advi_fullrank_kernel(
     for (int i = tid; i < n_data * db; i += kThreads) smem[L.X + i] = c0[i];
     for (int i = tid; i < n_data; i += kThreads) smem[L.y + i] = c1[i];
   }
-  for (int i = tid; i < 4 * d; i += kThreads) mu[i] = vec_in[i];
-  for (size_t i = tid; i < 4 * dd; i += kThreads) sig[i] = mat_in[i];
+  for (int i = tid; i < k * d; i += kThreads) mu[i] = vec_in[i];
+  for (size_t i = tid; i < k * dd; i += kThreads) sig[i] = mat_in[i];
   __syncthreads();
 
+  const bool cf_zero = br.entropy == avi::kClosedFormZero;
+  const bool stl_zero = br.entropy == avi::kSTLZero;
+  const bool dist_rule = br.algo == avi::kDoWG || br.algo == avi::kDoG;
+  const bool cocob = br.algo == avi::kCOCOB;
   const float inv_n = 1.0f / static_cast<float>(n);
   const float ln_b1 = logf(h.b1);
   const float ln_b2 = logf(h.b2);
   const float ent_const = 0.5f * static_cast<float>(d) * kLog2Pi;
+  const float ent_closed = 0.5f * static_cast<float>(d) * (1.0f + kLog2Pi);
   const int groups = (d + 3) / 4;
   const int nd = n * d;
   float elbo = 0.0f;
@@ -222,6 +257,8 @@ __global__ void __launch_bounds__(kThreads, 1) fused_advi_fullrank_kernel(
       avi::logreg_logpi(lrm, n, beta_sq, tcol, inv_sig2, logpi, warp, kWarps, lane);
       __syncthreads();
       avi::logreg_grad(lrm, zs, n, d, beta_sq, tcol, inv_sig2, gs, tid, kThreads);
+    } else if (model == avi::kGaussian) {
+      avi::gaussian_body(mean, prec, lognorm, zs, n, d, logpi, gs, warp, kWarps, lane);
     } else {
       for (int idx = tid; idx < nd; idx += kThreads) ws[idx] = zs[idx] - mean[idx % d];
       __syncthreads();
@@ -255,31 +292,83 @@ __global__ void __launch_bounds__(kThreads, 1) fused_advi_fullrank_kernel(
     __syncthreads();
 
     // C: whitening w = C^{-T} u, in row form W = U C^{-1} (K8's mode C)
-    for (int idx = tid; idx < nd; idx += kThreads) ws[idx] = us[idx];
-    __syncthreads();
-    avi::solve_right_rows<false>(sig, d, ws, n, smem + L.tri, nullptr);
+    if (!cf_zero) {
+      for (int idx = tid; idx < nd; idx += kThreads) ws[idx] = us[idx];
+      __syncthreads();
+      avi::solve_right_rows<false>(sig, d, ws, n, smem + L.tri, nullptr);
+    }
 
-    // D: STL gradient, Adam, ClipScale on the diagonal, averaging
-    for (int idx = tid; idx < nd; idx += kThreads) gs[idx] = -inv_n * (gs[idx] + ws[idx]);
+    // D: g_z, dmu, then (DoWG, DoG) the global sums before any entry moves
+    for (int idx = tid; idx < nd; idx += kThreads)
+      gs[idx] = -inv_n * (cf_zero ? gs[idx] : gs[idx] + ws[idx]);
     __syncthreads();
+    float part_g = 0.0f, part_x = 0.0f;
+    for (int a = tid; a < d; a += kThreads) {
+      float dmu = 0.0f;
+      for (int i = 0; i < n; ++i) dmu += gs[i * d + a];
+      dm[a] = dmu;
+      if (dist_rule) {
+        const float xm = mu[a] - m_mu[a];
+        part_g += dmu * dmu;
+        part_x += xm * xm;
+      }
+    }
+    if (dist_rule) {
+      for (int a = warp; a < d; a += kWarps)
+        for (int b = lane; b <= a; b += 32) {
+          const size_t e = static_cast<size_t>(a) * d + b;
+          float dc = lower_grad(gs, us, n, d, a, b);
+          if (stl_zero && a == b) dc += 1.0f / sig[e];
+          const float xs = sig[e] - m_sig[e];
+          part_g += dc * dc;
+          part_x += xs * xs;
+        }
+      const float2 tot = avi::block_sum2(part_g, part_x, red, kWarps);
+      if (tid == 0) *eta_s = avi::distance_rule_step(br.algo, tot.x, tot.y, v_mu[0], v_mu[1]);
+      __syncthreads();
+    }  // the other rules need no barrier: a thread reads back its own dm[a]
+
+    // D: the rule, the operator on the diagonal and the averaging
     const float c = static_cast<float>(it) + 1.0f;
     const float bc1 = 1.0f - expf(c * ln_b1);
     const float bc2 = 1.0f - expf(c * ln_b2);
     const float w = (h.avg_eta + 1.0f) / (c + h.avg_eta);
+    const float eta = br.algo == avi::kDescent ? h.lr : (dist_rule ? *eta_s : 0.0f);
     for (int a = tid; a < d; a += kThreads) {
-      float dmu = 0.0f;
-      for (int i = 0; i < n; ++i) dmu += gs[i * d + a];
-      avi::adam_step(mu[a], m_mu[a], v_mu[a], dmu, h, bc1, bc2);
+      float G = 0.0f, R = 0.0f, T = 0.0f;
+      if (cocob) {
+        G = ext_mu[a];
+        R = ext_mu[d + a];
+        T = ext_mu[2 * d + a];
+      }
+      avi::rule_step(br, h, eta, bc1, bc2, mu[a], m_mu[a], v_mu[a], G, R, T, dm[a]);
+      if (cocob) {
+        ext_mu[a] = G;
+        ext_mu[d + a] = R;
+        ext_mu[2 * d + a] = T;
+      }
+      if (dist_rule && a >= 2) v_mu[a] = 0.0f;  // v_mu holds [v, r, 0, ...]
       a_mu[a] = (1.0f - w) * a_mu[a] + w * mu[a];
     }
     for (int a = warp; a < d; a += kWarps) {  // the lower triangle, row by row
       for (int b = lane; b <= a; b += 32) {
         const size_t e = static_cast<size_t>(a) * d + b;
-        float dc = 0.0f;
-        for (int i = 0; i < n; ++i) dc = fmaf(gs[i * d + a], us[i * d + b], dc);
+        float dc = lower_grad(gs, us, n, d, a, b);
+        if (stl_zero && a == b) dc += 1.0f / sig[e];  // the pre-update diagonal
         float x = sig[e], m = m_sig[e], v = v_sig[e];
-        avi::adam_step(x, m, v, dc, h, bc1, bc2);
-        if (a == b) x = fmaxf(x, h.clip_eps);
+        float G = 0.0f, R = 0.0f, T = 0.0f;
+        if (cocob) {
+          G = ext_sig[e];
+          R = ext_sig[dd + e];
+          T = ext_sig[2 * dd + e];
+        }
+        avi::rule_step(br, h, eta, bc1, bc2, x, m, v, G, R, T, dc);
+        if (cocob) {
+          ext_sig[e] = G;
+          ext_sig[dd + e] = R;
+          ext_sig[2 * dd + e] = T;
+        }
+        if (a == b) x = avi::scale_operator(br.op, x, eta, h);
         sig[e] = x;
         m_sig[e] = m;
         v_sig[e] = v;
@@ -287,53 +376,64 @@ __global__ void __launch_bounds__(kThreads, 1) fused_advi_fullrank_kernel(
       }
     }
 
-    // E: the step's ELBO estimate, energy + STL entropy value
+    // E: the step's ELBO estimate, energy + entropy value
     if (tid == 0) {
       float energy = 0.0f, uu = 0.0f;
       for (int i = 0; i < n; ++i) {
         energy += logpi[i];
         uu += u2[i];
       }
-      elbo = inv_n * energy + (*logdet + inv_n * (0.5f * uu) + ent_const);
+      elbo = inv_n * energy +
+             (cf_zero ? *logdet + ent_closed : *logdet + inv_n * (0.5f * uu) + ent_const);
       if (log_every > 0 && (s + 1) % log_every == 0) trace[(s + 1) / log_every - 1] = elbo;
     }
     __syncthreads();
   }
 
-  for (int i = tid; i < 4 * d; i += kThreads) vec_out[i] = mu[i];
+  for (int i = tid; i < k * d; i += kThreads) vec_out[i] = mu[i];
   if (mat_in_smem)
-    for (size_t i = tid; i < 4 * dd; i += kThreads) mat_out[i] = sig[i];
+    for (size_t i = tid; i < k * dd; i += kThreads) mat_out[i] = sig[i];
   if (tid == 0) *elbo_out = elbo;
 }
 
 }  // namespace
 
-// The dynamic shared memory a launch uses: with the four scale matrices in
-// shared memory when they fit, without them otherwise.
+// The dynamic shared memory a launch uses: with the k scale matrices in
+// shared memory when they fit, without them otherwise; k is 4, or 7 with
+// COCOB.
 extern "C" size_t fused_advi_fullrank_smem_bytes(int model, int n_data, int db, int n,
-                                                 int d) {
-  const bool fits = mat_fits(model, n_data, db, n, d);
+                                                 int d, int k) {
+  const bool fits = mat_fits(model, n_data, db, n, d, k);
   return sizeof(float) *
-         static_cast<size_t>(make_layout(model, n_data, db, n, d, fits).total);
+         static_cast<size_t>(make_layout(model, n_data, db, n, d, k, fits).total);
 }
 
 // model 0: logreg, c0 = X (n_data, db), c1 = y (n_data,), s0 = likeadj,
 // s1 = prior_scale, d = db + 1; model 1: mvnormal, c0 = mean (d,), c1 =
-// precision (d, d), s0 = lognorm.  vec_in/out: (4, d) float32 rows mu m_mu
-// v_mu avg_mu; mat_in/out: (4, d, d) sig m_sig v_sig avg_sig (only lower
-// triangles are updated; the upper ones are copied through).  elbo_out: one
-// float; trace: (steps / log_every,) or null when log_every == 0; noise:
-// (steps, n, d) or null for in-kernel Philox.  Returns cudaGetLastError()
-// after the launch (0 on success).
+// precision (d, d), s0 = lognorm; model 2: diagonal Gaussian, c0 = mean
+// (d,), c1 = inverse variances (d,), s0 = lognorm.  vec_in/out: (k, d)
+// float32 rows mu m_mu v_mu avg_mu; mat_in/out: (k, d, d) sig m_sig v_sig
+// avg_sig; with COCOB (k = 7) each is followed by its G, reward and theta
+// (only lower triangles are updated; the upper ones are copied through).
+// elbo_out: one float; trace: (steps / log_every,) or null when
+// log_every == 0; noise: (steps, n, d) or null for in-kernel Philox.  algo,
+// entropy, grad_est, op: the avi::Branch codes (grad_est must be the
+// reparameterization gradient).  Returns cudaGetLastError() after the
+// launch (0 on success), or cudaErrorInvalidValue for a launch the kernel
+// does not take.
 extern "C" int fused_advi_fullrank(
     int model, const float* c0, const float* c1, int n_data, int db, float s0,
     float s1, const float* vec_in, const float* mat_in, float* vec_out,
     float* mat_out, float* elbo_out, float* trace, const float* noise, int n, int d,
     int steps, int log_every, uint32_t seed0, uint32_t seed1, unsigned long long it0,
-    float lr, float b1, float b2, float eps, float avg_eta, float clip_eps,
-    cudaStream_t stream) {
-  const bool fits = mat_fits(model, n_data, db, n, d);
-  const size_t smem = fused_advi_fullrank_smem_bytes(model, n_data, db, n, d);
+    float lr, float b1, float b2, float eps, float avg_eta, float clip_eps, int algo,
+    int entropy, int grad_est, int op, float cocob_alpha, cudaStream_t stream) {
+  const int k = algo == avi::kCOCOB ? 7 : 4;
+  const bool dist_rule = algo == avi::kDoWG || algo == avi::kDoG;
+  if (grad_est != avi::kRepGrad || (dist_rule && d < 2))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool fits = mat_fits(model, n_data, db, n, d, k);
+  const size_t smem = fused_advi_fullrank_smem_bytes(model, n_data, db, n, d, k);
   if (smem > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
   // above 48 KB only after this call; without it the launch is refused
   cudaError_t err = cudaFuncSetAttribute(fused_advi_fullrank_kernel,
@@ -341,8 +441,9 @@ extern "C" int fused_advi_fullrank(
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const avi::Hyper h{lr, b1, b2, eps, avg_eta, clip_eps};
+  const avi::Branch br{algo, entropy, grad_est, op, cocob_alpha};
   fused_advi_fullrank_kernel<<<1, kThreads, smem, stream>>>(
       model, c0, c1, n_data, db, s0, s1, vec_in, mat_in, vec_out, mat_out, elbo_out,
-      trace, noise, n, d, steps, log_every, seed0, seed1, it0, h, fits);
+      trace, noise, n, d, k, steps, log_every, seed0, seed1, it0, h, br, fits);
   return static_cast<int>(cudaGetLastError());
 }

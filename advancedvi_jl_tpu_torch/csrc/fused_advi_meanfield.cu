@@ -1,43 +1,65 @@
-// K1+K2: the whole ADVI loop in one launch, mean-field x STL x Adam x
-// ClipScale x polynomial averaging on hierarchical logistic regression.
+// K1+K2 and the mean-field branches of K3, with K4's logreg and
+// diagonal-Gaussian bodies: the whole optimisation loop in one launch,
+// mean-field Gaussian family x {Adam, descent, DoWG, DoG, COCOB} x {STL,
+// closed-form zero-gradient, STL zero-gradient entropy} x {reparameterization
+// gradient, VarGrad} x {ClipScale, entropy prox, identity} x polynomial
+// averaging, on hierarchical logistic regression or a diagonal Gaussian.
 //
 // Replaces ops/pallas/fused_advi.py::_run_chunk (both pallas_calls, plain and
-// traced grid) in its MEANFIELD x REPGRAD x STL x ADAM x CLIP branch of
-// _kernel, with _logreg_step_factory inlined as the model, _adam_candidate as
-// the update and the step-indexed draw of location_scale_kernels.py.  The
-// plain PyTorch version is fused_run_chunk_reference in ops/cuda/fused_advi.py.
+// traced grid) in every MEANFIELD branch of _kernel (fused_advi.py:356-669),
+// with _logreg_step_factory or _gaussian_step_factory inlined as the model,
+// _adam_candidate, _dowg_step, _dog_step and _cocob_update as the rules, and
+// the step-indexed draw of location_scale_kernels.py.  The plain PyTorch
+// version is fused_run_chunk_reference in ops/cuda/fused_advi.py.
 //
 // What bounds it on an H100: latency.  Steps are sequential, and one step at
 // the flagship width (n = 10 samples, 208 x 61 design, d = 62) is about
 // 2 x 10 x 208 x 61 = 254k multiply-adds, a few microseconds of one SM, with
-// five block-wide barriers between its phases.  No step touches device memory
-// except to read injected noise or write a trace entry.
+// five block-wide barriers between its phases (DoWG and DoG add one).
+// VarGrad needs only log pi and skips the second product (phase C).  No step
+// touches device memory except to read injected noise, the Gaussian's (d,)
+// constants or to write a trace entry.
 //
 // Design: one thread block runs the whole chunk with a loop over steps inside
 // the block; this takes the place of the TPU's fori_loop and of the traced
 // mode's sequential grid, which existed only to keep Mosaic from compiling a
 // dynamic store per step.  Here the ELBO of every log_every-th step is stored
-// straight into trace[k], so one kernel serves both modes.  The design matrix
-// (50,752 bytes at the flagship shape, over the 48 KB static limit), the
-// labels, the draws, the logits and the eight (d,) state rows live in dynamic
-// shared memory for the whole chunk.  Each step:
+// straight into trace[k], so one kernel serves both modes.  The branch is a
+// set of runtime codes (avi::Branch), uniform over the launch: one compiled
+// instance serves every branch, and a second one the flagship branch with
+// the codes constant (avi::kDefaultBranch).  The design matrix (50,752 bytes at
+// the flagship shape, over the 48 KB static limit), the labels, the draws,
+// the logits and the 8 (d,) state rows (14 with COCOB's accumulators) live
+// in dynamic shared memory for the whole chunk.  Each step:
 //
 //   A  draw u (Philox keyed by the global iteration, or a row of the injected
-//      noise) and z = mu + sig * u; one warp per row sums |beta|^2 and |u|^2;
-//   B  logits l = beta X^T (one thread per (row, datum)), then one warp per
-//      row forms likeadj (y - sigmoid(l)), the softplus log-likelihood and
-//      log pi with the Exp log-det folded in (fused_advi.py:43-51);
-//   C  grad log pi (one thread per (row, lane)): X^T weights - beta e^{-2t},
-//      and |beta|^2 e^{-2t} - db - t / s^2 for the log-sigma lane;
-//   D  one thread per lane: g_z = -(1/n)(grad + u / sig), dmu = sum g_z,
-//      dsig = sum g_z u, Adam with bc = 1 - exp(c ln b), c = it + 1,
-//      ClipScale max(sig, eps), averaging with w = (eta + 1) / (c + eta);
-//   E  thread 0: the STL ELBO estimate at the pre-update parameters.
+//      noise) and z = mu + sig * u; one warp per row sums |u|^2 (and, for
+//      logreg, |beta|^2); log det of the scale;
+//   B  log pi: logreg, logits l = beta X^T (one thread per (row, datum)),
+//      then one warp per row forms likeadj (y - sigmoid(l)), the softplus
+//      log-likelihood and log pi with the Exp log-det folded in
+//      (fused_advi.py:43-51); Gaussian, one warp per row, with its gradient;
+//   C  reparameterization: logreg's grad log pi (one thread per (row,
+//      lane)); VarGrad: one thread forms f = log q - log pi, the coefficients
+//      (f_i - fbar) / n and the plain ELBO estimate (fused_advi.py:489-507);
+//   D  one thread per lane forms dmu and dsig: STL g_z = -(1/n)(grad +
+//      u / sig), the closed-form zero-gradient entropy without the u / sig,
+//      the STL zero-gradient one with + 1/sig on dsig, or VarGrad's
+//      sum_i c_i u / sig and sum_i c_i (u^2 - 1) / sig.  DoWG and DoG need
+//      |g|^2 and |x - x0|^2 over every entry before any entry moves: a
+//      fixed-order block reduction, then thread 0 forms eta and [v, r];
+//      then one thread per lane applies the rule, the operator (ClipScale,
+//      or the prox on the post-update sigma with the step's eta) and the
+//      averaging with w = (eta_avg + 1) / (c + eta_avg), c = it + 1;
+//   E  one thread of the last warp, beside D: the ELBO estimate at the
+//      pre-update parameters (STL value, or the closed-form entropy for the
+//      closed-form zero-gradient one).
 //
-// Every sum runs in a fixed order (sequential loops and warp butterflies, no
-// atomics), so a launch is deterministic: run_chunk(a + b) equals run_chunk(a)
-// then run_chunk(b) bit for bit.  The block uses one of the 132 SMs by nature;
-// spreading a step over several SMs is later work.
+// Every sum runs in a fixed order (sequential loops, warp butterflies and a
+// warp-ordered block total, no atomics), so a launch is deterministic:
+// run_chunk(a + b) equals run_chunk(a) then run_chunk(b) bit for bit.  The
+// block uses one of the 132 SMs by nature; spreading a step over several
+// SMs is later work.
 #include "fused_common.cuh"
 #include "philox.cuh"
 
@@ -45,39 +67,47 @@ namespace {
 
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
+// The thread of the ELBO (and of VarGrad's coefficients): in the last warp,
+// so that it runs beside phase D's lanes (threads 0..d-1) instead of after.
+constexpr int kElbo = kThreads - 32;
+constexpr size_t kSmemLimit = 232448;  // dynamic shared memory of one block
 using avi::kLog2Pi;
 
 // Offsets (in floats) of the shared-memory arrays.
 struct Layout {
-  int X, y, u, z, g, l, st, row, total;
+  int X, y, l, u, z, g, st, grad, row, red, total;
 };
 
-__host__ __device__ inline Layout make_layout(int n_data, int db, int n, int d) {
+__host__ __device__ inline Layout make_layout(int model, int n_data, int db, int n, int d,
+                                              int n_rows) {
   Layout L;
   int o = 0;
-  L.X = o;   o += n_data * db;  // design matrix, row-major (n_data, db)
-  L.y = o;   o += n_data;       // labels
-  L.u = o;   o += n * d;        // base draws
-  L.z = o;   o += n * d;        // samples
-  L.g = o;   o += n * d;        // grad log pi
-  L.l = o;   o += n * n_data;   // logits, then likelihood weights
-  L.st = o;  o += 8 * d;        // mu sig m_mu v_mu m_sig v_sig avg_mu avg_sig
-  L.row = o; o += 5 * n + 1;    // beta_sq t inv_sig2 logpi u2 (per row), logdet
+  const bool lr = model == avi::kLogReg;
+  L.X = o;    o += lr ? n_data * db : 0;  // design matrix, row-major (n_data, db)
+  L.y = o;    o += lr ? n_data : 0;       // labels
+  L.l = o;    o += lr ? n * n_data : 0;   // logits, then likelihood weights
+  L.u = o;    o += n * d;                 // base draws
+  L.z = o;    o += n * d;                 // samples
+  L.g = o;    o += n * d;                 // grad log pi
+  L.st = o;   o += n_rows * d;            // mu sig m_mu v_mu m_sig v_sig avg_mu avg_sig [ext]
+  L.grad = o; o += 2 * d;                 // dmu, dsig of the step
+  L.row = o;  o += 6 * n + 1;             // beta_sq t inv_sig2 logpi u2 c (per row), logdet
+  L.red = o;  o += 2 * kWarps + 1;        // block reduction, then eta
   L.total = o;
   return L;
 }
 
+template <bool kGeneral>
 __global__ void __launch_bounds__(kThreads) fused_advi_meanfield_kernel(
-    const float* __restrict__ X, const float* __restrict__ y, int n_data,
-    int db, const float* __restrict__ state_in, float* __restrict__ state_out,
-    float* __restrict__ elbo_out, float* __restrict__ trace,
-    const float* __restrict__ noise, int n, int d, int steps, int log_every,
-    uint32_t k0, uint32_t k1, unsigned long long it0, avi::Hyper h,
-    float likeadj, float prior_scale) {
+    int model, const float* __restrict__ c0, const float* __restrict__ c1, int n_data,
+    int db, float s0, float s1, const float* __restrict__ state_in,
+    float* __restrict__ state_out, float* __restrict__ elbo_out, float* __restrict__ trace,
+    const float* __restrict__ noise, int n, int d, int n_rows, int steps, int log_every,
+    uint32_t k0, uint32_t k1, unsigned long long it0, avi::Hyper h, avi::Branch br) {
+  if (!kGeneral) br = avi::kDefaultBranch;  // every switch below is then constant
   extern __shared__ float smem[];
-  const Layout L = make_layout(n_data, db, n, d);
-  float* Xs = smem + L.X;
-  float* ys = smem + L.y;
+  const Layout L = make_layout(model, n_data, db, n, d, n_rows);
+  const bool logreg = model == avi::kLogReg;
   float* us = smem + L.u;
   float* zs = smem + L.z;
   float* gs = smem + L.g;
@@ -90,26 +120,40 @@ __global__ void __launch_bounds__(kThreads) fused_advi_meanfield_kernel(
   float* v_sig = st + 5 * d;
   float* a_mu = st + 6 * d;
   float* a_sig = st + 7 * d;
+  float* ext = st + 8 * d;  // COCOB: G, reward, theta of mu, then of sig
+  float* dm = smem + L.grad;
+  float* ds = dm + d;
   float* beta_sq = smem + L.row;
   float* tcol = beta_sq + n;
   float* inv_sig2 = tcol + n;
   float* logpi = inv_sig2 + n;
   float* u2 = logpi + n;
-  float* logdet = u2 + n;
-  const avi::LogReg model{Xs, ys, smem + L.l, n_data, db, likeadj, prior_scale};
+  float* coef = u2 + n;
+  float* logdet = coef + n;
+  float* red = smem + L.red;
+  float* eta_s = red + 2 * kWarps;
+  const avi::LogReg lrm{smem + L.X, smem + L.y, smem + L.l, n_data, db, s0, s1};
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  for (int i = tid; i < n_data * db; i += kThreads) Xs[i] = X[i];
-  for (int i = tid; i < n_data; i += kThreads) ys[i] = y[i];
-  for (int i = tid; i < 8 * d; i += kThreads) st[i] = state_in[i];
+  if (logreg) {
+    for (int i = tid; i < n_data * db; i += kThreads) smem[L.X + i] = c0[i];
+    for (int i = tid; i < n_data; i += kThreads) smem[L.y + i] = c1[i];
+  }
+  for (int i = tid; i < n_rows * d; i += kThreads) st[i] = state_in[i];
   __syncthreads();
 
+  const bool vargrad = br.grad_est == avi::kScoreGrad;
+  const bool cf_zero = br.entropy == avi::kClosedFormZero;
+  const bool stl_zero = br.entropy == avi::kSTLZero;
+  const bool dist_rule = br.algo == avi::kDoWG || br.algo == avi::kDoG;
+  const bool cocob = br.algo == avi::kCOCOB;
   const float inv_n = 1.0f / static_cast<float>(n);
   const float ln_b1 = logf(h.b1);
   const float ln_b2 = logf(h.b2);
   const float ent_const = 0.5f * static_cast<float>(d) * kLog2Pi;
+  const float ent_closed = 0.5f * static_cast<float>(d) * (1.0f + kLog2Pi);
   const int groups = (d + 3) / 4;
   float elbo = 0.0f;
 
@@ -143,7 +187,7 @@ __global__ void __launch_bounds__(kThreads) fused_advi_meanfield_kernel(
       }
     }
     __syncthreads();
-    avi::logreg_rows(model, zs, n, d, beta_sq, tcol, inv_sig2, warp, kWarps, lane);
+    if (logreg) avi::logreg_rows(lrm, zs, n, d, beta_sq, tcol, inv_sig2, warp, kWarps, lane);
     for (int i = warp; i < n; i += kWarps) {
       float uu = 0.0f;
       for (int j = lane; j < d; j += 32) {
@@ -161,83 +205,174 @@ __global__ void __launch_bounds__(kThreads) fused_advi_meanfield_kernel(
     }
     __syncthreads();
 
-    // B: logits, then likelihood weights and log pi per row
-    avi::logreg_logits(model, zs, n, d, tid, kThreads);
-    __syncthreads();
-    avi::logreg_logpi(model, n, beta_sq, tcol, inv_sig2, logpi, warp, kWarps, lane);
+    // B: log pi (and the Gaussian's gradient)
+    if (logreg) {
+      avi::logreg_logits(lrm, zs, n, d, tid, kThreads);
+      __syncthreads();
+      avi::logreg_logpi(lrm, n, beta_sq, tcol, inv_sig2, logpi, warp, kWarps, lane);
+    } else {
+      avi::gaussian_body(c0, c1, s0, zs, n, d, logpi, vargrad ? nullptr : gs, warp, kWarps,
+                         lane);
+    }
     __syncthreads();
 
-    // C: grad log pi
-    avi::logreg_grad(model, zs, n, d, beta_sq, tcol, inv_sig2, gs, tid, kThreads);
-    __syncthreads();
+    // C: logreg's grad log pi, or VarGrad's coefficients and ELBO
+    if (vargrad) {
+      if (tid == kElbo) {
+        float fsum = 0.0f, esum = 0.0f;
+        for (int i = 0; i < n; ++i) {
+          const float logq = -(0.5f * u2[i] + *logdet + ent_const);
+          const float f = logq - logpi[i];
+          coef[i] = f;
+          fsum += f;
+          esum += logpi[i] - logq;
+        }
+        const float fbar = inv_n * fsum;
+        for (int i = 0; i < n; ++i) coef[i] = (coef[i] - fbar) * inv_n;
+        elbo = inv_n * esum;
+      }
+      __syncthreads();
+    } else if (logreg) {
+      avi::logreg_grad(lrm, zs, n, d, beta_sq, tcol, inv_sig2, gs, tid, kThreads);
+      __syncthreads();
+    }
 
-    // D: STL gradient, Adam, ClipScale, polynomial averaging
+    // D: the gradient of the step, then (DoWG, DoG) its global sums
+    float part_g = 0.0f, part_x = 0.0f;
+    for (int j = tid; j < d; j += kThreads) {
+      const float sj = sig[j];
+      float dmu = 0.0f, dsig = 0.0f;
+      if (vargrad) {
+        for (int i = 0; i < n; ++i) {
+          const float uij = us[i * d + j];
+          dmu += coef[i] * (uij / sj);
+          dsig += coef[i] * ((uij * uij - 1.0f) / sj);
+        }
+      } else {
+        for (int i = 0; i < n; ++i) {
+          const float uij = us[i * d + j];
+          const float gz =
+              -inv_n * (cf_zero ? gs[i * d + j] : gs[i * d + j] + uij / sj);
+          dmu += gz;
+          dsig += gz * uij;
+        }
+        if (stl_zero) dsig += 1.0f / sj;
+      }
+      dm[j] = dmu;
+      ds[j] = dsig;
+      if (dist_rule) {
+        const float xm = mu[j] - m_mu[j];
+        const float xs = sj - m_sig[j];
+        part_g += dmu * dmu + dsig * dsig;
+        part_x += xm * xm + xs * xs;
+      }
+    }
+    if (dist_rule) {  // the other rules need no barrier: a thread reads back its own lanes
+      const float2 tot = avi::block_sum2(part_g, part_x, red, kWarps);
+      if (tid == 0) *eta_s = avi::distance_rule_step(br.algo, tot.x, tot.y, v_mu[0], v_mu[1]);
+      __syncthreads();
+    }
+
+    // D: the rule, the operator and the averaging, one thread per lane
     const float c = static_cast<float>(it) + 1.0f;
     const float bc1 = 1.0f - expf(c * ln_b1);
     const float bc2 = 1.0f - expf(c * ln_b2);
     const float w = (h.avg_eta + 1.0f) / (c + h.avg_eta);
+    const float eta = br.algo == avi::kDescent ? h.lr : (dist_rule ? *eta_s : 0.0f);
     for (int j = tid; j < d; j += kThreads) {
-      const float sj = sig[j];
-      float dmu = 0.0f, dsig = 0.0f;
-      for (int i = 0; i < n; ++i) {
-        const float uij = us[i * d + j];
-        const float gz = -inv_n * (gs[i * d + j] + uij / sj);
-        dmu += gz;
-        dsig += gz * uij;
+      float G = 0.0f, R = 0.0f, T = 0.0f;
+      if (cocob) {
+        G = ext[j];
+        R = ext[d + j];
+        T = ext[2 * d + j];
       }
-      avi::adam_step(mu[j], m_mu[j], v_mu[j], dmu, h, bc1, bc2);
-      avi::adam_step(sig[j], m_sig[j], v_sig[j], dsig, h, bc1, bc2);
-      sig[j] = fmaxf(sig[j], h.clip_eps);
+      avi::rule_step(br, h, eta, bc1, bc2, mu[j], m_mu[j], v_mu[j], G, R, T, dm[j]);
+      if (cocob) {
+        ext[j] = G;
+        ext[d + j] = R;
+        ext[2 * d + j] = T;
+        G = ext[3 * d + j];
+        R = ext[4 * d + j];
+        T = ext[5 * d + j];
+      }
+      float x = sig[j];
+      avi::rule_step(br, h, eta, bc1, bc2, x, m_sig[j], v_sig[j], G, R, T, ds[j]);
+      if (cocob) {
+        ext[3 * d + j] = G;
+        ext[4 * d + j] = R;
+        ext[5 * d + j] = T;
+      }
+      x = avi::scale_operator(br.op, x, eta, h);
+      sig[j] = x;
+      if (dist_rule && j >= 2) v_mu[j] = 0.0f;  // v_mu holds [v, r, 0, ...]
       a_mu[j] = (1.0f - w) * a_mu[j] + w * mu[j];
-      a_sig[j] = (1.0f - w) * a_sig[j] + w * sig[j];
+      a_sig[j] = (1.0f - w) * a_sig[j] + w * x;
     }
 
-    // E: the step's ELBO estimate, energy + STL entropy value
-    if (tid == 0) {
-      float energy = 0.0f, uu = 0.0f;
-      for (int i = 0; i < n; ++i) {
-        energy += logpi[i];
-        uu += u2[i];
+    // E: the step's ELBO estimate, energy + entropy value
+    if (tid == kElbo) {
+      if (!vargrad) {
+        float energy = 0.0f, uu = 0.0f;
+        for (int i = 0; i < n; ++i) {
+          energy += logpi[i];
+          uu += u2[i];
+        }
+        elbo = inv_n * energy +
+               (cf_zero ? *logdet + ent_closed : *logdet + inv_n * (0.5f * uu) + ent_const);
       }
-      elbo = inv_n * energy + (*logdet + inv_n * (0.5f * uu) + ent_const);
       if (log_every > 0 && (s + 1) % log_every == 0)
         trace[(s + 1) / log_every - 1] = elbo;
     }
     __syncthreads();
   }
 
-  for (int i = tid; i < 8 * d; i += kThreads) state_out[i] = st[i];
-  if (tid == 0) *elbo_out = elbo;
+  for (int i = tid; i < n_rows * d; i += kThreads) state_out[i] = st[i];
+  if (tid == kElbo) *elbo_out = elbo;
 }
 
 }  // namespace
 
-extern "C" size_t fused_advi_meanfield_smem_bytes(int n_data, int db, int n,
-                                                  int d) {
-  return sizeof(float) * static_cast<size_t>(make_layout(n_data, db, n, d).total);
+// The dynamic shared memory of a launch; n_rows is 8, or 14 with COCOB.
+extern "C" size_t fused_advi_meanfield_smem_bytes(int model, int n_data, int db, int n,
+                                                  int d, int n_rows) {
+  return sizeof(float) *
+         static_cast<size_t>(make_layout(model, n_data, db, n, d, n_rows).total);
 }
 
-// X: (n_data, db) and y: (n_data,) float32; state_in, state_out: (8, d)
-// float32 rows mu sig m_mu v_mu m_sig v_sig avg_mu avg_sig, d = db + 1;
-// elbo_out: one float; trace: (steps / log_every,) float or null when
-// log_every == 0; noise: (steps, n, d) float32 or null for in-kernel Philox.
-// Returns cudaGetLastError() after the launch (0 on success).
+// model 0: logreg, c0 = X (n_data, db), c1 = y (n_data,), s0 = likeadj,
+// s1 = prior_scale, d = db + 1; model 2: diagonal Gaussian, c0 = mean (d,),
+// c1 = inverse variances (d,), s0 = lognorm.  state_in, state_out: (n_rows,
+// d) float32 rows mu sig m_mu v_mu m_sig v_sig avg_mu avg_sig, then with
+// COCOB (n_rows = 14) its G, reward, theta of mu and of sig.  elbo_out: one
+// float; trace: (steps / log_every,) or null when log_every == 0; noise:
+// (steps, n, d) or null for in-kernel Philox.  algo, entropy, grad_est, op:
+// the avi::Branch codes.  Returns cudaGetLastError() after the launch (0 on
+// success), or cudaErrorInvalidValue for a launch the kernel does not take.
 extern "C" int fused_advi_meanfield(
-    const float* X, const float* y, int n_data, int db, const float* state_in,
-    float* state_out, float* elbo_out, float* trace, const float* noise, int n,
-    int d, int steps, int log_every, uint32_t seed0, uint32_t seed1,
-    unsigned long long it0, float lr, float b1, float b2, float eps,
-    float avg_eta, float clip_eps, float likeadj, float prior_scale,
-    cudaStream_t stream) {
-  const size_t smem = fused_advi_meanfield_smem_bytes(n_data, db, n, d);
+    int model, const float* c0, const float* c1, int n_data, int db, float s0, float s1,
+    const float* state_in, float* state_out, float* elbo_out, float* trace,
+    const float* noise, int n, int d, int steps, int log_every, uint32_t seed0,
+    uint32_t seed1, unsigned long long it0, float lr, float b1, float b2, float eps,
+    float avg_eta, float clip_eps, int algo, int entropy, int grad_est, int op,
+    float cocob_alpha, cudaStream_t stream) {
+  const int n_rows = algo == avi::kCOCOB ? 14 : 8;
+  const bool dist_rule = algo == avi::kDoWG || algo == avi::kDoG;
+  if ((model != avi::kLogReg && model != avi::kGaussian) || (dist_rule && d < 2) ||
+      (grad_est == avi::kScoreGrad && n < 2))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = fused_advi_meanfield_smem_bytes(model, n_data, db, n, d, n_rows);
+  if (smem > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
+  const auto kernel = avi::is_default(algo, entropy, grad_est, op)
+                          ? fused_advi_meanfield_kernel<false>
+                          : fused_advi_meanfield_kernel<true>;
   // above 48 KB only after this call; without it the launch is refused
   cudaError_t err = cudaFuncSetAttribute(
-      fused_advi_meanfield_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const avi::Hyper h{lr, b1, b2, eps, avg_eta, clip_eps};
-  fused_advi_meanfield_kernel<<<1, kThreads, smem, stream>>>(
-      X, y, n_data, db, state_in, state_out, elbo_out, trace, noise, n, d,
-      steps, log_every, seed0, seed1, it0, h, likeadj, prior_scale);
+  const avi::Branch br{algo, entropy, grad_est, op, cocob_alpha};
+  kernel<<<1, kThreads, smem, stream>>>(
+      model, c0, c1, n_data, db, s0, s1, state_in, state_out, elbo_out, trace, noise, n, d,
+      n_rows, steps, log_every, seed0, seed1, it0, h, br);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,14 +1,18 @@
 // Pieces shared by the fused whole-loop kernels (fused_advi_meanfield.cu,
-// fused_advi_fullrank.cu): the hyperparameters, a warp sum, the Adam update
-// and the hierarchical logistic regression body.
+// fused_advi_fullrank.cu): the hyperparameters and branch codes, a warp sum
+// and a block reduction, the update rules (Adam, descent, DoWG, DoG, COCOB),
+// the entropy proximal map, and the model bodies (hierarchical logistic
+// regression and the diagonal Gaussian).
 //
-// The logreg body replaces ops/pallas/fused_advi.py::_logreg_step_factory.
-// It works on one block's shared-memory arrays: samples z (n, d) with
-// d = db + 1 (beta in lanes 0..db-1, t = log sigma in lane db), the design
-// X (n_data, db) and labels y, and fills per-row beta_sq, t, e^{-2t}, log pi
-// and grad log pi (n, d).  Each phase is a loop over the block's threads;
-// the caller puts a __syncthreads() between phases.  Every sum runs in a
-// fixed order (sequential loops and warp butterflies), so a launch is
+// The logreg body replaces ops/pallas/fused_advi.py::_logreg_step_factory,
+// the diagonal-Gaussian body _gaussian_step_factory, the rules
+// _adam_candidate, _dowg_step, _dog_step and _cocob_update (fused_advi.py:
+// 242-281).  The bodies work on one block's shared-memory arrays: samples
+// z (n, d) (for logreg d = db + 1, beta in lanes 0..db-1, t = log sigma in
+// lane db), and fill per-row log pi and grad log pi (n, d).  Each phase is a
+// loop over the block's threads; the caller puts a __syncthreads() between
+// phases.  Every sum runs in a fixed order (sequential loops, warp
+// butterflies, and block_sum2's warp-ordered total), so a launch is
 // deterministic.
 #pragma once
 
@@ -18,15 +22,63 @@ namespace avi {
 
 constexpr float kLog2Pi = 1.8378770664093453f;  // log(2 pi) in float32
 
+// The kernels' switches, with the codes of ops/cuda/fused_advi.py
+// (MODEL_CODES, ALGO_CODES, ENTROPY_CODES, GRAD_EST_CODES, OPERATOR_CODES).
+enum Model { kLogReg = 0, kMvNormal = 1, kGaussian = 2 };
+enum Algo { kAdam = 0, kDescent = 1, kDoWG = 2, kDoG = 3, kCOCOB = 4 };
+enum Entropy { kSTL = 0, kClosedFormZero = 1, kSTLZero = 2 };
+enum GradEst { kRepGrad = 0, kScoreGrad = 1 };
+enum Operator { kClip = 0, kProx = 1, kNone = 2 };
+
 struct Hyper {
   float lr, b1, b2, eps, avg_eta, clip_eps;
 };
+
+// The branch one launch runs; every thread takes the same one, so the
+// switches cost no divergence.
+struct Branch {
+  int algo, entropy, grad_est, op;
+  float cocob_alpha;  // COCOB's bet-fraction floor
+};
+
+// The flagship branch, STL x Adam x ClipScale.  The mean-field kernel has
+// an instance for it with these switches constant, so that the other
+// branches' code costs the flagship path nothing, and one for every other
+// branch.
+constexpr Branch kDefaultBranch{kAdam, kSTL, kRepGrad, kClip, 0.0f};
+
+inline bool is_default(int algo, int entropy, int grad_est, int op) {
+  return algo == kAdam && entropy == kSTL && grad_est == kRepGrad && op == kClip;
+}
 
 __device__ __forceinline__ float warp_sum(float v) {
   // butterfly: every lane ends with the same, order-fixed sum
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
+}
+
+// Block totals of two per-thread partial sums, in a fixed order: a warp
+// butterfly each, then thread 0 adds the warps' totals in warp order.  The
+// result is valid in thread 0 only.  Every thread calls it; `red` holds
+// 2 * warps floats of shared memory; one barrier inside.
+__device__ __forceinline__ float2 block_sum2(float a, float b, float* red, int warps) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  a = warp_sum(a);
+  b = warp_sum(b);
+  if (lane == 0) {
+    red[warp] = a;
+    red[warps + warp] = b;
+  }
+  __syncthreads();
+  float2 t = make_float2(0.0f, 0.0f);
+  if (threadIdx.x == 0)
+    for (int w = 0; w < warps; ++w) {
+      t.x += red[w];
+      t.y += red[warps + w];
+    }
+  return t;
 }
 
 // optax scale_by_adam followed by scale(-lr), as _adam_candidate; 1 - b is
@@ -36,6 +88,84 @@ __device__ __forceinline__ void adam_step(float& x, float& m, float& v, float g,
   m = h.b1 * m + (1.0f - h.b1) * g;
   v = h.b2 * v + (1.0f - h.b2) * g * g;
   x = x + -h.lr * (m / bc1) / (sqrtf(v / bc2) + h.eps);
+}
+
+// DoWG (_dowg_step) or DoG (_dog_step) from the global sums of one step:
+// gsq = |g|^2 and dist2 = |x - x0|^2 over every location and scale entry.
+// Updates the accumulator v and the distance r in place; returns eta.  The
+// floor on v guards an exactly zero first gradient, as in the reference.
+__device__ __forceinline__ float distance_rule_step(int algo, float gsq, float dist2,
+                                                    float& v, float& r) {
+  r = fmaxf(sqrtf(dist2), r);
+  if (algo == kDoWG) {
+    v = v + r * r * gsq;
+    return r * r / sqrtf(fmaxf(v, 1e-30f));
+  }
+  v = v + gsq;
+  return r / sqrtf(fmaxf(v, 1e-30f));
+}
+
+// One COCOB-Backprop coordinate (_cocob_update): x1 rides the m_* slot, L
+// the v_* slot, (G, R, theta) the ext slots.  A coordinate that has only
+// seen zero gradients keeps x = x1.
+__device__ __forceinline__ void cocob_step(float ca, float& x, float x1, float& L, float& G,
+                                           float& R, float& th, float g) {
+  const float L2 = fmaxf(L, fabsf(g));
+  const float G2 = G + fabsf(g);
+  const float R2 = fmaxf(R + (x - x1) * (-g), 0.0f);
+  const float t2 = th - g;
+  const float den = L2 * fmaxf(G2 + L2, ca * L2);
+  const float bet = den > 0.0f ? t2 / den : 0.0f;
+  x = x1 + bet * (L2 + R2);
+  L = L2;
+  G = G2;
+  R = R2;
+  th = t2;
+}
+
+// The branch's rule on one entry x with its slots m, v and COCOB's (G, R,
+// theta); eta is the step size of descent, DoWG and DoG.
+__device__ __forceinline__ void rule_step(const Branch& br, const Hyper& h, float eta,
+                                          float bc1, float bc2, float& x, float& m, float& v,
+                                          float& G, float& R, float& th, float g) {
+  if (br.algo == kAdam)
+    adam_step(x, m, v, g, h, bc1, bc2);
+  else if (br.algo == kCOCOB)
+    cocob_step(br.cocob_alpha, x, m, v, G, R, th, g);
+  else
+    x = x - eta * g;
+}
+
+// The closed-form proximal step of the entropy (ProximalLocationScaleEntropy)
+// on one scale-diagonal entry: sigma / 2 + sqrt(sigma^2 + 4 eta) / 2.
+__device__ __forceinline__ float entropy_prox(float s, float eta) {
+  return 0.5f * s + 0.5f * sqrtf(s * s + 4.0f * eta);
+}
+
+// The post-update operator on one scale-diagonal entry.
+__device__ __forceinline__ float scale_operator(int op, float s, float eta, const Hyper& h) {
+  if (op == kClip) return fmaxf(s, h.clip_eps);
+  if (op == kProx) return entropy_prox(s, eta);
+  return s;
+}
+
+// K4's diagonal-Gaussian body (_gaussian_step_factory), one warp per sample
+// row: log pi = -sum_j (z - m)^2 v / 2 + lognorm and, when g is not null,
+// grad = -(z - m) v.  mean and iv (the inverse variances) are (d,) arrays.
+__device__ __forceinline__ void gaussian_body(const float* __restrict__ mean,
+                                              const float* __restrict__ iv, float lognorm,
+                                              const float* z, int n, int d, float* logpi,
+                                              float* g, int warp, int warps, int lane) {
+  for (int i = warp; i < n; i += warps) {
+    float q = 0.0f;
+    for (int j = lane; j < d; j += 32) {
+      const float diff = z[i * d + j] - mean[j];
+      q += diff * diff * iv[j];
+      if (g != nullptr) g[i * d + j] = -diff * iv[j];
+    }
+    q = warp_sum(q);
+    if (lane == 0) logpi[i] = -0.5f * q + lognorm;
+  }
 }
 
 struct LogReg {

@@ -1,11 +1,17 @@
 """Entropy estimators for ELBO objectives (port of objectives/entropy.py).
 
-This slice ports the three estimators ``KLMinRepGradDescent`` accepts:
+The five estimators of the reference (entropy.jl:11-90):
 
-- CLOSED_FORM:  entropy(q), differentiated;
-- MONTE_CARLO:  -mean log q(z) with z and q both live;
-- STL:          -mean log q_stop(z), the sticking-the-landing estimator
-                (Roeder et al. 2017): only the path derivative through z.
+- CLOSED_FORM:            entropy(q), differentiated;
+- CLOSED_FORM_ZERO_GRAD:  entropy(q_stop), detached (for the proximal
+                          entropy operator);
+- MONTE_CARLO:            -mean log q(z) with z and q both live;
+- STL:                    -mean log q_stop(z), the sticking-the-landing
+                          estimator (Roeder et al. 2017): only the path
+                          derivative through z;
+- STL_ZERO_GRAD:          STL - entropy(q) + entropy(q_stop): the STL value
+                          with a mean-zero entropy gradient (for proximal
+                          steps).
 
 ``q_stop`` is a detached copy of ``q`` (core/pytree.tree_stop_gradient).
 ``estimate_entropy_from_draw`` is the reference's solve-free path: for
@@ -18,18 +24,30 @@ from __future__ import annotations
 import torch
 
 CLOSED_FORM = "closed_form"
+CLOSED_FORM_ZERO_GRAD = "closed_form_zero_grad"
 MONTE_CARLO = "monte_carlo"
 STL = "stl"
+STL_ZERO_GRAD = "stl_zero_grad"
+
+ALL_ENTROPY_ESTIMATORS = (CLOSED_FORM, CLOSED_FORM_ZERO_GRAD, MONTE_CARLO, STL,
+                          STL_ZERO_GRAD)
+# estimators whose entropy gradient has mean zero: the ones the proximal
+# entropy operator takes (reference constructors.jl:122-157)
+ZERO_GRAD_ESTIMATORS = (CLOSED_FORM_ZERO_GRAD, STL_ZERO_GRAD)
 
 
 def estimate_entropy(estimator: str, samples: torch.Tensor, q, q_stop) -> torch.Tensor:
     """Estimate H(q) from (n, d) reparameterized samples."""
     if estimator == CLOSED_FORM:
         return q.entropy()
+    if estimator == CLOSED_FORM_ZERO_GRAD:
+        return q_stop.entropy()
     if estimator == MONTE_CARLO:
         return -torch.mean(q.log_prob(samples))
     if estimator == STL:
         return -torch.mean(q_stop.log_prob(samples))
+    if estimator == STL_ZERO_GRAD:
+        return -torch.mean(q_stop.log_prob(samples)) - q.entropy() + q_stop.entropy()
     raise ValueError(f"unknown entropy estimator: {estimator!r}")
 
 
@@ -63,8 +81,12 @@ def estimate_entropy_from_draw(
     draw (z, u) with z = scale * u + location, without the whitening."""
     if estimator == CLOSED_FORM:
         return q.entropy()
+    if estimator == CLOSED_FORM_ZERO_GRAD:
+        return q_stop.entropy()
     if estimator == MONTE_CARLO:
         return _base_neg_mean_logp(q, u) + q.log_det_scale()
     if estimator == STL:
         return _STLEntropyFast.apply(z, u, q_stop)
+    if estimator == STL_ZERO_GRAD:
+        return _STLEntropyFast.apply(z, u, q_stop) - q.entropy() + q_stop.entropy()
     raise ValueError(f"unknown entropy estimator: {estimator!r}")

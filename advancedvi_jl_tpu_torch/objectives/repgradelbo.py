@@ -23,7 +23,8 @@ class RepGradELBO:
 
     Args:
       n_samples: Monte-Carlo samples per gradient estimate.
-      entropy: CLOSED_FORM, MONTE_CARLO or STL (objectives/entropy.py).
+      entropy: any of objectives/entropy.py ALL_ENTROPY_ESTIMATORS; the
+        zero-gradient ones are for ``KLMinRepGradProxDescent``.
     """
 
     n_samples: int = 1

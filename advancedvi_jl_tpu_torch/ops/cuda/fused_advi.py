@@ -1,29 +1,43 @@
-"""Whole-loop fused ADVI engine (CUDA): one kernel launch per chunk of steps.
+"""Whole-loop fused ADVI engines (CUDA): one kernel launch per chunk of steps.
 
-Port of ops/pallas/fused_advi.py in its reparameterization-gradient x STL x
-Adam x ClipScale x polynomial-averaging branch (``KLMinRepGradDescent(
-entropy=STL, n_samples, optimizer=adam(lr), operator=ClipScale())`` with
-``PolynomialAveraging``), for two families:
+Port of ops/pallas/fused_advi.py: the whole optimisation loop of the three
+algorithm constructors in one kernel,
 
-- mean-field, on hierarchical logistic regression
-  (csrc/fused_advi_meanfield.cu, plain version ``fused_run_chunk_reference``);
-- full-rank, on logistic regression or a dense Gaussian target
-  (``mvnormal_spec``), d <= D_FULLRANK_MAX (csrc/fused_advi_fullrank.cu,
+- ``FusedADVI``: ``KLMinRepGradDescent(entropy=STL, optimizer=adam(lr),
+  operator=ClipScale())``;
+- ``FusedProxADVI``: ``KLMinRepGradProxDescent`` with descent, DoWG or DoG,
+  a zero-gradient entropy and the closed-form entropy proximal step;
+- ``FusedScoreGradVI``: ``KLMinScoreGradDescent`` (VarGrad) with Adam,
+  descent, DoWG, DoG or COCOB and ClipScale or no operator (mean-field);
+
+each with polynomial averaging, for two families:
+
+- mean-field, on hierarchical logistic regression or a diagonal Gaussian
+  (``gaussian_spec``, ``normallognormal_spec``) (csrc/fused_advi_meanfield.cu,
+  plain version ``fused_run_chunk_reference``);
+- full-rank, on logistic regression, a dense Gaussian (``mvnormal_spec``) or
+  a diagonal Gaussian, d <= D_FULLRANK_MAX (csrc/fused_advi_fullrank.cu,
   plain version ``fused_fullrank_run_chunk_reference``).
+
+The branch is chosen by the engine's attributes ``algo``, ``entropy``,
+``grad_est`` and ``operator`` (JAX's string values) and passed to the kernel
+as integer codes (``FusedBranch``); one compiled kernel serves every branch.
 
 The engine's state holds ``(d,)`` location rows and ``(d,)`` (mean-field) or
 ``(d, d)`` (full-rank) scale rows: the TPU lane and sublane padding
 (``D_PAD``, ``N_PAD``) of the reference is gone, and ``convert.py`` moves
-states and noise between the two layouts.
+states and noise between the two layouts.  As in the reference, DoWG and DoG
+keep x0 in ``m_*`` and [v, r] in ``v_mu[0:2]`` (so they need d >= 2), and
+COCOB keeps x1 in ``m_*``, L in ``v_*`` and (G, reward, theta) for the
+location and then the scale in ``ext``.
 
 Draws are step-indexed Philox normals (csrc/philox.cuh), keyed by the seed
 words and the GLOBAL iteration, and they are the very draws of the general
 path's samplers (``sample_with_base`` at ``PhiloxKey(seed, it)``): with one
-seed the fused engine and ``KLMinRepGradDescent`` consume the same base
-normals, and ``run_chunk(a + b)`` equals ``run_chunk(a)`` then
-``run_chunk(b)`` bit for bit.  ``noise=`` injects base draws of shape
-``(steps, n_samples, d)`` instead (the parity tests feed the reference's
-draws through it).
+seed the fused engine and the general path consume the same base normals,
+and ``run_chunk(a + b)`` equals ``run_chunk(a)`` then ``run_chunk(b)`` bit
+for bit.  ``noise=`` injects base draws of shape ``(steps, n_samples, d)``
+instead (the parity tests feed the reference's draws through it).
 
 ``fused_run_chunk`` and ``fused_fullrank_run_chunk`` launch their kernel
 for CUDA tensors and run its plain PyTorch version for CPU tensors; there is
@@ -38,18 +52,23 @@ Logreg gradient (theta = [beta (db), t], sigma = e^t, s = prior_scale):
     d/dt      = |beta|^2 e^{-2t} - db - t/s^2
 
 Dense Gaussian N(m, L L^T) with precision P = L^{-T} L^{-1}:
-grad = -(z - m) P, log pi = (z - m) . grad / 2 + lognorm.
+grad = -(z - m) P, log pi = (z - m) . grad / 2 + lognorm.  Diagonal Gaussian
+N(m, diag(1/v)): grad = -(z - m) v, log pi = -sum (z - m)^2 v / 2 + lognorm.
 
 STL: dL/dz_i = -(1/n) [grad log pi(z_i) + w_i], w_i the whitened draw
 (u_i / sigma mean-field, C^{-T} u_i full-rank); dmu = sum_i dL/dz_i;
 dsig = sum_i dL/dz_i * u_i (mean-field), dC = tril(sum_i dL/dz_i u_i^T)
-(full-rank).
+(full-rank).  The closed-form zero-gradient entropy drops w_i; the STL
+zero-gradient one adds 1/sigma to the scale diagonal's gradient.  VarGrad:
+f_i = log q(z_i) - log pi(z_i), dL = (1/n) sum_i (f_i - fbar) dlogq_i with
+dlogq/dmu = u/sigma and dlogq/dsigma = (u^2 - 1)/sigma.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+import warnings
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -70,15 +89,47 @@ MEANFIELD = "meanfield"
 FULLRANK = "fullrank"
 LOGREG = "logreg"
 MVNORMAL = "mvnormal"
-MODEL_CODES = {LOGREG: 0, MVNORMAL: 1}  # the full-rank kernel's model switch
+GAUSSIAN = "gaussian"
+MODEL_CODES = {LOGREG: 0, MVNORMAL: 1, GAUSSIAN: 2}  # the kernels' model switch
 # The JAX engine's bound on the full-rank width (its reason was TPU VMEM);
 # the port keeps it until an H100 measurement says otherwise.
 D_FULLRANK_MAX = 512
 _L2PI = math.log(2.0 * math.pi)
+
+# The kernels' branch switches, with the JAX engine's string values
+# (ops/pallas/fused_advi.py:120-140).
+ENT_STL = "stl"
+ENT_CF_ZERO = "closed_form_zero_grad"
+ENT_STL_ZERO = "stl_zero_grad"
+ALGO_ADAM = "adam"
+ALGO_DESCENT = "descent"
+ALGO_DOWG = "dowg"
+ALGO_DOG = "dog"
+ALGO_COCOB = "cocob"
+ETA_ALGOS = (ALGO_DESCENT, ALGO_DOWG, ALGO_DOG)  # rules with a step size to read
+OP_CLIP = "clip"
+OP_PROX = "prox"
+OP_NONE = "none"
+GE_REPGRAD = "repgrad"
+GE_SCOREGRAD = "scoregrad"
+ALGO_CODES = {ALGO_ADAM: 0, ALGO_DESCENT: 1, ALGO_DOWG: 2, ALGO_DOG: 3, ALGO_COCOB: 4}
+ENTROPY_CODES = {ENT_STL: 0, ENT_CF_ZERO: 1, ENT_STL_ZERO: 2}
+GRAD_EST_CODES = {GE_REPGRAD: 0, GE_SCOREGRAD: 1}
+OPERATOR_CODES = {OP_CLIP: 0, OP_PROX: 1, OP_NONE: 2}
+
 STATE_FIELDS = ("mu", "sig", "m_mu", "v_mu", "m_sig", "v_sig", "avg_mu", "avg_sig")
-# full-rank kernel layout: (4, d) location rows and (4, d, d) scale matrices
+# full-rank kernel layout: (4, d) location rows and (4, d, d) scale matrices,
+# each followed by COCOB's three ext rows or matrices
 FR_VEC_FIELDS = ("mu", "m_mu", "v_mu", "avg_mu")
 FR_MAT_FIELDS = ("sig", "m_sig", "v_sig", "avg_sig")
+
+# Launch groups a chip run counts separately: the branches beyond the
+# STL x Adam x ClipScale one (rules, entropies, operators), VarGrad, and the
+# diagonal-Gaussian model body.
+GROUP_RULES = "k3_rules"
+GROUP_VARGRAD = "k3_vargrad"
+GROUP_GAUSSIAN = "k4_gaussian"
+LAUNCH_GROUPS = (GROUP_RULES, GROUP_VARGRAD, GROUP_GAUSSIAN)
 
 
 @dataclass(frozen=True)
@@ -87,7 +138,8 @@ class FusedModelSpec:
     ``consts = (X (n_data, db), y (n_data,))`` float32, ``scalars =
     (likeadj, prior_scale)`` and ``dim = db + 1``; ``"mvnormal"``
     (full-rank engine only), with ``consts = (mean (d,), precision (d, d))``
-    and ``scalars = (lognorm,)``."""
+    and ``scalars = (lognorm,)``; ``"gaussian"``, with ``consts = (mean
+    (d,), inverse variance (d,))`` and ``scalars = (lognorm,)``."""
 
     dim: int
     consts: Tuple[torch.Tensor, ...]
@@ -135,9 +187,36 @@ def mvnormal_spec(mean: torch.Tensor, scale_tril: torch.Tensor) -> FusedModelSpe
     return FusedModelSpec(dim=d, consts=(mean, prec), scalars=(lognorm,), model=MVNORMAL)
 
 
+def gaussian_spec(mean: torch.Tensor, stddev: torch.Tensor) -> FusedModelSpec:
+    """Diagonal-Gaussian target N(mean, diag(stddev)^2) as a fused-engine
+    model; this is exactly the unconstrained normal-lognormal target
+    (``normallognormal_spec``)."""
+    mean = torch.as_tensor(mean).to(torch.float32).contiguous()
+    stddev = torch.as_tensor(stddev).to(device=mean.device, dtype=torch.float32)
+    d = mean.shape[0]
+    if mean.ndim != 1 or stddev.shape != (d,):
+        raise ValueError(
+            f"expected a (d,) mean and stddev, got {tuple(mean.shape)} and "
+            f"{tuple(stddev.shape)}"
+        )
+    lognorm = float(-torch.sum(torch.log(stddev)) - 0.5 * d * _L2PI)
+    inv_var = (1.0 / (stddev * stddev)).contiguous()
+    return FusedModelSpec(dim=d, consts=(mean, inv_var), scalars=(lognorm,), model=GAUSSIAN)
+
+
+def normallognormal_spec(prob) -> FusedModelSpec:
+    """The fused-engine model of a models/normallognormal.py NormalLogNormal
+    in its unconstrained space (a diagonal Gaussian in [log y, x]): the Exp
+    bijector's log-det +t cancels the LogNormal's -log y."""
+    mean = torch.cat([prob.mu_y.reshape(1), prob.mu_x])
+    stddev = torch.cat([prob.sigma_y.reshape(1), prob.sigma_x])
+    return gaussian_spec(mean, stddev)
+
+
 @dataclass(frozen=True)
 class FusedHyper:
-    """Adam, averaging and ClipScale constants of the fused engine."""
+    """Adam, averaging and ClipScale constants of the fused engine (``lr``
+    is also descent's step size)."""
 
     lr: float = 1e-3
     b1: float = 0.9
@@ -148,13 +227,60 @@ class FusedHyper:
 
 
 @dataclass(frozen=True)
+class FusedBranch:
+    """Which branch of the kernel a launch runs: the update rule, the
+    entropy estimator, the gradient estimator and the post-update operator
+    (JAX's string values), and COCOB's bet-fraction floor."""
+
+    algo: str = ALGO_ADAM
+    entropy: str = ENT_STL
+    grad_est: str = GE_REPGRAD
+    operator: str = OP_CLIP
+    cocob_alpha: float = 100.0
+
+    def codes(self) -> Tuple[int, int, int, int]:
+        for name, table in (("algo", ALGO_CODES), ("entropy", ENTROPY_CODES),
+                            ("grad_est", GRAD_EST_CODES), ("operator", OPERATOR_CODES)):
+            if getattr(self, name) not in table:
+                raise ValueError(
+                    f"{name} must be one of {tuple(table)}, got {getattr(self, name)!r}"
+                )
+        if self.operator == OP_PROX and self.algo not in ETA_ALGOS:
+            raise ValueError(
+                f"the proximal operator needs a step size: algo must be one of "
+                f"{ETA_ALGOS}, got {self.algo!r}"
+            )
+        return (ALGO_CODES[self.algo], ENTROPY_CODES[self.entropy],
+                GRAD_EST_CODES[self.grad_est], OPERATOR_CODES[self.operator])
+
+    @property
+    def ext_rows(self) -> int:
+        return 6 if self.algo == ALGO_COCOB else 0
+
+    def groups(self, model: str) -> Tuple[str, ...]:
+        """The launch groups (LAUNCH_GROUPS) this branch on ``model`` runs."""
+        out = []
+        if (self.algo, self.entropy, self.operator) != (ALGO_ADAM, ENT_STL, OP_CLIP):
+            out.append(GROUP_RULES)
+        if self.grad_est == GE_SCOREGRAD:
+            out.append(GROUP_VARGRAD)
+        if model == GAUSSIAN:
+            out.append(GROUP_GAUSSIAN)
+        return tuple(out)
+
+
+DEFAULT_BRANCH = FusedBranch()
+
+
+@dataclass(frozen=True)
 class FusedADVIState:
     """Engine state: eight float32 tensors, ``(d,)`` for the location rows
     and the mean-field scale rows, ``(d, d)`` for the full-rank scale rows
     (``sig``, ``m_sig``, ``v_sig``, ``avg_sig``; upper triangle inert), the
     host iteration count and the last step's ELBO estimate (a 0-dim tensor
-    on the device).  With Adam, ``m_*``/``v_*`` are the first and second
-    moments."""
+    on the device).  ``m_*``/``v_*``: Adam's moments; DoWG/DoG: x0 and
+    [v, r] in ``v_mu[0:2]``; COCOB: x1 and L.  ``ext``: None, or COCOB's
+    six tensors: G, reward and theta of the location, then of the scale."""
 
     mu: torch.Tensor
     sig: torch.Tensor
@@ -166,32 +292,49 @@ class FusedADVIState:
     avg_sig: torch.Tensor
     iteration: int
     elbo: torch.Tensor
+    ext: Optional[Tuple[torch.Tensor, ...]] = None
 
-    def stacked(self) -> torch.Tensor:
-        """The ``(8, d)`` rows in kernel order (STATE_FIELDS)."""
-        return torch.stack([getattr(self, f) for f in STATE_FIELDS])
+    def stacked(self, with_ext: bool = True) -> torch.Tensor:
+        """The ``(8, d)`` rows in kernel order (STATE_FIELDS), then the six
+        ext rows when there are any and ``with_ext``."""
+        rows = [getattr(self, f) for f in STATE_FIELDS]
+        if with_ext and self.ext is not None:
+            rows += list(self.ext)
+        return torch.stack(rows)
 
     @classmethod
-    def from_stacked(cls, rows: torch.Tensor, iteration: int, elbo: torch.Tensor):
-        return cls(**dict(zip(STATE_FIELDS, rows.unbind(0))),
-                   iteration=iteration, elbo=elbo)
+    def from_stacked(cls, rows: torch.Tensor, iteration: int, elbo: torch.Tensor,
+                     ext=None):
+        """From ``(8, d)`` rows (``ext`` kept as given) or ``(14, d)`` rows."""
+        parts = rows.unbind(0)
+        if len(parts) == 14:
+            ext = tuple(parts[8:])
+        return cls(**dict(zip(STATE_FIELDS, parts[:8])), iteration=iteration,
+                   elbo=elbo, ext=ext)
 
-    def stacked_fullrank(self) -> Tuple[torch.Tensor, torch.Tensor]:
+    def stacked_fullrank(self, with_ext: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
         """The full-rank kernel's ``(4, d)`` rows (FR_VEC_FIELDS) and
-        ``(4, d, d)`` matrices (FR_MAT_FIELDS)."""
-        return (torch.stack([getattr(self, f) for f in FR_VEC_FIELDS]),
-                torch.stack([getattr(self, f) for f in FR_MAT_FIELDS]))
+        ``(4, d, d)`` matrices (FR_MAT_FIELDS), each followed by COCOB's
+        three ext rows or matrices when there are any and ``with_ext``."""
+        vec = [getattr(self, f) for f in FR_VEC_FIELDS]
+        mat = [getattr(self, f) for f in FR_MAT_FIELDS]
+        if with_ext and self.ext is not None:
+            vec += list(self.ext[:3])
+            mat += list(self.ext[3:])
+        return torch.stack(vec), torch.stack(mat)
 
     @classmethod
     def from_fullrank(cls, vec: torch.Tensor, mat: torch.Tensor, iteration: int,
-                      elbo: torch.Tensor):
-        return cls(**dict(zip(FR_VEC_FIELDS, vec.unbind(0))),
-                   **dict(zip(FR_MAT_FIELDS, mat.unbind(0))),
-                   iteration=iteration, elbo=elbo)
+                      elbo: torch.Tensor, ext=None):
+        v, m = vec.unbind(0), mat.unbind(0)
+        if len(v) == 7:
+            ext = tuple(v[4:]) + tuple(m[4:])
+        return cls(**dict(zip(FR_VEC_FIELDS, v[:4])), **dict(zip(FR_MAT_FIELDS, m[:4])),
+                   iteration=iteration, elbo=elbo, ext=ext)
 
 
 # ---------------------------------------------------------------------------
-# The plain PyTorch version of the kernel
+# The plain PyTorch versions of the kernels
 # ---------------------------------------------------------------------------
 
 
@@ -222,6 +365,31 @@ def logreg_logpi_grad(z, X, y, likeadj: float, prior_scale: float):
     return logpi, grad
 
 
+def mvnormal_logpi_grad(z, mean, prec, lognorm: float):
+    """(log pi (n,), grad (n, d)) of N(mean, P^{-1}) for samples ``z``
+    (ops/pallas/fused_advi.py ``_mvnormal_step_factory``)."""
+    diff = z - mean
+    grad = -(diff @ prec)
+    return 0.5 * torch.sum(diff * grad, dim=1) + lognorm, grad
+
+
+def gaussian_logpi_grad(z, mean, inv_var, lognorm: float):
+    """(log pi (n,), grad (n, d)) of N(mean, diag(1/inv_var)) for samples
+    ``z`` (ops/pallas/fused_advi.py ``_gaussian_step_factory``)."""
+    diff = z - mean
+    return -0.5 * torch.sum(diff * diff * inv_var, dim=1) + lognorm, -diff * inv_var
+
+
+def _model_logpi_grad(model: str, consts, scalars, z):
+    if model == LOGREG:
+        return logreg_logpi_grad(z, *consts, *scalars)
+    if model == MVNORMAL:
+        return mvnormal_logpi_grad(z, *consts, *scalars)
+    if model == GAUSSIAN:
+        return gaussian_logpi_grad(z, *consts, *scalars)
+    raise ValueError(f"unknown fused model {model!r}")
+
+
 def _f32(x) -> float:
     return float(np.float32(x))
 
@@ -237,263 +405,363 @@ def _adam_candidate(h: FusedHyper, bc1, bc2, m, v, g):
     return m2, v2, upd
 
 
+def _cocob_update(ca: float, x, x1, L, G, R, th, g):
+    """One COCOB-Backprop update per coordinate (fused_advi.py:242-256):
+    returns (x, L, G, R, theta)."""
+    L2 = torch.maximum(L, torch.abs(g))
+    G2 = G + torch.abs(g)
+    R2 = torch.clamp_min(R + (x - x1) * (-g), 0.0)
+    t2 = th - g
+    den = L2 * torch.maximum(G2 + L2, _f32(ca) * L2)
+    bet = torch.where(den > 0, t2 / torch.where(den > 0, den, torch.ones_like(den)),
+                      torch.zeros_like(den))
+    return x1 + bet * (L2 + R2), L2, G2, R2, t2
+
+
+def _rule_step(branch: FusedBranch, h: FusedHyper, c, st, dmu, dsig, lower=None):
+    """The update rule on the state dict ``st`` (mu, sig, m_mu, v_mu, m_sig,
+    v_sig, ext) for gradients (dmu, dsig); returns the step size eta used
+    (None for Adam and COCOB).  ``lower``: the full-rank lower-triangle mask
+    (the kernel moves nothing above the diagonal)."""
+    if branch.algo == ALGO_ADAM:
+        bc1 = _f32(np.float32(1.0) - np.exp(c * np.log(np.float32(h.b1))))
+        bc2 = _f32(np.float32(1.0) - np.exp(c * np.log(np.float32(h.b2))))
+        st["m_mu"], st["v_mu"], upd = _adam_candidate(h, bc1, bc2, st["m_mu"], st["v_mu"], dmu)
+        st["mu"] = st["mu"] + upd
+        st["m_sig"], st["v_sig"], upd = _adam_candidate(h, bc1, bc2, st["m_sig"],
+                                                        st["v_sig"], dsig)
+        st["sig"] = st["sig"] + upd
+        return None
+    if branch.algo == ALGO_COCOB:
+        g_mu, r_mu, t_mu, g_sig, r_sig, t_sig = st["ext"]
+        st["mu"], st["v_mu"], g_mu, r_mu, t_mu = _cocob_update(
+            branch.cocob_alpha, st["mu"], st["m_mu"], st["v_mu"], g_mu, r_mu, t_mu, dmu)
+        old = (st["sig"], st["v_sig"], g_sig, r_sig, t_sig)
+        new = _cocob_update(branch.cocob_alpha, st["sig"], st["m_sig"], st["v_sig"],
+                            g_sig, r_sig, t_sig, dsig)
+        if lower is not None:
+            new = tuple(torch.where(lower, a, b) for a, b in zip(new, old))
+        st["sig"], st["v_sig"], g_sig, r_sig, t_sig = new
+        st["ext"] = (g_mu, r_mu, t_mu, g_sig, r_sig, t_sig)
+        return None
+    if branch.algo in (ALGO_DOWG, ALGO_DOG):
+        dx = st["sig"] - st["m_sig"]
+        if lower is not None:
+            dx = torch.where(lower, dx, torch.zeros_like(dx))
+        dl = st["mu"] - st["m_mu"]
+        dist = torch.sqrt(torch.sum(dl * dl) + torch.sum(dx * dx))
+        v_prev, r_prev = st["v_mu"][0], st["v_mu"][1]
+        r = torch.maximum(dist, r_prev)
+        gsq = torch.sum(dmu * dmu) + torch.sum(dsig * dsig)
+        if branch.algo == ALGO_DOWG:
+            v = v_prev + r * r * gsq
+            eta = r * r / torch.sqrt(torch.clamp_min(v, 1e-30))
+        else:
+            v = v_prev + gsq
+            eta = r / torch.sqrt(torch.clamp_min(v, 1e-30))
+        st["v_mu"] = torch.cat([v.reshape(1), r.reshape(1), torch.zeros_like(st["v_mu"][2:])])
+    else:
+        eta = torch.tensor(_f32(h.lr), dtype=dmu.dtype, device=dmu.device)
+    st["mu"] = st["mu"] - eta * dmu
+    st["sig"] = st["sig"] - eta * dsig
+    return eta
+
+
+def _prox(s, eta):
+    return 0.5 * s + 0.5 * torch.sqrt(s * s + 4.0 * eta)
+
+
+def _entropy_value(branch: FusedBranch, logdet, u, inv_n: float):
+    """The ELBO estimate's entropy term: closed form for the closed-form
+    zero-gradient estimator, the STL value otherwise (-H(q) + H(q_stop) of
+    the STL zero-gradient estimator is 0)."""
+    d = u.shape[1]
+    if branch.entropy == ENT_CF_ZERO:
+        return logdet + 0.5 * d * (1.0 + _L2PI)
+    return logdet + inv_n * (0.5 * torch.sum(u * u)) + 0.5 * d * _L2PI
+
+
+def _avg(h: FusedHyper, c, a, x):
+    w = _f32((np.float32(h.avg_eta) + 1) / (c + np.float32(h.avg_eta)))
+    return (1.0 - w) * a + w * x
+
+
+def _draw(noise, seed, it, s, n, d, device):
+    return noise[s] if noise is not None else philox_normals_reference(
+        seed, it, n, d, device=device)
+
+
+def _trace_out(trace, log_every, device):
+    if not log_every:
+        return None
+    return torch.stack(trace) if trace else torch.zeros(0, dtype=torch.float32, device=device)
+
+
 def fused_run_chunk_reference(
-    X, y, scalars, state, seed, it0: int, steps: int, n_samples: int,
-    hyp: FusedHyper, noise=None, log_every: int = 0,
+    model: str, consts, scalars, state, seed, it0: int, steps: int, n_samples: int,
+    hyp: FusedHyper, noise=None, log_every: int = 0, branch: FusedBranch = DEFAULT_BRANCH,
 ):
     """Plain version of csrc/fused_advi_meanfield.cu: a Python loop over
-    steps with the kernel's math.  ``state``: (8, d) rows (STATE_FIELDS);
-    returns ``(state (8, d), elbo (), trace (steps // log_every,) or None)``."""
-    likeadj, prior_scale = scalars
+    steps with the kernel's math, every branch.  ``state``: (8, d) rows
+    (STATE_FIELDS), then COCOB's six ext rows; returns ``(state, elbo (),
+    trace (steps // log_every,) or None)``."""
+    branch.codes()
     d = state.shape[1]
     n = n_samples
     inv_n = _f32(1.0 / n)
-    mu, sig, m_mu, v_mu, m_sig, v_sig, a_mu, a_sig = state.unbind(0)
-    ln_b1 = np.log(np.float32(hyp.b1))
-    ln_b2 = np.log(np.float32(hyp.b2))
+    rows = state.unbind(0)
+    st = dict(zip(STATE_FIELDS, rows[:8]))
+    st["ext"] = tuple(rows[8:])
     elbo = torch.zeros((), dtype=torch.float32, device=state.device)
     trace = []
     for s in range(steps):
         it = it0 + s
-        if noise is not None:
-            u = noise[s]
-        else:
-            u = philox_normals_reference(seed, it, n, d, device=state.device)
+        u = _draw(noise, seed, it, s, n, d, state.device)
+        mu, sig = st["mu"], st["sig"]
         z = mu + sig * u
-        logpi, grad = logreg_logpi_grad(z, X, y, likeadj, prior_scale)
-        g_z = -inv_n * (grad + u / sig)
-        dmu = torch.sum(g_z, dim=0)
-        dsig = torch.sum(g_z * u, dim=0)
+        logpi, grad = _model_logpi_grad(model, consts, scalars, z)
         logdet = torch.sum(torch.log(sig))
-        elbo = inv_n * torch.sum(logpi) + (
-            logdet + inv_n * (0.5 * torch.sum(u * u)) + 0.5 * d * _L2PI
-        )
+        if branch.grad_est == GE_SCOREGRAD:
+            logq = -(torch.sum(0.5 * u * u, dim=1) + logdet + 0.5 * d * _L2PI)
+            f = logq - logpi
+            ci = ((f - inv_n * torch.sum(f)) * inv_n)[:, None]
+            dmu = torch.sum(ci * (u / sig), dim=0)
+            dsig = torch.sum(ci * ((u * u - 1.0) / sig), dim=0)
+            elbo = inv_n * torch.sum(logpi - logq)
+        else:
+            g_z = -inv_n * (grad if branch.entropy == ENT_CF_ZERO else grad + u / sig)
+            dmu = torch.sum(g_z, dim=0)
+            dsig = torch.sum(g_z * u, dim=0)
+            if branch.entropy == ENT_STL_ZERO:
+                dsig = dsig + 1.0 / sig
+            elbo = inv_n * torch.sum(logpi) + _entropy_value(branch, logdet, u, inv_n)
         c = np.float32(it) + np.float32(1.0)
-        bc1 = _f32(np.float32(1.0) - np.exp(c * ln_b1))
-        bc2 = _f32(np.float32(1.0) - np.exp(c * ln_b2))
-        m_mu, v_mu, upd = _adam_candidate(hyp, bc1, bc2, m_mu, v_mu, dmu)
-        mu = mu + upd
-        m_sig, v_sig, upd = _adam_candidate(hyp, bc1, bc2, m_sig, v_sig, dsig)
-        sig = torch.clamp_min(sig + upd, hyp.clip_eps)
-        w = _f32((np.float32(hyp.avg_eta) + 1) / (c + np.float32(hyp.avg_eta)))
-        a_mu = (1.0 - w) * a_mu + w * mu
-        a_sig = (1.0 - w) * a_sig + w * sig
+        eta = _rule_step(branch, hyp, c, st, dmu, dsig)
+        if branch.operator == OP_CLIP:
+            st["sig"] = torch.clamp_min(st["sig"], hyp.clip_eps)
+        elif branch.operator == OP_PROX:
+            st["sig"] = _prox(st["sig"], eta)
+        st["avg_mu"] = _avg(hyp, c, st["avg_mu"], st["mu"])
+        st["avg_sig"] = _avg(hyp, c, st["avg_sig"], st["sig"])
         if log_every and (s + 1) % log_every == 0:
             trace.append(elbo)
-    out = torch.stack([mu, sig, m_mu, v_mu, m_sig, v_sig, a_mu, a_sig])
-    tr = torch.stack(trace) if log_every else None
-    if log_every and not trace:
-        tr = torch.zeros(0, dtype=torch.float32, device=state.device)
-    return out, elbo, tr
-
-
-# ---------------------------------------------------------------------------
-# The kernel's wrapper
-# ---------------------------------------------------------------------------
-
-_FUSED_ARGTYPES = (
-    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
-    + [ctypes.c_void_p] * 5
-    + [ctypes.c_int] * 4
-    + [ctypes.c_uint32, ctypes.c_uint32, ctypes.c_uint64]
-    + [ctypes.c_float] * 8
-    + [ctypes.c_void_p]
-)
-
-
-
-def fused_run_chunk_cuda(
-    X, y, scalars, state, seed, it0: int, steps: int, n_samples: int,
-    hyp: FusedHyper, noise=None, log_every: int = 0,
-):
-    """Launch csrc/fused_advi_meanfield.cu on the current stream (same
-    signature and results as ``fused_run_chunk_reference``).  Adds one to
-    ``fused_run_chunk_cuda.launches`` per launch."""
-    dev = X.device
-    if not X.is_cuda:
-        raise ValueError(f"fused_run_chunk_cuda needs CUDA tensors, got {dev}")
-    n_data, db = X.shape
-    d = db + 1
-    n = int(n_samples)
-    check_f32("X", X, (n_data, db), dev)
-    check_f32("y", y, (n_data,), dev)
-    check_f32("state", state, (8, d), dev)
-    if noise is not None:
-        check_f32("noise", noise, (steps, n, d), dev)
-    smem = _build.function(
-        "fused_advi_meanfield", "fused_advi_meanfield_smem_bytes",
-        [ctypes.c_int] * 4, restype=ctypes.c_size_t,
-    )(n_data, db, n, d)
-    if smem > _build.SMEM_LIMIT:
-        raise ValueError(
-            f"the fused kernel keeps X, the draws and the logits in shared "
-            f"memory: {smem} bytes for n_data={n_data}, d={d}, n={n} is over "
-            f"the {_build.SMEM_LIMIT}-byte limit of one block"
-        )
-    fn = _build.function("fused_advi_meanfield", "fused_advi_meanfield", _FUSED_ARGTYPES)
-    out = torch.empty((8, d), dtype=torch.float32, device=dev)
-    elbo = torch.empty((), dtype=torch.float32, device=dev)
-    trace = (
-        torch.empty(steps // log_every, dtype=torch.float32, device=dev)
-        if log_every else None
-    )
-    likeadj, prior_scale = scalars
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(
-            X.data_ptr(), y.data_ptr(), n_data, db, state.data_ptr(),
-            out.data_ptr(), elbo.data_ptr(),
-            trace.data_ptr() if trace is not None else None,
-            noise.data_ptr() if noise is not None else None,
-            n, d, steps, log_every, seed[0], seed[1], it0,
-            hyp.lr, hyp.b1, hyp.b2, hyp.eps, hyp.avg_eta, hyp.clip_eps,
-            likeadj, prior_scale, stream,
-        )
-    _build.check(err, "fused_advi_meanfield launch")
-    fused_run_chunk_cuda.launches += 1
-    return out, elbo, trace
-
-
-fused_run_chunk_cuda.launches = 0
-
-
-def fused_run_chunk(X, y, scalars, state, seed, it0, steps, n_samples, hyp,
-                    noise=None, log_every=0):
-    """The kernel for CUDA tensors, its plain version for CPU tensors."""
-    if X.is_cuda:
-        return fused_run_chunk_cuda(X, y, scalars, state, seed, it0, steps,
-                                    n_samples, hyp, noise, log_every)
-    if X.device.type == "cpu":
-        return fused_run_chunk_reference(X, y, scalars, state, seed, it0, steps,
-                                         n_samples, hyp, noise, log_every)
-    raise ValueError(f"no fused engine for device {X.device}")
-
-
-# ---------------------------------------------------------------------------
-# The full-rank branch: plain version and kernel wrapper
-# ---------------------------------------------------------------------------
-
-
-def mvnormal_logpi_grad(z, mean, prec, lognorm: float):
-    """(log pi (n,), grad (n, d)) of N(mean, P^{-1}) for samples ``z``
-    (ops/pallas/fused_advi.py ``_mvnormal_step_factory``)."""
-    diff = z - mean
-    grad = -(diff @ prec)
-    return 0.5 * torch.sum(diff * grad, dim=1) + lognorm, grad
-
-
-def _model_logpi_grad(model: str, consts, scalars, z):
-    if model == LOGREG:
-        return logreg_logpi_grad(z, *consts, *scalars)
-    if model == MVNORMAL:
-        return mvnormal_logpi_grad(z, *consts, *scalars)
-    raise ValueError(f"unknown fused model {model!r}")
+    out = torch.stack([st[f] for f in STATE_FIELDS] + list(st["ext"]))
+    return out, elbo, _trace_out(trace, log_every, state.device)
 
 
 def fused_fullrank_run_chunk_reference(
     model: str, consts, scalars, vec, mat, seed, it0: int, steps: int,
     n_samples: int, hyp: FusedHyper, noise=None, log_every: int = 0,
+    branch: FusedBranch = DEFAULT_BRANCH,
 ):
     """Plain version of csrc/fused_advi_fullrank.cu (the reference kernel's
-    FULLRANK branch): a Python loop over steps with the kernel's math.
-    ``vec``: (4, d) rows FR_VEC_FIELDS; ``mat``: (4, d, d) FR_MAT_FIELDS.
-    Returns ``(vec, mat, elbo (), trace (steps // log_every,) or None)``."""
+    FULLRANK branches, VarGrad excepted): a Python loop over steps with the
+    kernel's math.  ``vec``: (4, d) rows FR_VEC_FIELDS; ``mat``: (4, d, d)
+    FR_MAT_FIELDS; each followed by COCOB's three ext rows or matrices.
+    Only lower triangles move.  Returns ``(vec, mat, elbo (), trace
+    (steps // log_every,) or None)``."""
+    branch.codes()
+    if branch.grad_est != GE_REPGRAD:
+        raise ValueError("the full-rank fused engine has no VarGrad branch (mean-field only)")
     d = vec.shape[1]
     n = n_samples
     inv_n = _f32(1.0 / n)
-    mu, m_mu, v_mu, a_mu = vec.unbind(0)
-    sig, m_sig, v_sig, a_sig = mat.unbind(0)
-    ln_b1 = np.log(np.float32(hyp.b1))
-    ln_b2 = np.log(np.float32(hyp.b2))
+    v, m = vec.unbind(0), mat.unbind(0)
+    st = dict(zip(FR_VEC_FIELDS, v[:4]), **dict(zip(FR_MAT_FIELDS, m[:4])))
+    st["ext"] = tuple(v[4:]) + tuple(m[4:])
+    lower = torch.ones(d, d, dtype=torch.bool, device=vec.device).tril()
     elbo = torch.zeros((), dtype=torch.float32, device=vec.device)
     trace = []
     for s in range(steps):
         it = it0 + s
-        if noise is not None:
-            u = noise[s]
-        else:
-            u = philox_normals_reference(seed, it, n, d, device=vec.device)
+        u = _draw(noise, seed, it, s, n, d, vec.device)
+        sig = st["sig"]
         C = torch.tril(sig)
-        z = u @ C.T + mu
+        z = u @ C.T + st["mu"]
         logpi, grad = _model_logpi_grad(model, consts, scalars, z)
-        # whitening C^{-T} u_i, row form u C^{-1}
-        whiten = torch.linalg.solve_triangular(C, u, upper=False, left=False)
-        g_z = -inv_n * (grad + whiten)
+        if branch.entropy == ENT_CF_ZERO:
+            g_z = -inv_n * grad
+        else:
+            # whitening C^{-T} u_i, row form u C^{-1}
+            whiten = torch.linalg.solve_triangular(C, u, upper=False, left=False)
+            g_z = -inv_n * (grad + whiten)
         dmu = torch.sum(g_z, dim=0)
         dsig = torch.tril(g_z.T @ u)
-        logdet = torch.sum(torch.log(torch.diagonal(sig)))
-        elbo = inv_n * torch.sum(logpi) + (
-            logdet + inv_n * (0.5 * torch.sum(u * u)) + 0.5 * d * _L2PI
-        )
+        diag = torch.diagonal(sig)
+        if branch.entropy == ENT_STL_ZERO:
+            dsig = dsig + torch.diag(1.0 / diag)
+        logdet = torch.sum(torch.log(diag))
+        elbo = inv_n * torch.sum(logpi) + _entropy_value(branch, logdet, u, inv_n)
         c = np.float32(it) + np.float32(1.0)
-        bc1 = _f32(np.float32(1.0) - np.exp(c * ln_b1))
-        bc2 = _f32(np.float32(1.0) - np.exp(c * ln_b2))
-        m_mu, v_mu, upd = _adam_candidate(hyp, bc1, bc2, m_mu, v_mu, dmu)
-        mu = mu + upd
-        m_sig, v_sig, upd = _adam_candidate(hyp, bc1, bc2, m_sig, v_sig, dsig)
-        sig = sig + upd
-        # ClipScale on the diagonal only
-        sig = torch.diagonal_scatter(sig, torch.clamp_min(torch.diagonal(sig), hyp.clip_eps))
-        w = _f32((np.float32(hyp.avg_eta) + 1) / (c + np.float32(hyp.avg_eta)))
-        a_mu = (1.0 - w) * a_mu + w * mu
-        a_sig = (1.0 - w) * a_sig + w * sig
+        eta = _rule_step(branch, hyp, c, st, dmu, dsig, lower)
+        post = torch.diagonal(st["sig"])
+        if branch.operator == OP_CLIP:
+            st["sig"] = torch.diagonal_scatter(st["sig"], torch.clamp_min(post, hyp.clip_eps))
+        elif branch.operator == OP_PROX:
+            st["sig"] = torch.diagonal_scatter(st["sig"], _prox(post, eta))
+        st["avg_mu"] = _avg(hyp, c, st["avg_mu"], st["mu"])
+        st["avg_sig"] = _avg(hyp, c, st["avg_sig"], st["sig"])
         if log_every and (s + 1) % log_every == 0:
             trace.append(elbo)
-    tr = None
-    if log_every:
-        tr = torch.stack(trace) if trace else torch.zeros(0, dtype=torch.float32, device=vec.device)
-    return (torch.stack([mu, m_mu, v_mu, a_mu]), torch.stack([sig, m_sig, v_sig, a_sig]),
-            elbo, tr)
+    ext = st["ext"]
+    return (torch.stack([st[f] for f in FR_VEC_FIELDS] + list(ext[:3])),
+            torch.stack([st[f] for f in FR_MAT_FIELDS] + list(ext[3:])),
+            elbo, _trace_out(trace, log_every, vec.device))
 
 
-_FULLRANK_ARGTYPES = (
-    [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-     ctypes.c_float, ctypes.c_float]
-    + [ctypes.c_void_p] * 7
-    + [ctypes.c_int] * 4
+# ---------------------------------------------------------------------------
+# The kernels' wrappers
+# ---------------------------------------------------------------------------
+
+_ARGS_HEAD = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+              ctypes.c_float, ctypes.c_float]
+_ARGS_TAIL = (
+    [ctypes.c_int] * 4
     + [ctypes.c_uint32, ctypes.c_uint32, ctypes.c_uint64]
     + [ctypes.c_float] * 6
+    + [ctypes.c_int] * 4 + [ctypes.c_float]
     + [ctypes.c_void_p]
 )
+_MEANFIELD_ARGTYPES = _ARGS_HEAD + [ctypes.c_void_p] * 5 + _ARGS_TAIL
+_FULLRANK_ARGTYPES = _ARGS_HEAD + [ctypes.c_void_p] * 7 + _ARGS_TAIL
+
+
+def _model_args(model: str, consts, scalars, d: int, dev, full_rank: bool):
+    """(c0, c1, n_data, db, s0, s1) of a model, its shapes checked."""
+    c0, c1 = consts
+    if model == LOGREG:
+        n_data, db = c0.shape
+        check_f32("X", c0, (n_data, db), dev)
+        check_f32("y", c1, (n_data,), dev)
+        if db + 1 != d:
+            raise ValueError(f"logreg with {db} features needs d = {db + 1}, got {d}")
+        return c0, c1, n_data, db, float(scalars[0]), float(scalars[1])
+    if model == MVNORMAL and full_rank:
+        check_f32("mean", c0, (d,), dev)
+        check_f32("precision", c1, (d, d), dev)
+    elif model == GAUSSIAN:
+        check_f32("mean", c0, (d,), dev)
+        check_f32("inverse variance", c1, (d,), dev)
+    else:
+        raise ValueError(f"no fused model {model!r} for this family")
+    return c0, c1, 0, 0, float(scalars[0]), 0.0
+
+
+def _check_branch_shape(branch: FusedBranch, d: int) -> Tuple[int, int, int, int]:
+    codes = branch.codes()
+    if branch.algo in (ALGO_DOWG, ALGO_DOG) and d < 2:
+        raise ValueError(
+            f"{branch.algo} keeps [v, r] in lanes 0 and 1 of v_mu: it needs d >= 2, got {d}"
+        )
+    return codes
+
+
+def _count(wrapper, model: str, branch: FusedBranch) -> None:
+    wrapper.launches += 1
+    for g in branch.groups(model):
+        wrapper.group_launches[g] += 1
+
+
+def fused_run_chunk_cuda(
+    model: str, consts, scalars, state, seed, it0: int, steps: int, n_samples: int,
+    hyp: FusedHyper, noise=None, log_every: int = 0, branch: FusedBranch = DEFAULT_BRANCH,
+):
+    """Launch csrc/fused_advi_meanfield.cu on the current stream (same
+    signature and results as ``fused_run_chunk_reference``).  Adds one to
+    ``fused_run_chunk_cuda.launches`` per launch, and to each of the
+    branch's LAUNCH_GROUPS in ``group_launches``."""
+    dev = state.device
+    if not state.is_cuda:
+        raise ValueError(f"fused_run_chunk_cuda needs CUDA tensors, got {dev}")
+    d = state.shape[1]
+    n = int(n_samples)
+    codes = _check_branch_shape(branch, d)
+    if branch.grad_est == GE_SCOREGRAD and n < 2:
+        raise ValueError(f"VarGrad needs n_samples >= 2, got {n}")
+    n_rows = 8 + branch.ext_rows
+    check_f32("state", state, (n_rows, d), dev)
+    c0, c1, n_data, db, s0, s1 = _model_args(model, consts, scalars, d, dev, False)
+    if noise is not None:
+        check_f32("noise", noise, (steps, n, d), dev)
+    code = MODEL_CODES[model]
+    smem = _build.function(
+        "fused_advi_meanfield", "fused_advi_meanfield_smem_bytes",
+        [ctypes.c_int] * 6, restype=ctypes.c_size_t,
+    )(code, n_data, db, n, d, n_rows)
+    if smem > _build.SMEM_LIMIT:
+        raise ValueError(
+            f"the fused kernel keeps the model's data, the draws and the "
+            f"state in shared memory: {smem} bytes for n_data={n_data}, d={d}, "
+            f"n={n}, {n_rows} state rows is over the {_build.SMEM_LIMIT}-byte "
+            f"limit of one block"
+        )
+    fn = _build.function("fused_advi_meanfield", "fused_advi_meanfield", _MEANFIELD_ARGTYPES)
+    out = torch.empty((n_rows, d), dtype=torch.float32, device=dev)
+    elbo = torch.empty((), dtype=torch.float32, device=dev)
+    trace = (
+        torch.empty(steps // log_every, dtype=torch.float32, device=dev)
+        if log_every else None
+    )
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(
+            code, c0.data_ptr(), c1.data_ptr(), n_data, db, s0, s1,
+            state.data_ptr(), out.data_ptr(), elbo.data_ptr(),
+            trace.data_ptr() if trace is not None else None,
+            noise.data_ptr() if noise is not None else None,
+            n, d, steps, log_every, seed[0], seed[1], it0,
+            hyp.lr, hyp.b1, hyp.b2, hyp.eps, hyp.avg_eta, hyp.clip_eps,
+            *codes, branch.cocob_alpha, stream,
+        )
+    _build.check(err, "fused_advi_meanfield launch")
+    _count(fused_run_chunk_cuda, model, branch)
+    return out, elbo, trace
+
+
+fused_run_chunk_cuda.launches = 0
+fused_run_chunk_cuda.group_launches = dict.fromkeys(LAUNCH_GROUPS, 0)
+
+
+def fused_run_chunk(model, consts, scalars, state, seed, it0, steps, n_samples, hyp,
+                    noise=None, log_every=0, branch=DEFAULT_BRANCH):
+    """The mean-field kernel for CUDA tensors, its plain version for CPU tensors."""
+    args = (model, consts, scalars, state, seed, it0, steps, n_samples, hyp, noise,
+            log_every, branch)
+    if state.is_cuda:
+        return fused_run_chunk_cuda(*args)
+    if state.device.type == "cpu":
+        return fused_run_chunk_reference(*args)
+    raise ValueError(f"no fused engine for device {state.device}")
 
 
 def fused_fullrank_run_chunk_cuda(
     model: str, consts, scalars, vec, mat, seed, it0: int, steps: int,
     n_samples: int, hyp: FusedHyper, noise=None, log_every: int = 0,
+    branch: FusedBranch = DEFAULT_BRANCH,
 ):
     """Launch csrc/fused_advi_fullrank.cu on the current stream (same
     signature and results as ``fused_fullrank_run_chunk_reference``).  Adds
-    one to ``fused_fullrank_run_chunk_cuda.launches`` per launch."""
+    one to ``fused_fullrank_run_chunk_cuda.launches`` per launch, and to
+    each of the branch's LAUNCH_GROUPS in ``group_launches``."""
     dev = vec.device
     if not vec.is_cuda:
         raise ValueError(f"fused_fullrank_run_chunk_cuda needs CUDA tensors, got {dev}")
     d = vec.shape[1]
     n = int(n_samples)
-    check_f32("vec", vec, (4, d), dev)
-    check_f32("mat", mat, (4, d, d), dev)
-    if model == LOGREG:
-        X, y = consts
-        n_data, db = X.shape
-        check_f32("X", X, (n_data, db), dev)
-        check_f32("y", y, (n_data,), dev)
-        if db + 1 != d:
-            raise ValueError(f"logreg with {db} features needs d = {db + 1}, got {d}")
-        s0, s1 = scalars
-    elif model == MVNORMAL:
-        X, y = consts  # the mean and the precision
-        n_data, db = 0, 0
-        check_f32("mean", X, (d,), dev)
-        check_f32("precision", y, (d, d), dev)
-        s0, s1 = scalars[0], 0.0
-    else:
-        raise ValueError(f"unknown fused model {model!r}")
+    codes = _check_branch_shape(branch, d)
+    if branch.grad_est != GE_REPGRAD:
+        raise ValueError("the full-rank fused engine has no VarGrad branch (mean-field only)")
+    k = 4 + branch.ext_rows // 2
+    check_f32("vec", vec, (k, d), dev)
+    check_f32("mat", mat, (k, d, d), dev)
+    c0, c1, n_data, db, s0, s1 = _model_args(model, consts, scalars, d, dev, True)
     if noise is not None:
         check_f32("noise", noise, (steps, n, d), dev)
     code = MODEL_CODES[model]
     smem = _build.function(
         "fused_advi_fullrank", "fused_advi_fullrank_smem_bytes",
-        [ctypes.c_int] * 5, restype=ctypes.c_size_t,
-    )(code, n_data, db, n, d)
+        [ctypes.c_int] * 6, restype=ctypes.c_size_t,
+    )(code, n_data, db, n, d, k)
     if smem > _build.SMEM_LIMIT:
         raise ValueError(
             f"the full-rank fused kernel keeps the draws and the model's "
@@ -511,26 +779,29 @@ def fused_fullrank_run_chunk_cuda(
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(
-            code, X.data_ptr(), y.data_ptr(), n_data, db, s0, s1,
+            code, c0.data_ptr(), c1.data_ptr(), n_data, db, s0, s1,
             vec.data_ptr(), mat.data_ptr(), vec_out.data_ptr(), mat_out.data_ptr(),
             elbo.data_ptr(), trace.data_ptr() if trace is not None else None,
             noise.data_ptr() if noise is not None else None,
             n, d, steps, log_every, seed[0], seed[1], it0,
-            hyp.lr, hyp.b1, hyp.b2, hyp.eps, hyp.avg_eta, hyp.clip_eps, stream,
+            hyp.lr, hyp.b1, hyp.b2, hyp.eps, hyp.avg_eta, hyp.clip_eps,
+            *codes, branch.cocob_alpha, stream,
         )
     _build.check(err, "fused_advi_fullrank launch")
-    fused_fullrank_run_chunk_cuda.launches += 1
+    _count(fused_fullrank_run_chunk_cuda, model, branch)
     return vec_out, mat_out, elbo, trace
 
 
 fused_fullrank_run_chunk_cuda.launches = 0
+fused_fullrank_run_chunk_cuda.group_launches = dict.fromkeys(LAUNCH_GROUPS, 0)
 
 
 def fused_fullrank_run_chunk(model, consts, scalars, vec, mat, seed, it0, steps,
-                             n_samples, hyp, noise=None, log_every=0):
+                             n_samples, hyp, noise=None, log_every=0,
+                             branch=DEFAULT_BRANCH):
     """The full-rank kernel for CUDA tensors, its plain version for CPU tensors."""
     args = (model, consts, scalars, vec, mat, seed, it0, steps, n_samples, hyp,
-            noise, log_every)
+            noise, log_every, branch)
     if vec.is_cuda:
         return fused_fullrank_run_chunk_cuda(*args)
     if vec.device.type == "cpu":
@@ -544,11 +815,17 @@ def fused_fullrank_run_chunk(model, consts, scalars, vec, mat, seed, it0, steps,
 
 
 class FusedADVI:
-    """Whole-loop fused engine: mean-field or full-rank ADVI + STL + Adam +
-    ClipScale + polynomial averaging on a ``FusedModelSpec`` target, one
-    kernel launch per ``steps`` chunk.  The engine runs where the model's
-    tensors lie.  Mean-field takes the logreg model; full-rank takes logreg
-    and mvnormal at d <= D_FULLRANK_MAX."""
+    """Whole-loop fused engine on a ``FusedModelSpec`` target, one kernel
+    launch per ``steps`` chunk; the engine runs where the model's tensors
+    lie.  Mean-field takes the logreg and Gaussian models; full-rank takes
+    logreg, mvnormal and Gaussian at d <= D_FULLRANK_MAX.
+
+    By default it reproduces ADVI + STL + Adam + ClipScale + polynomial
+    averaging.  The branch is the plain attributes ``algo``, ``entropy``,
+    ``grad_est`` and ``operator`` (JAX's string values; ``FusedProxADVI``
+    and ``FusedScoreGradVI`` set them), ``alpha`` (DoWG/DoG's r0 scale) and
+    ``cocob_alpha``; set ``algo`` before ``init``, which lays out the
+    rule's state."""
 
     def __init__(
         self,
@@ -566,7 +843,7 @@ class FusedADVI:
             raise ValueError(
                 f"family must be '{MEANFIELD}' or '{FULLRANK}', got {family!r}"
             )
-        ported = (LOGREG,) if family == MEANFIELD else (LOGREG, MVNORMAL)
+        ported = (LOGREG, GAUSSIAN) if family == MEANFIELD else (LOGREG, MVNORMAL, GAUSSIAN)
         if model.model not in ported:
             raise NotImplementedError(
                 f"fused model {model.model!r} is not ported yet for the "
@@ -585,10 +862,32 @@ class FusedADVI:
         self.dim = model.dim
         self.n_samples = n_samples
         self.hyp = FusedHyper(lr, b1, b2, eps, avg_eta, clip_eps)
+        self.algo = ALGO_ADAM
+        self.entropy = ENT_STL
+        self.grad_est = GE_REPGRAD
+        self.operator = OP_CLIP
+        self.alpha = 1e-6  # DoWG/DoG: r0 = alpha (1 + ||x0||)
+        self.cocob_alpha = 100.0  # COCOB's bet-fraction floor (optim/rules.py)
+
+    def branch(self) -> FusedBranch:
+        """The kernel branch of the engine's attributes, checked."""
+        b = FusedBranch(self.algo, self.entropy, self.grad_est, self.operator,
+                        float(self.cocob_alpha))
+        _check_branch_shape(b, self.dim)
+        if b.grad_est == GE_SCOREGRAD:
+            if self.family != MEANFIELD:
+                raise ValueError("the VarGrad fused engine is mean-field only")
+            if self.n_samples < 2:
+                raise ValueError(
+                    "the VarGrad estimator needs n_samples >= 2 (sample "
+                    f"variance), got {self.n_samples}"
+                )
+        return b
 
     def init(self, location: torch.Tensor, scale: torch.Tensor) -> FusedADVIState:
         """``scale``: the (d,) diagonal (mean-field) or the (d, d) factor
-        (full-rank; its lower triangle is taken)."""
+        (full-rank; its lower triangle is taken).  The rule's state follows
+        ``self.algo`` (the JAX engine's layout)."""
         d = self.dim
         dev = self.model.device
         scale_shape = (d,) if self.family == MEANFIELD else (d, d)
@@ -597,15 +896,28 @@ class FusedADVI:
                 f"expected a ({d},) location and a {scale_shape} scale, got "
                 f"{tuple(location.shape)} and {tuple(scale.shape)}"
             )
+        self.branch()
         mu = location.detach().to(device=dev, dtype=torch.float32).clone()
         sig = scale.detach().to(device=dev, dtype=torch.float32).clone()
         if self.family == FULLRANK:
             sig = torch.tril(sig)
         zeros, zeros_s = torch.zeros_like(mu), torch.zeros_like(sig)
+        m_mu, v_mu, m_sig, ext = zeros, zeros.clone(), zeros_s, None
+        if self.algo == ALGO_COCOB:
+            # x1 = m_*, L = v_* (zeros), (G, reward, theta) in ext
+            m_mu, m_sig = mu.clone(), sig.clone()
+            ext = (zeros.clone(), zeros.clone(), zeros.clone(),
+                   zeros_s.clone(), zeros_s.clone(), zeros_s.clone())
+        elif self.algo in (ALGO_DOWG, ALGO_DOG):
+            # x0 = m_*, v_mu = [v, r, 0, ...], r0 = alpha (1 + ||x0||)
+            m_mu, m_sig = mu.clone(), sig.clone()
+            norm0 = torch.sqrt(torch.sum(mu * mu) + torch.sum(sig * sig))
+            v_mu = torch.cat([zeros[:1], (np.float32(self.alpha) * (1.0 + norm0)).reshape(1),
+                              zeros[2:]])
         return FusedADVIState(
-            mu=mu, sig=sig, m_mu=zeros, v_mu=zeros.clone(), m_sig=zeros_s,
+            mu=mu, sig=sig, m_mu=m_mu, v_mu=v_mu, m_sig=m_sig,
             v_sig=zeros_s.clone(), avg_mu=mu.clone(), avg_sig=sig.clone(),
-            iteration=0, elbo=torch.zeros((), dtype=torch.float32, device=dev),
+            iteration=0, elbo=torch.zeros((), dtype=torch.float32, device=dev), ext=ext,
         )
 
     def run_chunk(self, state: FusedADVIState, key: SeedLike, steps: int,
@@ -650,6 +962,13 @@ class FusedADVI:
                 f"traced chunks need steps % log_every == 0, got "
                 f"{steps}/{log_every}"
             )
+        branch = self.branch()
+        cocob = branch.algo == ALGO_COCOB
+        if cocob and state.ext is None:
+            raise ValueError(
+                "COCOB needs a state created with algo='cocob' "
+                "(its ext accumulators are missing)"
+            )
         dev = model.device
         if noise is not None:
             noise = noise.to(device=dev, dtype=torch.float32).contiguous()
@@ -662,20 +981,18 @@ class FusedADVI:
             empty = torch.zeros(0, dtype=torch.float32, device=dev)
             return state, (empty if log_every else None)
         it_end = state.iteration + steps
+        args = (seed_words(key), state.iteration, steps, self.n_samples, self.hyp, noise,
+                log_every, branch)
+        # another rule's ext rows ride through untouched
+        keep = None if cocob else state.ext
         if self.family == FULLRANK:
-            vec, mat = state.stacked_fullrank()
+            vec, mat = state.stacked_fullrank(with_ext=cocob)
             vec, mat, elbo, trace = fused_fullrank_run_chunk(
-                model.model, model.consts, model.scalars, vec, mat,
-                seed_words(key), state.iteration, steps, self.n_samples,
-                self.hyp, noise, log_every,
-            )
-            return FusedADVIState.from_fullrank(vec, mat, it_end, elbo), trace
-        X, y = model.consts
+                model.model, model.consts, model.scalars, vec, mat, *args)
+            return FusedADVIState.from_fullrank(vec, mat, it_end, elbo, keep), trace
         rows, elbo, trace = fused_run_chunk(
-            X, y, model.scalars, state.stacked(), seed_words(key),
-            state.iteration, steps, self.n_samples, self.hyp, noise, log_every,
-        )
-        return FusedADVIState.from_stacked(rows, it_end, elbo), trace
+            model.model, model.consts, model.scalars, state.stacked(with_ext=cocob), *args)
+        return FusedADVIState.from_stacked(rows, it_end, elbo, keep), trace
 
     # -- the optimize loop with the library contract ------------------------
 
@@ -744,6 +1061,92 @@ class FusedADVI:
         if self.family == MEANFIELD:
             return MeanFieldGaussian(mu, sig)
         return FullRankGaussian(mu, sig)
+
+
+class FusedProxADVI(FusedADVI):
+    """Whole-loop proximal ADVI: mean-field or full-rank x {descent, DoWG,
+    DoG} with a zero-gradient entropy and the closed-form entropy proximal
+    step; reproduces ``KLMinRepGradProxDescent(entropy_zerograd=entropy,
+    optimizer=descent(lr) | dowg(alpha) | dog(alpha))`` with polynomial
+    averaging.  With the default closed-form zero-gradient entropy the
+    full-rank kernel skips the whitening solve."""
+
+    def __init__(
+        self,
+        model: FusedModelSpec,
+        family: str = MEANFIELD,
+        n_samples: int = 10,
+        optimizer: str = ALGO_DOWG,
+        lr: float = 1e-3,
+        alpha: float = 1e-6,
+        entropy: str = ENT_CF_ZERO,
+        avg_eta: float = 8.0,
+    ):
+        if optimizer not in ETA_ALGOS:
+            raise ValueError(
+                f"optimizer must be one of {ETA_ALGOS}, got {optimizer!r} "
+                "(proximal steps need an extractable step size - "
+                "optim/rules.py stepsize_from_opt_state)"
+            )
+        if entropy not in (ENT_CF_ZERO, ENT_STL_ZERO):
+            raise ValueError(
+                "proximal engines need a zero-gradient entropy estimator "
+                f"('{ENT_CF_ZERO}' or '{ENT_STL_ZERO}'), got {entropy!r}"
+            )
+        super().__init__(model, family=family, n_samples=n_samples, lr=lr,
+                         avg_eta=avg_eta)
+        self.algo = optimizer
+        self.entropy = entropy
+        self.operator = OP_PROX
+        self.alpha = alpha
+
+
+class FusedScoreGradVI(FusedADVI):
+    """Whole-loop BBVI: the VarGrad score-function gradient
+    (``KLMinScoreGradDescent``, objectives/scoregradelbo.py) with {Adam,
+    descent, DoWG, DoG, COCOB} x {no operator, ClipScale}, mean-field only.
+    The kernel evaluates log pi only, never its gradient.  Defaults mirror
+    ``KLMinScoreGradDescent()``: DoWG, no operator (with its warning),
+    polynomial averaging; n_samples >= 2."""
+
+    def __init__(
+        self,
+        model: FusedModelSpec,
+        n_samples: int = 10,
+        optimizer: str = ALGO_DOWG,
+        lr: float = 1e-3,
+        alpha: float = 1e-6,
+        operator: str = OP_NONE,
+        avg_eta: float = 8.0,
+        clip_eps: float = 1e-5,
+    ):
+        if optimizer not in ALGO_CODES:
+            raise ValueError(
+                f"optimizer must be one of {tuple(ALGO_CODES)}, got {optimizer!r}"
+            )
+        if operator not in (OP_NONE, OP_CLIP):
+            raise ValueError(
+                f"operator must be '{OP_NONE}' or '{OP_CLIP}', got "
+                f"{operator!r} (the entropy proximal step is specific to "
+                "the zero-gradient RepGrad objectives)"
+            )
+        if n_samples < 2:
+            raise ValueError(
+                "the VarGrad estimator needs n_samples >= 2 (sample "
+                f"variance), got {n_samples}"
+            )
+        if operator == OP_NONE:
+            warnings.warn(
+                "IdentityOperator is used with a location-scale variational "
+                "family. Optimization can fail due to singular scale "
+                "matrices; consider using ClipScale."
+            )
+        super().__init__(model, family=MEANFIELD, n_samples=n_samples, lr=lr,
+                         avg_eta=avg_eta, clip_eps=clip_eps)
+        self.algo = optimizer
+        self.grad_est = GE_SCOREGRAD
+        self.operator = operator
+        self.alpha = alpha
 
 
 class FusedLogRegADVI(FusedADVI):

@@ -8,6 +8,7 @@ from dataclasses import dataclass
 import torch
 
 from ..families.location_scale import FullRankLocationScale, MeanFieldLocationScale
+from .rules import stepsize_from_opt_state
 
 
 @dataclass(frozen=True)
@@ -35,3 +36,33 @@ class ClipScale:
         if isinstance(q, FullRankLocationScale):
             return q.with_scale_diag(torch.clamp_min(q.scale_diag_view(), self.epsilon))
         raise TypeError(f"ClipScale is not defined for family {type(q).__name__}")
+
+
+@dataclass(frozen=True)
+class ProximalLocationScaleEntropy:
+    """Closed-form proximal step for the entropy of a location-scale family
+    (reference proximal_location_scale_entropy.jl:20-61): on the scale
+    diagonal, sigma' = sigma / 2 + sqrt(sigma^2 + 4 gamma) / 2, with gamma
+    the step size the optimizer state holds (descent, DoG, DoWG only).
+    Mean-field: ``scale_diag``; full-rank: the diagonal only, through
+    ``with_scale_diag``."""
+
+    def apply(self, q, opt_state):
+        gamma = stepsize_from_opt_state(opt_state)
+        if gamma is None:
+            raise ValueError(
+                "ProximalLocationScaleEntropy requires an optimizer whose "
+                "step size is extractable from its state: descent, dog, dowg."
+            )
+
+        def prox(sigma):
+            return sigma / 2.0 + torch.sqrt(sigma * sigma + 4.0 * gamma) / 2.0
+
+        if isinstance(q, MeanFieldLocationScale):
+            return dataclasses.replace(q, scale_diag=prox(q.scale_diag))
+        if isinstance(q, FullRankLocationScale):
+            return q.with_scale_diag(prox(q.scale_diag_view()))
+        raise TypeError(
+            "ProximalLocationScaleEntropy only supports location-scale "
+            f"families, got {type(q).__name__}"
+        )

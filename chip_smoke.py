@@ -15,7 +15,11 @@ d = 62, through ``optimize`` with ``KLMinRepGradDescent`` and
 ``FullRankGaussian`` at d = 1024 and 256 samples a step (solve-free
 normal_fullrank_wellcond target, the K8 solve), and
 ``FusedADVI(family="fullrank")`` on the logreg (d = 62) and on a dense
-Gaussian (d = 512).  Phases:
+Gaussian (d = 512).  The proximal and score-gradient paths:
+``optimize`` with ``KLMinRepGradProxDescent`` and ``KLMinScoreGradDescent``
+and ``FusedProxADVI.optimize`` / ``FusedScoreGradVI.optimize`` on the
+flagship, and full-rank proximal ADVI on normal-lognormal (d = 11).
+Phases:
 
   (a) the card (nvidia-smi name and power limit);  (b) kernel builds;
   (c) the mean-field sampler against its plain version, normal statistics;
@@ -31,12 +35,21 @@ Gaussian (d = 512).  Phases:
       n = 256, the fused full-rank logreg engine to 20,000 steps, fused vs
       general on the same key at d = 62 and d = 512;
   (m) steps/s of the full-rank paths and the new kernels' times beside
-      their plain versions.
+      their plain versions;
+  (n) every branch added by the proximal/score-gradient slice (update
+      rules, zero-gradient entropies, prox, VarGrad, the diagonal-Gaussian
+      body) in both fused kernels against its plain version: noise,
+      Philox, chunking, tracing;
+  (o) the slice's general paths on the card through ``optimize``;
+  (p) the slice's fused engines: 20,000 steps on the flagship, fused vs
+      general on one key, full-rank prox against the analytic optimum;
+  (q) steps/s of the slice's fused engines beside their plain versions,
+      and of its two mean-field general paths.
 
 Every failed check raises and the script exits non-zero; it also exits
 non-zero without a CUDA device, or when the package is not beside it.  The
 line before the last is a JSON object of the kernels (launch counts from the
-main-path runs of (f), (g) and (l), errors, times); the last line is
+main-path runs of (f), (g), (l), (o) and (p), errors, times); the last line is
 ``{"ok": true, "device": {...}}``.  It imports no JAX.
 """
 
@@ -235,7 +248,8 @@ def phase_d(dev):
     s0 = initial_rows(d, dev)
     steps = 50
     noise = torch.randn((steps, N_SAMPLES, d), generator=torch.Generator().manual_seed(5)).to(dev)
-    args = (prob.X, prob.y, sc, s0, seed_words(SEED), 0, steps, N_SAMPLES, hyp, noise)
+    args = ("logreg", (prob.X, prob.y), sc, s0, seed_words(SEED), 0, steps, N_SAMPLES, hyp,
+            noise)
     k_rows, k_elbo, _ = fused_run_chunk_cuda(*args)
     r_rows, r_elbo, r_tr = fused_run_chunk_reference(*args, log_every=5)
     kt_rows, kt_elbo, k_tr = fused_run_chunk_cuda(*args, log_every=5)
@@ -262,7 +276,7 @@ def phase_e(dev):
     d = prob.dim
     sc, hyp, seed = (1.0, 3.0), FusedHyper(lr=LR), seed_words(SEED)
     s0 = initial_rows(d, dev)
-    base = (prob.X, prob.y, sc)
+    base = ("logreg", (prob.X, prob.y), sc)
     one, e1, _ = fused_run_chunk_cuda(*base, s0, seed, 0, 2000, N_SAMPLES, hyp)
     half, _, _ = fused_run_chunk_cuda(*base, s0, seed, 0, 1000, N_SAMPLES, hyp)
     two, e2, _ = fused_run_chunk_cuda(*base, half, seed, 1000, 1000, N_SAMPLES, hyp)
@@ -305,10 +319,21 @@ def wrappers():
 def reset_launches():
     for fn in wrappers().values():
         fn.launches = 0
+        for g in getattr(fn, "group_launches", {}):
+            fn.group_launches[g] = 0
 
 
 def read_launches():
-    return {name: fn.launches for name, fn in wrappers().items()}
+    """Each wrapper's count, and each launch group's (LAUNCH_GROUPS: the
+    K3 rules, VarGrad and the K4 Gaussian body) summed over both fused
+    kernels."""
+    from advancedvi_jl_tpu_torch.ops.cuda.fused_advi import LAUNCH_GROUPS
+
+    counts = {name: fn.launches for name, fn in wrappers().items()}
+    for g in LAUNCH_GROUPS:
+        counts[g] = sum(fn.group_launches[g] for fn in wrappers().values()
+                        if hasattr(fn, "group_launches"))
+    return counts
 
 
 def tail_elbo(infos) -> float:
@@ -401,7 +426,8 @@ def phase_h(dev, card):
     samp_plain = cuda_ms(lambda: meanfield_sample_reference(seed, 1, loc, sc, N_SAMPLES), 50)
     rows = initial_rows(d, dev)
     chunk = 200
-    args = (prob.X, prob.y, (1.0, 3.0), rows, seed, 0, chunk, N_SAMPLES, FusedHyper(lr=LR))
+    args = ("logreg", (prob.X, prob.y), (1.0, 3.0), rows, seed, 0, chunk, N_SAMPLES,
+            FusedHyper(lr=LR))
     fk_ms = cuda_ms(lambda: fused_run_chunk_cuda(*args), 20)
     fr_ms = cuda_ms(lambda: fused_run_chunk_reference(*args), 1)
     say("h", meanfield_sample_ms=samp_ms, meanfield_sample_plain_ms=samp_plain,
@@ -707,6 +733,374 @@ def phase_m(dev, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# The proximal and score-gradient slice: the rest of K3 and K4's Gaussian
+# ---------------------------------------------------------------------------
+
+NLN_DIMS = 10            # make_normallognormal(n_dims=10): d = 11
+NLN_STEPS = 50_000       # full-rank proximal ADVI against the analytic optimum
+NLN_GENERAL_STEPS = 1_000
+AGREE_STEPS = 2_000      # fused vs general on one key
+# DoWG and DoG start with r0 = 1e-6 (1 + |x0|): their first steps move the
+# scale by less than its float32 rounding, so there the plain version in
+# float32 is itself ~1e-3 from float64.  Their kernel/plain comparisons
+# start after this many steps of the kernel, where float32 holds ~1e-7.
+WARM = 300
+
+
+def slice_branches():
+    """The proximal branches and the VarGrad branches of phase (n)."""
+    from advancedvi_jl_tpu_torch.ops.cuda.fused_advi import FusedBranch
+
+    prox = [FusedBranch(a, e, "repgrad", "prox") for a in ("descent", "dowg", "dog")
+            for e in ("closed_form_zero_grad", "stl_zero_grad")]
+    vargrad = [FusedBranch(a, "stl", "scoregrad", o)
+               for a in ("adam", "descent", "dowg", "dog", "cocob") for o in ("clip", "none")]
+    return prox, vargrad
+
+
+def nln_target(dev):
+    """make_normallognormal(n_dims=10): (target, analytic location, scale)."""
+    from advancedvi_jl_tpu_torch.models.normallognormal import make_normallognormal
+
+    return make_normallognormal(SEED, NLN_DIMS, device=dev)
+
+
+def branch_cases(dev):
+    """Phase (n)'s cases: (tag, family, spec, initial scale, branch, lr,
+    DoWG/DoG alpha, warm-up steps, injected-noise steps, Philox steps)."""
+    import advancedvi_jl_tpu_torch as avt
+    from advancedvi_jl_tpu_torch.models.normal import normal_fullrank_wellcond
+    from advancedvi_jl_tpu_torch.ops.cuda.fused_advi import FusedBranch
+
+    prox, vargrad = slice_branches()
+    prob = flagship(dev)
+    lr_spec = avt.logreg_spec(prob.X, prob.y)
+    g_spec = avt.normallognormal_spec(nln_target(dev)[0])
+    _, mu, L = normal_fullrank_wellcond(3, FR_FUSED_D, device=dev)
+    d, dg = lr_spec.dim, g_spec.dim
+    mf_lr, mf_g = 0.1 * torch.ones(d), 0.2 * torch.ones(dg)
+    fr_lr, fr_g = 0.1 * torch.eye(d), 0.2 * torch.eye(dg)
+
+    def case(tag, family, spec, scale, b, lr=LR, alpha=1e-6, warm=None, steps=(50, 200)):
+        if warm is None:
+            warm = WARM if b.algo in ("dowg", "dog") else 0
+        return (tag, family, spec, scale, b, lr, alpha, warm) + steps
+
+    cases = [case("mf-logreg", "meanfield", lr_spec, mf_lr, b) for b in prox]
+    for b in vargrad:
+        if (b.algo, b.operator) == ("dowg", "none"):
+            # without ClipScale, sigma crosses zero within ~60 steps (the
+            # reference's own behaviour): 10 steps after 40
+            cases.append(case("mf-logreg", "meanfield", lr_spec, mf_lr, b, warm=40,
+                              steps=(10, 10)))
+        else:  # VarGrad's score gradient on the logreg is ~100x the pathwise one
+            cases.append(case("mf-logreg", "meanfield", lr_spec, mf_lr, b,
+                              lr=1e-5 if b.algo == "descent" else LR))
+    cases += [case("mf-gaussian", "meanfield", g_spec, mf_g, b)
+              for b in (FusedBranch(), prox[1], prox[2], vargrad[7], vargrad[8])]
+    for b in prox:
+        # full-rank proximal descent/DoWG/DoG on the logreg is fragile (the
+        # JAX package's own finding): a smaller step and r0 scale; DoWG's
+        # step size runs away after ~40 steps, so it is held for 10 after 20
+        if b.algo == "dowg":
+            cases.append(case("fr-logreg", "fullrank", lr_spec, fr_lr, b, alpha=1e-4, warm=20,
+                              steps=(10, 10)))
+        else:
+            cases.append(case("fr-logreg", "fullrank", lr_spec, fr_lr, b, lr=1e-4, alpha=1e-4,
+                              warm=100 if b.algo == "dog" else 0))
+        cases.append(case("fr-gaussian", "fullrank", g_spec, fr_g, b))
+    cases.append(case("fr-logreg", "fullrank", lr_spec, fr_lr,
+                      FusedBranch("cocob", "stl", "repgrad", "clip")))
+    cases.append(case("fr-mvnormal", "fullrank", avt.mvnormal_spec(mu, L), torch.eye(FR_FUSED_D),
+                      prox[2]))
+    return cases
+
+
+def case_engine(dev, family, spec, branch, lr, alpha):
+    from advancedvi_jl_tpu_torch.ops.cuda.fused_advi import FusedADVI
+
+    eng = FusedADVI(spec, family=family, n_samples=N_SAMPLES, lr=lr)
+    eng.algo, eng.entropy, eng.grad_est, eng.operator = (
+        branch.algo, branch.entropy, branch.grad_est, branch.operator)
+    eng.alpha = alpha
+    return eng
+
+
+def state_tensors(out, nr):
+    """The state rows (and full-rank matrices) of a run's first ``nr``
+    outputs, one tensor each."""
+    return [t for x in out[:nr] for t in x]
+
+
+def compare_tensors(tag, got, want, rtol):
+    """Each state row or matrix within ``rtol`` of the plain version,
+    norm-wise (max |a - b| <= rtol max |b|); returns the largest norm-wise
+    relative error."""
+    errs = [max_err(a, b) for a, b in zip(got, want)]
+    scales = [float(b.abs().max()) for b in want]
+    bad = [i for i, (e, m) in enumerate(zip(errs, scales)) if not e <= rtol * m]
+    if bad:
+        for i, (e, m) in enumerate(zip(errs, scales)):
+            print(f"    row {i}: max_abs_err={e:.3e} max_abs={m:.3e}", flush=True)
+    check(not bad, f"{tag}: state rows {bad} over rtol {rtol} (norm-wise)")
+    return max(e / m for e, m in zip(errs, scales) if m > 0)
+
+
+def parameter_err(out, nr):
+    """The largest absolute difference of the parameters and their
+    averages (mu, sig, avg_mu, avg_sig) between two runs' outputs."""
+    if nr == 1:  # mean-field rows STATE_FIELDS
+        return max(max_err(out[0][0][i], out[1][0][i]) for i in (0, 1, 6, 7))
+    (kv, km), (rv, rm) = out  # full-rank FR_VEC_FIELDS, FR_MAT_FIELDS
+    return max(max_err(a[i], b[i]) for a, b in ((kv, rv), (km, rm)) for i in (0, 3))
+
+
+def phase_n(dev):
+    """Every new branch of both fused kernels against its plain version:
+    50 steps of injected noise (rtol 1e-5, traced equal to untraced) and 200
+    Philox steps (rtol 1e-4, one launch equal to two), fewer for the two
+    runaway configurations (branch_cases).  Returns each launch group's
+    largest parameter error after the injected-noise steps."""
+    from advancedvi_jl_tpu_torch.ops.cuda.fused_advi import (
+        LAUNCH_GROUPS, fused_fullrank_run_chunk_cuda, fused_fullrank_run_chunk_reference,
+        fused_run_chunk_cuda, fused_run_chunk_reference,
+    )
+    from advancedvi_jl_tpu_torch.ops.cuda.location_scale_kernels import seed_words
+
+    seed = seed_words(SEED)
+    worst = dict.fromkeys(LAUNCH_GROUPS, 0.0)
+    t0 = time.perf_counter()
+    cases = branch_cases(dev)
+    for tag, family, spec, scale0, b, lr, alpha, warm, n_noise, n_philox in cases:
+        eng = case_engine(dev, family, spec, b, lr, alpha)
+        st = eng.init(torch.zeros(spec.dim, device=dev), scale0.to(dev))
+        if family == "fullrank":
+            rows = st.stacked_fullrank()
+            kern, plain = fused_fullrank_run_chunk_cuda, fused_fullrank_run_chunk_reference
+        else:
+            rows = (st.stacked(),)
+            kern, plain = fused_run_chunk_cuda, fused_run_chunk_reference
+        nr = len(rows)
+        branch = eng.branch()
+
+        def run(fn, rows, it0, steps, noise=None, log_every=0):
+            return fn(spec.model, spec.consts, spec.scalars, *rows, seed, it0, steps, N_SAMPLES,
+                      eng.hyp, noise, log_every, branch)
+
+        if warm:
+            rows = run(kern, rows, 0, warm)[:nr]
+        noise = torch.randn((n_noise, N_SAMPLES, spec.dim),
+                            generator=torch.Generator().manual_seed(5)).to(dev)
+        k = run(kern, rows, warm, n_noise, noise, n_noise // 5)
+        ku = run(kern, rows, warm, n_noise, noise)
+        r = run(plain, rows, warm, n_noise, noise, n_noise // 5)
+        one = run(kern, rows, warm, n_philox)
+        half = run(kern, rows, warm, n_philox // 2)
+        two = run(kern, half[:nr], warm + n_philox // 2, n_philox // 2)
+        ref = run(plain, rows, warm, n_philox)
+        torch.cuda.synchronize()
+        label = f"{tag}:{b.algo}/{b.entropy}/{b.grad_est}/{b.operator}"
+        check(all(bool(torch.isfinite(t).all()) for t in state_tensors(one, nr)),
+              f"{label}: not finite")
+        rel = compare_tensors(f"{label}, injected noise", state_tensors(k, nr),
+                              state_tensors(r, nr), 1e-5)
+        err = parameter_err((k[:nr], r[:nr]), nr)
+        check(torch.allclose(k[nr], r[nr], rtol=1e-5, atol=1e-4), f"{label}: ELBO differs")
+        check(torch.allclose(k[nr + 1], r[nr + 1], rtol=1e-5, atol=1e-4),
+              f"{label}: trace rows differ")
+        check(all(torch.equal(a, c) for a, c in zip(k[:nr + 1], ku[:nr + 1])),
+              f"{label}: traced and untraced launches differ")
+        check(all(torch.equal(a, c) for a, c in zip(one[:nr + 1], two[:nr + 1])),
+              f"{label}: one Philox launch differs from two")
+        compare_tensors(f"{label}, Philox, {n_philox} steps", state_tensors(one, nr),
+                        state_tensors(ref, nr), 1e-4)
+        check(torch.allclose(one[nr], ref[nr], rtol=1e-4, atol=1e-3),
+              f"{label}: ELBO after {n_philox} Philox steps differs")
+        for g in b.groups(spec.model):
+            worst[g] = max(worst[g], err)
+        say("n", case=label, d=spec.dim, warm=warm, steps=f"{n_noise},{n_philox}",
+            parameter_max_abs_err=f"{err:.3e}", state_max_rel_err=f"{rel:.3e}",
+            elbo_kernel=float(k[nr]), elbo_plain=float(r[nr]))
+    say("n", cases=len(cases), chunked_bitwise=True, traced_bitwise=True,
+        seconds=f"{time.perf_counter() - t0:.2f}")
+    return worst
+
+
+def slice_general(dev):
+    """(o) The slice's general paths through ``optimize``, with counted
+    launches: proximal ADVI and BBVI on the mean-field flagship, proximal
+    ADVI on the full-rank family and normal-lognormal."""
+    import advancedvi_jl_tpu_torch as avt
+    from advancedvi_jl_tpu_torch.ops.cuda.location_scale_kernels import PhiloxKey, seed_words
+
+    prob = flagship(dev)
+    d = prob.dim
+    q0 = avt.MeanFieldGaussian(torch.zeros(d, device=dev), 0.1 * torch.ones(d, device=dev))
+    t, mu, _ = nln_target(dev)
+    dg = mu.shape[0]
+    fq0 = avt.FullRankGaussian(torch.zeros(dg, device=dev), torch.eye(dg, device=dev),
+                               solve_mode="pallas")
+    runs = {
+        "prox": (avt.KLMinRepGradProxDescent(n_samples=N_SAMPLES, optimizer=avt.dowg()),
+                 prob.unconstrained(), q0, AGREE_STEPS),
+        "bbvi": (avt.KLMinScoreGradDescent(n_samples=N_SAMPLES, optimizer=avt.dowg(),
+                                           operator=avt.ClipScale()),
+                 prob.unconstrained(), q0, AGREE_STEPS),
+        "prox_fullrank_nln": (avt.KLMinRepGradProxDescent(n_samples=N_SAMPLES,
+                                                          optimizer=avt.dowg()),
+                              t.unconstrained(), fq0, NLN_GENERAL_STEPS),
+    }
+    # the ELBO of each start, 1,000 draws (not counted: before the reset)
+    key = PhiloxKey(seed_words(SEED + 1), 0)
+    start = {name: -float(alg.estimate_objective(key, q, target, n_samples=1000))
+             for name, (alg, target, q, _) in runs.items()}
+    torch.cuda.synchronize()
+    reset_launches()
+    out = {}
+    for name, (alg, target, q, steps) in runs.items():
+        t0 = time.perf_counter()
+        gq, infos, _ = avt.optimize(SEED, alg, steps, target, q, log_every=LOG_EVERY)
+        torch.cuda.synchronize()
+        elbos = [r["elbo"] for r in infos]
+        say("o", path=name, steps=steps, elbo_start=start[name], elbo_first_row=elbos[0],
+            elbo_last_row=elbos[-1], seconds=f"{time.perf_counter() - t0:.2f}")
+        check(all(math.isfinite(e) for e in elbos), f"general {name}: ELBO not finite")
+        check(elbos[-1] > start[name], f"general {name}: ELBO did not rise from the start")
+        out[name] = gq
+    counts = read_launches()
+    say("o", meanfield_sample_launches=counts["meanfield_sample"],
+        fullrank_sample_launches=counts["fullrank_sample"])
+    check(counts["meanfield_sample"] > 0, "the mean-field general paths launched no sampler")
+    check(counts["fullrank_sample"] > 0, "the full-rank general path launched no sampler")
+    return out, counts
+
+
+def slice_engines(dev):
+    """The slice's fused engines on the flagship, and full-rank proximal
+    ADVI on normal-lognormal: (name, engine, q0)."""
+    import advancedvi_jl_tpu_torch as avt
+
+    prob = flagship(dev)
+    spec = avt.logreg_spec(prob.X, prob.y)
+    d = prob.dim
+    q0 = avt.MeanFieldGaussian(torch.zeros(d, device=dev), 0.1 * torch.ones(d, device=dev))
+    t, mu, _ = nln_target(dev)
+    dg = mu.shape[0]
+    fq0 = avt.FullRankGaussian(torch.zeros(dg, device=dev), torch.eye(dg, device=dev))
+    return {
+        "prox": (avt.FusedProxADVI(spec, n_samples=N_SAMPLES), q0),
+        "bbvi": (avt.FusedScoreGradVI(spec, n_samples=N_SAMPLES, operator="clip"), q0),
+        "bbvi_cocob": (avt.FusedScoreGradVI(spec, n_samples=N_SAMPLES, optimizer="cocob",
+                                            operator="clip"), q0),
+        "prox_fullrank_nln": (avt.FusedProxADVI(avt.normallognormal_spec(t), family="fullrank",
+                                                n_samples=N_SAMPLES), fq0),
+    }
+
+
+def slice_fused(dev, general):
+    """(p) The slice's fused engines through ``optimize``, with counted
+    launches: tail ELBO at 20,000 steps on the flagship, fused vs general on
+    one key at 2,000, full-rank proximal ADVI on normal-lognormal against
+    the analytic optimum at 50,000."""
+    _, mu, sd = nln_target(dev)
+    engines = slice_engines(dev)
+    torch.cuda.synchronize()
+    reset_launches()
+    for name, (eng, q0) in engines.items():
+        t0 = time.perf_counter()
+        if name == "prox_fullrank_nln":
+            q, rows, _ = eng.optimize(SEED, NLN_STEPS, q0, log_every=1000)
+            torch.cuda.synchronize()
+            loc_err = max_err(q.location, mu)
+            diag_err = max_err(torch.diagonal(q.scale), sd)
+            say("p", engine=name, d=mu.shape[0], steps=NLN_STEPS, elbo_last=rows[-1]["elbo"],
+                location_max_abs_err=loc_err, scale_diag_max_abs_err=diag_err,
+                seconds=f"{time.perf_counter() - t0:.2f}")
+            check(loc_err < 0.02 and diag_err < 0.02,
+                  f"full-rank proximal ADVI: {loc_err}, {diag_err} from the optimum (>= 0.02)")
+            continue
+        qa, rows, st = eng.optimize(SEED, AGREE_STEPS, q0, log_every=LOG_EVERY)
+        _, more, _ = eng.optimize(SEED, FUSED_STEPS - AGREE_STEPS, state=st, log_every=LOG_EVERY)
+        torch.cuda.synchronize()
+        rows += more
+        tail = tail_elbo(rows)
+        fields = dict(engine=name, steps=FUSED_STEPS, elbo_last=rows[-1]["elbo"],
+                      elbo_tail_mean=tail, seconds=f"{time.perf_counter() - t0:.2f}")
+        if name in general:
+            diff = max_err(qa.location, general[name].location)
+            fields[f"averaged_location_max_abs_diff_vs_general_at_{AGREE_STEPS}"] = diff
+            check(diff <= 1e-3, f"fused vs general {name}: location {diff} > 1e-3 apart")
+        say("p", **fields)
+        check(all(math.isfinite(r["elbo"]) for r in rows), f"fused {name}: ELBO not finite")
+        check(tail > -150.0, f"fused {name}: tail ELBO {tail} <= -150 (not converged)")
+    counts = read_launches()
+    say("p", fused_meanfield_launches=counts["fused_advi_meanfield"],
+        fused_fullrank_launches=counts["fused_advi_fullrank"],
+        **{f"{g}_launches": counts[g] for g in ("k3_rules", "k3_vargrad", "k4_gaussian")})
+    for g in ("fused_advi_meanfield", "fused_advi_fullrank", "k3_rules", "k3_vargrad",
+              "k4_gaussian"):
+        check(counts[g] > 0, f"the slice's fused engines launched no {g} kernel")
+    return counts
+
+
+def phase_q(dev, card):
+    """Steps/s of each new fused engine beside its plain version (200-step
+    chunks, CUDA events; kernel, plain, kernel) and of the two mean-field
+    general paths over 500 steps."""
+    import advancedvi_jl_tpu_torch as avt
+    from advancedvi_jl_tpu_torch.ops.cuda.fused_advi import (
+        fused_fullrank_run_chunk_cuda, fused_fullrank_run_chunk_reference,
+        fused_run_chunk_cuda, fused_run_chunk_reference,
+    )
+    from advancedvi_jl_tpu_torch.ops.cuda.location_scale_kernels import seed_words
+
+    seed = seed_words(SEED)
+    engines = slice_engines(dev)
+    prob = flagship(dev)
+    fr = case_engine(dev, "fullrank", avt.logreg_spec(prob.X, prob.y),
+                     engines["prox"][0].branch(), LR, 1e-4)
+    engines["prox_fullrank_logreg"] = (fr, avt.FullRankGaussian(
+        torch.zeros(prob.dim, device=dev), 0.1 * torch.eye(prob.dim, device=dev)))
+    out = {}
+    for name, (eng, q0) in engines.items():
+        spec, branch = eng.model, eng.branch()
+        if eng.family == "fullrank":
+            rows = eng.init(q0.location, q0.scale_matrix()).stacked_fullrank()
+            kern, plain = fused_fullrank_run_chunk_cuda, fused_fullrank_run_chunk_reference
+        else:
+            rows = (eng.init(q0.location, q0.scale_diag).stacked(),)
+            kern, plain = fused_run_chunk_cuda, fused_run_chunk_reference
+        args = (spec.model, spec.consts, spec.scalars, *rows, seed, 0, 200, N_SAMPLES, eng.hyp,
+                None, 0, branch)
+        k_ms = cuda_ms(lambda: kern(*args), 10)
+        p_ms = cuda_ms(lambda: plain(*args), 1)
+        k_ms2 = cuda_ms(lambda: kern(*args), 10)
+        best = min(k_ms, k_ms2)
+        say("q", card=f"'{card}'", engine=name, d=spec.dim, chunk_steps=200,
+            kernel_ms=f"{k_ms},{k_ms2}", plain_ms=p_ms,
+            fused_steps_per_s=f"{200 / (best / 1e3):.1f}",
+            plain_steps_per_s=f"{200 / (p_ms / 1e3):.1f}")
+        out[name] = (best, p_ms)
+    target = prob.unconstrained()
+    d = prob.dim
+    q0 = avt.MeanFieldGaussian(torch.zeros(d, device=dev), 0.1 * torch.ones(d, device=dev))
+    for name, alg in (("prox", avt.KLMinRepGradProxDescent(n_samples=N_SAMPLES)),
+                      ("bbvi", avt.KLMinScoreGradDescent(n_samples=N_SAMPLES,
+                                                         operator=avt.ClipScale()))):
+        s = alg.init(SEED, q0, target)
+        for _ in range(50):
+            s, _ = alg.step(s)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(500):
+            s, _ = alg.step(s)
+        torch.cuda.synchronize()
+        say("q", card=f"'{card}'", general=name,
+            general_steps_per_s=f"{500 / (time.perf_counter() - t0):.1f}")
+    return out
+
+
 def main() -> int:
     card = phase_a()
     # full float32 matmuls for every comparison and both entry points
@@ -724,6 +1118,10 @@ def main() -> int:
     fr_fused_err = phase_k(dev)
     fr_counts = fullrank_paths(dev)
     fr_times = phase_m(dev, card)
+    slice_err = phase_n(dev)
+    general, _ = slice_general(dev)
+    slice_counts = slice_fused(dev, general)
+    slice_times = phase_q(dev, card)
     src = "advancedvi_jl_tpu_torch/csrc/"
     kernels = [
         {"name": "meanfield_sample", "route": "cuda", "source": src + "meanfield_sample.cu",
@@ -751,6 +1149,16 @@ def main() -> int:
          "ms": fr_times["fused_advi_fullrank_logreg"][0],
          "plain_ms": fr_times["fused_advi_fullrank_logreg"][1]},
     ]
+    fused = "advancedvi_jl_tpu/ops/pallas/fused_advi.py:"
+    for name, group, source, line, timed in (
+            ("fused_k3_rules", "k3_rules", "fused_common.cuh", 556, "prox"),
+            ("fused_k3_vargrad", "k3_vargrad", "fused_advi_meanfield.cu", 489, "bbvi"),
+            ("fused_k4_gaussian", "k4_gaussian", "fused_common.cuh", 1204,
+             "prox_fullrank_nln")):
+        kernels.append({"name": name, "route": "cuda", "source": src + source,
+                        "replaces": f"{fused}{line}", "launches": slice_counts[group],
+                        "max_abs_err": slice_err[group], "ms": slice_times[timed][0],
+                        "plain_ms": slice_times[timed][1]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

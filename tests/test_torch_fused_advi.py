@@ -210,8 +210,8 @@ def test_engine_checks(flagship):
     assert FusedADVI(spec, family="fullrank").family == "fullrank"
     with pytest.raises(ValueError, match="family"):
         FusedADVI(spec, family="lowrank")
-    with pytest.raises(NotImplementedError, match="K4"):
-        FusedADVI(spec.__class__(dim=2, consts=(), scalars=(), model="gaussian"))
+    with pytest.raises(NotImplementedError, match="K4"):  # minibatch models: not ported
+        FusedADVI(spec.__class__(dim=2, consts=(), scalars=(), model="logreg_minibatch"))
     with pytest.raises(NotImplementedError, match="K4"):  # mvnormal is full-rank only
         FusedADVI(spec.__class__(dim=2, consts=(), scalars=(), model="mvnormal"))
     eng = FusedADVI(spec, n_samples=N_SAMPLES)
@@ -233,8 +233,8 @@ def test_kernel_wrapper_refuses_cpu_tensors(flagship):
     _, tprob = flagship
     eng = _engine(tprob)
     rows = _init(eng).stacked()
-    args = (tprob.X, tprob.y, (1.0, 3.0), rows, (0, 0), 0, 2, N_SAMPLES, eng.hyp)
+    args = ("logreg", (tprob.X, tprob.y), (1.0, 3.0), rows, (0, 0), 0, 2, N_SAMPLES, eng.hyp)
     with pytest.raises(ValueError, match="CUDA"):
         fused_run_chunk_cuda(*args)
     with pytest.raises(ValueError, match="device"):
-        fused_run_chunk(tprob.X.to("meta"), *args[1:])
+        fused_run_chunk(*args[:3], rows.to("meta"), *args[4:])

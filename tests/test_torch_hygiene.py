@@ -47,7 +47,12 @@ def test_package_exports_the_slice():
     for name in ("optimize", "KLMinRepGradDescent", "MeanFieldGaussian", "STL",
                  "ClipScale", "PolynomialAveraging", "adam", "dowg",
                  "FusedLogRegADVI", "DivergenceError", "FullRankGaussian",
-                 "FullRankLocationScale", "mvnormal_spec", "FusedADVI"):
+                 "FullRankLocationScale", "mvnormal_spec", "FusedADVI",
+                 "KLMinRepGradProxDescent", "KLMinScoreGradDescent", "BBVI",
+                 "ScoreGradELBO", "descent", "dog", "cocob",
+                 "ProximalLocationScaleEntropy", "CLOSED_FORM_ZERO_GRAD", "STL_ZERO_GRAD",
+                 "FusedProxADVI", "FusedScoreGradVI", "gaussian_spec",
+                 "normallognormal_spec"):
         assert hasattr(advancedvi_jl_tpu_torch, name), name
     assert not _build._libs, "importing the package must not build or load kernels"
 
@@ -115,3 +120,23 @@ def test_chip_smoke_fails_outside_a_checkout(tmp_path):
     proc = _run_smoke(tmp_path, alone)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+def test_port_modules_load_no_jax_and_build_nothing():
+    """Importing every module of the port, the proximal and score-gradient
+    slice's included, pulls in no JAX and builds or loads no kernel."""
+    mods = sorted(".".join(p.relative_to(ROOT).with_suffix("").parts)
+                  for p in PORT.rglob("*.py") if p.name != "__init__.py")
+    assert "advancedvi_jl_tpu_torch.objectives.scoregradelbo" in mods
+    assert "advancedvi_jl_tpu_torch.models.normallognormal" in mods
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "from advancedvi_jl_tpu_torch.ops.cuda import _build\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'triton')]\n"
+        "assert not bad and not _build._libs, (bad, _build._libs)\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr

@@ -9,22 +9,28 @@ runs on its own:
 (``--noconftest`` skips tests/conftest.py, which configures JAX.)
 """
 
+import ctypes
+
 import pytest
 import torch
 
 from advancedvi_jl_tpu_torch.models.logreg import make_logreg
 from advancedvi_jl_tpu_torch.models.normal import normal_fullrank_wellcond
+from advancedvi_jl_tpu_torch.models.normallognormal import make_normallognormal
 from advancedvi_jl_tpu_torch.ops.cuda import _build
 from advancedvi_jl_tpu_torch.ops.cuda.fused_advi import (
     FusedADVI,
+    FusedBranch,
     FusedHyper,
     FusedLogRegADVI,
     fused_fullrank_run_chunk_cuda,
     fused_fullrank_run_chunk_reference,
     fused_run_chunk_cuda,
     fused_run_chunk_reference,
+    gaussian_spec,
     logreg_spec,
     mvnormal_spec,
+    normallognormal_spec,
 )
 from advancedvi_jl_tpu_torch.ops.cuda.location_scale_kernels import (
     fullrank_sample,
@@ -90,7 +96,7 @@ def test_fused_kernel_matches_plain_version(dev, injected):
     prob = make_logreg(11, device=dev)
     d = prob.dim
     noise = torch.randn((20, N, d), generator=torch.Generator().manual_seed(2)).to(dev)
-    args = (prob.X, prob.y, (1.0, 3.0), _rows(d, dev), seed_words(0), 0, 20, N,
+    args = ("logreg", (prob.X, prob.y), (1.0, 3.0), _rows(d, dev), seed_words(0), 0, 20, N,
             FusedHyper(), noise if injected else None)
     k_rows, k_elbo, k_tr = fused_run_chunk_cuda(*args, log_every=5)
     r_rows, r_elbo, r_tr = fused_run_chunk_reference(*args, log_every=5)
@@ -119,7 +125,8 @@ def test_fused_kernel_refuses_oversized_shared_memory(dev):
     X = torch.zeros(4096, 61, device=dev)
     y = torch.zeros(4096, device=dev)
     with pytest.raises(ValueError, match="shared"):
-        fused_run_chunk_cuda(X, y, (1.0, 3.0), _rows(62, dev), (0, 0), 0, 1, N, FusedHyper())
+        fused_run_chunk_cuda("logreg", (X, y), (1.0, 3.0), _rows(62, dev), (0, 0), 0, 1, N,
+                             FusedHyper())
 
 
 def _rel(a, b) -> float:
@@ -250,3 +257,161 @@ def test_built_libraries_report_no_spills(dev):
         spills = [ln for ln in log.splitlines() if "spill stores" in ln]
         assert spills and all(", 0 bytes spill stores, 0 bytes spill loads" in ln
                               for ln in spills), log
+
+
+# ---------------------------------------------------------------------------
+# The branches beyond STL x Adam x ClipScale: rules, entropies, operators,
+# VarGrad and the diagonal-Gaussian body, in both fused kernels
+# ---------------------------------------------------------------------------
+
+PROX = [FusedBranch(a, e, "repgrad", "prox") for a in ("descent", "dowg", "dog")
+        for e in ("closed_form_zero_grad", "stl_zero_grad")]
+VARGRAD = [FusedBranch(a, "stl", "scoregrad", o)
+           for a in ("adam", "descent", "dowg", "dog", "cocob") for o in ("clip", "none")]
+COCOB_FR = FusedBranch("cocob", "stl", "repgrad", "clip")
+
+
+def _case(family, model, branch, lr=1e-3, alpha=1e-6, warm=None, steps=50):
+    """DoWG and DoG start with r0 = 1e-6 (1 + |x0|): their first steps move
+    the scale by less than its float32 rounding, so there the plain version
+    in float32 is itself ~1e-3 from float64; their comparisons start after
+    300 steps of the kernel, where float32 holds ~1e-7."""
+    if warm is None:
+        warm = 300 if branch.algo in ("dowg", "dog") else 0
+    return pytest.param(family, model, branch, lr, alpha, warm, steps,
+                        id=f"{family}-{model}-{branch.algo}-{branch.entropy}-"
+                           f"{branch.grad_est}-{branch.operator}")
+
+
+# the cases of chip_smoke.py phase (n); VarGrad's score gradient on the
+# logreg is ~100x the pathwise one (descent's step 1e-5); without ClipScale
+# VarGrad-DoWG lets sigma cross zero within ~60 steps, and full-rank DoWG on
+# the logreg runs away after ~40 (both as in the JAX package): 10 steps
+# after a short warm-up there
+CASES = (
+    [_case("meanfield", "logreg", b) for b in PROX]
+    + [_case("meanfield", "logreg", b, lr=1e-5 if b.algo == "descent" else 1e-3)
+       for b in VARGRAD if (b.algo, b.operator) != ("dowg", "none")]
+    + [_case("meanfield", "logreg", VARGRAD[5], warm=40, steps=10)]
+    + [_case("meanfield", "gaussian", b) for b in (FusedBranch(), PROX[2], VARGRAD[8])]
+    + [_case("fullrank", "gaussian", b) for b in PROX]
+    + [_case("fullrank", "logreg", b, alpha=1e-4, warm=20, steps=10) for b in PROX[2:4]]
+    + [_case("fullrank", "logreg", b, lr=1e-4, alpha=1e-4, warm=100 if b.algo == "dog" else 0)
+       for b in PROX[:2] + PROX[4:]]
+    + [_case("fullrank", "logreg", COCOB_FR), _case("fullrank", "mvnormal", PROX[2])]
+)
+
+
+def _spec(model, dev):
+    """(spec, initial scale): the flagship logreg, normal-lognormal d = 11 or
+    the dense Gaussian d = 512."""
+    if model == "logreg":
+        prob = make_logreg(11, device=dev)
+        return logreg_spec(prob.X, prob.y), 0.1
+    if model == "mvnormal":
+        _, mu, L = normal_fullrank_wellcond(3, 512, device=dev)
+        return mvnormal_spec(mu, L), 1.0
+    t, _, _ = make_normallognormal(5, 10, device=dev)
+    return normallognormal_spec(t), 0.2
+
+
+def _engine(spec, family, branch, lr=1e-3, alpha=1e-6):
+    eng = FusedADVI(spec, family=family, n_samples=N, lr=lr)
+    eng.algo, eng.entropy, eng.grad_est, eng.operator = (
+        branch.algo, branch.entropy, branch.grad_est, branch.operator)
+    eng.alpha = alpha
+    return eng
+
+
+def _init(eng, s0):
+    d = eng.dim
+    return eng.init(torch.zeros(d), s0 * (torch.ones(d) if eng.family == "meanfield"
+                                          else torch.eye(d)))
+
+
+def _norm_close(got, want, rtol):
+    for a, b in zip(got, want):
+        assert (a - b).abs().max() <= rtol * b.abs().max()
+
+
+@pytest.mark.parametrize("family,model,branch,lr,alpha,warm,steps", CASES)
+def test_fused_branch_matches_plain_version(dev, family, model, branch, lr, alpha, warm, steps):
+    spec, s0 = _spec(model, dev)
+    eng = _engine(spec, family, branch, lr, alpha)
+    st = _init(eng, s0)
+    if family == "meanfield":
+        rows = (st.stacked(),)
+        kern, plain = fused_run_chunk_cuda, fused_run_chunk_reference
+    else:
+        rows = st.stacked_fullrank()
+        kern, plain = fused_fullrank_run_chunk_cuda, fused_fullrank_run_chunk_reference
+    nr = len(rows)
+    if warm:
+        rows = kern(spec.model, spec.consts, spec.scalars, *rows, seed_words(1), 0, warm, N,
+                    eng.hyp, branch=branch)[:nr]
+    noise = torch.randn((steps, N, spec.dim), generator=torch.Generator().manual_seed(2)).to(dev)
+    args = (spec.model, spec.consts, spec.scalars, *rows, seed_words(0), warm, steps, N,
+            eng.hyp, noise, steps // 5, branch)
+    before = dict(kern.group_launches)
+    k = kern(*args)
+    r = plain(*args)
+    torch.cuda.synchronize()
+    for g in branch.groups(spec.model):
+        assert kern.group_launches[g] == before[g] + 1, g
+    _norm_close([t for x in k[:nr] for t in x], [t for x in r[:nr] for t in x], 1e-5)
+    assert torch.allclose(k[nr], r[nr], rtol=1e-5, atol=1e-4)
+    assert torch.allclose(k[nr + 1], r[nr + 1], rtol=1e-5, atol=1e-4)
+    if family == "fullrank":
+        assert torch.equal(torch.triu(k[1], 1), torch.triu(rows[1], 1))
+
+
+@pytest.mark.parametrize("family,model,branch", [
+    ("meanfield", "logreg", PROX[4]), ("meanfield", "logreg", VARGRAD[-2]),
+    ("fullrank", "gaussian", PROX[3]), ("fullrank", "logreg", COCOB_FR)],
+    ids=lambda v: v if isinstance(v, str) else f"{v.algo}-{v.entropy}-{v.grad_est}")
+def test_fused_branch_chunks_and_traces_bitwise(dev, family, model, branch):
+    spec, s0 = _spec(model, dev)
+    eng = _engine(spec, family, branch)
+    st = _init(eng, s0)
+    whole = eng.run_chunk(st, 7, 60)
+    split = eng.run_chunk(eng.run_chunk(st, 7, 20), 7, 40)
+    traced, trace = eng.run_chunk_traced(st, 7, 60, log_every=10)
+    for f in ("mu", "sig", "m_mu", "v_mu", "m_sig", "v_sig", "avg_mu", "avg_sig"):
+        assert bool(torch.isfinite(getattr(whole, f)).all()), f
+        assert torch.equal(getattr(whole, f), getattr(split, f)), f
+        assert torch.equal(getattr(whole, f), getattr(traced, f)), f
+    for a, b, c in zip(whole.ext or (), split.ext or (), traced.ext or ()):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    assert torch.equal(trace[-1], whole.elbo)
+
+
+def test_cocob_rows_count_in_the_shared_memory_refusal(dev):
+    """Mean-field: a design that fits beside 8 state rows but not beside
+    COCOB's 14 is refused for COCOB only.  Full-rank: when COCOB's 7 scale
+    matrices do not fit in shared memory they live in device memory, and
+    the kernel still matches its plain version."""
+    smem = _build.function("fused_advi_meanfield", "fused_advi_meanfield_smem_bytes",
+                           [ctypes.c_int] * 6, restype=ctypes.c_size_t)
+    n_data = next(m for m in range(600, 1200)
+                  if smem(0, m, 61, N, 62, 8) <= _build.SMEM_LIMIT < smem(0, m, 61, N, 62, 14))
+    X = torch.randn(n_data, 61, generator=torch.Generator().manual_seed(0)).to(dev) / 8
+    y = (torch.rand(n_data, generator=torch.Generator().manual_seed(1)) < 0.5).float().to(dev)
+    spec = logreg_spec(X, y)
+    adam = _engine(spec, "meanfield", FusedBranch())
+    assert adam.run_chunk(_init(adam, 0.1), 0, 2).iteration == 2
+    cocob = _engine(spec, "meanfield", VARGRAD[-2])
+    with pytest.raises(ValueError, match="shared"):
+        cocob.run_chunk(_init(cocob, 0.1), 0, 2)
+
+    fr_smem = _build.function("fused_advi_fullrank", "fused_advi_fullrank_smem_bytes",
+                              [ctypes.c_int] * 6, restype=ctypes.c_size_t)
+    d = next(k for k in range(60, 200) if fr_smem(2, 0, 0, N, k, 7) < fr_smem(2, 0, 0, N, k, 4))
+    spec = gaussian_spec(torch.zeros(d, device=dev), torch.ones(d, device=dev))
+    branch = COCOB_FR
+    vec, mat = _init(_engine(spec, "fullrank", branch), 0.5).stacked_fullrank()
+    args = (spec.model, spec.consts, spec.scalars, vec, mat, seed_words(0), 0, 20, N,
+            FusedHyper(), None, 0, branch)
+    kv, km, _, _ = fused_fullrank_run_chunk_cuda(*args)
+    rv, rm, _, _ = fused_fullrank_run_chunk_reference(*args)
+    torch.cuda.synchronize()
+    _norm_close(list(kv) + list(km), list(rv) + list(rm), 1e-4)
