@@ -7,11 +7,15 @@ Monte-Carlo or STL entropy), proximal ADVI (``KLMinRepGradProxDescent``
 with a zero-gradient entropy and the entropy's proximal step) and BBVI
 (``KLMinScoreGradDescent``, the VarGrad score gradient), with Adam,
 descent, DoWG, DoG or COCOB, ClipScale and polynomial averaging, driven by
-``optimize``; and the whole-loop fused engines (``FusedADVI``,
-``FusedLogRegADVI``, ``FusedProxADVI``, ``FusedScoreGradVI``) on
-hierarchical logistic regression, diagonal Gaussian targets
-(``gaussian_spec``, ``normallognormal_spec``) and, full-rank, dense
-Gaussian targets (``mvnormal_spec``).  Families and states are
+``optimize``, each with ``subsampling=`` for doubly-stochastic VI
+(``ReshufflingBatchSubsampling``, ``SubsampledObjective``, ``subsample``,
+``factorized_target``; the BNN of ``models/bnn.py``); and the whole-loop
+fused engines (``FusedADVI``, ``FusedLogRegADVI``, ``FusedProxADVI``,
+``FusedScoreGradVI``) on hierarchical logistic regression, its minibatch
+version (``logreg_minibatch_spec``, ``logreg_minibatch_hbm_spec``), diagonal
+Gaussian targets (``gaussian_spec``, ``normallognormal_spec``) and,
+full-rank, dense Gaussian targets (``mvnormal_spec``).  Constructors that
+create tensors put them on the card unless the caller asks for the CPU.  Families and states are
 dataclasses of tensors; random draws are step-indexed Philox normals keyed
 by two uint32 seed words.  On CUDA tensors the draws, the triangular
 solves and the fused loops run in hand-written Hopper kernels (csrc/), built
@@ -29,7 +33,9 @@ from .core.problem import (
     log_density,
     log_density_and_grad,
     order_of,
+    subsample,
 )
+from .core.factorized import FactorizedTarget, factorized_target
 from .core.pytree import tree_stop_gradient
 from .core.transforms import Exp, Identity, Stacked, TransformedTarget, stacked
 from .families.base import Normal
@@ -51,6 +57,10 @@ from .objectives.entropy import (
 )
 from .objectives.repgradelbo import RepGradELBO
 from .objectives.scoregradelbo import ScoreGradELBO
+from .objectives.subsampled import SubsampledObjective
+from .subsampling import ReshufflingBatchSubsampling, ReshufflingState
+from .models.bnn import BayesianMLP, make_bnn
+from .models.subsampled_normals import subsampled_normals
 from .optim.averaging import NoAveraging, PolynomialAveraging
 from .optim.operators import ClipScale, IdentityOperator, ProximalLocationScaleEntropy
 from .optim.rules import adam, cocob, descent, dog, dowg, stepsize_from_opt_state
@@ -70,6 +80,8 @@ from .ops.cuda.fused_advi import (  # whole-loop fused engines (CUDA)
     FusedProxADVI,
     FusedScoreGradVI,
     gaussian_spec,
+    logreg_minibatch_hbm_spec,
+    logreg_minibatch_spec,
     logreg_spec,
     mvnormal_spec,
     normallognormal_spec,

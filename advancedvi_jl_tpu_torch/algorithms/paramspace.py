@@ -28,6 +28,7 @@ from ..objectives.entropy import (
 )
 from ..objectives.repgradelbo import RepGradELBO
 from ..objectives.scoregradelbo import ScoreGradELBO
+from ..objectives.subsampled import SubsampledObjective
 from ..ops.cuda.location_scale_kernels import PhiloxKey, SeedLike, seed_words
 from ..optim.averaging import PolynomialAveraging
 from ..optim.operators import IdentityOperator, ProximalLocationScaleEntropy
@@ -61,7 +62,8 @@ class ParamSpaceSGD:
     def init(self, seed: SeedLike, q_init, prob) -> ParamSpaceSGDState:
         """``seed``: an int, a ``torch.Generator`` or two seed words; it is
         turned into the two uint32 Philox seed words here."""
-        if isinstance(self.objective, RepGradELBO) and order_of(prob) <= ORDER_VALUE_ONLY:
+        inner = getattr(self.objective, "objective", self.objective)  # through SubsampledObjective
+        if isinstance(inner, RepGradELBO) and order_of(prob) <= ORDER_VALUE_ONLY:
             raise ValueError(
                 "Target has capability order 0 (value-only, not "
                 "differentiable). Reparameterization-gradient objectives "
@@ -131,15 +133,24 @@ class ParamSpaceSGD:
         )
 
 
+def _subsampled(objective, subsampling):
+    if subsampling is None:
+        return objective
+    return SubsampledObjective(objective=objective, subsampling=subsampling)
+
+
 def KLMinRepGradDescent(
     entropy: str = CLOSED_FORM,
     optimizer=None,
     n_samples: int = 1,
     averager=None,
     operator=None,
+    subsampling=None,
 ) -> ParamSpaceSGD:
     """ADVI: SGD on the reparameterization-gradient ELBO (reference
-    constructors.jl:44-79; defaults DoWG + polynomial averaging)."""
+    constructors.jl:44-79; defaults DoWG + polynomial averaging).
+    ``subsampling``: a ``ReshufflingBatchSubsampling`` for doubly-stochastic
+    VI (the objective is wrapped in ``SubsampledObjective``)."""
     if entropy not in (CLOSED_FORM, STL, MONTE_CARLO):
         raise ValueError(
             "KLMinRepGradDescent supports closed_form / stl / monte_carlo "
@@ -147,7 +158,7 @@ def KLMinRepGradDescent(
             "zero-gradient variants."
         )
     return ParamSpaceSGD(
-        objective=RepGradELBO(n_samples=n_samples, entropy=entropy),
+        objective=_subsampled(RepGradELBO(n_samples=n_samples, entropy=entropy), subsampling),
         optimizer=optimizer if optimizer is not None else dowg(),
         averager=averager if averager is not None else PolynomialAveraging(),
         operator=operator if operator is not None else IdentityOperator(),
@@ -162,6 +173,7 @@ def KLMinRepGradProxDescent(
     optimizer=None,
     n_samples: int = 1,
     averager=None,
+    subsampling=None,
 ) -> ParamSpaceSGD:
     """Proximal ADVI: the entropy enters through the closed-form proximal
     step, so the entropy estimator's gradient must have mean zero and the
@@ -174,7 +186,8 @@ def KLMinRepGradProxDescent(
             f"estimator {ZERO_GRAD_ESTIMATORS}, got {entropy_zerograd!r}"
         )
     return ParamSpaceSGD(
-        objective=RepGradELBO(n_samples=n_samples, entropy=entropy_zerograd),
+        objective=_subsampled(RepGradELBO(n_samples=n_samples, entropy=entropy_zerograd),
+                              subsampling),
         optimizer=optimizer if optimizer is not None else dowg(),
         averager=averager if averager is not None else PolynomialAveraging(),
         operator=ProximalLocationScaleEntropy(),
@@ -186,12 +199,13 @@ def KLMinScoreGradDescent(
     n_samples: int = 2,
     averager=None,
     operator=None,
+    subsampling=None,
 ) -> ParamSpaceSGD:
     """BBVI: SGD on the score-function (VarGrad) gradient (reference
     constructors.jl:199-233; defaults DoWG + polynomial averaging +
     IdentityOperator).  Takes value-only targets."""
     return ParamSpaceSGD(
-        objective=ScoreGradELBO(n_samples=n_samples),
+        objective=_subsampled(ScoreGradELBO(n_samples=n_samples), subsampling),
         optimizer=optimizer if optimizer is not None else dowg(),
         averager=averager if averager is not None else PolynomialAveraging(),
         operator=operator if operator is not None else IdentityOperator(),

@@ -21,10 +21,20 @@ from .families.location_scale import (
     MeanFieldGaussian,
     MeanFieldLocationScale,
 )
+from .models.bnn import BayesianMLP
 from .models.logreg import LogReg
 from .models.normal import NormalTarget
 from .models.normallognormal import NormalLogNormal
-from .ops.cuda.fused_advi import FR_MAT_FIELDS, STATE_FIELDS, FusedADVIState
+from .models.subsampled_normals import SubsampledNormals
+from .ops.cuda.fused_advi import (
+    FR_MAT_FIELDS,
+    LOGREG_MB,
+    MINIBATCH_MODELS,
+    STATE_FIELDS,
+    FusedADVIState,
+    FusedModelSpec,
+)
+from .subsampling import ReshufflingState
 
 D_PAD = 128  # JAX fused engine: lane padding unit
 N_PAD = 16   # JAX fused engine: minimum sample-row padding
@@ -40,13 +50,14 @@ def n_pad_for(n: int) -> int:
     return max(N_PAD, -(-n // 8) * 8)
 
 
-def to_tensor(a: Any, device=None, dtype=torch.float32) -> torch.Tensor:
-    """A float32 tensor copy of an array-like, on ``device``."""
+def to_tensor(a: Any, device="cuda", dtype=torch.float32) -> torch.Tensor:
+    """A float32 tensor copy of an array-like, on ``device`` (the card unless
+    the caller asks for the CPU)."""
     return torch.tensor(np.asarray(a), dtype=dtype, device=device)
 
 
 def logreg_from_numpy(X, y, likeadj=1.0, prior_scale: float = 3.0,
-                      device=None) -> LogReg:
+                      device="cuda") -> LogReg:
     """The port's LogReg from a JAX LogReg's ``X, y, likeadj, prior_scale``."""
     return LogReg(
         X=to_tensor(X, device), y=to_tensor(y, device),
@@ -54,20 +65,20 @@ def logreg_from_numpy(X, y, likeadj=1.0, prior_scale: float = 3.0,
     )
 
 
-def meanfield_from_numpy(location, scale_diag, device=None) -> MeanFieldLocationScale:
+def meanfield_from_numpy(location, scale_diag, device="cuda") -> MeanFieldLocationScale:
     """The port's MeanFieldGaussian from a JAX one's ``location, scale_diag``."""
     return MeanFieldGaussian(to_tensor(location, device), to_tensor(scale_diag, device))
 
 
 def fullrank_from_numpy(location, scale, solve_mode: str = "solve",
-                        device=None) -> FullRankLocationScale:
+                        device="cuda") -> FullRankLocationScale:
     """The port's FullRankGaussian from a JAX one's ``location, scale``."""
     return FullRankGaussian(to_tensor(location, device), to_tensor(scale, device),
                             solve_mode=solve_mode)
 
 
 def normal_target_from_numpy(mu, scale_tril, inv_scale_tril=None,
-                             device=None) -> NormalTarget:
+                             device="cuda") -> NormalTarget:
     """The port's NormalTarget from a JAX one's ``mu, scale_tril`` (and
     ``inv_scale_tril`` of a ``solve_free`` target)."""
     return NormalTarget(
@@ -77,14 +88,14 @@ def normal_target_from_numpy(mu, scale_tril, inv_scale_tril=None,
 
 
 def normallognormal_from_numpy(mu_y, sigma_y, mu_x, sigma_x,
-                               device=None) -> NormalLogNormal:
+                               device="cuda") -> NormalLogNormal:
     """The port's NormalLogNormal from a JAX one's ``mu_y, sigma_y, mu_x,
     sigma_x``."""
     return NormalLogNormal(mu_y=to_tensor(mu_y, device), sigma_y=to_tensor(sigma_y, device),
                            mu_x=to_tensor(mu_x, device), sigma_x=to_tensor(sigma_x, device))
 
 
-def fused_state_from_numpy(jax_state: Any, d: int, device=None) -> FusedADVIState:
+def fused_state_from_numpy(jax_state: Any, d: int, device="cuda") -> FusedADVIState:
     """The port's FusedADVIState from a JAX ``FusedADVIState`` (any object
     with its field names), stripping the padding: the first row and the
     first ``d`` lanes of each ``(1, d_pad)`` field, and the leading
@@ -123,3 +134,47 @@ def pack_noise(noise, n_pad: Optional[int] = None,
     out = np.zeros((steps, n_pad, d_pad), np.float32)
     out[:, :n, :d] = noise
     return out.reshape(steps * n_pad, d_pad)
+
+
+def bnn_from_numpy(X, y, likeadj=1.0, hidden: int = 32, noise_scale: float = 0.1,
+                   device="cuda") -> BayesianMLP:
+    """The port's BayesianMLP from a JAX one's ``X, y, likeadj, hidden,
+    noise_scale``."""
+    return BayesianMLP(X=to_tensor(X, device), y=to_tensor(y, device),
+                       likeadj=to_tensor(likeadj, device), hidden=int(hidden),
+                       noise_scale=float(noise_scale))
+
+
+def subsampled_normals_from_numpy(mus, likeadj=1.0, device="cuda") -> SubsampledNormals:
+    """The port's SubsampledNormals from a JAX one's ``mus, likeadj``."""
+    return SubsampledNormals(mus=to_tensor(mus, device), likeadj=to_tensor(likeadj, device))
+
+
+def reshuffling_state_from_numpy(perm, epoch: int, step: int, seed=(0, 0),
+                                 device="cuda") -> ReshufflingState:
+    """A ``ReshufflingState`` on a given (truncated) permutation, e.g. a JAX
+    schedule's ``perm``, at 1-based ``epoch`` and 0-based ``step``."""
+    perm = torch.tensor(np.asarray(perm), dtype=torch.int64, device=device)
+    return ReshufflingState(perm=perm, epoch=int(epoch), step=int(step),
+                            seed=(int(seed[0]), int(seed[1])))
+
+
+def minibatch_spec_from_numpy(X_perm, yX, n_data: int, batch_size: int,
+                              prior_scale: float = 3.0, transport: str = LOGREG_MB,
+                              device="cuda", db: Optional[int] = None) -> FusedModelSpec:
+    """A minibatch fused spec from packed consts: the permuted design and the
+    per-batch label sums, e.g. a JAX minibatch spec's ``consts`` (their lane
+    and row padding is cut to ``db`` features, default all columns, and
+    n_data // batch_size batches).  ``transport``: one of MINIBATCH_MODELS.
+    The spec has no ``reshuffle`` (it does not hold the unpermuted data)."""
+    if transport not in MINIBATCH_MODELS:
+        raise ValueError(f"transport must be one of {MINIBATCH_MODELS}, got {transport!r}")
+    X_perm = np.asarray(X_perm, dtype=np.float32)
+    db = X_perm.shape[1] if db is None else int(db)
+    nb = n_data // batch_size
+    return FusedModelSpec(
+        dim=db + 1,
+        consts=(to_tensor(X_perm[: nb * batch_size, :db], device),
+                to_tensor(np.asarray(yX, dtype=np.float32)[:nb, :db], device)),
+        scalars=(n_data / batch_size, float(prior_scale)), model=transport,
+    )

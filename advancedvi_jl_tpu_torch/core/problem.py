@@ -53,3 +53,13 @@ def log_density_and_grad(prob: Any, theta: torch.Tensor):
         value = prob.log_density(th)
         (grad,) = torch.autograd.grad(value.sum(), th)
     return value.detach(), grad
+
+
+def subsample(prob_or_q: Any, indices: torch.Tensor) -> Any:
+    """Restrict a target (or a variational family) to the data points
+    ``indices``: its own ``subsample`` when it has one, otherwise the object
+    itself (JAX core/problem.py:106-120; reference interface.jl)."""
+    fn = getattr(prob_or_q, "subsample", None)
+    if fn is None:
+        return prob_or_q
+    return fn(indices)

@@ -47,3 +47,15 @@ def tree_stop_gradient(obj: Any) -> Any:
 
 def tree_global_norm_sq(obj: Any) -> torch.Tensor:
     return sum(torch.sum(t * t) for t in tree_leaves(obj))
+
+
+def value_and_grad(loss_and_aux: Callable, q: Any):
+    """``(grad, aux)`` of ``loss, aux = loss_and_aux(q)`` in the tensor
+    fields of the family ``q``; ``grad`` is a family of the same class (the
+    counterpart of ``jax.value_and_grad(..., has_aux=True)``)."""
+    with torch.enable_grad():
+        live = tree_map(lambda t: t.detach().requires_grad_(True), q)
+        loss, aux = loss_and_aux(live)
+        names = tensor_fields(live)
+        grads = torch.autograd.grad(loss, [getattr(live, n) for n in names])
+    return dataclasses.replace(q, **dict(zip(names, grads))), aux

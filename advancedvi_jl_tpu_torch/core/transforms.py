@@ -105,3 +105,9 @@ class TransformedTarget:
     def log_density(self, x: torch.Tensor) -> torch.Tensor:
         theta, ldj = self.transform.forward_and_ldj(x)
         return self.prob.log_density(theta) + ldj
+
+    def subsample(self, indices: torch.Tensor) -> "TransformedTarget":
+        """The inner target restricted to ``indices``, same transform."""
+        from .problem import subsample
+
+        return TransformedTarget(prob=subsample(self.prob, indices), transform=self.transform)

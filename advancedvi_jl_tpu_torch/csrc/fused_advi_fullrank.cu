@@ -1,15 +1,20 @@
-// K3 (full-rank branches) with K4's dense- and diagonal-Gaussian bodies: the
+// K3 (full-rank branches) with K4's dense-Gaussian, diagonal-Gaussian and
+// minibatch logreg bodies: the
 // whole optimisation loop in one launch, full-rank Gaussian family x {Adam,
 // descent, DoWG, DoG, COCOB} x {STL, closed-form zero-gradient, STL
 // zero-gradient entropy} x {ClipScale, entropy prox, identity} on the
-// diagonal x polynomial averaging, on hierarchical logistic regression, a
-// dense Gaussian target N(m, P^{-1}) or a diagonal Gaussian.
+// diagonal x polynomial averaging, on hierarchical logistic regression (all
+// data, or a minibatch slab a step), a dense Gaussian target N(m, P^{-1})
+// or a diagonal Gaussian.
 //
 // Replaces ops/pallas/fused_advi.py::_run_chunk (both pallas_calls, plain and
 // traced grid) in the FULLRANK x REPGRAD branches of _kernel
 // (fused_advi.py:356-669; VarGrad is mean-field only, as there), with
 // _backsub_ct / _backsub_ct_blocked as the whitening, _logreg_step_factory,
-// _mvnormal_step_factory or _gaussian_step_factory as the model, and
+// the three minibatch factories (_logreg_mb_step_factory,
+// _logreg_mb_hbm_step_factory, _logreg_mb_hbm_db_step_factory; the slab
+// transports as in fused_advi_meanfield.cu), _mvnormal_step_factory or
+// _gaussian_step_factory as the model, and
 // _adam_candidate, _dowg_step, _dog_step and _cocob_update as the rules.
 // The plain PyTorch version is fused_fullrank_run_chunk_reference in
 // ops/cuda/fused_advi.py.
@@ -31,8 +36,13 @@
 // fits in one block's 227 KB (d = 62: 61.5 KB, or 107.6 KB with COCOB),
 // and otherwise in the output buffer in device memory, where they stay
 // resident in the 50 MB L2 (d = 512: 4 MB, or 7 MB); one code path serves
-// both through a generic pointer.  The branch is a set of runtime codes
-// (avi::Branch), uniform over the launch, and one compiled kernel serves
+// both through a generic pointer.  With a staged 512-row minibatch slab the
+// four scale matrices still fit: 222,916 bytes in all at d = 62 (a 124,928-
+// byte slab of 61 features, 20,480 of logits, 4 x 15,376 of matrices;
+// 97,988 in place), 218,716 at d = 61; COCOB's seven do not, and go to
+// device memory (162,156 bytes left in shared).  The branch is a set of
+// runtime codes (avi::Branch), uniform over the launch, and one compiled
+// kernel serves
 // every branch: an instance with the flagship branch's codes constant, as
 // the mean-field kernel has, spilled and was slower.  Each step:
 //
@@ -85,21 +95,24 @@ struct Layout {
   int X, y, l, u, z, g, w, vec, dm, row, red, tri, mat, total;
 };
 
-__host__ __device__ inline Layout make_layout(int model, int n_data, int db, int n,
-                                              int d, int k, bool mat_in_smem) {
+// n_data is the design's rows; a minibatch model keeps one B-row slab (the
+// staged transports) and yX[k] in `y`.
+__host__ __device__ inline Layout make_layout(int model, int n_data, int db, int batch,
+                                              int n, int d, int k, bool mat_in_smem) {
   Layout L;
   int o = 0;
   const bool lr = model == avi::kLogReg;
-  L.X = o;   o += lr ? n_data * db : 0;  // design matrix (n_data, db)
-  L.y = o;   o += lr ? n_data : 0;       // labels
-  L.l = o;   o += lr ? n * n_data : 0;   // logits, then likelihood weights
+  const bool mb = avi::is_minibatch(model);
+  L.X = o;   o += lr ? n_data * db : (avi::slab_staged(model) ? batch * db : 0);
+  L.y = o;   o += lr ? n_data : (mb ? db : 0);  // labels, or yX[k]
+  L.l = o;   o += lr ? n * n_data : (mb ? n * batch : 0);  // logits, then weights
   L.u = o;   o += n * d;                 // base draws
   L.z = o;   o += n * d;                 // samples
   L.g = o;   o += n * d;                 // grad log pi, then g_z
   L.w = o;   o += n * d;                 // (z - m) for mvnormal, then C^{-T} u
   L.vec = o; o += k * d;                 // mu m_mu v_mu avg_mu [G R theta of mu]
   L.dm = o;  o += d;                     // dmu of the step
-  L.row = o; o += 5 * n + 1;             // beta_sq t inv_sig2 logpi u2, logdet
+  L.row = o; o += 6 * n + 1;             // beta_sq t inv_sig2 logpi u2 ylogit, logdet
   L.red = o; o += 2 * kWarps + 1;        // block reduction, then eta
   L.tri = o; o += avi::kTriScratch;      // the whitening's panel scratch
   L.mat = o; o += mat_in_smem ? k * d * d : 0;  // sig m_sig v_sig avg_sig [G R theta]
@@ -107,9 +120,9 @@ __host__ __device__ inline Layout make_layout(int model, int n_data, int db, int
   return L;
 }
 
-inline bool mat_fits(int model, int n_data, int db, int n, int d, int k) {
+inline bool mat_fits(int model, int n_data, int db, int batch, int n, int d, int k) {
   return sizeof(float) * static_cast<size_t>(
-                             make_layout(model, n_data, db, n, d, k, true).total) <=
+                             make_layout(model, n_data, db, batch, n, d, k, true).total) <=
          kSmemLimit;
 }
 
@@ -128,15 +141,16 @@ __device__ __forceinline__ float lower_grad(const float* gs, const float* us, in
 // spills (H100 measurements at d = 62 and d = 512).
 __global__ void __maxnreg__(88) fused_advi_fullrank_kernel(
     int model, const float* __restrict__ c0, const float* __restrict__ c1,
-    int n_data, int db, float s0, float s1, const float* __restrict__ vec_in,
+    int n_data, int db, int batch, float s0, float s1, const float* __restrict__ vec_in,
     const float* __restrict__ mat_in, float* __restrict__ vec_out, float* mat_out,
     float* __restrict__ elbo_out, float* __restrict__ trace,
     const float* __restrict__ noise, int n, int d, int k, int steps, int log_every,
     uint32_t k0, uint32_t k1, unsigned long long it0, avi::Hyper h, avi::Branch br,
     bool mat_in_smem) {
   extern __shared__ float smem[];
-  const Layout L = make_layout(model, n_data, db, n, d, k, mat_in_smem);
+  const Layout L = make_layout(model, n_data, db, batch, n, d, k, mat_in_smem);
   const bool logreg = model == avi::kLogReg;
+  const bool minibatch = avi::is_minibatch(model);
   float* us = smem + L.u;
   float* zs = smem + L.z;
   float* gs = smem + L.g;
@@ -152,7 +166,8 @@ __global__ void __maxnreg__(88) fused_advi_fullrank_kernel(
   float* inv_sig2 = tcol + n;
   float* logpi = inv_sig2 + n;
   float* u2 = logpi + n;
-  float* logdet = u2 + n;
+  float* ylogit = u2 + n;
+  float* logdet = ylogit + n;
   float* red = smem + L.red;
   float* eta_s = red + 2 * kWarps;
   const size_t dd = static_cast<size_t>(d) * d;
@@ -162,6 +177,8 @@ __global__ void __maxnreg__(88) fused_advi_fullrank_kernel(
   float* a_sig = sig + 3 * dd;
   float* ext_sig = sig + 4 * dd;  // COCOB: G, reward, theta of the scale
   const avi::LogReg lrm{smem + L.X, smem + L.y, smem + L.l, n_data, db, s0, s1};
+  avi::LogRegMB mbm{nullptr, smem + L.y, smem + L.l, batch, db, s0, s1};
+  const int nb = minibatch ? n_data / batch : 1;
   const float* mean = c0;  // mvnormal: mean (d,) and precision (d, d)
   const float* prec = c1;  // gaussian: mean (d,) and inverse variances (d,)
   const float lognorm = s0;
@@ -192,6 +209,10 @@ __global__ void __maxnreg__(88) fused_advi_fullrank_kernel(
 
   for (int s = 0; s < steps; ++s) {
     const unsigned long long it = it0 + static_cast<unsigned long long>(s);
+    // the minibatch slab of this step starts on its way (staged transports)
+    if (minibatch)
+      mbm.X = avi::minibatch_step_begin(model, c0, c1, batch, db, nb, it, smem + L.X,
+                                        smem + L.y, tid, kThreads);
 
     // A: base draws, z = m + u C^T, |u|^2 per row, log det C
     if (noise != nullptr) {
@@ -257,6 +278,15 @@ __global__ void __maxnreg__(88) fused_advi_fullrank_kernel(
       avi::logreg_logpi(lrm, n, beta_sq, tcol, inv_sig2, logpi, warp, kWarps, lane);
       __syncthreads();
       avi::logreg_grad(lrm, zs, n, d, beta_sq, tcol, inv_sig2, gs, tid, kThreads);
+    } else if (minibatch) {
+      avi::logreg_mb_rows(mbm, zs, n, d, beta_sq, tcol, inv_sig2, ylogit, warp, kWarps, lane);
+      if (avi::slab_staged(model)) avi::cp_async_wait_all();  // this thread's copies landed
+      __syncthreads();
+      avi::logreg_mb_logits(mbm, zs, n, d, tid, kThreads);
+      __syncthreads();
+      avi::logreg_mb_logpi(mbm, n, beta_sq, tcol, inv_sig2, ylogit, logpi, warp, kWarps, lane);
+      __syncthreads();
+      avi::logreg_mb_grad(mbm, zs, n, d, beta_sq, tcol, inv_sig2, gs, tid, kThreads);
     } else if (model == avi::kGaussian) {
       avi::gaussian_body(mean, prec, lognorm, zs, n, d, logpi, gs, warp, kWarps, lane);
     } else {
@@ -401,17 +431,20 @@ __global__ void __maxnreg__(88) fused_advi_fullrank_kernel(
 // The dynamic shared memory a launch uses: with the k scale matrices in
 // shared memory when they fit, without them otherwise; k is 4, or 7 with
 // COCOB.
-extern "C" size_t fused_advi_fullrank_smem_bytes(int model, int n_data, int db, int n,
-                                                 int d, int k) {
-  const bool fits = mat_fits(model, n_data, db, n, d, k);
+extern "C" size_t fused_advi_fullrank_smem_bytes(int model, int n_data, int db, int batch,
+                                                 int n, int d, int k) {
+  const bool fits = mat_fits(model, n_data, db, batch, n, d, k);
   return sizeof(float) *
-         static_cast<size_t>(make_layout(model, n_data, db, n, d, k, fits).total);
+         static_cast<size_t>(make_layout(model, n_data, db, batch, n, d, k, fits).total);
 }
 
 // model 0: logreg, c0 = X (n_data, db), c1 = y (n_data,), s0 = likeadj,
 // s1 = prior_scale, d = db + 1; model 1: mvnormal, c0 = mean (d,), c1 =
 // precision (d, d), s0 = lognorm; model 2: diagonal Gaussian, c0 = mean
-// (d,), c1 = inverse variances (d,), s0 = lognorm.  vec_in/out: (k, d)
+// (d,), c1 = inverse variances (d,), s0 = lognorm; models 3-5: minibatch
+// logreg (in place, staged, staged + prefetch), c0 = permuted X (n_data,
+// db) with n_data a multiple of batch and 16-byte aligned, c1 = yX (n_data
+// / batch, db), s0 = likeadj = full n / batch, s1 = prior_scale.  vec_in/out: (k, d)
 // float32 rows mu m_mu v_mu avg_mu; mat_in/out: (k, d, d) sig m_sig v_sig
 // avg_sig; with COCOB (k = 7) each is followed by its G, reward and theta
 // (only lower triangles are updated; the upper ones are copied through).
@@ -422,7 +455,7 @@ extern "C" size_t fused_advi_fullrank_smem_bytes(int model, int n_data, int db, 
 // launch (0 on success), or cudaErrorInvalidValue for a launch the kernel
 // does not take.
 extern "C" int fused_advi_fullrank(
-    int model, const float* c0, const float* c1, int n_data, int db, float s0,
+    int model, const float* c0, const float* c1, int n_data, int db, int batch, float s0,
     float s1, const float* vec_in, const float* mat_in, float* vec_out,
     float* mat_out, float* elbo_out, float* trace, const float* noise, int n, int d,
     int steps, int log_every, uint32_t seed0, uint32_t seed1, unsigned long long it0,
@@ -430,10 +463,13 @@ extern "C" int fused_advi_fullrank(
     int entropy, int grad_est, int op, float cocob_alpha, cudaStream_t stream) {
   const int k = algo == avi::kCOCOB ? 7 : 4;
   const bool dist_rule = algo == avi::kDoWG || algo == avi::kDoG;
-  if (grad_est != avi::kRepGrad || (dist_rule && d < 2))
+  const bool mb = avi::is_minibatch(model);
+  if (grad_est != avi::kRepGrad || (dist_rule && d < 2) ||
+      (mb && (batch < 1 || batch % 8 != 0 || n_data % batch != 0 || n_data < batch ||
+              reinterpret_cast<uintptr_t>(c0) % 16 != 0)))
     return static_cast<int>(cudaErrorInvalidValue);
-  const bool fits = mat_fits(model, n_data, db, n, d, k);
-  const size_t smem = fused_advi_fullrank_smem_bytes(model, n_data, db, n, d, k);
+  const bool fits = mat_fits(model, n_data, db, batch, n, d, k);
+  const size_t smem = fused_advi_fullrank_smem_bytes(model, n_data, db, batch, n, d, k);
   if (smem > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
   // above 48 KB only after this call; without it the launch is refused
   cudaError_t err = cudaFuncSetAttribute(fused_advi_fullrank_kernel,
@@ -443,7 +479,7 @@ extern "C" int fused_advi_fullrank(
   const avi::Hyper h{lr, b1, b2, eps, avg_eta, clip_eps};
   const avi::Branch br{algo, entropy, grad_est, op, cocob_alpha};
   fused_advi_fullrank_kernel<<<1, kThreads, smem, stream>>>(
-      model, c0, c1, n_data, db, s0, s1, vec_in, mat_in, vec_out, mat_out, elbo_out,
+      model, c0, c1, n_data, db, batch, s0, s1, vec_in, mat_in, vec_out, mat_out, elbo_out,
       trace, noise, n, d, k, steps, log_every, seed0, seed1, it0, h, br, fits);
   return static_cast<int>(cudaGetLastError());
 }

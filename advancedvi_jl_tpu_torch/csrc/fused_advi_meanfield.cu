@@ -1,13 +1,17 @@
-// K1+K2 and the mean-field branches of K3, with K4's logreg and
-// diagonal-Gaussian bodies: the whole optimisation loop in one launch,
+// K1+K2 and the mean-field branches of K3, with K4's logreg, minibatch
+// logreg and diagonal-Gaussian bodies: the whole optimisation loop in one
+// launch,
 // mean-field Gaussian family x {Adam, descent, DoWG, DoG, COCOB} x {STL,
 // closed-form zero-gradient, STL zero-gradient entropy} x {reparameterization
 // gradient, VarGrad} x {ClipScale, entropy prox, identity} x polynomial
-// averaging, on hierarchical logistic regression or a diagonal Gaussian.
+// averaging, on hierarchical logistic regression (all data, or a minibatch
+// slab a step) or a diagonal Gaussian.
 //
 // Replaces ops/pallas/fused_advi.py::_run_chunk (both pallas_calls, plain and
 // traced grid) in every MEANFIELD branch of _kernel (fused_advi.py:356-669),
-// with _logreg_step_factory or _gaussian_step_factory inlined as the model,
+// with _logreg_step_factory, _logreg_mb_step_factory,
+// _logreg_mb_hbm_step_factory, _logreg_mb_hbm_db_step_factory or
+// _gaussian_step_factory inlined as the model,
 // _adam_candidate, _dowg_step, _dog_step and _cocob_update as the rules, and
 // the step-indexed draw of location_scale_kernels.py.  The plain PyTorch
 // version is fused_run_chunk_reference in ops/cuda/fused_advi.py.
@@ -30,7 +34,20 @@
 // the codes constant (avi::kDefaultBranch).  The design matrix (50,752 bytes at
 // the flagship shape, over the 48 KB static limit), the labels, the draws,
 // the logits and the 8 (d,) state rows (14 with COCOB's accumulators) live
-// in dynamic shared memory for the whole chunk.  Each step:
+// in dynamic shared memory for the whole chunk.
+//
+// The minibatch body (fused_common.cuh) reads step it's slab k = it mod nb
+// of the permuted design, B rows: in place, from device memory through L1
+// and L2 (the JAX resident spec; at n = 16,384 rows the 3.9 MB design sits
+// in the 50 MB L2); staged, copied into shared memory with cp.async at the
+// top of the step while the draws and the slab-independent sums run (the
+// JAX synchronous DMA); or staged with slab it+1 pulled into L2 during
+// step it (the JAX double buffer: a second 125 KB slab of 61 features does
+// not fit beside the first at B = 512, so the next slab goes to L2, not to
+// shared memory).  The window follows the global iteration, so a chunk split
+// anywhere, between a prefetch and its use included, changes no bit.  The
+// transports' times at 16,384 rows (in L2) and at 500,000 (streamed from
+// HBM) are in PERF.md section 5, from chip_smoke.py phase (u).  Each step:
 //
 //   A  draw u (Philox keyed by the global iteration, or a row of the injected
 //      noise) and z = mu + sig * u; one warp per row sums |u|^2 (and, for
@@ -78,20 +95,23 @@ struct Layout {
   int X, y, l, u, z, g, st, grad, row, red, total;
 };
 
-__host__ __device__ inline Layout make_layout(int model, int n_data, int db, int n, int d,
-                                              int n_rows) {
+// n_data is the design's rows; a minibatch model keeps one B-row slab (the
+// staged transports) and yX[k] in `y`.
+__host__ __device__ inline Layout make_layout(int model, int n_data, int db, int batch,
+                                              int n, int d, int n_rows) {
   Layout L;
   int o = 0;
   const bool lr = model == avi::kLogReg;
-  L.X = o;    o += lr ? n_data * db : 0;  // design matrix, row-major (n_data, db)
-  L.y = o;    o += lr ? n_data : 0;       // labels
-  L.l = o;    o += lr ? n * n_data : 0;   // logits, then likelihood weights
+  const bool mb = avi::is_minibatch(model);
+  L.X = o;    o += lr ? n_data * db : (avi::slab_staged(model) ? batch * db : 0);
+  L.y = o;    o += lr ? n_data : (mb ? db : 0);  // labels, or yX[k]
+  L.l = o;    o += lr ? n * n_data : (mb ? n * batch : 0);  // logits, then weights
   L.u = o;    o += n * d;                 // base draws
   L.z = o;    o += n * d;                 // samples
   L.g = o;    o += n * d;                 // grad log pi
   L.st = o;   o += n_rows * d;            // mu sig m_mu v_mu m_sig v_sig avg_mu avg_sig [ext]
   L.grad = o; o += 2 * d;                 // dmu, dsig of the step
-  L.row = o;  o += 6 * n + 1;             // beta_sq t inv_sig2 logpi u2 c (per row), logdet
+  L.row = o;  o += 7 * n + 1;             // beta_sq t inv_sig2 logpi u2 c ylogit, logdet
   L.red = o;  o += 2 * kWarps + 1;        // block reduction, then eta
   L.total = o;
   return L;
@@ -100,14 +120,15 @@ __host__ __device__ inline Layout make_layout(int model, int n_data, int db, int
 template <bool kGeneral>
 __global__ void __launch_bounds__(kThreads) fused_advi_meanfield_kernel(
     int model, const float* __restrict__ c0, const float* __restrict__ c1, int n_data,
-    int db, float s0, float s1, const float* __restrict__ state_in,
+    int db, int batch, float s0, float s1, const float* __restrict__ state_in,
     float* __restrict__ state_out, float* __restrict__ elbo_out, float* __restrict__ trace,
     const float* __restrict__ noise, int n, int d, int n_rows, int steps, int log_every,
     uint32_t k0, uint32_t k1, unsigned long long it0, avi::Hyper h, avi::Branch br) {
   if (!kGeneral) br = avi::kDefaultBranch;  // every switch below is then constant
   extern __shared__ float smem[];
-  const Layout L = make_layout(model, n_data, db, n, d, n_rows);
+  const Layout L = make_layout(model, n_data, db, batch, n, d, n_rows);
   const bool logreg = model == avi::kLogReg;
+  const bool minibatch = avi::is_minibatch(model);
   float* us = smem + L.u;
   float* zs = smem + L.z;
   float* gs = smem + L.g;
@@ -129,10 +150,13 @@ __global__ void __launch_bounds__(kThreads) fused_advi_meanfield_kernel(
   float* logpi = inv_sig2 + n;
   float* u2 = logpi + n;
   float* coef = u2 + n;
-  float* logdet = coef + n;
+  float* ylogit = coef + n;
+  float* logdet = ylogit + n;
   float* red = smem + L.red;
   float* eta_s = red + 2 * kWarps;
   const avi::LogReg lrm{smem + L.X, smem + L.y, smem + L.l, n_data, db, s0, s1};
+  avi::LogRegMB mbm{nullptr, smem + L.y, smem + L.l, batch, db, s0, s1};
+  const int nb = minibatch ? n_data / batch : 1;
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -159,6 +183,10 @@ __global__ void __launch_bounds__(kThreads) fused_advi_meanfield_kernel(
 
   for (int s = 0; s < steps; ++s) {
     const unsigned long long it = it0 + static_cast<unsigned long long>(s);
+    // the minibatch slab of this step starts on its way (staged transports)
+    if (minibatch)
+      mbm.X = avi::minibatch_step_begin(model, c0, c1, batch, db, nb, it, smem + L.X,
+                                        smem + L.y, tid, kThreads);
 
     // A: base draws and z = mu + sig * u (two roundings, as the plain version)
     if (noise != nullptr) {
@@ -188,6 +216,8 @@ __global__ void __launch_bounds__(kThreads) fused_advi_meanfield_kernel(
     }
     __syncthreads();
     if (logreg) avi::logreg_rows(lrm, zs, n, d, beta_sq, tcol, inv_sig2, warp, kWarps, lane);
+    if (minibatch)
+      avi::logreg_mb_rows(mbm, zs, n, d, beta_sq, tcol, inv_sig2, ylogit, warp, kWarps, lane);
     for (int i = warp; i < n; i += kWarps) {
       float uu = 0.0f;
       for (int j = lane; j < d; j += 32) {
@@ -203,6 +233,7 @@ __global__ void __launch_bounds__(kThreads) fused_advi_meanfield_kernel(
       ld = avi::warp_sum(ld);
       if (lane == 0) *logdet = ld;
     }
+    if (avi::slab_staged(model)) avi::cp_async_wait_all();  // this thread's copies landed
     __syncthreads();
 
     // B: log pi (and the Gaussian's gradient)
@@ -210,6 +241,10 @@ __global__ void __launch_bounds__(kThreads) fused_advi_meanfield_kernel(
       avi::logreg_logits(lrm, zs, n, d, tid, kThreads);
       __syncthreads();
       avi::logreg_logpi(lrm, n, beta_sq, tcol, inv_sig2, logpi, warp, kWarps, lane);
+    } else if (minibatch) {
+      avi::logreg_mb_logits(mbm, zs, n, d, tid, kThreads);
+      __syncthreads();
+      avi::logreg_mb_logpi(mbm, n, beta_sq, tcol, inv_sig2, ylogit, logpi, warp, kWarps, lane);
     } else {
       avi::gaussian_body(c0, c1, s0, zs, n, d, logpi, vargrad ? nullptr : gs, warp, kWarps,
                          lane);
@@ -234,6 +269,9 @@ __global__ void __launch_bounds__(kThreads) fused_advi_meanfield_kernel(
       __syncthreads();
     } else if (logreg) {
       avi::logreg_grad(lrm, zs, n, d, beta_sq, tcol, inv_sig2, gs, tid, kThreads);
+      __syncthreads();
+    } else if (minibatch) {
+      avi::logreg_mb_grad(mbm, zs, n, d, beta_sq, tcol, inv_sig2, gs, tid, kThreads);
       __syncthreads();
     }
 
@@ -333,15 +371,18 @@ __global__ void __launch_bounds__(kThreads) fused_advi_meanfield_kernel(
 }  // namespace
 
 // The dynamic shared memory of a launch; n_rows is 8, or 14 with COCOB.
-extern "C" size_t fused_advi_meanfield_smem_bytes(int model, int n_data, int db, int n,
-                                                  int d, int n_rows) {
+extern "C" size_t fused_advi_meanfield_smem_bytes(int model, int n_data, int db, int batch,
+                                                  int n, int d, int n_rows) {
   return sizeof(float) *
-         static_cast<size_t>(make_layout(model, n_data, db, n, d, n_rows).total);
+         static_cast<size_t>(make_layout(model, n_data, db, batch, n, d, n_rows).total);
 }
 
 // model 0: logreg, c0 = X (n_data, db), c1 = y (n_data,), s0 = likeadj,
 // s1 = prior_scale, d = db + 1; model 2: diagonal Gaussian, c0 = mean (d,),
-// c1 = inverse variances (d,), s0 = lognorm.  state_in, state_out: (n_rows,
+// c1 = inverse variances (d,), s0 = lognorm; models 3-5: minibatch logreg
+// (in place, staged, staged + prefetch), c0 = permuted X (n_data, db) with
+// n_data a multiple of batch and 16-byte aligned, c1 = yX (n_data / batch,
+// db), s0 = likeadj = full n / batch, s1 = prior_scale, d = db + 1.  state_in, state_out: (n_rows,
 // d) float32 rows mu sig m_mu v_mu m_sig v_sig avg_mu avg_sig, then with
 // COCOB (n_rows = 14) its G, reward, theta of mu and of sig.  elbo_out: one
 // float; trace: (steps / log_every,) or null when log_every == 0; noise:
@@ -349,18 +390,21 @@ extern "C" size_t fused_advi_meanfield_smem_bytes(int model, int n_data, int db,
 // the avi::Branch codes.  Returns cudaGetLastError() after the launch (0 on
 // success), or cudaErrorInvalidValue for a launch the kernel does not take.
 extern "C" int fused_advi_meanfield(
-    int model, const float* c0, const float* c1, int n_data, int db, float s0, float s1,
-    const float* state_in, float* state_out, float* elbo_out, float* trace,
+    int model, const float* c0, const float* c1, int n_data, int db, int batch, float s0,
+    float s1, const float* state_in, float* state_out, float* elbo_out, float* trace,
     const float* noise, int n, int d, int steps, int log_every, uint32_t seed0,
     uint32_t seed1, unsigned long long it0, float lr, float b1, float b2, float eps,
     float avg_eta, float clip_eps, int algo, int entropy, int grad_est, int op,
     float cocob_alpha, cudaStream_t stream) {
   const int n_rows = algo == avi::kCOCOB ? 14 : 8;
   const bool dist_rule = algo == avi::kDoWG || algo == avi::kDoG;
-  if ((model != avi::kLogReg && model != avi::kGaussian) || (dist_rule && d < 2) ||
-      (grad_est == avi::kScoreGrad && n < 2))
+  const bool mb = avi::is_minibatch(model);
+  if ((model != avi::kLogReg && model != avi::kGaussian && !mb) || (dist_rule && d < 2) ||
+      (grad_est == avi::kScoreGrad && n < 2) ||
+      (mb && (batch < 1 || batch % 8 != 0 || n_data % batch != 0 || n_data < batch ||
+              reinterpret_cast<uintptr_t>(c0) % 16 != 0)))
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = fused_advi_meanfield_smem_bytes(model, n_data, db, n, d, n_rows);
+  const size_t smem = fused_advi_meanfield_smem_bytes(model, n_data, db, batch, n, d, n_rows);
   if (smem > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
   const auto kernel = avi::is_default(algo, entropy, grad_est, op)
                           ? fused_advi_meanfield_kernel<false>
@@ -372,7 +416,7 @@ extern "C" int fused_advi_meanfield(
   const avi::Hyper h{lr, b1, b2, eps, avg_eta, clip_eps};
   const avi::Branch br{algo, entropy, grad_est, op, cocob_alpha};
   kernel<<<1, kThreads, smem, stream>>>(
-      model, c0, c1, n_data, db, s0, s1, state_in, state_out, elbo_out, trace, noise, n, d,
+      model, c0, c1, n_data, db, batch, s0, s1, state_in, state_out, elbo_out, trace, noise, n, d,
       n_rows, steps, log_every, seed0, seed1, it0, h, br);
   return static_cast<int>(cudaGetLastError());
 }

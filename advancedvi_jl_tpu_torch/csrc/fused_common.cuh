@@ -5,6 +5,9 @@
 // regression and the diagonal Gaussian).
 //
 // The logreg body replaces ops/pallas/fused_advi.py::_logreg_step_factory,
+// the minibatch logreg body _logreg_mb_math (fused_advi.py:925-984) with
+// its three slab transports (_logreg_mb_step_factory :987,
+// _logreg_mb_hbm_step_factory :997, _logreg_mb_hbm_db_step_factory :1029),
 // the diagonal-Gaussian body _gaussian_step_factory, the rules
 // _adam_candidate, _dowg_step, _dog_step and _cocob_update (fused_advi.py:
 // 242-281).  The bodies work on one block's shared-memory arrays: samples
@@ -24,7 +27,22 @@ constexpr float kLog2Pi = 1.8378770664093453f;  // log(2 pi) in float32
 
 // The kernels' switches, with the codes of ops/cuda/fused_advi.py
 // (MODEL_CODES, ALGO_CODES, ENTROPY_CODES, GRAD_EST_CODES, OPERATOR_CODES).
-enum Model { kLogReg = 0, kMvNormal = 1, kGaussian = 2 };
+// The minibatch logreg body takes three codes, one per slab transport.
+enum Model {
+  kLogReg = 0,
+  kMvNormal = 1,
+  kGaussian = 2,
+  kMbInPlace = 3,   // the step reads its slab where it lies in device memory
+  kMbStaged = 4,    // the block copies the slab into shared memory each step
+  kMbPrefetch = 5,  // staged, and slab it+1 is pulled into L2 during step it
+};
+
+__host__ __device__ inline bool is_minibatch(int model) {
+  return model == kMbInPlace || model == kMbStaged || model == kMbPrefetch;
+}
+__host__ __device__ inline bool slab_staged(int model) {
+  return model == kMbStaged || model == kMbPrefetch;
+}
 enum Algo { kAdam = 0, kDescent = 1, kDoWG = 2, kDoG = 3, kCOCOB = 4 };
 enum Entropy { kSTL = 0, kClosedFormZero = 1, kSTLZero = 2 };
 enum GradEst { kRepGrad = 0, kScoreGrad = 1 };
@@ -261,6 +279,176 @@ __device__ __forceinline__ void logreg_grad(const LogReg& m, const float* z, int
     }
     g[idx] = gv;
   }
+}
+
+// ---------------------------------------------------------------------------
+// K4's minibatch logreg body (_logreg_mb_math).  The data are the permuted
+// design X (n_used, db), n_used = nb * B, and the per-batch label sums yX
+// (nb, db), yX[k] = sum_{j in batch k} y_j X_j, so the labels never enter
+// the kernel.  Step it uses batch k = it mod nb, rows k*B .. k*B + B - 1:
+//
+//   ylogit = beta . yX[k];  l = beta X_k^T;  p = sigmoid(l)
+//   log pi = likeadj (ylogit - sum softplus(l)) - |beta|^2 e^{-2t} / 2
+//            - db t - t^2 / (2 s^2) - log s - (db + 1)/2 log 2 pi
+//   dbeta  = likeadj (yX[k] - p X_k) - beta e^{-2t};  dt as in the logreg
+//
+// with likeadj = n_data / B.  The slab pointer is generic: the rows in
+// device memory (in place) or the block's shared copy (staged), through one
+// code path, so the three transports compute bit-identical results.
+// ---------------------------------------------------------------------------
+
+struct LogRegMB {
+  const float* X;   // (B, db) slab of this step: device memory or shared
+  const float* yx;  // (db,) yX[k], shared
+  float* l;         // (n, B) shared: logits, then sigmoid(l)
+  int B, db;
+  float likeadj, prior_scale;
+};
+
+// Issue the copy of `floats` floats (a multiple of 4, both ends 16-byte
+// aligned) from device memory to shared memory with cp.async (16 bytes a
+// thread an instruction); they land before cp_async_wait_all().
+__device__ __forceinline__ void slab_copy_async(float* dst, const float* src, int floats,
+                                                int tid, int threads) {
+  for (int q = tid; q < floats / 4; q += threads) {
+    const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst + 4 * q));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src + 4 * q));
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Pull `floats` floats of device memory into L2, one 128-byte line a thread
+// an instruction (no data reaches the block; the next step's copy hits L2).
+__device__ __forceinline__ void prefetch_l2(const float* src, int floats, int tid,
+                                            int threads) {
+  for (int line = tid; line < (floats + 31) / 32; line += threads)
+    asm volatile("prefetch.global.L2 [%0];\n" ::"l"(src + 32 * line));
+}
+
+// Per-row sums, one warp a row: beta_sq = |beta|^2, t, inv_sig2 = e^{-2t}
+// and ylogit = beta . yX[k] (slab-independent: runs while the slab lands).
+__device__ __forceinline__ void logreg_mb_rows(const LogRegMB& m, const float* z, int n,
+                                               int d, float* beta_sq, float* tcol,
+                                               float* inv_sig2, float* ylogit, int warp,
+                                               int warps, int lane) {
+  for (int i = warp; i < n; i += warps) {
+    float bsq = 0.0f, yl = 0.0f;
+    for (int j = lane; j < m.db; j += 32) {
+      const float b = z[i * d + j];
+      bsq += b * b;
+      yl += b * m.yx[j];
+    }
+    bsq = warp_sum(bsq);
+    yl = warp_sum(yl);
+    if (lane == 0) {
+      const float t = z[i * d + m.db];
+      beta_sq[i] = bsq;
+      tcol[i] = t;
+      inv_sig2[i] = expf(-2.0f * t);
+      ylogit[i] = yl;
+    }
+  }
+}
+
+constexpr int kMbRows = 16;  // sample rows a thread accumulates at once
+
+// Logits l[i, k] = beta_i . X_k, one thread per datum k of the slab: the
+// thread reads its slab row once for up to kMbRows sample rows (the z
+// reads are warp-wide broadcasts); sums run over the features in order.
+__device__ __forceinline__ void logreg_mb_logits(const LogRegMB& m, const float* z, int n,
+                                                 int d, int tid, int threads) {
+  for (int k = tid; k < m.B; k += threads) {
+    const float* xr = m.X + static_cast<size_t>(k) * m.db;
+    for (int i0 = 0; i0 < n; i0 += kMbRows) {
+      float acc[kMbRows];
+#pragma unroll
+      for (int r = 0; r < kMbRows; ++r) acc[r] = 0.0f;
+      for (int j = 0; j < m.db; ++j) {
+        const float x = xr[j];
+#pragma unroll
+        for (int r = 0; r < kMbRows; ++r)
+          if (i0 + r < n) acc[r] = fmaf(z[(i0 + r) * d + j], x, acc[r]);
+      }
+#pragma unroll
+      for (int r = 0; r < kMbRows; ++r)
+        if (i0 + r < n) m.l[(i0 + r) * m.B + k] = acc[r];
+    }
+  }
+}
+
+// sigmoid(l) in place of the logits and log pi per row with the Exp log-det
+// folded in (one warp a row).
+__device__ __forceinline__ void logreg_mb_logpi(const LogRegMB& m, int n, const float* beta_sq,
+                                                const float* tcol, const float* inv_sig2,
+                                                const float* ylogit, float* logpi, int warp,
+                                                int warps, int lane) {
+  const float s2 = m.prior_scale * m.prior_scale;
+  const float log_s = logf(m.prior_scale);
+  const float fdb = static_cast<float>(m.db);
+  const float norm_const = 0.5f * static_cast<float>(m.db + 1) * kLog2Pi;
+  for (int i = warp; i < n; i += warps) {
+    float sp_sum = 0.0f;
+    for (int k = lane; k < m.B; k += 32) {
+      const float l = m.l[i * m.B + k];
+      sp_sum += fmaxf(l, 0.0f) + log1pf(expf(-fabsf(l)));
+      m.l[i * m.B + k] = 1.0f / (1.0f + expf(-l));
+    }
+    sp_sum = warp_sum(sp_sum);
+    if (lane == 0) {
+      const float t = tcol[i];
+      logpi[i] = m.likeadj * (ylogit[i] - sp_sum) - 0.5f * beta_sq[i] * inv_sig2[i] -
+                 fdb * t - t * t / (2.0f * s2) - log_s - norm_const;
+    }
+  }
+}
+
+// grad log pi, one thread per (row, lane): likeadj (yX[k] - p X_k) - beta
+// e^{-2t} (a sum over the batch in order), and the log-sigma lane.
+__device__ __forceinline__ void logreg_mb_grad(const LogRegMB& m, const float* z, int n,
+                                               int d, const float* beta_sq,
+                                               const float* tcol, const float* inv_sig2,
+                                               float* g, int tid, int threads) {
+  const float s2 = m.prior_scale * m.prior_scale;
+  const float fdb = static_cast<float>(m.db);
+  for (int idx = tid; idx < n * d; idx += threads) {
+    const int i = idx / d;
+    const int j = idx - i * d;
+    float gv;
+    if (j < m.db) {
+      const float* pl = m.l + i * m.B;
+      float acc = 0.0f;
+      for (int k = 0; k < m.B; ++k) acc = fmaf(pl[k], m.X[static_cast<size_t>(k) * m.db + j], acc);
+      gv = m.likeadj * (m.yx[j] - acc) - z[idx] * inv_sig2[i];
+    } else {
+      gv = beta_sq[i] * inv_sig2[i] - fdb - tcol[i] / s2;
+    }
+    g[idx] = gv;
+  }
+}
+
+// The top of a minibatch step it (batch k = it mod nb): yX[k] into `yx`,
+// and for the staged transports the slab's copy into `stage` (waited for
+// with cp_async_wait_all() before its first use); the prefetching one also
+// pulls slab (it + 1) mod nb into L2.  Returns the slab pointer the body
+// reads: `stage`, or the rows in device memory.
+__device__ __forceinline__ const float* minibatch_step_begin(
+    int model, const float* __restrict__ X, const float* __restrict__ yX, int B, int db,
+    int nb, unsigned long long it, float* stage, float* yx, int tid, int threads) {
+  const int k = static_cast<int>(it % static_cast<unsigned long long>(nb));
+  const size_t slab = static_cast<size_t>(B) * db;
+  const float* src = X + static_cast<size_t>(k) * slab;
+  for (int j = tid; j < db; j += threads) yx[j] = yX[static_cast<size_t>(k) * db + j];
+  if (!slab_staged(model)) return src;
+  slab_copy_async(stage, src, static_cast<int>(slab), tid, threads);
+  if (model == kMbPrefetch) {
+    const int kn = static_cast<int>((it + 1) % static_cast<unsigned long long>(nb));
+    prefetch_l2(X + static_cast<size_t>(kn) * slab, static_cast<int>(slab), tid, threads);
+  }
+  return stage;
 }
 
 }  // namespace avi

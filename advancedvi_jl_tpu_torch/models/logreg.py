@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Optional, Union
+from typing import Union
 
 import torch
 
@@ -63,6 +63,17 @@ class LogReg:
         loglike = torch.sum(self.y * logits - softplus(logits), dim=-1)
         return self.likeadj * loglike + logprior_beta + logprior_sigma
 
+    def subsample(self, indices: torch.Tensor) -> "LogReg":
+        """The minibatch ``indices`` with the likelihood rescaled by
+        n / batch (JAX models/logreg.py:78-88)."""
+        n = self.X.shape[0]
+        return LogReg(
+            X=torch.index_select(self.X, 0, indices),
+            y=torch.index_select(self.y, 0, indices),
+            likeadj=self.likeadj * (n / indices.shape[0]),
+            prior_scale=self.prior_scale,
+        )
+
     def unconstrained(self) -> TransformedTarget:
         """Unconstrained-space target (identity on beta, exp on sigma)."""
         d = self.X.shape[1]
@@ -76,13 +87,14 @@ def make_logreg(
     n_data: int = 208,
     n_features: int = 60,
     dtype: torch.dtype = torch.float32,
-    device: Optional[Union[str, torch.device]] = None,
+    device: Union[str, torch.device] = "cuda",
 ) -> LogReg:
     """Synthetic sonar-like dataset (208 x 60 + intercept, standardized).
 
     Same shapes and standardisation as the reference's ``make_logreg``; the
     numbers come from a CPU ``torch.Generator`` (an int seeds a new one), so
-    a seed gives the same data on every device.
+    a seed gives the same data on every device.  The tensors go to
+    ``device``: the card unless the caller asks for the CPU.
     """
     if not isinstance(generator, torch.Generator):
         seed = 0 if generator is None else int(generator)

@@ -3,7 +3,8 @@
 ``NormalTarget`` is N(mu, L L^T) with a batched log-density: ``theta`` of
 shape ``(..., d)`` gives ``(...)``.  The constructors draw from a CPU
 ``torch.Generator`` (an int seeds a new one), so a seed gives the same
-target on every device; the JAX package's draws come across as numpy
+target on every device, and put it on ``device`` (the card unless the
+caller asks for the CPU); the JAX package's draws come across as numpy
 through ``convert.normal_target_from_numpy``.
 """
 
@@ -68,7 +69,7 @@ def _target(mu, L, device):
 
 
 def normal_fullrank(seed: SeedOrGenerator = None, n_dims: int = 5,
-                    dtype=torch.float32, device=None):
+                    dtype=torch.float32, device="cuda"):
     """Correlated Gaussian target (reference: test/models/normal.jl fullrank);
     returns (target, mu_true, scale_tril_true)."""
     g = _generator(seed)
@@ -79,7 +80,7 @@ def normal_fullrank(seed: SeedOrGenerator = None, n_dims: int = 5,
 
 
 def normal_fullrank_wellcond(seed: SeedOrGenerator = None, n_dims: int = 5,
-                             dtype=torch.float32, device=None):
+                             dtype=torch.float32, device="cuda"):
     """Correlated Gaussian that stays well-conditioned at large d: the
     off-diagonal is scaled by 1/sqrt(d) (unit-norm rows in expectation)."""
     g = _generator(seed)
@@ -90,7 +91,7 @@ def normal_fullrank_wellcond(seed: SeedOrGenerator = None, n_dims: int = 5,
 
 
 def normal_meanfield(seed: SeedOrGenerator = None, n_dims: int = 5,
-                     dtype=torch.float32, device=None):
+                     dtype=torch.float32, device="cuda"):
     """Diagonal Gaussian target (reference: test/models/normal.jl meanfield)."""
     g = _generator(seed)
     mu = torch.randn(n_dims, generator=g, dtype=dtype)

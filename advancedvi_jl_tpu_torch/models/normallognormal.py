@@ -10,7 +10,8 @@ whose variational family lives in unconstrained space through an Exp
 bijector on y.  The joint is exactly a Gaussian in (log y, x), so the
 optimum of a Gaussian family there is known: location [mu_y, mu_x], scale
 diag([sigma_y, sigma_x]).  The log-density is batched over leading dims.
-``make_normallognormal`` draws from a CPU ``torch.Generator``; the JAX
+``make_normallognormal`` draws from a CPU ``torch.Generator`` and puts the
+target on ``device`` (the card unless the caller asks for the CPU); the JAX
 package's draws come across through ``convert.normallognormal_from_numpy``.
 """
 
@@ -68,7 +69,7 @@ class NormalLogNormal:
 
 
 def make_normallognormal(seed: SeedOrGenerator = None, n_dims: int = 10,
-                         dtype=torch.float32, device=None):
+                         dtype=torch.float32, device="cuda"):
     """Returns (target, mu_true, scale_diag_true): the analytic optimum of
     the unconstrained-space Gaussian approximation."""
     g = _generator(seed)

@@ -7,13 +7,12 @@ family's tensors.  On a CUDA family the draw is the fused sampler kernel.
 
 from __future__ import annotations
 
-import dataclasses
 from dataclasses import dataclass
 from typing import Optional
 
 import torch
 
-from ..core.pytree import tensor_fields, tree_map, tree_stop_gradient
+from ..core.pytree import tree_stop_gradient, value_and_grad
 from .entropy import CLOSED_FORM, estimate_entropy, estimate_entropy_from_draw
 
 
@@ -56,15 +55,16 @@ class RepGradELBO:
         energy = torch.mean(prob.log_density(samples))
         return -(energy + ent)
 
+    def _loss_and_aux(self, q, prob, key, noise: Optional[torch.Tensor] = None):
+        """(differentiable -ELBO, {"elbo": detached ELBO}): the function a
+        wrapper such as ``SubsampledObjective`` differentiates."""
+        nelbo = self.loss(q, prob, key, noise)
+        return nelbo, {"elbo": -nelbo.detach()}
+
     def value_and_grad(self, q, prob, key, obj_state=(), noise=None):
         """One gradient estimate; returns (grad family, obj_state, info)."""
-        with torch.enable_grad():
-            live = tree_map(lambda t: t.detach().requires_grad_(True), q)
-            nelbo = self.loss(live, prob, key, noise)
-            names = tensor_fields(live)
-            grads = torch.autograd.grad(nelbo, [getattr(live, n) for n in names])
-        grad = dataclasses.replace(q, **dict(zip(names, grads)))
-        return grad, obj_state, {"elbo": -nelbo.detach()}
+        grad, info = value_and_grad(lambda live: self._loss_and_aux(live, prob, key, noise), q)
+        return grad, obj_state, info
 
     @torch.no_grad()
     def estimate_objective(self, key, q, prob, n_samples: Optional[int] = None):

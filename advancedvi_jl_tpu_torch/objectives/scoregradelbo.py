@@ -14,13 +14,12 @@ VarGrad value (reference scoregradelbo.jl:96-117).
 
 from __future__ import annotations
 
-import dataclasses
 from dataclasses import dataclass
 from typing import Optional
 
 import torch
 
-from ..core.pytree import tensor_fields, tree_map, tree_stop_gradient
+from ..core.pytree import tree_stop_gradient, value_and_grad
 
 
 @dataclass(frozen=True)
@@ -78,15 +77,16 @@ class ScoreGradELBO:
         vargrad = (torch.mean(f * f) - torch.mean(f) ** 2) / 2.0
         return vargrad, torch.mean(log_pi - log_q.detach())
 
+    def _loss_and_aux(self, q, prob, key, noise: Optional[torch.Tensor] = None):
+        """(VarGrad loss, {"elbo": plain ELBO estimate}): the function a
+        wrapper such as ``SubsampledObjective`` differentiates."""
+        loss, elbo = self.loss_and_elbo(q, prob, key, noise)
+        return loss, {"elbo": elbo}
+
     def value_and_grad(self, q, prob, key, obj_state=(), noise=None):
         """One gradient estimate; returns (grad family, obj_state, info)."""
-        with torch.enable_grad():
-            live = tree_map(lambda t: t.detach().requires_grad_(True), q)
-            loss, elbo = self.loss_and_elbo(live, prob, key, noise)
-            names = tensor_fields(live)
-            grads = torch.autograd.grad(loss, [getattr(live, n) for n in names])
-        grad = dataclasses.replace(q, **dict(zip(names, grads)))
-        return grad, obj_state, {"elbo": elbo}
+        grad, info = value_and_grad(lambda live: self._loss_and_aux(live, prob, key, noise), q)
+        return grad, obj_state, info
 
     @torch.no_grad()
     def estimate_objective(self, key, q, prob, n_samples: Optional[int] = None):

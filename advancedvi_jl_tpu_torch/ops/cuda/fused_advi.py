@@ -12,12 +12,14 @@ algorithm constructors in one kernel,
 
 each with polynomial averaging, for two families:
 
-- mean-field, on hierarchical logistic regression or a diagonal Gaussian
-  (``gaussian_spec``, ``normallognormal_spec``) (csrc/fused_advi_meanfield.cu,
-  plain version ``fused_run_chunk_reference``);
-- full-rank, on logistic regression, a dense Gaussian (``mvnormal_spec``) or
-  a diagonal Gaussian, d <= D_FULLRANK_MAX (csrc/fused_advi_fullrank.cu,
-  plain version ``fused_fullrank_run_chunk_reference``).
+- mean-field, on hierarchical logistic regression, on its doubly-stochastic
+  minibatch version (``logreg_minibatch_spec``, ``logreg_minibatch_hbm_spec``)
+  or a diagonal Gaussian (``gaussian_spec``, ``normallognormal_spec``)
+  (csrc/fused_advi_meanfield.cu, plain version ``fused_run_chunk_reference``);
+- full-rank, on the same logistic regressions, a dense Gaussian
+  (``mvnormal_spec``) or a diagonal Gaussian, d <= D_FULLRANK_MAX
+  (csrc/fused_advi_fullrank.cu, plain version
+  ``fused_fullrank_run_chunk_reference``).
 
 The branch is chosen by the engine's attributes ``algo``, ``entropy``,
 ``grad_est`` and ``operator`` (JAX's string values) and passed to the kernel
@@ -51,6 +53,17 @@ Logreg gradient (theta = [beta (db), t], sigma = e^t, s = prior_scale):
     d/dbeta   = likeadj * X^T (y - sigmoid(l)) - beta e^{-2t}
     d/dt      = |beta|^2 e^{-2t} - db - t/s^2
 
+Minibatch logreg (K4's minibatch factories): the data are the permuted
+design X_perm (n_used, db), n_used = nb * B, and the per-batch label sums
+yX (nb, db); step ``it`` uses batch k = it mod nb (rows k B .. k B + B - 1),
+likeadj = n_data / B, and log pi = likeadj (beta . yX_k - sum softplus(X_k
+beta)) + the prior terms above, d/dbeta = likeadj (yX_k - sigmoid(X_k
+beta) X_k) - beta e^{-2t}.  The kernels read the slab in place, stage it in
+shared memory each step, or stage it and pull the next slab into L2; the
+three transports compute the same bits.  ``FusedADVI.optimize`` reshuffles
+the data between chunks (the spec's ``reshuffle``, keyed by the seed words
+and the iterations done), never mutating the engine's spec.
+
 Dense Gaussian N(m, L L^T) with precision P = L^{-T} L^{-1}:
 grad = -(z - m) P, log pi = (z - m) . grad / 2 + lognorm.  Diagonal Gaussian
 N(m, diag(1/v)): grad = -(z - m) v, log pi = -sum (z - m)^2 v / 2 + lognorm.
@@ -69,14 +82,15 @@ from __future__ import annotations
 import ctypes
 import math
 import warnings
-from dataclasses import dataclass
-from typing import Optional, Tuple
+from dataclasses import dataclass, replace
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ...families.location_scale import FullRankGaussian, MeanFieldGaussian
 from ...optimize import DivergenceError
+from ...subsampling import keyed_permutation
 from . import _build
 from .location_scale_kernels import (
     SeedLike,
@@ -90,7 +104,13 @@ FULLRANK = "fullrank"
 LOGREG = "logreg"
 MVNORMAL = "mvnormal"
 GAUSSIAN = "gaussian"
-MODEL_CODES = {LOGREG: 0, MVNORMAL: 1, GAUSSIAN: 2}  # the kernels' model switch
+# the minibatch logreg, one name per slab transport (JAX's three factories)
+LOGREG_MB = "logreg_minibatch"                    # in place
+LOGREG_MB_STAGED = "logreg_minibatch_staged"      # staged in shared memory
+LOGREG_MB_PREFETCH = "logreg_minibatch_prefetch"  # staged, next slab into L2
+MINIBATCH_MODELS = (LOGREG_MB, LOGREG_MB_STAGED, LOGREG_MB_PREFETCH)
+MODEL_CODES = {LOGREG: 0, MVNORMAL: 1, GAUSSIAN: 2, LOGREG_MB: 3, LOGREG_MB_STAGED: 4,
+               LOGREG_MB_PREFETCH: 5}  # the kernels' model switch
 # The JAX engine's bound on the full-rank width (its reason was TPU VMEM);
 # the port keeps it until an H100 measurement says otherwise.
 D_FULLRANK_MAX = 512
@@ -124,12 +144,14 @@ FR_VEC_FIELDS = ("mu", "m_mu", "v_mu", "avg_mu")
 FR_MAT_FIELDS = ("sig", "m_sig", "v_sig", "avg_sig")
 
 # Launch groups a chip run counts separately: the branches beyond the
-# STL x Adam x ClipScale one (rules, entropies, operators), VarGrad, and the
-# diagonal-Gaussian model body.
+# STL x Adam x ClipScale one (rules, entropies, operators), VarGrad, the
+# diagonal-Gaussian model body and the minibatch body's three transports.
 GROUP_RULES = "k3_rules"
 GROUP_VARGRAD = "k3_vargrad"
 GROUP_GAUSSIAN = "k4_gaussian"
-LAUNCH_GROUPS = (GROUP_RULES, GROUP_VARGRAD, GROUP_GAUSSIAN)
+GROUP_MB = {LOGREG_MB: "k4_minibatch_inplace", LOGREG_MB_STAGED: "k4_minibatch_staged",
+            LOGREG_MB_PREFETCH: "k4_minibatch_prefetch"}
+LAUNCH_GROUPS = (GROUP_RULES, GROUP_VARGRAD, GROUP_GAUSSIAN) + tuple(GROUP_MB.values())
 
 
 @dataclass(frozen=True)
@@ -139,12 +161,16 @@ class FusedModelSpec:
     (likeadj, prior_scale)`` and ``dim = db + 1``; ``"mvnormal"``
     (full-rank engine only), with ``consts = (mean (d,), precision (d, d))``
     and ``scalars = (lognorm,)``; ``"gaussian"``, with ``consts = (mean
-    (d,), inverse variance (d,))`` and ``scalars = (lognorm,)``."""
+    (d,), inverse variance (d,))`` and ``scalars = (lognorm,)``; the three
+    MINIBATCH_MODELS, with ``consts = (X_perm (nb * B, db), yX (nb, db))``,
+    ``scalars = (n_data / B, prior_scale)`` and ``reshuffle(seed words,
+    iterations done) -> consts``, which draws a new data order."""
 
     dim: int
     consts: Tuple[torch.Tensor, ...]
     scalars: Tuple[float, ...]
     model: str = LOGREG
+    reshuffle: Optional[Callable] = None
 
     @property
     def device(self) -> torch.device:
@@ -213,6 +239,86 @@ def normallognormal_spec(prob) -> FusedModelSpec:
     return gaussian_spec(mean, stddev)
 
 
+def pack_minibatch_consts(Xp: torch.Tensor, yp: torch.Tensor, batch_size: int):
+    """(X_perm (n_used, db), yX (nb, db)) of permuted data: yX[k] is the sum
+    of y_j X_j over batch k (ops/pallas/fused_advi.py:1075-1088 without the
+    lane padding)."""
+    n_used, db = Xp.shape
+    nb = n_used // batch_size
+    yX = (yp[:, None] * Xp).reshape(nb, batch_size, db).sum(dim=1)
+    return Xp.contiguous(), yX.contiguous()
+
+
+def _logreg_mb_build(X, y, batch_size, prior_scale, generator, perm, model):
+    """What the two minibatch specs share (JAX ``_logreg_mb_build``):
+    validation, the drop-trailing-batch permutation, likeadj = n_data / B and
+    the reshuffle closure.  The data stay on X's device; ``perm`` (an index
+    tensor) or ``generator`` (a seed, keyed as the reshuffles are) orders
+    them; with neither, the given order is kept.  As in JAX, the closure
+    keeps X and y alive beside the packed copy, so a spec holds the design
+    twice on the device (2 x 120 MB at 500,000 x 60)."""
+    if X.ndim != 2 or y.shape != (X.shape[0],):
+        raise ValueError(
+            f"expected X (n_data, db) and y (n_data,), got {tuple(X.shape)} and "
+            f"{tuple(y.shape)}"
+        )
+    n_data, db = X.shape
+    if batch_size % 8 != 0:
+        raise ValueError(f"batch_size must be a multiple of 8, got {batch_size}")
+    nb = n_data // batch_size
+    if nb < 1:
+        raise ValueError(f"batch_size {batch_size} exceeds n_data {n_data}")
+    n_used = nb * batch_size
+    X = X.to(torch.float32).contiguous()
+    y = y.to(device=X.device, dtype=torch.float32).contiguous()
+    if perm is None and generator is not None:
+        perm = keyed_permutation(n_data, seed_words(generator), 0, X.device)
+    if perm is None:
+        Xp, yp = X[:n_used], y[:n_used]
+    else:
+        perm = perm.to(X.device)[:n_used]
+        Xp, yp = X.index_select(0, perm), y.index_select(0, perm)
+
+    def reshuffle(words, done):
+        p = keyed_permutation(n_data, words, done, X.device)[:n_used]
+        return pack_minibatch_consts(X.index_select(0, p), y.index_select(0, p), batch_size)
+
+    return FusedModelSpec(
+        dim=db + 1, consts=pack_minibatch_consts(Xp, yp, batch_size),
+        scalars=(n_data / batch_size, float(prior_scale)), model=model,
+        reshuffle=reshuffle,
+    )
+
+
+def logreg_minibatch_spec(
+    X: torch.Tensor, y: torch.Tensor, batch_size: int, prior_scale: float = 3.0,
+    generator=None, perm: Optional[torch.Tensor] = None,
+) -> FusedModelSpec:
+    """Doubly-stochastic hierarchical logreg as a fused-engine model (JAX
+    ``logreg_minibatch_spec``): the permuted data stay in device memory and
+    step ``it`` reads batch k = it mod nb where it lies, the likelihood
+    rescaled by n_data / B (the ``subsample`` contract), trailing rows
+    beyond nb * B dropped.  Within a chunk the order is fixed (cyclic
+    passes); ``FusedADVI.optimize`` reshuffles between chunks, a coarser
+    schedule than the general path's per-epoch one with the same unbiased
+    estimator."""
+    return _logreg_mb_build(X, y, batch_size, prior_scale, generator, perm, LOGREG_MB)
+
+
+def logreg_minibatch_hbm_spec(
+    X: torch.Tensor, y: torch.Tensor, batch_size: int, prior_scale: float = 3.0,
+    generator=None, prefetch: bool = True, perm: Optional[torch.Tensor] = None,
+) -> FusedModelSpec:
+    """The minibatch logreg with the slab staged (JAX
+    ``logreg_minibatch_hbm_spec``): each step the block copies its B-row slab
+    into shared memory, overlapped with the slab-independent work; with
+    ``prefetch`` (the default) step it also pulls slab it+1 into L2.  Same
+    estimator, schedule and results as ``logreg_minibatch_spec``; n_data is
+    bounded by device memory only."""
+    model = LOGREG_MB_PREFETCH if prefetch else LOGREG_MB_STAGED
+    return _logreg_mb_build(X, y, batch_size, prior_scale, generator, perm, model)
+
+
 @dataclass(frozen=True)
 class FusedHyper:
     """Adam, averaging and ClipScale constants of the fused engine (``lr``
@@ -266,6 +372,8 @@ class FusedBranch:
             out.append(GROUP_VARGRAD)
         if model == GAUSSIAN:
             out.append(GROUP_GAUSSIAN)
+        if model in GROUP_MB:
+            out.append(GROUP_MB[model])
         return tuple(out)
 
 
@@ -380,9 +488,40 @@ def gaussian_logpi_grad(z, mean, inv_var, lognorm: float):
     return -0.5 * torch.sum(diff * diff * inv_var, dim=1) + lognorm, -diff * inv_var
 
 
-def _model_logpi_grad(model: str, consts, scalars, z):
+def logreg_minibatch_logpi_grad(z, X_perm, yX, it: int, likeadj: float, prior_scale: float):
+    """(log pi (n,), grad (n, d)) of the minibatch logreg at iteration
+    ``it``: batch k = it mod nb of the permuted data, likelihood rescaled by
+    likeadj (ops/pallas/fused_advi.py ``_logreg_mb_math``)."""
+    nb, db = yX.shape
+    B = X_perm.shape[0] // nb
+    k = it % nb
+    Xb, yXb = X_perm[k * B:(k + 1) * B], yX[k]
+    beta, t = z[:, :db], z[:, db]
+    inv_sig2 = torch.exp(-2.0 * t)
+    beta_sq = torch.sum(beta * beta, dim=1)
+    logits = beta @ Xb.T
+    p = torch.sigmoid(logits)
+    sp = torch.clamp_min(logits, 0.0) + torch.log1p(torch.exp(-torch.abs(logits)))
+    loglike = beta @ yXb - torch.sum(sp, dim=1)
+    s = prior_scale
+    logpi = (
+        likeadj * loglike
+        - 0.5 * beta_sq * inv_sig2
+        - db * t
+        - t * t / (2.0 * s * s)
+        - math.log(s)
+        - 0.5 * (db + 1) * _L2PI
+    )
+    gbeta = likeadj * (yXb - p @ Xb)
+    gt = beta_sq * inv_sig2 - db - t / (s * s)
+    return logpi, torch.cat([gbeta - beta * inv_sig2[:, None], gt[:, None]], dim=1)
+
+
+def _model_logpi_grad(model: str, consts, scalars, z, it: int):
     if model == LOGREG:
         return logreg_logpi_grad(z, *consts, *scalars)
+    if model in MINIBATCH_MODELS:
+        return logreg_minibatch_logpi_grad(z, *consts, it, *scalars)
     if model == MVNORMAL:
         return mvnormal_logpi_grad(z, *consts, *scalars)
     if model == GAUSSIAN:
@@ -519,7 +658,7 @@ def fused_run_chunk_reference(
         u = _draw(noise, seed, it, s, n, d, state.device)
         mu, sig = st["mu"], st["sig"]
         z = mu + sig * u
-        logpi, grad = _model_logpi_grad(model, consts, scalars, z)
+        logpi, grad = _model_logpi_grad(model, consts, scalars, z, it)
         logdet = torch.sum(torch.log(sig))
         if branch.grad_est == GE_SCOREGRAD:
             logq = -(torch.sum(0.5 * u * u, dim=1) + logdet + 0.5 * d * _L2PI)
@@ -578,7 +717,7 @@ def fused_fullrank_run_chunk_reference(
         sig = st["sig"]
         C = torch.tril(sig)
         z = u @ C.T + st["mu"]
-        logpi, grad = _model_logpi_grad(model, consts, scalars, z)
+        logpi, grad = _model_logpi_grad(model, consts, scalars, z, it)
         if branch.entropy == ENT_CF_ZERO:
             g_z = -inv_n * grad
         else:
@@ -614,7 +753,7 @@ def fused_fullrank_run_chunk_reference(
 # ---------------------------------------------------------------------------
 
 _ARGS_HEAD = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-              ctypes.c_float, ctypes.c_float]
+              ctypes.c_int, ctypes.c_float, ctypes.c_float]
 _ARGS_TAIL = (
     [ctypes.c_int] * 4
     + [ctypes.c_uint32, ctypes.c_uint32, ctypes.c_uint64]
@@ -627,15 +766,26 @@ _FULLRANK_ARGTYPES = _ARGS_HEAD + [ctypes.c_void_p] * 7 + _ARGS_TAIL
 
 
 def _model_args(model: str, consts, scalars, d: int, dev, full_rank: bool):
-    """(c0, c1, n_data, db, s0, s1) of a model, its shapes checked."""
+    """(c0, c1, n_data, db, batch, s0, s1) of a model, its shapes checked."""
     c0, c1 = consts
-    if model == LOGREG:
+    if model == LOGREG or model in MINIBATCH_MODELS:
         n_data, db = c0.shape
         check_f32("X", c0, (n_data, db), dev)
-        check_f32("y", c1, (n_data,), dev)
         if db + 1 != d:
             raise ValueError(f"logreg with {db} features needs d = {db + 1}, got {d}")
-        return c0, c1, n_data, db, float(scalars[0]), float(scalars[1])
+        batch = 0
+        if model == LOGREG:
+            check_f32("y", c1, (n_data,), dev)
+        else:
+            nb = c1.shape[0]
+            check_f32("yX", c1, (nb, db), dev)
+            batch = n_data // max(nb, 1)
+            if nb < 1 or batch * nb != n_data or batch % 8 or c0.data_ptr() % 16:
+                raise ValueError(
+                    f"a minibatch model needs X_perm of nb * B rows (B a multiple "
+                    f"of 8, 16-byte aligned) and yX of nb rows, got {n_data} and {nb}"
+                )
+        return c0, c1, n_data, db, batch, float(scalars[0]), float(scalars[1])
     if model == MVNORMAL and full_rank:
         check_f32("mean", c0, (d,), dev)
         check_f32("precision", c1, (d, d), dev)
@@ -644,7 +794,7 @@ def _model_args(model: str, consts, scalars, d: int, dev, full_rank: bool):
         check_f32("inverse variance", c1, (d,), dev)
     else:
         raise ValueError(f"no fused model {model!r} for this family")
-    return c0, c1, 0, 0, float(scalars[0]), 0.0
+    return c0, c1, 0, 0, 0, float(scalars[0]), 0.0
 
 
 def _check_branch_shape(branch: FusedBranch, d: int) -> Tuple[int, int, int, int]:
@@ -680,20 +830,20 @@ def fused_run_chunk_cuda(
         raise ValueError(f"VarGrad needs n_samples >= 2, got {n}")
     n_rows = 8 + branch.ext_rows
     check_f32("state", state, (n_rows, d), dev)
-    c0, c1, n_data, db, s0, s1 = _model_args(model, consts, scalars, d, dev, False)
+    c0, c1, n_data, db, batch, s0, s1 = _model_args(model, consts, scalars, d, dev, False)
     if noise is not None:
         check_f32("noise", noise, (steps, n, d), dev)
     code = MODEL_CODES[model]
     smem = _build.function(
         "fused_advi_meanfield", "fused_advi_meanfield_smem_bytes",
-        [ctypes.c_int] * 6, restype=ctypes.c_size_t,
-    )(code, n_data, db, n, d, n_rows)
+        [ctypes.c_int] * 7, restype=ctypes.c_size_t,
+    )(code, n_data, db, batch, n, d, n_rows)
     if smem > _build.SMEM_LIMIT:
         raise ValueError(
-            f"the fused kernel keeps the model's data, the draws and the "
-            f"state in shared memory: {smem} bytes for n_data={n_data}, d={d}, "
-            f"n={n}, {n_rows} state rows is over the {_build.SMEM_LIMIT}-byte "
-            f"limit of one block"
+            f"the fused kernel keeps the model's data (a minibatch model: one "
+            f"staged slab), the draws and the state in shared memory: {smem} "
+            f"bytes for n_data={n_data}, batch={batch}, d={d}, n={n}, {n_rows} "
+            f"state rows is over the {_build.SMEM_LIMIT}-byte limit of one block"
         )
     fn = _build.function("fused_advi_meanfield", "fused_advi_meanfield", _MEANFIELD_ARGTYPES)
     out = torch.empty((n_rows, d), dtype=torch.float32, device=dev)
@@ -705,7 +855,7 @@ def fused_run_chunk_cuda(
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(
-            code, c0.data_ptr(), c1.data_ptr(), n_data, db, s0, s1,
+            code, c0.data_ptr(), c1.data_ptr(), n_data, db, batch, s0, s1,
             state.data_ptr(), out.data_ptr(), elbo.data_ptr(),
             trace.data_ptr() if trace is not None else None,
             noise.data_ptr() if noise is not None else None,
@@ -754,14 +904,14 @@ def fused_fullrank_run_chunk_cuda(
     k = 4 + branch.ext_rows // 2
     check_f32("vec", vec, (k, d), dev)
     check_f32("mat", mat, (k, d, d), dev)
-    c0, c1, n_data, db, s0, s1 = _model_args(model, consts, scalars, d, dev, True)
+    c0, c1, n_data, db, batch, s0, s1 = _model_args(model, consts, scalars, d, dev, True)
     if noise is not None:
         check_f32("noise", noise, (steps, n, d), dev)
     code = MODEL_CODES[model]
     smem = _build.function(
         "fused_advi_fullrank", "fused_advi_fullrank_smem_bytes",
-        [ctypes.c_int] * 6, restype=ctypes.c_size_t,
-    )(code, n_data, db, n, d, k)
+        [ctypes.c_int] * 7, restype=ctypes.c_size_t,
+    )(code, n_data, db, batch, n, d, k)
     if smem > _build.SMEM_LIMIT:
         raise ValueError(
             f"the full-rank fused kernel keeps the draws and the model's "
@@ -779,7 +929,7 @@ def fused_fullrank_run_chunk_cuda(
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(
-            code, c0.data_ptr(), c1.data_ptr(), n_data, db, s0, s1,
+            code, c0.data_ptr(), c1.data_ptr(), n_data, db, batch, s0, s1,
             vec.data_ptr(), mat.data_ptr(), vec_out.data_ptr(), mat_out.data_ptr(),
             elbo.data_ptr(), trace.data_ptr() if trace is not None else None,
             noise.data_ptr() if noise is not None else None,
@@ -844,11 +994,12 @@ class FusedADVI:
                 f"family must be '{MEANFIELD}' or '{FULLRANK}', got {family!r}"
             )
         ported = (LOGREG, GAUSSIAN) if family == MEANFIELD else (LOGREG, MVNORMAL, GAUSSIAN)
+        ported += MINIBATCH_MODELS
         if model.model not in ported:
             raise NotImplementedError(
-                f"fused model {model.model!r} is not ported yet for the "
-                f"{family} engine; it has {ported} (ROADMAP Queue 2, kernels "
-                "K4 and K5)"
+                f"fused model {model.model!r} is not ported for the {family} "
+                f"engine; it has {ported} (mvnormal is full-rank only, as in "
+                "the JAX engine; generic targets are K5, ROADMAP Queue 2)"
             )
         if family == FULLRANK and model.dim > D_FULLRANK_MAX:
             raise ValueError(
@@ -929,7 +1080,8 @@ class FusedADVI:
         ``torch.Generator`` is read once per call, so a chunked run needs
         one of the others).  ``noise``: optional (steps, n_samples, d) base
         draws replacing the Philox stream.  ``model``: a spec of the same
-        kind and shapes replacing ``self.model`` (new data, same engine)."""
+        kind and shapes replacing ``self.model`` (new data, same engine;
+        ``optimize`` passes the reshuffled minibatch specs this way)."""
         return self._run(state, key, steps, noise, 0, model)[0]
 
     def run_chunk_traced(self, state: FusedADVIState, key: SeedLike, steps: int,
@@ -1012,6 +1164,11 @@ class FusedADVI:
         "elbo"}`` rows on the ``log_every`` grid (recorded in the kernel,
         read once per chunk) and the warm-startable state.
 
+        A minibatch model is reshuffled between chunks, functionally: the
+        loop threads the reshuffled spec through a local, keyed by the seed
+        words and the iterations done, so the engine's own spec never
+        changes and a second ``optimize`` starts from the same data order.
+
         Divergence is checked per recorded row, so the raise names the first
         non-finite row's iteration at ``log_every`` granularity."""
         if state is None:
@@ -1032,22 +1189,25 @@ class FusedADVI:
 
         chunk = max(log_every, (chunk_size // log_every) * log_every)
         infos: list = []
+        model = self.model
         start = done = state.iteration
         end = start + max_iter
         while done < end:
             n = min(chunk, end - done)
             every = min(log_every, n)
             state, trace = self.run_chunk_traced(
-                state, words, steps=(n // every) * every, log_every=every,
+                state, words, steps=(n // every) * every, log_every=every, model=model,
             )
             for g, e in enumerate(trace.tolist()):  # the chunk's one sync
                 record(e, done + (g + 1) * every - start)
             done = state.iteration
             rem = n - (n // log_every) * log_every if n >= log_every else 0
             if rem:
-                state = self.run_chunk(state, words, steps=rem)
+                state = self.run_chunk(state, words, steps=rem, model=model)
                 done = state.iteration
                 record(float(state.elbo), done - start)
+            if model.reshuffle is not None and done < end:
+                model = replace(model, consts=model.reshuffle(words, done))
         if infos and infos[-1]["iteration"] != max_iter:
             record(float(state.elbo), max_iter)
         return self.q(state), infos, state

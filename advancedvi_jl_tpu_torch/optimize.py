@@ -5,7 +5,8 @@ reads them once per chunk of ``chunk_size`` steps (default: the whole run).
 That read names the exact first non-finite step in the ``DivergenceError``.
 Info rows are kept on the ``log_every`` grid as in the reference: within
 each chunk (a multiple of ``log_every``) every ``log_every``-th step, plus
-the last step of the run.
+the last step of the run.  A row also carries the step's host-side info
+entries (a subsampled objective's ``epoch`` and ``step``).
 
 With a ``callback`` the loop syncs every step and calls
 ``callback(iteration=, state=, info=, gradient=, averaged_params=)`` with
@@ -59,10 +60,12 @@ def optimize(
     done = 0
     while done < max_iter:
         n = min(chunk, max_iter - done)
-        elbos = []
+        elbos, extras = [], []
         for _ in range(n):
             state, info = algorithm.step(state)
             elbos.append(info["elbo"])
+            extras.append({k: v for k, v in info.items()
+                           if k not in ("elbo", "diverged") and not isinstance(v, torch.Tensor)})
         host = torch.stack(elbos).cpu()  # the chunk's one sync
         bad = ~torch.isfinite(host)
         if check_divergence and bool(bad.any()):
@@ -74,6 +77,7 @@ def optimize(
         for t in range(n):
             if (t + 1) % log_every == 0 or t + 1 == n:
                 infos.append({
+                    **extras[t],
                     "elbo": float(host[t]),
                     "diverged": bool(bad[t]),
                     "iteration": done + t + 1,

@@ -44,13 +44,28 @@ Phases:
   (p) the slice's fused engines: 20,000 steps on the flagship, fused vs
       general on one key, full-rank prox against the analytic optimum;
   (q) steps/s of the slice's fused engines beside their plain versions,
-      and of its two mean-field general paths.
+      and of its two mean-field general paths;
+  (r) K4's minibatch logreg body in both fused kernels, each slab transport
+      (in place, staged, staged + prefetch) against the plain version at
+      n = 16,384, B = 512 and at n = 500,000: noise, Philox, chunking,
+      tracing, the transports bit-equal;
+  (s) the K9 probes against their plain versions, exactly;
+  (t) the general subsampled paths through ``optimize``: ADVI on the
+      16,384 x 61 logreg (B = 512), the BNN of bench_large.py (d = 8,705,
+      B = 2,048, ADVI and proximal DoWG), subsampled normals against their
+      analytic posterior;
+  (u) the fused minibatch engines through ``optimize``: 20,000 steps in
+      place at n = 16,384 and staged (with and without prefetch) at
+      n = 500,000, reshuffling between chunks; fused vs general on one key
+      and one permutation over one epoch; each transport's time beside its
+      plain version, one reshuffle at n = 500,000, general steps/s.
 
 Every failed check raises and the script exits non-zero; it also exits
 non-zero without a CUDA device, or when the package is not beside it.  The
 line before the last is a JSON object of the kernels (launch counts from the
-main-path runs of (f), (g), (l), (o) and (p), errors, times); the last line is
-``{"ok": true, "device": {...}}``.  It imports no JAX.
+main-path runs of (f), (g), (l), (o), (p), (s) and (u), errors, times, each
+time's bound on this card and, for K8, the library call's time); the last
+line is ``{"ok": true, "device": {...}}``.  It imports no JAX.
 """
 
 from __future__ import annotations
@@ -307,13 +322,15 @@ def wrappers():
     from advancedvi_jl_tpu_torch.ops.cuda.location_scale_kernels import (
         fullrank_sample_cuda, meanfield_sample_cuda,
     )
+    from advancedvi_jl_tpu_torch.ops.cuda.probe_kernels import probe_cuda
     from advancedvi_jl_tpu_torch.ops.cuda.trisolve_kernels import solve_right_cuda
 
     return {"meanfield_sample": meanfield_sample_cuda,
             "fused_advi_meanfield": fused_run_chunk_cuda,
             "fullrank_sample": fullrank_sample_cuda,
             "trisolve": solve_right_cuda,
-            "fused_advi_fullrank": fused_fullrank_run_chunk_cuda}
+            "fused_advi_fullrank": fused_fullrank_run_chunk_cuda,
+            "probes": probe_cuda}
 
 
 def reset_launches():
@@ -452,7 +469,7 @@ def factor(d, dev, seed=3):
     with ones written above the diagonal (no kernel may read them)."""
     from advancedvi_jl_tpu_torch.models.normal import normal_fullrank_wellcond
 
-    _, _, L = normal_fullrank_wellcond(seed, d)
+    _, _, L = normal_fullrank_wellcond(seed, d, device="cpu")
     return L.to(dev), (L + torch.triu(torch.ones(d, d), 1)).to(dev)
 
 
@@ -724,12 +741,17 @@ def phase_m(dev, card):
     s_plain = cuda_ms(lambda: fullrank_sample_reference(seed, 1, loc, C, n), 20)
     say("m", fullrank_sample_ms=s_ms, fullrank_sample_plain_ms=s_plain, shape=f"{n}x{d}")
     out["fullrank_sample"] = (s_ms, s_plain)
+    Lt = torch.tril(C)
     for mode in ("C", "CT"):
+        op = Lt if mode == "C" else Lt.T
         t_ms = cuda_ms(lambda: solve_right_cuda(C, V, mode), 200)
         t_plain = cuda_ms(lambda: solve_right_reference(C, V, mode), 200)
+        # the library call alone (cuBLAS trsm), on a triangle made beforehand
+        t_lib = cuda_ms(lambda: torch.linalg.solve_triangular(op, V, upper=mode == "CT",
+                                                              left=False), 200)
         say("m", trisolve_mode=mode, trisolve_ms=t_ms, trisolve_plain_ms=t_plain,
-            shape=f"{n}x{d}")
-        out[f"trisolve_{mode}"] = (t_ms, t_plain)
+            trisolve_library_ms=t_lib, shape=f"{n}x{d}")
+        out[f"trisolve_{mode}"] = (t_ms, t_plain, t_lib)
     return out
 
 
@@ -1101,64 +1123,519 @@ def phase_q(dev, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# The subsampling slice: K4's minibatch body (three transports), K9, and the
+# general subsampled paths
+# ---------------------------------------------------------------------------
+
+MB_N, MB_B = 16_384, 512      # _fused_mb_chip.py: make_logreg(16_384, 60), B = 512
+STREAM_N, STREAM_P = 500_000, 60  # _round5_chip.py section 5: the streamed logreg
+MB_NOISE_STEPS = 65           # > 2 nb + 1 = 65 at nb = 32: wraps the schedule twice
+MB_AGREE_STEPS = MB_N // MB_B  # one epoch: fused and general see the same batches
+MB_GENERAL_STEPS = 500
+BNN_N, BNN_IN, BNN_HIDDEN, BNN_B, BNN_SAMPLES = 16_384, 32, 256, 2048, 16  # bench_large.py
+BNN_STEPS = 200
+SN_STEPS = 2_000              # subsampled normals: tests/test_subsampling.py:91-106
+TRANSPORTS = ("inplace", "staged", "prefetch")
+F32_FLOPS, HBM_BYTES = 67e12, 3.35e12  # H100 SXM peaks: float32 without tensor cores, HBM
+
+
+def bound(flops: float, nbytes: float):
+    """(bound_ms, bound_by): the larger of the operations over the float32
+    peak and the bytes over the memory rate."""
+    t_ops, t_bytes = flops / F32_FLOPS * 1e3, nbytes / HBM_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def large_logreg(dev):
+    from advancedvi_jl_tpu_torch.models.logreg import make_logreg
+
+    return make_logreg(21, n_data=MB_N, n_features=N_FEATURES, device=dev)
+
+
+def streamed_data(dev):
+    """_round5_chip.py's streamed logreg at n = 500,000 x 60 (no intercept),
+    drawn on the card: X ~ N(0, 1), y ~ Bernoulli(sigmoid(X beta)),
+    beta ~ N(0, 0.25)."""
+    g = torch.Generator(device=dev).manual_seed(21)
+    X = torch.randn(STREAM_N, STREAM_P, generator=g, device=dev)
+    beta = 0.5 * torch.randn(STREAM_P, generator=g, device=dev)
+    y = (torch.rand(STREAM_N, generator=g, device=dev) < torch.sigmoid(X @ beta)).float()
+    return X, y
+
+
+def mb_specs(X, y, gen=3):
+    """The in-place, staged and prefetching specs of one permutation."""
+    import advancedvi_jl_tpu_torch as avt
+
+    kw = dict(batch_size=MB_B, generator=gen)
+    return dict(zip(TRANSPORTS, (avt.logreg_minibatch_spec(X, y, **kw),
+                                 avt.logreg_minibatch_hbm_spec(X, y, prefetch=False, **kw),
+                                 avt.logreg_minibatch_hbm_spec(X, y, **kw))))
+
+
+def mb_flops_bytes(spec, n, steps):
+    """Operations and bytes of a ``steps``-step mean-field minibatch chunk:
+    two (n, B, db) products a step; the slabs the steps read, each once, and
+    the state in and out."""
+    X, yX = spec.consts
+    nb, db = yX.shape
+    B, d = X.shape[0] // nb, spec.dim
+    macs = 2 * n * B * db
+    rows = min(steps, nb) * B
+    return 2.0 * macs * steps, 4.0 * (rows * db + min(steps, nb) * db + 16 * d)
+
+
+def phase_r(dev):
+    """K4's minibatch body against its plain version: every transport x
+    {STL x Adam x clip, prox-DoWG closed-form zero, VarGrad-DoWG-clip}
+    mean-field and {STL x Adam x clip, prox-DoWG} full-rank at n = 16,384,
+    B = 512 (65 injected-noise steps, rtol 1e-5; 200 Philox steps, rtol
+    1e-4), and every transport of the flagship branch at n = 500,000; the
+    transports bit-equal; one launch equal to a 3 + rest split (a cut
+    between a prefetch and its use); traced equal to untraced.  The plain
+    version reads the slab one way for all three transports, so it runs
+    once a case.  Returns each transport's largest parameter error after
+    the injected-noise steps."""
+    from advancedvi_jl_tpu_torch.ops.cuda.fused_advi import (
+        GROUP_MB, FusedBranch, fused_fullrank_run_chunk_cuda,
+        fused_fullrank_run_chunk_reference, fused_run_chunk_cuda, fused_run_chunk_reference,
+    )
+    from advancedvi_jl_tpu_torch.ops.cuda.location_scale_kernels import seed_words
+
+    seed = seed_words(SEED)
+    prob = large_logreg(dev)
+    Xs, ys = streamed_data(dev)
+    data = {"16k": mb_specs(prob.X, prob.y), "500k": mb_specs(Xs, ys)}
+    prox, vargrad = slice_branches()
+    cases = [("meanfield", "16k", b) for b in (FusedBranch(), prox[2], vargrad[4])]
+    cases += [("fullrank", "16k", b) for b in (FusedBranch(), prox[2])]
+    cases.append(("meanfield", "500k", FusedBranch()))
+    worst = dict.fromkeys(TRANSPORTS, 0.0)
+    t0 = time.perf_counter()
+    for family, size, b in cases:
+        specs = data[size]
+        spec0 = specs[TRANSPORTS[0]]
+        d = spec0.dim
+        eng = case_engine(dev, family, spec0, b, LR, 1e-6)
+        st = eng.init(torch.zeros(d, device=dev), 0.1 * (
+            torch.ones(d, device=dev) if family == "meanfield" else torch.eye(d, device=dev)))
+        if family == "meanfield":
+            rows = (st.stacked(),)
+            kern, plain = fused_run_chunk_cuda, fused_run_chunk_reference
+        else:
+            rows = st.stacked_fullrank()
+            kern, plain = fused_fullrank_run_chunk_cuda, fused_fullrank_run_chunk_reference
+        nr, branch = len(rows), eng.branch()
+
+        def run(fn, spec, rows, it0, steps, noise=None, log_every=0):
+            return fn(spec.model, spec.consts, spec.scalars, *rows, seed, it0, steps,
+                      N_SAMPLES, eng.hyp, noise, log_every, branch)
+
+        warm = WARM if b.algo in ("dowg", "dog") else 0
+        n_noise, n_philox = MB_NOISE_STEPS, 200
+        if family == "fullrank" and b.algo == "dowg":
+            # full-rank proximal DoWG on the logreg runs away within ~40 steps
+            # (phase (n)): 10 + 10 steps after 20, a larger r0
+            warm, n_noise, n_philox = 20, 10, 10
+            eng.alpha = 1e-4
+        if warm:
+            rows = run(kern, spec0, rows, 0, warm)[:nr]
+        noise = torch.randn((n_noise, N_SAMPLES, d),
+                            generator=torch.Generator().manual_seed(5)).to(dev)
+        r = run(plain, spec0, rows, warm, n_noise, noise, n_noise // 5)
+        ref = run(plain, spec0, rows, warm, n_philox)
+        outs = {}
+        for tr, spec in specs.items():
+            k = run(kern, spec, rows, warm, n_noise, noise, n_noise // 5)
+            ku = run(kern, spec, rows, warm, n_noise, noise)
+            one = run(kern, spec, rows, warm, n_philox)
+            two = run(kern, spec, run(kern, spec, rows, warm, 3)[:nr], warm + 3, n_philox - 3)
+            torch.cuda.synchronize()
+            label = f"{family}-{size}:{tr}:{b.algo}/{b.entropy}/{b.grad_est}/{b.operator}"
+            check(all(bool(torch.isfinite(t).all()) for t in state_tensors(one, nr)),
+                  f"{label}: not finite")
+            rel = compare_tensors(f"{label}, injected noise", state_tensors(k, nr),
+                                  state_tensors(r, nr), 1e-5)
+            err = parameter_err((k[:nr], r[:nr]), nr)
+            check(torch.allclose(k[nr], r[nr], rtol=1e-5, atol=1e-4), f"{label}: ELBO differs")
+            check(torch.allclose(k[nr + 1], r[nr + 1], rtol=1e-5, atol=1e-4),
+                  f"{label}: trace rows differ")
+            check(all(torch.equal(a, c) for a, c in zip(k[:nr + 1], ku[:nr + 1])),
+                  f"{label}: traced and untraced launches differ")
+            check(all(torch.equal(a, c) for a, c in zip(one[:nr + 1], two[:nr + 1])),
+                  f"{label}: one Philox launch differs from a 3 + rest split")
+            compare_tensors(f"{label}, Philox, {n_philox} steps", state_tensors(one, nr),
+                            state_tensors(ref, nr), 1e-4)
+            check(torch.allclose(one[nr], ref[nr], rtol=1e-4, atol=1e-3),
+                  f"{label}: ELBO after {n_philox} Philox steps differs")
+            check(kern.group_launches[GROUP_MB[spec.model]] > 0, f"{label}: not counted")
+            worst[tr] = max(worst[tr], err)
+            outs[tr] = (k, one)
+            say("r", case=label, d=d, n_data=spec.consts[0].shape[0], warm=warm,
+                steps=f"{n_noise},{n_philox}", parameter_max_abs_err=f"{err:.3e}",
+                state_max_rel_err=f"{rel:.3e}", elbo_kernel=float(k[nr]),
+                elbo_plain=float(r[nr]))
+        first = outs[TRANSPORTS[0]]
+        same = all(all(torch.equal(a, c) for a, c in zip(x[:nr + 1], y[:nr + 1]))
+                   for o in outs.values() for x, y in zip(first, o))
+        check(same, f"{family}-{size}/{b.algo}: the transports differ on the same arguments")
+        say("r", case=f"{family}-{size}:{b.algo}/{b.entropy}/{b.grad_est}",
+            transports=len(outs), transports_bitwise_equal=same)
+    say("r", chunked_bitwise=True, traced_bitwise=True,
+        seconds=f"{time.perf_counter() - t0:.2f}")
+    return worst
+
+
+def phase_s(dev):
+    """K9: the four probes through ``run_probes`` (counted), then each
+    against its plain version, exactly."""
+    from advancedvi_jl_tpu_torch.ops.cuda.probe_kernels import (
+        probe_cuda, probe_inputs, probe_reference, run_probes,
+    )
+
+    torch.cuda.synchronize()
+    reset_launches()
+    outs = run_probes(dev)
+    torch.cuda.synchronize()
+    launches = probe_cuda.launches
+    check(launches == 4, f"the probes made {launches} launches, expected 4")
+    err = 0.0
+    for i, x in probe_inputs(dev).items():
+        want = probe_reference(i, x, device=dev)
+        err = max(err, max_err(outs[i], want))
+        check(torch.equal(outs[i], want), f"probe {i} differs from its plain version")
+    x = torch.arange(24 * 128, dtype=torch.float32, device=dev).reshape(24, 128) % 7
+    check(torch.equal(probe_cuda(4, x), probe_reference(4, x)), "probe 4: rem schedule differs")
+    say("s", probes=4, launches=launches, exact=True,
+        values=[float(outs[i][-1, 0]) for i in (1, 2, 3, 4)])
+    inputs = probe_inputs(dev)
+    ms = cuda_ms(lambda: [probe_cuda(i, x, device=dev) for i, x in inputs.items()], 20)
+    plain_ms = cuda_ms(lambda: [probe_reference(i, x, device=dev)
+                                for i, x in inputs.items()], 3)
+    say("s", probes_ms=ms, probes_plain_ms=plain_ms)
+    # bytes: the two inputs read and the four outputs written, once each
+    nbytes = 4.0 * (128 * 128 + 24 * 128 + 128 + 16 * 128 + 8 * 128 + 128)
+    return {"launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound": bound(2.0 * 128 * 128 * 2, nbytes)}
+
+
+def bnn_problem(dev):
+    import advancedvi_jl_tpu_torch as avt
+
+    bnn = avt.make_bnn(1, n_data=BNN_N, in_dim=BNN_IN, hidden=BNN_HIDDEN, device=dev)
+    d = bnn.dim
+    q0 = avt.MeanFieldGaussian(torch.zeros(d, device=dev), 0.05 * torch.ones(d, device=dev))
+    sub = avt.ReshufflingBatchSubsampling(BNN_N, BNN_B)
+    return bnn, q0, {
+        "bnn_advi": avt.KLMinRepGradDescent(entropy=avt.STL, n_samples=BNN_SAMPLES,
+                                            subsampling=sub, optimizer=avt.adam(LR),
+                                            operator=avt.ClipScale()),
+        "bnn_prox_dowg": avt.KLMinRepGradProxDescent(
+            entropy_zerograd=avt.CLOSED_FORM_ZERO_GRAD, n_samples=BNN_SAMPLES,
+            subsampling=sub, optimizer=avt.dowg(), averager=avt.PolynomialAveraging()),
+    }
+
+
+def mb_general_alg():
+    import advancedvi_jl_tpu_torch as avt
+
+    return avt.KLMinRepGradDescent(entropy=avt.STL, n_samples=N_SAMPLES,
+                                   subsampling=avt.ReshufflingBatchSubsampling(MB_N, MB_B),
+                                   optimizer=avt.adam(LR), operator=avt.ClipScale())
+
+
+def phase_t(dev):
+    """The general subsampled paths on the card through ``optimize``,
+    counted: ADVI on the large-n logreg, the BNN (ADVI and proximal DoWG,
+    bench_large.py's pair), and subsampled normals against their analytic
+    posterior.  Returns the logreg run's state."""
+    import advancedvi_jl_tpu_torch as avt
+
+    prob = large_logreg(dev)
+    d = prob.dim
+    q0 = avt.MeanFieldGaussian(torch.zeros(d, device=dev), 0.1 * torch.ones(d, device=dev))
+    bnn, bq0, bnn_algs = bnn_problem(dev)
+    sn, mu, L = avt.subsampled_normals(2, 8, device=dev)
+    sn_alg = avt.KLMinRepGradDescent(entropy=avt.STL, n_samples=10,
+                                     subsampling=avt.ReshufflingBatchSubsampling(8, 1),
+                                     optimizer=avt.descent(3e-3), operator=avt.ClipScale())
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    _, infos, lr_state = avt.optimize(SEED, mb_general_alg(), MB_GENERAL_STEPS,
+                                      prob.unconstrained(), q0, log_every=LOG_EVERY)
+    torch.cuda.synchronize()
+    elbos = [r["elbo"] for r in infos]
+    say("t", path="logreg_subsampled_advi", n_data=MB_N, batch=MB_B, steps=MB_GENERAL_STEPS,
+        elbo_first_row=elbos[0], elbo_last_row=elbos[-1], epoch=infos[-1]["epoch"],
+        seconds=f"{time.perf_counter() - t0:.2f}")
+    check(all(math.isfinite(e) for e in elbos) and elbos[-1] > elbos[0],
+          "general subsampled logreg: ELBO not finite or not rising")
+    for name, alg in bnn_algs.items():
+        t0 = time.perf_counter()
+        _, infos, _ = avt.optimize(SEED, alg, BNN_STEPS, bnn, bq0, log_every=10)
+        torch.cuda.synchronize()
+        elbos = [r["elbo"] for r in infos]
+        # bench_large.py's check: finite; the first and last five of 20 rows
+        first, last = sum(elbos[:5]) / 5, sum(elbos[-5:]) / 5
+        say("t", path=name, d=bnn.dim, batch=BNN_B, n_samples=BNN_SAMPLES, steps=BNN_STEPS,
+            elbo_first5=first, elbo_last5=last, seconds=f"{time.perf_counter() - t0:.2f}")
+        check(all(math.isfinite(e) for e in elbos), f"general {name}: ELBO not finite")
+    t0 = time.perf_counter()
+    q0s = avt.FullRankGaussian(torch.zeros(1, device=dev), solve_mode="pallas")
+    out, _, _ = avt.optimize(SEED, sn_alg, SN_STEPS, sn, q0s, log_every=LOG_EVERY)
+    torch.cuda.synchronize()
+    loc_err = abs(float(out.location[0]) - float(mu[0]))
+    sd_err = abs(float(out.scale[0, 0]) - float(L[0, 0]))
+    say("t", path="subsampled_normals", steps=SN_STEPS, location_err=loc_err,
+        scale_err=sd_err, seconds=f"{time.perf_counter() - t0:.2f}")
+    check(loc_err < 0.1 and sd_err < 0.1, "subsampled normals: not within 0.1 of the posterior")
+    counts = read_launches()
+    say("t", meanfield_sample_launches=counts["meanfield_sample"],
+        fullrank_sample_launches=counts["fullrank_sample"])
+    check(counts["meanfield_sample"] > 0, "the general subsampled paths launched no K7a")
+    return lr_state
+
+
+def phase_u(dev, card, lr_state):
+    """The fused minibatch engines through ``optimize`` (counted): 20,000
+    steps on the large-n logreg reshuffling between chunks; fused against
+    general on one key and the general schedule's first permutation for
+    one epoch (1e-3), then a report past it; the streamed spec at n =
+    500,000 with and without prefetch.  Then times: each transport's
+    200-step chunk beside its plain version, one reshuffle at n = 500,000,
+    and the general subsampled paths' steps/s."""
+    import advancedvi_jl_tpu_torch as avt
+    from advancedvi_jl_tpu_torch.ops.cuda.fused_advi import (
+        GROUP_MB, fused_run_chunk_cuda, fused_run_chunk_reference,
+    )
+    from advancedvi_jl_tpu_torch.ops.cuda.location_scale_kernels import PhiloxKey, seed_words
+
+    prob = large_logreg(dev)
+    d = prob.dim
+    q0 = avt.MeanFieldGaussian(torch.zeros(d, device=dev), 0.1 * torch.ones(d, device=dev))
+    Xs, ys = streamed_data(dev)
+    gen_alg = mb_general_alg()
+    first_perm = gen_alg.init(SEED, q0, prob.unconstrained()).obj_state.perm
+    agree = avt.FusedADVI(avt.logreg_minibatch_spec(prob.X, prob.y, MB_B, perm=first_perm),
+                          n_samples=N_SAMPLES, lr=LR)
+    runs = {"inplace_16k": (avt.logreg_minibatch_spec(prob.X, prob.y, MB_B, generator=3), q0)}
+    dq0 = avt.MeanFieldGaussian(torch.zeros(STREAM_P + 1, device=dev),
+                                0.1 * torch.ones(STREAM_P + 1, device=dev))
+    for prefetch in (False, True):
+        runs[f"{'prefetch' if prefetch else 'staged'}_500k"] = (
+            avt.logreg_minibatch_hbm_spec(Xs, ys, MB_B, generator=3, prefetch=prefetch), dq0)
+    torch.cuda.synchronize()
+    reset_launches()
+    for name, (spec, q) in runs.items():
+        eng = avt.FusedADVI(spec, n_samples=N_SAMPLES, lr=LR)
+        t0 = time.perf_counter()
+        _, rows, _ = eng.optimize(SEED, FUSED_STEPS, q, log_every=LOG_EVERY, chunk_size=5_000)
+        torch.cuda.synchronize()
+        head = sum(r["elbo"] for r in rows[:TAIL_ROWS]) / len(rows[:TAIL_ROWS])
+        tail = tail_elbo(rows)
+        say("u", engine=name, steps=FUSED_STEPS, reshuffles=FUSED_STEPS // 5_000 - 1,
+            elbo_head_mean=head, elbo_tail_mean=tail, elbo_last=rows[-1]["elbo"],
+            seconds=f"{time.perf_counter() - t0:.2f}")
+        check(all(math.isfinite(r["elbo"]) for r in rows), f"fused {name}: ELBO not finite")
+        check(tail > head, f"fused {name}: tail ELBO {tail} did not improve on {head}")
+    # one epoch on one key and one permutation: the same batches, the same draws
+    qa, _, _ = agree.optimize(SEED, MB_AGREE_STEPS, q0, log_every=MB_AGREE_STEPS)
+    qg, _, _ = avt.optimize(SEED, mb_general_alg(), MB_AGREE_STEPS, prob.unconstrained(), q0,
+                            log_every=MB_AGREE_STEPS)
+    torch.cuda.synchronize()
+    counts = read_launches()
+    diff = max_err(qa.location, qg.location)
+    say("u", compare="fused_vs_general_one_epoch", steps=MB_AGREE_STEPS,
+        averaged_location_max_abs_diff=diff)
+    check(diff <= 1e-3, f"fused vs general minibatch: location {diff} > 1e-3 apart")
+    for tr, g in GROUP_MB.items():
+        check(counts[g] > 0, f"the fused minibatch engines launched no {g} kernel")
+    # past the epoch (a report): the general schedule reshuffles every epoch,
+    # the fused one between chunks; the general path's 500 timed steps
+    qf500, _, _ = agree.optimize(SEED, MB_GENERAL_STEPS, q0, log_every=LOG_EVERY)
+    qg500 = gen_alg.output(lr_state)
+    key = PhiloxKey(seed_words(SEED + 9), 0)
+    ev = {n: -float(gen_alg.estimate_objective(key, q, prob.unconstrained(), 4096))
+          for n, q in (("fused", qf500), ("general", qg500))}
+    say("u", compare="fused_vs_general_500_steps", max_abs_dloc=max_err(qf500.location,
+                                                                        qg500.location),
+        eval_elbo_fused=ev["fused"], eval_elbo_general=ev["general"])
+    # times: 200-step chunks, kernel, plain, kernel.  Successive calls walk
+    # the epoch (it0 advances 200 a call), so at n = 500,000 (976 batches) a
+    # call's 200 slabs, 24.6 MB, were last read four or more calls before,
+    # with at least 600 other slabs (73.7 MB) read since, and come from HBM,
+    # not L2.  For contrast, the same
+    # window every call (it0 = 0: 24.6 MB that stays in the 50 MB L2).
+    seed = seed_words(SEED)
+    times = {}
+    large = mb_specs(prob.X, prob.y)
+    cfgs = {"inplace": runs["inplace_16k"][0], "staged": large["staged"],
+            "prefetch": large["prefetch"],
+            "staged_500k": runs["staged_500k"][0], "prefetch_500k": runs["prefetch_500k"][0],
+            "inplace_500k": avt.logreg_minibatch_spec(Xs, ys, MB_B, generator=3)}
+    for name, spec in cfgs.items():
+        eng = avt.FusedADVI(spec, n_samples=N_SAMPLES, lr=LR)
+        rows = eng.init(torch.zeros(spec.dim, device=dev),
+                        0.1 * torch.ones(spec.dim, device=dev)).stacked()
+        walk = [0]
+
+        def chunk(fn, step=200):
+            it0, walk[0] = walk[0], walk[0] + step
+            return fn(spec.model, spec.consts, spec.scalars, rows, seed, it0, 200, N_SAMPLES,
+                      eng.hyp)
+
+        k_ms = cuda_ms(lambda: chunk(fused_run_chunk_cuda), 10)
+        p_ms = cuda_ms(lambda: chunk(fused_run_chunk_reference), 1)
+        k_ms2 = cuda_ms(lambda: chunk(fused_run_chunk_cuda), 10)
+        walk[0] = 0
+        fixed_ms = cuda_ms(lambda: chunk(fused_run_chunk_cuda, 0), 10)
+        best = min(k_ms, k_ms2)
+        flops, nbytes = mb_flops_bytes(spec, N_SAMPLES, 200)
+        b_ms, b_by = bound(flops, nbytes)
+        times[name] = (best, p_ms, b_ms, b_by)
+        say("u", card=f"'{card}'", transport=name, n_data=spec.consts[0].shape[0], batch=MB_B,
+            chunk_steps=200, kernel_ms=f"{k_ms},{k_ms2}", kernel_ms_same_window=fixed_ms,
+            plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+            fused_steps_per_s=f"{200 / (best / 1e3):.1f}",
+            plain_steps_per_s=f"{200 / (p_ms / 1e3):.1f}")
+    spec = runs["prefetch_500k"][0]
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    spec.reshuffle(seed, 1)
+    torch.cuda.synchronize()
+    start.record()
+    spec.reshuffle(seed, 2)
+    stop.record()
+    torch.cuda.synchronize()
+    say("u", card=f"'{card}'", reshuffle_500k_ms=start.elapsed_time(stop))
+    bnn, bq0, bnn_algs = bnn_problem(dev)
+    general = {"logreg_subsampled_advi": (gen_alg, prob.unconstrained(), q0)}
+    general.update({n: (a, bnn, bq0) for n, a in bnn_algs.items()})
+    for name, (alg, target, q) in general.items():
+        s = alg.init(SEED, q, target)
+        for _ in range(20):
+            s, _ = alg.step(s)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(100):
+            s, _ = alg.step(s)
+        torch.cuda.synchronize()
+        say("u", card=f"'{card}'", general=name,
+            general_steps_per_s=f"{100 / (time.perf_counter() - t0):.1f}")
+    return counts, times
+
+
+def kernel_bounds():
+    """(flops, bytes) of each timed launch of the earlier slices, from the
+    shapes this run times them at: each input read once, each output written
+    once; flops count the float multiply-adds (2 each), not the Philox
+    integer work or the transcendentals.  The logreg design: 208 x 61."""
+    n, db, d = N_SAMPLES, N_FEATURES + 1, N_FEATURES + 2
+    logreg = n * N_DATA * db  # multiply-adds of one (n, 208, 61) product
+    x_bytes = 4 * (N_DATA * db + N_DATA)
+    fr_n, fr_d = FR_SHAPE
+    tri = fr_n * fr_d * (fr_d + 1) // 2  # multiply-adds of a (n, d) x triangle
+    fr_tri = 3 * n * d * (d + 1) // 2   # z, the whitening and dC at d = 62
+    dg = NLN_DIMS + 1
+    return {
+        "meanfield_sample": (2.0 * n * d, 4.0 * (2 * d + 2 * n * d)),
+        "fused_advi_meanfield": (2.0 * 200 * 2 * logreg, x_bytes + 4.0 * 16 * d),
+        "fullrank_sample": (2.0 * tri, 4.0 * (fr_d * (fr_d + 1) // 2 + fr_d + 2 * fr_n * fr_d)),
+        "trisolve": (2.0 * tri, 4.0 * (fr_d * (fr_d + 1) // 2 + 2 * fr_n * fr_d)),
+        "fused_advi_fullrank": (2.0 * 200 * (2 * logreg + fr_tri),
+                                x_bytes + 4.0 * (8 * d + 8 * d * d)),
+        "fused_k3_rules": (2.0 * 200 * 2 * logreg, x_bytes + 4.0 * 16 * d),
+        "fused_k3_vargrad": (2.0 * 200 * logreg, x_bytes + 4.0 * 16 * d),
+        # full-rank prox on normal-lognormal: z and dC, no whitening
+        "fused_k4_gaussian": (2.0 * 200 * (2 * n * dg * (dg + 1) // 2 + n * dg),
+                              4.0 * (2 * dg + 8 * dg + 8 * dg * dg)),
+    }
+
+
 def main() -> int:
+    seconds = {}  # wall seconds of each phase, printed before the kernels line
+    last = [time.perf_counter()]
+
+    def lap(phases: str) -> None:
+        now = time.perf_counter()
+        seconds[phases] = round(now - last[0], 1)
+        last[0] = now
+
     card = phase_a()
     # full float32 matmuls for every comparison and both entry points
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda:0")
     phase_b()
+    lap("ab")
     samp_err = phase_c(dev)
     fused_err = phase_d(dev)
     phase_e(dev)
     counts = main_path(dev)
     times = phase_h(dev, card)
+    lap("c-h")
     fr_samp_err = phase_i(dev)
     tri_err = phase_j(dev)
     fr_fused_err = phase_k(dev)
     fr_counts = fullrank_paths(dev)
     fr_times = phase_m(dev, card)
+    lap("i-m")
     slice_err = phase_n(dev)
     general, _ = slice_general(dev)
     slice_counts = slice_fused(dev, general)
     slice_times = phase_q(dev, card)
+    lap("n-q")
+    mb_err = phase_r(dev)
+    lap("r")
+    probes = phase_s(dev)
+    lap("s")
+    lr_state = phase_t(dev)
+    lap("t")
+    mb_counts, mb_times = phase_u(dev, card, lr_state)
+    lap("u")
+    say("time", total=round(sum(seconds.values()), 1), **seconds)
+    bounds = {name: bound(*fb) for name, fb in kernel_bounds().items()}
     src = "advancedvi_jl_tpu_torch/csrc/"
-    kernels = [
-        {"name": "meanfield_sample", "route": "cuda", "source": src + "meanfield_sample.cu",
-         "replaces": "advancedvi_jl_tpu/ops/pallas/location_scale_kernels.py:72",
-         "launches": counts["meanfield_sample"], "max_abs_err": samp_err,
-         "ms": times["meanfield_sample"][0], "plain_ms": times["meanfield_sample"][1]},
-        {"name": "fused_advi_meanfield", "route": "cuda",
-         "source": src + "fused_advi_meanfield.cu",
-         "replaces": "advancedvi_jl_tpu/ops/pallas/fused_advi.py:672",
-         "launches": counts["fused_advi_meanfield"], "max_abs_err": fused_err,
-         "ms": times["fused_advi_meanfield"][0],
-         "plain_ms": times["fused_advi_meanfield"][1]},
-        {"name": "fullrank_sample", "route": "cuda", "source": src + "fullrank_sample.cu",
-         "replaces": "advancedvi_jl_tpu/ops/pallas/location_scale_kernels.py:110",
-         "launches": fr_counts["fullrank_sample"], "max_abs_err": fr_samp_err,
-         "ms": fr_times["fullrank_sample"][0], "plain_ms": fr_times["fullrank_sample"][1]},
-        {"name": "trisolve", "route": "cuda", "source": src + "trisolve.cu",
-         "replaces": "advancedvi_jl_tpu/ops/pallas/trisolve_kernels.py:115",
-         "launches": fr_counts["trisolve"], "max_abs_err": tri_err,
-         "ms": fr_times["trisolve_C"][0], "plain_ms": fr_times["trisolve_C"][1]},
-        {"name": "fused_advi_fullrank", "route": "cuda",
-         "source": src + "fused_advi_fullrank.cu",
-         "replaces": "advancedvi_jl_tpu/ops/pallas/fused_advi.py:681",
-         "launches": fr_counts["fused_advi_fullrank"], "max_abs_err": fr_fused_err,
-         "ms": fr_times["fused_advi_fullrank_logreg"][0],
-         "plain_ms": fr_times["fused_advi_fullrank_logreg"][1]},
-    ]
     fused = "advancedvi_jl_tpu/ops/pallas/fused_advi.py:"
+
+    def entry(name, source, replaces, launches, err, ms, plain_ms, library_ms=None,
+              bound_=None):
+        b_ms, b_by = bounds[name] if bound_ is None else bound_
+        return {"name": name, "route": "cuda", "source": src + source, "replaces": replaces,
+                "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms}
+
+    kernels = [
+        entry("meanfield_sample", "meanfield_sample.cu",
+              "advancedvi_jl_tpu/ops/pallas/location_scale_kernels.py:72",
+              counts["meanfield_sample"], samp_err, *times["meanfield_sample"]),
+        entry("fused_advi_meanfield", "fused_advi_meanfield.cu", f"{fused}672",
+              counts["fused_advi_meanfield"], fused_err, *times["fused_advi_meanfield"]),
+        entry("fullrank_sample", "fullrank_sample.cu",
+              "advancedvi_jl_tpu/ops/pallas/location_scale_kernels.py:110",
+              fr_counts["fullrank_sample"], fr_samp_err, *fr_times["fullrank_sample"]),
+        entry("trisolve", "trisolve.cu", "advancedvi_jl_tpu/ops/pallas/trisolve_kernels.py:115",
+              fr_counts["trisolve"], tri_err, *fr_times["trisolve_C"]),
+        entry("fused_advi_fullrank", "fused_advi_fullrank.cu", f"{fused}681",
+              fr_counts["fused_advi_fullrank"], fr_fused_err,
+              *fr_times["fused_advi_fullrank_logreg"]),
+    ]
     for name, group, source, line, timed in (
             ("fused_k3_rules", "k3_rules", "fused_common.cuh", 556, "prox"),
             ("fused_k3_vargrad", "k3_vargrad", "fused_advi_meanfield.cu", 489, "bbvi"),
             ("fused_k4_gaussian", "k4_gaussian", "fused_common.cuh", 1204,
              "prox_fullrank_nln")):
-        kernels.append({"name": name, "route": "cuda", "source": src + source,
-                        "replaces": f"{fused}{line}", "launches": slice_counts[group],
-                        "max_abs_err": slice_err[group], "ms": slice_times[timed][0],
-                        "plain_ms": slice_times[timed][1]})
+        kernels.append(entry(name, source, f"{fused}{line}", slice_counts[group],
+                             slice_err[group], *slice_times[timed]))
+    for tr, line in (("inplace", 987), ("staged", 997), ("prefetch", 1029)):
+        ms, plain_ms, b_ms, b_by = mb_times[tr]
+        kernels.append(entry(f"fused_k4_minibatch_{tr}", "fused_common.cuh", f"{fused}{line}",
+                             mb_counts[f"k4_minibatch_{tr}"], mb_err[tr], ms, plain_ms,
+                             bound_=(b_ms, b_by)))
+    kernels.append(entry("probes", "probes.cu", "_pallas_probe.py:25", probes["launches"],
+                         probes["max_abs_err"], probes["ms"], probes["plain_ms"],
+                         bound_=probes["bound"]))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

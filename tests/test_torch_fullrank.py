@@ -162,7 +162,7 @@ def test_family_matches_jax(wide_pair, solve_mode):
     version), at tests/test_pallas_trisolve.py's family tolerances."""
     d, loc, C = wide_pair
     jq = javt.FullRankGaussian(jnp.asarray(loc), jnp.asarray(C), solve_mode=solve_mode)
-    tq = convert.fullrank_from_numpy(loc, C, solve_mode=solve_mode)
+    tq = convert.fullrank_from_numpy(loc, C, solve_mode=solve_mode, device="cpu")
     z = np.random.default_rng(6).standard_normal((16, d)).astype(np.float32)
     assert_allclose(tq.log_prob(torch.from_numpy(z)).numpy(),
                     np.asarray(jq.log_prob(jnp.asarray(z))), rtol=2e-4, atol=2e-3)
@@ -248,7 +248,7 @@ def test_fullrank_draw_and_entropy_estimators_match_jax(wide_pair):
 
 def test_normal_targets_match_jax():
     jt, jmu, jL = jax_normal_fullrank(jax.random.key(3), 12)
-    tt = convert.normal_target_from_numpy(jmu, jL)
+    tt = convert.normal_target_from_numpy(jmu, jL, device="cpu")
     th = np.random.default_rng(10).standard_normal((5, 12)).astype(np.float32)
     want = np.asarray(jax.vmap(jt.log_density)(jnp.asarray(th)))
     assert_allclose(tt.log_density(torch.from_numpy(th)).numpy(), want, rtol=1e-5)
@@ -258,10 +258,10 @@ def test_normal_targets_match_jax():
     assert_allclose(float(tt.log_density(torch.from_numpy(th[0]))), want[0], rtol=1e-5)
     for make in (tnormal.normal_fullrank, tnormal.normal_fullrank_wellcond,
                  tnormal.normal_meanfield):
-        target, mu, L = make(4, 7)
+        target, mu, L = make(4, 7, device="cpu")
         assert target.dim == 7 and torch.equal(L, torch.tril(L))
         assert bool((torch.diagonal(L) > 0).all())
-        again, _, _ = make(torch.Generator().manual_seed(4), 7)
+        again, _, _ = make(torch.Generator().manual_seed(4), 7, device="cpu")
         assert torch.equal(again.mu, mu) and torch.equal(again.scale_tril, L)
 
 
@@ -289,7 +289,7 @@ def _port_run(ttarget, tq0, draws):
     state = alg.init(0, tq0, ttarget)
     infos = []
     for u in draws:
-        state, info = alg.step(state, noise=convert.to_tensor(u))
+        state, info = alg.step(state, noise=convert.to_tensor(u, device="cpu"))
         infos.append(info)
     return alg, state, infos
 
@@ -304,19 +304,19 @@ def test_general_fullrank_path_matches_jax(case):
         jprob = jax_make_logreg(jax.random.key(11), n_data=208, n_features=60)
         jtarget = jprob.unconstrained()
         ttarget = convert.logreg_from_numpy(jprob.X, jprob.y, jprob.likeadj,
-                                            jprob.prior_scale).unconstrained()
+                                            jprob.prior_scale, device="cpu").unconstrained()
         d, steps = jprob.dim, 3
         C0 = 0.1 * np.eye(d, dtype=np.float32)
         loc0 = np.zeros(d, np.float32)
     else:
         jtarget, mu, L = jax_normal_fullrank(jax.random.key(3), 10)
-        ttarget = convert.normal_target_from_numpy(mu, L)
+        ttarget = convert.normal_target_from_numpy(mu, L, device="cpu")
         d, steps = 10, 5
         rng = np.random.default_rng(11)
         C0 = (0.2 * np.eye(d) + 0.05 * np.tril(rng.standard_normal((d, d)), -1)).astype(np.float32)
         loc0 = np.full(d, 0.3, np.float32)
     jq0 = javt.FullRankGaussian(jnp.asarray(loc0), jnp.asarray(C0))
-    tq0 = convert.fullrank_from_numpy(loc0, C0, solve_mode="pallas")
+    tq0 = convert.fullrank_from_numpy(loc0, C0, solve_mode="pallas", device="cpu")
     jalg, js, draws, jinfos = _jax_run(jtarget, jq0, steps)
     talg, ts, tinfos = _port_run(ttarget, tq0, draws)
 
@@ -342,7 +342,7 @@ def test_general_fullrank_path_matches_jax(case):
 def test_general_fullrank_optimize_on_philox_draws():
     """Without noise the family draws through K7b's plain version: a run of
     ``optimize`` equals stepping by hand, and a resumed run repeats it."""
-    target, mu, L = tnormal.normal_fullrank_wellcond(1, 16)
+    target, mu, L = tnormal.normal_fullrank_wellcond(1, 16, device="cpu")
     q0 = avt.FullRankGaussian(torch.zeros(16), solve_mode="pallas")
     alg = avt.KLMinRepGradDescent(entropy=avt.STL, n_samples=N,
                                   optimizer=avt.adam(1e-2), operator=avt.ClipScale())

@@ -41,7 +41,8 @@ TOL = {"mu": (1e-5, 1e-6), "sig": (1e-5, 1e-6), "avg_mu": (1e-5, 1e-6),
 @pytest.fixture(scope="module")
 def flagship():
     jprob = jax_make_logreg(jax.random.key(11), n_data=208, n_features=60)
-    tprob = convert.logreg_from_numpy(jprob.X, jprob.y, jprob.likeadj, jprob.prior_scale)
+    tprob = convert.logreg_from_numpy(jprob.X, jprob.y, jprob.likeadj, jprob.prior_scale,
+                                      device="cpu")
     return jprob, tprob
 
 
@@ -90,7 +91,7 @@ def test_fused_matches_jax_fused_engine(flagship, noise):
     js = jeng.init(jnp.zeros(d), 0.1 * jnp.ones(d))
     js = jeng.run_chunk(js, jax.random.key(1), steps=T,
                         noise=jnp.asarray(convert.pack_noise(noise)))
-    js_port = convert.fused_state_from_numpy(js, d)
+    js_port = convert.fused_state_from_numpy(js, d, device="cpu")
 
     eng = _engine(tprob, lr=1e-3)
     ts = eng.run_chunk(_init(eng), 1, T, noise=torch.from_numpy(noise))
@@ -210,10 +211,16 @@ def test_engine_checks(flagship):
     assert FusedADVI(spec, family="fullrank").family == "fullrank"
     with pytest.raises(ValueError, match="family"):
         FusedADVI(spec, family="lowrank")
-    with pytest.raises(NotImplementedError, match="K4"):  # minibatch models: not ported
-        FusedADVI(spec.__class__(dim=2, consts=(), scalars=(), model="logreg_minibatch"))
-    with pytest.raises(NotImplementedError, match="K4"):  # mvnormal is full-rank only
+    # minibatch models run on both engines (K4's minibatch body)
+    mb = avt.logreg_minibatch_spec(tprob.X, tprob.y, batch_size=16)
+    for family in ("meanfield", "fullrank"):
+        eng = FusedADVI(mb, family=family, n_samples=N_SAMPLES)
+        assert eng.run_chunk(eng.init(torch.zeros(62), 0.1 * (
+            torch.ones(62) if family == "meanfield" else torch.eye(62))), 0, 2).iteration == 2
+    with pytest.raises(NotImplementedError, match="full-rank only"):  # as in JAX
         FusedADVI(spec.__class__(dim=2, consts=(), scalars=(), model="mvnormal"))
+    with pytest.raises(NotImplementedError, match="K5"):  # generic targets
+        FusedADVI(spec.__class__(dim=2, consts=(), scalars=(), model="ad"))
     eng = FusedADVI(spec, n_samples=N_SAMPLES)
     s = _init(eng)
     with pytest.raises(ValueError, match="noise"):

@@ -44,7 +44,8 @@ def _assert_states_equal(a, b):
 @pytest.fixture(scope="module")
 def logreg_pair():
     jprob = jax_make_logreg(jax.random.key(11), n_data=208, n_features=60)
-    tprob = convert.logreg_from_numpy(jprob.X, jprob.y, jprob.likeadj, jprob.prior_scale)
+    tprob = convert.logreg_from_numpy(jprob.X, jprob.y, jprob.likeadj, jprob.prior_scale,
+                                      device="cpu")
     return jprob, tprob
 
 
@@ -66,7 +67,7 @@ def test_fused_fullrank_logreg_matches_jax_engine(logreg_pair):
     js = jeng.init(jnp.zeros(d), jnp.asarray(C0))
     js = jeng.run_chunk(js, jax.random.key(1), steps=steps,
                         noise=jnp.asarray(convert.pack_noise(noise)))
-    want = convert.fused_state_from_numpy(js, d)
+    want = convert.fused_state_from_numpy(js, d, device="cpu")
 
     eng = FusedADVI(logreg_spec(tprob.X, tprob.y, prior_scale=tprob.prior_scale,
                                 likeadj=float(tprob.likeadj)),
@@ -98,9 +99,9 @@ def test_fused_fullrank_mvnormal_matches_jax_engine():
     js = jeng.init(jnp.zeros(d), jnp.asarray(C0))
     js = jeng.run_chunk(js, jax.random.key(1), steps=steps, noise=jnp.asarray(
         convert.pack_noise(noise, d_pad=convert.d_pad_for(d))))
-    want = convert.fused_state_from_numpy(js, d)
+    want = convert.fused_state_from_numpy(js, d, device="cpu")
 
-    spec = mvnormal_spec(convert.to_tensor(jmu), convert.to_tensor(jL))
+    spec = mvnormal_spec(convert.to_tensor(jmu, device="cpu"), convert.to_tensor(jL, device="cpu"))
     # the precision and log-normaliser the JAX spec precomputes
     assert_allclose(spec.consts[1].numpy(), np.asarray(jspec.consts[1])[:d, :d],
                     rtol=1e-4, atol=1e-4)
@@ -128,12 +129,12 @@ def test_fused_fullrank_matches_port_general_path(model):
     FullRankGaussian draw the same normals: after 20 steps they agree to
     the rounding of sums taken in another order (rtol 1e-5)."""
     if model == "logreg":
-        prob = make_logreg(11)
+        prob = make_logreg(11, device="cpu")
         target, spec = prob.unconstrained(), logreg_spec(prob.X, prob.y)
         q0 = avt.FullRankGaussian(torch.zeros(prob.dim), 0.1 * torch.eye(prob.dim),
                                   solve_mode="pallas")
     else:
-        target, mu, L = normal_fullrank_wellcond(3, 40)
+        target, mu, L = normal_fullrank_wellcond(3, 40, device="cpu")
         spec = mvnormal_spec(mu, L)
         q0 = avt.FullRankGaussian(torch.zeros(40), solve_mode="pallas")
     steps = 20
@@ -151,7 +152,7 @@ def test_fused_fullrank_matches_port_general_path(model):
 
 @pytest.mark.parametrize("injected", [True, False], ids=["noise", "philox"])
 def test_fused_fullrank_chunking_and_tracing_are_bitwise(injected):
-    target, mu, L = normal_fullrank_wellcond(2, 24)
+    target, mu, L = normal_fullrank_wellcond(2, 24, device="cpu")
     eng = FusedADVI(mvnormal_spec(mu, L), family="fullrank", n_samples=N)
     s0 = eng.init(torch.zeros(24), torch.eye(24))
     nz = torch.from_numpy(_noise(6, 24, seed=2)) if injected else None
@@ -169,7 +170,7 @@ def test_fused_fullrank_chunking_and_tracing_are_bitwise(injected):
 
 
 def test_fused_fullrank_optimize_and_checks():
-    target, mu, L = normal_fullrank_wellcond(2, 16)
+    target, mu, L = normal_fullrank_wellcond(2, 16, device="cpu")
     spec = mvnormal_spec(mu, L)
     eng = FusedADVI(spec, family="fullrank", n_samples=N, lr=1e-2)
     q0 = avt.FullRankGaussian(torch.zeros(16))
@@ -181,7 +182,7 @@ def test_fused_fullrank_optimize_and_checks():
     _, _, s2 = eng.optimize(1, 13, state=s1, log_every=4)
     _assert_states_equal(s, s2)
     # the JAX engine's width bound, with its error
-    big_t, big_mu, big_L = normal_fullrank_wellcond(0, D_FULLRANK_MAX + 1)
+    big_t, big_mu, big_L = normal_fullrank_wellcond(0, D_FULLRANK_MAX + 1, device="cpu")
     with pytest.raises(ValueError, match="dim <= 512"):
         FusedADVI(mvnormal_spec(big_mu, big_L), family="fullrank")
     with pytest.raises(ValueError, match="scale"):
@@ -200,7 +201,7 @@ def test_fused_state_conversion_strips_fullrank_padding():
                             family=jfused.FULLRANK, n_samples=N, interpret=True)
     C = np.tril(np.arange(25, dtype=np.float32).reshape(5, 5)) + 1.0
     js = jeng.init(jnp.arange(5.0), jnp.asarray(C))
-    ts = convert.fused_state_from_numpy(js, 5)
+    ts = convert.fused_state_from_numpy(js, 5, device="cpu")
     assert torch.equal(ts.sig, torch.from_numpy(np.tril(C)))
     assert ts.sig.shape == ts.avg_sig.shape == ts.m_sig.shape == (5, 5)
     assert ts.mu.shape == (5,) and torch.equal(ts.mu, torch.arange(5.0))

@@ -50,7 +50,8 @@ TOL = dict(rtol=1e-5, atol=1e-6)
 @pytest.fixture(scope="module")
 def flagship():
     jprob = jax_make_logreg(jax.random.key(11), n_data=208, n_features=60)
-    tprob = convert.logreg_from_numpy(jprob.X, jprob.y, jprob.likeadj, jprob.prior_scale)
+    tprob = convert.logreg_from_numpy(jprob.X, jprob.y, jprob.likeadj, jprob.prior_scale,
+                                      device="cpu")
     return jprob, tprob
 
 
@@ -82,9 +83,9 @@ def _run_both(jeng, teng, loc, scale, draws):
     js = jeng.init(jnp.asarray(loc), jnp.asarray(scale))
     js = jeng.run_chunk(js, jax.random.key(1), steps=len(draws),
                         noise=jnp.asarray(convert.pack_noise(draws)))
-    ts = teng.init(convert.to_tensor(loc), convert.to_tensor(scale))
+    ts = teng.init(convert.to_tensor(loc, device="cpu"), convert.to_tensor(scale, device="cpu"))
     ts = teng.run_chunk(ts, 1, len(draws), noise=torch.from_numpy(draws))
-    return convert.fused_state_from_numpy(js, len(loc)), ts
+    return convert.fused_state_from_numpy(js, len(loc), device="cpu"), ts
 
 
 def _close(a, b, fields=("mu", "sig", "avg_mu", "avg_sig"), tol=TOL):
@@ -126,7 +127,7 @@ def test_fused_prox_descent_fullrank_stl_zero_matches_jax():
     (tests/test_fused_advi.py:637): the +1/diag correction and the prox on
     the diagonal compose with the whitening as in the general path."""
     jt, _, _ = jax_make_nln(jax.random.key(7), n_dims=10)
-    tt = convert.normallognormal_from_numpy(jt.mu_y, jt.sigma_y, jt.mu_x, jt.sigma_x)
+    tt = convert.normallognormal_from_numpy(jt.mu_y, jt.sigma_y, jt.mu_x, jt.sigma_x, device="cpu")
     d = jt.dim
     C0 = np.asarray(0.2 * jnp.eye(d) + 0.05 * jnp.tril(
         jax.random.normal(jax.random.key(3), (d, d)), -1), np.float32)
@@ -211,7 +212,7 @@ def test_fused_gaussian_meanfield_matches_jax():
     """FusedADVI (STL, Adam, ClipScale) on normallognormal_spec, mean-field
     (tests/test_fused_advi.py:252): the diagonal-Gaussian body."""
     jt, _, _ = jax_make_nln(jax.random.key(5), n_dims=9)
-    tt = convert.normallognormal_from_numpy(jt.mu_y, jt.sigma_y, jt.mu_x, jt.sigma_x)
+    tt = convert.normallognormal_from_numpy(jt.mu_y, jt.sigma_y, jt.mu_x, jt.sigma_x, device="cpu")
     d = jt.dim
     loc, scale = np.zeros(d, np.float32), np.full(d, 0.2, np.float32)
     jalg = javt.KLMinRepGradDescent(entropy=javt.STL, n_samples=N, optimizer=optax.adam(1e-3),

@@ -3,6 +3,8 @@ and its chip smoke script refuses to run without a card or outside a
 checkout."""
 
 import ast
+import importlib
+import inspect
 import os
 import shutil
 import subprocess
@@ -10,6 +12,7 @@ import sys
 from pathlib import Path
 
 import pytest
+import torch
 
 import advancedvi_jl_tpu_torch
 from advancedvi_jl_tpu_torch.ops.cuda import _build
@@ -52,7 +55,10 @@ def test_package_exports_the_slice():
                  "ScoreGradELBO", "descent", "dog", "cocob",
                  "ProximalLocationScaleEntropy", "CLOSED_FORM_ZERO_GRAD", "STL_ZERO_GRAD",
                  "FusedProxADVI", "FusedScoreGradVI", "gaussian_spec",
-                 "normallognormal_spec"):
+                 "normallognormal_spec", "subsample", "ReshufflingBatchSubsampling",
+                 "SubsampledObjective", "FactorizedTarget", "factorized_target",
+                 "logreg_minibatch_spec", "logreg_minibatch_hbm_spec", "make_bnn",
+                 "subsampled_normals"):
         assert hasattr(advancedvi_jl_tpu_torch, name), name
     assert not _build._libs, "importing the package must not build or load kernels"
 
@@ -129,6 +135,9 @@ def test_port_modules_load_no_jax_and_build_nothing():
                   for p in PORT.rglob("*.py") if p.name != "__init__.py")
     assert "advancedvi_jl_tpu_torch.objectives.scoregradelbo" in mods
     assert "advancedvi_jl_tpu_torch.models.normallognormal" in mods
+    for new in ("subsampling", "objectives.subsampled", "core.factorized", "models.bnn",
+                "models.subsampled_normals", "ops.cuda.probe_kernels"):
+        assert f"advancedvi_jl_tpu_torch.{new}" in mods, new
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -140,3 +149,38 @@ def test_port_modules_load_no_jax_and_build_nothing():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
+
+
+@pytest.mark.parametrize("module,name", [
+    ("models.logreg", "make_logreg"), ("models.normallognormal", "make_normallognormal"),
+    ("models.normal", "normal_fullrank"), ("models.normal", "normal_fullrank_wellcond"),
+    ("models.normal", "normal_meanfield"), ("models.bnn", "make_bnn"),
+    ("models.subsampled_normals", "subsampled_normals"), ("convert", "to_tensor"),
+    ("convert", "logreg_from_numpy"), ("convert", "meanfield_from_numpy"),
+    ("convert", "fullrank_from_numpy"), ("convert", "normal_target_from_numpy"),
+    ("convert", "normallognormal_from_numpy"), ("convert", "fused_state_from_numpy"),
+    ("convert", "bnn_from_numpy"), ("convert", "subsampled_normals_from_numpy"),
+    ("convert", "reshuffling_state_from_numpy"), ("convert", "minibatch_spec_from_numpy"),
+    ("subsampling", "ReshufflingBatchSubsampling.init"),
+    ("subsampling", "ReshufflingBatchSubsampling.epoch_batches"),
+    ("ops.cuda.probe_kernels", "run_probes"),
+])
+def test_constructors_default_to_the_card(module, name):
+    """Every constructor that creates tensors puts them on the card unless
+    the caller asks for the CPU."""
+    obj = importlib.import_module(f"advancedvi_jl_tpu_torch.{module}")
+    for part in name.split("."):
+        obj = getattr(obj, part)
+    assert inspect.signature(obj).parameters["device"].default == "cuda"
+
+
+def test_default_device_is_not_the_cpu_without_a_card():
+    """Without CUDA the default fails with torch's own error instead of
+    quietly running on the CPU."""
+    from advancedvi_jl_tpu_torch.models.logreg import make_logreg
+
+    if torch.cuda.is_available():
+        pytest.skip("the default only fails on a machine without CUDA")
+    with pytest.raises((AssertionError, RuntimeError)):
+        make_logreg(11, n_data=8, n_features=2)
+    assert make_logreg(11, n_data=8, n_features=2, device="cpu").X.device.type == "cpu"

@@ -136,7 +136,7 @@ def _rel(a, b) -> float:
 
 @pytest.mark.parametrize("n,d", [(256, 1024), (10, 62), (33, 5)])
 def test_fullrank_sampler_kernel_matches_plain_version(dev, n, d):
-    _, _, L = normal_fullrank_wellcond(n, d)
+    _, _, L = normal_fullrank_wellcond(n, d, device="cpu")
     loc = torch.randn(d, generator=torch.Generator().manual_seed(d)).to(dev)
     C = (L + torch.triu(torch.ones(d, d), 1)).to(dev)  # the upper triangle is ignored
     before = fullrank_sample_cuda.launches
@@ -164,7 +164,7 @@ def test_fullrank_sampler_autograd_on_the_card(dev):
 @pytest.mark.parametrize("mode", ["C", "CT"])
 @pytest.mark.parametrize("n,d", [(256, 1024), (10, 512), (10, 62), (7, 100)])
 def test_trisolve_kernel_meets_its_residual_bound(dev, mode, n, d):
-    _, _, L = normal_fullrank_wellcond(d, d)
+    _, _, L = normal_fullrank_wellcond(d, d, device="cpu")
     C = (L + torch.triu(torch.ones(d, d), 1)).to(dev)  # the upper triangle is ignored
     V = torch.randn(n, d, generator=torch.Generator().manual_seed(n)).to(dev)
     before = solve_right_cuda.launches
@@ -180,7 +180,7 @@ def test_trisolve_kernel_meets_its_residual_bound(dev, mode, n, d):
 
 def test_vdiv_backward_launches_the_other_mode(dev):
     d, n = 256, 24
-    _, _, L = normal_fullrank_wellcond(0, d)
+    _, _, L = normal_fullrank_wellcond(0, d, device="cpu")
     C = L.to(dev).requires_grad_(True)
     V = torch.randn(n, d, device=dev, requires_grad=True)
     ct = torch.randn(n, d, device=dev)
@@ -391,9 +391,10 @@ def test_cocob_rows_count_in_the_shared_memory_refusal(dev):
     matrices do not fit in shared memory they live in device memory, and
     the kernel still matches its plain version."""
     smem = _build.function("fused_advi_meanfield", "fused_advi_meanfield_smem_bytes",
-                           [ctypes.c_int] * 6, restype=ctypes.c_size_t)
+                           [ctypes.c_int] * 7, restype=ctypes.c_size_t)
     n_data = next(m for m in range(600, 1200)
-                  if smem(0, m, 61, N, 62, 8) <= _build.SMEM_LIMIT < smem(0, m, 61, N, 62, 14))
+                  if smem(0, m, 61, 0, N, 62, 8) <= _build.SMEM_LIMIT
+                  < smem(0, m, 61, 0, N, 62, 14))
     X = torch.randn(n_data, 61, generator=torch.Generator().manual_seed(0)).to(dev) / 8
     y = (torch.rand(n_data, generator=torch.Generator().manual_seed(1)) < 0.5).float().to(dev)
     spec = logreg_spec(X, y)
@@ -404,8 +405,9 @@ def test_cocob_rows_count_in_the_shared_memory_refusal(dev):
         cocob.run_chunk(_init(cocob, 0.1), 0, 2)
 
     fr_smem = _build.function("fused_advi_fullrank", "fused_advi_fullrank_smem_bytes",
-                              [ctypes.c_int] * 6, restype=ctypes.c_size_t)
-    d = next(k for k in range(60, 200) if fr_smem(2, 0, 0, N, k, 7) < fr_smem(2, 0, 0, N, k, 4))
+                              [ctypes.c_int] * 7, restype=ctypes.c_size_t)
+    d = next(k for k in range(60, 200)
+             if fr_smem(2, 0, 0, 0, N, k, 7) < fr_smem(2, 0, 0, 0, N, k, 4))
     spec = gaussian_spec(torch.zeros(d, device=dev), torch.ones(d, device=dev))
     branch = COCOB_FR
     vec, mat = _init(_engine(spec, "fullrank", branch), 0.5).stacked_fullrank()
@@ -415,3 +417,121 @@ def test_cocob_rows_count_in_the_shared_memory_refusal(dev):
     rv, rm, _, _ = fused_fullrank_run_chunk_reference(*args)
     torch.cuda.synchronize()
     _norm_close(list(kv) + list(km), list(rv) + list(rm), 1e-4)
+
+
+# ---------------------------------------------------------------------------
+# K4's minibatch body in both fused kernels, its three slab transports, and
+# the K9 probes
+# ---------------------------------------------------------------------------
+
+MB_N, MB_B = 4096, 512  # 8 batches of 512 rows of the 60-feature logreg (db = 61)
+
+
+def _mb_specs(dev, n_data=MB_N, batch=MB_B):
+    """The in-place, staged and prefetching specs of one permutation."""
+    from advancedvi_jl_tpu_torch.ops.cuda.fused_advi import (
+        logreg_minibatch_hbm_spec, logreg_minibatch_spec)
+
+    prob = make_logreg(11, n_data=n_data, n_features=60, device=dev)
+    kw = dict(batch_size=batch, generator=5)
+    return (logreg_minibatch_spec(prob.X, prob.y, **kw),
+            logreg_minibatch_hbm_spec(prob.X, prob.y, prefetch=False, **kw),
+            logreg_minibatch_hbm_spec(prob.X, prob.y, **kw))
+
+
+MB_CASES = (
+    [pytest.param("meanfield", b, id=f"meanfield-{b.algo}-{b.entropy}-{b.grad_est}")
+     for b in (FusedBranch(), PROX[2], VARGRAD[4])]
+    + [pytest.param("fullrank", b, id=f"fullrank-{b.algo}-{b.entropy}")
+       for b in (FusedBranch(), PROX[2])]
+)
+
+
+@pytest.mark.parametrize("family,branch", MB_CASES)
+def test_minibatch_transports_match_plain_version_and_each_other(dev, family, branch):
+    """17 steps of injected noise wrap the 8-batch schedule twice; DoWG
+    starts after 300 steps (see _case)."""
+    specs = _mb_specs(dev)
+    nb = MB_N // MB_B
+    steps = 2 * nb + 1
+    warm = 300 if branch.algo == "dowg" else 0
+    noise = torch.randn((steps, N, specs[0].dim),
+                        generator=torch.Generator().manual_seed(2)).to(dev)
+    outs = []
+    for spec in specs:
+        eng = _engine(spec, family, branch)
+        st = _init(eng, 0.1)
+        if family == "meanfield":
+            rows = (st.stacked(),)
+            kern, plain = fused_run_chunk_cuda, fused_run_chunk_reference
+        else:
+            rows = st.stacked_fullrank()
+            kern, plain = fused_fullrank_run_chunk_cuda, fused_fullrank_run_chunk_reference
+        nr = len(rows)
+        if warm:
+            rows = kern(spec.model, spec.consts, spec.scalars, *rows, seed_words(1), 0, warm,
+                        N, eng.hyp, branch=branch)[:nr]
+        args = (spec.model, spec.consts, spec.scalars, *rows, seed_words(0), warm, steps, N,
+                eng.hyp, noise, 0, branch)
+        group = branch.groups(spec.model)[-1]
+        before = kern.group_launches[group]
+        k = kern(*args)
+        assert kern.group_launches[group] == before + 1
+        outs.append(k)
+    r = plain(*args)
+    torch.cuda.synchronize()
+    _norm_close([t for x in outs[0][:nr] for t in x], [t for x in r[:nr] for t in x], 1e-5)
+    assert torch.allclose(outs[0][nr], r[nr], rtol=1e-5, atol=1e-4)
+    for other in outs[1:]:  # one code path reads the slab where each transport put it
+        assert all(torch.equal(a, b) for a, b in zip(outs[0][:nr + 1], other[:nr + 1]))
+
+
+@pytest.mark.parametrize("transport", [0, 1, 2], ids=["inplace", "staged", "prefetch"])
+@pytest.mark.parametrize("family", ["meanfield", "fullrank"])
+def test_minibatch_chunks_and_traces_bitwise(dev, transport, family):
+    """Splits at 3 + 4 (between a prefetch and its use) and across the
+    schedule's wrap; traced equal to untraced."""
+    spec = _mb_specs(dev)[transport]
+    eng = FusedADVI(spec, family=family, n_samples=N)
+    st = _init(eng, 0.1)
+    whole = eng.run_chunk(st, 7, 20)
+    split = eng.run_chunk(eng.run_chunk(eng.run_chunk(st, 7, 3), 7, 4), 7, 13)
+    traced, trace = eng.run_chunk_traced(st, 7, 20, log_every=5)
+    for f in ("mu", "sig", "m_mu", "v_mu", "m_sig", "v_sig", "avg_mu", "avg_sig"):
+        assert bool(torch.isfinite(getattr(whole, f)).all()), f
+        assert torch.equal(getattr(whole, f), getattr(split, f)), f
+        assert torch.equal(getattr(whole, f), getattr(traced, f)), f
+    assert torch.equal(trace[-1], whole.elbo)
+
+
+def test_minibatch_staged_slab_refused_at_the_shared_memory_edge(dev):
+    """The staged transports keep one B-row slab in shared memory: the
+    largest B that fits runs, B + 8 is refused before launch, and the
+    in-place transport takes B + 8."""
+    smem = _build.function("fused_advi_meanfield", "fused_advi_meanfield_smem_bytes",
+                           [ctypes.c_int] * 7, restype=ctypes.c_size_t)
+    B = max(b for b in range(8, 2048, 8) if smem(4, 8 * b, 61, b, N, 62, 8) <= _build.SMEM_LIMIT)
+    ok = _mb_specs(dev, n_data=4 * B, batch=B)[1]
+    eng = FusedADVI(ok, n_samples=N)
+    assert eng.run_chunk(_init(eng, 0.1), 0, 2).iteration == 2
+    big = _mb_specs(dev, n_data=4 * (B + 8), batch=B + 8)
+    for spec in big[1:]:
+        eng = FusedADVI(spec, n_samples=N)
+        with pytest.raises(ValueError, match="shared"):
+            eng.run_chunk(_init(eng, 0.1), 0, 2)
+    eng = FusedADVI(big[0], n_samples=N)
+    assert eng.run_chunk(_init(eng, 0.1), 0, 2).iteration == 2
+
+
+def test_probe_kernels_equal_their_plain_versions(dev):
+    from advancedvi_jl_tpu_torch.ops.cuda.probe_kernels import (
+        probe_cuda, probe_inputs, probe_reference, run_probes)
+
+    before = probe_cuda.launches
+    outs = run_probes(dev)
+    assert probe_cuda.launches == before + 4
+    for i, x in probe_inputs(dev).items():
+        assert torch.equal(outs[i], probe_reference(i, x, device=dev)), i
+    # rows that differ: the rem schedule reads windows 0, 1, 2, 0, ...
+    x = torch.arange(3 * 8 * 128, dtype=torch.float32, device=dev).reshape(24, 128) % 7
+    assert torch.equal(probe_cuda(4, x), probe_reference(4, x))

@@ -41,14 +41,14 @@ def families():
     loc = rng.standard_normal(D).astype(np.float32)
     scale = (0.2 + rng.random(D)).astype(np.float32)
     return javt.MeanFieldGaussian(jnp.asarray(loc), jnp.asarray(scale)), \
-        convert.meanfield_from_numpy(loc, scale)
+        convert.meanfield_from_numpy(loc, scale, device="cpu")
 
 
 def test_injected_draw_matches_jax(families):
     jq, tq = families
     z_j, u_j = jq.sample_with_base(jax.random.key(3), N)
     z_t, u_t = RepGradELBO(n_samples=N)._draw_with_base(
-        tq, None, convert.to_tensor(u_j)
+        tq, None, convert.to_tensor(u_j, device="cpu")
     )
     assert_allclose(z_t.numpy(), np.asarray(z_j), rtol=1e-6, atol=1e-7)
     assert_allclose(u_t.numpy(), np.asarray(u_j), rtol=0, atol=0)

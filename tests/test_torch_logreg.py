@@ -31,7 +31,7 @@ N_POINTS = 16
 def pair():
     jprob = jax_make_logreg(jax.random.key(11), n_data=208, n_features=60)
     tprob = convert.logreg_from_numpy(
-        jprob.X, jprob.y, jprob.likeadj, jprob.prior_scale
+        jprob.X, jprob.y, jprob.likeadj, jprob.prior_scale, device="cpu"
     )
     return jprob, tprob
 
@@ -72,7 +72,7 @@ def test_constrained_log_density_matches_jax(pair):
 
 def test_make_logreg_shapes_pinned_to_bench_config():
     cfg = bench.BENCH_CONFIG
-    prob = make_logreg(cfg["data_seed"], cfg["n_data"], cfg["n_features"])
+    prob = make_logreg(cfg["data_seed"], cfg["n_data"], cfg["n_features"], device="cpu")
     assert prob.X.shape == (cfg["n_data"], cfg["n_features"] + 1)
     assert prob.y.shape == (cfg["n_data"],)
     assert prob.dim == cfg["n_features"] + 2 == 62
@@ -81,7 +81,7 @@ def test_make_logreg_shapes_pinned_to_bench_config():
     assert_allclose(feats.std(0, correction=0).numpy(), 1.0, rtol=1e-5)
     assert torch.all(prob.X[:, -1] == 1.0)
     assert set(prob.y.unique().tolist()) <= {0.0, 1.0}
-    again = make_logreg(cfg["data_seed"], cfg["n_data"], cfg["n_features"])
+    again = make_logreg(cfg["data_seed"], cfg["n_data"], cfg["n_features"], device="cpu")
     assert torch.equal(prob.X, again.X) and torch.equal(prob.y, again.y)
 
 

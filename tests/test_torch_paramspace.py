@@ -33,7 +33,8 @@ N_SAMPLES = 10
 @pytest.fixture(scope="module")
 def flagship():
     jprob = jax_make_logreg(jax.random.key(11), n_data=208, n_features=60)
-    tprob = convert.logreg_from_numpy(jprob.X, jprob.y, jprob.likeadj, jprob.prior_scale)
+    tprob = convert.logreg_from_numpy(jprob.X, jprob.y, jprob.likeadj, jprob.prior_scale,
+                                      device="cpu")
     return jprob, tprob
 
 
@@ -58,7 +59,7 @@ def _port_run(ttarget, tq0, draws, entropy, optimizer):
     state = alg.init(0, tq0, ttarget)
     infos = []
     for u in draws:
-        state, info = alg.step(state, noise=convert.to_tensor(u))
+        state, info = alg.step(state, noise=convert.to_tensor(u, device="cpu"))
         infos.append(info)
     return alg, state, infos
 
@@ -115,7 +116,8 @@ def test_adam_matches_optax_update_for_update():
     ts, js = tx.init(params), jtx.init(jparams)
     for _ in range(4):
         g = rng.standard_normal((2, 4)).astype(np.float32)
-        tg = avt.MeanFieldGaussian(convert.to_tensor(g[0]), convert.to_tensor(g[1]))
+        tg = avt.MeanFieldGaussian(convert.to_tensor(g[0], device="cpu"),
+                                    convert.to_tensor(g[1], device="cpu"))
         jg = javt.MeanFieldGaussian(jnp.asarray(g[0]), jnp.asarray(g[1]))
         tu, ts = tx.update(tg, ts, params)
         ju, js = jtx.update(jg, js, jparams)

@@ -48,7 +48,8 @@ ALPHA = 1e-2
 @pytest.fixture(scope="module")
 def flagship():
     jprob = jax_make_logreg(jax.random.key(11), n_data=208, n_features=60)
-    tprob = convert.logreg_from_numpy(jprob.X, jprob.y, jprob.likeadj, jprob.prior_scale)
+    tprob = convert.logreg_from_numpy(jprob.X, jprob.y, jprob.likeadj, jprob.prior_scale,
+                                      device="cpu")
     return jprob, tprob
 
 
@@ -57,7 +58,7 @@ def nln():
     """make_normallognormal(n_dims=10), d = 11, and the JAX prox test's
     full-rank start (tests/test_fused_advi.py:644-650)."""
     jt, mu, sd = jax_make_nln(jax.random.key(7), n_dims=10)
-    tt = convert.normallognormal_from_numpy(jt.mu_y, jt.sigma_y, jt.mu_x, jt.sigma_x)
+    tt = convert.normallognormal_from_numpy(jt.mu_y, jt.sigma_y, jt.mu_x, jt.sigma_x, device="cpu")
     d = jt.dim
     C0 = 0.2 * jnp.eye(d) + 0.05 * jnp.tril(jax.random.normal(jax.random.key(3), (d, d)), -1)
     return jt, tt, 0.3 * np.ones(d, np.float32), np.asarray(C0, np.float32)
@@ -80,7 +81,7 @@ def _port_run(talg, ttarget, tq0, draws):
     state = talg.init(0, tq0, ttarget)
     infos = []
     for u in draws:
-        state, info = talg.step(state, noise=convert.to_tensor(u))
+        state, info = talg.step(state, noise=convert.to_tensor(u, device="cpu"))
         infos.append(info)
     return state, infos
 
@@ -128,7 +129,7 @@ def test_prox_descent_fullrank_stl_zero_matches_jax(nln):
     the +1/diag correction and the diagonal-only prox."""
     jt, tt, loc0, C0 = nln
     jq0 = javt.FullRankGaussian(jnp.asarray(loc0), jnp.asarray(C0))
-    tq0 = convert.fullrank_from_numpy(loc0, C0, solve_mode="pallas")
+    tq0 = convert.fullrank_from_numpy(loc0, C0, solve_mode="pallas", device="cpu")
     jalg = javt.KLMinRepGradProxDescent(entropy_zerograd=javt.STL_ZERO_GRAD, n_samples=N,
                                         optimizer=javt.descent(1e-3))
     talg = avt.KLMinRepGradProxDescent(entropy_zerograd=avt.STL_ZERO_GRAD, n_samples=N,
@@ -187,7 +188,7 @@ def test_scoregrad_fullrank_matches_jax(nln):
     solve), Adam and ClipScale on normal-lognormal."""
     jt, tt, loc0, C0 = nln
     jq0 = javt.FullRankGaussian(jnp.asarray(loc0), jnp.asarray(C0))
-    tq0 = convert.fullrank_from_numpy(loc0, C0, solve_mode="pallas")
+    tq0 = convert.fullrank_from_numpy(loc0, C0, solve_mode="pallas", device="cpu")
     jalg = javt.KLMinScoreGradDescent(n_samples=N, optimizer=optax.adam(1e-2),
                                       operator=javt.ClipScale())
     talg = avt.KLMinScoreGradDescent(n_samples=N, optimizer=avt.adam(1e-2),
@@ -235,7 +236,8 @@ def test_value_only_target_goes_to_bbvi_not_advi(flagship):
 def test_rules_match_jax_update_for_update(rule):
     rng = np.random.default_rng(3)
     x0 = rng.standard_normal((2, 4)).astype(np.float32)
-    params = avt.MeanFieldGaussian(convert.to_tensor(x0[0]), convert.to_tensor(x0[1]))
+    params = avt.MeanFieldGaussian(convert.to_tensor(x0[0], device="cpu"),
+                                    convert.to_tensor(x0[1], device="cpu"))
     jparams = javt.MeanFieldGaussian(jnp.asarray(x0[0]), jnp.asarray(x0[1]))
     # given gradients, nothing is summed in another order: the default alpha
     args = (1e-2,) if rule == "descent" else ()
@@ -243,7 +245,8 @@ def test_rules_match_jax_update_for_update(rule):
     ts, js = tx.init(params), jtx.init(jparams)
     for _ in range(4):
         g = rng.standard_normal((2, 4)).astype(np.float32)
-        tg = avt.MeanFieldGaussian(convert.to_tensor(g[0]), convert.to_tensor(g[1]))
+        tg = avt.MeanFieldGaussian(convert.to_tensor(g[0], device="cpu"),
+                                    convert.to_tensor(g[1], device="cpu"))
         jg = javt.MeanFieldGaussian(jnp.asarray(g[0]), jnp.asarray(g[1]))
         tu, ts = tx.update(tg, ts, params)
         ju, js = jtx.update(jg, js, jparams)
@@ -264,10 +267,10 @@ def test_prox_operator_matches_jax_on_both_families():
     op, jop = avt.ProximalLocationScaleEntropy(), javt.ProximalLocationScaleEntropy()
     ts, js = avt.descent(0.05).init(avt.MeanFieldGaussian(torch.zeros(5), torch.ones(5))), \
         javt.descent(0.05).init(javt.MeanFieldGaussian(jnp.zeros(5), jnp.ones(5)))
-    tq = op.apply(convert.meanfield_from_numpy(loc, diag), ts)
+    tq = op.apply(convert.meanfield_from_numpy(loc, diag, device="cpu"), ts)
     jq = jop.apply(javt.MeanFieldGaussian(jnp.asarray(loc), jnp.asarray(diag)), js)
     _assert_meanfield(tq, jq, dict(rtol=1e-6, atol=0))
-    tq = op.apply(convert.fullrank_from_numpy(loc, C), ts)
+    tq = op.apply(convert.fullrank_from_numpy(loc, C, device="cpu"), ts)
     jq = jop.apply(javt.FullRankGaussian(jnp.asarray(loc), jnp.asarray(C)), js)
     assert_allclose(tq.scale.numpy(), np.asarray(jq.scale), rtol=1e-6, atol=0)
     assert_allclose(np.tril(tq.scale.numpy(), -1), np.tril(C, -1), rtol=0, atol=0)
@@ -289,7 +292,7 @@ def test_zero_grad_entropies_match_jax(flagship, estimator):
     _, u = jq0.sample_with_base(key, N)
     jg, _, jinfo = jobj.value_and_grad(jq0, jprob.unconstrained(), key)
     tg, _, tinfo = tobj.value_and_grad(tq0, tprob.unconstrained(), None,
-                                       noise=convert.to_tensor(u))
+                                       noise=convert.to_tensor(u, device="cpu"))
     _assert_meanfield(tg, jg, dict(rtol=1e-5, atol=1e-5))
     assert_allclose(float(tinfo["elbo"]), float(jinfo["elbo"]), rtol=1e-5)
     assert estimator in avt.ZERO_GRAD_ESTIMATORS and estimator in avt.ALL_ENTROPY_ESTIMATORS
@@ -321,7 +324,7 @@ def test_scoregrad_objective_checks_and_estimate(flagship):
 
 def test_normallognormal_matches_jax():
     jt, jmu, jsd = jax_make_nln(jax.random.key(2), n_dims=6)
-    tt = convert.normallognormal_from_numpy(jt.mu_y, jt.sigma_y, jt.mu_x, jt.sigma_x)
+    tt = convert.normallognormal_from_numpy(jt.mu_y, jt.sigma_y, jt.mu_x, jt.sigma_x, device="cpu")
     assert tt.dim == jt.dim == 7
     rng = np.random.default_rng(0)
     th = rng.standard_normal((5, 7)).astype(np.float32)
@@ -332,8 +335,8 @@ def test_normallognormal_matches_jax():
     want_u = np.asarray(jax.vmap(jt.unconstrained().log_density)(jnp.asarray(th_u)))
     assert_allclose(tt.unconstrained().log_density(torch.from_numpy(th_u)).numpy(), want_u,
                     rtol=1e-5)
-    target, mu, sd = make_normallognormal(3, 4)
-    again, mu2, _ = make_normallognormal(torch.Generator().manual_seed(3), 4)
+    target, mu, sd = make_normallognormal(3, 4, device="cpu")
+    again, mu2, _ = make_normallognormal(torch.Generator().manual_seed(3), 4, device="cpu")
     assert target.dim == 5 and torch.equal(mu, mu2) and torch.equal(again.mu_x, target.mu_x)
     assert torch.equal(mu, torch.cat([target.mu_y[None], target.mu_x]))
     assert torch.equal(sd, torch.cat([target.sigma_y[None], target.sigma_x]))
@@ -342,7 +345,7 @@ def test_normallognormal_matches_jax():
 def test_prox_general_path_on_philox_draws_resumes():
     """Without noise the draws are K7a's plain version keyed by (seed, it):
     a resumed proximal run repeats an uninterrupted one bitwise."""
-    target, _, _ = make_normallognormal(1, 10)
+    target, _, _ = make_normallognormal(1, 10, device="cpu")
     q0 = avt.MeanFieldGaussian(torch.zeros(11), torch.ones(11))
     alg = avt.KLMinRepGradProxDescent(n_samples=N)
     q, infos, st = avt.optimize(4, alg, 12, target.unconstrained(), q0, log_every=4)
