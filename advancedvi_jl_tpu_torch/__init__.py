@@ -14,7 +14,10 @@ fused engines (``FusedADVI``, ``FusedLogRegADVI``, ``FusedProxADVI``,
 ``FusedScoreGradVI``) on hierarchical logistic regression, its minibatch
 version (``logreg_minibatch_spec``, ``logreg_minibatch_hbm_spec``), diagonal
 Gaussian targets (``gaussian_spec``, ``normallognormal_spec``) and,
-full-rank, dense Gaussian targets (``mvnormal_spec``).  Constructors that
+full-rank, dense Gaussian targets (``mvnormal_spec``); the low-rank family
+(``LowRankGaussian``); many chains at once, on the general path
+(``parallel.chains.optimize_chains``) or in one fused launch
+(``FusedChainsADVI``); and ``estimate_objective``.  Constructors that
 create tensors put them on the card unless the caller asks for the CPU.  Families and states are
 dataclasses of tensors; random draws are step-indexed Philox normals keyed
 by two uint32 seed words.  On CUDA tensors the draws, the triangular
@@ -45,6 +48,7 @@ from .families.location_scale import (
     MeanFieldGaussian,
     MeanFieldLocationScale,
 )
+from .families.low_rank import LowRankGaussian, LowRankLocationScale
 from .objectives.entropy import (
     ALL_ENTROPY_ESTIMATORS,
     CLOSED_FORM,
@@ -73,6 +77,7 @@ from .algorithms.paramspace import (
     ParamSpaceSGD,
 )
 from .optimize import DivergenceError, optimize
+from .estimate import estimate_objective
 from .ops.cuda.fused_advi import (  # whole-loop fused engines (CUDA)
     FusedADVI,
     FusedLogRegADVI,
@@ -86,5 +91,6 @@ from .ops.cuda.fused_advi import (  # whole-loop fused engines (CUDA)
     mvnormal_spec,
     normallognormal_spec,
 )
+from .ops.cuda.fused_chains import FusedChainsADVI  # one launch for C chains (CUDA)
 
 __version__ = "0.5.0"

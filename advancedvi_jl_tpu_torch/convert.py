@@ -6,6 +6,10 @@ its injected noise in TPU lane/sublane padding; the port keeps ``(d,)`` and
 ``(d, d)`` tensors and ``(steps, n_samples, d)`` noise.  The padding widths are the JAX
 package's ``d_pad_for`` and ``n_pad_for`` (ops/pallas/fused_advi.py), restated
 here so the port never imports it; a test pins the two against each other.
+The JAX chains engine pads the chain axis to ``c_pad_for(C)`` rows and keeps a
+step's draws as (n_samples * c_pad, d_pad) rows, row ``s * c_pad + c`` for
+sample s of chain c; the port keeps ``(C, d)`` state rows and ``(steps, C,
+n_samples, d)`` noise.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ from .families.location_scale import (
     MeanFieldGaussian,
     MeanFieldLocationScale,
 )
+from .families.low_rank import LowRankGaussian, LowRankLocationScale
 from .models.bnn import BayesianMLP
 from .models.logreg import LogReg
 from .models.normal import NormalTarget
@@ -34,6 +39,7 @@ from .ops.cuda.fused_advi import (
     FusedADVIState,
     FusedModelSpec,
 )
+from .ops.cuda.fused_chains import FusedChainsState
 from .subsampling import ReshufflingState
 
 D_PAD = 128  # JAX fused engine: lane padding unit
@@ -48,6 +54,11 @@ def d_pad_for(d: int) -> int:
 def n_pad_for(n: int) -> int:
     """The JAX fused engine's row padding of n samples per step."""
     return max(N_PAD, -(-n // 8) * 8)
+
+
+def c_pad_for(n_chains: int) -> int:
+    """The JAX chains engine's chain-axis padding (a multiple of 8)."""
+    return -(-n_chains // 8) * 8
 
 
 def to_tensor(a: Any, device="cuda", dtype=torch.float32) -> torch.Tensor:
@@ -75,6 +86,14 @@ def fullrank_from_numpy(location, scale, solve_mode: str = "solve",
     """The port's FullRankGaussian from a JAX one's ``location, scale``."""
     return FullRankGaussian(to_tensor(location, device), to_tensor(scale, device),
                             solve_mode=solve_mode)
+
+
+def lowrank_from_numpy(location, scale_diag, scale_factors,
+                       device="cuda") -> LowRankLocationScale:
+    """The port's LowRankGaussian from a JAX one's ``location, scale_diag,
+    scale_factors``."""
+    return LowRankGaussian(to_tensor(location, device), to_tensor(scale_diag, device),
+                           to_tensor(scale_factors, device))
 
 
 def normal_target_from_numpy(mu, scale_tril, inv_scale_tril=None,
@@ -178,3 +197,73 @@ def minibatch_spec_from_numpy(X_perm, yX, n_data: int, batch_size: int,
                 to_tensor(np.asarray(yX, dtype=np.float32)[:nb, :db], device)),
         scalars=(n_data / batch_size, float(prior_scale)), model=transport,
     )
+
+
+def chains_state_from_numpy(jax_state: Any, n_chains: int, d: int,
+                            device="cuda") -> FusedChainsState:
+    """The port's FusedChainsState from a JAX ``FusedChainsState`` (any
+    object with its field names), stripping the padding: the first
+    ``n_chains`` rows and ``d`` lanes of each ``(c_pad, d_pad)`` field and of
+    COCOB's ext fields, and the first ``n_chains`` entries of ``elbo``."""
+    rows = {f: to_tensor(np.asarray(getattr(jax_state, f))[:n_chains, :d], device)
+            for f in STATE_FIELDS}
+    ext = getattr(jax_state, "ext", None)
+    if ext is not None:
+        ext = tuple(to_tensor(np.asarray(a)[:n_chains, :d], device) for a in ext)
+    return FusedChainsState(
+        **rows, iteration=int(np.asarray(jax_state.iteration)),
+        elbo=to_tensor(np.asarray(jax_state.elbo)[:n_chains], device), ext=ext,
+    )
+
+
+def chains_state_to_numpy(state: FusedChainsState, optimizer="adam",
+                          c_pad: Optional[int] = None, d_pad: Optional[int] = None) -> dict:
+    """A port FusedChainsState in the JAX engine's padded layout, as a dict of
+    numpy arrays under the JAX field names (``FusedChainsState(**out)``
+    rebuilds it).  The padding is what the JAX engine's ``init`` writes:
+    1.0 in ``sig`` and ``avg_sig``, and in ``m_sig`` for chains whose
+    ``optimizer`` (one rule name, or one per chain) keeps x0 or x1 there
+    (DoWG, DoG, COCOB); 0 elsewhere, padded chains included."""
+    C, d = state.mu.shape
+    c_pad = c_pad_for(C) if c_pad is None else c_pad
+    d_pad = d_pad_for(d) if d_pad is None else d_pad
+    rules = [optimizer] * C if isinstance(optimizer, str) else list(optimizer)
+    copies = np.array([r in ("dowg", "dog", "cocob") for r in rules])
+
+    def pad(t, fill_real, fill_pad_rows):
+        a = np.zeros((c_pad, d_pad), np.float32)
+        a[:C] = fill_real[:, None] if isinstance(fill_real, np.ndarray) else fill_real
+        a[C:] = fill_pad_rows
+        a[:C, :d] = t.detach().cpu().numpy()
+        return a
+
+    out = {}
+    for f in STATE_FIELDS:
+        if f in ("sig", "avg_sig"):
+            out[f] = pad(getattr(state, f), 1.0, 1.0)
+        elif f == "m_sig":
+            out[f] = pad(state.m_sig, copies.astype(np.float32), 0.0)
+        else:
+            out[f] = pad(getattr(state, f), 0.0, 0.0)
+    out["iteration"] = np.int32(state.iteration)
+    elbo = np.zeros(c_pad, np.float32)
+    elbo[:C] = state.elbo.detach().cpu().numpy()
+    out["elbo"] = elbo
+    out["ext"] = (None if state.ext is None
+                  else tuple(pad(a, 0.0, 0.0) for a in state.ext))
+    return out
+
+
+def pack_chains_noise(noise, c_pad: Optional[int] = None,
+                      d_pad: Optional[int] = None) -> np.ndarray:
+    """The port's ``(steps, C, n_samples, d)`` chain draws in the JAX chains
+    engine's ``(steps * n_samples * c_pad, d_pad)`` layout: step t, sample s
+    of chain c on row ``t * R + s * c_pad + c``, R = n_samples * c_pad (zero
+    padding)."""
+    noise = np.asarray(noise, dtype=np.float32)
+    steps, C, n, d = noise.shape
+    c_pad = c_pad_for(C) if c_pad is None else c_pad
+    d_pad = d_pad_for(d) if d_pad is None else d_pad
+    out = np.zeros((steps, n, c_pad, d_pad), np.float32)
+    out[:, :, :C, :d] = noise.transpose(0, 2, 1, 3)
+    return out.reshape(steps * n * c_pad, d_pad)

@@ -77,45 +77,16 @@
 // run_chunk(a + b) equals run_chunk(a) then run_chunk(b) bit for bit.  The
 // block uses one of the 132 SMs by nature; spreading a step over several
 // SMs is later work.
-#include "fused_common.cuh"
-#include "philox.cuh"
+//
+// The body of the kernel is csrc/fused_meanfield_body.cuh, which the chains
+// kernel (csrc/fused_chains.cu, K6) instantiates too.
+#include "fused_meanfield_body.cuh"
 
 namespace {
 
-constexpr int kThreads = 512;
-constexpr int kWarps = kThreads / 32;
-// The thread of the ELBO (and of VarGrad's coefficients): in the last warp,
-// so that it runs beside phase D's lanes (threads 0..d-1) instead of after.
-constexpr int kElbo = kThreads - 32;
-constexpr size_t kSmemLimit = 232448;  // dynamic shared memory of one block
-using avi::kLog2Pi;
-
-// Offsets (in floats) of the shared-memory arrays.
-struct Layout {
-  int X, y, l, u, z, g, st, grad, row, red, total;
-};
-
-// n_data is the design's rows; a minibatch model keeps one B-row slab (the
-// staged transports) and yX[k] in `y`.
-__host__ __device__ inline Layout make_layout(int model, int n_data, int db, int batch,
-                                              int n, int d, int n_rows) {
-  Layout L;
-  int o = 0;
-  const bool lr = model == avi::kLogReg;
-  const bool mb = avi::is_minibatch(model);
-  L.X = o;    o += lr ? n_data * db : (avi::slab_staged(model) ? batch * db : 0);
-  L.y = o;    o += lr ? n_data : (mb ? db : 0);  // labels, or yX[k]
-  L.l = o;    o += lr ? n * n_data : (mb ? n * batch : 0);  // logits, then weights
-  L.u = o;    o += n * d;                 // base draws
-  L.z = o;    o += n * d;                 // samples
-  L.g = o;    o += n * d;                 // grad log pi
-  L.st = o;   o += n_rows * d;            // mu sig m_mu v_mu m_sig v_sig avg_mu avg_sig [ext]
-  L.grad = o; o += 2 * d;                 // dmu, dsig of the step
-  L.row = o;  o += 7 * n + 1;             // beta_sq t inv_sig2 logpi u2 c ylogit, logdet
-  L.red = o;  o += 2 * kWarps + 1;        // block reduction, then eta
-  L.total = o;
-  return L;
-}
+using avi::mf::kSmemLimit;
+using avi::mf::kThreads;
+using avi::mf::make_layout;
 
 template <bool kGeneral>
 __global__ void __launch_bounds__(kThreads) fused_advi_meanfield_kernel(
@@ -124,248 +95,9 @@ __global__ void __launch_bounds__(kThreads) fused_advi_meanfield_kernel(
     float* __restrict__ state_out, float* __restrict__ elbo_out, float* __restrict__ trace,
     const float* __restrict__ noise, int n, int d, int n_rows, int steps, int log_every,
     uint32_t k0, uint32_t k1, unsigned long long it0, avi::Hyper h, avi::Branch br) {
-  if (!kGeneral) br = avi::kDefaultBranch;  // every switch below is then constant
-  extern __shared__ float smem[];
-  const Layout L = make_layout(model, n_data, db, batch, n, d, n_rows);
-  const bool logreg = model == avi::kLogReg;
-  const bool minibatch = avi::is_minibatch(model);
-  float* us = smem + L.u;
-  float* zs = smem + L.z;
-  float* gs = smem + L.g;
-  float* st = smem + L.st;
-  float* mu = st;
-  float* sig = st + d;
-  float* m_mu = st + 2 * d;
-  float* v_mu = st + 3 * d;
-  float* m_sig = st + 4 * d;
-  float* v_sig = st + 5 * d;
-  float* a_mu = st + 6 * d;
-  float* a_sig = st + 7 * d;
-  float* ext = st + 8 * d;  // COCOB: G, reward, theta of mu, then of sig
-  float* dm = smem + L.grad;
-  float* ds = dm + d;
-  float* beta_sq = smem + L.row;
-  float* tcol = beta_sq + n;
-  float* inv_sig2 = tcol + n;
-  float* logpi = inv_sig2 + n;
-  float* u2 = logpi + n;
-  float* coef = u2 + n;
-  float* ylogit = coef + n;
-  float* logdet = ylogit + n;
-  float* red = smem + L.red;
-  float* eta_s = red + 2 * kWarps;
-  const avi::LogReg lrm{smem + L.X, smem + L.y, smem + L.l, n_data, db, s0, s1};
-  avi::LogRegMB mbm{nullptr, smem + L.y, smem + L.l, batch, db, s0, s1};
-  const int nb = minibatch ? n_data / batch : 1;
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  if (logreg) {
-    for (int i = tid; i < n_data * db; i += kThreads) smem[L.X + i] = c0[i];
-    for (int i = tid; i < n_data; i += kThreads) smem[L.y + i] = c1[i];
-  }
-  for (int i = tid; i < n_rows * d; i += kThreads) st[i] = state_in[i];
-  __syncthreads();
-
-  const bool vargrad = br.grad_est == avi::kScoreGrad;
-  const bool cf_zero = br.entropy == avi::kClosedFormZero;
-  const bool stl_zero = br.entropy == avi::kSTLZero;
-  const bool dist_rule = br.algo == avi::kDoWG || br.algo == avi::kDoG;
-  const bool cocob = br.algo == avi::kCOCOB;
-  const float inv_n = 1.0f / static_cast<float>(n);
-  const float ln_b1 = logf(h.b1);
-  const float ln_b2 = logf(h.b2);
-  const float ent_const = 0.5f * static_cast<float>(d) * kLog2Pi;
-  const float ent_closed = 0.5f * static_cast<float>(d) * (1.0f + kLog2Pi);
-  const int groups = (d + 3) / 4;
-  float elbo = 0.0f;
-
-  for (int s = 0; s < steps; ++s) {
-    const unsigned long long it = it0 + static_cast<unsigned long long>(s);
-    // the minibatch slab of this step starts on its way (staged transports)
-    if (minibatch)
-      mbm.X = avi::minibatch_step_begin(model, c0, c1, batch, db, nb, it, smem + L.X,
-                                        smem + L.y, tid, kThreads);
-
-    // A: base draws and z = mu + sig * u (two roundings, as the plain version)
-    if (noise != nullptr) {
-      const float* src = noise + static_cast<size_t>(s) * n * d;
-      for (int idx = tid; idx < n * d; idx += kThreads) {
-        const int j = idx % d;
-        const float uv = src[idx];
-        us[idx] = uv;
-        zs[idx] = __fadd_rn(mu[j], __fmul_rn(sig[j], uv));
-      }
-    } else {
-      for (int pair = tid; pair < n * groups; pair += kThreads) {
-        const int i = pair / groups;
-        const int g = pair - i * groups;
-        float w[4];
-        avi::normals4(k0, k1, static_cast<uint32_t>(it),
-                      static_cast<uint32_t>(i), static_cast<uint32_t>(g), w);
-#pragma unroll
-        for (int p = 0; p < 4; ++p) {
-          const int j = 4 * g + p;
-          if (j < d) {
-            us[i * d + j] = w[p];
-            zs[i * d + j] = __fadd_rn(mu[j], __fmul_rn(sig[j], w[p]));
-          }
-        }
-      }
-    }
-    __syncthreads();
-    if (logreg) avi::logreg_rows(lrm, zs, n, d, beta_sq, tcol, inv_sig2, warp, kWarps, lane);
-    if (minibatch)
-      avi::logreg_mb_rows(mbm, zs, n, d, beta_sq, tcol, inv_sig2, ylogit, warp, kWarps, lane);
-    for (int i = warp; i < n; i += kWarps) {
-      float uu = 0.0f;
-      for (int j = lane; j < d; j += 32) {
-        const float v = us[i * d + j];
-        uu += v * v;
-      }
-      uu = avi::warp_sum(uu);
-      if (lane == 0) u2[i] = uu;
-    }
-    if (warp == kWarps - 1) {  // log det of the pre-update scale
-      float ld = 0.0f;
-      for (int j = lane; j < d; j += 32) ld += logf(sig[j]);
-      ld = avi::warp_sum(ld);
-      if (lane == 0) *logdet = ld;
-    }
-    if (avi::slab_staged(model)) avi::cp_async_wait_all();  // this thread's copies landed
-    __syncthreads();
-
-    // B: log pi (and the Gaussian's gradient)
-    if (logreg) {
-      avi::logreg_logits(lrm, zs, n, d, tid, kThreads);
-      __syncthreads();
-      avi::logreg_logpi(lrm, n, beta_sq, tcol, inv_sig2, logpi, warp, kWarps, lane);
-    } else if (minibatch) {
-      avi::logreg_mb_logits(mbm, zs, n, d, tid, kThreads);
-      __syncthreads();
-      avi::logreg_mb_logpi(mbm, n, beta_sq, tcol, inv_sig2, ylogit, logpi, warp, kWarps, lane);
-    } else {
-      avi::gaussian_body(c0, c1, s0, zs, n, d, logpi, vargrad ? nullptr : gs, warp, kWarps,
-                         lane);
-    }
-    __syncthreads();
-
-    // C: logreg's grad log pi, or VarGrad's coefficients and ELBO
-    if (vargrad) {
-      if (tid == kElbo) {
-        float fsum = 0.0f, esum = 0.0f;
-        for (int i = 0; i < n; ++i) {
-          const float logq = -(0.5f * u2[i] + *logdet + ent_const);
-          const float f = logq - logpi[i];
-          coef[i] = f;
-          fsum += f;
-          esum += logpi[i] - logq;
-        }
-        const float fbar = inv_n * fsum;
-        for (int i = 0; i < n; ++i) coef[i] = (coef[i] - fbar) * inv_n;
-        elbo = inv_n * esum;
-      }
-      __syncthreads();
-    } else if (logreg) {
-      avi::logreg_grad(lrm, zs, n, d, beta_sq, tcol, inv_sig2, gs, tid, kThreads);
-      __syncthreads();
-    } else if (minibatch) {
-      avi::logreg_mb_grad(mbm, zs, n, d, beta_sq, tcol, inv_sig2, gs, tid, kThreads);
-      __syncthreads();
-    }
-
-    // D: the gradient of the step, then (DoWG, DoG) its global sums
-    float part_g = 0.0f, part_x = 0.0f;
-    for (int j = tid; j < d; j += kThreads) {
-      const float sj = sig[j];
-      float dmu = 0.0f, dsig = 0.0f;
-      if (vargrad) {
-        for (int i = 0; i < n; ++i) {
-          const float uij = us[i * d + j];
-          dmu += coef[i] * (uij / sj);
-          dsig += coef[i] * ((uij * uij - 1.0f) / sj);
-        }
-      } else {
-        for (int i = 0; i < n; ++i) {
-          const float uij = us[i * d + j];
-          const float gz =
-              -inv_n * (cf_zero ? gs[i * d + j] : gs[i * d + j] + uij / sj);
-          dmu += gz;
-          dsig += gz * uij;
-        }
-        if (stl_zero) dsig += 1.0f / sj;
-      }
-      dm[j] = dmu;
-      ds[j] = dsig;
-      if (dist_rule) {
-        const float xm = mu[j] - m_mu[j];
-        const float xs = sj - m_sig[j];
-        part_g += dmu * dmu + dsig * dsig;
-        part_x += xm * xm + xs * xs;
-      }
-    }
-    if (dist_rule) {  // the other rules need no barrier: a thread reads back its own lanes
-      const float2 tot = avi::block_sum2(part_g, part_x, red, kWarps);
-      if (tid == 0) *eta_s = avi::distance_rule_step(br.algo, tot.x, tot.y, v_mu[0], v_mu[1]);
-      __syncthreads();
-    }
-
-    // D: the rule, the operator and the averaging, one thread per lane
-    const float c = static_cast<float>(it) + 1.0f;
-    const float bc1 = 1.0f - expf(c * ln_b1);
-    const float bc2 = 1.0f - expf(c * ln_b2);
-    const float w = (h.avg_eta + 1.0f) / (c + h.avg_eta);
-    const float eta = br.algo == avi::kDescent ? h.lr : (dist_rule ? *eta_s : 0.0f);
-    for (int j = tid; j < d; j += kThreads) {
-      float G = 0.0f, R = 0.0f, T = 0.0f;
-      if (cocob) {
-        G = ext[j];
-        R = ext[d + j];
-        T = ext[2 * d + j];
-      }
-      avi::rule_step(br, h, eta, bc1, bc2, mu[j], m_mu[j], v_mu[j], G, R, T, dm[j]);
-      if (cocob) {
-        ext[j] = G;
-        ext[d + j] = R;
-        ext[2 * d + j] = T;
-        G = ext[3 * d + j];
-        R = ext[4 * d + j];
-        T = ext[5 * d + j];
-      }
-      float x = sig[j];
-      avi::rule_step(br, h, eta, bc1, bc2, x, m_sig[j], v_sig[j], G, R, T, ds[j]);
-      if (cocob) {
-        ext[3 * d + j] = G;
-        ext[4 * d + j] = R;
-        ext[5 * d + j] = T;
-      }
-      x = avi::scale_operator(br.op, x, eta, h);
-      sig[j] = x;
-      if (dist_rule && j >= 2) v_mu[j] = 0.0f;  // v_mu holds [v, r, 0, ...]
-      a_mu[j] = (1.0f - w) * a_mu[j] + w * mu[j];
-      a_sig[j] = (1.0f - w) * a_sig[j] + w * x;
-    }
-
-    // E: the step's ELBO estimate, energy + entropy value
-    if (tid == kElbo) {
-      if (!vargrad) {
-        float energy = 0.0f, uu = 0.0f;
-        for (int i = 0; i < n; ++i) {
-          energy += logpi[i];
-          uu += u2[i];
-        }
-        elbo = inv_n * energy +
-               (cf_zero ? *logdet + ent_closed : *logdet + inv_n * (0.5f * uu) + ent_const);
-      }
-      if (log_every > 0 && (s + 1) % log_every == 0)
-        trace[(s + 1) / log_every - 1] = elbo;
-    }
-    __syncthreads();
-  }
-
-  for (int i = tid; i < n_rows * d; i += kThreads) state_out[i] = st[i];
-  if (tid == kElbo) *elbo_out = elbo;
+  avi::mf::run_chunk<kGeneral>(model, c0, c1, n_data, db, batch, s0, s1, state_in, state_out,
+                               elbo_out, trace, noise, n, d, n_rows, steps, log_every, k0, k1,
+                               it0, h, br);
 }
 
 }  // namespace

@@ -10,7 +10,13 @@
 //   key     = the two uint32 seed words;
 //   counter = (global iteration, sample row, lane group j / 4, stream),
 //             stream 0 gives the four u1 uniforms of a lane group and
-//             stream 1 the four u2 uniforms.
+//             stream 1 the four u2 uniforms (Box-Muller's two); the
+//             low-rank sampler's factor draws (K7c, csrc/lowrank_sample.cu)
+//             take streams 2 and 3, so its diagonal draws are the mean-field
+//             draws of the same key and its factor draws are independent of
+//             them.  The chain keys of a multi-chain run are Philox of the
+//             run's key at counter (chain, 0, 0, 0x63686E73), computed on the
+//             host (chain_seed_words); no draw uses that stream word.
 //
 // The counter holds the GLOBAL iteration, never a chunk-local step, so a run
 // split into chunks draws exactly what one run draws.  The plain PyTorch
@@ -69,12 +75,13 @@ __device__ __forceinline__ float box_muller(float u1, float u2) {
 }
 
 // The four normals of lanes 4 * group .. 4 * group + 3 of sample row `row` at
-// iteration `it`.
+// iteration `it`, from streams `stream` and `stream + 1` (0 for every draw
+// but the low-rank factor draws, 2).
 __device__ __forceinline__ void normals4(uint32_t k0, uint32_t k1, uint32_t it,
                                          uint32_t row, uint32_t group,
-                                         float out[4]) {
-  const Philox4 a = philox4x32_10(it, row, group, 0u, k0, k1);
-  const Philox4 b = philox4x32_10(it, row, group, 1u, k0, k1);
+                                         float out[4], uint32_t stream = 0u) {
+  const Philox4 a = philox4x32_10(it, row, group, stream, k0, k1);
+  const Philox4 b = philox4x32_10(it, row, group, stream + 1u, k0, k1);
 #pragma unroll
   for (int p = 0; p < 4; ++p) out[p] = box_muller(uniform01(a.w[p]), uniform01(b.w[p]));
 }

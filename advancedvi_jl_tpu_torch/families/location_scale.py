@@ -7,8 +7,8 @@ meaningful) are the parameters the optimizer updates (core/pytree.py maps
 over them).  Draws go through the step-indexed Philox samplers: on a CUDA
 tensor ``sample_with_base`` launches the fused kernel (K7a,
 csrc/meanfield_sample.cu; K7b, csrc/fullrank_sample.cu), on a CPU tensor it
-runs the kernel's plain PyTorch version.  The low-rank family comes in a
-later slice.
+runs the kernel's plain PyTorch version.  The low-rank family is
+families/low_rank.py.
 """
 
 from __future__ import annotations
@@ -46,6 +46,11 @@ class MeanFieldLocationScale:
     @property
     def dim(self) -> int:
         return self.location.shape[-1]
+
+    @property
+    def base_dim(self) -> int:
+        """Width of one injected base draw (``from_base``)."""
+        return self.dim
 
     def sample(self, key, n_samples: int) -> torch.Tensor:
         return self.sample_with_base(key, n_samples)[0]
@@ -129,6 +134,11 @@ class FullRankLocationScale:
     @property
     def dim(self) -> int:
         return self.location.shape[-1]
+
+    @property
+    def base_dim(self) -> int:
+        """Width of one injected base draw (``from_base``)."""
+        return self.dim
 
     def tril_scale(self) -> torch.Tensor:
         return torch.tril(self.scale)
@@ -249,4 +259,6 @@ def FullRankGaussian(
 
 
 def is_location_scale(q: Any) -> bool:
-    return isinstance(q, (MeanFieldLocationScale, FullRankLocationScale))
+    from .low_rank import LowRankLocationScale
+
+    return isinstance(q, (MeanFieldLocationScale, FullRankLocationScale, LowRankLocationScale))

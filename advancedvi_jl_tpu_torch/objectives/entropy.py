@@ -51,6 +51,16 @@ def estimate_entropy(estimator: str, samples: torch.Tensor, q, q_stop) -> torch.
     raise ValueError(f"unknown entropy estimator: {estimator!r}")
 
 
+def supports_fast_entropy(q) -> bool:
+    """Whether a family takes ``estimate_entropy_from_draw``: it exposes
+    ``apply_inv_scale_T``, ``log_det_scale`` and a base with ``score``."""
+    return (
+        hasattr(q, "apply_inv_scale_T")
+        and hasattr(q, "log_det_scale")
+        and hasattr(getattr(q, "base", None), "score")
+    )
+
+
 def _base_neg_mean_logp(q, u: torch.Tensor) -> torch.Tensor:
     return -torch.mean(torch.sum(q.base.log_prob(u), dim=-1))
 

@@ -33,7 +33,7 @@ NVCC_FLAGS = (
 # refuse a launch above it before making it.
 SMEM_LIMIT = 232448
 KERNELS = ("meanfield_sample", "fused_advi_meanfield", "fullrank_sample", "trisolve",
-           "fused_advi_fullrank", "probes")
+           "fused_advi_fullrank", "probes", "fused_chains", "lowrank_sample")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _fns: Dict[Tuple[str, str], ctypes._CFuncPtr] = {}

@@ -10,13 +10,21 @@ PyTorch (``philox4x32_reference``):
 
 - key = the two uint32 seed words;
 - counter = (global iteration, sample row, lane group j // 4, stream);
-  stream 0 gives the four u1 uniforms of a lane group, stream 1 the four u2.
+  stream 0 gives the four u1 uniforms of a lane group, stream 1 the four u2
+  (Box-Muller's two uniforms); the low-rank sampler's factor draws take
+  streams 2 and 3.
 
 So a draw depends on (seed, iteration, row, lane) only: never on the chunk,
 the launch geometry or the device, which is the step-indexed contract of
 the reference's fused engine (fused_advi.py:465-473).  Uniforms take the
 top 23 bits by the mantissa trick and normals are
 ``sqrt(-2 log(u1 + 2^-24)) * cos(2 pi u2)``, the reference's Box-Muller.
+
+Chain c of a multi-chain run draws under ``chain_seed_words(seed, c)``,
+the counterpart of the reference's ``jax.random.split(key, n_chains)``.
+
+Port of ``_lowrank_sample_raw`` and the ``lowrank_sample`` custom VJP (K7c)
+too: its u1 is the mean-field draw of the same key, bit for bit.
 
 Every wrapper takes the plain PyTorch version for a tensor on the CPU and
 launches the kernel for a CUDA tensor; there is no fallback between them.
@@ -91,15 +99,22 @@ def _mulhilo(m: int, b: torch.Tensor):
     return (t2 >> 16) + (s >> 32), s & _MASK32
 
 
-def philox4x32_reference(counter, key: Tuple[int, int]):
+def _key_word(k):
+    if isinstance(k, torch.Tensor):
+        return k.to(torch.int64) & _MASK32
+    return int(k) & _MASK32
+
+
+def philox4x32_reference(counter, key):
     """Philox4x32-10 of four counter words (int64 tensors or ints holding
-    uint32 values, broadcast together) under a two-word key; ints go to
-    the device of the tensor words."""
+    uint32 values, broadcast together) under a two-word key (ints, or int64
+    tensors that broadcast against the counter: one key per batch entry);
+    ints go to the device of the tensor words."""
     device = next((c.device for c in counter if isinstance(c, torch.Tensor)), None)
     c0, c1, c2, c3 = torch.broadcast_tensors(
         *(torch.as_tensor(c, dtype=torch.int64, device=device) for c in counter)
     )
-    k0, k1 = int(key[0]) & _MASK32, int(key[1]) & _MASK32
+    k0, k1 = _key_word(key[0]), _key_word(key[1])
     for _ in range(10):
         hi0, lo0 = _mulhilo(_M0, c0)
         hi1, lo1 = _mulhilo(_M1, c2)
@@ -107,6 +122,29 @@ def philox4x32_reference(counter, key: Tuple[int, int]):
         k0 = (k0 + _W0) & _MASK32
         k1 = (k1 + _W1) & _MASK32
     return c0, c1, c2, c3
+
+
+# Counter word 3 of the chain keys ("chns"): no draw uses this stream.
+_CHAIN_STREAM = 0x63686E73
+
+
+def chain_seed_words(seed: SeedLike, c: int) -> Tuple[int, int]:
+    """The seed words of chain ``c`` of a run keyed by ``seed``: the first two
+    words of Philox4x32-10 at counter (c, 0, 0, "chns") under the run's
+    words.  Distinct chains get distinct keys; the general chains path and
+    the fused chains engine both draw chain c's normals under these words
+    (the counterpart of ``jax.random.split(key, n_chains)[c]``, whose
+    threefry bits the port cannot reproduce)."""
+    w = philox4x32_reference((int(c) & _MASK32, 0, 0, _CHAIN_STREAM), seed_words(seed))
+    return int(w[0]), int(w[1])
+
+
+def chain_seed_table(seed: SeedLike, n_chains: int) -> torch.Tensor:
+    """``chain_seed_words(seed, c)`` of chains 0 .. n_chains - 1 as one
+    (n_chains, 2) int64 CPU tensor, from one vectorised Philox call."""
+    c = torch.arange(n_chains, dtype=torch.int64)
+    w = philox4x32_reference((c, 0, 0, _CHAIN_STREAM), seed_words(seed))
+    return torch.stack([w[0], w[1]], dim=1)
 
 
 def uniform01(bits: torch.Tensor) -> torch.Tensor:
@@ -123,18 +161,24 @@ def box_muller(u1: torch.Tensor, u2: torch.Tensor) -> torch.Tensor:
 
 
 def philox_normals_reference(
-    seed: Tuple[int, int], it: int, n: int, d: int, device=None
+    seed, it: int, n: int, d: int, device=None, stream: int = 0
 ) -> torch.Tensor:
     """(n, d) standard normals of iteration ``it``: element (i, j) comes from
-    counter (it, i, j // 4, stream) at position j % 4 of the output words."""
+    counters (it, i, j // 4, stream) and (it, i, j // 4, stream + 1) at
+    position j % 4 of the output words.  ``seed``: two words, or a (C, 2)
+    int64 tensor of C keys, which gives (C, n, d), one key a leading row."""
     groups = -(-d // 4)
     row = torch.arange(n, dtype=torch.int64, device=device).view(n, 1)
     grp = torch.arange(groups, dtype=torch.int64, device=device).view(1, groups)
     c0 = torch.tensor(it & _MASK32, dtype=torch.int64, device=device)
-    words1 = philox4x32_reference((c0, row, grp, 0), seed)
-    words2 = philox4x32_reference((c0, row, grp, 1), seed)
-    bits1 = torch.stack(words1, dim=-1).reshape(n, 4 * groups)[:, :d]
-    bits2 = torch.stack(words2, dim=-1).reshape(n, 4 * groups)[:, :d]
+    lead: Tuple[int, ...] = ()
+    if isinstance(seed, torch.Tensor):
+        lead = (seed.shape[0],)
+        seed = (seed[:, 0].view(-1, 1, 1), seed[:, 1].view(-1, 1, 1))
+    words1 = philox4x32_reference((c0, row, grp, stream), seed)
+    words2 = philox4x32_reference((c0, row, grp, stream + 1), seed)
+    bits1 = torch.stack(words1, dim=-1).reshape(*lead, n, 4 * groups)[..., :d]
+    bits2 = torch.stack(words2, dim=-1).reshape(*lead, n, 4 * groups)[..., :d]
     return box_muller(uniform01(bits1), uniform01(bits2))
 
 
@@ -316,6 +360,111 @@ def fullrank_sample(
 ):
     """Fused z = u tril(C)^T + m; returns (z, u), differentiable in (m, C)."""
     return _FullRankSample.apply(location, scale, tuple(seed), int(it), int(n))
+
+
+# ---------------------------------------------------------------------------
+# K7c: the low-rank sampler
+# ---------------------------------------------------------------------------
+
+# Philox streams of the low-rank factor draws u2 (u1 takes streams 0 and 1)
+LOWRANK_FACTOR_STREAM = 2
+
+
+def lowrank_sample_reference(
+    seed: Tuple[int, int], it: int, location: torch.Tensor,
+    scale_diag: torch.Tensor, scale_factors: torch.Tensor, n: int,
+):
+    """Plain version of the kernel: z = u1 * D + u2 U^T + m; returns (z, u1,
+    u2).  u1 is the mean-field sampler's draw for the same (seed, it); u2
+    (n, r) comes from counters (it, row, k // 4, 2) and (..., 3)."""
+    d, r = scale_factors.shape
+    dev = location.device
+    u1 = philox_normals_reference(seed, it, n, d, device=dev)
+    u2 = philox_normals_reference(seed, it, n, r, device=dev, stream=LOWRANK_FACTOR_STREAM)
+    return u1 * scale_diag + u2 @ scale_factors.T + location, u1, u2
+
+
+_LOWRANK_ARGTYPES = (
+    [ctypes.c_void_p] * 6
+    + [ctypes.c_int] * 3 + [ctypes.c_uint32] * 3 + [ctypes.c_void_p]
+)
+
+
+def lowrank_sample_cuda(
+    seed: Tuple[int, int], it: int, location: torch.Tensor,
+    scale_diag: torch.Tensor, scale_factors: torch.Tensor, n: int,
+):
+    """Launch csrc/lowrank_sample.cu on the current stream; returns (z, u1,
+    u2).  Adds one to ``lowrank_sample_cuda.launches`` per launch."""
+    if not location.is_cuda:
+        raise ValueError(f"lowrank_sample_cuda needs GPU tensors, got {location.device}")
+    dev = location.device
+    d = location.shape[0]
+    r = scale_factors.shape[1] if scale_factors.ndim == 2 else -1
+    check_f32("location", location, (d,), dev)
+    check_f32("scale_diag", scale_diag, (d,), dev)
+    check_f32("scale_factors", scale_factors, (d, r), dev)
+    smem = _build.function("lowrank_sample", "lowrank_sample_smem_bytes", [ctypes.c_int],
+                           restype=ctypes.c_size_t)(r)
+    if smem > _build.SMEM_LIMIT:
+        raise ValueError(
+            f"the low-rank sampler keeps a 128-lane slice of the factors in shared "
+            f"memory: {smem} bytes at rank {r} is over the {_build.SMEM_LIMIT}-byte "
+            "limit of one block"
+        )
+    fn = _build.function("lowrank_sample", "lowrank_sample", _LOWRANK_ARGTYPES)
+    z = torch.empty((n, d), dtype=torch.float32, device=dev)
+    u1 = torch.empty((n, d), dtype=torch.float32, device=dev)
+    u2 = torch.empty((n, r), dtype=torch.float32, device=dev)
+    if n == 0:
+        return z, u1, u2
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(location.data_ptr(), scale_diag.data_ptr(), scale_factors.data_ptr(),
+                 z.data_ptr(), u1.data_ptr(), u2.data_ptr(), n, d, r,
+                 seed[0], seed[1], it & _MASK32, stream)
+    _build.check(err, "lowrank_sample launch")
+    lowrank_sample_cuda.launches += 1
+    return z, u1, u2
+
+
+lowrank_sample_cuda.launches = 0
+
+
+def lowrank_sample_raw(seed, it, location, scale_diag, scale_factors, n):
+    """Kernel for CUDA tensors, plain version for CPU tensors."""
+    if location.is_cuda:
+        return lowrank_sample_cuda(seed, it, location, scale_diag, scale_factors, n)
+    if location.device.type == "cpu":
+        return lowrank_sample_reference(seed, it, location, scale_diag, scale_factors, n)
+    raise ValueError(f"no sampler for device {location.device}")
+
+
+class _LowRankSample(torch.autograd.Function):
+    """z = u1 D + u2 U^T + m with dm = sum ct_z, dD = sum ct_z u1 and
+    dU = ct_z^T u2 (the reference's ``_lr_bwd``; outside the kernel)."""
+
+    @staticmethod
+    def forward(ctx, location, scale_diag, scale_factors, seed, it, n):
+        z, u1, u2 = lowrank_sample_raw(seed, it, location, scale_diag, scale_factors, n)
+        ctx.save_for_backward(u1, u2)
+        ctx.mark_non_differentiable(u1, u2)
+        return z, u1, u2
+
+    @staticmethod
+    def backward(ctx, ct_z, ct_u1, ct_u2):
+        u1, u2 = ctx.saved_tensors
+        return ct_z.sum(dim=0), (ct_z * u1).sum(dim=0), ct_z.T @ u2, None, None, None
+
+
+def lowrank_sample(
+    seed: Tuple[int, int], it: int, location: torch.Tensor,
+    scale_diag: torch.Tensor, scale_factors: torch.Tensor, n: int,
+):
+    """Fused z = u1 D + u2 U^T + m; returns (z, u1, u2), differentiable in
+    (m, D, U)."""
+    return _LowRankSample.apply(location, scale_diag, scale_factors, tuple(seed), int(it),
+                                int(n))
 
 
 def normal_moments_ok(u: torch.Tensor, sigmas: float = 5.0) -> bool:

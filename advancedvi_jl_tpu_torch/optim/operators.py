@@ -8,6 +8,7 @@ from dataclasses import dataclass
 import torch
 
 from ..families.location_scale import FullRankLocationScale, MeanFieldLocationScale
+from ..families.low_rank import LowRankLocationScale
 from .rules import stepsize_from_opt_state
 
 
@@ -22,14 +23,14 @@ class IdentityOperator:
 @dataclass(frozen=True)
 class ClipScale:
     """Clamp the scale diagonal to >= epsilon (reference clip_scale.jl:8-41):
-    mean-field ``scale_diag``, or the full-rank diagonal through
-    ``with_scale_diag`` (clamped entries are exactly epsilon; the
+    mean-field and low-rank ``scale_diag``, or the full-rank diagonal
+    through ``with_scale_diag`` (clamped entries are exactly epsilon; the
     off-diagonal, the inert upper triangle included, is kept as stored)."""
 
     epsilon: float = 1e-5
 
     def apply(self, q, opt_state):
-        if isinstance(q, MeanFieldLocationScale):
+        if isinstance(q, (MeanFieldLocationScale, LowRankLocationScale)):
             return dataclasses.replace(
                 q, scale_diag=torch.clamp_min(q.scale_diag, self.epsilon)
             )
@@ -62,6 +63,9 @@ class ProximalLocationScaleEntropy:
             return dataclasses.replace(q, scale_diag=prox(q.scale_diag))
         if isinstance(q, FullRankLocationScale):
             return q.with_scale_diag(prox(q.scale_diag_view()))
+        # The low-rank family is refused, as in the reference
+        # (proximal_location_scale_entropy.jl:23): its entropy couples D to U
+        # through the determinant lemma, so the diagonal closed form is inexact.
         raise TypeError(
             "ProximalLocationScaleEntropy only supports location-scale "
             f"families, got {type(q).__name__}"

@@ -58,12 +58,24 @@ Phases:
       place at n = 16,384 and staged (with and without prefetch) at
       n = 500,000, reshuffling between chunks; fused vs general on one key
       and one permutation over one epoch; each transport's time beside its
-      plain version, one reshuffle at n = 500,000, general steps/s.
+      plain version, one reshuffle at n = 500,000, general steps/s;
+  (v) the multi-chain kernel (K6) against its plain version at C = 8 on the
+      flagship: Adam, a per-chain lr sweep, a mixed rule sweep, prox-DoWG,
+      VarGrad, the staged minibatch spec; chunking, tracing, each chain
+      against the single-chain kernel, the divergence channel;
+  (w) the chains paths: 64 jittered chains through ``FusedChainsADVI`` for
+      20,000 steps and ``optimize_chains`` at C = 4 (equal to ``optimize``
+      per chain), then 200-step chunks at C = 1 to 1,024 (chain-steps/s),
+      K6 against its plain version at C = 64 and 1,024;
+  (x) the low-rank sampler (K7c) against its plain version and K7a at
+      65,536 x 256, rank 8 (timed) and at the shapes of the low-rank ADVI
+      runs; low-rank ADVI through ``optimize`` on
+      tests/test_lowrank_advi.py's target and on the flagship (rank 8).
 
 Every failed check raises and the script exits non-zero; it also exits
 non-zero without a CUDA device, or when the package is not beside it.  The
 line before the last is a JSON object of the kernels (launch counts from the
-main-path runs of (f), (g), (l), (o), (p), (s) and (u), errors, times, each
+main-path runs of (f), (g), (l), (o), (p), (s), (u), (w) and (x), errors, times, each
 time's bound on this card and, for K8, the library call's time); the last
 line is ``{"ok": true, "device": {...}}``.  It imports no JAX.
 """
@@ -124,6 +136,15 @@ def cuda_ms(fn, reps: int) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def smi_clocks() -> str:
+    """The card's SM clock, power draw and limit and temperature, as
+    nvidia-smi reads them now."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit,"
+                          "temperature.gpu", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=120)
+    return f"'{smi.stdout.strip()}'"
 
 
 def max_err(a, b) -> float:
@@ -319,8 +340,9 @@ def wrappers():
     from advancedvi_jl_tpu_torch.ops.cuda.fused_advi import (
         fused_fullrank_run_chunk_cuda, fused_run_chunk_cuda,
     )
+    from advancedvi_jl_tpu_torch.ops.cuda.fused_chains import fused_chains_run_chunk_cuda
     from advancedvi_jl_tpu_torch.ops.cuda.location_scale_kernels import (
-        fullrank_sample_cuda, meanfield_sample_cuda,
+        fullrank_sample_cuda, lowrank_sample_cuda, meanfield_sample_cuda,
     )
     from advancedvi_jl_tpu_torch.ops.cuda.probe_kernels import probe_cuda
     from advancedvi_jl_tpu_torch.ops.cuda.trisolve_kernels import solve_right_cuda
@@ -330,7 +352,9 @@ def wrappers():
             "fullrank_sample": fullrank_sample_cuda,
             "trisolve": solve_right_cuda,
             "fused_advi_fullrank": fused_fullrank_run_chunk_cuda,
-            "probes": probe_cuda}
+            "probes": probe_cuda,
+            "fused_chains": fused_chains_run_chunk_cuda,
+            "lowrank_sample": lowrank_sample_cuda}
 
 
 def reset_launches():
@@ -404,10 +428,22 @@ def main_path(dev):
     return counts
 
 
+def flagship_chunk_args(dev):
+    """The arguments of the timed flagship chunk (phase (h), and
+    ab_fused_chunk.py's A/B): 200 in-kernel-Philox steps of the flagship
+    logreg from the initial rows, keyed by SEED."""
+    from advancedvi_jl_tpu_torch.ops.cuda.fused_advi import FusedHyper
+    from advancedvi_jl_tpu_torch.ops.cuda.location_scale_kernels import seed_words
+
+    prob = flagship(dev)
+    return ("logreg", (prob.X, prob.y), (1.0, 3.0), initial_rows(prob.dim, dev),
+            seed_words(SEED), 0, 200, N_SAMPLES, FusedHyper(lr=LR))
+
+
 def phase_h(dev, card):
     import advancedvi_jl_tpu_torch as avt
     from advancedvi_jl_tpu_torch.ops.cuda.fused_advi import (
-        FusedHyper, fused_run_chunk_cuda, fused_run_chunk_reference,
+        fused_run_chunk_cuda, fused_run_chunk_reference,
     )
     from advancedvi_jl_tpu_torch.ops.cuda.location_scale_kernels import (
         meanfield_sample_cuda, meanfield_sample_reference, seed_words,
@@ -441,15 +477,12 @@ def phase_h(dev, card):
     loc, sc = torch.zeros(d, device=dev), torch.ones(d, device=dev)
     samp_ms = cuda_ms(lambda: meanfield_sample_cuda(seed, 1, loc, sc, N_SAMPLES), 1000)
     samp_plain = cuda_ms(lambda: meanfield_sample_reference(seed, 1, loc, sc, N_SAMPLES), 50)
-    rows = initial_rows(d, dev)
-    chunk = 200
-    args = ("logreg", (prob.X, prob.y), (1.0, 3.0), rows, seed, 0, chunk, N_SAMPLES,
-            FusedHyper(lr=LR))
+    args = flagship_chunk_args(dev)
     fk_ms = cuda_ms(lambda: fused_run_chunk_cuda(*args), 20)
     fr_ms = cuda_ms(lambda: fused_run_chunk_reference(*args), 1)
     say("h", meanfield_sample_ms=samp_ms, meanfield_sample_plain_ms=samp_plain,
         shape=f"{N_SAMPLES}x{d}")
-    say("h", fused_chunk_ms=fk_ms, fused_chunk_plain_ms=fr_ms, chunk_steps=chunk)
+    say("h", fused_chunk_ms=fk_ms, fused_chunk_plain_ms=fr_ms, chunk_steps=args[6])
     return {"meanfield_sample": (samp_ms, samp_plain),
             "fused_advi_meanfield": (fk_ms, fr_ms)}
 
@@ -728,8 +761,20 @@ def phase_m(dev, card):
         k_ms = cuda_ms(lambda: fused_fullrank_run_chunk_cuda(*args), 10)
         p_ms = cuda_ms(lambda: fused_fullrank_run_chunk_reference(*args), 1)
         k_ms2 = cuda_ms(lambda: fused_fullrank_run_chunk_cuda(*args), 10)
+        # the chunk's bound: z, the whitening and dC (three (n, d) x triangle
+        # products) and the model (the logreg's two (n, 208, 61) products, or
+        # the dense Gaussian's (n, d) x (d, d) precision product) a step; the
+        # model's data, the mean and the eight scale matrices in and out
+        tri = 3 * N_SAMPLES * d * (d + 1) // 2
+        if spec.model == "mvnormal":
+            body_macs, data = N_SAMPLES * d * d, 4.0 * (d * d + d)
+        else:
+            body_macs, data = 2 * N_SAMPLES * N_DATA * (d - 1), 4.0 * (N_DATA * d)
+        b_ms, b_by = bound(2.0 * 200 * (tri + body_macs), data + 4.0 * (8 * d + 8 * d * d))
+        body_ms, _ = bound(2.0 * 200 * body_macs, data)
         say("m", fused_fullrank_model=name, d=d, chunk_steps=200, kernel_ms=f"{k_ms},{k_ms2}",
-            plain_ms=p_ms, fused_steps_per_s=f"{200 / (min(k_ms, k_ms2) / 1e3):.1f}")
+            plain_ms=p_ms, fused_steps_per_s=f"{200 / (min(k_ms, k_ms2) / 1e3):.1f}",
+            bound_ms=b_ms, bound_by=b_by, model_body_bound_ms=body_ms)
         out[f"fused_advi_fullrank_{name}"] = (min(k_ms, k_ms2), p_ms)
     say("m", card=f"'{card}'", fullrank_general_steps_per_s=f"{general_sps:.1f}",
         d=FR_D, n=FR_N)
@@ -1526,6 +1571,378 @@ def phase_u(dev, card, lr_state):
     return counts, times
 
 
+# ---------------------------------------------------------------------------
+# The multi-chain and low-rank slice: K6, K7c, the chains paths and low-rank
+# ADVI
+# ---------------------------------------------------------------------------
+
+CHAINS_C = 8                   # phase (v): tests/test_fused_chains.py's 8-row sweeps
+CHAINS_SWEEP = (1, 8, 32, 128, 1024)
+CHAINS_MAIN_C, CHAINS_MAIN_STEPS = 64, 20_000
+CHAINS_GENERAL_C, CHAINS_GENERAL_STEPS = 4, 500
+MIXED_RULES = ["adam", "descent", "dowg", "dog", "cocob", "adam", "dowg", "cocob"]
+LR_SHAPE = (65_536, 256, 8)    # BENCH_NOTES' low-rank sampler shape (n, d, r)
+LR_D, LR_R, LR_STEPS = 12, 2, 3_000  # tests/test_lowrank_advi.py's convergence case
+LR_FLAGSHIP_R, LR_FLAGSHIP_STEPS = 8, 2_000
+
+
+def chains_engine(dev, spec, n_chains, seed=4, **kw):
+    """A FusedChainsADVI and its initial state: locations 0.2 N(0, 1) (seeded)
+    and scales 0.1."""
+    import advancedvi_jl_tpu_torch as avt
+
+    eng = avt.FusedChainsADVI(spec, n_chains=n_chains, n_samples=N_SAMPLES, **kw)
+    g = torch.Generator().manual_seed(seed)
+    st = eng.init((0.2 * torch.randn(n_chains, spec.dim, generator=g)).to(dev),
+                  0.1 * torch.ones(n_chains, spec.dim, device=dev))
+    return eng, st
+
+
+def chains_case(dev, spec, n_chains):
+    """An Adam(LR) engine of ``n_chains`` chains, its stacked initial rows and
+    its chains' seed words: the inputs of a timed or compared launch."""
+    eng, st = chains_engine(dev, spec, n_chains, lr=LR)
+    return eng, st.stacked(), eng.chain_seeds(SEED)
+
+
+def chains_run(fn, eng, rows, seeds, it0, steps, noise=None, log_every=0):
+    return fn(eng.model.model, eng.model.consts, eng.model.scalars, rows, seeds, it0, steps,
+              N_SAMPLES, eng.hyp, noise, log_every, eng.branch(), eng.lrs, eng.rules)
+
+
+def phase_v(dev):
+    """K6 against its plain version at C = 8 on the flagship logreg: 50
+    injected-noise steps (norm-wise rtol 1e-5, traced equal to untraced),
+    then 200 Philox steps (rtol 1e-4, a 3 + rest split bit-exact), for
+    STL x Adam x clip, a per-chain lr sweep, a mixed sweep with COCOB and
+    DoWG chains, prox-DoWG, VarGrad-DoWG-clip (those three after WARM
+    steps) and the staged minibatch spec; chain c against the single-chain
+    kernel keyed by chain_seed_words(seed, c); a chain given lr 1e7 named by
+    first_chain_divergence.  Returns the largest parameter error after the
+    injected-noise steps."""
+    import advancedvi_jl_tpu_torch as avt
+    from advancedvi_jl_tpu_torch.ops.cuda.fused_advi import FusedBranch, fused_run_chunk_cuda
+    from advancedvi_jl_tpu_torch.ops.cuda.fused_chains import (
+        first_chain_divergence, fused_chains_run_chunk_cuda, fused_chains_run_chunk_reference,
+    )
+    from advancedvi_jl_tpu_torch.ops.cuda.location_scale_kernels import chain_seed_words
+
+    t0 = time.perf_counter()
+    prob = flagship(dev)
+    spec = avt.logreg_spec(prob.X, prob.y)
+    big = large_logreg(dev)
+    mb = mb_specs(big.X, big.y)["staged"]
+    lrs = [1e-4, 3e-4, 1e-3, 3e-3, 1e-2, 2e-3, 5e-4, 1e-3]
+    cases = {
+        "stl-adam-clip": (spec, {}),
+        "lr-sweep": (spec, dict(lr=lrs)),
+        "mixed": (spec, dict(optimizer=MIXED_RULES)),
+        "prox-dowg": (spec, dict(optimizer="dowg", entropy="closed_form_zero_grad",
+                                 operator="prox")),
+        "vargrad-dowg-clip": (spec, dict(optimizer="dowg", grad_est="scoregrad",
+                                         operator="clip")),
+        "staged-minibatch": (mb, {}),
+    }
+    kern, plain = fused_chains_run_chunk_cuda, fused_chains_run_chunk_reference
+    worst = 0.0
+    for name, (sp, kw) in cases.items():
+        eng, st = chains_engine(dev, sp, CHAINS_C, **kw)
+        rules = kw.get("optimizer", "adam")
+        warm = WARM if any(r in ("dowg", "dog") for r in
+                           ([rules] if isinstance(rules, str) else rules)) else 0
+        if warm:
+            st = eng.run_chunk(st, SEED, warm)
+        rows, seeds = st.stacked(with_ext=eng.n_rows == 14), eng.chain_seeds(SEED)
+        noise = torch.randn((50, CHAINS_C, N_SAMPLES, sp.dim),
+                            generator=torch.Generator().manual_seed(5)).to(dev)
+        k = chains_run(kern, eng, rows, seeds, warm, 50, noise, 10)
+        ku = chains_run(kern, eng, rows, seeds, warm, 50, noise)
+        r = chains_run(plain, eng, rows, seeds, warm, 50, noise, 10)
+        one = chains_run(kern, eng, rows, seeds, warm, 200)
+        a = chains_run(kern, eng, rows, seeds, warm, 3)
+        b = chains_run(kern, eng, a[0], seeds, warm + 3, 197)
+        ref = chains_run(plain, eng, rows, seeds, warm, 200)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(one[0]).all()), f"chains {name}: not finite")
+        rel = compare_tensors(f"chains {name}, injected noise", list(k[0].flatten(0, 1)),
+                              list(r[0].flatten(0, 1)), 1e-5)
+        err = max_err(k[0][:, [0, 1, 6, 7]], r[0][:, [0, 1, 6, 7]])
+        worst = max(worst, err)
+        check(torch.allclose(k[1], r[1], rtol=1e-5, atol=1e-4), f"chains {name}: ELBO differs")
+        check(k[2].shape == (5, CHAINS_C) and torch.allclose(k[2], r[2], rtol=1e-5, atol=1e-4),
+              f"chains {name}: trace rows differ")
+        check(torch.equal(k[0], ku[0]) and torch.equal(k[1], ku[1]),
+              f"chains {name}: traced and untraced launches differ")
+        check(torch.equal(one[0], b[0]) and torch.equal(one[1], b[1]),
+              f"chains {name}: a 3 + 197 split differs from one launch")
+        compare_tensors(f"chains {name}, Philox, 200 steps", list(one[0].flatten(0, 1)),
+                        list(ref[0].flatten(0, 1)), 1e-4)
+        check(torch.allclose(one[1], ref[1], rtol=1e-4, atol=1e-3),
+              f"chains {name}: ELBO after 200 Philox steps differs")
+        # chain c is the single-chain kernel keyed by chain c's words
+        per = rules if isinstance(rules, list) else [rules] * CHAINS_C
+        bitwise, rel1 = True, 0.0
+        for c in range(CHAINS_C):
+            br = eng.branch()
+            branch = FusedBranch(per[c], br.entropy, br.grad_est, br.operator, br.cocob_alpha)
+            nrow = 14 if per[c] == "cocob" else 8
+            hyp = eng.hyp if eng.lrs is None else type(eng.hyp)(
+                lrs[c], *(getattr(eng.hyp, f) for f in ("b1", "b2", "eps", "avg_eta",
+                                                         "clip_eps")))
+            single, e1, _ = fused_run_chunk_cuda(sp.model, sp.consts, sp.scalars,
+                                                 rows[c, :nrow].contiguous(),
+                                                 chain_seed_words(SEED, c), warm, 200,
+                                                 N_SAMPLES, hyp, branch=branch)
+            bitwise &= torch.equal(single, one[0][c, :nrow]) and torch.equal(e1, one[1][c])
+            rel1 = max(rel1, compare_tensors(f"chains {name}: chain {c} vs single-chain kernel",
+                                             list(one[0][c, :nrow]), list(single), 1e-6))
+        say("v", case=name, warm=warm, steps="50,200", parameter_max_abs_err=f"{err:.3e}",
+            state_max_rel_err=f"{rel:.3e}", chain_vs_single_rel_err=f"{rel1:.3e}",
+            chain_vs_single_bitwise=bitwise, elbo_kernel_chain0=float(k[1][0]),
+            elbo_plain_chain0=float(r[1][0]))
+    # the divergence channel
+    div_lrs = [1e-3] * CHAINS_C
+    div_lrs[5] = 1e7
+    eng, st = chains_engine(dev, spec, CHAINS_C, lr=div_lrs, optimizer="descent")
+    _, trace = eng.run_chunk_traced(st, SEED, 6, log_every=2)
+    hit = first_chain_divergence(trace, log_every=2)
+    healthy = torch.cat([trace[:, :5], trace[:, 6:]], dim=1)
+    say("v", divergence=hit, healthy_finite=bool(torch.isfinite(healthy).all()))
+    check(hit is not None and hit[0] == 5, f"first_chain_divergence gave {hit}, not chain 5")
+    check(bool(torch.isfinite(healthy).all()), "a healthy chain went non-finite")
+    say("v", cases=len(cases), seconds=f"{time.perf_counter() - t0:.2f}")
+    return worst
+
+
+def phase_w(dev, card):
+    """The chains paths at full width, counted: 64 jittered chains of the
+    flagship (locations 0.5 N(0, 1), scales 0.1) for 20,000 steps through
+    FusedChainsADVI (every chain finite and above -150 at its tail, bench.py's
+    ``converged``), and optimize_chains at C = 4 for 500 steps (chain c equal
+    to ``optimize`` keyed by chain_seed_words(seed, c), bit for bit).  Then
+    200-step chunks at C in CHAINS_SWEEP (CUDA events, aggregate
+    chain-steps/s) and the plain version at C = 64, each held against the
+    other on the timed rows (rtol 1e-4 norm-wise after the 200 Philox steps);
+    50 injected-noise steps at C = 64 and at C = 1,024 (eight waves) against
+    the plain version (rtol 1e-5).  Returns the launch counts, the times and
+    the largest parameter error after the injected-noise steps."""
+    import advancedvi_jl_tpu_torch as avt
+    from advancedvi_jl_tpu_torch.ops.cuda.fused_chains import (
+        fused_chains_run_chunk_cuda, fused_chains_run_chunk_reference,
+    )
+    from advancedvi_jl_tpu_torch.ops.cuda.location_scale_kernels import chain_seed_words
+    from advancedvi_jl_tpu_torch.parallel.chains import optimize_chains
+
+    prob = flagship(dev)
+    spec = avt.logreg_spec(prob.X, prob.y)
+    d = spec.dim
+    g = torch.Generator().manual_seed(7)
+    locs = (0.5 * torch.randn(CHAINS_MAIN_C, d, generator=g)).to(dev)
+    eng = avt.FusedChainsADVI(spec, n_chains=CHAINS_MAIN_C, n_samples=N_SAMPLES, lr=LR)
+    target = prob.unconstrained()
+    alg = avt.KLMinRepGradDescent(entropy=avt.STL, n_samples=N_SAMPLES,
+                                  optimizer=avt.adam(LR), operator=avt.ClipScale())
+    q0 = avt.MeanFieldGaussian(torch.zeros(d, device=dev), 0.1 * torch.ones(d, device=dev))
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    st = eng.init(locs, 0.1 * torch.ones(CHAINS_MAIN_C, d, device=dev))
+    traces = []
+    for _ in range(CHAINS_MAIN_STEPS // 5_000):
+        st, tr = eng.run_chunk_traced(st, SEED, 5_000, log_every=LOG_EVERY)
+        traces.append(tr)
+    trace = torch.cat(traces)
+    torch.cuda.synchronize()
+    fused_s = time.perf_counter() - t0
+    tail = trace[-TAIL_ROWS:].mean(dim=0)
+    say("w", path="fused_chains", chains=CHAINS_MAIN_C, steps=CHAINS_MAIN_STEPS,
+        seconds=f"{fused_s:.2f}", tail_elbo_min=float(tail.min()), tail_elbo_max=float(tail.max()),
+        chain_steps_per_s=f"{CHAINS_MAIN_C * CHAINS_MAIN_STEPS / fused_s:.1f}")
+    check(bool(torch.isfinite(trace).all()), "a fused chain's ELBO trace is not finite")
+    check(bool((tail > -150.0).all()), f"a fused chain's tail ELBO {float(tail.min())} <= -150")
+    t0 = time.perf_counter()
+    outs, info, states, _ = optimize_chains(SEED, alg, CHAINS_GENERAL_STEPS, target, q0,
+                                            n_chains=CHAINS_GENERAL_C)
+    torch.cuda.synchronize()
+    general_s = time.perf_counter() - t0
+    counts = read_launches()
+    say("w", path="optimize_chains", chains=CHAINS_GENERAL_C, steps=CHAINS_GENERAL_STEPS,
+        seconds=f"{general_s:.2f}",
+        chain_steps_per_s=f"{CHAINS_GENERAL_C * CHAINS_GENERAL_STEPS / general_s:.1f}",
+        elbo_last=[round(float(e), 3) for e in info["elbo"]],
+        fused_chains_launches=counts["fused_chains"],
+        sampler_launches=counts["meanfield_sample"])
+    check(counts["fused_chains"] > 0, "the fused chains engine launched no kernel")
+    check(counts["meanfield_sample"] > 0, "the general chains path launched no sampler kernel")
+    for c in range(CHAINS_GENERAL_C):
+        _, _, sc = avt.optimize(chain_seed_words(SEED, c), alg, CHAINS_GENERAL_STEPS, target,
+                                q0)
+        same = (torch.equal(sc.q.location, states.chains[c].q.location)
+                and torch.equal(sc.q.scale_diag, states.chains[c].q.scale_diag))
+        check(same, f"optimize_chains chain {c} differs from optimize on its seed words")
+    say("w", optimize_chains_equals_optimize_bitwise=True)
+    # times: 200-step chunks over the chain counts, the sweep run up and then
+    # down (the card's clocks beside it), the plain version at 64
+    cases = {C: chains_case(dev, spec, C) for C in CHAINS_SWEEP + (CHAINS_MAIN_C,)}
+    times = {C: [] for C in CHAINS_SWEEP}
+    say("w", clocks_before=smi_clocks())
+    for C in CHAINS_SWEEP + CHAINS_SWEEP[::-1]:
+        e, rows, seeds = cases[C]
+        times[C].append(cuda_ms(
+            lambda: chains_run(fused_chains_run_chunk_cuda, e, rows, seeds, 0, 200), 10))
+    say("w", clocks_after=smi_clocks())
+    for C in CHAINS_SWEEP:
+        ms = min(times[C])
+        say("w", card=f"'{card}'", chains=C, chunk_steps=200,
+            kernel_ms=",".join(f"{t:.4f}" for t in times[C]),
+            chain_steps_per_s=f"{C * 200 / (ms / 1e3):.1f}")
+    # a mixed rule sweep at the main width: its launches read the rule codes
+    # kept on the host, so they follow each other with no host sync
+    e, s0 = chains_engine(dev, spec, CHAINS_MAIN_C,
+                          optimizer=MIXED_RULES * (CHAINS_MAIN_C // len(MIXED_RULES)))
+    rows_m, seeds_m = s0.stacked(with_ext=True), e.chain_seeds(SEED)
+    mixed_ms = cuda_ms(lambda: chains_run(fused_chains_run_chunk_cuda, e, rows_m, seeds_m, 0,
+                                          200), 10)
+    say("w", card=f"'{card}'", chains=CHAINS_MAIN_C, sweep="mixed", chunk_steps=200,
+        kernel_ms=mixed_ms)
+    kern, plain = fused_chains_run_chunk_cuda, fused_chains_run_chunk_reference
+    e, rows, seeds = cases[CHAINS_MAIN_C]
+    out = {}  # the last timed launch of each, compared below
+
+    def timed(fn):
+        out[fn] = chains_run(fn, e, rows, seeds, 0, 200)
+
+    k_ms = cuda_ms(lambda: timed(kern), 5)
+    p_ms = cuda_ms(lambda: timed(plain), 1)
+    k, r = out[kern], out[plain]
+    rel = compare_tensors(f"chains C = {CHAINS_MAIN_C}, Philox, 200 steps",
+                          list(k[0].flatten(0, 1)), list(r[0].flatten(0, 1)), 1e-4)
+    check(torch.allclose(k[1], r[1], rtol=1e-4, atol=1e-3),
+          f"chains C = {CHAINS_MAIN_C}: ELBO after 200 Philox steps differs")
+    err = max_err(k[0][:, [0, 1, 6, 7]], r[0][:, [0, 1, 6, 7]])
+    say("w", card=f"'{card}'", chains=CHAINS_MAIN_C, kernel_ms=k_ms, plain_ms=p_ms,
+        philox_200_state_max_rel_err=f"{rel:.3e}", philox_200_parameter_max_abs_err=f"{err:.3e}")
+    worst = 0.0
+    for C in (CHAINS_MAIN_C, CHAINS_SWEEP[-1]):
+        e, rows, seeds = cases[C]
+        gen = torch.Generator(device=dev).manual_seed(5)
+        noise = torch.randn((50, C, N_SAMPLES, d), generator=gen, device=dev)
+        k = chains_run(kern, e, rows, seeds, 0, 50, noise)
+        r = chains_run(plain, e, rows, seeds, 0, 50, noise)
+        torch.cuda.synchronize()
+        rel = compare_tensors(f"chains C = {C}, injected noise", list(k[0].flatten(0, 1)),
+                              list(r[0].flatten(0, 1)), 1e-5)
+        err = max_err(k[0][:, [0, 1, 6, 7]], r[0][:, [0, 1, 6, 7]])
+        check(torch.allclose(k[1], r[1], rtol=1e-5, atol=1e-4),
+              f"chains C = {C}: ELBO after the injected-noise steps differs")
+        say("w", chains=C, steps=50, noise="injected", parameter_max_abs_err=f"{err:.3e}",
+            state_max_rel_err=f"{rel:.3e}")
+        worst = max(worst, err)
+    return counts, (k_ms, p_ms), worst
+
+
+def lowrank_flops_bytes(n, d, r):
+    """Operations and bytes of one low-rank draw: r multiply-adds and one
+    multiply-add (u1 D + m) an element; loc, D and U read, z, u1 and u2
+    written."""
+    return 2.0 * n * d * (r + 1), 4.0 * (2 * d + d * r + 2 * n * d + n * r)
+
+
+def phase_x(dev, card):
+    """K7c against its plain version at the sampler shape and at the two
+    low-rank ADVI runs' shapes (u1 equal to K7a's u and to the plain
+    version's, u2 bit-exact, z within 1e-6 norm-wise), timed at the sampler
+    shape with its bound; then low-rank ADVI through ``optimize``, counted:
+    tests/test_lowrank_advi.py's convergence case (d = 12, r = 2) and the
+    flagship logreg with a rank-8 family."""
+    import numpy as np
+
+    import advancedvi_jl_tpu_torch as avt
+    from advancedvi_jl_tpu_torch.models.normal import NormalTarget
+    from advancedvi_jl_tpu_torch.ops.cuda.location_scale_kernels import (
+        lowrank_sample_cuda, lowrank_sample_reference, meanfield_sample_cuda, seed_words,
+    )
+
+    seed = seed_words(SEED)
+    err = 0.0
+    # the sampler shape, then the shapes of the two low-rank ADVI runs below
+    # (d = 62 takes the scalar store path, d % 4 != 0)
+    for n, d, r in (LR_SHAPE, (N_SAMPLES, N_FEATURES + 2, LR_FLAGSHIP_R), (32, LR_D, LR_R)):
+        g = torch.Generator().manual_seed(3)
+        loc = torch.randn(d, generator=g).to(dev)
+        D = (0.5 + torch.rand(d, generator=g)).to(dev)
+        U = (0.3 * torch.randn(d, r, generator=g)).to(dev)
+        z, u1, u2 = lowrank_sample_cuda(seed, 5, loc, D, U, n)
+        zr, u1r, u2r = lowrank_sample_reference(seed, 5, loc, D, U, n)
+        _, um = meanfield_sample_cuda(seed, 5, loc, D, n)
+        torch.cuda.synchronize()
+        rel = rel_err(z, zr)
+        err = max(err, max_err(z, zr))
+        say("x", shape=f"{n}x{d}x{r}", u1_bitwise_plain=bool(torch.equal(u1, u1r)),
+            u1_bitwise_meanfield=bool(torch.equal(u1, um)),
+            u2_bitwise_plain=bool(torch.equal(u2, u2r)), z_rel_err=rel,
+            z_max_abs_err=max_err(z, zr))
+        check(torch.equal(u1, u1r) and torch.equal(u2, u2r),
+              f"low-rank draws at {n}x{d}x{r} differ from the plain version")
+        check(torch.equal(u1, um), f"low-rank u1 at {n}x{d}x{r} differs from the mean-field u")
+        check(rel <= 1e-6, f"low-rank sampler z at {n}x{d}x{r}: norm-wise error {rel} > 1e-6")
+    n, d, r = LR_SHAPE
+    g = torch.Generator().manual_seed(3)
+    loc = torch.randn(d, generator=g).to(dev)
+    D = (0.5 + torch.rand(d, generator=g)).to(dev)
+    U = (0.3 * torch.randn(d, r, generator=g)).to(dev)
+    k_ms = cuda_ms(lambda: lowrank_sample_cuda(seed, 5, loc, D, U, n), 20)
+    p_ms = cuda_ms(lambda: lowrank_sample_reference(seed, 5, loc, D, U, n), 2)
+    k_ms2 = cuda_ms(lambda: lowrank_sample_cuda(seed, 5, loc, D, U, n), 20)
+    b_ms, b_by = bound(*lowrank_flops_bytes(n, d, r))
+    say("x", card=f"'{card}'", lowrank_sample_ms=f"{k_ms},{k_ms2}", plain_ms=p_ms,
+        bound_ms=b_ms, bound_by=b_by)
+    # low-rank ADVI on the general path, counted
+    rng = np.random.default_rng(21)
+    Dv = 0.6 + 0.4 * rng.uniform(0, 1, LR_D)
+    Uv = 0.5 * rng.normal(0, 1, (LR_D, LR_R))
+    cov = np.diag(Dv ** 2) + Uv @ Uv.T
+    mu = rng.normal(0, 1, LR_D)
+    target = NormalTarget(mu=torch.tensor(mu, dtype=torch.float32, device=dev),
+                          scale_tril=torch.tensor(np.linalg.cholesky(cov), dtype=torch.float32,
+                                                  device=dev))
+    q0 = avt.LowRankGaussian(torch.zeros(LR_D, device=dev), torch.ones(LR_D, device=dev),
+                             0.1 * torch.ones(LR_D, LR_R, device=dev))
+    alg = avt.KLMinRepGradDescent(entropy=avt.STL, n_samples=32, optimizer=avt.adam(2e-2),
+                                  operator=avt.ClipScale())
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    out, _, _ = avt.optimize(SEED, alg, LR_STEPS, target, q0, log_every=100)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    nelbo = float(avt.estimate_objective(SEED + 5, alg, out, target, n_samples=20_000))
+    mean_err = float(np.abs(out.mean().cpu().numpy() - mu).max())
+    cov_err = float(np.abs(out.cov().cpu().numpy() - cov).max())
+    say("x", path="lowrank_advi", d=LR_D, r=LR_R, steps=LR_STEPS, mean_max_abs_err=mean_err,
+        cov_max_abs_err=cov_err, neg_elbo=nelbo, steps_per_s=f"{LR_STEPS / secs:.1f}")
+    check(mean_err < 0.1 and cov_err < 0.15 and abs(nelbo) < 0.1,
+          f"low-rank ADVI: mean {mean_err}, cov {cov_err}, -ELBO {nelbo}")
+    prob = flagship(dev)
+    qf = avt.LowRankGaussian(torch.zeros(prob.dim, device=dev),
+                             0.1 * torch.ones(prob.dim, device=dev),
+                             torch.zeros(prob.dim, LR_FLAGSHIP_R, device=dev))
+    falg = avt.KLMinRepGradDescent(entropy=avt.STL, n_samples=N_SAMPLES, optimizer=avt.adam(LR),
+                                   operator=avt.ClipScale())
+    t0 = time.perf_counter()
+    _, infos, _ = avt.optimize(SEED, falg, LR_FLAGSHIP_STEPS, prob.unconstrained(), qf,
+                               log_every=LOG_EVERY)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = read_launches()
+    say("x", path="lowrank_flagship", d=prob.dim, r=LR_FLAGSHIP_R, steps=LR_FLAGSHIP_STEPS,
+        elbo_last=infos[-1]["elbo"], steps_per_s=f"{LR_FLAGSHIP_STEPS / secs:.1f}",
+        lowrank_sample_launches=counts["lowrank_sample"])
+    check(all(math.isfinite(row["elbo"]) for row in infos), "low-rank flagship ELBO not finite")
+    check(counts["lowrank_sample"] > 0, "low-rank ADVI launched no low-rank sampler kernel")
+    return counts, err, (min(k_ms, k_ms2), p_ms, b_ms, b_by)
+
+
 def kernel_bounds():
     """(flops, bytes) of each timed launch of the earlier slices, from the
     shapes this run times them at: each input read once, each output written
@@ -1550,6 +1967,10 @@ def kernel_bounds():
         # full-rank prox on normal-lognormal: z and dC, no whitening
         "fused_k4_gaussian": (2.0 * 200 * (2 * n * dg * (dg + 1) // 2 + n * dg),
                               4.0 * (2 * dg + 8 * dg + 8 * dg * dg)),
+        # CHAINS_MAIN_C chains of the flagship step: the design read once, each
+        # chain's state in and out
+        "fused_chains": (2.0 * 200 * CHAINS_MAIN_C * 2 * logreg,
+                         x_bytes + 4.0 * CHAINS_MAIN_C * 16 * d),
     }
 
 
@@ -1594,6 +2015,12 @@ def main() -> int:
     lap("t")
     mb_counts, mb_times = phase_u(dev, card, lr_state)
     lap("u")
+    chains_err = phase_v(dev)
+    lap("v")
+    chains_counts, chains_times, chains_main_err = phase_w(dev, card)
+    lap("w")
+    lowrank_counts, lowrank_err, lowrank_times = phase_x(dev, card)
+    lap("x")
     say("time", total=round(sum(seconds.values()), 1), **seconds)
     bounds = {name: bound(*fb) for name, fb in kernel_bounds().items()}
     src = "advancedvi_jl_tpu_torch/csrc/"
@@ -1636,6 +2063,15 @@ def main() -> int:
     kernels.append(entry("probes", "probes.cu", "_pallas_probe.py:25", probes["launches"],
                          probes["max_abs_err"], probes["ms"], probes["plain_ms"],
                          bound_=probes["bound"]))
+    kernels.append(entry("fused_chains", "fused_chains.cu",
+                         "advancedvi_jl_tpu/ops/pallas/fused_chains.py:525",
+                         chains_counts["fused_chains"], max(chains_err, chains_main_err),
+                         *chains_times))
+    ms, plain_ms, b_ms, b_by = lowrank_times
+    kernels.append(entry("lowrank_sample", "lowrank_sample.cu",
+                         "advancedvi_jl_tpu/ops/pallas/location_scale_kernels.py:155",
+                         lowrank_counts["lowrank_sample"], lowrank_err, ms, plain_ms,
+                         bound_=(b_ms, b_by)))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

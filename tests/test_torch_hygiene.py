@@ -58,7 +58,8 @@ def test_package_exports_the_slice():
                  "normallognormal_spec", "subsample", "ReshufflingBatchSubsampling",
                  "SubsampledObjective", "FactorizedTarget", "factorized_target",
                  "logreg_minibatch_spec", "logreg_minibatch_hbm_spec", "make_bnn",
-                 "subsampled_normals"):
+                 "subsampled_normals", "LowRankGaussian", "LowRankLocationScale",
+                 "estimate_objective", "FusedChainsADVI"):
         assert hasattr(advancedvi_jl_tpu_torch, name), name
     assert not _build._libs, "importing the package must not build or load kernels"
 
@@ -136,7 +137,8 @@ def test_port_modules_load_no_jax_and_build_nothing():
     assert "advancedvi_jl_tpu_torch.objectives.scoregradelbo" in mods
     assert "advancedvi_jl_tpu_torch.models.normallognormal" in mods
     for new in ("subsampling", "objectives.subsampled", "core.factorized", "models.bnn",
-                "models.subsampled_normals", "ops.cuda.probe_kernels"):
+                "models.subsampled_normals", "ops.cuda.probe_kernels", "parallel.chains",
+                "estimate", "families.low_rank", "ops.cuda.fused_chains"):
         assert f"advancedvi_jl_tpu_torch.{new}" in mods, new
     code = (
         "import importlib, sys\n"
@@ -163,7 +165,8 @@ def test_port_modules_load_no_jax_and_build_nothing():
     ("convert", "reshuffling_state_from_numpy"), ("convert", "minibatch_spec_from_numpy"),
     ("subsampling", "ReshufflingBatchSubsampling.init"),
     ("subsampling", "ReshufflingBatchSubsampling.epoch_batches"),
-    ("ops.cuda.probe_kernels", "run_probes"),
+    ("ops.cuda.probe_kernels", "run_probes"), ("convert", "lowrank_from_numpy"),
+    ("convert", "chains_state_from_numpy"),
 ])
 def test_constructors_default_to_the_card(module, name):
     """Every constructor that creates tensors puts them on the card unless

@@ -535,3 +535,174 @@ def test_probe_kernels_equal_their_plain_versions(dev):
     # rows that differ: the rem schedule reads windows 0, 1, 2, 0, ...
     x = torch.arange(3 * 8 * 128, dtype=torch.float32, device=dev).reshape(24, 128) % 7
     assert torch.equal(probe_cuda(4, x), probe_reference(4, x))
+
+
+# ---------------------------------------------------------------------------
+# K6, the multi-chain kernel, and K7c, the low-rank sampler
+# ---------------------------------------------------------------------------
+
+C8 = 8
+MIXED_RULES = ["adam", "descent", "dowg", "dog", "cocob", "adam", "dowg", "cocob"]
+CHAIN_CASES = {
+    "stl-adam-clip": dict(),
+    "lr-sweep": dict(lr=[1e-4, 3e-4, 1e-3, 3e-3, 1e-2, 2e-3, 5e-4, 1e-3]),
+    "mixed": dict(optimizer=MIXED_RULES, alpha=1e-2),
+    "prox-dowg": dict(optimizer="dowg", entropy="closed_form_zero_grad", operator="prox",
+                      alpha=1e-2),
+    "vargrad-dowg-clip": dict(optimizer="dowg", grad_est="scoregrad", operator="clip",
+                              alpha=1e-2),
+    "cocob": dict(optimizer="cocob"),
+}
+
+
+def _chains_engine(dev, kw, spec=None):
+    from advancedvi_jl_tpu_torch.ops.cuda.fused_chains import FusedChainsADVI
+
+    if spec is None:
+        prob = make_logreg(11, device=dev)
+        spec = logreg_spec(prob.X, prob.y)
+    eng = FusedChainsADVI(spec, n_chains=C8, n_samples=N, **kw)
+    g = torch.Generator().manual_seed(4)
+    st = eng.init((0.2 * torch.randn(C8, spec.dim, generator=g)).to(dev),
+                  0.1 * torch.ones(C8, spec.dim, device=dev))
+    return eng, st
+
+
+def _chains_args(eng, st, steps, noise, log_every):
+    return (eng.model.model, eng.model.consts, eng.model.scalars,
+            st.stacked(with_ext=eng.n_rows == 14), eng.chain_seeds(3), st.iteration, steps,
+            N, eng.hyp, noise, log_every, eng.branch(), eng.lrs, eng.rules)
+
+
+@pytest.mark.parametrize("case", list(CHAIN_CASES))
+@pytest.mark.parametrize("injected", [True, False], ids=["noise", "philox"])
+def test_chains_kernel_matches_plain_version(dev, case, injected):
+    from advancedvi_jl_tpu_torch.ops.cuda.fused_chains import (
+        fused_chains_run_chunk_cuda, fused_chains_run_chunk_reference)
+
+    eng, st = _chains_engine(dev, CHAIN_CASES[case])
+    rules = CHAIN_CASES[case].get("optimizer", "adam")
+    if any(r in ("dowg", "dog") for r in ([rules] if isinstance(rules, str) else rules)):
+        st = eng.run_chunk(st, 1, 300)  # past DoWG's rounding-dominated start (see _case)
+    steps = 20
+    noise = (torch.randn((steps, C8, N, eng.dim), generator=torch.Generator().manual_seed(2))
+             .to(dev) if injected else None)
+    args = _chains_args(eng, st, steps, noise, 5)
+    before = fused_chains_run_chunk_cuda.launches
+    k_rows, k_elbo, k_tr = fused_chains_run_chunk_cuda(*args)
+    r_rows, r_elbo, r_tr = fused_chains_run_chunk_reference(*args)
+    torch.cuda.synchronize()
+    assert fused_chains_run_chunk_cuda.launches == before + 1
+    assert k_tr.shape == (steps // 5, C8)
+    # norm-wise per state row of every chain, as the single-chain kernel
+    _norm_close(list(k_rows.flatten(0, 1)), list(r_rows.flatten(0, 1)), 1e-5)
+    assert torch.allclose(k_elbo, r_elbo, rtol=1e-5, atol=1e-4)
+    assert torch.allclose(k_tr, r_tr, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("case", ["stl-adam-clip", "mixed"])
+def test_chains_kernel_chain_is_the_single_chain_kernel(dev, case):
+    """Chain c runs the single-chain body keyed by chain_seed_words(3, c):
+    the same bits as fused_advi_meanfield for every chain."""
+    from advancedvi_jl_tpu_torch.ops.cuda.fused_advi import FusedBranch
+    from advancedvi_jl_tpu_torch.ops.cuda.fused_chains import fused_chains_run_chunk_cuda
+    from advancedvi_jl_tpu_torch.ops.cuda.location_scale_kernels import chain_seed_words
+
+    eng, st = _chains_engine(dev, CHAIN_CASES[case])
+    rows, elbo, _ = fused_chains_run_chunk_cuda(*_chains_args(eng, st, 30, None, 0))
+    rules = MIXED_RULES if case == "mixed" else ["adam"] * C8
+    full = st.stacked(with_ext=eng.n_rows == 14)
+    for c in range(C8):
+        b = eng.branch()
+        branch = FusedBranch(rules[c], b.entropy, b.grad_est, b.operator, b.cocob_alpha)
+        n_rows = 14 if rules[c] == "cocob" else 8
+        one, e1, _ = fused_run_chunk_cuda(eng.model.model, eng.model.consts, eng.model.scalars,
+                                          full[c, :n_rows].contiguous(), chain_seed_words(3, c),
+                                          0, 30, N, eng.hyp, branch=branch)
+        assert torch.equal(one, rows[c, :n_rows]), c
+        assert torch.equal(e1, elbo[c]), c
+
+
+def test_chains_kernel_chunks_and_traces_bitwise(dev):
+    eng, st = _chains_engine(dev, CHAIN_CASES["mixed"])
+    whole = eng.run_chunk(st, 7, 30)
+    split = eng.run_chunk(eng.run_chunk(st, 7, 3), 7, 27)
+    traced, trace = eng.run_chunk_traced(st, 7, 30, log_every=10)
+    for a, b, c in zip(whole.stacked(), split.stacked(), traced.stacked()):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    assert trace.shape == (3, C8) and torch.equal(trace[-1], whole.elbo)
+
+
+def test_chains_kernel_runs_the_minibatch_transports(dev):
+    outs = []
+    for spec in _mb_specs(dev):
+        eng, st = _chains_engine(dev, {}, spec)
+        outs.append(eng.run_chunk(st, 5, 17).stacked())
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(outs[0]).all())
+    assert all(torch.equal(outs[0], o) for o in outs[1:])
+
+
+def test_chains_shared_memory_is_the_single_chain_kernels(dev):
+    """A chain's block takes the single-chain kernel's layout, and the
+    wrapper refuses what does not fit one block (the TPU caps' stand-in)."""
+    chains = _build.function("fused_chains", "fused_chains_smem_bytes", [ctypes.c_int] * 7,
+                             restype=ctypes.c_size_t)
+    single = _build.function("fused_advi_meanfield", "fused_advi_meanfield_smem_bytes",
+                             [ctypes.c_int] * 7, restype=ctypes.c_size_t)
+    for code, shape in ((0, (208, 61, 0, 10, 62, 8)), (0, (100, 5, 0, 3, 6, 14)),
+                        (2, (0, 0, 0, 10, 11, 8)), (3, (4096, 61, 512, 10, 62, 8)),
+                        (4, (4096, 61, 512, 16, 62, 14)), (5, (1024, 7, 128, 4, 8, 8))):
+        assert chains(code, *shape) == single(code, *shape)
+    from advancedvi_jl_tpu_torch.ops.cuda.fused_chains import FusedChainsADVI
+
+    prob = make_logreg(11, device=dev)
+    eng = FusedChainsADVI(logreg_spec(prob.X, prob.y), n_chains=C8, n_samples=200)
+    st = eng.init(torch.zeros(C8, prob.dim, device=dev), 0.1 * torch.ones(C8, prob.dim, device=dev))
+    with pytest.raises(ValueError, match="shared memory"):
+        eng.run_chunk(st, 0, 2)
+
+
+@pytest.mark.parametrize("n,d,r", [(65_536, 256, 8), (10, 62, 8), (33, 5, 3), (300, 130, 17)])
+def test_lowrank_sampler_kernel_matches_plain_version(dev, n, d, r):
+    from advancedvi_jl_tpu_torch.ops.cuda.location_scale_kernels import (
+        lowrank_sample_cuda, lowrank_sample_reference)
+
+    g = torch.Generator().manual_seed(d)
+    loc = torch.randn(d, generator=g).to(dev)
+    D = (0.5 + torch.rand(d, generator=g)).to(dev)
+    U = (0.3 * torch.randn(d, r, generator=g)).to(dev)
+    before = lowrank_sample_cuda.launches
+    z, u1, u2 = lowrank_sample_cuda(seed_words(3), 4, loc, D, U, n)
+    zr, u1r, u2r = lowrank_sample_reference(seed_words(3), 4, loc, D, U, n)
+    zm, um = meanfield_sample_cuda(seed_words(3), 4, loc, D, n)
+    z0, _, _ = lowrank_sample_cuda(seed_words(3), 4, loc, D, torch.zeros_like(U), n)
+    torch.cuda.synchronize()
+    assert lowrank_sample_cuda.launches == before + 2
+    assert torch.equal(u1, um) and torch.equal(u1, u1r) and torch.equal(u2, u2r)
+    assert torch.equal(z0, zm)  # U = 0 draws the mean-field z
+    assert _rel(z, zr) <= 1e-6  # the r-term sums run in another order
+
+
+def test_lowrank_sampler_autograd_on_the_card(dev):
+    from advancedvi_jl_tpu_torch.ops.cuda.location_scale_kernels import lowrank_sample
+
+    d, r = 62, 8
+    loc = torch.zeros(d, device=dev, requires_grad=True)
+    D = torch.ones(d, device=dev, requires_grad=True)
+    U = (0.1 * torch.ones(d, r, device=dev)).requires_grad_(True)
+    z, u1, u2 = lowrank_sample(seed_words(1), 0, loc, D, U, N)
+    (z * z).sum().backward()
+    ct = (2 * z).detach()
+    assert torch.allclose(loc.grad, ct.sum(0), rtol=1e-6, atol=1e-5)
+    assert torch.allclose(D.grad, (ct * u1).sum(0), rtol=1e-6, atol=1e-5)
+    assert torch.allclose(U.grad, ct.T @ u2, rtol=1e-5, atol=1e-5)
+
+
+def test_lowrank_sampler_refuses_oversized_rank(dev):
+    from advancedvi_jl_tpu_torch.ops.cuda.location_scale_kernels import lowrank_sample_cuda
+
+    d = 16
+    with pytest.raises(ValueError, match="shared"):
+        lowrank_sample_cuda((0, 0), 0, torch.zeros(d, device=dev), torch.ones(d, device=dev),
+                            torch.zeros(d, 400, device=dev), 4)
