@@ -14,7 +14,9 @@ fused engines (``FusedADVI``, ``FusedLogRegADVI``, ``FusedProxADVI``,
 ``FusedScoreGradVI``) on hierarchical logistic regression, its minibatch
 version (``logreg_minibatch_spec``, ``logreg_minibatch_hbm_spec``), diagonal
 Gaussian targets (``gaussian_spec``, ``normallognormal_spec``) and,
-full-rank, dense Gaussian targets (``mvnormal_spec``); the low-rank family
+full-rank, dense Gaussian targets (``mvnormal_spec``), and any traceable
+target (``ad_spec``, ``fused_spec_for``: a model body generated from its
+autograd graph; ``fn_target``, ``CustomGradTarget``); the low-rank family
 (``LowRankGaussian``); many chains at once, on the general path
 (``parallel.chains.optimize_chains``) or in one fused launch
 (``FusedChainsADVI``); and ``estimate_objective``.  Constructors that
@@ -32,9 +34,14 @@ from .core.problem import (
     ORDER_HESS,
     ORDER_JAX,
     ORDER_VALUE_ONLY,
+    CustomGradTarget,
+    FnTarget,
     dim_of,
+    fn_target,
     log_density,
     log_density_and_grad,
+    log_density_grad_and_hess,
+    maybe_wrap_custom_grad,
     order_of,
     subsample,
 )
@@ -84,6 +91,8 @@ from .ops.cuda.fused_advi import (  # whole-loop fused engines (CUDA)
     FusedModelSpec,
     FusedProxADVI,
     FusedScoreGradVI,
+    ad_spec,
+    fused_spec_for,
     gaussian_spec,
     logreg_minibatch_hbm_spec,
     logreg_minibatch_spec,
@@ -93,4 +102,4 @@ from .ops.cuda.fused_advi import (  # whole-loop fused engines (CUDA)
 )
 from .ops.cuda.fused_chains import FusedChainsADVI  # one launch for C chains (CUDA)
 
-__version__ = "0.5.0"
+__version__ = "0.6.0"

@@ -1,5 +1,6 @@
 // K3 (full-rank branches) with K4's dense-Gaussian, diagonal-Gaussian and
-// minibatch logreg bodies: the
+// minibatch logreg bodies (and, built with AVI_AD_BODY, K5's generated body
+// of any traceable target, under that macro): the
 // whole optimisation loop in one launch, full-rank Gaussian family x {Adam,
 // descent, DoWG, DoG, COCOB} x {STL, closed-form zero-gradient, STL
 // zero-gradient entropy} x {ClipScale, entropy prox, identity} on the
@@ -93,6 +94,9 @@ using avi::kLog2Pi;
 // Offsets (in floats) of the shared-memory arrays.
 struct Layout {
   int X, y, l, u, z, g, w, vec, dm, row, red, tri, mat, total;
+#ifdef AVI_AD_BODY
+  int ad;  // K5's scratch
+#endif
 };
 
 // n_data is the design's rows; a minibatch model keeps one B-row slab (the
@@ -115,6 +119,9 @@ __host__ __device__ inline Layout make_layout(int model, int n_data, int db, int
   L.row = o; o += 6 * n + 1;             // beta_sq t inv_sig2 logpi u2 ylogit, logdet
   L.red = o; o += 2 * kWarps + 1;        // block reduction, then eta
   L.tri = o; o += avi::kTriScratch;      // the whitening's panel scratch
+#ifdef AVI_AD_BODY
+  L.ad = o;  o += model == avi::kAD ? avi::ad::kScratch : 0;  // the generated body's
+#endif
   L.mat = o; o += mat_in_smem ? k * d * d : 0;  // sig m_sig v_sig avg_sig [G R theta]
   L.total = o;
   return L;
@@ -289,6 +296,11 @@ __global__ void __maxnreg__(88) fused_advi_fullrank_kernel(
       avi::logreg_mb_grad(mbm, zs, n, d, beta_sq, tcol, inv_sig2, gs, tid, kThreads);
     } else if (model == avi::kGaussian) {
       avi::gaussian_body(mean, prec, lognorm, zs, n, d, logpi, gs, warp, kWarps, lane);
+#ifdef AVI_AD_BODY
+    } else if (model == avi::kAD) {  // K5: log pi and its gradient
+      avi::ad::ad_body(c0, reinterpret_cast<const int*>(c1), zs, n, d, logpi, gs,
+                       smem + L.ad, tid);
+#endif
     } else {
       for (int idx = tid; idx < nd; idx += kThreads) ws[idx] = zs[idx] - mean[idx % d];
       __syncthreads();
@@ -453,7 +465,9 @@ extern "C" size_t fused_advi_fullrank_smem_bytes(int model, int n_data, int db, 
 // entropy, grad_est, op: the avi::Branch codes (grad_est must be the
 // reparameterization gradient).  Returns cudaGetLastError() after the
 // launch (0 on success), or cudaErrorInvalidValue for a launch the kernel
-// does not take.
+// does not take.  Model 6 (a library built with AVI_AD_BODY): K5's
+// generated body at its (n, d), c0 = packed float constants, c1 = packed
+// int32 constants.
 extern "C" int fused_advi_fullrank(
     int model, const float* c0, const float* c1, int n_data, int db, int batch, float s0,
     float s1, const float* vec_in, const float* mat_in, float* vec_out,
@@ -464,6 +478,12 @@ extern "C" int fused_advi_fullrank(
   const int k = algo == avi::kCOCOB ? 7 : 4;
   const bool dist_rule = algo == avi::kDoWG || algo == avi::kDoG;
   const bool mb = avi::is_minibatch(model);
+#ifdef AVI_AD_BODY  // K5's body is generated for one (n, d)
+  if (model == avi::kAD && (n != avi::ad::kN || d != avi::ad::kD))
+    return static_cast<int>(cudaErrorInvalidValue);
+#else
+  if (model == avi::kAD) return static_cast<int>(cudaErrorInvalidValue);
+#endif
   if (grad_est != avi::kRepGrad || (dist_rule && d < 2) ||
       (mb && (batch < 1 || batch % 8 != 0 || n_data % batch != 0 || n_data < batch ||
               reinterpret_cast<uintptr_t>(c0) % 16 != 0)))

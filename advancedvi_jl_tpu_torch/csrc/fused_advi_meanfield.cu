@@ -119,7 +119,9 @@ extern "C" size_t fused_advi_meanfield_smem_bytes(int model, int n_data, int db,
 // COCOB (n_rows = 14) its G, reward, theta of mu and of sig.  elbo_out: one
 // float; trace: (steps / log_every,) or null when log_every == 0; noise:
 // (steps, n, d) or null for in-kernel Philox.  algo, entropy, grad_est, op:
-// the avi::Branch codes.  Returns cudaGetLastError() after the launch (0 on
+// the avi::Branch codes.  Model 6 (a library built with AVI_AD_BODY): K5's
+// generated body at its (n, d), c0 = packed float constants, c1 = packed
+// int32 constants.  Returns cudaGetLastError() after the launch (0 on
 // success), or cudaErrorInvalidValue for a launch the kernel does not take.
 extern "C" int fused_advi_meanfield(
     int model, const float* c0, const float* c1, int n_data, int db, int batch, float s0,
@@ -131,7 +133,11 @@ extern "C" int fused_advi_meanfield(
   const int n_rows = algo == avi::kCOCOB ? 14 : 8;
   const bool dist_rule = algo == avi::kDoWG || algo == avi::kDoG;
   const bool mb = avi::is_minibatch(model);
-  if ((model != avi::kLogReg && model != avi::kGaussian && !mb) || (dist_rule && d < 2) ||
+  bool known = model == avi::kLogReg || model == avi::kGaussian || mb;
+#ifdef AVI_AD_BODY  // K5's body is generated for one (n, d)
+  known = known || (model == avi::kAD && n == avi::ad::kN && d == avi::ad::kD);
+#endif
+  if (!known || (dist_rule && d < 2) ||
       (grad_est == avi::kScoreGrad && n < 2) ||
       (mb && (batch < 1 || batch % 8 != 0 || n_data % batch != 0 || n_data < batch ||
               reinterpret_cast<uintptr_t>(c0) % 16 != 0)))

@@ -92,7 +92,11 @@ extern "C" int fused_chains(
     int entropy, int grad_est, int op, float cocob_alpha, cudaStream_t stream) {
   const bool dist_rule = rules == nullptr && (algo == avi::kDoWG || algo == avi::kDoG);
   const bool mb = avi::is_minibatch(model);
-  if ((model != avi::kLogReg && model != avi::kGaussian && !mb) || (dist_rule && d < 2) ||
+  bool known = model == avi::kLogReg || model == avi::kGaussian || mb;
+#ifdef AVI_AD_BODY  // K5's body is generated for one (n, d); its constants are shared
+  known = known || (model == avi::kAD && n == avi::ad::kN && d == avi::ad::kD);
+#endif
+  if (!known || (dist_rule && d < 2) ||
       n_chains < 1 || (n_rows != 8 && n_rows != 14) ||
       (rules == nullptr && algo == avi::kCOCOB && n_rows != 14) ||
       (grad_est == avi::kScoreGrad && n < 2) || (log_every > 0 && steps % log_every != 0) ||

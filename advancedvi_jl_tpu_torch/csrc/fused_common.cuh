@@ -4,6 +4,10 @@
 // the entropy proximal map, and the model bodies (hierarchical logistic
 // regression and the diagonal Gaussian).
 //
+// A library built with AVI_AD_BODY (ops/cuda/_build.py build_generated)
+// also has K5, the generated model body avi::ad::ad_body of a target's
+// autograd graph (ops/cuda/ad_body.py), included at the end of this file.
+//
 // The logreg body replaces ops/pallas/fused_advi.py::_logreg_step_factory,
 // the minibatch logreg body _logreg_mb_math (fused_advi.py:925-984) with
 // its three slab transports (_logreg_mb_step_factory :987,
@@ -35,6 +39,7 @@ enum Model {
   kMbInPlace = 3,   // the step reads its slab where it lies in device memory
   kMbStaged = 4,    // the block copies the slab into shared memory each step
   kMbPrefetch = 5,  // staged, and slab it+1 is pulled into L2 during step it
+  kAD = 6,          // K5's generated body (libraries built with AVI_AD_BODY only)
 };
 
 __host__ __device__ inline bool is_minibatch(int model) {
@@ -452,3 +457,9 @@ __device__ __forceinline__ const float* minibatch_step_begin(
 }
 
 }  // namespace avi
+
+#ifdef AVI_AD_BODY  // the generated body's file name, e.g. ad_0123456789abcdef.cuh
+#define AVI_AD_STR2(x) #x
+#define AVI_AD_STR(x) AVI_AD_STR2(x)
+#include AVI_AD_STR(AVI_AD_BODY)
+#endif

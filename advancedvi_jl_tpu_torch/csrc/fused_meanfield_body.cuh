@@ -7,6 +7,10 @@
 // words, bit for bit.  Each kernel hands the body its block's pointers and
 // constants; the body is a forced-inline device function, so the
 // single-chain kernel compiles to what it was before the body moved here.
+// Built with AVI_AD_BODY, the model phase also takes K5's generated body
+// (model kAD, c0 and c1 its packed float and int constants in device memory,
+// its scratch after the layout's other arrays); every line of it is under
+// that macro, so the other libraries compile as without it.
 #pragma once
 
 #include "fused_common.cuh"
@@ -27,6 +31,9 @@ using avi::kLog2Pi;
 // Offsets (in floats) of the shared-memory arrays.
 struct Layout {
   int X, y, l, u, z, g, st, grad, row, red, total;
+#ifdef AVI_AD_BODY
+  int ad;  // K5's scratch
+#endif
 };
 
 // n_data is the design's rows; a minibatch model keeps one B-row slab (the
@@ -47,6 +54,9 @@ __host__ __device__ inline Layout make_layout(int model, int n_data, int db, int
   L.grad = o; o += 2 * d;                 // dmu, dsig of the step
   L.row = o;  o += 7 * n + 1;             // beta_sq t inv_sig2 logpi u2 c ylogit, logdet
   L.red = o;  o += 2 * kWarps + 1;        // block reduction, then eta
+#ifdef AVI_AD_BODY
+  L.ad = o;   o += model == avi::kAD ? avi::ad::kScratch : 0;  // the generated body's
+#endif
   L.total = o;
   return L;
 }
@@ -179,6 +189,11 @@ __device__ __forceinline__ void run_chunk(
       avi::logreg_mb_logits(mbm, zs, n, d, tid, kThreads);
       __syncthreads();
       avi::logreg_mb_logpi(mbm, n, beta_sq, tcol, inv_sig2, ylogit, logpi, warp, kWarps, lane);
+#ifdef AVI_AD_BODY
+    } else if (model == avi::kAD) {  // K5: log pi and its gradient (VarGrad ignores gs)
+      avi::ad::ad_body(c0, reinterpret_cast<const int*>(c1), zs, n, d, logpi, gs,
+                       smem + L.ad, tid);
+#endif
     } else {
       avi::gaussian_body(c0, c1, s0, zs, n, d, logpi, vargrad ? nullptr : gs, warp, kWarps,
                          lane);

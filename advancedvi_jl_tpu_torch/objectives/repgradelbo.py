@@ -16,6 +16,7 @@ from typing import Optional
 
 import torch
 
+from ..core.problem import maybe_wrap_custom_grad
 from ..core.pytree import tree_stop_gradient, value_and_grad
 from .entropy import (
     CLOSED_FORM,
@@ -74,8 +75,9 @@ class RepGradELBO:
 
     def _loss_and_aux(self, q, prob, key, noise: Optional[torch.Tensor] = None):
         """(differentiable -ELBO, {"elbo": detached ELBO}): the function a
-        wrapper such as ``SubsampledObjective`` differentiates."""
-        nelbo = self.loss(q, prob, key, noise)
+        wrapper such as ``SubsampledObjective`` differentiates.  A target
+        with its own gradient oracle is differentiated through it."""
+        nelbo = self.loss(q, maybe_wrap_custom_grad(prob), key, noise)
         return nelbo, {"elbo": -nelbo.detach()}
 
     def value_and_grad(self, q, prob, key, obj_state=(), noise=None):

@@ -8,6 +8,13 @@ an unchanged one is reused.  The
 compiler's ``-Xptxas -v`` report (registers, shared memory, spills) is kept
 beside the library as ``<lib>.log``.
 
+The fused kernels (``AD_KERNELS``) also build with a generated model body,
+K5 (ops/cuda/ad_body.py): ``build_generated`` writes the body to
+``build/kernels/gen/ad_<hash>.cuh`` and compiles ``csrc/<name>.cu`` with
+``-DAVI_AD_BODY=ad_<hash>.cuh`` into ``lib<name>-ad-<hash>.so``, the hash
+covering the flags, the kernel's source, every shared header and the body.
+A failed build raises; nothing runs the body's plain version in its place.
+
 Nothing here runs when the package is imported: a wrapper calls ``function``
 when it is first handed a CUDA tensor.
 """
@@ -19,11 +26,13 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+GEN_DIR = BUILD_DIR / "gen"  # the generated K5 bodies
 # No --use_fast_math: the normals must keep logf/cosf (csrc/philox.cuh).
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -34,9 +43,12 @@ NVCC_FLAGS = (
 SMEM_LIMIT = 232448
 KERNELS = ("meanfield_sample", "fused_advi_meanfield", "fullrank_sample", "trisolve",
            "fused_advi_fullrank", "probes", "fused_chains", "lowrank_sample")
+AD_KERNELS = ("fused_advi_meanfield", "fused_advi_fullrank", "fused_chains")
 
-_libs: Dict[str, ctypes.CDLL] = {}
-_fns: Dict[Tuple[str, str], ctypes._CFuncPtr] = {}
+_libs: Dict[Tuple[str, Optional[str]], ctypes.CDLL] = {}
+_fns: Dict[Tuple[str, Optional[str], str], ctypes._CFuncPtr] = {}
+# nvcc's wall seconds of each library built by this process
+BUILD_SECONDS: Dict[Path, float] = {}
 
 
 def nvcc() -> str:
@@ -54,20 +66,72 @@ def nvcc() -> str:
     return path
 
 
-def library_path(name: str) -> Path:
-    """The library's path: its name carries a hash of the flags, of
-    ``<name>.cu`` and of every shared header ``csrc/*.cuh``, so editing any
-    header a kernel may include rebuilds it."""
+def _source_hash(name: str, body: Optional[str] = None) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+    if body is not None:
+        h.update(body.encode())
+    return h.hexdigest()[:16]
+
+
+def library_path(name: str) -> Path:
+    """The library's path: its name carries a hash of the flags, of
+    ``<name>.cu`` and of every shared header ``csrc/*.cuh``, so editing any
+    header a kernel may include rebuilds it."""
+    return BUILD_DIR / f"lib{name}-{_source_hash(name)}.so"
+
+
+def body_path(body: str) -> Path:
+    """Where a generated K5 body is written: named by its own hash."""
+    return GEN_DIR / f"ad_{hashlib.sha256(body.encode()).hexdigest()[:16]}.cuh"
+
+
+def generated_library_path(name: str, body: str) -> Path:
+    """The library of kernel ``name`` with the generated ``body``: its hash
+    also covers the body."""
+    return BUILD_DIR / f"lib{name}-ad-{_source_hash(name, body)}.so"
 
 
 def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` unless an up-to-date library exists."""
     return build_all([name])[name]
+
+
+def _atomic_write(path: Path, text: str) -> None:
+    path.parent.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_suffix(f".{os.getpid()}.tmp")
+    tmp.write_text(text)
+    os.replace(tmp, path)
+
+
+def _compile(jobs: Sequence[Tuple[str, Path, Sequence[str]]]) -> None:
+    """Run one ``nvcc`` per (name, library, extra flags) whose library does
+    not exist yet, all started together; each library and its ``.log``
+    appear atomically.  Raises on any failure."""
+    started = []
+    for name, out, extra in jobs:
+        if out.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc(), *NVCC_FLAGS, "-I", str(CSRC), *extra, "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                text=True)
+        started.append((name, out, tmp, proc, time.perf_counter()))
+    failed = []
+    for name, out, tmp, proc, t0 in started:
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for {out.name} ({proc.returncode}):\n{err}")
+            continue
+        BUILD_SECONDS[out] = time.perf_counter() - t0
+        out.with_suffix(".log").write_text(err)
+        os.replace(tmp, out)  # atomic: a concurrent build never loads half a file
+    if failed:
+        raise RuntimeError("\n".join(failed))
 
 
 def build_all(names: Sequence[str] = KERNELS) -> Dict[str, Path]:
@@ -77,43 +141,50 @@ def build_all(names: Sequence[str] = KERNELS) -> Dict[str, Path]:
         if name not in KERNELS:
             raise ValueError(f"unknown kernel {name!r}; known: {KERNELS}")
     paths = {name: library_path(name) for name in names}
-    jobs = []
-    for name, out in paths.items():
-        if out.exists():
-            continue
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-               str(CSRC / f"{name}.cu")]
-        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                                text=True)
-        jobs.append((name, out, tmp, proc))
-    failed = []
-    for name, out, tmp, proc in jobs:
-        _, err = proc.communicate()
-        if proc.returncode != 0:
-            failed.append(f"nvcc failed for {name} ({proc.returncode}):\n{err}")
-            continue
-        out.with_suffix(".log").write_text(err)
-        os.replace(tmp, out)  # atomic: a concurrent build never loads half a file
-    if failed:
-        raise RuntimeError("\n".join(failed))
+    _compile([(name, out, ()) for name, out in paths.items()])
     return paths
 
 
-def function(name: str, symbol: str, argtypes: Sequence, restype=ctypes.c_int):
-    """The C entry ``symbol`` of kernel library ``name``, built and loaded on
-    first use, with its argument types declared (pointers and the stream as
-    ``c_void_p``, so ctypes never cuts them to 32 bits)."""
-    fn = _fns.get((name, symbol))
+def build_generated(name: str, body: str) -> Path:
+    """Compile kernel ``name`` with the generated K5 ``body`` unless an
+    up-to-date library exists."""
+    return build_generated_all([(name, body)])[(name, body)]
+
+
+def build_generated_all(pairs: Sequence[Tuple[str, str]]) -> Dict[Tuple[str, str], Path]:
+    """``build_generated`` of every (kernel, body) pair, one ``nvcc`` each,
+    all started together; returns their paths."""
+    jobs, paths = [], {}
+    for name, body in pairs:
+        if name not in AD_KERNELS:
+            raise ValueError(f"kernel {name!r} takes no generated body; those that do: "
+                             f"{AD_KERNELS}")
+        header = body_path(body)
+        if not header.exists() or header.read_text() != body:
+            _atomic_write(header, body)
+        out = paths[(name, body)] = generated_library_path(name, body)
+        jobs.append((name, out, ("-I", str(GEN_DIR), f"-DAVI_AD_BODY={header.name}")))
+    _compile(jobs)
+    return paths
+
+
+def function(name: str, symbol: str, argtypes: Sequence, restype=ctypes.c_int,
+             body: Optional[str] = None):
+    """The C entry ``symbol`` of kernel library ``name`` (with the generated
+    K5 ``body``, when given), built and loaded on first use, with its
+    argument types declared (pointers and the stream as ``c_void_p``, so
+    ctypes never cuts them to 32 bits)."""
+    digest = None if body is None else hashlib.sha256(body.encode()).hexdigest()
+    fn = _fns.get((name, digest, symbol))
     if fn is None:
-        lib = _libs.get(name)
+        lib = _libs.get((name, digest))
         if lib is None:
-            lib = _libs[name] = ctypes.CDLL(str(build(name)))
+            path = build(name) if body is None else build_generated(name, body)
+            lib = _libs[(name, digest)] = ctypes.CDLL(str(path))
         fn = getattr(lib, symbol)
         fn.argtypes = list(argtypes)
         fn.restype = restype
-        _fns[(name, symbol)] = fn
+        _fns[(name, digest, symbol)] = fn
     return fn
 
 

@@ -19,7 +19,14 @@ each with polynomial averaging, for two families:
 - full-rank, on the same logistic regressions, a dense Gaussian
   (``mvnormal_spec``) or a diagonal Gaussian, d <= D_FULLRANK_MAX
   (csrc/fused_advi_fullrank.cu, plain version
-  ``fused_fullrank_run_chunk_reference``).
+  ``fused_fullrank_run_chunk_reference``);
+
+and, in both families, on ANY target whose log density is a traceable
+function of torch ops (``ad_spec``, ``fused_spec_for``,
+``FusedModelSpec.from_log_density``): K5, a model body generated as CUDA
+from the target's autograd graph at the engine's (n_samples, d) and built
+into the kernels at first use (ops/cuda/ad_body.py); its plain version
+replays the graph.
 
 The branch is chosen by the engine's attributes ``algo``, ``entropy``,
 ``grad_est`` and ``operator`` (JAX's string values) and passed to the kernel
@@ -83,15 +90,17 @@ import ctypes
 import math
 import warnings
 from dataclasses import dataclass, replace
-from typing import Callable, Optional, Tuple
+from typing import Any, Callable, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ...core.problem import ORDER_AUTOGRAD, dim_of, fn_target, order_of
 from ...families.location_scale import FullRankGaussian, MeanFieldGaussian
 from ...optimize import DivergenceError
 from ...subsampling import keyed_permutation
 from . import _build
+from .ad_body import ADModel, ADProgram, check_leaves, leaf_device
 from .location_scale_kernels import (
     SeedLike,
     check_f32,
@@ -109,8 +118,9 @@ LOGREG_MB = "logreg_minibatch"                    # in place
 LOGREG_MB_STAGED = "logreg_minibatch_staged"      # staged in shared memory
 LOGREG_MB_PREFETCH = "logreg_minibatch_prefetch"  # staged, next slab into L2
 MINIBATCH_MODELS = (LOGREG_MB, LOGREG_MB_STAGED, LOGREG_MB_PREFETCH)
+AD = "ad"  # K5: a generated body of any traceable target
 MODEL_CODES = {LOGREG: 0, MVNORMAL: 1, GAUSSIAN: 2, LOGREG_MB: 3, LOGREG_MB_STAGED: 4,
-               LOGREG_MB_PREFETCH: 5}  # the kernels' model switch
+               LOGREG_MB_PREFETCH: 5, AD: 6}  # the kernels' model switch
 # The JAX engine's bound on the full-rank width (its reason was TPU VMEM);
 # the port keeps it until an H100 measurement says otherwise.
 D_FULLRANK_MAX = 512
@@ -145,13 +155,16 @@ FR_MAT_FIELDS = ("sig", "m_sig", "v_sig", "avg_sig")
 
 # Launch groups a chip run counts separately: the branches beyond the
 # STL x Adam x ClipScale one (rules, entropies, operators), VarGrad, the
-# diagonal-Gaussian model body and the minibatch body's three transports.
+# diagonal-Gaussian model body, the minibatch body's three transports and
+# K5's generated body.
 GROUP_RULES = "k3_rules"
 GROUP_VARGRAD = "k3_vargrad"
 GROUP_GAUSSIAN = "k4_gaussian"
 GROUP_MB = {LOGREG_MB: "k4_minibatch_inplace", LOGREG_MB_STAGED: "k4_minibatch_staged",
             LOGREG_MB_PREFETCH: "k4_minibatch_prefetch"}
-LAUNCH_GROUPS = (GROUP_RULES, GROUP_VARGRAD, GROUP_GAUSSIAN) + tuple(GROUP_MB.values())
+GROUP_AD = "k5_ad"
+LAUNCH_GROUPS = ((GROUP_RULES, GROUP_VARGRAD, GROUP_GAUSSIAN) + tuple(GROUP_MB.values())
+                 + (GROUP_AD,))
 
 
 @dataclass(frozen=True)
@@ -164,17 +177,30 @@ class FusedModelSpec:
     (d,), inverse variance (d,))`` and ``scalars = (lognorm,)``; the three
     MINIBATCH_MODELS, with ``consts = (X_perm (nb * B, db), yX (nb, db))``,
     ``scalars = (n_data / B, prior_scale)`` and ``reshuffle(seed words,
-    iterations done) -> consts``, which draws a new data order."""
+    iterations done) -> consts``, which draws a new data order; ``"ad"``
+    (``ad_spec``), with ``ad`` the target's ``ADModel`` (its traced graph,
+    one program per sample count) and ``consts = (float32 constants,
+    int32 constants)``, the graph's packed leaves."""
 
     dim: int
     consts: Tuple[torch.Tensor, ...]
     scalars: Tuple[float, ...]
     model: str = LOGREG
     reshuffle: Optional[Callable] = None
+    ad: Optional[ADModel] = None
 
     @property
     def device(self) -> torch.device:
         return self.consts[0].device
+
+    @classmethod
+    def from_log_density(cls, fn: Callable, dim: int, data: Any = None,
+                         device=None) -> "FusedModelSpec":
+        """A spec of ANY log density of torch ops, no hand-derived gradient
+        needed (JAX :182-198): ``fn(theta, data)`` maps (..., dim) samples to
+        (...) values; ``data`` (tensors, possibly in dicts, lists, tuples)
+        is closed over as the kernel's constants.  See ``ad_spec``."""
+        return ad_spec(fn_target(fn, dim, data=data), device=device)
 
 
 def logreg_spec(
@@ -237,6 +263,70 @@ def normallognormal_spec(prob) -> FusedModelSpec:
     mean = torch.cat([prob.mu_y.reshape(1), prob.mu_x])
     stddev = torch.cat([prob.sigma_y.reshape(1), prob.sigma_x])
     return gaussian_spec(mean, stddev)
+
+
+def ad_spec(target, device=None) -> FusedModelSpec:
+    """A spec of ANY autograd target (order ``ORDER_AUTOGRAD``) whose
+    batched ``log_density`` is a traceable function of the ops on K5's list
+    (ops/cuda/ad_body.py ``ALLOWED``: elementwise math, sums, matrix
+    products, views, concatenation): the engines run a body generated from
+    its autograd graph (JAX ``ad_spec``, :1548-1607; the reference's AD glue
+    serves any model in its hot loop, src/algorithms/repgradelbo.jl:142-149).
+
+    An oracle target, a bool or complex leaf, an op off the list or
+    data-dependent control flow raises ValueError; so does, when an engine
+    is built on the spec, a body whose scratch does not fit one block's
+    shared memory beside the engine's arrays.  The hand-derived specs
+    (``logreg_spec``, ``gaussian_spec``, ...) remain the faster choice where
+    they exist (``fused_spec_for`` takes them).  The tensors go where the
+    target's lie (``device``, when it has none)."""
+    if order_of(target) != ORDER_AUTOGRAD:
+        raise ValueError(
+            f"ad_spec needs an autograd-traceable target (order {ORDER_AUTOGRAD}); "
+            f"{type(target).__name__} has order {order_of(target)}: oracle and "
+            "external targets cannot run inside a kernel"
+        )
+    check_leaves(target)
+    d = dim_of(target)
+    dev = torch.device(device) if device is not None else leaf_device(target)
+    model = ADModel(target.log_density, d, dev, name=type(target).__name__)
+    prog = model.program(1)  # trace, check and pack now: errors at spec build
+    return FusedModelSpec(dim=d, consts=prog.consts, scalars=(), model=AD, ad=model)
+
+
+def fused_spec_for(target) -> FusedModelSpec:
+    """The fused spec of a target (JAX :1610-1650): a hand-derived spec
+    where one exists (faster), otherwise ``ad_spec``.
+
+    Hand specs: models.normal.NormalTarget (``mvnormal_spec``, full-rank
+    engine), and a ``TransformedTarget`` over models.logreg.LogReg or
+    models.normallognormal.NormalLogNormal under the model's own
+    ``unconstrained()`` transform.  A TransformedTarget under any other
+    transform goes to ``ad_spec`` (the hand gradients hard-code the Exp
+    bijector).  A constrained LogReg or NormalLogNormal raises: a Gaussian
+    family on a bounded support is a modelling error."""
+    from ...core.transforms import TransformedTarget
+    from ...models.logreg import LogReg
+    from ...models.normal import NormalTarget
+    from ...models.normallognormal import NormalLogNormal
+
+    if isinstance(target, NormalTarget):
+        return mvnormal_spec(target.mu, target.scale_tril)
+    if isinstance(target, TransformedTarget):
+        inner = target.prob
+        if isinstance(inner, (LogReg, NormalLogNormal)) \
+                and target.transform == inner.unconstrained().transform:
+            if isinstance(inner, LogReg):
+                return logreg_spec(inner.X, inner.y, prior_scale=inner.prior_scale,
+                                   likeadj=float(inner.likeadj))
+            return normallognormal_spec(inner)
+        return ad_spec(target)
+    if isinstance(target, (LogReg, NormalLogNormal)):
+        raise ValueError(
+            f"{type(target).__name__} is constrained-space; the fused engine works on "
+            "target.unconstrained()"
+        )
+    return ad_spec(target)
 
 
 def pack_minibatch_consts(Xp: torch.Tensor, yp: torch.Tensor, batch_size: int):
@@ -374,6 +464,8 @@ class FusedBranch:
             out.append(GROUP_GAUSSIAN)
         if model in GROUP_MB:
             out.append(GROUP_MB[model])
+        if model == AD:
+            out.append(GROUP_AD)
         return tuple(out)
 
 
@@ -517,7 +609,9 @@ def logreg_minibatch_logpi_grad(z, X_perm, yX, it: int, likeadj: float, prior_sc
     return logpi, torch.cat([gbeta - beta * inv_sig2[:, None], gt[:, None]], dim=1)
 
 
-def _model_logpi_grad(model: str, consts, scalars, z, it: int):
+def _model_logpi_grad(model: str, consts, scalars, z, it: int, ad=None):
+    if model == AD:
+        return ad.logpi_grad(z)
     if model == LOGREG:
         return logreg_logpi_grad(z, *consts, *scalars)
     if model in MINIBATCH_MODELS:
@@ -639,11 +733,13 @@ def _trace_out(trace, log_every, device):
 def fused_run_chunk_reference(
     model: str, consts, scalars, state, seed, it0: int, steps: int, n_samples: int,
     hyp: FusedHyper, noise=None, log_every: int = 0, branch: FusedBranch = DEFAULT_BRANCH,
+    ad: Optional[ADProgram] = None,
 ):
     """Plain version of csrc/fused_advi_meanfield.cu: a Python loop over
     steps with the kernel's math, every branch.  ``state``: (8, d) rows
-    (STATE_FIELDS), then COCOB's six ext rows; returns ``(state, elbo (),
-    trace (steps // log_every,) or None)``."""
+    (STATE_FIELDS), then COCOB's six ext rows; ``ad``: model "ad"'s program
+    (its graph is replayed); returns ``(state, elbo (), trace (steps //
+    log_every,) or None)``."""
     branch.codes()
     d = state.shape[1]
     n = n_samples
@@ -658,7 +754,7 @@ def fused_run_chunk_reference(
         u = _draw(noise, seed, it, s, n, d, state.device)
         mu, sig = st["mu"], st["sig"]
         z = mu + sig * u
-        logpi, grad = _model_logpi_grad(model, consts, scalars, z, it)
+        logpi, grad = _model_logpi_grad(model, consts, scalars, z, it, ad)
         logdet = torch.sum(torch.log(sig))
         if branch.grad_est == GE_SCOREGRAD:
             logq = -(torch.sum(0.5 * u * u, dim=1) + logdet + 0.5 * d * _L2PI)
@@ -691,7 +787,7 @@ def fused_run_chunk_reference(
 def fused_fullrank_run_chunk_reference(
     model: str, consts, scalars, vec, mat, seed, it0: int, steps: int,
     n_samples: int, hyp: FusedHyper, noise=None, log_every: int = 0,
-    branch: FusedBranch = DEFAULT_BRANCH,
+    branch: FusedBranch = DEFAULT_BRANCH, ad: Optional[ADProgram] = None,
 ):
     """Plain version of csrc/fused_advi_fullrank.cu (the reference kernel's
     FULLRANK branches, VarGrad excepted): a Python loop over steps with the
@@ -717,7 +813,7 @@ def fused_fullrank_run_chunk_reference(
         sig = st["sig"]
         C = torch.tril(sig)
         z = u @ C.T + st["mu"]
-        logpi, grad = _model_logpi_grad(model, consts, scalars, z, it)
+        logpi, grad = _model_logpi_grad(model, consts, scalars, z, it, ad)
         if branch.entropy == ENT_CF_ZERO:
             g_z = -inv_n * grad
         else:
@@ -765,9 +861,20 @@ _MEANFIELD_ARGTYPES = _ARGS_HEAD + [ctypes.c_void_p] * 5 + _ARGS_TAIL
 _FULLRANK_ARGTYPES = _ARGS_HEAD + [ctypes.c_void_p] * 7 + _ARGS_TAIL
 
 
-def _model_args(model: str, consts, scalars, d: int, dev, full_rank: bool):
+def _model_args(model: str, consts, scalars, d: int, dev, full_rank: bool, n: int = 0,
+                ad: Optional[ADProgram] = None):
     """(c0, c1, n_data, db, batch, s0, s1) of a model, its shapes checked."""
     c0, c1 = consts
+    if model == AD:
+        if ad is None or (ad.n, ad.d) != (n, d):
+            raise ValueError(
+                f"model 'ad' needs the program of its (n, d) = ({n}, {d}); got "
+                f"{None if ad is None else (ad.n, ad.d)}"
+            )
+        check_f32("AD float constants", c0, tuple(c0.shape), dev)
+        if c1.dtype != torch.int32 or c1.device != dev or not c1.is_contiguous():
+            raise ValueError("the AD int constants must be a contiguous int32 tensor")
+        return c0, c1, 0, 0, 0, 0.0, 0.0
     if model == LOGREG or model in MINIBATCH_MODELS:
         n_data, db = c0.shape
         check_f32("X", c0, (n_data, db), dev)
@@ -815,9 +922,11 @@ def _count(wrapper, model: str, branch: FusedBranch) -> None:
 def fused_run_chunk_cuda(
     model: str, consts, scalars, state, seed, it0: int, steps: int, n_samples: int,
     hyp: FusedHyper, noise=None, log_every: int = 0, branch: FusedBranch = DEFAULT_BRANCH,
+    ad: Optional[ADProgram] = None,
 ):
     """Launch csrc/fused_advi_meanfield.cu on the current stream (same
-    signature and results as ``fused_run_chunk_reference``).  Adds one to
+    signature and results as ``fused_run_chunk_reference``; model "ad" runs
+    the library built with ``ad``'s generated body).  Adds one to
     ``fused_run_chunk_cuda.launches`` per launch, and to each of the
     branch's LAUNCH_GROUPS in ``group_launches``."""
     dev = state.device
@@ -830,13 +939,15 @@ def fused_run_chunk_cuda(
         raise ValueError(f"VarGrad needs n_samples >= 2, got {n}")
     n_rows = 8 + branch.ext_rows
     check_f32("state", state, (n_rows, d), dev)
-    c0, c1, n_data, db, batch, s0, s1 = _model_args(model, consts, scalars, d, dev, False)
+    c0, c1, n_data, db, batch, s0, s1 = _model_args(model, consts, scalars, d, dev, False, n,
+                                                    ad)
     if noise is not None:
         check_f32("noise", noise, (steps, n, d), dev)
     code = MODEL_CODES[model]
+    body = ad.source if model == AD else None
     smem = _build.function(
         "fused_advi_meanfield", "fused_advi_meanfield_smem_bytes",
-        [ctypes.c_int] * 7, restype=ctypes.c_size_t,
+        [ctypes.c_int] * 7, restype=ctypes.c_size_t, body=body,
     )(code, n_data, db, batch, n, d, n_rows)
     if smem > _build.SMEM_LIMIT:
         raise ValueError(
@@ -845,7 +956,8 @@ def fused_run_chunk_cuda(
             f"bytes for n_data={n_data}, batch={batch}, d={d}, n={n}, {n_rows} "
             f"state rows is over the {_build.SMEM_LIMIT}-byte limit of one block"
         )
-    fn = _build.function("fused_advi_meanfield", "fused_advi_meanfield", _MEANFIELD_ARGTYPES)
+    fn = _build.function("fused_advi_meanfield", "fused_advi_meanfield", _MEANFIELD_ARGTYPES,
+                         body=body)
     out = torch.empty((n_rows, d), dtype=torch.float32, device=dev)
     elbo = torch.empty((), dtype=torch.float32, device=dev)
     trace = (
@@ -873,10 +985,10 @@ fused_run_chunk_cuda.group_launches = dict.fromkeys(LAUNCH_GROUPS, 0)
 
 
 def fused_run_chunk(model, consts, scalars, state, seed, it0, steps, n_samples, hyp,
-                    noise=None, log_every=0, branch=DEFAULT_BRANCH):
+                    noise=None, log_every=0, branch=DEFAULT_BRANCH, ad=None):
     """The mean-field kernel for CUDA tensors, its plain version for CPU tensors."""
     args = (model, consts, scalars, state, seed, it0, steps, n_samples, hyp, noise,
-            log_every, branch)
+            log_every, branch, ad)
     if state.is_cuda:
         return fused_run_chunk_cuda(*args)
     if state.device.type == "cpu":
@@ -887,7 +999,7 @@ def fused_run_chunk(model, consts, scalars, state, seed, it0, steps, n_samples, 
 def fused_fullrank_run_chunk_cuda(
     model: str, consts, scalars, vec, mat, seed, it0: int, steps: int,
     n_samples: int, hyp: FusedHyper, noise=None, log_every: int = 0,
-    branch: FusedBranch = DEFAULT_BRANCH,
+    branch: FusedBranch = DEFAULT_BRANCH, ad: Optional[ADProgram] = None,
 ):
     """Launch csrc/fused_advi_fullrank.cu on the current stream (same
     signature and results as ``fused_fullrank_run_chunk_reference``).  Adds
@@ -904,13 +1016,14 @@ def fused_fullrank_run_chunk_cuda(
     k = 4 + branch.ext_rows // 2
     check_f32("vec", vec, (k, d), dev)
     check_f32("mat", mat, (k, d, d), dev)
-    c0, c1, n_data, db, batch, s0, s1 = _model_args(model, consts, scalars, d, dev, True)
+    c0, c1, n_data, db, batch, s0, s1 = _model_args(model, consts, scalars, d, dev, True, n, ad)
     if noise is not None:
         check_f32("noise", noise, (steps, n, d), dev)
     code = MODEL_CODES[model]
+    body = ad.source if model == AD else None
     smem = _build.function(
         "fused_advi_fullrank", "fused_advi_fullrank_smem_bytes",
-        [ctypes.c_int] * 7, restype=ctypes.c_size_t,
+        [ctypes.c_int] * 7, restype=ctypes.c_size_t, body=body,
     )(code, n_data, db, batch, n, d, k)
     if smem > _build.SMEM_LIMIT:
         raise ValueError(
@@ -918,7 +1031,8 @@ def fused_fullrank_run_chunk_cuda(
             f"per-step arrays in shared memory: {smem} bytes for d={d}, n={n} "
             f"is over the {_build.SMEM_LIMIT}-byte limit of one block"
         )
-    fn = _build.function("fused_advi_fullrank", "fused_advi_fullrank", _FULLRANK_ARGTYPES)
+    fn = _build.function("fused_advi_fullrank", "fused_advi_fullrank", _FULLRANK_ARGTYPES,
+                         body=body)
     vec_out = torch.empty_like(vec)
     mat_out = torch.empty_like(mat)
     elbo = torch.empty((), dtype=torch.float32, device=dev)
@@ -948,10 +1062,10 @@ fused_fullrank_run_chunk_cuda.group_launches = dict.fromkeys(LAUNCH_GROUPS, 0)
 
 def fused_fullrank_run_chunk(model, consts, scalars, vec, mat, seed, it0, steps,
                              n_samples, hyp, noise=None, log_every=0,
-                             branch=DEFAULT_BRANCH):
+                             branch=DEFAULT_BRANCH, ad=None):
     """The full-rank kernel for CUDA tensors, its plain version for CPU tensors."""
     args = (model, consts, scalars, vec, mat, seed, it0, steps, n_samples, hyp,
-            noise, log_every, branch)
+            noise, log_every, branch, ad)
     if vec.is_cuda:
         return fused_fullrank_run_chunk_cuda(*args)
     if vec.device.type == "cpu":
@@ -964,11 +1078,47 @@ def fused_fullrank_run_chunk(model, consts, scalars, vec, mat, seed, it0, steps,
 # ---------------------------------------------------------------------------
 
 
+def ad_smem_bytes(family: str, n: int, d: int, scratch: int, rows: int) -> int:
+    """Dynamic shared memory of a launch on model "ad" (the kernels'
+    make_layout for kAD): the draws, samples and gradients, ``rows`` state
+    rows (mean-field and each chain's block; the full-rank kernel's (rows,
+    d) location rows, its scale matrices left out, as they go to device
+    memory when they do not fit), the per-row sums, the block reduction, the
+    full-rank whitening's panel and the generated body's scratch."""
+    if family == MEANFIELD:
+        floats = 3 * n * d + rows * d + 2 * d + 7 * n + 1 + 33 + scratch
+    else:
+        floats = 4 * n * d + rows * d + d + 6 * n + 1 + 33 + 32 * 33 + scratch
+    return 4 * floats
+
+
+def ad_program(spec: FusedModelSpec, n_samples: int, family: str = MEANFIELD,
+               rows: int = 8) -> ADProgram:
+    """The K5 program of an "ad" spec at ``n_samples`` rows (traced and
+    emitted once), checked to fit one block's shared memory beside the
+    engine's arrays: ValueError otherwise, never a smaller body."""
+    if spec.ad is None:
+        raise ValueError("a spec of model 'ad' carries its traced target: build it with "
+                         "ad_spec, fused_spec_for or FusedModelSpec.from_log_density")
+    prog = spec.ad.program(n_samples)
+    need = ad_smem_bytes(family, n_samples, spec.dim, prog.scratch, rows)
+    if need > _build.SMEM_LIMIT:
+        raise ValueError(
+            f"K5's body of {spec.ad.name} at n_samples={n_samples}, d={spec.dim} needs "
+            f"{prog.scratch} floats of scratch: {need} bytes of shared memory with the "
+            f"{family} engine's arrays, over the {_build.SMEM_LIMIT}-byte limit of one "
+            "block (fewer samples, or a hand-derived spec)"
+        )
+    return prog
+
+
 class FusedADVI:
     """Whole-loop fused engine on a ``FusedModelSpec`` target, one kernel
     launch per ``steps`` chunk; the engine runs where the model's tensors
     lie.  Mean-field takes the logreg and Gaussian models; full-rank takes
-    logreg, mvnormal and Gaussian at d <= D_FULLRANK_MAX.
+    logreg, mvnormal and Gaussian at d <= D_FULLRANK_MAX; both take "ad"
+    specs (K5, traced and emitted at ``n_samples`` when the engine is
+    built).
 
     By default it reproduces ADVI + STL + Adam + ClipScale + polynomial
     averaging.  The branch is the plain attributes ``algo``, ``entropy``,
@@ -994,12 +1144,12 @@ class FusedADVI:
                 f"family must be '{MEANFIELD}' or '{FULLRANK}', got {family!r}"
             )
         ported = (LOGREG, GAUSSIAN) if family == MEANFIELD else (LOGREG, MVNORMAL, GAUSSIAN)
-        ported += MINIBATCH_MODELS
+        ported += MINIBATCH_MODELS + (AD,)
         if model.model not in ported:
             raise NotImplementedError(
                 f"fused model {model.model!r} is not ported for the {family} "
                 f"engine; it has {ported} (mvnormal is full-rank only, as in "
-                "the JAX engine; generic targets are K5, ROADMAP Queue 2)"
+                "the JAX engine)"
             )
         if family == FULLRANK and model.dim > D_FULLRANK_MAX:
             raise ValueError(
@@ -1008,6 +1158,8 @@ class FusedADVI:
             )
         if n_samples < 1:
             raise ValueError(f"n_samples must be >= 1, got {n_samples}")
+        self.ad = ad_program(model, n_samples, family, 8 if family == MEANFIELD else 4) \
+            if model.model == AD else None
         self.model = model
         self.family = family
         self.dim = model.dim
@@ -1133,17 +1285,19 @@ class FusedADVI:
             empty = torch.zeros(0, dtype=torch.float32, device=dev)
             return state, (empty if log_every else None)
         it_end = state.iteration + steps
+        ad = model.ad.program(self.n_samples) if model.model == AD else None
+        consts = model.consts if ad is None else ad.consts
         args = (seed_words(key), state.iteration, steps, self.n_samples, self.hyp, noise,
-                log_every, branch)
+                log_every, branch, ad)
         # another rule's ext rows ride through untouched
         keep = None if cocob else state.ext
         if self.family == FULLRANK:
             vec, mat = state.stacked_fullrank(with_ext=cocob)
             vec, mat, elbo, trace = fused_fullrank_run_chunk(
-                model.model, model.consts, model.scalars, vec, mat, *args)
+                model.model, consts, model.scalars, vec, mat, *args)
             return FusedADVIState.from_fullrank(vec, mat, it_end, elbo, keep), trace
         rows, elbo, trace = fused_run_chunk(
-            model.model, model.consts, model.scalars, state.stacked(with_ext=cocob), *args)
+            model.model, consts, model.scalars, state.stacked(with_ext=cocob), *args)
         return FusedADVIState.from_stacked(rows, it_end, elbo, keep), trace
 
     # -- the optimize loop with the library contract ------------------------

@@ -50,6 +50,7 @@ from .fused_advi import (
     ALGO_DESCENT,
     ALGO_DOG,
     ALGO_DOWG,
+    AD,
     DEFAULT_BRANCH,
     ENT_CF_ZERO,
     ENT_STL,
@@ -61,6 +62,7 @@ from .fused_advi import (
     GROUP_RULES,
     LAUNCH_GROUPS,
     LOGREG,
+    MEANFIELD,
     MINIBATCH_MODELS,
     MODEL_CODES,
     OP_CLIP,
@@ -71,6 +73,7 @@ from .fused_advi import (
     FusedHyper,
     FusedModelSpec,
     _avg,
+    ad_program,
     _cocob_update,
     _f32,
     _model_args,
@@ -92,7 +95,7 @@ _L2PI = math.log(2.0 * math.pi)
 # 0.0 .. 4.0 are the kernel's rule codes).
 RULE_CODES = dict(ALGO_CODES)
 MIXED = "mixed"  # the engine's ``algo`` once a per-chain rule list validated
-PORTED_MODELS = (LOGREG, GAUSSIAN) + MINIBATCH_MODELS
+PORTED_MODELS = (LOGREG, GAUSSIAN) + MINIBATCH_MODELS + (AD,)
 
 
 @dataclass(frozen=True)
@@ -213,7 +216,7 @@ def _chains_rule_step(codes, hyp: FusedHyper, lr, c, st, dmu, dsig, cocob_alpha:
 def fused_chains_run_chunk_reference(
     model: str, consts, scalars, state, seeds, it0: int, steps: int, n_samples: int,
     hyp: FusedHyper, noise=None, log_every: int = 0, branch: FusedBranch = DEFAULT_BRANCH,
-    lrs=None, rules=None,
+    lrs=None, rules=None, ad=None,
 ):
     """Plain version of csrc/fused_chains.cu: one Python loop over steps on
     tensors with a leading chain axis, the single-chain kernel's math per
@@ -222,7 +225,8 @@ def fused_chains_run_chunk_reference(
     (``FusedChainsADVI.chain_seeds``); ``noise``:
     optional (steps, C, n_samples, d); ``lrs``: optional (C,) learning rates
     replacing ``hyp.lr``; ``rules``: optional (C,) RULE_CODES replacing
-    ``branch.algo``.  Returns ``(state, elbo (C,), trace (steps // log_every,
+    ``branch.algo``; ``ad``: model "ad"'s program (replayed on each chain's
+    n rows).  Returns ``(state, elbo (C,), trace (steps // log_every,
     C) or None)``."""
     branch.codes()
     C, n_rows, d = state.shape
@@ -245,7 +249,7 @@ def fused_chains_run_chunk_reference(
                                                                          device=dev)
         mu, sig = st["mu"], st["sig"]
         z = mu[:, None] + sig[:, None] * u
-        logpi, grad = _model_logpi_grad(model, consts, scalars, z.reshape(C * n, d), it)
+        logpi, grad = _model_logpi_grad(model, consts, scalars, z.reshape(C * n, d), it, ad)
         logpi, grad = logpi.reshape(C, n), grad.reshape(C, n, d)
         logdet = torch.sum(torch.log(sig), dim=1)
         if vargrad:
@@ -332,7 +336,7 @@ def launch_groups(model: str, branch: FusedBranch, rules=None) -> Tuple[str, ...
 def fused_chains_run_chunk_cuda(
     model: str, consts, scalars, state, seeds, it0: int, steps: int, n_samples: int,
     hyp: FusedHyper, noise=None, log_every: int = 0, branch: FusedBranch = DEFAULT_BRANCH,
-    lrs=None, rules=None,
+    lrs=None, rules=None, ad=None,
 ):
     """Launch csrc/fused_chains.cu on the current stream, one block per
     chain (same signature and results as ``fused_chains_run_chunk_reference``).
@@ -364,15 +368,18 @@ def fused_chains_run_chunk_cuda(
     check_f32("state", state, (C, n_rows, d), dev)
     if lrs is not None:
         check_f32("lrs", lrs, (C,), dev)
-    c0, c1, n_data, db, batch, s0, s1 = _model_args(model, consts, scalars, d, dev, False)
+    c0, c1, n_data, db, batch, s0, s1 = _model_args(model, consts, scalars, d, dev, False, n,
+                                                    ad)
     if noise is not None:
         check_f32("noise", noise, (steps, C, n, d), dev)
         noise = noise.transpose(0, 1).contiguous()  # the kernel's (C, steps, n, d)
     if log_every and steps % log_every:
         raise ValueError(f"traced chunks need steps % log_every == 0, got {steps}/{log_every}")
     code = MODEL_CODES[model]
+    body = ad.source if model == AD else None
     smem = _build.function(
         "fused_chains", "fused_chains_smem_bytes", [ctypes.c_int] * 7, restype=ctypes.c_size_t,
+        body=body,
     )(code, n_data, db, batch, n, d, n_rows)
     if smem > _build.SMEM_LIMIT:
         raise ValueError(
@@ -380,7 +387,7 @@ def fused_chains_run_chunk_cuda(
             f"shared memory: {smem} bytes for n_data={n_data}, batch={batch}, d={d}, "
             f"n={n}, {n_rows} state rows is over the {_build.SMEM_LIMIT}-byte limit"
         )
-    fn = _build.function("fused_chains", "fused_chains", _CHAINS_ARGTYPES)
+    fn = _build.function("fused_chains", "fused_chains", _CHAINS_ARGTYPES, body=body)
     if seeds.dtype != torch.int32 or tuple(seeds.shape) != (C, 2) or seeds.device != dev \
             or not seeds.is_contiguous():
         raise ValueError(f"seeds must be a contiguous int32 ({C}, 2) tensor on {dev}")
@@ -414,10 +421,10 @@ fused_chains_run_chunk_cuda.group_launches = dict.fromkeys(LAUNCH_GROUPS, 0)
 
 def fused_chains_run_chunk(model, consts, scalars, state, seeds, it0, steps, n_samples, hyp,
                            noise=None, log_every=0, branch=DEFAULT_BRANCH, lrs=None,
-                           rules=None):
+                           rules=None, ad=None):
     """The chains kernel for CUDA tensors, its plain version for CPU tensors."""
     args = (model, consts, scalars, state, seeds, it0, steps, n_samples, hyp, noise,
-            log_every, branch, lrs, rules)
+            log_every, branch, lrs, rules, ad)
     if state.is_cuda:
         return fused_chains_run_chunk_cuda(*args)
     if state.device.type == "cpu":
@@ -517,6 +524,8 @@ class FusedChainsADVI:
             )
         rules = self._rule_list or (optimizer,)
         self.n_rows = 14 if ALGO_COCOB in rules else 8
+        self.ad = ad_program(model, n_samples, MEANFIELD, self.n_rows) \
+            if model.model == AD else None
         if model.dim < 2 and (ALGO_DOWG in rules or ALGO_DOG in rules):
             raise ValueError(
                 f"DoWG and DoG keep [v, r] in lanes 0 and 1 of v_mu: they need d >= 2, "
@@ -662,10 +671,11 @@ class FusedChainsADVI:
             return state, (empty if log_every else None)
         with_ext = self.n_rows == 14
         keep = None if with_ext else state.ext  # another rule's ext rows ride through
+        consts = self.model.consts if self.ad is None else self.ad.consts
         rows, elbo, trace = fused_chains_run_chunk(
-            self.model.model, self.model.consts, self.model.scalars,
+            self.model.model, consts, self.model.scalars,
             state.stacked(with_ext=with_ext), self.chain_seeds(key), state.iteration, steps,
-            n, self.hyp, noise, log_every, self.branch(), self.lrs, self.rules,
+            n, self.hyp, noise, log_every, self.branch(), self.lrs, self.rules, self.ad,
         )
         new = FusedChainsState.from_stacked(rows, state.iteration + steps, elbo, keep)
         return new, trace

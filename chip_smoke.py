@@ -70,12 +70,24 @@ Phases:
   (x) the low-rank sampler (K7c) against its plain version and K7a at
       65,536 x 256, rank 8 (timed) and at the shapes of the low-rank ADVI
       runs; low-rank ADVI through ``optimize`` on
-      tests/test_lowrank_advi.py's target and on the flagship (rank 8).
+      tests/test_lowrank_advi.py's target and on the flagship (rank 8);
+  (y) K5, the AD-derived model body: the generated libraries (nvcc seconds,
+      registers, spills), each against its plain version (the graph's
+      replay) in the mean-field, full-rank and chains (C = 64) kernels on
+      the flagship logreg through ``ad_spec``, on normal-lognormal and on
+      the quartic ``from_log_density`` target; the ad logreg chunk against
+      the hand ``logreg_spec`` chunk on one injected noise; the main path
+      ``fused_spec_for(fn_target(...))`` at the flagship's width through
+      ``FusedADVI.optimize`` (both families), ``FusedProxADVI``,
+      ``FusedScoreGradVI`` and ``FusedChainsADVI``, counted; the 200-step
+      ad chunk timed beside the hand one; and the sampler RNG checks (K7c's
+      u2 moments, K7b's and K7c's sample covariance at 65,536 draws, 64
+      chains agreeing on the flagship's optimum).
 
 Every failed check raises and the script exits non-zero; it also exits
 non-zero without a CUDA device, or when the package is not beside it.  The
 line before the last is a JSON object of the kernels (launch counts from the
-main-path runs of (f), (g), (l), (o), (p), (s), (u), (w) and (x), errors, times, each
+main-path runs of (f), (g), (l), (o), (p), (s), (u), (w), (x) and (y), errors, times, each
 time's bound on this card and, for K8, the library call's time); the last
 line is ``{"ok": true, "device": {...}}``.  It imports no JAX.
 """
@@ -1606,8 +1618,9 @@ def chains_case(dev, spec, n_chains):
 
 
 def chains_run(fn, eng, rows, seeds, it0, steps, noise=None, log_every=0):
-    return fn(eng.model.model, eng.model.consts, eng.model.scalars, rows, seeds, it0, steps,
-              N_SAMPLES, eng.hyp, noise, log_every, eng.branch(), eng.lrs, eng.rules)
+    consts = eng.model.consts if eng.ad is None else eng.ad.consts  # K5: the engine's program
+    return fn(eng.model.model, consts, eng.model.scalars, rows, seeds, it0, steps,
+              N_SAMPLES, eng.hyp, noise, log_every, eng.branch(), eng.lrs, eng.rules, eng.ad)
 
 
 def phase_v(dev):
@@ -1974,6 +1987,345 @@ def kernel_bounds():
     }
 
 
+# ---------------------------------------------------------------------------
+# K5: the AD-derived model body
+# ---------------------------------------------------------------------------
+
+AD_CHAINS_C = 64
+AD_MAIN_STEPS = 20_000    # the flagship through ad_spec, as phase (g)
+AD_SIDE_STEPS = 2_000     # the full-rank, proximal and score-gradient engines on it
+RNG_DRAWS, RNG_D, RNG_R = 65_536, 64, 8       # _rng_validation.py:92-122
+SPREAD_CHAINS, SPREAD_STEPS = 64, 120_000     # _rng_validation.py:301-317
+
+
+def quartic_spec(dev):
+    """tests/test_fused_ad_spec.py:156's anisotropic quartic well (d = 5)
+    through ``FusedModelSpec.from_log_density``: no hand spec exists."""
+    import advancedvi_jl_tpu_torch as avt
+
+    d = 5
+    data = {"anchor": torch.linspace(-1.0, 1.0, d, device=dev),
+            "w": torch.arange(1.0, d + 1.0, device=dev)}
+
+    def logp(theta, dat):
+        r = theta - dat["anchor"]
+        return -(r * r * dat["w"]).sum(-1) - 0.1 * (r ** 4).sum(-1)
+
+    return avt.FusedModelSpec.from_log_density(logp, d, data=data)
+
+
+def ad_cases(dev):
+    """Phase (y)'s ad specs: the flagship logreg, normal-lognormal, quartic."""
+    import advancedvi_jl_tpu_torch as avt
+
+    return {"logreg": avt.ad_spec(flagship(dev).unconstrained()),
+            "nln": avt.ad_spec(nln_target(dev)[0].unconstrained()),
+            "quartic": quartic_spec(dev)}
+
+
+def ad_build(dev, cases):
+    """Every generated library phase (y) runs, one nvcc each, all started
+    together: nvcc seconds, registers and spills; the Python layout of each
+    kernel's shared memory equal to the kernel's own."""
+    import ctypes
+
+    from advancedvi_jl_tpu_torch.ops.cuda import _build
+    from advancedvi_jl_tpu_torch.ops.cuda.fused_advi import ad_smem_bytes
+
+    progs = {name: spec.ad.program(N_SAMPLES) for name, spec in cases.items()}
+    t0 = time.perf_counter()
+    paths = _build.build_generated_all([(k, p.source) for p in progs.values()
+                                        for k in _build.AD_KERNELS])
+    say("y", libraries=len(paths), build_s=f"{time.perf_counter() - t0:.2f}")
+    for name, prog in progs.items():
+        say("y", target=name, d=prog.d, graph_nodes=len(prog.gm.graph.nodes), loops=prog.loops,
+            barriers=prog.barriers, scratch_floats=prog.scratch, madds=prog.madds)
+        for kern in _build.AD_KERNELS:
+            path = paths[(kern, prog.source)]
+            ptxas = [ln.strip() for ln in path.with_suffix(".log").read_text().splitlines()
+                     if "registers" in ln or "spill" in ln]
+            say("y", target=name, kernel=kern, lib=path.name,
+                nvcc_s=f"{_build.BUILD_SECONDS.get(path, 0.0):.2f}")
+            for ln in ptxas:
+                print(f"    {ln}", flush=True)
+        for kern, family, rows in (("fused_advi_meanfield", "meanfield", 8),
+                                   ("fused_chains", "meanfield", 8),
+                                   ("fused_advi_fullrank", "fullrank", 4)):
+            got = _build.function(kern, f"{kern}_smem_bytes", [ctypes.c_int] * 7,
+                                  restype=ctypes.c_size_t, body=prog.source)(
+                6, 0, 0, 0, N_SAMPLES, prog.d, rows)
+            want = ad_smem_bytes(family, N_SAMPLES, prog.d, prog.scratch, rows)
+            if family == "fullrank" and got != want:  # the scale matrices fit beside
+                want += 4 * rows * prog.d * prog.d
+            check(got == want, f"{kern} on {name}: the kernel's layout is {got} bytes, "
+                               f"ad_smem_bytes says {want}")
+    return progs
+
+
+def ad_rows(d, dev, family):
+    """The initial state of phase (y)'s comparisons: location 0, scale 0.1."""
+    if family == "meanfield":
+        return (initial_rows(d, dev),)
+    z, eye = torch.zeros(d, device=dev), 0.1 * torch.eye(d, device=dev)
+    zz = torch.zeros(d, d, device=dev)
+    return torch.stack([z, z, z, z]), torch.stack([eye, zz, zz, eye])
+
+
+def ad_compare(dev, name, spec, prog, family):
+    """K5 in one kernel against its plain version: 50 injected-noise steps
+    (norm-wise rtol 1e-5) and 200 Philox steps (1e-4).  Returns the largest
+    parameter error after the injected-noise steps."""
+    from advancedvi_jl_tpu_torch.ops.cuda import fused_advi as fa
+    from advancedvi_jl_tpu_torch.ops.cuda.location_scale_kernels import seed_words
+
+    d, hyp, seed = spec.dim, fa.FusedHyper(lr=LR), seed_words(SEED)
+    rows = ad_rows(d, dev, family)
+    kern, plain = ((fa.fused_run_chunk_cuda, fa.fused_run_chunk_reference) if family == "meanfield"
+                   else (fa.fused_fullrank_run_chunk_cuda, fa.fused_fullrank_run_chunk_reference))
+    nr = len(rows)
+    noise = torch.randn((50, N_SAMPLES, d), generator=torch.Generator().manual_seed(5)).to(dev)
+    err = 0.0
+    for steps, nz, rtol in ((50, noise, 1e-5), (200, None, 1e-4)):
+        args = ("ad", prog.consts, (), *rows, seed, 0, steps, N_SAMPLES, hyp, nz)
+        k = kern(*args, ad=prog)
+        r = plain(*args, ad=prog)
+        torch.cuda.synchronize()
+        rel = compare_tensors(f"K5 {name} {family}, {steps} steps", state_tensors(k, nr),
+                              state_tensors(r, nr), rtol)
+        check(torch.allclose(k[nr], r[nr], rtol=rtol, atol=10 * rtol),
+              f"K5 {name} {family}: ELBO {float(k[nr])} vs {float(r[nr])}")
+        if steps == 50:
+            err = parameter_err([(k[0],) if nr == 1 else k[:2], (r[0],) if nr == 1 else r[:2]],
+                                nr)
+        say("y", target=name, family=family, steps=steps, noise="injected" if nz is not None
+            else "philox", state_max_rel_err=f"{rel:.3e}", elbo_kernel=float(k[nr]),
+            elbo_plain=float(r[nr]))
+    return err
+
+
+def ad_chains_compare(dev, spec, prog):
+    """K5 in the chains kernel at C = 64 against its plain version: 50
+    injected-noise steps (1e-5) and 200 Philox steps (1e-4)."""
+    from advancedvi_jl_tpu_torch.ops.cuda.fused_chains import (
+        fused_chains_run_chunk_cuda, fused_chains_run_chunk_reference,
+    )
+
+    eng, st = chains_engine(dev, spec, AD_CHAINS_C, lr=LR)
+    rows, seeds = st.stacked(), eng.chain_seeds(SEED)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    noise = torch.randn((50, AD_CHAINS_C, N_SAMPLES, spec.dim), generator=gen, device=dev)
+    err = 0.0
+    for steps, nz, rtol in ((50, noise, 1e-5), (200, None, 1e-4)):
+        k = chains_run(fused_chains_run_chunk_cuda, eng, rows, seeds, 0, steps, nz)
+        r = chains_run(fused_chains_run_chunk_reference, eng, rows, seeds, 0, steps, nz)
+        torch.cuda.synchronize()
+        rel = compare_tensors(f"K5 chains C = {AD_CHAINS_C}, {steps} steps",
+                              list(k[0].flatten(0, 1)), list(r[0].flatten(0, 1)), rtol)
+        check(torch.allclose(k[1], r[1], rtol=rtol, atol=10 * rtol), "K5 chains: ELBO differs")
+        if steps == 50:
+            err = max_err(k[0][:, [0, 1, 6, 7]], r[0][:, [0, 1, 6, 7]])
+        say("y", target="logreg", family="chains", chains=AD_CHAINS_C, steps=steps,
+            state_max_rel_err=f"{rel:.3e}")
+    return err
+
+
+def ad_vs_hand(dev, ad):
+    """The ad logreg chunk against the hand logreg_spec chunk on one injected
+    noise, 50 steps, both families: norm-wise within 1e-6 (the two bodies
+    sum the same terms in another order)."""
+    import advancedvi_jl_tpu_torch as avt
+    from advancedvi_jl_tpu_torch.ops.cuda import fused_advi as fa
+    from advancedvi_jl_tpu_torch.ops.cuda.location_scale_kernels import seed_words
+
+    prob = flagship(dev)
+    hand = avt.logreg_spec(prob.X, prob.y)
+    d, hyp, seed = hand.dim, fa.FusedHyper(lr=LR), seed_words(SEED)
+    noise = torch.randn((50, N_SAMPLES, d), generator=torch.Generator().manual_seed(6)).to(dev)
+    for family in ("meanfield", "fullrank"):
+        rows = ad_rows(d, dev, family)
+        kern = fa.fused_run_chunk_cuda if family == "meanfield" else fa.fused_fullrank_run_chunk_cuda
+        k = kern("ad", ad.consts, (), *rows, seed, 0, 50, N_SAMPLES, hyp, noise, ad=ad)
+        h = kern("logreg", hand.consts, hand.scalars, *rows, seed, 0, 50, N_SAMPLES, hyp, noise)
+        torch.cuda.synchronize()
+        nr = len(rows)
+        rel = compare_tensors(f"K5 vs the hand logreg body, {family}", state_tensors(k, nr),
+                              state_tensors(h, nr), 1e-6)
+        say("y", ad_vs_hand=family, steps=50, state_max_rel_err=f"{rel:.3e}",
+            elbo_ad=float(k[nr]), elbo_hand=float(h[nr]))
+
+
+def ad_main_path(dev):
+    """The slice's path, counted: the flagship logreg as a plain function
+    (no hand spec) through fused_spec_for -> ad_spec, then FusedADVI.optimize
+    mean-field for 20,000 steps (converged, and within 2.0 of the hand
+    engine's tail on the same key), the full-rank, proximal and
+    score-gradient engines for 2,000 steps, and 64 chains for 20,000."""
+    import advancedvi_jl_tpu_torch as avt
+
+    prob = flagship(dev)
+    target = prob.unconstrained()
+    d = prob.dim
+    fn = avt.fn_target(lambda theta, _: target.log_density(theta), d)
+    q0 = avt.MeanFieldGaussian(torch.zeros(d, device=dev), 0.1 * torch.ones(d, device=dev))
+    qf = avt.FullRankGaussian(torch.zeros(d, device=dev), 0.1 * torch.eye(d, device=dev))
+    hand = avt.FusedLogRegADVI(prob.X, prob.y, n_samples=N_SAMPLES, lr=LR)
+    _, infos_h, _ = hand.optimize(SEED, AD_MAIN_STEPS, q0, log_every=LOG_EVERY)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    spec = avt.fused_spec_for(fn)
+    check(spec.model == "ad", f"fused_spec_for(fn_target) gave {spec.model!r}, not 'ad'")
+    eng = avt.FusedADVI(spec, n_samples=N_SAMPLES, lr=LR)
+    _, infos, _ = eng.optimize(SEED, AD_MAIN_STEPS, q0, log_every=LOG_EVERY)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    tail, tail_h = tail_elbo(infos), tail_elbo(infos_h)
+    say("y", path="fused_spec_for(fn_target) -> FusedADVI", steps=AD_MAIN_STEPS,
+        elbo_tail_mean=tail, hand_elbo_tail_mean=tail_h, seconds=f"{secs:.2f}")
+    check(all(math.isfinite(r["elbo"]) for r in infos), "the ad engine's ELBO is not finite")
+    check(tail > -150.0, f"the ad engine's tail ELBO {tail} <= -150 (not converged)")
+    check(abs(tail - tail_h) <= 2.0, f"ad {tail} vs hand {tail_h}: over 2.0 apart")
+    side = {
+        "fullrank": (avt.FusedADVI(spec, family="fullrank", n_samples=N_SAMPLES, lr=LR), qf),
+        "prox": (avt.FusedProxADVI(spec, n_samples=N_SAMPLES), q0),
+        "scoregrad": (avt.FusedScoreGradVI(spec, n_samples=N_SAMPLES, operator="clip"), q0),
+    }
+    for name, (e, q) in side.items():
+        _, rows, _ = e.optimize(SEED, AD_SIDE_STEPS, q, log_every=LOG_EVERY)
+        torch.cuda.synchronize()
+        say("y", path=f"ad {name}", steps=AD_SIDE_STEPS, elbo_last=rows[-1]["elbo"])
+        check(all(math.isfinite(r["elbo"]) for r in rows), f"ad {name}: ELBO not finite")
+    ceng = avt.FusedChainsADVI(spec, n_chains=AD_CHAINS_C, n_samples=N_SAMPLES, lr=LR)
+    g = torch.Generator().manual_seed(7)
+    st = ceng.init((0.5 * torch.randn(AD_CHAINS_C, d, generator=g)).to(dev),
+                   0.1 * torch.ones(AD_CHAINS_C, d, device=dev))
+    traces = []
+    for _ in range(AD_MAIN_STEPS // 5_000):
+        st, tr = ceng.run_chunk_traced(st, SEED, 5_000, log_every=LOG_EVERY)
+        traces.append(tr)
+    trace = torch.cat(traces)
+    torch.cuda.synchronize()
+    ctail = trace[-TAIL_ROWS:].mean(dim=0)
+    counts = read_launches()
+    say("y", path="ad FusedChainsADVI", chains=AD_CHAINS_C, steps=AD_MAIN_STEPS,
+        tail_elbo_min=float(ctail.min()), tail_elbo_max=float(ctail.max()),
+        k5_launches=counts["k5_ad"], meanfield_launches=counts["fused_advi_meanfield"],
+        fullrank_launches=counts["fused_advi_fullrank"], chains_launches=counts["fused_chains"])
+    check(bool(torch.isfinite(trace).all()) and bool((ctail > -150.0).all()),
+          f"an ad chain's tail ELBO {float(ctail.min())} <= -150 or not finite")
+    for kern in ("fused_advi_meanfield", "fused_advi_fullrank", "fused_chains"):
+        check(counts[kern] > 0, f"the ad path launched no {kern} kernel")
+    check(counts["k5_ad"] > 0, "the ad path launched no K5 body")
+    return counts, spec.ad.program(N_SAMPLES)
+
+
+def ad_times(dev, card, prog):
+    """The 200-step ad chunk (mean-field, flagship) beside the hand chunk of
+    phase (h), in turns, and its plain version; the full-rank and 64-chain ad
+    chunks."""
+    from advancedvi_jl_tpu_torch.ops.cuda import fused_advi as fa
+    from advancedvi_jl_tpu_torch.ops.cuda.fused_chains import fused_chains_run_chunk_cuda
+
+    hand_args = flagship_chunk_args(dev)
+    ad_args = ("ad", prog.consts, ()) + hand_args[3:]
+    say("y", clocks_before=smi_clocks())
+    ad_ms, hand_ms = [], []
+    for _ in range(2):
+        hand_ms.append(cuda_ms(lambda: fa.fused_run_chunk_cuda(*hand_args), 20))
+        ad_ms.append(cuda_ms(lambda: fa.fused_run_chunk_cuda(*ad_args, ad=prog), 20))
+    plain_ms = cuda_ms(lambda: fa.fused_run_chunk_reference(*ad_args, ad=prog), 1)
+    d = prog.d
+    vec, mat = ad_rows(d, dev, "fullrank")
+    fr_ms = cuda_ms(lambda: fa.fused_fullrank_run_chunk_cuda(
+        "ad", prog.consts, (), vec, mat, *hand_args[4:], ad=prog), 10)
+    import advancedvi_jl_tpu_torch as avt
+
+    spec = avt.ad_spec(flagship(dev).unconstrained())
+    eng, st = chains_engine(dev, spec, AD_CHAINS_C, lr=LR)
+    rows, seeds = st.stacked(), eng.chain_seeds(SEED)
+    ch_ms = cuda_ms(lambda: chains_run(fused_chains_run_chunk_cuda, eng, rows, seeds, 0, 200), 5)
+    say("y", clocks_after=smi_clocks())
+    say("y", card=f"'{card}'", chunk_steps=200, ad_chunk_ms=",".join(f"{t:.4f}" for t in ad_ms),
+        hand_chunk_ms=",".join(f"{t:.4f}" for t in hand_ms), ad_plain_ms=plain_ms,
+        ratio=f"{min(ad_ms) / min(hand_ms):.3f}", fullrank_ad_chunk_ms=fr_ms,
+        chains64_ad_chunk_ms=ch_ms)
+    return min(ad_ms), plain_ms
+
+
+def rng_checks(dev):
+    """The RNG checks of _rng_validation.py the port still owed: K7c's u2
+    moments (5 sigma); the sample mean and covariance of K7b's and K7c's z
+    at 65,536 draws against each family's exact covariance (6 standard
+    errors); 64 chains of the flagship agreeing on its optimum, the largest
+    per-dimension spread of their averaged locations under 0.02 after
+    120,000 steps."""
+    import advancedvi_jl_tpu_torch as avt
+    from advancedvi_jl_tpu_torch.ops.cuda.location_scale_kernels import (
+        fullrank_sample_cuda, lowrank_sample_cuda, normal_moments_ok, seed_words,
+    )
+
+    n, d, r = RNG_DRAWS, RNG_D, RNG_R
+    g = torch.Generator().manual_seed(42)
+    loc = torch.linspace(-1.0, 1.0, d).to(dev)
+    sd = torch.linspace(0.5, 2.0, d).to(dev)
+    C = (0.3 * torch.eye(d) + 0.1 * torch.tril(torch.randn(d, d, generator=g), -1)).to(dev)
+    U = (0.2 * torch.randn(d, r, generator=g)).to(dev)
+    z_fr, _ = fullrank_sample_cuda(seed_words(43), 0, loc, C, n)
+    z_lr, _, u2 = lowrank_sample_cuda(seed_words(44), 0, loc, sd, U, n)
+    torch.cuda.synchronize()
+    check(normal_moments_ok(u2), "K7c's u2 moments outside 5 sigma")
+    u2d = u2.double()
+    kurt = float(((u2d - u2d.mean()) ** 4).mean() / u2d.var() ** 2)
+    check(abs(kurt - 3.0) < 6 * math.sqrt(24.0 / u2.numel()), f"K7c's u2 kurtosis {kurt}")
+    Cd, Ud = C.double(), U.double()
+    for tag, z, cov in (("fullrank", z_fr, Cd @ Cd.T),
+                        ("lowrank", z_lr, torch.diag(sd.double() ** 2) + Ud @ Ud.T)):
+        zd = z.double()
+        s = torch.sqrt(torch.diagonal(cov))
+        merr = float(((zd.mean(0) - loc.double()).abs() / (s / math.sqrt(n))).max())
+        cerr = float(((torch.cov(zd.T) - cov).abs() / torch.outer(s, s)).max())
+        band = 6 * math.sqrt(2.0 / n)
+        say("y", rng=tag, draws=n, d=d, mean_max_err_se=f"{merr:.3f}", cov_max_rel_err=
+            f"{cerr:.5f}", cov_band=f"{band:.5f}")
+        check(merr < 6.0 and cerr < band, f"{tag} sampler: mean {merr} se, cov {cerr} > {band}")
+    say("y", rng="lowrank_u2", mean=float(u2d.mean()), var=float(u2d.var()), kurtosis=kurt)
+    prob = flagship(dev)
+    eng = avt.FusedChainsADVI(avt.logreg_spec(prob.X, prob.y), n_chains=SPREAD_CHAINS,
+                              n_samples=N_SAMPLES, lr=LR)
+    st = eng.init((0.5 * torch.randn(SPREAD_CHAINS, prob.dim,
+                                     generator=torch.Generator().manual_seed(2))).to(dev),
+                  0.1 * torch.ones(SPREAD_CHAINS, prob.dim, device=dev))
+    for _ in range(SPREAD_STEPS // 30_000):
+        st = eng.run_chunk(st, SEED, 30_000)
+    spread = float(eng.q(st).location.std(dim=0).max())
+    say("y", rng="chains", chains=SPREAD_CHAINS, steps=SPREAD_STEPS,
+        elbo_min=float(st.elbo.min()), elbo_max=float(st.elbo.max()), loc_spread_max=spread)
+    check(spread < 0.02, f"64 chains' averaged locations spread {spread} >= 0.02")
+
+
+def phase_y(dev, card):
+    """K5: build, hold against the plain version and the hand body, the
+    counted main path, the times; then the RNG checks."""
+    cases = ad_cases(dev)
+    progs = ad_build(dev, cases)
+    err = 0.0
+    for name, spec in cases.items():
+        for family in ("meanfield", "fullrank"):
+            err = max(err, ad_compare(dev, name, spec, progs[name], family))
+    err = max(err, ad_chains_compare(dev, cases["logreg"], progs["logreg"]))
+    ad_vs_hand(dev, progs["logreg"])
+    counts, prog = ad_main_path(dev)
+    check(prog.digest == progs["logreg"].digest,
+          "fused_spec_for(fn_target) and ad_spec of the flagship emitted different bodies")
+    ms, plain_ms = ad_times(dev, card, prog)
+    rng_checks(dev)
+    # the flagship chunk's work: its two products, n x 208 x 61 each, a step;
+    # the design, labels and state in and out
+    flops = 2.0 * 200 * prog.madds
+    nbytes = 4.0 * (prog.consts[0].numel() + 16 * prog.d)
+    return counts["k5_ad"], err, ms, plain_ms, bound(flops, nbytes)
+
+
 def main() -> int:
     seconds = {}  # wall seconds of each phase, printed before the kernels line
     last = [time.perf_counter()]
@@ -2021,6 +2373,8 @@ def main() -> int:
     lap("w")
     lowrank_counts, lowrank_err, lowrank_times = phase_x(dev, card)
     lap("x")
+    k5_launches, k5_err, k5_ms, k5_plain_ms, k5_bound = phase_y(dev, card)
+    lap("y")
     say("time", total=round(sum(seconds.values()), 1), **seconds)
     bounds = {name: bound(*fb) for name, fb in kernel_bounds().items()}
     src = "advancedvi_jl_tpu_torch/csrc/"
@@ -2072,6 +2426,10 @@ def main() -> int:
                          "advancedvi_jl_tpu/ops/pallas/location_scale_kernels.py:155",
                          lowrank_counts["lowrank_sample"], lowrank_err, ms, plain_ms,
                          bound_=(b_ms, b_by)))
+    k5 = entry("fused_k5_ad", "", f"{fused}1504", k5_launches, k5_err, k5_ms, k5_plain_ms,
+               bound_=k5_bound)
+    k5["source"] = "advancedvi_jl_tpu_torch/ops/cuda/ad_body.py"  # emits the CUDA body
+    kernels.append(k5)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

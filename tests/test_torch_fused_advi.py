@@ -219,7 +219,7 @@ def test_engine_checks(flagship):
             torch.ones(62) if family == "meanfield" else torch.eye(62))), 0, 2).iteration == 2
     with pytest.raises(NotImplementedError, match="full-rank only"):  # as in JAX
         FusedADVI(spec.__class__(dim=2, consts=(), scalars=(), model="mvnormal"))
-    with pytest.raises(NotImplementedError, match="K5"):  # generic targets
+    with pytest.raises(ValueError, match="ad_spec"):  # K5 needs the traced target
         FusedADVI(spec.__class__(dim=2, consts=(), scalars=(), model="ad"))
     eng = FusedADVI(spec, n_samples=N_SAMPLES)
     s = _init(eng)

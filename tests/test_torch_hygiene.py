@@ -59,7 +59,8 @@ def test_package_exports_the_slice():
                  "SubsampledObjective", "FactorizedTarget", "factorized_target",
                  "logreg_minibatch_spec", "logreg_minibatch_hbm_spec", "make_bnn",
                  "subsampled_normals", "LowRankGaussian", "LowRankLocationScale",
-                 "estimate_objective", "FusedChainsADVI"):
+                 "estimate_objective", "FusedChainsADVI", "FnTarget", "fn_target",
+                 "CustomGradTarget", "ad_spec", "fused_spec_for"):
         assert hasattr(advancedvi_jl_tpu_torch, name), name
     assert not _build._libs, "importing the package must not build or load kernels"
 
@@ -90,6 +91,47 @@ def test_library_name_hashes_every_shared_header(monkeypatch, tmp_path):
     assert _build.library_path("k") != edited
     (tmp_path / "k.cu").write_text("// edited kernel\n")
     assert _build.library_path("k") not in (before, edited)
+
+
+def test_generated_library_name_hashes_the_body(monkeypatch, tmp_path):
+    """A K5 library's name covers the generated body as well as the kernel
+    and its headers; only the fused kernels take a body, and asking for
+    another raises before anything is written or built."""
+    for name in ("fused_chains.cu", "fused_common.cuh"):
+        (tmp_path / name).write_text(f"// {name}\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    monkeypatch.setattr(_build, "GEN_DIR", tmp_path / "gen")
+    a = _build.generated_library_path("fused_chains", "// body a\n")
+    assert a == _build.generated_library_path("fused_chains", "// body a\n")
+    assert a != _build.generated_library_path("fused_chains", "// body b\n")
+    assert a != _build.library_path("fused_chains") and "-ad-" in a.name
+    assert _build.body_path("// body a\n").name.startswith("ad_")
+    assert _build.body_path("// body a\n") != _build.body_path("// body b\n")
+    (tmp_path / "fused_common.cuh").write_text("// edited\n")
+    assert _build.generated_library_path("fused_chains", "// body a\n") != a
+    with pytest.raises(ValueError, match="takes no generated body"):
+        _build.build_generated("trisolve", "// body\n")
+    assert not (tmp_path / "gen").exists()
+    assert set(_build.AD_KERNELS) <= set(_build.KERNELS)
+
+
+def test_fused_sources_keep_k5_under_its_macro():
+    """Every line that K5 adds to the fused kernels sits under AVI_AD_BODY,
+    so the libraries built without a body compile as before."""
+    for name in ("fused_common.cuh", "fused_meanfield_body.cuh", "fused_advi_fullrank.cu",
+                 "fused_advi_meanfield.cu", "fused_chains.cu"):
+        depth, guarded = 0, []
+        for line in (_build.CSRC / name).read_text().splitlines():
+            if line.startswith("#if"):
+                depth += 1
+                guarded.append("AVI_AD_BODY" in line)
+            elif line.startswith("#endif"):
+                depth -= 1
+                guarded.pop()
+            elif line.lstrip().startswith("//"):
+                continue
+            elif "avi::ad::" in line or "kAD)" in line or "L.ad" in line:
+                assert any(guarded), f"{name}: {line.strip()}"
 
 
 def test_every_kernel_includes_only_known_headers():
@@ -138,7 +180,7 @@ def test_port_modules_load_no_jax_and_build_nothing():
     assert "advancedvi_jl_tpu_torch.models.normallognormal" in mods
     for new in ("subsampling", "objectives.subsampled", "core.factorized", "models.bnn",
                 "models.subsampled_normals", "ops.cuda.probe_kernels", "parallel.chains",
-                "estimate", "families.low_rank", "ops.cuda.fused_chains"):
+                "estimate", "families.low_rank", "ops.cuda.fused_chains", "ops.cuda.ad_body"):
         assert f"advancedvi_jl_tpu_torch.{new}" in mods, new
     code = (
         "import importlib, sys\n"

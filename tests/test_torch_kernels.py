@@ -706,3 +706,45 @@ def test_lowrank_sampler_refuses_oversized_rank(dev):
     with pytest.raises(ValueError, match="shared"):
         lowrank_sample_cuda((0, 0), 0, torch.zeros(d, device=dev), torch.ones(d, device=dev),
                             torch.zeros(d, 400, device=dev), 4)
+
+
+def _ad_targets(dev):
+    import advancedvi_jl_tpu_torch as avt
+
+    prob = make_logreg(11, n_data=208, n_features=60, device=dev)
+    nln, _, _ = make_normallognormal(0, 10, device=dev)
+    anchor = torch.linspace(-1.0, 1.0, 5, device=dev)
+    quartic = avt.fn_target(lambda t, a: -((t - a) ** 2).sum(-1) - 0.1 * ((t - a) ** 4).sum(-1),
+                            5, anchor)
+    return {"logreg": prob.unconstrained(), "nln": nln.unconstrained(), "quartic": quartic}
+
+
+@pytest.mark.parametrize("name", ["logreg", "nln", "quartic"])
+@pytest.mark.parametrize("family", ["meanfield", "fullrank"])
+def test_k5_body_matches_plain_version(dev, name, family):
+    """K5's generated body in the mean-field and full-rank kernels against
+    the graph's replay, 30 injected-noise steps (norm-wise 1e-5)."""
+    from advancedvi_jl_tpu_torch.ops.cuda.fused_advi import ad_spec
+
+    target = _ad_targets(dev)[name]
+    spec = ad_spec(target)
+    d = spec.dim
+    eng = FusedADVI(spec, family=family, n_samples=N)
+    prog = eng.ad
+    scale = 0.1 * (torch.ones(d, device=dev) if family == "meanfield"
+                   else torch.eye(d, device=dev))
+    st = eng.init(torch.zeros(d, device=dev), scale)
+    noise = torch.randn((30, N, d), generator=torch.Generator().manual_seed(2)).to(dev)
+    args = ("ad", prog.consts, (), (0, 0), 0, 30, N, eng.hyp, noise)
+    if family == "meanfield":
+        rows = st.stacked()
+        k = fused_run_chunk_cuda(*args[:3], rows, *args[3:], ad=prog)[0]
+        r = fused_run_chunk_reference(*args[:3], rows, *args[3:], ad=prog)[0]
+    else:
+        vec, mat = st.stacked_fullrank()
+        k = torch.cat([t.flatten() for t in fused_fullrank_run_chunk_cuda(
+            *args[:3], vec, mat, *args[3:], ad=prog)[:2]])
+        r = torch.cat([t.flatten() for t in fused_fullrank_run_chunk_reference(
+            *args[:3], vec, mat, *args[3:], ad=prog)[:2]])
+    torch.cuda.synchronize()
+    assert float((k - r).abs().max()) <= 1e-5 * float(r.abs().max())
