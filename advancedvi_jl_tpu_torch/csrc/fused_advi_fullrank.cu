@@ -22,10 +22,10 @@
 //
 // What bounds it on an H100: latency, as in the mean-field kernel: steps are
 // sequential.  A step at d = 62 (logreg, n = 10) is the mean-field step's
-// 254k multiply-adds plus a 62-long back-substitution per sample row and a
+// 254k multiply-adds plus the whitening (two 32-column panels) and a
 // rule pass over 1,953 lower-triangle entries.  At d = 512 (mvnormal) it is
 // 2.6M multiply-adds for the gradient (P is 1 MB), 1.3M for z = m + u C^T,
-// a 512-long substitution per row, and a rule pass that reads and writes
+// the whitening's 16 panels, and a rule pass that reads and writes
 // four 131k-entry lower triangles (seven with COCOB): megabytes of L2
 // traffic a step through one SM, whose 16 warps cannot hide the L2 latency.
 //
@@ -33,15 +33,18 @@
 // the block.  The draws u, the samples z, grad log pi and the whitened
 // draws w (n x d each), the location rows and, for logreg, X, y and the
 // logits live in dynamic shared memory.  The k (d, d) scale matrices (4, or
-// 7 with COCOB's G, reward and theta) live in shared memory when everything
-// fits in one block's 227 KB (d = 62: 61.5 KB, or 107.6 KB with COCOB),
-// and otherwise in the output buffer in device memory, where they stay
-// resident in the 50 MB L2 (d = 512: 4 MB, or 7 MB); one code path serves
-// both through a generic pointer.  With a staged 512-row minibatch slab the
-// four scale matrices still fit: 222,916 bytes in all at d = 62 (a 124,928-
-// byte slab of 61 features, 20,480 of logits, 4 x 15,376 of matrices;
-// 97,988 in place), 218,716 at d = 61; COCOB's seven do not, and go to
-// device memory (162,156 bytes left in shared).  The branch is a set of
+// 7 with COCOB's G, reward and theta) live in shared memory when they fit
+// beside those in one block's 227 KB (d = 62: 61.5 KB, or 107.6 KB with
+// COCOB), and otherwise in the output buffer in device memory, where they
+// stay resident in the 50 MB L2 (d = 512: 4 MB, or 7 MB); then the
+// whitening's panel operators (d/32 x 4 KB) go to shared memory when they
+// fit too, else to a scratch tensor in device memory (place()); one code
+// path serves every placement through generic pointers.  With a staged
+// 512-row minibatch slab everything still fits: 226,884 bytes at d = 62 (a
+// 124,928-byte slab of 61 features, 20,480 of logits, 4 x 15,376 of
+// matrices, 8,192 of operators; 101,956 in place), 222,684 at d = 61;
+// COCOB's seven matrices do not, and go to device memory (166,124 bytes
+// left in shared).  The branch is a set of
 // runtime codes (avi::Branch), uniform over the launch, and one compiled
 // kernel serves
 // every branch: an instance with the flagship branch's codes constant, as
@@ -54,9 +57,14 @@
 //   B  the model: logreg (fused_common.cuh), the dense Gaussian, grad =
 //      -(z - m) P (one thread per column of P, all sample rows at once) and
 //      log pi = (z - m) . grad / 2 + lognorm, or the diagonal Gaussian;
-//   C  whitening w = C^{-T} u: the rows of U C^{-1}, solved by the
-//      triangular solve's panel substitution (trisolve_rows.cuh, K8's mode
-//      C), one warp per sample row on each 32-column panel.  The closed-form
+//   C  whitening w = C^{-T} u: the rows of U C^{-1} by K8's blocked mode C
+//      (trisolve_rows.cuh): every 32 x 32 diagonal block of C inverted at
+//      once, one warp a block (C changes every step), then panel by panel
+//      from the last one product a sample row (one warp a row) and the
+//      update of the columns left (a thread per column and row group): d/32
+//      panels of two barriers, no d-long chain of divisions per row (7.4
+//      us of a 33.2 us step at d = 62, 121 of 563 at d = 512: H100 80GB
+//      HBM3, 700 W, the AVI_PHASE_CLOCKS build).  The closed-form
 //      zero-gradient entropy has no whitening term and skips this phase;
 //   D  g_z = -(1/n)(grad + w) (without w for the closed-form zero-gradient
 //      entropy); dmu = sum g_z; for each lower entry (a, b) (one warp per
@@ -93,7 +101,7 @@ using avi::kLog2Pi;
 
 // Offsets (in floats) of the shared-memory arrays.
 struct Layout {
-  int X, y, l, u, z, g, w, vec, dm, row, red, tri, mat, total;
+  int X, y, l, u, z, g, w, vec, dm, row, red, mat, inv, total;
 #ifdef AVI_AD_BODY
   int ad;  // K5's scratch
 #endif
@@ -102,7 +110,8 @@ struct Layout {
 // n_data is the design's rows; a minibatch model keeps one B-row slab (the
 // staged transports) and yX[k] in `y`.
 __host__ __device__ inline Layout make_layout(int model, int n_data, int db, int batch,
-                                              int n, int d, int k, bool mat_in_smem) {
+                                              int n, int d, int k, bool mat_in_smem,
+                                              bool inv_in_smem) {
   Layout L;
   int o = 0;
   const bool lr = model == avi::kLogReg;
@@ -118,19 +127,31 @@ __host__ __device__ inline Layout make_layout(int model, int n_data, int db, int
   L.dm = o;  o += d;                     // dmu of the step
   L.row = o; o += 6 * n + 1;             // beta_sq t inv_sig2 logpi u2 ylogit, logdet
   L.red = o; o += 2 * kWarps + 1;        // block reduction, then eta
-  L.tri = o; o += avi::kTriScratch;      // the whitening's panel scratch
 #ifdef AVI_AD_BODY
   L.ad = o;  o += model == avi::kAD ? avi::ad::kScratch : 0;  // the generated body's
 #endif
   L.mat = o; o += mat_in_smem ? k * d * d : 0;  // sig m_sig v_sig avg_sig [G R theta]
+  L.inv = o; o += inv_in_smem ? avi::tri_panels(d) * avi::kTriBlock : 0;  // whitening's M_p
   L.total = o;
   return L;
 }
 
-inline bool mat_fits(int model, int n_data, int db, int batch, int n, int d, int k) {
-  return sizeof(float) * static_cast<size_t>(
-                             make_layout(model, n_data, db, batch, n, d, k, true).total) <=
-         kSmemLimit;
+// Where the scale matrices and the whitening's panel operators live: the
+// matrices in shared memory when they fit beside the per-step arrays (as
+// before the operators existed), then the operators when they fit too;
+// each in device memory otherwise.
+struct Placement {
+  bool mat, inv;
+};
+
+inline Placement place(int model, int n_data, int db, int batch, int n, int d, int k) {
+  auto fits = [&](bool mat, bool inv) {
+    return sizeof(float) * static_cast<size_t>(
+                               make_layout(model, n_data, db, batch, n, d, k, mat, inv).total) <=
+           kSmemLimit;
+  };
+  const bool mat = fits(true, false);
+  return {mat, fits(mat, true)};
 }
 
 // dC of lower entry (a, b): sum_i g_z[i, a] u[i, b] (the same arithmetic in
@@ -142,6 +163,27 @@ __device__ __forceinline__ float lower_grad(const float* gs, const float* us, in
   return dc;
 }
 
+#ifdef AVI_PHASE_CLOCKS
+// The instrumented build (chip_smoke.py phase (m)): thread 0 adds the SM
+// cycles from one phase's closing barrier to the next one's into
+// avi_phase_cycles[i], i = 0 draws, 1 z, |u|^2 and log det, 2 the model,
+// 3 the whitening, 4 g_z, the rule pass and the ELBO.  The kernel without
+// the macro is untouched.
+__device__ unsigned long long avi_phase_cycles[5];
+#define AVI_PHASE(i)                                                                 \
+  do {                                                                               \
+    if (tid == 0) {                                                                  \
+      const long long t_now = clock64();                                             \
+      atomicAdd(&avi_phase_cycles[i], static_cast<unsigned long long>(t_now - t_prev)); \
+      t_prev = t_now;                                                                \
+    }                                                                                \
+  } while (0)
+#else
+#define AVI_PHASE(i) \
+  do {               \
+  } while (0)
+#endif
+
 // One block per SM by nature.  Capped at 88 registers a thread: left free
 // to take the 128 a 512-thread block allows, ptxas took them all and the
 // default branch ran 2-3% slower than at 88, the lowest cap without
@@ -151,11 +193,12 @@ __global__ void __maxnreg__(88) fused_advi_fullrank_kernel(
     int n_data, int db, int batch, float s0, float s1, const float* __restrict__ vec_in,
     const float* __restrict__ mat_in, float* __restrict__ vec_out, float* mat_out,
     float* __restrict__ elbo_out, float* __restrict__ trace,
-    const float* __restrict__ noise, int n, int d, int k, int steps, int log_every,
-    uint32_t k0, uint32_t k1, unsigned long long it0, avi::Hyper h, avi::Branch br,
-    bool mat_in_smem) {
+    const float* __restrict__ noise, float* inv_dev, int n, int d, int k, int steps,
+    int log_every, uint32_t k0, uint32_t k1, unsigned long long it0, avi::Hyper h,
+    avi::Branch br, Placement at) {
   extern __shared__ float smem[];
-  const Layout L = make_layout(model, n_data, db, batch, n, d, k, mat_in_smem);
+  const Layout L = make_layout(model, n_data, db, batch, n, d, k, at.mat, at.inv);
+  const bool mat_in_smem = at.mat;
   const bool logreg = model == avi::kLogReg;
   const bool minibatch = avi::is_minibatch(model);
   float* us = smem + L.u;
@@ -183,6 +226,7 @@ __global__ void __maxnreg__(88) fused_advi_fullrank_kernel(
   float* v_sig = sig + 2 * dd;
   float* a_sig = sig + 3 * dd;
   float* ext_sig = sig + 4 * dd;  // COCOB: G, reward, theta of the scale
+  float* inv = at.inv ? smem + L.inv : inv_dev;   // the panel operators M_p
   const avi::LogReg lrm{smem + L.X, smem + L.y, smem + L.l, n_data, db, s0, s1};
   avi::LogRegMB mbm{nullptr, smem + L.y, smem + L.l, batch, db, s0, s1};
   const int nb = minibatch ? n_data / batch : 1;
@@ -213,6 +257,9 @@ __global__ void __maxnreg__(88) fused_advi_fullrank_kernel(
   const int groups = (d + 3) / 4;
   const int nd = n * d;
   float elbo = 0.0f;
+#ifdef AVI_PHASE_CLOCKS
+  long long t_prev = clock64();
+#endif
 
   for (int s = 0; s < steps; ++s) {
     const unsigned long long it = it0 + static_cast<unsigned long long>(s);
@@ -238,6 +285,7 @@ __global__ void __maxnreg__(88) fused_advi_fullrank_kernel(
       }
     }
     __syncthreads();
+    AVI_PHASE(0);
     // one warp per row a of C, its lanes along the row (coalesced), all
     // sample rows at once: C is read once a step
     for (int a = warp; a < d; a += kWarps) {
@@ -275,6 +323,7 @@ __global__ void __maxnreg__(88) fused_advi_fullrank_kernel(
       if (lane == 0) *logdet = ld;
     }
     __syncthreads();
+    AVI_PHASE(1);
 
     // B: log pi and its gradient
     if (logreg) {
@@ -332,13 +381,15 @@ __global__ void __maxnreg__(88) fused_advi_fullrank_kernel(
       }
     }
     __syncthreads();
+    AVI_PHASE(2);
 
     // C: whitening w = C^{-T} u, in row form W = U C^{-1} (K8's mode C)
     if (!cf_zero) {
       for (int idx = tid; idx < nd; idx += kThreads) ws[idx] = us[idx];
       __syncthreads();
-      avi::solve_right_rows<false>(sig, d, ws, n, smem + L.tri, nullptr);
+      avi::solve_right_rows(sig, d, ws, n, inv);
     }
+    AVI_PHASE(3);
 
     // D: g_z, dmu, then (DoWG, DoG) the global sums before any entry moves
     for (int idx = tid; idx < nd; idx += kThreads)
@@ -430,6 +481,7 @@ __global__ void __maxnreg__(88) fused_advi_fullrank_kernel(
       if (log_every > 0 && (s + 1) % log_every == 0) trace[(s + 1) / log_every - 1] = elbo;
     }
     __syncthreads();
+    AVI_PHASE(4);
   }
 
   for (int i = tid; i < k * d; i += kThreads) vec_out[i] = mu[i];
@@ -440,15 +492,27 @@ __global__ void __maxnreg__(88) fused_advi_fullrank_kernel(
 
 }  // namespace
 
-// The dynamic shared memory a launch uses: with the k scale matrices in
-// shared memory when they fit, without them otherwise; k is 4, or 7 with
-// COCOB.
+// The dynamic shared memory a launch uses: with the k scale matrices and
+// the whitening's panel operators in shared memory where they fit (place),
+// without them otherwise; k is 4, or 7 with COCOB.
 extern "C" size_t fused_advi_fullrank_smem_bytes(int model, int n_data, int db, int batch,
                                                  int n, int d, int k) {
-  const bool fits = mat_fits(model, n_data, db, batch, n, d, k);
-  return sizeof(float) *
-         static_cast<size_t>(make_layout(model, n_data, db, batch, n, d, k, fits).total);
+  const Placement at = place(model, n_data, db, batch, n, d, k);
+  return sizeof(float) * static_cast<size_t>(
+                             make_layout(model, n_data, db, batch, n, d, k, at.mat, at.inv).total);
 }
+
+#ifdef AVI_PHASE_CLOCKS
+// Copies the instrumented build's avi_phase_cycles (5 counters) to host
+// memory `out` after the work queued so far, then zeroes them.  Returns the
+// first CUDA error (0 on success).
+extern "C" int fused_advi_fullrank_phase_cycles(unsigned long long* out) {
+  cudaError_t err = cudaMemcpyFromSymbol(out, avi_phase_cycles, sizeof(avi_phase_cycles));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const unsigned long long zero[5] = {0, 0, 0, 0, 0};
+  return static_cast<int>(cudaMemcpyToSymbol(avi_phase_cycles, zero, sizeof(zero)));
+}
+#endif
 
 // model 0: logreg, c0 = X (n_data, db), c1 = y (n_data,), s0 = likeadj,
 // s1 = prior_scale, d = db + 1; model 1: mvnormal, c0 = mean (d,), c1 =
@@ -461,7 +525,9 @@ extern "C" size_t fused_advi_fullrank_smem_bytes(int model, int n_data, int db, 
 // avg_sig; with COCOB (k = 7) each is followed by its G, reward and theta
 // (only lower triangles are updated; the upper ones are copied through).
 // elbo_out: one float; trace: (steps / log_every,) or null when
-// log_every == 0; noise: (steps, n, d) or null for in-kernel Philox.  algo,
+// log_every == 0; noise: (steps, n, d) or null for in-kernel Philox;
+// inv_scratch: tri_panels(d) x 32 x 32 floats of device memory for the
+// whitening's panel operators, used when they do not fit in shared memory.  algo,
 // entropy, grad_est, op: the avi::Branch codes (grad_est must be the
 // reparameterization gradient).  Returns cudaGetLastError() after the
 // launch (0 on success), or cudaErrorInvalidValue for a launch the kernel
@@ -471,7 +537,8 @@ extern "C" size_t fused_advi_fullrank_smem_bytes(int model, int n_data, int db, 
 extern "C" int fused_advi_fullrank(
     int model, const float* c0, const float* c1, int n_data, int db, int batch, float s0,
     float s1, const float* vec_in, const float* mat_in, float* vec_out,
-    float* mat_out, float* elbo_out, float* trace, const float* noise, int n, int d,
+    float* mat_out, float* elbo_out, float* trace, const float* noise, float* inv_scratch,
+    int n, int d,
     int steps, int log_every, uint32_t seed0, uint32_t seed1, unsigned long long it0,
     float lr, float b1, float b2, float eps, float avg_eta, float clip_eps, int algo,
     int entropy, int grad_est, int op, float cocob_alpha, cudaStream_t stream) {
@@ -488,7 +555,7 @@ extern "C" int fused_advi_fullrank(
       (mb && (batch < 1 || batch % 8 != 0 || n_data % batch != 0 || n_data < batch ||
               reinterpret_cast<uintptr_t>(c0) % 16 != 0)))
     return static_cast<int>(cudaErrorInvalidValue);
-  const bool fits = mat_fits(model, n_data, db, batch, n, d, k);
+  const Placement at = place(model, n_data, db, batch, n, d, k);
   const size_t smem = fused_advi_fullrank_smem_bytes(model, n_data, db, batch, n, d, k);
   if (smem > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
   // above 48 KB only after this call; without it the launch is refused
@@ -500,6 +567,6 @@ extern "C" int fused_advi_fullrank(
   const avi::Branch br{algo, entropy, grad_est, op, cocob_alpha};
   fused_advi_fullrank_kernel<<<1, kThreads, smem, stream>>>(
       model, c0, c1, n_data, db, batch, s0, s1, vec_in, mat_in, vec_out, mat_out, elbo_out,
-      trace, noise, n, d, k, steps, log_every, seed0, seed1, it0, h, br, fits);
+      trace, noise, inv_scratch, n, d, k, steps, log_every, seed0, seed1, it0, h, br, at);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,106 +1,138 @@
-// The batched right division by a lower-triangular C that the triangular
-// solve kernel (trisolve.cu, K8) runs, as a block-level device function the
-// fused full-rank kernel (fused_advi_fullrank.cu) runs too, for its
-// whitening C^{-T} u_i = (u C^{-1})_i:
+// The blocked right division by a lower-triangular C that the triangular
+// solve kernel (trisolve.cu, K8) and the fused full-rank kernel's whitening
+// (fused_advi_fullrank.cu, C^{-T} u_i = (u C^{-1})_i) share:
 //
-//   mode C : W = V C^{-1}  (W C = V):    w_c = (v_c - sum_{k>c} w_k C[k,c]) / C[c,c]
-//   mode CT: W = V C^{-T}  (W C^T = V):  w_c = (v_c - sum_{k<c} C[c,k] w_k) / C[c,c]
+//   mode C : W = V C^{-1}  (W C = V)
+//   mode CT: W = V C^{-T}  (W C^T = V)
 //
-// The rows of V are independent, but within a row each unknown needs every
-// unknown solved before it: d sequential steps, which bound the solve.  C
-// is walked in panels of 32 columns in the order of the substitution
-// (backward for mode C, forward for CT).  For each panel the block stages
-// the 32 x 32 diagonal block of C in shared memory; one warp per row then
-// solves the panel's 32 unknowns with warp shuffles (lane l owns column
-// c0 + l; the owner of the next unknown divides by the diagonal and
-// broadcasts; every lane with an unsolved column subtracts its share), so
-// the sequential chain touches only registers and shared memory.  Then the
-// whole block subtracts the panel's solved unknowns from every unsolved
-// column of every row at once (one thread per column, eight rows at a
-// time), reading C from wherever it lies (column-coalesced in mode C, 128
-// contiguous bytes a thread in mode CT).  The sequential depth is d shuffle
-// steps plus 3 d / 32 block barriers.  Only the lower triangle of C is read.
+// C is cut into panels of 32 columns, D_p the 32 x 32 diagonal block of
+// panel p.  Panel by panel (backward in mode C, forward in CT):
+//
+//   mode C : W_p = (V_p - sum_{q > p} W_q C[q, p])   D_p^{-1}
+//   mode CT: W_p = (V_p - sum_{q < p} W_q C[p, q]^T) D_p^{-T}
+//
+// Each D_p is inverted once, exactly as substitution would (one warp, lane
+// l one column of the panel's operator, the 32 diagonal reciprocals formed
+// once, no division and no cross-lane chain: diag_block_inverse), and kept
+// as M_p = D_p^{-1} (mode C) or D_p^{-T} (CT), so that the panel's unknowns
+// are w_j = sum_k r_k M_p[k][j]: 32 independent products a row.  Then the
+// solved panel is subtracted from the unsolved columns.  The sequential
+// depth is d / 32 panels of one product and one update each, where a
+// per-row substitution takes d dependent steps, each a division.  Every
+// sum runs over k in a fixed order (the result does not depend on the
+// thread mapping), in float32 FMAs.  Only the lower triangle of C is read.
+// What bounds it is the panel walk's latency, not arithmetic: in the fused
+// full-rank kernel (one block, C read through a generic pointer) the
+// whitening takes 7.4 us a step at d = 62 (C in shared memory) and 121 us
+// at d = 512 (C in L2), H100 80GB HBM3 at 700 W.
 #pragma once
 
 #include <cuda_runtime.h>
 
 namespace avi {
 
-constexpr int kTriPanel = 32;                             // unknowns per panel: one a lane
-constexpr int kTriScratch = kTriPanel * (kTriPanel + 1);  // floats of `dblk`
+constexpr int kTriPanel = 32;                      // unknowns per panel: one a lane
+constexpr int kTriBlock = kTriPanel * kTriPanel;  // floats of one panel's operator
 
-// Weight of the solved unknown k in the equation of column c.
+__host__ __device__ inline int tri_panels(int d) { return (d + kTriPanel - 1) / kTriPanel; }
+
+// Warp-level: writes panel p's operator M_p (row-major, 32 x 32) to M
+// (shared or device memory), first using M to stage D_p.  Past the ragged
+// edge of the last panel D_p is padded with the identity, so M_p[k][j] = 0
+// for k < pw <= j.  Every lane of the warp must call it.
 template <bool kCT>
-__device__ __forceinline__ float tri_coef(const float* C, int d, int k, int c) {
-  return kCT ? C[static_cast<size_t>(c) * d + k] : C[static_cast<size_t>(k) * d + c];
+__device__ void diag_block_inverse(const float* C, int d, int p, float* M, int lane) {
+  const int c0 = p * kTriPanel;
+  const int pw = min(kTriPanel, d - c0);
+  for (int i = 0; i < kTriPanel; ++i) {  // D_p[i][lane], one coalesced row a step
+    float v = i == lane ? 1.0f : 0.0f;
+    if (i < pw && lane < pw)
+      v = lane <= i ? C[static_cast<size_t>(c0 + i) * d + c0 + lane] : 0.0f;
+    M[i * kTriPanel + lane] = v;
+  }
+  __syncwarp();
+  const float rinv = 1.0f / M[lane * kTriPanel + lane];  // lane l: 1 / D[l][l]
+  float x[kTriPanel];
+  if (!kCT) {
+    // lane l: column l of X = D^{-1},
+    //   X[i][l] = (delta_il - sum_{k<i} D[i][k] X[k][l]) / D[i][i]
+#pragma unroll
+    for (int i = 0; i < kTriPanel; ++i) {
+      float acc = i == lane ? 1.0f : 0.0f;
+#pragma unroll
+      for (int k = 0; k < i; ++k) acc = fmaf(-M[i * kTriPanel + k], x[k], acc);
+      x[i] = acc * __shfl_sync(0xffffffffu, rinv, i);
+    }
+  } else {
+    // lane l: row l of X, which is column l of X^T = D^{-T},
+    //   X[l][j] = (delta_lj - sum_{k>j} X[l][k] D[k][j]) / D[j][j]
+#pragma unroll
+    for (int j = kTriPanel - 1; j >= 0; --j) {
+      float acc = j == lane ? 1.0f : 0.0f;
+#pragma unroll
+      for (int k = kTriPanel - 1; k > j; --k) acc = fmaf(-M[k * kTriPanel + j], x[k], acc);
+      x[j] = acc * __shfl_sync(0xffffffffu, rinv, j);
+    }
+  }
+  __syncwarp();
+  for (int i = 0; i < kTriPanel; ++i) M[i * kTriPanel + lane] = x[i];  // column `lane` of M_p
 }
 
-// Solves `rows` rows of V held in shared memory (rs, leading dimension d) in
-// place: on return rs holds W.  When `out` is not null, row r of W is also
-// written to out[r * d ...].  dblk: kTriScratch floats of shared memory.
-// Every thread of the block must call it (it holds block barriers), with
-// the block's data ready (a barrier before the call).
-template <bool kCT>
-__device__ void solve_right_rows(const float* C, int d, float* rs, int rows, float* dblk,
-                                 float* out) {
+// Mode C for `rows` rows of V held in shared memory (rs, leading dimension
+// d), solved in place: on return rs holds W = V C^{-1}.  C may lie in
+// shared or device memory; M: tri_panels(d) * kTriBlock floats (shared or
+// device memory) for the panel operators, formed here (C changes between
+// calls).  Every thread of the block must call it, with rs ready (a
+// barrier before the call); it ends with a barrier.
+__device__ void solve_right_rows(const float* C, int d, float* rs, int rows, float* M) {
   const int tid = threadIdx.x;
   const int threads = blockDim.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int warps = threads >> 5;
-  const int panels = (d + kTriPanel - 1) / kTriPanel;
-  for (int step = 0; step < panels; ++step) {
-    const int p = kCT ? step : panels - 1 - step;
+  const int panels = tri_panels(d);
+  for (int p = warp; p < panels; p += warps)
+    diag_block_inverse<false>(C, d, p, M + p * kTriBlock, lane);
+  __syncthreads();
+  for (int p = panels - 1; p >= 0; --p) {
     const int c0 = p * kTriPanel;
     const int pw = min(kTriPanel, d - c0);
-
-    // the panel's diagonal block: dblk[k][c] = C[c0 + k][c0 + c], lower part
-    for (int e = tid; e < kTriPanel * kTriPanel; e += threads) {
-      const int k = e / kTriPanel;
-      const int c = e - k * kTriPanel;
-      dblk[k * (kTriPanel + 1) + c] =
-          (k < pw && c <= k) ? C[static_cast<size_t>(c0 + k) * d + c0 + c] : 0.0f;
-    }
-    __syncthreads();
-
-    // in-panel substitution, one warp per row
+    const float* Mp = M + p * kTriBlock;
+    // the panel's unknowns, one warp per row: w_j = sum_k r_k M_p[k][j]
     for (int r = warp; r < rows; r += warps) {
-      float* rrow = rs + r * d;
-      float x = lane < pw ? rrow[c0 + lane] : 0.0f;
-      for (int s = 0; s < pw; ++s) {
-        const int jl = kCT ? s : pw - 1 - s;  // panel lane of the next unknown
-        const float wj = __shfl_sync(0xffffffffu, x / dblk[jl * (kTriPanel + 1) + jl], jl);
-        if (lane == jl) x = wj;
-        // mode C: unknown jl enters column lane < jl with C[jl][lane];
-        // mode CT: it enters column lane > jl with C[lane][jl]
-        const bool open = kCT ? (lane > jl && lane < pw) : (lane < jl);
-        const float g = kCT ? dblk[lane * (kTriPanel + 1) + jl] : dblk[jl * (kTriPanel + 1) + lane];
-        if (open) x = fmaf(-g, wj, x);
-      }
-      if (lane < pw) {
-        rrow[c0 + lane] = x;
-        if (out != nullptr) out[static_cast<size_t>(r) * d + c0 + lane] = x;
-      }
+      float* rr = rs + r * d + c0;
+      float w = 0.0f;
+      for (int k = 0; k < pw; ++k) w = fmaf(rr[k], Mp[k * kTriPanel + lane], w);
+      __syncwarp();
+      if (lane < pw) rr[lane] = w;
     }
     __syncthreads();
-
-    // subtract the panel's unknowns from every unsolved column
-    const int lo = kCT ? c0 + pw : 0;
-    const int hi = kCT ? d : c0;
-    for (int c = lo + tid; c < hi; c += threads) {
-      for (int r0 = 0; r0 < rows; r0 += 8) {
+    if (c0 == 0) break;
+    // subtract them from the unsolved columns c < c0: a thread per (column,
+    // group of rows), up to 8 rows of its group at once per read of C
+    // (more rows, or an unrolled k loop, made the fused full-rank kernel
+    // spill under its 88-register cap and run slower)
+    const int groups = max(1, min(rows, threads / c0));
+    for (int e = tid; e < c0 * groups; e += threads) {
+      const int g = e / c0;
+      const int c = e - g * c0;
+      for (int r0 = g; r0 < rows; r0 += 8 * groups) {
         float acc[8];
 #pragma unroll
         for (int q = 0; q < 8; ++q) acc[q] = 0.0f;
         for (int k = 0; k < pw; ++k) {
-          const float g = tri_coef<kCT>(C, d, c0 + k, c);
+          const float cv = C[static_cast<size_t>(c0 + k) * d + c];
 #pragma unroll
-          for (int q = 0; q < 8; ++q)
-            if (r0 + q < rows) acc[q] = fmaf(rs[(r0 + q) * d + c0 + k], g, acc[q]);
+          for (int q = 0; q < 8; ++q) {
+            const int r = r0 + q * groups;
+            if (r < rows) acc[q] = fmaf(rs[r * d + c0 + k], cv, acc[q]);
+          }
         }
 #pragma unroll
-        for (int q = 0; q < 8; ++q)
-          if (r0 + q < rows) rs[(r0 + q) * d + c] -= acc[q];
+        for (int q = 0; q < 8; ++q) {
+          const int r = r0 + q * groups;
+          if (r < rows) rs[r * d + c] -= acc[q];
+        }
       }
     }
     __syncthreads();

@@ -15,6 +15,10 @@ K5 (ops/cuda/ad_body.py): ``build_generated`` writes the body to
 covering the flags, the kernel's source, every shared header and the body.
 A failed build raises; nothing runs the body's plain version in its place.
 
+A kernel may also build with preprocessor ``defines`` (the full-rank
+kernel's per-phase cycle counters, ``AVI_PHASE_CLOCKS``) into
+``lib<name>-<define>-<hash>.so``, its hash covering the defines.
+
 Nothing here runs when the package is imported: a wrapper calls ``function``
 when it is first handed a CUDA tensor.
 """
@@ -66,8 +70,8 @@ def nvcc() -> str:
     return path
 
 
-def _source_hash(name: str, body: Optional[str] = None) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _source_hash(name: str, body: Optional[str] = None, defines: Sequence[str] = ()) -> str:
+    h = hashlib.sha256(" ".join((*NVCC_FLAGS, *defines)).encode())
     for src in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -76,11 +80,12 @@ def _source_hash(name: str, body: Optional[str] = None) -> str:
     return h.hexdigest()[:16]
 
 
-def library_path(name: str) -> Path:
-    """The library's path: its name carries a hash of the flags, of
-    ``<name>.cu`` and of every shared header ``csrc/*.cuh``, so editing any
-    header a kernel may include rebuilds it."""
-    return BUILD_DIR / f"lib{name}-{_source_hash(name)}.so"
+def library_path(name: str, defines: Sequence[str] = ()) -> Path:
+    """The library's path: its name carries a hash of the flags and
+    ``defines``, of ``<name>.cu`` and of every shared header ``csrc/*.cuh``,
+    so editing any header a kernel may include rebuilds it."""
+    tag = "".join(f"-{d.lower()}" for d in defines)
+    return BUILD_DIR / f"lib{name}{tag}-{_source_hash(name, defines=defines)}.so"
 
 
 def body_path(body: str) -> Path:
@@ -94,9 +99,10 @@ def generated_library_path(name: str, body: str) -> Path:
     return BUILD_DIR / f"lib{name}-ad-{_source_hash(name, body)}.so"
 
 
-def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless an up-to-date library exists."""
-    return build_all([name])[name]
+def build(name: str, defines: Sequence[str] = ()) -> Path:
+    """Compile ``csrc/<name>.cu`` (with ``-D`` of each of ``defines``)
+    unless an up-to-date library exists."""
+    return build_all([name], defines)[name]
 
 
 def _atomic_write(path: Path, text: str) -> None:
@@ -134,14 +140,15 @@ def _compile(jobs: Sequence[Tuple[str, Path, Sequence[str]]]) -> None:
         raise RuntimeError("\n".join(failed))
 
 
-def build_all(names: Sequence[str] = KERNELS) -> Dict[str, Path]:
+def build_all(names: Sequence[str] = KERNELS, defines: Sequence[str] = ()) -> Dict[str, Path]:
     """Compile the named kernels that have no up-to-date library, one
     ``nvcc`` process per source, all started together; returns their paths."""
     for name in names:
         if name not in KERNELS:
             raise ValueError(f"unknown kernel {name!r}; known: {KERNELS}")
-    paths = {name: library_path(name) for name in names}
-    _compile([(name, out, ()) for name, out in paths.items()])
+    paths = {name: library_path(name, defines) for name in names}
+    flags = tuple(f"-D{d}" for d in defines)
+    _compile([(name, out, flags) for name, out in paths.items()])
     return paths
 
 
@@ -169,22 +176,25 @@ def build_generated_all(pairs: Sequence[Tuple[str, str]]) -> Dict[Tuple[str, str
 
 
 def function(name: str, symbol: str, argtypes: Sequence, restype=ctypes.c_int,
-             body: Optional[str] = None):
+             body: Optional[str] = None, defines: Sequence[str] = ()):
     """The C entry ``symbol`` of kernel library ``name`` (with the generated
-    K5 ``body``, when given), built and loaded on first use, with its
-    argument types declared (pointers and the stream as ``c_void_p``, so
-    ctypes never cuts them to 32 bits)."""
-    digest = None if body is None else hashlib.sha256(body.encode()).hexdigest()
-    fn = _fns.get((name, digest, symbol))
+    K5 ``body``, or built with ``defines``, when given), built and loaded on
+    first use, with its argument types declared (pointers and the stream as
+    ``c_void_p``, so ctypes never cuts them to 32 bits)."""
+    if body is not None and defines:
+        raise ValueError("a generated K5 body builds without defines")
+    key = (hashlib.sha256(body.encode()).hexdigest() if body is not None
+           else " ".join(defines) or None)
+    fn = _fns.get((name, key, symbol))
     if fn is None:
-        lib = _libs.get((name, digest))
+        lib = _libs.get((name, key))
         if lib is None:
-            path = build(name) if body is None else build_generated(name, body)
-            lib = _libs[(name, digest)] = ctypes.CDLL(str(path))
+            path = build(name, defines) if body is None else build_generated(name, body)
+            lib = _libs[(name, key)] = ctypes.CDLL(str(path))
         fn = getattr(lib, symbol)
         fn.argtypes = list(argtypes)
         fn.restype = restype
-        _fns[(name, digest, symbol)] = fn
+        _fns[(name, key, symbol)] = fn
     return fn
 
 

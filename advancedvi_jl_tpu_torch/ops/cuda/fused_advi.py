@@ -90,7 +90,7 @@ import ctypes
 import math
 import warnings
 from dataclasses import dataclass, replace
-from typing import Any, Callable, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -858,7 +858,10 @@ _ARGS_TAIL = (
     + [ctypes.c_void_p]
 )
 _MEANFIELD_ARGTYPES = _ARGS_HEAD + [ctypes.c_void_p] * 5 + _ARGS_TAIL
-_FULLRANK_ARGTYPES = _ARGS_HEAD + [ctypes.c_void_p] * 7 + _ARGS_TAIL
+_FULLRANK_ARGTYPES = _ARGS_HEAD + [ctypes.c_void_p] * 8 + _ARGS_TAIL
+# the full-rank kernel's build with per-phase cycle counters (phase_cycles)
+PHASE_CLOCKS = ("AVI_PHASE_CLOCKS",)
+PHASES = ("draws", "z", "model", "whitening", "rule")
 
 
 def _model_args(model: str, consts, scalars, d: int, dev, full_rank: bool, n: int = 0,
@@ -1000,11 +1003,14 @@ def fused_fullrank_run_chunk_cuda(
     model: str, consts, scalars, vec, mat, seed, it0: int, steps: int,
     n_samples: int, hyp: FusedHyper, noise=None, log_every: int = 0,
     branch: FusedBranch = DEFAULT_BRANCH, ad: Optional[ADProgram] = None,
+    instrumented: bool = False,
 ):
     """Launch csrc/fused_advi_fullrank.cu on the current stream (same
     signature and results as ``fused_fullrank_run_chunk_reference``).  Adds
     one to ``fused_fullrank_run_chunk_cuda.launches`` per launch, and to
-    each of the branch's LAUNCH_GROUPS in ``group_launches``."""
+    each of the branch's LAUNCH_GROUPS in ``group_launches``.
+    ``instrumented`` launches the build with per-phase cycle counters
+    instead (PHASE_CLOCKS; read them with ``phase_cycles``)."""
     dev = vec.device
     if not vec.is_cuda:
         raise ValueError(f"fused_fullrank_run_chunk_cuda needs CUDA tensors, got {dev}")
@@ -1021,9 +1027,10 @@ def fused_fullrank_run_chunk_cuda(
         check_f32("noise", noise, (steps, n, d), dev)
     code = MODEL_CODES[model]
     body = ad.source if model == AD else None
+    defines = PHASE_CLOCKS if instrumented else ()
     smem = _build.function(
         "fused_advi_fullrank", "fused_advi_fullrank_smem_bytes",
-        [ctypes.c_int] * 7, restype=ctypes.c_size_t, body=body,
+        [ctypes.c_int] * 7, restype=ctypes.c_size_t, body=body, defines=defines,
     )(code, n_data, db, batch, n, d, k)
     if smem > _build.SMEM_LIMIT:
         raise ValueError(
@@ -1032,9 +1039,11 @@ def fused_fullrank_run_chunk_cuda(
             f"is over the {_build.SMEM_LIMIT}-byte limit of one block"
         )
     fn = _build.function("fused_advi_fullrank", "fused_advi_fullrank", _FULLRANK_ARGTYPES,
-                         body=body)
+                         body=body, defines=defines)
     vec_out = torch.empty_like(vec)
     mat_out = torch.empty_like(mat)
+    # the whitening's panel operators, where they do not fit in shared memory
+    inv = torch.empty(-(-d // 32) * 1024, dtype=torch.float32, device=dev)
     elbo = torch.empty((), dtype=torch.float32, device=dev)
     trace = (
         torch.empty(steps // log_every, dtype=torch.float32, device=dev)
@@ -1046,7 +1055,7 @@ def fused_fullrank_run_chunk_cuda(
             code, c0.data_ptr(), c1.data_ptr(), n_data, db, batch, s0, s1,
             vec.data_ptr(), mat.data_ptr(), vec_out.data_ptr(), mat_out.data_ptr(),
             elbo.data_ptr(), trace.data_ptr() if trace is not None else None,
-            noise.data_ptr() if noise is not None else None,
+            noise.data_ptr() if noise is not None else None, inv.data_ptr(),
             n, d, steps, log_every, seed[0], seed[1], it0,
             hyp.lr, hyp.b1, hyp.b2, hyp.eps, hyp.avg_eta, hyp.clip_eps,
             *codes, branch.cocob_alpha, stream,
@@ -1058,6 +1067,17 @@ def fused_fullrank_run_chunk_cuda(
 
 fused_fullrank_run_chunk_cuda.launches = 0
 fused_fullrank_run_chunk_cuda.group_launches = dict.fromkeys(LAUNCH_GROUPS, 0)
+
+
+def phase_cycles() -> Dict[str, int]:
+    """SM cycles that thread 0 of the instrumented full-rank kernel spent in
+    each phase (PHASES) over the launches since the last call, summed; the
+    counters restart at zero.  Waits for the queued work."""
+    fn = _build.function("fused_advi_fullrank", "fused_advi_fullrank_phase_cycles",
+                         [ctypes.c_void_p], defines=PHASE_CLOCKS)
+    out = (ctypes.c_ulonglong * len(PHASES))()
+    _build.check(fn(ctypes.addressof(out)), "fused_advi_fullrank_phase_cycles")
+    return dict(zip(PHASES, out))
 
 
 def fused_fullrank_run_chunk(model, consts, scalars, vec, mat, seed, it0, steps,
@@ -1082,13 +1102,13 @@ def ad_smem_bytes(family: str, n: int, d: int, scratch: int, rows: int) -> int:
     """Dynamic shared memory of a launch on model "ad" (the kernels'
     make_layout for kAD): the draws, samples and gradients, ``rows`` state
     rows (mean-field and each chain's block; the full-rank kernel's (rows,
-    d) location rows, its scale matrices left out, as they go to device
-    memory when they do not fit), the per-row sums, the block reduction, the
-    full-rank whitening's panel and the generated body's scratch."""
+    d) location rows, its scale matrices and the whitening's panel operators
+    left out, as they go to device memory when they do not fit), the
+    per-row sums, the block reduction and the generated body's scratch."""
     if family == MEANFIELD:
         floats = 3 * n * d + rows * d + 2 * d + 7 * n + 1 + 33 + scratch
     else:
-        floats = 4 * n * d + rows * d + d + 6 * n + 1 + 33 + 32 * 33 + scratch
+        floats = 4 * n * d + rows * d + d + 6 * n + 1 + 33 + scratch
     return 4 * floats
 
 

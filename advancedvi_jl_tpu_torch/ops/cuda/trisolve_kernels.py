@@ -10,7 +10,9 @@ the rows of V (n, d):
   whitening ``scale \\ (z - location)``.
 
 Only the lower triangle of C is read.  The JAX kernel's d % 128 gate was a
-TPU tile constraint: csrc/trisolve.cu takes any d.  ``solve_right``
+TPU tile constraint: csrc/trisolve.cu takes any d.  The kernel inverts each
+32 x 32 diagonal block of C once, into a scratch tensor that the wrapper
+allocates, and then runs products panel by panel.  ``solve_right``
 launches the kernel for CUDA tensors (float32 only: anything else raises)
 and runs ``solve_right_reference``, its plain PyTorch version, for CPU
 tensors; there is no fallback between the two.
@@ -41,14 +43,25 @@ def solve_right_reference(C: torch.Tensor, V: torch.Tensor, mode: str = "C") -> 
                                          upper=mode == "CT", left=False)
 
 
-_SOLVE_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_SOLVE_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+ROWS_PER_BLOCK = (1, 2, 4, 8)
 
 
-def solve_right_cuda(C: torch.Tensor, V: torch.Tensor, mode: str = "C") -> torch.Tensor:
+def rows_per_block(n: int) -> int:
+    """The rows of V a block of the kernel owns for n rows on the current
+    card: the least of ROWS_PER_BLOCK whose blocks fit on the SMs at once."""
+    return _build.function("trisolve", "trisolve_rows_per_block", [ctypes.c_int])(n)
+
+
+def solve_right_cuda(C: torch.Tensor, V: torch.Tensor, mode: str = "C",
+                     rows: int = 0) -> torch.Tensor:
     """Launch csrc/trisolve.cu on the current stream (same result as
-    ``solve_right_reference``).  Adds one to ``solve_right_cuda.launches``
-    per launch."""
+    ``solve_right_reference``), ``rows`` rows of V a block (0: the card's
+    choice, ``rows_per_block``).  Adds one to ``solve_right_cuda.launches``
+    per call."""
     _check_mode(mode)
+    if rows and rows not in ROWS_PER_BLOCK:
+        raise ValueError(f"rows must be 0 or one of {ROWS_PER_BLOCK}, got {rows}")
     if not V.is_cuda:
         raise ValueError(f"solve_right_cuda needs CUDA tensors, got {V.device}")
     if V.ndim != 2:
@@ -56,21 +69,25 @@ def solve_right_cuda(C: torch.Tensor, V: torch.Tensor, mode: str = "C") -> torch
     n, d = V.shape
     check_f32("C", C, (d, d), V.device)
     check_f32("V", V, (n, d), V.device)
-    smem = _build.function("trisolve", "trisolve_smem_bytes", [ctypes.c_int],
-                           restype=ctypes.c_size_t)(d)
-    if smem > _build.SMEM_LIMIT:
-        raise ValueError(
-            f"the solve keeps a tile of rows in shared memory: {smem} bytes "
-            f"for d={d} is over the {_build.SMEM_LIMIT}-byte limit of one block"
-        )
     W = torch.empty_like(V)
     if n == 0 or d == 0:
         return W
-    fn = _build.function("trisolve", "trisolve", _SOLVE_ARGTYPES)
     with torch.cuda.device(V.device):
+        rows = rows or rows_per_block(n)
+        smem = _build.function("trisolve", "trisolve_smem_bytes", [ctypes.c_int] * 2,
+                               restype=ctypes.c_size_t)(d, rows)
+        if smem > _build.SMEM_LIMIT:
+            raise ValueError(
+                f"the solve keeps {rows} rows of V and its C tiles in shared memory: "
+                f"{smem} bytes for d={d} is over the {_build.SMEM_LIMIT}-byte limit "
+                "of one block"
+            )
+        # the diagonal blocks' inverses, d/32 x 32 x 32
+        M = torch.empty(-(-d // 32) * 1024, dtype=torch.float32, device=V.device)
+        fn = _build.function("trisolve", "trisolve", _SOLVE_ARGTYPES)
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(C.data_ptr(), V.data_ptr(), W.data_ptr(), n, d,
-                 int(mode == "CT"), stream)
+        err = fn(C.data_ptr(), V.data_ptr(), W.data_ptr(), M.data_ptr(), n, d,
+                 int(mode == "CT"), rows, stream)
     _build.check(err, "trisolve launch")
     solve_right_cuda.launches += 1
     return W

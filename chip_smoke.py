@@ -3,7 +3,7 @@
 
 Run from the root of a checkout, on a machine with a CUDA card:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent OTHER_CHECKOUT]
 
 It builds the port's CUDA kernels from advancedvi_jl_tpu_torch/csrc with
 nvcc, holds each kernel against its plain PyTorch version on the card, and
@@ -26,16 +26,24 @@ Phases:
   (d) the fused kernel against its plain version with injected noise;
   (e) the fused kernel with in-kernel Philox: chunking, tracing, plain version;
   (f) the general path on the card;  (g) the fused engine on the card;
-  (h) steps/s of both paths and each kernel's time beside its plain version;
+  (h) steps/s of both paths and each kernel's time beside its plain version
+      (the sampler also by CUDA-graph replay, without the wrapper's host time);
   (i) the full-rank sampler (K7b) against its plain version and K7a's draws;
-  (j) the triangular solve (K8), both modes, against a float64 solve;
+  (j) the triangular solve (K8), both modes, against a float64 solve and
+      its plain version at the main path's and at ragged shapes (n from 1
+      to 300, d from 1 to 1,024), every rows-a-block choice bit-equal;
   (k) the full-rank fused kernel (K3-FR) against its plain version at
       d = 62 (logreg) and d = 512 (dense Gaussian): noise, Philox, chunking;
   (l) the full-rank paths: ``optimize`` with FullRankGaussian at d = 1024,
       n = 256, the fused full-rank logreg engine to 20,000 steps, fused vs
       general on the same key at d = 62 and d = 512;
   (m) steps/s of the full-rank paths and the new kernels' times beside
-      their plain versions;
+      their plain versions; K8 beside cuBLAS trsm by CUDA events and by
+      CUDA-graph replay, at each rows-a-block choice; the full-rank step's
+      phase split (an instrumented build's cycle counters) at d = 62 and
+      512; with ``--parent``, K8 and the full-rank chunks of that checkout
+      (e.g. a ``git archive`` of the parent under the ignored ``_archive/``)
+      and of this one, a fresh process each, alternating;
   (n) every branch added by the proximal/score-gradient slice (update
       rules, zero-gradient entropies, prox, VarGrad, the diagonal-Gaussian
       body) in both fused kernels against its plain version: noise,
@@ -148,6 +156,35 @@ def cuda_ms(fn, reps: int) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def graph_ms(fn, calls: int = 50, replays: int = 5) -> float:
+    """Mean milliseconds of ``fn()`` on the card without the host: ``calls``
+    calls captured in one CUDA graph, replayed ``replays`` times between two
+    CUDA events.  What a call costs the card when nothing waits on the
+    wrapper's Python and ctypes work (``cuda_ms`` counts that work whenever it
+    outlasts the kernel).  The capture is relaxed: the wrappers set a
+    kernel's shared-memory attribute on every call."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / (calls * replays)
 
 
 def smi_clocks() -> str:
@@ -488,14 +525,17 @@ def phase_h(dev, card):
     # each kernel beside its plain version at the main path's shapes
     loc, sc = torch.zeros(d, device=dev), torch.ones(d, device=dev)
     samp_ms = cuda_ms(lambda: meanfield_sample_cuda(seed, 1, loc, sc, N_SAMPLES), 1000)
+    samp_graph = graph_ms(lambda: meanfield_sample_cuda(seed, 1, loc, sc, N_SAMPLES), 200)
     samp_plain = cuda_ms(lambda: meanfield_sample_reference(seed, 1, loc, sc, N_SAMPLES), 50)
     args = flagship_chunk_args(dev)
     fk_ms = cuda_ms(lambda: fused_run_chunk_cuda(*args), 20)
     fr_ms = cuda_ms(lambda: fused_run_chunk_reference(*args), 1)
-    say("h", meanfield_sample_ms=samp_ms, meanfield_sample_plain_ms=samp_plain,
-        shape=f"{N_SAMPLES}x{d}")
+    # events over back-to-back calls time the wrapper's host work (the kernel
+    # is ~2 us); the graph replay times the card alone
+    say("h", meanfield_sample_ms=samp_ms, meanfield_sample_graph_ms=samp_graph,
+        meanfield_sample_plain_ms=samp_plain, shape=f"{N_SAMPLES}x{d}")
     say("h", fused_chunk_ms=fk_ms, fused_chunk_plain_ms=fr_ms, chunk_steps=args[6])
-    return {"meanfield_sample": (samp_ms, samp_plain),
+    return {"meanfield_sample": (samp_graph, samp_plain),
             "fused_advi_meanfield": (fk_ms, fr_ms)}
 
 
@@ -544,28 +584,47 @@ def phase_i(dev):
     return worst
 
 
+# K8's ragged shapes: n not a multiple of a block's rows, d not of a panel's 32
+TRI_NS = (1, 3, 7, 256, 300)
+TRI_DS = (1, 5, 33, 62, 100, 512, 1000, 1024)
+
+
 def phase_j(dev):
-    """K8 in both modes against a float64 solve (residual) and its plain version."""
+    """K8 in both modes against a float64 solve (residual) and its plain
+    version, at the main path's shapes and at ragged ones; at the main
+    shape every rows-a-block choice gives the same bits."""
     from advancedvi_jl_tpu_torch.ops.cuda.trisolve_kernels import (
-        solve_right_cuda, solve_right_reference,
+        ROWS_PER_BLOCK, solve_right_cuda, solve_right_reference,
     )
 
-    worst = 0.0
-    for n, d in (FR_SHAPE, (N_SAMPLES, FR_FUSED_D), (N_SAMPLES, N_FEATURES + 2)):
-        L, C = factor(d, dev)
+    shapes = [FR_SHAPE, (N_SAMPLES, FR_FUSED_D), (N_SAMPLES, N_FEATURES + 2)]
+    shapes += [(n, d) for n in TRI_NS for d in TRI_DS if (n, d) not in shapes]
+    factors = {}
+    worst, worst_resid = 0.0, 0.0
+    for n, d in shapes:
+        if d not in factors:
+            factors[d] = factor(d, dev)
+        L, C = factors[d]
         V = torch.randn(n, d, generator=torch.Generator().manual_seed(n)).to(dev)
+        line = {}
         for mode in ("C", "CT"):
             W = solve_right_cuda(C, V, mode)
             Wr = solve_right_reference(C, V, mode)
             torch.cuda.synchronize()
             op = L.double() if mode == "C" else L.double().T
             resid = float((W.double() @ op - V.double()).norm() / V.double().norm())
-            resid_plain = float((Wr.double() @ op - V.double()).norm() / V.double().norm())
-            err = max_err(W, Wr)
-            say("j", shape=f"{n}x{d}", mode=mode, residual=resid, plain_residual=resid_plain,
-                max_abs_err_vs_plain=err)
+            rel = rel_err(W, Wr)
+            line[f"{mode}_residual"], line[f"{mode}_rel_err_vs_plain"] = resid, rel
             check(resid <= 1e-5, f"trisolve {mode} {n}x{d}: residual {resid} > 1e-5")
-            worst = max(worst, err)
+            check(rel <= 1e-5, f"trisolve {mode} {n}x{d}: {rel} from its plain version")
+            worst, worst_resid = max(worst, max_err(W, Wr)), max(worst_resid, resid)
+            if (n, d) == FR_SHAPE:
+                same = all(torch.equal(W, solve_right_cuda(C, V, mode, rows))
+                           for rows in ROWS_PER_BLOCK)
+                check(same, f"trisolve {mode} {n}x{d}: the rows-a-block choices differ")
+                line[f"{mode}_rows_bitwise"] = same
+        say("j", shape=f"{n}x{d}", **line)
+    say("j", shapes=len(shapes), worst_residual=worst_resid, worst_max_abs_err_vs_plain=worst)
     return worst
 
 
@@ -738,17 +797,103 @@ def fullrank_paths(dev):
     return counts
 
 
-def phase_m(dev, card):
-    """Steps/s of the full-rank paths and each new kernel's time beside its
-    plain version at the main path's shapes."""
+def fullrank_chunk_args(dev):
+    """The timed full-rank chunks of phase (m): 200 in-kernel-Philox steps
+    of each full-rank fused configuration from its initial state."""
+    from advancedvi_jl_tpu_torch.ops.cuda.fused_advi import FusedHyper
+    from advancedvi_jl_tpu_torch.ops.cuda.location_scale_kernels import seed_words
+
+    out = {}
+    for name, (spec, _, C0) in fullrank_specs(dev).items():
+        vec = torch.zeros(4, spec.dim, device=dev)
+        mat = torch.stack([C0, torch.zeros_like(C0), torch.zeros_like(C0), C0])
+        out[name] = (spec.model, spec.consts, spec.scalars, vec, mat, seed_words(SEED), 0, 200,
+                     N_SAMPLES, FusedHyper(lr=LR))
+    return out
+
+
+def trisolve_args(dev):
+    """K8's timed inputs: the main path's 256 x 1024 (C with ones above the
+    diagonal, which the kernel must not read)."""
+    n, d = FR_SHAPE
+    _, C = factor(d, dev)
+    return C, torch.randn(n, d, generator=torch.Generator().manual_seed(7)).to(dev)
+
+
+def ab_times(dev):
+    """K8 at 256 x 1024 in both modes (events and graph replay) and the
+    full-rank chunks, with the package of the working directory: the
+    parent's side of phase (m)'s A/B, run in a child process."""
+    from advancedvi_jl_tpu_torch.ops.cuda.fused_advi import fused_fullrank_run_chunk_cuda
+    from advancedvi_jl_tpu_torch.ops.cuda.trisolve_kernels import solve_right_cuda
+
+    C, V = trisolve_args(dev)
+    out = {}
+    for mode in ("C", "CT"):
+        out[f"trisolve_{mode}"] = cuda_ms(lambda: solve_right_cuda(C, V, mode), 200)
+        out[f"trisolve_{mode}_graph"] = graph_ms(lambda: solve_right_cuda(C, V, mode))
+    for name, args in fullrank_chunk_args(dev).items():
+        out[f"fused_advi_fullrank_{name}"] = cuda_ms(lambda: fused_fullrank_run_chunk_cuda(*args),
+                                                     10)
+    return out
+
+
+AB_CHILD = r"""
+import importlib.util, json, sys, torch
+spec = importlib.util.spec_from_file_location("chip_smoke", sys.argv[1])
+smoke = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(smoke)
+torch.backends.cuda.matmul.allow_tf32 = False
+print(json.dumps(smoke.ab_times(torch.device("cuda:0"))))
+"""
+
+
+def ab_parent(parent: Path):
+    """phase (m)'s A/B: ``ab_times`` with the parent checkout's package and
+    with this one's, a fresh process each, in the order parent, this, this,
+    parent (each checkout builds its kernels under its own build/kernels)."""
+    runs = {"parent": [], "this": []}
+    for tag, path in (("parent", parent), ("this", ROOT), ("this", ROOT), ("parent", parent)):
+        proc = subprocess.run([sys.executable, "-c", AB_CHILD, str(ROOT / "chip_smoke.py")],
+                              cwd=path, capture_output=True, text=True, timeout=600)
+        check(proc.returncode == 0, f"A/B in {path}: {proc.stderr[-2000:]}")
+        runs[tag].append(json.loads(proc.stdout.strip().splitlines()[-1]))
+    for key in runs["this"][0]:
+        say("m", ab=key, parent_ms=",".join(str(r[key]) for r in runs["parent"]),
+            this_ms=",".join(str(r[key]) for r in runs["this"]))
+
+
+def phase_split(dev, name, args, chunk_ms):
+    """Each phase's share of a full-rank step (the instrumented build's SM
+    cycles of thread 0, PHASES), in microseconds of ``chunk_ms``' step."""
     from advancedvi_jl_tpu_torch.ops.cuda.fused_advi import (
-        FusedHyper, fused_fullrank_run_chunk_cuda, fused_fullrank_run_chunk_reference,
+        fused_fullrank_run_chunk_cuda, phase_cycles,
+    )
+
+    fused_fullrank_run_chunk_cuda(*args, instrumented=True)
+    torch.cuda.synchronize()
+    phase_cycles()  # restart the counters
+    inst_ms = cuda_ms(lambda: fused_fullrank_run_chunk_cuda(*args, instrumented=True), 4)
+    cycles = phase_cycles()
+    total = sum(cycles.values())
+    step_us = 1e3 * chunk_ms / args[7]
+    say("m", phase_split=name, step_us=step_us, instrumented_chunk_ms=inst_ms,
+        **{f"{p}_us": step_us * c / total for p, c in cycles.items()})
+
+
+def phase_m(dev, card, parent=None):
+    """Steps/s of the full-rank paths and each new kernel's time beside its
+    plain version at the main path's shapes; K8 beside trsm by events and by
+    graph replay, at each rows-a-block choice; the full-rank step's phase
+    split; with ``parent``, the A/B against the parent checkout."""
+    from advancedvi_jl_tpu_torch.ops.cuda.fused_advi import (
+        fused_fullrank_run_chunk_cuda, fused_fullrank_run_chunk_reference,
     )
     from advancedvi_jl_tpu_torch.ops.cuda.location_scale_kernels import (
         fullrank_sample_cuda, fullrank_sample_reference, seed_words,
     )
     from advancedvi_jl_tpu_torch.ops.cuda.trisolve_kernels import (
-        solve_right_cuda, solve_right_reference,
+        ROWS_PER_BLOCK, rows_per_block, solve_right_cuda, solve_right_reference,
     )
 
     seed = seed_words(SEED)
@@ -763,13 +908,9 @@ def phase_m(dev, card):
     torch.cuda.synchronize()
     general_sps = 100 / (time.perf_counter() - t0)
     out = {}
-    specs = fullrank_specs(dev)
-    hyp = FusedHyper(lr=LR)
-    for name, (spec, _, C0) in specs.items():
-        d = spec.dim
-        vec = torch.zeros(4, d, device=dev)
-        mat = torch.stack([C0, torch.zeros_like(C0), torch.zeros_like(C0), C0])
-        args = (spec.model, spec.consts, spec.scalars, vec, mat, seed, 0, 200, N_SAMPLES, hyp)
+    for name, args in fullrank_chunk_args(dev).items():
+        d = args[3].shape[1]
+        model = args[0]
         k_ms = cuda_ms(lambda: fused_fullrank_run_chunk_cuda(*args), 10)
         p_ms = cuda_ms(lambda: fused_fullrank_run_chunk_reference(*args), 1)
         k_ms2 = cuda_ms(lambda: fused_fullrank_run_chunk_cuda(*args), 10)
@@ -778,7 +919,7 @@ def phase_m(dev, card):
         # the dense Gaussian's (n, d) x (d, d) precision product) a step; the
         # model's data, the mean and the eight scale matrices in and out
         tri = 3 * N_SAMPLES * d * (d + 1) // 2
-        if spec.model == "mvnormal":
+        if model == "mvnormal":
             body_macs, data = N_SAMPLES * d * d, 4.0 * (d * d + d)
         else:
             body_macs, data = 2 * N_SAMPLES * N_DATA * (d - 1), 4.0 * (N_DATA * d)
@@ -788,27 +929,38 @@ def phase_m(dev, card):
             plain_ms=p_ms, fused_steps_per_s=f"{200 / (min(k_ms, k_ms2) / 1e3):.1f}",
             bound_ms=b_ms, bound_by=b_by, model_body_bound_ms=body_ms)
         out[f"fused_advi_fullrank_{name}"] = (min(k_ms, k_ms2), p_ms)
+        phase_split(dev, name, args, min(k_ms, k_ms2))
     say("m", card=f"'{card}'", fullrank_general_steps_per_s=f"{general_sps:.1f}",
         d=FR_D, n=FR_N)
     n, d = FR_SHAPE
     _, C = factor(d, dev)
     loc = torch.zeros(d, device=dev)
-    V = torch.randn(n, d, device=dev)
     s_ms = cuda_ms(lambda: fullrank_sample_cuda(seed, 1, loc, C, n), 200)
     s_plain = cuda_ms(lambda: fullrank_sample_reference(seed, 1, loc, C, n), 20)
     say("m", fullrank_sample_ms=s_ms, fullrank_sample_plain_ms=s_plain, shape=f"{n}x{d}")
     out["fullrank_sample"] = (s_ms, s_plain)
+    C, V = trisolve_args(dev)
     Lt = torch.tril(C)
+    say("m", trisolve_rows_per_block=rows_per_block(n), shape=f"{n}x{d}")
     for mode in ("C", "CT"):
         op = Lt if mode == "C" else Lt.T
+        for rows in ROWS_PER_BLOCK:
+            say("m", trisolve_mode=mode, rows=rows,
+                events_ms=cuda_ms(lambda: solve_right_cuda(C, V, mode, rows), 200),
+                graph_ms=graph_ms(lambda: solve_right_cuda(C, V, mode, rows)))
         t_ms = cuda_ms(lambda: solve_right_cuda(C, V, mode), 200)
+        t_graph = graph_ms(lambda: solve_right_cuda(C, V, mode))
         t_plain = cuda_ms(lambda: solve_right_reference(C, V, mode), 200)
         # the library call alone (cuBLAS trsm), on a triangle made beforehand
-        t_lib = cuda_ms(lambda: torch.linalg.solve_triangular(op, V, upper=mode == "CT",
-                                                              left=False), 200)
-        say("m", trisolve_mode=mode, trisolve_ms=t_ms, trisolve_plain_ms=t_plain,
-            trisolve_library_ms=t_lib, shape=f"{n}x{d}")
-        out[f"trisolve_{mode}"] = (t_ms, t_plain, t_lib)
+        trsm = lambda: torch.linalg.solve_triangular(op, V, upper=mode == "CT", left=False)
+        l_ms, l_graph = cuda_ms(trsm, 200), graph_ms(trsm)
+        say("m", trisolve_mode=mode, trisolve_ms=t_ms, trisolve_graph_ms=t_graph,
+            trisolve_plain_ms=t_plain, trisolve_library_ms=l_ms, trisolve_library_graph_ms=l_graph,
+            faster_than_trsm_events=t_ms < l_ms, faster_than_trsm_graph=t_graph < l_graph,
+            shape=f"{n}x{d}")
+        out[f"trisolve_{mode}"] = (t_graph, t_plain, l_graph)
+    if parent is not None:
+        ab_parent(parent)
     return out
 
 
@@ -2055,8 +2207,10 @@ def ad_build(dev, cases):
                                   restype=ctypes.c_size_t, body=prog.source)(
                 6, 0, 0, 0, N_SAMPLES, prog.d, rows)
             want = ad_smem_bytes(family, N_SAMPLES, prog.d, prog.scratch, rows)
-            if family == "fullrank" and got != want:  # the scale matrices fit beside
-                want += 4 * rows * prog.d * prog.d
+            if family == "fullrank":  # the scale matrices, then the panel operators, where they fit
+                for extra in (4 * rows * prog.d * prog.d, 4096 * -(-prog.d // 32)):
+                    if want + extra <= _build.SMEM_LIMIT:
+                        want += extra
             check(got == want, f"{kern} on {name}: the kernel's layout is {got} bytes, "
                                f"ad_smem_bytes says {want}")
     return progs
@@ -2327,6 +2481,13 @@ def phase_y(dev, card):
 
 
 def main() -> int:
+    parent = None  # --parent DIR: phase (m) also times that checkout's K8 and chunks
+    if sys.argv[1:2] == ["--parent"] and len(sys.argv) == 3:
+        parent = Path(sys.argv[2]).resolve()
+        if not (parent / "advancedvi_jl_tpu_torch" / "__init__.py").is_file():
+            fail(f"--parent {parent}: no advancedvi_jl_tpu_torch/ there")
+    elif sys.argv[1:]:
+        fail(f"usage: python3 chip_smoke.py [--parent CHECKOUT], got {sys.argv[1:]}")
     seconds = {}  # wall seconds of each phase, printed before the kernels line
     last = [time.perf_counter()]
 
@@ -2352,7 +2513,7 @@ def main() -> int:
     tri_err = phase_j(dev)
     fr_fused_err = phase_k(dev)
     fr_counts = fullrank_paths(dev)
-    fr_times = phase_m(dev, card)
+    fr_times = phase_m(dev, card, parent)
     lap("i-m")
     slice_err = phase_n(dev)
     general, _ = slice_general(dev)
@@ -2398,6 +2559,10 @@ def main() -> int:
               fr_counts["fullrank_sample"], fr_samp_err, *fr_times["fullrank_sample"]),
         entry("trisolve", "trisolve.cu", "advancedvi_jl_tpu/ops/pallas/trisolve_kernels.py:115",
               fr_counts["trisolve"], tri_err, *fr_times["trisolve_C"]),
+        # mode CT: the same kernel source and launch counter, timed apart
+        entry("trisolve_CT", "trisolve.cu",
+              "advancedvi_jl_tpu/ops/pallas/trisolve_kernels.py:115", fr_counts["trisolve"],
+              tri_err, *fr_times["trisolve_CT"], bound_=bounds["trisolve"]),
         entry("fused_advi_fullrank", "fused_advi_fullrank.cu", f"{fused}681",
               fr_counts["fused_advi_fullrank"], fr_fused_err,
               *fr_times["fused_advi_fullrank_logreg"]),

@@ -115,6 +115,34 @@ def test_generated_library_name_hashes_the_body(monkeypatch, tmp_path):
     assert set(_build.AD_KERNELS) <= set(_build.KERNELS)
 
 
+def test_library_name_hashes_the_defines(monkeypatch, tmp_path):
+    """A library built with defines (the full-rank kernel's phase clocks)
+    has a name of its own, which names the defines; a generated K5 body
+    takes none."""
+    (tmp_path / "k.cu").write_text("// k\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    plain = _build.library_path("k")
+    clocks = _build.library_path("k", ("AVI_PHASE_CLOCKS",))
+    assert clocks != plain and "-avi_phase_clocks-" in clocks.name
+    assert clocks == _build.library_path("k", ("AVI_PHASE_CLOCKS",))
+    assert _build.library_path("k", ("OTHER",)) not in (plain, clocks)
+    with pytest.raises(ValueError, match="without defines"):
+        _build.function("k", "f", [], body="// body\n", defines=("X",))
+    assert not _build._libs
+
+
+def test_trisolve_wrapper_checks_its_rows_before_the_device():
+    """The rows a block of K8 are 0 (the card's choice) or 1, 2, 4, 8."""
+    from advancedvi_jl_tpu_torch.ops.cuda.trisolve_kernels import ROWS_PER_BLOCK, solve_right_cuda
+
+    assert ROWS_PER_BLOCK == (1, 2, 4, 8)
+    C, V = torch.eye(4), torch.ones(2, 4)
+    with pytest.raises(ValueError, match="rows must be"):
+        solve_right_cuda(C, V, "C", 3)
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        solve_right_cuda(C, V, "CT", 2)
+
+
 def test_fused_sources_keep_k5_under_its_macro():
     """Every line that K5 adds to the fused kernels sits under AVI_AD_BODY,
     so the libraries built without a body compile as before."""

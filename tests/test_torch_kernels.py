@@ -161,8 +161,15 @@ def test_fullrank_sampler_autograd_on_the_card(dev):
     assert torch.allclose(C.grad, want, rtol=1e-5, atol=1e-5)
 
 
+# the main path's shapes, then ragged ones: n not a multiple of a block's
+# rows, d not a multiple of a panel's 32 columns
+TRI_SHAPES = [(256, 1024), (10, 512), (10, 62), (7, 100)] + [
+    (n, d) for n in (1, 3, 7, 256, 300) for d in (1, 5, 33, 62, 100, 512, 1000, 1024)
+    if (n, d) not in ((256, 1024), (7, 100))]
+
+
 @pytest.mark.parametrize("mode", ["C", "CT"])
-@pytest.mark.parametrize("n,d", [(256, 1024), (10, 512), (10, 62), (7, 100)])
+@pytest.mark.parametrize("n,d", TRI_SHAPES)
 def test_trisolve_kernel_meets_its_residual_bound(dev, mode, n, d):
     _, _, L = normal_fullrank_wellcond(d, d, device="cpu")
     C = (L + torch.triu(torch.ones(d, d), 1)).to(dev)  # the upper triangle is ignored
@@ -176,6 +183,22 @@ def test_trisolve_kernel_meets_its_residual_bound(dev, mode, n, d):
     resid = float((W.double() @ op - V.double()).norm() / V.double().norm())
     assert resid <= 1e-5, resid
     assert _rel(W, solve_right_reference(C, V, mode)) <= 1e-5
+
+
+@pytest.mark.parametrize("mode", ["C", "CT"])
+def test_trisolve_rows_a_block_give_the_same_bits(dev, mode):
+    """Each sum runs over a panel's 32 columns in one order whatever rows a
+    block owns, so every choice of rows gives the same bits."""
+    from advancedvi_jl_tpu_torch.ops.cuda.trisolve_kernels import ROWS_PER_BLOCK
+
+    n, d = 300, 1000
+    _, _, L = normal_fullrank_wellcond(d, d, device="cpu")
+    C, V = L.to(dev), torch.randn(n, d, generator=torch.Generator().manual_seed(1)).to(dev)
+    W = solve_right_cuda(C, V, mode)
+    for rows in ROWS_PER_BLOCK:
+        assert torch.equal(W, solve_right_cuda(C, V, mode, rows)), rows
+    with pytest.raises(ValueError, match="rows"):
+        solve_right_cuda(C, V, mode, 3)
 
 
 def test_vdiv_backward_launches_the_other_mode(dev):
@@ -196,25 +219,29 @@ def test_vdiv_backward_launches_the_other_mode(dev):
         assert _rel(gV, rV) <= 1e-5
 
 
-def _fullrank_case(model, dev):
+def _fullrank_case(model, dev, d=512):
+    """The flagship logreg (d = 62), or the dense Gaussian at d."""
     if model == "logreg":
         prob = make_logreg(11, device=dev)
         spec = logreg_spec(prob.X, prob.y)
         C0 = 0.1 * torch.eye(prob.dim, device=dev)
     else:
-        target, mu, L = normal_fullrank_wellcond(3, 512, device=dev)
+        target, mu, L = normal_fullrank_wellcond(3, d, device=dev)
         spec = mvnormal_spec(mu, L)
-        C0 = torch.eye(512, device=dev)
+        C0 = torch.eye(d, device=dev)
     d = spec.dim
     vec = torch.zeros(4, d, device=dev)
     mat = torch.stack([C0, torch.zeros_like(C0), torch.zeros_like(C0), C0])
     return spec, vec, mat
 
 
-@pytest.mark.parametrize("model", ["logreg", "mvnormal"])
+@pytest.mark.parametrize("model,d", [("logreg", 62), ("mvnormal", 33), ("mvnormal", 100),
+                                     ("mvnormal", 512)])
 @pytest.mark.parametrize("injected", [True, False], ids=["noise", "philox"])
-def test_fused_fullrank_kernel_matches_plain_version(dev, model, injected):
-    spec, vec, mat = _fullrank_case(model, dev)
+def test_fused_fullrank_kernel_matches_plain_version(dev, model, d, injected):
+    """d = 33 and 100 end in a ragged whitening panel; at d = 512 the scale
+    matrices live in device memory."""
+    spec, vec, mat = _fullrank_case(model, dev, d)
     d = spec.dim
     noise = torch.randn((20, N, d), generator=torch.Generator().manual_seed(2)).to(dev)
     args = (spec.model, spec.consts, spec.scalars, vec, mat, seed_words(0), 0, 20, N,
@@ -245,10 +272,26 @@ def test_fused_fullrank_kernel_chunks_and_traces_bitwise(dev, model):
 
 
 def test_fused_fullrank_kernel_refuses_oversized_shared_memory(dev):
+    """At d = 512 the largest sample count whose per-step arrays fit one
+    block runs, with the whitening's panel operators in device memory (they
+    no longer fit beside), and matches its plain version; one sample more is
+    refused before launch.  Descent, whose state is linear in the gradients:
+    Adam's m / sqrt(v) magnifies their float32 rounding over 27 samples."""
     spec, vec, mat = _fullrank_case("mvnormal", dev)
+    smem = _build.function("fused_advi_fullrank", "fused_advi_fullrank_smem_bytes",
+                           [ctypes.c_int] * 7, restype=ctypes.c_size_t)
+    n = max(m for m in range(1, 128) if smem(1, 0, 0, 0, m, 512, 4) <= _build.SMEM_LIMIT)
+    assert smem(1, 0, 0, 0, n, 512, 4) + 4 * 16 * 1024 > _build.SMEM_LIMIT
+    noise = torch.randn((20, n, 512), generator=torch.Generator().manual_seed(2)).to(dev)
+    args = (spec.model, spec.consts, spec.scalars, vec, mat, (0, 0), 0, 20, n, FusedHyper(),
+            noise, 0, FusedBranch("descent"))
+    kv, km, _, _ = fused_fullrank_run_chunk_cuda(*args)
+    rv, rm, _, _ = fused_fullrank_run_chunk_reference(*args)
+    torch.cuda.synchronize()
+    _norm_close(list(kv) + list(km), list(rv) + list(rm), 1e-5)
     with pytest.raises(ValueError, match="shared"):
         fused_fullrank_run_chunk_cuda(spec.model, spec.consts, spec.scalars, vec, mat,
-                                      (0, 0), 0, 1, 128, FusedHyper())
+                                      (0, 0), 0, 1, n + 1, FusedHyper())
 
 
 def test_built_libraries_report_no_spills(dev):
