@@ -1,0 +1,76 @@
+// The block product of csrc/block_mm.cuh alone, for its card tests: it has
+// no TPU kernel of its own (it runs inside the fused kernels, in K1+K2's
+// logreg body, fused_common.cuh, and in K5's generated body), so this file
+// only launches it.  One block of 512 threads copies A (M, lda) and B into
+// shared memory and writes C = A B (M, N), row-major, to device memory.
+// B is (K, N) row-major with row stride ldb, or, with trans_b, B^T (N, K)
+// with row stride ldb.  `config` picks block_mm's tile as its callers emit
+// it (ops/cuda/block_mm_kernels.py CONFIGS): 0 and 1 the hand logits' and
+// gradient's (10 rows x 1 column a thread, k over 2 and 8 lanes, A read as
+// float4s), 2 and 3 the same tiles on the plain layout (scalar loads), 4
+// and 5 K5's flagship logits' and gradient's (5 x 2 and 2 x 2, k in order,
+// A as float4s).  Bound on an H100: shared-memory loads (see block_mm.cuh);
+// the copies in and out are a few KB.
+#include <cuda_runtime.h>
+
+#include "block_mm.cuh"
+
+namespace {
+
+constexpr int kThreads = 512;
+constexpr size_t kSmemLimit = 232448;
+
+template <int TM, int TN, int KS, bool kVecA, bool kVecB>
+__global__ void __launch_bounds__(kThreads)
+    block_mm_kernel(const float* __restrict__ A, const float* __restrict__ B,
+                    float* __restrict__ C, int M, int N, int K, int lda, int ldb, int trans_b) {
+  extern __shared__ float4 smem4[];  // 16-byte aligned
+  float* As = reinterpret_cast<float*>(smem4);
+  float* Bs = As + avi::round4(M * lda);
+  const int b_floats = trans_b ? N * ldb : K * ldb;
+  const int tid = threadIdx.x;
+  for (int i = tid; i < M * lda; i += kThreads) As[i] = A[i];
+  for (int i = tid; i < b_floats; i += kThreads) Bs[i] = B[i];
+  __syncthreads();
+  avi::block_mm<kThreads, TM, TN, KS, kVecA, kVecB>(
+      M, N, K, As, lda, 1, Bs, trans_b ? 1 : ldb, trans_b ? ldb : 1, tid,
+      [=](int i, int j, float v) { C[i * N + j] = v; });
+}
+
+template <int TM, int TN, int KS, bool kVecA, bool kVecB>
+cudaError_t launch(const float* A, const float* B, float* C, int M, int N, int K, int lda,
+                   int ldb, int trans_b, size_t smem, cudaStream_t stream) {
+  const auto kernel = block_mm_kernel<TM, TN, KS, kVecA, kVecB>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  kernel<<<1, kThreads, smem, stream>>>(A, B, C, M, N, K, lda, ldb, trans_b);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// C (M, N) = A (M, K; row stride lda) B (see above).  Configs 0, 1, 4 and 5
+// need lda % 4 == 0.  Returns cudaGetLastError() after the launch, or
+// cudaErrorInvalidValue for a call the kernel does not take.
+extern "C" int block_mm_run(const float* A, const float* B, float* C, int M, int N, int K,
+                            int lda, int ldb, int trans_b, int config, cudaStream_t stream) {
+  const bool vec_a = config == 0 || config == 1 || config == 4 || config == 5;
+  if (M < 1 || N < 1 || K < 1 || lda < K || ldb < (trans_b ? K : N) || config < 0 ||
+      config > 5 || (vec_a && lda % 4 != 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem =
+      sizeof(float) * (static_cast<size_t>(avi::round4(M * lda)) + (trans_b ? N : K) * ldb);
+  if (smem > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
+  const auto args = [&](auto kernel_launch) {
+    return kernel_launch(A, B, C, M, N, K, lda, ldb, trans_b, smem, stream);
+  };
+  switch (config) {
+    case 0: return static_cast<int>(args(launch<10, 1, 2, true, false>));
+    case 1: return static_cast<int>(args(launch<10, 1, 8, true, false>));
+    case 2: return static_cast<int>(args(launch<10, 1, 2, false, false>));
+    case 3: return static_cast<int>(args(launch<10, 1, 8, false, false>));
+    case 4: return static_cast<int>(args(launch<5, 2, 1, true, false>));
+    default: return static_cast<int>(args(launch<2, 2, 1, true, false>));
+  }
+}

@@ -32,7 +32,9 @@
 // Design: one thread block runs the whole chunk, a loop over steps inside
 // the block.  The draws u, the samples z, grad log pi and the whitened
 // draws w (n x d each), the location rows and, for logreg, X, y and the
-// logits live in dynamic shared memory.  The k (d, d) scale matrices (4, or
+// logits live in dynamic shared memory (the logreg products one output a
+// thread, k in order: the mean-field kernel's block_mm tiles spilled under
+// this kernel's 88-register cap).  The k (d, d) scale matrices (4, or
 // 7 with COCOB's G, reward and theta) live in shared memory when they fit
 // beside those in one block's 227 KB (d = 62: 61.5 KB, or 107.6 KB with
 // COCOB), and otherwise in the output buffer in device memory, where they
@@ -103,7 +105,7 @@ using avi::kLog2Pi;
 struct Layout {
   int X, y, l, u, z, g, w, vec, dm, row, red, mat, inv, total;
 #ifdef AVI_AD_BODY
-  int ad;  // K5's scratch
+  int ad, adc;  // K5's scratch and its staged float constants
 #endif
 };
 
@@ -128,7 +130,10 @@ __host__ __device__ inline Layout make_layout(int model, int n_data, int db, int
   L.row = o; o += 6 * n + 1;             // beta_sq t inv_sig2 logpi u2 ylogit, logdet
   L.red = o; o += 2 * kWarps + 1;        // block reduction, then eta
 #ifdef AVI_AD_BODY
+  if (model == avi::kAD) o = avi::round4(o);
   L.ad = o;  o += model == avi::kAD ? avi::ad::kScratch : 0;  // the generated body's
+  if (model == avi::kAD) o = avi::round4(o);
+  L.adc = o; o += model == avi::kAD ? avi::ad::kStage : 0;    // its staged constants
 #endif
   L.mat = o; o += mat_in_smem ? k * d * d : 0;  // sig m_sig v_sig avg_sig [G R theta]
   L.inv = o; o += inv_in_smem ? avi::tri_panels(d) * avi::kTriBlock : 0;  // whitening's M_p
@@ -196,6 +201,9 @@ __global__ void __maxnreg__(88) fused_advi_fullrank_kernel(
     const float* __restrict__ noise, float* inv_dev, int n, int d, int k, int steps,
     int log_every, uint32_t k0, uint32_t k1, unsigned long long it0, avi::Hyper h,
     avi::Branch br, Placement at) {
+#ifdef AVI_AD_BODY
+  model = avi::kAD;  // every other model's code drops out of this library
+#endif
   extern __shared__ float smem[];
   const Layout L = make_layout(model, n_data, db, batch, n, d, k, at.mat, at.inv);
   const bool mat_in_smem = at.mat;
@@ -227,7 +235,9 @@ __global__ void __maxnreg__(88) fused_advi_fullrank_kernel(
   float* a_sig = sig + 3 * dd;
   float* ext_sig = sig + 4 * dd;  // COCOB: G, reward, theta of the scale
   float* inv = at.inv ? smem + L.inv : inv_dev;   // the panel operators M_p
-  const avi::LogReg lrm{smem + L.X, smem + L.y, smem + L.l, n_data, db, s0, s1};
+  // no aligned beta copy here: the logreg products below read z and the logits' rows
+  const avi::LogReg lrm{smem + L.X, smem + L.y, smem + L.l, nullptr, n_data, db, n_data, 0,
+                        s0, s1};
   avi::LogRegMB mbm{nullptr, smem + L.y, smem + L.l, batch, db, s0, s1};
   const int nb = minibatch ? n_data / batch : 1;
   const float* mean = c0;  // mvnormal: mean (d,) and precision (d, d)
@@ -243,6 +253,9 @@ __global__ void __maxnreg__(88) fused_advi_fullrank_kernel(
   }
   for (int i = tid; i < k * d; i += kThreads) mu[i] = vec_in[i];
   for (size_t i = tid; i < k * dd; i += kThreads) sig[i] = mat_in[i];
+#ifdef AVI_AD_BODY
+  if (model == avi::kAD) avi::ad::ad_stage(c0, smem + L.adc, tid);
+#endif
   __syncthreads();
 
   const bool cf_zero = br.entropy == avi::kClosedFormZero;
@@ -329,11 +342,12 @@ __global__ void __maxnreg__(88) fused_advi_fullrank_kernel(
     if (logreg) {
       avi::logreg_rows(lrm, zs, n, d, beta_sq, tcol, inv_sig2, warp, kWarps, lane);
       __syncthreads();
-      avi::logreg_logits(lrm, zs, n, d, tid, kThreads);
+      // one output a thread, k in order: block_mm spilled under the 88-register cap
+      avi::logreg_logits_each(lrm, zs, n, d, tid, kThreads);
       __syncthreads();
       avi::logreg_logpi(lrm, n, beta_sq, tcol, inv_sig2, logpi, warp, kWarps, lane);
       __syncthreads();
-      avi::logreg_grad(lrm, zs, n, d, beta_sq, tcol, inv_sig2, gs, tid, kThreads);
+      avi::logreg_grad_each(lrm, zs, n, d, beta_sq, tcol, inv_sig2, gs, tid, kThreads);
     } else if (minibatch) {
       avi::logreg_mb_rows(mbm, zs, n, d, beta_sq, tcol, inv_sig2, ylogit, warp, kWarps, lane);
       if (avi::slab_staged(model)) avi::cp_async_wait_all();  // this thread's copies landed
@@ -347,8 +361,9 @@ __global__ void __maxnreg__(88) fused_advi_fullrank_kernel(
       avi::gaussian_body(mean, prec, lognorm, zs, n, d, logpi, gs, warp, kWarps, lane);
 #ifdef AVI_AD_BODY
     } else if (model == avi::kAD) {  // K5: log pi and its gradient
-      avi::ad::ad_body(c0, reinterpret_cast<const int*>(c1), zs, n, d, logpi, gs,
-                       smem + L.ad, tid);
+      long long t_logpi = 0;  // the body's mark after log pi (unused here)
+      avi::ad::ad_body(c0, reinterpret_cast<const int*>(c1), smem + L.adc, zs, n, d, logpi, gs,
+                       smem + L.ad, tid, &t_logpi);
 #endif
     } else {
       for (int idx = tid; idx < nd; idx += kThreads) ws[idx] = zs[idx] - mean[idx % d];
@@ -545,8 +560,8 @@ extern "C" int fused_advi_fullrank(
   const int k = algo == avi::kCOCOB ? 7 : 4;
   const bool dist_rule = algo == avi::kDoWG || algo == avi::kDoG;
   const bool mb = avi::is_minibatch(model);
-#ifdef AVI_AD_BODY  // K5's body is generated for one (n, d)
-  if (model == avi::kAD && (n != avi::ad::kN || d != avi::ad::kD))
+#ifdef AVI_AD_BODY  // K5's body is generated for one (n, d), and runs alone
+  if (model != avi::kAD || n != avi::ad::kN || d != avi::ad::kD)
     return static_cast<int>(cudaErrorInvalidValue);
 #else
   if (model == avi::kAD) return static_cast<int>(cudaErrorInvalidValue);

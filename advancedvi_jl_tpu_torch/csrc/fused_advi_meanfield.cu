@@ -19,7 +19,11 @@
 // What bounds it on an H100: latency.  Steps are sequential, and one step at
 // the flagship width (n = 10 samples, 208 x 61 design, d = 62) is about
 // 2 x 10 x 208 x 61 = 254k multiply-adds, a few microseconds of one SM, with
-// five block-wide barriers between its phases (DoWG and DoG add one).
+// five block-wide barriers between its phases (DoWG and DoG add one).  The
+// two products run block_mm (csrc/block_mm.cuh): register tiles of 10
+// sample rows a thread, float4 loads of the aligned beta copy and of the
+// weight rows, k split over 2 and 8 lanes; what bounds them is the bytes
+// shared memory delivers to the lanes (PERF.md section 6).
 // VarGrad needs only log pi and skips the second product (phase C).  No step
 // touches device memory except to read injected noise, the Gaussian's (d,)
 // constants or to write a trace entry.
@@ -52,12 +56,13 @@
 //   A  draw u (Philox keyed by the global iteration, or a row of the injected
 //      noise) and z = mu + sig * u; one warp per row sums |u|^2 (and, for
 //      logreg, |beta|^2); log det of the scale;
-//   B  log pi: logreg, logits l = beta X^T (one thread per (row, datum)),
+//   B  log pi: logreg, logits l = beta X^T (block_mm; phase A also wrote
+//      the betas to zb, rows 16-byte aligned, for its float4 loads),
 //      then one warp per row forms likeadj (y - sigmoid(l)), the softplus
 //      log-likelihood and log pi with the Exp log-det folded in
 //      (fused_advi.py:43-51); Gaussian, one warp per row, with its gradient;
-//   C  reparameterization: logreg's grad log pi (one thread per (row,
-//      lane)); VarGrad: one thread forms f = log q - log pi, the coefficients
+//   C  reparameterization: logreg's grad log pi (block_mm on the weights
+//      and X, the log-sigma lane beside it); VarGrad: one thread forms f = log q - log pi, the coefficients
 //      (f_i - fbar) / n and the plain ELBO estimate (fused_advi.py:489-507);
 //   D  one thread per lane forms dmu and dsig: STL g_z = -(1/n)(grad +
 //      u / sig), the closed-form zero-gradient entropy without the u / sig,
@@ -88,16 +93,25 @@ using avi::mf::kSmemLimit;
 using avi::mf::kThreads;
 using avi::mf::make_layout;
 
-template <bool kGeneral>
-__global__ void __launch_bounds__(kThreads) fused_advi_meanfield_kernel(
+// One block an SM (minimum 1): left to aim at two, ptxas capped the
+// flagship-branch instances at 64 registers and spilled.
+template <bool kGeneral, int kGroup>
+__global__ void __launch_bounds__(kThreads, 1) fused_advi_meanfield_kernel(
     int model, const float* __restrict__ c0, const float* __restrict__ c1, int n_data,
     int db, int batch, float s0, float s1, const float* __restrict__ state_in,
     float* __restrict__ state_out, float* __restrict__ elbo_out, float* __restrict__ trace,
     const float* __restrict__ noise, int n, int d, int n_rows, int steps, int log_every,
     uint32_t k0, uint32_t k1, unsigned long long it0, avi::Hyper h, avi::Branch br) {
-  avi::mf::run_chunk<kGeneral>(model, c0, c1, n_data, db, batch, s0, s1, state_in, state_out,
-                               elbo_out, trace, noise, n, d, n_rows, steps, log_every, k0, k1,
-                               it0, h, br);
+  avi::mf::run_chunk<kGeneral, kGroup>(model, c0, c1, n_data, db, batch, s0, s1, state_in,
+                                       state_out, elbo_out, trace, noise, n, d, n_rows, steps,
+                                       log_every, k0, k1, it0, h, br);
+}
+
+// The instance of a launch: the flagship branch's (switches constant) or
+// the general one, of model group kGroup.
+template <int kGroup>
+auto kernel_for(bool flagship_branch) {
+  return flagship_branch ? fused_advi_meanfield_kernel<false, kGroup> : fused_advi_meanfield_kernel<true, kGroup>;
 }
 
 }  // namespace
@@ -108,6 +122,19 @@ extern "C" size_t fused_advi_meanfield_smem_bytes(int model, int n_data, int db,
   return sizeof(float) *
          static_cast<size_t>(make_layout(model, n_data, db, batch, n, d, n_rows).total);
 }
+
+#ifdef AVI_PHASE_CLOCKS
+// Copies the instrumented build's avi_mf_phase_cycles (kPhases counters,
+// fused_meanfield_body.cuh) to host memory `out` after the work queued so
+// far, then zeroes them.  Returns the first CUDA error (0 on success).
+extern "C" int fused_advi_meanfield_phase_cycles(unsigned long long* out) {
+  using avi::mf::avi_mf_phase_cycles;
+  cudaError_t err = cudaMemcpyFromSymbol(out, avi_mf_phase_cycles, sizeof(avi_mf_phase_cycles));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const unsigned long long zero[avi::mf::kPhases] = {};
+  return static_cast<int>(cudaMemcpyToSymbol(avi_mf_phase_cycles, zero, sizeof(zero)));
+}
+#endif
 
 // model 0: logreg, c0 = X (n_data, db), c1 = y (n_data,), s0 = likeadj,
 // s1 = prior_scale, d = db + 1; model 2: diagonal Gaussian, c0 = mean (d,),
@@ -134,8 +161,8 @@ extern "C" int fused_advi_meanfield(
   const bool dist_rule = algo == avi::kDoWG || algo == avi::kDoG;
   const bool mb = avi::is_minibatch(model);
   bool known = model == avi::kLogReg || model == avi::kGaussian || mb;
-#ifdef AVI_AD_BODY  // K5's body is generated for one (n, d)
-  known = known || (model == avi::kAD && n == avi::ad::kN && d == avi::ad::kD);
+#ifdef AVI_AD_BODY  // K5's body is generated for one (n, d), and runs alone
+  known = model == avi::kAD && n == avi::ad::kN && d == avi::ad::kD;
 #endif
   if (!known || (dist_rule && d < 2) ||
       (grad_est == avi::kScoreGrad && n < 2) ||
@@ -144,9 +171,17 @@ extern "C" int fused_advi_meanfield(
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = fused_advi_meanfield_smem_bytes(model, n_data, db, batch, n, d, n_rows);
   if (smem > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
-  const auto kernel = avi::is_default(algo, entropy, grad_est, op)
-                          ? fused_advi_meanfield_kernel<false>
-                          : fused_advi_meanfield_kernel<true>;
+  const bool def = avi::is_default(algo, entropy, grad_est, op);
+#ifdef AVI_AD_BODY  // the dense instances only: the body runs alone
+  const auto kernel = kernel_for<avi::mf::kDense>(def);
+#else
+  using avi::mf::kDensePlain;
+  using avi::mf::kMinibatch;
+  const int group = avi::mf::model_group(model, n_data, db, batch, n, d, n_rows);
+  const auto kernel = group == kMinibatch    ? kernel_for<kMinibatch>(def)
+                      : group == kDensePlain ? kernel_for<kDensePlain>(def)
+                                             : kernel_for<avi::mf::kDense>(def);
+#endif
   // above 48 KB only after this call; without it the launch is refused
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));

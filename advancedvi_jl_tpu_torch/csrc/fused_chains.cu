@@ -46,8 +46,10 @@ using avi::mf::kSmemLimit;
 using avi::mf::kThreads;
 using avi::mf::make_layout;
 
-template <bool kGeneral>
-__global__ void __launch_bounds__(kThreads) fused_chains_kernel(
+// One block an SM (minimum 1): left to aim at two, ptxas capped the
+// flagship-branch instances at 64 registers and spilled.
+template <bool kGeneral, int kGroup>
+__global__ void __launch_bounds__(kThreads, 1) fused_chains_kernel(
     int model, const float* __restrict__ c0, const float* __restrict__ c1, int n_data,
     int db, int batch, float s0, float s1, const float* __restrict__ state_in,
     float* __restrict__ state_out, float* __restrict__ elbo_out, float* __restrict__ trace,
@@ -62,9 +64,17 @@ __global__ void __launch_bounds__(kThreads) fused_chains_kernel(
   if (trace != nullptr) tr = trace + static_cast<size_t>(c) * (steps / log_every);
   const float* nz = nullptr;
   if (noise != nullptr) nz = noise + static_cast<size_t>(c) * steps * n * d;
-  avi::mf::run_chunk<kGeneral>(model, c0, c1, n_data, db, batch, s0, s1, state_in + c * rows,
-                               state_out + c * rows, elbo_out + c, tr, nz, n, d, n_rows, steps,
-                               log_every, seeds[2 * c], seeds[2 * c + 1], it0, h, br);
+  avi::mf::run_chunk<kGeneral, kGroup>(model, c0, c1, n_data, db, batch, s0, s1,
+                                       state_in + c * rows, state_out + c * rows, elbo_out + c,
+                                       tr, nz, n, d, n_rows, steps, log_every, seeds[2 * c],
+                                       seeds[2 * c + 1], it0, h, br);
+}
+
+// The instance of a launch: the flagship branch's (switches constant) or
+// the general one, of model group kGroup.
+template <int kGroup>
+auto kernel_for(bool flagship_branch) {
+  return flagship_branch ? fused_chains_kernel<false, kGroup> : fused_chains_kernel<true, kGroup>;
 }
 
 }  // namespace
@@ -93,8 +103,8 @@ extern "C" int fused_chains(
   const bool dist_rule = rules == nullptr && (algo == avi::kDoWG || algo == avi::kDoG);
   const bool mb = avi::is_minibatch(model);
   bool known = model == avi::kLogReg || model == avi::kGaussian || mb;
-#ifdef AVI_AD_BODY  // K5's body is generated for one (n, d); its constants are shared
-  known = known || (model == avi::kAD && n == avi::ad::kN && d == avi::ad::kD);
+#ifdef AVI_AD_BODY  // K5's body is generated for one (n, d), runs alone; its constants are shared
+  known = model == avi::kAD && n == avi::ad::kN && d == avi::ad::kD;
 #endif
   if (!known || (dist_rule && d < 2) ||
       n_chains < 1 || (n_rows != 8 && n_rows != 14) ||
@@ -105,9 +115,17 @@ extern "C" int fused_chains(
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = fused_chains_smem_bytes(model, n_data, db, batch, n, d, n_rows);
   if (smem > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
-  const auto kernel = rules == nullptr && avi::is_default(algo, entropy, grad_est, op)
-                          ? fused_chains_kernel<false>
-                          : fused_chains_kernel<true>;
+  const bool def = rules == nullptr && avi::is_default(algo, entropy, grad_est, op);
+#ifdef AVI_AD_BODY  // the dense instances only: the body runs alone
+  const auto kernel = kernel_for<avi::mf::kDense>(def);
+#else
+  using avi::mf::kDensePlain;
+  using avi::mf::kMinibatch;
+  const int group = avi::mf::model_group(model, n_data, db, batch, n, d, n_rows);
+  const auto kernel = group == kMinibatch    ? kernel_for<kMinibatch>(def)
+                      : group == kDensePlain ? kernel_for<kDensePlain>(def)
+                                             : kernel_for<avi::mf::kDense>(def);
+#endif
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);

@@ -25,6 +25,8 @@
 
 #include <cuda_runtime.h>
 
+#include "block_mm.cuh"
+
 namespace avi {
 
 constexpr float kLog2Pi = 1.8378770664093453f;  // log(2 pi) in float32
@@ -191,11 +193,25 @@ __device__ __forceinline__ void gaussian_body(const float* __restrict__ mean,
   }
 }
 
+// The hand logreg body's two products through block_mm: a thread's tile
+// (rows x columns) and the lanes that split k.  The logits (n, n_data) over
+// db terms take 10 rows x 1 datum a thread, k over 2 lanes (416 threads at
+// the flagship); the likelihood gradient (n, db) over n_data terms 10 rows
+// x 1 feature a thread, k over 8 lanes (488 threads).  Of the tiles timed
+// beside each other on an H100 (PERF.md section 6) these ran the
+// flagship chunk fastest: larger tiles load fewer shared-memory bytes a
+// multiply-add but leave fewer threads or need more shuffles.  The
+// full-rank kernel, capped at 88 registers, keeps the routines below
+// (logreg_logits_each, logreg_grad_each): block_mm spilled there.
+constexpr int kLogitRows = 10, kLogitCols = 1, kLogitSplit = 2;
+constexpr int kGradRows = 10, kGradCols = 1, kGradSplit = 8;
+
 struct LogReg {
   const float* X;  // (n_data, db) shared
   const float* y;  // (n_data,) shared
-  float* l;        // (n, n_data) shared: logits, then likelihood weights
-  int n_data, db;
+  float* l;        // (n, ldl) shared: logits, then likelihood weights
+  float* zb;       // (n, ldz) shared: the samples' beta lanes, rows 16-byte aligned
+  int n_data, db, ldl, ldz;
   float likeadj, prior_scale;
 };
 
@@ -220,9 +236,22 @@ __device__ __forceinline__ void logreg_rows(const LogReg& m, const float* z, int
   }
 }
 
-// Logits l = beta X^T, one thread per (row, datum).
-__device__ __forceinline__ void logreg_logits(const LogReg& m, const float* z, int n,
-                                              int d, int tid, int threads) {
+// Logits l = beta X^T by block_mm: with kAligned the betas from the aligned
+// copy zb (float4 along the features), else from the samples z; X^T is X's
+// rows, one load a feature.  Both sum in one order.
+template <int kThreads, bool kAligned>
+__device__ __forceinline__ void logreg_logits(const LogReg& m, const float* z, int n, int d,
+                                              int tid) {
+  float* l = m.l;
+  const int ldl = m.ldl;
+  block_mm<kThreads, kLogitRows, kLogitCols, kLogitSplit, kAligned, false>(
+      n, m.n_data, m.db, kAligned ? m.zb : z, kAligned ? m.ldz : d, 1, m.X, 1, m.db, tid,
+      [=](int i, int k, float v) { l[i * ldl + k] = v; });
+}
+
+// The logits one thread per (row, datum), k in order (the full-rank kernel).
+__device__ __forceinline__ void logreg_logits_each(const LogReg& m, const float* z, int n,
+                                                   int d, int tid, int threads) {
   for (int idx = tid; idx < n * m.n_data; idx += threads) {
     const int i = idx / m.n_data;
     const int k = idx - i * m.n_data;
@@ -247,11 +276,11 @@ __device__ __forceinline__ void logreg_logpi(const LogReg& m, int n, const float
   for (int i = warp; i < n; i += warps) {
     float ll = 0.0f;
     for (int k = lane; k < m.n_data; k += 32) {
-      const float l = m.l[i * m.n_data + k];
+      const float l = m.l[i * m.ldl + k];
       const float p = 1.0f / (1.0f + expf(-l));
       const float sp = fmaxf(l, 0.0f) + log1pf(expf(-fabsf(l)));
       ll += m.y[k] * l - sp;
-      m.l[i * m.n_data + k] = m.likeadj * (m.y[k] - p);
+      m.l[i * m.ldl + k] = m.likeadj * (m.y[k] - p);
     }
     ll = warp_sum(ll);
     if (lane == 0) {
@@ -262,12 +291,28 @@ __device__ __forceinline__ void logreg_logpi(const LogReg& m, int n, const float
   }
 }
 
-// grad log pi (one thread per (row, lane)): X^T weights - beta e^{-2t}, and
-// |beta|^2 e^{-2t} - db - t / s^2 for the log-sigma lane.
-__device__ __forceinline__ void logreg_grad(const LogReg& m, const float* z, int n,
-                                            int d, const float* beta_sq,
-                                            const float* tcol, const float* inv_sig2,
-                                            float* g, int tid, int threads) {
+// grad log pi: X^T weights - beta e^{-2t} by block_mm (with kAligned the
+// weights' rows float4 along the data, X one load a datum), and |beta|^2
+// e^{-2t} - db - t / s^2 for the log-sigma lane.
+template <int kThreads, bool kAligned>
+__device__ __forceinline__ void logreg_grad(const LogReg& m, const float* z, int n, int d,
+                                            const float* beta_sq, const float* tcol,
+                                            const float* inv_sig2, float* g, int tid) {
+  block_mm<kThreads, kGradRows, kGradCols, kGradSplit, kAligned, false>(
+      n, m.db, m.n_data, m.l, m.ldl, 1, m.X, m.db, 1, tid,
+      [=](int i, int j, float v) { g[i * d + j] = v - z[i * d + j] * inv_sig2[i]; });
+  const float s2 = m.prior_scale * m.prior_scale;
+  const float fdb = static_cast<float>(m.db);
+  for (int i = tid; i < n; i += kThreads)
+    g[i * d + m.db] = beta_sq[i] * inv_sig2[i] - fdb - tcol[i] / s2;
+}
+
+// grad log pi one thread per (row, lane), k in order (the full-rank
+// kernel; its logits rows are n_data floats apart).
+__device__ __forceinline__ void logreg_grad_each(const LogReg& m, const float* z, int n,
+                                                 int d, const float* beta_sq,
+                                                 const float* tcol, const float* inv_sig2,
+                                                 float* g, int tid, int threads) {
   const float s2 = m.prior_scale * m.prior_scale;
   const float fdb = static_cast<float>(m.db);
   for (int idx = tid; idx < n * d; idx += threads) {

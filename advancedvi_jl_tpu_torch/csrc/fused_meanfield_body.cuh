@@ -9,8 +9,21 @@
 // single-chain kernel compiles to what it was before the body moved here.
 // Built with AVI_AD_BODY, the model phase also takes K5's generated body
 // (model kAD, c0 and c1 its packed float and int constants in device memory,
-// its scratch after the layout's other arrays); every line of it is under
-// that macro, so the other libraries compile as without it.
+// its scratch after the layout's other arrays, then its float constants
+// staged in shared memory where the host found that they fit, ad_program);
+// every line of it is under that macro, so the other libraries compile as
+// without it.
+//
+// Built with AVI_PHASE_CLOCKS (fused_run_chunk_cuda(..., instrumented=True),
+// read by meanfield_phase_cycles in ops/cuda/fused_advi.py), thread 0 adds
+// the SM cycles of each phase of a step into avi_mf_phase_cycles: 0 the
+// draws and z; 1 the row sums (|u|^2, logreg's |beta|^2, log det); 2 the
+// logits (K5: its body up to the barrier after log pi); 3 log pi (K5: the
+// rest of its body, the gradient); 4 the gradient (VarGrad: its
+// coefficients); 5 the
+// step's gradient, the rule, the operator and the averaging (thread 0's
+// share); 6 the wait at the step's last barrier, where the ELBO thread
+// finishes.  The build without the macro is untouched.
 #pragma once
 
 #include "fused_common.cuh"
@@ -28,25 +41,52 @@ constexpr int kElbo = kThreads - 32;
 constexpr size_t kSmemLimit = 232448;  // dynamic shared memory of one block
 using avi::kLog2Pi;
 
+#ifdef AVI_PHASE_CLOCKS
+constexpr int kPhases = 7;
+__device__ unsigned long long avi_mf_phase_cycles[kPhases];
+// thread 0: the cycles since the last mark into phase i
+#define AVI_MF_PHASE(i)                                                                \
+  do {                                                                                 \
+    if (tid == 0) {                                                                    \
+      const long long t_now = clock64();                                               \
+      atomicAdd(&avi::mf::avi_mf_phase_cycles[i],                                      \
+                static_cast<unsigned long long>(t_now - t_prev));                      \
+      t_prev = t_now;                                                                  \
+    }                                                                                  \
+  } while (0)
+#else
+#define AVI_MF_PHASE(i) \
+  do {                  \
+  } while (0)
+#endif
+
 // Offsets (in floats) of the shared-memory arrays.
 struct Layout {
-  int X, y, l, u, z, g, st, grad, row, red, total;
+  int X, y, l, zb, u, z, g, st, grad, row, red, total;
+  int ldl, ldz;  // row strides of l and zb (logreg)
 #ifdef AVI_AD_BODY
-  int ad;  // K5's scratch
+  int ad, adc;  // K5's scratch and its staged float constants
 #endif
 };
 
 // n_data is the design's rows; a minibatch model keeps one B-row slab (the
-// staged transports) and yX[k] in `y`.
-__host__ __device__ inline Layout make_layout(int model, int n_data, int db, int batch,
-                                              int n, int d, int n_rows) {
+// staged transports) and yX[k] in `y`.  With `aligned`, logreg pads the
+// logits' rows to whole float4s and copies the betas to zb (rows of
+// round4(db) floats) for block_mm's float4 loads.
+__host__ __device__ inline Layout layout_for(int model, int n_data, int db, int batch, int n,
+                                             int d, int n_rows, bool aligned) {
   Layout L;
   int o = 0;
   const bool lr = model == avi::kLogReg;
   const bool mb = avi::is_minibatch(model);
+  const bool al = lr && aligned;
+  L.ldl = al ? avi::round4(n_data) : (lr ? n_data : batch);
+  L.ldz = al ? avi::round4(db) : 0;
   L.X = o;    o += lr ? n_data * db : (avi::slab_staged(model) ? batch * db : 0);
   L.y = o;    o += lr ? n_data : (mb ? db : 0);  // labels, or yX[k]
-  L.l = o;    o += lr ? n * n_data : (mb ? n * batch : 0);  // logits, then weights
+  if (al) o = avi::round4(o);             // l and zb: rows read as float4s
+  L.l = o;    o += lr || mb ? n * L.ldl : 0;  // logits, then weights
+  L.zb = o;   o += n * L.ldz;             // logreg: the samples' beta lanes
   L.u = o;    o += n * d;                 // base draws
   L.z = o;    o += n * d;                 // samples
   L.g = o;    o += n * d;                 // grad log pi
@@ -55,13 +95,41 @@ __host__ __device__ inline Layout make_layout(int model, int n_data, int db, int
   L.row = o;  o += 7 * n + 1;             // beta_sq t inv_sig2 logpi u2 c ylogit, logdet
   L.red = o;  o += 2 * kWarps + 1;        // block reduction, then eta
 #ifdef AVI_AD_BODY
+  if (model == avi::kAD) o = avi::round4(o);
   L.ad = o;   o += model == avi::kAD ? avi::ad::kScratch : 0;  // the generated body's
+  if (model == avi::kAD) o = avi::round4(o);
+  L.adc = o;  o += model == avi::kAD ? avi::ad::kStage : 0;    // its staged constants
 #endif
   L.total = o;
   return L;
 }
 
-template <bool kGeneral>
+// The model groups a kernel is instantiated for (kGroup): the dense data
+// models (logreg with the aligned layout, the diagonal Gaussian), logreg
+// with the plain layout (no zb, no padding: a design whose aligned layout
+// would not fit one block, as every design that fitted before block_mm
+// still fits), or the minibatch logreg's three transports.  Each instance
+// compiles its group's bodies alone, so ptxas allocates its registers for
+// them alone; a library built with a generated body runs that body alone
+// (its C entry takes no other model).
+enum ModelGroup { kDense = 0, kMinibatch = 1, kDensePlain = 2 };
+
+__host__ __device__ inline int model_group(int model, int n_data, int db, int batch, int n,
+                                           int d, int n_rows) {
+  if (avi::is_minibatch(model)) return kMinibatch;
+  const Layout L = layout_for(model, n_data, db, batch, n, d, n_rows, true);
+  return sizeof(float) * static_cast<size_t>(L.total) <= kSmemLimit ? kDense : kDensePlain;
+}
+
+// The layout of a launch: the aligned one where it fits one block's shared
+// memory, else the plain one.
+__host__ __device__ inline Layout make_layout(int model, int n_data, int db, int batch,
+                                              int n, int d, int n_rows) {
+  const bool aligned = model_group(model, n_data, db, batch, n, d, n_rows) != kDensePlain;
+  return layout_for(model, n_data, db, batch, n, d, n_rows, aligned);
+}
+
+template <bool kGeneral, int kGroup>
 __device__ __forceinline__ void run_chunk(
     int model, const float* __restrict__ c0, const float* __restrict__ c1, int n_data,
     int db, int batch, float s0, float s1, const float* __restrict__ state_in,
@@ -69,10 +137,14 @@ __device__ __forceinline__ void run_chunk(
     const float* __restrict__ noise, int n, int d, int n_rows, int steps, int log_every,
     uint32_t k0, uint32_t k1, unsigned long long it0, avi::Hyper h, avi::Branch br) {
   if (!kGeneral) br = avi::kDefaultBranch;  // every switch below is then constant
+#ifdef AVI_AD_BODY
+  model = avi::kAD;  // every other model's code drops out of this library
+#endif
   extern __shared__ float smem[];
-  const Layout L = make_layout(model, n_data, db, batch, n, d, n_rows);
-  const bool logreg = model == avi::kLogReg;
-  const bool minibatch = avi::is_minibatch(model);
+  constexpr bool kAligned = kGroup != kDensePlain;  // the host picked the group by its fit
+  const Layout L = layout_for(model, n_data, db, batch, n, d, n_rows, kAligned);
+  const bool logreg = kGroup != kMinibatch && model == avi::kLogReg;
+  const bool minibatch = kGroup == kMinibatch && avi::is_minibatch(model);
   float* us = smem + L.u;
   float* zs = smem + L.z;
   float* gs = smem + L.g;
@@ -98,7 +170,10 @@ __device__ __forceinline__ void run_chunk(
   float* logdet = ylogit + n;
   float* red = smem + L.red;
   float* eta_s = red + 2 * kWarps;
-  const avi::LogReg lrm{smem + L.X, smem + L.y, smem + L.l, n_data, db, s0, s1};
+  const avi::LogReg lrm{smem + L.X, smem + L.y, smem + L.l, smem + L.zb, n_data, db,
+                        L.ldl, L.ldz, s0, s1};
+  float* zb = smem + L.zb;
+  const int ldz = L.ldz;
   avi::LogRegMB mbm{nullptr, smem + L.y, smem + L.l, batch, db, s0, s1};
   const int nb = minibatch ? n_data / batch : 1;
 
@@ -110,6 +185,9 @@ __device__ __forceinline__ void run_chunk(
     for (int i = tid; i < n_data; i += kThreads) smem[L.y + i] = c1[i];
   }
   for (int i = tid; i < n_rows * d; i += kThreads) st[i] = state_in[i];
+#ifdef AVI_AD_BODY
+  if (model == avi::kAD) avi::ad::ad_stage(c0, smem + L.adc, tid);
+#endif
   __syncthreads();
 
   const bool vargrad = br.grad_est == avi::kScoreGrad;
@@ -124,6 +202,9 @@ __device__ __forceinline__ void run_chunk(
   const float ent_closed = 0.5f * static_cast<float>(d) * (1.0f + kLog2Pi);
   const int groups = (d + 3) / 4;
   float elbo = 0.0f;
+#ifdef AVI_PHASE_CLOCKS
+  long long t_prev = clock64();
+#endif
 
   for (int s = 0; s < steps; ++s) {
     const unsigned long long it = it0 + static_cast<unsigned long long>(s);
@@ -139,7 +220,9 @@ __device__ __forceinline__ void run_chunk(
         const int j = idx % d;
         const float uv = src[idx];
         us[idx] = uv;
-        zs[idx] = __fadd_rn(mu[j], __fmul_rn(sig[j], uv));
+        const float zv = __fadd_rn(mu[j], __fmul_rn(sig[j], uv));
+        zs[idx] = zv;
+        if (kAligned && logreg && j < db) zb[(idx / d) * ldz + j] = zv;
       }
     } else {
       for (int pair = tid; pair < n * groups; pair += kThreads) {
@@ -153,12 +236,15 @@ __device__ __forceinline__ void run_chunk(
           const int j = 4 * g + p;
           if (j < d) {
             us[i * d + j] = w[p];
-            zs[i * d + j] = __fadd_rn(mu[j], __fmul_rn(sig[j], w[p]));
+            const float zv = __fadd_rn(mu[j], __fmul_rn(sig[j], w[p]));
+            zs[i * d + j] = zv;
+            if (kAligned && logreg && j < db) zb[i * ldz + j] = zv;
           }
         }
       }
     }
     __syncthreads();
+    AVI_MF_PHASE(0);
     if (logreg) avi::logreg_rows(lrm, zs, n, d, beta_sq, tcol, inv_sig2, warp, kWarps, lane);
     if (minibatch)
       avi::logreg_mb_rows(mbm, zs, n, d, beta_sq, tcol, inv_sig2, ylogit, warp, kWarps, lane);
@@ -179,26 +265,37 @@ __device__ __forceinline__ void run_chunk(
     }
     if (avi::slab_staged(model)) avi::cp_async_wait_all();  // this thread's copies landed
     __syncthreads();
+    AVI_MF_PHASE(1);
 
     // B: log pi (and the Gaussian's gradient)
     if (logreg) {
-      avi::logreg_logits(lrm, zs, n, d, tid, kThreads);
+      avi::logreg_logits<kThreads, kAligned>(lrm, zs, n, d, tid);
       __syncthreads();
+      AVI_MF_PHASE(2);
       avi::logreg_logpi(lrm, n, beta_sq, tcol, inv_sig2, logpi, warp, kWarps, lane);
     } else if (minibatch) {
       avi::logreg_mb_logits(mbm, zs, n, d, tid, kThreads);
       __syncthreads();
+      AVI_MF_PHASE(2);
       avi::logreg_mb_logpi(mbm, n, beta_sq, tcol, inv_sig2, ylogit, logpi, warp, kWarps, lane);
 #ifdef AVI_AD_BODY
     } else if (model == avi::kAD) {  // K5: log pi and its gradient (VarGrad ignores gs)
-      avi::ad::ad_body(c0, reinterpret_cast<const int*>(c1), zs, n, d, logpi, gs,
-                       smem + L.ad, tid);
+      long long t_logpi = 0;
+      avi::ad::ad_body(c0, reinterpret_cast<const int*>(c1), smem + L.adc, zs, n, d, logpi, gs,
+                       smem + L.ad, tid, &t_logpi);
+#ifdef AVI_PHASE_CLOCKS
+      if (tid == 0) {  // the body's mark after log pi: phase 2 up to it, 3 the rest
+        atomicAdd(&avi_mf_phase_cycles[2], static_cast<unsigned long long>(t_logpi - t_prev));
+        t_prev = t_logpi;
+      }
 #endif
-    } else {
+#endif
+    } else if (kGroup != kMinibatch) {
       avi::gaussian_body(c0, c1, s0, zs, n, d, logpi, vargrad ? nullptr : gs, warp, kWarps,
                          lane);
     }
     __syncthreads();
+    AVI_MF_PHASE(3);
 
     // C: logreg's grad log pi, or VarGrad's coefficients and ELBO
     if (vargrad) {
@@ -216,12 +313,15 @@ __device__ __forceinline__ void run_chunk(
         elbo = inv_n * esum;
       }
       __syncthreads();
+      AVI_MF_PHASE(4);
     } else if (logreg) {
-      avi::logreg_grad(lrm, zs, n, d, beta_sq, tcol, inv_sig2, gs, tid, kThreads);
+      avi::logreg_grad<kThreads, kAligned>(lrm, zs, n, d, beta_sq, tcol, inv_sig2, gs, tid);
       __syncthreads();
+      AVI_MF_PHASE(4);
     } else if (minibatch) {
       avi::logreg_mb_grad(mbm, zs, n, d, beta_sq, tcol, inv_sig2, gs, tid, kThreads);
       __syncthreads();
+      AVI_MF_PHASE(4);
     }
 
     // D: the gradient of the step, then (DoWG, DoG) its global sums
@@ -310,7 +410,9 @@ __device__ __forceinline__ void run_chunk(
       if (log_every > 0 && (s + 1) % log_every == 0)
         trace[(s + 1) / log_every - 1] = elbo;
     }
+    AVI_MF_PHASE(5);
     __syncthreads();
+    AVI_MF_PHASE(6);
   }
 
   for (int i = tid; i < n_rows * d; i += kThreads) state_out[i] = st[i];

@@ -15,9 +15,10 @@ K5 (ops/cuda/ad_body.py): ``build_generated`` writes the body to
 covering the flags, the kernel's source, every shared header and the body.
 A failed build raises; nothing runs the body's plain version in its place.
 
-A kernel may also build with preprocessor ``defines`` (the full-rank
-kernel's per-phase cycle counters, ``AVI_PHASE_CLOCKS``) into
-``lib<name>-<define>-<hash>.so``, its hash covering the defines.
+A kernel may also build with preprocessor ``defines`` (the fused kernels'
+per-phase cycle counters, ``AVI_PHASE_CLOCKS``) into
+``lib<name>-<define>-<hash>.so`` (``lib<name>-ad-<define>-<hash>.so`` with a
+generated body), its hash covering the defines.
 
 Nothing here runs when the package is imported: a wrapper calls ``function``
 when it is first handed a CUDA tensor.
@@ -47,6 +48,9 @@ NVCC_FLAGS = (
 SMEM_LIMIT = 232448
 KERNELS = ("meanfield_sample", "fused_advi_meanfield", "fullrank_sample", "trisolve",
            "fused_advi_fullrank", "probes", "fused_chains", "lowrank_sample")
+# Launchers that only card tests call (csrc/block_mm.cu runs the fused
+# kernels' block product alone): built on demand, never by ``build_all()``.
+TEST_KERNELS = ("block_mm",)
 AD_KERNELS = ("fused_advi_meanfield", "fused_advi_fullrank", "fused_chains")
 
 _libs: Dict[Tuple[str, Optional[str]], ctypes.CDLL] = {}
@@ -93,10 +97,11 @@ def body_path(body: str) -> Path:
     return GEN_DIR / f"ad_{hashlib.sha256(body.encode()).hexdigest()[:16]}.cuh"
 
 
-def generated_library_path(name: str, body: str) -> Path:
-    """The library of kernel ``name`` with the generated ``body``: its hash
-    also covers the body."""
-    return BUILD_DIR / f"lib{name}-ad-{_source_hash(name, body)}.so"
+def generated_library_path(name: str, body: str, defines: Sequence[str] = ()) -> Path:
+    """The library of kernel ``name`` with the generated ``body`` (and
+    ``defines``): its hash also covers the body."""
+    tag = "".join(f"-{d.lower()}" for d in defines)
+    return BUILD_DIR / f"lib{name}-ad{tag}-{_source_hash(name, body, defines)}.so"
 
 
 def build(name: str, defines: Sequence[str] = ()) -> Path:
@@ -144,21 +149,22 @@ def build_all(names: Sequence[str] = KERNELS, defines: Sequence[str] = ()) -> Di
     """Compile the named kernels that have no up-to-date library, one
     ``nvcc`` process per source, all started together; returns their paths."""
     for name in names:
-        if name not in KERNELS:
-            raise ValueError(f"unknown kernel {name!r}; known: {KERNELS}")
+        if name not in KERNELS + TEST_KERNELS:
+            raise ValueError(f"unknown kernel {name!r}; known: {KERNELS + TEST_KERNELS}")
     paths = {name: library_path(name, defines) for name in names}
     flags = tuple(f"-D{d}" for d in defines)
     _compile([(name, out, flags) for name, out in paths.items()])
     return paths
 
 
-def build_generated(name: str, body: str) -> Path:
-    """Compile kernel ``name`` with the generated K5 ``body`` unless an
-    up-to-date library exists."""
-    return build_generated_all([(name, body)])[(name, body)]
+def build_generated(name: str, body: str, defines: Sequence[str] = ()) -> Path:
+    """Compile kernel ``name`` with the generated K5 ``body`` (and ``-D`` of
+    each of ``defines``) unless an up-to-date library exists."""
+    return build_generated_all([(name, body)], defines)[(name, body)]
 
 
-def build_generated_all(pairs: Sequence[Tuple[str, str]]) -> Dict[Tuple[str, str], Path]:
+def build_generated_all(pairs: Sequence[Tuple[str, str]],
+                        defines: Sequence[str] = ()) -> Dict[Tuple[str, str], Path]:
     """``build_generated`` of every (kernel, body) pair, one ``nvcc`` each,
     all started together; returns their paths."""
     jobs, paths = [], {}
@@ -169,8 +175,9 @@ def build_generated_all(pairs: Sequence[Tuple[str, str]]) -> Dict[Tuple[str, str
         header = body_path(body)
         if not header.exists() or header.read_text() != body:
             _atomic_write(header, body)
-        out = paths[(name, body)] = generated_library_path(name, body)
-        jobs.append((name, out, ("-I", str(GEN_DIR), f"-DAVI_AD_BODY={header.name}")))
+        out = paths[(name, body)] = generated_library_path(name, body, defines)
+        jobs.append((name, out, ("-I", str(GEN_DIR), f"-DAVI_AD_BODY={header.name}",
+                                 *(f"-D{d}" for d in defines))))
     _compile(jobs)
     return paths
 
@@ -181,15 +188,13 @@ def function(name: str, symbol: str, argtypes: Sequence, restype=ctypes.c_int,
     K5 ``body``, or built with ``defines``, when given), built and loaded on
     first use, with its argument types declared (pointers and the stream as
     ``c_void_p``, so ctypes never cuts them to 32 bits)."""
-    if body is not None and defines:
-        raise ValueError("a generated K5 body builds without defines")
-    key = (hashlib.sha256(body.encode()).hexdigest() if body is not None
-           else " ".join(defines) or None)
+    key = " ".join((hashlib.sha256(body.encode()).hexdigest() if body is not None else "",
+                    *defines)).strip() or None
     fn = _fns.get((name, key, symbol))
     if fn is None:
         lib = _libs.get((name, key))
         if lib is None:
-            path = build(name, defines) if body is None else build_generated(name, body)
+            path = build(name, defines) if body is None else build_generated(name, body, defines)
             lib = _libs[(name, key)] = ctypes.CDLL(str(path))
         fn = getattr(lib, symbol)
         fn.argtypes = list(argtypes)

@@ -29,27 +29,46 @@ node that needs storage, every shape and stride a literal.  Views (slice,
 select, permute, t, expand, unsqueeze, squeeze, view) are strided aliases of
 their base, from the fake tensor's strides and storage offset, never copies
 (a reshape that cannot be one is the graph's own ``clone``).
-A pointwise node read once, element for element, by a pointwise node or a
-sum is inlined into that consumer's expression.  ``ones_like``,
+A pointwise or gather node read once, by a pointwise node of its shape, a
+sum or a gather, is inlined into that consumer's expression; a pointwise
+node of at most REMAT_OPS ops (or of the constants alone) read by several
+is recomputed at each read (the same ops, so the same bits).  A node read
+through a view or by a product keeps its storage.  ``ones_like``,
 ``new_zeros`` and ``scalar_tensor`` are literals, and pointwise nodes of
-literals fold on the host with torch's own op.  ``mm`` and ``mv`` are a
-k-term ``fmaf`` sum for each output element; ``sum`` is one reduction for
-each output element (a warp's, over 32 terms or more).  ``cat``,
-``slice_backward`` and ``select_backward`` are one pass that reads the
-element or writes 0.  The arithmetic rounds as torch's ops do: ``__fadd_rn``
-and ``__fmul_rn``, so no two ops contract into an FMA; ``logf``, ``expf`` and
+literals fold on the host with torch's own op.  ``mm`` and ``mv`` are one
+call of the block product (csrc/block_mm.cuh) with the operands' literal
+shapes and strides: register tiles, k split over lanes (``_tile``: the hand
+logreg body's tiles at the flagship), float4 loads where an operand's
+k-stride is 1 and its rows 16-byte aligned; a stored (R, C) node that feeds
+a product four k at a time gets rows of round4(C) floats.  ``sum`` is one
+reduction for each output element (a warp's, over 32 terms or more).
+``cat``, ``slice_backward`` and ``select_backward`` read the element or give
+0.  The arithmetic rounds as torch's ops do: ``__fadd_rn`` and
+``__fmul_rn``, so no two ops contract into an FMA; ``logf``, ``expf`` and
 ``log1pf`` without fast math; ``sgn(0) = sgn(NaN) = 0`` and ``clamp_min``
-keeps a NaN, as torch.  A ``__syncthreads()`` stands only where a loop reads
-what an earlier loop wrote since the last barrier, or writes scratch that an
-earlier loop read since then.  The intermediates live in the block's shared
-memory, liveness-packed (first fit), ``scratch`` floats in all.
+keeps a NaN, as torch.
+
+Barriers come from a model of every access: for each loop, which thread
+reads and writes which element of which storage (a pointwise loop's element
+e on thread e, or, for at most WARPS elements, on lane 0 of warp e; a warp
+reduction's terms on its lanes; the block product's tiles as
+csrc/block_mm.cuh maps them).  A loop needs no ``__syncthreads()`` before it
+when nothing it touches was written since the last barrier by another
+thread, and nothing it writes was read there by another thread; such loops
+of one shape run as one loop.  The intermediates live in the block's shared
+memory, first fit at 16-byte offsets, a node's floats handed to another only
+across a barrier after their last read: ``scratch`` floats in all.
+``race_check`` runs the same model over the finished plan with the scratch
+offsets and asserts that no element is shared between threads with no
+barrier between them; ``emit`` runs it on every body.  The float constants
+are read from device memory, or, in a ``staged`` program, from a copy that
+``ad_stage`` puts in shared memory once a launch (``fused_advi.ad_program``
+stages them where they fit beside the engine's arrays).
 
 What bounds it on an H100: latency, as the hand bodies.  At the flagship
 (n = 10, d = 62, 208 x 61 design) the graph's two products are 2 x 126,880
-multiply-adds a step, a few microseconds of one SM; the body's sequential
-depth is its loops and barriers, and it reads the constants (the design)
-from global memory through L1 and L2 instead of staging them in shared
-memory as the hand logreg body does.
+multiply-adds a step, a few microseconds of one SM through the block
+product; the body's sequential depth is its loops and its barriers (5).
 
 ``replay`` runs the same graph on tensors, its constants bound to their
 slots of the packed buffers: it is the kernel's plain version, which the
@@ -239,6 +258,9 @@ def replay(gm: torch.fx.GraphModule, z: torch.Tensor):
 # Plan and emit
 # ---------------------------------------------------------------------------
 
+WARPS = THREADS // 32
+REMAT_OPS = 4  # a pointwise node of at most this many ops is recomputed where it is read
+
 
 @dataclass
 class _Mem:
@@ -258,10 +280,57 @@ class _Lit:
 
 @dataclass
 class _Inl:
-    """A pointwise node computed inside its one consumer's expression."""
+    """A pointwise or gather node computed inside its consumers' expressions."""
 
     node: Any
     shape: Tuple[int, ...]
+
+
+class _Ix:
+    """An index of the emitted C: a loop variable (or the literal 0) through
+    subtractions and divisions; printed for the source, evaluated on numpy
+    arrays for the race model (where an index is negative its read sits
+    under a false condition)."""
+
+    __slots__ = ("name", "ops")
+
+    def __init__(self, name: Optional[str] = None, ops: Tuple = ()):
+        self.name, self.ops = name, ops
+
+    def sub(self, c: int) -> "_Ix":
+        return self if c == 0 or self.name is None else _Ix(self.name, self.ops + (("-", c),))
+
+    def div(self, c: int) -> "_Ix":
+        return self if c == 1 or self.name is None else _Ix(self.name, self.ops + (("/", c),))
+
+    def __str__(self) -> str:
+        if self.name is None:
+            return "0"
+        s = self.name
+        for op, c in self.ops:
+            s = f"({s} {op} {c})"
+        return s
+
+    def eval(self, env):
+        if self.name is None:
+            return 0
+        v = env[self.name]
+        for op, c in self.ops:
+            v = v - c if op == "-" else v // c
+        return v
+
+
+ZERO = _Ix()
+
+
+@dataclass
+class _Acc:
+    """One memory access of a loop: ``ref`` at the index ``idx``, where every
+    condition (index, lo, hi, step) holds."""
+
+    ref: _Mem
+    idx: List[_Ix]
+    conds: Tuple
 
 
 def _lit(v: float) -> str:
@@ -273,6 +342,10 @@ def _lit(v: float) -> str:
 
 def _shape(node) -> Tuple[int, ...]:
     return tuple(int(s) for s in node.meta["val"].shape)
+
+
+def _numel(shape) -> int:
+    return int(np.prod(shape)) if shape else 1
 
 
 def _dense(shape, strides) -> bool:
@@ -302,21 +375,75 @@ def _unravel(var: str, shape, names) -> List[str]:
     return lines
 
 
+def _bind(env: Dict[str, np.ndarray], flat: np.ndarray, shape, names) -> None:
+    """The race model's twin of ``_unravel``: ``names[k]`` over ``flat``."""
+    live = [k for k, s in enumerate(shape) if s != 1]
+    if not live:
+        return
+    coords = np.unravel_index(flat, tuple(shape[k] for k in live))
+    for k, c in zip(live, coords):
+        env[names[k]] = c
+
+
+def _idx(names, shape) -> List[_Ix]:
+    return [_Ix(nm) if s != 1 else ZERO for nm, s in zip(names, shape)]
+
+
+def _tile(M: int, N: int, K: int) -> Tuple[int, int, int]:
+    """block_mm's tile of an (M, N, K) product: (rows, columns) a thread and
+    one lane a sum, k in order, so that every output is the fmaf chain
+    k = 0, 1, ... of the per-element loops K5 emitted before the block
+    product (the same bits: the logreg graph's softplus has a kink at a
+    logit of exactly 0, where another order can move a run).  Of the tiles
+    up to 10 x 4, the one with the least shared-memory traffic, (rows +
+    columns) / (rows x columns) words a multiply-add, counted as slower by
+    the warps it leaves short of six, and at most 10 sums a thread (the
+    fused kernels' registers); the flagship's logits (10, 208, 61) take
+    (5, 2) and its gradient (10, 61, 208) (2, 2).  This cost model has not
+    been timed against other tiles of K5 (PERF.md section 7), and a sweep
+    of the hand body's tiles found latency, not bandwidth, setting them."""
+    best, cost = (1, 1, 1), None
+    for tm in (1, 2, 5, 10):
+        for tn in (1, 2, 4):
+            if tm > M or tn > N or tm * tn > 10:  # at most 10 sums in registers
+                continue
+            tasks = -(-M // tm) * -(-N // tn)
+            warps = -(-min(tasks, THREADS) // 32)
+            c = (tm + tn) / (tm * tn) * -(-tasks // THREADS) / min(1.0, warps / 6)
+            if cost is None or c < cost - 1e-12:
+                best, cost = (tm, tn, 1), c
+    return best
+
+
 @dataclass
 class _Loop:
-    out: Any            # the storage written (a node, GS or LOGPI)
-    reads: set          # storages read
-    body: List[str]
+    """One loop of the body: its kind, iteration space, the storage it
+    writes and its accesses (for the barrier planner and the race model)."""
+
+    out: Any             # the storage written: a node, GS or LOGPI
+    kind: str            # "pw", "warpred", "threadred", "mm"
+    space: Tuple         # pw: shape; red: (kept shape, reduced shape); mm: (M, N, K)
+    write: Optional[_Acc]
+    reads: List[_Acc]
+    lines: List[str]     # pw: the statements inside the loop; else the whole loop
+    mm: Optional[Dict[str, Any]] = None
+    map: str = "flat"    # pw: "flat" (element e on thread e) or "warp" (lane 0 of warp e)
 
 
 class _Planner:
-    def __init__(self, gm: torch.fx.GraphModule, packing: Packing, n: int, d: int):
+    def __init__(self, gm: torch.fx.GraphModule, packing: Packing, n: int, d: int,
+                 staged: bool = False):
         self.gm, self.packing, self.n, self.d = gm, packing, n, d
+        self.staged = staged
         self.refs: Dict[Any, Any] = {}
         self.kind: Dict[Any, str] = {}
         self.loops: List[_Loop] = []
         self.inlined: set = set()
         self.placed: Dict[Any, str] = {}  # output nodes computed straight into GS, LOGPI
+        self.extent: Dict[Any, int] = {}  # floats of a node's storage (padded rows)
+        self._conds: List[Tuple] = []
+        self._acc: Optional[List[_Acc]] = None
+        self.madds = 0
 
     # -- refs --------------------------------------------------------------
 
@@ -395,52 +522,131 @@ class _Planner:
             todo.extend(a for a in node.all_input_nodes)
         return live
 
+    def _stored_inputs(self, node) -> set:
+        """The storages an expression of ``node`` reads (through inlined nodes)."""
+        out = set()
+        for a in node.all_input_nodes:
+            ref = self.refs.get(a)
+            if isinstance(ref, _Inl):
+                out |= self._stored_inputs(a)
+            elif isinstance(ref, _Mem):
+                out.add(ref.store)
+        return out
+
     def choose_inlined(self, live, outs):
+        """Nodes computed inside their consumers' expressions, never stored:
+        a pointwise or gather node read by one pointwise node of its shape, a
+        sum or a gather; and a pointwise node of at most REMAT_OPS ops (or of
+        the constants alone) read by several, recomputed at each read (the
+        same ops, so the same bits).  A node read through a view or by a
+        product keeps its storage."""
         uses: Dict[Any, List[Any]] = {}
         for node in live:
             for a in node.args:
                 for x in (a if isinstance(a, (list, tuple)) else (a,)):
                     if isinstance(x, torch.fx.Node) and x in live:
                         uses.setdefault(x, []).append(node)
+        cost: Dict[Any, int] = {}
         for node in self.gm.graph.nodes:
-            if node not in live or self.kind.get(node) != "pw" or node in outs:
+            kind = self.kind.get(node)
+            if node not in live or kind not in ("pw", "gather") or node in outs:
                 continue
             users = uses.get(node, [])
-            if len(users) != 1:
+            ukinds = [self.kind.get(u) for u in users]
+            if not users or any(k not in ("pw", "red", "gather") for k in ukinds):
                 continue
-            user = users[0]
-            kind = self.kind.get(user)
-            if kind == "red" or (kind == "pw" and _shape(user) == _shape(node)):
+            c = 1 + sum(cost.get(a, 0) for a in node.all_input_nodes if a in self.inlined)
+            same = all(k != "pw" or _shape(u) == _shape(node) for u, k in zip(users, ukinds))
+            const = kind == "pw" and not (self._stored_inputs(node) - {CF, CI})
+            if kind == "gather":
+                ok = len(users) == 1 and same
+            else:
+                ok = (len(users) == 1 and same) or c <= REMAT_OPS or (const and c <= 2 * REMAT_OPS)
+            if ok:
                 self.inlined.add(node)
                 self.refs[node] = _Inl(node, _shape(node))
+                cost[node] = c
+
+    def pad_operands(self, live):
+        """Give a stored (R, C) node whose rows feed a product four k at a
+        time (k-stride 1) rows of round4(C) floats, so block_mm reads them as
+        float4s, where every view of the node stays a strided window."""
+        for node in self.gm.graph.nodes:
+            if node not in live or self.kind.get(node) != "mm":
+                continue
+            A = self.refs[node.args[0]]
+            if not isinstance(A, _Mem) or not isinstance(A.store, torch.fx.Node):
+                continue
+            base = A.store
+            own = self.refs[base]
+            if (base in self.placed or base in self.extent or len(own.shape) != 2
+                    or own.strides != (own.shape[1], 1) or own.shape[1] % 4 == 0
+                    or A.strides[-1] != 1):
+                continue
+            R, C = own.shape
+            P = -(-C // 4) * 4
+            views = [k for k, r in self.refs.items() if isinstance(r, _Mem) and r.store is base]
+            new = {k: self._remap(self.refs[k], C, P) for k in views}
+            if any(v is None for v in new.values()):
+                continue
+            self.refs.update(new)
+            self.extent[base] = R * P
+
+    @staticmethod
+    def _remap(ref: _Mem, C: int, P: int) -> Optional[_Mem]:
+        """``ref`` of a row-major (R, C) storage re-laid with rows of P
+        floats, or None where a stride mixes rows and columns."""
+        strides, reach = [], ref.offset % C
+        for sz, st in zip(ref.shape, ref.strides):
+            if sz == 1 or st == 0:
+                strides.append(st)
+            elif st % C == 0:
+                strides.append(st // C * P)
+            elif st < C:
+                strides.append(st)
+                reach += st * (sz - 1)
+            else:
+                return None
+        if reach >= C:
+            return None
+        return _Mem(ref.store, ref.offset // C * P + ref.offset % C, ref.shape, tuple(strides))
 
     # -- expressions ------------------------------------------------------------
 
-    def expr(self, ref, idx: List[str], reads: set) -> str:
+    def expr(self, ref, idx: List[_Ix]) -> str:
         """C expression of ``ref`` at the index ``idx`` of an iteration space
-        of rank len(idx), ``ref`` broadcast against it from the right."""
+        of rank len(idx), ``ref`` broadcast against it from the right; its
+        reads are recorded in ``self._acc``."""
         if isinstance(ref, _Lit):
             return _lit(ref.value)
         if isinstance(ref, _Inl):
-            return self.pw_expr(ref.node, idx, reads)
+            return (self.pw_expr if self.kind[ref.node] == "pw" else self.gather_expr)(
+                ref.node, idx)
         lead = len(idx) - len(ref.shape)
-        terms = [str(ref.offset)] if ref.offset else []
-        for k, (sz, st) in enumerate(zip(ref.shape, ref.strides)):
-            if sz != 1 and st != 0 and idx[lead + k] != "0":
-                terms.append(idx[lead + k] if st == 1 else f"{idx[lead + k]} * {st}")
-        addr = " + ".join(terms) or "0"
-        reads.add(ref.store)
+        sub = idx[lead:]
+        self._acc.append(_Acc(ref, list(sub), tuple(self._conds)))
+        addr = self.addr(ref, sub)
         store = self.placed.get(ref.store, ref.store)
         if store == CI:
             return f"static_cast<float>(ci[{addr}])"
-        if store in (ZS, CF, GS, LOGPI):
+        if store == CF:
+            return f"{'cs' if self.staged else 'cf'}[{addr}]"
+        if store in (ZS, GS, LOGPI):
             return f"{store}[{addr}]"
         return f"s[{{OFF:{store.name}}} + {addr}]"
 
-    def pw_expr(self, node, idx, reads) -> str:
+    @staticmethod
+    def addr(ref: _Mem, idx: List[_Ix]) -> str:
+        terms = [str(ref.offset)] if ref.offset else []
+        for ix, sz, st in zip(idx, ref.shape, ref.strides):
+            if sz != 1 and st != 0 and ix.name is not None:
+                terms.append(str(ix) if st == 1 else f"{ix} * {st}")
+        return " + ".join(terms) or "0"
+
+    def pw_expr(self, node, idx) -> str:
         t = node.target
         shape = _shape(node)
-        a = [self.expr(self.arg_ref(x, shape), idx, reads) if isinstance(x, torch.fx.Node)
+        a = [self.expr(self.arg_ref(x, shape), idx) if isinstance(x, torch.fx.Node)
              else _lit(float(x)) for x in node.args]
         alpha = node.kwargs.get("alpha", 1)
         if t in (aten.add.Tensor, aten.add.Scalar):
@@ -478,57 +684,122 @@ class _Planner:
                     }.get(p, f"powf({x}, {_lit(p)})")
         raise ValueError(f"op {_op_name(t)} has no pointwise form")  # pragma: no cover
 
+    def _under(self, cond, ref, idx) -> str:
+        self._conds.append(cond)
+        try:
+            return self.expr(ref, idx)
+        finally:
+            self._conds.pop()
+
+    def gather_expr(self, node, idx) -> str:
+        t = node.target
+        shape = _shape(node)
+        rank = len(shape)
+        if t == aten.cat.default:
+            dim = (node.args[1] if len(node.args) > 1 else 0) % rank
+            pieces = [x for x in node.args[0] if _shape(x)[dim] > 0]
+            out, start = "0.0f", sum(_shape(x)[dim] for x in pieces)
+            for x in reversed(pieces):  # nested from the last piece outwards
+                start -= _shape(x)[dim]
+                end = start + _shape(x)[dim]
+                sub = list(idx)
+                sub[dim] = idx[dim].sub(start)
+                val = self._under((idx[dim], start, end, 1), self.refs[x], sub)
+                out = val if out == "0.0f" else f"({idx[dim]} < {end} ? {val} : {out})"
+            return out
+        g = self.refs[node.args[0]]
+        if t == aten.select_backward.default:
+            dim, index = node.args[2] % rank, node.args[3] % shape[node.args[2] % rank]
+            sub = idx[:dim] + idx[dim + 1:]
+            val = self._under((idx[dim], index, index + 1, 1), g, sub)
+            return f"({idx[dim]} == {index} ? {val} : 0.0f)"
+        dim = node.args[2] % rank
+        size = shape[dim]
+        start, end, step = node.args[3], node.args[4], node.args[5]
+        start = min(max(start + size if start < 0 else start, 0), size)
+        end = min(max(end + size if end < 0 else end, start), size)
+        i = idx[dim]
+        sub = list(idx)
+        sub[dim] = i.sub(start).div(step)
+        cond = f"{i} >= {start} && {i} < {end}"
+        if step != 1:
+            cond += f" && ({i} - {start}) % {step} == 0"
+        val = self._under((i, start, end, step), g, sub)
+        return f"({cond} ? {val} : 0.0f)"
+
     # -- loops ------------------------------------------------------------------
 
-    def out_addr(self, node, idx) -> str:
-        ref = self.refs[node]
-        terms = [f"{i} * {st}" if st != 1 else i for i, st, sz in
-                 zip(idx, ref.strides, ref.shape) if sz != 1 and i != "0"]
-        return " + ".join(terms) or "0"
+    def dst(self, node) -> str:
+        return "{DST:" + node.name + "}"
 
     def emit_node(self, node):
         kind = self.kind[node]
         shape = _shape(node)
-        numel = int(np.prod(shape)) if shape else 1
-        if numel == 0:
+        if _numel(shape) == 0:
             return
-        reads: set = set()
-        dst = "{DST:" + node.name + "}"
+        self._acc = []
         names = [f"i{k}" for k in range(len(shape))]
-        idx = [n if s != 1 else "0" for n, s in zip(names, shape)]
+        idx = _idx(names, shape)
+        ref = self.refs[node]
         if kind in ("pw", "gather"):
-            val = (self.pw_expr if kind == "pw" else self.gather_expr)(node, idx, reads)
-            body = [f"for (int e = tid; e < {numel}; e += kThreads) {{",
-                    *("  " + ln for ln in _unravel("e", shape, names)),
-                    f"  {dst}[{self.out_addr(node, idx)}] = {val};", "}"]
+            val = (self.pw_expr if kind == "pw" else self.gather_expr)(node, idx)
+            write = _Acc(ref, idx, ())
+            lines = [*_unravel("e", shape, names),
+                     f"{self.dst(node)}[{self.addr(ref, idx)}] = {val};"]
+            self.loops.append(_Loop(node, "pw", shape, write, self._acc, lines))
         elif kind == "mm":
-            body = self.product_loop(node, shape, dst, reads)
+            self.product_loop(node, shape)
         else:
-            body = self.reduction_loop(node, dst, reads)
-        self.loops.append(_Loop(node, reads, body))
+            self.reduction_loop(node)
+        self._acc = None
 
-    def product_loop(self, node, shape, dst, reads):
+    def product_loop(self, node, shape):
+        """mm and mv: one block_mm call with the literal shapes and strides of
+        the operands' views (an operand that is no memory window, a literal,
+        or the int buffer takes a k-term fmaf sum per output instead)."""
         A, B = (self.refs[x] for x in node.args)
+        mv = node.target == aten.mv.default
         K = A.shape[-1]
-        if node.target == aten.mm.default:
-            M, N = shape
-            a = self.expr(A, ["i", "k"], reads)
-            b = self.expr(B, ["k", "j"], reads)
-            head = [f"for (int e = tid; e < {M * N}; e += kThreads) {{",
-                    f"  const int i = e / {N};", f"  const int j = e % {N};"]
-            out = self.out_addr(node, ["i" if M != 1 else "0", "j" if N != 1 else "0"])
-        else:
-            (M,) = shape
-            a = self.expr(A, ["i", "k"], reads)
-            b = self.expr(B, ["k"], reads)
-            head = [f"for (int i = tid; i < {M}; i += kThreads) {{"]
-            out = self.out_addr(node, ["i" if M != 1 else "0"])
-        self.madds += (int(np.prod(shape)) if shape else 1) * K
-        return head + ["  float acc = 0.0f;", "#pragma unroll 4",
-                       f"  for (int k = 0; k < {K}; ++k) acc = fmaf({a}, {b}, acc);",
-                       f"  {dst}[{out}] = acc;", "}"]
+        M, N = (shape[0], 1) if mv else shape
+        self.madds += _numel(shape) * K
+        out = self.refs[node]
+        if all(isinstance(r, _Mem) and self.placed.get(r.store, r.store) != CI for r in (A, B)):
+            sam, sak = (A.strides[0] if M != 1 else 0), (A.strides[1] if K != 1 else 0)
+            sbk = (B.strides[0] if K != 1 else 0)
+            sbn = 0 if mv or N == 1 else B.strides[1]
+            scm = out.strides[0] if M != 1 else 0
+            scn = 0 if mv or N == 1 else out.strides[1]
+            tm, tn, ks = _tile(M, N, K)
+            va = sak == 1 and (sam % 4 == 0 or M == 1) and self._aligned(A)
+            vb = sbk == 1 and (sbn % 4 == 0 or N == 1) and self._aligned(B)
+            mm = dict(M=M, N=N, K=K, A=A, B=B, sam=sam, sak=sak, sbk=sbk, sbn=sbn, scm=scm,
+                      scn=scn, tm=tm, tn=tn, ks=ks, va=va, vb=vb)
+            write = _Acc(out, [], ())
+            self.loops.append(_Loop(node, "mm", (M, N, K), write, [], [], mm))
+            return
+        # the fallback: a thread an output, a k-term fmaf sum in order
+        self._acc = []
+        i, j, k = _Ix("i"), _Ix("j"), _Ix("k")
+        a = self.expr(A, [i if M != 1 else ZERO, k])
+        b = self.expr(B, [k] if mv else [k, j if N != 1 else ZERO])
+        oidx = [i if M != 1 else ZERO] if mv else [i if M != 1 else ZERO, j if N != 1 else ZERO]
+        lines = [f"for (int o = tid; o < {M * N}; o += kThreads) {{",
+                 f"  const int i = o / {N};", f"  const int j = o % {N};",
+                 "  float acc = 0.0f;", "#pragma unroll 4",
+                 f"  for (int k = 0; k < {K}; ++k) acc = fmaf({a}, {b}, acc);",
+                 f"  {self.dst(node)}[{self.addr(out, oidx)}] = acc;", "}"]
+        write = _Acc(out, oidx, ())
+        space = ((M, N), (K,), ["i", "j"], ["k"])
+        self.loops.append(_Loop(node, "threadred", space, write, self._acc, lines))
 
-    def reduction_loop(self, node, dst, reads):
+    def _aligned(self, ref: _Mem) -> bool:
+        """Whether ``ref``'s base is 16-byte aligned: the constants (device
+        memory, or the staged copy at a 16-byte offset) and the scratch (a
+        16-byte offset, every node at a multiple of four floats)."""
+        store = self.placed.get(ref.store, ref.store)
+        return ref.offset % 4 == 0 and (store == CF or isinstance(store, torch.fx.Node))
+
+    def reduction_loop(self, node):
         src = node.args[0]
         ishape = _shape(src)
         if node.target == aten.sum.default:
@@ -540,79 +811,267 @@ class _Planner:
                 if len(node.args) > 1 and node.args[1] else list(range(len(ishape)))
             keep = bool(node.args[2]) if len(node.args) > 2 else bool(node.kwargs.get("keepdim"))
         kept = [k for k in range(len(ishape)) if k not in dims]
-        n_out = int(np.prod([ishape[k] for k in kept])) if kept else 1
-        n_red = int(np.prod([ishape[k] for k in dims])) if dims else 1
+        kshape = [ishape[k] for k in kept]
+        rshape = [ishape[k] for k in dims]
+        n_out, n_red = _numel(kshape), _numel(rshape)
         iname = [f"o{k}" if k in kept else f"r{k}" for k in range(len(ishape))]
-        idx = [nm if s != 1 else "0" for nm, s in zip(iname, ishape)]
-        val = self.expr(self.refs[src], idx, reads)
+        idx = _idx(iname, ishape)
+        val = self.expr(self.refs[src], idx)
         oidx = [idx[k] for k in range(len(ishape)) if keep or k in kept]
-        out = self.out_addr(node, oidx)
-        unr_o = _unravel("o", [ishape[k] for k in kept], [iname[k] for k in kept])
-        unr_r = _unravel("r", [ishape[k] for k in dims], [iname[k] for k in dims])
+        out_ref = self.refs[node]
+        out = self.addr(out_ref, oidx)
+        unr_o = _unravel("o", kshape, [iname[k] for k in kept])
+        unr_r = _unravel("r", rshape, [iname[k] for k in dims])
+        space = (tuple(kshape), tuple(rshape), [iname[k] for k in kept],
+                 [iname[k] for k in dims])
+        write = _Acc(out_ref, oidx, ())
+        dst = self.dst(node)
         if n_red >= 32:  # one warp an output element
-            return ([f"for (int o = warp; o < {n_out}; o += kWarps) {{",
+            lines = [f"for (int o = warp; o < {n_out}; o += kWarps) {{",
                      *("  " + ln for ln in unr_o), "  float acc = 0.0f;",
                      f"  for (int r = lane; r < {n_red}; r += 32) {{",
                      *("    " + ln for ln in unr_r),
                      f"    acc = __fadd_rn(acc, {val});", "  }",
                      "  acc = avi::warp_sum(acc);",
-                     f"  if (lane == 0) {dst}[{out}] = acc;", "}"])
-        return ([f"for (int o = tid; o < {n_out}; o += kThreads) {{",
+                     f"  if (lane == 0) {dst}[{out}] = acc;", "}"]
+            self.loops.append(_Loop(node, "warpred", space, write, self._acc, lines))
+            return
+        lines = [f"for (int o = tid; o < {n_out}; o += kThreads) {{",
                  *("  " + ln for ln in unr_o), "  float acc = 0.0f;",
                  f"  for (int r = 0; r < {n_red}; ++r) {{",
                  *("    " + ln for ln in unr_r),
                  f"    acc = __fadd_rn(acc, {val});", "  }",
-                 f"  {dst}[{out}] = acc;", "}"])
-
-    def gather_expr(self, node, idx, reads) -> str:
-        t = node.target
-        shape = _shape(node)
-        rank = len(shape)
-        if t == aten.cat.default:
-            dim = (node.args[1] if len(node.args) > 1 else 0) % rank
-            pieces = [x for x in node.args[0] if _shape(x)[dim] > 0]
-            out, start = "0.0f", sum(_shape(x)[dim] for x in pieces)
-            for x in reversed(pieces):  # nested from the last piece outwards
-                start -= _shape(x)[dim]
-                sub = list(idx)
-                sub[dim] = f"({idx[dim]} - {start})" if start else idx[dim]
-                val = self.expr(self.refs[x], sub, reads)
-                out = val if out == "0.0f" else \
-                    f"({idx[dim]} < {start + _shape(x)[dim]} ? {val} : {out})"
-            return out
-        g = self.refs[node.args[0]]
-        if t == aten.select_backward.default:
-            dim, index = node.args[2] % rank, node.args[3] % shape[node.args[2] % rank]
-            sub = idx[:dim] + idx[dim + 1:]
-            return f"({idx[dim]} == {index} ? {self.expr(g, sub, reads)} : 0.0f)"
-        dim = node.args[2] % rank
-        size = shape[dim]
-        start, end, step = node.args[3], node.args[4], node.args[5]
-        start = min(max(start + size if start < 0 else start, 0), size)
-        end = min(max(end + size if end < 0 else end, start), size)
-        i = idx[dim]
-        sub = list(idx)
-        sub[dim] = f"({i} - {start})" if step == 1 else f"(({i} - {start}) / {step})"
-        cond = f"{i} >= {start} && {i} < {end}"
-        if step != 1:
-            cond += f" && ({i} - {start}) % {step} == 0"
-        return f"({cond} ? {self.expr(g, sub, reads)} : 0.0f)"
+                 f"  {dst}[{out}] = acc;", "}"]
+        self.loops.append(_Loop(node, "threadred", space, write, self._acc, lines))
 
     def copy_loop(self, ref, dst_store, shape):
         """dst_store (GS or LOGPI, contiguous) = ref, element for element."""
-        reads: set = set()
+        self._acc = []
         names = [f"i{k}" for k in range(len(shape))]
-        idx = [nm if sz != 1 else "0" for nm, sz in zip(names, shape)]
-        val = self.expr(ref, idx, reads)
-        body = [f"for (int e = tid; e < {int(np.prod(shape))}; e += kThreads) {{",
-                *("  " + ln for ln in _unravel("e", shape, names)),
-                f"  {dst_store}[e] = {val};", "}"]
-        self.loops.append(_Loop(dst_store, reads, body))
+        idx = _idx(names, shape)
+        val = self.expr(ref, idx)
+        contiguous = tuple(int(np.prod(shape[k + 1:])) for k in range(len(shape)))
+        write = _Acc(_Mem(dst_store, 0, tuple(shape), contiguous), idx, ())
+        lines = [*_unravel("e", shape, names), f"{dst_store}[e] = {val};"]
+        self.loops.append(_Loop(dst_store, "pw", tuple(shape), write, self._acc, lines))
+        self._acc = None
+
+    # -- the race model -------------------------------------------------------
+
+    def accesses(self, loop: _Loop, key) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """(keys, threads, is_write) of every access of ``loop`` to storage a
+        body writes (nodes, GS, LOGPI; the inputs zs, cf and ci are only read),
+        ``key(store, addresses)`` naming each element."""
+        kl, tl, wl = [], [], []
+
+        def add(acc: _Acc, env, threads, write=False):
+            store = self.placed.get(acc.ref.store, acc.ref.store)
+            if store in (ZS, CF, CI):
+                return
+            mask = np.ones(threads.shape, dtype=bool)
+            for ix, lo, hi, step in acc.conds:
+                v = ix.eval(env)
+                mask &= (v >= lo) & (v < hi) & ((v - lo) % step == 0)
+            addr = np.full(threads.shape, acc.ref.offset, dtype=np.int64)
+            for ix, sz, st in zip(acc.idx, acc.ref.shape, acc.ref.strides):
+                if sz != 1 and st != 0 and ix.name is not None:
+                    addr = addr + ix.eval(env) * st
+            kl.append(key(store, addr[mask]))
+            tl.append(threads[mask])
+            wl.append(np.full(int(mask.sum()), write))
+
+        if loop.kind == "pw":
+            shape = loop.space
+            e = np.arange(_numel(shape))
+            env: Dict[str, Any] = {}
+            _bind(env, e, shape, [f"i{k}" for k in range(len(shape))])
+            thr = e % THREADS if loop.map == "flat" else 32 * (e % WARPS)
+            add(loop.write, env, thr, True)
+            for acc in loop.reads:
+                add(acc, env, thr)
+        elif loop.kind in ("warpred", "threadred"):
+            kshape, rshape, onames, rnames = loop.space
+            no, nr = _numel(kshape), _numel(rshape)
+            o = np.repeat(np.arange(no), nr)
+            r = np.tile(np.arange(nr), no)
+            env = {}
+            _bind(env, o, kshape, onames)
+            _bind(env, r, rshape, rnames)
+            if loop.kind == "warpred":
+                rthr, wthr = 32 * (o % WARPS) + r % 32, 32 * (o % WARPS)
+            else:
+                rthr = wthr = o % THREADS
+            for acc in loop.reads:
+                add(acc, env, rthr)
+            env_o: Dict[str, Any] = {}
+            ow = np.arange(no)
+            _bind(env_o, ow, kshape, onames)
+            add(loop.write, env_o, 32 * (ow % WARPS) if loop.kind == "warpred"
+                else ow % THREADS, True)
+        else:  # block_mm: the tile model of csrc/block_mm.cuh
+            mm = loop.mm
+            M, N, K, tm, tn, ks = (mm[k] for k in ("M", "N", "K", "tm", "tn", "ks"))
+            nb = -(-N // tn)
+            tasks = -(-M // tm) * nb
+            task = np.arange(tasks)
+            i0, j0 = (task // nb) * tm, (task % nb) * tn
+            full = K // 4
+            kk = np.arange(K)
+            unit = kk // 4
+            lane_s = np.where(unit < full, unit % ks, full % ks)
+            # A(i, k): every task, each row of its tile below M, every k, by lane s(k)
+            t3, r3, k3 = np.meshgrid(task, np.arange(tm), kk, indexing="ij")
+            i3 = i0[t3] + r3
+            ok = i3 < M
+            thr = (t3 * ks + lane_s[k3]) % THREADS
+            self._mm_read(mm["A"], i3[ok], k3[ok], mm["sam"], mm["sak"], thr[ok], key,
+                          (kl, tl, wl))
+            # B(k, j): the tile's columns (one past N reads the first one)
+            t3, c3, k3 = np.meshgrid(task, np.arange(tn), kk, indexing="ij")
+            j3 = j0[t3] + np.where(j0[t3] + c3 < N, c3, 0)
+            thr = (t3 * ks + lane_s[k3]) % THREADS
+            self._mm_read(mm["B"], k3, j3, mm["sbk"], mm["sbn"], thr, key, (kl, tl, wl))
+            t2, r2, c2 = np.meshgrid(task, np.arange(tm), np.arange(tn), indexing="ij")
+            i2, j2 = i0[t2] + r2, j0[t2] + c2
+            ok = (i2 < M) & (j2 < N)
+            out = loop.write.ref
+            store = self.placed.get(out.store, out.store)
+            addr = out.offset + i2[ok] * mm["scm"] + j2[ok] * mm["scn"]
+            kl.append(key(store, addr))
+            tl.append((t2[ok] * ks) % THREADS)
+            wl.append(np.ones(addr.shape, dtype=bool))
+        if not kl:
+            z = np.zeros(0, dtype=np.int64)
+            return z, z, np.zeros(0, dtype=bool)
+        return np.concatenate(kl), np.concatenate(tl), np.concatenate(wl)
+
+    def _mm_read(self, ref: _Mem, x, y, sx, sy, thr, key, out):
+        store = self.placed.get(ref.store, ref.store)
+        if store in (ZS, CF, CI):
+            return
+        addr = (ref.offset + x * sx + y * sy).reshape(-1)
+        out[0].append(key(store, addr))
+        out[1].append(thr.reshape(-1))
+        out[2].append(np.zeros(addr.shape, dtype=bool))
+
+    # -- barriers and scratch -----------------------------------------------------
+
+    def _logical_key(self):
+        ids: Dict[Any, int] = {}
+
+        def key(store, addr):
+            sid = ids.setdefault(store, len(ids) + 1)
+            return (np.int64(sid) << np.int64(32)) + addr.astype(np.int64)
+
+        return key
+
+    def place_barriers(self) -> List[bool]:
+        """Walk the loops in order, keeping the accesses since the last
+        barrier; a loop needs none before it when no element it reads or
+        writes was written there by another thread, and no element it writes
+        was read there by another thread.  A pointwise loop of at most WARPS
+        elements may run on lane 0 of warp e instead of thread e, where that
+        map meets its producers' (a warp reduction's outputs, say)."""
+        key = self._logical_key()
+        need = []
+        ep_w: List[Tuple[np.ndarray, np.ndarray]] = []
+        ep_r: List[Tuple[np.ndarray, np.ndarray]] = []
+        for loop in self.loops:
+            maps = ["flat", "warp"] if loop.kind == "pw" and _numel(loop.space) <= WARPS \
+                else [loop.map]
+            chosen = None
+            for m in maps:
+                loop.map = m
+                k, t, w = self.accesses(loop, key)
+                if not (_clash(k, t, ep_w) or _clash(k[w], t[w], ep_r)):
+                    chosen = (m, k, t, w)
+                    break
+            bar = chosen is None
+            if bar:
+                loop.map = maps[0]
+                k, t, w = self.accesses(loop, key)
+                ep_w, ep_r = [], []
+            else:
+                loop.map = chosen[0]
+                k, t, w = chosen[1:]
+            need.append(bar)
+            ep_w.append(_summary(k[w], t[w]))
+            ep_r.append(_summary(k[~w], t[~w]))
+        return need
+
+    def allocate(self, need: List[bool]):
+        """Offsets of the loops' scratch outputs (multiples of four floats):
+        first fit, a node's floats free for another node written after a
+        barrier that follows its last read; returns ({node: offset}, peak)."""
+        epoch, e = [], 0
+        for bar in need:
+            e += bar
+            epoch.append(e)
+        last: Dict[Any, int] = {}
+        for k, loop in enumerate(self.loops):
+            for acc in loop.reads:
+                last[acc.ref.store] = epoch[k]
+            if loop.kind == "mm":
+                for ref in (loop.mm["A"], loop.mm["B"]):
+                    last[ref.store] = epoch[k]
+        offsets: Dict[Any, int] = {}
+        busy: List[Tuple[int, int, int]] = []  # (start, end, epoch of the last read)
+        peak = 0
+        for k, loop in enumerate(self.loops):
+            node = loop.out
+            if not isinstance(node, torch.fx.Node) or node in self.placed:
+                continue
+            busy = [b for b in busy if b[2] >= epoch[k]]
+            size = self.extent.get(node, _numel(_shape(node)))
+            start = 0
+            for b0, b1, _ in sorted(busy):
+                if start + size <= b0:
+                    break
+                start = max(start, -(-b1 // 4) * 4)
+            offsets[node] = start
+            busy.append((start, start + size, last.get(node, epoch[k])))
+            peak = max(peak, start + size)
+        return offsets, -(-peak // 4) * 4
+
+    def race_check(self, need: List[bool], offsets: Dict[Any, int]) -> None:
+        """The static race check of the planned body, on the block's memory
+        as laid out: between two barriers, every element written is touched
+        by no other thread, and no scratch float belongs to two storages.
+        Raises AssertionError naming the loops."""
+        def key(store, addr):
+            if store in offsets:
+                return (np.int64(1) << np.int64(32)) + addr.astype(np.int64) + offsets[store]
+            sid = {GS: 2, LOGPI: 3}[store]
+            return (np.int64(sid) << np.int64(32)) + addr.astype(np.int64)
+
+        owner: Dict[int, Any] = {}
+        span: List[int] = []
+        acc_k, acc_t, acc_w = [], [], []
+        for k, (loop, bar) in enumerate(zip(self.loops, need)):
+            if bar:
+                _check_epoch(acc_k, acc_t, acc_w, span, self.loops)
+                acc_k, acc_t, acc_w, span, owner = [], [], [], [], {}
+            kk, tt, ww = self.accesses(loop, key)
+            acc_k.append(kk)
+            acc_t.append(tt)
+            acc_w.append(ww)
+            span.append(k)
+            stores = {acc.ref.store for acc in loop.reads} | {loop.out}
+            if loop.kind == "mm":
+                stores |= {loop.mm["A"].store, loop.mm["B"].store}
+            for st in stores:
+                if st in offsets:
+                    size = self.extent.get(st, _numel(_shape(st)))
+                    for f in range(offsets[st], offsets[st] + size):
+                        prev = owner.setdefault(f, st)
+                        assert prev is st, (
+                            f"scratch float {f} holds {prev.name} and {st.name} between two "
+                            f"barriers (loop {k})")
+        _check_epoch(acc_k, acc_t, acc_w, span, self.loops)
 
     # -- the whole body -----------------------------------------------------------
 
     def plan(self):
-        self.madds = 0
         self.classify()
         grad, lp = _outputs(self.gm)
         outs = {grad, lp}
@@ -620,8 +1079,10 @@ class _Planner:
         self.choose_inlined(live, outs)
         placed = self.placed
         for node, store, contiguous in ((grad, GS, (self.d, 1)), (lp, LOGPI, (1,))):
-            if node in self.kind and self.refs[node].strides == contiguous:
+            if node in self.kind and node not in self.inlined \
+                    and self.refs[node].strides == contiguous:
                 placed[node] = store
+        self.pad_operands(live)
         for node in self.gm.graph.nodes:
             if node in live and node in self.kind and node not in self.inlined:
                 self.emit_node(node)
@@ -630,58 +1091,65 @@ class _Planner:
                 self.copy_loop(self.refs[node], store, _shape(node))
         return placed
 
-    def allocate(self, placed):
-        """First-fit offsets of the loops' scratch outputs, each freed after
-        its last reader; returns ({node: offset}, peak floats)."""
-        last: Dict[Any, int] = {}
-        for k, loop in enumerate(self.loops):
-            for st in loop.reads:
-                last[st] = k
-        offsets: Dict[Any, int] = {}
-        busy: List[Tuple[int, int, Any]] = []  # (start, end, store)
-        peak = 0
-        for k, loop in enumerate(self.loops):
-            node = loop.out
-            if isinstance(node, torch.fx.Node) and node not in placed:
-                size = int(np.prod(_shape(node))) if _shape(node) else 1
-                start = 0
-                for b0, b1, _ in sorted(busy, key=lambda b: b[0]):
-                    if start + size <= b0:
-                        break
-                    start = max(start, b1)
-                offsets[node] = start
-                busy.append((start, start + size, node))
-                peak = max(peak, start + size)
-            busy = [b for b in busy if last.get(b[2], -1) > k]
-        return offsets, peak
 
-    def barriers(self, offsets) -> List[bool]:
-        """Whether loop k needs a barrier before it: it reads a storage
-        written since the last barrier (read after write), or writes a
-        storage read since then (write after read: scratch reused, by
-        extent)."""
-        def where(store):
-            store = self.placed.get(store, store)
-            if store in offsets:
-                size = int(np.prod(_shape(store))) if _shape(store) else 1
-                return ("s", offsets[store], offsets[store] + size)
-            return (store, 0, 1)
+def _summary(k: np.ndarray, t: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """The distinct keys and, for each, its one thread (-1 for several)."""
+    if not len(k):
+        return k, t
+    order = np.lexsort((t, k))
+    k, t = k[order], t[order]
+    uk, first = np.unique(k, return_index=True)
+    lo = np.minimum.reduceat(t, first)
+    hi = np.maximum.reduceat(t, first)
+    return uk, np.where(lo == hi, lo, -1)
 
-        def overlap(a, b):
-            return a[0] == b[0] and a[1] < b[2] and b[1] < a[2]
 
-        need, written, read = [], [], []
-        for loop in self.loops:
-            reads = [where(st) for st in loop.reads]
-            out = where(loop.out)
-            hazard = any(overlap(r, w) for r in reads for w in written) or any(
-                overlap(out, r) for r in read)
-            if hazard:
-                written, read = [], []
-            need.append(hazard)
-            read.extend(reads)
-            written.append(out)
-        return need
+def _clash(k: np.ndarray, t: np.ndarray, seen) -> bool:
+    """Whether an access (k, t) meets an element of ``seen`` that another
+    thread (or several) touched."""
+    for uk, ut in seen:
+        if not len(uk) or not len(k):
+            continue
+        pos = np.clip(np.searchsorted(uk, k), 0, len(uk) - 1)
+        hit = uk[pos] == k
+        if np.any(hit & (ut[pos] != t)):
+            return True
+    return False
+
+
+def _check_epoch(ks, ts, ws, span, loops) -> None:
+    if not ks:
+        return
+    k, t, w = np.concatenate(ks), np.concatenate(ts), np.concatenate(ws)
+    uk, ut = _summary(k, t)
+    written = np.unique(k[w])
+    pos = np.searchsorted(uk, written)
+    bad = written[ut[pos] == -1]
+    assert not len(bad), (
+        f"loops {span[0]}..{span[-1]} ({', '.join(str(getattr(loops[i].out, 'name', loops[i].out)) for i in span)}) "
+        f"share {len(bad)} written elements between threads with no barrier between")
+
+
+def _fuse(loops: List[_Loop], need: List[bool]) -> List[List[int]]:
+    """Runs of consecutive pointwise loops with one shape and one map and no
+    barrier between them: each is emitted as one loop."""
+    groups: List[List[int]] = []
+    for k, loop in enumerate(loops):
+        prev = loops[groups[-1][-1]] if groups else None
+        if (prev is not None and not need[k] and loop.kind == "pw" and prev.kind == "pw"
+                and loop.space == prev.space and loop.map == prev.map):
+            groups[-1].append(k)
+        else:
+            groups.append([k])
+    return groups
+
+
+def _mm_call(mm: Dict[str, Any], expr_a: str, expr_b: str, dst: str) -> List[str]:
+    return [f"avi::block_mm<kThreads, {mm['tm']}, {mm['tn']}, {mm['ks']}, "
+            f"{'true' if mm['va'] else 'false'}, {'true' if mm['vb'] else 'false'}>(",
+            f"    {mm['M']}, {mm['N']}, {mm['K']}, {expr_a}, {mm['sam']}, {mm['sak']}, "
+            f"{expr_b}, {mm['sbk']}, {mm['sbn']}, tid,",
+            f"    [=](int i, int j, float v) {{ {dst}[i * {mm['scm']} + j * {mm['scn']}] = v; }});"]
 
 
 @dataclass(frozen=True)
@@ -697,9 +1165,13 @@ class ADProgram:
     digest: str          # sha256 of ``source``, 16 hex digits
     scratch: int         # floats of shared memory the body uses
     madds: int           # multiply-adds of its products (mm, mv) a call
-    loops: int
+    loops: int           # loops emitted (a block_mm call is one)
     barriers: int
     ops: Tuple[str, ...]  # the distinct aten ops of the graph
+    staged: bool = False  # the float constants read from a shared-memory copy
+    stage: int = 0        # floats of that copy (0 when not staged)
+    products: int = 0     # mm and mv nodes run by block_mm
+    planner: Any = None   # the plan, for race_check
 
     @property
     def consts(self) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -713,31 +1185,80 @@ class ADProgram:
         parts = [replay(self.gm, blk) for blk in z.split(self.n)]
         return torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
 
+    def race_check(self) -> None:
+        """Run the static race check on this body's plan (AssertionError on a
+        race); ``emit`` runs it on every body."""
+        planner, need, offsets = self.planner
+        planner.race_check(need, offsets)
 
-def emit(gm: torch.fx.GraphModule, packing: Packing, n: int, d: int) -> ADProgram:
-    """Plan the graph's loops, scratch and barriers and emit the header."""
-    planner = _Planner(gm, packing, n, d)
+
+def emit(gm: torch.fx.GraphModule, packing: Packing, n: int, d: int,
+         staged: bool = False) -> ADProgram:
+    """Plan the graph's loops, barriers and scratch, check the plan for races
+    and emit the header; ``staged`` reads the float constants from the copy
+    ``ad_stage`` puts in shared memory."""
+    planner = _Planner(gm, packing, n, d, staged)
     placed = planner.plan()
-    offsets, peak = planner.allocate(placed)
-    need = planner.barriers(offsets)
+    need = planner.place_barriers()
+    offsets, peak = planner.allocate(need)
+    planner.race_check(need, offsets)
     ops = tuple(sorted({_op_name(node.target) for node in gm.graph.nodes
                         if node.op == "call_function"}))
-    lines = []
-    for loop, bar in zip(planner.loops, need):
-        if bar:
+
+    def ptr(ref: _Mem) -> str:
+        store = placed.get(ref.store, ref.store)
+        base = {CF: "cs" if staged else "cf", ZS: "zs", GS: "gs", LOGPI: "logpi"}.get(store)
+        if base is None:
+            base = f"s + {{OFF:{store.name}}}"
+            return f"({base} + {ref.offset})" if ref.offset else f"({base})"
+        return f"({base} + {ref.offset})" if ref.offset else base
+
+    lines: List[str] = []
+    logpi_at = max(k for k, loop in enumerate(planner.loops)
+                   if placed.get(loop.out, loop.out) == LOGPI)
+    mark_at = next((k for k in range(logpi_at + 1, len(planner.loops)) if need[k]), None)
+    mark = ["#ifdef AVI_PHASE_CLOCKS", "if (tid == 0) *clk = clock64();  // log pi is complete",
+            "#endif"]
+    n_loops = 0
+    for group in _fuse(planner.loops, need):
+        first = planner.loops[group[0]]
+        if need[group[0]]:
             lines.append("__syncthreads();")
-        for ln in loop.body:
-            for node, store in placed.items():
-                ln = ln.replace("{DST:" + node.name + "}", store)
-            for node, off in offsets.items():
-                ln = ln.replace("{DST:" + node.name + "}", f"(s + {off})")
-                ln = ln.replace("{OFF:" + node.name + "}", str(off))
-            lines.append(ln)
-    body = "\n".join("  " + ln for ln in lines)
+            if group[0] == mark_at:
+                lines.extend(mark)
+        n_loops += 1
+        if first.kind == "pw":
+            numel = _numel(first.space)
+            head = (f"for (int e = tid; e < {numel}; e += kThreads) {{" if first.map == "flat"
+                    else f"if (lane == 0) for (int e = warp; e < {numel}; e += kWarps) {{")
+            body = list(first.lines[:-1])
+            for k in group:
+                body.append(planner.loops[k].lines[-1])
+            lines += [head, *("  " + ln for ln in body), "}"]
+        elif first.kind == "mm":
+            mm = first.mm
+            lines += _mm_call(mm, ptr(mm["A"]), ptr(mm["B"]), ptr(first.write.ref))
+        else:
+            lines += first.lines
+    if mark_at is None:
+        lines.extend(mark)
+    out_lines = []
+    for ln in lines:
+        for node, store in placed.items():
+            ln = ln.replace("{DST:" + node.name + "}", store)
+        for node, off in offsets.items():
+            ln = ln.replace("{DST:" + node.name + "}", f"(s + {off})")
+            ln = ln.replace("{OFF:" + node.name + "}", str(off))
+        out_lines.append(ln)
+    body = "\n".join("  " + ln if not ln.startswith("#") else ln for ln in out_lines)
+    stage = -(-packing.cf.numel() // 4) * 4 if staged else 0
+    products = sum(loop.kind == "mm" for loop in planner.loops)
+    barriers = sum(need)
     src = f"""// K5: the AD-derived model body, generated by
 // advancedvi_jl_tpu_torch/ops/cuda/ad_body.py from the target's aten graph of
 // value and gradient at (n, d) = ({n}, {d}): {len(gm.graph.nodes)} graph nodes,
-// {len(planner.loops)} loops, {sum(need)} barriers, {peak} floats of scratch.
+// {n_loops} loops ({products} block products), {barriers} barriers, {peak} floats of scratch,
+// float constants {'staged in shared memory' if staged else 'read from device memory'}.
 // ops: {' '.join(ops)}
 #pragma once
 
@@ -751,6 +1272,7 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kN = {n};
 constexpr int kD = {d};
 constexpr int kScratch = {peak};
+constexpr int kStage = {stage};  // floats of the float constants' copy in shared memory
 
 __device__ __forceinline__ float sgn_(float x) {{
   return static_cast<float>((0.0f < x) - (x < 0.0f));
@@ -760,13 +1282,34 @@ __device__ __forceinline__ float clamp_min_(float x, float m) {{
   return isnan(x) ? x : fmaxf(x, m);
 }}
 
+// Once a launch, before the caller's first barrier: the float constants cf
+// (device memory, 16-byte aligned) into cs (kStage floats of shared memory,
+// 16-byte aligned) when the body reads them there.
+__device__ __forceinline__ void ad_stage(const float* __restrict__ cf, float* cs, int tid) {{
+  (void)cf;
+  (void)cs;
+  (void)tid;
+  for (int q = tid; q < kStage / 4; q += kThreads) {{
+    const int e = 4 * q;  // the last float4 may run past cf's end: copy it float by float
+    if (e + 4 <= {packing.cf.numel()}) {{
+      reinterpret_cast<float4*>(cs)[q] = reinterpret_cast<const float4*>(cf)[q];
+    }} else {{
+      for (int f = e; f < {packing.cf.numel()}; ++f) cs[f] = cf[f];
+    }}
+  }}
+}}
+
 // log pi (n,) into logpi and grad log pi (n, d) into gs of the samples zs
 // (n, d), all three in shared memory; cf and ci: the packed constants in
-// device memory; s: kScratch floats of shared memory.  Every thread of the
-// block calls it; the caller puts a barrier before (zs) and after (logpi, gs).
+// device memory, cs: cf's copy in shared memory (ad_stage) when kStage > 0;
+// s: kScratch floats of shared memory, 16-byte aligned.  Every thread of the
+// block calls it; the caller puts a barrier before (zs) and after (logpi,
+// gs).  An AVI_PHASE_CLOCKS build has thread 0 store the SM clock in *clk
+// at the barrier after which log pi is complete.
 __device__ __forceinline__ void ad_body(const float* __restrict__ cf,
-                                        const int* __restrict__ ci, const float* zs, int n,
-                                        int d, float* logpi, float* gs, float* s, int tid) {{
+                                        const int* __restrict__ ci, const float* cs,
+                                        const float* zs, int n, int d, float* logpi,
+                                        float* gs, float* s, int tid, long long* clk) {{
   const int lane = tid & 31;
   const int warp = tid >> 5;
   (void)n;
@@ -775,7 +1318,9 @@ __device__ __forceinline__ void ad_body(const float* __restrict__ cf,
   (void)warp;
   (void)cf;
   (void)ci;
+  (void)cs;
   (void)s;
+  (void)clk;
 {body}
 }}
 
@@ -784,8 +1329,9 @@ __device__ __forceinline__ void ad_body(const float* __restrict__ cf,
 """
     return ADProgram(gm=gm, packing=packing, n=n, d=d, source=src,
                      digest=hashlib.sha256(src.encode()).hexdigest()[:16], scratch=peak,
-                     madds=planner.madds, loops=len(planner.loops), barriers=sum(need),
-                     ops=ops)
+                     madds=planner.madds, loops=n_loops, barriers=barriers, ops=ops,
+                     staged=staged, stage=stage, products=products,
+                     planner=(planner, need, offsets))
 
 
 # ---------------------------------------------------------------------------
@@ -843,17 +1389,24 @@ class ADModel:
         self._programs: Dict[int, ADProgram] = {}
         self._packings: Dict[tuple, Packing] = {}
 
-    def program(self, n: int) -> ADProgram:
-        prog = self._programs.get(n)
+    def program(self, n: int, staged: bool = False) -> ADProgram:
+        """The program at ``n`` rows; ``staged`` reads the float constants
+        from a copy in shared memory (``fused_advi.ad_program`` decides
+        where they fit)."""
+        prog = self._programs.get((n, staged))
         if prog is None:
-            gm = trace(self.log_density, n, self.dim, self.device)
-            check_graph(gm, n, self.dim)
-            # the programs of one target share one copy of its constants
-            key = tuple((name, t.data_ptr(), t.dtype, tuple(t.shape)) for name, t in
-                        ((name, getattr(gm, name)) for name in _constant_names(gm)))
-            packing = self._packings.get(key)
-            if packing is None:
-                packing = self._packings[key] = pack(gm, self.device)
-            prog = self._programs[n] = emit(gm, packing, n, self.dim)
+            other = self._programs.get((n, not staged))
+            if other is not None:  # the same graph and constants, emitted again
+                gm, packing = other.gm, other.packing
+            else:
+                gm = trace(self.log_density, n, self.dim, self.device)
+                check_graph(gm, n, self.dim)
+                # the programs of one target share one copy of its constants
+                key = tuple((name, t.data_ptr(), t.dtype, tuple(t.shape)) for name, t in
+                            ((name, getattr(gm, name)) for name in _constant_names(gm)))
+                packing = self._packings.get(key)
+                if packing is None:
+                    packing = self._packings[key] = pack(gm, self.device)
+            prog = self._programs[(n, staged)] = emit(gm, packing, n, self.dim, staged)
             bind(gm, packing)
         return prog

@@ -859,9 +859,13 @@ _ARGS_TAIL = (
 )
 _MEANFIELD_ARGTYPES = _ARGS_HEAD + [ctypes.c_void_p] * 5 + _ARGS_TAIL
 _FULLRANK_ARGTYPES = _ARGS_HEAD + [ctypes.c_void_p] * 8 + _ARGS_TAIL
-# the full-rank kernel's build with per-phase cycle counters (phase_cycles)
+# the fused kernels' builds with per-phase cycle counters (phase_cycles,
+# meanfield_phase_cycles)
 PHASE_CLOCKS = ("AVI_PHASE_CLOCKS",)
 PHASES = ("draws", "z", "model", "whitening", "rule")
+# the mean-field step's phases (csrc/fused_meanfield_body.cuh): K5's body
+# counts up to the barrier after log pi as "logits", the rest as "logpi"
+MF_PHASES = ("draws_z", "row_sums", "logits", "logpi", "grad", "rule", "elbo_wait")
 
 
 def _model_args(model: str, consts, scalars, d: int, dev, full_rank: bool, n: int = 0,
@@ -925,13 +929,15 @@ def _count(wrapper, model: str, branch: FusedBranch) -> None:
 def fused_run_chunk_cuda(
     model: str, consts, scalars, state, seed, it0: int, steps: int, n_samples: int,
     hyp: FusedHyper, noise=None, log_every: int = 0, branch: FusedBranch = DEFAULT_BRANCH,
-    ad: Optional[ADProgram] = None,
+    ad: Optional[ADProgram] = None, instrumented: bool = False,
 ):
     """Launch csrc/fused_advi_meanfield.cu on the current stream (same
     signature and results as ``fused_run_chunk_reference``; model "ad" runs
     the library built with ``ad``'s generated body).  Adds one to
     ``fused_run_chunk_cuda.launches`` per launch, and to each of the
-    branch's LAUNCH_GROUPS in ``group_launches``."""
+    branch's LAUNCH_GROUPS in ``group_launches``.  ``instrumented``
+    launches the build with per-phase cycle counters instead (PHASE_CLOCKS;
+    read them with ``meanfield_phase_cycles``)."""
     dev = state.device
     if not state.is_cuda:
         raise ValueError(f"fused_run_chunk_cuda needs CUDA tensors, got {dev}")
@@ -948,9 +954,10 @@ def fused_run_chunk_cuda(
         check_f32("noise", noise, (steps, n, d), dev)
     code = MODEL_CODES[model]
     body = ad.source if model == AD else None
+    defines = PHASE_CLOCKS if instrumented else ()
     smem = _build.function(
         "fused_advi_meanfield", "fused_advi_meanfield_smem_bytes",
-        [ctypes.c_int] * 7, restype=ctypes.c_size_t, body=body,
+        [ctypes.c_int] * 7, restype=ctypes.c_size_t, body=body, defines=defines,
     )(code, n_data, db, batch, n, d, n_rows)
     if smem > _build.SMEM_LIMIT:
         raise ValueError(
@@ -960,7 +967,7 @@ def fused_run_chunk_cuda(
             f"state rows is over the {_build.SMEM_LIMIT}-byte limit of one block"
         )
     fn = _build.function("fused_advi_meanfield", "fused_advi_meanfield", _MEANFIELD_ARGTYPES,
-                         body=body)
+                         body=body, defines=defines)
     out = torch.empty((n_rows, d), dtype=torch.float32, device=dev)
     elbo = torch.empty((), dtype=torch.float32, device=dev)
     trace = (
@@ -1080,6 +1087,19 @@ def phase_cycles() -> Dict[str, int]:
     return dict(zip(PHASES, out))
 
 
+def meanfield_phase_cycles(ad: Optional[ADProgram] = None) -> Dict[str, int]:
+    """SM cycles that thread 0 of the instrumented mean-field kernel (with
+    ``ad``'s body, when given) spent in each phase (MF_PHASES) over the
+    launches since the last call, summed; the counters restart at zero.
+    Waits for the queued work."""
+    fn = _build.function("fused_advi_meanfield", "fused_advi_meanfield_phase_cycles",
+                         [ctypes.c_void_p], body=None if ad is None else ad.source,
+                         defines=PHASE_CLOCKS)
+    out = (ctypes.c_ulonglong * len(MF_PHASES))()
+    _build.check(fn(ctypes.addressof(out)), "fused_advi_meanfield_phase_cycles")
+    return dict(zip(MF_PHASES, out))
+
+
 def fused_fullrank_run_chunk(model, consts, scalars, vec, mat, seed, it0, steps,
                              n_samples, hyp, noise=None, log_every=0,
                              branch=DEFAULT_BRANCH, ad=None):
@@ -1098,30 +1118,54 @@ def fused_fullrank_run_chunk(model, consts, scalars, vec, mat, seed, it0, steps,
 # ---------------------------------------------------------------------------
 
 
-def ad_smem_bytes(family: str, n: int, d: int, scratch: int, rows: int) -> int:
+def _round4(x: int) -> int:
+    return -(-x // 4) * 4
+
+
+def ad_smem_bytes(family: str, n: int, d: int, scratch: int, rows: int, stage: int = 0) -> int:
     """Dynamic shared memory of a launch on model "ad" (the kernels'
     make_layout for kAD): the draws, samples and gradients, ``rows`` state
     rows (mean-field and each chain's block; the full-rank kernel's (rows,
     d) location rows, its scale matrices and the whitening's panel operators
     left out, as they go to device memory when they do not fit), the
-    per-row sums, the block reduction and the generated body's scratch."""
+    per-row sums, the block reduction, the generated body's scratch (at a
+    16-byte offset) and its ``stage`` floats of staged constants."""
     if family == MEANFIELD:
-        floats = 3 * n * d + rows * d + 2 * d + 7 * n + 1 + 33 + scratch
+        floats = 3 * n * d + rows * d + 2 * d + 7 * n + 1 + 33
     else:
-        floats = 4 * n * d + rows * d + d + 6 * n + 1 + 33 + scratch
-    return 4 * floats
+        floats = 4 * n * d + rows * d + d + 6 * n + 1 + 33
+    return 4 * (_round4(_round4(floats) + scratch) + stage)
+
+
+def _fullrank_extras(nbytes: int, rows: int, d: int) -> int:
+    """Bytes the full-rank kernel's place() adds in shared memory beside a
+    layout of ``nbytes``: the scale matrices where they fit, then the
+    whitening's panel operators where they fit too."""
+    mat, inv = 4 * rows * d * d, 4096 * -(-d // 32)
+    extra = mat if nbytes + mat <= _build.SMEM_LIMIT else 0
+    return extra + (inv if nbytes + extra + inv <= _build.SMEM_LIMIT else 0)
 
 
 def ad_program(spec: FusedModelSpec, n_samples: int, family: str = MEANFIELD,
                rows: int = 8) -> ADProgram:
     """The K5 program of an "ad" spec at ``n_samples`` rows (traced and
     emitted once), checked to fit one block's shared memory beside the
-    engine's arrays: ValueError otherwise, never a smaller body."""
+    engine's arrays: ValueError otherwise, never a smaller body.  Its float
+    constants are staged in shared memory where they fit beside the rest
+    (for the full-rank family: without moving the scale matrices or the
+    panel operators out of shared memory), else read from device memory."""
     if spec.ad is None:
         raise ValueError("a spec of model 'ad' carries its traced target: build it with "
                          "ad_spec, fused_spec_for or FusedModelSpec.from_log_density")
+    n, d = n_samples, spec.dim
     prog = spec.ad.program(n_samples)
-    need = ad_smem_bytes(family, n_samples, spec.dim, prog.scratch, rows)
+    need = ad_smem_bytes(family, n, d, prog.scratch, rows)
+    staged = spec.ad.program(n_samples, staged=True)
+    with_stage = ad_smem_bytes(family, n, d, staged.scratch, rows, staged.stage)
+    if family == FULLRANK:
+        with_stage += _fullrank_extras(need, rows, d)
+    if with_stage <= _build.SMEM_LIMIT:
+        return staged
     if need > _build.SMEM_LIMIT:
         raise ValueError(
             f"K5's body of {spec.ad.name} at n_samples={n_samples}, d={spec.dim} needs "
@@ -1305,7 +1349,8 @@ class FusedADVI:
             empty = torch.zeros(0, dtype=torch.float32, device=dev)
             return state, (empty if log_every else None)
         it_end = state.iteration + steps
-        ad = model.ad.program(self.n_samples) if model.model == AD else None
+        rows = (8 + branch.ext_rows) if self.family == MEANFIELD else 4 + branch.ext_rows // 2
+        ad = ad_program(model, self.n_samples, self.family, rows) if model.model == AD else None
         consts = model.consts if ad is None else ad.consts
         args = (seed_words(key), state.iteration, steps, self.n_samples, self.hyp, noise,
                 log_every, branch, ad)

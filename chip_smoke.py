@@ -28,6 +28,7 @@ Phases:
   (f) the general path on the card;  (g) the fused engine on the card;
   (h) steps/s of both paths and each kernel's time beside its plain version
       (the sampler also by CUDA-graph replay, without the wrapper's host time);
+      the flagship step's phase split (an instrumented build's counters);
   (i) the full-rank sampler (K7b) against its plain version and K7a's draws;
   (j) the triangular solve (K8), both modes, against a float64 solve and
       its plain version at the main path's and at ragged shapes (n from 1
@@ -41,9 +42,7 @@ Phases:
       their plain versions; K8 beside cuBLAS trsm by CUDA events and by
       CUDA-graph replay, at each rows-a-block choice; the full-rank step's
       phase split (an instrumented build's cycle counters) at d = 62 and
-      512; with ``--parent``, K8 and the full-rank chunks of that checkout
-      (e.g. a ``git archive`` of the parent under the ignored ``_archive/``)
-      and of this one, a fresh process each, alternating;
+      512;
   (n) every branch added by the proximal/score-gradient slice (update
       rules, zero-gradient entropies, prox, VarGrad, the diagonal-Gaussian
       body) in both fused kernels against its plain version: noise,
@@ -79,8 +78,9 @@ Phases:
       65,536 x 256, rank 8 (timed) and at the shapes of the low-rank ADVI
       runs; low-rank ADVI through ``optimize`` on
       tests/test_lowrank_advi.py's target and on the flagship (rank 8);
-  (y) K5, the AD-derived model body: the generated libraries (nvcc seconds,
-      registers, spills), each against its plain version (the graph's
+  (y) K5, the AD-derived model body: the generated libraries (each
+      program's loops, barriers, block products and staged constants; nvcc
+      seconds, registers, spills), each against its plain version (the graph's
       replay) in the mean-field, full-rank and chains (C = 64) kernels on
       the flagship logreg through ``ad_spec``, on normal-lognormal and on
       the quartic ``from_log_density`` target; the ad logreg chunk against
@@ -88,9 +88,17 @@ Phases:
       ``fused_spec_for(fn_target(...))`` at the flagship's width through
       ``FusedADVI.optimize`` (both families), ``FusedProxADVI``,
       ``FusedScoreGradVI`` and ``FusedChainsADVI``, counted; the 200-step
-      ad chunk timed beside the hand one; and the sampler RNG checks (K7c's
-      u2 moments, K7b's and K7c's sample covariance at 65,536 draws, 64
-      chains agreeing on the flagship's optimum).
+      ad chunk timed beside the hand one with its phase split; and the
+      sampler RNG checks (K7c's u2 moments, K7b's and K7c's sample
+      covariance at 65,536 draws, 64 chains agreeing on the optimum).
+
+With ``--parent CHECKOUT`` (e.g. a ``git archive`` of the parent commit
+under the ignored ``_archive/``) it then times K8 and the chunks of
+``ab_chunks`` with that checkout's package and with this one's, a fresh
+process each, alternating, each side with its mean-field phase split.  The
+other checkout is copied under this one's ``build/ab_parent`` and timed
+there, never built or written in place; a checkout whose mean-field body
+has no phase counters gets them written into that copy.
 
 Every failed check raises and the script exits non-zero; it also exits
 non-zero without a CUDA device, or when the package is not beside it.  The
@@ -535,6 +543,7 @@ def phase_h(dev, card):
     say("h", meanfield_sample_ms=samp_ms, meanfield_sample_graph_ms=samp_graph,
         meanfield_sample_plain_ms=samp_plain, shape=f"{N_SAMPLES}x{d}")
     say("h", fused_chunk_ms=fk_ms, fused_chunk_plain_ms=fr_ms, chunk_steps=args[6])
+    mf_split("h", "flagship_hand", args, fk_ms)
     return {"meanfield_sample": (samp_graph, samp_plain),
             "fused_advi_meanfield": (fk_ms, fr_ms)}
 
@@ -820,21 +829,85 @@ def trisolve_args(dev):
     return C, torch.randn(n, d, generator=torch.Generator().manual_seed(7)).to(dev)
 
 
+def ab_chunks(dev):
+    """The chunks the A/B times: 200 steps each (in-kernel Philox) with the
+    package of the working directory: the flagship hand chunk (phase (h))
+    and its ad chunk (y), the prox-DoWG and VarGrad chunks (q), K6 at C = 64
+    and 1,024 on the hand body and at C = 64 on the ad body (w, y), the
+    full-rank d = 62 logreg chunk and its ad chunk (m, y), the d = 512
+    chunk (m), the minibatch body's three transports at n = 16,384 (u).
+    Each entry: (launch, reps)."""
+    import advancedvi_jl_tpu_torch as avt
+    from advancedvi_jl_tpu_torch.ops.cuda import fused_advi as fa
+    from advancedvi_jl_tpu_torch.ops.cuda.fused_chains import fused_chains_run_chunk_cuda
+    from advancedvi_jl_tpu_torch.ops.cuda.location_scale_kernels import seed_words
+
+    prob = flagship(dev)
+    hand = flagship_chunk_args(dev)
+    spec = avt.ad_spec(prob.unconstrained())
+    mf = fa.ad_program(spec, N_SAMPLES, "meanfield", 8)
+    fr = fa.ad_program(spec, N_SAMPLES, "fullrank", 4)
+    vec, mat = ad_rows(prob.dim, dev, "fullrank")
+    out = {
+        "flagship_hand": (lambda: fa.fused_run_chunk_cuda(*hand), 20),
+        "flagship_ad": (lambda: fa.fused_run_chunk_cuda("ad", mf.consts, (), *hand[3:], ad=mf),
+                        20),
+        "fullrank_ad": (lambda: fa.fused_fullrank_run_chunk_cuda(
+            "ad", fr.consts, (), vec, mat, *hand[4:], ad=fr), 10),
+    }
+    for name, args in fullrank_chunk_args(dev).items():
+        out[f"fullrank_{name}"] = (lambda a=args: fa.fused_fullrank_run_chunk_cuda(*a), 10)
+    engines = slice_engines(dev)
+    for name in ("prox", "bbvi"):  # prox-DoWG; VarGrad (DoWG, clip)
+        eng, q0 = engines[name]
+        args = (eng.model.model, eng.model.consts, eng.model.scalars,
+                eng.init(q0.location, q0.scale_diag).stacked(), seed_words(SEED), 0, 200,
+                N_SAMPLES, eng.hyp, None, 0, eng.branch())
+        out[name] = (lambda a=args: fa.fused_run_chunk_cuda(*a), 10)
+    big = large_logreg(dev)
+    for tr, sp in mb_specs(big.X, big.y).items():  # K4's minibatch body, n = 16,384
+        args = (sp.model, sp.consts, sp.scalars, initial_rows(sp.dim, dev), seed_words(SEED),
+                0, 200, N_SAMPLES, fa.FusedHyper(lr=LR))
+        out[f"minibatch_{tr}_16k"] = (lambda a=args: fa.fused_run_chunk_cuda(*a), 5)
+    for tag, sp, C in (("chains64", avt.logreg_spec(prob.X, prob.y), 64),
+                       ("chains1024", avt.logreg_spec(prob.X, prob.y), 1024),
+                       ("chains64_ad", spec, 64)):
+        e, rows, seeds = chains_case(dev, sp, C)
+        out[tag] = (lambda e=e, r=rows, sd=seeds: chains_run(
+            fused_chains_run_chunk_cuda, e, r, sd, 0, 200), 5 if C > 64 else 10)
+    return out, (hand, mf, fr)
+
+
 def ab_times(dev):
-    """K8 at 256 x 1024 in both modes (events and graph replay) and the
-    full-rank chunks, with the package of the working directory: the
-    parent's side of phase (m)'s A/B, run in a child process."""
-    from advancedvi_jl_tpu_torch.ops.cuda.fused_advi import fused_fullrank_run_chunk_cuda
+    """The A/B's side of one checkout, run in a child process with that
+    checkout's package: K8 at 256 x 1024 in both modes (events and graph
+    replay), every chunk of ``ab_chunks``, and the mean-field phase split of
+    the flagship hand and ad chunks."""
+    from advancedvi_jl_tpu_torch.ops.cuda import _build
     from advancedvi_jl_tpu_torch.ops.cuda.trisolve_kernels import solve_right_cuda
 
+    _build.build_all()
+    chunks, (hand, mf, fr) = ab_chunks(dev)
+    pairs = [(k, mf.source) for k in ("fused_advi_meanfield", "fused_chains")] + \
+        [("fused_advi_fullrank", fr.source)]
+    libs = _build.build_generated_all(pairs)
     C, V = trisolve_args(dev)
     out = {}
+    for (kern, _), path in libs.items():  # the flagship's K5 libraries: registers and spills
+        out[f"ptxas_k5_{kern}"] = " | ".join(
+            ln.strip() for ln in path.with_suffix(".log").read_text().splitlines()
+            if "spill" in ln or "registers" in ln)
     for mode in ("C", "CT"):
         out[f"trisolve_{mode}"] = cuda_ms(lambda: solve_right_cuda(C, V, mode), 200)
         out[f"trisolve_{mode}_graph"] = graph_ms(lambda: solve_right_cuda(C, V, mode))
-    for name, args in fullrank_chunk_args(dev).items():
-        out[f"fused_advi_fullrank_{name}"] = cuda_ms(lambda: fused_fullrank_run_chunk_cuda(*args),
-                                                     10)
+    for name, (fn, reps) in chunks.items():
+        out[name] = cuda_ms(fn, reps)
+    for name, args, ad in (("flagship_hand", hand, None),
+                           ("flagship_ad", ("ad", mf.consts, ()) + hand[3:], mf)):
+        cycles, _ = mf_phase_cycles(args, ad)
+        total = sum(cycles)
+        for phase, c in zip(MF_PHASES, cycles):
+            out[f"split_{name}_{phase}_us"] = 1e3 * out[name] / 200 * c / total
     return out
 
 
@@ -849,18 +922,193 @@ print(json.dumps(smoke.ab_times(torch.device("cuda:0"))))
 
 
 def ab_parent(parent: Path):
-    """phase (m)'s A/B: ``ab_times`` with the parent checkout's package and
-    with this one's, a fresh process each, in the order parent, this, this,
-    parent (each checkout builds its kernels under its own build/kernels)."""
+    """The A/B: ``ab_times`` with the parent checkout's package and with
+    this one's, a fresh process each, in the order parent, this, this,
+    parent (each builds its kernels under its own build/kernels); the
+    parent's side runs in ``parent_copy``'s copy of it."""
+    parent = parent_copy(parent)
     runs = {"parent": [], "this": []}
     for tag, path in (("parent", parent), ("this", ROOT), ("this", ROOT), ("parent", parent)):
         proc = subprocess.run([sys.executable, "-c", AB_CHILD, str(ROOT / "chip_smoke.py")],
-                              cwd=path, capture_output=True, text=True, timeout=600)
+                              cwd=path, capture_output=True, text=True, timeout=900)
         check(proc.returncode == 0, f"A/B in {path}: {proc.stderr[-2000:]}")
         runs[tag].append(json.loads(proc.stdout.strip().splitlines()[-1]))
     for key in runs["this"][0]:
-        say("m", ab=key, parent_ms=",".join(str(r[key]) for r in runs["parent"]),
-            this_ms=",".join(str(r[key]) for r in runs["this"]))
+        if key.startswith("ptxas"):
+            say("ab", lib=key, parent=f"'{runs['parent'][0][key]}'", this=f"'{runs['this'][0][key]}'")
+            continue
+        say("ab", chunk=key, parent_ms=",".join(f"{r[key]:.5f}" for r in runs["parent"]),
+            this_ms=",".join(f"{r[key]:.5f}" for r in runs["this"]))
+
+
+# The counters of csrc/fused_meanfield_body.cuh for a checkout whose mean-field
+# body has none (the parent of the block-product redesign): each (anchor, text
+# put after it).  The build without AVI_PHASE_CLOCKS stays as it was.
+PARENT_CLOCKS = (
+    ("using avi::kLog2Pi;\n", """
+#ifdef AVI_PHASE_CLOCKS
+constexpr int kPhases = 7;
+__device__ unsigned long long avi_mf_phase_cycles[kPhases];
+#define AVI_MF_PHASE(i) do { if (tid == 0) { const long long t_now = clock64(); \\
+  atomicAdd(&avi::mf::avi_mf_phase_cycles[i], \\
+            static_cast<unsigned long long>(t_now - t_prev)); t_prev = t_now; } } while (0)
+#else
+#define AVI_MF_PHASE(i) do { } while (0)
+#endif
+"""),
+    ("  float elbo = 0.0f;\n", "#ifdef AVI_PHASE_CLOCKS\n  long long t_prev = clock64();\n#endif\n"),
+    ("    __syncthreads();\n    if (logreg) avi::logreg_rows(", None),
+    ("this thread's copies landed\n    __syncthreads();\n", "    AVI_MF_PHASE(1);\n"),
+    ("      avi::logreg_logits(lrm, zs, n, d, tid, kThreads);\n      __syncthreads();\n",
+     "      AVI_MF_PHASE(2);\n"),
+    ("                         lane);\n    }\n    __syncthreads();\n", "    AVI_MF_PHASE(3);\n"),
+    ("avi::logreg_grad(lrm, zs, n, d, beta_sq, tcol, inv_sig2, gs, tid, kThreads);\n"
+     "      __syncthreads();\n", "      AVI_MF_PHASE(4);\n"),
+    ("        trace[(s + 1) / log_every - 1] = elbo;\n    }\n", "    AVI_MF_PHASE(5);\n"),
+    ("    AVI_MF_PHASE(5);\n    __syncthreads();\n", "    AVI_MF_PHASE(6);\n"),
+)
+PARENT_CLOCKS_ENTRY = """
+#ifdef AVI_PHASE_CLOCKS
+extern "C" int fused_advi_meanfield_phase_cycles(unsigned long long* out) {
+  using avi::mf::avi_mf_phase_cycles;
+  cudaError_t err = cudaMemcpyFromSymbol(out, avi_mf_phase_cycles, sizeof(avi_mf_phase_cycles));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const unsigned long long zero[avi::mf::kPhases] = {};
+  return static_cast<int>(cudaMemcpyToSymbol(avi_mf_phase_cycles, zero, sizeof(zero)));
+}
+#endif
+"""
+
+
+def parent_copy(parent: Path) -> Path:
+    """A fresh copy of the checkout ``parent`` under this checkout's
+    ``build/ab_parent`` (without its builds), which the A/B builds and times
+    instead of ``parent`` itself.  Where its mean-field body has no
+    AVI_PHASE_CLOCKS counters, the copy gets this one's (PARENT_CLOCKS), so
+    that the A/B splits its step too; its K5 body has no mark after log pi,
+    so the whole body counts as "logpi" there."""
+    import shutil
+
+    copy = ROOT / "build" / "ab_parent"
+    check(parent not in (copy, *copy.parents), f"--parent {parent}: it holds its own copy")
+    shutil.rmtree(copy, ignore_errors=True)
+    shutil.copytree(parent, copy, ignore=shutil.ignore_patterns(
+        ".git", "build", "_archive", "__pycache__"))
+    csrc = copy / "advancedvi_jl_tpu_torch" / "csrc"
+    body = (csrc / "fused_meanfield_body.cuh").read_text()
+    if "AVI_MF_PHASE" in body:
+        return copy
+    for anchor, text in PARENT_CLOCKS:
+        check(body.count(anchor) == 1, f"--parent: no unique {anchor!r} in its mean-field body")
+        if text is None:  # the mark after phase A's barrier
+            body = body.replace(anchor, anchor.replace("();\n", "();\n    AVI_MF_PHASE(0);\n"))
+        else:
+            body = body.replace(anchor, anchor + text)
+    (csrc / "fused_meanfield_body.cuh").write_text(body)
+    kern = (csrc / "fused_advi_meanfield.cu").read_text()
+    mark = "// model 0: logreg, c0 = X (n_data, db)"
+    check(kern.count(mark) == 1, "--parent: no entry comment in its fused_advi_meanfield.cu")
+    (csrc / "fused_advi_meanfield.cu").write_text(kern.replace(mark, PARENT_CLOCKS_ENTRY + mark))
+    say("ab", parent_clocks=str(copy))
+    return copy
+
+
+# the mean-field step's phases (csrc/fused_meanfield_body.cuh, AVI_PHASE_CLOCKS)
+MF_PHASES = ("draws_z", "row_sums", "logits", "logpi", "grad", "rule", "elbo_wait")
+
+
+def _clocks_function(_build, orig):
+    """``_build.function`` of a checkout whose package has no
+    ``instrumented=`` (``parent_copy``'s): its mean-field kernel built with
+    AVI_PHASE_CLOCKS, also beside a generated body, which that checkout's
+    ``_build.function`` refuses, so that library is compiled here."""
+    import ctypes
+    import hashlib
+
+    cache = {}
+
+    def function(name, symbol, argtypes, restype=ctypes.c_int, body=None, defines=()):
+        if name != "fused_advi_meanfield":
+            return orig(name, symbol, argtypes, restype, body, defines)
+        if body is None:
+            return orig(name, symbol, argtypes, restype, None, ("AVI_PHASE_CLOCKS",))
+        if (body, symbol) not in cache:
+            tag = hashlib.sha256(body.encode()).hexdigest()[:16]
+            header = _build.GEN_DIR / f"ad_clocks_{tag}.cuh"
+            out = _build.BUILD_DIR / f"lib{name}-ad-clocks-{tag}.so"
+            if not out.exists():
+                _build.GEN_DIR.mkdir(parents=True, exist_ok=True)
+                header.write_text(body)
+                subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
+                                "-I", str(_build.GEN_DIR), f"-DAVI_AD_BODY={header.name}",
+                                "-DAVI_PHASE_CLOCKS", "-o", str(out),
+                                str(_build.CSRC / f"{name}.cu")], check=True,
+                               capture_output=True)
+            fn = getattr(ctypes.CDLL(str(out)), symbol)
+            fn.argtypes, fn.restype = list(argtypes), restype
+            cache[(body, symbol)] = fn
+        return cache[(body, symbol)]
+
+    return function
+
+
+def mf_phase_cycles(args, ad=None, launches=4):
+    """SM cycles of thread 0 in each mean-field phase (MF_PHASES), summed
+    over ``launches`` launches of the instrumented build of the chunk
+    ``args`` (with ``ad``'s K5 body when given), through the package's
+    ``instrumented=`` and ``meanfield_phase_cycles``; a package without them
+    (``parent_copy``'s) gets the same build through ``_clocks_function``."""
+    import ctypes
+
+    from advancedvi_jl_tpu_torch.ops.cuda import _build
+    from advancedvi_jl_tpu_torch.ops.cuda import fused_advi as fa
+
+    kw = {} if ad is None else {"ad": ad}
+    if hasattr(fa, "meanfield_phase_cycles"):
+        run = lambda: fa.fused_run_chunk_cuda(*args, instrumented=True, **kw)  # noqa: E731
+        read = lambda: list(fa.meanfield_phase_cycles(ad).values())  # noqa: E731
+        restore = None
+    else:
+        restore = _build.function
+        _build.function = _clocks_function(_build, restore)
+        fn = _build.function("fused_advi_meanfield", "fused_advi_meanfield_phase_cycles",
+                             [ctypes.c_void_p], ctypes.c_int, None if ad is None else ad.source)
+        out = (ctypes.c_ulonglong * len(MF_PHASES))()
+
+        def read():
+            check(fn(ctypes.addressof(out)) == 0, "reading the phase counters failed")
+            return list(out)
+
+        run = lambda: fa.fused_run_chunk_cuda(*args, **kw)  # noqa: E731
+    try:
+        run()
+        torch.cuda.synchronize()
+        read()  # the counters restart at zero
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(launches):
+            run()
+        stop.record()
+        torch.cuda.synchronize()
+        cycles = read()
+    finally:
+        if restore is not None:
+            _build.function = restore
+    return cycles, start.elapsed_time(stop) / launches
+
+
+def mf_split(phase, name, args, chunk_ms, ad=None):
+    """Print the mean-field step's phase split of the chunk ``args``: each
+    phase's share of thread 0's cycles, in microseconds of ``chunk_ms``'
+    step (the build without counters), and its cycles a step."""
+    cycles, inst_ms = mf_phase_cycles(args, ad)
+    total = sum(cycles)
+    steps = 4 * args[6]
+    step_us = 1e3 * chunk_ms / args[6]
+    say(phase, mf_phase_split=name, step_us=f"{step_us:.3f}", instrumented_chunk_ms=inst_ms,
+        cycles_per_step=f"{total / steps:.0f}",
+        **{f"{p}_us": f"{step_us * c / total:.3f}" for p, c in zip(MF_PHASES, cycles)})
+    return dict(zip(MF_PHASES, cycles))
 
 
 def phase_split(dev, name, args, chunk_ms):
@@ -881,11 +1129,11 @@ def phase_split(dev, name, args, chunk_ms):
         **{f"{p}_us": step_us * c / total for p, c in cycles.items()})
 
 
-def phase_m(dev, card, parent=None):
+def phase_m(dev, card):
     """Steps/s of the full-rank paths and each new kernel's time beside its
     plain version at the main path's shapes; K8 beside trsm by events and by
     graph replay, at each rows-a-block choice; the full-rank step's phase
-    split; with ``parent``, the A/B against the parent checkout."""
+    split."""
     from advancedvi_jl_tpu_torch.ops.cuda.fused_advi import (
         fused_fullrank_run_chunk_cuda, fused_fullrank_run_chunk_reference,
     )
@@ -959,8 +1207,6 @@ def phase_m(dev, card, parent=None):
             faster_than_trsm_events=t_ms < l_ms, faster_than_trsm_graph=t_graph < l_graph,
             shape=f"{n}x{d}")
         out[f"trisolve_{mode}"] = (t_graph, t_plain, l_graph)
-    if parent is not None:
-        ab_parent(parent)
     return out
 
 
@@ -2177,22 +2423,34 @@ def ad_cases(dev):
 
 def ad_build(dev, cases):
     """Every generated library phase (y) runs, one nvcc each, all started
-    together: nvcc seconds, registers and spills; the Python layout of each
-    kernel's shared memory equal to the kernel's own."""
+    together: each K5 program's loops, barriers, block products and whether
+    its constants are staged in shared memory (per family: the engines'
+    ad_program), nvcc seconds, registers and spills; the Python layout of
+    each kernel's shared memory equal to the kernel's own.  Returns each
+    target's program per family."""
     import ctypes
 
     from advancedvi_jl_tpu_torch.ops.cuda import _build
-    from advancedvi_jl_tpu_torch.ops.cuda.fused_advi import ad_smem_bytes
+    from advancedvi_jl_tpu_torch.ops.cuda.fused_advi import _fullrank_extras, ad_program, \
+        ad_smem_bytes
 
-    progs = {name: spec.ad.program(N_SAMPLES) for name, spec in cases.items()}
+    progs = {name: {"meanfield": ad_program(spec, N_SAMPLES, "meanfield", 8),
+                    "fullrank": ad_program(spec, N_SAMPLES, "fullrank", 4)}
+             for name, spec in cases.items()}
+    kernels = (("fused_advi_meanfield", "meanfield", 8), ("fused_chains", "meanfield", 8),
+               ("fused_advi_fullrank", "fullrank", 4))
     t0 = time.perf_counter()
-    paths = _build.build_generated_all([(k, p.source) for p in progs.values()
-                                        for k in _build.AD_KERNELS])
+    paths = _build.build_generated_all([(k, progs[name][fam].source) for name in progs
+                                        for k, fam, _ in kernels])
     say("y", libraries=len(paths), build_s=f"{time.perf_counter() - t0:.2f}")
-    for name, prog in progs.items():
-        say("y", target=name, d=prog.d, graph_nodes=len(prog.gm.graph.nodes), loops=prog.loops,
-            barriers=prog.barriers, scratch_floats=prog.scratch, madds=prog.madds)
-        for kern in _build.AD_KERNELS:
+    for name, by_family in progs.items():
+        for family, prog in by_family.items():
+            say("y", target=name, family=family, d=prog.d, graph_nodes=len(prog.gm.graph.nodes),
+                loops=prog.loops, barriers=prog.barriers, block_products=prog.products,
+                scratch_floats=prog.scratch, madds=prog.madds, staged=prog.staged,
+                staged_floats=prog.stage)
+        for kern, family, rows in kernels:
+            prog = by_family[family]
             path = paths[(kern, prog.source)]
             ptxas = [ln.strip() for ln in path.with_suffix(".log").read_text().splitlines()
                      if "registers" in ln or "spill" in ln]
@@ -2200,17 +2458,12 @@ def ad_build(dev, cases):
                 nvcc_s=f"{_build.BUILD_SECONDS.get(path, 0.0):.2f}")
             for ln in ptxas:
                 print(f"    {ln}", flush=True)
-        for kern, family, rows in (("fused_advi_meanfield", "meanfield", 8),
-                                   ("fused_chains", "meanfield", 8),
-                                   ("fused_advi_fullrank", "fullrank", 4)):
             got = _build.function(kern, f"{kern}_smem_bytes", [ctypes.c_int] * 7,
                                   restype=ctypes.c_size_t, body=prog.source)(
                 6, 0, 0, 0, N_SAMPLES, prog.d, rows)
-            want = ad_smem_bytes(family, N_SAMPLES, prog.d, prog.scratch, rows)
+            want = ad_smem_bytes(family, N_SAMPLES, prog.d, prog.scratch, rows, prog.stage)
             if family == "fullrank":  # the scale matrices, then the panel operators, where they fit
-                for extra in (4 * rows * prog.d * prog.d, 4096 * -(-prog.d // 32)):
-                    if want + extra <= _build.SMEM_LIMIT:
-                        want += extra
+                want += _fullrank_extras(want, rows, prog.d)
             check(got == want, f"{kern} on {name}: the kernel's layout is {got} bytes, "
                                f"ad_smem_bytes says {want}")
     return progs
@@ -2225,7 +2478,7 @@ def ad_rows(d, dev, family):
     return torch.stack([z, z, z, z]), torch.stack([eye, zz, zz, eye])
 
 
-def ad_compare(dev, name, spec, prog, family):
+def ad_compare(dev, name, spec, progs, family):
     """K5 in one kernel against its plain version: 50 injected-noise steps
     (norm-wise rtol 1e-5) and 200 Philox steps (1e-4).  Returns the largest
     parameter error after the injected-noise steps."""
@@ -2233,6 +2486,7 @@ def ad_compare(dev, name, spec, prog, family):
     from advancedvi_jl_tpu_torch.ops.cuda.location_scale_kernels import seed_words
 
     d, hyp, seed = spec.dim, fa.FusedHyper(lr=LR), seed_words(SEED)
+    prog = progs[family]
     rows = ad_rows(d, dev, family)
     kern, plain = ((fa.fused_run_chunk_cuda, fa.fused_run_chunk_reference) if family == "meanfield"
                    else (fa.fused_fullrank_run_chunk_cuda, fa.fused_fullrank_run_chunk_reference))
@@ -2283,7 +2537,7 @@ def ad_chains_compare(dev, spec, prog):
     return err
 
 
-def ad_vs_hand(dev, ad):
+def ad_vs_hand(dev, progs):
     """The ad logreg chunk against the hand logreg_spec chunk on one injected
     noise, 50 steps, both families: norm-wise within 1e-6 (the two bodies
     sum the same terms in another order)."""
@@ -2296,6 +2550,7 @@ def ad_vs_hand(dev, ad):
     d, hyp, seed = hand.dim, fa.FusedHyper(lr=LR), seed_words(SEED)
     noise = torch.randn((50, N_SAMPLES, d), generator=torch.Generator().manual_seed(6)).to(dev)
     for family in ("meanfield", "fullrank"):
+        ad = progs[family]
         rows = ad_rows(d, dev, family)
         kern = fa.fused_run_chunk_cuda if family == "meanfield" else fa.fused_fullrank_run_chunk_cuda
         k = kern("ad", ad.consts, (), *rows, seed, 0, 50, N_SAMPLES, hyp, noise, ad=ad)
@@ -2370,16 +2625,17 @@ def ad_main_path(dev):
     for kern in ("fused_advi_meanfield", "fused_advi_fullrank", "fused_chains"):
         check(counts[kern] > 0, f"the ad path launched no {kern} kernel")
     check(counts["k5_ad"] > 0, "the ad path launched no K5 body")
-    return counts, spec.ad.program(N_SAMPLES)
+    return counts, eng.ad
 
 
-def ad_times(dev, card, prog):
+def ad_times(dev, card, progs):
     """The 200-step ad chunk (mean-field, flagship) beside the hand chunk of
     phase (h), in turns, and its plain version; the full-rank and 64-chain ad
-    chunks."""
+    chunks; the ad chunk's mean-field phase split."""
     from advancedvi_jl_tpu_torch.ops.cuda import fused_advi as fa
     from advancedvi_jl_tpu_torch.ops.cuda.fused_chains import fused_chains_run_chunk_cuda
 
+    prog = progs["meanfield"]
     hand_args = flagship_chunk_args(dev)
     ad_args = ("ad", prog.consts, ()) + hand_args[3:]
     say("y", clocks_before=smi_clocks())
@@ -2390,8 +2646,9 @@ def ad_times(dev, card, prog):
     plain_ms = cuda_ms(lambda: fa.fused_run_chunk_reference(*ad_args, ad=prog), 1)
     d = prog.d
     vec, mat = ad_rows(d, dev, "fullrank")
+    fr = progs["fullrank"]
     fr_ms = cuda_ms(lambda: fa.fused_fullrank_run_chunk_cuda(
-        "ad", prog.consts, (), vec, mat, *hand_args[4:], ad=prog), 10)
+        "ad", fr.consts, (), vec, mat, *hand_args[4:], ad=fr), 10)
     import advancedvi_jl_tpu_torch as avt
 
     spec = avt.ad_spec(flagship(dev).unconstrained())
@@ -2403,6 +2660,7 @@ def ad_times(dev, card, prog):
         hand_chunk_ms=",".join(f"{t:.4f}" for t in hand_ms), ad_plain_ms=plain_ms,
         ratio=f"{min(ad_ms) / min(hand_ms):.3f}", fullrank_ad_chunk_ms=fr_ms,
         chains64_ad_chunk_ms=ch_ms)
+    mf_split("y", "flagship_ad", ad_args, min(ad_ms), ad=prog)
     return min(ad_ms), plain_ms
 
 
@@ -2466,12 +2724,12 @@ def phase_y(dev, card):
     for name, spec in cases.items():
         for family in ("meanfield", "fullrank"):
             err = max(err, ad_compare(dev, name, spec, progs[name], family))
-    err = max(err, ad_chains_compare(dev, cases["logreg"], progs["logreg"]))
+    err = max(err, ad_chains_compare(dev, cases["logreg"], progs["logreg"]["meanfield"]))
     ad_vs_hand(dev, progs["logreg"])
     counts, prog = ad_main_path(dev)
-    check(prog.digest == progs["logreg"].digest,
+    check(prog.digest == progs["logreg"]["meanfield"].digest,
           "fused_spec_for(fn_target) and ad_spec of the flagship emitted different bodies")
-    ms, plain_ms = ad_times(dev, card, prog)
+    ms, plain_ms = ad_times(dev, card, progs["logreg"])
     rng_checks(dev)
     # the flagship chunk's work: its two products, n x 208 x 61 each, a step;
     # the design, labels and state in and out
@@ -2481,12 +2739,13 @@ def phase_y(dev, card):
 
 
 def main() -> int:
-    parent = None  # --parent DIR: phase (m) also times that checkout's K8 and chunks
-    if sys.argv[1:2] == ["--parent"] and len(sys.argv) == 3:
-        parent = Path(sys.argv[2]).resolve()
+    parent = None  # --parent DIR: the A/B of the chunks against that checkout
+    argv = sys.argv[1:]
+    if argv[:1] == ["--parent"] and len(argv) == 2:
+        parent = Path(argv[1]).resolve()
         if not (parent / "advancedvi_jl_tpu_torch" / "__init__.py").is_file():
             fail(f"--parent {parent}: no advancedvi_jl_tpu_torch/ there")
-    elif sys.argv[1:]:
+    elif argv:
         fail(f"usage: python3 chip_smoke.py [--parent CHECKOUT], got {sys.argv[1:]}")
     seconds = {}  # wall seconds of each phase, printed before the kernels line
     last = [time.perf_counter()]
@@ -2513,7 +2772,7 @@ def main() -> int:
     tri_err = phase_j(dev)
     fr_fused_err = phase_k(dev)
     fr_counts = fullrank_paths(dev)
-    fr_times = phase_m(dev, card, parent)
+    fr_times = phase_m(dev, card)
     lap("i-m")
     slice_err = phase_n(dev)
     general, _ = slice_general(dev)
@@ -2536,6 +2795,9 @@ def main() -> int:
     lap("x")
     k5_launches, k5_err, k5_ms, k5_plain_ms, k5_bound = phase_y(dev, card)
     lap("y")
+    if parent is not None:
+        ab_parent(parent)
+        lap("ab")
     say("time", total=round(sum(seconds.values()), 1), **seconds)
     bounds = {name: bound(*fb) for name, fb in kernel_bounds().items()}
     src = "advancedvi_jl_tpu_torch/csrc/"

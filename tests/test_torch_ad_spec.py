@@ -6,6 +6,8 @@ held against the JAX engine in Pallas interpret mode, the JAX general path
 and the port's hand-derived specs.  The generated CUDA itself is held to the
 replay on a card (tests/test_torch_kernels.py, chip_smoke.py phase (y))."""
 
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -394,7 +396,8 @@ def test_emitted_body_is_deterministic_and_listed(name):
     assert set(a.ops) <= listed and a.ops
     assert "void ad_body(" in a.source and f"kN = {N_SAMPLES};" in a.source
     assert f"kD = {target.dim};" in a.source and f"kScratch = {a.scratch};" in a.source
-    assert a.source.count("{") == a.source.count("}") and "__syncthreads();" in a.source
+    assert a.source.count("{") == a.source.count("}")
+    assert a.source.count("__syncthreads();") == a.barriers
     assert "{DST:" not in a.source and "{OFF:" not in a.source
     assert _build.generated_library_path("fused_advi_meanfield", a.source) == \
         _build.generated_library_path("fused_advi_meanfield", b.source)
@@ -470,3 +473,143 @@ def test_log_density_grad_and_hess_matches_jax():
     assert torch.equal(avt.log_density_grad_and_hess(oracle, torch.ones(2))[2], torch.eye(2))
     with pytest.raises(ValueError, match="Hessian"):
         _oracle().log_density_grad_and_hess(torch.ones(3))
+
+
+# ---------------------------------------------------------------------------
+# The emitted body's plan: block products, staged constants, few barriers,
+# and the static race check
+# ---------------------------------------------------------------------------
+
+
+def test_flagship_body_plan():
+    """The flagship's body: its two mm nodes run the block product, at most
+    8 barriers (20 before the planner fused element-local loops) and fewer
+    than 26 loops; the engines' program stages its float constants in
+    shared memory; the products keep k in order (one lane a sum), as the
+    per-element loops before the block product did."""
+    from advancedvi_jl_tpu_torch.ops.cuda.fused_advi import ad_program
+
+    _, tp = _logreg(11, 208, 60)
+    spec = ad_spec(tp.unconstrained())
+    prog = spec.ad.program(10)
+    assert prog.barriers <= 8 and prog.loops < 26
+    assert prog.products == 2 and prog.source.count("avi::block_mm<") == 2
+    assert prog.source.count("__syncthreads();") == prog.barriers
+    assert "avi::block_mm<kThreads, 5, 2, 1," in prog.source   # the logits
+    assert "avi::block_mm<kThreads, 2, 2, 1," in prog.source   # the likelihood gradient
+    assert prog.madds == 2 * 10 * 208 * 61
+    for family, rows in (("meanfield", 8), (FULLRANK, 4)):
+        staged = ad_program(spec, 10, family, rows)
+        assert staged.staged and staged.stage >= prog.consts[0].numel()
+        body = staged.source[staged.source.index("void ad_body("):]
+        assert f"kStage = {staged.stage};" in staged.source and "cs[" in body and "cf[" not in body
+        assert staged.barriers == prog.barriers and staged.scratch == prog.scratch
+    assert ad_body._tile(10, 208, 61) == (5, 2, 1) and ad_body._tile(10, 61, 208) == (2, 2, 1)
+    assert all(ad_body._tile(*mnk)[2] == 1 for mnk in ((1, 5, 5), (64, 64, 64), (10, 1, 5)))
+
+
+def test_constants_that_do_not_fit_stay_in_device_memory():
+    """A target whose constants cannot be staged beside the engine's arrays
+    (800 x 61 design: 198,408 bytes of constants beside 77,088 of arrays
+    and scratch) is still taken, and its body reads them from device
+    memory; no program that fits unstaged is refused."""
+    from advancedvi_jl_tpu_torch.ops.cuda.fused_advi import ad_program, ad_smem_bytes
+
+    _, tp = _logreg(11, 800, 60)
+    spec = ad_spec(tp.unconstrained())
+    prog = ad_program(spec, 10)
+    assert not prog.staged and prog.stage == 0 and "kStage = 0;" in prog.source
+    body = prog.source[prog.source.index("void ad_body("):]
+    assert "cf[" in body and "cs[" not in body
+    assert ad_smem_bytes("meanfield", 10, 62, prog.scratch, 8) <= _build.SMEM_LIMIT
+    staged = spec.ad.program(10, staged=True)
+    assert ad_smem_bytes("meanfield", 10, 62, staged.scratch, 8, staged.stage) > _build.SMEM_LIMIT
+    assert FusedADVI(spec, n_samples=10).ad.digest == prog.digest
+
+
+def _graph_targets():
+    """Three more graphs of the allowed ops: chained products with a
+    softplus between them (mm, transposes), row sums broadcast back over
+    their rows, and cat/slice/select pieces with where and clamp_min."""
+    g = torch.Generator().manual_seed(3)
+    W1, W2 = torch.randn(6, 9, generator=g), torch.randn(9, 4, generator=g)
+
+    def chained(t, dat):
+        h = t @ dat["W1"]
+        sp = torch.clamp_min(h, 0.0) + torch.log1p(torch.exp(-h.abs()))
+        return -((sp @ dat["W2"]) ** 2).sum(-1) - 0.5 * (t * t).sum(-1)
+
+    def rows(t, dat):
+        r = (t * t).sum(-1, keepdim=True)
+        return -((t - dat["c"] * r) ** 2).sum(-1) - torch.log1p(r).squeeze(-1)
+
+    def pieces(t, dat):
+        a, b = t[..., :3], t[..., 3:]
+        c = torch.cat([torch.exp(b[..., :1]), a, b[..., 1:] * dat["s"]], dim=-1)
+        w = torch.where(c >= 0.0, c, 0.5 * c)
+        return -(w * w).sum(-1) + torch.clamp_min(t[..., 0], -1.0) - t[..., -1].abs()
+
+    return {"chained": avt.fn_target(chained, 6, {"W1": W1, "W2": W2}),
+            "rows": avt.fn_target(rows, 7, {"c": torch.tensor(0.1)}),
+            "pieces": avt.fn_target(pieces, 6, {"s": torch.tensor([2.0])})}
+
+
+def _race_targets():
+    return {**_targets(), **_graph_targets()}
+
+
+@pytest.mark.parametrize("name", ["logreg", "nln", "quartic", "chained", "rows", "pieces"])
+def test_body_plan_has_no_race(name):
+    """The static race check (ADProgram.race_check) on each target's plan:
+    between two barriers every element one loop writes and another reads or
+    writes falls to one thread, and no scratch float is reused without a
+    barrier; the body's value and gradient are still the eager autograd's."""
+    target = _race_targets()[name]
+    prog = ad_spec(target).ad.program(N_SAMPLES)
+    prog.race_check()
+    z = 0.3 * torch.randn(N_SAMPLES, target.dim, generator=torch.Generator().manual_seed(4))
+    lp, grad = prog.logpi_grad(z)
+    v, gr = log_density_and_grad(target, z)
+    assert torch.equal(lp, v) and torch.equal(grad, gr)
+
+
+@pytest.mark.parametrize("name", ["logreg", "nln", "chained", "rows"])
+def test_race_check_finds_a_missing_barrier(name):
+    """Take away any one barrier of a plan and the race check fails: every
+    barrier the planner places guards a real cross-thread dependence."""
+    prog = ad_spec(_race_targets()[name]).ad.program(N_SAMPLES)
+    planner, need, offsets = prog.planner
+    assert any(need)
+    for k in [k for k, bar in enumerate(need) if bar]:
+        cut = list(need)
+        cut[k] = False
+        with pytest.raises(AssertionError):
+            planner.race_check(cut, offsets)
+
+
+def test_block_mm_plain_version_on_the_cpu():
+    """The block product's wrapper runs torch.mm for CPU tensors and
+    refuses them in its card entry; its configs are the tiles that the hand
+    body and K5's flagship body emit."""
+    from advancedvi_jl_tpu_torch.ops.cuda.block_mm_kernels import (
+        CONFIGS, block_mm, block_mm_cuda,
+    )
+
+    g = torch.Generator().manual_seed(0)
+    A, B = torch.randn(10, 61, generator=g), torch.randn(61, 208, generator=g)
+    assert torch.equal(block_mm(A, B), torch.mm(A, B))
+    # the configs are the tiles the callers emit: the hand body's constants
+    # (fused_common.cuh) on both layouts, and K5's flagship calls
+    hand = (_build.CSRC / "fused_common.cuh").read_text()
+    for tile, cfgs in (("Logit", (0, 2)), ("Grad", (1, 3))):
+        want = tuple(int(re.search(rf"k{tile}{part} = (\d+)", hand).group(1))
+                     for part in ("Rows", "Cols", "Split"))
+        assert [CONFIGS[c] for c in cfgs] == [want + (True,), want + (False,)]
+    _, tp = _logreg(11, 208, 60)
+    calls = re.findall(r"avi::block_mm<kThreads, (\d+), (\d+), (\d+), (true|false), false>",
+                       ad_spec(tp.unconstrained()).ad.program(10).source)
+    assert [CONFIGS[4], CONFIGS[5]] == [(*map(int, c[:3]), c[3] == "true") for c in calls]
+    with pytest.raises(ValueError, match="CUDA"):
+        block_mm_cuda(A, B)
+    with pytest.raises(ValueError, match="config"):
+        block_mm_cuda(A, B, config=7)

@@ -66,7 +66,7 @@ def test_package_exports_the_slice():
 
 
 def test_kernel_sources_and_build_flags():
-    for name in _build.KERNELS:
+    for name in _build.KERNELS + _build.TEST_KERNELS:
         assert (_build.CSRC / f"{name}.cu").is_file()
     assert "--use_fast_math" not in _build.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
@@ -116,9 +116,8 @@ def test_generated_library_name_hashes_the_body(monkeypatch, tmp_path):
 
 
 def test_library_name_hashes_the_defines(monkeypatch, tmp_path):
-    """A library built with defines (the full-rank kernel's phase clocks)
-    has a name of its own, which names the defines; a generated K5 body
-    takes none."""
+    """A library built with defines (the fused kernels' phase clocks) has a
+    name of its own, which names the defines; with a generated K5 body too."""
     (tmp_path / "k.cu").write_text("// k\n")
     monkeypatch.setattr(_build, "CSRC", tmp_path)
     plain = _build.library_path("k")
@@ -126,8 +125,9 @@ def test_library_name_hashes_the_defines(monkeypatch, tmp_path):
     assert clocks != plain and "-avi_phase_clocks-" in clocks.name
     assert clocks == _build.library_path("k", ("AVI_PHASE_CLOCKS",))
     assert _build.library_path("k", ("OTHER",)) not in (plain, clocks)
-    with pytest.raises(ValueError, match="without defines"):
-        _build.function("k", "f", [], body="// body\n", defines=("X",))
+    body = _build.generated_library_path("k", "// body\n")
+    body_clocks = _build.generated_library_path("k", "// body\n", ("AVI_PHASE_CLOCKS",))
+    assert body_clocks not in (body, plain, clocks) and "-ad-avi_phase_clocks-" in body_clocks.name
     assert not _build._libs
 
 
@@ -163,7 +163,7 @@ def test_fused_sources_keep_k5_under_its_macro():
 
 
 def test_every_kernel_includes_only_known_headers():
-    for name in _build.KERNELS:
+    for name in _build.KERNELS + _build.TEST_KERNELS:
         for line in (_build.CSRC / f"{name}.cu").read_text().splitlines():
             if line.startswith('#include "'):
                 assert (_build.CSRC / line.split('"')[1]).is_file(), line

@@ -108,6 +108,28 @@ def test_fused_kernel_matches_plain_version(dev, injected):
     assert torch.allclose(k_tr, r_tr, rtol=1e-5)
 
 
+def test_fused_kernel_without_the_aligned_layout(dev):
+    """A design too large for the aligned copy of the betas and the padded
+    logits (771 rows: it fitted before block_mm, and the aligned layout
+    does not) runs on the plain layout: the same sums, within the plain
+    version's tolerance, and the kernel takes no more shared memory than
+    before."""
+    prob = make_logreg(11, n_data=771, device=dev)
+    d = prob.dim
+    smem = _build.function("fused_advi_meanfield", "fused_advi_meanfield_smem_bytes",
+                           [ctypes.c_int] * 7, restype=ctypes.c_size_t)(0, 771, 61, 0, N, d, 8)
+    assert smem == 4 * (72 * 771 + 3 * N * d + 10 * d + 7 * N + 1 + 33) <= _build.SMEM_LIMIT
+    noise = torch.randn((20, N, d), generator=torch.Generator().manual_seed(2)).to(dev)
+    args = ("logreg", (prob.X, prob.y), (1.0, 3.0), _rows(d, dev), seed_words(0), 0, 20, N,
+            FusedHyper(), noise)
+    k_rows, k_elbo, _ = fused_run_chunk_cuda(*args)
+    r_rows, r_elbo, _ = fused_run_chunk_reference(*args)
+    torch.cuda.synchronize()
+    for a, b in zip(k_rows, r_rows):
+        assert (a - b).abs().max() <= 1e-5 * b.abs().max()
+    assert torch.allclose(k_elbo, r_elbo, rtol=1e-5)
+
+
 def test_fused_kernel_chunks_and_traces_bitwise(dev):
     prob = make_logreg(11, device=dev)
     eng = FusedLogRegADVI(prob.X, prob.y)
@@ -295,11 +317,52 @@ def test_fused_fullrank_kernel_refuses_oversized_shared_memory(dev):
 
 
 def test_built_libraries_report_no_spills(dev):
-    for name in _build.KERNELS:
-        log = _build.build(name).with_suffix(".log").read_text()
+    from advancedvi_jl_tpu_torch.ops.cuda.fused_advi import ad_program
+    from advancedvi_jl_tpu_torch import ad_spec
+
+    logs = [_build.build(name).with_suffix(".log") for name in _build.KERNELS]
+    # the flagship's generated K5 mean-field and chains libraries
+    prog = ad_program(ad_spec(make_logreg(11, device=dev).unconstrained()), N)
+    logs += [_build.build_generated(k, prog.source).with_suffix(".log")
+             for k in ("fused_advi_meanfield", "fused_chains")]
+    for path in logs:
+        log = path.read_text()
         spills = [ln for ln in log.splitlines() if "spill stores" in ln]
         assert spills and all(", 0 bytes spill stores, 0 bytes spill loads" in ln
                               for ln in spills), log
+
+
+# (M, K, N, config, trans_b): the flagship's products at the tiles that
+# emit them (the hand logits and gradient on the aligned layout and on the
+# plain one, K5's logits and gradient: block_mm_kernels.CONFIGS), and edge
+# shapes (one row, one column, one k, k not a multiple of 4, 61-float rows
+# read by scalar loads, rows beyond a 10-row tile)
+BLOCK_MM_CASES = [
+    (10, 61, 208, 0, True), (10, 208, 61, 1, False), (10, 61, 208, 2, True),
+    (10, 208, 61, 3, False), (10, 61, 208, 4, True), (10, 208, 61, 5, False),
+    (1, 61, 208, 0, True), (10, 61, 1, 0, True), (10, 1, 61, 1, False), (7, 7, 9, 5, False),
+    (23, 13, 5, 1, False), (3, 208, 61, 4, False), (16, 6, 30, 2, True), (12, 5, 17, 3, False),
+]
+
+
+@pytest.mark.parametrize("M,K,N,config,trans_b", BLOCK_MM_CASES)
+def test_block_mm_against_torch_mm(dev, M, K, N, config, trans_b):
+    """csrc/block_mm.cuh against torch.mm in float32 (TF32 off): within a
+    few float32 roundings of a K-term sum, and two launches give equal bits."""
+    from advancedvi_jl_tpu_torch.ops.cuda.block_mm_kernels import block_mm_cuda
+
+    g = torch.Generator().manual_seed(M * 1000 + K * 10 + N)
+    A = torch.randn(M, K, generator=g).to(dev)
+    B = torch.randn(K, N, generator=g).to(dev)
+    before = block_mm_cuda.launches
+    got = block_mm_cuda(A, B, config, trans_b)
+    again = block_mm_cuda(A, B, config, trans_b)
+    want = torch.mm(A.double(), B.double())
+    torch.cuda.synchronize()
+    assert block_mm_cuda.launches == before + 2
+    assert torch.equal(got, again)
+    scale = torch.mm(A.abs().double(), B.abs().double())
+    assert float(((got.double() - want).abs() / scale.clamp_min(1e-30)).max()) < 4 * K * 6e-8
 
 
 # ---------------------------------------------------------------------------
