@@ -1,7 +1,8 @@
 // The block product of csrc/block_mm.cuh alone, for its card tests: it has
 // no TPU kernel of its own (it runs inside the fused kernels, in K1+K2's
-// logreg body, fused_common.cuh, and in K5's generated body), so this file
-// only launches it.  One block of 512 threads copies A (M, lda) and B into
+// and K4's minibatch logreg bodies, fused_common.cuh, and in K5's
+// generated body), so this file only launches it.  One block of 512
+// threads copies A (M, lda) and B into
 // shared memory and writes C = A B (M, N), row-major, to device memory.
 // B is (K, N) row-major with row stride ldb, or, with trans_b, B^T (N, K)
 // with row stride ldb.  `config` picks block_mm's tile as its callers emit
@@ -9,8 +10,10 @@
 // gradient's (10 rows x 1 column a thread, k over 2 and 8 lanes, A read as
 // float4s), 2 and 3 the same tiles on the plain layout (scalar loads), 4
 // and 5 K5's flagship logits' and gradient's (5 x 2 and 2 x 2, k in order,
-// A as float4s).  Bound on an H100: shared-memory loads (see block_mm.cuh);
-// the copies in and out are a few KB.
+// A as float4s), 6 and 7 the minibatch body's logits and gradient (10 x 4
+// over 4 lanes and 10 x 2 over 16, A as float4s).  Bound on an H100:
+// shared-memory loads (see block_mm.cuh); the copies in and out are a few
+// KB.
 #include <cuda_runtime.h>
 
 #include "block_mm.cuh"
@@ -50,14 +53,14 @@ cudaError_t launch(const float* A, const float* B, float* C, int M, int N, int K
 
 }  // namespace
 
-// C (M, N) = A (M, K; row stride lda) B (see above).  Configs 0, 1, 4 and 5
-// need lda % 4 == 0.  Returns cudaGetLastError() after the launch, or
+// C (M, N) = A (M, K; row stride lda) B (see above).  Configs 0, 1, 4, 5,
+// 6 and 7 need lda % 4 == 0.  Returns cudaGetLastError() after the launch, or
 // cudaErrorInvalidValue for a call the kernel does not take.
 extern "C" int block_mm_run(const float* A, const float* B, float* C, int M, int N, int K,
                             int lda, int ldb, int trans_b, int config, cudaStream_t stream) {
-  const bool vec_a = config == 0 || config == 1 || config == 4 || config == 5;
+  const bool vec_a = config != 2 && config != 3;
   if (M < 1 || N < 1 || K < 1 || lda < K || ldb < (trans_b ? K : N) || config < 0 ||
-      config > 5 || (vec_a && lda % 4 != 0))
+      config > 7 || (vec_a && lda % 4 != 0))
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem =
       sizeof(float) * (static_cast<size_t>(avi::round4(M * lda)) + (trans_b ? N : K) * ldb);
@@ -71,6 +74,8 @@ extern "C" int block_mm_run(const float* A, const float* B, float* C, int M, int
     case 2: return static_cast<int>(args(launch<10, 1, 2, false, false>));
     case 3: return static_cast<int>(args(launch<10, 1, 8, false, false>));
     case 4: return static_cast<int>(args(launch<5, 2, 1, true, false>));
-    default: return static_cast<int>(args(launch<2, 2, 1, true, false>));
+    case 5: return static_cast<int>(args(launch<2, 2, 1, true, false>));
+    case 6: return static_cast<int>(args(launch<10, 4, 4, true, false>));
+    default: return static_cast<int>(args(launch<10, 2, 16, true, false>));
   }
 }

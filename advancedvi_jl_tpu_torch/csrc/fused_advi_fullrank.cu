@@ -32,10 +32,11 @@
 // Design: one thread block runs the whole chunk, a loop over steps inside
 // the block.  The draws u, the samples z, grad log pi and the whitened
 // draws w (n x d each), the location rows and, for logreg, X, y and the
-// logits live in dynamic shared memory (the logreg products one output a
-// thread, k in order: the mean-field kernel's block_mm tiles spilled under
-// this kernel's 88-register cap).  The k (d, d) scale matrices (4, or
-// 7 with COCOB's G, reward and theta) live in shared memory when they fit
+// logits live in dynamic shared memory (the logreg and minibatch logreg
+// products one output a thread, k in order: the mean-field kernel's
+// block_mm tiles spilled under this kernel's 88-register cap).  The k
+// (d, d) scale matrices (4, or 7 with COCOB's G, reward and theta) live in
+// shared memory when they fit
 // beside those in one block's 227 KB (d = 62: 61.5 KB, or 107.6 KB with
 // COCOB), and otherwise in the output buffer in device memory, where they
 // stay resident in the 50 MB L2 (d = 512: 4 MB, or 7 MB); then the
@@ -238,7 +239,7 @@ __global__ void __maxnreg__(88) fused_advi_fullrank_kernel(
   // no aligned beta copy here: the logreg products below read z and the logits' rows
   const avi::LogReg lrm{smem + L.X, smem + L.y, smem + L.l, nullptr, n_data, db, n_data, 0,
                         s0, s1};
-  avi::LogRegMB mbm{nullptr, smem + L.y, smem + L.l, batch, db, s0, s1};
+  avi::LogRegMB mbm{nullptr, smem + L.y, smem + L.l, nullptr, batch, db, 0, s0, s1};
   const int nb = minibatch ? n_data / batch : 1;
   const float* mean = c0;  // mvnormal: mean (d,) and precision (d, d)
   const float* prec = c1;  // gaussian: mean (d,) and inverse variances (d,)
@@ -352,11 +353,12 @@ __global__ void __maxnreg__(88) fused_advi_fullrank_kernel(
       avi::logreg_mb_rows(mbm, zs, n, d, beta_sq, tcol, inv_sig2, ylogit, warp, kWarps, lane);
       if (avi::slab_staged(model)) avi::cp_async_wait_all();  // this thread's copies landed
       __syncthreads();
-      avi::logreg_mb_logits(mbm, zs, n, d, tid, kThreads);
+      // one output a thread, k in order: block_mm spilled under the 88-register cap
+      avi::logreg_mb_logits_each(mbm, zs, n, d, tid, kThreads);
       __syncthreads();
       avi::logreg_mb_logpi(mbm, n, beta_sq, tcol, inv_sig2, ylogit, logpi, warp, kWarps, lane);
       __syncthreads();
-      avi::logreg_mb_grad(mbm, zs, n, d, beta_sq, tcol, inv_sig2, gs, tid, kThreads);
+      avi::logreg_mb_grad_each(mbm, zs, n, d, beta_sq, tcol, inv_sig2, gs, tid, kThreads);
     } else if (model == avi::kGaussian) {
       avi::gaussian_body(mean, prec, lognorm, zs, n, d, logpi, gs, warp, kWarps, lane);
 #ifdef AVI_AD_BODY

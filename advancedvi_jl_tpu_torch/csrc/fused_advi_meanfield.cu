@@ -40,8 +40,9 @@
 // the logits and the 8 (d,) state rows (14 with COCOB's accumulators) live
 // in dynamic shared memory for the whole chunk.
 //
-// The minibatch body (fused_common.cuh) reads step it's slab k = it mod nb
-// of the permuted design, B rows: in place, from device memory through L1
+// The minibatch body (fused_common.cuh; its two products on block_mm, as
+// the flagship's) reads step it's slab k = it mod nb of the permuted
+// design, B rows: in place, from device memory through L1
 // and L2 (the JAX resident spec; at n = 16,384 rows the 3.9 MB design sits
 // in the 50 MB L2); staged, copied into shared memory with cp.async at the
 // top of the step while the draws and the slab-independent sums run (the
@@ -60,7 +61,9 @@
 //      the betas to zb, rows 16-byte aligned, for its float4 loads),
 //      then one warp per row forms likeadj (y - sigmoid(l)), the softplus
 //      log-likelihood and log pi with the Exp log-det folded in
-//      (fused_advi.py:43-51); Gaussian, one warp per row, with its gradient;
+//      (fused_advi.py:43-51); the minibatch logreg likewise, its logits
+//      by block_mm on zb and the slab's rows; Gaussian, one warp per row,
+//      with its gradient;
 //   C  reparameterization: logreg's grad log pi (block_mm on the weights
 //      and X, the log-sigma lane beside it); VarGrad: one thread forms f = log q - log pi, the coefficients
 //      (f_i - fbar) / n and the plain ELBO estimate (fused_advi.py:489-507);

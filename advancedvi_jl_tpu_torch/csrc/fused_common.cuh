@@ -345,15 +345,39 @@ __device__ __forceinline__ void logreg_grad_each(const LogReg& m, const float* z
 // with likeadj = n_data / B.  The slab pointer is generic: the rows in
 // device memory (in place) or the block's shared copy (staged), through one
 // code path, so the three transports compute bit-identical results.
+//
+// The mean-field and chains kernels run the two (n, B, db) products on
+// block_mm (logreg_mb_logits, logreg_mb_grad): the logits read the betas
+// from the aligned copy zb (float4 along the features) and the slab's rows
+// one feature a load; the gradient reads the rows of p as float4s along
+// the batch and the slab one feature a load; each splits k over lanes in a
+// fixed order (block_mm), so a launch and the three transports give the
+// same bits.  One output a thread, with 11 shared loads per 10
+// multiply-adds in the logits and 512-term chains of two loads a
+// multiply-add in the gradient, took 43 of a 49.4 us step on an H100
+// (B = 512, db = 61; PERF.md section 5).  The full-rank kernel keeps those routines
+// (logreg_mb_logits_each, logreg_mb_grad_each): block_mm spilled under its
+// 88-register cap.
 // ---------------------------------------------------------------------------
 
 struct LogRegMB {
   const float* X;   // (B, db) slab of this step: device memory or shared
   const float* yx;  // (db,) yX[k], shared
   float* l;         // (n, B) shared: logits, then sigmoid(l)
-  int B, db;
+  const float* zb;  // (n, ldz) shared: the samples' beta lanes, rows 16-byte aligned
+  int B, db, ldz;
   float likeadj, prior_scale;
 };
+
+// The tiles of the two products (block_mm: rows x columns a thread, lanes
+// splitting k).  At B = 512: the logits 10 rows x 4 data a thread, k over
+// 4 lanes (512 threads); the gradient 10 rows x 2 features, k over 16
+// lanes (496 threads at db = 61).  Of eight pairs timed beside each other
+// on an H100 at db = 61 and 60 (PERF.md section 6) these ran each product
+// fastest; one datum or feature a thread (the flagship's tiles) took
+// 11.1 and 12.5 us a step against 7.1 and 8.3.
+constexpr int kMbLogitRows = 10, kMbLogitCols = 4, kMbLogitSplit = 4;
+constexpr int kMbGradRows = 10, kMbGradCols = 2, kMbGradSplit = 16;
 
 // Issue the copy of `floats` floats (a multiple of 4, both ends 16-byte
 // aligned) from device memory to shared memory with cp.async (16 bytes a
@@ -404,13 +428,24 @@ __device__ __forceinline__ void logreg_mb_rows(const LogRegMB& m, const float* z
   }
 }
 
-constexpr int kMbRows = 16;  // sample rows a thread accumulates at once
+// Logits l = beta X_k^T by block_mm: the betas from zb, the slab's rows
+// where its transport put them (both through one code path).
+template <int kThreads>
+__device__ __forceinline__ void logreg_mb_logits(const LogRegMB& m, int n, int tid) {
+  float* l = m.l;
+  const int B = m.B;
+  block_mm<kThreads, kMbLogitRows, kMbLogitCols, kMbLogitSplit, true, false>(
+      n, B, m.db, m.zb, m.ldz, 1, m.X, 1, m.db, tid,
+      [=](int i, int k, float v) { l[i * B + k] = v; });
+}
 
-// Logits l[i, k] = beta_i . X_k, one thread per datum k of the slab: the
+constexpr int kMbRows = 16;  // sample rows a thread accumulates at once (_each)
+
+// Logits one thread per datum k of the slab (the full-rank kernel): the
 // thread reads its slab row once for up to kMbRows sample rows (the z
 // reads are warp-wide broadcasts); sums run over the features in order.
-__device__ __forceinline__ void logreg_mb_logits(const LogRegMB& m, const float* z, int n,
-                                                 int d, int tid, int threads) {
+__device__ __forceinline__ void logreg_mb_logits_each(const LogRegMB& m, const float* z,
+                                                      int n, int d, int tid, int threads) {
   for (int k = tid; k < m.B; k += threads) {
     const float* xr = m.X + static_cast<size_t>(k) * m.db;
     for (int i0 = 0; i0 < n; i0 += kMbRows) {
@@ -456,12 +491,31 @@ __device__ __forceinline__ void logreg_mb_logpi(const LogRegMB& m, int n, const 
   }
 }
 
-// grad log pi, one thread per (row, lane): likeadj (yX[k] - p X_k) - beta
-// e^{-2t} (a sum over the batch in order), and the log-sigma lane.
-__device__ __forceinline__ void logreg_mb_grad(const LogRegMB& m, const float* z, int n,
-                                               int d, const float* beta_sq,
-                                               const float* tcol, const float* inv_sig2,
-                                               float* g, int tid, int threads) {
+// grad log pi: likeadj (yX[k] - p X_k) - beta e^{-2t} by block_mm (the
+// rows of p as float4s along the batch), and |beta|^2 e^{-2t} - db - t / s^2
+// for the log-sigma lane.
+template <int kThreads>
+__device__ __forceinline__ void logreg_mb_grad(const LogRegMB& m, const float* z, int n, int d,
+                                               const float* beta_sq, const float* tcol,
+                                               const float* inv_sig2, float* g, int tid) {
+  const float likeadj = m.likeadj;
+  const float* yx = m.yx;
+  block_mm<kThreads, kMbGradRows, kMbGradCols, kMbGradSplit, true, false>(
+      n, m.db, m.B, m.l, m.B, 1, m.X, m.db, 1, tid, [=](int i, int j, float v) {
+        g[i * d + j] = likeadj * (yx[j] - v) - z[i * d + j] * inv_sig2[i];
+      });
+  const float s2 = m.prior_scale * m.prior_scale;
+  const float fdb = static_cast<float>(m.db);
+  for (int i = tid; i < n; i += kThreads)
+    g[i * d + m.db] = beta_sq[i] * inv_sig2[i] - fdb - tcol[i] / s2;
+}
+
+// grad log pi one thread per (row, lane), a sum over the batch in order
+// (the full-rank kernel).
+__device__ __forceinline__ void logreg_mb_grad_each(const LogRegMB& m, const float* z, int n,
+                                                    int d, const float* beta_sq,
+                                                    const float* tcol, const float* inv_sig2,
+                                                    float* g, int tid, int threads) {
   const float s2 = m.prior_scale * m.prior_scale;
   const float fdb = static_cast<float>(m.db);
   for (int idx = tid; idx < n * d; idx += threads) {

@@ -72,7 +72,13 @@ struct Layout {
 // n_data is the design's rows; a minibatch model keeps one B-row slab (the
 // staged transports) and yX[k] in `y`.  With `aligned`, logreg pads the
 // logits' rows to whole float4s and copies the betas to zb (rows of
-// round4(db) floats) for block_mm's float4 loads.
+// round4(db) floats) for block_mm's float4 loads; with kMbCopy the
+// minibatch logreg copies them too (its logits' rows are B floats, B a
+// multiple of 8).  The kernels' dense instances take kMbCopy false, which
+// leaves their layout code as it was before the minibatch copy existed
+// (any change there moved ptxas's register allocation of the whole step:
+// the flagship chunk ran 2.8% slower on an H100).
+template <bool kMbCopy = true>
 __host__ __device__ inline Layout layout_for(int model, int n_data, int db, int batch, int n,
                                              int d, int n_rows, bool aligned) {
   Layout L;
@@ -80,11 +86,12 @@ __host__ __device__ inline Layout layout_for(int model, int n_data, int db, int 
   const bool lr = model == avi::kLogReg;
   const bool mb = avi::is_minibatch(model);
   const bool al = lr && aligned;
+  const bool copy = al || (kMbCopy && mb);  // the betas go to zb
   L.ldl = al ? avi::round4(n_data) : (lr ? n_data : batch);
-  L.ldz = al ? avi::round4(db) : 0;
+  L.ldz = copy ? avi::round4(db) : 0;
   L.X = o;    o += lr ? n_data * db : (avi::slab_staged(model) ? batch * db : 0);
   L.y = o;    o += lr ? n_data : (mb ? db : 0);  // labels, or yX[k]
-  if (al) o = avi::round4(o);             // l and zb: rows read as float4s
+  if (copy) o = avi::round4(o);           // l and zb: rows read as float4s
   L.l = o;    o += lr || mb ? n * L.ldl : 0;  // logits, then weights
   L.zb = o;   o += n * L.ldz;             // logreg: the samples' beta lanes
   L.u = o;    o += n * d;                 // base draws
@@ -142,7 +149,8 @@ __device__ __forceinline__ void run_chunk(
 #endif
   extern __shared__ float smem[];
   constexpr bool kAligned = kGroup != kDensePlain;  // the host picked the group by its fit
-  const Layout L = layout_for(model, n_data, db, batch, n, d, n_rows, kAligned);
+  const Layout L = layout_for<kGroup == kMinibatch>(model, n_data, db, batch, n, d, n_rows,
+                                                   kAligned);
   const bool logreg = kGroup != kMinibatch && model == avi::kLogReg;
   const bool minibatch = kGroup == kMinibatch && avi::is_minibatch(model);
   float* us = smem + L.u;
@@ -174,7 +182,7 @@ __device__ __forceinline__ void run_chunk(
                         L.ldl, L.ldz, s0, s1};
   float* zb = smem + L.zb;
   const int ldz = L.ldz;
-  avi::LogRegMB mbm{nullptr, smem + L.y, smem + L.l, batch, db, s0, s1};
+  avi::LogRegMB mbm{nullptr, smem + L.y, smem + L.l, zb, batch, db, ldz, s0, s1};
   const int nb = minibatch ? n_data / batch : 1;
 
   const int tid = threadIdx.x;
@@ -222,7 +230,7 @@ __device__ __forceinline__ void run_chunk(
         us[idx] = uv;
         const float zv = __fadd_rn(mu[j], __fmul_rn(sig[j], uv));
         zs[idx] = zv;
-        if (kAligned && logreg && j < db) zb[(idx / d) * ldz + j] = zv;
+        if (kAligned && (logreg || minibatch) && j < db) zb[(idx / d) * ldz + j] = zv;
       }
     } else {
       for (int pair = tid; pair < n * groups; pair += kThreads) {
@@ -238,7 +246,7 @@ __device__ __forceinline__ void run_chunk(
             us[i * d + j] = w[p];
             const float zv = __fadd_rn(mu[j], __fmul_rn(sig[j], w[p]));
             zs[i * d + j] = zv;
-            if (kAligned && logreg && j < db) zb[i * ldz + j] = zv;
+            if (kAligned && (logreg || minibatch) && j < db) zb[i * ldz + j] = zv;
           }
         }
       }
@@ -274,7 +282,7 @@ __device__ __forceinline__ void run_chunk(
       AVI_MF_PHASE(2);
       avi::logreg_logpi(lrm, n, beta_sq, tcol, inv_sig2, logpi, warp, kWarps, lane);
     } else if (minibatch) {
-      avi::logreg_mb_logits(mbm, zs, n, d, tid, kThreads);
+      avi::logreg_mb_logits<kThreads>(mbm, n, tid);
       __syncthreads();
       AVI_MF_PHASE(2);
       avi::logreg_mb_logpi(mbm, n, beta_sq, tcol, inv_sig2, ylogit, logpi, warp, kWarps, lane);
@@ -319,7 +327,7 @@ __device__ __forceinline__ void run_chunk(
       __syncthreads();
       AVI_MF_PHASE(4);
     } else if (minibatch) {
-      avi::logreg_mb_grad(mbm, zs, n, d, beta_sq, tcol, inv_sig2, gs, tid, kThreads);
+      avi::logreg_mb_grad<kThreads>(mbm, zs, n, d, beta_sq, tcol, inv_sig2, gs, tid);
       __syncthreads();
       AVI_MF_PHASE(4);
     }

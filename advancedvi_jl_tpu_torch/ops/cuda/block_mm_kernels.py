@@ -1,9 +1,10 @@
 """The block product of ``csrc/block_mm.cuh``, launched alone (``csrc/block_mm.cu``).
 
 The product runs inside the fused kernels (the hand logreg body's logits and
-gradient, and every mm/mv node of K5's generated body); this wrapper exists
-so the card tests can hold it against ``torch.mm`` at the fused kernels'
-shapes and at edge shapes, and check that two launches give the same bits.
+gradient, the minibatch logreg body's, and every mm/mv node of K5's
+generated body); this wrapper exists so the card tests can hold it against
+``torch.mm`` at the fused kernels' shapes and at edge shapes, and check that
+two launches give the same bits.
 ``CONFIGS`` are the tiles those callers emit: (rows, columns a thread, lanes
 splitting k, A read as float4s); B is read by scalar loads in all.  The library is built
 on first use (``_build.TEST_KERNELS``), not with the fused kernels.
@@ -24,6 +25,8 @@ CONFIGS = {
     3: (10, 1, 8, False),  # the hand gradient on the plain layout
     4: (5, 2, 1, True),    # K5's flagship logits (ad_body._tile, rows of round4(d))
     5: (2, 2, 1, True),    # K5's flagship gradient
+    6: (10, 4, 4, True),   # the minibatch logits (kMbLogit*, aligned betas, the slab's rows)
+    7: (10, 2, 16, True),  # the minibatch gradient (kMbGrad*, the rows of p, the slab)
 }
 
 

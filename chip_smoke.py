@@ -65,7 +65,8 @@ Phases:
       place at n = 16,384 and staged (with and without prefetch) at
       n = 500,000, reshuffling between chunks; fused vs general on one key
       and one permutation over one epoch; each transport's time beside its
-      plain version, one reshuffle at n = 500,000, general steps/s;
+      plain version with its step's phase split (``[u] mf_phase_split=``),
+      one reshuffle at n = 500,000, general steps/s;
   (v) the multi-chain kernel (K6) against its plain version at C = 8 on the
       flagship: Adam, a per-chain lr sweep, a mixed rule sweep, prox-DoWG,
       VarGrad, the staged minibatch spec; chunking, tracing, each chain
@@ -95,10 +96,11 @@ Phases:
 With ``--parent CHECKOUT`` (e.g. a ``git archive`` of the parent commit
 under the ignored ``_archive/``) it then times K8 and the chunks of
 ``ab_chunks`` with that checkout's package and with this one's, a fresh
-process each, alternating, each side with its mean-field phase split.  The
-other checkout is copied under this one's ``build/ab_parent`` and timed
-there, never built or written in place; a checkout whose mean-field body
-has no phase counters gets them written into that copy.
+process each, alternating, each side with the mean-field phase split of
+its flagship and minibatch chunks (the other checkout needs the
+``instrumented=`` builds, which every commit since the block-product
+redesign has).  The other checkout is copied under this one's
+``build/ab_parent`` and timed there, never built or written in place.
 
 Every failed check raises and the script exits non-zero; it also exits
 non-zero without a CUDA device, or when the package is not beside it.  The
@@ -835,8 +837,12 @@ def ab_chunks(dev):
     and its ad chunk (y), the prox-DoWG and VarGrad chunks (q), K6 at C = 64
     and 1,024 on the hand body and at C = 64 on the ad body (w, y), the
     full-rank d = 62 logreg chunk and its ad chunk (m, y), the d = 512
-    chunk (m), the minibatch body's three transports at n = 16,384 (u).
-    Each entry: (launch, reps)."""
+    chunk (m), and K4's minibatch body: the three transports at n = 16,384
+    and the staged ones at n = 500,000 (u; these walk the epoch, it0 200
+    further each call, so that the 500k slabs come from HBM), the staged
+    16k spec in the full-rank kernel and in K6 at C = 64.  Returns
+    ({name: (launch, reps)}, {name: (args, ad, walk)} of the chunks whose
+    mean-field phase split the A/B takes, (the flagship's K5 programs))."""
     import advancedvi_jl_tpu_torch as avt
     from advancedvi_jl_tpu_torch.ops.cuda import fused_advi as fa
     from advancedvi_jl_tpu_torch.ops.cuda.fused_chains import fused_chains_run_chunk_cuda
@@ -848,13 +854,14 @@ def ab_chunks(dev):
     mf = fa.ad_program(spec, N_SAMPLES, "meanfield", 8)
     fr = fa.ad_program(spec, N_SAMPLES, "fullrank", 4)
     vec, mat = ad_rows(prob.dim, dev, "fullrank")
+    ad_args = ("ad", mf.consts, ()) + hand[3:]
     out = {
         "flagship_hand": (lambda: fa.fused_run_chunk_cuda(*hand), 20),
-        "flagship_ad": (lambda: fa.fused_run_chunk_cuda("ad", mf.consts, (), *hand[3:], ad=mf),
-                        20),
+        "flagship_ad": (lambda: fa.fused_run_chunk_cuda(*ad_args, ad=mf), 20),
         "fullrank_ad": (lambda: fa.fused_fullrank_run_chunk_cuda(
             "ad", fr.consts, (), vec, mat, *hand[4:], ad=fr), 10),
     }
+    splits = {"flagship_hand": (hand, None, False), "flagship_ad": (ad_args, mf, False)}
     for name, args in fullrank_chunk_args(dev).items():
         out[f"fullrank_{name}"] = (lambda a=args: fa.fused_fullrank_run_chunk_cuda(*a), 10)
     engines = slice_engines(dev)
@@ -865,29 +872,55 @@ def ab_chunks(dev):
                 N_SAMPLES, eng.hyp, None, 0, eng.branch())
         out[name] = (lambda a=args: fa.fused_run_chunk_cuda(*a), 10)
     big = large_logreg(dev)
-    for tr, sp in mb_specs(big.X, big.y).items():  # K4's minibatch body, n = 16,384
+    mb = {f"{tr}_16k": sp for tr, sp in mb_specs(big.X, big.y).items()}
+    mb.update({f"{tr}_500k": sp for tr, sp in mb_specs(*streamed_data(dev)).items()
+               if tr != "inplace"})
+    for name, sp in mb.items():  # K4's minibatch body
         args = (sp.model, sp.consts, sp.scalars, initial_rows(sp.dim, dev), seed_words(SEED),
                 0, 200, N_SAMPLES, fa.FusedHyper(lr=LR))
-        out[f"minibatch_{tr}_16k"] = (lambda a=args: fa.fused_run_chunk_cuda(*a), 5)
+        out[f"minibatch_{name}"] = (walking(fa.fused_run_chunk_cuda, args), 5)
+        splits[f"minibatch_{name}"] = (args, None, True)
+    sp = mb["staged_16k"]
+    C0 = 0.1 * torch.eye(sp.dim, device=dev)
+    args = (sp.model, sp.consts, sp.scalars, torch.zeros(4, sp.dim, device=dev),
+            torch.stack([C0, torch.zeros_like(C0), torch.zeros_like(C0), C0]),
+            seed_words(SEED), 0, 200, N_SAMPLES, fa.FusedHyper(lr=LR))
+    out["fullrank_minibatch_staged_16k"] = (
+        lambda a=args: fa.fused_fullrank_run_chunk_cuda(*a), 5)
     for tag, sp, C in (("chains64", avt.logreg_spec(prob.X, prob.y), 64),
                        ("chains1024", avt.logreg_spec(prob.X, prob.y), 1024),
-                       ("chains64_ad", spec, 64)):
+                       ("chains64_ad", spec, 64),
+                       ("chains64_minibatch_staged_16k", mb["staged_16k"], 64)):
         e, rows, seeds = chains_case(dev, sp, C)
         out[tag] = (lambda e=e, r=rows, sd=seeds: chains_run(
             fused_chains_run_chunk_cuda, e, r, sd, 0, 200), 5 if C > 64 else 10)
-    return out, (hand, mf, fr)
+    return out, splits, (mf, fr)
+
+
+def walking(fn, args, step=200):
+    """``fn(*args)`` with it0 (``args[5]``) ``step`` further each call: a
+    timed minibatch chunk walks the epoch as a run does (phase (u))."""
+    it0 = [args[5]]
+
+    def call(**kw):
+        a = args[:5] + (it0[0],) + args[6:]
+        it0[0] += step
+        return fn(*a, **kw)
+
+    return call
 
 
 def ab_times(dev):
     """The A/B's side of one checkout, run in a child process with that
     checkout's package: K8 at 256 x 1024 in both modes (events and graph
     replay), every chunk of ``ab_chunks``, and the mean-field phase split of
-    the flagship hand and ad chunks."""
+    the flagship hand and ad chunks and of the mean-field minibatch
+    chunks."""
     from advancedvi_jl_tpu_torch.ops.cuda import _build
     from advancedvi_jl_tpu_torch.ops.cuda.trisolve_kernels import solve_right_cuda
 
     _build.build_all()
-    chunks, (hand, mf, fr) = ab_chunks(dev)
+    chunks, splits, (mf, fr) = ab_chunks(dev)
     pairs = [(k, mf.source) for k in ("fused_advi_meanfield", "fused_chains")] + \
         [("fused_advi_fullrank", fr.source)]
     libs = _build.build_generated_all(pairs)
@@ -902,9 +935,8 @@ def ab_times(dev):
         out[f"trisolve_{mode}_graph"] = graph_ms(lambda: solve_right_cuda(C, V, mode))
     for name, (fn, reps) in chunks.items():
         out[name] = cuda_ms(fn, reps)
-    for name, args, ad in (("flagship_hand", hand, None),
-                           ("flagship_ad", ("ad", mf.consts, ()) + hand[3:], mf)):
-        cycles, _ = mf_phase_cycles(args, ad)
+    for name, (args, ad, walk) in splits.items():
+        cycles, _ = mf_phase_cycles(args, ad, walk=walk)
         total = sum(cycles)
         for phase, c in zip(MF_PHASES, cycles):
             out[f"split_{name}_{phase}_us"] = 1e3 * out[name] / 200 * c / total
@@ -941,52 +973,10 @@ def ab_parent(parent: Path):
             this_ms=",".join(f"{r[key]:.5f}" for r in runs["this"]))
 
 
-# The counters of csrc/fused_meanfield_body.cuh for a checkout whose mean-field
-# body has none (the parent of the block-product redesign): each (anchor, text
-# put after it).  The build without AVI_PHASE_CLOCKS stays as it was.
-PARENT_CLOCKS = (
-    ("using avi::kLog2Pi;\n", """
-#ifdef AVI_PHASE_CLOCKS
-constexpr int kPhases = 7;
-__device__ unsigned long long avi_mf_phase_cycles[kPhases];
-#define AVI_MF_PHASE(i) do { if (tid == 0) { const long long t_now = clock64(); \\
-  atomicAdd(&avi::mf::avi_mf_phase_cycles[i], \\
-            static_cast<unsigned long long>(t_now - t_prev)); t_prev = t_now; } } while (0)
-#else
-#define AVI_MF_PHASE(i) do { } while (0)
-#endif
-"""),
-    ("  float elbo = 0.0f;\n", "#ifdef AVI_PHASE_CLOCKS\n  long long t_prev = clock64();\n#endif\n"),
-    ("    __syncthreads();\n    if (logreg) avi::logreg_rows(", None),
-    ("this thread's copies landed\n    __syncthreads();\n", "    AVI_MF_PHASE(1);\n"),
-    ("      avi::logreg_logits(lrm, zs, n, d, tid, kThreads);\n      __syncthreads();\n",
-     "      AVI_MF_PHASE(2);\n"),
-    ("                         lane);\n    }\n    __syncthreads();\n", "    AVI_MF_PHASE(3);\n"),
-    ("avi::logreg_grad(lrm, zs, n, d, beta_sq, tcol, inv_sig2, gs, tid, kThreads);\n"
-     "      __syncthreads();\n", "      AVI_MF_PHASE(4);\n"),
-    ("        trace[(s + 1) / log_every - 1] = elbo;\n    }\n", "    AVI_MF_PHASE(5);\n"),
-    ("    AVI_MF_PHASE(5);\n    __syncthreads();\n", "    AVI_MF_PHASE(6);\n"),
-)
-PARENT_CLOCKS_ENTRY = """
-#ifdef AVI_PHASE_CLOCKS
-extern "C" int fused_advi_meanfield_phase_cycles(unsigned long long* out) {
-  using avi::mf::avi_mf_phase_cycles;
-  cudaError_t err = cudaMemcpyFromSymbol(out, avi_mf_phase_cycles, sizeof(avi_mf_phase_cycles));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const unsigned long long zero[avi::mf::kPhases] = {};
-  return static_cast<int>(cudaMemcpyToSymbol(avi_mf_phase_cycles, zero, sizeof(zero)));
-}
-#endif
-"""
-
-
 def parent_copy(parent: Path) -> Path:
     """A fresh copy of the checkout ``parent`` under this checkout's
     ``build/ab_parent`` (without its builds), which the A/B builds and times
-    instead of ``parent`` itself.  Where its mean-field body has no
-    AVI_PHASE_CLOCKS counters, the copy gets this one's (PARENT_CLOCKS), so
-    that the A/B splits its step too; its K5 body has no mark after log pi,
-    so the whole body counts as "logpi" there."""
+    instead of ``parent`` itself."""
     import shutil
 
     copy = ROOT / "build" / "ab_parent"
@@ -994,22 +984,6 @@ def parent_copy(parent: Path) -> Path:
     shutil.rmtree(copy, ignore_errors=True)
     shutil.copytree(parent, copy, ignore=shutil.ignore_patterns(
         ".git", "build", "_archive", "__pycache__"))
-    csrc = copy / "advancedvi_jl_tpu_torch" / "csrc"
-    body = (csrc / "fused_meanfield_body.cuh").read_text()
-    if "AVI_MF_PHASE" in body:
-        return copy
-    for anchor, text in PARENT_CLOCKS:
-        check(body.count(anchor) == 1, f"--parent: no unique {anchor!r} in its mean-field body")
-        if text is None:  # the mark after phase A's barrier
-            body = body.replace(anchor, anchor.replace("();\n", "();\n    AVI_MF_PHASE(0);\n"))
-        else:
-            body = body.replace(anchor, anchor + text)
-    (csrc / "fused_meanfield_body.cuh").write_text(body)
-    kern = (csrc / "fused_advi_meanfield.cu").read_text()
-    mark = "// model 0: logreg, c0 = X (n_data, db)"
-    check(kern.count(mark) == 1, "--parent: no entry comment in its fused_advi_meanfield.cu")
-    (csrc / "fused_advi_meanfield.cu").write_text(kern.replace(mark, PARENT_CLOCKS_ENTRY + mark))
-    say("ab", parent_clocks=str(copy))
     return copy
 
 
@@ -1017,91 +991,32 @@ def parent_copy(parent: Path) -> Path:
 MF_PHASES = ("draws_z", "row_sums", "logits", "logpi", "grad", "rule", "elbo_wait")
 
 
-def _clocks_function(_build, orig):
-    """``_build.function`` of a checkout whose package has no
-    ``instrumented=`` (``parent_copy``'s): its mean-field kernel built with
-    AVI_PHASE_CLOCKS, also beside a generated body, which that checkout's
-    ``_build.function`` refuses, so that library is compiled here."""
-    import ctypes
-    import hashlib
-
-    cache = {}
-
-    def function(name, symbol, argtypes, restype=ctypes.c_int, body=None, defines=()):
-        if name != "fused_advi_meanfield":
-            return orig(name, symbol, argtypes, restype, body, defines)
-        if body is None:
-            return orig(name, symbol, argtypes, restype, None, ("AVI_PHASE_CLOCKS",))
-        if (body, symbol) not in cache:
-            tag = hashlib.sha256(body.encode()).hexdigest()[:16]
-            header = _build.GEN_DIR / f"ad_clocks_{tag}.cuh"
-            out = _build.BUILD_DIR / f"lib{name}-ad-clocks-{tag}.so"
-            if not out.exists():
-                _build.GEN_DIR.mkdir(parents=True, exist_ok=True)
-                header.write_text(body)
-                subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
-                                "-I", str(_build.GEN_DIR), f"-DAVI_AD_BODY={header.name}",
-                                "-DAVI_PHASE_CLOCKS", "-o", str(out),
-                                str(_build.CSRC / f"{name}.cu")], check=True,
-                               capture_output=True)
-            fn = getattr(ctypes.CDLL(str(out)), symbol)
-            fn.argtypes, fn.restype = list(argtypes), restype
-            cache[(body, symbol)] = fn
-        return cache[(body, symbol)]
-
-    return function
-
-
-def mf_phase_cycles(args, ad=None, launches=4):
+def mf_phase_cycles(args, ad=None, launches=4, walk=False):
     """SM cycles of thread 0 in each mean-field phase (MF_PHASES), summed
     over ``launches`` launches of the instrumented build of the chunk
-    ``args`` (with ``ad``'s K5 body when given), through the package's
-    ``instrumented=`` and ``meanfield_phase_cycles``; a package without them
-    (``parent_copy``'s) gets the same build through ``_clocks_function``."""
-    import ctypes
-
-    from advancedvi_jl_tpu_torch.ops.cuda import _build
+    ``args`` (with ``ad``'s K5 body when given; with ``walk``, it0 a chunk
+    further each launch, as ``walking``), and the milliseconds a launch."""
     from advancedvi_jl_tpu_torch.ops.cuda import fused_advi as fa
 
     kw = {} if ad is None else {"ad": ad}
-    if hasattr(fa, "meanfield_phase_cycles"):
-        run = lambda: fa.fused_run_chunk_cuda(*args, instrumented=True, **kw)  # noqa: E731
-        read = lambda: list(fa.meanfield_phase_cycles(ad).values())  # noqa: E731
-        restore = None
-    else:
-        restore = _build.function
-        _build.function = _clocks_function(_build, restore)
-        fn = _build.function("fused_advi_meanfield", "fused_advi_meanfield_phase_cycles",
-                             [ctypes.c_void_p], ctypes.c_int, None if ad is None else ad.source)
-        out = (ctypes.c_ulonglong * len(MF_PHASES))()
-
-        def read():
-            check(fn(ctypes.addressof(out)) == 0, "reading the phase counters failed")
-            return list(out)
-
-        run = lambda: fa.fused_run_chunk_cuda(*args, **kw)  # noqa: E731
-    try:
-        run()
-        torch.cuda.synchronize()
-        read()  # the counters restart at zero
-        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(launches):
-            run()
-        stop.record()
-        torch.cuda.synchronize()
-        cycles = read()
-    finally:
-        if restore is not None:
-            _build.function = restore
-    return cycles, start.elapsed_time(stop) / launches
+    run = walking(fa.fused_run_chunk_cuda, args, args[6] if walk else 0)
+    run(instrumented=True, **kw)
+    torch.cuda.synchronize()
+    fa.meanfield_phase_cycles(ad)  # the counters restart at zero
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(launches):
+        run(instrumented=True, **kw)
+    stop.record()
+    torch.cuda.synchronize()
+    return list(fa.meanfield_phase_cycles(ad).values()), start.elapsed_time(stop) / launches
 
 
-def mf_split(phase, name, args, chunk_ms, ad=None):
+def mf_split(phase, name, args, chunk_ms, ad=None, walk=False):
     """Print the mean-field step's phase split of the chunk ``args``: each
     phase's share of thread 0's cycles, in microseconds of ``chunk_ms``'
     step (the build without counters), and its cycles a step."""
-    cycles, inst_ms = mf_phase_cycles(args, ad)
+    cycles, inst_ms = mf_phase_cycles(args, ad, walk=walk)
     total = sum(cycles)
     steps = 4 * args[6]
     step_us = 1e3 * chunk_ms / args[6]
@@ -1947,6 +1862,8 @@ def phase_u(dev, card, lr_state):
         walk[0] = 0
         fixed_ms = cuda_ms(lambda: chunk(fused_run_chunk_cuda, 0), 10)
         best = min(k_ms, k_ms2)
+        mf_split("u", name, (spec.model, spec.consts, spec.scalars, rows, seed, 0, 200,
+                             N_SAMPLES, eng.hyp), best, walk=True)
         flops, nbytes = mb_flops_bytes(spec, N_SAMPLES, 200)
         b_ms, b_by = bound(flops, nbytes)
         times[name] = (best, p_ms, b_ms, b_by)

@@ -590,7 +590,7 @@ def test_race_check_finds_a_missing_barrier(name):
 def test_block_mm_plain_version_on_the_cpu():
     """The block product's wrapper runs torch.mm for CPU tensors and
     refuses them in its card entry; its configs are the tiles that the hand
-    body and K5's flagship body emit."""
+    body, the minibatch body and K5's flagship body emit."""
     from advancedvi_jl_tpu_torch.ops.cuda.block_mm_kernels import (
         CONFIGS, block_mm, block_mm_cuda,
     )
@@ -605,6 +605,10 @@ def test_block_mm_plain_version_on_the_cpu():
         want = tuple(int(re.search(rf"k{tile}{part} = (\d+)", hand).group(1))
                      for part in ("Rows", "Cols", "Split"))
         assert [CONFIGS[c] for c in cfgs] == [want + (True,), want + (False,)]
+    for tile, cfg in (("MbLogit", 6), ("MbGrad", 7)):  # the minibatch body: aligned only
+        want = tuple(int(re.search(rf"k{tile}{part} = (\d+)", hand).group(1))
+                     for part in ("Rows", "Cols", "Split"))
+        assert CONFIGS[cfg] == want + (True,)
     _, tp = _logreg(11, 208, 60)
     calls = re.findall(r"avi::block_mm<kThreads, (\d+), (\d+), (\d+), (true|false), false>",
                        ad_spec(tp.unconstrained()).ad.program(10).source)
@@ -612,4 +616,4 @@ def test_block_mm_plain_version_on_the_cpu():
     with pytest.raises(ValueError, match="CUDA"):
         block_mm_cuda(A, B)
     with pytest.raises(ValueError, match="config"):
-        block_mm_cuda(A, B, config=7)
+        block_mm_cuda(A, B, config=8)

@@ -334,14 +334,20 @@ def test_built_libraries_report_no_spills(dev):
 
 # (M, K, N, config, trans_b): the flagship's products at the tiles that
 # emit them (the hand logits and gradient on the aligned layout and on the
-# plain one, K5's logits and gradient: block_mm_kernels.CONFIGS), and edge
-# shapes (one row, one column, one k, k not a multiple of 4, 61-float rows
-# read by scalar loads, rows beyond a 10-row tile)
+# plain one, K5's logits and gradient, the minibatch body's logits and
+# gradient: block_mm_kernels.CONFIGS), and edge shapes (one row, one
+# column, one k, k not a multiple of 4, 61-float rows read by scalar loads,
+# rows beyond a 10-row tile)
 BLOCK_MM_CASES = [
     (10, 61, 208, 0, True), (10, 208, 61, 1, False), (10, 61, 208, 2, True),
     (10, 208, 61, 3, False), (10, 61, 208, 4, True), (10, 208, 61, 5, False),
     (1, 61, 208, 0, True), (10, 61, 1, 0, True), (10, 1, 61, 1, False), (7, 7, 9, 5, False),
     (23, 13, 5, 1, False), (3, 208, 61, 4, False), (16, 6, 30, 2, True), (12, 5, 17, 3, False),
+    # the minibatch logits (betas x the slab's rows) and gradient (p x the
+    # slab) at B = 512 and 40, db = 61 and 60, n = 10, 1 and 17
+    (10, 61, 512, 6, True), (10, 60, 512, 6, True), (10, 512, 61, 7, False),
+    (10, 512, 60, 7, False), (1, 61, 40, 6, True), (17, 60, 512, 6, True),
+    (17, 40, 60, 7, False), (1, 512, 61, 7, False),
 ]
 
 
@@ -533,12 +539,12 @@ def test_cocob_rows_count_in_the_shared_memory_refusal(dev):
 MB_N, MB_B = 4096, 512  # 8 batches of 512 rows of the 60-feature logreg (db = 61)
 
 
-def _mb_specs(dev, n_data=MB_N, batch=MB_B):
+def _mb_specs(dev, n_data=MB_N, batch=MB_B, n_features=60):
     """The in-place, staged and prefetching specs of one permutation."""
     from advancedvi_jl_tpu_torch.ops.cuda.fused_advi import (
         logreg_minibatch_hbm_spec, logreg_minibatch_spec)
 
-    prob = make_logreg(11, n_data=n_data, n_features=60, device=dev)
+    prob = make_logreg(11, n_data=n_data, n_features=n_features, device=dev)
     kw = dict(batch_size=batch, generator=5)
     return (logreg_minibatch_spec(prob.X, prob.y, **kw),
             logreg_minibatch_hbm_spec(prob.X, prob.y, prefetch=False, **kw),
@@ -610,23 +616,80 @@ def test_minibatch_chunks_and_traces_bitwise(dev, transport, family):
     assert torch.equal(trace[-1], whole.elbo)
 
 
+# (n_samples, batch, n_features) beyond the main shape (10, 512, 60 + the
+# intercept): the streamed data's even width (db = 60), a batch that is not
+# a multiple of 32, one sample, and 17 (two of the products' 10-row tiles)
+MB_SHAPES = [(10, 512, 59), (10, 40, 60), (1, 512, 60), (17, 512, 60), (17, 40, 59)]
+
+
+@pytest.mark.parametrize("n,batch,features", MB_SHAPES,
+                         ids=[f"n{n}-B{b}-db{f + 1}" for n, b, f in MB_SHAPES])
+def test_minibatch_shapes_match_plain_version(dev, n, batch, features):
+    """The mean-field kernel: every transport within rtol 1e-5 of the plain
+    version after 17 injected-noise steps (the 8-batch schedule twice) and
+    the three bit-equal; the chains kernel (3 chains, staged, Philox) within
+    1e-5 of its plain version and each chain the single-chain kernel's bits."""
+    from advancedvi_jl_tpu_torch.ops.cuda.fused_chains import (
+        FusedChainsADVI, fused_chains_run_chunk_cuda, fused_chains_run_chunk_reference)
+    from advancedvi_jl_tpu_torch.ops.cuda.location_scale_kernels import chain_seed_words
+
+    specs = _mb_specs(dev, n_data=8 * batch, batch=batch, n_features=features)
+    d, steps = specs[0].dim, 17
+    noise = torch.randn((steps, n, d), generator=torch.Generator().manual_seed(2)).to(dev)
+    outs = []
+    for spec in specs:
+        eng = FusedADVI(spec, n_samples=n)
+        args = (spec.model, spec.consts, spec.scalars, _init(eng, 0.1).stacked(),
+                seed_words(0), 0, steps, n, eng.hyp, noise)
+        outs.append(fused_run_chunk_cuda(*args))
+    r = fused_run_chunk_reference(*args)
+    torch.cuda.synchronize()
+    _norm_close(list(outs[0][0]), list(r[0]), 1e-5)
+    assert torch.allclose(outs[0][1], r[1], rtol=1e-5, atol=1e-4)
+    for other in outs[1:]:
+        assert torch.equal(outs[0][0], other[0]) and torch.equal(outs[0][1], other[1])
+    eng = FusedChainsADVI(specs[1], n_chains=3, n_samples=n)
+    g = torch.Generator().manual_seed(4)
+    st = eng.init((0.2 * torch.randn(3, d, generator=g)).to(dev),
+                  0.1 * torch.ones(3, d, device=dev))
+    cargs = (eng.model.model, eng.model.consts, eng.model.scalars, st.stacked(),
+             eng.chain_seeds(3), 0, 20, n, eng.hyp, None, 0, eng.branch(), eng.lrs, eng.rules)
+    k_rows, k_elbo, _ = fused_chains_run_chunk_cuda(*cargs)
+    r_rows, r_elbo, _ = fused_chains_run_chunk_reference(*cargs)
+    torch.cuda.synchronize()
+    _norm_close(list(k_rows.flatten(0, 1)), list(r_rows.flatten(0, 1)), 1e-5)
+    assert torch.allclose(k_elbo, r_elbo, rtol=1e-5, atol=1e-4)
+    for c in range(3):
+        one, e1, _ = fused_run_chunk_cuda(specs[1].model, specs[1].consts, specs[1].scalars,
+                                          st.stacked()[c].contiguous(), chain_seed_words(3, c),
+                                          0, 20, n, eng.hyp)
+        assert torch.equal(one, k_rows[c]) and torch.equal(e1, k_elbo[c]), c
+
+
 def test_minibatch_staged_slab_refused_at_the_shared_memory_edge(dev):
-    """The staged transports keep one B-row slab in shared memory: the
-    largest B that fits runs, B + 8 is refused before launch, and the
-    in-place transport takes B + 8."""
-    smem = _build.function("fused_advi_meanfield", "fused_advi_meanfield_smem_bytes",
-                           [ctypes.c_int] * 7, restype=ctypes.c_size_t)
-    B = max(b for b in range(8, 2048, 8) if smem(4, 8 * b, 61, b, N, 62, 8) <= _build.SMEM_LIMIT)
-    ok = _mb_specs(dev, n_data=4 * B, batch=B)[1]
-    eng = FusedADVI(ok, n_samples=N)
-    assert eng.run_chunk(_init(eng, 0.1), 0, 2).iteration == 2
-    big = _mb_specs(dev, n_data=4 * (B + 8), batch=B + 8)
-    for spec in big[1:]:
-        eng = FusedADVI(spec, n_samples=N)
-        with pytest.raises(ValueError, match="shared"):
-            eng.run_chunk(_init(eng, 0.1), 0, 2)
-    eng = FusedADVI(big[0], n_samples=N)
-    assert eng.run_chunk(_init(eng, 0.1), 0, 2).iteration == 2
+    """The staged transports keep one B-row slab in shared memory, beside
+    (mean-field) the aligned beta copy: in each fused kernel the largest B
+    that fits runs, B + 8 is refused before launch, and the in-place
+    transport takes B + 8; the full-rank kernel keeps a 512-row slab of 61
+    features and its four d = 62 scale matrices in shared memory."""
+    mf = _build.function("fused_advi_meanfield", "fused_advi_meanfield_smem_bytes",
+                         [ctypes.c_int] * 7, restype=ctypes.c_size_t)
+    fr = _build.function("fused_advi_fullrank", "fused_advi_fullrank_smem_bytes",
+                         [ctypes.c_int] * 7, restype=ctypes.c_size_t)
+    assert fr(4, 4096, 61, 512, N, 62, 4) == 226884
+    for family, smem, k in (("meanfield", mf, 8), ("fullrank", fr, 4)):
+        B = max(b for b in range(8, 2048, 8)
+                if smem(4, 8 * b, 61, b, N, 62, k) <= _build.SMEM_LIMIT)
+        ok = _mb_specs(dev, n_data=4 * B, batch=B)[1]
+        eng = FusedADVI(ok, family=family, n_samples=N)
+        assert eng.run_chunk(_init(eng, 0.1), 0, 2).iteration == 2, family
+        big = _mb_specs(dev, n_data=4 * (B + 8), batch=B + 8)
+        for spec in big[1:]:
+            eng = FusedADVI(spec, family=family, n_samples=N)
+            with pytest.raises(ValueError, match="shared"):
+                eng.run_chunk(_init(eng, 0.1), 0, 2)
+        eng = FusedADVI(big[0], family=family, n_samples=N)
+        assert eng.run_chunk(_init(eng, 0.1), 0, 2).iteration == 2, family
 
 
 def test_probe_kernels_equal_their_plain_versions(dev):
