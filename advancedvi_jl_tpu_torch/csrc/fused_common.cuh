@@ -238,13 +238,14 @@ __device__ __forceinline__ void logreg_rows(const LogReg& m, const float* z, int
 
 // Logits l = beta X^T by block_mm: with kAligned the betas from the aligned
 // copy zb (float4 along the features), else from the samples z; X^T is X's
-// rows, one load a feature.  Both sum in one order.
-template <int kThreads, bool kAligned>
+// rows, one load a feature.  Both sum in one order, whatever the tile (TM
+// rows x TN data a thread; K6's blocks of several chains take wider ones).
+template <int kThreads, bool kAligned, int TM = kLogitRows, int TN = kLogitCols>
 __device__ __forceinline__ void logreg_logits(const LogReg& m, const float* z, int n, int d,
                                               int tid) {
   float* l = m.l;
   const int ldl = m.ldl;
-  block_mm<kThreads, kLogitRows, kLogitCols, kLogitSplit, kAligned, false>(
+  block_mm<kThreads, TM, TN, kLogitSplit, kAligned, false>(
       n, m.n_data, m.db, kAligned ? m.zb : z, kAligned ? m.ldz : d, 1, m.X, 1, m.db, tid,
       [=](int i, int k, float v) { l[i * ldl + k] = v; });
 }
@@ -292,13 +293,14 @@ __device__ __forceinline__ void logreg_logpi(const LogReg& m, int n, const float
 }
 
 // grad log pi: X^T weights - beta e^{-2t} by block_mm (with kAligned the
-// weights' rows float4 along the data, X one load a datum), and |beta|^2
-// e^{-2t} - db - t / s^2 for the log-sigma lane.
-template <int kThreads, bool kAligned>
+// weights' rows float4 along the data, X one load a datum; TM rows x TN
+// features a thread), and |beta|^2 e^{-2t} - db - t / s^2 for the
+// log-sigma lane.
+template <int kThreads, bool kAligned, int TM = kGradRows, int TN = kGradCols>
 __device__ __forceinline__ void logreg_grad(const LogReg& m, const float* z, int n, int d,
                                             const float* beta_sq, const float* tcol,
                                             const float* inv_sig2, float* g, int tid) {
-  block_mm<kThreads, kGradRows, kGradCols, kGradSplit, kAligned, false>(
+  block_mm<kThreads, TM, TN, kGradSplit, kAligned, false>(
       n, m.db, m.n_data, m.l, m.ldl, 1, m.X, m.db, 1, tid,
       [=](int i, int j, float v) { g[i * d + j] = v - z[i * d + j] * inv_sig2[i]; });
   const float s2 = m.prior_scale * m.prior_scale;

@@ -2,11 +2,14 @@
 // steps on one chain's state (csrc/fused_advi_meanfield.cu describes the
 // phases A-E of a step and the design).  Two kernels instantiate it:
 // fused_advi_meanfield.cu (one block, one chain) and fused_chains.cu (K6,
-// one block per chain), so both run the same code, and chain c of the
-// chains kernel equals the single-chain kernel keyed by chain c's seed
-// words, bit for bit.  Each kernel hands the body its block's pointers and
-// constants; the body is a forced-inline device function, so the
-// single-chain kernel compiles to what it was before the body moved here.
+// one block per chain while the chains do not outnumber the SMs), so both
+// run the same code, and chain c of the chains kernel equals the
+// single-chain kernel keyed by chain c's seed words, bit for bit (K6's
+// instances with several chains a block run the same phases and sums on
+// stacked rows, fused_chains.cu, and keep that promise).  Each kernel
+// hands the body its block's pointers and constants; the body is a
+// forced-inline device function, so the single-chain kernel compiles to
+// what it was before the body moved here.
 // Built with AVI_AD_BODY, the model phase also takes K5's generated body
 // (model kAD, c0 and c1 its packed float and int constants in device memory,
 // its scratch after the layout's other arrays, then its float constants
@@ -15,7 +18,8 @@
 // without it.
 //
 // Built with AVI_PHASE_CLOCKS (fused_run_chunk_cuda(..., instrumented=True),
-// read by meanfield_phase_cycles in ops/cuda/fused_advi.py), thread 0 adds
+// read by meanfield_phase_cycles in ops/cuda/fused_advi.py, and K6's
+// chains_phase_cycles in ops/cuda/fused_chains.py), thread 0 of block 0 adds
 // the SM cycles of each phase of a step into avi_mf_phase_cycles: 0 the
 // draws and z; 1 the row sums (|u|^2, logreg's |beta|^2, log det); 2 the
 // logits (K5: its body up to the barrier after log pi); 3 log pi (K5: the
@@ -44,10 +48,10 @@ using avi::kLog2Pi;
 #ifdef AVI_PHASE_CLOCKS
 constexpr int kPhases = 7;
 __device__ unsigned long long avi_mf_phase_cycles[kPhases];
-// thread 0: the cycles since the last mark into phase i
+// thread 0 of block 0: the cycles since the last mark into phase i
 #define AVI_MF_PHASE(i)                                                                \
   do {                                                                                 \
-    if (tid == 0) {                                                                    \
+    if (tid == 0 && blockIdx.x == 0) {                                                 \
       const long long t_now = clock64();                                               \
       atomicAdd(&avi::mf::avi_mf_phase_cycles[i],                                      \
                 static_cast<unsigned long long>(t_now - t_prev));                      \

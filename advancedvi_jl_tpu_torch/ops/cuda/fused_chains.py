@@ -5,7 +5,9 @@ independent mean-field chains of the fused engine (``FusedADVI``'s every
 branch: Adam, descent, DoWG, DoG or COCOB; the STL or a zero-gradient
 entropy, or VarGrad; ClipScale, the entropy prox or none; polynomial
 averaging) on one shared model, in one kernel launch per chunk
-(csrc/fused_chains.cu, K6, one thread block per chain; plain version
+(csrc/fused_chains.cu, K6: one thread block per chain while the chains do
+not outnumber the card's SMs, else ``chains_per_block`` chains a block
+sharing the model's data and the step's barriers; plain version
 ``fused_chains_run_chunk_reference``).  Chains differ in their initial
 parameters, their Philox stream and, optionally, their learning rate (an
 ``(n_chains,)`` lr: step-size sweeps) or their update rule (a list of rule
@@ -36,7 +38,7 @@ import ctypes
 import math
 import weakref
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -79,6 +81,8 @@ from .fused_advi import (
     _model_args,
     _model_logpi_grad,
     _prox,
+    PHASE_CLOCKS,
+    MF_PHASES,
     _trace_out,
 )
 from .location_scale_kernels import (
@@ -296,12 +300,57 @@ _CHAINS_ARGTYPES = (
     [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
      ctypes.c_float, ctypes.c_float]
     + [ctypes.c_void_p] * 5
-    + [ctypes.c_int] * 6
+    + [ctypes.c_int] * 7
     + [ctypes.c_void_p, ctypes.c_uint64, ctypes.c_void_p, ctypes.c_void_p]
     + [ctypes.c_float] * 6
     + [ctypes.c_int] * 4 + [ctypes.c_float]
     + [ctypes.c_void_p]
 )
+
+
+# Chains a block at most (csrc/fused_chains.cu kMaxChains: their ELBO
+# threads are lanes of one warp), and the block's threads (kThreads: G > 1
+# maps one lane of a chain to a thread, so it needs d <= 512).
+MAX_CHAINS_PER_BLOCK = 32
+BLOCK_THREADS = 512
+
+
+def chains_per_block(model: str, n_chains: int, sms: int, d: int,
+                     block_bytes: Callable[[int], int]) -> int:
+    """G, the chains a block of one K6 launch: 1 while ``n_chains <= sms``
+    (the single-chain body, one chain an SM), else the chains spread evenly
+    over the fewest waves of ``sms`` blocks that G_max allows: W =
+    ceil(C / (SMs G_max)) waves, G = ceil(C / (SMs W)).  G_max is the
+    largest G <= MAX_CHAINS_PER_BLOCK whose block's shared memory,
+    ``block_bytes(G)`` (the kernel's ``fused_chains_smem_bytes``), fits one
+    block.  While C <= SMs G_max that is min(G_max, ceil(C / SMs)); above,
+    the fewest chains a block that keep the waves at W (a block of G chains
+    takes longer than one of G - 1, so a G that fills no fewer waves is
+    slower).  1 for model "ad" (K5's body is placed for one chain) and for
+    d > 512."""
+    if model == AD or n_chains <= sms or d > BLOCK_THREADS:
+        return 1
+    g_max = 1
+    for g in range(2, min(-(-n_chains // sms), MAX_CHAINS_PER_BLOCK) + 1):
+        if block_bytes(g) > _build.SMEM_LIMIT:
+            break
+        g_max = g
+    waves = -(-n_chains // (sms * g_max))
+    return -(-n_chains // (sms * waves))
+
+
+def chains_smem_bytes(body=None):
+    """``fused_chains_smem_bytes(code, n_data, db, batch, n, d, n_rows, G)``
+    of csrc/fused_chains.cu (the library built with the generated ``body``,
+    if any): a block's dynamic shared memory, at G = 1 the single-chain
+    layout, else the model's data once and each per-chain array G times."""
+    return _build.function("fused_chains", "fused_chains_smem_bytes", [ctypes.c_int] * 8,
+                           restype=ctypes.c_size_t, body=body)
+
+
+def device_sms(dev) -> int:
+    """The streaming multiprocessors of the card ``dev`` names."""
+    return torch.cuda.get_device_properties(torch.device(dev)).multi_processor_count
 
 
 _RULE_SETS: dict = {}
@@ -336,12 +385,15 @@ def launch_groups(model: str, branch: FusedBranch, rules=None) -> Tuple[str, ...
 def fused_chains_run_chunk_cuda(
     model: str, consts, scalars, state, seeds, it0: int, steps: int, n_samples: int,
     hyp: FusedHyper, noise=None, log_every: int = 0, branch: FusedBranch = DEFAULT_BRANCH,
-    lrs=None, rules=None, ad=None,
+    lrs=None, rules=None, ad=None, instrumented: bool = False,
 ):
-    """Launch csrc/fused_chains.cu on the current stream, one block per
-    chain (same signature and results as ``fused_chains_run_chunk_reference``).
-    Adds one to ``fused_chains_run_chunk_cuda.launches`` per launch, and to
-    each of its LAUNCH_GROUPS in ``group_launches``."""
+    """Launch csrc/fused_chains.cu on the current stream, ``chains_per_block``
+    chains a block (same signature and results as
+    ``fused_chains_run_chunk_reference``).  Adds one to
+    ``fused_chains_run_chunk_cuda.launches`` per launch, and to each of its
+    LAUNCH_GROUPS in ``group_launches``.  ``instrumented`` launches the
+    build with per-phase cycle counters instead (PHASE_CLOCKS; read block
+    0's with ``chains_phase_cycles``)."""
     dev = state.device
     if not state.is_cuda:
         raise ValueError(f"fused_chains_run_chunk_cuda needs CUDA tensors, got {dev}")
@@ -377,24 +429,26 @@ def fused_chains_run_chunk_cuda(
         raise ValueError(f"traced chunks need steps % log_every == 0, got {steps}/{log_every}")
     code = MODEL_CODES[model]
     body = ad.source if model == AD else None
-    smem = _build.function(
-        "fused_chains", "fused_chains_smem_bytes", [ctypes.c_int] * 7, restype=ctypes.c_size_t,
-        body=body,
-    )(code, n_data, db, batch, n, d, n_rows)
+    defines = PHASE_CLOCKS if instrumented else ()
+    smem_bytes = chains_smem_bytes(body)
+    G = chains_per_block(model, C, device_sms(dev), d,
+                         lambda g: smem_bytes(code, n_data, db, batch, n, d, n_rows, g))
+    smem = smem_bytes(code, n_data, db, batch, n, d, n_rows, G)
     if smem > _build.SMEM_LIMIT:
         raise ValueError(
             f"each chain's block keeps the model's data, the draws and the state in "
             f"shared memory: {smem} bytes for n_data={n_data}, batch={batch}, d={d}, "
             f"n={n}, {n_rows} state rows is over the {_build.SMEM_LIMIT}-byte limit"
         )
-    fn = _build.function("fused_chains", "fused_chains", _CHAINS_ARGTYPES, body=body)
+    fn = _build.function("fused_chains", "fused_chains", _CHAINS_ARGTYPES, body=body,
+                         defines=defines)
     if seeds.dtype != torch.int32 or tuple(seeds.shape) != (C, 2) or seeds.device != dev \
             or not seeds.is_contiguous():
         raise ValueError(f"seeds must be a contiguous int32 ({C}, 2) tensor on {dev}")
     out = torch.empty_like(state)
     elbo = torch.empty(C, dtype=torch.float32, device=dev)
-    G = steps // log_every if log_every else 0
-    trace = torch.empty((C, G), dtype=torch.float32, device=dev) if log_every else None
+    rows_out = steps // log_every if log_every else 0
+    trace = torch.empty((C, rows_out), dtype=torch.float32, device=dev) if log_every else None
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(
@@ -402,7 +456,7 @@ def fused_chains_run_chunk_cuda(
             state.data_ptr(), out.data_ptr(), elbo.data_ptr(),
             trace.data_ptr() if trace is not None else None,
             noise.data_ptr() if noise is not None else None,
-            C, n, d, n_rows, steps, log_every, seeds.data_ptr(), it0,
+            C, G, n, d, n_rows, steps, log_every, seeds.data_ptr(), it0,
             lrs.data_ptr() if lrs is not None else None,
             rules.data_ptr() if rules is not None else None,
             hyp.lr, hyp.b1, hyp.b2, hyp.eps, hyp.avg_eta, hyp.clip_eps,
@@ -417,6 +471,18 @@ def fused_chains_run_chunk_cuda(
 
 fused_chains_run_chunk_cuda.launches = 0
 fused_chains_run_chunk_cuda.group_launches = dict.fromkeys(LAUNCH_GROUPS, 0)
+
+
+def chains_phase_cycles() -> dict:
+    """SM cycles that thread 0 of block 0 of the instrumented chains kernel
+    spent in each mean-field phase (MF_PHASES) over the launches since the
+    last call, summed; the counters restart at zero.  Waits for the queued
+    work."""
+    fn = _build.function("fused_chains", "fused_chains_phase_cycles", [ctypes.c_void_p],
+                         defines=PHASE_CLOCKS)
+    out = (ctypes.c_ulonglong * len(MF_PHASES))()
+    _build.check(fn(ctypes.addressof(out)), "fused_chains_phase_cycles")
+    return dict(zip(MF_PHASES, out))
 
 
 def fused_chains_run_chunk(model, consts, scalars, state, seeds, it0, steps, n_samples, hyp,
@@ -687,6 +753,23 @@ class FusedChainsADVI:
             "run_sharded (the chain axis over several devices) is not ported yet "
             "(ROADMAP Queue 1 item 17); on one card the chain axis is the launch grid"
         )
+
+    def chains_per_block(self, sms: Optional[int] = None, block_bytes=None) -> int:
+        """G, the chains each block of this engine's launches takes on a card
+        of ``sms`` SMs (default: the model's card), by ``chains_per_block``;
+        ``block_bytes(code, n_data, db, batch, n, d, n_rows, G)`` gives a
+        block's shared memory (default: the kernel's own count,
+        ``chains_smem_bytes``)."""
+        if self.ad is not None:
+            return 1
+        _, _, n_data, db, batch, _, _ = _model_args(
+            self.model.model, self.model.consts, self.model.scalars, self.dim,
+            self.model.device, False, self.n_samples)
+        fn = chains_smem_bytes() if block_bytes is None else block_bytes
+        code, n, d, n_rows = MODEL_CODES[self.model.model], self.n_samples, self.dim, self.n_rows
+        return chains_per_block(self.model.model, self.n_chains,
+                                device_sms(self.model.device) if sms is None else sms, d,
+                                lambda g: fn(code, n_data, db, batch, n, d, n_rows, g))
 
     def q(self, state: FusedChainsState, averaged: bool = True):
         """Stacked MeanFieldGaussian with (n_chains, d) leaves (averaged

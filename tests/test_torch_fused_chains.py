@@ -27,9 +27,11 @@ from advancedvi_jl_tpu.ops.pallas import fused_chains as jchains
 from advancedvi_jl_tpu_torch import convert
 from advancedvi_jl_tpu_torch.ops.cuda.fused_advi import FusedADVI, logreg_spec
 from advancedvi_jl_tpu_torch.ops.cuda.fused_chains import (
+    MAX_CHAINS_PER_BLOCK,
     RULE_CODES,
     FusedChainsADVI,
     FusedChainsState,
+    chains_per_block,
     first_chain_divergence,
     fused_chains_run_chunk,
     rule_set,
@@ -346,3 +348,108 @@ def test_fused_chains_validation(flagship):
     assert [(w0 & 0xFFFFFFFF, w1 & 0xFFFFFFFF) for w0, w1 in seeds.tolist()] == [
         chain_seed_words(5, c) for c in range(8)]
     assert isinstance(st, FusedChainsState) and st.ext is None
+
+
+# The chains a block of a card launch (csrc/fused_chains.cu, K6).  The rule
+# asks the kernel's own count of a block's shared memory, which only a card
+# can build; here it asks a stand-in holding that count's figures at each
+# layout, as (model, n_data, db, batch, n, d, n_rows): the bytes of one
+# chain's block (the single-chain layout), and of a block of G > 1 chains,
+# the model's data once plus G chains' arrays (tests/test_torch_kernels.py
+# holds the kernel's count to these figures on the card).  The largest G
+# whose block fits 232,448 bytes: the flagship logreg (72,800 bytes one
+# chain, 220,544 eight), the diagonal Gaussian (capped at 32 chains, the
+# ELBO threads of one warp) and at d = 512, the three minibatch transports
+# at n = 16,384, B = 512 (the staged slab 125 KB), and a design too large
+# for the aligned layout (771 x 61, the kDensePlain group: one chain).
+G_LAYOUTS = {
+    "flagship": (("logreg", 208, 61, 0, 10, 62, 8), (72800, 51584, 21120), 8),
+    "flagship-cocob": (("logreg", 208, 61, 0, 10, 62, 14), (74288, 51584, 22608), 8),
+    "gaussian": (("gaussian", 0, 0, 0, 10, 11, 8), (2176, 0, 2072), MAX_CHAINS_PER_BLOCK),
+    "gaussian-512": (("gaussian", 0, 0, 0, 10, 512, 8), (82336, 0, 82352), 2),
+    "inplace": (("logreg_minibatch", 16384, 61, 512, 10, 62, 8), (33632, 256, 33280), 6),
+    "staged": (("logreg_minibatch_staged", 16384, 61, 512, 10, 62, 8),
+               (158560, 125184, 33280), 3),
+    "prefetch": (("logreg_minibatch_prefetch", 16384, 61, 512, 10, 62, 14),
+                 (160048, 125184, 34768), 3),
+    "plain": (("logreg", 771, 61, 0, 10, 62, 8), (232384, 191208, 41080), 1),
+}
+SMEM = 232448
+
+
+def _block_bytes(name):
+    """The stand-in for the kernel's count: G -> a block's bytes."""
+    one, shared, per_chain = G_LAYOUTS[name][1]
+    return lambda G: one if G == 1 else shared + G * per_chain
+
+
+def _per_block(name, C, sms):
+    model, *shape = G_LAYOUTS[name][0]
+    return chains_per_block(model, C, sms, shape[4], _block_bytes(name))
+
+
+@pytest.mark.parametrize("name", list(G_LAYOUTS))
+@pytest.mark.parametrize("sms", [1, 7, 132, 144])
+def test_chains_per_block_is_one_while_the_chains_fit_the_sms(name, sms):
+    """C <= SMs launches one chain a block, the single-chain body."""
+    for C in sorted({1, max(1, sms // 2), sms}):
+        assert _per_block(name, C, sms) == 1, C
+
+
+@pytest.mark.parametrize("name", list(G_LAYOUTS))
+def test_chains_per_block_is_capped_by_the_layout(name):
+    """Above the SMs, G = ceil(C / SMs) up to the largest G whose layout fits
+    one block (that layout fits and the next does not, or the cap holds);
+    above SMs x G_max, the fewest chains a block whose blocks fill the
+    fewest waves G_max allows."""
+    g_max = G_LAYOUTS[name][2]
+    fits = _block_bytes(name)
+    assert fits(g_max) <= SMEM
+    if g_max < MAX_CHAINS_PER_BLOCK:
+        assert fits(g_max + 1) > SMEM
+    for sms in (132, 7):
+        def waves(C, g):
+            return -(-(-(-C // g)) // sms)
+
+        for C in (sms + 1, 2 * sms, 2 * sms + 1, 3 * sms, 4 * sms, 8 * sms, 64 * sms + 5):
+            G = _per_block(name, C, sms)
+            if C <= sms * g_max:
+                assert G == min(-(-C // sms), g_max), (sms, C)
+            assert 1 <= G <= g_max and waves(C, G) == waves(C, g_max), (sms, C, G)
+            assert G == 1 or waves(C, G - 1) > waves(C, g_max), (sms, C, G)
+    # the staged minibatch (G_max 3) at 512 chains on 132 SMs: two waves
+    # either way, so two chains a block, not three
+    assert _per_block("staged", 512, 132) == 2
+
+
+def test_chains_per_block_asks_the_kernel_for_the_engines_layout(flagship):
+    """The engine hands the kernel's count its model code, design, batch,
+    samples, width and state rows, and a G for each block it weighs."""
+    from advancedvi_jl_tpu_torch.ops.cuda.fused_advi import MODEL_CODES
+
+    _, _, _, spec = flagship
+    asked = []
+
+    def count(*args):
+        asked.append(args)
+        return _block_bytes("flagship")(args[-1])
+
+    eng = FusedChainsADVI(spec, n_chains=1024, optimizer="cocob")
+    assert eng.chains_per_block(132, count) == 8
+    assert [a[:-1] for a in asked] == [(MODEL_CODES["logreg"], 208, 61, 0, 10, 62, 14)] * 7
+    assert [a[-1] for a in asked] == list(range(2, 9))
+
+
+def test_chains_per_block_is_one_for_ad_and_wide_chains(flagship):
+    """K5's generated body is placed for one chain, and a block of several
+    chains maps one lane a thread (d <= 512)."""
+    small = _block_bytes("gaussian")
+    assert chains_per_block("ad", 4096, 132, 62, small) == 1
+    assert chains_per_block("gaussian", 4096, 132, 513, small) == 1
+    assert chains_per_block("gaussian", 4096, 132, 512, small) > 1
+    _, tprob, _, spec = flagship
+    assert [FusedChainsADVI(spec, n_chains=C).chains_per_block(
+        132, lambda *a: _block_bytes("flagship")(a[-1]))
+        for C in (64, 132, 133, 512, 1024, 4096)] == [1, 1, 2, 4, 8, 8]
+    ad = FusedChainsADVI(avt.ad_spec(tprob.unconstrained()), n_chains=1024)
+    assert ad.chains_per_block(132) == 1

@@ -812,17 +812,162 @@ def test_chains_kernel_runs_the_minibatch_transports(dev):
     assert all(torch.equal(outs[0], o) for o in outs[1:])
 
 
+# Blocks of G chains: (case, engine arguments, model) of the bitwise checks:
+# the flagship branch, a mixed sweep, COCOB, VarGrad (DoWG, clip), the
+# closed-form zero-gradient entropy with the prox operator (DoWG), the
+# diagonal Gaussian at d = 11 (up to 32 chains a block) and at d = 512, and
+# the three minibatch transports
+G_CASES = {
+    "flagship": (dict(), "logreg"),
+    "mixed": (dict(optimizer=MIXED_RULES, alpha=1e-2), "logreg"),
+    "cocob": (dict(optimizer="cocob"), "logreg"),
+    "staged-minibatch": (dict(), "staged"),
+    "vargrad": (CHAIN_CASES["vargrad-dowg-clip"], "logreg"),
+    "prox": (CHAIN_CASES["prox-dowg"], "logreg"),
+    "gaussian": (dict(), "gaussian-11"),
+    "gaussian-512": (dict(), "gaussian-512"),
+    "inplace-minibatch": (dict(), "inplace"),
+    "prefetch-minibatch": (dict(), "prefetch"),
+}
+# the largest G each layout fits where it is below 32 (the flagship's is 8)
+G_CAPS = {"staged-minibatch": 3, "prefetch-minibatch": 3, "inplace-minibatch": 6,
+          "gaussian-512": 2}
+
+
+def _g_spec(dev, which):
+    if which == "logreg":
+        prob = make_logreg(11, device=dev)
+        return logreg_spec(prob.X, prob.y)
+    if which.startswith("gaussian"):
+        d = int(which.split("-")[1])
+        g = torch.Generator().manual_seed(d)
+        return gaussian_spec(torch.randn(d, generator=g).to(dev),
+                             (0.5 + torch.rand(d, generator=g)).to(dev))
+    return _mb_specs(dev)[("inplace", "staged", "prefetch").index(which)]
+
+
+def _g_engine(dev, case, G):
+    """An engine of G x the card's SMs chains (G chains a block where the
+    layout fits, else the fewest a block that keep the waves), its state,
+    past DoWG's and DoG's start (see _case), and the G it launches with."""
+    from advancedvi_jl_tpu_torch.ops.cuda.fused_chains import FusedChainsADVI, device_sms
+
+    kw, which = G_CASES[case]
+    spec = _g_spec(dev, which)
+    C = G * device_sms(dev)
+    if "optimizer" in kw and isinstance(kw["optimizer"], list):
+        kw = dict(kw, optimizer=(kw["optimizer"] * C)[:C])
+    eng = FusedChainsADVI(spec, n_chains=C, n_samples=N, **kw)
+    g = torch.Generator().manual_seed(4)
+    st = eng.init((0.2 * torch.randn(C, spec.dim, generator=g)).to(dev),
+                  0.1 * torch.ones(C, spec.dim, device=dev))
+    rules = kw.get("optimizer", "adam")
+    if any(r in ("dowg", "dog") for r in ([rules] if isinstance(rules, str) else rules)):
+        st = eng.run_chunk(st, 1, 300)
+    return eng, st, eng.chains_per_block()
+
+
+def _expected_g(case, G):
+    cap = G_CAPS.get(case, 32)
+    return -(-G // -(-G // cap))
+
+
+G_PARAMS = [pytest.param(case, G, id=f"{G}-{case}") for G in (2, 8) for case in G_CASES] + [
+    pytest.param("gaussian", 32, id="32-gaussian")]
+
+
+@pytest.mark.parametrize("case,G", G_PARAMS)
+def test_chains_blocks_of_g_chains_are_the_single_chain_kernel(dev, case, G):
+    """At C = G x SMs each block takes G chains where the layout fits (else
+    the fewest chains a block that fill as few waves); chains 0, G - 1, G
+    and C - 1 equal the single-chain kernel keyed by their words, bit for
+    bit, after 30 Philox steps."""
+    from advancedvi_jl_tpu_torch.ops.cuda.fused_chains import fused_chains_run_chunk_cuda
+    from advancedvi_jl_tpu_torch.ops.cuda.location_scale_kernels import chain_seed_words
+
+    eng, st, g = _g_engine(dev, case, G)
+    assert g == _expected_g(case, G) >= 2
+    before = fused_chains_run_chunk_cuda.launches
+    rows, elbo, _ = fused_chains_run_chunk_cuda(*_chains_args(eng, st, 30, None, 0))
+    assert fused_chains_run_chunk_cuda.launches == before + 1
+    full = st.stacked(with_ext=eng.n_rows == 14)
+    rules = eng._rule_list or [eng.algo] * eng.n_chains
+    C = eng.n_chains
+    for c in (0, g - 1, g, C - 1):
+        b = eng.branch()
+        branch = FusedBranch(rules[c], b.entropy, b.grad_est, b.operator, b.cocob_alpha)
+        n_rows = 14 if rules[c] == "cocob" else 8
+        one, e1, _ = fused_run_chunk_cuda(eng.model.model, eng.model.consts, eng.model.scalars,
+                                          full[c, :n_rows].contiguous(), chain_seed_words(3, c),
+                                          st.iteration, 30, N, eng.hyp, branch=branch)
+        assert torch.equal(one, rows[c, :n_rows]), c
+        assert torch.equal(e1, elbo[c]), c
+
+
+@pytest.mark.parametrize("case", list(G_CASES))
+def test_chains_blocks_of_g_chains_match_plain_version(dev, case):
+    """Blocks of G = 2 chains (C = 2 x SMs) against the plain version after
+    20 injected-noise steps, traced (norm-wise 1e-5 per state row), and
+    split or traced launches bit-equal to one untraced launch."""
+    from advancedvi_jl_tpu_torch.ops.cuda.fused_chains import (
+        fused_chains_run_chunk_cuda, fused_chains_run_chunk_reference)
+
+    eng, st, g = _g_engine(dev, case, 2)
+    assert g == 2
+    steps, C = 20, eng.n_chains
+    noise = torch.randn((steps, C, N, eng.dim),
+                        generator=torch.Generator().manual_seed(2)).to(dev)
+    args = _chains_args(eng, st, steps, noise, 5)
+    k_rows, k_elbo, k_tr = fused_chains_run_chunk_cuda(*args)
+    r_rows, r_elbo, r_tr = fused_chains_run_chunk_reference(*args)
+    u_rows, u_elbo, _ = fused_chains_run_chunk_cuda(*_chains_args(eng, st, steps, noise, 0))
+    torch.cuda.synchronize()
+    assert k_tr.shape == (steps // 5, C)
+    _norm_close(list(k_rows.flatten(0, 1)), list(r_rows.flatten(0, 1)), 1e-5)
+    assert torch.allclose(k_elbo, r_elbo, rtol=1e-5, atol=1e-4)
+    assert torch.allclose(k_tr, r_tr, rtol=1e-5, atol=1e-4)
+    assert torch.equal(k_rows, u_rows) and torch.equal(k_elbo, u_elbo)
+    whole = eng.run_chunk(st, 7, 30)
+    split = eng.run_chunk(eng.run_chunk(st, 7, 3), 7, 27)
+    assert all(torch.equal(a, b) for a, b in zip(whole.stacked(), split.stacked()))
+
+
 def test_chains_shared_memory_is_the_single_chain_kernels(dev):
-    """A chain's block takes the single-chain kernel's layout, and the
-    wrapper refuses what does not fit one block (the TPU caps' stand-in)."""
-    chains = _build.function("fused_chains", "fused_chains_smem_bytes", [ctypes.c_int] * 7,
+    """A block of one chain takes the single-chain kernel's layout, a block
+    of G chains the model's data once and G chains' arrays (the figures
+    tests/test_torch_fused_chains.py's G_LAYOUTS hands the wrapper's rule),
+    a design too large for the aligned layout (771 x 61) runs one chain a
+    block, and the wrapper refuses what does not fit one block (the TPU
+    caps' stand-in)."""
+    chains = _build.function("fused_chains", "fused_chains_smem_bytes", [ctypes.c_int] * 8,
                              restype=ctypes.c_size_t)
     single = _build.function("fused_advi_meanfield", "fused_advi_meanfield_smem_bytes",
                              [ctypes.c_int] * 7, restype=ctypes.c_size_t)
-    for code, shape in ((0, (208, 61, 0, 10, 62, 8)), (0, (100, 5, 0, 3, 6, 14)),
-                        (2, (0, 0, 0, 10, 11, 8)), (3, (4096, 61, 512, 10, 62, 8)),
-                        (4, (4096, 61, 512, 16, 62, 14)), (5, (1024, 7, 128, 4, 8, 8))):
-        assert chains(code, *shape) == single(code, *shape)
+    # (model code, shape, (bytes of one chain, shared bytes, bytes a chain))
+    for code, shape, (one, shared, per_chain) in (
+            (0, (208, 61, 0, 10, 62, 8), (72800, 51584, 21120)),
+            (0, (208, 61, 0, 10, 62, 14), (74288, 51584, 22608)),
+            (0, (100, 5, 0, 3, 6, 14), (4516, 2400, 2012)),
+            (0, (2600, 20, 0, 10, 21, 8), (326176, 218400, 107672)),
+            (0, (3400, 16, 0, 10, 17, 8), (370336, 231200, 139032)),
+            (0, (771, 61, 0, 10, 62, 8), (232384, 191208, 41080)),
+            (2, (0, 0, 0, 10, 11, 8), (2176, 0, 2072)),
+            (2, (0, 0, 0, 10, 512, 8), (82336, 0, 82352)),
+            (2, (0, 0, 0, 10, 512, 14), (94624, 0, 94640)),
+            (3, (4096, 61, 512, 10, 62, 8), (33632, 256, 33280)),
+            (3, (16384, 61, 512, 10, 62, 8), (33632, 256, 33280)),
+            (4, (4096, 61, 512, 16, 62, 14), (178504, 125184, 53224)),
+            (4, (16384, 61, 512, 10, 62, 8), (158560, 125184, 33280)),
+            (5, (16384, 61, 512, 10, 62, 14), (160048, 125184, 34768)),
+            (5, (1024, 7, 128, 4, 8, 8), (6744, 3616, 3024))):
+        assert chains(code, *shape, 1) == single(code, *shape) == one, (code, shape)
+        for G in (2, 3, 8, 32):
+            assert chains(code, *shape, G) == shared + G * per_chain, (code, shape, G)
+    from advancedvi_jl_tpu_torch.ops.cuda.fused_chains import FusedChainsADVI
+
+    plain = make_logreg(11, n_data=771, device=dev)
+    assert FusedChainsADVI(logreg_spec(plain.X, plain.y), n_chains=4096,
+                           n_samples=N).chains_per_block() == 1
     from advancedvi_jl_tpu_torch.ops.cuda.fused_chains import FusedChainsADVI
 
     prob = make_logreg(11, device=dev)
