@@ -22,9 +22,12 @@
 // sum runs over k in a fixed order (the result does not depend on the
 // thread mapping), in float32 FMAs.  Only the lower triangle of C is read.
 // What bounds it is the panel walk's latency, not arithmetic: in the fused
-// full-rank kernel (one block, C read through a generic pointer) the
+// full-rank single-block kernel (C read through a generic pointer) the
 // whitening takes 7.4 us a step at d = 62 (C in shared memory) and 121 us
-// at d = 512 (C in L2), H100 80GB HBM3 at 700 W.
+// at d = 512 (C in L2), H100 80GB HBM3 at 700 W.  The fused cluster kernel
+// (fused_advi_fullrank.cu) walks the same panels over a thread-block
+// cluster, a panel's owner solving it with diag_block_inverse's operator
+// and the same sums in the same order; its times are in PERF.md.
 #pragma once
 
 #include <cuda_runtime.h>

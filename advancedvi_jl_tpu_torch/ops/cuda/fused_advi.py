@@ -920,8 +920,8 @@ def _check_branch_shape(branch: FusedBranch, d: int) -> Tuple[int, int, int, int
     return codes
 
 
-def _count(wrapper, model: str, branch: FusedBranch) -> None:
-    wrapper.launches += 1
+def _count(wrapper, model: str, branch: FusedBranch, counter: str = "launches") -> None:
+    setattr(wrapper, counter, getattr(wrapper, counter) + 1)
     for g in branch.groups(model):
         wrapper.group_launches[g] += 1
 
@@ -1006,18 +1006,146 @@ def fused_run_chunk(model, consts, scalars, state, seed, it0, steps, n_samples, 
     raise ValueError(f"no fused engine for device {state.device}")
 
 
+# ---------------------------------------------------------------------------
+# The full-rank kernel on a thread-block cluster (csrc/fused_advi_fullrank.cu
+# fused_advi_fullrank_cluster_kernel): one chunk on cs blocks, split by
+# output, bitwise the single-block kernel at every cs.
+# ---------------------------------------------------------------------------
+
+PANEL = 32  # the whitening's panel width (trisolve_rows.cuh kTriPanel)
+CLUSTER_SIZES = (1, 2, 4, 8, 16)  # 16 is non-portable: the card is asked before a launch
+CLUSTER_MODELS = (LOGREG, MVNORMAL, GAUSSIAN)
+CLUSTER_ALGOS = (ALGO_ADAM, ALGO_DESCENT, ALGO_COCOB)
+
+
+def panel_owner(p: int, cs: int) -> int:
+    """Panel p's block in a cluster of ``cs`` (the kernel's panel_owner):
+    folded, so that panels p and np - 1 - p share a block."""
+    q = p % (2 * cs)
+    return q if q < cs else 2 * cs - 1 - q
+
+
+def cluster_panels(d: int, cs: int) -> Tuple[Tuple[int, ...], ...]:
+    """The panels (32 rows of C each, the last short) each block owns."""
+    out = [[] for _ in range(cs)]
+    for p in range(-(-d // PANEL)):
+        out[panel_owner(p, cs)].append(p)
+    return tuple(tuple(x) for x in out)
+
+
+def cluster_smem_bytes():
+    """``fused_advi_fullrank_cluster_smem_bytes(code, n_data, db, n, d, k,
+    cs)`` of csrc/fused_advi_fullrank.cu: the dynamic shared memory a block
+    of the cluster kernel takes (its make_cluster_layout and place_cluster:
+    the model's data, the draws and samples, gradients, whitened draws,
+    pushed panels and location rows; then, each where it still fits, the
+    block's rows of the scale matrices, its panels' operators and its strip
+    of C)."""
+    return _build.function("fused_advi_fullrank", "fused_advi_fullrank_cluster_smem_bytes",
+                           [ctypes.c_int] * 7, restype=ctypes.c_size_t)
+
+
+def cluster_served(model: str, branch: FusedBranch) -> bool:
+    """Whether the cluster kernel takes the launch: the full-data models and
+    the rules without a sum over every entry (not DoWG or DoG)."""
+    return model in CLUSTER_MODELS and branch.algo in CLUSTER_ALGOS \
+        and branch.grad_est == GE_REPGRAD
+
+
+# The least width at which the rule puts a served launch on the cluster, by
+# model, or by model and rule where one differs: phase (m)'s route sweep on
+# an H100 (chip_smoke.py route_sweep; PERF.md) timed every served model at
+# d = 33, 62, 100, 200, 512 (the logreg at 33, 62, 128) under Adam,
+# descent with STL-zero and prox, COCOB and closed-form-zero, at one block
+# and every cluster size.  The Gaussians ran slower on two blocks than on
+# one at d = 33 (by 10-43%), mvnormal under COCOB by 2-3% at d = 62; every
+# other swept launch ran fastest on a block a panel.
+CLUSTER_MIN_D = {LOGREG: 33, MVNORMAL: 62, GAUSSIAN: 62, (MVNORMAL, ALGO_COCOB): 100}
+
+
+def cluster_blocks(model: str, d: int, n: int, branch: FusedBranch,
+                   block_bytes: Callable[[int], int]) -> int:
+    """The rule: the blocks of the cluster a full-rank launch runs on.
+
+    1 (the single-block kernel) for what the cluster kernel does not serve:
+    DoWG and DoG (their eta needs a sum over every entry before any moves),
+    the minibatch models (the slab transports) and K5's "ad" body (its
+    scratch is placed for one block); also below ``CLUSTER_MIN_D``, the
+    sweep's least width at which the cluster paid (one panel always runs
+    on one block).  Otherwise a block a whitening panel: the largest power
+    of two up to 16 and the panels, halved until ``block_bytes(cs)`` (the
+    kernel's layout, ``cluster_smem_bytes``) fits a block's shared memory.
+    Between the swept widths it keeps a block a panel, the size each swept
+    neighbour ran fastest on."""
+    if not cluster_served(model, branch):
+        return 1
+    if d < CLUSTER_MIN_D.get((model, branch.algo), CLUSTER_MIN_D[model]):
+        return 1
+    cs = min(CLUSTER_SIZES[-1], 1 << ((-(-d // PANEL)).bit_length() - 1))
+    while cs > 1 and block_bytes(cs) > _build.SMEM_LIMIT:
+        cs //= 2
+    return cs
+
+
+def check_cluster(model: str, d: int, n: int, branch: FusedBranch, cs: int,
+                  block_bytes: Optional[Callable[[int], int]] = None) -> int:
+    """``cs`` if the cluster kernel can run this launch on ``cs`` blocks
+    (1: the single-block kernel, always), else ValueError.  The layout's
+    size is checked where ``block_bytes`` (the kernel's count) is given:
+    the plain version, on the CPU, keeps nothing in shared memory."""
+    if cs not in CLUSTER_SIZES:
+        raise ValueError(f"cluster must be one of {CLUSTER_SIZES}, got {cs!r}")
+    if cs == 1:
+        return cs
+    if not cluster_served(model, branch):
+        raise ValueError(
+            f"the cluster kernel does not serve model {model!r} with {branch.algo} "
+            f"({branch.grad_est}): DoWG/DoG, the minibatch models and 'ad' run on one block"
+        )
+    panels = -(-d // PANEL)
+    if cs > panels:
+        raise ValueError(f"cluster={cs} is more blocks than d = {d}'s {panels} panels")
+    need = None if block_bytes is None else block_bytes(cs)
+    if need is not None and need > _build.SMEM_LIMIT:
+        raise ValueError(f"cluster={cs}: {need} bytes of shared memory a block, over the "
+                         f"{_build.SMEM_LIMIT}-byte limit")
+    return cs
+
+
+_CLUSTER_ACTIVE: Dict[tuple, int] = {}
+
+
+def cluster_max_active(code: int, n_data: int, db: int, n: int, d: int, k: int, cs: int,
+                       defines=()) -> int:
+    """``cudaOccupancyMaxActiveClusters`` of the cluster kernel at this
+    layout and cs (0: the card cannot schedule one), asked once a shape."""
+    key = (code, n_data, db, n, d, k, cs, tuple(defines))
+    if key not in _CLUSTER_ACTIVE:
+        out = ctypes.c_int(0)
+        fn = _build.function("fused_advi_fullrank", "fused_advi_fullrank_cluster_max_active",
+                             [ctypes.c_int] * 7 + [ctypes.c_void_p], defines=defines)
+        _build.check(fn(code, n_data, db, n, d, k, cs, ctypes.addressof(out)),
+                     "cudaOccupancyMaxActiveClusters")
+        _CLUSTER_ACTIVE[key] = out.value
+    return _CLUSTER_ACTIVE[key]
+
+
 def fused_fullrank_run_chunk_cuda(
     model: str, consts, scalars, vec, mat, seed, it0: int, steps: int,
     n_samples: int, hyp: FusedHyper, noise=None, log_every: int = 0,
     branch: FusedBranch = DEFAULT_BRANCH, ad: Optional[ADProgram] = None,
-    instrumented: bool = False,
+    instrumented: bool = False, cluster: Optional[int] = None,
 ):
     """Launch csrc/fused_advi_fullrank.cu on the current stream (same
-    signature and results as ``fused_fullrank_run_chunk_reference``).  Adds
-    one to ``fused_fullrank_run_chunk_cuda.launches`` per launch, and to
-    each of the branch's LAUNCH_GROUPS in ``group_launches``.
-    ``instrumented`` launches the build with per-phase cycle counters
-    instead (PHASE_CLOCKS; read them with ``phase_cycles``)."""
+    signature and results as ``fused_fullrank_run_chunk_reference``): on a
+    cluster of ``cluster_blocks(...)`` blocks, or of ``cluster`` when given
+    (``check_cluster``), the single-block kernel when that is 1.  A cluster
+    the card cannot schedule raises.  Adds one to
+    ``fused_fullrank_run_chunk_cuda.launches`` per single-block launch and
+    to ``cluster_launches`` per cluster launch, and to each of the branch's
+    LAUNCH_GROUPS in ``group_launches``.  ``instrumented`` launches the
+    build with per-phase cycle counters instead (PHASE_CLOCKS; read them
+    with ``phase_cycles`` or ``cluster_phase_cycles``)."""
     dev = vec.device
     if not vec.is_cuda:
         raise ValueError(f"fused_fullrank_run_chunk_cuda needs CUDA tensors, got {dev}")
@@ -1033,24 +1161,40 @@ def fused_fullrank_run_chunk_cuda(
     if noise is not None:
         check_f32("noise", noise, (steps, n, d), dev)
     code = MODEL_CODES[model]
-    body = ad.source if model == AD else None
+
+    def block_bytes(size: int) -> int:  # asked only of launches the cluster serves
+        return cluster_smem_bytes()(code, n_data, db, n, d, k, size)
+
+    cs = (cluster_blocks(model, d, n, branch, block_bytes) if cluster is None
+          else check_cluster(model, d, n, branch, cluster, block_bytes))
+    body = ad.source if model == AD else None  # "ad" runs on one block
     defines = PHASE_CLOCKS if instrumented else ()
-    smem = _build.function(
-        "fused_advi_fullrank", "fused_advi_fullrank_smem_bytes",
-        [ctypes.c_int] * 7, restype=ctypes.c_size_t, body=body, defines=defines,
-    )(code, n_data, db, batch, n, d, k)
-    if smem > _build.SMEM_LIMIT:
-        raise ValueError(
-            f"the full-rank fused kernel keeps the draws and the model's "
-            f"per-step arrays in shared memory: {smem} bytes for d={d}, n={n} "
-            f"is over the {_build.SMEM_LIMIT}-byte limit of one block"
-        )
-    fn = _build.function("fused_advi_fullrank", "fused_advi_fullrank", _FULLRANK_ARGTYPES,
+    if cs == 1:
+        entry, extra = "fused_advi_fullrank", ()
+        panels = -(-d // PANEL)
+        smem = _build.function("fused_advi_fullrank", "fused_advi_fullrank_smem_bytes",
+                               [ctypes.c_int] * 7, restype=ctypes.c_size_t, body=body,
+                               defines=defines)(code, n_data, db, batch, n, d, k)
+        if smem > _build.SMEM_LIMIT:
+            raise ValueError(
+                f"the full-rank fused kernel keeps the draws and the model's "
+                f"per-step arrays in shared memory: {smem} bytes for d={d}, n={n} "
+                f"is over the {_build.SMEM_LIMIT}-byte limit of one block"
+            )
+    else:  # the layout's size was checked by the rule or check_cluster
+        entry, extra = "fused_advi_fullrank_cluster", (cs,)
+        panels = cs * max(len(ps) for ps in cluster_panels(d, cs))
+        if cluster_max_active(code, n_data, db, n, d, k, cs, defines) < 1:
+            raise RuntimeError(f"the card cannot schedule a cluster of {cs} blocks of "
+                               f"{block_bytes(cs)} bytes of shared memory "
+                               "(cudaOccupancyMaxActiveClusters = 0)")
+    fn = _build.function("fused_advi_fullrank", entry,
+                         _FULLRANK_ARGTYPES[:-1] + [ctypes.c_int] * len(extra) + [ctypes.c_void_p],
                          body=body, defines=defines)
     vec_out = torch.empty_like(vec)
     mat_out = torch.empty_like(mat)
     # the whitening's panel operators, where they do not fit in shared memory
-    inv = torch.empty(-(-d // 32) * 1024, dtype=torch.float32, device=dev)
+    inv = torch.empty(panels * 1024, dtype=torch.float32, device=dev)
     elbo = torch.empty((), dtype=torch.float32, device=dev)
     trace = (
         torch.empty(steps // log_every, dtype=torch.float32, device=dev)
@@ -1065,15 +1209,49 @@ def fused_fullrank_run_chunk_cuda(
             noise.data_ptr() if noise is not None else None, inv.data_ptr(),
             n, d, steps, log_every, seed[0], seed[1], it0,
             hyp.lr, hyp.b1, hyp.b2, hyp.eps, hyp.avg_eta, hyp.clip_eps,
-            *codes, branch.cocob_alpha, stream,
+            *codes, branch.cocob_alpha, *extra, stream,
         )
-    _build.check(err, "fused_advi_fullrank launch")
-    _count(fused_fullrank_run_chunk_cuda, model, branch)
+    _build.check(err, f"{entry} launch (cluster={cs})")
+    _count(fused_fullrank_run_chunk_cuda, model, branch,
+           "launches" if cs == 1 else "cluster_launches")
     return vec_out, mat_out, elbo, trace
 
 
 fused_fullrank_run_chunk_cuda.launches = 0
+fused_fullrank_run_chunk_cuda.cluster_launches = 0
 fused_fullrank_run_chunk_cuda.group_launches = dict.fromkeys(LAUNCH_GROUPS, 0)
+
+
+# the cluster kernel's counters: rank 0's phases, its cycles inside cluster
+# barriers (a part of the phases), the whitening's parts (W = U and the
+# strip of C; the solves and pushes of W_p; the updates) and the mvnormal
+# product before its barrier
+CLUSTER_PHASES = PHASES + ("cluster_wait", "w_stage", "w_solve", "model_product", "w_update")
+
+
+def cluster_phase_cycles() -> Dict[str, int]:
+    """SM cycles that thread 0 of rank 0 of the instrumented cluster kernel
+    spent in each phase (CLUSTER_PHASES) over the launches since the last
+    call, summed; the counters restart at zero.  Waits for the queued work."""
+    fn = _build.function("fused_advi_fullrank", "fused_advi_fullrank_cluster_phase_cycles",
+                         [ctypes.c_void_p], defines=PHASE_CLOCKS)
+    out = (ctypes.c_ulonglong * len(CLUSTER_PHASES))()
+    _build.check(fn(ctypes.addressof(out)), "fused_advi_fullrank_cluster_phase_cycles")
+    return dict(zip(CLUSTER_PHASES, out))
+
+
+def cluster_barrier_cycles(cs: int, reps: int, device="cuda") -> int:
+    """Rank 0's SM cycles for ``reps`` cluster barriers of one cluster of
+    ``cs`` 512-thread blocks that does nothing else (the instrumented
+    build's probe): a barrier's own cost."""
+    out = torch.zeros((), dtype=torch.int64, device=device)
+    fn = _build.function("fused_advi_fullrank", "fused_advi_fullrank_cluster_barrier_probe",
+                         [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p],
+                         defines=PHASE_CLOCKS)
+    with torch.cuda.device(out.device):
+        _build.check(fn(cs, reps, out.data_ptr(), torch.cuda.current_stream().cuda_stream),
+                     "fused_advi_fullrank_cluster_barrier_probe")
+    return int(out)
 
 
 def phase_cycles() -> Dict[str, int]:
@@ -1102,13 +1280,18 @@ def meanfield_phase_cycles(ad: Optional[ADProgram] = None) -> Dict[str, int]:
 
 def fused_fullrank_run_chunk(model, consts, scalars, vec, mat, seed, it0, steps,
                              n_samples, hyp, noise=None, log_every=0,
-                             branch=DEFAULT_BRANCH, ad=None):
-    """The full-rank kernel for CUDA tensors, its plain version for CPU tensors."""
+                             branch=DEFAULT_BRANCH, ad=None, cluster=None):
+    """The full-rank kernel for CUDA tensors, its plain version for CPU
+    tensors.  ``cluster`` forces the kernel's cluster size (checked on
+    either device by ``check_cluster``, the layout's size on the card only;
+    the plain version computes the same function at any size)."""
     args = (model, consts, scalars, vec, mat, seed, it0, steps, n_samples, hyp,
             noise, log_every, branch, ad)
     if vec.is_cuda:
-        return fused_fullrank_run_chunk_cuda(*args)
+        return fused_fullrank_run_chunk_cuda(*args, cluster=cluster)
     if vec.device.type == "cpu":
+        if cluster is not None:
+            check_cluster(model, vec.shape[1], int(n_samples), branch, cluster)
         return fused_fullrank_run_chunk_reference(*args)
     raise ValueError(f"no fused engine for device {vec.device}")
 

@@ -35,14 +35,22 @@ Phases:
       to 300, d from 1 to 1,024), every rows-a-block choice bit-equal;
   (k) the full-rank fused kernel (K3-FR) against its plain version at
       d = 62 (logreg) and d = 512 (dense Gaussian): noise, Philox, chunking;
+      the single-block kernel and the cluster kernel at every cluster size
+      (``cluster_blocks``' choice among them), each cluster size bitwise
+      the single-block kernel;
   (l) the full-rank paths: ``optimize`` with FullRankGaussian at d = 1024,
-      n = 256, the fused full-rank logreg engine to 20,000 steps, fused vs
-      general on the same key at d = 62 and d = 512;
+      n = 256, the fused full-rank logreg engine to 20,000 steps and the
+      dense Gaussian at d = 512 to 1,000 (the cluster kernel's launches
+      counted apart), fused vs general on the same key at d = 62 and 512;
   (m) steps/s of the full-rank paths and the new kernels' times beside
       their plain versions; K8 beside cuBLAS trsm by CUDA events and by
       CUDA-graph replay, at each rows-a-block choice; the full-rank step's
       phase split (an instrumented build's cycle counters) at d = 62 and
-      512;
+      512; the cluster sweep (chunk ms at 1, 2, 4, 8, 16 blocks, the rule's
+      choice, ``cudaOccupancyMaxActiveClusters``), the cluster kernel's
+      split on rank 0 at each size and a cluster barrier's own cycles; the
+      route sweep (every model the cluster serves at several widths under
+      four rules, at one block and every size, beside the rule's choice);
   (n) every branch added by the proximal/score-gradient slice (update
       rules, zero-gradient entropies, prox, VarGrad, the diagonal-Gaussian
       body) in both fused kernels against its plain version: noise,
@@ -420,6 +428,23 @@ def phase_e(dev):
         elbo_plain=float(r_elbo))
 
 
+class ClusterCount:
+    """The full-rank wrapper's count of cluster-kernel launches
+    (``cluster_launches``), read and reset as a wrapper's ``launches``."""
+
+    @property
+    def launches(self) -> int:
+        from advancedvi_jl_tpu_torch.ops.cuda.fused_advi import fused_fullrank_run_chunk_cuda
+
+        return fused_fullrank_run_chunk_cuda.cluster_launches
+
+    @launches.setter
+    def launches(self, value: int) -> None:
+        from advancedvi_jl_tpu_torch.ops.cuda.fused_advi import fused_fullrank_run_chunk_cuda
+
+        fused_fullrank_run_chunk_cuda.cluster_launches = value
+
+
 def wrappers():
     """Each kernel's name and its wrapper (whose ``launches`` counts)."""
     from advancedvi_jl_tpu_torch.ops.cuda.fused_advi import (
@@ -437,6 +462,7 @@ def wrappers():
             "fullrank_sample": fullrank_sample_cuda,
             "trisolve": solve_right_cuda,
             "fused_advi_fullrank": fused_fullrank_run_chunk_cuda,
+            "fused_advi_fullrank_cluster": ClusterCount(),
             "probes": probe_cuda,
             "fused_chains": fused_chains_run_chunk_cuda,
             "lowrank_sample": lowrank_sample_cuda}
@@ -699,53 +725,70 @@ def compare_fullrank(tag, kv, km, rv, rm, rtol):
     return worst
 
 
+def cluster_sizes(d):
+    """The cluster sizes the full-rank kernel takes at width d (1: the
+    single-block kernel)."""
+    return [cs for cs in (1, 2, 4, 8, 16) if cs == 1 or cs <= -(-d // 32)]
+
+
 def phase_k(dev):
     """K3-FR against its plain version at d = 62 (logreg) and d = 512
     (mvnormal): 50 steps of injected noise, 200 of Philox; chunking and
-    tracing bitwise."""
+    tracing bitwise; for the single-block kernel and at every cluster size,
+    each cluster size bitwise the single-block kernel.  Returns the worst
+    error of the single-block kernel and of the cluster kernel."""
     from advancedvi_jl_tpu_torch.ops.cuda.fused_advi import (
-        FusedHyper, fused_fullrank_run_chunk_cuda, fused_fullrank_run_chunk_reference,
+        DEFAULT_BRANCH, FusedHyper, fused_fullrank_run_chunk_cuda,
+        fused_fullrank_run_chunk_reference,
     )
     from advancedvi_jl_tpu_torch.ops.cuda.location_scale_kernels import seed_words
 
-    seed, hyp, worst = seed_words(SEED), FusedHyper(lr=LR), 0.0
+    seed, hyp, worst = seed_words(SEED), FusedHyper(lr=LR), {1: 0.0, 2: 0.0}
     for name, (spec, _, C0) in fullrank_specs(dev).items():
         d = spec.dim
         vec = torch.zeros(4, d, device=dev)
         mat = torch.stack([C0, torch.zeros_like(C0), torch.zeros_like(C0), C0])
         base = (spec.model, spec.consts, spec.scalars)
         noise = torch.randn((50, N_SAMPLES, d), generator=torch.Generator().manual_seed(5)).to(dev)
-        k = fused_fullrank_run_chunk_cuda(*base, vec, mat, seed, 0, 50, N_SAMPLES, hyp, noise, 5)
         r = fused_fullrank_run_chunk_reference(*base, vec, mat, seed, 0, 50, N_SAMPLES, hyp,
                                                noise, 5)
-        torch.cuda.synchronize()
-        worst = max(worst, compare_fullrank(f"{name} fused vs plain, injected noise",
-                                            k[0], k[1], r[0], r[1], 1e-5))
-        check(torch.allclose(k[2], r[2], rtol=1e-5, atol=1e-4), f"{name}: ELBO differs")
-        check(torch.allclose(k[3], r[3], rtol=1e-5, atol=1e-4), f"{name}: trace rows differ")
-        check(torch.equal(torch.triu(k[1][0], 1), torch.triu(mat[0], 1)),
-              f"{name}: the upper triangle of the scale moved")
-        say("k", model=name, d=d, steps=50, elbo_kernel=float(k[2]), elbo_plain=float(r[2]))
-        one = fused_fullrank_run_chunk_cuda(*base, vec, mat, seed, 0, 200, N_SAMPLES, hyp)
-        half = fused_fullrank_run_chunk_cuda(*base, vec, mat, seed, 0, 100, N_SAMPLES, hyp)
-        two = fused_fullrank_run_chunk_cuda(*base, half[0], half[1], seed, 100, 100,
-                                            N_SAMPLES, hyp)
-        traced = fused_fullrank_run_chunk_cuda(*base, vec, mat, seed, 0, 200, N_SAMPLES, hyp,
-                                               None, 50)
         ref = fused_fullrank_run_chunk_reference(*base, vec, mat, seed, 0, 200, N_SAMPLES, hyp)
-        torch.cuda.synchronize()
-        check(all(torch.equal(a, b) for a, b in zip(one[:3], two[:3])),
-              f"{name}: run_chunk(200) differs from two run_chunk(100)")
-        check(all(torch.equal(a, b) for a, b in zip(one[:3], traced[:3]))
-              and float(traced[3][-1]) == float(one[2]), f"{name}: traced and untraced differ")
-        # float32 transcendentals and sums in another order, carried by 200
-        # steps of Adam
-        worst = max(worst, compare_fullrank(f"{name} fused vs plain, Philox, 200 steps",
+        single = None
+        rule = rule_size(spec.model, d, DEFAULT_BRANCH, N_DATA if name == "logreg" else 0)
+        for cs in cluster_sizes(d):
+            tag = f"{name} cluster={cs}"
+            run = lambda *a: fused_fullrank_run_chunk_cuda(*base, *a, cluster=cs)
+            k = run(vec, mat, seed, 0, 50, N_SAMPLES, hyp, noise, 5)
+            one = run(vec, mat, seed, 0, 200, N_SAMPLES, hyp)
+            half = run(vec, mat, seed, 0, 100, N_SAMPLES, hyp)
+            two = run(half[0], half[1], seed, 100, 100, N_SAMPLES, hyp)
+            traced = run(vec, mat, seed, 0, 200, N_SAMPLES, hyp, None, 50)
+            torch.cuda.synchronize()
+            err = compare_fullrank(f"{tag} fused vs plain, injected noise",
+                                   k[0], k[1], r[0], r[1], 1e-5)
+            check(torch.allclose(k[2], r[2], rtol=1e-5, atol=1e-4), f"{tag}: ELBO differs")
+            check(torch.allclose(k[3], r[3], rtol=1e-5, atol=1e-4), f"{tag}: trace rows differ")
+            check(torch.equal(torch.triu(k[1][0], 1), torch.triu(mat[0], 1)),
+                  f"{tag}: the upper triangle of the scale moved")
+            check(all(torch.equal(a, b) for a, b in zip(one[:3], two[:3])),
+                  f"{tag}: run_chunk(200) differs from two run_chunk(100)")
+            check(all(torch.equal(a, b) for a, b in zip(one[:3], traced[:3]))
+                  and float(traced[3][-1]) == float(one[2]), f"{tag}: traced and untraced differ")
+            # float32 transcendentals and sums in another order, carried by
+            # 200 steps of Adam
+            err = max(err, compare_fullrank(f"{tag} fused vs plain, Philox, 200 steps",
                                             one[0], one[1], ref[0], ref[1], 1e-4))
-        check(torch.allclose(one[2], ref[2], rtol=1e-4, atol=1e-3), f"{name}: ELBO after 200 steps")
-        say("k", model=name, d=d, steps=200, chunked_bitwise=True, traced_bitwise=True,
-            elbo_kernel=float(one[2]), elbo_plain=float(ref[2]))
-    return worst
+            check(torch.allclose(one[2], ref[2], rtol=1e-4, atol=1e-3),
+                  f"{tag}: ELBO after 200 steps")
+            worst[min(cs, 2)] = max(worst[min(cs, 2)], err)
+            if single is None:
+                single = (k, one)
+            same = all(torch.equal(a, b) for a, b in zip(single[0] + single[1][:3], k + one[:3]))
+            check(same, f"{tag}: not bitwise the single-block kernel")
+            say("k", model=name, d=d, cluster=cs, rule=rule, steps="50+200", max_abs_err=err,
+                chunked_bitwise=True, traced_bitwise=True, single_block_bitwise=same,
+                elbo_kernel=float(one[2]), elbo_plain=float(ref[2]))
+    return worst[1], worst[2]
 
 
 def fullrank_alg(n_samples):
@@ -796,6 +839,9 @@ def fullrank_paths(dev):
     d = spec.dim
     lq0 = avt.FullRankGaussian(torch.zeros(d, device=dev), C0, solve_mode="pallas")
     eng = avt.FusedADVI(spec, family="fullrank", n_samples=N_SAMPLES, lr=LR)
+    mspec, _, mC0 = specs["mvnormal"]
+    meng = avt.FusedADVI(mspec, family="fullrank", n_samples=N_SAMPLES, lr=LR)
+    mq0 = avt.FullRankGaussian(torch.zeros(mspec.dim, device=dev), mC0, solve_mode="pallas")
     reset_launches()
     t0 = time.perf_counter()
     q_agree, rows_a, st = eng.optimize(SEED, FR_AGREE_STEPS, lq0, log_every=LOG_EVERY)
@@ -803,24 +849,27 @@ def fullrank_paths(dev):
                                  log_every=LOG_EVERY)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
+    mv_q, mv_rows, _ = meng.optimize(SEED, FR_MV_STEPS, mq0, log_every=LOG_EVERY)
+    torch.cuda.synchronize()
     fused_counts = read_launches()
     rows = rows_a + rows_b
     tail = tail_elbo(rows)
     say("l", path="fused", model="logreg", d=d, steps=FUSED_STEPS, elbo_last=rows[-1]["elbo"],
-        elbo_tail_mean=tail, seconds=f"{secs:.2f}",
-        fused_launches=fused_counts["fused_advi_fullrank"])
-    check(all(math.isfinite(r["elbo"]) for r in rows), "full-rank fused ELBO not finite")
+        elbo_tail_mean=tail, seconds=f"{secs:.2f}", mvnormal_steps=FR_MV_STEPS,
+        mvnormal_elbo_last=mv_rows[-1]["elbo"],
+        single_block_launches=fused_counts["fused_advi_fullrank"],
+        cluster_launches=fused_counts["fused_advi_fullrank_cluster"])
+    check(all(math.isfinite(r["elbo"]) for r in rows + mv_rows), "full-rank fused ELBO not finite")
     check(tail > -150.0, f"full-rank fused ELBO {tail} <= -150 (not converged)")
-    check(fused_counts["fused_advi_fullrank"] > 0, "the full-rank fused engine launched no kernel")
-    counts["fused_advi_fullrank"] = fused_counts["fused_advi_fullrank"]
+    check(fused_counts["fused_advi_fullrank_cluster"] > 0,
+          "the full-rank fused path launched no cluster kernel")
+    for kern in ("fused_advi_fullrank", "fused_advi_fullrank_cluster"):
+        counts[kern] = fused_counts[kern]
 
-    for name, steps, fq in (("logreg", FR_AGREE_STEPS, q_agree), ("mvnormal", FR_MV_STEPS, None)):
+    for name, steps, fq in (("logreg", FR_AGREE_STEPS, q_agree), ("mvnormal", FR_MV_STEPS, mv_q)):
         spec, tgt, C0 = specs[name]
         d = spec.dim
         q0 = avt.FullRankGaussian(torch.zeros(d, device=dev), C0, solve_mode="pallas")
-        if fq is None:
-            eng = avt.FusedADVI(spec, family="fullrank", n_samples=N_SAMPLES, lr=LR)
-            fq, _, _ = eng.optimize(SEED, steps, q0, log_every=LOG_EVERY)
         gq, ginfos, _ = avt.optimize(SEED, fullrank_alg(N_SAMPLES), steps, tgt, q0,
                                      log_every=LOG_EVERY)
         torch.cuda.synchronize()
@@ -1013,7 +1062,7 @@ def ab_parent(parent: Path):
                               cwd=path, capture_output=True, text=True, timeout=900)
         check(proc.returncode == 0, f"A/B in {path}: {proc.stderr[-2000:]}")
         runs[tag].append(json.loads(proc.stdout.strip().splitlines()[-1]))
-    for lib in ("fused_chains", "fused_advi_meanfield"):  # SASS of the instances both have
+    for lib in ("fused_chains", "fused_advi_meanfield", "fused_advi_fullrank"):  # kernels both have
         for fn, same in sass_equal(built_library(parent, lib), built_library(ROOT, lib)):
             say("ab", sass=f"{lib}:{fn}", equal=same)
     for key in runs["this"][0]:
@@ -1125,15 +1174,124 @@ def phase_split(dev, name, args, chunk_ms):
         fused_fullrank_run_chunk_cuda, phase_cycles,
     )
 
-    fused_fullrank_run_chunk_cuda(*args, instrumented=True)
+    fused_fullrank_run_chunk_cuda(*args, instrumented=True, cluster=1)
     torch.cuda.synchronize()
     phase_cycles()  # restart the counters
-    inst_ms = cuda_ms(lambda: fused_fullrank_run_chunk_cuda(*args, instrumented=True), 4)
+    inst_ms = cuda_ms(lambda: fused_fullrank_run_chunk_cuda(*args, instrumented=True, cluster=1),
+                      4)
     cycles = phase_cycles()
     total = sum(cycles.values())
     step_us = 1e3 * chunk_ms / args[7]
     say("m", phase_split=name, step_us=step_us, instrumented_chunk_ms=inst_ms,
         **{f"{p}_us": step_us * c / total for p, c in cycles.items()})
+
+
+def cluster_split(name, args, cs, chunk_ms):
+    """The cluster kernel's step split on rank 0 (the instrumented build's
+    SM cycles of thread 0, CLUSTER_PHASES): each phase's share of the first
+    five, in microseconds of ``chunk_ms``' step; the cluster barriers' wait
+    and the whitening's parts on the same scale."""
+    from advancedvi_jl_tpu_torch.ops.cuda.fused_advi import (
+        cluster_phase_cycles, fused_fullrank_run_chunk_cuda,
+    )
+
+    fused_fullrank_run_chunk_cuda(*args, instrumented=True, cluster=cs)
+    torch.cuda.synchronize()
+    cluster_phase_cycles()  # restart the counters
+    inst_ms = cuda_ms(lambda: fused_fullrank_run_chunk_cuda(*args, instrumented=True,
+                                                            cluster=cs), 4)
+    cycles = cluster_phase_cycles()
+    total = sum(list(cycles.values())[:5])
+    step_us = 1e3 * chunk_ms / args[7]
+    say("m", cluster_split=name, cluster=cs, step_us=step_us, instrumented_chunk_ms=inst_ms,
+        **{f"{p}_us": step_us * c / total for p, c in cycles.items()})
+
+
+# The launches the cluster rule routes, each timed at one block and at every
+# cluster size it takes: every served model at several widths, under Adam
+# (the engines' default), descent with the STL-zero entropy and the prox
+# operator, COCOB (seven state rows), and Adam with the closed-form-zero
+# entropy (no whitening).  The logreg's widths are its features plus two.
+ROUTE_WIDTHS = {"logreg": (33, 62, 128), "mvnormal": (33, 62, 100, 200, 512),
+                "gaussian": (33, 62, 100, 200, 512)}
+ROUTE_BRANCHES = ("adam", "descent_prox", "cocob", "cf_zero")
+
+
+def route_branch(name):
+    from advancedvi_jl_tpu_torch.ops.cuda.fused_advi import FusedBranch
+
+    return {"adam": FusedBranch(),
+            "descent_prox": FusedBranch("descent", "stl_zero_grad", "repgrad", "prox"),
+            "cocob": FusedBranch("cocob"),
+            "cf_zero": FusedBranch("adam", "closed_form_zero_grad")}[name]
+
+
+def rule_size(model, d, branch, n_data=0):
+    """``cluster_blocks``' choice for a launch of ``N_SAMPLES`` draws, asked
+    with the kernel's own layout count, as the wrapper asks it."""
+    from advancedvi_jl_tpu_torch.ops.cuda.fused_advi import (
+        MODEL_CODES, cluster_blocks, cluster_smem_bytes,
+    )
+
+    k = 4 + branch.ext_rows // 2
+    db = d - 1 if model == "logreg" else 0
+    return cluster_blocks(model, d, N_SAMPLES, branch,
+                          lambda cs: cluster_smem_bytes()(MODEL_CODES[model], n_data, db,
+                                                          N_SAMPLES, d, k, cs))
+
+
+def route_case(dev, model, d, branch):
+    """The 200-step chunk's arguments for a served model at width d under
+    ``branch``, from the engine's initial state (q0 = 0.1 I for the logreg,
+    I otherwise)."""
+    import advancedvi_jl_tpu_torch as avt
+    from advancedvi_jl_tpu_torch.models.logreg import make_logreg
+    from advancedvi_jl_tpu_torch.models.normal import normal_fullrank_wellcond
+    from advancedvi_jl_tpu_torch.ops.cuda.location_scale_kernels import seed_words
+
+    C0 = torch.eye(d, device=dev)
+    if model == "logreg":
+        prob = make_logreg(DATA_SEED, n_data=N_DATA, n_features=d - 2, device=dev)
+        spec, C0 = avt.logreg_spec(prob.X, prob.y), 0.1 * C0
+    elif model == "mvnormal":
+        _, mu, L = normal_fullrank_wellcond(3, d, device=dev)
+        spec = avt.mvnormal_spec(mu, L)
+    else:
+        g = torch.Generator().manual_seed(d)
+        spec = avt.gaussian_spec(torch.randn(d, generator=g).to(dev),
+                                 (0.5 + torch.rand(d, generator=g)).to(dev))
+    eng = case_engine(dev, "fullrank", spec, branch, LR, 1e-4)
+    rows = eng.init(torch.zeros(d, device=dev), C0).stacked_fullrank()
+    return (spec.model, spec.consts, spec.scalars, *rows, seed_words(SEED), 0, 200, N_SAMPLES,
+            eng.hyp, None, 0, branch)
+
+
+def route_sweep(dev):
+    """The rule's routed launches (ROUTE_WIDTHS x ROUTE_BRANCHES): each
+    200-step chunk at one block and at every cluster size, in order and
+    back; the fastest size beside the rule's choice.  Returns {(model, d,
+    branch): (best size, rule, {size: ms})}."""
+    from advancedvi_jl_tpu_torch.ops.cuda.fused_advi import fused_fullrank_run_chunk_cuda
+
+    out = {}
+    for model, widths in ROUTE_WIDTHS.items():
+        for d in widths:
+            for bname in ROUTE_BRANCHES:
+                branch = route_branch(bname)
+                args = route_case(dev, model, d, branch)
+                reps = 2 if d >= 200 else 5
+                times = {}
+                for cs in cluster_sizes(d) + cluster_sizes(d)[::-1]:
+                    ms = cuda_ms(lambda: fused_fullrank_run_chunk_cuda(*args, cluster=cs), reps)
+                    times[cs] = min(times.get(cs, ms), ms)
+                best = min(times, key=times.get)
+                rule = rule_size(model, d, branch, N_DATA if model == "logreg" else 0)
+                say("m", route=f"{model}/{bname}", d=d, best=best, rule=rule,
+                    rule_over_best=f"{times[rule] / times[best]:.3f}",
+                    rule_over_single=f"{times[rule] / times[1]:.3f}",
+                    **{f"cs{cs}_ms": f"{ms:.4f}" for cs, ms in times.items()})
+                out[(model, d, bname)] = (best, rule, times)
+    return out
 
 
 def phase_m(dev, card):
@@ -1142,6 +1300,7 @@ def phase_m(dev, card):
     graph replay, at each rows-a-block choice; the full-rank step's phase
     split."""
     from advancedvi_jl_tpu_torch.ops.cuda.fused_advi import (
+        DEFAULT_BRANCH, MODEL_CODES, cluster_barrier_cycles, cluster_max_active,
         fused_fullrank_run_chunk_cuda, fused_fullrank_run_chunk_reference,
     )
     from advancedvi_jl_tpu_torch.ops.cuda.location_scale_kernels import (
@@ -1166,9 +1325,9 @@ def phase_m(dev, card):
     for name, args in fullrank_chunk_args(dev).items():
         d = args[3].shape[1]
         model = args[0]
-        k_ms = cuda_ms(lambda: fused_fullrank_run_chunk_cuda(*args), 10)
+        k_ms = cuda_ms(lambda: fused_fullrank_run_chunk_cuda(*args, cluster=1), 10)
         p_ms = cuda_ms(lambda: fused_fullrank_run_chunk_reference(*args), 1)
-        k_ms2 = cuda_ms(lambda: fused_fullrank_run_chunk_cuda(*args), 10)
+        k_ms2 = cuda_ms(lambda: fused_fullrank_run_chunk_cuda(*args, cluster=1), 10)
         # the chunk's bound: z, the whitening and dC (three (n, d) x triangle
         # products) and the model (the logreg's two (n, 208, 61) products, or
         # the dense Gaussian's (n, d) x (d, d) precision product) a step; the
@@ -1185,6 +1344,38 @@ def phase_m(dev, card):
             bound_ms=b_ms, bound_by=b_by, model_body_bound_ms=body_ms)
         out[f"fused_advi_fullrank_{name}"] = (min(k_ms, k_ms2), p_ms)
         phase_split(dev, name, args, min(k_ms, k_ms2))
+        # the cluster sweep: every size in turns with the single block; the
+        # sizes the kernel does not take at this d are refused
+        rule = rule_size(model, d, DEFAULT_BRANCH, N_DATA if model == "logreg" else 0)
+        for cs in (2, 4, 8, 16):
+            if cs not in cluster_sizes(d):
+                try:
+                    fused_fullrank_run_chunk_cuda(*args, cluster=cs)
+                    refused = None
+                except ValueError as e:
+                    refused = str(e)
+                check(refused is not None, f"cluster={cs} at d = {d} was not refused")
+                say("m", cluster_sweep=name, d=d, cluster=cs, refused=f"'{refused}'")
+        sweep = {}
+        for cs in cluster_sizes(d) + cluster_sizes(d)[::-1]:
+            ms = cuda_ms(lambda: fused_fullrank_run_chunk_cuda(*args, cluster=cs), 5)
+            sweep[cs] = sweep.get(cs, ()) + (ms,)
+        for cs, times in sweep.items():
+            active = (cluster_max_active(MODEL_CODES[model], N_DATA if model == "logreg" else 0,
+                                         d - 1 if model == "logreg" else 0, N_SAMPLES, d, 4, cs)
+                      if cs > 1 else None)
+            say("m", cluster_sweep=name, d=d, cluster=cs,
+                chunk_ms=",".join(f"{t:.4f}" for t in times),
+                rule=rule, chosen=cs == rule, max_active_clusters=active,
+                speedup_vs_single=f"{min(sweep[1]) / min(times):.3f}")
+        for cs in cluster_sizes(d)[1:]:
+            cluster_split(name, args, cs, min(sweep[cs]))
+        if rule > 1:
+            out[f"fused_advi_fullrank_cluster_{name}"] = (min(sweep[rule]), p_ms, b_ms, b_by)
+    route_sweep(dev)
+    for cs in (1, 2, 4, 8, 16):
+        cluster_barrier_cycles(cs, 10)
+        say("m", cluster_barrier=cs, cycles_per_barrier=cluster_barrier_cycles(cs, 1000) / 1000)
     say("m", card=f"'{card}'", fullrank_general_steps_per_s=f"{general_sps:.1f}",
         d=FR_D, n=FR_N)
     n, d = FR_SHAPE
@@ -2562,20 +2753,20 @@ def kernel_bounds():
     x_bytes = 4 * (N_DATA * db + N_DATA)
     fr_n, fr_d = FR_SHAPE
     tri = fr_n * fr_d * (fr_d + 1) // 2  # multiply-adds of a (n, d) x triangle
-    fr_tri = 3 * n * d * (d + 1) // 2   # z, the whitening and dC at d = 62
     dg = NLN_DIMS + 1
+    # full-rank prox on normal-lognormal: z and dC, no whitening
+    nln = (2.0 * 200 * (2 * n * dg * (dg + 1) // 2 + n * dg),
+           4.0 * (2 * dg + 8 * dg + 8 * dg * dg))
     return {
         "meanfield_sample": (2.0 * n * d, 4.0 * (2 * d + 2 * n * d)),
         "fused_advi_meanfield": (2.0 * 200 * 2 * logreg, x_bytes + 4.0 * 16 * d),
         "fullrank_sample": (2.0 * tri, 4.0 * (fr_d * (fr_d + 1) // 2 + fr_d + 2 * fr_n * fr_d)),
         "trisolve": (2.0 * tri, 4.0 * (fr_d * (fr_d + 1) // 2 + 2 * fr_n * fr_d)),
-        "fused_advi_fullrank": (2.0 * 200 * (2 * logreg + fr_tri),
-                                x_bytes + 4.0 * (8 * d + 8 * d * d)),
+        # the single-block kernel at its counted path's shape, (p)'s
+        "fused_advi_fullrank": nln,
         "fused_k3_rules": (2.0 * 200 * 2 * logreg, x_bytes + 4.0 * 16 * d),
         "fused_k3_vargrad": (2.0 * 200 * logreg, x_bytes + 4.0 * 16 * d),
-        # full-rank prox on normal-lognormal: z and dC, no whitening
-        "fused_k4_gaussian": (2.0 * 200 * (2 * n * dg * (dg + 1) // 2 + n * dg),
-                              4.0 * (2 * dg + 8 * dg + 8 * dg * dg)),
+        "fused_k4_gaussian": nln,
         # CHAINS_MAIN_C and CHAINS_WIDE_C chains of the flagship step: the
         # design read once, each chain's state in and out
         "fused_chains": (2.0 * 200 * CHAINS_MAIN_C * 2 * logreg,
@@ -2971,7 +3162,7 @@ def main() -> int:
     lap("c-h")
     fr_samp_err = phase_i(dev)
     tri_err = phase_j(dev)
-    fr_fused_err = phase_k(dev)
+    fr_fused_err, fr_cluster_err = phase_k(dev)
     fr_counts = fullrank_paths(dev)
     fr_times = phase_m(dev, card)
     lap("i-m")
@@ -3026,10 +3217,18 @@ def main() -> int:
         entry("trisolve_CT", "trisolve.cu",
               "advancedvi_jl_tpu/ops/pallas/trisolve_kernels.py:115", fr_counts["trisolve"],
               tri_err, *fr_times["trisolve_CT"], bound_=bounds["trisolve"]),
+        # the single-block kernel on the main paths of (l) and (p) (full-rank
+        # prox, d = 11: one panel), timed and bounded at (p)'s shape; its
+        # error from (k) at d = 62 and 512 (forced to one block)
         entry("fused_advi_fullrank", "fused_advi_fullrank.cu", f"{fused}681",
-              fr_counts["fused_advi_fullrank"], fr_fused_err,
-              *fr_times["fused_advi_fullrank_logreg"]),
+              fr_counts["fused_advi_fullrank"] + slice_counts["fused_advi_fullrank"],
+              fr_fused_err, *slice_times["prox_fullrank_nln"]),
     ]
+    # the cluster kernel on (l)'s main path, timed at d = 512 (cluster_blocks' size)
+    ms, plain_ms, b_ms, b_by = fr_times["fused_advi_fullrank_cluster_mvnormal"]
+    kernels.append(entry("fused_advi_fullrank_cluster", "fused_advi_fullrank.cu", f"{fused}681",
+                         fr_counts["fused_advi_fullrank_cluster"], fr_cluster_err, ms, plain_ms,
+                         bound_=(b_ms, b_by)))
     for name, group, source, line, timed in (
             ("fused_k3_rules", "k3_rules", "fused_common.cuh", 556, "prox"),
             ("fused_k3_vargrad", "k3_vargrad", "fused_advi_meanfield.cu", 489, "bbvi"),

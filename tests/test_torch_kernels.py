@@ -23,6 +23,7 @@ from advancedvi_jl_tpu_torch.ops.cuda.fused_advi import (
     FusedBranch,
     FusedHyper,
     FusedLogRegADVI,
+    MODEL_CODES,
     fused_fullrank_run_chunk_cuda,
     fused_fullrank_run_chunk_reference,
     fused_run_chunk_cuda,
@@ -291,6 +292,180 @@ def test_fused_fullrank_kernel_chunks_and_traces_bitwise(dev, model):
         assert torch.equal(getattr(whole, f), getattr(split, f)), f
         assert torch.equal(getattr(whole, f), getattr(traced, f)), f
     assert torch.equal(trace[-1], whole.elbo) and trace.shape == (6,)
+
+
+# The cluster kernel (fused_advi_fullrank_cluster_kernel): one chunk on cs
+# blocks, split by output, so every size gives the single-block bits.
+CLUSTER_CASES = [("logreg", 62), ("mvnormal", 33), ("mvnormal", 100), ("mvnormal", 512),
+                 ("gaussian", 100)]
+CLUSTER_BRANCHES = {
+    "adam": FusedBranch(),
+    "descent": FusedBranch("descent"),
+    "cocob": FusedBranch("cocob"),
+    "stl_zero_prox": FusedBranch("descent", "stl_zero_grad", "repgrad", "prox"),
+    "cf_zero": FusedBranch("adam", "closed_form_zero_grad"),
+}
+
+
+def _cluster_case(model, d, dev, branch):
+    """A served model and the engine's initial rows for the branch (COCOB's
+    seven)."""
+    if model == "gaussian":
+        g = torch.Generator().manual_seed(d)
+        spec = gaussian_spec(torch.randn(d, generator=g).to(dev),
+                             (0.5 + torch.rand(d, generator=g)).to(dev))
+        C0 = torch.eye(d, device=dev)
+    else:
+        spec, _, mat = _fullrank_case(model, dev, d)
+        C0 = mat[0]
+    eng = _engine(spec, "fullrank", branch)
+    vec, mat = eng.init(torch.zeros(spec.dim, device=dev), C0).stacked_fullrank(
+        with_ext=branch.algo == "cocob")
+    return spec, vec, mat
+
+
+def _bits_equal(a, b):
+    """Bit for bit, NaN payloads included."""
+    return torch.equal(a.reshape(-1).view(torch.int32), b.reshape(-1).view(torch.int32))
+
+
+def _cluster_sizes(d):
+    return [cs for cs in (2, 4, 8, 16) if cs <= -(-d // 32)]
+
+
+@pytest.mark.parametrize("branch", list(CLUSTER_BRANCHES), ids=list(CLUSTER_BRANCHES))
+@pytest.mark.parametrize("model,d", CLUSTER_CASES)
+def test_fullrank_cluster_is_the_single_block_kernel(dev, model, d, branch):
+    """Every cluster size gives the single-block kernel's bits: 20 injected
+    noise steps and 60 Philox steps, traced."""
+    br = CLUSTER_BRANCHES[branch]
+    spec, vec, mat = _cluster_case(model, d, dev, br)
+    noise = torch.randn((20, N, spec.dim), generator=torch.Generator().manual_seed(4)).to(dev)
+    for nz, steps in ((noise, 20), (None, 60)):
+        args = (spec.model, spec.consts, spec.scalars, vec, mat, seed_words(2), 0, steps, N,
+                FusedHyper(), nz, 10, br)
+        one = fused_fullrank_run_chunk_cuda(*args, cluster=1)
+        for cs in _cluster_sizes(spec.dim):
+            got = fused_fullrank_run_chunk_cuda(*args, cluster=cs)
+            torch.cuda.synchronize()
+            assert bool(torch.isfinite(one[1]).all()), "the case diverged"
+            for a, b in zip(one, got):
+                assert _bits_equal(a, b), (cs, nz is None)
+
+
+@pytest.mark.parametrize("model,d", CLUSTER_CASES)
+def test_fullrank_cluster_matches_plain_version(dev, model, d):
+    """At every size: norm-wise 1e-5 after 20 injected-noise steps, 1e-4
+    after 200 Philox steps (float32 transcendentals and sums in another
+    order, carried by Adam)."""
+    spec, vec, mat = _cluster_case(model, d, dev, FusedBranch())
+    noise = torch.randn((20, N, spec.dim), generator=torch.Generator().manual_seed(2)).to(dev)
+    for nz, steps, rtol in ((noise, 20, 1e-5), (None, 200, 1e-4)):
+        args = (spec.model, spec.consts, spec.scalars, vec, mat, seed_words(0), 0, steps, N,
+                FusedHyper(), nz, 5)
+        rv, rm, re, rt = fused_fullrank_run_chunk_reference(*args)
+        for cs in _cluster_sizes(spec.dim):
+            kv, km, ke, kt = fused_fullrank_run_chunk_cuda(*args, cluster=cs)
+            torch.cuda.synchronize()
+            _norm_close(list(kv) + list(km), list(rv) + list(rm), rtol)
+            assert torch.allclose(ke, re, rtol=rtol, atol=10 * rtol)
+            assert torch.allclose(kt, rt, rtol=rtol, atol=10 * rtol)
+            assert torch.equal(torch.triu(km[0], 1), torch.triu(mat[0], 1))
+
+
+@pytest.mark.parametrize("model,d", CLUSTER_CASES)
+def test_fullrank_cluster_chunks_and_traces_bitwise(dev, model, d):
+    """run_chunk(60) equals run_chunk(20) then run_chunk(40), and a traced
+    run the untraced one, at every cluster size."""
+    spec, vec, mat = _cluster_case(model, d, dev, FusedBranch())
+    base = (spec.model, spec.consts, spec.scalars)
+    for cs in _cluster_sizes(spec.dim):
+        whole = fused_fullrank_run_chunk_cuda(*base, vec, mat, seed_words(7), 0, 60, N,
+                                              FusedHyper(), cluster=cs)
+        half = fused_fullrank_run_chunk_cuda(*base, vec, mat, seed_words(7), 0, 20, N,
+                                             FusedHyper(), cluster=cs)
+        split = fused_fullrank_run_chunk_cuda(*base, half[0], half[1], seed_words(7), 20, 40, N,
+                                              FusedHyper(), cluster=cs)
+        traced = fused_fullrank_run_chunk_cuda(*base, vec, mat, seed_words(7), 0, 60, N,
+                                               FusedHyper(), None, 10, cluster=cs)
+        torch.cuda.synchronize()
+        for a, b, c in zip(whole[:3], split[:3], traced[:3]):
+            assert torch.equal(a, b) and torch.equal(a, c), cs
+        assert float(traced[3][-1]) == float(whole[2]) and traced[3].shape == (6,)
+
+
+# The cluster kernel's layout, a block's bytes at n = 10, keyed (n_data, db,
+# d, k, cs) (n_data > 0: the logreg; else mvnormal or the Gaussian, which
+# share a layout): tests/test_torch_fullrank_cluster.py's CLUSTER_LAYOUTS,
+# the figures it hands the wrapper's rule on the CPU.
+CLUSTER_LAYOUTS = {
+    (208, 32, 33, 4, 2): 70280, (208, 32, 33, 7, 2): 83348,
+    (208, 61, 62, 4, 2): 120856, (208, 61, 62, 7, 2): 145408,
+    (208, 127, 128, 4, 2): 174524, (208, 127, 128, 4, 4): 221592,
+    (208, 127, 128, 7, 2): 176060, (208, 127, 128, 7, 4): 169880,
+    (0, 0, 33, 4, 2): 30344, (0, 0, 33, 7, 2): 43412,
+    (0, 0, 62, 4, 2): 56792, (0, 0, 62, 7, 2): 81344,
+    (0, 0, 100, 4, 2): 146748, (0, 0, 100, 4, 4): 91448,
+    (0, 0, 100, 7, 2): 224748, (0, 0, 100, 7, 4): 131048,
+    (0, 0, 200, 4, 2): 106884, (0, 0, 200, 4, 4): 84348,
+    (0, 0, 200, 7, 2): 109284, (0, 0, 200, 7, 4): 86748,
+    (0, 0, 512, 4, 2): 172308, (0, 0, 512, 4, 4): 155908,
+    (0, 0, 512, 4, 8): 209148, (0, 0, 512, 4, 16): 205048,
+    (0, 0, 512, 7, 2): 178452, (0, 0, 512, 7, 4): 162052,
+    (0, 0, 512, 7, 8): 215292, (0, 0, 512, 7, 16): 211192,
+    (850, 61, 62, 4, 2): 278912,
+}
+
+
+def test_fullrank_cluster_shared_memory_is_the_kernels(dev):
+    """The kernel's make_cluster_layout count (what the wrapper hands
+    cluster_blocks and check_cluster) equals the figures the CPU tests hand
+    the rule, for the logreg, mvnormal and the Gaussian."""
+    smem = _build.function("fused_advi_fullrank", "fused_advi_fullrank_cluster_smem_bytes",
+                           [ctypes.c_int] * 7, restype=ctypes.c_size_t)
+    for (n_data, db, d, k, cs), want in CLUSTER_LAYOUTS.items():
+        models = ("logreg",) if n_data else ("mvnormal", "gaussian")
+        for model in models:
+            assert smem(MODEL_CODES[model], n_data, db, N, d, k, cs) == want, (model, d, k, cs)
+
+
+@pytest.mark.parametrize("model,d", [("logreg", 62), ("mvnormal", 100), ("mvnormal", 512),
+                                     ("gaussian", 512)])
+def test_fullrank_cluster_elbo_and_trace_at_the_largest_size(dev, model, d):
+    """At the largest size the kernel takes, with injected noise (the draws
+    a bare copy, the fastest they can be) and a trace row every step, the
+    ELBO and the trace are the single-block kernel's bits, run after run:
+    rank 0's |u|^2 waits for this step's draws."""
+    spec, vec, mat = _cluster_case(model, d, dev, FusedBranch())
+    noise = 3.0 * torch.randn((50, N, spec.dim),
+                              generator=torch.Generator().manual_seed(9)).to(dev)
+    args = (spec.model, spec.consts, spec.scalars, vec, mat, seed_words(3), 0, 50, N,
+            FusedHyper(), noise, 1)
+    one = fused_fullrank_run_chunk_cuda(*args, cluster=1)
+    cs = _cluster_sizes(spec.dim)[-1]
+    for _ in range(5):
+        got = fused_fullrank_run_chunk_cuda(*args, cluster=cs)
+        torch.cuda.synchronize()
+        assert _bits_equal(one[2], got[2]) and _bits_equal(one[3], got[3]), cs
+
+
+def test_fullrank_cluster_launches_are_counted_apart(dev):
+    """The rule's cluster launch adds to ``cluster_launches``, a forced
+    single block to ``launches``; every size is schedulable at d = 512."""
+    from advancedvi_jl_tpu_torch.ops.cuda.fused_advi import cluster_max_active
+
+    spec, vec, mat = _fullrank_case("mvnormal", dev)
+    args = (spec.model, spec.consts, spec.scalars, vec, mat, seed_words(0), 0, 2, N,
+            FusedHyper())
+    one = fused_fullrank_run_chunk_cuda.launches
+    many = fused_fullrank_run_chunk_cuda.cluster_launches
+    fused_fullrank_run_chunk_cuda(*args)
+    fused_fullrank_run_chunk_cuda(*args, cluster=1)
+    torch.cuda.synchronize()
+    assert fused_fullrank_run_chunk_cuda.launches == one + 1
+    assert fused_fullrank_run_chunk_cuda.cluster_launches == many + 1
+    for cs in _cluster_sizes(512):
+        assert cluster_max_active(MODEL_CODES["mvnormal"], 0, 0, N, 512, 4, cs) >= 1
 
 
 def test_fused_fullrank_kernel_refuses_oversized_shared_memory(dev):
