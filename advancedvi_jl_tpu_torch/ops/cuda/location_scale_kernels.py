@@ -285,6 +285,14 @@ def meanfield_sample(
 # ---------------------------------------------------------------------------
 
 
+def fullrank_affine_reference(
+    u: torch.Tensor, location: torch.Tensor, scale: torch.Tensor
+) -> torch.Tensor:
+    """z = u tril(C)^T + m for given draws u (the product of the kernel's
+    second launch); only the lower triangle of ``scale`` is used."""
+    return u @ torch.tril(scale).T + location
+
+
 def fullrank_sample_reference(
     seed: Tuple[int, int], it: int, location: torch.Tensor,
     scale: torch.Tensor, n: int,
@@ -294,31 +302,119 @@ def fullrank_sample_reference(
     u = philox_normals_reference(
         seed, it, n, location.shape[0], device=location.device
     )
-    return u @ torch.tril(scale).T + location, u
+    return fullrank_affine_reference(u, location, scale), u
+
+
+# csrc/fullrank_sample.cu's product: 64 x 64 output tiles, summed over k in
+# steps of 32 (two a column tile of C); a block takes at least FR_MIN_STEPS
+# steps, so a small shape runs on fewer blocks than the card has SMs.
+FR_TILE = 64
+FR_STEP = 32
+FR_MIN_STEPS = 4
+
+
+class FullRankPlan(NamedTuple):
+    """How the product's work is cut over the blocks (stream-K).  Every
+    (tile, step) of the triangle, tiles in order of column tile then row
+    tile, is laid end to end; block b takes steps [b W / B, (b + 1) W / B)
+    of the W in all.  Its range is one or more segments, each a piece of
+    one tile: (row0, col0, step0, step1, tile, piece, pieces, slot).  A tile
+    cut into several pieces keeps each piece's partial sum in workspace slot
+    ``slot + piece``; the last to arrive adds them in piece order."""
+
+    blocks: int
+    tiles: int   # output tiles, one counter each
+    slots: int   # 64 x 64 partial sums in the workspace
+    table: torch.Tensor  # int32: block offsets (padded to 4 words), then segments
+
+
+def fullrank_plan(n: int, d: int, sms: int) -> FullRankPlan:
+    """The product's cut of (n, d) over at most ``sms`` blocks (the card's
+    SMs: one block an SM)."""
+    row_tiles, col_tiles = -(-n // FR_TILE), -(-d // FR_TILE)
+    # column tile j sums k < min(d, 64 (j + 1)): C's row c stops at k = c
+    tile_steps = [-(-min(d, FR_TILE * (j + 1)) // FR_STEP) for j in range(col_tiles)]
+    total = row_tiles * sum(tile_steps)
+    blocks = max(1, min(sms, total // FR_MIN_STEPS))
+    starts = [b * total // blocks for b in range(blocks + 1)]
+    per_block = [[] for _ in range(blocks)]
+    at = slots = 0
+    b = 0
+    for j in range(col_tiles):
+        for i in range(row_tiles):
+            tile = j * row_tiles + i
+            end = at + tile_steps[j]
+            while starts[b + 1] <= at:
+                b += 1
+            last = b
+            while starts[last + 1] < end:
+                last += 1
+            pieces = last - b + 1
+            for q in range(pieces):
+                lo, hi = max(starts[b + q], at), min(starts[b + q + 1], end)
+                per_block[b + q].append(
+                    (FR_TILE * i, FR_TILE * j, lo - at, hi - at, tile, q, pieces,
+                     slots if pieces > 1 else 0))
+            slots += pieces if pieces > 1 else 0
+            at = end
+    head = (blocks + 4) & ~3  # the offsets, padded so each segment is 16-byte aligned
+    offsets, count = [], 0
+    for segs in per_block:
+        offsets.append(count)
+        count += len(segs)
+    offsets.append(count)
+    words = offsets + [0] * (head - blocks - 1) + [w for segs in per_block for s in segs
+                                                   for w in s]
+    return FullRankPlan(blocks, row_tiles * col_tiles, slots,
+                        torch.tensor(words, dtype=torch.int32))
+
+
+_FR_PLANS = {}  # (n, d, device index) -> (plan, its table on the card)
+_FR_ARGTYPES = (
+    [ctypes.c_void_p] * 7
+    + [ctypes.c_int] * 4 + [ctypes.c_uint32] * 3 + [ctypes.c_void_p]
+)
+
+
+def _card_plan(n: int, d: int, device: torch.device):
+    key = (n, d, device.index)
+    hit = _FR_PLANS.get(key)
+    if hit is None:
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        plan = fullrank_plan(n, d, sms)
+        hit = _FR_PLANS[key] = (plan, plan.table.to(device))
+    return hit
 
 
 def fullrank_sample_cuda(
     seed: Tuple[int, int], it: int, location: torch.Tensor,
     scale: torch.Tensor, n: int,
 ):
-    """Launch csrc/fullrank_sample.cu on the current stream; returns (z, u).
-    Only the lower triangle of ``scale`` is read.  Adds one to
-    ``fullrank_sample_cuda.launches`` per launch."""
+    """Launch csrc/fullrank_sample.cu on the current stream (the draws, then
+    the product); returns (z, u).  Only the lower triangle of ``scale`` is
+    read.  Adds one to ``fullrank_sample_cuda.launches`` per call."""
     if not location.is_cuda:
         raise ValueError(f"fullrank_sample_cuda needs GPU tensors, got {location.device}")
+    dev = location.device
     d = location.shape[0]
-    check_f32("location", location, (d,), location.device)
-    check_f32("scale", scale, (d, d), location.device)
-    fn = _build.function("fullrank_sample", "fullrank_sample", _SAMPLE_ARGTYPES)
-    z = torch.empty((n, d), dtype=torch.float32, device=location.device)
-    u = torch.empty((n, d), dtype=torch.float32, device=location.device)
+    check_f32("location", location, (d,), dev)
+    check_f32("scale", scale, (d, d), dev)
+    fn = _build.function("fullrank_sample", "fullrank_sample", _FR_ARGTYPES)
+    z = torch.empty((n, d), dtype=torch.float32, device=dev)
+    u = torch.empty((n, d), dtype=torch.float32, device=dev)
     if n == 0:
         return z, u
-    with torch.cuda.device(location.device):
+    plan, table = _card_plan(n, d, dev)
+    # the partial sums, then one int32 counter a tile
+    work = torch.empty(plan.slots * FR_TILE * FR_TILE + plan.tiles, dtype=torch.float32,
+                       device=dev)
+    with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(
             location.data_ptr(), scale.data_ptr(), z.data_ptr(), u.data_ptr(),
-            n, d, seed[0], seed[1], it & _MASK32, stream,
+            work.data_ptr(), work.data_ptr() + 4 * plan.slots * FR_TILE * FR_TILE,
+            table.data_ptr(), plan.blocks, plan.tiles, n, d, seed[0], seed[1],
+            it & _MASK32, stream,
         )
     _build.check(err, "fullrank_sample launch")
     fullrank_sample_cuda.launches += 1

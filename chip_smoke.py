@@ -27,9 +27,12 @@ Phases:
   (e) the fused kernel with in-kernel Philox: chunking, tracing, plain version;
   (f) the general path on the card;  (g) the fused engine on the card;
   (h) steps/s of both paths and each kernel's time beside its plain version
-      (the sampler also by CUDA-graph replay, without the wrapper's host time);
-      the flagship step's phase split (an instrumented build's counters);
-  (i) the full-rank sampler (K7b) against its plain version and K7a's draws;
+      (the sampler also by CUDA-graph replay, without the wrapper's host time,
+      beside an empty kernel of its geometry: the launch floor); the flagship
+      step's phase split (an instrumented build's counters);
+  (i) the full-rank sampler (K7b) against its plain version and K7a's draws
+      at the main path's, ragged and bench_large's shapes, C with NaN above
+      its diagonal: u bitwise, z within 1e-6 and bitwise across two calls;
   (j) the triangular solve (K8), both modes, against a float64 solve and
       its plain version at the main path's and at ragged shapes (n from 1
       to 300, d from 1 to 1,024), every rows-a-block choice bit-equal;
@@ -43,7 +46,9 @@ Phases:
       dense Gaussian at d = 512 to 1,000 (the cluster kernel's launches
       counted apart), fused vs general on the same key at d = 62 and 512;
   (m) steps/s of the full-rank paths and the new kernels' times beside
-      their plain versions; K8 beside cuBLAS trsm by CUDA events and by
+      their plain versions; K7b by CUDA-graph replay at 256 x 1024 and
+      128 x 2048 beside cuBLAS's product alone (addmm on given draws);
+      K8 beside cuBLAS trsm by CUDA events and by
       CUDA-graph replay, at each rows-a-block choice; the full-rank step's
       phase split (an instrumented build's cycle counters) at d = 62 and
       512; the cluster sweep (chunk ms at 1, 2, 4, 8, 16 blocks, the rule's
@@ -105,7 +110,7 @@ Phases:
       covariance at 65,536 draws, 64 chains agreeing on the optimum).
 
 With ``--parent CHECKOUT`` (e.g. a ``git archive`` of the parent commit
-under the ignored ``_archive/``) it then times K8 and the chunks of
+under the ignored ``_archive/``) it then times K8, K7b and the chunks of
 ``ab_chunks`` with that checkout's package and with this one's, a fresh
 process each, alternating, each side with the mean-field phase split of
 its flagship and minibatch chunks (the other checkout needs the
@@ -145,6 +150,7 @@ SAMPLER_SHAPE = (65_536, 512)
 # and the full-rank fused engine at the JAX engine's widest d
 FR_D, FR_N = 1024, 256
 FR_SHAPE = (FR_N, FR_D)
+FR_WIDE_SHAPE = (128, 2048)  # bench_fullrank_flopbound's second size: K7b timed there too
 FR_GENERAL_STEPS = 500
 FR_FUSED_D = 512
 FR_AGREE_STEPS = 2_000  # fused vs general, logreg d = 62
@@ -551,6 +557,45 @@ def flagship_chunk_args(dev):
             seed_words(SEED), 0, 200, N_SAMPLES, FusedHyper(lr=LR))
 
 
+# An empty kernel launched with K7a's geometry (csrc/meanfield_sample.cu:
+# 32 lane groups x 8 rows a block): what a launch costs the card with no work.
+LAUNCH_FLOOR = r"""
+#include <cuda_runtime.h>
+__global__ void empty_kernel() {}
+extern "C" int empty_launch(int gx, int gy, cudaStream_t stream) {
+  empty_kernel<<<dim3(gx, gy), dim3(32, 8), 0, stream>>>();
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+
+
+def launch_floor_ms(n, d):
+    """Milliseconds of an empty kernel on K7a's grid at (n, d) by CUDA-graph
+    replay, as ``graph_ms`` times K7a: the floor of any launch of that
+    geometry.  Built with the kernels' flags into a temporary directory under
+    build/kernels/."""
+    import ctypes
+    import tempfile
+
+    from advancedvi_jl_tpu_torch.ops.cuda import _build
+
+    groups = -(-d // 4)
+    grid = (-(-groups // 32), min(-(-n // 8), 65535))
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+        src, lib = Path(tmp) / "launch_floor.cu", Path(tmp) / "liblaunch_floor.so"
+        src.write_text(LAUNCH_FLOOR)
+        subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(src)],
+                       capture_output=True, text=True, timeout=300, check=True)
+        fn = ctypes.CDLL(str(lib)).empty_launch
+        fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+
+        def launch():
+            _build.check(fn(*grid, torch.cuda.current_stream().cuda_stream), "empty launch")
+
+        return graph_ms(launch, 200)
+
+
 def phase_h(dev, card):
     import advancedvi_jl_tpu_torch as avt
     from advancedvi_jl_tpu_torch.ops.cuda.fused_advi import (
@@ -594,8 +639,11 @@ def phase_h(dev, card):
     fr_ms = cuda_ms(lambda: fused_run_chunk_reference(*args), 1)
     # events over back-to-back calls time the wrapper's host work (the kernel
     # is ~2 us); the graph replay times the card alone
+    floor = launch_floor_ms(N_SAMPLES, d)
     say("h", meanfield_sample_ms=samp_ms, meanfield_sample_graph_ms=samp_graph,
         meanfield_sample_plain_ms=samp_plain, shape=f"{N_SAMPLES}x{d}")
+    say("h", card=f"'{card}'", launch_floor_graph_ms=floor, meanfield_sample_graph_ms=samp_graph,
+        meanfield_sample_over_floor=f"{samp_graph / floor:.3f}", shape=f"{N_SAMPLES}x{d}")
     say("h", fused_chunk_ms=fk_ms, fused_chunk_plain_ms=fr_ms, chunk_steps=args[6])
     mf_split("h", "flagship_hand", args, fk_ms)
     return {"meanfield_sample": (samp_graph, samp_plain),
@@ -621,30 +669,55 @@ def factor(d, dev, seed=3):
     return L.to(dev), (L + torch.triu(torch.ones(d, d), 1)).to(dev)
 
 
+# K7b's shapes in (i): the main path's, the fused comparison's, ragged ones
+# (n and d off every tile and step multiple of csrc/fullrank_sample.cu) and
+# bench_large's second size
+FR_SAMPLE_SHAPES = [FR_SHAPE, (N_SAMPLES, N_FEATURES + 2)] + [
+    (n, d) for n in (1, 3, 7, 33, 300) for d in (1, 5, 33, 62, 100, 1000)] + [FR_WIDE_SHAPE]
+
+
+def nan_factor(d, dev, seed=3):
+    """The well-conditioned Cholesky factor of normal_fullrank_wellcond(d),
+    with NaN above the diagonal: a kernel that read it would put NaN in z."""
+    from advancedvi_jl_tpu_torch.models.normal import normal_fullrank_wellcond
+
+    _, _, L = normal_fullrank_wellcond(seed, d, device="cpu")
+    return (L + torch.triu(torch.full((d, d), float("nan")), 1)).to(dev)
+
+
 def phase_i(dev):
-    """K7b against its plain version and against K7a's draws."""
+    """K7b against its plain version and K7a's draws at every shape of
+    FR_SAMPLE_SHAPES, C with NaN above its diagonal: u bitwise the plain
+    version's and K7a's, z finite, within 1e-6 norm-wise of the plain
+    version, and the same bits on a second call."""
     from advancedvi_jl_tpu_torch.ops.cuda.location_scale_kernels import (
         fullrank_sample_cuda, fullrank_sample_reference, meanfield_sample_cuda, seed_words,
     )
 
     seed = seed_words(SEED)
-    worst = 0.0
-    for n, d in (FR_SHAPE, (N_SAMPLES, N_FEATURES + 2)):
-        _, C = factor(d, dev)
+    worst_err = worst_rel = 0.0
+    for n, d in FR_SAMPLE_SHAPES:
+        C = nan_factor(d, dev)
         loc = torch.randn(d, generator=torch.Generator().manual_seed(d)).to(dev)
         z, u = fullrank_sample_cuda(seed, 5, loc, C, n)
+        z2, u2 = fullrank_sample_cuda(seed, 5, loc, C, n)
         zr, ur = fullrank_sample_reference(seed, 5, loc, C, n)
         _, umf = meanfield_sample_cuda(seed, 5, loc, torch.ones_like(loc), n)
         torch.cuda.synchronize()
         rel, err = rel_err(z, zr), max_err(z, zr)
-        say("i", shape=f"{n}x{d}", u_bitwise_plain=bool(torch.equal(u, ur)),
-            u_bitwise_meanfield=bool(torch.equal(u, umf)), z_rel_err=rel, z_max_abs_err=err)
-        check(torch.equal(u, ur), "full-rank sampler u differs from its plain version")
-        check(torch.equal(u, umf), "full-rank sampler u differs from the mean-field sampler's")
+        checks = {"u_bitwise_plain": torch.equal(u, ur), "u_bitwise_meanfield": torch.equal(u, umf),
+                  "z_finite": bool(torch.isfinite(z).all()),
+                  "z_bitwise_two_calls": torch.equal(z, z2) and torch.equal(u, u2)}
+        if (n, d) in (FR_SHAPE, FR_WIDE_SHAPE) or not all(checks.values()):
+            say("i", shape=f"{n}x{d}", **checks, z_rel_err=rel, z_max_abs_err=err)
+        for name, ok in checks.items():
+            check(ok, f"full-rank sampler at {n}x{d}: {name} failed")
         # z sums d products in another order than the plain product
-        check(rel <= 1e-6, f"full-rank sampler z: norm-wise error {rel} > 1e-6")
-        worst = max(worst, err)
-    return worst
+        check(rel <= 1e-6, f"full-rank sampler z at {n}x{d}: norm-wise error {rel} > 1e-6")
+        worst_err, worst_rel = max(worst_err, err), max(worst_rel, rel)
+    say("i", shapes=len(FR_SAMPLE_SHAPES), all_checks=True, worst_z_rel_err=worst_rel,
+        worst_z_max_abs_err=worst_err, upper_triangle="nan")
+    return worst_err
 
 
 # K8's ragged shapes: n not a multiple of a block's rows, d not of a panel's 32
@@ -1010,10 +1083,14 @@ def walking(fn, args, step=200):
 def ab_times(dev):
     """The A/B's side of one checkout, run in a child process with that
     checkout's package: K8 at 256 x 1024 in both modes (events and graph
-    replay), every chunk of ``ab_chunks``, and the mean-field phase split of
+    replay), K7b at 256 x 1024 and 128 x 2048 (graph replay), every chunk of
+    ``ab_chunks``, and the mean-field phase split of
     the flagship hand and ad chunks and of the mean-field minibatch
     chunks."""
     from advancedvi_jl_tpu_torch.ops.cuda import _build
+    from advancedvi_jl_tpu_torch.ops.cuda.location_scale_kernels import (
+        fullrank_sample_cuda, seed_words,
+    )
     from advancedvi_jl_tpu_torch.ops.cuda.trisolve_kernels import solve_right_cuda
 
     _build.build_all()
@@ -1030,6 +1107,11 @@ def ab_times(dev):
     for mode in ("C", "CT"):
         out[f"trisolve_{mode}"] = cuda_ms(lambda: solve_right_cuda(C, V, mode), 200)
         out[f"trisolve_{mode}_graph"] = graph_ms(lambda: solve_right_cuda(C, V, mode))
+    for n, d in (FR_SHAPE, FR_WIDE_SHAPE):  # K7b by graph replay: the card alone
+        _, Cf = factor(d, dev)
+        loc = torch.randn(d, generator=torch.Generator().manual_seed(d)).to(dev)
+        out[f"fullrank_sample_{n}x{d}_graph"] = graph_ms(
+            lambda: fullrank_sample_cuda(seed_words(SEED), 1, loc, Cf, n))
     for name, (fn, reps) in chunks.items():
         out[name] = cuda_ms(fn, reps)
     for name, (args, ad, walk) in splits.items():
@@ -1294,6 +1376,55 @@ def route_sweep(dev):
     return out
 
 
+def kernel_us(fn, calls: int = 20) -> dict:
+    """{kernel name: device microseconds a call} of the kernels ``fn()``
+    launches, by torch.profiler over ``calls`` warmed-up calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.device_time_total / calls for e in prof.key_averages()
+            if e.device_time_total > 0}
+
+
+def fullrank_sample_times(dev, n, d):
+    """K7b at (n, d) by CUDA-graph replay (the card alone: events over
+    back-to-back calls time the wrapper's host work, 0.02-0.05 ms), and by
+    events beside it; its plain version; and the library's product alone,
+    ``torch.addmm(m, u, tril(C)^T)`` on given draws and a transposed
+    triangle made beforehand (cuBLAS, no draws).  Returns (graph ms, plain
+    ms, library graph ms)."""
+    from advancedvi_jl_tpu_torch.ops.cuda.location_scale_kernels import (
+        fullrank_sample_cuda, fullrank_sample_reference, seed_words,
+    )
+
+    seed = seed_words(SEED)
+    _, C = factor(d, dev)
+    loc = torch.randn(d, generator=torch.Generator().manual_seed(d)).to(dev)
+    kernel = lambda: fullrank_sample_cuda(seed, 1, loc, C, n)
+    k_graph, k_events = graph_ms(kernel), cuda_ms(kernel, 200)
+    plain = cuda_ms(lambda: fullrank_sample_reference(seed, 1, loc, C, n), 20)
+    u = fullrank_sample_cuda(seed, 1, loc, C, n)[1]
+    lt = torch.tril(C).T.contiguous()
+    library = lambda: torch.addmm(loc, u, lt)
+    l_graph, l_events = graph_ms(library), cuda_ms(library, 200)
+    # the two launches' device time; the product's includes its wait for the
+    # draws, since it starts while they run (programmatic dependent launch)
+    split = {("draw" if "draw" in k else "product" if "product" in k else k): v
+             for k, v in kernel_us(kernel).items()}
+    say("m", fullrank_sample_split=f"{n}x{d}", **{f"{k}_us": v for k, v in split.items()})
+    say("m", fullrank_sample_graph_ms=k_graph, fullrank_sample_events_ms=k_events,
+        fullrank_sample_plain_ms=plain, library_product_alone_graph_ms=l_graph,
+        library_product_alone_events_ms=l_events, faster_than_library=k_graph < l_graph,
+        shape=f"{n}x{d}")
+    return k_graph, plain, l_graph
+
+
 def phase_m(dev, card):
     """Steps/s of the full-rank paths and each new kernel's time beside its
     plain version at the main path's shapes; K8 beside trsm by events and by
@@ -1303,14 +1434,10 @@ def phase_m(dev, card):
         DEFAULT_BRANCH, MODEL_CODES, cluster_barrier_cycles, cluster_max_active,
         fused_fullrank_run_chunk_cuda, fused_fullrank_run_chunk_reference,
     )
-    from advancedvi_jl_tpu_torch.ops.cuda.location_scale_kernels import (
-        fullrank_sample_cuda, fullrank_sample_reference, seed_words,
-    )
     from advancedvi_jl_tpu_torch.ops.cuda.trisolve_kernels import (
         ROWS_PER_BLOCK, rows_per_block, solve_right_cuda, solve_right_reference,
     )
 
-    seed = seed_words(SEED)
     target, q0, alg = wide_general(dev)
     s = alg.init(SEED, q0, target)
     for _ in range(20):
@@ -1378,13 +1505,10 @@ def phase_m(dev, card):
         say("m", cluster_barrier=cs, cycles_per_barrier=cluster_barrier_cycles(cs, 1000) / 1000)
     say("m", card=f"'{card}'", fullrank_general_steps_per_s=f"{general_sps:.1f}",
         d=FR_D, n=FR_N)
+    for n, d in (FR_SHAPE, FR_WIDE_SHAPE):
+        out[f"fullrank_sample_{n}x{d}"] = fullrank_sample_times(dev, n, d)
+    out["fullrank_sample"] = out[f"fullrank_sample_{FR_N}x{FR_D}"]
     n, d = FR_SHAPE
-    _, C = factor(d, dev)
-    loc = torch.zeros(d, device=dev)
-    s_ms = cuda_ms(lambda: fullrank_sample_cuda(seed, 1, loc, C, n), 200)
-    s_plain = cuda_ms(lambda: fullrank_sample_reference(seed, 1, loc, C, n), 20)
-    say("m", fullrank_sample_ms=s_ms, fullrank_sample_plain_ms=s_plain, shape=f"{n}x{d}")
-    out["fullrank_sample"] = (s_ms, s_plain)
     C, V = trisolve_args(dev)
     Lt = torch.tril(C)
     say("m", trisolve_rows_per_block=rows_per_block(n), shape=f"{n}x{d}")
@@ -2623,11 +2747,15 @@ def generator_instructions(card) -> dict:
     k7a = n * -(-d // 4) * group + n * d
     n, d = FR_SHAPE
     k7b = n * -(-d // 4) * group + n * d * (d + 1) // 2 + n * d
+    n, d = FR_WIDE_SHAPE
+    k7b_wide = n * -(-d // 4) * group + n * d * (d + 1) // 2 + n * d
     n, d, r = LR_SHAPE
     k7c = n * (-(-d // 4) + -(-r // 4)) * group + n * d * r + n * d
     out = {}
     for name, shape, instr in (("meanfield_sample", f"{N_SAMPLES}x{N_FEATURES + 2}", k7a),
                                ("fullrank_sample", f"{FR_SHAPE[0]}x{FR_SHAPE[1]}", k7b),
+                               ("fullrank_sample_wide", "x".join(map(str, FR_WIDE_SHAPE)),
+                                k7b_wide),
                                ("lowrank_sample", "x".join(map(str, LR_SHAPE)), k7c)):
         out[name] = instr / 32 / (sms * SM_ISSUE * mhz * 1e6) * 1e3
         say("x", card=f"'{card}'", instructions=name, shape=shape, lane_group=group,

@@ -157,18 +157,29 @@ def _rel(a, b) -> float:
     return float((a.double() - b.double()).norm() / b.double().norm())
 
 
-@pytest.mark.parametrize("n,d", [(256, 1024), (10, 62), (33, 5)])
+# the main path's shape, the fused comparison's, then ragged ones: n and d
+# off every tile and step multiple, and bench_large's second shape
+FR_SAMPLE_SHAPES = [(256, 1024), (10, 62), (33, 5)] + [
+    (n, d) for n in (1, 3, 7, 33, 300) for d in (1, 5, 33, 62, 100, 1000)
+    if (n, d) != (33, 5)] + [(128, 2048)]
+
+
+@pytest.mark.parametrize("n,d", FR_SAMPLE_SHAPES)
 def test_fullrank_sampler_kernel_matches_plain_version(dev, n, d):
     _, _, L = normal_fullrank_wellcond(n, d, device="cpu")
     loc = torch.randn(d, generator=torch.Generator().manual_seed(d)).to(dev)
-    C = (L + torch.triu(torch.ones(d, d), 1)).to(dev)  # the upper triangle is ignored
+    # NaN above the diagonal: a read of the upper triangle would show in z
+    C = (L + torch.triu(torch.full((d, d), float("nan")), 1)).to(dev)
     before = fullrank_sample_cuda.launches
     z, u = fullrank_sample_cuda(seed_words(3), 4, loc, C, n)
+    z2, u2 = fullrank_sample_cuda(seed_words(3), 4, loc, C, n)
     zr, ur = fullrank_sample_reference(seed_words(3), 4, loc, C, n)
     _, umf = meanfield_sample_cuda(seed_words(3), 4, loc, torch.ones_like(loc), n)
     torch.cuda.synchronize()
-    assert fullrank_sample_cuda.launches == before + 1
-    assert torch.equal(u, umf) and (u - ur).abs().max() <= 1e-6
+    assert fullrank_sample_cuda.launches == before + 2
+    assert torch.equal(u, umf) and torch.equal(u, ur) and torch.equal(u2, u)
+    # the same bits on every call: a split tile's pieces meet in piece order
+    assert torch.isfinite(z).all() and torch.equal(z2, z)
     # sums over d in another order than the plain product
     assert _rel(z, zr) <= 1e-6
 
