@@ -35,6 +35,8 @@ import time
 from pathlib import Path
 from typing import Dict, Optional, Sequence, Tuple
 
+import torch
+
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 GEN_DIR = BUILD_DIR / "gen"  # the generated K5 bodies
@@ -201,6 +203,17 @@ def function(name: str, symbol: str, argtypes: Sequence, restype=ctypes.c_int,
         fn.restype = restype
         _fns[(name, key, symbol)] = fn
     return fn
+
+
+def launch(fn, device, *args) -> int:
+    """``fn(*args, stream)``: a C entry called with ``device``'s current
+    stream, under a device context only when ``device`` is not the current
+    device (a launch goes to the current device); returns its error."""
+    stream = torch._C._cuda_getCurrentRawStream(device.index)
+    if device.index == torch._C._cuda_getDevice():  # torch.cuda.current_device, less host work
+        return fn(*args, stream)
+    with torch.cuda.device(device):
+        return fn(*args, stream)
 
 
 def check(err: int, what: str) -> None:

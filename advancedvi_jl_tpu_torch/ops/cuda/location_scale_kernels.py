@@ -34,7 +34,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import NamedTuple, Tuple, Union
+from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -163,14 +163,15 @@ def box_muller(u1: torch.Tensor, u2: torch.Tensor) -> torch.Tensor:
 def philox_normals_reference(
     seed, it: int, n: int, d: int, device=None, stream: int = 0
 ) -> torch.Tensor:
-    """(n, d) standard normals of iteration ``it``: element (i, j) comes from
+    """(n, d) standard normals of iteration ``it`` (an int, or an int64
+    tensor of one element): element (i, j) comes from
     counters (it, i, j // 4, stream) and (it, i, j // 4, stream + 1) at
     position j % 4 of the output words.  ``seed``: two words, or a (C, 2)
     int64 tensor of C keys, which gives (C, n, d), one key a leading row."""
     groups = -(-d // 4)
     row = torch.arange(n, dtype=torch.int64, device=device).view(n, 1)
     grp = torch.arange(groups, dtype=torch.int64, device=device).view(1, groups)
-    c0 = torch.tensor(it & _MASK32, dtype=torch.int64, device=device)
+    c0 = torch.as_tensor(it & _MASK32, dtype=torch.int64, device=device)
     lead: Tuple[int, ...] = ()
     if isinstance(seed, torch.Tensor):
         lead = (seed.shape[0],)
@@ -187,11 +188,25 @@ def philox_normals_reference(
 # ---------------------------------------------------------------------------
 
 
+def _check_it_word(it_word: torch.Tensor, offset: int) -> None:
+    """Raise unless ``it_word`` is an int64 tensor of one element and
+    ``offset`` an iteration offset in [0, 2^32)."""
+    if it_word.dtype != torch.int64 or it_word.numel() != 1:
+        raise ValueError(f"it_word must be an int64 tensor of one element, got "
+                         f"{it_word.dtype} {tuple(it_word.shape)}")
+    if not 0 <= offset <= _MASK32:
+        raise ValueError(f"with it_word, it is an offset in [0, 2^32), got {offset}")
+
+
 def meanfield_sample_reference(
     seed: Tuple[int, int], it: int, location: torch.Tensor,
-    scale_diag: torch.Tensor, n: int,
+    scale_diag: torch.Tensor, n: int, it_word: Optional[torch.Tensor] = None,
 ):
-    """Plain version of the kernel: z = u * sigma + m; returns (z, u)."""
+    """Plain version of the kernel: z = u * sigma + m; returns (z, u).
+    With ``it_word``, the draws are those of iteration ``it_word + it``."""
+    if it_word is not None:
+        _check_it_word(it_word, it)
+        it = it_word.reshape(()) + it
     u = philox_normals_reference(
         seed, it, n, location.shape[0], device=location.device
     )
@@ -212,46 +227,60 @@ def check_f32(name: str, t: torch.Tensor, shape, device) -> None:
 _SAMPLE_ARGTYPES = (
     [ctypes.c_void_p] * 4
     + [ctypes.c_int, ctypes.c_int, ctypes.c_uint32, ctypes.c_uint32,
-       ctypes.c_uint32, ctypes.c_void_p]
+       ctypes.c_uint32, ctypes.c_void_p, ctypes.c_void_p]
 )
 
 
 def meanfield_sample_cuda(
     seed: Tuple[int, int], it: int, location: torch.Tensor,
-    scale_diag: torch.Tensor, n: int,
+    scale_diag: torch.Tensor, n: int, it_word: Optional[torch.Tensor] = None,
 ):
-    """Launch csrc/meanfield_sample.cu on the current stream; returns (z, u).
-    Adds one to ``meanfield_sample_cuda.launches`` per launch."""
+    """Launch csrc/meanfield_sample.cu on the current stream; returns (z, u),
+    two views of one (2, n, d) buffer.  With ``it_word`` (an int64 tensor of
+    one element on the card), the kernel reads the iteration there: it
+    draws iteration ``it_word + it``, ``it`` an offset, so that a CUDA graph
+    of launches at offsets 0 .. K-1 draws K new iterations at each replay
+    once the word is advanced by K.  Adds one to
+    ``meanfield_sample_cuda.launches`` per launch."""
+    if it_word is not None:
+        _check_it_word(it_word, it)
+        if not it_word.is_cuda:
+            raise ValueError(f"it_word must be a CUDA tensor (the kernel reads it), got "
+                             f"{it_word.device}")
     if not location.is_cuda:
         raise ValueError(f"meanfield_sample_cuda needs GPU tensors, got {location.device}")
+    dev = location.device
     d = location.shape[0]
-    check_f32("location", location, (d,), location.device)
-    check_f32("scale_diag", scale_diag, (d,), location.device)
-    fn = _build.function("meanfield_sample", "meanfield_sample", _SAMPLE_ARGTYPES)
-    z = torch.empty((n, d), dtype=torch.float32, device=location.device)
-    u = torch.empty((n, d), dtype=torch.float32, device=location.device)
+    check_f32("location", location, (d,), dev)
+    check_f32("scale_diag", scale_diag, (d,), dev)
+    if it_word is not None and it_word.device != dev:
+        raise ValueError(f"it_word lies on {it_word.device}, location on {dev}")
+    fn = meanfield_sample_cuda.fn
+    if fn is None:
+        fn = meanfield_sample_cuda.fn = _build.function(
+            "meanfield_sample", "meanfield_sample", _SAMPLE_ARGTYPES)
+    zu = torch.empty((2, n, d), dtype=torch.float32, device=dev)
+    z, u = zu[0], zu[1]  # indexing: cheaper on the host than unbind
     if n == 0:
         return z, u
-    with torch.cuda.device(location.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(
-            location.data_ptr(), scale_diag.data_ptr(), z.data_ptr(),
-            u.data_ptr(), n, d, seed[0], seed[1], it & _MASK32, stream,
-        )
+    err = _build.launch(
+        fn, dev, location.data_ptr(), scale_diag.data_ptr(), z.data_ptr(), u.data_ptr(), n, d,
+        seed[0], seed[1], it & _MASK32, None if it_word is None else it_word.data_ptr())
     _build.check(err, "meanfield_sample launch")
     meanfield_sample_cuda.launches += 1
     return z, u
 
 
 meanfield_sample_cuda.launches = 0
+meanfield_sample_cuda.fn = None  # the C entry, fetched (and built) at the first launch
 
 
-def meanfield_sample_raw(seed, it, location, scale_diag, n):
+def meanfield_sample_raw(seed, it, location, scale_diag, n, it_word=None):
     """Kernel for CUDA tensors, plain version for CPU tensors."""
     if location.is_cuda:
-        return meanfield_sample_cuda(seed, it, location, scale_diag, n)
+        return meanfield_sample_cuda(seed, it, location, scale_diag, n, it_word)
     if location.device.type == "cpu":
-        return meanfield_sample_reference(seed, it, location, scale_diag, n)
+        return meanfield_sample_reference(seed, it, location, scale_diag, n, it_word)
     raise ValueError(f"no sampler for device {location.device}")
 
 

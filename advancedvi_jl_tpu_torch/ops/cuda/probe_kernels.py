@@ -3,9 +3,10 @@
 Each probe is one access pattern the fused kernels are built from, run as a
 16-step loop over 128 lanes: (1) dynamic row loads, (2) dynamic row stores,
 (3) a store guarded every other step, (4) a ``rem``-scheduled row load (the
-minibatch window).  ``probe_cuda`` launches csrc/probes.cu;
-``probe_reference`` is its plain PyTorch version; ``probe`` takes the
-kernel for CUDA tensors and the plain version for CPU tensors.
+minibatch window).  ``probe_cuda`` launches csrc/probes.cu
+on ``probe_plan``'s block; ``probe_reference`` is its plain PyTorch
+version; ``probe`` takes the kernel for CUDA tensors and the plain version
+for CPU tensors.
 ``run_probes`` runs all four with ``_pallas_probe.py``'s inputs and checks
 the values that script asserts.
 """
@@ -13,7 +14,8 @@ the values that script asserts.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional
+import functools
+from typing import Dict, NamedTuple, Optional
 
 import torch
 
@@ -24,6 +26,7 @@ STEPS = 16
 LANES = 128
 ROWS = 8   # rows a step loads
 NB = 3     # probe 4's window count (lax.rem(i, 3))
+MAX_WARPS = 32  # a block's 1,024 threads
 
 
 def _shapes(probe: int, steps: int, lanes: int, nb: int):
@@ -61,6 +64,53 @@ def probe_reference(probe: int, x: Optional[torch.Tensor] = None, steps: int = S
     return out
 
 
+class ProbePlan(NamedTuple):
+    """A probe's launch: one block of ``threads`` threads.  Probes 1 and 4
+    read ``units`` blocks of 8 rows (probe 1: one a step; probe 4: one a
+    window, read once however many steps take it); warp w takes units w,
+    w + warps, ... (``warp_units``), and the units' totals meet in
+    ``smem_bytes`` of shared memory.  Probes 2 and 3: one thread a lane,
+    no units."""
+
+    threads: int
+    units: int
+    smem_bytes: int
+
+    @property
+    def warps(self) -> int:
+        return self.threads // 32
+
+    def warp_units(self, w: int) -> range:
+        return range(w, self.units, self.warps)
+
+
+def unit_of_step(probe: int, i: int, nb: int = NB) -> int:
+    """The unit (8-row block) that step ``i`` of load probe 1 or 4 adds."""
+    return i % nb if probe == 4 else i
+
+
+@functools.lru_cache(maxsize=64)  # the wrapper asks at every launch
+def probe_plan(probe: int, steps: int = STEPS, lanes: int = LANES, nb: int = NB) -> ProbePlan:
+    """The launch of csrc/probes.cu for a probe: a warp a unit, up to
+    MAX_WARPS warps (more units go round the warps again)."""
+    _shapes(probe, steps, lanes, nb)
+    if steps < 0 or not 32 <= lanes <= 1024 or lanes % 32 or (probe == 4 and nb < 1):
+        raise ValueError(f"probe {probe} takes steps >= 0, lanes a multiple of 32 up to "
+                         f"1024 and nb >= 1, got steps={steps}, lanes={lanes}, nb={nb}")
+    if probe in (2, 3):
+        return ProbePlan(lanes, 0, 0)
+    units = steps if probe == 1 else min(nb, steps)
+    plan = ProbePlan(32 * min(MAX_WARPS, max(1, units)), units, 4 * max(1, units))
+    if plan.smem_bytes > _build.SMEM_LIMIT:
+        raise ValueError(f"probe {probe} keeps one float a unit in shared memory: {units} "
+                         f"units is over the {_build.SMEM_LIMIT}-byte limit of one block")
+    return plan
+
+
+_PROBE_ARGTYPES = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 6 + \
+    [ctypes.c_void_p]
+
+
 def probe_cuda(probe: int, x: Optional[torch.Tensor] = None, steps: int = STEPS,
                lanes: int = LANES, nb: int = NB, device="cuda") -> torch.Tensor:
     """Launch csrc/probes.cu on the current stream; same results as
@@ -73,20 +123,21 @@ def probe_cuda(probe: int, x: Optional[torch.Tensor] = None, steps: int = STEPS,
         if x is None:
             raise ValueError(f"probe {probe} needs an input x of shape {xs}")
         check_f32("x", x, xs, dev)
-    fn = _build.function("probes", "probes",
-                         [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                          ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
-    out = torch.zeros(os, dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(probe, x.data_ptr() if xs is not None else None, out.data_ptr(), steps,
-                 lanes, nb, stream)
+    plan = probe_plan(probe, steps, lanes, nb)
+    fn = probe_cuda.fn
+    if fn is None:
+        fn = probe_cuda.fn = _build.function("probes", "probes", _PROBE_ARGTYPES)
+    out = torch.empty(os, dtype=torch.float32, device=dev)  # the kernel writes all of it
+    err = _build.launch(fn, dev, probe, x.data_ptr() if xs is not None else None,
+                        out.data_ptr(), steps, lanes, nb, plan.units, plan.threads,
+                        plan.smem_bytes)
     _build.check(err, "probes launch")
     probe_cuda.launches += 1
     return out
 
 
 probe_cuda.launches = 0
+probe_cuda.fn = None  # the C entry, fetched (and built) at the first launch
 
 
 def probe(probe_id: int, x: Optional[torch.Tensor] = None, steps: int = STEPS,

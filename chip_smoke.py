@@ -22,14 +22,18 @@ flagship, and full-rank proximal ADVI on normal-lognormal (d = 11).
 Phases:
 
   (a) the card (nvidia-smi name and power limit);  (b) kernel builds;
-  (c) the mean-field sampler against its plain version, normal statistics;
+  (c) the mean-field sampler against its plain version, normal statistics,
+      and a CUDA graph of its launches reading the iteration from a device
+      word against host-int launches, bit for bit;
   (d) the fused kernel against its plain version with injected noise;
   (e) the fused kernel with in-kernel Philox: chunking, tracing, plain version;
   (f) the general path on the card;  (g) the fused engine on the card;
   (h) steps/s of both paths and each kernel's time beside its plain version
       (the sampler also by CUDA-graph replay, without the wrapper's host time,
-      beside an empty kernel of its geometry: the launch floor); the flagship
-      step's phase split (an instrumented build's counters);
+      beside an empty kernel of its geometry: the launch floor; behind a
+      kernel that writes its input; and its host time a call by the host
+      clock); the flagship step's phase split (an instrumented build's
+      counters);
   (i) the full-rank sampler (K7b) against its plain version and K7a's draws
       at the main path's, ragged and bench_large's shapes, C with NaN above
       its diagonal: u bitwise, z within 1e-6 and bitwise across two calls;
@@ -69,7 +73,9 @@ Phases:
       (in place, staged, staged + prefetch) against the plain version at
       n = 16,384, B = 512 and at n = 500,000: noise, Philox, chunking,
       tracing, the transports bit-equal;
-  (s) the K9 probes against their plain versions, exactly;
+  (s) the K9 probes against their plain versions, exactly; each probe by
+      CUDA-graph replay beside an empty kernel of its geometry, and its host
+      time a call;
   (t) the general subsampled paths through ``optimize``: ADVI on the
       16,384 x 61 logreg (B = 512), the BNN of bench_large.py (d = 8,705,
       B = 2,048, ADVI and proximal DoWG), subsampled normals against their
@@ -110,13 +116,16 @@ Phases:
       covariance at 65,536 draws, 64 chains agreeing on the optimum).
 
 With ``--parent CHECKOUT`` (e.g. a ``git archive`` of the parent commit
-under the ignored ``_archive/``) it then times K8, K7b and the chunks of
+under the ignored ``_archive/``) it then times K8, K7b, K7a, the K9 probes
+and the chunks of
 ``ab_chunks`` with that checkout's package and with this one's, a fresh
 process each, alternating, each side with the mean-field phase split of
 its flagship and minibatch chunks (the other checkout needs the
 ``instrumented=`` builds, which every commit since the block-product
-redesign has).  The other checkout is copied under this one's
-``build/ab_parent`` and timed there, never built or written in place.
+redesign has), and compares the SASS of every kernel both builds have: each
+library but those this tree edits (``AB_CHANGED``) must be the parent's.
+The other checkout is copied under this one's ``build/ab_parent`` and timed
+there, never built or written in place.
 
 Every failed check raises and the script exits non-zero; it also exits
 non-zero without a CUDA device, or when the package is not beside it.  The
@@ -212,6 +221,26 @@ def graph_ms(fn, calls: int = 50, replays: int = 5) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / (calls * replays)
+
+
+def host_us(fn, calls: int = 1000) -> float:
+    """Mean microseconds of ``fn()`` by the host clock over ``calls``
+    back-to-back calls ending in one synchronize (warmed up): the wrapper's
+    host time per call wherever it outlasts the kernel."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / calls * 1e6
+
+
+def after_op_ms(fn, op, calls: int = 200) -> float:
+    """What ``fn()`` adds to the card's time behind ``op()``, a kernel that
+    writes fn's inputs (as the general step's update precedes the sampler):
+    graph replay of ``calls`` (op, fn) pairs less that of ``calls`` ops."""
+    return graph_ms(lambda: (op(), fn()), calls) - graph_ms(op, calls)
 
 
 def smi_clocks() -> str:
@@ -334,7 +363,41 @@ def phase_c(dev):
     say("c", same_it_equal=bool(torch.equal(a, b)), other_it_equal_frac=same_frac)
     check(torch.equal(a, b), "same (seed, it) gave different draws")
     check(same_frac < 1e-3, "a different iteration gave the same draws")
+    # the iteration from a device word: a graph of K launches at offsets
+    # 0 .. K-1 and the word's advance draws the host-int launches' iterations
+    for n, d, K, it0 in ((N_SAMPLES, N_FEATURES + 2, 20, 100), (33, 5, 8, 2**32 - 3)):
+        loc = torch.randn(d, generator=g).to(dev)
+        scale = (0.5 + torch.rand(d, generator=g)).to(dev)
+        same = device_word_graph_bitwise(seed, loc, scale, n, K, it0)
+        say("c", device_word_graph=f"{n}x{d}", K=K, it0=it0, replays=2, bitwise=same)
+        check(same, f"device-word launches at {n}x{d} differ from the host-int ones")
     return worst
+
+
+def device_word_graph_bitwise(seed, loc, scale, n, K, it0) -> bool:
+    """Whether two replays of a CUDA graph of K K7a launches reading the
+    iteration from a device word (offsets 0 .. K-1, then the word advanced
+    by K) equal K host-int launches at it0 .. it0 + 2K - 1, bit for bit."""
+    from advancedvi_jl_tpu_torch.ops.cuda.location_scale_kernels import meanfield_sample_cuda
+
+    word = torch.tensor([it0], dtype=torch.int64, device=loc.device)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        meanfield_sample_cuda(seed, 0, loc, scale, n, it_word=word)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [meanfield_sample_cuda(seed, k, loc, scale, n, it_word=word) for k in range(K)]
+        word.add_(K)
+    same = True
+    for rep in range(2):
+        graph.replay()
+        for k, (z, u) in enumerate(outs):
+            zh, uh = meanfield_sample_cuda(seed, it0 + rep * K + k, loc, scale, n)
+            same &= bool(torch.equal(u, uh)) and bool(torch.equal(z, zh))
+    return same and int(word) == it0 + 2 * K
 
 
 def compare_state(tag, a, b, rtol):
@@ -557,30 +620,35 @@ def flagship_chunk_args(dev):
             seed_words(SEED), 0, 200, N_SAMPLES, FusedHyper(lr=LR))
 
 
-# An empty kernel launched with K7a's geometry (csrc/meanfield_sample.cu:
-# 32 lane groups x 8 rows a block): what a launch costs the card with no work.
+# An empty kernel at a launch geometry: what a launch costs the card with no
+# work (K7a's: csrc/meanfield_sample.cu's 32 lane groups, two threads each,
+# x 4 rows a block; K9's: one block of probe_plan's threads).
 LAUNCH_FLOOR = r"""
 #include <cuda_runtime.h>
 __global__ void empty_kernel() {}
-extern "C" int empty_launch(int gx, int gy, cudaStream_t stream) {
-  empty_kernel<<<dim3(gx, gy), dim3(32, 8), 0, stream>>>();
+extern "C" int empty_launch(int gx, int gy, int bx, int by, cudaStream_t stream) {
+  empty_kernel<<<dim3(gx, gy), dim3(bx, by), 0, stream>>>();
   return static_cast<int>(cudaGetLastError());
 }
 """
 
 
-def launch_floor_ms(n, d):
-    """Milliseconds of an empty kernel on K7a's grid at (n, d) by CUDA-graph
-    replay, as ``graph_ms`` times K7a: the floor of any launch of that
-    geometry.  Built with the kernels' flags into a temporary directory under
-    build/kernels/."""
+def meanfield_geometry(n, d):
+    """K7a's (grid, block) at (n, d)."""
+    groups = -(-d // 4)
+    return (-(-groups // 32), min(-(-n // 4), 65535)), (64, 4)
+
+
+def launch_floor_ms(geometries):
+    """Milliseconds of an empty kernel at each (grid, block) of
+    ``geometries`` by CUDA-graph replay, as ``graph_ms`` times the kernels:
+    the floor of any launch of that geometry.  Built with the kernels' flags
+    into a temporary directory under build/kernels/."""
     import ctypes
     import tempfile
 
     from advancedvi_jl_tpu_torch.ops.cuda import _build
 
-    groups = -(-d // 4)
-    grid = (-(-groups // 32), min(-(-n // 8), 65535))
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
         src, lib = Path(tmp) / "launch_floor.cu", Path(tmp) / "liblaunch_floor.so"
@@ -588,12 +656,15 @@ def launch_floor_ms(n, d):
         subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(src)],
                        capture_output=True, text=True, timeout=300, check=True)
         fn = ctypes.CDLL(str(lib)).empty_launch
-        fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        out = []
+        for grid, block in geometries:
+            def launch(grid=grid, block=block):
+                _build.check(fn(*grid, *block, torch.cuda.current_stream().cuda_stream),
+                             "empty launch")
 
-        def launch():
-            _build.check(fn(*grid, torch.cuda.current_stream().cuda_stream), "empty launch")
-
-        return graph_ms(launch, 200)
+            out.append(graph_ms(launch, 200))
+        return out
 
 
 def phase_h(dev, card):
@@ -631,19 +702,27 @@ def phase_h(dev, card):
         general_steps_per_s=f"{general_sps:.1f}")
     # each kernel beside its plain version at the main path's shapes
     loc, sc = torch.zeros(d, device=dev), torch.ones(d, device=dev)
-    samp_ms = cuda_ms(lambda: meanfield_sample_cuda(seed, 1, loc, sc, N_SAMPLES), 1000)
-    samp_graph = graph_ms(lambda: meanfield_sample_cuda(seed, 1, loc, sc, N_SAMPLES), 200)
+    def sample():
+        return meanfield_sample_cuda(seed, 1, loc, sc, N_SAMPLES)
+
+    samp_ms = cuda_ms(sample, 1000)
+    samp_graph = graph_ms(sample, 200)
+    samp_host_us = host_us(sample)
+    samp_after_op = after_op_ms(sample, lambda: loc.mul_(1.0))
     samp_plain = cuda_ms(lambda: meanfield_sample_reference(seed, 1, loc, sc, N_SAMPLES), 50)
     args = flagship_chunk_args(dev)
     fk_ms = cuda_ms(lambda: fused_run_chunk_cuda(*args), 20)
     fr_ms = cuda_ms(lambda: fused_run_chunk_reference(*args), 1)
     # events over back-to-back calls time the wrapper's host work (the kernel
-    # is ~2 us); the graph replay times the card alone
-    floor = launch_floor_ms(N_SAMPLES, d)
+    # is ~2 us), as the host clock does; the graph replay times the card
+    # alone; behind an op, what the launch adds after a kernel that writes m
+    (floor,) = launch_floor_ms([meanfield_geometry(N_SAMPLES, d)])
     say("h", meanfield_sample_ms=samp_ms, meanfield_sample_graph_ms=samp_graph,
         meanfield_sample_plain_ms=samp_plain, shape=f"{N_SAMPLES}x{d}")
     say("h", card=f"'{card}'", launch_floor_graph_ms=floor, meanfield_sample_graph_ms=samp_graph,
-        meanfield_sample_over_floor=f"{samp_graph / floor:.3f}", shape=f"{N_SAMPLES}x{d}")
+        meanfield_sample_over_floor=f"{samp_graph / floor:.3f}",
+        meanfield_sample_host_us=f"{samp_host_us:.3f}",
+        meanfield_sample_after_op_graph_ms=samp_after_op, shape=f"{N_SAMPLES}x{d}")
     say("h", fused_chunk_ms=fk_ms, fused_chunk_plain_ms=fr_ms, chunk_steps=args[6])
     mf_split("h", "flagship_hand", args, fk_ms)
     return {"meanfield_sample": (samp_graph, samp_plain),
@@ -1083,14 +1162,17 @@ def walking(fn, args, step=200):
 def ab_times(dev):
     """The A/B's side of one checkout, run in a child process with that
     checkout's package: K8 at 256 x 1024 in both modes (events and graph
-    replay), K7b at 256 x 1024 and 128 x 2048 (graph replay), every chunk of
+    replay), K7b at 256 x 1024 and 128 x 2048 (graph replay), K7a at 10 x 62
+    (graph replay, behind a kernel that writes m, host time a call), each K9
+    probe (graph replay, host time a call), every chunk of
     ``ab_chunks``, and the mean-field phase split of
     the flagship hand and ad chunks and of the mean-field minibatch
     chunks."""
     from advancedvi_jl_tpu_torch.ops.cuda import _build
     from advancedvi_jl_tpu_torch.ops.cuda.location_scale_kernels import (
-        fullrank_sample_cuda, seed_words,
+        fullrank_sample_cuda, meanfield_sample_cuda, seed_words,
     )
+    from advancedvi_jl_tpu_torch.ops.cuda.probe_kernels import probe_cuda, probe_inputs
     from advancedvi_jl_tpu_torch.ops.cuda.trisolve_kernels import solve_right_cuda
 
     _build.build_all()
@@ -1112,6 +1194,21 @@ def ab_times(dev):
         loc = torch.randn(d, generator=torch.Generator().manual_seed(d)).to(dev)
         out[f"fullrank_sample_{n}x{d}_graph"] = graph_ms(
             lambda: fullrank_sample_cuda(seed_words(SEED), 1, loc, Cf, n))
+    # K7a at the main path's shape: the card alone (graph replay), behind a
+    # kernel that writes m, and the host time a call; each K9 probe likewise
+    d = N_FEATURES + 2
+    loc, sc = torch.zeros(d, device=dev), torch.ones(d, device=dev)
+
+    def sample():
+        return meanfield_sample_cuda(seed_words(SEED), 1, loc, sc, N_SAMPLES)
+
+    out["meanfield_sample_graph"] = graph_ms(sample, 200)
+    out["meanfield_sample_after_op_graph"] = after_op_ms(sample, lambda: loc.mul_(1.0))
+    out["meanfield_sample_host_us"] = host_us(sample)
+    for i, t in probe_graph_ms(dev).items():
+        out[f"probe{i}_graph"] = t
+    for i, x in probe_inputs(dev).items():
+        out[f"probe{i}_host_us"] = host_us(lambda: probe_cuda(i, x, device=dev))
     for name, (fn, reps) in chunks.items():
         out[name] = cuda_ms(fn, reps)
     for name, (args, ad, walk) in splits.items():
@@ -1132,6 +1229,11 @@ print(json.dumps(smoke.ab_times(torch.device("cuda:0"))))
 """
 
 
+# The kernel libraries this tree edits against its parent: every other one
+# must compile to the parent's SASS.
+AB_CHANGED = ("meanfield_sample", "probes")
+
+
 def ab_parent(parent: Path):
     """The A/B: ``ab_times`` with the parent checkout's package and with
     this one's, a fresh process each, in the order parent, this, this,
@@ -1144,15 +1246,21 @@ def ab_parent(parent: Path):
                               cwd=path, capture_output=True, text=True, timeout=900)
         check(proc.returncode == 0, f"A/B in {path}: {proc.stderr[-2000:]}")
         runs[tag].append(json.loads(proc.stdout.strip().splitlines()[-1]))
-    for lib in ("fused_chains", "fused_advi_meanfield", "fused_advi_fullrank"):  # kernels both have
+    from advancedvi_jl_tpu_torch.ops.cuda import _build
+
+    differ = []
+    for lib in _build.KERNELS:  # every kernel both libraries have
         for fn, same in sass_equal(built_library(parent, lib), built_library(ROOT, lib)):
             say("ab", sass=f"{lib}:{fn}", equal=same)
+            if not same and lib not in AB_CHANGED:
+                differ.append(f"{lib}:{fn}")
     for key in runs["this"][0]:
         if key.startswith("ptxas"):
             say("ab", lib=key, parent=f"'{runs['parent'][0][key]}'", this=f"'{runs['this'][0][key]}'")
             continue
-        say("ab", chunk=key, parent_ms=",".join(f"{r[key]:.5f}" for r in runs["parent"]),
-            this_ms=",".join(f"{r[key]:.5f}" for r in runs["this"]))
+        say("ab", chunk=key, parent_ms=",".join(f"{r[key]:.7g}" for r in runs["parent"]),
+            this_ms=",".join(f"{r[key]:.7g}" for r in runs["this"]))
+    check(not differ, f"SASS of kernels this change does not edit differs: {differ}")
 
 
 def built_library(checkout: Path, name: str) -> Path:
@@ -2069,9 +2177,11 @@ def phase_r(dev):
 
 def phase_s(dev):
     """K9: the four probes through ``run_probes`` (counted), then each
-    against its plain version, exactly."""
+    against its plain version, exactly; each probe's card time by CUDA-graph
+    replay beside an empty kernel of its geometry, and its host time per
+    call."""
     from advancedvi_jl_tpu_torch.ops.cuda.probe_kernels import (
-        probe_cuda, probe_inputs, probe_reference, run_probes,
+        probe_cuda, probe_inputs, probe_plan, probe_reference, run_probes,
     )
 
     torch.cuda.synchronize()
@@ -2093,11 +2203,28 @@ def phase_s(dev):
     ms = cuda_ms(lambda: [probe_cuda(i, x, device=dev) for i, x in inputs.items()], 20)
     plain_ms = cuda_ms(lambda: [probe_reference(i, x, device=dev)
                                 for i, x in inputs.items()], 3)
-    say("s", probes_ms=ms, probes_plain_ms=plain_ms)
+    graph = probe_graph_ms(dev)
+    plans = {i: probe_plan(i) for i in inputs}
+    floors = dict(zip(plans, launch_floor_ms([((1, 1), (p.threads, 1)) for p in plans.values()])))
+    for i, x in inputs.items():
+        say("s", probe=i, threads=plans[i].threads, units=plans[i].units,
+            graph_ms=graph[i], floor_graph_ms=floors[i],
+            over_floor=f"{graph[i] / floors[i]:.3f}",
+            host_us=f"{host_us(lambda: probe_cuda(i, x, device=dev)):.3f}")
+    say("s", probes_events_ms=ms, probes_graph_ms=sum(graph.values()), probes_plain_ms=plain_ms)
     # bytes: the two inputs read and the four outputs written, once each
     nbytes = 4.0 * (128 * 128 + 24 * 128 + 128 + 16 * 128 + 8 * 128 + 128)
-    return {"launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound": bound(2.0 * 128 * 128 * 2, nbytes)}
+    return {"launches": launches, "max_abs_err": err, "ms": sum(graph.values()),
+            "plain_ms": plain_ms, "bound": bound(2.0 * 128 * 128 * 2, nbytes)}
+
+
+def probe_graph_ms(dev) -> dict:
+    """Each probe's milliseconds on the card by CUDA-graph replay, at
+    ``_pallas_probe.py``'s inputs."""
+    from advancedvi_jl_tpu_torch.ops.cuda.probe_kernels import probe_cuda, probe_inputs
+
+    return {i: graph_ms(lambda i=i, x=x: probe_cuda(i, x, device=dev), 200)
+            for i, x in probe_inputs(dev).items()}
 
 
 def bnn_problem(dev):

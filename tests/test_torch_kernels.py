@@ -92,6 +92,66 @@ def test_sampler_autograd_on_the_card(dev):
     assert torch.allclose(scale.grad, (2 * z * u).sum(0).detach(), rtol=1e-6, atol=1e-5)
 
 
+# n above the 65535 x 4 rows of the largest grid: the rows past it come round again
+BIG_N = 65535 * 8 + 9
+
+
+@pytest.mark.parametrize("n,d,K,it0", [(10, 62, 8, 1000), (10, 62, 1, 7), (10, 62, 50, 3),
+                                       (10, 62, 6, 2**32 - 3), (BIG_N, 8, 2, 2**32 - 1),
+                                       (33, 5, 8, 2**32 - 4), (17, 33, 8, 0)],
+                         ids=["K8", "K1", "K50", "wrap", "big-n", "d5", "d33"])
+def test_sampler_device_word_graph_is_the_host_int_launches(dev, n, d, K, it0):
+    """K launches at offsets 0 .. K-1 from a device word, captured in one
+    CUDA graph with the word's advance by K, draw at each replay what K
+    host-int launches draw at the next K iterations (mod 2^32), bit for
+    bit."""
+    g = torch.Generator().manual_seed(d)
+    loc = torch.randn(d, generator=g).to(dev)
+    scale = (0.5 + torch.rand(d, generator=g)).to(dev)
+    seed = seed_words(5)
+    word = torch.tensor([it0], dtype=torch.int64, device=dev)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # builds and loads the kernel outside the capture
+        meanfield_sample_cuda(seed, 0, loc, scale, n, it_word=word)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [meanfield_sample_cuda(seed, k, loc, scale, n, it_word=word) for k in range(K)]
+        word.add_(K)
+    for rep in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        for k, (z, u) in enumerate(outs):
+            zh, uh = meanfield_sample_cuda(seed, it0 + rep * K + k, loc, scale, n)
+            torch.cuda.synchronize()
+            assert torch.equal(u, uh) and torch.equal(z, zh), (rep, k)
+    assert int(word) == it0 + 2 * K
+
+
+def test_sampler_reads_what_the_kernel_ahead_wrote(dev):
+    """m, sigma and the iteration word that the kernel just ahead in the
+    stream wrote are what each launch reads: each sees the values just
+    filled."""
+    d, n, seed = 62, N, seed_words(2)
+    loc, scale = torch.zeros(d, device=dev), torch.ones(d, device=dev)
+    word = torch.zeros(1, dtype=torch.int64, device=dev)
+    outs = []
+    for i in range(200):
+        loc.fill_(float(i))
+        scale.fill_(1.0 + i / 64)
+        word.fill_(3 * i)
+        outs.append(meanfield_sample_cuda(seed, i % 2, loc, scale, n, it_word=word))
+    torch.cuda.synchronize()
+    one = torch.ones(d, device=dev)
+    for i, (z, u) in enumerate(outs):
+        _, uh = meanfield_sample_cuda(seed, 3 * i + i % 2, loc, one, n)
+        torch.cuda.synchronize()
+        assert torch.equal(u, uh), i
+        assert torch.equal(z, u * (1.0 + i / 64) + float(i)), i
+
+
 @pytest.mark.parametrize("injected", [True, False], ids=["noise", "philox"])
 def test_fused_kernel_matches_plain_version(dev, injected):
     prob = make_logreg(11, device=dev)
@@ -890,6 +950,51 @@ def test_probe_kernels_equal_their_plain_versions(dev):
     # rows that differ: the rem schedule reads windows 0, 1, 2, 0, ...
     x = torch.arange(3 * 8 * 128, dtype=torch.float32, device=dev).reshape(24, 128) % 7
     assert torch.equal(probe_cuda(4, x), probe_reference(4, x))
+
+
+def _probe_x(i, steps, lanes, nb, fill, dev):
+    from advancedvi_jl_tpu_torch.ops.cuda.probe_kernels import ROWS
+
+    rows = ROWS * (steps if i == 1 else nb)
+    if fill == "ones":
+        return torch.ones(rows, lanes, device=dev)
+    if fill == "mod7":
+        return (torch.arange(rows * lanes, dtype=torch.float32, device=dev) % 7).reshape(
+            rows, lanes)
+    g = torch.Generator().manual_seed(steps * 7 + lanes + nb)
+    return torch.randn(rows, lanes, generator=g).to(dev)
+
+
+@pytest.mark.parametrize("nb", [1, 3])
+@pytest.mark.parametrize("lanes", [32, 128, 1024])
+@pytest.mark.parametrize("steps", [0, 1, 15, 16, 17])
+def test_probe_kernels_at_every_plan_shape(dev, monkeypatch, steps, lanes, nb):
+    """Each probe at the plan's shapes: exactly the plain version on
+    integer-valued x (ones, arange % 7: every sum exact in float32); on
+    normals within 1e-5 of sum |x| (torch.sum keeps its own order); out
+    handed to the kernel full of NaN, and every element written."""
+    from advancedvi_jl_tpu_torch.ops.cuda.probe_kernels import probe_cuda, probe_reference
+
+    empty = torch.empty
+
+    def nan_empty(*args, **kwargs):  # the wrapper's out: garbage, here NaN
+        return empty(*args, **kwargs).fill_(float("nan"))
+
+    for i in (1, 2, 3, 4):
+        for fill in (("ones", "mod7", "normal") if i in (1, 4) else (None,)):
+            x = _probe_x(i, steps, lanes, nb, fill, dev) if fill else None
+            with monkeypatch.context() as m:
+                m.setattr(torch, "empty", nan_empty)
+                got = probe_cuda(i, x, steps, lanes, nb, dev)
+            want = probe_reference(i, x, steps, lanes, nb, dev)
+            torch.cuda.synchronize()
+            assert not got.isnan().any(), (i, fill)
+            if fill == "normal":
+                k = torch.arange(steps, device=dev) % nb if i == 4 else torch.arange(steps)
+                mass = sum(float(x[8 * j:8 * j + 8].abs().sum()) for j in k.tolist())
+                assert float((got - want).abs().max()) <= 1e-5 * mass, (i, fill)
+            else:
+                assert torch.equal(got, want), (i, fill)
 
 
 # ---------------------------------------------------------------------------

@@ -149,3 +149,47 @@ def test_wrapper_routes_by_device_without_fallback():
         meanfield_sample_cuda(seed, 0, loc, scale, N)
     with pytest.raises(ValueError, match="device"):
         meanfield_sample_raw(seed, 0, loc.to("meta"), scale.to("meta"), N)
+
+
+# The iteration from a device word: a launch draws iteration it_word + it, so
+# a CUDA graph of launches at offsets 0 .. K-1 replays new iterations once the
+# word advances.  Here the plain version, which the CPU routes to.
+
+@pytest.mark.parametrize("base,K,d", [(0, 1, D), (5, 8, D), (123, 50, D),
+                                      (2**32 - 3, 6, D), (2**32 - 4, 8, 5), (7, 8, 33)],
+                         ids=["K1", "K8", "K50", "wrap", "wrap-d5", "d33"])
+def test_plain_version_device_word_equals_host_int(base, K, d):
+    """Offsets 0 .. K-1 from a word holding ``base`` draw iterations base ..
+    base + K - 1 (mod 2^32): the host-int plain version's draws, bitwise."""
+    rng = np.random.default_rng(d)
+    loc = torch.from_numpy(rng.standard_normal(d).astype(np.float32))
+    scale = torch.from_numpy((0.5 + rng.random(d)).astype(np.float32))
+    seed = seed_words(9)
+    word = torch.tensor([base], dtype=torch.int64)
+    for k in range(K):
+        z, u = meanfield_sample_raw(seed, k, loc, scale, N, it_word=word)
+        zh, uh = meanfield_sample_reference(seed, (base + k) & 0xFFFFFFFF, loc, scale, N)
+        assert torch.equal(z, zh) and torch.equal(u, uh), k
+    word += K  # the advance a captured chunk makes: the next chunk's draws
+    z, u = meanfield_sample_reference(seed, 0, loc, scale, N, it_word=word)
+    assert torch.equal(u, meanfield_sample_reference(seed, base + K, loc, scale, N)[1])
+
+
+def test_device_word_checks_refuse_what_the_kernel_cannot_take():
+    """The wrapper refuses a base word on the CPU, of another dtype or size,
+    and an offset outside [0, 2^32), before any launch; the plain version
+    refuses the same dtype, size and offsets."""
+    seed = seed_words(1)
+    loc, scale = torch.zeros(D), torch.ones(D)
+    word = torch.zeros(1, dtype=torch.int64)
+    with pytest.raises(ValueError, match="it_word must be a CUDA tensor"):
+        meanfield_sample_cuda(seed, 0, loc, scale, N, it_word=word)
+    for bad in (torch.zeros(1, dtype=torch.int32), torch.zeros(1, dtype=torch.float32),
+                torch.zeros(2, dtype=torch.int64)):
+        for fn in (meanfield_sample_cuda, meanfield_sample_reference):
+            with pytest.raises(ValueError, match="int64 tensor of one element"):
+                fn(seed, 0, loc, scale, N, it_word=bad)
+    for offset in (-1, 2**32):
+        for fn in (meanfield_sample_cuda, meanfield_sample_reference):
+            with pytest.raises(ValueError, match="offset"):
+                fn(seed, offset, loc, scale, N, it_word=word)

@@ -12,9 +12,9 @@ from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
 import _pallas_probe
-from advancedvi_jl_tpu_torch.ops.cuda import probe_kernels
+from advancedvi_jl_tpu_torch.ops.cuda import _build, probe_kernels
 from advancedvi_jl_tpu_torch.ops.cuda.probe_kernels import (
-    probe, probe_cuda, probe_inputs, probe_reference, run_probes,
+    probe, probe_cuda, probe_inputs, probe_plan, probe_reference, run_probes, unit_of_step,
 )
 
 CPU = "cpu"
@@ -83,3 +83,35 @@ def test_probe_kernel_refuses_cpu_tensors():
         probe_cuda(1, probe_inputs(CPU)[1])
     with pytest.raises(ValueError, match="probe must be"):
         probe(5, device=CPU)
+
+
+@pytest.mark.parametrize("nb", [1, 3])
+@pytest.mark.parametrize("lanes", [32, 128, 1024])
+@pytest.mark.parametrize("steps", [0, 1, 15, 16, 17])
+def test_probe_plan_assigns_every_step_once(steps, lanes, nb):
+    """The load probes' launch plan: each 8-row unit goes to exactly one
+    warp, every step's unit is one of them, probe 4 reads each of its
+    windows once (min(nb, steps) units), and the block and its shared
+    memory fit one block."""
+    for i in (1, 4):
+        plan = probe_plan(i, steps, lanes, nb)
+        taken = [k for w in range(plan.warps) for k in plan.warp_units(w)]
+        assert sorted(taken) == list(range(plan.units)), (i, plan)
+        assert {unit_of_step(i, s, nb) for s in range(steps)} == set(range(plan.units))
+        assert plan.units == (steps if i == 1 else min(nb, steps))
+        assert plan.threads % 32 == 0 and 32 <= plan.threads <= 1024
+        assert plan.warps <= max(1, plan.units)
+        assert 4 * plan.units <= plan.smem_bytes <= _build.SMEM_LIMIT
+    for i in (2, 3):  # the store loops: one thread a lane
+        assert probe_plan(i, steps, lanes, nb) == (lanes, 0, 0)
+
+
+def test_probe_plan_refuses_what_the_kernel_cannot_take():
+    for kwargs in (dict(lanes=48), dict(lanes=2048), dict(steps=-1)):
+        with pytest.raises(ValueError, match="lanes a multiple of 32"):
+            probe_plan(1, **kwargs)
+    with pytest.raises(ValueError, match="nb >= 1"):
+        probe_plan(4, nb=0)
+    with pytest.raises(ValueError, match="shared memory"):
+        probe_plan(1, steps=_build.SMEM_LIMIT // 4 + 1)
+    assert probe_plan(1, steps=100).warps == 32  # more units than warps go round again
