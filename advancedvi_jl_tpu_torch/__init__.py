@@ -19,7 +19,13 @@ target (``ad_spec``, ``fused_spec_for``: a model body generated from its
 autograd graph; ``fn_target``, ``CustomGradTarget``); the low-rank family
 (``LowRankGaussian``); many chains at once, on the general path
 (``parallel.chains.optimize_chains``) or in one fused launch
-(``FusedChainsADVI``); and ``estimate_objective``.  Constructors that
+(``FusedChainsADVI``); the measure-space algorithms
+(``KLMinNaturalGradDescent``, ``KLMinSqrtNaturalGradDescent``,
+``KLMinWassFwdBwd``, ``FisherMinBatchMatch``) on the full-rank family,
+algorithm-driven early stopping (``WithTermination``, ``elbo_at_least``),
+Pathfinder (``pathfinder``, ``multipath_pathfinder``) with the PSIS
+diagnostics (``pareto_khat``, ``importance_diagnostics``), host targets
+(``ExternalTarget``); and ``estimate_objective``.  Constructors that
 create tensors put them on the card unless the caller asks for the CPU.  Families and states are
 dataclasses of tensors; random draws are step-indexed Philox normals keyed
 by two uint32 seed words.  On CUDA tensors the draws, the triangular
@@ -83,6 +89,16 @@ from .algorithms.paramspace import (
     KLMinScoreGradDescent,
     ParamSpaceSGD,
 )
+from .algorithms.measure_space import (
+    FisherMinBatchMatch,
+    KLMinNaturalGradDescent,
+    KLMinSqrtNaturalGradDescent,
+    KLMinWassFwdBwd,
+)
+from .algorithms.termination import WithTermination, elbo_at_least
+from .algorithms.pathfinder import PathfinderResult, multipath_pathfinder, pathfinder
+from .core.external import ExternalTarget
+from .utils.diagnostics import importance_diagnostics, pareto_khat
 from .optimize import DivergenceError, optimize
 from .estimate import estimate_objective
 from .ops.cuda.fused_advi import (  # whole-loop fused engines (CUDA)

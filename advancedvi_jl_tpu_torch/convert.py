@@ -19,6 +19,8 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from .algorithms.measure_space import MeasureSpaceState
+from .algorithms.pathfinder import PathfinderResult, pathfinder_from_trajectory
 from .families.location_scale import (
     FullRankGaussian,
     FullRankLocationScale,
@@ -40,6 +42,7 @@ from .ops.cuda.fused_advi import (
     FusedModelSpec,
 )
 from .ops.cuda.fused_chains import FusedChainsState
+from .ops.cuda.location_scale_kernels import seed_words
 from .subsampling import ReshufflingState
 
 D_PAD = 128  # JAX fused engine: lane padding unit
@@ -267,3 +270,36 @@ def pack_chains_noise(noise, c_pad: Optional[int] = None,
     out = np.zeros((steps, n, c_pad, d_pad), np.float32)
     out[:, :, :C, :d] = noise.transpose(0, 2, 1, 3)
     return out.reshape(steps * n * c_pad, d_pad)
+
+
+def measure_space_state_from_numpy(jax_state: Any, prob, seed=(0, 0),
+                                   device="cuda") -> MeasureSpaceState:
+    """The port's MeasureSpaceState from a JAX one (any object with its field
+    names): q's ``location`` and ``scale``, ``aux`` (NGD's precision, Wass's
+    covariance; () for the others), the iteration and the schedule's
+    permutation, epoch and step.  ``prob`` is the port's target.  The JAX
+    key does not carry over: the port's draws are keyed by ``seed``'s words
+    (the parity tests inject the JAX draws instead)."""
+    aux, sub = jax_state.aux, jax_state.sub_state
+    return MeasureSpaceState(
+        q=fullrank_from_numpy(jax_state.q.location, jax_state.q.scale, device=device),
+        prob=prob,
+        aux=() if isinstance(aux, tuple) and not aux else to_tensor(aux, device),
+        iteration=int(np.asarray(jax_state.iteration)),
+        sub_state=(() if isinstance(sub, tuple) and not sub else
+                   reshuffling_state_from_numpy(sub.perm, int(np.asarray(sub.epoch)),
+                                                int(np.asarray(sub.step)), seed, device)),
+        seed=seed_words(seed),
+    )
+
+
+def pathfinder_from_numpy(seed, prob, thetas, grads, history: int = 6,
+                          n_elbo_samples: int = 32, noise=None,
+                          device="cuda") -> PathfinderResult:
+    """Pathfinder's stage after the trajectory on a given one, e.g. the JAX
+    package's L-BFGS iterates ``thetas`` (T + 1, d) and the gradients of log
+    pi there (its log densities are not read after the trajectory);
+    ``noise`` (T, K, d): each iterate's base draws."""
+    return pathfinder_from_trajectory(
+        seed, prob, to_tensor(thetas, device), to_tensor(grads, device), history,
+        n_elbo_samples, None if noise is None else to_tensor(noise, device))

@@ -30,6 +30,20 @@ def _use_fast(q) -> bool:
     return supports_fast_entropy(q) and hasattr(q, "sample_with_base")
 
 
+def draw_with_base(q, key, n_samples: int, noise: Optional[torch.Tensor] = None):
+    """(z, u): the family's sampler, or z = ``q.from_base(u)`` for injected
+    base draws ``noise`` of the family's shape (n_samples, q.base_dim):
+    (n, d) mean-field and full-rank, (n, d + r) low-rank."""
+    if noise is None:
+        return q.sample_with_base(key, n_samples)
+    u = noise.to(device=q.location.device, dtype=q.location.dtype)
+    if u.shape != (n_samples, q.base_dim):
+        raise ValueError(
+            f"noise must have shape {(n_samples, q.base_dim)}, got {tuple(u.shape)}"
+        )
+    return q.from_base(u), u
+
+
 @dataclass(frozen=True)
 class RepGradELBO:
     """ELBO with the reparameterization gradient.
@@ -47,18 +61,7 @@ class RepGradELBO:
         return ()  # stateless
 
     def _draw_with_base(self, q, key, noise: Optional[torch.Tensor]):
-        """(z, u): the family's sampler, or z = ``q.from_base(u)`` for
-        injected base draws ``noise`` of the family's shape (n_samples,
-        q.base_dim): (n, d) mean-field and full-rank, (n, d + r) low-rank."""
-        if noise is None:
-            return q.sample_with_base(key, self.n_samples)
-        u = noise.to(device=q.location.device, dtype=q.location.dtype)
-        if u.shape != (self.n_samples, q.base_dim):
-            raise ValueError(
-                f"noise must have shape {(self.n_samples, q.base_dim)}, got "
-                f"{tuple(u.shape)}"
-            )
-        return q.from_base(u), u
+        return draw_with_base(q, key, self.n_samples, noise)
 
     def loss(self, q, prob, key, noise: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Differentiable -ELBO estimate (q_stop is a detached copy of q).

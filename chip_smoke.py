@@ -15,7 +15,9 @@ d = 62, through ``optimize`` with ``KLMinRepGradDescent`` and
 ``FullRankGaussian`` at d = 1024 and 256 samples a step (solve-free
 normal_fullrank_wellcond target, the K8 solve), and
 ``FusedADVI(family="fullrank")`` on the logreg (d = 62) and on a dense
-Gaussian (d = 512).  The proximal and score-gradient paths:
+Gaussian (d = 512).  The measure-space paths: ``optimize`` with each
+measure-space algorithm on the logreg and a d = 256 Gaussian, with
+``WithTermination``, and ``pathfinder`` / ``multipath_pathfinder``.  The proximal and score-gradient paths:
 ``optimize`` with ``KLMinRepGradProxDescent`` and ``KLMinScoreGradDescent``
 and ``FusedProxADVI.optimize`` / ``FusedScoreGradVI.optimize`` on the
 flagship, and full-rank proximal ADVI on normal-lognormal (d = 11).
@@ -113,11 +115,27 @@ Phases:
       ``FusedScoreGradVI`` and ``FusedChainsADVI``, counted; the 200-step
       ad chunk timed beside the hand one with its phase split; and the
       sampler RNG checks (K7c's u2 moments, K7b's and K7c's sample
-      covariance at 65,536 draws, 64 chains agreeing on the optimum).
+      covariance at 65,536 draws, 64 chains agreeing on the optimum);
+  (z) the measure-space slice: K7b against its plain version and K7a's
+      draws at n = 16, 32, 64 x d = 62, 256, 512 and at d = 62 with
+      Pathfinder's 250 pooled draws a path and the 20,000-sample ELBO
+      (every K7b shape of (l)'s and (z)'s counted runs, recorded there, must
+      be one that (i) or (z) checks); NGD (with and without the
+      posdef correction, and on the Stein path), sqrt-NGD, Wass (eigh and
+      Newton-Schulz) and BaM through ``optimize`` on the flagship logreg
+      (d = 62, 2,000 steps) against (l)'s fused full-rank tail, and on a
+      d = 256 dense Gaussian (the error halved in 400 steps; BaM's spectrum
+      after 150); ``WithTermination(alg, elbo_at_least(x))`` for ADVI and
+      NGD, stopping at the dense run's step with its whole state bitwise;
+      Pathfinder on the flagship (best ELBO, NGD warm start beside a cold
+      one, 8-path k-hat and ESS), counted; steps/s of each algorithm at
+      d = 62, 256 and 512, and one NGD, Wass and BaM step at d = 62 and 512
+      split by the profiler (kernels, device busy share, cuSOLVER's time,
+      host syncs, K7b's card and host time).
 
 With ``--parent CHECKOUT`` (e.g. a ``git archive`` of the parent commit
-under the ignored ``_archive/``) it then times K8, K7b, K7a, the K9 probes
-and the chunks of
+under the ignored ``_archive/``) it then times K8, K7b, K7a, the K9 probes,
+a step of flagship ADVI through ``optimize`` and the chunks of
 ``ab_chunks`` with that checkout's package and with this one's, a fresh
 process each, alternating, each side with the mean-field phase split of
 its flagship and minibatch chunks (the other checkout needs the
@@ -130,13 +148,15 @@ there, never built or written in place.
 Every failed check raises and the script exits non-zero; it also exits
 non-zero without a CUDA device, or when the package is not beside it.  The
 line before the last is a JSON object of the kernels (launch counts from the
-main-path runs of (f), (g), (l), (o), (p), (s), (u), (w), (x) and (y), errors, times, each
+main-path runs of (f), (g), (l), (o), (p), (s), (u), (w), (x), (y) and (z), errors, times, each
 time's bound on this card and, for K8, the library call's time); the last
 line is ``{"ok": true, "device": {...}}``.  It imports no JAX.
 """
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
 import math
 import subprocess
@@ -764,18 +784,48 @@ def nan_factor(d, dev, seed=3):
     return (L + torch.triu(torch.full((d, d), float("nan")), 1)).to(dev)
 
 
-def phase_i(dev):
+@contextlib.contextmanager
+def k7b_shapes():
+    """Records the (n, d) of every K7b launch made inside into the yielded
+    set: a pass-through in front of the wrapper's dispatch
+    (``fullrank_sample_raw``), so the counts are the wrapper's own."""
+    from advancedvi_jl_tpu_torch.ops.cuda import location_scale_kernels as lsk
+
+    raw, shapes = lsk.fullrank_sample_raw, set()
+
+    def recording(seed, it, location, scale, n):
+        if location.is_cuda:
+            shapes.add((int(n), location.shape[-1]))
+        return raw(seed, it, location, scale, n)
+
+    lsk.fullrank_sample_raw = recording
+    try:
+        yield shapes
+    finally:
+        lsk.fullrank_sample_raw = raw
+
+
+def check_k7b_shapes(phase, shapes, checked):
+    """Fails unless every K7b shape of a counted run is one that the
+    checks against the plain version covered."""
+    missing = sorted(set(shapes) - set(checked))
+    say(phase, k7b_counted_shapes=",".join(f"{n}x{d}" for n, d in sorted(shapes)))
+    check(not missing, f"({phase}) K7b launched at {missing}, which no check covers")
+
+
+def phase_i(dev, shapes=FR_SAMPLE_SHAPES, phase="i", shown=(FR_SHAPE, FR_WIDE_SHAPE)):
     """K7b against its plain version and K7a's draws at every shape of
-    FR_SAMPLE_SHAPES, C with NaN above its diagonal: u bitwise the plain
-    version's and K7a's, z finite, within 1e-6 norm-wise of the plain
-    version, and the same bits on a second call."""
+    ``shapes`` (FR_SAMPLE_SHAPES; (z) passes its own), C with NaN above its
+    diagonal: u bitwise the plain version's and K7a's, z finite, within 1e-6
+    norm-wise of the plain version, and the same bits on a second call.
+    Prints the shapes in ``shown``; returns the largest error."""
     from advancedvi_jl_tpu_torch.ops.cuda.location_scale_kernels import (
         fullrank_sample_cuda, fullrank_sample_reference, meanfield_sample_cuda, seed_words,
     )
 
     seed = seed_words(SEED)
     worst_err = worst_rel = 0.0
-    for n, d in FR_SAMPLE_SHAPES:
+    for n, d in shapes:
         C = nan_factor(d, dev)
         loc = torch.randn(d, generator=torch.Generator().manual_seed(d)).to(dev)
         z, u = fullrank_sample_cuda(seed, 5, loc, C, n)
@@ -787,14 +837,14 @@ def phase_i(dev):
         checks = {"u_bitwise_plain": torch.equal(u, ur), "u_bitwise_meanfield": torch.equal(u, umf),
                   "z_finite": bool(torch.isfinite(z).all()),
                   "z_bitwise_two_calls": torch.equal(z, z2) and torch.equal(u, u2)}
-        if (n, d) in (FR_SHAPE, FR_WIDE_SHAPE) or not all(checks.values()):
-            say("i", shape=f"{n}x{d}", **checks, z_rel_err=rel, z_max_abs_err=err)
+        if (n, d) in shown or not all(checks.values()):
+            say(phase, shape=f"{n}x{d}", **checks, z_rel_err=rel, z_max_abs_err=err)
         for name, ok in checks.items():
             check(ok, f"full-rank sampler at {n}x{d}: {name} failed")
         # z sums d products in another order than the plain product
         check(rel <= 1e-6, f"full-rank sampler z at {n}x{d}: norm-wise error {rel} > 1e-6")
         worst_err, worst_rel = max(worst_err, err), max(worst_rel, rel)
-    say("i", shapes=len(FR_SAMPLE_SHAPES), all_checks=True, worst_z_rel_err=worst_rel,
+    say(phase, shapes=len(shapes), all_checks=True, worst_z_rel_err=worst_rel,
         worst_z_max_abs_err=worst_err, upper_triangle="nan")
     return worst_err
 
@@ -965,17 +1015,20 @@ def fullrank_paths(dev):
     """(l) The full-rank main paths, each with counted launches: the general
     path at d = 1024, n = 256 (bench_large.py bench_fullrank_flopbound), the
     fused logreg engine to 20,000 steps, and fused vs general at d = 62 and
-    d = 512 on the same Philox key."""
+    d = 512 on the same Philox key.  Returns the counts and the fused
+    logreg's tail ELBO and averaged location at 20,000 steps."""
     import advancedvi_jl_tpu_torch as avt
 
     target, q0, alg = wide_general(dev)
     torch.cuda.synchronize()
     reset_launches()
     t0 = time.perf_counter()
-    _, infos, _ = avt.optimize(SEED, alg, FR_GENERAL_STEPS, target, q0, log_every=10)
+    with k7b_shapes() as shapes:
+        _, infos, _ = avt.optimize(SEED, alg, FR_GENERAL_STEPS, target, q0, log_every=10)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     counts = read_launches()
+    check_k7b_shapes("l", shapes, FR_SAMPLE_SHAPES)
     elbos = [r["elbo"] for r in infos]
     first, last = sum(elbos[:5]) / 5, sum(elbos[-5:]) / 5
     say("l", path="general", d=FR_D, n=FR_N, steps=FR_GENERAL_STEPS, elbo_first5=first,
@@ -997,8 +1050,8 @@ def fullrank_paths(dev):
     reset_launches()
     t0 = time.perf_counter()
     q_agree, rows_a, st = eng.optimize(SEED, FR_AGREE_STEPS, lq0, log_every=LOG_EVERY)
-    _, rows_b, st = eng.optimize(SEED, FUSED_STEPS - FR_AGREE_STEPS, state=st,
-                                 log_every=LOG_EVERY)
+    q_fused, rows_b, st = eng.optimize(SEED, FUSED_STEPS - FR_AGREE_STEPS, state=st,
+                                       log_every=LOG_EVERY)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     mv_q, mv_rows, _ = meng.optimize(SEED, FR_MV_STEPS, mq0, log_every=LOG_EVERY)
@@ -1032,7 +1085,8 @@ def fullrank_paths(dev):
             general_elbo=ginfos[-1]["elbo"])
         # same draws; the two paths round sums in other orders
         check(loc_diff <= 1e-3, f"fused vs general {name}: location {loc_diff} > 1e-3 apart")
-    return counts
+    # the fused logreg's tail and averaged location: (z)'s reference
+    return counts, (tail, q_fused.location)
 
 
 def fullrank_chunk_args(dev):
@@ -1164,8 +1218,9 @@ def ab_times(dev):
     checkout's package: K8 at 256 x 1024 in both modes (events and graph
     replay), K7b at 256 x 1024 and 128 x 2048 (graph replay), K7a at 10 x 62
     (graph replay, behind a kernel that writes m, host time a call), each K9
-    probe (graph replay, host time a call), every chunk of
-    ``ab_chunks``, and the mean-field phase split of
+    probe (graph replay, host time a call), a step of flagship ADVI through
+    ``optimize`` (``optimize_step_ms``), every chunk of ``ab_chunks``, and
+    the mean-field phase split of
     the flagship hand and ad chunks and of the mean-field minibatch
     chunks."""
     from advancedvi_jl_tpu_torch.ops.cuda import _build
@@ -1209,6 +1264,7 @@ def ab_times(dev):
         out[f"probe{i}_graph"] = t
     for i, x in probe_inputs(dev).items():
         out[f"probe{i}_host_us"] = host_us(lambda: probe_cuda(i, x, device=dev))
+    out["optimize_advi_step_ms"] = optimize_step_ms(dev)
     for name, (fn, reps) in chunks.items():
         out[name] = cuda_ms(fn, reps)
     for name, (args, ad, walk) in splits.items():
@@ -1217,6 +1273,28 @@ def ab_times(dev):
         for phase, c in zip(MF_PHASES, cycles):
             out[f"split_{name}_{phase}_us"] = 1e3 * out[name] / 200 * c / total
     return out
+
+
+OPT_STEPS = 500
+
+
+def optimize_step_ms(dev):
+    """Host ms a step of phase (h)'s flagship ADVI through ``optimize``: one
+    OPT_STEPS-step chunk (its rows read in one sync), after a 50-step
+    warm-up run, ending in a sync; the loop's own cost beside the steps."""
+    import advancedvi_jl_tpu_torch as avt
+
+    prob = flagship(dev)
+    d, target = prob.dim, prob.unconstrained()
+    alg = avt.KLMinRepGradDescent(entropy=avt.STL, n_samples=N_SAMPLES,
+                                  optimizer=avt.adam(LR), operator=avt.ClipScale())
+    q0 = avt.MeanFieldGaussian(torch.zeros(d, device=dev), 0.1 * torch.ones(d, device=dev))
+    avt.optimize(SEED, alg, 50, target, q0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    avt.optimize(SEED, alg, OPT_STEPS, target, q0, log_every=10)
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / OPT_STEPS
 
 
 AB_CHILD = r"""
@@ -1231,7 +1309,7 @@ print(json.dumps(smoke.ab_times(torch.device("cuda:0"))))
 
 # The kernel libraries this tree edits against its parent: every other one
 # must compile to the parent's SASS.
-AB_CHANGED = ("meanfield_sample", "probes")
+AB_CHANGED = ()
 
 
 def ab_parent(parent: Path):
@@ -3385,6 +3463,368 @@ def phase_y(dev, card):
     return counts["k5_ad"], err, ms, plain_ms, bound(flops, nbytes)
 
 
+# ---------------------------------------------------------------------------
+# The measure-space slice: K7b at its shapes, the measure-space algorithms,
+# the stop channel and Pathfinder
+# ---------------------------------------------------------------------------
+
+MS_PATHS, MS_PATH_DRAWS = 8, 1_000   # multi-path Pathfinder on the flagship
+MS_EVAL_SAMPLES = 20_000             # the warm-start check's ELBOs
+# the algorithms' draws, then Pathfinder's pooled draws a path and the ELBOs
+MS_SAMPLE_SHAPES = [(n, d) for n in (16, 32, 64) for d in (62, 256, 512)] + [
+    ((2 * MS_PATH_DRAWS) // MS_PATHS, N_FEATURES + 2), (MS_EVAL_SAMPLES, N_FEATURES + 2)]
+MS_STEPS = 2_000         # tests/test_cross_algorithm.py's NGD run on the logreg
+MS_LOG_EVERY = 10        # the tail ELBO: the mean of the last 20 rows, 200 steps
+MS_GAUSS_D = 256         # tests/test_measure_space.py:265's width
+MS_GAUSS_STEPS = 400     # tests/test_measure_space.py:105's horizon
+MS_BAM_STEPS = 150       # tests/test_measure_space.py:265's run
+MS_TIMED_STEPS = 20
+MS_TIMED_DIMS = (62, 256, 512)
+MS_TERM_STEPS = 400
+MS_WARM_STEPS = 20
+
+
+def ms_flagship_algs():
+    """(name, algorithm, minimises KL) of (z)'s flagship runs."""
+    import advancedvi_jl_tpu_torch as avt
+
+    return [
+        ("ngd", avt.KLMinNaturalGradDescent(stepsize=0.05, n_samples=32), True),
+        ("ngd_noposdef", avt.KLMinNaturalGradDescent(stepsize=0.05, n_samples=32,
+                                                     ensure_posdef=False), True),
+        ("sqrt_ngd", avt.KLMinSqrtNaturalGradDescent(stepsize=0.05, n_samples=16), True),
+        # the forward step M = I + eta H needs eta < 2 / lam_max(-H), and
+        # lam_max is about 103 near this posterior: 0.05 diverges by step 3,
+        # in the JAX package too (tests/test_torch_measure_space.py)
+        ("wass", avt.KLMinWassFwdBwd(stepsize=0.01, n_samples=16), True),
+        ("wass_ns", avt.KLMinWassFwdBwd(stepsize=0.01, n_samples=16, sqrtm="newton_schulz"),
+         True),
+        ("bam", avt.FisherMinBatchMatch(n_samples=32), False),
+        ("ngd_stein", avt.KLMinNaturalGradDescent(stepsize=0.05, n_samples=64,
+                                                  hessian="stein"), True),
+    ]
+
+
+def ms_gauss_algs():
+    """tests/test_measure_space.py:90's settings."""
+    import advancedvi_jl_tpu_torch as avt
+
+    return [
+        ("ngd", avt.KLMinNaturalGradDescent(stepsize=0.1, n_samples=16)),
+        ("ngd_noposdef", avt.KLMinNaturalGradDescent(stepsize=0.05, n_samples=16,
+                                                     ensure_posdef=False)),
+        ("sqrt_ngd", avt.KLMinSqrtNaturalGradDescent(stepsize=0.05, n_samples=16)),
+        ("wass", avt.KLMinWassFwdBwd(stepsize=0.05, n_samples=16)),
+        ("wass_ns", avt.KLMinWassFwdBwd(stepsize=0.05, n_samples=16, sqrtm="newton_schulz")),
+        ("bam", avt.FisherMinBatchMatch(n_samples=32)),
+    ]
+
+
+def ms_target(d, dev):
+    """(target, q0) at width d: the flagship logreg at 62 from scale 0.1,
+    else the well-conditioned dense Gaussian (matmul-only log density) from
+    the identity."""
+    import advancedvi_jl_tpu_torch as avt
+    from advancedvi_jl_tpu_torch.models.normal import normal_fullrank_wellcond
+
+    if d == N_FEATURES + 2:
+        return (flagship(dev).unconstrained(),
+                avt.FullRankGaussian(torch.zeros(d, device=dev), 0.1 * torch.eye(d, device=dev)))
+    target, _, _ = normal_fullrank_wellcond(3, d, device=dev)
+    return target.solve_free(), avt.FullRankGaussian(torch.zeros(d, device=dev))
+
+
+def ms_flagship(dev, fr_ref):
+    """(z) Each measure-space algorithm through ``optimize`` on the flagship
+    logreg from FullRankGaussian(0, 0.1 I), MS_STEPS steps, counted: finite;
+    the KL minimisers' tail ELBO within 2.0 of (l)'s fused full-rank logreg
+    tail and their locations within 0.15 of its averaged location
+    (tests/test_cross_algorithm.py's bound); BaM, which minimises another
+    divergence, above -150 (bench.py's ``converged``).  Each step launches
+    K7b once.  Returns the K7b launches."""
+    import advancedvi_jl_tpu_torch as avt
+
+    fr_tail, fr_loc = fr_ref
+    target, q0 = ms_target(N_FEATURES + 2, dev)
+    launches = 0
+    for name, alg, kl in ms_flagship_algs():
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        q, infos, _ = avt.optimize(SEED, alg, MS_STEPS, target, q0, log_every=MS_LOG_EVERY)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        k7b = read_launches()["fullrank_sample"]
+        tail = tail_elbo(infos)
+        loc = max_err(q.location, fr_loc)
+        say("z", flagship=name, d=q.dim, steps=MS_STEPS, elbo_tail_mean=tail,
+            fused_fullrank_tail_mean=fr_tail, location_max_abs_diff_vs_fused=loc,
+            seconds=f"{secs:.2f}", steps_per_s=f"{MS_STEPS / secs:.1f}",
+            fullrank_sample_launches=k7b)
+        check(all(math.isfinite(r["elbo"]) for r in infos), f"(z) {name}: ELBO not finite")
+        check(bool(torch.isfinite(q.scale).all()), f"(z) {name}: scale not finite")
+        check(k7b == MS_STEPS, f"(z) {name}: {k7b} K7b launches in {MS_STEPS} steps")
+        if kl:
+            check(abs(tail - fr_tail) <= 2.0, f"(z) {name}: tail {tail} vs fused {fr_tail}")
+            check(loc <= 0.15, f"(z) {name}: location {loc} from the fused run's")
+        else:
+            check(tail > -150.0, f"(z) {name}: tail ELBO {tail} <= -150")
+        launches += k7b
+    return launches
+
+
+def ms_gaussians(dev):
+    """(z) The d = 256 dense Gaussian: each algorithm at least halves its
+    parameter error ||m - mu||^2 + ||C - L||^2 within MS_GAUSS_STEPS steps
+    (tests/test_measure_space.py:105's bar), and BaM stays finite for
+    MS_BAM_STEPS steps with Sigma's least eigenvalue above 1e-4 (:265).
+    Returns the K7b launches."""
+    import advancedvi_jl_tpu_torch as avt
+    from advancedvi_jl_tpu_torch.models.normal import normal_fullrank_wellcond
+
+    target, mu, L = normal_fullrank_wellcond(3, MS_GAUSS_D, device=dev)
+    target = target.solve_free()
+    q0 = avt.FullRankGaussian(torch.zeros(MS_GAUSS_D, device=dev))
+
+    def err(q):
+        return float(torch.sum((q.location - mu) ** 2) + torch.sum((torch.tril(q.scale) - L) ** 2))
+
+    err0 = err(q0)
+    launches = 0
+    for name, alg in ms_gauss_algs():
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        q, infos, _ = avt.optimize(SEED, alg, MS_GAUSS_STEPS, target, q0, log_every=100)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches += read_launches()["fullrank_sample"]
+        e = err(q)
+        say("z", gaussian=name, d=MS_GAUSS_D, steps=MS_GAUSS_STEPS, param_err=e, param_err0=err0,
+            elbo_last=infos[-1]["elbo"], seconds=f"{secs:.2f}")
+        check(all(math.isfinite(r["elbo"]) for r in infos), f"(z) {name} at d = 256: not finite")
+        check(e <= err0 / 2, f"(z) {name} at d = 256: error {e} not half of {err0}")
+    alg = avt.FisherMinBatchMatch(n_samples=32)
+    reset_launches()
+    state = alg.init(SEED, q0, target)
+    finite = True
+    for _ in range(MS_BAM_STEPS):
+        state, info = alg.step(state)
+        finite = finite and bool(torch.isfinite(info["elbo"]))
+    launches += read_launches()["fullrank_sample"]
+    C = state.q.scale.double()
+    least = float(torch.linalg.eigvalsh(C @ C.T)[0])
+    say("z", bam_no_collapse=f"d={MS_GAUSS_D}", steps=MS_BAM_STEPS, finite=finite,
+        sigma_least_eigenvalue=least)
+    check(finite and least > 1e-4, f"(z) BaM at d = 256: finite {finite}, least eig {least}")
+    return launches
+
+
+def state_leaves(obj):
+    """Every tensor and host value of an algorithm's state, depth first
+    through dataclass fields (but the target), tuples, lists and dicts."""
+    if isinstance(obj, torch.Tensor):
+        return [obj]
+    if dataclasses.is_dataclass(obj):
+        return [x for f in dataclasses.fields(obj) if f.name != "prob"
+                for x in state_leaves(getattr(obj, f.name))]
+    if isinstance(obj, (tuple, list)):
+        return [x for o in obj for x in state_leaves(o)]
+    if isinstance(obj, dict):
+        return [x for k in sorted(obj) for x in state_leaves(obj[k])]
+    return [obj]
+
+
+def ms_termination(dev):
+    """(z) WithTermination(alg, elbo_at_least(x)) through chunked
+    ``optimize`` (64-step chunks) for flagship ADVI (phase (f)'s algorithm)
+    and NGD, x the largest ELBO of the last half of a dense run's log: it
+    stops at the dense run's first step at or above x, and the whole state
+    there (every tensor and host value but the target) is bitwise that of
+    the dense run cut at that step.  Also the stop
+    channel's cost: steps/s with a criterion that never fires beside the
+    plain algorithm.  Returns the K7b launches."""
+    import advancedvi_jl_tpu_torch as avt
+    prob = flagship(dev)
+    target, d = prob.unconstrained(), prob.dim
+    cases = (
+        ("advi", lambda: avt.KLMinRepGradDescent(entropy=avt.STL, n_samples=N_SAMPLES,
+                                                 optimizer=avt.adam(LR),
+                                                 operator=avt.ClipScale()),
+         avt.MeanFieldGaussian(torch.zeros(d, device=dev), 0.1 * torch.ones(d, device=dev))),
+        ("ngd", lambda: avt.KLMinNaturalGradDescent(stepsize=0.05, n_samples=32),
+         ms_target(d, dev)[1]),
+    )
+    launches = 0
+    for name, make, q0 in cases:
+        reset_launches()
+        _, dense, _ = avt.optimize(SEED, make(), MS_TERM_STEPS, target, q0)
+        x = max(r["elbo"] for r in dense[MS_TERM_STEPS // 2:])
+        first = next(r["iteration"] for r in dense if r["elbo"] >= x)
+        _, rows, st = avt.optimize(SEED, avt.WithTermination(make(), avt.elbo_at_least(x)),
+                                   MS_TERM_STEPS, target, q0, chunk_size=64)
+        _, _, ref = avt.optimize(SEED, make(), first, target, q0)
+        launches += read_launches()["fullrank_sample"]
+        a, b = state_leaves(st), state_leaves(ref)
+        bitwise = len(a) == len(b) and all(
+            torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y for x, y in zip(a, b))
+        rates = {}
+        for tag, alg in (("plain", make()),
+                         ("never_fires", avt.WithTermination(make(), avt.elbo_at_least(math.inf)))):
+            avt.optimize(SEED, alg, 10, target, q0)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            avt.optimize(SEED, alg, 200, target, q0, chunk_size=200)
+            torch.cuda.synchronize()
+            rates[tag] = 200 / (time.perf_counter() - t0)
+        say("z", termination=name, target_elbo=x, dense_first_step=first,
+            stopped_at=rows[-1]["iteration"], state_iteration=st.iteration,
+            state_bitwise_dense=bitwise, steps_per_s_plain=f"{rates['plain']:.1f}",
+            steps_per_s_with_stop_channel=f"{rates['never_fires']:.1f}")
+        check(rows[-1]["iteration"] == first == st.iteration,
+              f"(z) {name}: stopped at {rows[-1]['iteration']}, dense first {first}")
+        check(bitwise, f"(z) {name}: the stopped state is not the dense run's")
+    return launches
+
+
+def ms_pathfinder(dev):
+    """(z) Pathfinder on the flagship: a finite best ELBO; NGD from its q
+    beats NGD from FullRankGaussian(0, 0.1 I) after MS_WARM_STEPS steps by
+    0.5 nats (tests/test_pathfinder.py:64's bar; MS_EVAL_SAMPLES-sample
+    ELBOs); multi-path with MS_PATHS paths reports k-hat and ESS.  Returns the K7b
+    launches."""
+    import advancedvi_jl_tpu_torch as avt
+
+    target, q_cold = ms_target(N_FEATURES + 2, dev)
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = avt.pathfinder(SEED, target, device=dev)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    ev = avt.RepGradELBO(n_samples=MS_EVAL_SAMPLES, entropy=avt.MONTE_CARLO)
+    elbo = {}
+    for tag, q0 in (("warm", res.q), ("cold", q_cold)):
+        q, _, _ = avt.optimize(SEED, avt.KLMinNaturalGradDescent(stepsize=0.05, n_samples=32),
+                               MS_WARM_STEPS, target, q0)
+        elbo[tag] = -float(ev.estimate_objective(5, q, target))
+    t0 = time.perf_counter()
+    draws, diag, results = avt.multipath_pathfinder(SEED, target, n_paths=MS_PATHS,
+                                                    n_draws=MS_PATH_DRAWS, device=dev)
+    torch.cuda.synchronize()
+    multi_secs = time.perf_counter() - t0
+    launches = read_launches()["fullrank_sample"]
+    say("z", pathfinder="flagship", best_elbo=float(res.elbo), best_iter=int(res.best_iter),
+        seconds=f"{secs:.2f}", ngd_warm_elbo=elbo["warm"], ngd_cold_elbo=elbo["cold"],
+        warm_steps=MS_WARM_STEPS, multipath_paths=MS_PATHS, multipath_khat=diag["khat"],
+        multipath_ess=diag["ess"], multipath_seconds=f"{multi_secs:.2f}",
+        path_elbos=",".join(f"{float(r.elbo):.2f}" for r in results))
+    check(math.isfinite(float(res.elbo)), "(z) Pathfinder's best ELBO is not finite")
+    check(elbo["warm"] > elbo["cold"] + 0.5, f"(z) NGD warm {elbo['warm']} vs cold {elbo['cold']}")
+    check(bool(torch.isfinite(draws).all()) and math.isfinite(diag["ess"]),
+          "(z) multi-path draws or ESS not finite")
+    return launches
+
+
+def ms_rates(dev, card):
+    """(z) Steps/s of each algorithm at d = 62, 256 and 512 (host clock over
+    MS_TIMED_STEPS steps ending in a sync, after 3 warm-up steps)."""
+    for d in MS_TIMED_DIMS:
+        target, q0 = ms_target(d, dev)
+        for name, alg, _ in ms_flagship_algs():
+            state = alg.init(SEED, q0, target)
+            for _ in range(3):
+                state, _ = alg.step(state)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(MS_TIMED_STEPS):
+                state, _ = alg.step(state)
+            torch.cuda.synchronize()
+            say("z", rate=name, d=d, steps_per_s=f"{MS_TIMED_STEPS / (time.perf_counter() - t0):.1f}",
+                card=card)
+
+
+# the ops that run cuSOLVER (and the triangular solves, cuBLAS trsm)
+LINALG_OPS = ("aten::linalg_eigh", "aten::linalg_svd", "aten::linalg_cholesky_ex",
+              "aten::linalg_solve_triangular")
+
+
+def ms_step_split(dev, card):
+    """(z) One NGD, Wass and BaM step at d = 62 and 512, split: kernels a
+    step and the device busy share (torch.profiler over 5 steps, each
+    kernel's device time over the host clock's), the linear-algebra ops'
+    device time (cuSOLVER's eigh, SVD and Cholesky; trsm), host syncs a step
+    (``torch.cuda.set_sync_debug_mode``'s warnings over one step), and K7b's
+    card time (graph replay) and host time a call at the step's shape."""
+    import warnings
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from advancedvi_jl_tpu_torch.ops.cuda.location_scale_kernels import (
+        fullrank_sample_cuda, seed_words,
+    )
+
+    algs = {name: alg for name, alg, _ in ms_flagship_algs()}
+    for d in (62, 512):
+        target, q0 = ms_target(d, dev)
+        for name in ("ngd", "wass", "bam"):
+            alg = algs[name]
+            state = alg.init(SEED, q0, target)
+            for _ in range(3):
+                state, _ = alg.step(state)
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("warn")
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                state, _ = alg.step(state)
+            torch.cuda.set_sync_debug_mode("default")
+            syncs = sum("synchroniz" in str(w.message) for w in caught)
+            steps = 5
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for _ in range(steps):
+                    state, _ = alg.step(state)
+                torch.cuda.synchronize()
+                wall_us = (time.perf_counter() - t0) * 1e6
+            avg = prof.key_averages()
+            kern = [e for e in avg if e.device_type == DeviceType.CUDA]
+            n_kernels = sum(e.count for e in kern) / steps
+            busy_us = sum(e.device_time_total for e in kern) / steps
+            k7b_us = sum(e.device_time_total for e in kern if "fullrank" in e.key) / steps
+            linalg = {e.key.split("::")[1]: e.device_time_total / steps for e in avg
+                      if e.key in LINALG_OPS}
+            n = alg.n_samples
+            C = state.q.scale.contiguous()
+            k7b = lambda: fullrank_sample_cuda(seed_words(SEED), 1, state.q.location, C, n)  # noqa: E731
+            say("z", split=name, d=d, n=n, step_us=f"{wall_us / steps:.1f}",
+                kernels_a_step=f"{n_kernels:.1f}", device_busy_us=f"{busy_us:.1f}",
+                device_busy_share=f"{busy_us / (wall_us / steps):.3f}", host_syncs_a_step=syncs,
+                **{f"{k}_device_us": f"{v:.1f}" for k, v in linalg.items()},
+                k7b_profiled_device_us=f"{k7b_us:.2f}",
+                k7b_graph_us=f"{1e3 * graph_ms(k7b):.2f}", k7b_host_us=f"{host_us(k7b, 300):.1f}",
+                card=card)
+            check(n_kernels > 0, f"(z) the profiler saw no kernel in a {name} step")
+
+
+def phase_z(dev, card, fr_ref):
+    """(z) The measure-space slice.  K7b against its plain version at the
+    slice's shapes; then its main path, counted, with every K7b shape it
+    launched held to those checked here or in (i): each algorithm on the
+    flagship and the d = 256 Gaussian, the stop channel and Pathfinder; then
+    steps/s and the step splits.  Returns K7b's main-path launches and its
+    largest error."""
+    err = phase_i(dev, MS_SAMPLE_SHAPES, "z", MS_SAMPLE_SHAPES)
+    with k7b_shapes() as shapes:
+        launches = (ms_flagship(dev, fr_ref) + ms_gaussians(dev) + ms_termination(dev)
+                    + ms_pathfinder(dev))
+    say("z", fullrank_sample_main_path_launches=launches)
+    check_k7b_shapes("z", shapes, FR_SAMPLE_SHAPES + MS_SAMPLE_SHAPES)
+    ms_rates(dev, card)
+    ms_step_split(dev, card)
+    return launches, err
+
+
 def main() -> int:
     parent = None  # --parent DIR: the A/B of the chunks against that checkout
     argv = sys.argv[1:]
@@ -3418,7 +3858,7 @@ def main() -> int:
     fr_samp_err = phase_i(dev)
     tri_err = phase_j(dev)
     fr_fused_err, fr_cluster_err = phase_k(dev)
-    fr_counts = fullrank_paths(dev)
+    fr_counts, fr_ref = fullrank_paths(dev)
     fr_times = phase_m(dev, card)
     lap("i-m")
     slice_err = phase_n(dev)
@@ -3442,6 +3882,8 @@ def main() -> int:
     lap("x")
     k5_launches, k5_err, k5_ms, k5_plain_ms, k5_bound = phase_y(dev, card)
     lap("y")
+    ms_launches, ms_samp_err = phase_z(dev, card, fr_ref)
+    lap("z")
     if parent is not None:
         ab_parent(parent)
         lap("ab")
@@ -3463,9 +3905,11 @@ def main() -> int:
               counts["meanfield_sample"], samp_err, *times["meanfield_sample"]),
         entry("fused_advi_meanfield", "fused_advi_meanfield.cu", f"{fused}672",
               counts["fused_advi_meanfield"], fused_err, *times["fused_advi_meanfield"]),
+        # the general full-rank path of (l) and the measure-space path of (z)
         entry("fullrank_sample", "fullrank_sample.cu",
               "advancedvi_jl_tpu/ops/pallas/location_scale_kernels.py:110",
-              fr_counts["fullrank_sample"], fr_samp_err, *fr_times["fullrank_sample"]),
+              fr_counts["fullrank_sample"] + ms_launches, max(fr_samp_err, ms_samp_err),
+              *fr_times["fullrank_sample"]),
         entry("trisolve", "trisolve.cu", "advancedvi_jl_tpu/ops/pallas/trisolve_kernels.py:115",
               fr_counts["trisolve"], tri_err, *fr_times["trisolve_C"]),
         # mode CT: the same kernel source and launch counter, timed apart

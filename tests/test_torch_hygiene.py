@@ -60,7 +60,11 @@ def test_package_exports_the_slice():
                  "logreg_minibatch_spec", "logreg_minibatch_hbm_spec", "make_bnn",
                  "subsampled_normals", "LowRankGaussian", "LowRankLocationScale",
                  "estimate_objective", "FusedChainsADVI", "FnTarget", "fn_target",
-                 "CustomGradTarget", "ad_spec", "fused_spec_for"):
+                 "CustomGradTarget", "ad_spec", "fused_spec_for",
+                 "KLMinNaturalGradDescent", "KLMinSqrtNaturalGradDescent", "KLMinWassFwdBwd",
+                 "FisherMinBatchMatch", "WithTermination", "elbo_at_least", "ExternalTarget",
+                 "PathfinderResult", "pathfinder", "multipath_pathfinder",
+                 "importance_diagnostics", "pareto_khat"):
         assert hasattr(advancedvi_jl_tpu_torch, name), name
     assert not _build._libs, "importing the package must not build or load kernels"
 
@@ -208,7 +212,10 @@ def test_port_modules_load_no_jax_and_build_nothing():
     assert "advancedvi_jl_tpu_torch.models.normallognormal" in mods
     for new in ("subsampling", "objectives.subsampled", "core.factorized", "models.bnn",
                 "models.subsampled_normals", "ops.cuda.probe_kernels", "parallel.chains",
-                "estimate", "families.low_rank", "ops.cuda.fused_chains", "ops.cuda.ad_body"):
+                "estimate", "families.low_rank", "ops.cuda.fused_chains", "ops.cuda.ad_body",
+                "ops.sqrtm", "algorithms.gauss_expected", "algorithms.measure_space",
+                "algorithms.termination", "algorithms.pathfinder", "core.external",
+                "utils.diagnostics"):
         assert f"advancedvi_jl_tpu_torch.{new}" in mods, new
     code = (
         "import importlib, sys\n"
@@ -236,7 +243,8 @@ def test_port_modules_load_no_jax_and_build_nothing():
     ("subsampling", "ReshufflingBatchSubsampling.init"),
     ("subsampling", "ReshufflingBatchSubsampling.epoch_batches"),
     ("ops.cuda.probe_kernels", "run_probes"), ("convert", "lowrank_from_numpy"),
-    ("convert", "chains_state_from_numpy"),
+    ("convert", "chains_state_from_numpy"), ("convert", "measure_space_state_from_numpy"),
+    ("convert", "pathfinder_from_numpy"), ("algorithms.pathfinder", "pathfinder"),
 ])
 def test_constructors_default_to_the_card(module, name):
     """Every constructor that creates tensors puts them on the card unless
