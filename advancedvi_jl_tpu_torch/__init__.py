@@ -5,7 +5,8 @@ its module tree and public names for the slices ported so far: mean-field
 and full-rank Gaussian ADVI (``KLMinRepGradDescent`` with the closed-form,
 Monte-Carlo or STL entropy), proximal ADVI (``KLMinRepGradProxDescent``
 with a zero-gradient entropy and the entropy's proximal step) and BBVI
-(``KLMinScoreGradDescent``, the VarGrad score gradient), with Adam,
+(``KLMinScoreGradDescent``, the VarGrad score gradient) and
+importance-weighted VI (``IWELBO``, ``KLMinIWRepGradDescent``), with Adam,
 descent, DoWG, DoG or COCOB, ClipScale and polynomial averaging, driven by
 ``optimize``, each with ``subsampling=`` for doubly-stochastic VI
 (``ReshufflingBatchSubsampling``, ``SubsampledObjective``, ``subsample``,
@@ -17,7 +18,9 @@ Gaussian targets (``gaussian_spec``, ``normallognormal_spec``) and,
 full-rank, dense Gaussian targets (``mvnormal_spec``), and any traceable
 target (``ad_spec``, ``fused_spec_for``: a model body generated from its
 autograd graph; ``fn_target``, ``CustomGradTarget``); the low-rank family
-(``LowRankGaussian``); many chains at once, on the general path
+(``LowRankGaussian``); Student-t and Laplace bases (``StudentT``,
+``Laplace``), float64 families, packed and inverse full-rank scales and
+antithetic draws; many chains at once, on the general path
 (``parallel.chains.optimize_chains``) or in one fused launch
 (``FusedChainsADVI``); the measure-space algorithms
 (``KLMinNaturalGradDescent``, ``KLMinSqrtNaturalGradDescent``,
@@ -54,7 +57,7 @@ from .core.problem import (
 from .core.factorized import FactorizedTarget, factorized_target
 from .core.pytree import tree_stop_gradient
 from .core.transforms import Exp, Identity, Stacked, TransformedTarget, stacked
-from .families.base import Normal
+from .families.base import Laplace, Normal, StudentT
 from .families.location_scale import (
     FullRankGaussian,
     FullRankLocationScale,
@@ -73,6 +76,7 @@ from .objectives.entropy import (
     estimate_entropy,
 )
 from .objectives.repgradelbo import RepGradELBO
+from .objectives.iwelbo import IWELBO, KLMinIWRepGradDescent
 from .objectives.scoregradelbo import ScoreGradELBO
 from .objectives.subsampled import SubsampledObjective
 from .subsampling import ReshufflingBatchSubsampling, ReshufflingState

@@ -78,6 +78,12 @@ def _check_q(q, alg_name: str) -> None:
             f"{alg_name} requires a FullRankGaussian variational family "
             "(reference requirement)."
         )
+    if q.layout != "dense":
+        raise ValueError(
+            f"{alg_name} rebuilds dense covariance factors each step; "
+            "layout='packed' buys nothing there and is not supported — "
+            "construct the family with layout='dense'."
+        )
 
 
 class MeasureSpaceAlgorithm:

@@ -33,6 +33,7 @@ from ..ops.cuda.location_scale_kernels import PhiloxKey, SeedLike, seed_words
 from ..optim.averaging import PolynomialAveraging
 from ..optim.operators import IdentityOperator, ProximalLocationScaleEntropy
 from ..optim.rules import apply_updates, dowg
+from .gauss_expected import check_mc_axis
 
 
 @dataclass(frozen=True)
@@ -146,19 +147,27 @@ def KLMinRepGradDescent(
     averager=None,
     operator=None,
     subsampling=None,
+    mc_axis=None,
+    antithetic: bool = False,
+    fast_entropy: bool = True,
 ) -> ParamSpaceSGD:
     """ADVI: SGD on the reparameterization-gradient ELBO (reference
     constructors.jl:44-79; defaults DoWG + polynomial averaging).
     ``subsampling``: a ``ReshufflingBatchSubsampling`` for doubly-stochastic
-    VI (the objective is wrapped in ``SubsampledObjective``)."""
+    VI (the objective is wrapped in ``SubsampledObjective``);
+    ``antithetic`` and ``fast_entropy``: RepGradELBO's.  ``mc_axis`` (the
+    samples over a device mesh) is not ported."""
+    check_mc_axis(mc_axis)
     if entropy not in (CLOSED_FORM, STL, MONTE_CARLO):
         raise ValueError(
             "KLMinRepGradDescent supports closed_form / stl / monte_carlo "
             f"entropy, got {entropy!r}; use KLMinRepGradProxDescent for "
             "zero-gradient variants."
         )
+    objective = RepGradELBO(n_samples=n_samples, entropy=entropy, antithetic=antithetic,
+                            fast_entropy=fast_entropy)
     return ParamSpaceSGD(
-        objective=_subsampled(RepGradELBO(n_samples=n_samples, entropy=entropy), subsampling),
+        objective=_subsampled(objective, subsampling),
         optimizer=optimizer if optimizer is not None else dowg(),
         averager=averager if averager is not None else PolynomialAveraging(),
         operator=operator if operator is not None else IdentityOperator(),

@@ -30,6 +30,7 @@ import torch
 
 from ..core.problem import dim_of, log_density_and_grad
 from ..families.location_scale import FullRankGaussian
+from ..ops.base_draws import generator
 from ..ops.cuda.location_scale_kernels import PhiloxKey, SeedLike, chain_seed_words, seed_words
 from ..utils.diagnostics import importance_diagnostics
 from .measure_space import cholesky
@@ -41,11 +42,6 @@ class PathfinderResult(NamedTuple):
     best_iter: torch.Tensor  # the trajectory index selected
     elbos: torch.Tensor  # (T,) per-iterate ELBOs
     trajectory: torch.Tensor  # (T + 1, d) iterates
-
-
-def _generator(words, device) -> torch.Generator:
-    """A torch generator on ``device`` seeded by the two 32-bit seed words."""
-    return torch.Generator(device=device).manual_seed((int(words[0]) << 32) | int(words[1]))
 
 
 LBFGS_MEMORY = 10  # optax.lbfgs's default memory
@@ -214,7 +210,7 @@ def pathfinder(seed: SeedLike, prob, theta0: Optional[torch.Tensor] = None,
     iterations (plus line-search probes)."""
     words = seed_words(seed)
     if theta0 is None:
-        g = _generator(chain_seed_words(words, 0), device)
+        g = generator(chain_seed_words(words, 0), device)
         theta0 = jitter * (2.0 * torch.rand(dim_of(prob), generator=g, device=device) - 1.0)
     thetas, grads, _ = _lbfgs_trajectory(prob, theta0, n_steps)
     return pathfinder_from_trajectory(chain_seed_words(words, 1), prob, thetas, grads,
@@ -242,7 +238,7 @@ def multipath_pathfinder(seed: SeedLike, prob, n_paths: int = 8, n_draws: int = 
                 - math.log(float(n_paths)))
     logw = prob.log_density(z_all) - logq_mix
     diag = importance_diagnostics(None, None, None, log_weights=logw.cpu().numpy())
-    g = _generator(chain_seed_words(words, n_paths + 1), z_all.device)
+    g = generator(chain_seed_words(words, n_paths + 1), z_all.device)
     idx = torch.multinomial(torch.softmax(logw, dim=0), n_draws, replacement=True,
                             generator=g)
     return z_all[idx], diag, results

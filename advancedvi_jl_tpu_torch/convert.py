@@ -21,12 +21,8 @@ import torch
 
 from .algorithms.measure_space import MeasureSpaceState
 from .algorithms.pathfinder import PathfinderResult, pathfinder_from_trajectory
-from .families.location_scale import (
-    FullRankGaussian,
-    FullRankLocationScale,
-    MeanFieldGaussian,
-    MeanFieldLocationScale,
-)
+from .families.base import Laplace, Normal, StudentT
+from .families.location_scale import FullRankLocationScale, MeanFieldLocationScale
 from .families.low_rank import LowRankGaussian, LowRankLocationScale
 from .models.bnn import BayesianMLP
 from .models.logreg import LogReg
@@ -79,16 +75,36 @@ def logreg_from_numpy(X, y, likeadj=1.0, prior_scale: float = 3.0,
     )
 
 
-def meanfield_from_numpy(location, scale_diag, device="cuda") -> MeanFieldLocationScale:
-    """The port's MeanFieldGaussian from a JAX one's ``location, scale_diag``."""
-    return MeanFieldGaussian(to_tensor(location, device), to_tensor(scale_diag, device))
+def base_from_jax_name(name: str, df: float = 5.0):
+    """The port's base for a JAX base's class name (``type(base).__name__``)
+    and, for ``StudentT``, its ``df``."""
+    bases = {"Normal": Normal, "StudentT": lambda: StudentT(df=float(df)), "Laplace": Laplace}
+    if name not in bases:
+        raise ValueError(f"no port of the base {name!r}; expected one of {sorted(bases)}")
+    return bases[name]()
 
 
-def fullrank_from_numpy(location, scale, solve_mode: str = "solve",
-                        device="cuda") -> FullRankLocationScale:
-    """The port's FullRankGaussian from a JAX one's ``location, scale``."""
-    return FullRankGaussian(to_tensor(location, device), to_tensor(scale, device),
-                            solve_mode=solve_mode)
+def meanfield_from_numpy(location, scale_diag, base=None, sampler: str = "xla",
+                         device="cuda", dtype=torch.float32) -> MeanFieldLocationScale:
+    """The port's MeanFieldLocationScale from a JAX one's ``location,
+    scale_diag`` (the Normal base unless ``base`` is given)."""
+    return MeanFieldLocationScale(
+        location=to_tensor(location, device, dtype), scale_diag=to_tensor(scale_diag, device, dtype),
+        base=Normal() if base is None else base, sampler=sampler)
+
+
+def fullrank_from_numpy(location, scale, solve_mode: str = "solve", base=None,
+                        sampler: str = "xla", layout: str = "dense", device="cuda",
+                        dtype=torch.float32) -> FullRankLocationScale:
+    """The port's FullRankLocationScale from a JAX one's ``location, scale``:
+    a dense scale is made lower-triangular, a packed one (``layout="packed"``,
+    the JAX tiles) passes through as it is."""
+    scale = to_tensor(scale, device, dtype)
+    return FullRankLocationScale(
+        location=to_tensor(location, device, dtype),
+        scale=torch.tril(scale) if layout == "dense" else scale,
+        base=Normal() if base is None else base, sampler=sampler, solve_mode=solve_mode,
+        layout=layout)
 
 
 def lowrank_from_numpy(location, scale_diag, scale_factors,

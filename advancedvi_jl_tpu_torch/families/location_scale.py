@@ -2,13 +2,24 @@
 families/location_scale.py).
 
 A family is a frozen dataclass of tensors: ``location`` and ``scale_diag``
-(mean-field) or ``scale`` (full-rank, dense (d, d), only its lower triangle
-meaningful) are the parameters the optimizer updates (core/pytree.py maps
-over them).  Draws go through the step-indexed Philox samplers: on a CUDA
-tensor ``sample_with_base`` launches the fused kernel (K7a,
+(mean-field) or ``scale`` (full-rank) are the parameters the optimizer
+updates (core/pytree.py maps over them); ``base``, ``sampler``,
+``solve_mode`` and ``layout`` are static.
+
+Draws: a float32 family on the Normal base goes through the step-indexed
+Philox samplers whatever ``sampler`` says: on a CUDA tensor
+``sample_with_base`` launches the fused kernel (K7a,
 csrc/meanfield_sample.cu; K7b, csrc/fullrank_sample.cu), on a CPU tensor it
-runs the kernel's plain PyTorch version.  The low-rank family is
-families/low_rank.py.
+runs the kernel's plain PyTorch version.  Every other family (a Student-t or
+Laplace base, or float64) draws its base through ops/base_draws.py, as the
+JAX package draws those with ``jax.random``; ``sampler="pallas"`` refuses
+them with the JAX package's message.  There is no fallback between the two
+routes.
+
+The full-rank ``scale`` is dense (d, d), only its lower triangle read, or
+with ``layout="packed"`` the tile-packed triangle of ops/packing.py; the
+dense factor is made where a product or a solve reads it.  The low-rank
+family is families/low_rank.py.
 """
 
 from __future__ import annotations
@@ -19,20 +30,41 @@ from typing import Any, Optional
 
 import torch
 
+from ..ops import base_draws
 from ..ops.cuda.location_scale_kernels import as_key, fullrank_sample, meanfield_sample
 from ..ops.cuda.trisolve_kernels import vdiv_c, vdiv_ct
+from ..ops.packing import packed_diag, packed_with_diag, tril_pack, tril_unpack
+from ..ops.trinv import tril_inverse
 from .base import Normal
 
 
-def _check_sampler(q) -> None:
+def _check_pallas_ok(q) -> None:
+    """The JAX package's ``_check_pallas_ok``: the sampler kernel draws the
+    Normal base in float32 only."""
     if not isinstance(q.base, Normal):
         raise ValueError(
-            f"the Philox sampler draws the Normal base, got {type(q.base).__name__}"
+            "sampler='pallas' requires the Normal base (Box-Muller kernel); "
+            f"got {type(q.base).__name__}"
         )
     if q.location.dtype != torch.float32:
         raise ValueError(
-            f"the sampler needs float32 parameters, got {q.location.dtype}"
+            f"sampler='pallas' requires float32 parameters, got "
+            f"{q.location.dtype}"
         )
+
+
+def kernel_draws(q) -> bool:
+    """Whether the family's draws come from the Philox sampler kernels (a
+    float32 Normal base) rather than ops/base_draws.py.  ``sampler="pallas"``
+    on any other family raises."""
+    if q.sampler == "pallas":
+        _check_pallas_ok(q)
+    return isinstance(q.base, Normal) and q.location.dtype == torch.float32
+
+
+def base_draw(q, key, n_samples: int, width: int) -> torch.Tensor:
+    """(n_samples, width) base draws of a family the kernels do not draw."""
+    return base_draws.draw(q.base, key, n_samples, width, q.location.dtype, q.location.device)
 
 
 @dataclass(frozen=True)
@@ -42,6 +74,7 @@ class MeanFieldLocationScale:
     location: torch.Tensor  # (d,)
     scale_diag: torch.Tensor  # (d,)
     base: Any = Normal()
+    sampler: str = "xla"
 
     @property
     def dim(self) -> int:
@@ -57,11 +90,11 @@ class MeanFieldLocationScale:
 
     def sample_with_base(self, key, n_samples: int):
         """(z, u) for ``key`` (a PhiloxKey, or a seed read as iteration 0)."""
-        _check_sampler(self)
-        k = as_key(key)
-        return meanfield_sample(
-            k.seed, k.it, self.location, self.scale_diag, n_samples
-        )
+        if kernel_draws(self):
+            k = as_key(key)
+            return meanfield_sample(k.seed, k.it, self.location, self.scale_diag, n_samples)
+        u = base_draw(self, key, n_samples, self.dim)
+        return self.from_base(u), u
 
     def from_base(self, u: torch.Tensor) -> torch.Tensor:
         """z = scale u + location for given (n, d) base draws."""
@@ -99,8 +132,11 @@ class MeanFieldLocationScale:
 def MeanFieldGaussian(
     location: torch.Tensor,
     scale_diag: Optional[torch.Tensor] = None,
+    sampler: str = "xla",
 ) -> MeanFieldLocationScale:
-    """Gaussian with diagonal covariance (reference: location_scale.jl:124-141)."""
+    """Gaussian with diagonal covariance (reference: location_scale.jl:124-141).
+    ``sampler`` is the JAX package's argument; a float32 family draws
+    through the Philox sampler kernel either way."""
     location = torch.as_tensor(location)
     if scale_diag is None:
         scale_diag = torch.ones_like(location)
@@ -108,28 +144,49 @@ def MeanFieldGaussian(
         location=location,
         scale_diag=torch.as_tensor(scale_diag, device=location.device),
         base=Normal(),
+        sampler=sampler,
     )
 
 
 SOLVE_MODES = ("solve", "inverse", "pallas")
+LAYOUTS = ("dense", "packed")
 
 
 @dataclass(frozen=True)
 class FullRankLocationScale:
-    """Family z = tril(scale) u + location.  ``scale`` is stored dense and
-    only its lower triangle is read, so the strict upper triangle is inert
-    (zero gradient, hence zero Adam moments).
+    """Family z = tril(scale) u + location.  A dense ``scale`` has only its
+    lower triangle read, so the strict upper triangle is inert (zero
+    gradient, hence zero Adam moments); a packed one holds the triangle's
+    tiles (ops/packing.py).
 
     ``solve_mode`` picks how C^{-1}/C^{-T} are applied to a batch of rows
     (log_prob whitening, STL entropy backward): ``"solve"`` is
-    ``torch.linalg.solve_triangular``, ``"pallas"`` the triangular-solve
+    ``torch.linalg.solve_triangular``, ``"inverse"`` a product with the
+    level-parallel inverse (ops/trinv.py), ``"pallas"`` the triangular-solve
     kernel (K8, csrc/trisolve.cu; the name is the JAX package's).  A 1-D
-    argument always takes the plain solve."""
+    argument takes the plain solve under ``"pallas"``."""
 
     location: torch.Tensor  # (d,)
-    scale: torch.Tensor  # (d, d), lower-triangular by convention
+    scale: torch.Tensor  # (d, d) lower-triangular by convention, or packed tiles
     base: Any = Normal()
+    sampler: str = "xla"
     solve_mode: str = "solve"
+    layout: str = "dense"
+
+    def __post_init__(self) -> None:
+        if self.layout not in LAYOUTS:
+            raise ValueError(
+                f"layout must be 'dense' or 'packed', got {self.layout!r}"
+            )
+        if self.solve_mode not in SOLVE_MODES:
+            raise ValueError(
+                f"solve_mode must be one of {SOLVE_MODES}, got {self.solve_mode!r}"
+            )
+        if self.solve_mode == "pallas" and self.location.dtype != torch.float32:
+            raise ValueError(
+                "solve_mode='pallas' requires float32 parameters (the kernel "
+                f"is float32), got {self.location.dtype}"
+            )
 
     @property
     def dim(self) -> int:
@@ -141,14 +198,22 @@ class FullRankLocationScale:
         return self.dim
 
     def tril_scale(self) -> torch.Tensor:
+        if self.layout == "packed":
+            return tril_unpack(self.scale, self.dim)
         return torch.tril(self.scale)
 
     def scale_diag_view(self) -> torch.Tensor:
+        """Diagonal of the effective scale, whatever the layout."""
+        if self.layout == "packed":
+            return packed_diag(self.scale, self.dim)
         return torch.diagonal(self.scale)
 
     def with_scale_diag(self, new_diag: torch.Tensor) -> "FullRankLocationScale":
         """The family with the scale diagonal replaced exactly by
-        ``new_diag``, the off-diagonal kept as stored."""
+        ``new_diag``, the off-diagonal kept as stored (either layout)."""
+        if self.layout == "packed":
+            return dataclasses.replace(
+                self, scale=packed_with_diag(self.scale, self.dim, new_diag))
         return dataclasses.replace(
             self, scale=torch.diagonal_scatter(self.scale, new_diag)
         )
@@ -158,36 +223,26 @@ class FullRankLocationScale:
 
     def sample_with_base(self, key, n_samples: int):
         """(z, u) for ``key`` (a PhiloxKey, or a seed read as iteration 0);
-        u is the mean-field sampler's draw for the same key."""
-        _check_sampler(self)
-        k = as_key(key)
-        return fullrank_sample(k.seed, k.it, self.location, self.scale, n_samples)
+        on the kernel route u is the mean-field sampler's draw for the same
+        key.  A dense scale goes to K7b as stored (it reads the lower
+        triangle), a packed one unpacked."""
+        if kernel_draws(self):
+            k = as_key(key)
+            C = self.scale if self.layout == "dense" else self.tril_scale()
+            return fullrank_sample(k.seed, k.it, self.location, C, n_samples)
+        u = base_draw(self, key, n_samples, self.dim)
+        return self.from_base(u), u
 
     def from_base(self, u: torch.Tensor) -> torch.Tensor:
         """z = u tril(scale)^T + location for given (n, d) base draws."""
         return u @ self.tril_scale().T + self.location
 
-    def _check_solve_mode(self) -> None:
-        if self.solve_mode not in SOLVE_MODES:
-            raise ValueError(
-                f"solve_mode must be one of {SOLVE_MODES}, got {self.solve_mode!r}"
-            )
-        if self.solve_mode == "inverse":
-            raise NotImplementedError(
-                "solve_mode='inverse' needs ops/trinv.py, not ported yet "
-                "(ROADMAP Queue 1 item 6)"
-            )
-        if self.solve_mode == "pallas" and self.location.dtype != torch.float32:
-            raise ValueError(
-                "solve_mode='pallas' requires float32 parameters (the kernel "
-                f"is float32), got {self.location.dtype}"
-            )
-
     def log_prob(self, z: torch.Tensor) -> torch.Tensor:
-        self._check_solve_mode()
         C = self.tril_scale()
         diff = z - self.location
-        if self.solve_mode == "pallas" and diff.ndim == 2:
+        if self.solve_mode == "inverse":
+            u = diff @ tril_inverse(C).T
+        elif self.solve_mode == "pallas" and diff.ndim == 2:
             u = vdiv_ct(C, diff)
         else:
             rows = diff.reshape(-1, self.dim)
@@ -201,9 +256,11 @@ class FullRankLocationScale:
         return torch.sum(torch.log(torch.abs(self.scale_diag_view())))
 
     def apply_inv_scale_T(self, V: torch.Tensor) -> torch.Tensor:
-        """C^{-T} applied to each row of (n, d) V: one right division."""
-        self._check_solve_mode()
+        """C^{-T} applied to each row of (n, d) V: one right division, or a
+        product with the inverse under ``solve_mode="inverse"``."""
         C = self.tril_scale()
+        if self.solve_mode == "inverse":
+            return V @ tril_inverse(C)
         if self.solve_mode == "pallas" and V.ndim == 2:
             return vdiv_c(C, V)
         rows = V.reshape(-1, self.dim)
@@ -230,32 +287,30 @@ class FullRankLocationScale:
 def FullRankGaussian(
     location: torch.Tensor,
     scale: Optional[torch.Tensor] = None,
+    sampler: str = "xla",
+    compute_dtype: Any = None,
     solve_mode: str = "solve",
     layout: str = "dense",
-    compute_dtype: Any = None,
 ) -> FullRankLocationScale:
     """Gaussian with a dense Cholesky-factor scale (reference:
-    location_scale.jl:124-141).  The scale is made lower-triangular here,
-    so the stored parameters equal the effective ones."""
-    if layout != "dense":
-        raise NotImplementedError(
-            f"layout={layout!r} needs ops/packing.py, not ported yet "
-            "(ROADMAP Queue 1 item 6)"
-        )
+    location_scale.jl:124-141), in the JAX package's argument order.  The
+    scale is made lower-triangular here, so the stored parameters equal the
+    effective ones; ``layout="packed"`` then packs it (ops/packing.py)."""
     if compute_dtype is not None:
         raise NotImplementedError(
-            "compute_dtype is not ported: the port's full-rank draw is the "
-            "float32 sampler kernel (ROADMAP Queue 1 item 6)"
+            "compute_dtype (a bfloat16 sampling product) is not ported: it "
+            "would be a K7b variant, which waits for the H100 measurement of "
+            "ROADMAP Queue 1 item 5"
         )
     location = torch.as_tensor(location)
     if scale is None:
         scale = torch.eye(location.shape[-1], dtype=location.dtype,
                           device=location.device)
     scale = torch.tril(torch.as_tensor(scale, device=location.device))
-    q = FullRankLocationScale(location=location, scale=scale, base=Normal(),
-                              solve_mode=solve_mode)
-    q._check_solve_mode()
-    return q
+    if layout == "packed":
+        scale = tril_pack(scale)
+    return FullRankLocationScale(location=location, scale=scale, base=Normal(),
+                                 sampler=sampler, solve_mode=solve_mode, layout=layout)
 
 
 def is_location_scale(q: Any) -> bool:

@@ -3,10 +3,12 @@
 Covariance ``sigma^2_base (D^2 + U U^T)`` with ``D = diag(scale_diag)``
 (d,) and factors ``U`` (d, r) (reference: location_scale_low_rank.jl:18-136).
 A draw is ``z = u1 * D + u2 U^T + m`` from base draws u1 (n, d) and u2 (n, r):
-on a CUDA tensor one launch of the low-rank sampler kernel (K7c,
-csrc/lowrank_sample.cu), on a CPU tensor its plain PyTorch version.  u1 is
-the mean-field sampler's draw for the same key, so with U = 0 the family
-draws the mean-field z.
+for a float32 Normal base, on a CUDA tensor one launch of the low-rank
+sampler kernel (K7c, csrc/lowrank_sample.cu), on a CPU tensor its plain
+PyTorch version.  u1 is the mean-field sampler's draw for the same key, so
+with U = 0 the family draws the mean-field z.  Any other base or dtype
+draws [u1 | u2] through ops/base_draws.py (JAX low_rank.py:75-76 draws them
+with ``jax.random``); ``sampler="pallas"`` refuses it.
 
 ``log_prob`` and ``entropy`` take the dense-Cholesky path of Sigma = D^2 +
 U U^T for d <= _DENSE_LOGPROB_MAX_DIM, stable when ClipScale drives an entry
@@ -26,6 +28,7 @@ import torch
 
 from ..ops.cuda.location_scale_kernels import as_key, lowrank_sample
 from .base import Normal
+from .location_scale import base_draw, kernel_draws
 
 # Dense-Cholesky log_prob/entropy up to this dimension (stability), Woodbury
 # above it (speed); the JAX package's bound.
@@ -40,6 +43,7 @@ class LowRankLocationScale:
     scale_diag: torch.Tensor  # (d,)
     scale_factors: torch.Tensor  # (d, r)
     base: Any = Normal()
+    sampler: str = "xla"
 
     @property
     def dim(self) -> int:
@@ -59,13 +63,11 @@ class LowRankLocationScale:
 
     def sample_with_base(self, key, n_samples: int):
         """(z, [u1 | u2]) for ``key`` (a PhiloxKey, or a seed read as
-        iteration 0); u1 is the mean-field sampler's draw for the same key."""
-        if not isinstance(self.base, Normal):
-            raise ValueError(
-                f"the Philox sampler draws the Normal base, got {type(self.base).__name__}"
-            )
-        if self.location.dtype != torch.float32:
-            raise ValueError(f"the sampler needs float32 parameters, got {self.location.dtype}")
+        iteration 0); on the kernel route u1 is the mean-field sampler's draw
+        for the same key."""
+        if not kernel_draws(self):
+            u = base_draw(self, key, n_samples, self.base_dim)
+            return self.from_base(u), u
         k = as_key(key)
         z, u1, u2 = lowrank_sample(k.seed, k.it, self.location, self.scale_diag,
                                    self.scale_factors, n_samples)
@@ -100,7 +102,11 @@ class LowRankLocationScale:
 
     def log_prob(self, z: torch.Tensor) -> torch.Tensor:
         """Gaussian-base log density; dense-Cholesky or Woodbury path by
-        dimension (module docstring)."""
+        dimension (module docstring).
+
+        Exact for the Gaussian base (the reference's non-Gaussian low-rank
+        logpdf path is only valid for Gaussian bases anyway, since D u1 + U u2
+        equals L u in distribution only under rotation invariance)."""
         single = z.ndim == 1
         zb = z[None, :] if single else z
         d = self.dim

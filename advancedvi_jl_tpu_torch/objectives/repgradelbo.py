@@ -4,9 +4,16 @@ One step: draw the whole batch, evaluate the batched log-density, add the
 entropy estimate, and differentiate -ELBO with torch.autograd in the
 family's tensors.  On a CUDA family the draw is the fused sampler kernel.
 A family that exposes its base draw and the solve-free pieces (mean-field,
-full-rank) takes the fast entropy path from (z, u); any other (low-rank)
-draws z and takes ``estimate_entropy`` on ``q_stop``, as the reference
-decides by ``supports_fast_entropy``.
+full-rank) takes the fast entropy path from (z, u) unless
+``fast_entropy=False``; any other (low-rank) draws z and takes
+``estimate_entropy`` on ``q_stop``, as the reference decides by
+``supports_fast_entropy``.
+
+``antithetic`` draws n/2 rows and mirrors them through the location,
+z' = 2 m - z with base draw u' = -u: unbiased for a symmetric base, and the
+energy term's variance drops where log p is near-linear over q.  ``remat``
+recomputes the log-density's graph in the backward pass instead of keeping
+it (``torch.utils.checkpoint``); the draw happens before it.
 """
 
 from __future__ import annotations
@@ -15,6 +22,7 @@ from dataclasses import dataclass
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..core.problem import maybe_wrap_custom_grad
 from ..core.pytree import tree_stop_gradient, value_and_grad
@@ -27,6 +35,7 @@ from .entropy import (
 
 
 def _use_fast(q) -> bool:
+    """Whether the family takes the solve-free entropy from (z, u)."""
     return supports_fast_entropy(q) and hasattr(q, "sample_with_base")
 
 
@@ -52,29 +61,70 @@ class RepGradELBO:
       n_samples: Monte-Carlo samples per gradient estimate.
       entropy: any of objectives/entropy.py ALL_ENTROPY_ESTIMATORS; the
         zero-gradient ones are for ``KLMinRepGradProxDescent``.
+      remat: recompute the log-density's graph in the backward pass.
+      antithetic: draw n/2 samples and mirror them, z' = 2 m - z (even n,
+        a location-scale family with a symmetric base).
+      fast_entropy: the solve-free entropy from (z, u) where the family
+        allows it; False takes ``estimate_entropy`` (the A/B knob).
     """
 
     n_samples: int = 1
     entropy: str = CLOSED_FORM
+    remat: bool = False
+    antithetic: bool = False
+    fast_entropy: bool = True
 
     def init(self, seed, q, prob):
         return ()  # stateless
 
-    def _draw_with_base(self, q, key, noise: Optional[torch.Tensor]):
-        return draw_with_base(q, key, self.n_samples, noise)
+    def _check_antithetic(self, q, n: int) -> None:
+        if n % 2 != 0:
+            raise ValueError(
+                f"antithetic sampling requires an even n_samples, got {n}"
+            )
+        if not hasattr(q, "location"):
+            raise ValueError(
+                "antithetic sampling requires a location-scale family "
+                f"(symmetric base); got {type(q).__name__}"
+            )
+        base = getattr(q, "base", None)
+        if base is not None and not (
+            hasattr(base, "symmetric") and base.symmetric()
+        ):
+            # z' = 2m - z has the law of q only when -u ~ u for the base
+            raise ValueError(
+                "antithetic sampling requires a symmetric base distribution "
+                f"(-u ~ u); {type(base).__name__} does not declare "
+                "symmetric() = True."
+            )
+
+    def _draw_with_base(self, q, key, noise: Optional[torch.Tensor] = None,
+                        n: Optional[int] = None):
+        """(z, u) of n draws (default ``n_samples``).  Antithetic: n/2 draws
+        (``noise`` then holds n/2 rows) and their mirror images."""
+        n = self.n_samples if n is None else n
+        if not self.antithetic:
+            return draw_with_base(q, key, n, noise)
+        self._check_antithetic(q, n)
+        z, u = draw_with_base(q, key, n // 2, noise)
+        return torch.cat([z, 2.0 * q.location - z], dim=0), torch.cat([u, -u], dim=0)
+
+    def _energy(self, prob, samples: torch.Tensor) -> torch.Tensor:
+        if self.remat:
+            return torch.mean(checkpoint(prob.log_density, samples, use_reentrant=False))
+        return torch.mean(prob.log_density(samples))
 
     def loss(self, q, prob, key, noise: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Differentiable -ELBO estimate (q_stop is a detached copy of q).
-        A family with the fast-entropy pieces gives the entropy from (z, u)
-        without whitening; any other goes through ``q_stop.log_prob``."""
+        The fast path gives the entropy from (z, u) without whitening; any
+        other goes through ``q_stop.log_prob``."""
         q_stop = tree_stop_gradient(q)
         samples, u = self._draw_with_base(q, key, noise)
-        if _use_fast(q):
+        if self.fast_entropy and _use_fast(q):
             ent = estimate_entropy_from_draw(self.entropy, samples, u, q, q_stop)
         else:
             ent = estimate_entropy(self.entropy, samples, q, q_stop)
-        energy = torch.mean(prob.log_density(samples))
-        return -(energy + ent)
+        return -(self._energy(prob, samples) + ent)
 
     def _loss_and_aux(self, q, prob, key, noise: Optional[torch.Tensor] = None):
         """(differentiable -ELBO, {"elbo": detached ELBO}): the function a
@@ -90,9 +140,13 @@ class RepGradELBO:
 
     @torch.no_grad()
     def estimate_objective(self, key, q, prob, n_samples: Optional[int] = None):
-        """-ELBO point estimate (no gradient)."""
+        """-ELBO point estimate (no gradient).  Antithetic pairs the draws
+        for any even n (plain draws for an odd n)."""
         n = self.n_samples if n_samples is None else n_samples
-        samples = q.sample(key, n)
+        if self.antithetic and n % 2 == 0:
+            samples = self._draw_with_base(q, key, n=n)[0]
+        else:
+            samples = q.sample(key, n)
         ent = estimate_entropy(self.entropy, samples, q, q)
         energy = torch.mean(prob.log_density(samples))
         return -(energy + ent)

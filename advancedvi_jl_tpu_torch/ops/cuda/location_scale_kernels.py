@@ -124,6 +124,19 @@ def philox4x32_reference(counter, key):
     return c0, c1, c2, c3
 
 
+def philox4x32_words(counter, key) -> Tuple[int, int, int, int]:
+    """``philox4x32_reference`` of one counter in Python ints: the same
+    words without a tensor op, for the seeds a host makes each step."""
+    c0, c1, c2, c3 = (int(c) & _MASK32 for c in counter)
+    k0, k1 = int(key[0]) & _MASK32, int(key[1]) & _MASK32
+    for _ in range(10):
+        p0, p1 = _M0 * c0, _M1 * c2
+        c0, c1, c2, c3 = (p1 >> 32) ^ c1 ^ k0, p1 & _MASK32, (p0 >> 32) ^ c3 ^ k1, p0 & _MASK32
+        k0 = (k0 + _W0) & _MASK32
+        k1 = (k1 + _W1) & _MASK32
+    return c0, c1, c2, c3
+
+
 # Counter word 3 of the chain keys ("chns"): no draw uses this stream.
 _CHAIN_STREAM = 0x63686E73
 
@@ -135,8 +148,8 @@ def chain_seed_words(seed: SeedLike, c: int) -> Tuple[int, int]:
     the fused chains engine both draw chain c's normals under these words
     (the counterpart of ``jax.random.split(key, n_chains)[c]``, whose
     threefry bits the port cannot reproduce)."""
-    w = philox4x32_reference((int(c) & _MASK32, 0, 0, _CHAIN_STREAM), seed_words(seed))
-    return int(w[0]), int(w[1])
+    w = philox4x32_words((c, 0, 0, _CHAIN_STREAM), seed_words(seed))
+    return w[0], w[1]
 
 
 def chain_seed_table(seed: SeedLike, n_chains: int) -> torch.Tensor:

@@ -17,7 +17,10 @@ normal_fullrank_wellcond target, the K8 solve), and
 ``FusedADVI(family="fullrank")`` on the logreg (d = 62) and on a dense
 Gaussian (d = 512).  The measure-space paths: ``optimize`` with each
 measure-space algorithm on the logreg and a d = 256 Gaussian, with
-``WithTermination``, and ``pathfinder`` / ``multipath_pathfinder``.  The proximal and score-gradient paths:
+``WithTermination``, and ``pathfinder`` / ``multipath_pathfinder``.  The
+location-scale paths: ``optimize`` with antithetic ADVI, with
+``KLMinIWRepGradDescent``, with Student-t and Laplace families and with the
+full-rank family's solve modes and packed layout.  The proximal and score-gradient paths:
 ``optimize`` with ``KLMinRepGradProxDescent`` and ``KLMinScoreGradDescent``
 and ``FusedProxADVI.optimize`` / ``FusedScoreGradVI.optimize`` on the
 flagship, and full-rank proximal ADVI on normal-lognormal (d = 11).
@@ -131,7 +134,22 @@ Phases:
       one, 8-path k-hat and ESS), counted; steps/s of each algorithm at
       d = 62, 256 and 512, and one NGD, Wass and BaM step at d = 62 and 512
       split by the profiler (kernels, device busy share, cuSOLVER's time,
-      host syncs, K7b's card and host time).
+      host syncs, K7b's card and host time);
+  (aa) the rest of the location-scale family and its objectives: the
+      Student-t(5), Laplace and float64 Normal draws of ops/base_draws.py at
+      65,536 x 62 (moments within 6 standard errors, Kolmogorov-Smirnov,
+      the same key bitwise twice) and the ``sampler="pallas"`` and
+      ``solve_mode="pallas"`` refusals on the card; K7a, K7b, K7c and K8 at
+      every shape (aa)'s path launches them, and the antithetic halves with
+      their mirror exact; then, counted, with every launch shape held to a
+      checked one: antithetic ADVI on the flagship beside the plain run
+      (tail ELBO, the location gradient's variance ratio, remat), antithetic
+      full-rank and low-rank ADVI, ``KLMinIWRepGradDescent`` at k = 8 on
+      both families (K8 at 8 x 62) with the IW bound rising in k = 1, 8, 64
+      and the DReG and plain gradient means together, Student-t and
+      Laplace ADVI (a resumed run bitwise the uninterrupted one), and the
+      d = 1024, n = 256 dense Gaussian under each solve mode and layout
+      with ``tril_inverse``, K8 and trsm by graph replay.
 
 With ``--parent CHECKOUT`` (e.g. a ``git archive`` of the parent commit
 under the ignored ``_archive/``) it then times K8, K7b, K7a, the K9 probes,
@@ -148,13 +166,15 @@ there, never built or written in place.
 Every failed check raises and the script exits non-zero; it also exits
 non-zero without a CUDA device, or when the package is not beside it.  The
 line before the last is a JSON object of the kernels (launch counts from the
-main-path runs of (f), (g), (l), (o), (p), (s), (u), (w), (x), (y) and (z), errors, times, each
-time's bound on this card and, for K8, the library call's time); the last
+main-path runs of (f), (g), (l), (o), (p), (s), (u), (w), (x), (y), (z) and
+(aa), errors, times, each time's bound on this card and, for K8, the
+library call's time); the last
 line is ``{"ok": true, "device": {...}}``.  It imports no JAX.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import json
@@ -785,24 +805,39 @@ def nan_factor(d, dev, seed=3):
 
 
 @contextlib.contextmanager
-def k7b_shapes():
-    """Records the (n, d) of every K7b launch made inside into the yielded
-    set: a pass-through in front of the wrapper's dispatch
-    (``fullrank_sample_raw``), so the counts are the wrapper's own."""
+def launch_shapes():
+    """Records the shape of every K7a, K7b, K7c and K8 launch made inside:
+    {kernel: set of (n, d), (n, d, r) or (n, d) a mode}.  Pass-throughs in
+    front of each wrapper's dispatch, so the counts are the wrappers' own."""
     from advancedvi_jl_tpu_torch.ops.cuda import location_scale_kernels as lsk
+    from advancedvi_jl_tpu_torch.ops.cuda import trisolve_kernels as tk
 
-    raw, shapes = lsk.fullrank_sample_raw, set()
+    shapes = {k: set() for k in ("meanfield_sample", "fullrank_sample", "lowrank_sample",
+                                 "trisolve")}
+    hooks = ((lsk, "meanfield_sample_raw", "meanfield_sample",
+              lambda seed, it, loc, *a, **k: (loc, (int(a[1]), loc.shape[-1]))),
+             (lsk, "fullrank_sample_raw", "fullrank_sample",
+              lambda seed, it, loc, C, n: (loc, (int(n), loc.shape[-1]))),
+             (lsk, "lowrank_sample_raw", "lowrank_sample",
+              lambda seed, it, loc, D, U, n: (loc, (int(n), loc.shape[-1], U.shape[-1]))),
+             (tk, "solve_right", "trisolve", lambda C, V, mode="C": (V, tuple(V.shape))))
+    saved = []
+    for mod, name, kernel, shape_of in hooks:
+        raw = getattr(mod, name)
+        saved.append((mod, name, raw))
 
-    def recording(seed, it, location, scale, n):
-        if location.is_cuda:
-            shapes.add((int(n), location.shape[-1]))
-        return raw(seed, it, location, scale, n)
+        def recording(*a, _raw=raw, _kernel=kernel, _shape_of=shape_of, **k):
+            t, shape = _shape_of(*a, **k)
+            if t.is_cuda:
+                shapes[_kernel].add(shape)
+            return _raw(*a, **k)
 
-    lsk.fullrank_sample_raw = recording
+        setattr(mod, name, recording)
     try:
         yield shapes
     finally:
-        lsk.fullrank_sample_raw = raw
+        for mod, name, raw in saved:
+            setattr(mod, name, raw)
 
 
 def check_k7b_shapes(phase, shapes, checked):
@@ -858,12 +893,22 @@ def phase_j(dev):
     """K8 in both modes against a float64 solve (residual) and its plain
     version, at the main path's shapes and at ragged ones; at the main
     shape every rows-a-block choice gives the same bits."""
+    return check_trisolve(dev, TRI_SHAPES, "j")
+
+
+TRI_SHAPES = [FR_SHAPE, (N_SAMPLES, FR_FUSED_D), (N_SAMPLES, N_FEATURES + 2)]
+TRI_SHAPES += [(n, d) for n in TRI_NS for d in TRI_DS if (n, d) not in TRI_SHAPES]
+
+
+def check_trisolve(dev, shapes, phase):
+    """K8 in both modes at each (n, d) of ``shapes`` (phase (j)'s bars):
+    residual against a float64 solve and error against the plain version
+    within 1e-5 norm-wise; at FR_SHAPE every rows-a-block choice bit-equal.
+    Returns the largest error against the plain version."""
     from advancedvi_jl_tpu_torch.ops.cuda.trisolve_kernels import (
         ROWS_PER_BLOCK, solve_right_cuda, solve_right_reference,
     )
 
-    shapes = [FR_SHAPE, (N_SAMPLES, FR_FUSED_D), (N_SAMPLES, N_FEATURES + 2)]
-    shapes += [(n, d) for n in TRI_NS for d in TRI_DS if (n, d) not in shapes]
     factors = {}
     worst, worst_resid = 0.0, 0.0
     for n, d in shapes:
@@ -888,8 +933,8 @@ def phase_j(dev):
                            for rows in ROWS_PER_BLOCK)
                 check(same, f"trisolve {mode} {n}x{d}: the rows-a-block choices differ")
                 line[f"{mode}_rows_bitwise"] = same
-        say("j", shape=f"{n}x{d}", **line)
-    say("j", shapes=len(shapes), worst_residual=worst_resid, worst_max_abs_err_vs_plain=worst)
+        say(phase, shape=f"{n}x{d}", **line)
+    say(phase, shapes=len(shapes), worst_residual=worst_resid, worst_max_abs_err_vs_plain=worst)
     return worst
 
 
@@ -1023,12 +1068,12 @@ def fullrank_paths(dev):
     torch.cuda.synchronize()
     reset_launches()
     t0 = time.perf_counter()
-    with k7b_shapes() as shapes:
+    with launch_shapes() as shapes:
         _, infos, _ = avt.optimize(SEED, alg, FR_GENERAL_STEPS, target, q0, log_every=10)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     counts = read_launches()
-    check_k7b_shapes("l", shapes, FR_SAMPLE_SHAPES)
+    check_k7b_shapes("l", shapes["fullrank_sample"], FR_SAMPLE_SHAPES)
     elbos = [r["elbo"] for r in infos]
     first, last = sum(elbos[:5]) / 5, sum(elbos[-5:]) / 5
     say("l", path="general", d=FR_D, n=FR_N, steps=FR_GENERAL_STEPS, elbo_first5=first,
@@ -2977,6 +3022,38 @@ def lowrank_flops_bytes(n, d, r):
     return 2.0 * n * d * (r + 1), 4.0 * (2 * d + d * r + 2 * n * d + n * r)
 
 
+def check_lowrank(dev, shapes, phase):
+    """K7c against its plain version at each (n, d, r) of ``shapes`` (phase
+    (x)'s bars): u1 bitwise the plain version's and K7a's, u2 bitwise, z
+    within 1e-6 norm-wise.  Returns the largest error of z."""
+    from advancedvi_jl_tpu_torch.ops.cuda.location_scale_kernels import (
+        lowrank_sample_cuda, lowrank_sample_reference, meanfield_sample_cuda, seed_words,
+    )
+
+    seed = seed_words(SEED)
+    err = 0.0
+    for n, d, r in shapes:
+        g = torch.Generator().manual_seed(3)
+        loc = torch.randn(d, generator=g).to(dev)
+        D = (0.5 + torch.rand(d, generator=g)).to(dev)
+        U = (0.3 * torch.randn(d, r, generator=g)).to(dev)
+        z, u1, u2 = lowrank_sample_cuda(seed, 5, loc, D, U, n)
+        zr, u1r, u2r = lowrank_sample_reference(seed, 5, loc, D, U, n)
+        _, um = meanfield_sample_cuda(seed, 5, loc, D, n)
+        torch.cuda.synchronize()
+        rel = rel_err(z, zr)
+        err = max(err, max_err(z, zr))
+        say(phase, shape=f"{n}x{d}x{r}", u1_bitwise_plain=bool(torch.equal(u1, u1r)),
+            u1_bitwise_meanfield=bool(torch.equal(u1, um)),
+            u2_bitwise_plain=bool(torch.equal(u2, u2r)), z_rel_err=rel,
+            z_max_abs_err=max_err(z, zr))
+        check(torch.equal(u1, u1r) and torch.equal(u2, u2r),
+              f"low-rank draws at {n}x{d}x{r} differ from the plain version")
+        check(torch.equal(u1, um), f"low-rank u1 at {n}x{d}x{r} differs from the mean-field u")
+        check(rel <= 1e-6, f"low-rank sampler z at {n}x{d}x{r}: norm-wise error {rel} > 1e-6")
+    return err
+
+
 def phase_x(dev, card):
     """K7c against its plain version at the sampler shape and at the two
     low-rank ADVI runs' shapes (u1 equal to K7a's u and to the plain
@@ -2993,28 +3070,10 @@ def phase_x(dev, card):
     )
 
     seed = seed_words(SEED)
-    err = 0.0
     # the sampler shape, then the shapes of the two low-rank ADVI runs below
     # (d = 62 takes the scalar store path, d % 4 != 0)
-    for n, d, r in (LR_SHAPE, (N_SAMPLES, N_FEATURES + 2, LR_FLAGSHIP_R), (32, LR_D, LR_R)):
-        g = torch.Generator().manual_seed(3)
-        loc = torch.randn(d, generator=g).to(dev)
-        D = (0.5 + torch.rand(d, generator=g)).to(dev)
-        U = (0.3 * torch.randn(d, r, generator=g)).to(dev)
-        z, u1, u2 = lowrank_sample_cuda(seed, 5, loc, D, U, n)
-        zr, u1r, u2r = lowrank_sample_reference(seed, 5, loc, D, U, n)
-        _, um = meanfield_sample_cuda(seed, 5, loc, D, n)
-        torch.cuda.synchronize()
-        rel = rel_err(z, zr)
-        err = max(err, max_err(z, zr))
-        say("x", shape=f"{n}x{d}x{r}", u1_bitwise_plain=bool(torch.equal(u1, u1r)),
-            u1_bitwise_meanfield=bool(torch.equal(u1, um)),
-            u2_bitwise_plain=bool(torch.equal(u2, u2r)), z_rel_err=rel,
-            z_max_abs_err=max_err(z, zr))
-        check(torch.equal(u1, u1r) and torch.equal(u2, u2r),
-              f"low-rank draws at {n}x{d}x{r} differ from the plain version")
-        check(torch.equal(u1, um), f"low-rank u1 at {n}x{d}x{r} differs from the mean-field u")
-        check(rel <= 1e-6, f"low-rank sampler z at {n}x{d}x{r}: norm-wise error {rel} > 1e-6")
+    err = check_lowrank(dev, (LR_SHAPE, (N_SAMPLES, N_FEATURES + 2, LR_FLAGSHIP_R),
+                              (32, LR_D, LR_R)), "x")
     n, d, r = LR_SHAPE
     g = torch.Generator().manual_seed(3)
     loc = torch.randn(d, generator=g).to(dev)
@@ -3815,14 +3874,403 @@ def phase_z(dev, card, fr_ref):
     steps/s and the step splits.  Returns K7b's main-path launches and its
     largest error."""
     err = phase_i(dev, MS_SAMPLE_SHAPES, "z", MS_SAMPLE_SHAPES)
-    with k7b_shapes() as shapes:
+    with launch_shapes() as shapes:
         launches = (ms_flagship(dev, fr_ref) + ms_gaussians(dev) + ms_termination(dev)
                     + ms_pathfinder(dev))
     say("z", fullrank_sample_main_path_launches=launches)
-    check_k7b_shapes("z", shapes, FR_SAMPLE_SHAPES + MS_SAMPLE_SHAPES)
+    check_k7b_shapes("z", shapes["fullrank_sample"], FR_SAMPLE_SHAPES + MS_SAMPLE_SHAPES)
     ms_rates(dev, card)
     ms_step_split(dev, card)
     return launches, err
+
+
+# (aa): the rest of the location-scale family and its objectives
+AA_DRAW_SHAPE = (65_536, N_FEATURES + 2)
+AA_STEPS = 2_000                  # the antithetic and plain flagship runs
+AA_SHORT_STEPS = 1_000            # each IWELBO and Student-t / Laplace run: the smoke's time
+AA_SIDE_STEPS = 500               # antithetic on the full-rank and low-rank families
+AA_LOG_EVERY = 10                 # the tail: the last 20 rows, 200 steps
+AA_VAR_ESTIMATES = 200
+AA_IW_K, AA_IW_REPLICATES, AA_IW_KS = 8, 512, (1, 8, 64)
+AA_DENSE_STEPS = 200              # the d = 1024, n = 256 configurations
+AA_HALF = N_SAMPLES // 2          # an antithetic launch of the flagship: 5 rows
+D62 = N_FEATURES + 2
+# every launch shape of (aa)'s counted path, held here against the plain versions
+AA_K7A_SHAPES = [(AA_HALF, D62)] + [(k, D62) for k in AA_IW_KS]
+AA_K7B_SHAPES = [(AA_HALF, D62), (AA_IW_K, D62)]
+AA_K7C_SHAPES = [(AA_HALF, D62, LR_FLAGSHIP_R)]
+AA_K8_SHAPES = [(AA_IW_K, D62)]
+
+
+class Tally:
+    """The launches and launch shapes of (aa)'s counted runs alone: each
+    wrapper's count set to 0 right before a run and read right after, summed
+    over the runs.  Checks, warm-up runs and timings run outside ``run``."""
+
+    def __init__(self):
+        self.counts = collections.Counter()
+        self.shapes = {k: set() for k in ("meanfield_sample", "fullrank_sample",
+                                          "lowrank_sample", "trisolve")}
+
+    @contextlib.contextmanager
+    def run(self):
+        with launch_shapes() as shapes:
+            reset_launches()
+            yield
+            self.counts.update(read_launches())
+        for kernel, seen in shapes.items():
+            self.shapes[kernel] |= seen
+
+
+def aa_kernels(dev):
+    """(aa) The kernels at every shape (aa)'s path launches them: K7a by
+    (c)'s bars, K7b by (i)'s, K7c by (x)'s, K8 by (j)'s; then the antithetic
+    halves of each family's draw on the card against the plain versions,
+    the mirrored half exact.  Returns each kernel's largest error."""
+    import advancedvi_jl_tpu_torch as avt
+    from advancedvi_jl_tpu_torch.ops.cuda.location_scale_kernels import (
+        PhiloxKey, fullrank_sample_reference, lowrank_sample_reference, meanfield_sample_cuda,
+        meanfield_sample_reference, seed_words,
+    )
+
+    seed = seed_words(SEED)
+    errs = {"meanfield_sample": 0.0}
+    for n, d in AA_K7A_SHAPES:
+        g = torch.Generator().manual_seed(n)
+        loc = torch.randn(d, generator=g).to(dev)
+        scale = (0.5 + torch.rand(d, generator=g)).to(dev)
+        z, u = meanfield_sample_cuda(seed, 3, loc, scale, n)
+        zr, ur = meanfield_sample_reference(seed, 3, loc, scale, n)
+        torch.cuda.synchronize()
+        u_err, z_err = max_err(u, ur), max_err(z, zr)
+        say("aa", k7a_shape=f"{n}x{d}", u_bitwise=bool(torch.equal(u, ur)), u_max_abs_err=u_err,
+            z_max_abs_err=z_err)
+        check(u_err <= 1e-6, f"(aa) K7a u at {n}x{d}: error {u_err} > 1e-6")
+        check(z_err <= 1e-6 * (1.0 + float(zr.abs().max())), f"(aa) K7a z at {n}x{d}: {z_err}")
+        errs["meanfield_sample"] = max(errs["meanfield_sample"], z_err)
+    errs["fullrank_sample"] = phase_i(dev, AA_K7B_SHAPES, "aa", AA_K7B_SHAPES)
+    errs["lowrank_sample"] = check_lowrank(dev, AA_K7C_SHAPES, "aa")
+    errs["trisolve"] = check_trisolve(dev, AA_K8_SHAPES, "aa")
+    # the antithetic halves: the first half is the kernel's draw at n/2 rows
+    d, key = D62, PhiloxKey(seed, 11)
+    g = torch.Generator().manual_seed(2)
+    loc = torch.randn(d, generator=g).to(dev)
+    D = (0.5 + torch.rand(d, generator=g)).to(dev)
+    U = (0.3 * torch.randn(d, LR_FLAGSHIP_R, generator=g)).to(dev)
+    C = nan_factor(d, dev)
+    fams = {"meanfield": (avt.MeanFieldGaussian(loc, D), lambda: meanfield_sample_reference(
+                seed, 11, loc, D, AA_HALF)),
+            "fullrank": (avt.FullRankLocationScale(loc, C), lambda: fullrank_sample_reference(
+                seed, 11, loc, C, AA_HALF)),
+            "lowrank": (avt.LowRankGaussian(loc, D, U), lambda: (lambda z, u1, u2: (
+                z, torch.cat([u1, u2], dim=1)))(*lowrank_sample_reference(
+                    seed, 11, loc, D, U, AA_HALF)))}
+    obj = avt.RepGradELBO(n_samples=N_SAMPLES, antithetic=True)
+    for name, (q, plain) in fams.items():
+        z, u = obj._draw_with_base(q, key)
+        zr, ur = plain()
+        h = AA_HALF
+        torch.cuda.synchronize()
+        mirror = bool(torch.equal(z[h:], 2.0 * q.location - z[:h])) and bool(
+            torch.equal(u[h:], -u[:h]))
+        u_err, z_rel = max_err(u[:h], ur), rel_err(z[:h], zr)
+        say("aa", antithetic_half=name, rows=f"{h}+{h}", u_max_abs_err=u_err, z_rel_err=z_rel,
+            mirror_exact=mirror)
+        check(mirror, f"(aa) {name}: the mirrored half is not 2m - z, -u")
+        check(u_err <= 1e-6 and z_rel <= 1e-6, f"(aa) {name}: half draw {u_err}, {z_rel}")
+    return errs
+
+
+def aa_moments(u, var, m4):
+    """|mean| and |var - var_true| in standard errors of an (n, d) draw of a
+    law with variance ``var`` and fourth moment ``m4``."""
+    x = u.double().flatten()
+    n = x.numel()
+    mean, v = float(x.mean()), float(x.var())
+    return abs(mean) / math.sqrt(var / n), abs(v - var) / math.sqrt((m4 - var * var) / n)
+
+
+def aa_draws(dev, card):
+    """(aa) ops/base_draws.py on the card at 65,536 x 62: Student-t(5),
+    Laplace and the float64 Normal; mean and variance within 6 standard
+    errors, Kolmogorov-Smirnov p > 1e-3 against scipy, the same (key, it)
+    bitwise twice, another it not, each draw's time by CUDA events; and the
+    refusals on the card."""
+    from scipy import stats
+
+    import advancedvi_jl_tpu_torch as avt
+    from advancedvi_jl_tpu_torch.ops import base_draws
+    from advancedvi_jl_tpu_torch.ops.cuda.location_scale_kernels import PhiloxKey, seed_words
+
+    n, d = AA_DRAW_SHAPE
+    key = PhiloxKey(seed_words(SEED), 7)
+    # (base, dtype, law, variance, fourth moment)
+    cases = (("student_t5", avt.StudentT(5.0), torch.float32, stats.t(5.0), 5.0 / 3.0, 25.0),
+             ("laplace", avt.Laplace(), torch.float32, stats.laplace(), 2.0, 24.0),
+             ("normal_f64", avt.Normal(), torch.float64, stats.norm(), 1.0, 3.0))
+    for name, base, dtype, law, var, m4 in cases:
+        u = base_draws.draw(base, key, n, d, dtype, dev)
+        u2 = base_draws.draw(base, key, n, d, dtype, dev)
+        u3 = base_draws.draw(base, PhiloxKey(key.seed, key.it + 1), n, d, dtype, dev)
+        ms = cuda_ms(lambda: base_draws.draw(base, key, n, d, dtype, dev), 5)
+        mean_se, var_se = aa_moments(u, var, m4)
+        ks = stats.kstest(u.double().flatten().cpu().numpy(), law.cdf).pvalue
+        same, other = bool(torch.equal(u, u2)), float((u == u3).double().mean())
+        say("aa", draws=name, shape=f"{n}x{d}", dtype=str(dtype).split(".")[-1],
+            mean_se=f"{mean_se:.2f}", var_se=f"{var_se:.2f}", ks_p=ks, same_key_bitwise=same,
+            other_it_equal_frac=other, draw_ms=f"{ms:.4f}", card=f"'{card}'")
+        check(u.dtype == dtype and u.device.type == dev.type, f"(aa) {name}: {u.dtype} {u.device}")
+        check(mean_se < 6.0 and var_se < 6.0, f"(aa) {name}: moments {mean_se}, {var_se} SE")
+        check(ks > 1e-3, f"(aa) {name}: Kolmogorov-Smirnov p {ks} <= 1e-3")
+        check(same and other < 1e-3, f"(aa) {name}: not a function of (key, it)")
+    # no fallback: the kernel's refusals hold on the card
+    loc = torch.zeros(d, device=dev)
+    for q, want in ((avt.MeanFieldLocationScale(loc, torch.ones_like(loc), base=avt.StudentT(5.0),
+                                                sampler="pallas"), "Normal base"),
+                    (avt.MeanFieldGaussian(loc.double(), sampler="pallas"), "float32")):
+        try:
+            q.sample(key, 2)
+            fail(f"(aa) sampler='pallas' took {q.base} {q.location.dtype}")
+        except ValueError as e:
+            check(want in str(e), f"(aa) unexpected refusal: {e}")
+    try:
+        avt.FullRankGaussian(loc.double(), solve_mode="pallas")
+        fail("(aa) solve_mode='pallas' took float64")
+    except ValueError:
+        pass
+    say("aa", refusals="sampler_pallas_student_t,sampler_pallas_float64,solve_pallas_float64")
+
+
+def aa_flagship_alg(antithetic=False, **kw):
+    import advancedvi_jl_tpu_torch as avt
+
+    return avt.KLMinRepGradDescent(entropy=avt.STL, n_samples=N_SAMPLES, optimizer=avt.adam(LR),
+                                   operator=avt.ClipScale(), antithetic=antithetic, **kw)
+
+
+def aa_run(alg, steps, target, q0, state=None, tally=None):
+    """(output, rows, state, steps/s) of ``optimize`` on the card; its
+    launches go to ``tally`` where one is given."""
+    import advancedvi_jl_tpu_torch as avt
+
+    torch.cuda.synchronize()
+    with contextlib.nullcontext() if tally is None else tally.run():
+        t0 = time.perf_counter()
+        out, rows, st = avt.optimize(SEED, alg, steps, target, q0, state=state,
+                                     log_every=AA_LOG_EVERY)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    return out, rows, st, steps / secs
+
+
+def aa_antithetic(dev, target, tally):
+    """(aa) The flagship through ``optimize``, antithetic on and off on one
+    key: the antithetic tail ELBO at least the plain one's minus 2.0; the
+    location gradient's variance over 200 estimates at the plain run's q
+    lower with antithetic on; remat on and off one step apart by at most
+    rtol 1e-6; antithetic ADVI on the full-rank and low-rank families."""
+    import advancedvi_jl_tpu_torch as avt
+    from advancedvi_jl_tpu_torch.ops.cuda.location_scale_kernels import PhiloxKey, seed_words
+
+    d = D62
+    q0 = avt.MeanFieldGaussian(torch.zeros(d, device=dev), 0.1 * torch.ones(d, device=dev))
+    runs = {}
+    for anti in (False, True):
+        _, rows, st, rate = aa_run(aa_flagship_alg(anti), AA_STEPS, target, q0, tally=tally)
+        runs[anti] = (tail_elbo(rows), st, rate)
+        say("aa", flagship="antithetic" if anti else "plain", steps=AA_STEPS,
+            tail_elbo=runs[anti][0], steps_per_s=f"{rate:.1f}")
+    check(math.isfinite(runs[True][0]) and runs[True][0] >= runs[False][0] - 2.0,
+          f"(aa) antithetic tail {runs[True][0]} < plain {runs[False][0]} - 2.0")
+    q = runs[False][1].q
+    var = {}
+    for anti in (False, True):
+        obj = avt.RepGradELBO(n_samples=N_SAMPLES, entropy=avt.STL, antithetic=anti)
+        gs = torch.stack([obj.value_and_grad(q, target, PhiloxKey(seed_words(SEED + 1), i))[0]
+                          .location for i in range(AA_VAR_ESTIMATES)])
+        var[anti] = float(gs.var(dim=0).sum())
+    say("aa", location_grad_var_plain=var[False], location_grad_var_antithetic=var[True],
+        ratio=f"{var[True] / var[False]:.4f}", estimates=AA_VAR_ESTIMATES)
+    check(var[True] < var[False], f"(aa) antithetic variance {var[True]} >= {var[False]}")
+    st = runs[False][1]
+    steps = []
+    for remat in (False, True):
+        alg = avt.ParamSpaceSGD(avt.RepGradELBO(n_samples=N_SAMPLES, entropy=avt.STL,
+                                                remat=remat),
+                                avt.adam(LR), avt.PolynomialAveraging(), avt.ClipScale())
+        steps.append(alg.step(st)[0].q)
+    remat_err = max(rel_err(steps[1].location, steps[0].location),
+                    rel_err(steps[1].scale_diag, steps[0].scale_diag))
+    say("aa", remat_step_rel_err=remat_err)
+    check(remat_err <= 1e-6, f"(aa) remat changed the step by {remat_err}")
+    for name, qa in (("fullrank", avt.FullRankGaussian(torch.zeros(d, device=dev),
+                                                       0.1 * torch.eye(d, device=dev))),
+                     ("lowrank", avt.LowRankGaussian(
+                         torch.zeros(d, device=dev), 0.1 * torch.ones(d, device=dev),
+                         torch.zeros(d, LR_FLAGSHIP_R, device=dev)))):
+        _, rows, _, rate = aa_run(aa_flagship_alg(True), AA_SIDE_STEPS, target, qa, tally=tally)
+        say("aa", antithetic_family=name, steps=AA_SIDE_STEPS, elbo_last=rows[-1]["elbo"],
+            steps_per_s=f"{rate:.1f}")
+        check(all(math.isfinite(r["elbo"]) for r in rows), f"(aa) antithetic {name} not finite")
+    return {"antithetic": runs[True][2], "plain": runs[False][2]}
+
+
+def aa_iwelbo(dev, target, tally):
+    """(aa) KLMinIWRepGradDescent(n_samples=8) through ``optimize`` on the
+    flagship, mean-field and full-rank (solve_mode="pallas": K8 at 8 x 62),
+    Adam and ClipScale; then on the mean-field output, 512 replicates a k:
+    the mean IW bound non-decreasing in k = 1, 8, 64 within 3 standard
+    errors (paired: the k draws nest), and the DReG and plain gradient
+    means together (paired, the mean squared z-score within 3 standard
+    deviations of its chi-square law)."""
+    import advancedvi_jl_tpu_torch as avt
+    from advancedvi_jl_tpu_torch.ops.cuda.location_scale_kernels import PhiloxKey, seed_words
+
+    d = D62
+    rates, outs = {}, {}
+    for name, q0 in (("meanfield", avt.MeanFieldGaussian(torch.zeros(d, device=dev),
+                                                         0.1 * torch.ones(d, device=dev))),
+                     ("fullrank", avt.FullRankGaussian(torch.zeros(d, device=dev),
+                                                       0.1 * torch.eye(d, device=dev),
+                                                       solve_mode="pallas"))):
+        alg = avt.KLMinIWRepGradDescent(n_samples=AA_IW_K, optimizer=avt.adam(LR),
+                                        operator=avt.ClipScale())
+        outs[name], rows, _, rates[name] = aa_run(alg, AA_SHORT_STEPS, target, q0, tally=tally)
+        tail = tail_elbo(rows)
+        say("aa", iwelbo=name, k=AA_IW_K, steps=AA_SHORT_STEPS, tail_iw_bound=tail,
+            steps_per_s=f"{rates[name]:.1f}")
+        check(math.isfinite(tail), f"(aa) IW {name}: tail bound {tail}")
+    q = outs["meanfield"]
+    keys = [PhiloxKey(seed_words(SEED + 2), i) for i in range(AA_IW_REPLICATES)]
+    bounds = {k: torch.stack([-avt.IWELBO(n_samples=k).estimate_objective(r, q, target)
+                              for r in keys]).double() for k in AA_IW_KS}
+    line = {f"mean_k{k}": float(b.mean()) for k, b in bounds.items()}
+    for lo, hi in zip(AA_IW_KS, AA_IW_KS[1:]):
+        diff = bounds[hi] - bounds[lo]
+        se = float(diff.std() / math.sqrt(AA_IW_REPLICATES))
+        line[f"k{hi}_minus_k{lo}_se"] = f"{float(diff.mean()) / se:.2f}"
+        check(float(diff.mean()) >= -3.0 * se, f"(aa) IW bound falls from k={lo} to {hi}")
+    grads = {}
+    for dreg in (True, False):
+        obj = avt.IWELBO(n_samples=AA_IW_K, dreg=dreg)
+        grads[dreg] = torch.stack([torch.cat([g.location, g.scale_diag]) for g in
+                                   (obj.value_and_grad(q, target, r)[0] for r in keys)]).double()
+    diff = grads[True] - grads[False]
+    zs = diff.mean(0) / (diff.std(0) / math.sqrt(AA_IW_REPLICATES))
+    chi = float((zs * zs).mean())
+    p = zs.numel()
+    say("aa", iw_replicates=AA_IW_REPLICATES, **line, dreg_vs_plain_max_abs_z=float(zs.abs().max()),
+        dreg_vs_plain_mean_sq_z=f"{chi:.3f}", bound=f"{1.0 + 3.0 * math.sqrt(2.0 / p):.3f}")
+    check(chi <= 1.0 + 3.0 * math.sqrt(2.0 / p), f"(aa) DReG and plain means differ: {chi}")
+    return rates
+
+
+def aa_bases(dev, target, tally):
+    """(aa) ADVI (the flagship's algorithm) on Student-t(5) and Laplace
+    families, mean-field and full-rank, through ``optimize``: the tail ELBO
+    finite, and a run resumed after half the steps bitwise the
+    uninterrupted run (every tensor and host value of the state)."""
+    import advancedvi_jl_tpu_torch as avt
+
+    d = D62
+    rates = {}
+    for bname, base in (("student_t5", avt.StudentT(5.0)), ("laplace", avt.Laplace())):
+        for fam, q0 in (("meanfield", avt.MeanFieldLocationScale(
+                            torch.zeros(d, device=dev), 0.1 * torch.ones(d, device=dev),
+                            base=base)),
+                        ("fullrank", avt.FullRankLocationScale(
+                            torch.zeros(d, device=dev), 0.1 * torch.eye(d, device=dev),
+                            base=base))):
+            alg = aa_flagship_alg()
+            _, rows, st, rate = aa_run(alg, AA_SHORT_STEPS, target, q0, tally=tally)
+            _, _, half, _ = aa_run(alg, AA_SHORT_STEPS // 2, target, q0)
+            _, _, resumed, _ = aa_run(alg, AA_SHORT_STEPS // 2, target, None, state=half)
+            a, b = state_leaves(st), state_leaves(resumed)
+            bitwise = len(a) == len(b) and all(
+                torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y
+                for x, y in zip(a, b))
+            tail = tail_elbo(rows)
+            rates[f"{bname}_{fam}"] = rate
+            say("aa", base=bname, family=fam, steps=AA_SHORT_STEPS, tail_elbo=tail,
+                resumed_bitwise=bitwise, steps_per_s=f"{rate:.1f}")
+            check(math.isfinite(tail), f"(aa) {bname} {fam}: tail ELBO {tail}")
+            check(bitwise, f"(aa) {bname} {fam}: the resumed run differs")
+    return rates
+
+
+def aa_dense(dev, card, tally):
+    """(aa) The dense Gaussian of (l) at d = 1024, n = 256: AA_DENSE_STEPS
+    steps each of dense "solve", "pallas" (K8), "inverse" (ops/trinv.py) and
+    packed "pallas" on one key, locations within 1e-4 of the dense "pallas"
+    run, steps/s each; then tril_inverse, its product and K8 beside trsm at
+    256 x 1024 by graph replay."""
+    import advancedvi_jl_tpu_torch as avt
+    from advancedvi_jl_tpu_torch.models.normal import normal_fullrank_wellcond
+    from advancedvi_jl_tpu_torch.ops.cuda.trisolve_kernels import solve_right_cuda
+    from advancedvi_jl_tpu_torch.ops.trinv import tril_inverse
+
+    target, _, _ = normal_fullrank_wellcond(3, FR_D, device=dev)
+    target = target.solve_free()
+    alg = fullrank_alg(FR_N)
+    locs, rates = {}, {}
+    for name, mode, layout in (("dense_pallas", "pallas", "dense"),
+                               ("dense_solve", "solve", "dense"),
+                               ("dense_inverse", "inverse", "dense"),
+                               ("packed_pallas", "pallas", "packed")):
+        q0 = avt.FullRankGaussian(torch.zeros(FR_D, device=dev), solve_mode=mode, layout=layout)
+        aa_run(alg, 5, target, q0)  # warm
+        out, rows, _, rates[name] = aa_run(alg, AA_DENSE_STEPS, target, q0, tally=tally)
+        locs[name] = out.location
+        err = max_err(out.location, locs["dense_pallas"])
+        say("aa", dense=name, d=FR_D, n=FR_N, steps=AA_DENSE_STEPS, elbo_last=rows[-1]["elbo"],
+            location_max_abs_diff_vs_dense_pallas=err, steps_per_s=f"{rates[name]:.1f}",
+            card=f"'{card}'")
+        check(err <= 1e-4, f"(aa) {name}: location {err} from the dense pallas run")
+    L, C = factor(FR_D, dev)
+    V = torch.randn(FR_N, FR_D, generator=torch.Generator().manual_seed(1)).to(dev)
+    times = {"tril_inverse": graph_ms(lambda: tril_inverse(L)),
+             "tril_inverse_and_product": graph_ms(lambda: V @ tril_inverse(L)),
+             "k8_C": graph_ms(lambda: solve_right_cuda(C, V, "C")),
+             "trsm": graph_ms(lambda: torch.linalg.solve_triangular(L, V, upper=False,
+                                                                    left=False))}
+    resid = rel_err(V @ tril_inverse(L), solve_right_cuda(C, V, "C"))
+    say("aa", solve_times_graph_ms=",".join(f"{k}:{v:.5f}" for k, v in times.items()),
+        shape=f"{FR_N}x{FR_D}", inverse_vs_k8_rel=resid, card=f"'{card}'")
+    check(resid <= 1e-4, f"(aa) V tril_inverse(C) is {resid} from K8's V C^-1")
+    return rates, times
+
+
+def phase_aa(dev, card):
+    """(aa) The rest of the location-scale family and its objectives: the
+    base draws and the refusals; the kernels at (aa)'s launch shapes; then
+    the main path, counted, with every launch shape held to those checked
+    here or in (c), (i), (j), (x) and (z): antithetic ADVI, IWELBO,
+    Student-t and Laplace ADVI, the d = 1024 solve modes and layouts.  Only
+    the ``optimize`` runs of that path are counted (``Tally``): the
+    statistics checks, the resumed runs, the warm-up runs and the timings
+    run outside the count.  Returns (launches a kernel, largest errors a
+    kernel)."""
+    aa_draws(dev, card)
+    errs = aa_kernels(dev)
+    target = flagship(dev).unconstrained()
+    tally = Tally()
+    rates = aa_antithetic(dev, target, tally)
+    rates.update({f"iw_{k}": v for k, v in aa_iwelbo(dev, target, tally).items()})
+    rates.update(aa_bases(dev, target, tally))
+    dense_rates, _ = aa_dense(dev, card, tally)
+    counts, shapes = tally.counts, tally.shapes
+    say("aa", **{f"{k}_launches": counts[k] for k in shapes},
+        **{f"steps_per_s_{k}": f"{v:.1f}" for k, v in {**rates, **dense_rates}.items()})
+    checked = {"meanfield_sample": AA_K7A_SHAPES + [SAMPLER_SHAPE, (N_SAMPLES, D62)],
+               "fullrank_sample": AA_K7B_SHAPES + FR_SAMPLE_SHAPES + MS_SAMPLE_SHAPES,
+               "lowrank_sample": AA_K7C_SHAPES + [LR_SHAPE, (N_SAMPLES, D62, LR_FLAGSHIP_R)],
+               "trisolve": [(n, d) for n, d in AA_K8_SHAPES + TRI_SHAPES]}
+    for kernel, seen in shapes.items():
+        say("aa", **{f"{kernel}_shapes": ",".join("x".join(map(str, s)) for s in sorted(seen))})
+        missing = sorted(set(seen) - set(checked[kernel]))
+        check(not missing, f"(aa) {kernel} launched at {missing}, which no check covers")
+        check(counts[kernel] > 0, f"(aa) the path launched no {kernel} kernel")
+    return counts, errs
 
 
 def main() -> int:
@@ -3884,6 +4332,8 @@ def main() -> int:
     lap("y")
     ms_launches, ms_samp_err = phase_z(dev, card, fr_ref)
     lap("z")
+    aa_counts, aa_err = phase_aa(dev, card)
+    lap("aa")
     if parent is not None:
         ab_parent(parent)
         lap("ab")
@@ -3902,20 +4352,24 @@ def main() -> int:
     kernels = [
         entry("meanfield_sample", "meanfield_sample.cu",
               "advancedvi_jl_tpu/ops/pallas/location_scale_kernels.py:72",
-              counts["meanfield_sample"], samp_err, *times["meanfield_sample"]),
+              counts["meanfield_sample"] + aa_counts["meanfield_sample"],
+              max(samp_err, aa_err["meanfield_sample"]), *times["meanfield_sample"]),
         entry("fused_advi_meanfield", "fused_advi_meanfield.cu", f"{fused}672",
               counts["fused_advi_meanfield"], fused_err, *times["fused_advi_meanfield"]),
-        # the general full-rank path of (l) and the measure-space path of (z)
+        # the general full-rank path of (l), the measure-space path of (z) and (aa)'s
         entry("fullrank_sample", "fullrank_sample.cu",
               "advancedvi_jl_tpu/ops/pallas/location_scale_kernels.py:110",
-              fr_counts["fullrank_sample"] + ms_launches, max(fr_samp_err, ms_samp_err),
+              fr_counts["fullrank_sample"] + ms_launches + aa_counts["fullrank_sample"],
+              max(fr_samp_err, ms_samp_err, aa_err["fullrank_sample"]),
               *fr_times["fullrank_sample"]),
         entry("trisolve", "trisolve.cu", "advancedvi_jl_tpu/ops/pallas/trisolve_kernels.py:115",
-              fr_counts["trisolve"], tri_err, *fr_times["trisolve_C"]),
+              fr_counts["trisolve"] + aa_counts["trisolve"], max(tri_err, aa_err["trisolve"]),
+              *fr_times["trisolve_C"]),
         # mode CT: the same kernel source and launch counter, timed apart
         entry("trisolve_CT", "trisolve.cu",
-              "advancedvi_jl_tpu/ops/pallas/trisolve_kernels.py:115", fr_counts["trisolve"],
-              tri_err, *fr_times["trisolve_CT"], bound_=bounds["trisolve"]),
+              "advancedvi_jl_tpu/ops/pallas/trisolve_kernels.py:115",
+              fr_counts["trisolve"] + aa_counts["trisolve"], max(tri_err, aa_err["trisolve"]),
+              *fr_times["trisolve_CT"], bound_=bounds["trisolve"]),
         # the single-block kernel on the main paths of (l) and (p) (full-rank
         # prox, d = 11: one panel), timed and bounded at (p)'s shape; its
         # error from (k) at d = 62 and 512 (forced to one block)
@@ -3954,7 +4408,8 @@ def main() -> int:
     ms, plain_ms, b_ms, b_by = lowrank_times
     kernels.append(entry("lowrank_sample", "lowrank_sample.cu",
                          "advancedvi_jl_tpu/ops/pallas/location_scale_kernels.py:155",
-                         lowrank_counts["lowrank_sample"], lowrank_err, ms, plain_ms,
+                         lowrank_counts["lowrank_sample"] + aa_counts["lowrank_sample"],
+                         max(lowrank_err, aa_err["lowrank_sample"]), ms, plain_ms,
                          bound_=(b_ms, b_by)))
     k5 = entry("fused_k5_ad", "", f"{fused}1504", k5_launches, k5_err, k5_ms, k5_plain_ms,
                bound_=k5_bound)

@@ -200,10 +200,12 @@ def test_family_constructor_scale_diag_and_clip():
     assert_allclose(clipped.scale.numpy(), np.asarray(javt.ClipScale().apply(jraw, None).scale),
                     rtol=0, atol=0)
     assert clipped.scale[0, 1] == 5.0
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        avt.FullRankGaussian(torch.zeros(2), solve_mode="inverse")
-    with pytest.raises(NotImplementedError, match="packing"):
-        avt.FullRankGaussian(torch.zeros(2), layout="packed")
+    # solve_mode="inverse" and layout="packed" are ported (ops/trinv.py,
+    # ops/packing.py); compute_dtype waits for item 5
+    assert avt.FullRankGaussian(torch.zeros(2), solve_mode="inverse").solve_mode == "inverse"
+    assert avt.FullRankGaussian(torch.zeros(2), layout="packed").scale.shape == (1, 128, 128)
+    with pytest.raises(ValueError, match="layout"):
+        avt.FullRankGaussian(torch.zeros(2), layout="sparse")
     with pytest.raises(NotImplementedError, match="compute_dtype"):
         avt.FullRankGaussian(torch.zeros(2), compute_dtype="bfloat16")
     with pytest.raises(ValueError, match="solve_mode"):

@@ -64,7 +64,8 @@ def test_package_exports_the_slice():
                  "KLMinNaturalGradDescent", "KLMinSqrtNaturalGradDescent", "KLMinWassFwdBwd",
                  "FisherMinBatchMatch", "WithTermination", "elbo_at_least", "ExternalTarget",
                  "PathfinderResult", "pathfinder", "multipath_pathfinder",
-                 "importance_diagnostics", "pareto_khat"):
+                 "importance_diagnostics", "pareto_khat", "StudentT", "Laplace", "IWELBO",
+                 "KLMinIWRepGradDescent"):
         assert hasattr(advancedvi_jl_tpu_torch, name), name
     assert not _build._libs, "importing the package must not build or load kernels"
 
@@ -215,7 +216,8 @@ def test_port_modules_load_no_jax_and_build_nothing():
                 "estimate", "families.low_rank", "ops.cuda.fused_chains", "ops.cuda.ad_body",
                 "ops.sqrtm", "algorithms.gauss_expected", "algorithms.measure_space",
                 "algorithms.termination", "algorithms.pathfinder", "core.external",
-                "utils.diagnostics"):
+                "utils.diagnostics", "ops.base_draws", "ops.packing", "ops.trinv",
+                "objectives.iwelbo"):
         assert f"advancedvi_jl_tpu_torch.{new}" in mods, new
     code = (
         "import importlib, sys\n"

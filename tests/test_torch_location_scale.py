@@ -133,8 +133,12 @@ def test_constructor_and_checks():
     assert torch.equal(q.scale_diag, torch.ones(3))
     assert q.dim == 3
     assert not is_location_scale(object())
+    # a float64 family draws float64 through ops/base_draws.py; the sampler
+    # kernel ("pallas") takes float32 only
+    assert MeanFieldGaussian(torch.zeros(3, dtype=torch.float64)).sample(0, 2).dtype == torch.float64
     with pytest.raises(ValueError, match="float32"):
-        MeanFieldGaussian(torch.zeros(3, dtype=torch.float64)).sample_with_base(0, 2)
+        MeanFieldGaussian(torch.zeros(3, dtype=torch.float64),
+                          sampler="pallas").sample_with_base(0, 2)
 
 
 def test_wrapper_routes_by_device_without_fallback():
