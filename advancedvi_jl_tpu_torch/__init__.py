@@ -20,7 +20,11 @@ target (``ad_spec``, ``fused_spec_for``: a model body generated from its
 autograd graph; ``fn_target``, ``CustomGradTarget``); the low-rank family
 (``LowRankGaussian``); Student-t and Laplace bases (``StudentT``,
 ``Laplace``), float64 families, packed and inverse full-rank scales and
-antithetic draws; many chains at once, on the general path
+antithetic draws; the other families: block-diagonal Gaussians
+(``BlockDiagGaussian``), mixtures with the stratified ``MixtureELBO``
+(``mixture_meanfield``, ``mixture_fullrank``), planar, radial and coupling
+flows with ``FlowELBO``, and per-datapoint local latents
+(``PerDatapointMeanField``, ``GlobalLocalFamily``); many chains at once, on the general path
 (``parallel.chains.optimize_chains``) or in one fused launch
 (``FusedChainsADVI``); the measure-space algorithms
 (``KLMinNaturalGradDescent``, ``KLMinSqrtNaturalGradDescent``,
@@ -65,6 +69,24 @@ from .families.location_scale import (
     MeanFieldLocationScale,
 )
 from .families.low_rank import LowRankGaussian, LowRankLocationScale
+from .families.blockdiag import BlockDiagGaussian, BlockDiagLocationScale
+from .families.mixture import (
+    MixtureELBO,
+    MixtureFullRank,
+    MixtureMeanField,
+    mixture_fullrank,
+    mixture_meanfield,
+)
+from .families.flows import (
+    CouplingFlowFamily,
+    FlowELBO,
+    PlanarFlowFamily,
+    RadialFlowFamily,
+    coupling_flow,
+    planar_flow,
+    radial_flow,
+)
+from .families.local import GlobalLocalFamily, PerDatapointMeanField, per_datapoint_meanfield
 from .objectives.entropy import (
     ALL_ENTROPY_ESTIMATORS,
     CLOSED_FORM,

@@ -23,7 +23,7 @@ from ..core.problem import (
     log_density_grad_and_hess,
     order_of,
 )
-from ..families.location_scale import FullRankLocationScale
+from ..families.location_scale import FullRankLocationScale, check_mc_axis  # noqa: F401
 from ..objectives.repgradelbo import draw_with_base
 
 
@@ -34,14 +34,6 @@ def check_capability_at_least_grad(prob: Any, alg_name: str) -> None:
         raise ValueError(
             f"{alg_name} requires at least first-order differentiation "
             "capability; the supplied target is value-only (order 0)."
-        )
-
-
-def check_mc_axis(mc_axis) -> None:
-    if mc_axis is not None:
-        raise NotImplementedError(
-            "mc_axis (the Monte-Carlo samples sharded over a device mesh) is not "
-            "ported yet (ROADMAP Queue 1 item 17)"
         )
 
 

@@ -127,8 +127,13 @@ class ParamSpaceSGD:
         entropy: str = MONTE_CARLO,
     ):
         """-ELBO via RepGrad with the Monte-Carlo entropy, whatever the
-        training objective (reference common.jl:29-38)."""
+        training objective (reference common.jl:29-38).  A family without
+        ``log_prob`` (the planar and radial flows, which track the density
+        only along the sampling path) takes the training objective's own
+        estimator."""
         n = n_samples if n_samples is not None else self.objective.n_samples
+        if not hasattr(q, "log_prob"):
+            return self.objective.estimate_objective(key, q, prob, n)
         return RepGradELBO(n_samples=n, entropy=entropy).estimate_objective(
             key, q, prob
         )
@@ -164,8 +169,8 @@ def KLMinRepGradDescent(
             f"entropy, got {entropy!r}; use KLMinRepGradProxDescent for "
             "zero-gradient variants."
         )
-    objective = RepGradELBO(n_samples=n_samples, entropy=entropy, antithetic=antithetic,
-                            fast_entropy=fast_entropy)
+    objective = RepGradELBO(n_samples=n_samples, entropy=entropy, mc_axis=mc_axis,
+                            antithetic=antithetic, fast_entropy=fast_entropy)
     return ParamSpaceSGD(
         objective=_subsampled(objective, subsampling),
         optimizer=optimizer if optimizer is not None else dowg(),
@@ -183,20 +188,21 @@ def KLMinRepGradProxDescent(
     n_samples: int = 1,
     averager=None,
     subsampling=None,
+    mc_axis=None,
 ) -> ParamSpaceSGD:
     """Proximal ADVI: the entropy enters through the closed-form proximal
     step, so the entropy estimator's gradient must have mean zero and the
     optimizer's step size must be readable from its state (descent, dog,
     dowg) (reference constructors.jl:122-157; defaults DoWG + polynomial
-    averaging)."""
+    averaging).  ``mc_axis`` is not ported (must be None)."""
     if entropy_zerograd not in ZERO_GRAD_ESTIMATORS:
         raise ValueError(
             "KLMinRepGradProxDescent requires a zero-gradient entropy "
             f"estimator {ZERO_GRAD_ESTIMATORS}, got {entropy_zerograd!r}"
         )
     return ParamSpaceSGD(
-        objective=_subsampled(RepGradELBO(n_samples=n_samples, entropy=entropy_zerograd),
-                              subsampling),
+        objective=_subsampled(RepGradELBO(n_samples=n_samples, entropy=entropy_zerograd,
+                                          mc_axis=mc_axis), subsampling),
         optimizer=optimizer if optimizer is not None else dowg(),
         averager=averager if averager is not None else PolynomialAveraging(),
         operator=ProximalLocationScaleEntropy(),
@@ -209,12 +215,15 @@ def KLMinScoreGradDescent(
     averager=None,
     operator=None,
     subsampling=None,
+    mc_axis=None,
 ) -> ParamSpaceSGD:
     """BBVI: SGD on the score-function (VarGrad) gradient (reference
     constructors.jl:199-233; defaults DoWG + polynomial averaging +
-    IdentityOperator).  Takes value-only targets."""
+    IdentityOperator).  Takes value-only targets.  ``mc_axis`` is not
+    ported (must be None)."""
     return ParamSpaceSGD(
-        objective=_subsampled(ScoreGradELBO(n_samples=n_samples), subsampling),
+        objective=_subsampled(ScoreGradELBO(n_samples=n_samples, mc_axis=mc_axis),
+                              subsampling),
         optimizer=optimizer if optimizer is not None else dowg(),
         averager=averager if averager is not None else PolynomialAveraging(),
         operator=operator if operator is not None else IdentityOperator(),

@@ -24,6 +24,10 @@ from .algorithms.pathfinder import PathfinderResult, pathfinder_from_trajectory
 from .families.base import Laplace, Normal, StudentT
 from .families.location_scale import FullRankLocationScale, MeanFieldLocationScale
 from .families.low_rank import LowRankGaussian, LowRankLocationScale
+from .families.blockdiag import BlockDiagLocationScale
+from .families.flows import CouplingFlowFamily, PlanarFlowFamily, RadialFlowFamily
+from .families.local import GlobalLocalFamily, PerDatapointMeanField
+from .families.mixture import MixtureFullRank, MixtureMeanField
 from .models.bnn import BayesianMLP
 from .models.logreg import LogReg
 from .models.normal import NormalTarget
@@ -113,6 +117,76 @@ def lowrank_from_numpy(location, scale_diag, scale_factors,
     scale_factors``."""
     return LowRankGaussian(to_tensor(location, device), to_tensor(scale_diag, device),
                            to_tensor(scale_factors, device))
+
+
+def blockdiag_from_numpy(location, scales, base=None, device="cuda",
+                        dtype=torch.float32) -> BlockDiagLocationScale:
+    """The port's BlockDiagLocationScale from a JAX one's ``location,
+    scales`` (the blocks made lower-triangular)."""
+    return BlockDiagLocationScale(
+        location=to_tensor(location, device, dtype),
+        scales=torch.tril(to_tensor(scales, device, dtype)),
+        base=Normal() if base is None else base)
+
+
+def mixture_meanfield_from_numpy(logits, locations, scale_diags, device="cuda",
+                                 dtype=torch.float32) -> MixtureMeanField:
+    """The port's MixtureMeanField from a JAX one's ``logits, locations,
+    scale_diags``."""
+    return MixtureMeanField(*(to_tensor(a, device, dtype)
+                              for a in (logits, locations, scale_diags)))
+
+
+def mixture_fullrank_from_numpy(logits, locations, scales, device="cuda",
+                                dtype=torch.float32) -> MixtureFullRank:
+    """The port's MixtureFullRank from a JAX one's ``logits, locations,
+    scales`` (stored as given: the strict upper triangles are inert)."""
+    return MixtureFullRank(*(to_tensor(a, device, dtype) for a in (logits, locations, scales)))
+
+
+def planar_flow_from_numpy(base_location, base_scale_diag, w, a, b, device="cuda",
+                           dtype=torch.float32) -> PlanarFlowFamily:
+    """The port's PlanarFlowFamily from a JAX one's parameters."""
+    return PlanarFlowFamily(*(to_tensor(x, device, dtype)
+                              for x in (base_location, base_scale_diag, w, a, b)))
+
+
+def radial_flow_from_numpy(base_location, base_scale_diag, z0, alpha_raw, beta_raw,
+                           device="cuda", dtype=torch.float32) -> RadialFlowFamily:
+    """The port's RadialFlowFamily from a JAX one's parameters."""
+    return RadialFlowFamily(*(to_tensor(x, device, dtype)
+                              for x in (base_location, base_scale_diag, z0, alpha_raw, beta_raw)))
+
+
+def coupling_flow_from_numpy(base_location, base_scale_diag, W1, b1, W2, b2,
+                             s_cap: float = 2.0, device="cuda",
+                             dtype=torch.float32) -> CouplingFlowFamily:
+    """The port's CouplingFlowFamily from a JAX one's parameters."""
+    return CouplingFlowFamily(*(to_tensor(x, device, dtype)
+                                for x in (base_location, base_scale_diag, W1, b1, W2, b2)),
+                              s_cap=float(s_cap))
+
+
+def per_datapoint_from_numpy(location, scale_diag, weight: float = 1.0, base=None,
+                             device="cuda", dtype=torch.float32) -> PerDatapointMeanField:
+    """The port's PerDatapointMeanField from a JAX one's (rows, k)
+    ``location, scale_diag`` and ``weight``."""
+    return PerDatapointMeanField(
+        location=to_tensor(location, device, dtype), scale_diag=to_tensor(scale_diag, device, dtype),
+        base=Normal() if base is None else base, weight=float(weight))
+
+
+def global_local_from_numpy(global_location, global_scale, local_location, local_scale_diag,
+                            weight: float = 1.0, device="cuda",
+                            dtype=torch.float32) -> GlobalLocalFamily:
+    """The port's GlobalLocalFamily from a JAX one's parameters: a mean-field
+    global part for a 1-D ``global_scale`` (its ``scale_diag``), a full-rank
+    one for a 2-D ``global_scale``, and the per-datapoint local part."""
+    make = meanfield_from_numpy if np.ndim(global_scale) == 1 else fullrank_from_numpy
+    return GlobalLocalFamily(
+        global_q=make(global_location, global_scale, device=device, dtype=dtype),
+        local_q=per_datapoint_from_numpy(local_location, local_scale_diag, weight,
+                                         device=device, dtype=dtype))
 
 
 def normal_target_from_numpy(mu, scale_tril, inv_scale_tril=None,

@@ -3,7 +3,10 @@
 Families, optimizer states and averager states are frozen dataclasses whose
 tensor fields are the parameters.  ``tree_map`` maps a function over those
 fields and rebuilds the same class, so optimizers, operators and averagers
-work on any family without flattening it into one vector.
+work on any family without flattening it into one vector.  A field that
+holds another such dataclass with tensors in it (``GlobalLocalFamily``'s
+``global_q`` and ``local_q``) is a subtree: ``tree_map`` and
+``tree_leaves`` walk into it, leaves in declaration order, depth first.
 """
 
 from __future__ import annotations
@@ -14,30 +17,35 @@ from typing import Any, Callable, List
 import torch
 
 
+def _is_node(v: Any) -> bool:
+    return dataclasses.is_dataclass(v) and not isinstance(v, type) and bool(tensor_fields(v))
+
+
 def tensor_fields(obj: Any) -> List[str]:
-    """Names of the tensor-valued fields of a dataclass, in declaration order."""
+    """Names of the fields of a dataclass that hold tensors (a tensor, or a
+    dataclass with tensors in it), in declaration order."""
     return [
         f.name
         for f in dataclasses.fields(obj)
-        if isinstance(getattr(obj, f.name), torch.Tensor)
+        if isinstance(getattr(obj, f.name), torch.Tensor) or _is_node(getattr(obj, f.name))
     ]
 
 
 def tree_map(fn: Callable, obj: Any, *rest: Any) -> Any:
-    """Apply ``fn`` field-wise to the tensor fields of ``obj`` (and ``rest``)."""
+    """Apply ``fn`` leaf-wise to the tensors of ``obj`` (and ``rest``)."""
     if isinstance(obj, torch.Tensor):
         return fn(obj, *rest)
     names = tensor_fields(obj)
     return dataclasses.replace(
         obj,
-        **{n: fn(getattr(obj, n), *(getattr(r, n) for r in rest)) for n in names},
+        **{n: tree_map(fn, getattr(obj, n), *(getattr(r, n) for r in rest)) for n in names},
     )
 
 
 def tree_leaves(obj: Any) -> List[torch.Tensor]:
     if isinstance(obj, torch.Tensor):
         return [obj]
-    return [getattr(obj, n) for n in tensor_fields(obj)]
+    return [leaf for n in tensor_fields(obj) for leaf in tree_leaves(getattr(obj, n))]
 
 
 def tree_stop_gradient(obj: Any) -> Any:
@@ -56,6 +64,5 @@ def value_and_grad(loss_and_aux: Callable, q: Any):
     with torch.enable_grad():
         live = tree_map(lambda t: t.detach().requires_grad_(True), q)
         loss, aux = loss_and_aux(live)
-        names = tensor_fields(live)
-        grads = torch.autograd.grad(loss, [getattr(live, n) for n in names])
-    return dataclasses.replace(q, **dict(zip(names, grads))), aux
+        grads = iter(torch.autograd.grad(loss, tree_leaves(live)))
+    return tree_map(lambda _: next(grads), q), aux

@@ -38,6 +38,29 @@ from ..ops.trinv import tril_inverse
 from .base import Normal
 
 
+def check_mesh_axis(name: str, axis) -> None:
+    """Refuse a device-mesh axis (``mc_axis``, ``tp_axis``, ``block_axis``,
+    ``ep_axis``): the port runs on one card."""
+    if axis is not None:
+        raise NotImplementedError(
+            f"{name} (an axis of a device mesh) is not ported yet "
+            "(ROADMAP Queue 1 item 17)"
+        )
+
+
+def check_mc_axis(mc_axis) -> None:
+    check_mesh_axis("mc_axis", mc_axis)
+
+
+def check_compute_dtype(compute_dtype) -> None:
+    if compute_dtype is not None:
+        raise NotImplementedError(
+            "compute_dtype (a bfloat16 sampling product) is not ported: it "
+            "would be a K7b variant, which waits for the H100 measurement of "
+            "ROADMAP Queue 1 item 5"
+        )
+
+
 def _check_pallas_ok(q) -> None:
     """The JAX package's ``_check_pallas_ok``: the sampler kernel draws the
     Normal base in float32 only."""
@@ -65,6 +88,21 @@ def kernel_draws(q) -> bool:
 def base_draw(q, key, n_samples: int, width: int) -> torch.Tensor:
     """(n_samples, width) base draws of a family the kernels do not draw."""
     return base_draws.draw(q.base, key, n_samples, width, q.location.dtype, q.location.device)
+
+
+def standard_draw(base, key, n_samples: int, width: int, dtype: torch.dtype,
+                  device) -> torch.Tensor:
+    """(n_samples, width) iid draws of ``base`` for ``key``: the float32
+    Normal base from the mean-field sampler (K7a) at zero location and unit
+    scale, whose z is its u; any other base or dtype from
+    ops/base_draws.py (the block-diagonal family's and the full-rank
+    mixture's draw, whose product follows)."""
+    if isinstance(base, Normal) and dtype == torch.float32:
+        k = as_key(key)
+        zero = torch.zeros(width, dtype=dtype, device=device)
+        one = torch.ones(width, dtype=dtype, device=device)
+        return meanfield_sample(k.seed, k.it, zero, one, n_samples)[1]
+    return base_draws.draw(base, key, n_samples, width, dtype, device)
 
 
 @dataclass(frozen=True)
@@ -170,10 +208,14 @@ class FullRankLocationScale:
     scale: torch.Tensor  # (d, d) lower-triangular by convention, or packed tiles
     base: Any = Normal()
     sampler: str = "xla"
+    tp_axis: Optional[str] = None
+    compute_dtype: Any = None
     solve_mode: str = "solve"
     layout: str = "dense"
 
     def __post_init__(self) -> None:
+        check_mesh_axis("tp_axis", self.tp_axis)
+        check_compute_dtype(self.compute_dtype)
         if self.layout not in LAYOUTS:
             raise ValueError(
                 f"layout must be 'dense' or 'packed', got {self.layout!r}"
@@ -296,12 +338,7 @@ def FullRankGaussian(
     location_scale.jl:124-141), in the JAX package's argument order.  The
     scale is made lower-triangular here, so the stored parameters equal the
     effective ones; ``layout="packed"`` then packs it (ops/packing.py)."""
-    if compute_dtype is not None:
-        raise NotImplementedError(
-            "compute_dtype (a bfloat16 sampling product) is not ported: it "
-            "would be a K7b variant, which waits for the H100 measurement of "
-            "ROADMAP Queue 1 item 5"
-        )
+    check_compute_dtype(compute_dtype)
     location = torch.as_tensor(location)
     if scale is None:
         scale = torch.eye(location.shape[-1], dtype=location.dtype,

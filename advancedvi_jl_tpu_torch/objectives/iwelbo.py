@@ -9,7 +9,7 @@ a lower bound tighter than the ELBO and non-decreasing in k (Burda et al.
 doubly-reparameterized estimator (Tucker et al. 2019), the surrogate
 ``-sum_j sg(w~_j)^2 (log p - log q_stop)(z_j)`` with live reparameterized z
 and w~ the self-normalized weights, whose signal-to-noise ratio does not
-decay with k.  The k draws are one batched draw (the sampler kernel on a
+decay with k.  The k draws are one batched ``q.sample`` (the sampler kernel on a
 float32 Normal family) and one batched log-density; a full-rank family
 with ``solve_mode="pallas"`` whitens them with K8.  Weights are formed
 only through ``softmax`` and ``logsumexp`` of the log-weights.
@@ -23,14 +23,14 @@ from typing import Optional
 
 import torch
 
-from ..algorithms.gauss_expected import check_mc_axis
 from ..algorithms.paramspace import ParamSpaceSGD, _subsampled
 from ..core.problem import maybe_wrap_custom_grad
 from ..core.pytree import tree_stop_gradient, value_and_grad
 from ..optim.averaging import PolynomialAveraging
 from ..optim.operators import IdentityOperator
 from ..optim.rules import dowg
-from .repgradelbo import draw_with_base
+from ..families.location_scale import check_mc_axis
+from .repgradelbo import draw
 
 
 @dataclass(frozen=True)
@@ -79,7 +79,7 @@ class IWELBO:
         self._check_family(q)
         prob = maybe_wrap_custom_grad(prob)
         k = self.n_samples
-        z, _ = draw_with_base(q, key, k, noise)
+        z = draw(q, key, k, noise)
         logp = prob.log_density(z)
         log_k = math.log(k)
         if self.dreg:

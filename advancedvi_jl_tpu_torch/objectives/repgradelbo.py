@@ -2,18 +2,21 @@
 
 One step: draw the whole batch, evaluate the batched log-density, add the
 entropy estimate, and differentiate -ELBO with torch.autograd in the
-family's tensors.  On a CUDA family the draw is the fused sampler kernel.
-A family that exposes its base draw and the solve-free pieces (mean-field,
-full-rank) takes the fast entropy path from (z, u) unless
-``fast_entropy=False``; any other (low-rank) draws z and takes
-``estimate_entropy`` on ``q_stop``, as the reference decides by
-``supports_fast_entropy``.
+family's tensors.  A family that exposes its base draw and the solve-free
+pieces (mean-field, full-rank) takes the fast entropy path from (z, u)
+(``sample_with_base``) unless ``fast_entropy=False``; any other family
+draws z with ``q.sample`` and takes ``estimate_entropy`` on ``q_stop``, as
+the reference decides by ``supports_fast_entropy``.  On a CUDA family the
+draw is a sampler kernel either way (``q.sample`` is the first half of
+``sample_with_base`` for the location-scale families).  Injected base
+draws ``noise`` go to the family's ``from_base``.
 
 ``antithetic`` draws n/2 rows and mirrors them through the location,
 z' = 2 m - z with base draw u' = -u: unbiased for a symmetric base, and the
 energy term's variance drops where log p is near-linear over q.  ``remat``
 recomputes the log-density's graph in the backward pass instead of keeping
-it (``torch.utils.checkpoint``); the draw happens before it.
+it (``torch.utils.checkpoint``); the draw happens before it.  ``mc_axis``
+(the samples over a device mesh) must be None.
 """
 
 from __future__ import annotations
@@ -25,7 +28,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..core.problem import maybe_wrap_custom_grad
-from ..core.pytree import tree_stop_gradient, value_and_grad
+from ..core.pytree import tree_leaves, tree_stop_gradient, value_and_grad
+from ..families.location_scale import check_mc_axis
 from .entropy import (
     CLOSED_FORM,
     estimate_entropy,
@@ -39,18 +43,39 @@ def _use_fast(q) -> bool:
     return supports_fast_entropy(q) and hasattr(q, "sample_with_base")
 
 
+def base_noise(q, noise: torch.Tensor, n_samples: int) -> torch.Tensor:
+    """Injected base draws on the family's device and dtype, of its shape
+    (n_samples, q.base_dim)."""
+    leaf = tree_leaves(q)[0]
+    u = noise.to(device=leaf.device, dtype=leaf.dtype)
+    if u.shape != (n_samples, q.base_dim):
+        raise ValueError(
+            f"noise must have shape {(n_samples, q.base_dim)}, got {tuple(u.shape)}"
+        )
+    return u
+
+
 def draw_with_base(q, key, n_samples: int, noise: Optional[torch.Tensor] = None):
     """(z, u): the family's sampler, or z = ``q.from_base(u)`` for injected
     base draws ``noise`` of the family's shape (n_samples, q.base_dim):
     (n, d) mean-field and full-rank, (n, d + r) low-rank."""
     if noise is None:
         return q.sample_with_base(key, n_samples)
-    u = noise.to(device=q.location.device, dtype=q.location.dtype)
-    if u.shape != (n_samples, q.base_dim):
-        raise ValueError(
-            f"noise must have shape {(n_samples, q.base_dim)}, got {tuple(u.shape)}"
-        )
+    u = base_noise(q, noise, n_samples)
     return q.from_base(u), u
+
+
+def draw(q, key, n_samples: int, noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """z: ``q.sample``, or ``q.from_base`` of injected base draws."""
+    if noise is None:
+        return q.sample(key, n_samples)
+    return q.from_base(base_noise(q, noise, n_samples))
+
+
+def _mirror(q, z: torch.Tensor) -> torch.Tensor:
+    """The antithetic image 2 m - z (the flat location: a per-datapoint
+    family's is (rows, k))."""
+    return 2.0 * q.location.reshape(-1) - z
 
 
 @dataclass(frozen=True)
@@ -61,6 +86,7 @@ class RepGradELBO:
       n_samples: Monte-Carlo samples per gradient estimate.
       entropy: any of objectives/entropy.py ALL_ENTROPY_ESTIMATORS; the
         zero-gradient ones are for ``KLMinRepGradProxDescent``.
+      mc_axis: the samples over a device mesh; not ported (must be None).
       remat: recompute the log-density's graph in the backward pass.
       antithetic: draw n/2 samples and mirror them, z' = 2 m - z (even n,
         a location-scale family with a symmetric base).
@@ -70,9 +96,13 @@ class RepGradELBO:
 
     n_samples: int = 1
     entropy: str = CLOSED_FORM
+    mc_axis: Optional[str] = None
     remat: bool = False
     antithetic: bool = False
     fast_entropy: bool = True
+
+    def __post_init__(self):
+        check_mc_axis(self.mc_axis)
 
     def init(self, seed, q, prob):
         return ()  # stateless
@@ -98,16 +128,27 @@ class RepGradELBO:
                 "symmetric() = True."
             )
 
+    def _draw(self, q, key, noise: Optional[torch.Tensor] = None,
+              n: Optional[int] = None) -> torch.Tensor:
+        """z of n draws (default ``n_samples``) through ``q.sample``.
+        Antithetic: n/2 draws (``noise`` then holds n/2 rows) and their
+        mirror images."""
+        n = self.n_samples if n is None else n
+        if not self.antithetic:
+            return draw(q, key, n, noise)
+        self._check_antithetic(q, n)
+        z = draw(q, key, n // 2, noise)
+        return torch.cat([z, _mirror(q, z)], dim=0)
+
     def _draw_with_base(self, q, key, noise: Optional[torch.Tensor] = None,
                         n: Optional[int] = None):
-        """(z, u) of n draws (default ``n_samples``).  Antithetic: n/2 draws
-        (``noise`` then holds n/2 rows) and their mirror images."""
+        """(z, u) for the fast entropy path; the antithetic mirror of u is -u."""
         n = self.n_samples if n is None else n
         if not self.antithetic:
             return draw_with_base(q, key, n, noise)
         self._check_antithetic(q, n)
         z, u = draw_with_base(q, key, n // 2, noise)
-        return torch.cat([z, 2.0 * q.location - z], dim=0), torch.cat([u, -u], dim=0)
+        return torch.cat([z, _mirror(q, z)], dim=0), torch.cat([u, -u], dim=0)
 
     def _energy(self, prob, samples: torch.Tensor) -> torch.Tensor:
         if self.remat:
@@ -119,10 +160,11 @@ class RepGradELBO:
         The fast path gives the entropy from (z, u) without whitening; any
         other goes through ``q_stop.log_prob``."""
         q_stop = tree_stop_gradient(q)
-        samples, u = self._draw_with_base(q, key, noise)
         if self.fast_entropy and _use_fast(q):
+            samples, u = self._draw_with_base(q, key, noise)
             ent = estimate_entropy_from_draw(self.entropy, samples, u, q, q_stop)
         else:
+            samples = self._draw(q, key, noise)
             ent = estimate_entropy(self.entropy, samples, q, q_stop)
         return -(self._energy(prob, samples) + ent)
 
@@ -144,7 +186,7 @@ class RepGradELBO:
         for any even n (plain draws for an odd n)."""
         n = self.n_samples if n_samples is None else n_samples
         if self.antithetic and n % 2 == 0:
-            samples = self._draw_with_base(q, key, n=n)[0]
+            samples = self._draw(q, key, n=n)
         else:
             samples = q.sample(key, n)
         ent = estimate_entropy(self.entropy, samples, q, q)

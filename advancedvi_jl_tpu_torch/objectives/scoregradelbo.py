@@ -20,6 +20,8 @@ from typing import Optional
 import torch
 
 from ..core.pytree import tree_stop_gradient, value_and_grad
+from ..families.location_scale import check_mc_axis
+from .repgradelbo import draw
 
 
 @dataclass(frozen=True)
@@ -29,11 +31,14 @@ class ScoreGradELBO:
     Args:
       n_samples: Monte-Carlo samples per gradient estimate, at least 2 (the
         control variate is a sample variance, identically 0 for one sample).
+      mc_axis: the samples over a device mesh; not ported (must be None).
     """
 
     n_samples: int = 2
+    mc_axis: Optional[str] = None
 
     def __post_init__(self):
+        check_mc_axis(self.mc_axis)
         if self.n_samples < 2:
             raise ValueError(
                 "ScoreGradELBO (VarGrad) needs n_samples >= 2: the "
@@ -45,17 +50,9 @@ class ScoreGradELBO:
         return ()  # stateless
 
     def _draw(self, q, key, noise: Optional[torch.Tensor]) -> torch.Tensor:
-        """Detached samples: the family's sampler, or z = scale u + location
-        for injected base draws ``noise`` of shape (n_samples, d)."""
-        if noise is None:
-            return q.sample(key, self.n_samples)
-        u = noise.to(device=q.location.device, dtype=q.location.dtype)
-        if u.shape != (self.n_samples, q.dim):
-            raise ValueError(
-                f"noise must have shape {(self.n_samples, q.dim)}, got "
-                f"{tuple(u.shape)}"
-            )
-        return q.from_base(u)
+        """Detached samples: the family's sampler, or its ``from_base`` of
+        injected base draws ``noise`` of shape (n_samples, q.base_dim)."""
+        return draw(q, key, self.n_samples, noise)
 
     def loss_and_elbo(self, q, prob, key, noise: Optional[torch.Tensor] = None):
         """(differentiable VarGrad loss, detached plain ELBO estimate).

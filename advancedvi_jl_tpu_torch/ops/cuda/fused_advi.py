@@ -995,10 +995,14 @@ fused_run_chunk_cuda.group_launches = dict.fromkeys(LAUNCH_GROUPS, 0)
 
 
 def fused_run_chunk(model, consts, scalars, state, seed, it0, steps, n_samples, hyp,
-                    noise=None, log_every=0, branch=DEFAULT_BRANCH, ad=None):
-    """The mean-field kernel for CUDA tensors, its plain version for CPU tensors."""
+                    noise=None, log_every=0, branch=DEFAULT_BRANCH, ad=None,
+                    interpret=False):
+    """The mean-field kernel for CUDA tensors, its plain version for CPU
+    tensors or when ``interpret`` asks for it."""
     args = (model, consts, scalars, state, seed, it0, steps, n_samples, hyp, noise,
             log_every, branch, ad)
+    if interpret:
+        return fused_run_chunk_reference(*args)
     if state.is_cuda:
         return fused_run_chunk_cuda(*args)
     if state.device.type == "cpu":
@@ -1280,19 +1284,20 @@ def meanfield_phase_cycles(ad: Optional[ADProgram] = None) -> Dict[str, int]:
 
 def fused_fullrank_run_chunk(model, consts, scalars, vec, mat, seed, it0, steps,
                              n_samples, hyp, noise=None, log_every=0,
-                             branch=DEFAULT_BRANCH, ad=None, cluster=None):
+                             branch=DEFAULT_BRANCH, ad=None, cluster=None, interpret=False):
     """The full-rank kernel for CUDA tensors, its plain version for CPU
-    tensors.  ``cluster`` forces the kernel's cluster size (checked on
-    either device by ``check_cluster``, the layout's size on the card only;
-    the plain version computes the same function at any size)."""
+    tensors or when ``interpret`` asks for it.  ``cluster`` forces the
+    kernel's cluster size (checked on either device by ``check_cluster``,
+    the layout's size on the card only; the plain version computes the same
+    function at any size)."""
     args = (model, consts, scalars, vec, mat, seed, it0, steps, n_samples, hyp,
             noise, log_every, branch, ad)
-    if vec.is_cuda:
-        return fused_fullrank_run_chunk_cuda(*args, cluster=cluster)
-    if vec.device.type == "cpu":
+    if interpret or vec.device.type == "cpu":
         if cluster is not None:
             check_cluster(model, vec.shape[1], int(n_samples), branch, cluster)
         return fused_fullrank_run_chunk_reference(*args)
+    if vec.is_cuda:
+        return fused_fullrank_run_chunk_cuda(*args, cluster=cluster)
     raise ValueError(f"no fused engine for device {vec.device}")
 
 
@@ -1372,7 +1377,10 @@ class FusedADVI:
     ``grad_est`` and ``operator`` (JAX's string values; ``FusedProxADVI``
     and ``FusedScoreGradVI`` set them), ``alpha`` (DoWG/DoG's r0 scale) and
     ``cocob_alpha``; set ``algo`` before ``init``, which lays out the
-    rule's state."""
+    rule's state.  ``interpret=True`` runs the kernel's plain PyTorch
+    version on any device (the counterpart of Pallas ``interpret=True``);
+    ``False`` launches the kernel on a card and runs the plain version only
+    for CPU tensors."""
 
     def __init__(
         self,
@@ -1385,6 +1393,7 @@ class FusedADVI:
         eps: float = 1e-8,
         avg_eta: float = 8.0,
         clip_eps: float = 1e-5,
+        interpret: bool = False,
     ):
         if family not in (MEANFIELD, FULLRANK):
             raise ValueError(
@@ -1418,6 +1427,7 @@ class FusedADVI:
         self.operator = OP_CLIP
         self.alpha = 1e-6  # DoWG/DoG: r0 = alpha (1 + ||x0||)
         self.cocob_alpha = 100.0  # COCOB's bet-fraction floor (optim/rules.py)
+        self.interpret = bool(interpret)
 
     def branch(self) -> FusedBranch:
         """The kernel branch of the engine's attributes, checked."""
@@ -1542,10 +1552,11 @@ class FusedADVI:
         if self.family == FULLRANK:
             vec, mat = state.stacked_fullrank(with_ext=cocob)
             vec, mat, elbo, trace = fused_fullrank_run_chunk(
-                model.model, consts, model.scalars, vec, mat, *args)
+                model.model, consts, model.scalars, vec, mat, *args, interpret=self.interpret)
             return FusedADVIState.from_fullrank(vec, mat, it_end, elbo, keep), trace
         rows, elbo, trace = fused_run_chunk(
-            model.model, consts, model.scalars, state.stacked(with_ext=cocob), *args)
+            model.model, consts, model.scalars, state.stacked(with_ext=cocob), *args,
+            interpret=self.interpret)
         return FusedADVIState.from_stacked(rows, it_end, elbo, keep), trace
 
     # -- the optimize loop with the library contract ------------------------
@@ -1643,6 +1654,7 @@ class FusedProxADVI(FusedADVI):
         alpha: float = 1e-6,
         entropy: str = ENT_CF_ZERO,
         avg_eta: float = 8.0,
+        interpret: bool = False,
     ):
         if optimizer not in ETA_ALGOS:
             raise ValueError(
@@ -1656,7 +1668,7 @@ class FusedProxADVI(FusedADVI):
                 f"('{ENT_CF_ZERO}' or '{ENT_STL_ZERO}'), got {entropy!r}"
             )
         super().__init__(model, family=family, n_samples=n_samples, lr=lr,
-                         avg_eta=avg_eta)
+                         avg_eta=avg_eta, interpret=interpret)
         self.algo = optimizer
         self.entropy = entropy
         self.operator = OP_PROX
@@ -1681,6 +1693,7 @@ class FusedScoreGradVI(FusedADVI):
         operator: str = OP_NONE,
         avg_eta: float = 8.0,
         clip_eps: float = 1e-5,
+        interpret: bool = False,
     ):
         if optimizer not in ALGO_CODES:
             raise ValueError(
@@ -1704,7 +1717,7 @@ class FusedScoreGradVI(FusedADVI):
                 "matrices; consider using ClipScale."
             )
         super().__init__(model, family=MEANFIELD, n_samples=n_samples, lr=lr,
-                         avg_eta=avg_eta, clip_eps=clip_eps)
+                         avg_eta=avg_eta, clip_eps=clip_eps, interpret=interpret)
         self.algo = optimizer
         self.grad_est = GE_SCOREGRAD
         self.operator = operator
@@ -1728,9 +1741,10 @@ class FusedLogRegADVI(FusedADVI):
         eps: float = 1e-8,
         avg_eta: float = 8.0,
         clip_eps: float = 1e-5,
+        interpret: bool = False,
     ):
         super().__init__(
             logreg_spec(X, y, prior_scale=prior_scale, likeadj=likeadj),
             family=MEANFIELD, n_samples=n_samples, lr=lr, b1=b1, b2=b2,
-            eps=eps, avg_eta=avg_eta, clip_eps=clip_eps,
+            eps=eps, avg_eta=avg_eta, clip_eps=clip_eps, interpret=interpret,
         )

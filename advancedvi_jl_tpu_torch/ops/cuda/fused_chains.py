@@ -487,10 +487,13 @@ def chains_phase_cycles() -> dict:
 
 def fused_chains_run_chunk(model, consts, scalars, state, seeds, it0, steps, n_samples, hyp,
                            noise=None, log_every=0, branch=DEFAULT_BRANCH, lrs=None,
-                           rules=None, ad=None):
-    """The chains kernel for CUDA tensors, its plain version for CPU tensors."""
+                           rules=None, ad=None, interpret=False):
+    """The chains kernel for CUDA tensors, its plain version for CPU tensors
+    or when ``interpret`` asks for it."""
     args = (model, consts, scalars, state, seeds, it0, steps, n_samples, hyp, noise,
             log_every, branch, lrs, rules, ad)
+    if interpret:
+        return fused_chains_run_chunk_reference(*args)
     if state.is_cuda:
         return fused_chains_run_chunk_cuda(*args)
     if state.device.type == "cpu":
@@ -517,7 +520,8 @@ class FusedChainsADVI:
     engine's arguments).  ``lr`` may be an ``(n_chains,)`` array (an Adam or
     descent step-size sweep) and ``optimizer`` a list of ``n_chains`` rule
     names (a mixed sweep).  Chains share the model and the other
-    hyperparameters."""
+    hyperparameters.  ``interpret=True`` runs the kernel's plain PyTorch
+    version on any device."""
 
     def __init__(
         self,
@@ -530,12 +534,14 @@ class FusedChainsADVI:
         eps: float = 1e-8,
         avg_eta: float = 8.0,
         clip_eps: float = 1e-5,
+        interpret: bool = False,
         optimizer=ALGO_ADAM,
         entropy: str = ENT_STL,
         grad_est: str = GE_REPGRAD,
         operator: str = OP_CLIP,
         alpha: float = 1e-6,
     ):
+        self.interpret = bool(interpret)
         self._rule_list = None
         if optimizer == MIXED:
             raise ValueError(
@@ -742,6 +748,7 @@ class FusedChainsADVI:
             self.model.model, consts, self.model.scalars,
             state.stacked(with_ext=with_ext), self.chain_seeds(key), state.iteration, steps,
             n, self.hyp, noise, log_every, self.branch(), self.lrs, self.rules, self.ad,
+            interpret=self.interpret,
         )
         new = FusedChainsState.from_stacked(rows, state.iteration + steps, elbo, keep)
         return new, trace

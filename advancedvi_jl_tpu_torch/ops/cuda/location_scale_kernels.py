@@ -152,6 +152,20 @@ def chain_seed_words(seed: SeedLike, c: int) -> Tuple[int, int]:
     return w[0], w[1]
 
 
+# Counter word 3 of the sub-keys of one draw ("splt"): no draw uses this stream.
+_SPLIT_STREAM = 0x73706C74
+
+
+def split_seed_words(seed: SeedLike, i: int) -> Tuple[int, int]:
+    """The seed words of part ``i`` of a draw keyed by ``seed``: the first
+    two words of Philox4x32-10 at counter (i, 0, 0, "splt") under its words.
+    A family made of parts (``GlobalLocalFamily``) draws part i under these
+    words at the key's iteration, so no two parts share a stream (the
+    counterpart of ``jax.random.split(key)``)."""
+    w = philox4x32_words((i, 0, 0, _SPLIT_STREAM), seed_words(seed))
+    return w[0], w[1]
+
+
 def chain_seed_table(seed: SeedLike, n_chains: int) -> torch.Tensor:
     """``chain_seed_words(seed, c)`` of chains 0 .. n_chains - 1 as one
     (n_chains, 2) int64 CPU tensor, from one vectorised Philox call."""

@@ -1374,14 +1374,14 @@ def ab_parent(parent: Path):
     differ = []
     for lib in _build.KERNELS:  # every kernel both libraries have
         for fn, same in sass_equal(built_library(parent, lib), built_library(ROOT, lib)):
-            say("ab", sass=f"{lib}:{fn}", equal=same)
+            say("parent", sass=f"{lib}:{fn}", equal=same)
             if not same and lib not in AB_CHANGED:
                 differ.append(f"{lib}:{fn}")
     for key in runs["this"][0]:
         if key.startswith("ptxas"):
-            say("ab", lib=key, parent=f"'{runs['parent'][0][key]}'", this=f"'{runs['this'][0][key]}'")
+            say("parent", lib=key, parent=f"'{runs['parent'][0][key]}'", this=f"'{runs['this'][0][key]}'")
             continue
-        say("ab", chunk=key, parent_ms=",".join(f"{r[key]:.7g}" for r in runs["parent"]),
+        say("parent", chunk=key, parent_ms=",".join(f"{r[key]:.7g}" for r in runs["parent"]),
             this_ms=",".join(f"{r[key]:.7g}" for r in runs["this"]))
     check(not differ, f"SASS of kernels this change does not edit differs: {differ}")
 
@@ -4273,6 +4273,236 @@ def phase_aa(dev, card):
     return counts, errs
 
 
+# (ab): the other families on the flagship, and the random-effects model
+AB_STEPS = 1_000                  # each mixture and block-diagonal run of (ab)
+AB_FLOW_STEPS = 500               # each flow run (1,000 took (ab) past its 90 s on an H100)
+AB_LOG_EVERY = 10                 # the first and last 20 rows are the bars
+AB_MIX_K, AB_MIXFR_K = 4, 2       # mean-field and full-rank mixture components
+AB_BLOCKS = 2                     # block-diagonal: 2 blocks of 31
+AB_FLOW_LAYERS = 8                # planar and radial
+AB_COUPLING_LAYERS, AB_COUPLING_H = 4, 64
+AB_RE_N, AB_RE_B, AB_RE_DRAWS = 4_096, 512, 16   # random effects: rows, batch, draws
+AB_RE_STEPS, AB_RE_LR, AB_RE_LOG_EVERY = 6_000, 2e-2, 100
+AB_RE_S0, AB_RE_SZ, AB_RE_SY = 2.0, 1.0, 0.5     # prior sd of mu, z | mu, y | z
+# every K7a shape the counted runs launch: the mixtures over (n, K d), the
+# block-diagonal u and the flows' base at (n, d), the random effects' global
+# and local parts
+AB_K7A_SHAPES = [(N_SAMPLES, AB_MIX_K * D62), (N_SAMPLES, AB_MIXFR_K * D62), (N_SAMPLES, D62),
+                 (AB_RE_DRAWS, 1), (AB_RE_DRAWS, AB_RE_B)]
+
+
+def ab_kernels(dev):
+    """(ab) K7a at every shape (ab)'s runs launch it, against its plain
+    version: u bitwise, z within (c)'s bound (and whether it is bitwise);
+    the mixtures' stratified u on the card is the kernel's launch over
+    (n, K d), permuted, bit for bit.  Returns the largest z error."""
+    import advancedvi_jl_tpu_torch as avt
+    from advancedvi_jl_tpu_torch.ops.cuda.location_scale_kernels import (
+        PhiloxKey, meanfield_sample_cuda, meanfield_sample_reference, seed_words,
+    )
+
+    seed = seed_words(SEED)
+    worst = 0.0
+    for n, d in AB_K7A_SHAPES:
+        g = torch.Generator().manual_seed(n * 7919 + d)
+        loc = torch.randn(d, generator=g).to(dev)
+        scale = (0.5 + torch.rand(d, generator=g)).to(dev)
+        z, u = meanfield_sample_cuda(seed, 5, loc, scale, n)
+        zr, ur = meanfield_sample_reference(seed, 5, loc, scale, n)
+        torch.cuda.synchronize()
+        u_err, z_err = max_err(u, ur), max_err(z, zr)
+        say("ab", k7a_shape=f"{n}x{d}", u_bitwise=bool(torch.equal(u, ur)),
+            z_bitwise=bool(torch.equal(z, zr)), u_max_abs_err=u_err, z_max_abs_err=z_err)
+        check(bool(torch.equal(u, ur)), f"(ab) K7a u at {n}x{d} is not the plain version's")
+        check(z_err <= 1e-6 * (1.0 + float(zr.abs().max())), f"(ab) K7a z at {n}x{d}: {z_err}")
+        worst = max(worst, z_err)
+    key = PhiloxKey(seed, 9)
+    for name, q in (("mixture_meanfield", avt.mixture_meanfield(SEED, D62, AB_MIX_K, 0.1, 0.1,
+                                                                device=dev)),
+                    ("mixture_fullrank", avt.mixture_fullrank(SEED, D62, AB_MIXFR_K, 0.1, 0.1,
+                                                              device=dev))):
+        K = q.n_components
+        _, u = q.sample_stratified_with_base(key, N_SAMPLES)
+        if name == "mixture_meanfield":
+            loc, scale = q.locations.reshape(-1), q.scale_diags.reshape(-1)
+        else:
+            loc, scale = torch.zeros(K * D62, device=dev), torch.ones(K * D62, device=dev)
+        _, ur = meanfield_sample_reference(seed, 9, loc, scale, N_SAMPLES)
+        same = bool(torch.equal(u, ur.reshape(N_SAMPLES, K, D62).permute(1, 0, 2)))
+        say("ab", stratified=name, shape=f"{K}x{N_SAMPLES}x{D62}", u_bitwise=same)
+        check(same, f"(ab) {name}: the stratified u is not K7a's launch over (n, K d)")
+    return worst
+
+
+def ab_run(alg, steps, target, q0, tally, log_every=AB_LOG_EVERY):
+    """(output, rows, steps/s) of one counted ``optimize`` run on the card."""
+    import advancedvi_jl_tpu_torch as avt
+
+    torch.cuda.synchronize()
+    with tally.run():
+        t0 = time.perf_counter()
+        out, rows, _ = avt.optimize(SEED, alg, steps, target, q0, log_every=log_every)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    return out, rows, steps / secs
+
+
+def ab_flagship(dev, tally):
+    """(ab) The other families on the flagship logreg (d = 62) through
+    ``optimize``, 10 draws a component or a step, Adam(1e-3) and polynomial
+    averaging: 1,000 steps each of the mixtures with MixtureELBO (STL) and
+    ClipScale and the block-diagonal family with RepGradELBO (STL) and
+    ClipScale; 500 each of the planar and radial flows (8 layers) and the
+    coupling flow (4 layers, h = 64) with FlowELBO (the Monte-Carlo entropy,
+    and STL for the coupling flow; no operator, as JAX's ClipScale takes no
+    flow), each flow's base at scale 0.1 as the flagship's q0.  Every ELBO
+    row finite and the mean of the last 20 rows above that of the first
+    20.  Returns steps/s a run."""
+    import dataclasses
+
+    import advancedvi_jl_tpu_torch as avt
+
+    target = flagship(dev).unconstrained()
+    d, k = D62, D62 // AB_BLOCKS
+    base = {"base_scale_diag": 0.1 * torch.ones(d, device=dev)}
+
+    def mixture_alg():
+        return avt.ParamSpaceSGD(avt.MixtureELBO(n_samples=N_SAMPLES, entropy="stl"),
+                                 avt.adam(LR), avt.PolynomialAveraging(), avt.ClipScale())
+
+    def flow_alg(entropy):
+        return avt.ParamSpaceSGD(avt.FlowELBO(n_samples=N_SAMPLES, entropy=entropy),
+                                 avt.adam(LR), avt.PolynomialAveraging(),
+                                 avt.IdentityOperator())
+
+    def coupling():
+        return dataclasses.replace(avt.coupling_flow(SEED, d, AB_COUPLING_LAYERS, AB_COUPLING_H,
+                                                     device=dev), **base)
+
+    runs = (
+        ("mixture_meanfield_k4", AB_STEPS, mixture_alg(),
+         avt.mixture_meanfield(SEED, d, AB_MIX_K, 0.1, 0.1, device=dev)),
+        ("mixture_fullrank_k2", AB_STEPS, mixture_alg(),
+         avt.mixture_fullrank(SEED, d, AB_MIXFR_K, 0.1, 0.1, device=dev)),
+        ("blockdiag_2x31", AB_STEPS, aa_flagship_alg(),
+         avt.BlockDiagGaussian(torch.zeros(d, device=dev),
+                               0.1 * torch.eye(k, device=dev).expand(AB_BLOCKS, k, k))),
+        ("planar_8", AB_FLOW_STEPS, flow_alg("monte_carlo"),
+         dataclasses.replace(avt.planar_flow(SEED, d, AB_FLOW_LAYERS, device=dev), **base)),
+        ("radial_8", AB_FLOW_STEPS, flow_alg("monte_carlo"),
+         dataclasses.replace(avt.radial_flow(SEED, d, AB_FLOW_LAYERS, device=dev), **base)),
+        ("coupling_4_h64", AB_FLOW_STEPS, flow_alg("monte_carlo"), coupling()),
+        ("coupling_4_h64_stl", AB_FLOW_STEPS, flow_alg("stl"), coupling()),
+    )
+    rates = {}
+    for name, steps, alg, q0 in runs:
+        _, rows, rates[name] = ab_run(alg, steps, target, q0, tally)
+        elbos = [r["elbo"] for r in rows]
+        head, tail = sum(elbos[:TAIL_ROWS]) / TAIL_ROWS, sum(elbos[-TAIL_ROWS:]) / TAIL_ROWS
+        say("ab", family=name, steps=steps, head_elbo=head, tail_elbo=tail,
+            last_rows=",".join(f"{e:.2f}" for e in elbos[-5:]), steps_per_s=f"{rates[name]:.1f}")
+        check(all(math.isfinite(e) for e in elbos), f"(ab) {name}: an ELBO row is not finite")
+        check(tail > head, f"(ab) {name}: the tail ELBO {tail} is not above the head {head}")
+    return rates
+
+
+def random_effects(dev, n=AB_RE_N, seed=SEED):
+    """The random-effects model of the JAX package's tests/test_ppl_local.py
+    (mu ~ N(0, S0), z_i ~ N(mu, SZ), y_i ~ N(z_i, SY)) as a factorized
+    target over theta = [mu, z_1 .. z_B], its data drawn by numpy under
+    ``seed``; and the exact posterior's means and precision diagonal
+    Lambda_ii (mean-field VI's fixed point has var_i = 1 / Lambda_ii)."""
+    import numpy as np
+
+    import advancedvi_jl_tpu_torch as avt
+
+    s0, sz, sy = AB_RE_S0, AB_RE_SZ, AB_RE_SY
+    rng = np.random.default_rng(seed)
+    mu = s0 * rng.standard_normal()
+    y = (mu + sz * rng.standard_normal(n) + sy * rng.standard_normal(n)).astype(np.float32)
+
+    def lp(x, loc, sd):
+        return -0.5 * ((x - loc) / sd) ** 2 - 0.5 * math.log(2 * math.pi * sd * sd)
+
+    target = avt.factorized_target(
+        logprior_fn=lambda th: lp(th[..., 0], 0.0, s0),
+        loglike_fn=lambda th, data: torch.sum(
+            lp(th[..., 1:], th[..., :1], sz) + lp(data["y"], th[..., 1:], sy), dim=-1),
+        data={"y": torch.tensor(y, device=dev)}, dim=1 + n)
+    # given mu, y_i ~ N(mu, sz^2 + sy^2); E[z_i | y] is linear in E[mu | y]
+    yd = y.astype(np.float64)
+    prec_mu = 1 / s0 ** 2 + n / (sz ** 2 + sy ** 2)
+    m_mu = yd.sum() / (sz ** 2 + sy ** 2) / prec_mu
+    m_z = (m_mu / sz ** 2 + yd / sy ** 2) / (1 / sz ** 2 + 1 / sy ** 2)
+    mean = np.concatenate([[m_mu], m_z])
+    prec = np.concatenate([[1 / s0 ** 2 + n / sz ** 2], np.full(n, 1 / sz ** 2 + 1 / sy ** 2)])
+    return target, mean, prec
+
+
+def ab_random_effects(dev, tally):
+    """(ab) The random-effects model at N = 4,096 rows:
+    GlobalLocalFamily(MeanFieldGaussian(1), per_datapoint_meanfield(N)) with
+    ReshufflingBatchSubsampling(B = 512), 16 draws, Adam(2e-2), ClipScale,
+    6,000 steps (750 epochs) through ``optimize``.  Bars (JAX's): every
+    local mean and the global mean within 0.08 of the exact posterior mean,
+    every local sd within rtol 0.2 of Lambda_ii^-1/2 (the global sd, 0.0156
+    here, is held only in the CPU test at N = 48); and one draw's global and
+    local u equal in no element of their first columns (two sub-keys).
+    Returns steps/s."""
+    import numpy as np
+
+    import advancedvi_jl_tpu_torch as avt
+    from advancedvi_jl_tpu_torch.ops.cuda.location_scale_kernels import PhiloxKey, seed_words
+
+    target, mean, prec = random_effects(dev)
+    q0 = avt.GlobalLocalFamily(avt.MeanFieldGaussian(torch.zeros(1, device=dev)),
+                               avt.per_datapoint_meanfield(AB_RE_N, device=dev))
+    _, u = q0.subsample(torch.arange(AB_RE_B, device=dev)).sample_with_base(
+        PhiloxKey(seed_words(SEED), 3), AB_RE_DRAWS)
+    shared = int((u[:, 0] == u[:, 1]).sum())
+    say("ab", global_local_u_equal_elements=shared, rows=AB_RE_DRAWS)
+    check(shared == 0, f"(ab) the global and local u share {shared} elements")
+    alg = avt.KLMinRepGradDescent(entropy=avt.STL, n_samples=AB_RE_DRAWS,
+                                  optimizer=avt.adam(AB_RE_LR), operator=avt.ClipScale(),
+                                  subsampling=avt.ReshufflingBatchSubsampling(AB_RE_N, AB_RE_B))
+    q, rows, rate = ab_run(alg, AB_RE_STEPS, target, q0, tally, AB_RE_LOG_EVERY)
+    got_mean = torch.cat([q.global_q.location, q.local_q.location[:, 0]]).double().cpu().numpy()
+    got_sd = torch.cat([q.global_q.scale_diag,
+                        q.local_q.scale_diag[:, 0]]).double().cpu().numpy()
+    mean_err = float(np.abs(got_mean - mean).max())
+    sd_rel = float(np.abs(got_sd[1:] * np.sqrt(prec[1:]) - 1.0).max())
+    say("ab", random_effects=f"N{AB_RE_N}_B{AB_RE_B}", steps=AB_RE_STEPS,
+        elbo_last=rows[-1]["elbo"], mean_max_abs_err=mean_err, local_sd_max_rel_err=sd_rel,
+        global_mean_err=float(abs(got_mean[0] - mean[0])), global_sd=float(got_sd[0]),
+        global_sd_exact=float(prec[0] ** -0.5), steps_per_s=f"{rate:.1f}")
+    check(all(math.isfinite(r["elbo"]) for r in rows), "(ab) random effects: an ELBO row")
+    check(mean_err <= 0.08, f"(ab) random effects: a mean is {mean_err} from the posterior's")
+    check(sd_rel <= 0.2, f"(ab) random effects: a local sd is off by rtol {sd_rel}")
+    return rate
+
+
+def phase_ab(dev, card):
+    """(ab) The other families: K7a at every shape they launch it, then the
+    main path, counted (``Tally``): the mixtures, the block-diagonal family
+    and the flows on the flagship, and the random-effects model on a
+    global-local family.  Returns (launches a kernel, K7a's largest z
+    error)."""
+    err = ab_kernels(dev)
+    tally = Tally()
+    rates = ab_flagship(dev, tally)
+    rates["random_effects"] = ab_random_effects(dev, tally)
+    counts, seen = tally.counts, tally.shapes["meanfield_sample"]
+    say("ab", meanfield_sample_launches=counts["meanfield_sample"],
+        meanfield_sample_shapes=",".join("x".join(map(str, s)) for s in sorted(seen)),
+        **{f"steps_per_s_{k}": f"{v:.1f}" for k, v in rates.items()}, card=f"'{card}'")
+    missing = sorted(seen - set(AB_K7A_SHAPES))
+    check(not missing, f"(ab) K7a launched at {missing}, which no check covers")
+    check(counts["meanfield_sample"] > 0, "(ab) the path launched no meanfield_sample kernel")
+    others = {k: counts[k] for k in tally.shapes if k != "meanfield_sample" and counts[k]}
+    check(not others, f"(ab) the path launched {others}, which (ab) does not check")
+    return counts, err
+
+
 def main() -> int:
     parent = None  # --parent DIR: the A/B of the chunks against that checkout
     argv = sys.argv[1:]
@@ -4296,7 +4526,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda:0")
     phase_b()
-    lap("ab")
+    lap("a-b")
     samp_err = phase_c(dev)
     fused_err = phase_d(dev)
     phase_e(dev)
@@ -4334,9 +4564,11 @@ def main() -> int:
     lap("z")
     aa_counts, aa_err = phase_aa(dev, card)
     lap("aa")
+    ab_counts, ab_err = phase_ab(dev, card)
+    lap("ab")
     if parent is not None:
         ab_parent(parent)
-        lap("ab")
+        lap("parent")
     say("time", total=round(sum(seconds.values()), 1), **seconds)
     bounds = {name: bound(*fb, issue.get(name, 0.0)) for name, fb in kernel_bounds().items()}
     src = "advancedvi_jl_tpu_torch/csrc/"
@@ -4352,8 +4584,9 @@ def main() -> int:
     kernels = [
         entry("meanfield_sample", "meanfield_sample.cu",
               "advancedvi_jl_tpu/ops/pallas/location_scale_kernels.py:72",
-              counts["meanfield_sample"] + aa_counts["meanfield_sample"],
-              max(samp_err, aa_err["meanfield_sample"]), *times["meanfield_sample"]),
+              counts["meanfield_sample"] + aa_counts["meanfield_sample"]
+              + ab_counts["meanfield_sample"],
+              max(samp_err, aa_err["meanfield_sample"], ab_err), *times["meanfield_sample"]),
         entry("fused_advi_meanfield", "fused_advi_meanfield.cu", f"{fused}672",
               counts["fused_advi_meanfield"], fused_err, *times["fused_advi_meanfield"]),
         # the general full-rank path of (l), the measure-space path of (z) and (aa)'s

@@ -1,6 +1,6 @@
 """Port parity: the general multi-chain path (``parallel/chains.py``), the
-cases of tests/test_chains.py whose families the port has (mean-field and
-low-rank; mixtures and flows come with ROADMAP Queue 1 item 11).  The JAX
+cases of tests/test_chains.py on the mean-field and low-rank families (a
+planar flow's chains: tests/test_torch_flows.py).  The JAX
 package vmaps the step over the chains; the port steps each chain's
 state in turn, so chain c is ``optimize`` keyed by ``chain_seed_words(seed,
 c)`` bit for bit.  Draws are the port's Philox normals (JAX's threefry

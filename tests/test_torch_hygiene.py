@@ -65,7 +65,11 @@ def test_package_exports_the_slice():
                  "FisherMinBatchMatch", "WithTermination", "elbo_at_least", "ExternalTarget",
                  "PathfinderResult", "pathfinder", "multipath_pathfinder",
                  "importance_diagnostics", "pareto_khat", "StudentT", "Laplace", "IWELBO",
-                 "KLMinIWRepGradDescent"):
+                 "KLMinIWRepGradDescent", "BlockDiagGaussian", "BlockDiagLocationScale",
+                 "MixtureMeanField", "MixtureFullRank", "mixture_meanfield", "mixture_fullrank",
+                 "MixtureELBO", "PlanarFlowFamily", "RadialFlowFamily", "CouplingFlowFamily",
+                 "planar_flow", "radial_flow", "coupling_flow", "FlowELBO",
+                 "PerDatapointMeanField", "per_datapoint_meanfield", "GlobalLocalFamily"):
         assert hasattr(advancedvi_jl_tpu_torch, name), name
     assert not _build._libs, "importing the package must not build or load kernels"
 
@@ -217,7 +221,8 @@ def test_port_modules_load_no_jax_and_build_nothing():
                 "ops.sqrtm", "algorithms.gauss_expected", "algorithms.measure_space",
                 "algorithms.termination", "algorithms.pathfinder", "core.external",
                 "utils.diagnostics", "ops.base_draws", "ops.packing", "ops.trinv",
-                "objectives.iwelbo"):
+                "objectives.iwelbo", "families.blockdiag", "families.mixture",
+                "families.flows", "families.local"):
         assert f"advancedvi_jl_tpu_torch.{new}" in mods, new
     code = (
         "import importlib, sys\n"
@@ -247,6 +252,13 @@ def test_port_modules_load_no_jax_and_build_nothing():
     ("ops.cuda.probe_kernels", "run_probes"), ("convert", "lowrank_from_numpy"),
     ("convert", "chains_state_from_numpy"), ("convert", "measure_space_state_from_numpy"),
     ("convert", "pathfinder_from_numpy"), ("algorithms.pathfinder", "pathfinder"),
+    ("convert", "blockdiag_from_numpy"), ("convert", "mixture_meanfield_from_numpy"),
+    ("convert", "mixture_fullrank_from_numpy"), ("convert", "planar_flow_from_numpy"),
+    ("convert", "radial_flow_from_numpy"), ("convert", "coupling_flow_from_numpy"),
+    ("convert", "per_datapoint_from_numpy"), ("convert", "global_local_from_numpy"),
+    ("families.mixture", "mixture_meanfield"), ("families.mixture", "mixture_fullrank"),
+    ("families.flows", "planar_flow"), ("families.flows", "radial_flow"),
+    ("families.flows", "coupling_flow"), ("families.local", "per_datapoint_meanfield"),
 ])
 def test_constructors_default_to_the_card(module, name):
     """Every constructor that creates tensors puts them on the card unless
@@ -267,3 +279,114 @@ def test_default_device_is_not_the_cpu_without_a_card():
     with pytest.raises((AssertionError, RuntimeError)):
         make_logreg(11, n_data=8, n_features=2)
     assert make_logreg(11, n_data=8, n_features=2, device="cpu").X.device.type == "cpu"
+
+
+# The keywords the port lacks or only refuses (ROADMAP Queue 3): optimize's
+# unroll= (a lax.scan argument), show_progress= and progress= (item 16),
+# mesh= and data_axis= (item 17).
+_JAX_ONLY = ("unroll", "show_progress", "progress", "mesh", "data_axis")
+# A different object by design (the port's spec names its model), and an
+# argument name.
+_NOT_COMPARED = ("FusedModelSpec", "tree_stop_gradient")
+
+
+def _public_callables(module):
+    import types
+
+    return {n: getattr(module, n) for n in dir(module)
+            if not n.startswith("_") and callable(getattr(module, n))
+            and not isinstance(getattr(module, n), types.ModuleType)}
+
+
+def _jax_names(params):
+    names = [p for p in params if p not in _JAX_ONLY]
+    if names and names[0] == "key":
+        names[0] = "seed"  # the port's first seed (an int, a generator or two words)
+    # the minibatch specs draw their permutation from generator= (or take perm=)
+    return ["generator" if p == "key" else p for p in names]
+
+
+def _port_names(params):
+    names = [p for p in params if p not in ("device", "perm") + _JAX_ONLY]
+    return ["seed" if i == 0 and p == "key" else p for i, p in enumerate(names)]
+
+
+def test_shared_callables_take_the_jax_parameters_in_order():
+    """Every public callable that both packages export takes JAX's
+    parameters in JAX's order, so a positional JAX call means the same in
+    the port.  Exceptions: a first ``key`` the port names ``seed``, the
+    port's ``device=``, the minibatch specs' ``generator=``/``perm=`` for
+    ``key=``, and the keywords of _JAX_ONLY and _NOT_COMPARED."""
+    import advancedvi_jl_tpu as jax_package
+
+    jax_api, port_api = _public_callables(jax_package), _public_callables(advancedvi_jl_tpu_torch)
+    shared = sorted(set(jax_api) & set(port_api))
+    assert len(shared) >= 88
+    checked = 0
+    for name in shared:
+        if name in _NOT_COMPARED:
+            continue
+        try:
+            jsig = inspect.signature(jax_api[name])
+            tsig = inspect.signature(port_api[name])
+        except (TypeError, ValueError):
+            continue
+        assert _port_names(tsig.parameters) == _jax_names(jsig.parameters), name
+        checked += 1
+    assert checked >= 80
+
+
+def test_jax_positional_calls_mean_the_same():
+    """RepGradELBO(10, "stl", None, True) is remat=True in both packages;
+    the fused engines take interpret= last (the chains engine after
+    clip_eps, as JAX's); a mesh axis raises, naming item 17."""
+    import advancedvi_jl_tpu as jax_package
+
+    for pkg in (jax_package, advancedvi_jl_tpu_torch):
+        obj = pkg.RepGradELBO(10, "stl", None, True)
+        assert (obj.n_samples, obj.entropy, obj.mc_axis, obj.remat, obj.antithetic) == \
+            (10, "stl", None, True, False)
+    avt = advancedvi_jl_tpu_torch
+    q = avt.FullRankLocationScale(torch.zeros(2), torch.eye(2), avt.Normal(), "xla", None, None,
+                                  "inverse")
+    assert (q.tp_axis, q.compute_dtype, q.solve_mode, q.layout) == (None, None, "inverse", "dense")
+    for make in (lambda: avt.RepGradELBO(4, "stl", "mc"), lambda: avt.ScoreGradELBO(4, "mc"),
+                 lambda: avt.KLMinRepGradProxDescent(mc_axis="mc"),
+                 lambda: avt.KLMinScoreGradDescent(mc_axis="mc"), lambda: avt.BBVI(mc_axis="mc"),
+                 lambda: avt.FullRankLocationScale(torch.zeros(2), torch.eye(2), tp_axis="tp"),
+                 lambda: avt.MixtureELBO(ep_axis="ep"), lambda: avt.FlowELBO(mc_axis="mc")):
+        with pytest.raises(NotImplementedError, match="item 17"):
+            make()
+    with pytest.raises(NotImplementedError, match="item 5"):
+        avt.FullRankLocationScale(torch.zeros(2), torch.eye(2), compute_dtype="bfloat16")
+    for cls in (avt.FusedADVI, avt.FusedLogRegADVI, avt.FusedProxADVI, avt.FusedScoreGradVI):
+        params = list(inspect.signature(cls).parameters.values())
+        assert params[-1].name == "interpret" and params[-1].default is False, cls
+    chains = list(inspect.signature(avt.FusedChainsADVI).parameters)
+    assert chains[chains.index("clip_eps") + 1] == "interpret"
+
+
+def test_interpret_runs_the_plain_version_on_any_device(monkeypatch):
+    """interpret=True takes each fused engine's plain version whatever the
+    device (a tensor on "meta" here stands for one off the CPU); False runs
+    it only for CPU tensors and launches the kernel on a card."""
+    from advancedvi_jl_tpu_torch.ops.cuda import fused_advi, fused_chains
+
+    calls = []
+    for mod, ref in ((fused_advi, "fused_run_chunk_reference"),
+                     (fused_advi, "fused_fullrank_run_chunk_reference"),
+                     (fused_chains, "fused_chains_run_chunk_reference")):
+        monkeypatch.setattr(mod, ref, lambda *a, _r=ref: calls.append(_r) or _r)
+    meta = torch.zeros(4, 3, device="meta")
+    args = ("logreg", (), (), meta, (0, 0), 0, 1, 2, None)
+    assert fused_advi.fused_run_chunk(*args, interpret=True) == "fused_run_chunk_reference"
+    assert fused_advi.fused_fullrank_run_chunk("logreg", (), (), meta, meta, (0, 0), 0, 1, 2,
+                                               None, interpret=True) == \
+        "fused_fullrank_run_chunk_reference"
+    assert fused_chains.fused_chains_run_chunk(*args, interpret=True) == \
+        "fused_chains_run_chunk_reference"
+    with pytest.raises(ValueError, match="no fused"):
+        fused_advi.fused_run_chunk(*args)
+    with pytest.raises(ValueError, match="no fused"):
+        fused_chains.fused_chains_run_chunk(*args)
+    assert len(calls) == 3
