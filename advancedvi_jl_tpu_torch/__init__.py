@@ -32,7 +32,13 @@ flows with ``FlowELBO``, and per-datapoint local latents
 algorithm-driven early stopping (``WithTermination``, ``elbo_at_least``),
 Pathfinder (``pathfinder``, ``multipath_pathfinder``) with the PSIS
 diagnostics (``pareto_khat``, ``importance_diagnostics``), host targets
-(``ExternalTarget``); and ``estimate_objective``.  Constructors that
+(``ExternalTarget``); ``estimate_objective``; the other transforms
+(``Softplus``, ``Sigmoid``, ``StickBreakingSimplex``, ``Ordered``,
+``TransformedDistribution``); model ingestion (``ppl``: ``ppl.sample``,
+``ppl.plate``, ``ppl.ingest``); checkpoints (``save_state``,
+``restore_state``), datasets streamed from host RAM (``HostDataLoader``,
+``PrefetchingLoader``, ``optimize_streamed``) and the progress line
+(``ProgressMeter``, ``optimize(show_progress=...)``).  Constructors that
 create tensors put them on the card unless the caller asks for the CPU.  Families and states are
 dataclasses of tensors; random draws are step-indexed Philox normals keyed
 by two uint32 seed words.  On CUDA tensors the draws, the triangular
@@ -60,7 +66,18 @@ from .core.problem import (
 )
 from .core.factorized import FactorizedTarget, factorized_target
 from .core.pytree import tree_stop_gradient
-from .core.transforms import Exp, Identity, Stacked, TransformedTarget, stacked
+from .core.transforms import (
+    Exp,
+    Identity,
+    Ordered,
+    Sigmoid,
+    Softplus,
+    Stacked,
+    StickBreakingSimplex,
+    TransformedDistribution,
+    TransformedTarget,
+    stacked,
+)
 from .families.base import Laplace, Normal, StudentT
 from .families.location_scale import (
     FullRankGaussian,
@@ -124,7 +141,10 @@ from .algorithms.measure_space import (
 from .algorithms.termination import WithTermination, elbo_at_least
 from .algorithms.pathfinder import PathfinderResult, multipath_pathfinder, pathfinder
 from .core.external import ExternalTarget
+from .utils.checkpoint import restore_state, save_state
+from .utils.data import HostDataLoader, PrefetchingLoader, optimize_streamed
 from .utils.diagnostics import importance_diagnostics, pareto_khat
+from .utils.progress import ProgressMeter
 from .optimize import DivergenceError, optimize
 from .estimate import estimate_objective
 from .ops.cuda.fused_advi import (  # whole-loop fused engines (CUDA)
@@ -143,5 +163,6 @@ from .ops.cuda.fused_advi import (  # whole-loop fused engines (CUDA)
     normallognormal_spec,
 )
 from .ops.cuda.fused_chains import FusedChainsADVI  # one launch for C chains (CUDA)
+from . import ppl  # the model-ingestion DSL
 
 __version__ = "0.6.0"

@@ -14,6 +14,7 @@ n_samples, d)`` noise.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Optional
 
 import numpy as np
@@ -393,3 +394,47 @@ def pathfinder_from_numpy(seed, prob, thetas, grads, history: int = 6,
     return pathfinder_from_trajectory(
         seed, prob, to_tensor(thetas, device), to_tensor(grads, device), history,
         n_elbo_samples, None if noise is None else to_tensor(noise, device))
+
+
+def paramspace_state_from_jax_checkpoint(path: str, template, seed=(0, 0)):
+    """The port's ParamSpaceSGDState from an ``.npz`` that the JAX package's
+    ``save_state`` wrote of a JAX ParamSpaceSGDState, leaf for leaf, on
+    ``template``'s structure and devices (``template``: the port
+    algorithm's ``init`` of the same family, target and optimizer).
+
+    Both states list prob, q, iteration, opt_state, obj_state and
+    avg_state in that order, and their leaves in the same order: the
+    target's and the family's tensors, then the counters (JAX keeps them as
+    0-dim arrays, the port as host integers).  The JAX key does not carry
+    over: the port's draws are keyed by ``seed``'s words (the parity tests
+    inject the JAX draws instead).  A file whose leaves do not match the
+    template's, in number or in size, raises ValueError."""
+    from .utils.checkpoint import rebuild
+
+    path = str(path) if str(path).endswith(".npz") else f"{path}.npz"
+    with np.load(path, allow_pickle=False) as f:
+        n = sum(1 for k in f.files if k.startswith(("leaf_", "key_")))
+        arrays = [f[f"leaf_{i}"] for i in range(n) if f"leaf_{i}" in f.files]
+    it = iter(enumerate(arrays))
+
+    def new_leaf(leaf):
+        i, arr = next(it, (None, None))
+        if arr is None:
+            raise ValueError(f"the checkpoint has {len(arrays)} leaves besides its key; the "
+                             "template has more")
+        if isinstance(leaf, torch.Tensor):
+            if arr.size != leaf.numel():
+                raise ValueError(f"leaf {i}: {arr.shape} in the checkpoint, "
+                                 f"{tuple(leaf.shape)} in the template")
+            return torch.from_numpy(np.array(arr)).reshape(leaf.shape).to(
+                device=leaf.device, dtype=leaf.dtype)
+        if arr.ndim != 0:
+            raise ValueError(f"leaf {i}: {arr.shape} in the checkpoint, a counter in the template")
+        return int(arr)
+
+    fields = {f.name: rebuild(getattr(template, f.name), new_leaf)
+              for f in dataclasses.fields(template) if f.name != "seed"}
+    if next(it, None) is not None:
+        raise ValueError(f"the checkpoint has {len(arrays)} leaves besides its key; the "
+                         "template has fewer")
+    return dataclasses.replace(template, **fields, seed=seed_words(seed))

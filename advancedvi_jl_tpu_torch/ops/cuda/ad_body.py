@@ -34,7 +34,8 @@ sum or a gather, is inlined into that consumer's expression; a pointwise
 node of at most REMAT_OPS ops (or of the constants alone) read by several
 is recomputed at each read (the same ops, so the same bits).  A node read
 through a view or by a product keeps its storage.  ``ones_like``,
-``new_zeros`` and ``scalar_tensor`` are literals, and pointwise nodes of
+``new_zeros`` and ``scalar_tensor`` are literals (so is ``_to_copy`` of a
+Python number, rewritten as its ``scalar_tensor``), and pointwise nodes of
 literals fold on the host with torch's own op.  ``mm`` and ``mv`` are one
 call of the block product (csrc/block_mm.cuh) with the operands' literal
 shapes and strides: register tiles, k split over lanes (``_tile``: the hand
@@ -123,11 +124,16 @@ def _fake_trace(fn: Callable, z: torch.Tensor) -> torch.fx.GraphModule:
     return make_fx(fn, tracing_mode="fake", _allow_non_fake_inputs=True)(z)
 
 
+# traces made by this process (utils/profiling.retrace_guard counts them)
+TRACES = [0]
+
+
 def trace(log_density: Callable, n: int, d: int, device) -> torch.fx.GraphModule:
     """The aten graph of ``z -> (grad, (sum, log pi))`` of ``log_density``
     at a float32 (n, d) block, its constants float32 or integer and
     contiguous.  Raises ValueError where ``make_fx`` cannot trace it
     (data-dependent control flow) or a constant is bool or complex."""
+    TRACES[0] += 1
 
     def summed(z):
         lp = log_density(z)
@@ -156,7 +162,30 @@ def trace(log_density: Callable, n: int, d: int, device) -> torch.fx.GraphModule
             changed = True
     if changed:  # float64 leaves cast, strided leaves copied: trace the graph again
         gm = _fake_trace(gm, z)
+    _literal_copies(gm)
     return gm
+
+
+def _literal_copies(gm: torch.fx.GraphModule) -> None:
+    """Rewrite ``_to_copy`` of a Python number as the ``scalar_tensor`` of
+    that number, the same value and dtype.  ``torch.func.vmap`` (the replay
+    of an ingested model, ppl/model.py) wraps each Python scalar that meets
+    a batched 0-dim value this way; the node is a literal."""
+    for node in list(gm.graph.nodes):
+        if node.op != "call_function" or node.target != aten._to_copy.default:
+            continue
+        if len(node.args) != 1 or not isinstance(node.args[0], (int, float)) \
+                or set(node.kwargs) - {"dtype", "layout", "device"}:
+            continue
+        val = node.meta["val"]
+        with gm.graph.inserting_before(node):
+            lit = gm.graph.call_function(
+                aten.scalar_tensor.default, (node.args[0],),
+                {"dtype": val.dtype, "layout": torch.strided, "device": val.device})
+        lit.meta.update(node.meta)
+        node.replace_all_uses_with(lit)
+        gm.graph.erase_node(node)
+    gm.recompile()
 
 
 def _constant_names(gm: torch.fx.GraphModule) -> List[str]:

@@ -21,6 +21,12 @@ With a ``callback`` the loop syncs every step and calls
 the keywords it declares; returning ``{"terminate": True}`` stops the run,
 as does the algorithm's own ``terminate``.
 Warm start: pass the returned ``state`` back as ``state=``.
+
+``show_progress`` / ``progress`` (a ``utils.progress.ProgressMeter``, which
+implies ``show_progress``): one updating line of the merged info.  The meter
+moves at each chunk's host read, so with no ``chunk_size`` (and no
+callback) a run of 40 steps or more is cut into about 20 chunks; it adds no
+wait for the device.  With a callback it moves every step.
 """
 
 from __future__ import annotations
@@ -46,6 +52,8 @@ def optimize(
     state: Optional[Any] = None,
     callback: Optional[Callable] = None,
     chunk_size: Optional[int] = None,
+    show_progress: bool = False,
+    progress: Optional[Any] = None,
     check_divergence: bool = True,
     log_every: int = 1,
 ):
@@ -58,11 +66,17 @@ def optimize(
     """
     if log_every < 1:
         raise ValueError(f"log_every must be >= 1, got {log_every}")
+    if show_progress and progress is None:
+        from .utils.progress import ProgressMeter
+
+        progress = ProgressMeter(max_iter)
+    if progress is not None and callback is None and chunk_size is None and max_iter >= 40:
+        chunk_size = -(-max_iter // 20)  # the meter moves once a chunk
     if state is None:
         state = algorithm.init(seed, q_init, prob)
     if callback is not None:
         return _callback_loop(
-            algorithm, max_iter, state, callback, check_divergence, log_every
+            algorithm, max_iter, state, callback, check_divergence, log_every, progress
         )
     infos: list = []
     chunk = chunk_size or max_iter
@@ -89,8 +103,12 @@ def optimize(
                 row["iteration"] = done + t + 1
                 infos.append(row)
         done += len(rows)
+        if progress is not None:
+            progress.update(min(done, max_iter), rows[-1], force=stop)
         if stop:
             break
+    if progress is not None:
+        progress.close()
     return algorithm.output(state), infos, state
 
 
@@ -137,7 +155,8 @@ def _accepted_kwargs(callback: Callable) -> Optional[set]:
     return set(sig.parameters)
 
 
-def _callback_loop(algorithm, max_iter, state, callback, check_divergence, log_every):
+def _callback_loop(algorithm, max_iter, state, callback, check_divergence, log_every,
+                   progress):
     accepted = _accepted_kwargs(callback)
 
     def wants(name: str) -> bool:
@@ -173,6 +192,10 @@ def _callback_loop(algorithm, max_iter, state, callback, check_divergence, log_e
         info["iteration"] = t + 1
         if (t + 1) % log_every == 0 or t + 1 == max_iter or stop:
             infos.append(info)
+        if progress is not None:
+            progress.update(t + 1, info, force=stop)
         if stop:
             break
+    if progress is not None:
+        progress.close()
     return algorithm.output(state), infos, state

@@ -32,7 +32,8 @@ Phases:
       word against host-int launches, bit for bit;
   (d) the fused kernel against its plain version with injected noise;
   (e) the fused kernel with in-kernel Philox: chunking, tracing, plain version;
-  (f) the general path on the card;  (g) the fused engine on the card;
+  (f) the general path on the card;  (g) the fused engine on the card, and beside
+      the general path on one key to 4,000 steps;
   (h) steps/s of both paths and each kernel's time beside its plain version
       (the sampler also by CUDA-graph replay, without the wrapper's host time,
       beside an empty kernel of its geometry: the launch floor; behind a
@@ -149,7 +150,18 @@ Phases:
       and the DReG and plain gradient means together, Student-t and
       Laplace ADVI (a resumed run bitwise the uninterrupted one), and the
       d = 1024, n = 256 dense Gaussian under each solve mode and layout
-      with ``tril_inverse``, K8 and trsm by graph replay.
+      with ``tril_inverse``, K8 and trsm by graph replay;
+  (ab) the other families: K7a at every shape they launch it, then,
+      counted, the mixtures, the block-diagonal family and the flows on the
+      flagship and the random-effects model on a global-local family;
+  (ac) model ingestion and the host utilities: K7a at every shape they
+      launch it and the ingested flagship's K5 body (built with (y)'s) against
+      its plain version, then, counted: the ingested flagship through
+      ``fused_spec_for`` and ``FusedADVI.optimize``, on the general path with
+      a ``ProgressMeter`` and a ``save_state`` (from its callback) /
+      ``restore_state`` resume bitwise the uninterrupted run, the ingested random effects in local
+      mode, and ``optimize_streamed`` on the 500,000 x 60 logreg from host
+      RAM; the ingested chunk's time beside the hand one.
 
 With ``--parent CHECKOUT`` (e.g. a ``git archive`` of the parent commit
 under the ignored ``_archive/``) it then times K8, K7b, K7a, the K9 probes,
@@ -166,9 +178,9 @@ there, never built or written in place.
 Every failed check raises and the script exits non-zero; it also exits
 non-zero without a CUDA device, or when the package is not beside it.  The
 line before the last is a JSON object of the kernels (launch counts from the
-main-path runs of (f), (g), (l), (o), (p), (s), (u), (w), (x), (y), (z) and
-(aa), errors, times, each time's bound on this card and, for K8, the
-library call's time); the last
+main-path runs of (f), (g), (l), (o), (p), (s), (u), (w), (x), (y), (z),
+(aa), (ab) and (ac), errors, times, each time's bound on this card and
+the library call's time where the line has one); the last
 line is ``{"ok": true, "device": {...}}``.  It imports no JAX.
 """
 
@@ -192,6 +204,10 @@ N_DATA, N_FEATURES, N_SAMPLES, LR, DATA_SEED = 208, 60, 10, 1e-3, 11
 SEED = 0
 FUSED_STEPS = 20_000
 GENERAL_STEPS = 2_000
+# (g): the general path warm-started on to here beside the fused engine on
+# the same key (the general path ran on to 20,000 before; cut to keep the run
+# inside its time target)
+AGREE_HORIZON = 4_000
 LOG_EVERY = 100
 TAIL_ROWS = 20  # ELBO at a horizon: mean of the last 20 logged rows
 SAMPLER_SHAPE = (65_536, 512)
@@ -630,20 +646,23 @@ def main_path(dev):
     t0 = time.perf_counter()
     q_f, infos_f, st_f = eng.optimize(SEED, FUSED_STEPS, q0, log_every=LOG_EVERY)
     t_fused = time.perf_counter() - t0
-    # the general path on to the same horizon, warm-started
-    _, infos_g2, st_g = avt.optimize(SEED, alg, FUSED_STEPS - GENERAL_STEPS, target,
+    # the general path on to AGREE_HORIZON, warm-started, beside the fused
+    # engine on the same key to the same horizon
+    _, infos_g2, st_g = avt.optimize(SEED, alg, AGREE_HORIZON - GENERAL_STEPS, target,
                                      None, state=st_g, log_every=LOG_EVERY)
+    q_a, infos_a, _ = eng.optimize(SEED, AGREE_HORIZON, q0, log_every=LOG_EVERY)
     torch.cuda.synchronize()
     counts = read_launches()
-    elbo_f, elbo_g = tail_elbo(infos_f), tail_elbo(infos_g2)
+    elbo_f, elbo_a, elbo_g = tail_elbo(infos_f), tail_elbo(infos_a), tail_elbo(infos_g2)
     check(all(math.isfinite(r["elbo"]) for r in infos_f), "fused ELBO not finite")
     say("g", steps=FUSED_STEPS, elbo_last=infos_f[-1]["elbo"], elbo_tail_mean=elbo_f,
+        agree_steps=AGREE_HORIZON, fused_elbo_tail_mean_at_agree=elbo_a,
         general_elbo_tail_mean=elbo_g, seconds=f"{t_fused:.2f}",
         fused_launches=counts["fused_advi_meanfield"])
     check(elbo_f > -150.0, f"fused ELBO {elbo_f} <= -150 (not converged)")
-    check(abs(elbo_f - elbo_g) <= 2.0, f"fused {elbo_f} vs general {elbo_g}: over 2.0 apart")
+    check(abs(elbo_a - elbo_g) <= 2.0, f"fused {elbo_a} vs general {elbo_g}: over 2.0 apart")
     check(counts["fused_advi_meanfield"] > 0, "the fused engine launched no kernel")
-    mu_err = max_err(q_f.location, st_g.avg_state[0].location)
+    mu_err = max_err(q_a.location, st_g.avg_state[0].location)
     say("g", averaged_location_max_abs_diff_vs_general=mu_err)
     return counts
 
@@ -750,6 +769,12 @@ def phase_h(dev, card):
     samp_host_us = host_us(sample)
     samp_after_op = after_op_ms(sample, lambda: loc.mul_(1.0))
     samp_plain = cuda_ms(lambda: meanfield_sample_reference(seed, 1, loc, sc, N_SAMPLES), 50)
+    # the library call of the same function: one torch.normal of the
+    # broadcast mean and sd (torch's Philox, not the kernel's stream).  Its
+    # check that sd >= 0 reads the card, which a CUDA graph cannot capture:
+    # CUDA events over back-to-back calls, each call's wait included
+    samp_lib = cuda_ms(lambda: torch.normal(loc.expand(N_SAMPLES, d), sc.expand(N_SAMPLES, d)),
+                       1000)
     args = flagship_chunk_args(dev)
     fk_ms = cuda_ms(lambda: fused_run_chunk_cuda(*args), 20)
     fr_ms = cuda_ms(lambda: fused_run_chunk_reference(*args), 1)
@@ -758,14 +783,15 @@ def phase_h(dev, card):
     # alone; behind an op, what the launch adds after a kernel that writes m
     (floor,) = launch_floor_ms([meanfield_geometry(N_SAMPLES, d)])
     say("h", meanfield_sample_ms=samp_ms, meanfield_sample_graph_ms=samp_graph,
-        meanfield_sample_plain_ms=samp_plain, shape=f"{N_SAMPLES}x{d}")
+        meanfield_sample_plain_ms=samp_plain, meanfield_sample_library_events_ms=samp_lib,
+        shape=f"{N_SAMPLES}x{d}")
     say("h", card=f"'{card}'", launch_floor_graph_ms=floor, meanfield_sample_graph_ms=samp_graph,
         meanfield_sample_over_floor=f"{samp_graph / floor:.3f}",
         meanfield_sample_host_us=f"{samp_host_us:.3f}",
         meanfield_sample_after_op_graph_ms=samp_after_op, shape=f"{N_SAMPLES}x{d}")
     say("h", fused_chunk_ms=fk_ms, fused_chunk_plain_ms=fr_ms, chunk_steps=args[6])
     mf_split("h", "flagship_hand", args, fk_ms)
-    return {"meanfield_sample": (samp_graph, samp_plain),
+    return {"meanfield_sample": (samp_graph, samp_plain, samp_lib),
             "fused_advi_meanfield": (fk_ms, fr_ms)}
 
 
@@ -2334,7 +2360,11 @@ def phase_s(dev):
             graph_ms=graph[i], floor_graph_ms=floors[i],
             over_floor=f"{graph[i] / floors[i]:.3f}",
             host_us=f"{host_us(lambda: probe_cuda(i, x, device=dev)):.3f}")
-    say("s", probes_events_ms=ms, probes_graph_ms=sum(graph.values()), probes_plain_ms=plain_ms)
+    # probe 1's library call: torch.sum of its (128, 128) input (the probe
+    # sums it 8 rows a step); the four probes together have none
+    lib1 = graph_ms(lambda: torch.sum(inputs[1]), 200)
+    say("s", probes_events_ms=ms, probes_graph_ms=sum(graph.values()), probes_plain_ms=plain_ms,
+        probe1_graph_ms=graph[1], probe1_library_sum_graph_ms=lib1)
     # bytes: the two inputs read and the four outputs written, once each
     nbytes = 4.0 * (128 * 128 + 24 * 128 + 128 + 16 * 128 + 8 * 128 + 128)
     return {"launches": launches, "max_abs_err": err, "ms": sum(graph.values()),
@@ -3204,13 +3234,14 @@ def ad_cases(dev):
             "quartic": quartic_spec(dev)}
 
 
-def ad_build(dev, cases):
+def ad_build(dev, cases, extra=()):
     """Every generated library phase (y) runs, one nvcc each, all started
-    together: each K5 program's loops, barriers, block products and whether
-    its constants are staged in shared memory (per family: the engines'
-    ad_program), nvcc seconds, registers and spills; the Python layout of
-    each kernel's shared memory equal to the kernel's own.  Returns each
-    target's program per family."""
+    together, and those of ``extra`` ((kernel, program) pairs: (ac)'s
+    ingested flagship) with them: each K5 program's loops, barriers, block
+    products and whether its constants are staged in shared memory (per
+    family: the engines' ad_program), nvcc seconds, registers and spills;
+    the Python layout of each kernel's shared memory equal to the kernel's
+    own.  Returns each target's program per family."""
     import ctypes
 
     from advancedvi_jl_tpu_torch.ops.cuda import _build
@@ -3224,8 +3255,14 @@ def ad_build(dev, cases):
                ("fused_advi_fullrank", "fullrank", 4))
     t0 = time.perf_counter()
     paths = _build.build_generated_all([(k, progs[name][fam].source) for name in progs
-                                        for k, fam, _ in kernels])
+                                        for k, fam, _ in kernels]
+                                       + [(k, prog.source) for k, prog in extra])
     say("y", libraries=len(paths), build_s=f"{time.perf_counter() - t0:.2f}")
+    for kern, prog in extra:
+        path = paths[(kern, prog.source)]
+        say("y", extra=kern, d=prog.d, graph_nodes=len(prog.gm.graph.nodes), loops=prog.loops,
+            barriers=prog.barriers, staged=prog.staged, lib=path.name,
+            nvcc_s=f"{_build.BUILD_SECONDS.get(path, 0.0):.2f}")
     for name, by_family in progs.items():
         for family, prog in by_family.items():
             say("y", target=name, family=family, d=prog.d, graph_nodes=len(prog.gm.graph.nodes),
@@ -3500,10 +3537,18 @@ def rng_checks(dev):
 
 
 def phase_y(dev, card):
-    """K5: build, hold against the plain version and the hand body, the
-    counted main path, the times; then the RNG checks."""
+    """K5: build (with (ac)'s ingested flagship), hold against the plain
+    version and the hand body, the counted main path, the times; then the
+    RNG checks.  Returns also (ac)'s ingested model, its spec and its
+    mean-field program."""
+    import advancedvi_jl_tpu_torch as avt
+    from advancedvi_jl_tpu_torch.ops.cuda.fused_advi import ad_program
+
     cases = ad_cases(dev)
-    progs = ad_build(dev, cases)
+    m = ingested_flagship(dev)
+    ing_spec = avt.fused_spec_for(m.target)
+    ing_prog = ad_program(ing_spec, N_SAMPLES, "meanfield", 8)
+    progs = ad_build(dev, cases, extra=[("fused_advi_meanfield", ing_prog)])
     err = 0.0
     for name, spec in cases.items():
         for family in ("meanfield", "fullrank"):
@@ -3519,7 +3564,7 @@ def phase_y(dev, card):
     # the design, labels and state in and out
     flops = 2.0 * 200 * prog.madds
     nbytes = 4.0 * (prog.consts[0].numel() + 16 * prog.d)
-    return counts["k5_ad"], err, ms, plain_ms, bound(flops, nbytes)
+    return counts["k5_ad"], err, ms, plain_ms, bound(flops, nbytes), (m, ing_spec, ing_prog)
 
 
 # ---------------------------------------------------------------------------
@@ -4503,6 +4548,311 @@ def phase_ab(dev, card):
     return counts, err
 
 
+# ---------------------------------------------------------------------------
+# Model ingestion and the host utilities: ppl, checkpoints, streamed data,
+# the progress line
+# ---------------------------------------------------------------------------
+
+AC_FUSED_STEPS = 20_000           # the ingested flagship through K5, as (g) and (y)
+AC_GENERAL_STEPS, AC_SAVE_AT = 2_000, 1_000
+AC_LOG_EVERY = 10                 # the first and last 20 rows are the bars
+AC_STREAM_STEPS = 1_000
+# every K7a shape (ac)'s counted runs launch: the ingested flagship, the
+# random effects' global and local parts, the streamed logreg (60 features
+# and sigma)
+AC_K7A_SHAPES = [(N_SAMPLES, D62), (AB_RE_DRAWS, 1), (AB_RE_DRAWS, AB_RE_B),
+                 (N_SAMPLES, STREAM_P + 1)]
+
+
+def ingested_flagship(dev):
+    """tests/test_ppl.py:27's hierarchical logistic regression written with
+    ``ppl.sample`` / ``ppl.plate`` and ingested on the flagship's 208 x 61
+    design (d = 62: sigma under Softplus, then the 61 weights)."""
+    from advancedvi_jl_tpu_torch import ppl
+
+    def model(data):
+        X = data["X"]
+        sigma = ppl.sample("sigma", ppl.LogNormal(0.0, 3.0))
+        beta = ppl.sample("beta", ppl.Normal(X.new_zeros(X.shape[1]), sigma))
+        with ppl.plate("obs", X.shape[0]):
+            ppl.sample("y", ppl.Bernoulli(logits=X @ beta), obs=data["y"])
+
+    prob = flagship(dev)
+    return ppl.ingest(model, data={"X": prob.X, "y": prob.y}, device=dev)
+
+
+def ingested_random_effects(dev):
+    """tests/test_ppl_local.py's random-effects model, ingested at (ab)'s
+    size on (ab)'s data: local mode, a GlobalLocalFamily."""
+    from advancedvi_jl_tpu_torch import ppl
+
+    target, mean, prec = random_effects(dev)
+
+    def model(data):
+        mu = ppl.sample("mu", ppl.Normal(0.0, AB_RE_S0))
+        with ppl.plate("obs", AB_RE_N):
+            z = ppl.sample("z", ppl.Normal(mu, AB_RE_SZ))
+            ppl.sample("y", ppl.Normal(z, AB_RE_SY), obs=data["y"])
+
+    return ppl.ingest(model, data={"y": target.data["y"]}, device=dev), mean, prec
+
+
+def ac_kernels(dev):
+    """(ac) K7a at every shape (ac)'s runs launch it against its plain
+    version (u bitwise, z within (c)'s bound).  Returns the largest z error."""
+    from advancedvi_jl_tpu_torch.ops.cuda.location_scale_kernels import (
+        meanfield_sample_cuda, meanfield_sample_reference, seed_words,
+    )
+
+    seed = seed_words(SEED)
+    worst = 0.0
+    for n, d in AC_K7A_SHAPES:
+        g = torch.Generator().manual_seed(n * 104729 + d)
+        loc = torch.randn(d, generator=g).to(dev)
+        scale = (0.5 + torch.rand(d, generator=g)).to(dev)
+        z, u = meanfield_sample_cuda(seed, 7, loc, scale, n)
+        zr, ur = meanfield_sample_reference(seed, 7, loc, scale, n)
+        torch.cuda.synchronize()
+        z_err = max_err(z, zr)
+        say("ac", k7a_shape=f"{n}x{d}", u_bitwise=bool(torch.equal(u, ur)),
+            z_bitwise=bool(torch.equal(z, zr)), z_max_abs_err=z_err)
+        check(bool(torch.equal(u, ur)), f"(ac) K7a u at {n}x{d} is not the plain version's")
+        check(z_err <= 1e-6 * (1.0 + float(zr.abs().max())), f"(ac) K7a z at {n}x{d}: {z_err}")
+        worst = max(worst, z_err)
+    return worst
+
+
+def ac_fused(dev, tally, m, prog):
+    """(ac) The ingested flagship through ``fused_spec_for`` (-> ad_spec, K5)
+    and ``FusedADVI.optimize``: 20,000 steps mean-field, 10 draws,
+    Adam(1e-3), ClipScale; the tail ELBO above -150 and within 2.0 of
+    FusedLogRegADVI's on the same key, the engine's body the one (ac) held
+    against its plain version."""
+    import advancedvi_jl_tpu_torch as avt
+
+    prob = flagship(dev)
+    q0 = m.q_init()
+    hand = avt.FusedLogRegADVI(prob.X, prob.y, n_samples=N_SAMPLES, lr=LR)
+    _, rows_h, _ = hand.optimize(SEED, AC_FUSED_STEPS, q0, log_every=LOG_EVERY)
+    torch.cuda.synchronize()
+    with tally.run():
+        t0 = time.perf_counter()
+        spec = avt.fused_spec_for(m.target)
+        eng = avt.FusedADVI(spec, n_samples=N_SAMPLES, lr=LR)
+        _, rows, _ = eng.optimize(SEED, AC_FUSED_STEPS, q0, log_every=LOG_EVERY)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    tail, tail_h = tail_elbo(rows), tail_elbo(rows_h)
+    say("ac", path="ppl.ingest -> fused_spec_for -> FusedADVI", model=spec.model,
+        steps=AC_FUSED_STEPS, elbo_tail_mean=tail, hand_elbo_tail_mean=tail_h,
+        seconds=f"{secs:.2f}")
+    check(spec.model == "ad", f"fused_spec_for(ingested) gave {spec.model!r}, not 'ad'")
+    check(eng.ad.digest == prog.digest,
+          "the ingested engine's body is not the one (ac) checked")
+    check(all(math.isfinite(r["elbo"]) for r in rows), "(ac) the ingested fused ELBO")
+    check(tail > -150.0, f"(ac) the ingested fused tail ELBO {tail} <= -150")
+    check(abs(tail - tail_h) <= 2.0, f"(ac) ingested {tail} vs hand {tail_h}: over 2.0 apart")
+
+
+def ac_general(dev, tally, m):
+    """(ac) The ingested flagship on the general path: KLMinRepGradDescent
+    (STL, 10 draws, Adam(1e-3), ClipScale) through ``optimize`` with a
+    ProgressMeter, 2,000 steps, its callback writing the state at step
+    1,000 with ``save_state``; that state restored onto a fresh template
+    with ``restore_state`` and run on to 2,000: its state, output and rows
+    bitwise the uninterrupted run's.  Every row finite and the last 20
+    rows' mean above the first 20's.  Returns steps/s of the uninterrupted
+    run."""
+    import io
+
+    import advancedvi_jl_tpu_torch as avt
+
+    alg = avt.KLMinRepGradDescent(entropy=avt.STL, n_samples=N_SAMPLES,
+                                  optimizer=avt.adam(LR), operator=avt.ClipScale())
+    q0 = m.q_init()
+    stream = io.StringIO()
+    path = ROOT / "build" / "ac_checkpoint.npz"
+
+    def checkpoint(iteration, state):
+        if iteration == AC_SAVE_AT:
+            avt.save_state(str(path), state)
+
+    with tally.run():
+        t0 = time.perf_counter()
+        out, rows, st = avt.optimize(SEED, alg, AC_GENERAL_STEPS, m.target, q0,
+                                     callback=checkpoint,
+                                     progress=avt.ProgressMeter(AC_GENERAL_STEPS, stream=stream),
+                                     log_every=AC_LOG_EVERY)
+        torch.cuda.synchronize()
+        rate = AC_GENERAL_STEPS / (time.perf_counter() - t0)
+        restored = avt.restore_state(str(path), alg.init(SEED, q0, m.target))
+        out2, rows2, st2 = avt.optimize(SEED, alg, AC_GENERAL_STEPS - AC_SAVE_AT, None, None,
+                                        state=restored, log_every=AC_LOG_EVERY)
+        torch.cuda.synchronize()
+    same = all(torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
+               for a, b in zip(avt.utils.checkpoint.state_leaves(st2),
+                               avt.utils.checkpoint.state_leaves(st)))
+    same = same and torch.equal(out.location, out2.location) and torch.equal(
+        out.scale_diag, out2.scale_diag)
+    same_rows = [r["elbo"] for r in rows2] == [r["elbo"] for r in rows[len(rows) - len(rows2):]]
+    elbos = [r["elbo"] for r in rows]
+    head, tail = sum(elbos[:TAIL_ROWS]) / TAIL_ROWS, sum(elbos[-TAIL_ROWS:]) / TAIL_ROWS
+    text = stream.getvalue()
+    say("ac", path="ppl.ingest -> optimize(progress=)", steps=AC_GENERAL_STEPS, head_elbo=head,
+        tail_elbo=tail, steps_per_s=f"{rate:.1f}", progress_updates=text.count("\r"),
+        checkpoint_leaves=len(avt.utils.checkpoint.state_leaves(restored)),
+        checkpoint_bytes=path.stat().st_size, resumed_bitwise=same, resumed_rows_equal=same_rows)
+    check(all(math.isfinite(e) for e in elbos), "(ac) an ingested general ELBO row is not finite")
+    check(tail > head, f"(ac) the ingested general tail {tail} is not above the head {head}")
+    check(same and same_rows, "(ac) the restored run is not the uninterrupted one bit for bit")
+    check(f"{AC_GENERAL_STEPS}/{AC_GENERAL_STEPS}" in text and text.endswith("\n"),
+          "(ac) the progress line did not reach the end")
+    return rate
+
+
+def ac_local(dev, tally):
+    """(ac) The random-effects model through ``ppl.ingest`` in local mode at
+    (ab)'s size: q_init() a GlobalLocalFamily, B = 512, 16 draws,
+    Adam(2e-2), ClipScale, 6,000 steps; (ab)'s bars.  Returns steps/s."""
+    import numpy as np
+
+    import advancedvi_jl_tpu_torch as avt
+
+    m, mean, prec = ingested_random_effects(dev)
+    q0 = m.q_init()
+    check(isinstance(q0, avt.GlobalLocalFamily), f"(ac) q_init() is {type(q0).__name__}")
+    alg = avt.KLMinRepGradDescent(entropy=avt.STL, n_samples=AB_RE_DRAWS,
+                                  optimizer=avt.adam(AB_RE_LR), operator=avt.ClipScale(),
+                                  subsampling=avt.ReshufflingBatchSubsampling(AB_RE_N, AB_RE_B))
+    q, rows, rate = ab_run(alg, AB_RE_STEPS, m.target, q0, tally, AB_RE_LOG_EVERY)
+    got_mean = torch.cat([q.global_q.location, q.local_q.location[:, 0]]).double().cpu().numpy()
+    got_sd = torch.cat([q.global_q.scale_diag,
+                        q.local_q.scale_diag[:, 0]]).double().cpu().numpy()
+    mean_err = float(np.abs(got_mean - mean).max())
+    sd_rel = float(np.abs(got_sd[1:] * np.sqrt(prec[1:]) - 1.0).max())
+    say("ac", path="ppl.ingest local mode", random_effects=f"N{AB_RE_N}_B{AB_RE_B}",
+        steps=AB_RE_STEPS, elbo_last=rows[-1]["elbo"], mean_max_abs_err=mean_err,
+        local_sd_max_rel_err=sd_rel, steps_per_s=f"{rate:.1f}")
+    check(all(math.isfinite(r["elbo"]) for r in rows), "(ac) ingested random effects: ELBO")
+    check(mean_err <= 0.08, f"(ac) ingested random effects: a mean is {mean_err} off")
+    check(sd_rel <= 0.2, f"(ac) ingested random effects: a local sd is off by rtol {sd_rel}")
+    return rate
+
+
+class _Recording:
+    """A loader that keeps the indices of every batch it hands on."""
+
+    def __init__(self, loader):
+        self.loader, self.indices = loader, []
+
+    def next_batch(self):
+        Xb, yb, idx = self.loader.next_batch()
+        self.indices.append(idx)
+        return Xb, yb, idx
+
+
+def ac_streamed(dev, tally):
+    """(ac) ``optimize_streamed`` on (u)'s 500,000 x 60 logreg held in host
+    RAM: PrefetchingLoader(HostDataLoader(X, y, 512)), the batches through
+    pinned buffers, KLMinRepGradDescent (STL, 10 draws, Adam(1e-3),
+    ClipScale), 1,000 steps.  The loader's first epoch is
+    fill_permutation(seed); the last 20 rows' mean above the first 20's.
+    Returns steps/s by the host clock."""
+    import dataclasses
+
+    import numpy as np
+
+    import advancedvi_jl_tpu_torch as avt
+    from advancedvi_jl_tpu_torch.models.logreg import LogReg
+
+    X, y = streamed_data(dev)
+    Xh, yh = X.cpu().numpy(), y.cpu().numpy()
+    n, b = STREAM_N, MB_B
+    template = LogReg(X=X[:b].clone(), y=y[:b].clone(),
+                      likeadj=torch.tensor(n / b, device=dev)).unconstrained()
+
+    def place(p, Xb, yb):
+        return dataclasses.replace(p, prob=dataclasses.replace(p.prob, X=Xb, y=yb[:, 0]))
+
+    alg = avt.KLMinRepGradDescent(entropy=avt.STL, n_samples=N_SAMPLES,
+                                  optimizer=avt.adam(LR), operator=avt.ClipScale())
+    q0 = avt.MeanFieldGaussian(torch.zeros(STREAM_P + 1, device=dev),
+                               0.1 * torch.ones(STREAM_P + 1, device=dev))
+    loader = _Recording(avt.PrefetchingLoader(avt.HostDataLoader(Xh, yh, b, seed=SEED)))
+    torch.cuda.synchronize()
+    try:
+        with tally.run():
+            t0 = time.perf_counter()
+            _, rows, _ = avt.optimize_streamed(SEED, alg, AC_STREAM_STEPS, template, place,
+                                               loader, q0)
+            torch.cuda.synchronize()
+            rate = AC_STREAM_STEPS / (time.perf_counter() - t0)
+    finally:
+        loader.loader.close()
+    nb = n // b
+    epoch = np.concatenate(loader.indices[:nb])
+    first_epoch = bool(np.array_equal(epoch, avt.utils.data.fill_permutation(SEED, n)[:nb * b]))
+    elbos = [r["elbo"] for r in rows]
+    head, tail = sum(elbos[:TAIL_ROWS]) / TAIL_ROWS, sum(elbos[-TAIL_ROWS:]) / TAIL_ROWS
+    say("ac", path="optimize_streamed", n=n, batch=b, steps=AC_STREAM_STEPS,
+        native=avt.utils.data.native_available(), first_epoch_is_fill_permutation=first_epoch,
+        head_elbo=head, tail_elbo=tail, steps_per_s=f"{rate:.1f}")
+    check(first_epoch, "(ac) the loader's first epoch is not fill_permutation(seed)")
+    check(all(math.isfinite(e) for e in elbos), "(ac) a streamed ELBO row is not finite")
+    check(tail > head, f"(ac) the streamed tail {tail} is not above the head {head}")
+    return rate
+
+
+def phase_ac(dev, card, ingested):
+    """(ac) Model ingestion and the host utilities: K7a at every shape they
+    launch it and K5's ingested body against its plain version, then the
+    main path, counted (``Tally``): the ingested flagship fused on K5 and on
+    the general path (progress line, checkpoint and resume), the ingested
+    random effects in local mode, and a dataset streamed from host RAM.
+    Returns (launches a kernel, K7a's largest z error, K5's error)."""
+    m, spec, prog = ingested
+    k7a_err = ac_kernels(dev)
+    k5_err = ad_compare(dev, "ingested", spec, {"meanfield": prog}, "meanfield")
+    tally = Tally()
+    ac_fused(dev, tally, m, prog)
+    rates = {"general": ac_general(dev, tally, m), "local": ac_local(dev, tally),
+             "streamed": ac_streamed(dev, tally)}
+    counts, seen = tally.counts, tally.shapes["meanfield_sample"]
+    say("ac", meanfield_sample_launches=counts["meanfield_sample"],
+        meanfield_sample_shapes=",".join("x".join(map(str, s)) for s in sorted(seen)),
+        k5_launches=counts["k5_ad"], fused_meanfield_launches=counts["fused_advi_meanfield"],
+        **{f"steps_per_s_{k}": f"{v:.1f}" for k, v in rates.items()}, card=f"'{card}'")
+    missing = sorted(seen - set(AC_K7A_SHAPES))
+    check(not missing, f"(ac) K7a launched at {missing}, which no check covers")
+    check(counts["meanfield_sample"] > 0, "(ac) the path launched no meanfield_sample kernel")
+    check(counts["k5_ad"] > 0, "(ac) the path launched no K5 body")
+    others = {k: v for k, v in counts.items()
+              if v and k not in ("meanfield_sample", "fused_advi_meanfield", "k5_ad")}
+    check(not others, f"(ac) the path launched {others}, which (ac) does not check")
+    check(counts["fused_advi_meanfield"] == counts["k5_ad"],
+          "(ac) a fused launch without the ingested body")
+    ac_chunk_times(dev, card, prog)
+    return counts, k7a_err, k5_err
+
+
+def ac_chunk_times(dev, card, prog):
+    """(ac) The ingested body's 200-step chunk beside the hand logreg chunk
+    of (h) on the same state and key, in turns (CUDA events)."""
+    from advancedvi_jl_tpu_torch.ops.cuda import fused_advi as fa
+
+    hand_args = flagship_chunk_args(dev)
+    ad_args = ("ad", prog.consts, ()) + hand_args[3:]
+    ing_ms, hand_ms = [], []
+    for _ in range(2):
+        hand_ms.append(cuda_ms(lambda: fa.fused_run_chunk_cuda(*hand_args), 20))
+        ing_ms.append(cuda_ms(lambda: fa.fused_run_chunk_cuda(*ad_args, ad=prog), 20))
+    say("ac", card=f"'{card}'", chunk_steps=200, ingested_loops=prog.loops,
+        ingested_barriers=prog.barriers, ingested_staged=prog.staged,
+        ingested_chunk_ms=",".join(f"{t:.4f}" for t in ing_ms),
+        hand_chunk_ms=",".join(f"{t:.4f}" for t in hand_ms),
+        ratio=f"{min(ing_ms) / min(hand_ms):.3f}")
+
+
 def main() -> int:
     parent = None  # --parent DIR: the A/B of the chunks against that checkout
     argv = sys.argv[1:]
@@ -4558,7 +4908,7 @@ def main() -> int:
     lap("w")
     lowrank_counts, lowrank_err, lowrank_times, issue = phase_x(dev, card)
     lap("x")
-    k5_launches, k5_err, k5_ms, k5_plain_ms, k5_bound = phase_y(dev, card)
+    k5_launches, k5_err, k5_ms, k5_plain_ms, k5_bound, ingested = phase_y(dev, card)
     lap("y")
     ms_launches, ms_samp_err = phase_z(dev, card, fr_ref)
     lap("z")
@@ -4566,6 +4916,8 @@ def main() -> int:
     lap("aa")
     ab_counts, ab_err = phase_ab(dev, card)
     lap("ab")
+    ac_counts, ac_k7a_err, ac_k5_err = phase_ac(dev, card, ingested)
+    lap("ac")
     if parent is not None:
         ab_parent(parent)
         lap("parent")
@@ -4585,8 +4937,9 @@ def main() -> int:
         entry("meanfield_sample", "meanfield_sample.cu",
               "advancedvi_jl_tpu/ops/pallas/location_scale_kernels.py:72",
               counts["meanfield_sample"] + aa_counts["meanfield_sample"]
-              + ab_counts["meanfield_sample"],
-              max(samp_err, aa_err["meanfield_sample"], ab_err), *times["meanfield_sample"]),
+              + ab_counts["meanfield_sample"] + ac_counts["meanfield_sample"],
+              max(samp_err, aa_err["meanfield_sample"], ab_err, ac_k7a_err),
+              *times["meanfield_sample"]),
         entry("fused_advi_meanfield", "fused_advi_meanfield.cu", f"{fused}672",
               counts["fused_advi_meanfield"], fused_err, *times["fused_advi_meanfield"]),
         # the general full-rank path of (l), the measure-space path of (z) and (aa)'s
@@ -4644,8 +4997,8 @@ def main() -> int:
                          lowrank_counts["lowrank_sample"] + aa_counts["lowrank_sample"],
                          max(lowrank_err, aa_err["lowrank_sample"]), ms, plain_ms,
                          bound_=(b_ms, b_by)))
-    k5 = entry("fused_k5_ad", "", f"{fused}1504", k5_launches, k5_err, k5_ms, k5_plain_ms,
-               bound_=k5_bound)
+    k5 = entry("fused_k5_ad", "", f"{fused}1504", k5_launches + ac_counts["k5_ad"],
+               max(k5_err, ac_k5_err), k5_ms, k5_plain_ms, bound_=k5_bound)
     k5["source"] = "advancedvi_jl_tpu_torch/ops/cuda/ad_body.py"  # emits the CUDA body
     kernels.append(k5)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -69,7 +69,10 @@ def test_package_exports_the_slice():
                  "MixtureMeanField", "MixtureFullRank", "mixture_meanfield", "mixture_fullrank",
                  "MixtureELBO", "PlanarFlowFamily", "RadialFlowFamily", "CouplingFlowFamily",
                  "planar_flow", "radial_flow", "coupling_flow", "FlowELBO",
-                 "PerDatapointMeanField", "per_datapoint_meanfield", "GlobalLocalFamily"):
+                 "PerDatapointMeanField", "per_datapoint_meanfield", "GlobalLocalFamily",
+                 "Softplus", "Sigmoid", "StickBreakingSimplex", "Ordered",
+                 "TransformedDistribution", "save_state", "restore_state", "HostDataLoader",
+                 "PrefetchingLoader", "optimize_streamed", "ProgressMeter", "ppl"):
         assert hasattr(advancedvi_jl_tpu_torch, name), name
     assert not _build._libs, "importing the package must not build or load kernels"
 
@@ -222,7 +225,8 @@ def test_port_modules_load_no_jax_and_build_nothing():
                 "algorithms.termination", "algorithms.pathfinder", "core.external",
                 "utils.diagnostics", "ops.base_draws", "ops.packing", "ops.trinv",
                 "objectives.iwelbo", "families.blockdiag", "families.mixture",
-                "families.flows", "families.local"):
+                "families.flows", "families.local", "ppl.model", "ppl.dists",
+                "utils.checkpoint", "utils.data", "utils.progress", "utils.profiling"):
         assert f"advancedvi_jl_tpu_torch.{new}" in mods, new
     code = (
         "import importlib, sys\n"
@@ -259,6 +263,7 @@ def test_port_modules_load_no_jax_and_build_nothing():
     ("families.mixture", "mixture_meanfield"), ("families.mixture", "mixture_fullrank"),
     ("families.flows", "planar_flow"), ("families.flows", "radial_flow"),
     ("families.flows", "coupling_flow"), ("families.local", "per_datapoint_meanfield"),
+    ("ppl.model", "ingest"), ("ppl.model", "prior_predictive"), ("ppl.model", "Model"),
 ])
 def test_constructors_default_to_the_card(module, name):
     """Every constructor that creates tensors puts them on the card unless
@@ -282,9 +287,8 @@ def test_default_device_is_not_the_cpu_without_a_card():
 
 
 # The keywords the port lacks or only refuses (ROADMAP Queue 3): optimize's
-# unroll= (a lax.scan argument), show_progress= and progress= (item 16),
-# mesh= and data_axis= (item 17).
-_JAX_ONLY = ("unroll", "show_progress", "progress", "mesh", "data_axis")
+# unroll= (a lax.scan argument), mesh= and data_axis= (item 17).
+_JAX_ONLY = ("unroll", "mesh", "data_axis")
 # A different object by design (the port's spec names its model), and an
 # argument name.
 _NOT_COMPARED = ("FusedModelSpec", "tree_stop_gradient")
@@ -334,6 +338,75 @@ def test_shared_callables_take_the_jax_parameters_in_order():
         assert _port_names(tsig.parameters) == _jax_names(jsig.parameters), name
         checked += 1
     assert checked >= 80
+
+
+@pytest.mark.parametrize("module", ["ppl", "ppl.dists", "ppl.model", "utils.checkpoint",
+                                    "utils.data", "utils.progress", "utils.profiling",
+                                    "utils.diagnostics"])
+def test_ppl_and_utils_callables_take_the_jax_parameters_in_order(module):
+    """The public callables of ppl and utils that both packages have (the
+    distributions' fields, ingest, prior_predictive, the loaders, the
+    checkpoint and profiling functions) take JAX's parameters in JAX's
+    order, with the exceptions of the package-wide check."""
+    jmod = importlib.import_module(f"advancedvi_jl_tpu.{module}")
+    tmod = importlib.import_module(f"advancedvi_jl_tpu_torch.{module}")
+    jax_api, port_api = _public_callables(jmod), _public_callables(tmod)
+    checked = 0
+    for name in sorted(set(jax_api) & set(port_api)):
+        try:
+            jsig = inspect.signature(jax_api[name])
+            tsig = inspect.signature(port_api[name])
+        except (TypeError, ValueError):
+            continue
+        if name in ("Any", "Callable", "Dict", "List", "Optional", "Tuple"):
+            continue
+        assert _port_names(tsig.parameters) == _jax_names(jsig.parameters), (module, name)
+        checked += 1
+    assert checked >= {"ppl": 20, "ppl.dists": 14}.get(module, 1), checked
+
+
+def test_optimize_takes_show_progress_and_progress_in_jax_positions():
+    import advancedvi_jl_tpu as jax_package
+
+    jnames = [p for p in inspect.signature(jax_package.optimize).parameters if p not in _JAX_ONLY]
+    tnames = list(inspect.signature(advancedvi_jl_tpu_torch.optimize).parameters)
+    assert tnames == ["seed"] + jnames[1:]
+    assert tnames.index("progress") == tnames.index("show_progress") + 1 == \
+        tnames.index("chunk_size") + 2
+
+
+def test_the_reshuffle_library_is_the_ports_own(tmp_path):
+    """The port builds its own copy of the reshuffle engine into the build
+    directory it is handed; nothing under advancedvi_jl_tpu/ is read or
+    written (the tree's names, sizes and times are unchanged) and the port's
+    data module names no file of the JAX package."""
+    from advancedvi_jl_tpu_torch.utils import data
+
+    jax_tree = ROOT / "advancedvi_jl_tpu"
+
+    def snapshot():
+        return {str(p): (p.stat().st_size, p.stat().st_mtime_ns)
+                for p in jax_tree.rglob("*") if "__pycache__" not in p.parts}
+
+    before = snapshot()
+    code = (
+        "import sys\n"
+        "from pathlib import Path\n"
+        "from advancedvi_jl_tpu_torch.utils import data\n"
+        f"data.BUILD_DIR = Path({str(tmp_path / 'native')!r})\n"
+        "assert data.native_available()\n"
+        "assert data.fill_permutation(7, 10).tolist() != list(range(10))\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'advancedvi_jl_tpu')]\n"
+        "assert not bad, bad\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert [p.name for p in (tmp_path / "native").iterdir()] == [data.library_path().name]
+    assert snapshot() == before
+    assert data.SOURCE.parent == PORT / "csrc"
+    assert "advancedvi_jl_tpu/" not in (PORT / "utils" / "data.py").read_text()
 
 
 def test_jax_positional_calls_mean_the_same():
