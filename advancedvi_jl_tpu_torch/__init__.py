@@ -38,7 +38,9 @@ diagnostics (``pareto_khat``, ``importance_diagnostics``), host targets
 ``ppl.plate``, ``ppl.ingest``); checkpoints (``save_state``,
 ``restore_state``), datasets streamed from host RAM (``HostDataLoader``,
 ``PrefetchingLoader``, ``optimize_streamed``) and the progress line
-(``ProgressMeter``, ``optimize(show_progress=...)``).  Constructors that
+(``ProgressMeter``, ``optimize(show_progress=...)``); the device mesh
+(``make_vi_mesh`` over ``torch.distributed``, ``MC_AXIS``, ``DATA_AXIS``,
+``optimize(mesh=...)``, ``FusedChainsADVI.run_sharded``).  Constructors that
 create tensors put them on the card unless the caller asks for the CPU.  Families and states are
 dataclasses of tensors; random draws are step-indexed Philox normals keyed
 by two uint32 seed words.  On CUDA tensors the draws, the triangular
@@ -146,6 +148,7 @@ from .utils.data import HostDataLoader, PrefetchingLoader, optimize_streamed
 from .utils.diagnostics import importance_diagnostics, pareto_khat
 from .utils.progress import ProgressMeter
 from .optimize import DivergenceError, optimize
+from .parallel.mesh import DATA_AXIS, MC_AXIS, make_vi_mesh
 from .estimate import estimate_objective
 from .ops.cuda.fused_advi import (  # whole-loop fused engines (CUDA)
     FusedADVI,

@@ -8,6 +8,11 @@ algorithms/gauss_expected.py; reference gauss_expected_grad_hess.jl:20-80).
   solve to XLA).
 - **Order-2 path**: the mean of the batched exact Hessians
   (``log_density_grad_and_hess``).
+
+Under a device mesh with ``mc_axis`` each rank draws its rows; the three
+means become its rows' means weighted by rows / n, summed over the axis
+and averaged over the others (``reduce_shares``: a data axis's blocks),
+and the solve runs on every rank.
 """
 
 from __future__ import annotations
@@ -23,8 +28,9 @@ from ..core.problem import (
     log_density_grad_and_hess,
     order_of,
 )
-from ..families.location_scale import FullRankLocationScale, check_mc_axis  # noqa: F401
+from ..families.location_scale import FullRankLocationScale
 from ..objectives.repgradelbo import draw_with_base
+from ..parallel.mesh import mc_rows, reduce_shares
 
 
 def check_capability_at_least_grad(prob: Any, alg_name: str) -> None:
@@ -52,8 +58,8 @@ def gaussian_expected_grad_hess(
     Hessians otherwise), ``"stein"`` (the Stein estimator for any target)
     or ``"exact"`` (batched exact Hessians; refuses order-1 targets).
     ``noise``: optional (n_samples, d) base draws in place of the sampler.
+    ``mc_axis``: the mesh axis that splits the samples (parallel/mesh.py).
     """
-    check_mc_axis(mc_axis)
     if hessian not in ("auto", "stein", "exact"):
         raise ValueError(
             f"hessian must be 'auto', 'stein', or 'exact', got {hessian!r}"
@@ -65,12 +71,18 @@ def gaussian_expected_grad_hess(
             "target; this target only provides gradients (order 1). Use "
             "hessian='stein' or 'auto'."
         )
-    z, u = draw_with_base(q, key, n_samples, noise)  # one K7b launch on the card
+    rows = mc_rows(n_samples, mc_axis)
+    z, u = draw_with_base(q, key, n_samples, noise, rows)  # one K7b launch on the card
     if order == ORDER_GRAD or hessian == "stein":
         # Stein/Price identity: E[hess] = C^-T E[u grad(C u + m)^T]
         logpi, grads = log_density_and_grad(prob, z)
-        A = (u.T @ grads) / n_samples
-        hess = torch.linalg.solve_triangular(q.tril_scale().T, A, upper=True)
-        return torch.mean(logpi), torch.mean(grads, dim=0), hess
-    logpi, grads, hesses = log_density_grad_and_hess(prob, z)
-    return torch.mean(logpi), torch.mean(grads, dim=0), torch.mean(hesses, dim=0)
+        means = [torch.mean(logpi), torch.mean(grads, dim=0), (u.T @ grads) / z.shape[0]]
+    else:
+        logpi, grads, hesses = log_density_grad_and_hess(prob, z)
+        means = [torch.mean(logpi), torch.mean(grads, dim=0), torch.mean(hesses, dim=0)]
+    if rows is not None:
+        means = [m * (rows[1] / n_samples) for m in means]
+    logpi_avg, grad, hess = reduce_shares(means, mc_axis)  # as they are outside a mesh
+    if order == ORDER_GRAD or hessian == "stein":
+        hess = torch.linalg.solve_triangular(q.tril_scale().T, hess, upper=True)
+    return logpi_avg, grad, hess

@@ -38,9 +38,9 @@ from ..objectives.repgradelbo import RepGradELBO, draw_with_base
 from ..objectives.subsampled import SubsampledObjective
 from ..ops.cuda.location_scale_kernels import PhiloxKey, SeedLike, seed_words
 from ..ops.sqrtm import _symmetrize, sqrtm_newton_schulz
+from ..parallel.mesh import all_gather_rows, mc_rows, reduce_shares
 from .gauss_expected import (
     check_capability_at_least_grad,
-    check_mc_axis,
     gaussian_expected_grad_hess,
 )
 
@@ -90,13 +90,15 @@ class MeasureSpaceAlgorithm:
     """Shared init/step/output skeleton of the algorithms above.
 
     ``hessian``: "auto", "stein" or "exact" (gauss_expected.py).
-    ``mc_axis`` (the samples over a device mesh) is not ported.
+    ``mc_axis``: the mesh axis that splits the samples (parallel/mesh.py):
+    each rank evaluates its rows, the sums of values, gradients and
+    Hessians are reduced over the axis, and the update (eigh, SVDs,
+    Cholesky) runs on every rank.
     """
 
     name = "MeasureSpaceAlgorithm"
 
     def __init__(self, n_samples=1, subsampling=None, mc_axis=None, hessian="auto"):
-        check_mc_axis(mc_axis)
         self.n_samples = n_samples
         self.subsampling = subsampling
         self.mc_axis = mc_axis
@@ -133,7 +135,7 @@ class MeasureSpaceAlgorithm:
         prob_sub, sub_state, info = self._advance_subsampling(state)
         logpi_avg, grad, hess = gaussian_expected_grad_hess(
             PhiloxKey(state.seed, state.iteration), state.q, self.n_samples, prob_sub,
-            hessian=self.hessian, noise=noise,
+            mc_axis=self.mc_axis, hessian=self.hessian, noise=noise,
         )
         q_new, aux_new = self._update(state.q, state.aux, grad, hess, it)
         # elbo = E[log pi] + H(q') (BaM logs H(q) itself, as the reference)
@@ -311,8 +313,15 @@ class FisherMinBatchMatch(MeasureSpaceAlgorithm):
         prob_sub, sub_state, info = self._advance_subsampling(state)
         mu = q.location
         C = q.tril_scale()
-        z, u = draw_with_base(q, PhiloxKey(state.seed, state.iteration), n, noise)
+        rows = mc_rows(n, self.mc_axis)
+        z, u = draw_with_base(q, PhiloxKey(state.seed, state.iteration), n, noise, rows)
         logpi, grads = log_density_and_grad(prob_sub, z)
+        # under a mesh: a data axis's blocks averaged, then every rank's rows
+        # in order (the batch moments need them all)
+        logpi, grads = reduce_shares([logpi, grads], self.mc_axis, sum_mc=False)
+        if rows is not None:
+            z, u, logpi, grads = (all_gather_rows(t, n, self.mc_axis)
+                                  for t in (z, u, logpi, grads))
         # F = E || -u - C^T grad ||^2 (reference :101-110)
         fisher = torch.sum(torch.square(-u - grads @ C)) / n
         zbar = torch.mean(z, dim=0)

@@ -33,7 +33,6 @@ from ..ops.cuda.location_scale_kernels import PhiloxKey, SeedLike, seed_words
 from ..optim.averaging import PolynomialAveraging
 from ..optim.operators import IdentityOperator, ProximalLocationScaleEntropy
 from ..optim.rules import apply_updates, dowg
-from .gauss_expected import check_mc_axis
 
 
 @dataclass(frozen=True)
@@ -160,9 +159,8 @@ def KLMinRepGradDescent(
     constructors.jl:44-79; defaults DoWG + polynomial averaging).
     ``subsampling``: a ``ReshufflingBatchSubsampling`` for doubly-stochastic
     VI (the objective is wrapped in ``SubsampledObjective``);
-    ``antithetic`` and ``fast_entropy``: RepGradELBO's.  ``mc_axis`` (the
-    samples over a device mesh) is not ported."""
-    check_mc_axis(mc_axis)
+    ``antithetic`` and ``fast_entropy``: RepGradELBO's.  ``mc_axis``: the
+    mesh axis that splits the samples (parallel/mesh.py)."""
     if entropy not in (CLOSED_FORM, STL, MONTE_CARLO):
         raise ValueError(
             "KLMinRepGradDescent supports closed_form / stl / monte_carlo "
@@ -194,7 +192,7 @@ def KLMinRepGradProxDescent(
     step, so the entropy estimator's gradient must have mean zero and the
     optimizer's step size must be readable from its state (descent, dog,
     dowg) (reference constructors.jl:122-157; defaults DoWG + polynomial
-    averaging).  ``mc_axis`` is not ported (must be None)."""
+    averaging).  ``mc_axis``: the mesh axis that splits the samples."""
     if entropy_zerograd not in ZERO_GRAD_ESTIMATORS:
         raise ValueError(
             "KLMinRepGradProxDescent requires a zero-gradient entropy "
@@ -219,8 +217,8 @@ def KLMinScoreGradDescent(
 ) -> ParamSpaceSGD:
     """BBVI: SGD on the score-function (VarGrad) gradient (reference
     constructors.jl:199-233; defaults DoWG + polynomial averaging +
-    IdentityOperator).  Takes value-only targets.  ``mc_axis`` is not
-    ported (must be None)."""
+    IdentityOperator).  Takes value-only targets.  ``mc_axis``: the mesh
+    axis that splits the samples."""
     return ParamSpaceSGD(
         objective=_subsampled(ScoreGradELBO(n_samples=n_samples, mc_axis=mc_axis),
                               subsampling),

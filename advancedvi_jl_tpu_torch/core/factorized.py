@@ -10,7 +10,10 @@ Users supply
 and get the target protocol, ``likeadj * loglike + logprior``, with a
 minibatch ``subsample`` that gathers the rows and rescales the likelihood
 by n / batch.  ``data`` is a tensor, or a tuple, list or dict of tensors,
-each with the data axis first.
+each with the data axis first.  ``data_axis``: under a device mesh with that
+axis a rank evaluates ``loglike_fn`` on its row block of the data (or of
+the minibatch) and the blocks' sums are summed over the axis
+(parallel/mesh.py ``data_psum``); ``likeadj`` comes from the global counts.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ from typing import Any, Callable, Optional
 
 import torch
 
+from ..parallel.mesh import data_psum, shard_axis0
 from .problem import ORDER_AUTOGRAD
 from .transforms import Transform, TransformedTarget
 
@@ -51,19 +55,22 @@ class FactorizedTarget:
     loglike_fn: Callable
     dim: int
     n_data: int
+    data_axis: Optional[str] = None
 
     def order(self) -> int:
         return ORDER_AUTOGRAD
 
     def log_density(self, theta: torch.Tensor) -> torch.Tensor:
-        return self.logprior_fn(theta) + self.likeadj * self.loglike_fn(theta, self.data)
+        data = _map_data(lambda x: shard_axis0(x, self.data_axis), self.data)
+        loglike = data_psum(self.loglike_fn(theta, data), self.data_axis)
+        return self.logprior_fn(theta) + self.likeadj * loglike
 
     def subsample(self, indices: torch.Tensor) -> "FactorizedTarget":
         return FactorizedTarget(
             data=_map_data(lambda x: torch.index_select(x, 0, indices), self.data),
             likeadj=self.likeadj * (self.n_data / indices.shape[0]),
             logprior_fn=self.logprior_fn, loglike_fn=self.loglike_fn,
-            dim=self.dim, n_data=self.n_data,
+            dim=self.dim, n_data=self.n_data, data_axis=self.data_axis,
         )
 
     def unconstrained(self, transform: Transform) -> TransformedTarget:
@@ -78,16 +85,11 @@ def factorized_target(
     data_axis: Optional[str] = None,
 ) -> FactorizedTarget:
     """A ``FactorizedTarget`` over ``data`` (the tensors stay where they
-    lie).  ``data_axis`` (sharding the data over a device mesh) is not
-    ported: anything but None raises."""
-    if data_axis is not None:
-        raise NotImplementedError(
-            "factorized_target(data_axis=...) shards the data over a device mesh, "
-            "which the port does not have yet (ROADMAP Queue 1 item 17)"
-        )
+    lie); ``data_axis``: the mesh axis that splits the data rows."""
     first = _first_tensor(data)
     dtype = first.dtype if first.is_floating_point() else torch.float32
     return FactorizedTarget(
         data=data, likeadj=torch.ones((), dtype=dtype, device=first.device),
         logprior_fn=logprior_fn, loglike_fn=loglike_fn, dim=dim, n_data=first.shape[0],
+        data_axis=data_axis,
     )

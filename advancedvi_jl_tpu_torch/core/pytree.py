@@ -57,12 +57,17 @@ def tree_global_norm_sq(obj: Any) -> torch.Tensor:
     return sum(torch.sum(t * t) for t in tree_leaves(obj))
 
 
-def value_and_grad(loss_and_aux: Callable, q: Any):
+def value_and_grad(loss_and_aux: Callable, q: Any, mc_axis=None):
     """``(grad, aux)`` of ``loss, aux = loss_and_aux(q)`` in the tensor
     fields of the family ``q``; ``grad`` is a family of the same class (the
-    counterpart of ``jax.value_and_grad(..., has_aux=True)``)."""
+    counterpart of ``jax.value_and_grad(..., has_aux=True)``).  Under a
+    device mesh (parallel/mesh.py) ``loss`` and aux's scalars are this
+    rank's shares: the gradient and those scalars come back summed over
+    ``mc_axis`` and averaged over the mesh's other axes."""
+    from ..parallel.mesh import reduce_tree
+
     with torch.enable_grad():
         live = tree_map(lambda t: t.detach().requires_grad_(True), q)
         loss, aux = loss_and_aux(live)
         grads = iter(torch.autograd.grad(loss, tree_leaves(live)))
-    return tree_map(lambda _: next(grads), q), aux
+    return reduce_tree(tree_map(lambda _: next(grads), q), aux, mc_axis)

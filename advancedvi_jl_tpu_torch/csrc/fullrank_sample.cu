@@ -16,7 +16,11 @@
 // 1. fullrank_draw_kernel draws u, each normal once, with the counter
 //    (iteration, row, lane group, stream) of csrc/philox.cuh and K7a's
 //    geometry (32 lane groups x 8 rows a block), so u equals K7a's u bit for
-//    bit.  It also zeroes the product's tile counters.
+//    bit.  It also zeroes the product's tile counters.  Sample row i of a
+//    launch draws from counter row first_row + i, so a launch at
+//    (first_row, n) draws rows [first_row, first_row + n) of any larger draw
+//    bit for bit; first_row enters only the counter, never the product's
+//    tile walk.
 //
 // 2. fullrank_product_kernel computes z from u (1 MB, still in L2) and C.
 //    Output tiles are 64 rows x 64 columns; tile (i, j) sums over k below the
@@ -93,7 +97,8 @@ __device__ __forceinline__ void cp_async_wait_all() {
 
 __global__ void __launch_bounds__(kDrawGroups * kDrawRows)
     fullrank_draw_kernel(float* __restrict__ u, int* __restrict__ counters, int tiles, int n,
-                         int d, uint32_t k0, uint32_t k1, uint32_t it) {
+                         int d, uint32_t k0, uint32_t k1, uint32_t it,
+                         uint32_t first_row) {
   // the product may launch now: it waits (griddepcontrol.wait) for this grid
   // to finish before it reads u or the counters
   asm volatile("griddepcontrol.launch_dependents;\n" ::);
@@ -105,7 +110,8 @@ __global__ void __launch_bounds__(kDrawGroups * kDrawRows)
   if (j0 >= d) return;
   for (int row = blockIdx.y * kDrawRows + threadIdx.y; row < n; row += gridDim.y * kDrawRows) {
     float w[4];
-    avi::normals4(k0, k1, it, static_cast<uint32_t>(row), static_cast<uint32_t>(group), w);
+    avi::normals4(k0, k1, it, first_row + static_cast<uint32_t>(row),
+                  static_cast<uint32_t>(group), w);
     float* dst = u + static_cast<size_t>(row) * d + j0;
     if ((d & 3) == 0) {
       *reinterpret_cast<float4*>(dst) = make_float4(w[0], w[1], w[2], w[3]);
@@ -362,18 +368,19 @@ __global__ void __launch_bounds__(kThreads, 1)
 // row-major, only its lower triangle is read.  plan: fullrank_plan's table
 // for `blocks` blocks (the block offsets, padded to four words, then eight
 // words a segment), on the card; partial: its slots x 64 x 64 floats;
-// counters: its `tiles` ints.  Returns the first CUDA error (0 on success): a
-// card without kSmemBytes of shared memory a block refuses the launch.
+// counters: its `tiles` ints.  Row i of u takes counter row first_row + i.
+// Returns the first CUDA error (0 on success): a card without kSmemBytes of
+// shared memory a block refuses the launch.
 extern "C" int fullrank_sample(const float* loc, const float* C, float* z, float* u,
                                float* partial, int* counters, const int* plan, int blocks,
                                int tiles, int n, int d, uint32_t seed0, uint32_t seed1,
-                               uint32_t it, cudaStream_t stream) {
+                               uint32_t it, uint32_t first_row, cudaStream_t stream) {
   if (n <= 0 || d <= 0) return static_cast<int>(cudaSuccess);
   const int groups = (d + 3) / 4;
   const dim3 draw_grid((groups + kDrawGroups - 1) / kDrawGroups,
                        min((n + kDrawRows - 1) / kDrawRows, kMaxGridRows));
   fullrank_draw_kernel<<<draw_grid, dim3(kDrawGroups, kDrawRows), 0, stream>>>(
-      u, counters, tiles, n, d, seed0, seed1, it);
+      u, counters, tiles, n, d, seed0, seed1, it, first_row);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 

@@ -25,7 +25,11 @@
 // round-to-nearest multiply and adds in the plain version's order ((u1 D +
 // u2 U^T) + m), so with U = 0 it equals the mean-field sampler's z bit for
 // bit; otherwise only the r-term sum's order differs from the plain product.
-// u1 and z are written with float4 stores when d is a multiple of 4.
+// u1 and z are written with float4 stores when d is a multiple of 4.  Sample
+// row i of a launch draws from counter row first_row + i (u1 and u2 alike),
+// so a launch at (first_row, n) writes rows [first_row, first_row + n) of any
+// larger draw bit for bit; first_row enters only the counters, never the
+// tiling.
 #include "philox.cuh"
 
 namespace {
@@ -43,7 +47,7 @@ __global__ void __launch_bounds__(kThreads)
     lowrank_sample_kernel(const float* __restrict__ loc, const float* __restrict__ D,
                           const float* __restrict__ U, float* __restrict__ z,
                           float* __restrict__ u1, float* __restrict__ u2, int n, int d, int r,
-                          uint32_t k0, uint32_t k1, uint32_t it) {
+                          uint32_t k0, uint32_t k1, uint32_t it, uint32_t first_row) {
   extern __shared__ float smem[];
   float* us = smem;                  // (kTileRows, r): the tile's factor draws
   float* fs = smem + kTileRows * r;  // (r, kLanes): fs[k][c] = U[col0 + c, k]
@@ -79,8 +83,8 @@ __global__ void __launch_bounds__(kThreads)
       const int row = row0 + i;
       float w[4] = {0.f, 0.f, 0.f, 0.f};
       if (row < n)
-        avi::normals4(k0, k1, it, static_cast<uint32_t>(row), static_cast<uint32_t>(q), w,
-                      kFactorStream);
+        avi::normals4(k0, k1, it, first_row + static_cast<uint32_t>(row),
+                      static_cast<uint32_t>(q), w, kFactorStream);
 #pragma unroll
       for (int p = 0; p < 4; ++p) {
         const int k = 4 * q + p;
@@ -96,7 +100,8 @@ __global__ void __launch_bounds__(kThreads)
       const int row = row0 + i;
       if (row >= n) break;
       float w[4];
-      avi::normals4(k0, k1, it, static_cast<uint32_t>(row), static_cast<uint32_t>(g), w);
+      avi::normals4(k0, k1, it, first_row + static_cast<uint32_t>(row),
+                    static_cast<uint32_t>(g), w);
       float acc[4] = {0.f, 0.f, 0.f, 0.f};
       const float* ur = us + i * r;
       for (int k = 0; k < r; ++k) {
@@ -136,11 +141,13 @@ extern "C" size_t lowrank_sample_smem_bytes(int r) {
 }
 
 // z, u1: (n, d) float32, row-major, 16-byte aligned; u2: (n, r); loc, D:
-// (d,); U: (d, r) row-major.  Returns cudaGetLastError() after the launch (0
-// on success), or cudaErrorInvalidValue for a rank the kernel does not take.
+// (d,); U: (d, r) row-major; row i takes counter row first_row + i.  Returns
+// cudaGetLastError() after the launch (0 on success), or
+// cudaErrorInvalidValue for a rank the kernel does not take.
 extern "C" int lowrank_sample(const float* loc, const float* D, const float* U, float* z,
                               float* u1, float* u2, int n, int d, int r, uint32_t seed0,
-                              uint32_t seed1, uint32_t it, cudaStream_t stream) {
+                              uint32_t seed1, uint32_t it, uint32_t first_row,
+                              cudaStream_t stream) {
   if (n <= 0 || d <= 0) return static_cast<int>(cudaSuccess);
   const size_t smem = lowrank_sample_smem_bytes(r);
   if (r < 1 || smem > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
@@ -151,6 +158,6 @@ extern "C" int lowrank_sample(const float* loc, const float* D, const float* U, 
   const dim3 grid((d + kLanes - 1) / kLanes, min(tiles, kMaxGridRows));
   const dim3 block(kGroups, kRowsPerPass);
   lowrank_sample_kernel<<<grid, block, smem, stream>>>(loc, D, U, z, u1, u2, n, d, r, seed0,
-                                                       seed1, it);
+                                                       seed1, it, first_row);
   return static_cast<int>(cudaGetLastError());
 }

@@ -29,6 +29,11 @@
 // torch kernel that writes m, which is the general step's case, so this is
 // a plain launch.
 //
+// Row offset: sample row i of a launch draws from counter row first_row + i,
+// so a launch at (first_row, n) writes rows [first_row, first_row + n) of
+// any larger draw bit for bit (the rows one rank of a device mesh's "mc"
+// axis draws).  first_row enters only the counter, never the grid.
+//
 // The iteration is a host value, or a device word plus a host offset: with
 // `it_base` given, the draws are those of iteration (low 32 bits of
 // *it_base) + it.  A CUDA graph of K such launches with offsets 0 .. K-1, and
@@ -44,7 +49,7 @@ constexpr int kMaxGridRows = 65535;  // gridDim.y limit
 __global__ void __launch_bounds__(2 * kGroupsPerBlock * kRowsPerBlock)
     meanfield_sample_kernel(const float* __restrict__ loc, const float* __restrict__ scale,
                             float* __restrict__ z, float* __restrict__ u, int n, int d,
-                            uint32_t k0, uint32_t k1, uint32_t it,
+                            uint32_t k0, uint32_t k1, uint32_t it, uint32_t first_row,
                             const long long* __restrict__ it_base) {
   const int groups = (d + 3) / 4;
   const int g = blockIdx.x * kGroupsPerBlock + (threadIdx.x >> 1);
@@ -64,7 +69,7 @@ __global__ void __launch_bounds__(2 * kGroupsPerBlock * kRowsPerBlock)
   const bool vec = j0 + 1 < d && d % 2 == 0;
   const int stride = gridDim.y * blockDim.y;
   for (; row < n; row += stride) {  // rows past the grid's 65535 x 4
-    const avi::Philox4 mine = avi::philox4x32_10(it, static_cast<uint32_t>(row),
+    const avi::Philox4 mine = avi::philox4x32_10(it, first_row + static_cast<uint32_t>(row),
                                                  static_cast<uint32_t>(g), h, k0, k1);
     // thread 0 keeps u1 words 0, 1 and sends 2, 3; thread 1 keeps u2 words
     // 2, 3 and sends 0, 1
@@ -96,13 +101,15 @@ __global__ void __launch_bounds__(2 * kGroupsPerBlock * kRowsPerBlock)
 }  // namespace
 
 // z, u: (n, d) float32, row-major, 8-byte aligned where d is even (the
-// float2 stores); loc, scale: (d,) float32.  it_base: null (the draws of
+// float2 stores); loc, scale: (d,) float32.  Row i takes counter row
+// first_row + i.  it_base: null (the draws of
 // iteration `it`), or a device int64 whose low 32 bits plus `it` (mod 2^32)
 // are the iteration.  Returns cudaGetLastError() after the launch (0 on
 // success).
 extern "C" int meanfield_sample(const float* loc, const float* scale, float* z, float* u,
                                 int n, int d, uint32_t seed0, uint32_t seed1, uint32_t it,
-                                const long long* it_base, cudaStream_t stream) {
+                                uint32_t first_row, const long long* it_base,
+                                cudaStream_t stream) {
   if (n <= 0 || d <= 0) return static_cast<int>(cudaSuccess);
   const int groups = (d + 3) / 4;
   const dim3 block(2 * kGroupsPerBlock, kRowsPerBlock);
@@ -110,6 +117,6 @@ extern "C" int meanfield_sample(const float* loc, const float* scale, float* z, 
   const dim3 grid((groups + kGroupsPerBlock - 1) / kGroupsPerBlock,
                   min(row_blocks, kMaxGridRows));
   meanfield_sample_kernel<<<grid, block, 0, stream>>>(loc, scale, z, u, n, d, seed0, seed1,
-                                                      it, it_base);
+                                                      it, first_row, it_base);
   return static_cast<int>(cudaGetLastError());
 }

@@ -27,10 +27,11 @@ import torch.nn.functional as F
 
 from ..core.pytree import tree_stop_gradient, value_and_grad
 from ..objectives.repgradelbo import base_noise
+from ..parallel.mesh import mc_rows
 from ..ops import base_draws
 from ..ops.cuda.location_scale_kernels import as_key, meanfield_sample, seed_words
 from .base import Normal
-from .location_scale import check_mc_axis
+from .location_scale import take_rows
 
 _LOG_2PI = math.log(2.0 * math.pi)
 
@@ -264,7 +265,10 @@ class FlowELBO:
     objective): the gradient of -(E log pi(z) - E log q(z)) with
     reparameterized z.  ``entropy``: "monte_carlo" (the density along the
     sampling path; every flow) or "stl" (the frozen density at the live
-    draws; a family with ``log_prob``).  ``mc_axis`` must be None."""
+    draws; a family with ``log_prob``).  ``mc_axis``: the mesh axis that
+    splits the samples (parallel/mesh.py); a rank draws the whole batch
+    through the flow and evaluates the target on its rows, weighted by
+    rows / n."""
 
     n_samples: int = 1
     mc_axis: Optional[str] = None
@@ -275,7 +279,6 @@ class FlowELBO:
             raise ValueError(
                 f"FlowELBO entropy must be 'monte_carlo' or 'stl', got {self.entropy!r}"
             )
-        check_mc_axis(self.mc_axis)
 
     def init(self, seed, q, prob):
         if self.entropy == "stl" and not hasattr(q, "log_prob"):
@@ -292,11 +295,14 @@ class FlowELBO:
             z, logq = q.sample_and_log_prob(key, self.n_samples)
         else:
             z, logq = q.sample_and_log_prob_from_base(base_noise(q, noise, self.n_samples))
+        rows = mc_rows(self.n_samples, self.mc_axis)
+        z, logq = take_rows(z, rows), take_rows(logq, rows)
         if self.entropy == "stl":
             ent = -torch.mean(tree_stop_gradient(q).log_prob(z))
         else:
             ent = -torch.mean(logq)
-        return -(torch.mean(prob.log_density(z)) + ent)
+        nelbo = -(torch.mean(prob.log_density(z)) + ent)
+        return nelbo if rows is None else nelbo * (rows[1] / self.n_samples)
 
     def _loss_and_aux(self, q, prob, key, noise: Optional[torch.Tensor] = None):
         nelbo = self.loss(q, prob, key, noise)
@@ -305,7 +311,8 @@ class FlowELBO:
     def value_and_grad(self, q, prob, key, obj_state=(), noise=None):
         """One gradient estimate; returns (grad family, obj_state, info).
         ``noise``: (n_samples, d) base draws that replace the sampler."""
-        grad, info = value_and_grad(lambda live: self._loss_and_aux(live, prob, key, noise), q)
+        grad, info = value_and_grad(lambda live: self._loss_and_aux(live, prob, key, noise), q,
+                                    self.mc_axis)
         return grad, obj_state, info
 
     @torch.no_grad()

@@ -14,7 +14,10 @@ runs the kernel's plain PyTorch version.  Every other family (a Student-t or
 Laplace base, or float64) draws its base through ops/base_draws.py, as the
 JAX package draws those with ``jax.random``; ``sampler="pallas"`` refuses
 them with the JAX package's message.  There is no fallback between the two
-routes.
+routes.  ``rows=(row0, count)`` draws rows [row0, row0 + count) of the
+n-row draw: the kernels at a row offset, so one rank of a device mesh's
+"mc" axis draws its rows alone; the ops/base_draws.py route draws the whole
+block (a torch generator cannot start at a row) and keeps the rows.
 
 The full-rank ``scale`` is dense (d, d), only its lower triangle read, or
 with ``layout="packed"`` the tile-packed triangle of ops/packing.py; the
@@ -26,7 +29,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Any, Optional
+from typing import Any, Optional, Tuple
 
 import torch
 
@@ -39,17 +42,25 @@ from .base import Normal
 
 
 def check_mesh_axis(name: str, axis) -> None:
-    """Refuse a device-mesh axis (``mc_axis``, ``tp_axis``, ``block_axis``,
-    ``ep_axis``): the port runs on one card."""
+    """Refuse a mesh axis over a family's parameters (``tp_axis``,
+    ``block_axis``, ``ep_axis``): each needs collectives inside the sampling
+    product, which are not ported."""
     if axis is not None:
         raise NotImplementedError(
-            f"{name} (an axis of a device mesh) is not ported yet "
-            "(ROADMAP Queue 1 item 17)"
+            f"{name} (a family's parameters over a device mesh) is not ported yet "
+            "(ROADMAP Queue 1 item 17b)"
         )
 
 
-def check_mc_axis(mc_axis) -> None:
-    check_mesh_axis("mc_axis", mc_axis)
+def take_rows(x: torch.Tensor, rows) -> torch.Tensor:
+    """Rows [row0, row0 + count) of ``x`` for ``rows=(row0, count)``; ``x``
+    for None."""
+    return x if rows is None else x.narrow(0, rows[0], rows[1])
+
+
+def row_span(n: int, rows) -> Tuple[int, int]:
+    """(row0, count) of ``rows``, or the whole n-row draw for None."""
+    return (0, n) if rows is None else (int(rows[0]), int(rows[1]))
 
 
 def check_compute_dtype(compute_dtype) -> None:
@@ -85,9 +96,11 @@ def kernel_draws(q) -> bool:
     return isinstance(q.base, Normal) and q.location.dtype == torch.float32
 
 
-def base_draw(q, key, n_samples: int, width: int) -> torch.Tensor:
-    """(n_samples, width) base draws of a family the kernels do not draw."""
-    return base_draws.draw(q.base, key, n_samples, width, q.location.dtype, q.location.device)
+def base_draw(q, key, n_samples: int, width: int, rows=None) -> torch.Tensor:
+    """(n_samples, width) base draws of a family the kernels do not draw
+    (``rows`` of them with ``rows``)."""
+    return base_draws.draw(q.base, key, n_samples, width, q.location.dtype, q.location.device,
+                           rows)
 
 
 def standard_draw(base, key, n_samples: int, width: int, dtype: torch.dtype,
@@ -123,15 +136,17 @@ class MeanFieldLocationScale:
         """Width of one injected base draw (``from_base``)."""
         return self.dim
 
-    def sample(self, key, n_samples: int) -> torch.Tensor:
-        return self.sample_with_base(key, n_samples)[0]
+    def sample(self, key, n_samples: int, rows=None) -> torch.Tensor:
+        return self.sample_with_base(key, n_samples, rows)[0]
 
-    def sample_with_base(self, key, n_samples: int):
-        """(z, u) for ``key`` (a PhiloxKey, or a seed read as iteration 0)."""
+    def sample_with_base(self, key, n_samples: int, rows=None):
+        """(z, u) for ``key`` (a PhiloxKey, or a seed read as iteration 0);
+        ``rows=(row0, count)``: those rows of the n_samples-row draw."""
         if kernel_draws(self):
             k = as_key(key)
-            return meanfield_sample(k.seed, k.it, self.location, self.scale_diag, n_samples)
-        u = base_draw(self, key, n_samples, self.dim)
+            row0, count = row_span(n_samples, rows)
+            return meanfield_sample(k.seed, k.it, self.location, self.scale_diag, count, row0)
+        u = base_draw(self, key, n_samples, self.dim, rows)
         return self.from_base(u), u
 
     def from_base(self, u: torch.Tensor) -> torch.Tensor:
@@ -260,19 +275,21 @@ class FullRankLocationScale:
             self, scale=torch.diagonal_scatter(self.scale, new_diag)
         )
 
-    def sample(self, key, n_samples: int) -> torch.Tensor:
-        return self.sample_with_base(key, n_samples)[0]
+    def sample(self, key, n_samples: int, rows=None) -> torch.Tensor:
+        return self.sample_with_base(key, n_samples, rows)[0]
 
-    def sample_with_base(self, key, n_samples: int):
+    def sample_with_base(self, key, n_samples: int, rows=None):
         """(z, u) for ``key`` (a PhiloxKey, or a seed read as iteration 0);
-        on the kernel route u is the mean-field sampler's draw for the same
+        ``rows=(row0, count)``: those rows of the n_samples-row draw.  On
+        the kernel route u is the mean-field sampler's draw for the same
         key.  A dense scale goes to K7b as stored (it reads the lower
         triangle), a packed one unpacked."""
         if kernel_draws(self):
             k = as_key(key)
             C = self.scale if self.layout == "dense" else self.tril_scale()
-            return fullrank_sample(k.seed, k.it, self.location, C, n_samples)
-        u = base_draw(self, key, n_samples, self.dim)
+            row0, count = row_span(n_samples, rows)
+            return fullrank_sample(k.seed, k.it, self.location, C, count, row0)
+        u = base_draw(self, key, n_samples, self.dim, rows)
         return self.from_base(u), u
 
     def from_base(self, u: torch.Tensor) -> torch.Tensor:

@@ -28,7 +28,7 @@ import torch
 
 from ..ops.cuda.location_scale_kernels import as_key, lowrank_sample
 from .base import Normal
-from .location_scale import base_draw, kernel_draws
+from .location_scale import base_draw, kernel_draws, row_span
 
 # Dense-Cholesky log_prob/entropy up to this dimension (stability), Woodbury
 # above it (speed); the JAX package's bound.
@@ -58,19 +58,21 @@ class LowRankLocationScale:
         """Width of one injected base draw [u1 | u2] (``from_base``)."""
         return self.dim + self.rank
 
-    def sample(self, key, n_samples: int) -> torch.Tensor:
-        return self.sample_with_base(key, n_samples)[0]
+    def sample(self, key, n_samples: int, rows=None) -> torch.Tensor:
+        return self.sample_with_base(key, n_samples, rows)[0]
 
-    def sample_with_base(self, key, n_samples: int):
+    def sample_with_base(self, key, n_samples: int, rows=None):
         """(z, [u1 | u2]) for ``key`` (a PhiloxKey, or a seed read as
-        iteration 0); on the kernel route u1 is the mean-field sampler's draw
-        for the same key."""
+        iteration 0); ``rows=(row0, count)``: those rows of the
+        n_samples-row draw.  On the kernel route u1 is the mean-field
+        sampler's draw for the same key."""
         if not kernel_draws(self):
-            u = base_draw(self, key, n_samples, self.base_dim)
+            u = base_draw(self, key, n_samples, self.base_dim, rows)
             return self.from_base(u), u
         k = as_key(key)
+        row0, count = row_span(n_samples, rows)
         z, u1, u2 = lowrank_sample(k.seed, k.it, self.location, self.scale_diag,
-                                   self.scale_factors, n_samples)
+                                   self.scale_factors, count, row0)
         return z, torch.cat([u1, u2], dim=1)
 
     def from_base(self, u: torch.Tensor) -> torch.Tensor:

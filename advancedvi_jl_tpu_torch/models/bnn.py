@@ -6,7 +6,9 @@ y ~ N(f_w(x), noise_scale^2).  theta is the flat weight vector [W1 (in_dim
 x hidden), b1 (hidden), W2 (hidden), b2]; the forward pass is batched over
 samples and data, so a step of mean-field ADVI on it is two matrix products
 per sample.  ``subsample`` keeps a minibatch and rescales the likelihood by
-n / batch.
+n / batch.  ``data_axis``: under a device mesh with that axis a rank takes
+its row block of the data and the blocks' likelihood sums are summed over
+the axis (parallel/mesh.py ``data_psum``).
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from typing import Optional
 import torch
 
 from ..core.problem import ORDER_AUTOGRAD
+from ..parallel.mesh import data_psum, shard_axis0
 from .normal import SeedOrGenerator, _generator
 
 _HALF_L2PI = 0.5 * math.log(2.0 * math.pi)
@@ -30,6 +33,7 @@ class BayesianMLP:
     likeadj: torch.Tensor  # 0-dim
     hidden: int = 32
     noise_scale: float = 0.1
+    data_axis: Optional[str] = None
     # The JAX model's bf16 forward products; the port computes in float32.
     compute_dtype: Optional[str] = None
 
@@ -70,10 +74,12 @@ class BayesianMLP:
         return (hcore @ W2.unsqueeze(-1)).squeeze(-1) + b2.unsqueeze(-1)
 
     def log_density(self, theta: torch.Tensor) -> torch.Tensor:
-        pred = self.forward(theta, self.X)
+        X, y = shard_axis0(self.X, self.data_axis), shard_axis0(self.y, self.data_axis)
+        pred = self.forward(theta, X)
         s = self.noise_scale
-        loglike = torch.sum(
-            -0.5 * torch.square((self.y - pred) / s) - math.log(s) - _HALF_L2PI, dim=-1)
+        loglike = data_psum(torch.sum(
+            -0.5 * torch.square((y - pred) / s) - math.log(s) - _HALF_L2PI, dim=-1),
+            self.data_axis)
         logprior = torch.sum(-0.5 * torch.square(theta) - _HALF_L2PI, dim=-1)
         return self.likeadj * loglike + logprior
 

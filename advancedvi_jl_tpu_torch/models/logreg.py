@@ -7,19 +7,23 @@
 theta = [beta (d), sigma (1)]; ``LogReg(...).unconstrained()`` is the
 TransformedTarget with Stacked(Identity_d, Exp_1), as in the reference.
 The log-density is batched: ``theta`` of shape ``(..., d + 1)`` gives one
-``(..., n) = beta @ X^T`` product for the whole batch of samples.
+``(..., n) = beta @ X^T`` product for the whole batch of samples.  With
+``data_axis``, under a device mesh with that axis, a rank takes its row
+block of the data (or of the minibatch) and the blocks' likelihood sums
+are summed over the axis (parallel/mesh.py ``data_psum``).
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Union
+from typing import Optional, Union
 
 import torch
 
 from ..core.problem import ORDER_AUTOGRAD
 from ..core.transforms import Exp, Identity, TransformedTarget, stacked
+from ..parallel.mesh import data_psum, shard_axis0
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:
@@ -35,6 +39,7 @@ class LogReg:
     y: torch.Tensor  # (n,) in {0, 1}
     likeadj: torch.Tensor  # likelihood rescaling (0-dim)
     prior_scale: float = 3.0
+    data_axis: Optional[str] = None
 
     @property
     def dim(self) -> int:
@@ -59,8 +64,9 @@ class LogReg:
             - math.log(s)
             - 0.5 * math.log(2.0 * math.pi)
         )
-        logits = beta @ self.X.T
-        loglike = torch.sum(self.y * logits - softplus(logits), dim=-1)
+        X, y = shard_axis0(self.X, self.data_axis), shard_axis0(self.y, self.data_axis)
+        logits = beta @ X.T
+        loglike = data_psum(torch.sum(y * logits - softplus(logits), dim=-1), self.data_axis)
         return self.likeadj * loglike + logprior_beta + logprior_sigma
 
     def subsample(self, indices: torch.Tensor) -> "LogReg":
@@ -72,6 +78,7 @@ class LogReg:
             y=torch.index_select(self.y, 0, indices),
             likeadj=self.likeadj * (n / indices.shape[0]),
             prior_scale=self.prior_scale,
+            data_axis=self.data_axis,
         )
 
     def unconstrained(self) -> TransformedTarget:
@@ -87,6 +94,7 @@ def make_logreg(
     n_data: int = 208,
     n_features: int = 60,
     dtype: torch.dtype = torch.float32,
+    data_axis: Optional[str] = None,
     device: Union[str, torch.device] = "cuda",
 ) -> LogReg:
     """Synthetic sonar-like dataset (208 x 60 + intercept, standardized).
@@ -94,7 +102,8 @@ def make_logreg(
     Same shapes and standardisation as the reference's ``make_logreg``; the
     numbers come from a CPU ``torch.Generator`` (an int seeds a new one), so
     a seed gives the same data on every device.  The tensors go to
-    ``device``: the card unless the caller asks for the CPU.
+    ``device``: the card unless the caller asks for the CPU.  ``data_axis``:
+    the mesh axis that splits the data rows.
     """
     if not isinstance(generator, torch.Generator):
         seed = 0 if generator is None else int(generator)
@@ -112,4 +121,5 @@ def make_logreg(
         X=X.to(device),
         y=y.to(device),
         likeadj=torch.ones((), dtype=dtype, device=device),
+        data_axis=data_axis,
     )

@@ -13,6 +13,13 @@ decay with k.  The k draws are one batched ``q.sample`` (the sampler kernel on a
 float32 Normal family) and one batched log-density; a full-rank family
 with ``solve_mode="pallas"`` whitens them with K8.  Weights are formed
 only through ``softmax`` and ``logsumexp`` of the log-weights.
+
+Under a device mesh with ``mc_axis`` each rank draws its rows of the k;
+the log-sum-exp over the mesh is a maximum and then a sum of the rows'
+exponentials (two reductions of values), the self-normalized weights are
+normalized by that global sum, and each rank differentiates its rows'
+surrogate terms (``-sum sg(w~) log w`` for the plain gradient); the first
+rank of the axis carries the bound.
 """
 
 from __future__ import annotations
@@ -29,7 +36,7 @@ from ..core.pytree import tree_stop_gradient, value_and_grad
 from ..optim.averaging import PolynomialAveraging
 from ..optim.operators import IdentityOperator
 from ..optim.rules import dowg
-from ..families.location_scale import check_mc_axis
+from ..parallel.mesh import mc_rows, own, pmax, psum
 from .repgradelbo import draw
 
 
@@ -41,7 +48,8 @@ class IWELBO:
       n_samples: k, the number of importance samples a step.
       dreg: the doubly-reparameterized gradient (default) or the plain IWAE
         gradient.
-      mc_axis: the samples over a device mesh; not ported (must be None).
+      mc_axis: the mesh axis that splits the samples (parallel/mesh.py), or
+        None.
 
     Needs a family with a reparameterized draw and ``log_prob``.
     """
@@ -49,9 +57,6 @@ class IWELBO:
     n_samples: int = 8
     dreg: bool = True
     mc_axis: Optional[str] = None
-
-    def __post_init__(self):
-        check_mc_axis(self.mc_axis)
 
     def init(self, seed, q, prob):
         self._check_family(q)
@@ -79,9 +84,12 @@ class IWELBO:
         self._check_family(q)
         prob = maybe_wrap_custom_grad(prob)
         k = self.n_samples
-        z = draw(q, key, k, noise)
+        rows = mc_rows(k, self.mc_axis)
+        z = draw(q, key, k, noise, rows)
         logp = prob.log_density(z)
         log_k = math.log(k)
+        if rows is not None:
+            return self._sharded_loss_and_aux(q, z, logp, log_k)
         if self.dreg:
             # the parameters enter only through z: a frozen density at live z
             logw = logp - tree_stop_gradient(q).log_prob(z)
@@ -95,12 +103,26 @@ class IWELBO:
             loss, bound = -live, live.detach()
         return loss, {"elbo": bound}
 
+    def _sharded_loss_and_aux(self, q, z, logp, log_k):
+        """This rank's surrogate terms, normalized by the mesh's log-sum-exp;
+        the bound on the axis's first rank (zero on the others)."""
+        axis = self.mc_axis
+        logw = logp - (tree_stop_gradient(q) if self.dreg else q).log_prob(z)
+        lw = logw.detach()
+        top = pmax(torch.max(lw), axis)
+        total = psum(torch.sum(torch.exp(lw - top)), axis)
+        w_norm = torch.exp(lw - top) / total
+        loss = -torch.sum((w_norm * w_norm if self.dreg else w_norm) * logw)
+        bound = top + torch.log(total) - log_k
+        return loss, {"elbo": bound if own(axis) else torch.zeros_like(bound)}
+
     def loss(self, q, prob, key, noise: Optional[torch.Tensor] = None) -> torch.Tensor:
         return self._loss_and_aux(q, prob, key, noise)[0]
 
     def value_and_grad(self, q, prob, key, obj_state=(), noise=None):
         """One gradient estimate; returns (grad family, obj_state, info)."""
-        grad, info = value_and_grad(lambda live: self._loss_and_aux(live, prob, key, noise), q)
+        grad, info = value_and_grad(lambda live: self._loss_and_aux(live, prob, key, noise), q,
+                                    self.mc_axis)
         return grad, obj_state, info
 
     @torch.no_grad()

@@ -10,6 +10,11 @@ in the variational parameters.  Only ``q.log_prob`` is differentiated, so
 the target need not be differentiable: this is the objective for value-only
 (order-0) targets.  ``info["elbo"]`` is the plain ELBO estimate, not the
 VarGrad value (reference scoregradelbo.jl:96-117).
+
+Under a device mesh with ``mc_axis`` each rank draws its rows; the
+gradient of var_n(f) / 2 is (1/n) sum_i (f_i - mean f) d log q(z_i), so the
+ranks first sum f for the global mean (one reduction of a value) and then
+differentiate their rows' part, which ``value_and_grad`` sums.
 """
 
 from __future__ import annotations
@@ -20,7 +25,7 @@ from typing import Optional
 import torch
 
 from ..core.pytree import tree_stop_gradient, value_and_grad
-from ..families.location_scale import check_mc_axis
+from ..parallel.mesh import mc_rows, psum
 from .repgradelbo import draw
 
 
@@ -31,14 +36,14 @@ class ScoreGradELBO:
     Args:
       n_samples: Monte-Carlo samples per gradient estimate, at least 2 (the
         control variate is a sample variance, identically 0 for one sample).
-      mc_axis: the samples over a device mesh; not ported (must be None).
+      mc_axis: the mesh axis that splits the samples (parallel/mesh.py), or
+        None.
     """
 
     n_samples: int = 2
     mc_axis: Optional[str] = None
 
     def __post_init__(self):
-        check_mc_axis(self.mc_axis)
         if self.n_samples < 2:
             raise ValueError(
                 "ScoreGradELBO (VarGrad) needs n_samples >= 2: the "
@@ -49,10 +54,12 @@ class ScoreGradELBO:
     def init(self, seed, q, prob):
         return ()  # stateless
 
-    def _draw(self, q, key, noise: Optional[torch.Tensor]) -> torch.Tensor:
+    def _draw(self, q, key, noise: Optional[torch.Tensor], rows=None) -> torch.Tensor:
         """Detached samples: the family's sampler, or its ``from_base`` of
-        injected base draws ``noise`` of shape (n_samples, q.base_dim)."""
-        return draw(q, key, self.n_samples, noise)
+        injected base draws ``noise`` of shape (n_samples, q.base_dim); this
+        rank's ``rows`` of them under a mesh."""
+        n = self.n_samples
+        return draw(q, key, n, noise, rows)
 
     def loss_and_elbo(self, q, prob, key, noise: Optional[torch.Tensor] = None):
         """(differentiable VarGrad loss, detached plain ELBO estimate).
@@ -66,13 +73,20 @@ class ScoreGradELBO:
                 "quadratic control variate mis-scales the subsampled "
                 "gradient. Use RepGradELBO for amortized subsampling."
             )
+        n = self.n_samples
+        rows = mc_rows(n, self.mc_axis)
         with torch.no_grad():
-            samples = self._draw(tree_stop_gradient(q), key, noise)
+            samples = self._draw(tree_stop_gradient(q), key, noise, rows)
             log_pi = prob.log_density(samples)
         log_q = q.log_prob(samples)
         f = log_q - log_pi
-        vargrad = (torch.mean(f * f) - torch.mean(f) ** 2) / 2.0
-        return vargrad, torch.mean(log_pi - log_q.detach())
+        if rows is None:
+            vargrad = (torch.mean(f * f) - torch.mean(f) ** 2) / 2.0
+            return vargrad, torch.mean(log_pi - log_q.detach())
+        # this rank's part of the gradient of var_n(f) / 2 about the global mean
+        f = f.detach()
+        f_mean = psum(torch.sum(f), self.mc_axis) / n
+        return torch.sum((f - f_mean) * log_q) / n, torch.sum(log_pi - log_q.detach()) / n
 
     def _loss_and_aux(self, q, prob, key, noise: Optional[torch.Tensor] = None):
         """(VarGrad loss, {"elbo": plain ELBO estimate}): the function a
@@ -82,7 +96,8 @@ class ScoreGradELBO:
 
     def value_and_grad(self, q, prob, key, obj_state=(), noise=None):
         """One gradient estimate; returns (grad family, obj_state, info)."""
-        grad, info = value_and_grad(lambda live: self._loss_and_aux(live, prob, key, noise), q)
+        grad, info = value_and_grad(lambda live: self._loss_and_aux(live, prob, key, noise), q,
+                                    self.mc_axis)
         return grad, obj_state, info
 
     @torch.no_grad()

@@ -6,7 +6,9 @@ to the step's batch with ``subsample`` (the likelihood rescaled by
 n / batch), restricts the family inside the differentiated function (the
 identity for the location-scale families, a row gather for amortized ones)
 and differentiates the inner objective there.  The batch gather is an
-``index_select`` on the target's device.
+``index_select`` on the target's device.  Under a device mesh every rank
+forms the same batch (the schedule is a function of the seed), and a
+target with a data axis takes its row block of it.
 """
 
 from __future__ import annotations
@@ -54,7 +56,8 @@ class SubsampledObjective:
         batch, sub_state, sub_info = self.subsampling.step(obj_state)
         prob_sub = subsample(prob, batch)
         grad, info = value_and_grad(
-            lambda live: self._loss_and_aux(live, prob_sub, batch, key, noise), q)
+            lambda live: self._loss_and_aux(live, prob_sub, batch, key, noise), q,
+            getattr(self.objective, "mc_axis", None))
         return grad, sub_state, {**info, **sub_info}
 
     @torch.no_grad()

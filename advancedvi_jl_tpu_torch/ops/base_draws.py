@@ -45,8 +45,17 @@ def key_generator(key: SeedLike, device) -> torch.Generator:
     return generator(w[:2], device)
 
 
-def draw(base, key: SeedLike, n: int, m: int, dtype: torch.dtype, device) -> torch.Tensor:
-    """(n, m) iid draws of ``base`` for ``key``, in ``dtype`` on ``device``."""
+def draw(base, key: SeedLike, n: int, m: int, dtype: torch.dtype, device,
+         rows=None) -> torch.Tensor:
+    """(n, m) iid draws of ``base`` for ``key``, in ``dtype`` on ``device``;
+    with ``rows=(row0, count)`` those rows of them.  A generator cannot start
+    at a row, so a rank of a device mesh's "mc" axis draws the whole (n, m)
+    block and keeps its rows (the sampler kernels draw only theirs)."""
+    u = _draw(base, key, n, m, dtype, device)
+    return u if rows is None else u.narrow(0, rows[0], rows[1])
+
+
+def _draw(base, key: SeedLike, n: int, m: int, dtype: torch.dtype, device) -> torch.Tensor:
     g = key_generator(key, device)
     shape = (n, m)
     if isinstance(base, Normal):

@@ -714,7 +714,10 @@ class FusedChainsADVI:
             raise ValueError(f"log_every must be >= 1, got {log_every}")
         return self._run(state, key, steps, noise, log_every)
 
-    def _run(self, state, key, steps, noise, log_every):
+    def _run(self, state, key, steps, noise, log_every, chains=None, gather=None):
+        """The launch of ``run_chunk(_traced)``; ``chains=(c0, count)``
+        launches those chains alone (a rank's block in ``run_sharded``), and
+        ``gather`` turns their (rows, ELBOs, trace) into every chain's."""
         if steps < 0:
             raise ValueError(f"steps must be >= 0, got {steps}")
         if log_every and steps % log_every:
@@ -744,22 +747,64 @@ class FusedChainsADVI:
         with_ext = self.n_rows == 14
         keep = None if with_ext else state.ext  # another rule's ext rows ride through
         consts = self.model.consts if self.ad is None else self.ad.consts
+        sl = slice(None) if chains is None else slice(chains[0], chains[0] + chains[1])
         rows, elbo, trace = fused_chains_run_chunk(
             self.model.model, consts, self.model.scalars,
-            state.stacked(with_ext=with_ext), self.chain_seeds(key), state.iteration, steps,
-            n, self.hyp, noise, log_every, self.branch(), self.lrs, self.rules, self.ad,
+            state.stacked(with_ext=with_ext)[sl], self.chain_seeds(key)[sl], state.iteration,
+            steps, n, self.hyp, noise, log_every, self.branch(),
+            None if self.lrs is None else self.lrs[sl], self.rules, self.ad,
             interpret=self.interpret,
         )
+        if gather is not None:
+            rows, elbo, trace = gather(rows, elbo, trace)
         new = FusedChainsState.from_stacked(rows, state.iteration + steps, elbo, keep)
         return new, trace
 
-    def run_sharded(self, *args, **kwargs):
-        """The JAX engine's chain axis over a device mesh: not ported (one card
-        runs the chain axis as the launch grid)."""
-        raise NotImplementedError(
-            "run_sharded (the chain axis over several devices) is not ported yet "
-            "(ROADMAP Queue 1 item 17); on one card the chain axis is the launch grid"
-        )
+    def run_sharded(self, state: FusedChainsState, key: SeedLike, steps: int, mesh,
+                    axis: str = "mc", log_every: int = 0):
+        """``run_chunk`` with the chain axis over ``mesh[axis]``: each rank
+        launches the kernel once on its contiguous block of chains
+        [i C / R, (i + 1) C / R) and the blocks are gathered, in chain order,
+        on every rank (no other collective).  Chain c draws under the run's
+        chain key ``chain_seed_words(key, c)`` whatever rank runs it, so the
+        result is bit for bit the one-rank ``run_chunk``.  A per-chain lr
+        sweep takes the block's lrs.  Needs n_chains a multiple of 8 and of
+        the axis size, the block a multiple of 8 (the JAX engine's checks).
+
+        ``log_every > 0`` returns ``(state, trace)`` with the per-chain ELBO
+        trace in global chain order (feed it to ``first_chain_divergence``);
+        0 returns the state."""
+        from ...parallel.mesh import all_gather_rows, block, use_mesh
+
+        n_dev = mesh.size(mesh.mesh_dim_names.index(axis))
+        if self.rules is not None:
+            raise ValueError(
+                "run_sharded does not yet support mixed per-chain rule "
+                "sweeps; run them single-device (one dispatch) or build "
+                "one engine per device"
+            )
+        if self.n_chains % 8 or self.n_chains % n_dev:
+            raise ValueError(
+                f"run_sharded needs n_chains (= {self.n_chains}) to be a "
+                f"multiple of 8 and of the '{axis}' axis size {n_dev}"
+            )
+        c_loc = self.n_chains // n_dev
+        if c_loc % 8:
+            raise ValueError(
+                f"per-device chain block {c_loc} must be a multiple of 8"
+            )
+        if log_every < 0:
+            raise ValueError(f"log_every must be >= 0, got {log_every}")
+        C = self.n_chains
+
+        def gather(rows, elbo, trace):  # every rank's block, in chain order
+            with use_mesh(mesh):
+                return (all_gather_rows(rows, C, axis), all_gather_rows(elbo, C, axis),
+                        all_gather_rows(trace, C, axis, dim=1) if log_every else trace)
+
+        c0, _ = block(C, n_dev, mesh.get_local_rank(axis))
+        new, trace = self._run(state, key, steps, None, log_every, (c0, c_loc), gather)
+        return (new, trace) if log_every else new
 
     def chains_per_block(self, sms: Optional[int] = None, block_bytes=None) -> int:
         """G, the chains each block of this engine's launches takes on a card

@@ -16,7 +16,11 @@ PyTorch (``philox4x32_reference``):
 
 So a draw depends on (seed, iteration, row, lane) only: never on the chunk,
 the launch geometry or the device, which is the step-indexed contract of
-the reference's fused engine (fused_advi.py:465-473).  Uniforms take the
+the reference's fused engine (fused_advi.py:465-473).  Every sampler takes
+a row offset ``row0``: a draw of n rows at ``row0`` is rows [row0, row0 + n)
+of any larger draw, bit for bit, so each rank of a device mesh's "mc" axis
+draws its own rows and nothing else (the port's counterpart of the
+reference's ``jax_threefry_partitionable``).  Uniforms take the
 top 23 bits by the mantissa trick and normals are
 ``sqrt(-2 log(u1 + 2^-24)) * cos(2 pi u2)``, the reference's Box-Muller.
 
@@ -187,16 +191,24 @@ def box_muller(u1: torch.Tensor, u2: torch.Tensor) -> torch.Tensor:
     )
 
 
+def check_row0(row0: int, n: int) -> None:
+    """Raise unless rows [row0, row0 + n) lie in the 32-bit counter word."""
+    if not 0 <= row0 or row0 + n > _MASK32 + 1:
+        raise ValueError(f"rows [{row0}, {row0 + n}) do not fit the 32-bit counter row")
+
+
 def philox_normals_reference(
-    seed, it: int, n: int, d: int, device=None, stream: int = 0
+    seed, it: int, n: int, d: int, device=None, stream: int = 0, row0: int = 0
 ) -> torch.Tensor:
     """(n, d) standard normals of iteration ``it`` (an int, or an int64
     tensor of one element): element (i, j) comes from
-    counters (it, i, j // 4, stream) and (it, i, j // 4, stream + 1) at
-    position j % 4 of the output words.  ``seed``: two words, or a (C, 2)
-    int64 tensor of C keys, which gives (C, n, d), one key a leading row."""
+    counters (it, row0 + i, j // 4, stream) and (it, row0 + i, j // 4,
+    stream + 1) at position j % 4 of the output words.  ``seed``: two words,
+    or a (C, 2) int64 tensor of C keys, which gives (C, n, d), one key a
+    leading row."""
+    check_row0(row0, n)
     groups = -(-d // 4)
-    row = torch.arange(n, dtype=torch.int64, device=device).view(n, 1)
+    row = torch.arange(row0, row0 + n, dtype=torch.int64, device=device).view(n, 1)
     grp = torch.arange(groups, dtype=torch.int64, device=device).view(1, groups)
     c0 = torch.as_tensor(it & _MASK32, dtype=torch.int64, device=device)
     lead: Tuple[int, ...] = ()
@@ -228,14 +240,16 @@ def _check_it_word(it_word: torch.Tensor, offset: int) -> None:
 def meanfield_sample_reference(
     seed: Tuple[int, int], it: int, location: torch.Tensor,
     scale_diag: torch.Tensor, n: int, it_word: Optional[torch.Tensor] = None,
+    row0: int = 0,
 ):
-    """Plain version of the kernel: z = u * sigma + m; returns (z, u).
-    With ``it_word``, the draws are those of iteration ``it_word + it``."""
+    """Plain version of the kernel: z = u * sigma + m; returns (z, u), rows
+    [row0, row0 + n) of the draw.  With ``it_word``, the draws are those of
+    iteration ``it_word + it``."""
     if it_word is not None:
         _check_it_word(it_word, it)
         it = it_word.reshape(()) + it
     u = philox_normals_reference(
-        seed, it, n, location.shape[0], device=location.device
+        seed, it, n, location.shape[0], device=location.device, row0=row0
     )
     return u * scale_diag + location, u
 
@@ -254,16 +268,17 @@ def check_f32(name: str, t: torch.Tensor, shape, device) -> None:
 _SAMPLE_ARGTYPES = (
     [ctypes.c_void_p] * 4
     + [ctypes.c_int, ctypes.c_int, ctypes.c_uint32, ctypes.c_uint32,
-       ctypes.c_uint32, ctypes.c_void_p, ctypes.c_void_p]
+       ctypes.c_uint32, ctypes.c_uint32, ctypes.c_void_p, ctypes.c_void_p]
 )
 
 
 def meanfield_sample_cuda(
     seed: Tuple[int, int], it: int, location: torch.Tensor,
     scale_diag: torch.Tensor, n: int, it_word: Optional[torch.Tensor] = None,
+    row0: int = 0,
 ):
     """Launch csrc/meanfield_sample.cu on the current stream; returns (z, u),
-    two views of one (2, n, d) buffer.  With ``it_word`` (an int64 tensor of
+    two views of one (2, n, d) buffer: rows [row0, row0 + n) of the draw.  With ``it_word`` (an int64 tensor of
     one element on the card), the kernel reads the iteration there: it
     draws iteration ``it_word + it``, ``it`` an offset, so that a CUDA graph
     of launches at offsets 0 .. K-1 draws K new iterations at each replay
@@ -276,6 +291,7 @@ def meanfield_sample_cuda(
                              f"{it_word.device}")
     if not location.is_cuda:
         raise ValueError(f"meanfield_sample_cuda needs GPU tensors, got {location.device}")
+    check_row0(row0, n)
     dev = location.device
     d = location.shape[0]
     check_f32("location", location, (d,), dev)
@@ -292,7 +308,7 @@ def meanfield_sample_cuda(
         return z, u
     err = _build.launch(
         fn, dev, location.data_ptr(), scale_diag.data_ptr(), z.data_ptr(), u.data_ptr(), n, d,
-        seed[0], seed[1], it & _MASK32, None if it_word is None else it_word.data_ptr())
+        seed[0], seed[1], it & _MASK32, row0, None if it_word is None else it_word.data_ptr())
     _build.check(err, "meanfield_sample launch")
     meanfield_sample_cuda.launches += 1
     return z, u
@@ -302,12 +318,12 @@ meanfield_sample_cuda.launches = 0
 meanfield_sample_cuda.fn = None  # the C entry, fetched (and built) at the first launch
 
 
-def meanfield_sample_raw(seed, it, location, scale_diag, n, it_word=None):
+def meanfield_sample_raw(seed, it, location, scale_diag, n, it_word=None, row0=0):
     """Kernel for CUDA tensors, plain version for CPU tensors."""
     if location.is_cuda:
-        return meanfield_sample_cuda(seed, it, location, scale_diag, n, it_word)
+        return meanfield_sample_cuda(seed, it, location, scale_diag, n, it_word, row0)
     if location.device.type == "cpu":
-        return meanfield_sample_reference(seed, it, location, scale_diag, n, it_word)
+        return meanfield_sample_reference(seed, it, location, scale_diag, n, it_word, row0)
     raise ValueError(f"no sampler for device {location.device}")
 
 
@@ -316,8 +332,8 @@ class _MeanFieldSample(torch.autograd.Function):
     ``_mf_bwd``: the backward is two reductions, outside the kernel)."""
 
     @staticmethod
-    def forward(ctx, location, scale_diag, seed, it, n):
-        z, u = meanfield_sample_raw(seed, it, location, scale_diag, n)
+    def forward(ctx, location, scale_diag, seed, it, n, row0):
+        z, u = meanfield_sample_raw(seed, it, location, scale_diag, n, row0=row0)
         ctx.save_for_backward(u)
         ctx.mark_non_differentiable(u)
         return z, u
@@ -325,15 +341,17 @@ class _MeanFieldSample(torch.autograd.Function):
     @staticmethod
     def backward(ctx, ct_z, ct_u):
         (u,) = ctx.saved_tensors
-        return ct_z.sum(dim=0), (ct_z * u).sum(dim=0), None, None, None
+        return ct_z.sum(dim=0), (ct_z * u).sum(dim=0), None, None, None, None
 
 
 def meanfield_sample(
     seed: Tuple[int, int], it: int, location: torch.Tensor,
-    scale_diag: torch.Tensor, n: int,
+    scale_diag: torch.Tensor, n: int, row0: int = 0,
 ):
-    """Fused z = u * sigma + m; returns (z, u), differentiable in (m, sigma)."""
-    return _MeanFieldSample.apply(location, scale_diag, tuple(seed), int(it), int(n))
+    """Fused z = u * sigma + m; returns (z, u), rows [row0, row0 + n) of the
+    draw, differentiable in (m, sigma)."""
+    return _MeanFieldSample.apply(location, scale_diag, tuple(seed), int(it), int(n),
+                                  int(row0))
 
 
 # ---------------------------------------------------------------------------
@@ -351,12 +369,13 @@ def fullrank_affine_reference(
 
 def fullrank_sample_reference(
     seed: Tuple[int, int], it: int, location: torch.Tensor,
-    scale: torch.Tensor, n: int,
+    scale: torch.Tensor, n: int, row0: int = 0,
 ):
-    """Plain version of the kernel: z = u tril(C)^T + m; returns (z, u).
-    u is the mean-field sampler's draw for the same (seed, it)."""
+    """Plain version of the kernel: z = u tril(C)^T + m; returns (z, u),
+    rows [row0, row0 + n) of the draw.  u is the mean-field sampler's draw
+    for the same (seed, it)."""
     u = philox_normals_reference(
-        seed, it, n, location.shape[0], device=location.device
+        seed, it, n, location.shape[0], device=location.device, row0=row0
     )
     return fullrank_affine_reference(u, location, scale), u
 
@@ -428,7 +447,7 @@ def fullrank_plan(n: int, d: int, sms: int) -> FullRankPlan:
 _FR_PLANS = {}  # (n, d, device index) -> (plan, its table on the card)
 _FR_ARGTYPES = (
     [ctypes.c_void_p] * 7
-    + [ctypes.c_int] * 4 + [ctypes.c_uint32] * 3 + [ctypes.c_void_p]
+    + [ctypes.c_int] * 4 + [ctypes.c_uint32] * 4 + [ctypes.c_void_p]
 )
 
 
@@ -444,13 +463,15 @@ def _card_plan(n: int, d: int, device: torch.device):
 
 def fullrank_sample_cuda(
     seed: Tuple[int, int], it: int, location: torch.Tensor,
-    scale: torch.Tensor, n: int,
+    scale: torch.Tensor, n: int, row0: int = 0,
 ):
     """Launch csrc/fullrank_sample.cu on the current stream (the draws, then
-    the product); returns (z, u).  Only the lower triangle of ``scale`` is
-    read.  Adds one to ``fullrank_sample_cuda.launches`` per call."""
+    the product); returns (z, u), rows [row0, row0 + n) of the draw.  Only
+    the lower triangle of ``scale`` is read.  Adds one to
+    ``fullrank_sample_cuda.launches`` per call."""
     if not location.is_cuda:
         raise ValueError(f"fullrank_sample_cuda needs GPU tensors, got {location.device}")
+    check_row0(row0, n)
     dev = location.device
     d = location.shape[0]
     check_f32("location", location, (d,), dev)
@@ -470,7 +491,7 @@ def fullrank_sample_cuda(
             location.data_ptr(), scale.data_ptr(), z.data_ptr(), u.data_ptr(),
             work.data_ptr(), work.data_ptr() + 4 * plan.slots * FR_TILE * FR_TILE,
             table.data_ptr(), plan.blocks, plan.tiles, n, d, seed[0], seed[1],
-            it & _MASK32, stream,
+            it & _MASK32, row0, stream,
         )
     _build.check(err, "fullrank_sample launch")
     fullrank_sample_cuda.launches += 1
@@ -480,12 +501,12 @@ def fullrank_sample_cuda(
 fullrank_sample_cuda.launches = 0
 
 
-def fullrank_sample_raw(seed, it, location, scale, n):
+def fullrank_sample_raw(seed, it, location, scale, n, row0=0):
     """Kernel for CUDA tensors, plain version for CPU tensors."""
     if location.is_cuda:
-        return fullrank_sample_cuda(seed, it, location, scale, n)
+        return fullrank_sample_cuda(seed, it, location, scale, n, row0)
     if location.device.type == "cpu":
-        return fullrank_sample_reference(seed, it, location, scale, n)
+        return fullrank_sample_reference(seed, it, location, scale, n, row0)
     raise ValueError(f"no sampler for device {location.device}")
 
 
@@ -494,8 +515,8 @@ class _FullRankSample(torch.autograd.Function):
     reference's ``_fr_bwd``; the product runs outside the kernel)."""
 
     @staticmethod
-    def forward(ctx, location, scale, seed, it, n):
-        z, u = fullrank_sample_raw(seed, it, location, scale, n)
+    def forward(ctx, location, scale, seed, it, n, row0):
+        z, u = fullrank_sample_raw(seed, it, location, scale, n, row0)
         ctx.save_for_backward(u)
         ctx.mark_non_differentiable(u)
         return z, u
@@ -503,15 +524,16 @@ class _FullRankSample(torch.autograd.Function):
     @staticmethod
     def backward(ctx, ct_z, ct_u):
         (u,) = ctx.saved_tensors
-        return ct_z.sum(dim=0), torch.tril(ct_z.T @ u), None, None, None
+        return ct_z.sum(dim=0), torch.tril(ct_z.T @ u), None, None, None, None
 
 
 def fullrank_sample(
     seed: Tuple[int, int], it: int, location: torch.Tensor,
-    scale: torch.Tensor, n: int,
+    scale: torch.Tensor, n: int, row0: int = 0,
 ):
-    """Fused z = u tril(C)^T + m; returns (z, u), differentiable in (m, C)."""
-    return _FullRankSample.apply(location, scale, tuple(seed), int(it), int(n))
+    """Fused z = u tril(C)^T + m; returns (z, u), rows [row0, row0 + n) of
+    the draw, differentiable in (m, C)."""
+    return _FullRankSample.apply(location, scale, tuple(seed), int(it), int(n), int(row0))
 
 
 # ---------------------------------------------------------------------------
@@ -524,32 +546,36 @@ LOWRANK_FACTOR_STREAM = 2
 
 def lowrank_sample_reference(
     seed: Tuple[int, int], it: int, location: torch.Tensor,
-    scale_diag: torch.Tensor, scale_factors: torch.Tensor, n: int,
+    scale_diag: torch.Tensor, scale_factors: torch.Tensor, n: int, row0: int = 0,
 ):
     """Plain version of the kernel: z = u1 * D + u2 U^T + m; returns (z, u1,
-    u2).  u1 is the mean-field sampler's draw for the same (seed, it); u2
-    (n, r) comes from counters (it, row, k // 4, 2) and (..., 3)."""
+    u2), rows [row0, row0 + n) of the draw.  u1 is the mean-field sampler's
+    draw for the same (seed, it); u2 (n, r) comes from counters (it, row,
+    k // 4, 2) and (..., 3)."""
     d, r = scale_factors.shape
     dev = location.device
-    u1 = philox_normals_reference(seed, it, n, d, device=dev)
-    u2 = philox_normals_reference(seed, it, n, r, device=dev, stream=LOWRANK_FACTOR_STREAM)
+    u1 = philox_normals_reference(seed, it, n, d, device=dev, row0=row0)
+    u2 = philox_normals_reference(seed, it, n, r, device=dev, stream=LOWRANK_FACTOR_STREAM,
+                                  row0=row0)
     return u1 * scale_diag + u2 @ scale_factors.T + location, u1, u2
 
 
 _LOWRANK_ARGTYPES = (
     [ctypes.c_void_p] * 6
-    + [ctypes.c_int] * 3 + [ctypes.c_uint32] * 3 + [ctypes.c_void_p]
+    + [ctypes.c_int] * 3 + [ctypes.c_uint32] * 4 + [ctypes.c_void_p]
 )
 
 
 def lowrank_sample_cuda(
     seed: Tuple[int, int], it: int, location: torch.Tensor,
-    scale_diag: torch.Tensor, scale_factors: torch.Tensor, n: int,
+    scale_diag: torch.Tensor, scale_factors: torch.Tensor, n: int, row0: int = 0,
 ):
     """Launch csrc/lowrank_sample.cu on the current stream; returns (z, u1,
-    u2).  Adds one to ``lowrank_sample_cuda.launches`` per launch."""
+    u2), rows [row0, row0 + n) of the draw.  Adds one to
+    ``lowrank_sample_cuda.launches`` per launch."""
     if not location.is_cuda:
         raise ValueError(f"lowrank_sample_cuda needs GPU tensors, got {location.device}")
+    check_row0(row0, n)
     dev = location.device
     d = location.shape[0]
     r = scale_factors.shape[1] if scale_factors.ndim == 2 else -1
@@ -574,7 +600,7 @@ def lowrank_sample_cuda(
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(location.data_ptr(), scale_diag.data_ptr(), scale_factors.data_ptr(),
                  z.data_ptr(), u1.data_ptr(), u2.data_ptr(), n, d, r,
-                 seed[0], seed[1], it & _MASK32, stream)
+                 seed[0], seed[1], it & _MASK32, row0, stream)
     _build.check(err, "lowrank_sample launch")
     lowrank_sample_cuda.launches += 1
     return z, u1, u2
@@ -583,12 +609,12 @@ def lowrank_sample_cuda(
 lowrank_sample_cuda.launches = 0
 
 
-def lowrank_sample_raw(seed, it, location, scale_diag, scale_factors, n):
+def lowrank_sample_raw(seed, it, location, scale_diag, scale_factors, n, row0=0):
     """Kernel for CUDA tensors, plain version for CPU tensors."""
     if location.is_cuda:
-        return lowrank_sample_cuda(seed, it, location, scale_diag, scale_factors, n)
+        return lowrank_sample_cuda(seed, it, location, scale_diag, scale_factors, n, row0)
     if location.device.type == "cpu":
-        return lowrank_sample_reference(seed, it, location, scale_diag, scale_factors, n)
+        return lowrank_sample_reference(seed, it, location, scale_diag, scale_factors, n, row0)
     raise ValueError(f"no sampler for device {location.device}")
 
 
@@ -597,8 +623,8 @@ class _LowRankSample(torch.autograd.Function):
     dU = ct_z^T u2 (the reference's ``_lr_bwd``; outside the kernel)."""
 
     @staticmethod
-    def forward(ctx, location, scale_diag, scale_factors, seed, it, n):
-        z, u1, u2 = lowrank_sample_raw(seed, it, location, scale_diag, scale_factors, n)
+    def forward(ctx, location, scale_diag, scale_factors, seed, it, n, row0):
+        z, u1, u2 = lowrank_sample_raw(seed, it, location, scale_diag, scale_factors, n, row0)
         ctx.save_for_backward(u1, u2)
         ctx.mark_non_differentiable(u1, u2)
         return z, u1, u2
@@ -606,17 +632,17 @@ class _LowRankSample(torch.autograd.Function):
     @staticmethod
     def backward(ctx, ct_z, ct_u1, ct_u2):
         u1, u2 = ctx.saved_tensors
-        return ct_z.sum(dim=0), (ct_z * u1).sum(dim=0), ct_z.T @ u2, None, None, None
+        return ct_z.sum(dim=0), (ct_z * u1).sum(dim=0), ct_z.T @ u2, None, None, None, None
 
 
 def lowrank_sample(
     seed: Tuple[int, int], it: int, location: torch.Tensor,
-    scale_diag: torch.Tensor, scale_factors: torch.Tensor, n: int,
+    scale_diag: torch.Tensor, scale_factors: torch.Tensor, n: int, row0: int = 0,
 ):
-    """Fused z = u1 D + u2 U^T + m; returns (z, u1, u2), differentiable in
-    (m, D, U)."""
+    """Fused z = u1 D + u2 U^T + m; returns (z, u1, u2), rows [row0, row0 +
+    n) of the draw, differentiable in (m, D, U)."""
     return _LowRankSample.apply(location, scale_diag, scale_factors, tuple(seed), int(it),
-                                int(n))
+                                int(n), int(row0))
 
 
 def normal_moments_ok(u: torch.Tensor, sigmas: float = 5.0) -> bool:

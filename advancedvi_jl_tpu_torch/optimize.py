@@ -22,6 +22,13 @@ the keywords it declares; returning ``{"terminate": True}`` stops the run,
 as does the algorithm's own ``terminate``.
 Warm start: pass the returned ``state`` back as ``state=``.
 
+``mesh`` (``parallel.make_vi_mesh``): the run happens under the mesh
+(``parallel.mesh.use_mesh``), its state initialised on every rank and
+broadcast from the first; the objective's ``mc_axis`` splits the draws and
+the target's ``data_axis`` the data.  The reduced ELBO is the same on every
+rank, so every rank raises a divergence at the same step and returns the
+same output.
+
 ``show_progress`` / ``progress`` (a ``utils.progress.ProgressMeter``, which
 implies ``show_progress``): one updating line of the merged info.  The meter
 moves at each chunk's host read, so with no ``chunk_size`` (and no
@@ -55,6 +62,7 @@ def optimize(
     show_progress: bool = False,
     progress: Optional[Any] = None,
     check_divergence: bool = True,
+    mesh: Optional[Any] = None,
     log_every: int = 1,
 ):
     """Run a variational inference algorithm.
@@ -66,6 +74,17 @@ def optimize(
     """
     if log_every < 1:
         raise ValueError(f"log_every must be >= 1, got {log_every}")
+    if mesh is not None:
+        from .parallel.mesh import replicate_state, use_mesh
+
+        with use_mesh(mesh):
+            if state is None:
+                state = algorithm.init(seed, q_init, prob)
+            return optimize(seed, algorithm, max_iter, prob, q_init,
+                            state=replicate_state(state, mesh), callback=callback,
+                            chunk_size=chunk_size, show_progress=show_progress,
+                            progress=progress, check_divergence=check_divergence,
+                            log_every=log_every)
     if show_progress and progress is None:
         from .utils.progress import ProgressMeter
 

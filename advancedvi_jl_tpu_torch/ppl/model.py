@@ -40,6 +40,12 @@ Jacobians ride the rescaled likelihood.  Site order, flat layout, ``dim``
 and ``dim_constrained`` are the reference's.  ``data`` may hold numpy
 arrays (a JAX model's data pass across as numpy): they become tensors on
 ``device``, float arrays as float32.
+
+``data_axis``: under a device mesh with that axis (parallel/mesh.py) a rank
+replays the model on its row block of the data (or of the minibatch), in
+local-latent mode with its rows' local latents, and the blocks'
+likelihood sums are summed over the axis (``data_psum``); the priors and
+global evidence are replicated.
 """
 
 from __future__ import annotations
@@ -53,6 +59,7 @@ import torch
 
 from ..core.factorized import _first_tensor, _map_data
 from ..core.problem import ORDER_AUTOGRAD, fn_target
+from ..parallel.mesh import data_psum, mesh_of, rows_of, shard_axis0
 from ..core.transforms import (
     Blockwise,
     Identity,
@@ -182,11 +189,12 @@ class _Replayer:
         return val
 
 
-def _over_rows(fn: Callable, theta: torch.Tensor) -> torch.Tensor:
-    """``fn`` of one vector (d,) -> () at every row of theta (..., d)."""
+def _over_rows(fn: Callable, theta: torch.Tensor, width: Optional[int] = None) -> torch.Tensor:
+    """``fn`` of one vector (d,) -> () (or -> (width,)) at every row of
+    theta (..., d)."""
     if theta.dim() == 1:
         return fn(theta)
-    lead = theta.shape[:-1]
+    lead = theta.shape[:-1] + (() if width is None else (width,))
     return torch.func.vmap(fn)(theta.reshape(-1, theta.shape[-1])).reshape(lead)
 
 
@@ -264,14 +272,6 @@ def _to_device(data: Any, device) -> Any:
     return data
 
 
-def _check_data_axis(data_axis) -> None:
-    if data_axis is not None:
-        raise NotImplementedError(
-            "data_axis= shards the data over a device mesh, which the port does not "
-            "have yet (ROADMAP Queue 1 item 17)"
-        )
-
-
 # ---------------------------------------------------------------------------
 # The ingested model
 # ---------------------------------------------------------------------------
@@ -293,18 +293,38 @@ class PPLTarget:
     data_axis: Optional[str] = None
     local_k: int = 0
 
-    def __post_init__(self):
-        _check_data_axis(self.data_axis)
-
     def order(self) -> int:
         return ORDER_AUTOGRAD
 
     def log_density(self, theta: torch.Tensor) -> torch.Tensor:
+        if mesh_of(self.data_axis) is not None:
+            return self._sharded_log_density(theta)
+
         def one(th):
             logprior, loglike = self.replay_fn(th, self.data)
             return logprior + self.likeadj * loglike
 
         return _over_rows(one, theta)
+
+    def _sharded_log_density(self, theta: torch.Tensor) -> torch.Tensor:
+        """The replay on this rank's rows of the data axis (and, in local
+        mode, their block of theta's local latents); the likelihood summed
+        over the axis."""
+        axis = self.data_axis
+        n = _first_tensor(self.data).shape[0]
+        data = _map_data(lambda x: shard_axis0(x, axis), self.data)
+        if self.local_k:
+            row0, rows = rows_of(n, axis)
+            k, dg = self.local_k, self.dim - n * self.local_k
+            theta = torch.cat([theta[..., :dg],
+                               theta[..., dg + row0 * k: dg + (row0 + rows) * k]], dim=-1)
+
+        def one(th):
+            logprior, loglike = self.replay_fn(th, data)
+            return torch.stack([th.new_zeros(()) + logprior, th.new_zeros(()) + loglike])
+
+        parts = _over_rows(one, theta, width=2)
+        return parts[..., 0] + self.likeadj * data_psum(parts[..., 1], axis)
 
     def subsample(self, indices: torch.Tensor) -> "PPLTarget":
         batch = indices.shape[0]
@@ -324,7 +344,6 @@ class Model:
 
     def __init__(self, model_fn, data, latents, model_args, model_kwargs, data_axis=None,
                  device="cuda"):
-        _check_data_axis(data_axis)
         self._fn = model_fn
         self._data = data
         self.latents = latents  # ordered {name: meta}
@@ -537,9 +556,8 @@ def ingest(
     argument; it goes to ``device`` and enables the minibatch subsampling of
     plate-observed sites with the likelihood rescaled.  Without it the model
     takes only ``model_args`` / ``model_kwargs`` and the target is full
-    batch.  ``seed`` seeds the trace pass's torch generator.  ``data_axis``
-    (the data sharded over a device mesh) is not ported: anything but None
-    raises."""
+    batch.  ``seed`` seeds the trace pass's torch generator.  ``data_axis``:
+    the mesh axis that splits the data rows (parallel/mesh.py)."""
     if data is not _NO_DATA:
         data = _to_device(data, device)
     tracer = _run_tracer(model_fn, seed, device, data, model_args, model_kwargs)

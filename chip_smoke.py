@@ -161,10 +161,20 @@ Phases:
       a ``ProgressMeter`` and a ``save_state`` (from its callback) /
       ``restore_state`` resume bitwise the uninterrupted run, the ingested random effects in local
       mode, and ``optimize_streamed`` on the 500,000 x 60 logreg from host
-      RAM; the ingested chunk's time beside the hand one.
+      RAM; the ingested chunk's time beside the hand one;
+  (ad) the device mesh (parallel/): a one-rank NCCL group and its (1 x 1)
+      mesh, counted: the flagship with ``mc_axis`` and ``data_axis`` through
+      ``optimize(mesh=)`` for 1,000 steps, full-rank and low-rank ADVI for
+      200, ``FusedChainsADVI.run_sharded`` at C = 64, each bitwise its run
+      without a mesh; then two ranks spawned on the card over gloo
+      (``chip_smoke.py --mesh-rank RANK PORT DIR``): K7a, K7b and K7c at each
+      rank's row offset against their plain versions and the whole draw's
+      rows, and, counted, the flagship on the (1 x 2) "mc" and (2 x 1) "data"
+      meshes for 500 steps (the ranks equal, within rtol 1e-5 of one
+      process) and ``run_sharded`` at C = 1,024 (bitwise ``run_chunk``).
 
 With ``--parent CHECKOUT`` (e.g. a ``git archive`` of the parent commit
-under the ignored ``_archive/``) it then times K8, K7b, K7a, the K9 probes,
+under the ignored ``_archive/``) it then times K8, K7b, K7c, K7a, the K9 probes,
 a step of flagship ADVI through ``optimize`` and the chunks of
 ``ab_chunks`` with that checkout's package and with this one's, a fresh
 process each, alternating, each side with the mean-field phase split of
@@ -179,7 +189,7 @@ Every failed check raises and the script exits non-zero; it also exits
 non-zero without a CUDA device, or when the package is not beside it.  The
 line before the last is a JSON object of the kernels (launch counts from the
 main-path runs of (f), (g), (l), (o), (p), (s), (u), (w), (x), (y), (z),
-(aa), (ab) and (ac), errors, times, each time's bound on this card and
+(aa), (ab), (ac) and (ad), errors, times, each time's bound on this card and
 the library call's time where the line has one); the last
 line is ``{"ok": true, "device": {...}}``.  It imports no JAX.
 """
@@ -843,9 +853,9 @@ def launch_shapes():
     hooks = ((lsk, "meanfield_sample_raw", "meanfield_sample",
               lambda seed, it, loc, *a, **k: (loc, (int(a[1]), loc.shape[-1]))),
              (lsk, "fullrank_sample_raw", "fullrank_sample",
-              lambda seed, it, loc, C, n: (loc, (int(n), loc.shape[-1]))),
+              lambda seed, it, loc, C, n, *_: (loc, (int(n), loc.shape[-1]))),
              (lsk, "lowrank_sample_raw", "lowrank_sample",
-              lambda seed, it, loc, D, U, n: (loc, (int(n), loc.shape[-1], U.shape[-1]))),
+              lambda seed, it, loc, D, U, n, *_: (loc, (int(n), loc.shape[-1], U.shape[-1]))),
              (tk, "solve_right", "trisolve", lambda C, V, mode="C": (V, tuple(V.shape))))
     saved = []
     for mod, name, kernel, shape_of in hooks:
@@ -1287,7 +1297,8 @@ def walking(fn, args, step=200):
 def ab_times(dev):
     """The A/B's side of one checkout, run in a child process with that
     checkout's package: K8 at 256 x 1024 in both modes (events and graph
-    replay), K7b at 256 x 1024 and 128 x 2048 (graph replay), K7a at 10 x 62
+    replay), K7b at 256 x 1024 and 128 x 2048 (graph replay), K7c at
+    65,536 x 256, rank 8 (graph replay), K7a at 10 x 62
     (graph replay, behind a kernel that writes m, host time a call), each K9
     probe (graph replay, host time a call), a step of flagship ADVI through
     ``optimize`` (``optimize_step_ms``), every chunk of ``ab_chunks``, and
@@ -1296,7 +1307,7 @@ def ab_times(dev):
     chunks."""
     from advancedvi_jl_tpu_torch.ops.cuda import _build
     from advancedvi_jl_tpu_torch.ops.cuda.location_scale_kernels import (
-        fullrank_sample_cuda, meanfield_sample_cuda, seed_words,
+        fullrank_sample_cuda, lowrank_sample_cuda, meanfield_sample_cuda, seed_words,
     )
     from advancedvi_jl_tpu_torch.ops.cuda.probe_kernels import probe_cuda, probe_inputs
     from advancedvi_jl_tpu_torch.ops.cuda.trisolve_kernels import solve_right_cuda
@@ -1320,6 +1331,12 @@ def ab_times(dev):
         loc = torch.randn(d, generator=torch.Generator().manual_seed(d)).to(dev)
         out[f"fullrank_sample_{n}x{d}_graph"] = graph_ms(
             lambda: fullrank_sample_cuda(seed_words(SEED), 1, loc, Cf, n))
+    n, d, r = LR_SHAPE  # K7c by graph replay
+    g = torch.Generator().manual_seed(3)
+    loc, D = torch.randn(d, generator=g).to(dev), (0.5 + torch.rand(d, generator=g)).to(dev)
+    U = (0.3 * torch.randn(d, r, generator=g)).to(dev)
+    out[f"lowrank_sample_{n}x{d}x{r}_graph"] = graph_ms(
+        lambda: lowrank_sample_cuda(seed_words(SEED), 1, loc, D, U, n))
     # K7a at the main path's shape: the card alone (graph replay), behind a
     # kernel that writes m, and the host time a call; each K9 probe likewise
     d = N_FEATURES + 2
@@ -1379,8 +1396,8 @@ print(json.dumps(smoke.ab_times(torch.device("cuda:0"))))
 
 
 # The kernel libraries this tree edits against its parent: every other one
-# must compile to the parent's SASS.
-AB_CHANGED = ()
+# must compile to the parent's SASS.  The three samplers take a row offset.
+AB_CHANGED = ("meanfield_sample", "fullrank_sample", "lowrank_sample")
 
 
 def ab_parent(parent: Path):
@@ -4285,6 +4302,15 @@ def aa_dense(dev, card, tally):
     return rates, times
 
 
+def checked_shapes():
+    """Each K7 kernel's and K8's launch shapes that (c), (i), (j), (x), (z)
+    or (aa) hold against the plain version."""
+    return {"meanfield_sample": AA_K7A_SHAPES + [SAMPLER_SHAPE, (N_SAMPLES, D62)],
+            "fullrank_sample": AA_K7B_SHAPES + FR_SAMPLE_SHAPES + MS_SAMPLE_SHAPES,
+            "lowrank_sample": AA_K7C_SHAPES + [LR_SHAPE, (N_SAMPLES, D62, LR_FLAGSHIP_R)],
+            "trisolve": [(n, d) for n, d in AA_K8_SHAPES + TRI_SHAPES]}
+
+
 def phase_aa(dev, card):
     """(aa) The rest of the location-scale family and its objectives: the
     base draws and the refusals; the kernels at (aa)'s launch shapes; then
@@ -4306,10 +4332,7 @@ def phase_aa(dev, card):
     counts, shapes = tally.counts, tally.shapes
     say("aa", **{f"{k}_launches": counts[k] for k in shapes},
         **{f"steps_per_s_{k}": f"{v:.1f}" for k, v in {**rates, **dense_rates}.items()})
-    checked = {"meanfield_sample": AA_K7A_SHAPES + [SAMPLER_SHAPE, (N_SAMPLES, D62)],
-               "fullrank_sample": AA_K7B_SHAPES + FR_SAMPLE_SHAPES + MS_SAMPLE_SHAPES,
-               "lowrank_sample": AA_K7C_SHAPES + [LR_SHAPE, (N_SAMPLES, D62, LR_FLAGSHIP_R)],
-               "trisolve": [(n, d) for n, d in AA_K8_SHAPES + TRI_SHAPES]}
+    checked = checked_shapes()
     for kernel, seen in shapes.items():
         say("aa", **{f"{kernel}_shapes": ",".join("x".join(map(str, s)) for s in sorted(seen))})
         missing = sorted(set(seen) - set(checked[kernel]))
@@ -4853,9 +4876,293 @@ def ac_chunk_times(dev, card, prog):
         ratio=f"{min(ing_ms) / min(hand_ms):.3f}")
 
 
+# ---------------------------------------------------------------------------
+# The device mesh (parallel/): one NCCL rank, and two gloo ranks on the card
+# ---------------------------------------------------------------------------
+
+MESH_STEPS = 1_000                # the flagship under the one-rank mesh
+MESH_SIDE_STEPS = 200             # full-rank and low-rank ADVI under it
+MESH_RANK_STEPS = 500             # the flagship on each two-rank mesh
+MESH_CHAINS = (64, CHAINS_WIDE_C)  # run_sharded on one rank, on two (G = 8 at one)
+MESH_CHAIN_STEPS = 200
+MESH_RTOL, MESH_ATOL = 1e-5, 1e-6  # tests/test_parallel.py's bars
+MESH_RANKS_TIMEOUT = 300
+# each sampler at a row offset: the global (n, d) or (n, d, r) draw, two
+# ranks drawing half its rows each
+MESH_ROW_SHAPES = {"meanfield_sample": (N_SAMPLES, N_FEATURES + 2),
+                   "fullrank_sample": FR_SHAPE, "lowrank_sample": LR_SHAPE}
+
+
+def mesh_flagship_run(dev, steps, mesh, family="meanfield"):
+    """The flagship (f) through ``optimize``, the draws over "mc" and the
+    rows over "data" when ``mesh`` is given (without a mesh, the same
+    objects run as on one device): (output, rows, state)."""
+    import advancedvi_jl_tpu_torch as avt
+
+    prob = dataclasses.replace(flagship(dev), data_axis=avt.DATA_AXIS)
+    d = prob.dim
+    loc = torch.zeros(d, device=dev)
+    q0 = {"meanfield": lambda: avt.MeanFieldGaussian(loc, 0.1 * torch.ones(d, device=dev)),
+          "fullrank": lambda: avt.FullRankGaussian(loc, 0.1 * torch.eye(d, device=dev)),
+          "lowrank": lambda: avt.LowRankGaussian(
+              loc, 0.1 * torch.ones(d, device=dev),
+              torch.zeros(d, LR_FLAGSHIP_R, device=dev))}[family]()
+    alg = avt.KLMinRepGradDescent(entropy=avt.STL, n_samples=N_SAMPLES,
+                                  optimizer=avt.adam(LR), operator=avt.ClipScale(),
+                                  mc_axis=avt.MC_AXIS)
+    return avt.optimize(SEED, alg, steps, prob.unconstrained(), q0, mesh=mesh,
+                        log_every=LOG_EVERY)
+
+
+def mesh_chains(dev, n_chains):
+    """(engine, state) of ``n_chains`` jittered flagship chains (Adam(LR))."""
+    import advancedvi_jl_tpu_torch as avt
+
+    prob = flagship(dev)
+    return chains_engine(dev, avt.logreg_spec(prob.X, prob.y), n_chains, lr=LR)
+
+
+def same_state(a, b) -> bool:
+    """Whether two states hold the same bits in every leaf."""
+    from advancedvi_jl_tpu_torch.utils.checkpoint import state_leaves
+
+    la, lb = state_leaves(a), state_leaves(b)
+    return len(la) == len(lb) and all(
+        torch.equal(torch.as_tensor(x), torch.as_tensor(y)) for x, y in zip(la, lb))
+
+
+def mesh_rows(dev, rank, parts=2):
+    """(ad) Each sampler at this rank's row offset against its plain version
+    there and against the same rows of the whole draw, on the card: u (u1,
+    u2) bit for bit both ways; z bit for bit for K7a both ways and for K7c
+    against the whole draw (each element's sum is its own), K7b's z within
+    (i)'s 1e-6 (a product over other tiles).  Returns each kernel's largest z
+    error against its plain version."""
+    from advancedvi_jl_tpu_torch.ops.cuda import location_scale_kernels as lsk
+    from advancedvi_jl_tpu_torch.parallel.mesh import block
+
+    seed, it, worst = lsk.seed_words(SEED), 6, {}
+    for name, shape in MESH_ROW_SHAPES.items():
+        n, d = shape[:2]
+        row0, k = block(n, parts, rank)
+        g = torch.Generator().manual_seed(d)
+        loc = torch.randn(d, generator=g).to(dev)
+        D = (0.5 + torch.rand(d, generator=g)).to(dev)
+        if name == "meanfield_sample":
+            args = (loc, D)
+        elif name == "fullrank_sample":
+            args = (loc, nan_factor(d, dev))
+        else:
+            args = (loc, D, (0.3 * torch.randn(d, shape[2], generator=g)).to(dev))
+        kernel = getattr(lsk, f"{name}_cuda")
+        plain = getattr(lsk, f"{name}_reference")
+        whole = kernel(seed, it, *args, n)
+        mine = kernel(seed, it, *args, k, row0=row0)
+        ref = plain(seed, it, *args, k, row0=row0)
+        torch.cuda.synchronize()
+        rows = slice(row0, row0 + k)
+        u_ok = all(torch.equal(a, b) for a, b in zip(mine[1:], ref[1:])) and all(
+            torch.equal(a, b[rows]) for a, b in zip(mine[1:], whole[1:]))
+        z_plain = bool(torch.equal(mine[0], ref[0]))
+        z_whole = bool(torch.equal(mine[0], whole[0][rows]))
+        rel = rel_err(mine[0], ref[0])
+        worst[name] = max_err(mine[0], ref[0])
+        say("ad", rank=rank, kernel=name, shape="x".join(map(str, shape)), rows=f"{row0}+{k}",
+            u_bitwise=u_ok, z_bitwise_plain=z_plain, z_bitwise_whole_rows=z_whole,
+            z_rel_err_plain=rel, z_max_abs_err_whole=max_err(mine[0], whole[0][rows]))
+        check(u_ok, f"(ad) {name} at row {row0}: the draws are not the plain version's rows")
+        check(rel <= 1e-6, f"(ad) {name} z at row {row0}: norm-wise error {rel} > 1e-6")
+        if name != "fullrank_sample":
+            check(z_whole, f"(ad) {name} z at row {row0} is not the whole draw's rows")
+        if name == "meanfield_sample":
+            check(z_plain, f"(ad) {name} z at row {row0} is not the plain version's")
+    return worst
+
+
+def mesh_rank(rank: int, port: int, outdir: Path) -> int:
+    """(ad) One of two ranks sharing the card over gloo (``chip_smoke.py
+    --mesh-rank RANK PORT OUTDIR``): the samplers at its row offset, the
+    flagship on the (1 x 2) and (2 x 1) meshes, ``run_sharded`` at
+    C = 1,024; writes its results and its main-path launches and launch
+    shapes to OUTDIR/rank<RANK>.pt."""
+    import torch.distributed as dist
+
+    import advancedvi_jl_tpu_torch as avt
+    from advancedvi_jl_tpu_torch.parallel import distributed
+
+    check(torch.cuda.is_available(), "(ad) a rank found no CUDA device")
+    dev = torch.device("cuda:0")
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    distributed.initialize(f"localhost:{port}", 2, rank, backend="gloo")
+    out = {"k7_err": mesh_rows(dev, rank)}
+    tally = Tally()
+    for shape in ((1, 2), (2, 1)):
+        mesh = avt.make_vi_mesh(n_mc=shape[1], n_data=shape[0])
+        with tally.run():
+            q, rows, _ = mesh_flagship_run(dev, MESH_RANK_STEPS, mesh)
+            torch.cuda.synchronize()
+        out[shape] = [q.location.cpu(), q.scale_diag.cpu(), torch.tensor(rows[-1]["elbo"])]
+    eng, st = mesh_chains(dev, MESH_CHAINS[1])
+    mesh = avt.make_vi_mesh()
+    with tally.run():
+        new = eng.run_sharded(st, SEED, MESH_CHAIN_STEPS, mesh)
+        torch.cuda.synchronize()
+    out["chains"] = [new.stacked().cpu(), new.elbo.cpu()]
+    out["launches"], out["shapes"] = dict(tally.counts), tally.shapes
+    torch.save(out, outdir / f"rank{rank}.pt")
+    distributed.sync_hosts("written")
+    dist.destroy_process_group()
+    return 0
+
+
+def mesh_one_rank(dev, tally):
+    """(ad) A one-rank NCCL group on a localhost port and its (1 x 1) mesh:
+    the flagship with ``mc_axis`` and ``data_axis`` through
+    ``optimize(mesh=)`` for MESH_STEPS, full-rank and low-rank ADVI for
+    MESH_SIDE_STEPS each, and ``run_sharded`` at C = 64, each bit for bit
+    its run without a mesh (the mesh runs counted).  Returns the mesh
+    flagship's steps/s."""
+    import torch.distributed as dist
+
+    import advancedvi_jl_tpu_torch as avt
+    from advancedvi_jl_tpu_torch.parallel import distributed
+
+    check(not dist.is_initialized(), "(ad) a process group exists already")
+    distributed.initialize(f"localhost:{distributed.free_port()}", 1, 0, backend="nccl")
+    mesh = avt.make_vi_mesh()
+    say("ad", one_rank_backend=f"'{dist.get_backend()}'", mesh=f"'{mesh}'")
+    rate = 0.0
+    for family, steps in (("meanfield", MESH_STEPS), ("fullrank", MESH_SIDE_STEPS),
+                          ("lowrank", MESH_SIDE_STEPS)):
+        q1, rows1, st1 = mesh_flagship_run(dev, steps, None, family)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with tally.run():
+            q2, rows2, st2 = mesh_flagship_run(dev, steps, mesh, family)
+            torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        same = same_state(st1, st2) and rows1 == rows2 and same_state(q1, q2)
+        say("ad", one_rank=family, steps=steps, bitwise_no_mesh=same, elbo=rows2[-1]["elbo"],
+            steps_per_s=f"{steps / secs:.1f}")
+        check(same, f"(ad) {family} on the one-rank mesh differs from the run without it")
+        check(math.isfinite(rows2[-1]["elbo"]), f"(ad) {family}: ELBO not finite")
+        if family == "meanfield":
+            rate = steps / secs
+    eng, st = mesh_chains(dev, MESH_CHAINS[0])
+    a = eng.run_chunk(st, SEED, MESH_CHAIN_STEPS)
+    with tally.run():
+        b = eng.run_sharded(st, SEED, MESH_CHAIN_STEPS, mesh)
+        torch.cuda.synchronize()
+    same = bool(torch.equal(a.stacked(), b.stacked()) and torch.equal(a.elbo, b.elbo))
+    say("ad", one_rank_run_sharded=MESH_CHAINS[0], bitwise_run_chunk=same)
+    check(same, "(ad) run_sharded on one rank differs from run_chunk")
+    dist.destroy_process_group()
+    return rate
+
+
+def mesh_two_ranks(dev, outdir: Path):
+    """(ad) Two ranks (``mesh_rank``) spawned on the card, each within
+    MESH_RANKS_TIMEOUT (killed past it); their flagship runs within
+    MESH_RTOL of the one-process run and the same on both ranks,
+    ``run_sharded`` at C = 1,024 bit for bit the one-process
+    ``run_chunk``.  Returns (the ranks' launches, their launch shapes, each
+    K7's largest z error on either rank)."""
+    import shutil
+
+    from advancedvi_jl_tpu_torch.parallel.distributed import free_port
+
+    shutil.rmtree(outdir, ignore_errors=True)
+    outdir.mkdir(parents=True)
+    port = free_port()
+    procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--mesh-rank",
+                               str(r), str(port), str(outdir)], cwd=ROOT,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    q1, rows1, _ = mesh_flagship_run(dev, MESH_RANK_STEPS, None)
+    eng, st = mesh_chains(dev, MESH_CHAINS[1])
+    ref_chains = eng.run_chunk(st, SEED, MESH_CHAIN_STEPS)
+    torch.cuda.synchronize()
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=MESH_RANKS_TIMEOUT)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        for line in out.splitlines():
+            if line.startswith("[ad]"):
+                print(line, flush=True)
+        check(p.returncode == 0, f"(ad) rank {r} failed (rc {p.returncode}): {out[-3000:]}")
+    res = [torch.load(outdir / f"rank{r}.pt", weights_only=False) for r in range(2)]
+    want = [q1.location.cpu(), q1.scale_diag.cpu(), torch.tensor(rows1[-1]["elbo"])]
+    for shape in ((1, 2), (2, 1)):
+        got = res[0][shape]
+        both = all(torch.equal(a, b) for a, b in zip(got, res[1][shape]))
+        err = max(max_err(a, b) for a, b in zip(got[:2], want[:2]))
+        close = all(torch.allclose(a, b, rtol=MESH_RTOL, atol=MESH_ATOL)
+                    for a, b in zip(got, want))
+        say("ad", two_ranks=f"{shape[0]}x{shape[1]}", steps=MESH_RANK_STEPS,
+            ranks_equal=both, max_abs_diff_one_process=err, within_rtol=close,
+            elbo=float(got[2]), one_process_elbo=float(want[2]))
+        check(both, f"(ad) the ranks of the {shape} mesh returned different outputs")
+        check(close, f"(ad) the {shape} mesh is over rtol {MESH_RTOL} from one process")
+    same = all(torch.equal(r["chains"][0], ref_chains.stacked().cpu())
+               and torch.equal(r["chains"][1], ref_chains.elbo.cpu()) for r in res)
+    say("ad", two_ranks_run_sharded=MESH_CHAINS[1], chains_a_rank=MESH_CHAINS[1] // 2,
+        one_process_G=eng.chains_per_block(), bitwise_run_chunk=same)
+    check(same, "(ad) run_sharded over two ranks differs from run_chunk")
+    launches = collections.Counter()
+    shapes = collections.defaultdict(set)
+    for r in res:
+        launches.update(r["launches"])
+        for kernel, seen in r["shapes"].items():
+            shapes[kernel] |= seen
+    return launches, shapes, {k: max(r["k7_err"][k] for r in res) for k in MESH_ROW_SHAPES}
+
+
+def phase_ad(dev, card):
+    """(ad) The device mesh: the one-rank NCCL mesh (``mesh_one_rank``),
+    then two gloo ranks on the card (``mesh_two_ranks``).  Returns (the
+    one-rank mesh runs' launches, the two ranks' (K6 there at several
+    chains a block), each K7's largest z error at a row offset).  Every
+    sampler launch shape of the counted runs, on any rank, must be one that
+    a phase holds against the plain version: ``checked_shapes`` or the row
+    blocks of ``mesh_rows``."""
+    from advancedvi_jl_tpu_torch.parallel.mesh import block
+
+    t0 = time.perf_counter()
+    tally = Tally()
+    rate = mesh_one_rank(dev, tally)
+    ranks, rank_shapes, k7_err = mesh_two_ranks(dev, ROOT / "build" / "mesh_ranks")
+    counts = tally.counts + ranks
+    checked = checked_shapes()
+    for name, (n, *rest) in MESH_ROW_SHAPES.items():
+        checked[name] = checked[name] + [(block(n, 2, r)[1], *rest) for r in range(2)]
+    for kernel in MESH_ROW_SHAPES:
+        seen = tally.shapes[kernel] | rank_shapes.get(kernel, set())
+        say("ad", **{f"{kernel}_shapes": ",".join("x".join(map(str, t)) for t in sorted(seen))})
+        missing = sorted(seen - set(checked[kernel]))
+        check(not missing, f"(ad) {kernel} launched at {missing}, which no check covers")
+    secs = time.perf_counter() - t0
+    kernels = ("meanfield_sample", "fullrank_sample", "lowrank_sample", "fused_chains")
+    say("ad", card=f"'{card}'", seconds=f"{secs:.1f}", flagship_mesh_steps_per_s=f"{rate:.1f}",
+        **{f"{k}_launches": counts[k] for k in kernels})
+    for k in kernels:
+        check(counts[k] > 0, f"(ad) the mesh runs launched no {k} kernel")
+    others = {k: v for k, v in counts.items() if v and k not in kernels}
+    check(not others, f"(ad) the mesh runs launched {others}, which (ad) does not check")
+    return tally.counts, ranks, k7_err
+
+
 def main() -> int:
     parent = None  # --parent DIR: the A/B of the chunks against that checkout
     argv = sys.argv[1:]
+    if argv[:1] == ["--mesh-rank"] and len(argv) == 4:  # one of (ad)'s two ranks
+        return mesh_rank(int(argv[1]), int(argv[2]), Path(argv[3]))
     if argv[:1] == ["--parent"] and len(argv) == 2:
         parent = Path(argv[1]).resolve()
         if not (parent / "advancedvi_jl_tpu_torch" / "__init__.py").is_file():
@@ -4918,6 +5225,8 @@ def main() -> int:
     lap("ab")
     ac_counts, ac_k7a_err, ac_k5_err = phase_ac(dev, card, ingested)
     lap("ac")
+    ad_counts, ad_ranks, ad_k7_err = phase_ad(dev, card)
+    lap("ad")
     if parent is not None:
         ab_parent(parent)
         lap("parent")
@@ -4937,16 +5246,20 @@ def main() -> int:
         entry("meanfield_sample", "meanfield_sample.cu",
               "advancedvi_jl_tpu/ops/pallas/location_scale_kernels.py:72",
               counts["meanfield_sample"] + aa_counts["meanfield_sample"]
-              + ab_counts["meanfield_sample"] + ac_counts["meanfield_sample"],
-              max(samp_err, aa_err["meanfield_sample"], ab_err, ac_k7a_err),
+              + ab_counts["meanfield_sample"] + ac_counts["meanfield_sample"]
+              + ad_counts["meanfield_sample"] + ad_ranks["meanfield_sample"],
+              max(samp_err, aa_err["meanfield_sample"], ab_err, ac_k7a_err,
+                  ad_k7_err["meanfield_sample"]),
               *times["meanfield_sample"]),
         entry("fused_advi_meanfield", "fused_advi_meanfield.cu", f"{fused}672",
               counts["fused_advi_meanfield"], fused_err, *times["fused_advi_meanfield"]),
         # the general full-rank path of (l), the measure-space path of (z) and (aa)'s
         entry("fullrank_sample", "fullrank_sample.cu",
               "advancedvi_jl_tpu/ops/pallas/location_scale_kernels.py:110",
-              fr_counts["fullrank_sample"] + ms_launches + aa_counts["fullrank_sample"],
-              max(fr_samp_err, ms_samp_err, aa_err["fullrank_sample"]),
+              fr_counts["fullrank_sample"] + ms_launches + aa_counts["fullrank_sample"]
+              + ad_counts["fullrank_sample"],
+              max(fr_samp_err, ms_samp_err, aa_err["fullrank_sample"],
+                  ad_k7_err["fullrank_sample"]),
               *fr_times["fullrank_sample"]),
         entry("trisolve", "trisolve.cu", "advancedvi_jl_tpu/ops/pallas/trisolve_kernels.py:115",
               fr_counts["trisolve"] + aa_counts["trisolve"], max(tri_err, aa_err["trisolve"]),
@@ -4984,18 +5297,22 @@ def main() -> int:
                          probes["max_abs_err"], probes["ms"], probes["plain_ms"],
                          bound_=probes["bound"]))
     # K6 at one chain a block (C = 64) and at several (C = 1,024), each
-    # counted in its own main-path run
-    for name, launches, C in (("fused_chains", chains_counts, CHAINS_MAIN_C),
-                              ("fused_chains_g", wide_counts, CHAINS_WIDE_C)):
+    # counted in its own main-path run; (ad)'s run_sharded at C = 64 on one
+    # rank and at 512 chains a rank on two
+    for name, launches, C in (("fused_chains", chains_counts["fused_chains"]
+                               + ad_counts["fused_chains"], CHAINS_MAIN_C),
+                              ("fused_chains_g", wide_counts["fused_chains"]
+                               + ad_ranks["fused_chains"], CHAINS_WIDE_C)):
         kernels.append(entry(name, "fused_chains.cu",
                              "advancedvi_jl_tpu/ops/pallas/fused_chains.py:525",
-                             launches["fused_chains"], max(chains_err, chains_main_err),
-                             *chains_times[C]))
+                             launches, max(chains_err, chains_main_err), *chains_times[C]))
     ms, plain_ms, b_ms, b_by = lowrank_times
     kernels.append(entry("lowrank_sample", "lowrank_sample.cu",
                          "advancedvi_jl_tpu/ops/pallas/location_scale_kernels.py:155",
-                         lowrank_counts["lowrank_sample"] + aa_counts["lowrank_sample"],
-                         max(lowrank_err, aa_err["lowrank_sample"]), ms, plain_ms,
+                         lowrank_counts["lowrank_sample"] + aa_counts["lowrank_sample"]
+                         + ad_counts["lowrank_sample"],
+                         max(lowrank_err, aa_err["lowrank_sample"],
+                             ad_k7_err["lowrank_sample"]), ms, plain_ms,
                          bound_=(b_ms, b_by)))
     k5 = entry("fused_k5_ad", "", f"{fused}1504", k5_launches + ac_counts["k5_ad"],
                max(k5_err, ac_k5_err), k5_ms, k5_plain_ms, bound_=k5_bound)

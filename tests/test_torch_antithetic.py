@@ -24,7 +24,7 @@ from advancedvi_jl_tpu_torch.families.location_scale import (
     FullRankLocationScale,
     MeanFieldLocationScale,
 )
-from advancedvi_jl_tpu_torch.models.normal import normal_meanfield
+from advancedvi_jl_tpu_torch.models.normal import normal_fullrank, normal_meanfield
 from advancedvi_jl_tpu_torch.objectives import entropy as tent
 from advancedvi_jl_tpu_torch.ops.cuda.location_scale_kernels import PhiloxKey, seed_words
 
@@ -228,8 +228,16 @@ def test_constructor_takes_jax_order_and_refuses_mc_axis():
     jalg = javt.KLMinRepGradDescent(javt.STL, None, 10, None, None, None, None, True, False)
     assert (jalg.objective.antithetic, jalg.objective.fast_entropy) == (True, False)
     assert avt.KLMinRepGradDescent().objective.fast_entropy
-    with pytest.raises(NotImplementedError, match="item 17"):
-        avt.KLMinRepGradDescent(mc_axis="mc")
+    # mc_axis is taken (tests/test_torch_multiprocess.py shards it); outside
+    # a mesh the antithetic estimate is the one without it
+    sharded = avt.KLMinRepGradDescent(avt.STL, n_samples=10, antithetic=True, mc_axis="mc")
+    plain = avt.KLMinRepGradDescent(avt.STL, n_samples=10, antithetic=True)
+    assert sharded.objective.mc_axis == "mc"
+    target, _, _ = normal_fullrank(3, 4, device="cpu")
+    q = avt.FullRankGaussian(torch.zeros(4))
+    g1, _, i1 = sharded.objective.value_and_grad(q, target, 5)
+    g2, _, i2 = plain.objective.value_and_grad(q, target, 5)
+    assert torch.equal(g1.location, g2.location) and torch.equal(i1["elbo"], i2["elbo"])
 
 
 def _jax_run(jtarget, jq0, steps, n_draw):

@@ -161,7 +161,7 @@ def test_constructor_validation_and_block_axis():
     with pytest.raises(ValueError, match="n_blocks"):
         avt.BlockDiagGaussian(torch.zeros(6))
     q = avt.BlockDiagGaussian(torch.zeros(4), n_blocks=2)
-    with pytest.raises(NotImplementedError, match="item 17"):
+    with pytest.raises(NotImplementedError, match="item 17b"):
         avt.BlockDiagLocationScale(q.location, q.scales, block_axis="mc")
 
 

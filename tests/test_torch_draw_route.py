@@ -56,9 +56,9 @@ def _families():
     }
 
 
-def _earlier_route(q, key, n, noise=None):
+def _earlier_route(q, key, n, noise=None, rows=None):
     """The draw every objective took before: sample_with_base's z."""
-    return rep_mod.draw_with_base(q, key, n, noise)[0]
+    return rep_mod.draw_with_base(q, key, n, noise, rows)[0]
 
 
 def _step_bits(obj, q, target):

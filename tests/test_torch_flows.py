@@ -179,8 +179,11 @@ def test_refusals():
         avt.FlowELBO(n_samples=4, entropy="stl").init(0, q, target)
     with pytest.raises(ValueError, match="monte_carlo"):
         avt.FlowELBO(n_samples=4, entropy="closed_form")
-    with pytest.raises(NotImplementedError, match="item 17"):
-        avt.FlowELBO(n_samples=4, mc_axis="mc")
+    # mc_axis is taken; outside a mesh it changes nothing
+    g1, _, i1 = avt.FlowELBO(n_samples=4, mc_axis="mc").value_and_grad(q, target, 3)
+    g2, _, i2 = avt.FlowELBO(n_samples=4).value_and_grad(q, target, 3)
+    assert torch.equal(i1["elbo"], i2["elbo"])
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(g1), tree_leaves(g2)))
     with pytest.raises(ValueError, match=r"noise must have shape \(4, 2\)"):
         avt.FlowELBO(n_samples=4).loss(q, target, 0, noise=torch.zeros(4, 3))
 

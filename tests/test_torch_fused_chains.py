@@ -332,8 +332,19 @@ def test_fused_chains_validation(flagship):
         eng.run_chunk(st, 0, 2, noise=torch.zeros(8, 128))
     with pytest.raises(ValueError, match="log_every"):
         eng.run_chunk_traced(st, 0, 5, log_every=2)
-    with pytest.raises(NotImplementedError, match="item 17"):
-        eng.run_sharded(st, 0, 2, None)
+    # run_sharded's checks (JAX's): 8 chains over an "mc" axis of 2 ranks
+    # leave blocks of 4 (the sharded runs: tests/test_torch_multiprocess.py)
+    class _TwoRanks:
+        mesh_dim_names = ("data", "mc")
+
+        def size(self, dim):
+            return (1, 2)[dim]
+
+    with pytest.raises(ValueError, match="per-device chain block 4 must be a multiple of 8"):
+        eng.run_sharded(st, 0, 2, _TwoRanks())
+    with pytest.raises(ValueError, match="mixed per-chain rule sweeps"):
+        FusedChainsADVI(spec, n_chains=8, optimizer=["adam"] * 8).run_sharded(
+            st, 0, 2, _TwoRanks())
     cocob = FusedChainsADVI(spec, n_chains=8, optimizer="cocob")
     with pytest.raises(ValueError, match="ext"):
         cocob.run_chunk(st, 0, 1)

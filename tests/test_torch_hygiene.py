@@ -72,9 +72,23 @@ def test_package_exports_the_slice():
                  "PerDatapointMeanField", "per_datapoint_meanfield", "GlobalLocalFamily",
                  "Softplus", "Sigmoid", "StickBreakingSimplex", "Ordered",
                  "TransformedDistribution", "save_state", "restore_state", "HostDataLoader",
-                 "PrefetchingLoader", "optimize_streamed", "ProgressMeter", "ppl"):
+                 "PrefetchingLoader", "optimize_streamed", "ProgressMeter", "ppl",
+                 "make_vi_mesh", "MC_AXIS", "DATA_AXIS"):
         assert hasattr(advancedvi_jl_tpu_torch, name), name
     assert not _build._libs, "importing the package must not build or load kernels"
+    # the import check: every public non-module name of the JAX package but
+    # the two pytree registration helpers (111 of 113)
+    import types
+
+    import advancedvi_jl_tpu as jax_package
+
+    def public(module):
+        return {n for n in dir(module) if not n.startswith("_")
+                and not isinstance(getattr(module, n), types.ModuleType)}
+
+    jax_names = public(jax_package)
+    assert jax_names - public(advancedvi_jl_tpu_torch) == {"pytree_dataclass", "static_field"}
+    assert len(jax_names) - 2 == 111
 
 
 def test_kernel_sources_and_build_flags():
@@ -286,9 +300,9 @@ def test_default_device_is_not_the_cpu_without_a_card():
     assert make_logreg(11, n_data=8, n_features=2, device="cpu").X.device.type == "cpu"
 
 
-# The keywords the port lacks or only refuses (ROADMAP Queue 3): optimize's
-# unroll= (a lax.scan argument), mesh= and data_axis= (item 17).
-_JAX_ONLY = ("unroll", "mesh", "data_axis")
+# The keyword the port lacks (ROADMAP Queue 3): optimize's unroll= (a
+# lax.scan argument).
+_JAX_ONLY = ("unroll",)
 # A different object by design (the port's spec names its model), and an
 # argument name.
 _NOT_COMPARED = ("FusedModelSpec", "tree_stop_gradient")
@@ -378,15 +392,21 @@ def test_optimize_takes_show_progress_and_progress_in_jax_positions():
 def test_the_reshuffle_library_is_the_ports_own(tmp_path):
     """The port builds its own copy of the reshuffle engine into the build
     directory it is handed; nothing under advancedvi_jl_tpu/ is read or
-    written (the tree's names, sizes and times are unchanged) and the port's
-    data module names no file of the JAX package."""
+    written (the tree's names, sizes and times are unchanged, and no file
+    there has the port's library name) and the port's data module names no
+    file of the JAX package.  The snapshot leaves out the two libraries the
+    JAX package builds into its own tree (utils/data.py:37, ops/native_ffi.py:46),
+    which its tests, running beside this one, may build meanwhile."""
     from advancedvi_jl_tpu_torch.utils import data
 
     jax_tree = ROOT / "advancedvi_jl_tpu"
+    jax_builds = {jax_tree / "ops" / "cpp" / "libreshuffle.so",
+                  jax_tree / "ops" / "cpp" / "libadviffi.so"}
 
     def snapshot():
         return {str(p): (p.stat().st_size, p.stat().st_mtime_ns)
-                for p in jax_tree.rglob("*") if "__pycache__" not in p.parts}
+                for p in jax_tree.rglob("*")
+                if "__pycache__" not in p.parts and p not in jax_builds}
 
     before = snapshot()
     code = (
@@ -405,6 +425,7 @@ def test_the_reshuffle_library_is_the_ports_own(tmp_path):
     assert proc.returncode == 0, proc.stderr
     assert [p.name for p in (tmp_path / "native").iterdir()] == [data.library_path().name]
     assert snapshot() == before
+    assert not list(jax_tree.rglob(data.library_path().name))
     assert data.SOURCE.parent == PORT / "csrc"
     assert "advancedvi_jl_tpu/" not in (PORT / "utils" / "data.py").read_text()
 
@@ -412,7 +433,8 @@ def test_the_reshuffle_library_is_the_ports_own(tmp_path):
 def test_jax_positional_calls_mean_the_same():
     """RepGradELBO(10, "stl", None, True) is remat=True in both packages;
     the fused engines take interpret= last (the chains engine after
-    clip_eps, as JAX's); a mesh axis raises, naming item 17."""
+    clip_eps, as JAX's); ``mc_axis`` is taken, and an axis over a family's
+    parameters (tp_axis, ep_axis) raises, naming item 17b."""
     import advancedvi_jl_tpu as jax_package
 
     for pkg in (jax_package, advancedvi_jl_tpu_torch):
@@ -423,12 +445,14 @@ def test_jax_positional_calls_mean_the_same():
     q = avt.FullRankLocationScale(torch.zeros(2), torch.eye(2), avt.Normal(), "xla", None, None,
                                   "inverse")
     assert (q.tp_axis, q.compute_dtype, q.solve_mode, q.layout) == (None, None, "inverse", "dense")
-    for make in (lambda: avt.RepGradELBO(4, "stl", "mc"), lambda: avt.ScoreGradELBO(4, "mc"),
-                 lambda: avt.KLMinRepGradProxDescent(mc_axis="mc"),
-                 lambda: avt.KLMinScoreGradDescent(mc_axis="mc"), lambda: avt.BBVI(mc_axis="mc"),
-                 lambda: avt.FullRankLocationScale(torch.zeros(2), torch.eye(2), tp_axis="tp"),
-                 lambda: avt.MixtureELBO(ep_axis="ep"), lambda: avt.FlowELBO(mc_axis="mc")):
-        with pytest.raises(NotImplementedError, match="item 17"):
+    assert avt.RepGradELBO(4, "stl", "mc").mc_axis == avt.ScoreGradELBO(4, "mc").mc_axis == "mc"
+    for alg in (avt.KLMinRepGradProxDescent(mc_axis="mc"), avt.KLMinScoreGradDescent(mc_axis="mc"),
+                avt.BBVI(mc_axis="mc")):
+        assert alg.objective.mc_axis == "mc"
+    assert avt.FlowELBO(mc_axis="mc").mc_axis == "mc"
+    for make in (lambda: avt.FullRankLocationScale(torch.zeros(2), torch.eye(2), tp_axis="tp"),
+                 lambda: avt.MixtureELBO(ep_axis="ep")):
+        with pytest.raises(NotImplementedError, match="item 17b"):
             make()
     with pytest.raises(NotImplementedError, match="item 5"):
         avt.FullRankLocationScale(torch.zeros(2), torch.eye(2), compute_dtype="bfloat16")

@@ -201,7 +201,11 @@ def test_the_check_fires_under_subsampling_and_mc_axis_is_refused():
         alg.init(0, NoDensity(), target)
     q, infos, _ = avt.optimize(0, alg, 8, target, avt.MeanFieldGaussian(torch.zeros(2)))
     assert all(np.isfinite(r["elbo"]) for r in infos)
-    with pytest.raises(NotImplementedError, match="item 17"):
-        avt.IWELBO(mc_axis="mc")
-    with pytest.raises(NotImplementedError, match="item 17"):
-        avt.KLMinIWRepGradDescent(mc_axis="mc")
+    # mc_axis is taken (sharded in tests/test_torch_multiprocess.py); outside
+    # a mesh the run is the one without it
+    sharded = avt.KLMinIWRepGradDescent(
+        n_samples=4, operator=avt.ClipScale(), mc_axis="mc",
+        subsampling=avt.ReshufflingBatchSubsampling(n_data=16, batchsize=4))
+    assert sharded.objective.objective.mc_axis == "mc"
+    q2, infos2, _ = avt.optimize(0, sharded, 8, target, avt.MeanFieldGaussian(torch.zeros(2)))
+    assert infos2 == infos and torch.equal(q2.location, q.location)

@@ -1289,6 +1289,44 @@ def test_lowrank_sampler_kernel_matches_plain_version(dev, n, d, r):
     assert _rel(z, zr) <= 1e-6  # the r-term sums run in another order
 
 
+@pytest.mark.parametrize("parts", [2, 3])
+@pytest.mark.parametrize("kernel,shape", [("meanfield", (10, 62)), ("meanfield", (1000, 129)),
+                                          ("fullrank", (256, 1024)), ("fullrank", (33, 62)),
+                                          ("lowrank", (300, 130, 17)), ("lowrank", (10, 62, 8))])
+def test_samplers_draw_their_rows_at_a_row_offset(dev, kernel, shape, parts):
+    """K7a, K7b and K7c at each rank's row offset (a mesh's "mc" axis cut
+    into ``parts``): u (u1, u2) bit for bit the plain version's and the
+    whole draw's rows; z of K7a both ways and of K7c against the whole draw
+    (each element's sum is its own), z of K7b within 1e-6 of the plain
+    version (a product over other tiles)."""
+    from advancedvi_jl_tpu_torch.ops.cuda import location_scale_kernels as lsk
+    from advancedvi_jl_tpu_torch.parallel.mesh import block
+
+    n, d = shape[:2]
+    g = torch.Generator().manual_seed(d)
+    loc, D = torch.randn(d, generator=g).to(dev), (0.5 + torch.rand(d, generator=g)).to(dev)
+    args = {"meanfield": (loc, D),
+            "fullrank": (loc, torch.tril(0.1 * torch.randn(d, d, generator=g)).to(dev)
+                         + torch.eye(d, device=dev)),
+            "lowrank": (loc, D, (0.3 * torch.randn(d, shape[-1], generator=g)).to(dev))}[kernel]
+    cuda = getattr(lsk, f"{kernel}_sample_cuda")
+    plain = getattr(lsk, f"{kernel}_sample_reference")
+    whole = cuda(seed_words(3), 4, *args, n)
+    for i in range(parts):
+        row0, k = block(n, parts, i)
+        mine, ref = cuda(seed_words(3), 4, *args, k, row0=row0), plain(
+            seed_words(3), 4, *args, k, row0=row0)
+        torch.cuda.synchronize()
+        rows = slice(row0, row0 + k)
+        for a, b, w in zip(mine[1:], ref[1:], whole[1:]):
+            assert torch.equal(a, b) and torch.equal(a, w[rows])
+        assert _rel(mine[0], ref[0]) <= 1e-6
+        if kernel != "fullrank":
+            assert torch.equal(mine[0], whole[0][rows])
+        if kernel == "meanfield":
+            assert torch.equal(mine[0], ref[0])
+
+
 def test_lowrank_sampler_autograd_on_the_card(dev):
     from advancedvi_jl_tpu_torch.ops.cuda.location_scale_kernels import lowrank_sample
 

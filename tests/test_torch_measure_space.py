@@ -187,8 +187,10 @@ def test_gaussian_expected_grad_hess_errors(quads):
         gaussian_expected_grad_hess(0, tfam, 2, tq, hessian="bogus")
     with pytest.raises(ValueError, match="hessian='exact' requires an order-2"):
         gaussian_expected_grad_hess(0, tfam, 2, tq, hessian="exact")
-    with pytest.raises(NotImplementedError, match="item 17"):
-        gaussian_expected_grad_hess(0, tfam, 2, tq, mc_axis="mc")
+    # mc_axis outside a mesh: the unsharded expectations
+    for a, b in zip(gaussian_expected_grad_hess(0, tfam, 2, tq, mc_axis="mc"),
+                    gaussian_expected_grad_hess(0, tfam, 2, tq)):
+        assert torch.equal(a, b)
     with pytest.raises(ValueError, match="noise must have shape"):
         gaussian_expected_grad_hess(0, tfam, 2, tq, noise=torch.zeros(3, 4))
 
@@ -480,8 +482,7 @@ def test_family_capability_and_option_errors(quads):
         avt.KLMinWassFwdBwd(stepsize=0.05, sqrtm="pade")
     with pytest.raises(ValueError, match="n_samples >= 2"):
         avt.FisherMinBatchMatch(n_samples=1)
-    with pytest.raises(NotImplementedError, match="item 17"):
-        avt.KLMinNaturalGradDescent(stepsize=0.1, mc_axis="mc")
+    assert avt.KLMinNaturalGradDescent(stepsize=0.1, mc_axis="mc").mc_axis == "mc"
     _, tq = quads
     bad = avt.KLMinNaturalGradDescent(stepsize=0.1, hessian="exact")
     with pytest.raises(ValueError, match="exact"):

@@ -211,7 +211,7 @@ def test_determinism():
 
 
 def test_ep_axis_and_entropy_refusals():
-    with pytest.raises(NotImplementedError, match="item 17"):
+    with pytest.raises(NotImplementedError, match="item 17b"):
         avt.MixtureELBO(n_samples=8, ep_axis="mc")
     target, _, _ = _bimodal_target()
     q0 = avt.mixture_meanfield(1, dim=2, n_components=2, device=CPU)

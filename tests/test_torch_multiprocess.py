@@ -1,0 +1,612 @@
+"""The port's device mesh over several processes (parallel/mesh.py,
+parallel/distributed.py): four gloo CPU ranks run every scenario below on
+the meshes (data x mc) = (1, 4), (2, 2) and (4, 1), and the tests hold each
+rank's results against the same scenario run here in one process without a
+mesh, at the tolerances of the JAX package's tests/test_parallel.py.  Two
+scenarios are held against the JAX package on its 8-device CPU mesh: the
+logistic regression's log density and gradient, sharded over "data"
+(``make_logreg(data_axis="data")``), and RepGradELBO, ScoreGradELBO and
+IWELBO (with and without DReG) with their draws over "mc", on JAX's draws
+(written by the fixture to ``inputs/jax.npz`` and injected as ``noise``).
+
+The ranks are this file run as a script (``__main__`` below), launched once
+by a module-scoped fixture: ``python tests/test_torch_multiprocess.py RANK
+WORLD PORT OUTDIR``.  A rank reads OUTDIR/inputs/jax.npz, writes
+``rank<R>.pt`` (its results), and rank 0 alone writes ``ckpt.npz`` (after
+``sync_hosts``).
+"""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import advancedvi_jl_tpu_torch as avt
+from advancedvi_jl_tpu_torch.models.logreg import LogReg, make_logreg
+from advancedvi_jl_tpu_torch.models.normal import normal_fullrank
+from advancedvi_jl_tpu_torch.ops.cuda.location_scale_kernels import PhiloxKey
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+WORLD = 4
+MESHES = ((1, 4), (2, 2), (4, 1))  # (n_data, n_mc)
+MC, DATA = avt.MC_AXIS, avt.DATA_AXIS
+CHAINS = 32
+TIMEOUT = 300
+
+
+# ---------------------------------------------------------------------------
+# Scenarios: every rank runs them under a mesh, the tests without one
+# ---------------------------------------------------------------------------
+
+
+def _under(mesh):
+    from contextlib import nullcontext
+
+    from advancedvi_jl_tpu_torch.parallel.mesh import use_mesh
+
+    return nullcontext() if mesh is None else use_mesh(mesh)
+
+
+def _leaves(tree):
+    from advancedvi_jl_tpu_torch.core.pytree import tree_leaves
+
+    return [t.detach().clone() for t in tree_leaves(tree)]
+
+
+def objectives(mesh):
+    """One gradient estimate of each objective with ``mc_axis``: its
+    gradient leaves, then the ELBO (or the IW bound)."""
+    target, _, _ = normal_fullrank(3, 5, device="cpu")
+    qf = avt.FullRankGaussian(torch.zeros(5))
+    qm = avt.MeanFieldGaussian(torch.zeros(5), torch.ones(5))
+    key = PhiloxKey((7, 11), 3)
+    cases = {
+        "repgrad": (avt.RepGradELBO(n_samples=64, entropy=avt.STL, mc_axis=MC), qf),
+        # 10 draws over 4 ranks: 3, 3, 2, 2 rows
+        "repgrad_uneven": (avt.RepGradELBO(n_samples=10, entropy=avt.STL, mc_axis=MC), qm),
+        # a rank's mirrored rows come from base rows another rank draws too
+        "repgrad_antithetic": (avt.RepGradELBO(n_samples=12, entropy=avt.STL, antithetic=True,
+                                               mc_axis=MC), qf),
+        "scoregrad": (avt.ScoreGradELBO(n_samples=64, mc_axis=MC), qm),
+        "iwelbo_dreg": (avt.IWELBO(n_samples=64, mc_axis=MC), qm),
+        "iwelbo_plain": (avt.IWELBO(n_samples=64, dreg=False, mc_axis=MC), qm),
+    }
+    out = {}
+    with _under(mesh):
+        for name, (obj, q) in cases.items():
+            grad, _, info = obj.value_and_grad(q, target, key)
+            out[name] = _leaves(grad) + [info["elbo"].detach().clone()]
+    return out
+
+
+# the objectives held against the JAX package's sharded ones: (objective
+# keyword arguments, family) on JAX's draws
+JAX_OBJECTIVES = {"repgrad": ("RepGradELBO", {"entropy": "stl"}, "fullrank"),
+                  "scoregrad": ("ScoreGradELBO", {}, "meanfield"),
+                  "iwelbo_dreg": ("IWELBO", {}, "meanfield"),
+                  "iwelbo_plain": ("IWELBO", {"dreg": False}, "meanfield")}
+JAX_D, JAX_N = 5, 64
+
+
+def jax_pairs(seed=2):
+    """Numpy location, scale diagonal and scale factor of the families
+    that both packages build for the JAX comparison."""
+    rng = np.random.default_rng(seed)
+    loc = (0.3 + 0.2 * rng.standard_normal(JAX_D)).astype(np.float32)
+    sd = (0.7 + 0.5 * rng.random(JAX_D)).astype(np.float32)
+    C = (np.tril(0.2 * rng.standard_normal((JAX_D, JAX_D)), -1)
+         + np.diag(0.7 + 0.5 * rng.random(JAX_D))).astype(np.float32)
+    return loc, sd, C
+
+
+def jax_objectives(mesh, inputs):
+    """Each of JAX_OBJECTIVES with ``mc_axis`` on the target and the draws
+    of ``inputs`` (inputs/jax.npz: mu, L and each case's base draws): its
+    gradient leaves, then the ELBO (or the IW bound)."""
+    from advancedvi_jl_tpu_torch import convert
+
+    loc, sd, C = jax_pairs()
+    target = convert.normal_target_from_numpy(inputs["mu"], inputs["L"], device="cpu")
+    family = {"meanfield": convert.meanfield_from_numpy(loc, sd, device="cpu"),
+              "fullrank": convert.fullrank_from_numpy(loc, C, device="cpu")}
+    out = {}
+    with _under(mesh):
+        for name, (cls, kw, fam) in JAX_OBJECTIVES.items():
+            obj = getattr(avt, cls)(n_samples=JAX_N, mc_axis=MC, **kw)
+            grad, _, info = obj.value_and_grad(family[fam], target, None,
+                                               noise=torch.from_numpy(inputs[name]))
+            out[name] = _leaves(grad) + [info["elbo"].detach().clone()]
+    return out
+
+
+def measure_space(mesh):
+    """One NGD step and one BaM step with ``mc_axis``."""
+    from advancedvi_jl_tpu_torch.algorithms.measure_space import (
+        FisherMinBatchMatch,
+        KLMinNaturalGradDescent,
+    )
+
+    out = {}
+    logreg = make_logreg(11, n_data=40, n_features=4, data_axis=DATA,
+                         device="cpu").unconstrained()
+    for name, alg, seed in (
+            ("ngd", KLMinNaturalGradDescent(stepsize=0.05, n_samples=64, mc_axis=MC), 3),
+            ("bam", FisherMinBatchMatch(n_samples=32, mc_axis=MC), 7),
+            # exact Hessians (double backward through the data axis's sum)
+            ("ngd_logreg", KLMinNaturalGradDescent(stepsize=0.05, n_samples=16, mc_axis=MC),
+             None),
+            ("bam_logreg", FisherMinBatchMatch(n_samples=16, mc_axis=MC), None)):
+        target = logreg if seed is None else normal_fullrank(seed, 5, device="cpu")[0]
+        d = target.dim
+        with _under(mesh):
+            st = alg.init(0, avt.FullRankGaussian(torch.zeros(d), 0.1 * torch.eye(d)), target)
+            st, info = alg.step(st)
+        extra = [info["covweighted_fisher"]] if name.startswith("bam") else []
+        out[name] = [st.q.location, st.q.scale, info["elbo"]] + extra
+    return out
+
+
+def optimize_runs(mesh, long_run=True):
+    """Full-rank ADVI through ``optimize(mesh=)``: 50 steps (16 draws) and,
+    with ``long_run``, 500 steps (8 draws) at d = 5; the state of the
+    50-step run."""
+    target, mu, _ = normal_fullrank(3, 5, device="cpu")
+    q0 = avt.FullRankGaussian(torch.zeros(5))
+    out = {"mu": mu}
+    for steps, n in ((50, 16), (500, 8))[:2 if long_run else 1]:
+        alg = avt.KLMinRepGradDescent(entropy=avt.STL, n_samples=n, operator=avt.ClipScale(),
+                                      mc_axis=MC)
+        q, infos, state = avt.optimize(0, alg, steps, target, q0, mesh=mesh, log_every=steps)
+        out[steps] = [q.location, torch.tril(q.scale), torch.tensor(infos[-1]["elbo"])]
+        if steps == 50:
+            out["state"] = state
+    return out
+
+
+def subsampled_logreg(mesh):
+    """Subsampled logistic regression with the rows over "data" and the
+    draws over "mc", 200 steps (JAX's test_data_axis_sharded_logreg)."""
+    target = make_logreg(11, n_data=64, n_features=7, data_axis=DATA,
+                         device="cpu").unconstrained()
+    q0 = avt.MeanFieldGaussian(torch.zeros(9), 0.1 * torch.ones(9))
+    alg = avt.KLMinRepGradDescent(
+        entropy=avt.STL, n_samples=8, operator=avt.ClipScale(),
+        subsampling=avt.ReshufflingBatchSubsampling(n_data=64, batchsize=16), mc_axis=MC)
+    q, infos, _ = avt.optimize(0, alg, 200, target, q0, mesh=mesh, log_every=200)
+    return [q.location, q.scale_diag, torch.tensor(infos[-1]["elbo"]),
+            torch.tensor(infos[-1]["epoch"])]
+
+
+def chains_engine(n_chains=CHAINS, **kw):
+    prob = make_logreg(5, n_data=24, n_features=5, device="cpu")
+    return avt.FusedChainsADVI(avt.logreg_spec(prob.X, prob.y), n_chains=n_chains, **kw)
+
+
+def chains(mesh):
+    """32 chains of the fused chains engine (its plain version here) with a
+    per-chain lr sweep, 20 steps traced every 5: ``run_sharded`` over "mc"
+    under a mesh, ``run_chunk_traced`` without."""
+    eng = chains_engine(lr=np.linspace(1e-3, 8e-3, CHAINS))
+    g = torch.Generator().manual_seed(0)
+    st = eng.init(0.5 * torch.randn(CHAINS, eng.dim, generator=g),
+                  0.1 * torch.ones(CHAINS, eng.dim))
+    if mesh is None:
+        new, trace = eng.run_chunk_traced(st, 5, 20, 5)
+    else:
+        new, trace = eng.run_sharded(st, 5, 20, mesh, log_every=5)
+    return [new.stacked(), new.elbo, trace, torch.tensor(new.iteration)]
+
+
+def logreg_data(seed=0):
+    """Numpy data of a 64 x 8 logistic regression and three parameter
+    values [beta, sigma] (sigma > 0), shared with the JAX package."""
+    rng = np.random.default_rng(seed)
+    X = rng.standard_normal((64, 8)).astype(np.float32)
+    y = (rng.random(64) < 0.5).astype(np.float32)
+    theta = rng.standard_normal((3, 9)).astype(np.float32)
+    theta[:, -1] = np.abs(theta[:, -1]) + 0.5
+    return X, y, theta
+
+
+def logreg_density(mesh):
+    """The log density and gradient at fixed theta with the rows over "data"
+    (the gradient averaged over the mesh: ``reduce_shares``' rule): the
+    logistic regression, then the BNN on 30 rows (8, 8, 7, 7 a rank)."""
+    import dataclasses
+
+    from advancedvi_jl_tpu_torch.core.problem import log_density_and_grad
+    from advancedvi_jl_tpu_torch.parallel.mesh import reduce_shares
+
+    X, y, theta = logreg_data()
+    prob = LogReg(torch.from_numpy(X), torch.from_numpy(y), torch.ones(()), data_axis=DATA)
+    bnn = dataclasses.replace(avt.make_bnn(2, n_data=30, in_dim=3, hidden=4, device="cpu"),
+                              data_axis=DATA)
+    w = torch.randn(2, bnn.dim, generator=torch.Generator().manual_seed(2))
+    out = []
+    with _under(mesh):
+        for target, th in ((prob, torch.from_numpy(theta)), (bnn, w)):
+            value, grad = log_density_and_grad(target, th)
+            out += [value] + reduce_shares([grad], None)
+    return out
+
+
+def _ppl_logreg(data):
+    from advancedvi_jl_tpu_torch import ppl
+
+    X = data["X"]
+    sigma = ppl.sample("sigma", ppl.LogNormal(0.0, 3.0))
+    beta = ppl.sample("beta", ppl.Normal(X.new_zeros(X.shape[1]), sigma))
+    with ppl.plate("obs", X.shape[0]):
+        ppl.sample("y", ppl.Bernoulli(logits=X @ beta), obs=data["y"])
+
+
+def _ppl_local(data):
+    from advancedvi_jl_tpu_torch import ppl
+
+    mu = ppl.sample("mu", ppl.Normal(0.0, 2.0))
+    with ppl.plate("obs", data["y"].shape[0]):
+        z = ppl.sample("z", ppl.Normal(mu, 1.0))
+        ppl.sample("y", ppl.Normal(z, 0.5), obs=data["y"])
+
+
+def ppl_density(mesh):
+    """Ingested models with ``data_axis``: the logistic regression and a
+    local-latent model (18 rows: 5, 5, 4, 4 a rank, each with its rows'
+    latents); the log density and gradient at fixed theta, the gradient
+    averaged over the mesh."""
+    from advancedvi_jl_tpu_torch import ppl
+    from advancedvi_jl_tpu_torch.core.problem import log_density_and_grad
+    from advancedvi_jl_tpu_torch.parallel.mesh import reduce_shares
+
+    X, y, _ = logreg_data()
+    cases = {"logreg": (_ppl_logreg, {"X": torch.from_numpy(X), "y": torch.from_numpy(y)}),
+             "local": (_ppl_local, {"y": torch.linspace(-1.0, 2.0, 18)})}
+    out = {}
+    for name, (model, data) in cases.items():
+        m = ppl.ingest(model, data=data, data_axis=DATA, device="cpu")
+        theta = torch.randn(3, m.target.dim, generator=torch.Generator().manual_seed(1))
+        with _under(mesh):
+            value, grad = log_density_and_grad(m.target, theta)
+            (grad,) = reduce_shares([grad], None)
+        out[name] = [value, grad]
+    return out
+
+
+SCENARIOS = {"objectives": objectives, "measure_space": measure_space,
+             "optimize": optimize_runs, "subsampled_logreg": subsampled_logreg,
+             "chains": chains, "logreg_density": logreg_density, "ppl_density": ppl_density}
+
+
+# ---------------------------------------------------------------------------
+# The rank's program
+# ---------------------------------------------------------------------------
+
+
+def _refusals(mesh):
+    """JAX's three run_sharded refusals, as messages."""
+    st = None
+    cases = (chains_engine(optimizer=["adam"] * CHAINS), chains_engine(n_chains=20),
+             chains_engine(n_chains=16))
+    out = []
+    for eng in cases:
+        try:
+            eng.run_sharded(st, 0, 1, mesh)
+        except ValueError as e:
+            out.append(str(e))
+    return out
+
+
+def rank_main(rank: int, world: int, port: int, outdir: str) -> None:
+    import torch.distributed as dist
+
+    from advancedvi_jl_tpu_torch.parallel import distributed
+
+    torch.set_num_threads(1)
+    with np.load(os.path.join(outdir, "inputs", "jax.npz")) as f:
+        inputs = dict(f)
+    address = f"localhost:{port}"
+    distributed.initialize(address, world, rank, backend="gloo")
+    group = dist.group.WORLD
+    distributed.initialize(address, world, rank, backend="gloo")  # a no-op
+    results = {"second_initialize_kept_the_group": dist.group.WORLD is group,
+               "multi_host": distributed.is_multi_host()}
+    for shape in MESHES:
+        mesh = avt.make_vi_mesh(n_mc=shape[1], n_data=shape[0])
+        for name, fn in SCENARIOS.items():
+            if name == "logreg_density" and shape != (4, 1):
+                continue
+            # the 500-step run on one mesh, as JAX's test_mesh_optimize_end_to_end
+            res = fn(mesh, shape == (2, 2)) if name == "optimize" else fn(mesh)
+            if name == "optimize":
+                state = res.pop("state")
+                res["state_leaves"] = [state.q.location, state.q.scale]
+                if shape == (2, 2):  # everyone syncs, one rank writes
+                    distributed.sync_hosts("pre_checkpoint")
+                    if rank == 0:
+                        avt.save_state(os.path.join(outdir, "ckpt.npz"), state)
+                    distributed.sync_hosts("post_checkpoint")
+            results[(name, shape)] = res
+        results[("jax_objectives", shape)] = jax_objectives(mesh, inputs)
+    results["refusals"] = _refusals(avt.make_vi_mesh())
+    torch.save(results, os.path.join(outdir, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    rank_main(int(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+
+
+# ---------------------------------------------------------------------------
+# The tests
+# ---------------------------------------------------------------------------
+
+
+def _jax_family(fam):
+    import jax.numpy as jnp
+
+    import advancedvi_jl_tpu as javt
+
+    loc, sd, C = jax_pairs()
+    if fam == "meanfield":
+        return javt.MeanFieldGaussian(jnp.asarray(loc), jnp.asarray(sd))
+    return javt.FullRankGaussian(jnp.asarray(loc), jnp.asarray(C))
+
+
+def _jax_target():
+    import jax
+
+    from advancedvi_jl_tpu.models.normal import normal_fullrank as jax_normal_fullrank
+
+    return jax_normal_fullrank(jax.random.key(3), JAX_D)
+
+
+JAX_KEY = 17
+
+
+def write_jax_inputs(outdir):
+    """The JAX package's target (mu, L) and, for each of JAX_OBJECTIVES,
+    its family's base draws for JAX_KEY (one device: with partitionable
+    threefry they are the sharded draws too), to OUTDIR/inputs/jax.npz."""
+    import jax
+
+    _, mu, L = _jax_target()
+    out = {"mu": np.asarray(mu), "L": np.asarray(L)}
+    os.makedirs(os.path.join(outdir, "inputs"))
+    for name, (_, _, fam) in JAX_OBJECTIVES.items():
+        u = _jax_family(fam).sample_with_base(jax.random.key(JAX_KEY), JAX_N)[1]
+        out[name] = np.asarray(u)
+    np.savez(os.path.join(outdir, "inputs", "jax.npz"), **out)
+
+
+@pytest.fixture(scope="module")
+def ranks(tmp_path_factory):
+    """Run the four ranks once; their results, in rank order, and the
+    output directory."""
+    from advancedvi_jl_tpu_torch.parallel.distributed import free_port
+
+    outdir = str(tmp_path_factory.mktemp("torch_multiprocess"))
+    write_jax_inputs(outdir)
+    port = free_port()
+    env = {k: v for k, v in os.environ.items() if k not in ("MASTER_ADDR", "MASTER_PORT",
+                                                            "RANK", "WORLD_SIZE")}
+    env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
+    env["OMP_NUM_THREADS"] = "1"
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), str(r), str(WORLD),
+                               str(port), outdir], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(WORLD)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=TIMEOUT)[0])
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+            p.communicate()
+        pytest.fail(f"the {WORLD} ranks did not finish in {TIMEOUT} s")
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, f"rank {r} failed (rc {p.returncode}):\n{out[-4000:]}"
+    return [torch.load(os.path.join(outdir, f"rank{r}.pt"), weights_only=False)
+            for r in range(WORLD)], outdir
+
+
+@pytest.fixture(scope="module")
+def reference():
+    """Every scenario in this process, without a mesh."""
+    out = {}
+    for name, fn in SCENARIOS.items():
+        out[name] = fn(None)
+    return out
+
+
+def _close(got, want, rtol, atol=0.0):
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=rtol, atol=atol)
+
+
+def _equal(a, b):
+    if isinstance(a, dict):
+        assert a.keys() == b.keys()
+        for k in a:
+            _equal(a[k], b[k])
+    elif isinstance(a, (list, tuple)):
+        assert len(a) == len(b)
+        for x, y in zip(a, b):
+            _equal(x, y)
+    elif isinstance(a, torch.Tensor):
+        assert torch.equal(a, b)
+    else:
+        assert a == b
+
+
+def test_every_rank_returns_the_same_bits(ranks):
+    """Replicated outputs: each rank's results equal rank 0's exactly."""
+    results, _ = ranks
+    for r in range(1, WORLD):
+        _equal(results[r], results[0])
+
+
+@pytest.mark.parametrize("shape", MESHES)
+@pytest.mark.parametrize("case", ["repgrad", "repgrad_uneven", "repgrad_antithetic",
+                                  "scoregrad", "iwelbo_dreg", "iwelbo_plain"])
+def test_sharded_objective_equals_one_process(ranks, reference, shape, case):
+    """The gradient and the ELBO (IW bound) with the draws over "mc" equal
+    the one-process estimate (JAX: rtol 1e-5, atol 1e-6)."""
+    got = ranks[0][0][("objectives", shape)][case]
+    want = reference["objectives"][case]
+    _close(got[:-1], want[:-1], rtol=1e-5, atol=1e-6)
+    _close(got[-1:], want[-1:], rtol=1e-5)
+
+
+@pytest.mark.parametrize("shape", MESHES)
+def test_sharded_measure_space_steps_equal_one_process(ranks, reference, shape):
+    """One NGD step at rtol 1e-5 and one BaM step at 5e-4 (its thin SVDs;
+    the covariance-weighted Fisher at 1e-4), as JAX's; on the Gaussian and
+    on the logistic regression with its rows over "data"."""
+    got = ranks[0][0][("measure_space", shape)]
+    want = reference["measure_space"]
+    _close(got["ngd"][:2], want["ngd"][:2], rtol=1e-5, atol=1e-6)
+    _close(got["ngd"][2:], want["ngd"][2:], rtol=1e-5)
+    _close(got["bam"][:2], want["bam"][:2], rtol=5e-4, atol=5e-5)
+    _close(got["bam"][3:], want["bam"][3:], rtol=1e-4)
+    # the logistic regression's rows over "data" too
+    _close(got["ngd_logreg"][:2], want["ngd_logreg"][:2], rtol=1e-5, atol=1e-6)
+    _close(got["bam_logreg"][:2], want["bam_logreg"][:2], rtol=5e-4, atol=5e-5)
+
+
+@pytest.mark.parametrize("shape", MESHES)
+def test_optimize_under_a_mesh_equals_one_process(ranks, reference, shape):
+    """50 steps of full-rank ADVI through ``optimize(mesh=)`` at rtol 1e-5;
+    on (2, 2) also 500 steps, within 0.1 of the target's mean."""
+    got = ranks[0][0][("optimize", shape)]
+    want = reference["optimize"]
+    _close(got[50][:2], want[50][:2], rtol=1e-5, atol=1e-6)
+    _close(got[50][2:], want[50][2:], rtol=1e-5, atol=1e-5)
+    if shape == (2, 2):
+        assert float(torch.linalg.norm(got[500][0] - want["mu"])) < 0.1
+        assert np.isfinite(float(got[500][2]))
+
+
+@pytest.mark.parametrize("shape", MESHES)
+def test_subsampled_logreg_over_the_data_axis(ranks, reference, shape):
+    """Rows over "data", draws over "mc", a minibatch of 16 of 64 rows: 200
+    steps, 50 epochs, the one-process run's parameters at rtol 1e-5."""
+    got = ranks[0][0][("subsampled_logreg", shape)]
+    want = reference["subsampled_logreg"]
+    assert np.isfinite(float(got[2])) and int(got[3]) >= 40
+    _close(got[:2], want[:2], rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("shape", MESHES)
+def test_run_sharded_is_run_chunk_bit_for_bit(ranks, reference, shape):
+    """The chain blocks over "mc" (8 chains a rank on (1, 4)), gathered in
+    chain order, with the per-chain ELBO trace: the one-rank run bit for
+    bit."""
+    got = ranks[0][0][("chains", shape)]
+    _equal(got, reference["chains"])
+
+
+@pytest.mark.parametrize("shape", MESHES)
+@pytest.mark.parametrize("case", ["logreg", "local"])
+def test_ingested_models_over_the_data_axis(ranks, reference, shape, case):
+    """``ppl.ingest(..., data_axis="data")``: the log density (the blocks'
+    likelihoods summed) and its gradient equal the one-process target's."""
+    got = ranks[0][0][("ppl_density", shape)][case]
+    _close(got, reference["ppl_density"][case], rtol=1e-5, atol=1e-5)
+
+
+def test_run_sharded_refuses_as_the_jax_engine(ranks):
+    results, _ = ranks
+    mixed, ragged, small = results[0]["refusals"]
+    assert "mixed per-chain rule sweeps" in mixed
+    assert "n_chains (= 20) to be a multiple of 8 and of the 'mc' axis size 4" in ragged
+    assert "per-device chain block 4 must be a multiple of 8" in small
+
+
+def test_process_zero_checkpoint_restores_bit_for_bit(ranks):
+    """One checkpoint, written by rank 0 between two ``sync_hosts``; it
+    restores onto a one-process template as the ranks' state."""
+    results, outdir = ranks
+    assert sorted(f for f in os.listdir(outdir) if f.endswith(".npz")) == ["ckpt.npz"]
+    target, _, _ = normal_fullrank(3, 5, device="cpu")
+    alg = avt.KLMinRepGradDescent(entropy=avt.STL, n_samples=16, operator=avt.ClipScale(),
+                                  mc_axis=MC)
+    template = alg.init(0, avt.FullRankGaussian(torch.zeros(5)), target)
+    restored = avt.restore_state(os.path.join(outdir, "ckpt.npz"), template)
+    loc, scale = results[0][("optimize", (2, 2))]["state_leaves"]
+    assert torch.equal(restored.q.location, loc) and torch.equal(restored.q.scale, scale)
+    assert restored.iteration == 50
+
+
+def test_initialize_twice_is_a_no_op(ranks):
+    results, _ = ranks
+    assert results[0]["second_initialize_kept_the_group"] and results[0]["multi_host"]
+
+
+def test_logreg_over_the_data_axis_matches_jax(ranks):
+    """The log density and its gradient at fixed theta on the same numpy
+    data, rows over "data": the port's 4 ranks against the JAX package's
+    ``LogReg(data_axis="data")`` on its 8-device mesh, rtol 1e-5."""
+    import jax
+    import jax.numpy as jnp
+
+    from advancedvi_jl_tpu.models.logreg import LogReg as JaxLogReg
+    from advancedvi_jl_tpu.parallel.mesh import make_vi_mesh as jax_mesh
+
+    if len(jax.devices()) < 8:
+        pytest.skip("needs the 8 virtual JAX devices of tests/conftest.py")
+    X, y, theta = logreg_data()
+    prob = JaxLogReg(jnp.asarray(X), jnp.asarray(y), jnp.ones(()), data_axis="data")
+    with jax.set_mesh(jax_mesh(n_mc=1, n_data=8)):
+        value, grad = jax.jit(jax.vmap(jax.value_and_grad(prob.log_density)))(
+            jnp.asarray(theta))
+    got = ranks[0][0][("logreg_density", (4, 1))]
+    _close(got[:2], [np.asarray(value), np.asarray(grad)], rtol=1e-5, atol=1e-5)
+
+
+def test_bnn_over_the_data_axis_equals_one_process(ranks, reference):
+    """The BNN's log density and gradient with its rows over "data" equal
+    the one-process target's."""
+    _close(ranks[0][0][("logreg_density", (4, 1))][2:], reference["logreg_density"][2:],
+           rtol=1e-5, atol=1e-5)
+
+
+@pytest.fixture(scope="module")
+def jax_sharded():
+    """Each of JAX_OBJECTIVES in the JAX package with ``mc_axis="mc"`` under
+    its 8-device mesh, for JAX_KEY: its gradient leaves, then the ELBO."""
+    import jax
+
+    import advancedvi_jl_tpu as javt
+    from advancedvi_jl_tpu.parallel.mesh import make_vi_mesh as jax_mesh
+
+    if len(jax.devices()) < 8:
+        pytest.skip("needs the 8 virtual JAX devices of tests/conftest.py")
+    target, _, _ = _jax_target()
+    key = jax.random.key(JAX_KEY)
+    out = {}
+    with jax.set_mesh(jax_mesh(n_mc=8)):
+        for name, (cls, kw, fam) in JAX_OBJECTIVES.items():
+            obj = getattr(javt, cls)(n_samples=JAX_N, mc_axis="mc", **kw)
+            grad, _, info = jax.jit(lambda q: obj.value_and_grad(q, target, key))(
+                _jax_family(fam))
+            out[name] = [np.asarray(g) for g in jax.tree.leaves(grad)] + [
+                np.asarray(info["elbo"])]
+    return out
+
+
+@pytest.mark.parametrize("shape", MESHES)
+@pytest.mark.parametrize("case", list(JAX_OBJECTIVES))
+def test_sharded_objective_matches_jax(ranks, jax_sharded, shape, case):
+    """The gradient and the ELBO (IW bound) with the draws over "mc" on the
+    port's 4 ranks against the JAX package's objective over "mc" on its
+    8-device mesh, on the same target, family and draws (rtol 1e-5, atol
+    1e-6 for the gradient)."""
+    got = ranks[0][0][("jax_objectives", shape)][case]
+    want = jax_sharded[case]
+    assert len(got) == len(want)
+    _close(got[:-1], want[:-1], rtol=1e-5, atol=1e-6)
+    _close(got[-1:], want[-1:], rtol=1e-5)

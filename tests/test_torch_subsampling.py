@@ -362,8 +362,12 @@ def test_factorized_target_matches_jax():
     assert_allclose(ts.log_density(torch.from_numpy(x)).numpy(),
                     np.asarray(jax.vmap(js.log_density)(jnp.asarray(x))), rtol=1e-6)
     assert isinstance(target, avt.FactorizedTarget) and target.n_data == 32
-    with pytest.raises(NotImplementedError, match="item 17"):
-        avt.factorized_target(jlogprior, jloglike, torch.zeros(4), dim=1, data_axis="data")
+    # data_axis is kept through subsample; outside a mesh it changes nothing
+    split = avt.factorized_target(target.logprior_fn, target.loglike_fn, target.data, dim=1,
+                                  data_axis="data")
+    sub = split.subsample(torch.from_numpy(idx))
+    assert split.data_axis == sub.data_axis == "data"
+    assert torch.equal(sub.log_density(torch.from_numpy(x)), ts.log_density(torch.from_numpy(x)))
 
 
 def test_factorized_full_batch_convergence():
