@@ -29,8 +29,8 @@ from ..core.problem import (
     order_of,
 )
 from ..families.location_scale import FullRankLocationScale
-from ..objectives.repgradelbo import draw_with_base
-from ..parallel.mesh import mc_rows, reduce_shares
+from ..objectives.repgradelbo import draw_with_base, mc_share
+from ..parallel.mesh import reduce_shares
 
 
 def check_capability_at_least_grad(prob: Any, alg_name: str) -> None:
@@ -71,8 +71,8 @@ def gaussian_expected_grad_hess(
             "target; this target only provides gradients (order 1). Use "
             "hessian='stein' or 'auto'."
         )
-    rows = mc_rows(n_samples, mc_axis)
-    z, u = draw_with_base(q, key, n_samples, noise, rows)  # one K7b launch on the card
+    q_draw, rows = mc_share(q, n_samples, mc_axis)
+    z, u = draw_with_base(q_draw, key, n_samples, noise, rows)  # one K7b launch on the card
     if order == ORDER_GRAD or hessian == "stein":
         # Stein/Price identity: E[hess] = C^-T E[u grad(C u + m)^T]
         logpi, grads = log_density_and_grad(prob, z)

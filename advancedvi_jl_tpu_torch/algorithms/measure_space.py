@@ -34,11 +34,11 @@ from ..core.problem import log_density_and_grad, subsample
 from ..families.base import Normal
 from ..families.location_scale import FullRankLocationScale
 from ..objectives.entropy import MONTE_CARLO
-from ..objectives.repgradelbo import RepGradELBO, draw_with_base
+from ..objectives.repgradelbo import RepGradELBO, draw_with_base, mc_share
 from ..objectives.subsampled import SubsampledObjective
 from ..ops.cuda.location_scale_kernels import PhiloxKey, SeedLike, seed_words
 from ..ops.sqrtm import _symmetrize, sqrtm_newton_schulz
-from ..parallel.mesh import all_gather_rows, mc_rows, reduce_shares
+from ..parallel.mesh import all_gather_rows, reduce_shares
 from .gauss_expected import (
     check_capability_at_least_grad,
     gaussian_expected_grad_hess,
@@ -313,8 +313,8 @@ class FisherMinBatchMatch(MeasureSpaceAlgorithm):
         prob_sub, sub_state, info = self._advance_subsampling(state)
         mu = q.location
         C = q.tril_scale()
-        rows = mc_rows(n, self.mc_axis)
-        z, u = draw_with_base(q, PhiloxKey(state.seed, state.iteration), n, noise, rows)
+        q_draw, rows = mc_share(q, n, self.mc_axis)
+        z, u = draw_with_base(q_draw, PhiloxKey(state.seed, state.iteration), n, noise, rows)
         logpi, grads = log_density_and_grad(prob_sub, z)
         # under a mesh: a data axis's blocks averaged, then every rank's rows
         # in order (the batch moments need them all)

@@ -100,16 +100,17 @@ def meanfield_from_numpy(location, scale_diag, base=None, sampler: str = "xla",
 
 def fullrank_from_numpy(location, scale, solve_mode: str = "solve", base=None,
                         sampler: str = "xla", layout: str = "dense", device="cuda",
-                        dtype=torch.float32) -> FullRankLocationScale:
-    """The port's FullRankLocationScale from a JAX one's ``location, scale``:
-    a dense scale is made lower-triangular, a packed one (``layout="packed"``,
-    the JAX tiles) passes through as it is."""
+                        dtype=torch.float32, tp_axis=None,
+                        compute_dtype=None) -> FullRankLocationScale:
+    """The port's FullRankLocationScale from a JAX one's ``location, scale``
+    and static fields: a dense scale is made lower-triangular, a packed one
+    (``layout="packed"``, the JAX tiles) passes through as it is."""
     scale = to_tensor(scale, device, dtype)
     return FullRankLocationScale(
         location=to_tensor(location, device, dtype),
         scale=torch.tril(scale) if layout == "dense" else scale,
-        base=Normal() if base is None else base, sampler=sampler, solve_mode=solve_mode,
-        layout=layout)
+        base=Normal() if base is None else base, sampler=sampler, tp_axis=tp_axis,
+        compute_dtype=compute_dtype, solve_mode=solve_mode, layout=layout)
 
 
 def lowrank_from_numpy(location, scale_diag, scale_factors,
@@ -121,13 +122,13 @@ def lowrank_from_numpy(location, scale_diag, scale_factors,
 
 
 def blockdiag_from_numpy(location, scales, base=None, device="cuda",
-                        dtype=torch.float32) -> BlockDiagLocationScale:
+                        dtype=torch.float32, block_axis=None) -> BlockDiagLocationScale:
     """The port's BlockDiagLocationScale from a JAX one's ``location,
-    scales`` (the blocks made lower-triangular)."""
+    scales`` (the blocks made lower-triangular) and ``block_axis``."""
     return BlockDiagLocationScale(
         location=to_tensor(location, device, dtype),
         scales=torch.tril(to_tensor(scales, device, dtype)),
-        base=Normal() if base is None else base)
+        base=Normal() if base is None else base, block_axis=block_axis)
 
 
 def mixture_meanfield_from_numpy(logits, locations, scale_diags, device="cuda",
@@ -250,12 +251,13 @@ def pack_noise(noise, n_pad: Optional[int] = None,
 
 
 def bnn_from_numpy(X, y, likeadj=1.0, hidden: int = 32, noise_scale: float = 0.1,
-                   device="cuda") -> BayesianMLP:
+                   device="cuda", data_axis=None, compute_dtype=None) -> BayesianMLP:
     """The port's BayesianMLP from a JAX one's ``X, y, likeadj, hidden,
-    noise_scale``."""
+    noise_scale, data_axis, compute_dtype``."""
     return BayesianMLP(X=to_tensor(X, device), y=to_tensor(y, device),
                        likeadj=to_tensor(likeadj, device), hidden=int(hidden),
-                       noise_scale=float(noise_scale))
+                       noise_scale=float(noise_scale), data_axis=data_axis,
+                       compute_dtype=compute_dtype)
 
 
 def subsampled_normals_from_numpy(mus, likeadj=1.0, device="cuda") -> SubsampledNormals:

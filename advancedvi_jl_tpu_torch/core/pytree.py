@@ -63,10 +63,11 @@ def value_and_grad(loss_and_aux: Callable, q: Any, mc_axis=None):
     counterpart of ``jax.value_and_grad(..., has_aux=True)``).  Under a
     device mesh (parallel/mesh.py) ``loss`` and aux's scalars are this
     rank's shares: the gradient and those scalars come back summed over
-    ``mc_axis`` and averaged over the mesh's other axes."""
-    from ..parallel.mesh import reduce_tree
+    ``mc_axis`` and averaged over the mesh's other axes; the ranks of
+    ``mc_axis`` evaluate different terms (``terms_split``)."""
+    from ..parallel.mesh import reduce_tree, terms_split
 
-    with torch.enable_grad():
+    with torch.enable_grad(), terms_split(mc_axis):
         live = tree_map(lambda t: t.detach().requires_grad_(True), q)
         loss, aux = loss_and_aux(live)
         grads = iter(torch.autograd.grad(loss, tree_leaves(live)))

@@ -47,6 +47,14 @@
 //    Launch: its blocks start while the draws run and fetch their first C
 //    tile before the wait.
 //
+// A column range [col0, col0 + ncols) (one rank's share under the family's
+// tp_axis) draws the whole u (column c of z needs u's columns 0 .. c) and
+// walks only the range's column tiles (C's rows col0 ..), storing the
+// columns below col0 + ncols into an (n, ncols) z.  The whole product is
+// the range [0, d).  The lower rows of C are longer, so an even cut of
+// the columns is uneven work; nothing rebalances it.  With product = 0 the
+// entry draws u alone, for the bfloat16 product of csrc/fullrank_bf16.cu.
+//
 // Full float32 FMAs throughout (TF32 would miss the 1e-6 contract).
 #include "philox.cuh"
 
@@ -168,11 +176,19 @@ __device__ __forceinline__ Segment segment(const int* __restrict__ segs, int s) 
   return Segment{a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
 }
 
+// The product over the plan's tiles, output columns [zc0, cend) (C's rows
+// zc0 ..) into an (n, cend - zc0) z (the whole product: zc0 = 0, cend = d).
+// C's tiles are staged up to row d as for the whole product, so the tile
+// walk is the same code either way: a range's last tile may compute
+// columns past cend, which are not stored.  kVec also needs zc0 and cend -
+// zc0 multiples of 4 (float4 stores of z).
 template <bool kVec>
 __global__ void __launch_bounds__(kThreads, 1)
     fullrank_product_kernel(const float* __restrict__ loc, const float* __restrict__ C,
                             const float* u, float* __restrict__ z, float* partial,
-                            int* counters, const int* __restrict__ plan, int n, int d) {
+                            int* counters, const int* __restrict__ plan, int n, int d,
+                            int cend, int zc0) {
+  const int ldz = cend - zc0;
   extern __shared__ float4 smem4[];
   // [kStages][u's rows, C's rows][64][kPad], then the k-groups' sums [4][64][kRed]
   float* const ops = reinterpret_cast<float*>(smem4);
@@ -342,17 +358,19 @@ __global__ void __launch_bounds__(kThreads, 1)
         const int p = tid + r * kThreads;
         const int row = sc.row0 + (p >> 4);
         const int col = sc.col0 + (p & 15) * 4;
-        if (row >= n || col >= d) continue;
-        float* dst = z + static_cast<size_t>(row) * d + col;
+        if (row >= n || col >= cend) continue;
+        const size_t at = static_cast<size_t>(row) * ldz + (col - zc0);
         if (kVec) {
           const float4 m = *reinterpret_cast<const float4*>(loc + col);
-          *reinterpret_cast<float4*>(dst) =
+          // indexed in float4s: the compiler keeps the one 16-byte store
+          reinterpret_cast<float4*>(z)[at >> 2] =
               make_float4(v[r].x + m.x, v[r].y + m.y, v[r].z + m.z, v[r].w + m.w);
         } else {
+          float* dst = z + at;
           const float w[4] = {v[r].x, v[r].y, v[r].z, v[r].w};
 #pragma unroll
           for (int q = 0; q < 4; ++q)
-            if (col + q < d) dst[q] = w[q] + loc[col + q];
+            if (col + q < cend) dst[q] = w[q] + loc[col + q];
         }
       }
     }
@@ -364,27 +382,33 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 }  // namespace
 
-// z, u: (n, d) float32, row-major, 16-byte aligned; loc: (d,); C: (d, d)
-// row-major, only its lower triangle is read.  plan: fullrank_plan's table
+// z: (n, ncols) and u: (n, d) float32, row-major, 16-byte aligned; loc: (d,);
+// C: (d, d) row-major, only its lower triangle is read.  z's columns are the
+// product's columns col0 .. col0 + ncols - 1 (rows col0.. of C; the whole
+// product: col0 = 0, ncols = d).  plan: fullrank_plan's table of that range
 // for `blocks` blocks (the block offsets, padded to four words, then eight
 // words a segment), on the card; partial: its slots x 64 x 64 floats;
 // counters: its `tiles` ints.  Row i of u takes counter row first_row + i.
-// Returns the first CUDA error (0 on success): a card without kSmemBytes of
-// shared memory a block refuses the launch.
+// With product = 0 it draws u alone (the bfloat16 product follows,
+// csrc/fullrank_bf16.cu) and reads neither the plan nor C.  Returns the
+// first CUDA error (0 on success): a card without kSmemBytes of shared
+// memory a block refuses the launch.
 extern "C" int fullrank_sample(const float* loc, const float* C, float* z, float* u,
                                float* partial, int* counters, const int* plan, int blocks,
                                int tiles, int n, int d, uint32_t seed0, uint32_t seed1,
-                               uint32_t it, uint32_t first_row, cudaStream_t stream) {
+                               uint32_t it, uint32_t first_row, int col0, int ncols,
+                               int product, cudaStream_t stream) {
   if (n <= 0 || d <= 0) return static_cast<int>(cudaSuccess);
   const int groups = (d + 3) / 4;
   const dim3 draw_grid((groups + kDrawGroups - 1) / kDrawGroups,
                        min((n + kDrawRows - 1) / kDrawRows, kMaxGridRows));
   fullrank_draw_kernel<<<draw_grid, dim3(kDrawGroups, kDrawRows), 0, stream>>>(
-      u, counters, tiles, n, d, seed0, seed1, it, first_row);
+      u, counters, product ? tiles : 0, n, d, seed0, seed1, it, first_row);
   cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+  if (err != cudaSuccess || !product || ncols <= 0) return static_cast<int>(err);
 
-  const bool vec = (d & 3) == 0 && (reinterpret_cast<uintptr_t>(loc) & 15) == 0 &&
+  const bool vec = (d & 3) == 0 && (col0 & 3) == 0 && (ncols & 3) == 0 &&
+                   (reinterpret_cast<uintptr_t>(loc) & 15) == 0 &&
                    (reinterpret_cast<uintptr_t>(C) & 15) == 0;
   auto kernel = vec ? fullrank_product_kernel<true> : fullrank_product_kernel<false>;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
@@ -400,7 +424,7 @@ extern "C" int fullrank_sample(const float* loc, const float* C, float* z, float
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   err = cudaLaunchKernelEx(&cfg, kernel, loc, C, static_cast<const float*>(u), z, partial,
-                           counters, plan, n, d);
+                           counters, plan, n, d, col0 + ncols, col0);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -9,6 +9,11 @@ tril(C), u) + m, as the JAX package forms it outside Pallas; another base
 or dtype draws u through ops/base_draws.py.  ``log_prob`` is one batched
 triangular solve over the blocks.
 
+``block_axis`` (the blocks over a device mesh's axis, as experts): the
+draw stays whole, each rank forms its blocks' part of z with its blocks'
+factors alone, and ``gather_share`` copies the parts into the whole z;
+``log_prob`` and the entropy read every block's replicated factor.
+
 The family has no ``apply_inv_scale_T``, so ``RepGradELBO`` takes the
 general entropy path (``estimate_entropy`` on ``q_stop``), as in JAX.
 """
@@ -20,8 +25,9 @@ from typing import Any, Optional
 
 import torch
 
+from ..parallel.mesh import gather_share, rows_of
 from .base import Normal
-from .location_scale import check_mesh_axis, standard_draw
+from .location_scale import standard_draw
 
 
 @dataclass(frozen=True)
@@ -31,15 +37,12 @@ class BlockDiagLocationScale:
     ``location`` is flat (B k,): block b owns coordinates [b k, (b + 1) k).
     ``scales`` holds dense (B, k, k) blocks read as their lower triangles
     (the strict upper entries are inert, as in the full-rank family).
-    ``block_axis`` (the blocks over a device mesh) must be None."""
+    ``block_axis``: the blocks over a device mesh's axis."""
 
     location: torch.Tensor  # (B*k,)
     scales: torch.Tensor  # (B, k, k), lower-triangular by convention
     base: Any = Normal()
     block_axis: Optional[str] = None
-
-    def __post_init__(self) -> None:
-        check_mesh_axis("block_axis", self.block_axis)
 
     @property
     def n_blocks(self) -> int:
@@ -71,10 +74,15 @@ class BlockDiagLocationScale:
         return self.from_base(u), u
 
     def from_base(self, u: torch.Tensor) -> torch.Tensor:
-        """z = blockdiag(tril C) u + location for given (n, B k) draws."""
+        """z = blockdiag(tril C) u + location for given (n, B k) draws; under
+        ``block_axis`` this rank's blocks, gathered."""
         n, B, k = u.shape[0], self.n_blocks, self.block_dim
-        z = torch.einsum("bij,nbj->nbi", self.tril_scales(), u.reshape(n, B, k))
-        return z.reshape(n, B * k) + self.location
+        mine = rows_of(B, self.block_axis)
+        b0, nb = (0, B) if mine is None else mine
+        C = torch.tril(self.scales[b0:b0 + nb])
+        z = torch.einsum("bij,nbj->nbi", C, u.reshape(n, B, k)[:, b0:b0 + nb])
+        z = z + self.location.reshape(B, k)[b0:b0 + nb]
+        return gather_share(z, B, self.block_axis, dim=1).reshape(n, B * k)
 
     def log_prob(self, z: torch.Tensor) -> torch.Tensor:
         B, k = self.n_blocks, self.block_dim

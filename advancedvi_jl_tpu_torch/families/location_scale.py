@@ -21,8 +21,18 @@ block (a torch generator cannot start at a row) and keeps the rows.
 
 The full-rank ``scale`` is dense (d, d), only its lower triangle read, or
 with ``layout="packed"`` the tile-packed triangle of ops/packing.py; the
-dense factor is made where a product or a solve reads it.  The low-rank
-family is families/low_rank.py.
+dense factor is made where a product or a solve reads it.  ``tp_axis``
+(the factor's rows over a device mesh's axis): each rank forms its share
+of z's columns, the columns of its rows of C (K7b over a column range, or
+the plain product of those rows for injected draws), and ``gather_share``
+copies the shares into the whole z; the densities, the entropy and the
+solves read the replicated factor.  ``compute_dtype="bfloat16"``: the
+sampling product rounds u and C to bfloat16 and sums in the parameters'
+dtype (csrc/fullrank_bf16.cu on the card, after K7b's draw launch on the
+kernel route); u, the densities, the entropy and the solves stay in the
+parameters' dtype.  Under ``sampler="pallas"`` the product is K7b's float32
+one, as the JAX package's Pallas sampler ignores ``compute_dtype``.  The
+low-rank family is families/low_rank.py.
 """
 
 from __future__ import annotations
@@ -34,22 +44,15 @@ from typing import Any, Optional, Tuple
 import torch
 
 from ..ops import base_draws
-from ..ops.cuda.location_scale_kernels import as_key, fullrank_sample, meanfield_sample
+from ..ops.cuda.location_scale_kernels import (
+    as_key, fullrank_affine_reference, fullrank_bf16, fullrank_draw, fullrank_sample,
+    meanfield_sample,
+)
 from ..ops.cuda.trisolve_kernels import vdiv_c, vdiv_ct
 from ..ops.packing import packed_diag, packed_with_diag, tril_pack, tril_unpack
 from ..ops.trinv import tril_inverse
+from ..parallel.mesh import gather_share, rows_of
 from .base import Normal
-
-
-def check_mesh_axis(name: str, axis) -> None:
-    """Refuse a mesh axis over a family's parameters (``tp_axis``,
-    ``block_axis``, ``ep_axis``): each needs collectives inside the sampling
-    product, which are not ported."""
-    if axis is not None:
-        raise NotImplementedError(
-            f"{name} (a family's parameters over a device mesh) is not ported yet "
-            "(ROADMAP Queue 1 item 17b)"
-        )
 
 
 def take_rows(x: torch.Tensor, rows) -> torch.Tensor:
@@ -64,11 +67,12 @@ def row_span(n: int, rows) -> Tuple[int, int]:
 
 
 def check_compute_dtype(compute_dtype) -> None:
-    if compute_dtype is not None:
-        raise NotImplementedError(
-            "compute_dtype (a bfloat16 sampling product) is not ported: it "
-            "would be a K7b variant, which waits for the H100 measurement of "
-            "ROADMAP Queue 1 item 5"
+    """Accept None or bfloat16 (the name or the torch dtype): the operand
+    type of a family's sampling product or a model's forward products."""
+    if compute_dtype is not None and compute_dtype not in ("bfloat16", torch.bfloat16):
+        raise ValueError(
+            "compute_dtype must be None or 'bfloat16' (the products round their operands "
+            f"to bfloat16 and sum in float32), got {compute_dtype!r}"
         )
 
 
@@ -229,7 +233,6 @@ class FullRankLocationScale:
     layout: str = "dense"
 
     def __post_init__(self) -> None:
-        check_mesh_axis("tp_axis", self.tp_axis)
         check_compute_dtype(self.compute_dtype)
         if self.layout not in LAYOUTS:
             raise ValueError(
@@ -256,8 +259,18 @@ class FullRankLocationScale:
 
     def tril_scale(self) -> torch.Tensor:
         if self.layout == "packed":
+            if self.tp_axis is not None:
+                raise ValueError(
+                    "layout='packed' cannot row-shard the scale; use "
+                    "layout='dense' with tp_axis"
+                )
             return tril_unpack(self.scale, self.dim)
         return torch.tril(self.scale)
+
+    def _factor(self) -> torch.Tensor:
+        """The factor a sampling product reads: the dense scale as stored (its
+        lower triangle read), a packed one unpacked."""
+        return self.scale if self.layout == "dense" else self.tril_scale()
 
     def scale_diag_view(self) -> torch.Tensor:
         """Diagonal of the effective scale, whatever the layout."""
@@ -282,19 +295,32 @@ class FullRankLocationScale:
         """(z, u) for ``key`` (a PhiloxKey, or a seed read as iteration 0);
         ``rows=(row0, count)``: those rows of the n_samples-row draw.  On
         the kernel route u is the mean-field sampler's draw for the same
-        key.  A dense scale goes to K7b as stored (it reads the lower
-        triangle), a packed one unpacked."""
+        key: K7b forms z (over this rank's columns under ``tp_axis``), or,
+        with ``compute_dtype``, draws u alone for the bfloat16 product."""
         if kernel_draws(self):
             k = as_key(key)
-            C = self.scale if self.layout == "dense" else self.tril_scale()
             row0, count = row_span(n_samples, rows)
-            return fullrank_sample(k.seed, k.it, self.location, C, count, row0)
+            cols = rows_of(self.dim, self.tp_axis)
+            if self.compute_dtype is not None and self.sampler != "pallas":
+                u = fullrank_draw(k.seed, k.it, self.location, count, row0)
+                z = fullrank_bf16(u, self.location, self._factor(), cols)
+            else:
+                z, u = fullrank_sample(k.seed, k.it, self.location, self._factor(), count,
+                                       row0, cols)
+            return gather_share(z, self.dim, self.tp_axis, dim=1), u
         u = base_draw(self, key, n_samples, self.dim, rows)
         return self.from_base(u), u
 
     def from_base(self, u: torch.Tensor) -> torch.Tensor:
-        """z = u tril(scale)^T + location for given (n, d) base draws."""
-        return u @ self.tril_scale().T + self.location
+        """z = u tril(scale)^T + location for given (n, d) base draws (with
+        ``compute_dtype``, the bfloat16 product); under ``tp_axis`` this
+        rank's columns, gathered."""
+        cols = rows_of(self.dim, self.tp_axis)
+        if self.compute_dtype is not None:
+            z = fullrank_bf16(u, self.location, self._factor(), cols)
+        else:
+            z = fullrank_affine_reference(u, self.location, self._factor(), cols)
+        return gather_share(z, self.dim, self.tp_axis, dim=1)
 
     def log_prob(self, z: torch.Tensor) -> torch.Tensor:
         C = self.tril_scale()
@@ -355,7 +381,6 @@ def FullRankGaussian(
     location_scale.jl:124-141), in the JAX package's argument order.  The
     scale is made lower-triangular here, so the stored parameters equal the
     effective ones; ``layout="packed"`` then packs it (ops/packing.py)."""
-    check_compute_dtype(compute_dtype)
     location = torch.as_tensor(location)
     if scale is None:
         scale = torch.eye(location.shape[-1], dtype=location.dtype,
@@ -364,7 +389,8 @@ def FullRankGaussian(
     if layout == "packed":
         scale = tril_pack(scale)
     return FullRankLocationScale(location=location, scale=scale, base=Normal(),
-                                 sampler=sampler, solve_mode=solve_mode, layout=layout)
+                                 sampler=sampler, compute_dtype=compute_dtype,
+                                 solve_mode=solve_mode, layout=layout)
 
 
 def is_location_scale(q: Any) -> bool:

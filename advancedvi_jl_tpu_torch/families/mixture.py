@@ -29,8 +29,9 @@ from ..core.problem import maybe_wrap_custom_grad
 from ..core.pytree import tree_stop_gradient, value_and_grad
 from ..ops import base_draws
 from ..ops.cuda.location_scale_kernels import as_key, meanfield_sample, seed_words
+from ..parallel.mesh import psum, rows_of, terms_split
 from .base import Normal
-from .location_scale import check_mesh_axis, standard_draw
+from .location_scale import standard_draw
 
 _LOG_2PI = math.log(2.0 * math.pi)
 
@@ -39,6 +40,11 @@ def _components(u_flat: torch.Tensor, K: int) -> torch.Tensor:
     """(n, K d) -> (K, n, d): component k's draws in columns [k d, (k + 1) d)."""
     n = u_flat.shape[0]
     return u_flat.reshape(n, K, -1).permute(1, 0, 2)
+
+
+def _span(K: int, comps) -> slice:
+    """The components ``comps=(k0, count)`` as a slice (all K for None)."""
+    return slice(0, K) if comps is None else slice(comps[0], comps[0] + comps[1])
 
 
 def _ancestral(q, key, n_samples: int):
@@ -77,25 +83,28 @@ class MixtureMeanField:
     def weights(self) -> torch.Tensor:
         return torch.softmax(self.logits, dim=-1)
 
-    def sample_stratified_with_base(self, key, n_per_component: int):
+    def sample_stratified_with_base(self, key, n_per_component: int, comps=None):
         """(z, u), both (K, n, d): n reparameterized draws of every
-        component, one K7a launch for a float32 mixture."""
-        K = self.n_components
+        component, one K7a launch for a float32 mixture; ``comps=(k0,
+        count)``: those components' (the launch stays whole)."""
+        K, mine = self.n_components, _span(self.n_components, comps)
         if self.locations.dtype == torch.float32:
             k = as_key(key)
             z, u = meanfield_sample(k.seed, k.it, self.locations.reshape(-1),
                                     self.scale_diags.reshape(-1), n_per_component)
-            return _components(z, K), _components(u, K)
+            return _components(z, K)[mine], _components(u, K)[mine]
         u = _components(standard_draw(Normal(), key, n_per_component, K * self.dim,
-                                      self.locations.dtype, self.locations.device), K)
-        return self.stratified_from_base(u), u
+                                      self.locations.dtype, self.locations.device), K)[mine]
+        return self.stratified_from_base(u, comps), u
 
-    def sample_stratified(self, key, n_per_component: int) -> torch.Tensor:
-        return self.sample_stratified_with_base(key, n_per_component)[0]
+    def sample_stratified(self, key, n_per_component: int, comps=None) -> torch.Tensor:
+        return self.sample_stratified_with_base(key, n_per_component, comps)[0]
 
-    def stratified_from_base(self, u: torch.Tensor) -> torch.Tensor:
-        """z_k = u_k s_k + m_k for given (K, n, d) draws."""
-        return u * self.scale_diags[:, None, :] + self.locations[:, None, :]
+    def stratified_from_base(self, u: torch.Tensor, comps=None) -> torch.Tensor:
+        """z_k = u_k s_k + m_k for given (K, n, d) draws (``comps``: u holds
+        those components' draws alone)."""
+        mine = _span(self.n_components, comps)
+        return u * self.scale_diags[mine, None, :] + self.locations[mine, None, :]
 
     def sample(self, key, n_samples: int) -> torch.Tensor:
         """Ancestral draws (generation and diagnostics, not the training path)."""
@@ -151,20 +160,26 @@ class MixtureFullRank:
     def _tril(self) -> torch.Tensor:
         return torch.tril(self.scales)
 
-    def sample_stratified_with_base(self, key, n_per_component: int):
+    def sample_stratified_with_base(self, key, n_per_component: int, comps=None):
         """(z, u), both (K, n, d): u from one K7a launch (float32) at zero
-        location and unit scale, then one batched product."""
+        location and unit scale, then one batched product; ``comps=(k0,
+        count)``: those components' (the launch stays whole, the product
+        takes their factors alone)."""
         K = self.n_components
         u = _components(standard_draw(Normal(), key, n_per_component, K * self.dim,
                                       self.locations.dtype, self.locations.device), K)
-        return self.stratified_from_base(u), u
+        u = u[_span(K, comps)]
+        return self.stratified_from_base(u, comps), u
 
-    def sample_stratified(self, key, n_per_component: int) -> torch.Tensor:
-        return self.sample_stratified_with_base(key, n_per_component)[0]
+    def sample_stratified(self, key, n_per_component: int, comps=None) -> torch.Tensor:
+        return self.sample_stratified_with_base(key, n_per_component, comps)[0]
 
-    def stratified_from_base(self, u: torch.Tensor) -> torch.Tensor:
-        """z_k = u_k C_k^T + m_k for given (K, n, d) draws."""
-        return torch.einsum("knd,ked->kne", u, self._tril()) + self.locations[:, None, :]
+    def stratified_from_base(self, u: torch.Tensor, comps=None) -> torch.Tensor:
+        """z_k = u_k C_k^T + m_k for given (K, n, d) draws (``comps``: u holds
+        those components' draws alone)."""
+        mine = _span(self.n_components, comps)
+        return (torch.einsum("knd,ked->kne", u, torch.tril(self.scales[mine]))
+                + self.locations[mine, None, :])
 
     def sample(self, key, n_samples: int) -> torch.Tensor:
         comps, u = _ancestral(self, key, n_samples)
@@ -251,41 +266,42 @@ class MixtureELBO:
       n_samples: reparameterized draws a component a step.
       entropy: "monte_carlo" (log q differentiated) or "stl" (log q's
         parameters stopped: the path derivative only).
-      ep_axis: the component axis over a device mesh; must be None.
+      ep_axis: the component axis over a device mesh: each rank evaluates
+        its components' draws, and the shares are summed over the axis.
     """
 
     n_samples: int = 4
     entropy: str = "stl"
     ep_axis: Optional[str] = None
 
-    def __post_init__(self):
-        check_mesh_axis("ep_axis", self.ep_axis)
-
     def init(self, seed, q, prob):
         return ()
 
-    def _draw(self, q, key, noise: Optional[torch.Tensor]) -> torch.Tensor:
+    def _draw(self, q, key, noise: Optional[torch.Tensor], comps) -> torch.Tensor:
         if noise is None:
-            return q.sample_stratified(key, self.n_samples)
+            return q.sample_stratified(key, self.n_samples, comps)
         u = noise.to(device=q.locations.device, dtype=q.locations.dtype)
         expect = (q.n_components, self.n_samples, q.dim)
         if tuple(u.shape) != expect:
             raise ValueError(f"noise must have shape {expect}, got {tuple(u.shape)}")
-        return q.stratified_from_base(u)
+        return q.stratified_from_base(u[_span(q.n_components, comps)], comps)
 
     def loss(self, q, prob, key, noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """-ELBO; under a mesh with ``ep_axis`` this rank's share, the terms
+        of its components (its K_j n draws through log q and the target)."""
         if self.entropy not in _MIXTURE_ENTROPIES:
             raise ValueError(
                 f"unknown mixture entropy estimator: {self.entropy!r} "
                 "(supported: 'monte_carlo', 'stl')"
             )
-        z = self._draw(q, key, noise)  # (K, n, d)
+        comps = rows_of(q.n_components, self.ep_axis)
+        z = self._draw(q, key, noise, comps)  # (K_j, n, d)
         q_for_logq = tree_stop_gradient(q) if self.entropy == "stl" else q
-        logq = q_for_logq.log_prob(z)  # (K, n)
+        logq = q_for_logq.log_prob(z)  # (K_j, n)
         K, n, d = z.shape
         energy = prob.log_density(z.reshape(K * n, d)).reshape(K, n)
         per_comp = torch.mean(energy - logq, dim=1)
-        return -torch.sum(q.weights() * per_comp)
+        return -torch.sum(q.weights()[_span(q.n_components, comps)] * per_comp)
 
     def _loss_and_aux(self, q, prob, key, noise: Optional[torch.Tensor] = None):
         nelbo = self.loss(q, maybe_wrap_custom_grad(prob), key, noise)
@@ -293,12 +309,16 @@ class MixtureELBO:
 
     def value_and_grad(self, q, prob, key, obj_state=(), noise=None):
         """One gradient estimate; returns (grad family, obj_state, info).
-        ``noise``: (K, n_samples, d) base draws that replace the sampler."""
-        grad, info = value_and_grad(lambda live: self._loss_and_aux(live, prob, key, noise), q)
+        ``noise``: (K, n_samples, d) base draws that replace the sampler.
+        Under a mesh the components' shares are summed over ``ep_axis``."""
+        grad, info = value_and_grad(lambda live: self._loss_and_aux(live, prob, key, noise), q,
+                                    self.ep_axis)
         return grad, obj_state, info
 
     @torch.no_grad()
     def estimate_objective(self, key, q, prob, n_samples: Optional[int] = None):
         n = self.n_samples if n_samples is None else n_samples
-        return MixtureELBO(n_samples=n, entropy="monte_carlo", ep_axis=self.ep_axis).loss(
-            q, prob, key)
+        with terms_split(self.ep_axis):
+            share = MixtureELBO(n_samples=n, entropy="monte_carlo", ep_axis=self.ep_axis).loss(
+                q, prob, key)
+        return psum(share, self.ep_axis)

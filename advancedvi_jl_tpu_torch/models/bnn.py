@@ -9,21 +9,81 @@ per sample.  ``subsample`` keeps a minibatch and rescales the likelihood by
 n / batch.  ``data_axis``: under a device mesh with that axis a rank takes
 its row block of the data and the blocks' likelihood sums are summed over
 the axis (parallel/mesh.py ``data_psum``).
+
+``compute_dtype="bfloat16"``: the two forward products take bfloat16
+operands and give float32 sums (the JAX model's ``preferred_element_type``),
+at the JAX model's rounding points: X and W1 rounded for the first product,
+``h`` and ``tanh`` in float32, ``hcore`` and W2 rounded for the second.  The
+gradient rounds where JAX's transpose of such a product does: each bf16
+operand's gradient is a float32 product rounded to bfloat16.  On the card
+the products are ``torch.bmm(..., out_dtype=torch.float32)`` (the tensor
+cores); torch's CPU kernels have no mixed-dtype product (``aten::bmm.dtype``),
+so on the CPU the rounded operands are widened to float32 (the same
+function: a product of two bfloat16 values is exact in float32).
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass, replace
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from ..core.problem import ORDER_AUTOGRAD
+from ..families.location_scale import check_compute_dtype
 from ..parallel.mesh import data_psum, shard_axis0
 from .normal import SeedOrGenerator, _generator
 
 _HALF_L2PI = 0.5 * math.log(2.0 * math.pi)
+
+
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.bfloat16)
+
+
+def _product_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b (broadcast over leading dims) of two bfloat16 tensors, summed
+    in float32: ``torch.bmm(..., out_dtype=torch.float32)`` on the card, the
+    operands widened to float32 on the CPU."""
+    if not a.is_cuda:
+        return a.float() @ b.float()
+    batch = torch.broadcast_shapes(a.shape[:-2], b.shape[:-2])
+    a3 = a.expand(*batch, *a.shape[-2:]).reshape(-1, *a.shape[-2:])
+    b3 = b.expand(*batch, *b.shape[-2:]).reshape(-1, *b.shape[-2:])
+    out = torch.bmm(a3, b3, out_dtype=torch.float32)
+    return out.reshape(*batch, a.shape[-2], b.shape[-1])
+
+
+def _unbroadcast(g: torch.Tensor, shape: Tuple[int, ...]) -> torch.Tensor:
+    """``g`` summed over the leading dims that broadcasting added to ``shape``."""
+    g = g.sum(dim=tuple(range(g.dim() - len(shape)))) if g.dim() > len(shape) else g
+    keep = [i for i, (a, b) in enumerate(zip(g.shape, shape)) if b == 1 and a != 1]
+    return g.sum(dim=keep, keepdim=True) if keep else g
+
+
+class _Bf16Product(torch.autograd.Function):
+    """a @ b with bfloat16 operands and float32 sums, and the JAX package's
+    gradient of ``jnp.dot(a.astype(bf16), b.astype(bf16),
+    preferred_element_type=f32)``: da = bf16(g bf16(b)^T), db = bf16(bf16(a)^T
+    g), each a float32 product rounded to bfloat16 and widened back."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ab, bb = _bf16(a), _bf16(b)
+        ctx.save_for_backward(ab, bb)
+        ctx.shapes = (a.shape, b.shape)
+        return _product_f32(ab, bb)
+
+    @staticmethod
+    def backward(ctx, g):
+        ab, bb = ctx.saved_tensors
+        da = db = None
+        if ctx.needs_input_grad[0]:
+            da = _unbroadcast(_bf16(g @ bb.float().mT).float(), ctx.shapes[0])
+        if ctx.needs_input_grad[1]:
+            db = _unbroadcast(_bf16(ab.float().mT @ g).float(), ctx.shapes[1])
+        return da, db
 
 
 @dataclass(frozen=True)
@@ -34,15 +94,11 @@ class BayesianMLP:
     hidden: int = 32
     noise_scale: float = 0.1
     data_axis: Optional[str] = None
-    # The JAX model's bf16 forward products; the port computes in float32.
+    # the forward products' operand type: None (float32) or "bfloat16"
     compute_dtype: Optional[str] = None
 
     def __post_init__(self):
-        if self.compute_dtype is not None:
-            raise NotImplementedError(
-                "BayesianMLP(compute_dtype=...) is not ported: the port's forward pass "
-                "runs in float32 (ROADMAP Queue 1 item 5)"
-            )
+        check_compute_dtype(self.compute_dtype)
 
     @property
     def in_dim(self) -> int:
@@ -70,6 +126,9 @@ class BayesianMLP:
     def forward(self, theta: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
         """Predictions (..., n) for weights theta (..., d) on inputs X (n, in_dim)."""
         W1, b1, W2, b2 = self._unpack(theta)
+        if self.compute_dtype is not None:
+            hcore = torch.tanh(_Bf16Product.apply(X, W1) + b1.unsqueeze(-2))  # float32
+            return _Bf16Product.apply(hcore, W2.unsqueeze(-1)).squeeze(-1) + b2.unsqueeze(-1)
         hcore = torch.tanh(X @ W1 + b1.unsqueeze(-2))  # (..., n, h)
         return (hcore @ W2.unsqueeze(-1)).squeeze(-1) + b2.unsqueeze(-1)
 

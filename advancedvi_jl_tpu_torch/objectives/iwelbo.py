@@ -36,8 +36,8 @@ from ..core.pytree import tree_stop_gradient, value_and_grad
 from ..optim.averaging import PolynomialAveraging
 from ..optim.operators import IdentityOperator
 from ..optim.rules import dowg
-from ..parallel.mesh import mc_rows, own, pmax, psum
-from .repgradelbo import draw
+from ..parallel.mesh import own, pmax, psum
+from .repgradelbo import draw, mc_share
 
 
 @dataclass(frozen=True)
@@ -84,8 +84,8 @@ class IWELBO:
         self._check_family(q)
         prob = maybe_wrap_custom_grad(prob)
         k = self.n_samples
-        rows = mc_rows(k, self.mc_axis)
-        z = draw(q, key, k, noise, rows)
+        q_draw, rows = mc_share(q, k, self.mc_axis)
+        z = draw(q_draw, key, k, noise, rows)
         logp = prob.log_density(z)
         log_k = math.log(k)
         if rows is not None:

@@ -27,6 +27,7 @@ An antithetic rank draws the base rows its mirrored rows need.
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Optional
 
@@ -60,6 +61,18 @@ def base_noise(q, noise: torch.Tensor, n_samples: int) -> torch.Tensor:
             f"noise must have shape {(n_samples, q.base_dim)}, got {tuple(u.shape)}"
         )
     return u
+
+
+def mc_share(q, n_samples: int, mc_axis: Optional[str]):
+    """(the family to draw from, this rank's rows) of an n_samples-row draw
+    whose rows are cut over ``mc_axis`` (rows None outside a mesh with that
+    axis).  Where the family's ``tp_axis`` is that same axis it draws
+    without its column split: the rows split the product over the axis
+    already, so each rank forms its rows with every column (the values of
+    the one-process draw, as JAX's)."""
+    if mc_axis is not None and getattr(q, "tp_axis", None) == mc_axis:
+        q = dataclasses.replace(q, tp_axis=None)
+    return q, mc_rows(n_samples, mc_axis)
 
 
 def draw_with_base(q, key, n_samples: int, noise: Optional[torch.Tensor] = None,
@@ -206,7 +219,7 @@ class RepGradELBO:
         The fast path gives the entropy from (z, u) without whitening; any
         other goes through ``q_stop.log_prob``.  Under a mesh with
         ``mc_axis``: the estimate on this rank's rows times rows / n."""
-        rows = mc_rows(self.n_samples, self.mc_axis)
+        q, rows = mc_share(q, self.n_samples, self.mc_axis)
         q_stop = tree_stop_gradient(q)
         if self.fast_entropy and _use_fast(q):
             samples, u = self._draw_with_base(q, key, noise, rows=rows)

@@ -25,8 +25,8 @@ from typing import Optional
 import torch
 
 from ..core.pytree import tree_stop_gradient, value_and_grad
-from ..parallel.mesh import mc_rows, psum
-from .repgradelbo import draw
+from ..parallel.mesh import psum
+from .repgradelbo import draw, mc_share
 
 
 @dataclass(frozen=True)
@@ -74,9 +74,9 @@ class ScoreGradELBO:
                 "gradient. Use RepGradELBO for amortized subsampling."
             )
         n = self.n_samples
-        rows = mc_rows(n, self.mc_axis)
+        q_draw, rows = mc_share(tree_stop_gradient(q), n, self.mc_axis)
         with torch.no_grad():
-            samples = self._draw(tree_stop_gradient(q), key, noise, rows)
+            samples = self._draw(q_draw, key, noise, rows)
             log_pi = prob.log_density(samples)
         log_q = q.log_prob(samples)
         f = log_q - log_pi

@@ -49,7 +49,7 @@ NVCC_FLAGS = (
 # refuse a launch above it before making it.
 SMEM_LIMIT = 232448
 KERNELS = ("meanfield_sample", "fused_advi_meanfield", "fullrank_sample", "trisolve",
-           "fused_advi_fullrank", "probes", "fused_chains", "lowrank_sample")
+           "fused_advi_fullrank", "probes", "fused_chains", "lowrank_sample", "fullrank_bf16")
 # Launchers that only card tests call (csrc/block_mm.cu runs the fused
 # kernels' block product alone): built on demand, never by ``build_all()``.
 TEST_KERNELS = ("block_mm",)

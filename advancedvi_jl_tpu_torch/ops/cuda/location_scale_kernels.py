@@ -359,25 +359,42 @@ def meanfield_sample(
 # ---------------------------------------------------------------------------
 
 
+def col_span(d: int, cols) -> Tuple[int, int]:
+    """(col0, ncols) of ``cols``, or all d output columns for None."""
+    if cols is None:
+        return 0, d
+    col0, ncols = int(cols[0]), int(cols[1])
+    if col0 < 0 or ncols < 0 or col0 + ncols > d:
+        raise ValueError(f"columns [{col0}, {col0 + ncols}) are not columns of a width-{d} draw")
+    return col0, ncols
+
+
 def fullrank_affine_reference(
-    u: torch.Tensor, location: torch.Tensor, scale: torch.Tensor
+    u: torch.Tensor, location: torch.Tensor, scale: torch.Tensor, cols=None,
 ) -> torch.Tensor:
     """z = u tril(C)^T + m for given draws u (the product of the kernel's
-    second launch); only the lower triangle of ``scale`` is used."""
-    return u @ torch.tril(scale).T + location
+    second launch); only the lower triangle of ``scale`` is used.  ``cols=
+    (col0, ncols)``: those columns of z alone, from C's rows col0 .. (and
+    u's columns below col0 + ncols)."""
+    if cols is None:
+        return u @ torch.tril(scale).T + location
+    col0, ncols = col_span(location.shape[0], cols)
+    end = col0 + ncols
+    rows = torch.tril(scale[col0:end, :end], diagonal=col0)
+    return u[:, :end] @ rows.T + location[col0:end]
 
 
 def fullrank_sample_reference(
     seed: Tuple[int, int], it: int, location: torch.Tensor,
-    scale: torch.Tensor, n: int, row0: int = 0,
+    scale: torch.Tensor, n: int, row0: int = 0, cols=None,
 ):
     """Plain version of the kernel: z = u tril(C)^T + m; returns (z, u),
-    rows [row0, row0 + n) of the draw.  u is the mean-field sampler's draw
-    for the same (seed, it)."""
+    rows [row0, row0 + n) of the draw (``cols``: those columns of z).  u is
+    the mean-field sampler's draw for the same (seed, it)."""
     u = philox_normals_reference(
         seed, it, n, location.shape[0], device=location.device, row0=row0
     )
-    return fullrank_affine_reference(u, location, scale), u
+    return fullrank_affine_reference(u, location, scale, cols), u
 
 
 # csrc/fullrank_sample.cu's product: 64 x 64 output tiles, summed over k in
@@ -403,12 +420,19 @@ class FullRankPlan(NamedTuple):
     table: torch.Tensor  # int32: block offsets (padded to 4 words), then segments
 
 
-def fullrank_plan(n: int, d: int, sms: int) -> FullRankPlan:
+def fullrank_plan(n: int, d: int, sms: int, col0: int = 0,
+                  ncols: Optional[int] = None) -> FullRankPlan:
     """The product's cut of (n, d) over at most ``sms`` blocks (the card's
-    SMs: one block an SM)."""
-    row_tiles, col_tiles = -(-n // FR_TILE), -(-d // FR_TILE)
-    # column tile j sums k < min(d, 64 (j + 1)): C's row c stops at k = c
-    tile_steps = [-(-min(d, FR_TILE * (j + 1)) // FR_STEP) for j in range(col_tiles)]
+    SMs: one block an SM).  ``col0, ncols``: the output columns [col0, col0
+    + ncols) alone (C's rows there; the whole product for ncols None): a
+    segment's col0 is C's row, and column tile j sums k below the range's
+    end or its own, whichever comes first.  The whole product's table does
+    not depend on the range arguments."""
+    ncols = d - col0 if ncols is None else ncols
+    end = col0 + ncols
+    row_tiles, col_tiles = -(-n // FR_TILE), -(-ncols // FR_TILE)
+    # column tile j sums k < min(end, col0 + 64 (j + 1)): C's row c stops at k = c
+    tile_steps = [-(-min(end, col0 + FR_TILE * (j + 1)) // FR_STEP) for j in range(col_tiles)]
     total = row_tiles * sum(tile_steps)
     blocks = max(1, min(sms, total // FR_MIN_STEPS))
     starts = [b * total // blocks for b in range(blocks + 1)]
@@ -418,20 +442,20 @@ def fullrank_plan(n: int, d: int, sms: int) -> FullRankPlan:
     for j in range(col_tiles):
         for i in range(row_tiles):
             tile = j * row_tiles + i
-            end = at + tile_steps[j]
+            end_at = at + tile_steps[j]
             while starts[b + 1] <= at:
                 b += 1
             last = b
-            while starts[last + 1] < end:
+            while starts[last + 1] < end_at:
                 last += 1
             pieces = last - b + 1
             for q in range(pieces):
-                lo, hi = max(starts[b + q], at), min(starts[b + q + 1], end)
+                lo, hi = max(starts[b + q], at), min(starts[b + q + 1], end_at)
                 per_block[b + q].append(
-                    (FR_TILE * i, FR_TILE * j, lo - at, hi - at, tile, q, pieces,
+                    (FR_TILE * i, col0 + FR_TILE * j, lo - at, hi - at, tile, q, pieces,
                      slots if pieces > 1 else 0))
             slots += pieces if pieces > 1 else 0
-            at = end
+            at = end_at
     head = (blocks + 4) & ~3  # the offsets, padded so each segment is 16-byte aligned
     offsets, count = [], 0
     for segs in per_block:
@@ -444,54 +468,64 @@ def fullrank_plan(n: int, d: int, sms: int) -> FullRankPlan:
                         torch.tensor(words, dtype=torch.int32))
 
 
-_FR_PLANS = {}  # (n, d, device index) -> (plan, its table on the card)
+_FR_PLANS = {}  # (n, d, col0, ncols, device index) -> (plan, its table on the card)
 _FR_ARGTYPES = (
     [ctypes.c_void_p] * 7
-    + [ctypes.c_int] * 4 + [ctypes.c_uint32] * 4 + [ctypes.c_void_p]
+    + [ctypes.c_int] * 4 + [ctypes.c_uint32] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 )
 
 
-def _card_plan(n: int, d: int, device: torch.device):
-    key = (n, d, device.index)
+def _card_plan(n: int, d: int, device: torch.device, col0: int = 0, ncols: Optional[int] = None):
+    ncols = d if ncols is None else ncols
+    key = (n, d, col0, ncols, device.index)
     hit = _FR_PLANS.get(key)
     if hit is None:
         sms = torch.cuda.get_device_properties(device).multi_processor_count
-        plan = fullrank_plan(n, d, sms)
+        plan = fullrank_plan(n, d, sms, col0, ncols)
         hit = _FR_PLANS[key] = (plan, plan.table.to(device))
     return hit
 
 
 def fullrank_sample_cuda(
     seed: Tuple[int, int], it: int, location: torch.Tensor,
-    scale: torch.Tensor, n: int, row0: int = 0,
+    scale: torch.Tensor, n: int, row0: int = 0, cols=None, product: bool = True,
 ):
     """Launch csrc/fullrank_sample.cu on the current stream (the draws, then
     the product); returns (z, u), rows [row0, row0 + n) of the draw.  Only
-    the lower triangle of ``scale`` is read.  Adds one to
-    ``fullrank_sample_cuda.launches`` per call."""
+    the lower triangle of ``scale`` is read.  ``cols=(col0, ncols)``: z is
+    (n, ncols), those columns of the product alone (the draws stay whole).
+    ``product=False`` launches the draws alone and returns (None, u) (the
+    bfloat16 product's route).  Adds one to ``fullrank_sample_cuda.launches``
+    per call."""
     if not location.is_cuda:
         raise ValueError(f"fullrank_sample_cuda needs GPU tensors, got {location.device}")
     check_row0(row0, n)
     dev = location.device
     d = location.shape[0]
+    col0, ncols = col_span(d, cols)
     check_f32("location", location, (d,), dev)
-    check_f32("scale", scale, (d, d), dev)
+    if product:
+        check_f32("scale", scale, (d, d), dev)
     fn = _build.function("fullrank_sample", "fullrank_sample", _FR_ARGTYPES)
-    z = torch.empty((n, d), dtype=torch.float32, device=dev)
+    z = torch.empty((n, ncols), dtype=torch.float32, device=dev) if product else None
     u = torch.empty((n, d), dtype=torch.float32, device=dev)
     if n == 0:
         return z, u
-    plan, table = _card_plan(n, d, dev)
-    # the partial sums, then one int32 counter a tile
-    work = torch.empty(plan.slots * FR_TILE * FR_TILE + plan.tiles, dtype=torch.float32,
-                       device=dev)
+    tiles = slots = blocks = 0
+    table = work = None
+    if product and ncols:
+        plan, table = _card_plan(n, d, dev, col0, ncols)
+        tiles, slots, blocks = plan.tiles, plan.slots, plan.blocks
+        # the partial sums, then one int32 counter a tile
+        work = torch.empty(slots * FR_TILE * FR_TILE + tiles, dtype=torch.float32, device=dev)
+    ptr = (lambda t: None if t is None else t.data_ptr())
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(
-            location.data_ptr(), scale.data_ptr(), z.data_ptr(), u.data_ptr(),
-            work.data_ptr(), work.data_ptr() + 4 * plan.slots * FR_TILE * FR_TILE,
-            table.data_ptr(), plan.blocks, plan.tiles, n, d, seed[0], seed[1],
-            it & _MASK32, row0, stream,
+            location.data_ptr(), ptr(scale if product else None), ptr(z), u.data_ptr(),
+            ptr(work), None if work is None else work.data_ptr() + 4 * slots * FR_TILE * FR_TILE,
+            ptr(table), blocks, tiles, n, d, seed[0], seed[1], it & _MASK32, row0, col0, ncols,
+            int(product and ncols > 0), stream,
         )
     _build.check(err, "fullrank_sample launch")
     fullrank_sample_cuda.launches += 1
@@ -501,39 +535,185 @@ def fullrank_sample_cuda(
 fullrank_sample_cuda.launches = 0
 
 
-def fullrank_sample_raw(seed, it, location, scale, n, row0=0):
+def fullrank_sample_raw(seed, it, location, scale, n, row0=0, cols=None):
     """Kernel for CUDA tensors, plain version for CPU tensors."""
     if location.is_cuda:
-        return fullrank_sample_cuda(seed, it, location, scale, n, row0)
+        return fullrank_sample_cuda(seed, it, location, scale, n, row0, cols)
     if location.device.type == "cpu":
-        return fullrank_sample_reference(seed, it, location, scale, n, row0)
+        return fullrank_sample_reference(seed, it, location, scale, n, row0, cols)
     raise ValueError(f"no sampler for device {location.device}")
+
+
+def fullrank_draw(seed, it, location: torch.Tensor, n: int, row0: int = 0) -> torch.Tensor:
+    """u alone, rows [row0, row0 + n) of the (n, d) draw: K7b's draw launch
+    for a CUDA tensor, its plain version for a CPU one."""
+    if location.is_cuda:
+        return fullrank_sample_cuda(seed, it, location, None, n, row0, product=False)[1]
+    if location.device.type == "cpu":
+        return philox_normals_reference(seed, it, n, location.shape[0], device=location.device,
+                                        row0=row0)
+    raise ValueError(f"no sampler for device {location.device}")
+
+
+def _tril_rows_grad(ct_z: torch.Tensor, u: torch.Tensor, d: int, cols) -> torch.Tensor:
+    """tril(ct_z^T u) restricted to C's rows ``cols`` (the rest zero)."""
+    if cols is None:
+        return torch.tril(ct_z.T @ u)
+    col0, ncols = cols
+    end = col0 + ncols
+    dC = ct_z.new_zeros((d, d))
+    dC[col0:end, :end] = torch.tril(ct_z.T @ u[:, :end], diagonal=col0)
+    return dC
+
+
+def _cols_grad(ct_z: torch.Tensor, d: int, cols) -> torch.Tensor:
+    """sum of ct_z over the rows, placed at columns ``cols`` of a (d,) zero."""
+    if cols is None:
+        return ct_z.sum(dim=0)
+    dm = ct_z.new_zeros(d)
+    dm[cols[0]:cols[0] + cols[1]] = ct_z.sum(dim=0)
+    return dm
 
 
 class _FullRankSample(torch.autograd.Function):
     """z = u C^T + m with dm = sum ct_z and dC = tril(ct_z^T u) (the
-    reference's ``_fr_bwd``; the product runs outside the kernel)."""
+    reference's ``_fr_bwd``; the product runs outside the kernel).  With a
+    column range only C's rows and m's entries in the range get a
+    gradient."""
 
     @staticmethod
-    def forward(ctx, location, scale, seed, it, n, row0):
-        z, u = fullrank_sample_raw(seed, it, location, scale, n, row0)
+    def forward(ctx, location, scale, seed, it, n, row0, cols):
+        z, u = fullrank_sample_raw(seed, it, location, scale, n, row0, cols)
         ctx.save_for_backward(u)
         ctx.mark_non_differentiable(u)
+        ctx.cols = cols
         return z, u
 
     @staticmethod
     def backward(ctx, ct_z, ct_u):
         (u,) = ctx.saved_tensors
-        return ct_z.sum(dim=0), torch.tril(ct_z.T @ u), None, None, None, None
+        d = u.shape[1]
+        return (_cols_grad(ct_z, d, ctx.cols), _tril_rows_grad(ct_z, u, d, ctx.cols),
+                None, None, None, None, None)
 
 
 def fullrank_sample(
     seed: Tuple[int, int], it: int, location: torch.Tensor,
-    scale: torch.Tensor, n: int, row0: int = 0,
+    scale: torch.Tensor, n: int, row0: int = 0, cols=None,
 ):
     """Fused z = u tril(C)^T + m; returns (z, u), rows [row0, row0 + n) of
-    the draw, differentiable in (m, C)."""
-    return _FullRankSample.apply(location, scale, tuple(seed), int(it), int(n), int(row0))
+    the draw (``cols=(col0, ncols)``: those columns of z alone),
+    differentiable in (m, C)."""
+    if cols is not None:
+        cols = col_span(location.shape[0], cols)
+    return _FullRankSample.apply(location, scale, tuple(seed), int(it), int(n), int(row0), cols)
+
+
+# ---------------------------------------------------------------------------
+# The bfloat16 sampling product (compute_dtype="bfloat16")
+# ---------------------------------------------------------------------------
+
+
+def bf16_round(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to bfloat16 (to nearest even) and back to its dtype."""
+    return x.to(torch.bfloat16).to(x.dtype)
+
+
+def fullrank_bf16_reference(u: torch.Tensor, location: torch.Tensor, scale: torch.Tensor,
+                            cols=None) -> torch.Tensor:
+    """Plain version of csrc/fullrank_bf16.cu: z = bf16(u) bf16(tril C)^T +
+    m, the products and sums in the parameters' dtype (a product of two
+    bf16 values is exact in float32).  ``cols``: those columns of z."""
+    return fullrank_affine_reference(bf16_round(u), location, bf16_round(scale), cols)
+
+
+_BF16_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+
+
+def fullrank_bf16_cuda(u: torch.Tensor, location: torch.Tensor, scale: torch.Tensor,
+                       cols=None) -> torch.Tensor:
+    """Launch csrc/fullrank_bf16.cu on the current stream: z (n, ncols), the
+    bfloat16 product's columns ``cols`` (all d for None) for given draws u
+    (n, d); float32 parameters on the tensor cores, float64 ones summed in
+    double.  Only the lower triangle of ``scale`` is read.  Adds one to
+    ``fullrank_bf16_cuda.launches`` per launch."""
+    if not location.is_cuda:
+        raise ValueError(f"fullrank_bf16_cuda needs GPU tensors, got {location.device}")
+    dev, dtype = location.device, location.dtype
+    n, d = u.shape[0], location.shape[0]
+    col0, ncols = col_span(d, cols)
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"the bfloat16 product takes float32 or float64 parameters, got {dtype}")
+    for name, t, shape in (("u", u, (n, d)), ("location", location, (d,)),
+                           ("scale", scale, (d, d))):
+        if t.dtype != dtype or tuple(t.shape) != shape or not t.is_contiguous() \
+                or t.device != dev:
+            raise ValueError(f"{name} must be a contiguous {dtype} {shape} tensor on {dev}, "
+                             f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+    if dtype == torch.float64 and n > 65535:
+        raise ValueError(f"the float64 product takes at most 65,535 rows, got {n}")
+    symbol = "fullrank_bf16" if dtype == torch.float32 else "fullrank_bf16_f64"
+    fn = _build.function("fullrank_bf16", symbol, _BF16_ARGTYPES)
+    z = torch.empty((n, ncols), dtype=dtype, device=dev)
+    if n == 0 or ncols == 0:
+        return z
+    err = _build.launch(fn, dev, u.data_ptr(), scale.data_ptr(), location.data_ptr(),
+                        z.data_ptr(), n, d, col0, ncols)
+    _build.check(err, "fullrank_bf16 launch")
+    fullrank_bf16_cuda.launches += 1
+    return z
+
+
+fullrank_bf16_cuda.launches = 0
+
+
+def fullrank_bf16_raw(u, location, scale, cols=None):
+    """Kernel for CUDA tensors, plain version for CPU tensors."""
+    if location.is_cuda:
+        return fullrank_bf16_cuda(u, location, scale, cols)
+    if location.device.type == "cpu":
+        return fullrank_bf16_reference(u, location, scale, cols)
+    raise ValueError(f"no bfloat16 product for device {location.device}")
+
+
+class _FullRankBf16(torch.autograd.Function):
+    """z = bf16(u) bf16(C)^T + m with the JAX package's gradient of its
+    mixed-precision matmul (``jnp.matmul(u.astype(bf16), C.T.astype(bf16),
+    preferred_element_type=f32)``): the transpose of a bf16 operand is a
+    product in the parameters' dtype rounded to bf16, so dC = tril(bf16(ct_z^T
+    bf16(u))) and du = bf16(ct_z bf16(tril C)); dm = sum ct_z unrounded.
+    With a column range only the range's rows of C and entries of m."""
+
+    @staticmethod
+    def forward(ctx, u, location, scale, cols):
+        z = fullrank_bf16_raw(u, location, scale, cols)
+        ctx.save_for_backward(u, scale)
+        ctx.cols = cols
+        return z
+
+    @staticmethod
+    def backward(ctx, ct_z):
+        u, scale = ctx.saved_tensors
+        d, cols = u.shape[1], ctx.cols
+        du = dC = None
+        if ctx.needs_input_grad[0]:
+            col0, ncols = col_span(d, cols)
+            end = col0 + ncols
+            rows = torch.tril(bf16_round(scale[col0:end, :end]), diagonal=col0)
+            du = u.new_zeros(u.shape)
+            du[:, :end] = bf16_round(ct_z @ rows)
+        if ctx.needs_input_grad[2]:
+            dC = bf16_round(_tril_rows_grad(ct_z, bf16_round(u), d, cols))
+        return du, _cols_grad(ct_z, d, cols), dC, None
+
+
+def fullrank_bf16(u: torch.Tensor, location: torch.Tensor, scale: torch.Tensor, cols=None):
+    """The bfloat16 sampling product z = bf16(u) bf16(tril C)^T + m
+    (``cols``: those columns), differentiable in (u, m, C) with the JAX
+    package's rounding points."""
+    if cols is not None:
+        cols = col_span(location.shape[0], cols)
+    return _FullRankBf16.apply(u, location, scale, cols)
 
 
 # ---------------------------------------------------------------------------

@@ -22,16 +22,28 @@ loss, every term counted once over the mesh: its rows' mean weighted by
 n_j / n, so the shares of a replicated term (the prior, the entropy) sum to
 it too.  It backpropagates the share locally and then sums values and
 gradients over "mc" and averages them over the other axes
-(``reduce_shares``).  No collective runs inside the autograd graph's
-backward: ``torch.distributed.nn``'s all-reduce would all-reduce the
-upstream gradient there, which multiplies a replicated parameter's gradient
-by the group size.  ``data_psum`` sums in the forward only; its backward
-scales the gradient by the axis size, which the average over the axis in
-``reduce_shares`` undoes for the replicated terms.
+(``reduce_shares``).  No collective but ``gather_share``'s runs inside the
+autograd graph's backward: ``torch.distributed.nn``'s all-reduce would
+all-reduce the upstream gradient there, which multiplies a replicated
+parameter's gradient by the group size.  ``data_psum`` sums in the forward
+only; its backward scales the gradient by the axis size, which the average
+over the axis in ``reduce_shares`` undoes for the replicated terms.
+
+A family's parameters over an axis (``tp_axis``, ``block_axis``,
+``ep_axis``), where JAX annotates a layout and lets GSPMD keep the numbers,
+split the work in the port: each rank forms its share (its columns of z,
+its blocks, its components) and ``gather_share`` copies the shares into
+the whole tensor; its backward sums the upstream gradient over the axis
+and hands each rank its share (the axis size times the exact gradient,
+which the average in ``reduce_shares`` makes exact, whether the computation
+after the gather is replicated or takes a data block a rank).  A mixture's
+components split the ELBO's terms, so ``reduce_shares`` sums over
+``ep_axis`` as over "mc".  A target's data axis cannot be an axis that
+splits the terms (``terms_split``): its ranks hold different draws.
 
 Outside a mesh, or for an axis the active mesh lacks, every helper is a
 no-op (JAX's ``shard_axis0`` rule), so an object configured with
-``mc_axis`` or ``data_axis`` still evaluates on one device.
+``mc_axis``, ``data_axis`` or a family axis still evaluates on one device.
 
 Collectives run on the tensors' device.  NCCL takes CUDA tensors; gloo takes
 CPU tensors, and CUDA tensors only for ``all_reduce`` and ``broadcast``: the
@@ -185,7 +197,7 @@ def own(axis: Optional[str]) -> bool:
 
 
 # ---------------------------------------------------------------------------
-# Collectives (values only: none runs inside an autograd backward)
+# Collectives (values only: none but gather_share's runs in a backward)
 # ---------------------------------------------------------------------------
 
 
@@ -226,15 +238,42 @@ class _DataPsum(torch.autograd.Function):
         return (g if ctx.size == 1 else g * ctx.size), None, None
 
 
+# the axes whose ranks evaluate different terms of the running estimate
+# (``terms_split``)
+_SPLIT: List[Optional[str]] = []
+
+
+@contextlib.contextmanager
+def terms_split(axis: Optional[str]):
+    """While the body runs, the ranks of ``axis`` evaluate different terms
+    of the estimate (the draws' rows over an objective's ``mc_axis``, a
+    mixture's components over ``ep_axis``): a target's ``data_psum`` over
+    that same axis refuses, since it would add up the likelihoods of
+    different draws."""
+    _SPLIT.append(axis)
+    try:
+        yield
+    finally:
+        _SPLIT.pop()
+
+
 def data_psum(x: torch.Tensor, axis: Optional[str]) -> torch.Tensor:
     """Sum over the data axis of a partial log-likelihood (one value a
     draw): every rank gets the full sum, and the gradient reaches this
     rank's block scaled by the axis size; ``reduce_shares``' average over
     the axis makes the gradient the sum of the blocks'.  ``x`` outside a
-    mesh with that axis."""
+    mesh with that axis.  Refused over an axis of more than one rank whose
+    ranks hold different draws (``terms_split``)."""
     axes = mesh_of(axis)
     if axes is None:
         return x
+    if axis in _SPLIT and axes.size[axis] > 1:
+        raise ValueError(
+            f"the target's data_axis {axis!r} is also the axis that splits the estimate's "
+            "draws (the objective's mc_axis) or a mixture's components (ep_axis): its ranks "
+            "hold different draws, whose likelihoods a sum over it would add up; put the "
+            "data on another mesh axis"
+        )
     return _DataPsum.apply(x, axes, axis)
 
 
@@ -258,7 +297,9 @@ def _reduce_flat(tensors: Sequence[torch.Tensor], fn) -> List[torch.Tensor]:
 def reduce_shares(tensors: Sequence[torch.Tensor], mc_axis: Optional[str],
                   sum_mc: bool = True) -> List[torch.Tensor]:
     """Each rank's shares (values and gradients) summed over ``mc_axis``
-    and averaged over every other axis of the active mesh: over the axes
+    (the axis that splits the estimate's terms: the draws, or a mixture's
+    components under ``MixtureELBO(ep_axis=)``) and averaged over every
+    other axis of the active mesh: over the axes
     that do not split the draws, the ranks hold the same value (or, under
     ``data_psum``, the data blocks' gradients scaled by the axis size).
     ``sum_mc=False`` takes the average alone (per-draw values of this
@@ -327,6 +368,42 @@ def all_gather_rows(x: torch.Tensor, n: int, axis: Optional[str], dim: int = 0) 
     return out.movedim(0, dim)
 
 
+class _GatherShare(torch.autograd.Function):
+    """Forward: every rank's block along ``dim``, gathered (exact copies).
+    Backward: this rank's block of the upstream gradient summed over the
+    axis (a reduce-scatter).  Where the computation after the gather is
+    replicated that is the block times the axis size; where it is not (a
+    target whose data axis is this axis: rank r's upstream gradient is the
+    replicated terms' plus its data block's times the axis size) the sum
+    still holds every rank's part."""
+
+    @staticmethod
+    def forward(ctx, x, n, axes, axis, dim):
+        ctx.span, ctx.axes, ctx.axis, ctx.dim = rows_of(n, axis), axes, axis, dim
+        # contiguous: what follows sees the layout it sees outside a mesh
+        return all_gather_rows(x.detach(), n, axis, dim).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.axes.size[ctx.axis] > 1:
+            g = _all_reduce(g.contiguous().clone(), ctx.axes, ctx.axis, dist.ReduceOp.SUM)
+        return g.narrow(ctx.dim, *ctx.span), None, None, None, None
+
+
+def gather_share(x: torch.Tensor, n: int, axis: Optional[str], dim: int = 0) -> torch.Tensor:
+    """The whole tensor from each rank's share along ``dim``: this rank holds
+    its ``block`` of the n columns (of a family's output columns, blocks or
+    components) over ``axis``.  The gradient reaches the share summed over
+    the axis's ranks (the axis size times the exact gradient), which
+    ``reduce_shares``' average over the axis makes exact: each rank's
+    parameters outside its share get none.  ``x``
+    outside a mesh with that axis."""
+    axes = mesh_of(axis)
+    if axes is None:
+        return x
+    return _GatherShare.apply(x, n, axes, axis, dim)
+
+
 # ---------------------------------------------------------------------------
 # Replicated state
 # ---------------------------------------------------------------------------
@@ -335,14 +412,20 @@ def all_gather_rows(x: torch.Tensor, n: int, axis: Optional[str], dim: int = 0) 
 def replicate_state(state, mesh):
     """The state with every tensor broadcast from the mesh's first rank
     (along "mc" within each "data" row, then along "data"), so every rank
-    starts from the same bits."""
+    starts from the same bits.  Each tensor keeps its layout (a transposed
+    factor stays transposed: a product reads it as it would without the
+    mesh, and sums in the same order)."""
     groups = [mesh.get_group(name) for name in reversed(mesh.mesh_dim_names)]
 
     def bcast(t: torch.Tensor) -> torch.Tensor:
-        buf = t.detach().clone().contiguous()
-        wire = buf.view(torch.uint8) if buf.dtype == torch.bool else buf
+        buf = t.detach().clone()  # the same strides where t is dense
+        wire = buf.contiguous()
+        if wire.dtype == torch.bool:
+            wire = wire.view(torch.uint8)
         for group in groups:
             dist.broadcast(wire, src=dist.get_global_rank(group, 0), group=group)
+        if wire.data_ptr() != buf.data_ptr():
+            buf.copy_(wire.view(buf.dtype))
         return buf
 
     return rebuild(state, lambda t: bcast(t) if isinstance(t, torch.Tensor) else t,

@@ -171,7 +171,22 @@ Phases:
       rank's row offset against their plain versions and the whole draw's
       rows, and, counted, the flagship on the (1 x 2) "mc" and (2 x 1) "data"
       meshes for 500 steps (the ranks equal, within rtol 1e-5 of one
-      process) and ``run_sharded`` at C = 1,024 (bitwise ``run_chunk``).
+      process) and ``run_sharded`` at C = 1,024 (bitwise ``run_chunk``);
+  (ae) a family's parameters over the mesh and compute_dtype="bfloat16":
+      the bf16 sampling product (csrc/fullrank_bf16.cu) against its plain
+      version at (ae)'s and K7b's test shapes (NaN above C's diagonal) and
+      K7b over each rank's column range; a one-rank NCCL mesh running
+      ``tp_axis``, ``block_axis`` and ``ep_axis`` (each bitwise its run
+      without a mesh); two gloo ranks on the card (``chip_smoke.py
+      --family-rank RANK PORT DIR``) running full-rank ADVI with ``tp_axis``
+      at d = 1024, n = 256, the 2 x 31 block-diagonal with ``block_axis``
+      and the K = 4 mixture with ``ep_axis`` (the ranks equal, within rtol
+      1e-5 of one process, each rank forming only its columns, block and
+      components); full-rank ADVI at d = 1024 and the BNN of (s) with
+      ``compute_dtype="bfloat16"`` beside their f32 runs on one key; the
+      bf16 product, K7b whole and over half the columns and the library's
+      bf16 route (its casts and triangle included) by CUDA-graph replay at
+      256 x 1024 and 128 x 2048.
 
 With ``--parent CHECKOUT`` (e.g. a ``git archive`` of the parent commit
 under the ignored ``_archive/``) it then times K8, K7b, K7c, K7a, the K9 probes,
@@ -189,7 +204,7 @@ Every failed check raises and the script exits non-zero; it also exits
 non-zero without a CUDA device, or when the package is not beside it.  The
 line before the last is a JSON object of the kernels (launch counts from the
 main-path runs of (f), (g), (l), (o), (p), (s), (u), (w), (x), (y), (z),
-(aa), (ab), (ac) and (ad), errors, times, each time's bound on this card and
+(aa), (ab), (ac), (ad) and (ae), errors, times, each time's bound on this card and
 the library call's time where the line has one); the last
 line is ``{"ok": true, "device": {...}}``.  It imports no JAX.
 """
@@ -587,12 +602,13 @@ def wrappers():
     )
     from advancedvi_jl_tpu_torch.ops.cuda.fused_chains import fused_chains_run_chunk_cuda
     from advancedvi_jl_tpu_torch.ops.cuda.location_scale_kernels import (
-        fullrank_sample_cuda, lowrank_sample_cuda, meanfield_sample_cuda,
+        fullrank_bf16_cuda, fullrank_sample_cuda, lowrank_sample_cuda, meanfield_sample_cuda,
     )
     from advancedvi_jl_tpu_torch.ops.cuda.probe_kernels import probe_cuda
     from advancedvi_jl_tpu_torch.ops.cuda.trisolve_kernels import solve_right_cuda
 
     return {"meanfield_sample": meanfield_sample_cuda,
+            "fullrank_bf16": fullrank_bf16_cuda,
             "fused_advi_meanfield": fused_run_chunk_cuda,
             "fullrank_sample": fullrank_sample_cuda,
             "trisolve": solve_right_cuda,
@@ -842,18 +858,25 @@ def nan_factor(d, dev, seed=3):
 
 @contextlib.contextmanager
 def launch_shapes():
-    """Records the shape of every K7a, K7b, K7c and K8 launch made inside:
-    {kernel: set of (n, d), (n, d, r) or (n, d) a mode}.  Pass-throughs in
+    """Records the shape of every K7a, K7b, K7c, K8 and bf16-product launch
+    made inside: {kernel: set of (n, d), (n, d, r) or (n, d) a mode; K7b and
+    the bf16 product over a column range (n, d, col0, ncols)}.  Pass-throughs in
     front of each wrapper's dispatch, so the counts are the wrappers' own."""
     from advancedvi_jl_tpu_torch.ops.cuda import location_scale_kernels as lsk
     from advancedvi_jl_tpu_torch.ops.cuda import trisolve_kernels as tk
 
     shapes = {k: set() for k in ("meanfield_sample", "fullrank_sample", "lowrank_sample",
-                                 "trisolve")}
+                                 "trisolve", "fullrank_bf16")}
+
+    def cut(n, d, cols):  # (n, d), or (n, d, col0, ncols) for a column range
+        return (int(n), d) if cols is None or tuple(cols) == (0, d) else (int(n), d, *cols)
+
     hooks = ((lsk, "meanfield_sample_raw", "meanfield_sample",
               lambda seed, it, loc, *a, **k: (loc, (int(a[1]), loc.shape[-1]))),
              (lsk, "fullrank_sample_raw", "fullrank_sample",
-              lambda seed, it, loc, C, n, *_: (loc, (int(n), loc.shape[-1]))),
+              lambda seed, it, loc, C, n, row0=0, cols=None: (loc, cut(n, loc.shape[-1], cols))),
+             (lsk, "fullrank_bf16_raw", "fullrank_bf16",
+              lambda u, loc, C, cols=None: (loc, cut(u.shape[0], loc.shape[-1], cols))),
              (lsk, "lowrank_sample_raw", "lowrank_sample",
               lambda seed, it, loc, D, U, n, *_: (loc, (int(n), loc.shape[-1], U.shape[-1]))),
              (tk, "solve_right", "trisolve", lambda C, V, mode="C": (V, tuple(V.shape))))
@@ -1396,8 +1419,10 @@ print(json.dumps(smoke.ab_times(torch.device("cuda:0"))))
 
 
 # The kernel libraries this tree edits against its parent: every other one
-# must compile to the parent's SASS.  The three samplers take a row offset.
-AB_CHANGED = ("meanfield_sample", "fullrank_sample", "lowrank_sample")
+# must compile to the parent's SASS.  K7b's product takes a column range
+# (the whole product is the range [0, d)); a library the parent lacks
+# (fullrank_bf16) has nothing to compare.
+AB_CHANGED = ("fullrank_sample",)
 
 
 def ab_parent(parent: Path):
@@ -1416,6 +1441,9 @@ def ab_parent(parent: Path):
 
     differ = []
     for lib in _build.KERNELS:  # every kernel both libraries have
+        if not list((parent / "build" / "kernels").glob(f"lib{lib}-*.so")):
+            say("parent", sass=lib, parent_has_no_library=True)
+            continue
         for fn, same in sass_equal(built_library(parent, lib), built_library(ROOT, lib)):
             say("parent", sass=f"{lib}:{fn}", equal=same)
             if not same and lib not in AB_CHANGED:
@@ -3981,7 +4009,8 @@ class Tally:
             yield
             self.counts.update(read_launches())
         for kernel, seen in shapes.items():
-            self.shapes[kernel] |= seen
+            if seen or kernel in self.shapes:  # a kernel (aa) does not count: once launched
+                self.shapes.setdefault(kernel, set()).update(seen)
 
 
 def aa_kernels(dev):
@@ -4303,12 +4332,15 @@ def aa_dense(dev, card, tally):
 
 
 def checked_shapes():
-    """Each K7 kernel's and K8's launch shapes that (c), (i), (j), (x), (z)
-    or (aa) hold against the plain version."""
+    """Each K7 kernel's, K8's and the bf16 product's launch shapes that (c),
+    (i), (j), (x), (z), (aa) or (ae) hold against the plain version."""
     return {"meanfield_sample": AA_K7A_SHAPES + [SAMPLER_SHAPE, (N_SAMPLES, D62)],
-            "fullrank_sample": AA_K7B_SHAPES + FR_SAMPLE_SHAPES + MS_SAMPLE_SHAPES,
+            "fullrank_sample": AA_K7B_SHAPES + FR_SAMPLE_SHAPES + MS_SAMPLE_SHAPES
+            + AE_K7B_RANGES,
             "lowrank_sample": AA_K7C_SHAPES + [LR_SHAPE, (N_SAMPLES, D62, LR_FLAGSHIP_R)],
-            "trisolve": [(n, d) for n, d in AA_K8_SHAPES + TRI_SHAPES]}
+            "trisolve": [(n, d) for n, d in AA_K8_SHAPES + TRI_SHAPES],
+            "fullrank_bf16": AE_BF16_SHAPES + FR_SAMPLE_SHAPES
+            + [(n, d, 0, d // 2) for n, d in AE_BF16_SHAPES + FR_SAMPLE_SHAPES if d > 1]}
 
 
 def phase_aa(dev, card):
@@ -5158,11 +5190,408 @@ def phase_ad(dev, card):
     return tally.counts, ranks, k7_err
 
 
+# (ae): a family's parameters over the mesh (tp_axis, block_axis, ep_axis)
+# and compute_dtype="bfloat16"
+AE_ONE_RANK_STEPS = 100           # each one-rank NCCL run, beside its run without a mesh
+AE_BF16_STEPS = 200               # full-rank ADVI at d = 1024 and the BNN of (s)/(t)
+# full-rank ADVI at d = 1024, n = 256 ((aa)'s shape): its one-process run
+# is also the bf16 run's float32 twin
+AE_TP_STEPS = AE_BF16_STEPS
+# the 2 x 31 block-diagonal and the K = 4 mixture, halved after a slow
+# host's smoke of 995.9 s
+AE_FAMILY_STEPS = 250
+AE_LOG_EVERY = 1                  # a row a step: the tail is the last 20 steps
+AE_RANKS_TIMEOUT = 300
+AE_TAIL_ABS, AE_TAIL_REL = 2.0, 5e-3  # bf16 tail within max(2.0, 0.5% of the f32 tail)
+BF16_FLOPS = 989e12               # H100 SXM dense bf16 tensor-core peak
+AE_K7B_RANGES = [(FR_N, FR_D, 0, FR_D // 2), (FR_N, FR_D, FR_D // 2, FR_D // 2)]
+AE_BF16_SHAPES = [FR_SHAPE, FR_WIDE_SHAPE]
+AE_BNN_K7A = (BNN_SAMPLES, BNN_IN * BNN_HIDDEN + 2 * BNN_HIDDEN + 1)
+AE_RUNS = ("tp", "block", "mixture")
+
+
+def ae_run(dev, name, steps, axis=None, mesh=None, compute_dtype=None, target=None):
+    """One (ae) configuration through ``optimize``, the family's (or the
+    mixture ELBO's) axis ``axis`` under ``mesh``: "tp" full-rank ADVI on the
+    d = 1024 dense Gaussian ((aa)'s, K8 solves), "block" the 2 x 31
+    block-diagonal and "mixture" the K = 4 mean-field mixture on the
+    flagship ((ab)'s).  Returns (output, rows, state)."""
+    import advancedvi_jl_tpu_torch as avt
+
+    if name == "tp":
+        tgt, q0, alg = wide_general(dev)
+        q0 = dataclasses.replace(q0, tp_axis=axis, compute_dtype=compute_dtype)
+    elif name == "block":
+        tgt, k = flagship(dev).unconstrained(), D62 // AB_BLOCKS
+        q0 = avt.BlockDiagLocationScale(torch.zeros(D62, device=dev), 0.1 * torch.eye(
+            k, device=dev).expand(AB_BLOCKS, k, k).contiguous(), block_axis=axis)
+        alg = aa_flagship_alg()
+    else:
+        tgt = flagship(dev).unconstrained()
+        q0 = avt.mixture_meanfield(SEED, D62, AB_MIX_K, 0.1, 0.1, device=dev)
+        alg = avt.ParamSpaceSGD(avt.MixtureELBO(n_samples=N_SAMPLES, entropy="stl",
+                                                ep_axis=axis),
+                                avt.adam(LR), avt.PolynomialAveraging(), avt.ClipScale())
+    return avt.optimize(SEED, alg, steps, tgt if target is None else target(tgt), q0,
+                        mesh=mesh, log_every=AE_LOG_EVERY)
+
+
+def ae_leaves(q):
+    """The family's parameter tensors, on the host."""
+    from advancedvi_jl_tpu_torch.core.pytree import tree_leaves
+
+    return [t.detach().cpu() for t in tree_leaves(q)]
+
+
+class RowCount:
+    """A target that counts the rows of every batch it evaluates; every
+    other attribute is the wrapped target's."""
+
+    def __init__(self, prob):
+        self.prob, self.rows = prob, collections.Counter()
+
+    def __getattr__(self, name):
+        return getattr(self.prob, name)
+
+    def log_density(self, z):
+        self.rows[z.shape[0]] += 1
+        return self.prob.log_density(z)
+
+
+@contextlib.contextmanager
+def share_widths():
+    """Records the width of every share a family gathers (``gather_share``
+    in the full-rank and block-diagonal families): {family: Counter of
+    widths along the gathered dim}."""
+    from advancedvi_jl_tpu_torch.families import blockdiag, location_scale
+
+    seen = collections.defaultdict(collections.Counter)
+    saved = []
+    for mod, fam in ((location_scale, "tp"), (blockdiag, "block")):
+        raw = mod.gather_share
+        saved.append((mod, raw))
+
+        def rec(x, n, axis, dim=0, _raw=raw, _fam=fam):
+            seen[_fam][x.shape[dim]] += 1
+            return _raw(x, n, axis, dim)
+
+        mod.gather_share = rec
+    try:
+        yield seen
+    finally:
+        for mod, raw in saved:
+            mod.gather_share = raw
+
+
+def ae_kernels(dev, card):
+    """(ae) The kernels at every shape (ae) launches them: the bf16 product
+    (csrc/fullrank_bf16.cu) against its plain version at (ae)'s shapes and at
+    K7b's test shapes, C with NaN above its diagonal (1e-6 norm-wise); K7b
+    over each two-rank column range (u bitwise the whole draw's, z within
+    1e-6); K7a at the BNN's (16, 8,705) (u bitwise).  Then the bf16 product,
+    the f32 K7b whole and over half the columns, and the library's route
+    from the same float32 inputs, ``torch.mm(bf16(u), bf16(tril C)^T,
+    out_dtype=torch.float32) + m`` (the casts and the triangle inside the
+    timed graph), by CUDA-graph replay at 256 x 1024 and 128 x 2048.
+    Returns (largest errors, times)."""
+    from advancedvi_jl_tpu_torch.ops.cuda import location_scale_kernels as lsk
+
+    seed = lsk.seed_words(SEED)
+    errs = {"fullrank_bf16": 0.0, "fullrank_sample": 0.0}
+    worst_rel = 0.0
+    for n, d in AE_BF16_SHAPES + FR_SAMPLE_SHAPES:
+        C = nan_factor(d, dev)
+        loc = torch.randn(d, generator=torch.Generator().manual_seed(d)).to(dev)
+        u = lsk.fullrank_draw(seed, 5, loc, n)
+        for cols in (None, (0, d // 2)) if d > 1 else (None,):
+            z = lsk.fullrank_bf16_cuda(u, loc, C, cols)
+            zr = lsk.fullrank_bf16_reference(u, loc, C, cols)
+            torch.cuda.synchronize()
+            rel = rel_err(z, zr)
+            check(bool(torch.isfinite(z).all()) and rel <= 1e-6,
+                  f"(ae) bf16 product at {n}x{d} cols {cols}: error {rel} > 1e-6")
+            errs["fullrank_bf16"] = max(errs["fullrank_bf16"], max_err(z, zr))
+            worst_rel = max(worst_rel, rel)
+    say("ae", bf16_product_shapes=len(AE_BF16_SHAPES + FR_SAMPLE_SHAPES), with_half_ranges=True,
+        worst_rel_err=worst_rel, worst_max_abs_err=errs["fullrank_bf16"], upper_triangle="nan")
+    for n, d, c0, nc in AE_K7B_RANGES:
+        C = nan_factor(d, dev)
+        loc = torch.randn(d, generator=torch.Generator().manual_seed(d)).to(dev)
+        zw, uw = lsk.fullrank_sample_cuda(seed, 5, loc, C, n)
+        z, u = lsk.fullrank_sample_cuda(seed, 5, loc, C, n, cols=(c0, nc))
+        zr, _ = lsk.fullrank_sample_reference(seed, 5, loc, C, n, cols=(c0, nc))
+        torch.cuda.synchronize()
+        rel = rel_err(z, zr)
+        say("ae", k7b_range=f"{n}x{d}:{c0}+{nc}", u_bitwise_whole=bool(torch.equal(u, uw)),
+            z_rel_err_plain=rel, z_max_abs_diff_whole=max_err(z, zw[:, c0:c0 + nc]))
+        check(bool(torch.equal(u, uw)) and rel <= 1e-6, f"(ae) K7b over {c0}+{nc}: {rel}")
+        errs["fullrank_sample"] = max(errs["fullrank_sample"], max_err(z, zr))
+    n, d = AE_BNN_K7A
+    loc, sc = torch.zeros(d, device=dev), 0.05 * torch.ones(d, device=dev)
+    z, u = lsk.meanfield_sample_cuda(seed, 5, loc, sc, n)
+    zr, ur = lsk.meanfield_sample_reference(seed, 5, loc, sc, n)
+    torch.cuda.synchronize()
+    say("ae", k7a_shape=f"{n}x{d}", u_bitwise=bool(torch.equal(u, ur)),
+        z_max_abs_err=max_err(z, zr))
+    check(bool(torch.equal(u, ur)), f"(ae) K7a u at {n}x{d} is not the plain version's")
+    errs["meanfield_sample"] = max_err(z, zr)
+    times = {}
+    for n, d in AE_BF16_SHAPES:
+        _, C = factor(d, dev)
+        loc = torch.randn(d, generator=torch.Generator().manual_seed(d)).to(dev)
+        u = lsk.fullrank_draw(seed, 1, loc, n)
+        t = {"bf16_product": graph_ms(lambda: lsk.fullrank_bf16_cuda(u, loc, C)),
+             "bf16_product_half": graph_ms(lambda: lsk.fullrank_bf16_cuda(u, loc, C,
+                                                                           (0, d // 2))),
+             "k7b": graph_ms(lambda: lsk.fullrank_sample_cuda(seed, 1, loc, C, n)),
+             "k7b_draws": graph_ms(lambda: lsk.fullrank_sample_cuda(seed, 1, loc, C, n,
+                                                                    product=False)),
+             "k7b_half_low": graph_ms(lambda: lsk.fullrank_sample_cuda(
+                 seed, 1, loc, C, n, cols=(0, d // 2))),
+             "k7b_half_high": graph_ms(lambda: lsk.fullrank_sample_cuda(
+                 seed, 1, loc, C, n, cols=(d // 2, d - d // 2))),
+             # the library's route from the same f32 inputs: the casts, the
+             # triangle and the location inside the timed graph
+             "library_mm_bf16": graph_ms(lambda: torch.mm(
+                 u.bfloat16(), torch.tril(C).bfloat16().T, out_dtype=torch.float32) + loc),
+             "plain": cuda_ms(lambda: lsk.fullrank_bf16_reference(u, loc, C), 20)}
+        # the triangle's multiply-adds at the bf16 peak; u, C's triangle and m
+        # read once, z written once, as float32
+        flops = 2.0 * n * d * (d + 1) / 2
+        nbytes = 4.0 * (n * d + d * (d + 1) / 2 + d + n * d)
+        t["bound"] = max(flops / BF16_FLOPS, nbytes / HBM_BYTES) * 1e3
+        by = "bytes" if nbytes / HBM_BYTES >= flops / BF16_FLOPS else "operations"
+        times[(n, d)] = (t, by)
+        say("ae", times_graph_ms=f"{n}x{d}", card=f"'{card}'",
+            **{k: f"{v:.6f}" for k, v in t.items()}, bound_by=by)
+    return errs, times
+
+
+def ae_shares(shares, rows, rank, parts=2):
+    """The share checks of one two-rank (or one-rank) run set: the full-rank
+    z gathered at d / parts columns, the block-diagonal z at one block, the
+    mixture's target at K / parts components' draws a batch."""
+    from advancedvi_jl_tpu_torch.parallel.mesh import block
+
+    want_tp = block(FR_D, parts, rank)[1]
+    want_blocks = block(AB_BLOCKS, parts, rank)[1]
+    want_rows = block(AB_MIX_K, parts, rank)[1] * N_SAMPLES
+    got = {"tp": sorted(shares["tp"]), "block": sorted(shares["block"]),
+           "mixture": sorted(rows)}
+    ok = got == {"tp": [want_tp], "block": [want_blocks], "mixture": [want_rows]}
+    return ok, got
+
+
+def family_rank(rank: int, port: int, outdir: Path) -> int:
+    """(ae) One of two ranks sharing the card over gloo (``chip_smoke.py
+    --family-rank RANK PORT OUTDIR``): on the (1 x 2) mesh, full-rank ADVI
+    with ``tp_axis="mc"`` (AE_TP_STEPS), the block-diagonal family with
+    ``block_axis="mc"`` and the mixture with ``ep_axis="mc"``
+    (AE_FAMILY_STEPS); writes its outputs, launches, launch shapes and
+    shares to OUTDIR/rank<RANK>.pt."""
+    import torch.distributed as dist
+
+    import advancedvi_jl_tpu_torch as avt
+    from advancedvi_jl_tpu_torch.parallel import distributed
+
+    check(torch.cuda.is_available(), "(ae) a rank found no CUDA device")
+    dev = torch.device("cuda:0")
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    distributed.initialize(f"localhost:{port}", 2, rank, backend="gloo")
+    mesh = avt.make_vi_mesh()  # (1 x 2): both ranks on "mc"
+    tally, out, counted = Tally(), {}, {}
+    with share_widths() as shares:
+        for name in AE_RUNS:
+            steps = AE_TP_STEPS if name == "tp" else AE_FAMILY_STEPS
+            t0 = time.perf_counter()
+            counter = []
+            with tally.run():
+                q, rows, _ = ae_run(dev, name, steps, avt.MC_AXIS, mesh,
+                                    target=lambda t: counter.append(RowCount(t)) or counter[0])
+                torch.cuda.synchronize()
+            counted[name] = dict(counter[0].rows)
+            out[name] = ae_leaves(q) + [torch.tensor(rows[-1]["elbo"])]
+            out[f"{name}_seconds"] = time.perf_counter() - t0
+    out["shares"] = {k: dict(v) for k, v in shares.items()}
+    out["mixture_rows"] = counted["mixture"]
+    out["launches"], out["shapes"] = dict(tally.counts), tally.shapes
+    torch.save(out, outdir / f"rank{rank}.pt")
+    distributed.sync_hosts("written")
+    dist.destroy_process_group()
+    return 0
+
+
+def ae_one_rank(dev, tally):
+    """(ae) A one-rank NCCL group and its (1 x 1) mesh: tp_axis, block_axis
+    and ep_axis runs (AE_ONE_RANK_STEPS), each bit for bit its run without
+    a mesh (state, output, rows); the mesh runs counted."""
+    import torch.distributed as dist
+
+    import advancedvi_jl_tpu_torch as avt
+    from advancedvi_jl_tpu_torch.parallel import distributed
+
+    check(not dist.is_initialized(), "(ae) a process group exists already")
+    distributed.initialize(f"localhost:{distributed.free_port()}", 1, 0, backend="nccl")
+    mesh = avt.make_vi_mesh()
+    for name in AE_RUNS:
+        q1, rows1, st1 = ae_run(dev, name, AE_ONE_RANK_STEPS)
+        torch.cuda.synchronize()
+        with tally.run():
+            q2, rows2, st2 = ae_run(dev, name, AE_ONE_RANK_STEPS, avt.MC_AXIS, mesh)
+            torch.cuda.synchronize()
+        same = same_state(st1, st2) and rows1 == rows2 and same_state(q1, q2)
+        say("ae", one_rank=name, steps=AE_ONE_RANK_STEPS, bitwise_no_mesh=same,
+            elbo=rows2[-1]["elbo"])
+        check(same, f"(ae) {name} on the one-rank mesh differs from the run without it")
+    dist.destroy_process_group()
+
+
+def ae_two_ranks(dev, outdir: Path):
+    """(ae) Two ranks (``family_rank``) spawned on the card; beside them the
+    same runs in this process without a mesh.  Each run the same on both
+    ranks and within MESH_RTOL, MESH_ATOL of one process; each rank formed
+    only its share (``ae_shares``).  Returns (the ranks' launches, launch
+    shapes, this process's f32 full-rank run (output, rows))."""
+    import shutil
+
+    from advancedvi_jl_tpu_torch.parallel.distributed import free_port
+
+    shutil.rmtree(outdir, ignore_errors=True)
+    outdir.mkdir(parents=True)
+    port = free_port()
+    procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--family-rank",
+                               str(r), str(port), str(outdir)], cwd=ROOT,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    ref = {}
+    for name in AE_RUNS:
+        steps = AE_TP_STEPS if name == "tp" else AE_FAMILY_STEPS
+        q, rows, _ = ae_run(dev, name, steps)
+        ref[name] = (q, rows)
+    torch.cuda.synchronize()
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=AE_RANKS_TIMEOUT)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        check(p.returncode == 0, f"(ae) rank {r} failed (rc {p.returncode}): {out[-3000:]}")
+    res = [torch.load(outdir / f"rank{r}.pt", weights_only=False) for r in range(2)]
+    for name in AE_RUNS:
+        q, rows = ref[name]
+        want = ae_leaves(q) + [torch.tensor(rows[-1]["elbo"])]
+        got = res[0][name]
+        both = all(torch.equal(a, b) for a, b in zip(got, res[1][name]))
+        err = max(max_err(a, b) for a, b in zip(got, want))
+        close = all(torch.allclose(a, b, rtol=MESH_RTOL, atol=MESH_ATOL)
+                    for a, b in zip(got, want))
+        say("ae", two_ranks=name, steps=AE_TP_STEPS if name == "tp" else AE_FAMILY_STEPS,
+            ranks_equal=both, max_abs_diff_one_process=err, within_rtol=close,
+            elbo=float(got[-1]), one_process_elbo=float(want[-1]),
+            rank_seconds=",".join(f"{r[f'{name}_seconds']:.2f}" for r in res))
+        check(both, f"(ae) the ranks of the {name} run returned different outputs")
+        check(close, f"(ae) the two-rank {name} run is over rtol {MESH_RTOL} from one process")
+    for r, rr in enumerate(res):
+        ok, got = ae_shares(rr["shares"], rr["mixture_rows"], r)
+        k7b = sorted(s for s in rr["shapes"].get("fullrank_sample", ()) if len(s) == 4)
+        say("ae", rank=r, shares=f"'{got}'", k7b_ranges=",".join(
+            "x".join(map(str, s)) for s in k7b), only_its_share=ok)
+        check(ok, f"(ae) rank {r} formed more than its share: {got}")
+        check(k7b == [AE_K7B_RANGES[r]], f"(ae) rank {r}'s K7b products were {k7b}")
+    launches = collections.Counter()
+    shapes = collections.defaultdict(set)
+    for r in res:
+        launches.update(r["launches"])
+        for kernel, seen in r["shapes"].items():
+            shapes[kernel] |= seen
+    return launches, shapes, ref["tp"]
+
+
+def ae_bf16(dev, tally, fr_f32):
+    """(ae) compute_dtype="bfloat16", counted: full-rank ADVI on the d = 1024
+    Gaussian (AE_BF16_STEPS) beside ``fr_f32``, the f32 run of the same
+    configuration on the same key; the BNN of (s)/(t) (16,384 x 32, hidden
+    256, minibatch 2,048, 16 draws) with bf16 products beside its f32 run.
+    Every ELBO row finite and the tail (last 20 rows' mean) within
+    max(AE_TAIL_ABS, AE_TAIL_REL |f32 tail|).  Returns the bf16 runs'
+    steps/s."""
+    import advancedvi_jl_tpu_torch as avt
+
+    rates = {}
+    _, rows32 = fr_f32
+    t0 = time.perf_counter()
+    with tally.run():
+        _, rows16, _ = ae_run(dev, "tp", AE_BF16_STEPS, compute_dtype="bfloat16")
+        torch.cuda.synchronize()
+    rates["fullrank_d1024"] = AE_BF16_STEPS / (time.perf_counter() - t0)
+    bnn, bq0, algs = bnn_problem(dev)
+    alg = algs["bnn_advi"]
+    runs = {"fullrank_d1024": (rows32, rows16)}
+    _, b32, _ = avt.optimize(SEED, alg, AE_BF16_STEPS, bnn, bq0, log_every=AE_LOG_EVERY)
+    t0 = time.perf_counter()
+    with tally.run():
+        _, b16, _ = avt.optimize(SEED, alg, AE_BF16_STEPS, bnn.replace(compute_dtype="bfloat16"),
+                                 bq0, log_every=AE_LOG_EVERY)
+        torch.cuda.synchronize()
+    rates["bnn"] = AE_BF16_STEPS / (time.perf_counter() - t0)
+    runs["bnn"] = (b32, b16)
+    for name, (r32, r16) in runs.items():
+        e32, e16 = [r["elbo"] for r in r32], [r["elbo"] for r in r16]
+        t32, t16 = sum(e32[-TAIL_ROWS:]) / TAIL_ROWS, sum(e16[-TAIL_ROWS:]) / TAIL_ROWS
+        bar = max(AE_TAIL_ABS, AE_TAIL_REL * abs(t32))
+        say("ae", bf16_run=name, steps=AE_BF16_STEPS, f32_tail=t32, bf16_tail=t16,
+            tail_diff=abs(t16 - t32), bar=bar, rows_finite=all(map(math.isfinite, e16)),
+            bf16_steps_per_s=f"{rates[name]:.1f}")
+        check(all(math.isfinite(e) for e in e16 + e32), f"(ae) bf16 {name}: a row is not finite")
+        check(abs(t16 - t32) <= bar, f"(ae) bf16 {name}: tail {t16} vs the f32 run's {t32}")
+    return rates
+
+
+def phase_ae(dev, card):
+    """(ae) A family's parameters over the mesh and compute_dtype: the kernels
+    at (ae)'s shapes and their times (``ae_kernels``); the one-rank NCCL
+    mesh (``ae_one_rank``); two gloo ranks on the card (``ae_two_ranks``);
+    the bf16 runs (``ae_bf16``).  Every K7b, bf16-product and K7a launch
+    shape of the counted runs must be one that a phase checks.  Returns
+    (launches of the counted runs in this process and on the ranks, the
+    largest errors, the bf16 product's times)."""
+    t0 = time.perf_counter()
+    errs, times = ae_kernels(dev, card)
+    tally = Tally()
+    ae_one_rank(dev, tally)
+    ranks, rank_shapes, fr_f32 = ae_two_ranks(dev, ROOT / "build" / "family_ranks")
+    rates = ae_bf16(dev, tally, fr_f32)
+    counts = tally.counts + ranks
+    checked = checked_shapes()
+    checked["meanfield_sample"] = checked["meanfield_sample"] + AB_K7A_SHAPES + [AE_BNN_K7A]
+    for kernel in ("meanfield_sample", "fullrank_sample", "fullrank_bf16", "trisolve"):
+        seen = tally.shapes.get(kernel, set()) | rank_shapes.get(kernel, set())
+        say("ae", **{f"{kernel}_shapes": ",".join("x".join(map(str, t)) for t in sorted(seen))})
+        missing = sorted(seen - set(checked[kernel]))
+        check(not missing, f"(ae) {kernel} launched at {missing}, which no check covers")
+    kernels = ("meanfield_sample", "fullrank_sample", "fullrank_bf16", "trisolve")
+    say("ae", card=f"'{card}'", seconds=f"{time.perf_counter() - t0:.1f}",
+        **{f"{k}_launches": counts[k] for k in kernels},
+        **{f"steps_per_s_{k}": f"{v:.1f}" for k, v in rates.items()})
+    for k in kernels:
+        check(counts[k] > 0, f"(ae) the counted runs launched no {k} kernel")
+    others = {k: v for k, v in counts.items() if v and k not in kernels}
+    check(not others, f"(ae) the counted runs launched {others}, which (ae) does not check")
+    return counts, errs, times
+
+
 def main() -> int:
     parent = None  # --parent DIR: the A/B of the chunks against that checkout
     argv = sys.argv[1:]
     if argv[:1] == ["--mesh-rank"] and len(argv) == 4:  # one of (ad)'s two ranks
         return mesh_rank(int(argv[1]), int(argv[2]), Path(argv[3]))
+    if argv[:1] == ["--family-rank"] and len(argv) == 4:  # one of (ae)'s two ranks
+        return family_rank(int(argv[1]), int(argv[2]), Path(argv[3]))
     if argv[:1] == ["--parent"] and len(argv) == 2:
         parent = Path(argv[1]).resolve()
         if not (parent / "advancedvi_jl_tpu_torch" / "__init__.py").is_file():
@@ -5227,6 +5656,8 @@ def main() -> int:
     lap("ac")
     ad_counts, ad_ranks, ad_k7_err = phase_ad(dev, card)
     lap("ad")
+    ae_counts, ae_err, ae_times = phase_ae(dev, card)
+    lap("ae")
     if parent is not None:
         ab_parent(parent)
         lap("parent")
@@ -5247,28 +5678,31 @@ def main() -> int:
               "advancedvi_jl_tpu/ops/pallas/location_scale_kernels.py:72",
               counts["meanfield_sample"] + aa_counts["meanfield_sample"]
               + ab_counts["meanfield_sample"] + ac_counts["meanfield_sample"]
-              + ad_counts["meanfield_sample"] + ad_ranks["meanfield_sample"],
+              + ad_counts["meanfield_sample"] + ad_ranks["meanfield_sample"]
+              + ae_counts["meanfield_sample"],
               max(samp_err, aa_err["meanfield_sample"], ab_err, ac_k7a_err,
-                  ad_k7_err["meanfield_sample"]),
+                  ad_k7_err["meanfield_sample"], ae_err["meanfield_sample"]),
               *times["meanfield_sample"]),
         entry("fused_advi_meanfield", "fused_advi_meanfield.cu", f"{fused}672",
               counts["fused_advi_meanfield"], fused_err, *times["fused_advi_meanfield"]),
-        # the general full-rank path of (l), the measure-space path of (z) and (aa)'s
+        # the general full-rank path of (l), the measure-space path of (z), (aa)'s,
+        # (ad)'s and (ae)'s (column ranges under tp_axis, the draws of the bf16 route)
         entry("fullrank_sample", "fullrank_sample.cu",
               "advancedvi_jl_tpu/ops/pallas/location_scale_kernels.py:110",
               fr_counts["fullrank_sample"] + ms_launches + aa_counts["fullrank_sample"]
-              + ad_counts["fullrank_sample"],
+              + ad_counts["fullrank_sample"] + ae_counts["fullrank_sample"],
               max(fr_samp_err, ms_samp_err, aa_err["fullrank_sample"],
-                  ad_k7_err["fullrank_sample"]),
+                  ad_k7_err["fullrank_sample"], ae_err["fullrank_sample"]),
               *fr_times["fullrank_sample"]),
         entry("trisolve", "trisolve.cu", "advancedvi_jl_tpu/ops/pallas/trisolve_kernels.py:115",
-              fr_counts["trisolve"] + aa_counts["trisolve"], max(tri_err, aa_err["trisolve"]),
-              *fr_times["trisolve_C"]),
+              fr_counts["trisolve"] + aa_counts["trisolve"] + ae_counts["trisolve"],
+              max(tri_err, aa_err["trisolve"]), *fr_times["trisolve_C"]),
         # mode CT: the same kernel source and launch counter, timed apart
         entry("trisolve_CT", "trisolve.cu",
               "advancedvi_jl_tpu/ops/pallas/trisolve_kernels.py:115",
-              fr_counts["trisolve"] + aa_counts["trisolve"], max(tri_err, aa_err["trisolve"]),
-              *fr_times["trisolve_CT"], bound_=bounds["trisolve"]),
+              fr_counts["trisolve"] + aa_counts["trisolve"] + ae_counts["trisolve"],
+              max(tri_err, aa_err["trisolve"]), *fr_times["trisolve_CT"],
+              bound_=bounds["trisolve"]),
         # the single-block kernel on the main paths of (l) and (p) (full-rank
         # prox, d = 11: one panel), timed and bounded at (p)'s shape; its
         # error from (k) at d = 62 and 512 (forced to one block)
@@ -5318,6 +5752,15 @@ def main() -> int:
                max(k5_err, ac_k5_err), k5_ms, k5_plain_ms, bound_=k5_bound)
     k5["source"] = "advancedvi_jl_tpu_torch/ops/cuda/ad_body.py"  # emits the CUDA body
     kernels.append(k5)
+    # the bfloat16 sampling product on K7b's path (compute_dtype), timed at
+    # 256 x 1024 by graph replay beside the library's bf16 route.  It
+    # replaces no Pallas kernel: JAX forms this product with XLA
+    t, by = ae_times[FR_SHAPE]
+    kernels.append(entry("fullrank_bf16", "fullrank_bf16.cu",
+                         "advancedvi_jl_tpu/families/location_scale.py:258 (an XLA product, "
+                         "no Pallas kernel)",
+                         ae_counts["fullrank_bf16"], ae_err["fullrank_bf16"], t["bf16_product"],
+                         t["plain"], library_ms=t["library_mm_bf16"], bound_=(t["bound"], by)))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

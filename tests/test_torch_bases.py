@@ -196,8 +196,10 @@ def test_gaussian_constructors_take_the_jax_argument_order():
     assert (jq.sampler, jq.solve_mode, jq.layout) == (q.sampler, q.solve_mode, q.layout)
     m = avt.MeanFieldGaussian(torch.zeros(3), torch.ones(3), "pallas")
     assert m.sampler == javt.MeanFieldGaussian(jnp.zeros(3), jnp.ones(3), "pallas").sampler
-    with pytest.raises(NotImplementedError, match="item 5"):
-        avt.FullRankGaussian(torch.zeros(3), None, "xla", "bfloat16")
+    qb = avt.FullRankGaussian(torch.zeros(3), None, "xla", "bfloat16")
+    jqb = javt.FullRankGaussian(jnp.zeros(3), None, "xla", "bfloat16")
+    assert (qb.sampler, qb.compute_dtype) == (jqb.sampler, jqb.compute_dtype) == ("xla",
+                                                                               "bfloat16")
 
 
 def test_float64_family_entropy_and_log_prob_match_jax():

@@ -160,9 +160,13 @@ def test_constructor_validation_and_block_axis():
         avt.BlockDiagGaussian(torch.zeros(6), torch.ones((2, 2, 2)))
     with pytest.raises(ValueError, match="n_blocks"):
         avt.BlockDiagGaussian(torch.zeros(6))
-    q = avt.BlockDiagGaussian(torch.zeros(4), n_blocks=2)
-    with pytest.raises(NotImplementedError, match="item 17b"):
-        avt.BlockDiagLocationScale(q.location, q.scales, block_axis="mc")
+    # block_axis is taken, and outside a mesh with that axis it changes no bit
+    q = avt.BlockDiagGaussian(torch.arange(4.0), 1.5 * torch.eye(2).expand(2, 2, 2))
+    qb = avt.BlockDiagLocationScale(q.location, q.scales, block_axis="mc")
+    assert qb.block_axis == "mc"
+    assert torch.equal(qb.sample(3, 5), q.sample(3, 5))
+    z = q.sample(3, 5)
+    assert torch.equal(qb.log_prob(z), q.log_prob(z)) and torch.equal(qb.entropy(), q.entropy())
 
 
 def test_with_iwelbo_and_clipscale():

@@ -200,14 +200,16 @@ def test_family_constructor_scale_diag_and_clip():
     assert_allclose(clipped.scale.numpy(), np.asarray(javt.ClipScale().apply(jraw, None).scale),
                     rtol=0, atol=0)
     assert clipped.scale[0, 1] == 5.0
-    # solve_mode="inverse" and layout="packed" are ported (ops/trinv.py,
-    # ops/packing.py); compute_dtype waits for item 5
+    # solve_mode="inverse", layout="packed" and compute_dtype are ported
+    # (ops/trinv.py, ops/packing.py, csrc/fullrank_bf16.cu)
     assert avt.FullRankGaussian(torch.zeros(2), solve_mode="inverse").solve_mode == "inverse"
     assert avt.FullRankGaussian(torch.zeros(2), layout="packed").scale.shape == (1, 128, 128)
     with pytest.raises(ValueError, match="layout"):
         avt.FullRankGaussian(torch.zeros(2), layout="sparse")
-    with pytest.raises(NotImplementedError, match="compute_dtype"):
-        avt.FullRankGaussian(torch.zeros(2), compute_dtype="bfloat16")
+    assert avt.FullRankGaussian(torch.zeros(2), compute_dtype="bfloat16").compute_dtype == \
+        "bfloat16"
+    with pytest.raises(ValueError, match="compute_dtype"):
+        avt.FullRankGaussian(torch.zeros(2), compute_dtype="float16")
     with pytest.raises(ValueError, match="solve_mode"):
         avt.FullRankGaussian(torch.zeros(2), solve_mode="typo")
     with pytest.raises(ValueError, match="float32"):

@@ -433,8 +433,8 @@ def test_the_reshuffle_library_is_the_ports_own(tmp_path):
 def test_jax_positional_calls_mean_the_same():
     """RepGradELBO(10, "stl", None, True) is remat=True in both packages;
     the fused engines take interpret= last (the chains engine after
-    clip_eps, as JAX's); ``mc_axis`` is taken, and an axis over a family's
-    parameters (tp_axis, ep_axis) raises, naming item 17b."""
+    clip_eps, as JAX's); ``mc_axis`` and the axes over a family's parameters
+    (tp_axis, ep_axis) and ``compute_dtype`` are taken."""
     import advancedvi_jl_tpu as jax_package
 
     for pkg in (jax_package, advancedvi_jl_tpu_torch):
@@ -450,12 +450,12 @@ def test_jax_positional_calls_mean_the_same():
                 avt.BBVI(mc_axis="mc")):
         assert alg.objective.mc_axis == "mc"
     assert avt.FlowELBO(mc_axis="mc").mc_axis == "mc"
-    for make in (lambda: avt.FullRankLocationScale(torch.zeros(2), torch.eye(2), tp_axis="tp"),
-                 lambda: avt.MixtureELBO(ep_axis="ep")):
-        with pytest.raises(NotImplementedError, match="item 17b"):
-            make()
-    with pytest.raises(NotImplementedError, match="item 5"):
-        avt.FullRankLocationScale(torch.zeros(2), torch.eye(2), compute_dtype="bfloat16")
+    # outside a mesh with the axis, tp_axis evaluates on one device (JAX's rule)
+    qt = avt.FullRankLocationScale(torch.zeros(2), torch.eye(2), tp_axis="tp")
+    assert qt.tp_axis == "tp" and qt.sample(0, 3).shape == (3, 2)
+    assert avt.MixtureELBO(ep_axis="ep").ep_axis == "ep"
+    qb = avt.FullRankLocationScale(torch.zeros(2), torch.eye(2), compute_dtype="bfloat16")
+    assert qb.compute_dtype == "bfloat16" and qb.sample(0, 3).dtype == torch.float32
     for cls in (avt.FusedADVI, avt.FusedLogRegADVI, avt.FusedProxADVI, avt.FusedScoreGradVI):
         params = list(inspect.signature(cls).parameters.values())
         assert params[-1].name == "interpret" and params[-1].default is False, cls

@@ -244,6 +244,58 @@ def test_fullrank_sampler_kernel_matches_plain_version(dev, n, d):
     assert _rel(z, zr) <= 1e-6
 
 
+def _cut_ranges(d):
+    """Column ranges of a width-d product: halves, a ragged third, the last
+    column, all but the first."""
+    out = [(0, d // 2), (d // 2, d - d // 2), (d // 3, d // 3 + 1), (d - 1, 1), (1, d - 1)]
+    return [(c0, nc) for c0, nc in out if nc > 0 and c0 + nc <= d]
+
+
+@pytest.mark.parametrize("n,d", FR_SAMPLE_SHAPES)
+def test_fullrank_sampler_column_range_matches_plain_version(dev, n, d):
+    """K7b over a column range (one rank's share under tp_axis): u the whole
+    draw's bits, z the plain version's columns within 1e-6, C's NaN above
+    the diagonal never read; the draws-only launch draws the same u."""
+    _, _, L = normal_fullrank_wellcond(n, d, device="cpu")
+    loc = torch.randn(d, generator=torch.Generator().manual_seed(d)).to(dev)
+    C = (L + torch.triu(torch.full((d, d), float("nan")), 1)).to(dev)
+    _, u = fullrank_sample_cuda(seed_words(3), 4, loc, C, n)
+    assert fullrank_sample_cuda(seed_words(3), 4, loc, C, n, product=False)[0] is None
+    assert torch.equal(fullrank_sample_cuda(seed_words(3), 4, loc, C, n, product=False)[1], u)
+    for cols in _cut_ranges(d):
+        z, uc = fullrank_sample_cuda(seed_words(3), 4, loc, C, n, cols=cols)
+        zr, _ = fullrank_sample_reference(seed_words(3), 4, loc, C, n, cols=cols)
+        torch.cuda.synchronize()
+        assert z.shape == (n, cols[1]) and torch.equal(uc, u)
+        assert torch.isfinite(z).all() and _rel(z, zr) <= 1e-6, cols
+
+
+@pytest.mark.parametrize("n,d", FR_SAMPLE_SHAPES)
+def test_bf16_product_matches_plain_version(dev, n, d):
+    """The bfloat16 product (csrc/fullrank_bf16.cu) against its plain
+    version, the whole width and column ranges, NaN above C's diagonal:
+    within 1e-6 norm-wise (the same bf16 products summed in another order;
+    each step's tensor-core sums added in round-to-nearest float32);
+    float64 parameters summed in double, within 1e-12."""
+    from advancedvi_jl_tpu_torch.ops.cuda.location_scale_kernels import (
+        fullrank_bf16_cuda, fullrank_bf16_reference,
+    )
+
+    _, _, L = normal_fullrank_wellcond(n, d, device="cpu")
+    loc = torch.randn(d, generator=torch.Generator().manual_seed(d)).to(dev)
+    C = (L + torch.triu(torch.full((d, d), float("nan")), 1)).to(dev)
+    u = torch.randn(n, d, generator=torch.Generator().manual_seed(n)).to(dev)
+    before = fullrank_bf16_cuda.launches
+    for cols in [None] + _cut_ranges(d):
+        z = fullrank_bf16_cuda(u, loc, C, cols)
+        zr = fullrank_bf16_reference(u, loc, C, cols)
+        torch.cuda.synchronize()
+        assert torch.isfinite(z).all() and _rel(z, zr) <= 1e-6, cols
+    assert fullrank_bf16_cuda.launches == before + 1 + len(_cut_ranges(d))
+    z64 = fullrank_bf16_cuda(u.double(), loc.double(), C.double())
+    assert _rel(z64, fullrank_bf16_reference(u.double(), loc.double(), C.double())) <= 1e-12
+
+
 def test_fullrank_sampler_autograd_on_the_card(dev):
     d = 62
     loc = torch.zeros(d, device=dev, requires_grad=True)

@@ -211,10 +211,16 @@ def test_determinism():
 
 
 def test_ep_axis_and_entropy_refusals():
-    with pytest.raises(NotImplementedError, match="item 17b"):
-        avt.MixtureELBO(n_samples=8, ep_axis="mc")
     target, _, _ = _bimodal_target()
     q0 = avt.mixture_meanfield(1, dim=2, n_components=2, device=CPU)
+    # ep_axis is taken, and outside a mesh with that axis it changes no bit
+    ep = avt.MixtureELBO(n_samples=8, ep_axis="mc")
+    assert ep.ep_axis == "mc"
+    g1, _, i1 = ep.value_and_grad(q0, target, 3)
+    g0, _, i0 = avt.MixtureELBO(n_samples=8).value_and_grad(q0, target, 3)
+    assert torch.equal(i1["elbo"], i0["elbo"]) and torch.equal(g1.locations, g0.locations)
+    assert torch.equal(ep.estimate_objective(3, q0, target),
+                       avt.MixtureELBO(n_samples=8).estimate_objective(3, q0, target))
     with pytest.raises(ValueError, match="unknown mixture entropy"):
         avt.MixtureELBO(entropy="closed_form").loss(q0, target, 0)
     with pytest.raises(TypeError, match="ClipScale is not defined"):

@@ -7,7 +7,12 @@ scenarios are held against the JAX package on its 8-device CPU mesh: the
 logistic regression's log density and gradient, sharded over "data"
 (``make_logreg(data_axis="data")``), and RepGradELBO, ScoreGradELBO and
 IWELBO (with and without DReG) with their draws over "mc", on JAX's draws
-(written by the fixture to ``inputs/jax.npz`` and injected as ``noise``).
+(written by the fixture to ``inputs/jax.npz`` and injected as ``noise``);
+and a family's parameters over a mesh axis (the full-rank factor's rows
+over ``tp_axis``, also in bfloat16 and composed with ``mc_axis``, the
+block-diagonal family's blocks over ``block_axis``, a mixture's components
+over ``MixtureELBO(ep_axis=)``), where each rank also records the share its
+products formed (``shares<R>.pt``).
 
 The ranks are this file run as a script (``__main__`` below), launched once
 by a module-scoped fixture: ``python tests/test_torch_multiprocess.py RANK
@@ -275,9 +280,194 @@ def ppl_density(mesh):
     return out
 
 
+# ---------------------------------------------------------------------------
+# A family's parameters over a mesh axis, on JAX's draws
+# ---------------------------------------------------------------------------
+
+# the axis of each mesh that a family splits: the larger one ("mc" on (2, 2))
+FAMILY_AXIS = {(1, 4): MC, (2, 2): MC, (4, 1): DATA}
+FA_N, FA_MIX_N, FA_MIX_D = 32, 8, 3
+# case: (family, width, the objective's mc_axis ("family": the family's own
+# axis; "mc"), the family's axis ("mesh": FAMILY_AXIS; or a name),
+# compute_dtype, target: "normal" (replicated) or "logreg" (its rows over
+# "data")).  Width: d (full rank), blocks of 2 (block-diagonal; the uneven
+# case blocks of 3), components (mixtures).
+FAMILY_CASES = {
+    "tp": ("fullrank", 64, None, "mesh", None, "normal"),
+    "tp_uneven": ("fullrank", 37, None, "mesh", None, "normal"),
+    "tp_bf16": ("fullrank", 64, None, "mesh", "bfloat16", "normal"),
+    "tp_on_mc": ("fullrank", 64, "family", "mesh", None, "normal"),
+    "tp_composed": ("fullrank", 64, MC, DATA, None, "normal"),
+    # the family's axis is the target's data axis: each rank's upstream
+    # gradient holds its own data block's terms
+    "tp_on_data": ("fullrank", 9, MC, DATA, None, "logreg"),
+    "block": ("blockdiag", 8, None, "mesh", None, "normal"),
+    "block_uneven": ("blockdiag", 6, None, "mesh", None, "normal"),
+    "block_on_data": ("blockdiag", 8, MC, DATA, None, "logreg"),
+    "ep": ("mixture_meanfield", 8, None, "mesh", None, "normal"),
+    "ep_uneven": ("mixture_meanfield", 6, None, "mesh", None, "normal"),
+    "ep_fullrank": ("mixture_fullrank", 6, None, "mesh", None, "normal"),
+}
+FA_ROWS = 64  # the "logreg" target's data rows
+
+
+def family_logreg(d):
+    """Numpy data (X, y) of a logistic regression of dimension d (d - 1
+    features, FA_ROWS rows), shared with the JAX package."""
+    rng = np.random.default_rng(100 + d)
+    X = (0.5 * rng.standard_normal((FA_ROWS, d - 1))).astype(np.float32)
+    return X, (rng.random(FA_ROWS) < 0.5).astype(np.float32)
+
+
+def port_logreg(d):
+    """The port's unconstrained logistic regression on ``family_logreg(d)``
+    with its rows over "data"."""
+    X, y = family_logreg(d)
+    return LogReg(torch.from_numpy(X), torch.from_numpy(y), torch.ones(()),
+                  data_axis=DATA).unconstrained()
+
+
+def family_arrays(case):
+    """Numpy parameters of the case's family and its NormalTarget's (mu, L),
+    shared with the JAX package."""
+    fam, width = FAMILY_CASES[case][:2]
+    rng = np.random.default_rng(width)
+    f32 = lambda a: np.asarray(a, dtype=np.float32)
+    if fam == "fullrank":
+        d = width
+        arr = {"loc": f32(0.1 * rng.standard_normal(d)),
+               "C": f32(np.eye(d) + np.tril(0.01 * rng.standard_normal((d, d))))}
+    elif fam == "blockdiag":
+        k = 2 if width == 8 else 3
+        d = width * k
+        arr = {"loc": f32(0.1 * rng.standard_normal(d)),
+               "scales": f32(np.eye(k) + np.tril(0.1 * rng.standard_normal((width, k, k)), -1))}
+    else:
+        d = FA_MIX_D
+        arr = {"logits": f32(0.3 * rng.standard_normal(width)),
+               "locations": f32(rng.standard_normal((width, d))),
+               "scales": f32(0.5 + rng.random((width, d)))}
+        if fam == "mixture_fullrank":
+            arr["scales"] = f32(np.eye(d) * arr["scales"][:, None, :]
+                                + np.tril(0.1 * rng.standard_normal((width, d, d)), -1))
+    arr["mu"] = f32(np.linspace(-1.0, 1.0, d))
+    arr["L"] = f32(np.eye(d) + np.tril(0.05 * rng.standard_normal((d, d)), -1))
+    return arr
+
+
+def family_axes(case, axis):
+    """The case's axis names: (the family's, the objective's mc_axis)."""
+    _, _, mc, fam_axis = FAMILY_CASES[case][:4]
+    fam_axis = axis if fam_axis == "mesh" else fam_axis
+    return fam_axis, (fam_axis if mc == "family" else mc)
+
+
+def port_family_case(case, fam_axis, mc_axis):
+    """(objective, family, target) of the case in the port, on the CPU."""
+    from advancedvi_jl_tpu_torch import convert
+
+    fam, _, _, _, cdt, kind = FAMILY_CASES[case]
+    a = family_arrays(case)
+    target = (convert.normal_target_from_numpy(a["mu"], a["L"], device="cpu")
+              if kind == "normal" else port_logreg(a["mu"].shape[0]))
+    if fam == "fullrank":
+        q = convert.fullrank_from_numpy(a["loc"], a["C"], device="cpu", tp_axis=fam_axis,
+                                        compute_dtype=cdt)
+        return avt.RepGradELBO(n_samples=FA_N, entropy=avt.STL, mc_axis=mc_axis), q, target
+    if fam == "blockdiag":
+        q = convert.blockdiag_from_numpy(a["loc"], a["scales"], device="cpu",
+                                         block_axis=fam_axis)
+        return avt.RepGradELBO(n_samples=FA_N, entropy=avt.STL, mc_axis=mc_axis), q, target
+    load = (convert.mixture_meanfield_from_numpy if fam == "mixture_meanfield"
+            else convert.mixture_fullrank_from_numpy)
+    q = load(a["logits"], a["locations"], a["scales"], device="cpu")
+    return avt.MixtureELBO(n_samples=FA_MIX_N, ep_axis=fam_axis), q, target
+
+
+def ep_on_data(mesh):
+    """MixtureELBO with ``ep_axis="data"`` on a target whose rows are over
+    "data" too: the refusal's message where "data" has more than one rank,
+    else the gradient leaves and the ELBO."""
+    from advancedvi_jl_tpu_torch import convert
+
+    a = family_arrays("ep")
+    q = convert.mixture_meanfield_from_numpy(a["logits"], a["locations"], a["scales"],
+                                             device="cpu")
+    u = torch.randn(q.n_components, FA_MIX_N, q.dim, generator=torch.Generator().manual_seed(4))
+    try:
+        with _under(mesh):
+            grad, _, info = avt.MixtureELBO(n_samples=FA_MIX_N, ep_axis=DATA).value_and_grad(
+                q, port_logreg(q.dim), None, noise=u)
+    except ValueError as e:
+        return str(e)
+    return _leaves(grad) + [info["elbo"].detach().clone()]
+
+
+class _CountingTarget:
+    """A target that records the rows of every batch it evaluates."""
+
+    def __init__(self, prob, seen):
+        self.prob, self.seen, self.dim = prob, seen, prob.dim
+
+    def log_density(self, z):
+        self.seen.append(z.shape[0])
+        return self.prob.log_density(z)
+
+
+def _recording(seen):
+    """Patches that record, into ``seen``, the output columns of each plain
+    full-rank product (float32 and bfloat16) and the blocks of each
+    block-diagonal einsum; returns the undo list."""
+    from advancedvi_jl_tpu_torch.families import location_scale as ls
+    from advancedvi_jl_tpu_torch.ops.cuda import location_scale_kernels as lsk
+
+    undo = []
+
+    def wrap(mod, name, count):
+        raw = getattr(mod, name)
+
+        def rec(*a, **k):
+            out = raw(*a, **k)
+            seen.append(count(out, *a))
+            return out
+
+        setattr(mod, name, rec)
+        undo.append((mod, name, raw))
+
+    wrap(ls, "fullrank_affine_reference", lambda z, *a: z.shape[1])
+    wrap(lsk, "fullrank_bf16_reference", lambda z, *a: z.shape[1])
+    wrap(torch, "einsum", lambda z, eq, *ops: ops[0].shape[0] if eq == "bij,nbj->nbi" else None)
+    return undo
+
+
+def family_shares(mesh, inputs, shape):
+    """Each FAMILY_CASES case's gradient leaves and ELBO on JAX's draws
+    (``inputs``), and the shares this rank's products formed: for each case,
+    the columns, blocks or target rows it recorded."""
+    out, shares = {}, {}
+    for case in FAMILY_CASES:
+        fam_axis, mc_axis = family_axes(case, FAMILY_AXIS[shape])
+        obj, q, target = port_family_case(case, fam_axis, mc_axis)
+        seen = []
+        if isinstance(obj, avt.MixtureELBO):
+            target = _CountingTarget(target, seen)
+        undo = _recording(seen)
+        try:
+            with _under(mesh):
+                grad, _, info = obj.value_and_grad(q, target, None,
+                                                   noise=torch.from_numpy(inputs[f"fa_{case}"]))
+        finally:
+            for mod, name, raw in undo:
+                setattr(mod, name, raw)
+        out[case] = _leaves(grad) + [info["elbo"].detach().clone()]
+        shares[case] = [s for s in seen if s is not None]
+    return out, shares
+
+
 SCENARIOS = {"objectives": objectives, "measure_space": measure_space,
              "optimize": optimize_runs, "subsampled_logreg": subsampled_logreg,
-             "chains": chains, "logreg_density": logreg_density, "ppl_density": ppl_density}
+             "chains": chains, "logreg_density": logreg_density, "ppl_density": ppl_density,
+             "ep_on_data": ep_on_data}
 
 
 # ---------------------------------------------------------------------------
@@ -313,6 +503,7 @@ def rank_main(rank: int, world: int, port: int, outdir: str) -> None:
     distributed.initialize(address, world, rank, backend="gloo")  # a no-op
     results = {"second_initialize_kept_the_group": dist.group.WORLD is group,
                "multi_host": distributed.is_multi_host()}
+    shares = {}
     for shape in MESHES:
         mesh = avt.make_vi_mesh(n_mc=shape[1], n_data=shape[0])
         for name, fn in SCENARIOS.items():
@@ -330,8 +521,10 @@ def rank_main(rank: int, world: int, port: int, outdir: str) -> None:
                     distributed.sync_hosts("post_checkpoint")
             results[(name, shape)] = res
         results[("jax_objectives", shape)] = jax_objectives(mesh, inputs)
+        results[("family_axes", shape)], shares[shape] = family_shares(mesh, inputs, shape)
     results["refusals"] = _refusals(avt.make_vi_mesh())
     torch.save(results, os.path.join(outdir, f"rank{rank}.pt"))
+    torch.save(shares, os.path.join(outdir, f"shares{rank}.pt"))
     dist.destroy_process_group()
 
 
@@ -366,6 +559,47 @@ def _jax_target():
 JAX_KEY = 17
 
 
+def jax_family_case(case, fam_axis, mc_axis):
+    """(objective, family, target) of the case in the JAX package."""
+    import jax.numpy as jnp
+
+    import advancedvi_jl_tpu as javt
+    from advancedvi_jl_tpu.models.logreg import LogReg as JaxLogReg
+    from advancedvi_jl_tpu.models.normal import NormalTarget
+
+    fam, _, _, _, cdt, kind = FAMILY_CASES[case]
+    a = {k: jnp.asarray(v) for k, v in family_arrays(case).items()}
+    if kind == "normal":
+        target = NormalTarget(a["mu"], a["L"])
+    else:
+        X, y = family_logreg(a["mu"].shape[0])
+        target = JaxLogReg(jnp.asarray(X), jnp.asarray(y), jnp.ones(()),
+                           data_axis="data").unconstrained()
+    if fam == "fullrank":
+        q = javt.FullRankLocationScale(a["loc"], jnp.tril(a["C"]), tp_axis=fam_axis,
+                                       compute_dtype=cdt)
+        return javt.RepGradELBO(n_samples=FA_N, entropy="stl", mc_axis=mc_axis), q, target
+    if fam == "blockdiag":
+        q = javt.BlockDiagLocationScale(a["loc"], a["scales"], block_axis=fam_axis)
+        return javt.RepGradELBO(n_samples=FA_N, entropy="stl", mc_axis=mc_axis), q, target
+    cls = javt.MixtureMeanField if fam == "mixture_meanfield" else javt.MixtureFullRank
+    q = cls(a["logits"], a["locations"], a["scales"])
+    return javt.MixtureELBO(n_samples=FA_MIX_N, ep_axis=fam_axis), q, target
+
+
+def jax_family_draws(case):
+    """The JAX package's base draws of the case's family for JAX_KEY: what
+    its objective draws (one device: with partitionable threefry they are
+    the sharded draws too)."""
+    import jax
+
+    obj, q, _ = jax_family_case(case, None, None)
+    key = jax.random.key(JAX_KEY)
+    if FAMILY_CASES[case][0].startswith("mixture"):
+        return np.asarray(jax.random.normal(key, (q.n_components, FA_MIX_N, q.dim)))
+    return np.asarray(q.sample_with_base(key, FA_N)[1])
+
+
 def write_jax_inputs(outdir):
     """The JAX package's target (mu, L) and, for each of JAX_OBJECTIVES,
     its family's base draws for JAX_KEY (one device: with partitionable
@@ -378,6 +612,8 @@ def write_jax_inputs(outdir):
     for name, (_, _, fam) in JAX_OBJECTIVES.items():
         u = _jax_family(fam).sample_with_base(jax.random.key(JAX_KEY), JAX_N)[1]
         out[name] = np.asarray(u)
+    for case in FAMILY_CASES:
+        out[f"fa_{case}"] = jax_family_draws(case)
     np.savez(os.path.join(outdir, "inputs", "jax.npz"), **out)
 
 
@@ -610,3 +846,107 @@ def test_sharded_objective_matches_jax(ranks, jax_sharded, shape, case):
     assert len(got) == len(want)
     _close(got[:-1], want[:-1], rtol=1e-5, atol=1e-6)
     _close(got[-1:], want[-1:], rtol=1e-5)
+
+
+# JAX's mesh refuses 6 blocks or components over its 8 devices ("dim_size=2
+# is not divisible by axis_size=8"): those cases run on 2 of them
+JAX_TWO_DEVICES = ("block_uneven", "ep_uneven", "ep_fullrank")
+
+
+def _bf16_ulp(x: np.ndarray) -> np.ndarray:
+    """One bfloat16 ulp at |x| (8 significant bits)."""
+    e = np.floor(np.log2(np.maximum(np.abs(x), np.finfo(np.float32).tiny)))
+    return np.exp2(e - 7)
+
+
+@pytest.fixture(scope="module")
+def jax_family_axes():
+    """Each FAMILY_CASES case in the JAX package under its 8-device mesh
+    (JAX_TWO_DEVICES on 2), the family's axis "mc" (the composed case:
+    "data" on a (2 x 4) mesh, the objective's draws over "mc"), for JAX_KEY:
+    its gradient leaves, then the ELBO."""
+    import jax
+
+    from advancedvi_jl_tpu.parallel.mesh import make_vi_mesh as jax_mesh
+
+    if len(jax.devices()) < 8:
+        pytest.skip("needs the 8 virtual JAX devices of tests/conftest.py")
+    out = {}
+    for case in FAMILY_CASES:
+        fam_axis, mc_axis = family_axes(case, MC)
+        obj, q, target = jax_family_case(case, fam_axis, mc_axis)
+        if fam_axis == DATA:
+            mesh = jax_mesh(n_mc=4, n_data=2)
+        elif case in JAX_TWO_DEVICES:
+            mesh = jax_mesh(n_mc=2, devices=jax.devices()[:2])
+        else:
+            mesh = jax_mesh(n_mc=8)
+        key = jax.random.key(JAX_KEY)
+        with jax.set_mesh(mesh):
+            grad, _, info = jax.jit(lambda q: obj.value_and_grad(q, target, key))(q)
+        out[case] = [np.asarray(g) for g in jax.tree.leaves(grad)] + [np.asarray(info["elbo"])]
+    return out
+
+
+@pytest.mark.parametrize("shape", MESHES)
+@pytest.mark.parametrize("case", list(FAMILY_CASES))
+def test_family_axis_matches_jax(ranks, jax_family_axes, shape, case):
+    """A family's parameters over a mesh axis (tp_axis, block_axis, ep_axis;
+    bfloat16 with tp; tp on the objective's own "mc"; tp over "data" with the
+    draws over "mc"; tp and blocks over "data" on a logistic regression whose
+    rows are over "data" too) on the port's 4 ranks, each rank forming its share,
+    against the JAX package's on its 8-device mesh, on JAX's draws: the
+    gradient at rtol 1e-5, atol 1e-6 and the ELBO at rtol 1e-5 (JAX's own
+    tests: 1e-4 / 1e-5 for tp and blocks, 1e-5 / 1e-6 for the mixture).  In
+    bfloat16 the factor's gradient is a float32 sum rounded to bfloat16, so
+    an entry whose sum lies near a rounding boundary may land one bf16 ulp
+    away when the sum runs in another order (JAX's own sharded and
+    one-device runs differ so, by 4.9e-4): within one ulp."""
+    got = ranks[0][0][("family_axes", shape)][case]
+    want = jax_family_axes[case]
+    assert len(got) == len(want)
+    if FAMILY_CASES[case][4] == "bfloat16":  # (location, scale) gradients
+        _close(got[:1], want[:1], rtol=1e-5, atol=1e-6)
+        diff = np.abs(np.asarray(got[1]) - want[1])
+        assert (diff <= _bf16_ulp(want[1])).all(), diff.max()
+    else:
+        _close(got[:-1], want[:-1], rtol=1e-5, atol=1e-6)
+    _close(got[-1:], want[-1:], rtol=1e-5)
+
+
+@pytest.mark.parametrize("shape", MESHES)
+@pytest.mark.parametrize("case", list(FAMILY_CASES))
+def test_each_rank_forms_only_its_share(ranks, shape, case):
+    """What each rank's plain products formed: the output columns of its
+    full-rank product (its block of d over the family's axis), the blocks of
+    its einsum, the rows its target evaluated (its components' draws): never
+    the whole, wherever the axis has more than one rank."""
+    from advancedvi_jl_tpu_torch.parallel.mesh import block
+
+    _, outdir = ranks
+    fam, width = FAMILY_CASES[case][:2]
+    fam_axis, mc_axis = family_axes(case, FAMILY_AXIS[shape])
+    for r in range(WORLD):
+        seen = torch.load(os.path.join(outdir, f"shares{r}.pt"), weights_only=False)[shape][case]
+        index = {DATA: r // shape[1], MC: r % shape[1]}
+        parts = shape[0] if fam_axis == DATA else shape[1]
+        if fam_axis == mc_axis:  # the draws' rows split the product: every column
+            want = [width]
+        elif fam.startswith("mixture"):
+            want = [block(width, parts, index[fam_axis])[1] * FA_MIX_N]
+        else:
+            want = [block(width, parts, index[fam_axis])[1]]
+        assert seen == want, (r, seen, want)
+
+
+@pytest.mark.parametrize("shape", MESHES)
+def test_mixture_over_the_data_axis_of_its_target(ranks, reference, shape):
+    """``MixtureELBO(ep_axis="data")`` on a target whose rows are over
+    "data": where that axis has more than one rank its ranks hold different
+    components' draws, and the target's sum over it refuses (a ValueError
+    naming the axis); on one rank of "data" the one-process estimate."""
+    got = ranks[0][0][("ep_on_data", shape)]
+    if shape[0] > 1:
+        assert isinstance(got, str) and "data_axis 'data'" in got and "ep_axis" in got, got
+    else:
+        _close(got, reference["ep_on_data"], rtol=1e-5, atol=1e-6)

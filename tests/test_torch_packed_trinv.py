@@ -187,6 +187,25 @@ def test_packed_refusals_match_jax():
     assert str(terr.value) == str(jerr.value)
 
 
+def test_packed_with_tp_axis_refuses_as_jax():
+    """A packed factor cannot be row-sharded: ``tril_scale`` (and so the
+    draw) raises JAX's ValueError word for word, outside a mesh too (JAX
+    tests/test_packed.py:206-209); the dense layout takes ``tp_axis``."""
+    import dataclasses
+
+    qp = dataclasses.replace(avt.FullRankGaussian(torch.zeros(6), layout="packed"),
+                             tp_axis="mc")
+    jqp = javt.FullRankGaussian(jnp.zeros(6), layout="packed").replace(tp_axis="mc")
+    with pytest.raises(ValueError) as jerr:
+        jqp.tril_scale()
+    for call in (qp.tril_scale, lambda: qp.sample(0, 3)):
+        with pytest.raises(ValueError) as terr:
+            call()
+        assert str(terr.value) == str(jerr.value)
+    dense = dataclasses.replace(avt.FullRankGaussian(torch.zeros(6)), tp_axis="mc")
+    assert torch.equal(dense.tril_scale(), torch.eye(6))
+
+
 @pytest.mark.parametrize("kw, match", [
     ({"layout": "sparse"}, "layout must be"),
     ({"solve_mode": "typo"}, "solve_mode must be one of"),

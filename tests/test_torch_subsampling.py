@@ -273,8 +273,14 @@ def test_bnn_log_density_gradient_and_subsample_match_jax():
     assert float(ts.likeadj) == float(js.likeadj) == 4.0
     assert_allclose(ts.log_density(torch.from_numpy(th)).numpy(),
                     np.asarray(jax.vmap(js.log_density)(jnp.asarray(th))), rtol=1e-5)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tb.replace(compute_dtype="bfloat16")
+    # compute_dtype="bfloat16" against JAX's bf16 model (rtol 1e-5: the same
+    # bf16-rounded operands, float32 sums in another order)
+    jb16, tb16 = jb.replace(compute_dtype="bfloat16"), tb.replace(compute_dtype="bfloat16")
+    assert_allclose(tb16.log_density(torch.from_numpy(th)).numpy(),
+                    np.asarray(jax.vmap(jb16.log_density)(jnp.asarray(th))), rtol=1e-5)
+    assert tb16.subsample(torch.from_numpy(idx)).compute_dtype == "bfloat16"
+    with pytest.raises(ValueError, match="compute_dtype"):
+        tb.replace(compute_dtype="float16")
     made = avt.make_bnn(30, n_data=64, in_dim=4, hidden=8, device=CPU)
     assert made.X.shape == (64, 4) and made.dim == 49
 
