@@ -11,7 +11,10 @@
 // float4s), 2 and 3 the same tiles on the plain layout (scalar loads), 4
 // and 5 K5's flagship logits' and gradient's (5 x 2 and 2 x 2, k in order,
 // A as float4s), 6 and 7 the minibatch body's logits and gradient (10 x 4
-// over 4 lanes and 10 x 2 over 16, A as float4s).  Bound on an H100:
+// over 4 lanes and 10 x 2 over 16, A as float4s).  block_mm_mvnormal runs
+// the dense-Gaussian body's product (fused_common.cuh mvnormal_body: config
+// 3's tile, P copied to shared memory where it fits beside A, else read
+// where it lies in device memory).  Bound on an H100:
 // shared-memory loads (see block_mm.cuh); the copies in and out are a few
 // KB.
 #include <cuda_runtime.h>
@@ -26,28 +29,30 @@ constexpr size_t kSmemLimit = 232448;
 template <int TM, int TN, int KS, bool kVecA, bool kVecB>
 __global__ void __launch_bounds__(kThreads)
     block_mm_kernel(const float* __restrict__ A, const float* __restrict__ B,
-                    float* __restrict__ C, int M, int N, int K, int lda, int ldb, int trans_b) {
+                    float* __restrict__ C, int M, int N, int K, int lda, int ldb, int trans_b,
+                    int b_in_place) {
   extern __shared__ float4 smem4[];  // 16-byte aligned
   float* As = reinterpret_cast<float*>(smem4);
   float* Bs = As + avi::round4(M * lda);
   const int b_floats = trans_b ? N * ldb : K * ldb;
   const int tid = threadIdx.x;
   for (int i = tid; i < M * lda; i += kThreads) As[i] = A[i];
-  for (int i = tid; i < b_floats; i += kThreads) Bs[i] = B[i];
+  if (!b_in_place)
+    for (int i = tid; i < b_floats; i += kThreads) Bs[i] = B[i];
   __syncthreads();
   avi::block_mm<kThreads, TM, TN, KS, kVecA, kVecB>(
-      M, N, K, As, lda, 1, Bs, trans_b ? 1 : ldb, trans_b ? ldb : 1, tid,
+      M, N, K, As, lda, 1, b_in_place ? B : Bs, trans_b ? 1 : ldb, trans_b ? ldb : 1, tid,
       [=](int i, int j, float v) { C[i * N + j] = v; });
 }
 
 template <int TM, int TN, int KS, bool kVecA, bool kVecB>
 cudaError_t launch(const float* A, const float* B, float* C, int M, int N, int K, int lda,
-                   int ldb, int trans_b, size_t smem, cudaStream_t stream) {
+                   int ldb, int trans_b, size_t smem, int b_in_place, cudaStream_t stream) {
   const auto kernel = block_mm_kernel<TM, TN, KS, kVecA, kVecB>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  kernel<<<1, kThreads, smem, stream>>>(A, B, C, M, N, K, lda, ldb, trans_b);
+  kernel<<<1, kThreads, smem, stream>>>(A, B, C, M, N, K, lda, ldb, trans_b, b_in_place);
   return cudaGetLastError();
 }
 
@@ -66,7 +71,7 @@ extern "C" int block_mm_run(const float* A, const float* B, float* C, int M, int
       sizeof(float) * (static_cast<size_t>(avi::round4(M * lda)) + (trans_b ? N : K) * ldb);
   if (smem > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
   const auto args = [&](auto kernel_launch) {
-    return kernel_launch(A, B, C, M, N, K, lda, ldb, trans_b, smem, stream);
+    return kernel_launch(A, B, C, M, N, K, lda, ldb, trans_b, smem, 0, stream);
   };
   switch (config) {
     case 0: return static_cast<int>(args(launch<10, 1, 2, true, false>));
@@ -78,4 +83,20 @@ extern "C" int block_mm_run(const float* A, const float* B, float* C, int M, int
     case 6: return static_cast<int>(args(launch<10, 4, 4, true, false>));
     default: return static_cast<int>(args(launch<10, 2, 16, true, false>));
   }
+}
+
+// C (M, d) = A (M, d) P (d, d), both row-major, as mvnormal_body forms
+// -grad: P in shared memory where it fits beside A, else read in device
+// memory.  Returns cudaGetLastError() after the launch, or
+// cudaErrorInvalidValue for a call the kernel does not take.
+extern "C" int block_mm_mvnormal(const float* A, const float* P, float* C, int M, int d,
+                                 cudaStream_t stream) {
+  if (M < 1 || d < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t a_bytes = sizeof(float) * static_cast<size_t>(avi::round4(M * d));
+  const size_t p_bytes = sizeof(float) * static_cast<size_t>(d) * d;
+  const int in_place = a_bytes + p_bytes > kSmemLimit;
+  const size_t smem = in_place ? a_bytes : a_bytes + p_bytes;
+  if (smem > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(
+      launch<10, 1, 8, false, false>(A, P, C, M, d, d, d, d, 0, smem, in_place, stream));
 }

@@ -1,17 +1,17 @@
 // K1+K2 and the mean-field branches of K3, with K4's logreg, minibatch
-// logreg and diagonal-Gaussian bodies: the whole optimisation loop in one
-// launch,
+// logreg, dense-Gaussian and diagonal-Gaussian bodies: the whole
+// optimisation loop in one launch,
 // mean-field Gaussian family x {Adam, descent, DoWG, DoG, COCOB} x {STL,
 // closed-form zero-gradient, STL zero-gradient entropy} x {reparameterization
 // gradient, VarGrad} x {ClipScale, entropy prox, identity} x polynomial
 // averaging, on hierarchical logistic regression (all data, or a minibatch
-// slab a step) or a diagonal Gaussian.
+// slab a step), a dense Gaussian or a diagonal Gaussian.
 //
 // Replaces ops/pallas/fused_advi.py::_run_chunk (both pallas_calls, plain and
 // traced grid) in every MEANFIELD branch of _kernel (fused_advi.py:356-669),
 // with _logreg_step_factory, _logreg_mb_step_factory,
-// _logreg_mb_hbm_step_factory, _logreg_mb_hbm_db_step_factory or
-// _gaussian_step_factory inlined as the model,
+// _logreg_mb_hbm_step_factory, _logreg_mb_hbm_db_step_factory,
+// _mvnormal_step_factory or _gaussian_step_factory inlined as the model,
 // _adam_candidate, _dowg_step, _dog_step and _cocob_update as the rules, and
 // the step-indexed draw of location_scale_kernels.py.  The plain PyTorch
 // version is fused_run_chunk_reference in ops/cuda/fused_advi.py.
@@ -38,7 +38,12 @@
 // the codes constant (avi::kDefaultBranch).  The design matrix (50,752 bytes at
 // the flagship shape, over the 48 KB static limit), the labels, the draws,
 // the logits and the 8 (d,) state rows (14 with COCOB's accumulators) live
-// in dynamic shared memory for the whole chunk.
+// in dynamic shared memory for the whole chunk where they fit one block;
+// the dense Gaussian, and a dense launch that does not fit, run the kWide
+// group instead (fused_meanfield_body.cuh wide_layout): the state rows and
+// row sums stay in shared memory, and the model's data, then the logits,
+// then u, z and g move to device memory (the last two into a workspace the
+// wrapper allocates), each step's phases and sums unchanged.
 //
 // The minibatch body (fused_common.cuh; its two products on block_mm, as
 // the flagship's) reads step it's slab k = it mod nb of the permuted
@@ -117,13 +122,42 @@ auto kernel_for(bool flagship_branch) {
   return flagship_branch ? fused_advi_meanfield_kernel<false, kGroup> : fused_advi_meanfield_kernel<true, kGroup>;
 }
 
+#ifndef AVI_AD_BODY
+// The kWide group (the dense Gaussian, and any dense model whose layout does
+// not fit one block: fused_meanfield_body.cuh wide_layout), every branch by
+// runtime codes, with its device workspace `ws` (wide_layout's floats, or
+// null when its tier keeps none).  Its own kernel, so the instances above
+// keep their signatures and their code.
+__global__ void __launch_bounds__(kThreads, 1) fused_advi_meanfield_wide_kernel(
+    int model, const float* __restrict__ c0, const float* __restrict__ c1, int n_data,
+    int db, int batch, float s0, float s1, const float* __restrict__ state_in,
+    float* __restrict__ state_out, float* __restrict__ elbo_out, float* __restrict__ trace,
+    const float* __restrict__ noise, int n, int d, int n_rows, int steps, int log_every,
+    uint32_t k0, uint32_t k1, unsigned long long it0, avi::Hyper h, avi::Branch br,
+    float* __restrict__ ws) {
+  avi::mf::run_chunk<true, avi::mf::kWide>(model, c0, c1, n_data, db, batch, s0, s1, state_in,
+                                           state_out, elbo_out, trace, noise, n, d, n_rows,
+                                           steps, log_every, k0, k1, it0, h, br, ws);
+}
+#endif
+
 }  // namespace
 
-// The dynamic shared memory of a launch; n_rows is 8, or 14 with COCOB.
+// The dynamic shared memory of a launch with every array in shared memory
+// (make_layout; n_rows is 8, or 14 with COCOB): above the limit, the launch
+// takes the kWide group's layout, fused_advi_meanfield_layout.
 extern "C" size_t fused_advi_meanfield_smem_bytes(int model, int n_data, int db, int batch,
                                                   int n, int d, int n_rows) {
   return sizeof(float) *
          static_cast<size_t>(make_layout(model, n_data, db, batch, n, d, n_rows).total);
+}
+
+// What a launch takes (launch_layout): out[0] its model group, out[1] its
+// bytes of dynamic shared memory, out[2] the floats of device workspace the
+// caller passes as `ws` (0: none), out[3] the kWide group's tier.
+extern "C" void fused_advi_meanfield_layout(int model, int n_data, int db, int batch, int n,
+                                            int d, int n_rows, long long* out) {
+  avi::mf::launch_layout(model, n_data, db, batch, n, d, n_rows, out);
 }
 
 #ifdef AVI_PHASE_CLOCKS
@@ -140,7 +174,8 @@ extern "C" int fused_advi_meanfield_phase_cycles(unsigned long long* out) {
 #endif
 
 // model 0: logreg, c0 = X (n_data, db), c1 = y (n_data,), s0 = likeadj,
-// s1 = prior_scale, d = db + 1; model 2: diagonal Gaussian, c0 = mean (d,),
+// s1 = prior_scale, d = db + 1; model 1: dense Gaussian, c0 = mean (d,), c1
+// = precision (d, d), s0 = lognorm; model 2: diagonal Gaussian, c0 = mean (d,),
 // c1 = inverse variances (d,), s0 = lognorm; models 3-5: minibatch logreg
 // (in place, staged, staged + prefetch), c0 = permuted X (n_data, db) with
 // n_data a multiple of batch and 16-byte aligned, c1 = yX (n_data / batch,
@@ -151,19 +186,21 @@ extern "C" int fused_advi_meanfield_phase_cycles(unsigned long long* out) {
 // (steps, n, d) or null for in-kernel Philox.  algo, entropy, grad_est, op:
 // the avi::Branch codes.  Model 6 (a library built with AVI_AD_BODY): K5's
 // generated body at its (n, d), c0 = packed float constants, c1 = packed
-// int32 constants.  Returns cudaGetLastError() after the launch (0 on
-// success), or cudaErrorInvalidValue for a launch the kernel does not take.
+// int32 constants.  ws: the kWide group's device workspace of
+// fused_advi_meanfield_layout's out[2] floats (null when that is 0).
+// Returns cudaGetLastError() after the launch (0 on success), or
+// cudaErrorInvalidValue for a launch the kernel does not take.
 extern "C" int fused_advi_meanfield(
     int model, const float* c0, const float* c1, int n_data, int db, int batch, float s0,
     float s1, const float* state_in, float* state_out, float* elbo_out, float* trace,
     const float* noise, int n, int d, int steps, int log_every, uint32_t seed0,
     uint32_t seed1, unsigned long long it0, float lr, float b1, float b2, float eps,
     float avg_eta, float clip_eps, int algo, int entropy, int grad_est, int op,
-    float cocob_alpha, cudaStream_t stream) {
+    float cocob_alpha, float* ws, cudaStream_t stream) {
   const int n_rows = algo == avi::kCOCOB ? 14 : 8;
   const bool dist_rule = algo == avi::kDoWG || algo == avi::kDoG;
   const bool mb = avi::is_minibatch(model);
-  bool known = model == avi::kLogReg || model == avi::kGaussian || mb;
+  bool known = model == avi::kLogReg || model == avi::kMvNormal || model == avi::kGaussian || mb;
 #ifdef AVI_AD_BODY  // K5's body is generated for one (n, d), and runs alone
   known = model == avi::kAD && n == avi::ad::kN && d == avi::ad::kD;
 #endif
@@ -172,15 +209,31 @@ extern "C" int fused_advi_meanfield(
       (mb && (batch < 1 || batch % 8 != 0 || n_data % batch != 0 || n_data < batch ||
               reinterpret_cast<uintptr_t>(c0) % 16 != 0)))
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = fused_advi_meanfield_smem_bytes(model, n_data, db, batch, n, d, n_rows);
-  if (smem > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
+  long long lay[4];
+  avi::mf::launch_layout(model, n_data, db, batch, n, d, n_rows, lay);
+  const size_t smem = static_cast<size_t>(lay[1]);
+  if (smem > kSmemLimit || (lay[2] > 0 && ws == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   const bool def = avi::is_default(algo, entropy, grad_est, op);
+  const avi::Hyper h{lr, b1, b2, eps, avg_eta, clip_eps};
+  const avi::Branch br{algo, entropy, grad_est, op, cocob_alpha};
 #ifdef AVI_AD_BODY  // the dense instances only: the body runs alone
+  if (lay[0] != avi::mf::kDense) return static_cast<int>(cudaErrorInvalidValue);
   const auto kernel = kernel_for<avi::mf::kDense>(def);
 #else
   using avi::mf::kDensePlain;
   using avi::mf::kMinibatch;
-  const int group = avi::mf::model_group(model, n_data, db, batch, n, d, n_rows);
+  const int group = static_cast<int>(lay[0]);
+  if (group == avi::mf::kWide) {
+    cudaError_t err = cudaFuncSetAttribute(fused_advi_meanfield_wide_kernel,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    fused_advi_meanfield_wide_kernel<<<1, kThreads, smem, stream>>>(
+        model, c0, c1, n_data, db, batch, s0, s1, state_in, state_out, elbo_out, trace, noise,
+        n, d, n_rows, steps, log_every, seed0, seed1, it0, h, br, ws);
+    return static_cast<int>(cudaGetLastError());
+  }
   const auto kernel = group == kMinibatch    ? kernel_for<kMinibatch>(def)
                       : group == kDensePlain ? kernel_for<kDensePlain>(def)
                                              : kernel_for<avi::mf::kDense>(def);
@@ -189,8 +242,6 @@ extern "C" int fused_advi_meanfield(
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const avi::Hyper h{lr, b1, b2, eps, avg_eta, clip_eps};
-  const avi::Branch br{algo, entropy, grad_est, op, cocob_alpha};
   kernel<<<1, kThreads, smem, stream>>>(
       model, c0, c1, n_data, db, batch, s0, s1, state_in, state_out, elbo_out, trace, noise, n, d,
       n_rows, steps, log_every, seed0, seed1, it0, h, br);

@@ -4,7 +4,7 @@
 // Replaces ops/pallas/fused_chains.py::_run_chains_chunk (both pallas_calls,
 // plain :525 and traced grid :561) with its body _chains_kernel (:109-464):
 // per chain, the draw, the model's log density and gradient (logreg, the
-// diagonal Gaussian, the three minibatch transports), the STL / zero-gradient
+// dense and the diagonal Gaussian, the three minibatch transports), the STL / zero-gradient
 // entropies or VarGrad, Adam / descent / DoWG / DoG / COCOB, ClipScale / prox
 // / none, polynomial averaging and the per-chain ELBO and trace, with a
 // per-chain learning rate (lr sweeps) and a per-chain rule code (mixed
@@ -58,7 +58,11 @@
 // and runs the hand bodies only: a library built with K5's generated body
 // (AVI_AD_BODY) has its scratch and barriers placed for one chain and
 // keeps G = 1.  So does a design too large for the aligned layout (the
-// kDensePlain group): its G = 2 layout never fits one block.
+// kDensePlain group): its G = 2 layout never fits one block; and so does a
+// launch of the kWide group that needs the device workspace
+// (fused_chains_wide_kernel, each chain its own slice of it).  The dense
+// Gaussian, in the kWide group, runs G > 1 chains a block where their
+// layout fits, its P staged once for the block where it fits beside them.
 //
 // Layouts: state (C, n_rows, d), chain c's rows as the single-chain kernel's;
 // elbo (C,); trace (C, steps / log_every), chain-major, so each chain's ELBO
@@ -103,6 +107,34 @@ template <int kGroup>
 auto kernel_for(bool flagship_branch) {
   return flagship_branch ? fused_chains_kernel<false, kGroup> : fused_chains_kernel<true, kGroup>;
 }
+
+#ifndef AVI_AD_BODY
+// One chain a block of the kWide group (fused_meanfield_body.cuh
+// wide_layout): fused_advi_meanfield_wide_kernel's body keyed by chain c,
+// with chain c's slice of the device workspace, ws + c ws_floats.  Its own
+// kernel, so the instances above keep their signatures and their code.
+__global__ void __launch_bounds__(kThreads, 1) fused_chains_wide_kernel(
+    int model, const float* __restrict__ c0, const float* __restrict__ c1, int n_data,
+    int db, int batch, float s0, float s1, const float* __restrict__ state_in,
+    float* __restrict__ state_out, float* __restrict__ elbo_out, float* __restrict__ trace,
+    const float* __restrict__ noise, int n, int d, int n_rows, int steps, int log_every,
+    const uint32_t* __restrict__ seeds, unsigned long long it0, const float* __restrict__ lrs,
+    const int* __restrict__ rules, avi::Hyper h, avi::Branch br, float* __restrict__ ws,
+    long long ws_floats) {
+  const int c = blockIdx.x;
+  const size_t rows = static_cast<size_t>(n_rows) * d;
+  if (lrs != nullptr) h.lr = lrs[c];
+  if (rules != nullptr) br.algo = rules[c];
+  float* tr = nullptr;
+  if (trace != nullptr) tr = trace + static_cast<size_t>(c) * (steps / log_every);
+  const float* nz = nullptr;
+  if (noise != nullptr) nz = noise + static_cast<size_t>(c) * steps * n * d;
+  avi::mf::run_chunk<true, avi::mf::kWide>(
+      model, c0, c1, n_data, db, batch, s0, s1, state_in + c * rows, state_out + c * rows,
+      elbo_out + c, tr, nz, n, d, n_rows, steps, log_every, seeds[2 * c], seeds[2 * c + 1], it0,
+      h, br, ws == nullptr ? nullptr : ws + c * ws_floats);
+}
+#endif
 
 // ---------------------------------------------------------------------------
 // G chains a block
@@ -168,6 +200,15 @@ __host__ __device__ inline ChainsLayout chains_layout(int model, int n_data, int
   return L;
 }
 
+// Where a block of G chains of the dense Gaussian stages P (d, d): after
+// the layout's arrays, once for the block, where it fits beside them (-1:
+// the chains read it in device memory).
+__host__ __device__ inline int chains_p_offset(const ChainsLayout& L, int d) {
+  const int o = avi::round4(L.total);
+  return sizeof(float) * (static_cast<size_t>(o) + static_cast<size_t>(d) * d) <= kSmemLimit
+             ? o : -1;
+}
+
 // G chains of the single-chain body (run_chunk) in one block; see the design
 // note at the head of this file.  chain0: the block's first chain; G: chains
 // a block (the layout's); the last block may hold fewer (gc).
@@ -188,6 +229,9 @@ __global__ void __launch_bounds__(kThreads, 1) fused_chains_g_kernel(
   // no room for a second chain's logits, so the host never picks G > 1 there
   constexpr bool kAligned = true;
   const ChainsLayout L = chains_layout(model, n_data, db, batch, n, d, n_rows, kAligned, G);
+  // kWide runs the dense Gaussian here, its P staged where it fits
+  const int p_at = kGroup == avi::mf::kWide ? chains_p_offset(L, d) : -1;
+  const float* prec = p_at >= 0 ? smem + p_at : c1;
   const bool logreg = kGroup != kMinibatch && model == avi::kLogReg;
   const bool minibatch = kGroup == kMinibatch && avi::is_minibatch(model);
   const int chain0 = blockIdx.x * G;
@@ -238,6 +282,8 @@ __global__ void __launch_bounds__(kThreads, 1) fused_chains_g_kernel(
     seed_s[2 * c] = seeds[2 * (chain0 + c)];
     seed_s[2 * c + 1] = seeds[2 * (chain0 + c) + 1];
   }
+  if (kGroup == avi::mf::kWide && p_at >= 0)
+    for (int i = tid; i < d * d; i += kThreads) smem[p_at + i] = c1[i];
   __syncthreads();
 
   const bool vargrad = br.grad_est == avi::kScoreGrad;
@@ -338,6 +384,8 @@ __global__ void __launch_bounds__(kThreads, 1) fused_chains_g_kernel(
       __syncthreads();
       AVI_MF_PHASE(2);
       avi::logreg_mb_logpi(mbm, gn, beta_sq, tcol, inv_sig2, ylogit, logpi, warp, kWarps, lane);
+    } else if (kGroup == avi::mf::kWide) {  // the dense Gaussian, VarGrad ignores gs
+      avi::mvnormal_body<kThreads>(c0, prec, s0, zs, gn, d, logpi, gs, tid, warp, kWarps, lane);
     } else if (kGroup != kMinibatch) {
       avi::gaussian_body(c0, c1, s0, zs, gn, d, logpi, vargrad ? nullptr : gs, warp, kWarps,
                          lane);
@@ -538,17 +586,36 @@ auto g_kernel_for(bool flagship_branch) {
 }  // namespace
 
 // The dynamic shared memory of a block of G chains (chains_per_block): at
-// G = 1 the single-chain kernel's layout, else ChainsLayout's.
+// G = 1 the single-chain kernel's layout with every array in shared memory
+// (fused_advi_meanfield_smem_bytes), else ChainsLayout's (the dense
+// Gaussian's with P where it fits beside).
 extern "C" size_t fused_chains_smem_bytes(int model, int n_data, int db, int batch, int n,
                                           int d, int n_rows, int chains_per_block) {
   if (chains_per_block == 1)
     return sizeof(float) *
            static_cast<size_t>(make_layout(model, n_data, db, batch, n, d, n_rows).total);
-  const bool aligned =
-      avi::mf::model_group(model, n_data, db, batch, n, d, n_rows) != avi::mf::kDensePlain;
-  return sizeof(float) * static_cast<size_t>(chains_layout(model, n_data, db, batch, n, d,
-                                                           n_rows, aligned,
-                                                           chains_per_block).total);
+  const int group = avi::mf::model_group(model, n_data, db, batch, n, d, n_rows);
+  const bool aligned = group != avi::mf::kDensePlain && group != avi::mf::kWide;
+  const ChainsLayout L =
+      chains_layout(model, n_data, db, batch, n, d, n_rows, aligned, chains_per_block);
+  const int p_at = model == avi::kMvNormal ? chains_p_offset(L, d) : -1;
+  return sizeof(float) * static_cast<size_t>(p_at >= 0 ? p_at + d * d : L.total);
+}
+
+// What a launch at G chains a block takes: at G = 1 the single-chain
+// kernel's launch_layout (out[0] group, out[1] bytes of shared memory, out[2]
+// floats of device workspace a chain, out[3] the kWide tier), else its group,
+// fused_chains_smem_bytes, no workspace and tier -1 (kWide's G-chain blocks,
+// the dense Gaussian's, read P in device memory where it does not fit).
+extern "C" void fused_chains_layout(int model, int n_data, int db, int batch, int n, int d,
+                                    int n_rows, int chains_per_block, long long* out) {
+  avi::mf::launch_layout(model, n_data, db, batch, n, d, n_rows, out);
+  if (chains_per_block > 1) {
+    out[1] = static_cast<long long>(
+        fused_chains_smem_bytes(model, n_data, db, batch, n, d, n_rows, chains_per_block));
+    out[2] = 0;
+    out[3] = -1;
+  }
 }
 
 #ifdef AVI_PHASE_CLOCKS
@@ -579,11 +646,12 @@ extern "C" int fused_chains(
     const float* noise, int n_chains, int chains_per_block, int n, int d, int n_rows,
     int steps, int log_every, const uint32_t* seeds, unsigned long long it0, const float* lrs,
     const int* rules, float lr, float b1, float b2, float eps, float avg_eta, float clip_eps,
-    int algo, int entropy, int grad_est, int op, float cocob_alpha, cudaStream_t stream) {
+    int algo, int entropy, int grad_est, int op, float cocob_alpha, float* ws,
+    cudaStream_t stream) {
   const bool dist_rule = rules == nullptr && (algo == avi::kDoWG || algo == avi::kDoG);
   const bool mb = avi::is_minibatch(model);
   const int G = chains_per_block;
-  bool known = model == avi::kLogReg || model == avi::kGaussian || mb;
+  bool known = model == avi::kLogReg || model == avi::kMvNormal || model == avi::kGaussian || mb;
 #ifdef AVI_AD_BODY  // K5's body is generated for one (n, d), runs alone; its constants are shared
   known = model == avi::kAD && n == avi::ad::kN && d == avi::ad::kD && G == 1;
 #endif
@@ -595,20 +663,28 @@ extern "C" int fused_chains(
       (mb && (batch < 1 || batch % 8 != 0 || n_data % batch != 0 || n_data < batch ||
               reinterpret_cast<uintptr_t>(c0) % 16 != 0)))
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = fused_chains_smem_bytes(model, n_data, db, batch, n, d, n_rows, G);
-  if (smem > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
+  long long lay[4];
+  fused_chains_layout(model, n_data, db, batch, n, d, n_rows, G, lay);
+  const size_t smem = static_cast<size_t>(lay[1]);
+  if (smem > kSmemLimit || (lay[2] > 0 && ws == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   const bool def = rules == nullptr && avi::is_default(algo, entropy, grad_est, op);
   const avi::Hyper h{lr, b1, b2, eps, avg_eta, clip_eps};
   const avi::Branch br{algo, entropy, grad_est, op, cocob_alpha};
 #ifdef AVI_AD_BODY  // the dense instances only: the body runs alone
+  if (lay[0] != avi::mf::kDense) return static_cast<int>(cudaErrorInvalidValue);
   const auto kernel = kernel_for<avi::mf::kDense>(def);
 #else
   using avi::mf::kDensePlain;
   using avi::mf::kMinibatch;
-  const int group = avi::mf::model_group(model, n_data, db, batch, n, d, n_rows);
+  using avi::mf::kWide;
+  const int group = static_cast<int>(lay[0]);
   if (G > 1) {
-    if (group == kDensePlain) return static_cast<int>(cudaErrorInvalidValue);
+    // kWide's G-chain blocks run the dense Gaussian alone, with no workspace
+    if (group == kDensePlain || (group == kWide && model != avi::kMvNormal))
+      return static_cast<int>(cudaErrorInvalidValue);
     const auto gk = group == kMinibatch ? g_kernel_for<kMinibatch>(def)
+                    : group == kWide    ? fused_chains_g_kernel<true, kWide>
                                         : g_kernel_for<avi::mf::kDense>(def);
     cudaError_t err = cudaFuncSetAttribute(gk, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            static_cast<int>(smem));
@@ -616,6 +692,16 @@ extern "C" int fused_chains(
     gk<<<(n_chains + G - 1) / G, kThreads, smem, stream>>>(
         model, c0, c1, n_data, db, batch, s0, s1, state_in, state_out, elbo_out, trace, noise,
         n_chains, G, n, d, n_rows, steps, log_every, seeds, it0, lrs, rules, h, br);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (group == kWide) {
+    cudaError_t err = cudaFuncSetAttribute(fused_chains_wide_kernel,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    fused_chains_wide_kernel<<<n_chains, kThreads, smem, stream>>>(
+        model, c0, c1, n_data, db, batch, s0, s1, state_in, state_out, elbo_out, trace, noise, n,
+        d, n_rows, steps, log_every, seeds, it0, lrs, rules, h, br, ws, lay[2]);
     return static_cast<int>(cudaGetLastError());
   }
   const auto kernel = group == kMinibatch    ? kernel_for<kMinibatch>(def)

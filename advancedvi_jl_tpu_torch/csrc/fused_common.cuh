@@ -14,7 +14,9 @@
 // _logreg_mb_hbm_step_factory :997, _logreg_mb_hbm_db_step_factory :1029),
 // the diagonal-Gaussian body _gaussian_step_factory, the rules
 // _adam_candidate, _dowg_step, _dog_step and _cocob_update (fused_advi.py:
-// 242-281).  The bodies work on one block's shared-memory arrays: samples
+// 242-281), and, in the mean-field and chains kernels, the dense-Gaussian
+// body _mvnormal_step_factory (mvnormal_body; the full-rank kernel has its
+// own).  The bodies work on one block's shared-memory arrays: samples
 // z (n, d) (for logreg d = db + 1, beta in lanes 0..db-1, t = log sigma in
 // lane db), and fill per-row log pi and grad log pi (n, d).  Each phase is a
 // loop over the block's threads; the caller puts a __syncthreads() between
@@ -190,6 +192,35 @@ __device__ __forceinline__ void gaussian_body(const float* __restrict__ mean,
     }
     q = warp_sum(q);
     if (lane == 0) logpi[i] = -0.5f * q + lognorm;
+  }
+}
+
+// K4's dense-Gaussian body (_mvnormal_step_factory) in the mean-field and
+// chains kernels: diff = z - m in place of the samples z (no later phase of
+// those kernels reads z on this model), grad = -diff P by block_mm (10 rows
+// x 1 column a thread, k over 8 lanes: the logreg gradient's tile; P is
+// (d, d) row-major, in shared memory where the host
+// staged it, else in device memory; no float4 loads, so z and P need no
+// alignment), then one warp a row: log pi = sum_j diff grad / 2 + lognorm.
+// z and g may lie in shared or device memory.  Every thread of the block
+// calls it; two barriers inside, the caller puts one after.  What bounds it
+// on an H100: the product's n d^2 multiply-adds from shared memory (d = 62)
+// or P's d^2 floats from L2 each step (d = 512: 1 MB, L2-resident).
+template <int kThreads>
+__device__ __forceinline__ void mvnormal_body(const float* __restrict__ mean, const float* P,
+                                              float lognorm, float* z, int n, int d,
+                                              float* logpi, float* g, int tid, int warp,
+                                              int warps, int lane) {
+  for (int idx = tid; idx < n * d; idx += kThreads) z[idx] = __fsub_rn(z[idx], mean[idx % d]);
+  __syncthreads();
+  block_mm<kThreads, 10, 1, 8, false, false>(
+      n, d, d, z, d, 1, P, d, 1, tid, [=](int i, int j, float v) { g[i * d + j] = -v; });
+  __syncthreads();
+  for (int i = warp; i < n; i += warps) {
+    float q = 0.0f;
+    for (int j = lane; j < d; j += 32) q += z[i * d + j] * g[i * d + j];
+    q = warp_sum(q);
+    if (lane == 0) logpi[i] = 0.5f * q + lognorm;
   }
 }
 

@@ -10,6 +10,10 @@
 // hands the body its block's pointers and constants; the body is a
 // forced-inline device function, so the single-chain kernel compiles to
 // what it was before the body moved here.
+// A launch of the kWide group (wide_layout below) keeps only the state
+// rows, the row sums and the block reduction in shared memory where the
+// rest does not fit, and reads the others through `ws`, its block's device
+// workspace.
 // Built with AVI_AD_BODY, the model phase also takes K5's generated body
 // (model kAD, c0 and c1 its packed float and int constants in device memory,
 // its scratch after the layout's other arrays, then its float constants
@@ -119,25 +123,112 @@ __host__ __device__ inline Layout layout_for(int model, int n_data, int db, int 
 // models (logreg with the aligned layout, the diagonal Gaussian), logreg
 // with the plain layout (no zb, no padding: a design whose aligned layout
 // would not fit one block, as every design that fitted before block_mm
-// still fits), or the minibatch logreg's three transports.  Each instance
-// compiles its group's bodies alone, so ptxas allocates its registers for
-// them alone; a library built with a generated body runs that body alone
-// (its C entry takes no other model).
-enum ModelGroup { kDense = 0, kMinibatch = 1, kDensePlain = 2 };
+// still fits), the minibatch logreg's three transports, or kWide: the dense
+// Gaussian (mvnormal), and every dense model whose plain layout does not fit
+// one block, on wide_layout.  Each instance compiles its group's bodies
+// alone, so ptxas allocates its registers for them alone; a library built
+// with a generated body runs that body alone (its C entry takes no other
+// model).
+enum ModelGroup { kDense = 0, kMinibatch = 1, kDensePlain = 2, kWide = 3 };
+
+// The layout of a kWide launch.  The state rows, the step's gradient, the
+// row sums and the block reduction stay in shared memory (layout_for's);
+// what does not fit beside them leaves shared memory in this order, the
+// tier: 0 nothing (mvnormal only: P staged in shared memory); 1 the model's
+// data, read where it lies in device memory (logreg's X and y, mvnormal's
+// P; the Gaussian's constants are always read there); 2 also the logits,
+// into the launch's device workspace; 3 also u, z and g.  Logreg takes the
+// plain layout's strides (ldl = n_data, no zb), so every sum runs in the
+// kDensePlain order.  L.l, L.u, L.z and L.g are offsets into shared memory
+// or, from their tier on, into the block's workspace of `ws` floats; P is
+// the staged precision's offset (tier 0).
+struct WideLayout {
+  Layout L;
+  int tier, P, smem, ws;  // smem, ws: floats of shared memory and of workspace
+};
+
+__host__ __device__ inline WideLayout wide_layout_at(int model, int n_data, int n, int d,
+                                                     int n_rows, int tier) {
+  WideLayout W;
+  Layout& L = W.L;
+  int o = 0, w = 0;
+  const bool lr = model == avi::kLogReg;
+  L.X = L.y = L.zb = L.ldz = 0;
+  L.ldl = lr ? n_data : 0;
+  int& ol = tier >= 2 ? w : o;
+  L.l = ol;   ol += lr ? n * n_data : 0;
+  int& od = tier >= 3 ? w : o;
+  L.u = od;   od += n * d;
+  L.z = od;   od += n * d;
+  L.g = od;   od += n * d;
+  L.st = o;   o += n_rows * d;
+  L.grad = o; o += 2 * d;
+  L.row = o;  o += 7 * n + 1;
+  L.red = o;  o += 2 * kWarps + 1;
+  W.P = -1;
+  if (tier == 0) {
+    o = avi::round4(o);
+    W.P = o;
+    o += d * d;
+  }
+  L.total = o;
+  W.tier = tier;
+  W.smem = o;
+  W.ws = w;
+  return W;
+}
+
+// The least tier whose shared part fits one block (tier 3 if none does: the
+// host refuses that launch).
+__host__ __device__ inline WideLayout wide_layout(int model, int n_data, int n, int d,
+                                                  int n_rows) {
+  WideLayout W;
+  for (int tier = model == avi::kMvNormal ? 0 : 1; tier <= 3; ++tier) {
+    W = wide_layout_at(model, n_data, n, d, n_rows, tier);
+    if (sizeof(float) * static_cast<size_t>(W.smem) <= kSmemLimit) break;
+  }
+  return W;
+}
 
 __host__ __device__ inline int model_group(int model, int n_data, int db, int batch, int n,
                                            int d, int n_rows) {
   if (avi::is_minibatch(model)) return kMinibatch;
+  if (model == avi::kMvNormal) return kWide;
   const Layout L = layout_for(model, n_data, db, batch, n, d, n_rows, true);
-  return sizeof(float) * static_cast<size_t>(L.total) <= kSmemLimit ? kDense : kDensePlain;
+  if (sizeof(float) * static_cast<size_t>(L.total) <= kSmemLimit) return kDense;
+  const Layout P = layout_for(model, n_data, db, batch, n, d, n_rows, false);
+  return sizeof(float) * static_cast<size_t>(P.total) <= kSmemLimit ? kDensePlain : kWide;
 }
 
-// The layout of a launch: the aligned one where it fits one block's shared
-// memory, else the plain one.
+// The layout of a launch with every array in shared memory: the aligned one
+// where it fits one block, else the plain one (its size beyond the limit
+// sends the launch to kWide).
 __host__ __device__ inline Layout make_layout(int model, int n_data, int db, int batch,
                                               int n, int d, int n_rows) {
-  const bool aligned = model_group(model, n_data, db, batch, n, d, n_rows) != kDensePlain;
+  const int group = model_group(model, n_data, db, batch, n, d, n_rows);
+  const bool aligned = group != kDensePlain && group != kWide;
   return layout_for(model, n_data, db, batch, n, d, n_rows, aligned);
+}
+
+// What a launch takes (the C entries' layout queries): out[0] its group,
+// out[1] the bytes of dynamic shared memory, out[2] the floats of device
+// workspace one block needs (0 but for kWide at tier 2 or 3), out[3]
+// kWide's tier (-1 in the other groups).
+__host__ __device__ inline void launch_layout(int model, int n_data, int db, int batch, int n,
+                                              int d, int n_rows, long long* out) {
+  const int group = model_group(model, n_data, db, batch, n, d, n_rows);
+  out[0] = group;
+  if (group == kWide) {
+    const WideLayout W = wide_layout(model, n_data, n, d, n_rows);
+    out[1] = static_cast<long long>(sizeof(float)) * W.smem;
+    out[2] = W.ws;
+    out[3] = W.tier;
+  } else {
+    out[1] = static_cast<long long>(sizeof(float)) *
+             make_layout(model, n_data, db, batch, n, d, n_rows).total;
+    out[2] = 0;
+    out[3] = -1;
+  }
 }
 
 template <bool kGeneral, int kGroup>
@@ -146,20 +237,29 @@ __device__ __forceinline__ void run_chunk(
     int db, int batch, float s0, float s1, const float* __restrict__ state_in,
     float* __restrict__ state_out, float* __restrict__ elbo_out, float* __restrict__ trace,
     const float* __restrict__ noise, int n, int d, int n_rows, int steps, int log_every,
-    uint32_t k0, uint32_t k1, unsigned long long it0, avi::Hyper h, avi::Branch br) {
+    uint32_t k0, uint32_t k1, unsigned long long it0, avi::Hyper h, avi::Branch br,
+    float* __restrict__ ws = nullptr) {
   if (!kGeneral) br = avi::kDefaultBranch;  // every switch below is then constant
 #ifdef AVI_AD_BODY
   model = avi::kAD;  // every other model's code drops out of this library
 #endif
   extern __shared__ float smem[];
-  constexpr bool kAligned = kGroup != kDensePlain;  // the host picked the group by its fit
-  const Layout L = layout_for<kGroup == kMinibatch>(model, n_data, db, batch, n, d, n_rows,
-                                                   kAligned);
+  // the host picked the group by its fit; kWide takes the plain strides
+  constexpr bool kAligned = kGroup != kDensePlain && kGroup != kWide;
+  const WideLayout W = kGroup == kWide ? wide_layout(model, n_data, n, d, n_rows) : WideLayout();
+  const Layout L = kGroup == kWide ? W.L
+                                   : layout_for<kGroup == kMinibatch>(model, n_data, db, batch,
+                                                                      n, d, n_rows, kAligned);
   const bool logreg = kGroup != kMinibatch && model == avi::kLogReg;
   const bool minibatch = kGroup == kMinibatch && avi::is_minibatch(model);
-  float* us = smem + L.u;
-  float* zs = smem + L.z;
-  float* gs = smem + L.g;
+  // kWide: the model's data in device memory from tier 1, the logits in the
+  // workspace from tier 2, u, z and g from tier 3
+  const bool data_dev = kGroup == kWide && W.tier >= 1;
+  float* const lbase = kGroup == kWide && W.tier >= 2 ? ws : smem;
+  float* const dbase = kGroup == kWide && W.tier >= 3 ? ws : smem;
+  float* us = dbase + L.u;
+  float* zs = dbase + L.z;
+  float* gs = dbase + L.g;
   float* st = smem + L.st;
   float* mu = st;
   float* sig = st + d;
@@ -182,20 +282,23 @@ __device__ __forceinline__ void run_chunk(
   float* logdet = ylogit + n;
   float* red = smem + L.red;
   float* eta_s = red + 2 * kWarps;
-  const avi::LogReg lrm{smem + L.X, smem + L.y, smem + L.l, smem + L.zb, n_data, db,
-                        L.ldl, L.ldz, s0, s1};
+  const avi::LogReg lrm{data_dev ? c0 : smem + L.X, data_dev ? c1 : smem + L.y, lbase + L.l,
+                        smem + L.zb, n_data, db, L.ldl, L.ldz, s0, s1};
   float* zb = smem + L.zb;
   const int ldz = L.ldz;
   avi::LogRegMB mbm{nullptr, smem + L.y, smem + L.l, zb, batch, db, ldz, s0, s1};
   const int nb = minibatch ? n_data / batch : 1;
+  const float* prec = data_dev ? c1 : smem + W.P;  // mvnormal's P (kWide only)
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  if (logreg) {
+  if (logreg && !data_dev) {
     for (int i = tid; i < n_data * db; i += kThreads) smem[L.X + i] = c0[i];
     for (int i = tid; i < n_data; i += kThreads) smem[L.y + i] = c1[i];
   }
+  if (kGroup == kWide && model == avi::kMvNormal && !data_dev)
+    for (int i = tid; i < d * d; i += kThreads) smem[W.P + i] = c1[i];
   for (int i = tid; i < n_rows * d; i += kThreads) st[i] = state_in[i];
 #ifdef AVI_AD_BODY
   if (model == avi::kAD) avi::ad::ad_stage(c0, smem + L.adc, tid);
@@ -302,6 +405,8 @@ __device__ __forceinline__ void run_chunk(
       }
 #endif
 #endif
+    } else if (kGroup == kWide && model == avi::kMvNormal) {  // VarGrad ignores gs
+      avi::mvnormal_body<kThreads>(c0, prec, s0, zs, n, d, logpi, gs, tid, warp, kWarps, lane);
     } else if (kGroup != kMinibatch) {
       avi::gaussian_body(c0, c1, s0, zs, n, d, logpi, vargrad ? nullptr : gs, warp, kWarps,
                          lane);

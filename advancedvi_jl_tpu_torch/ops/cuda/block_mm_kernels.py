@@ -77,6 +77,32 @@ def block_mm_cuda(A: torch.Tensor, B: torch.Tensor, config: int = 0,
 block_mm_cuda.launches = 0
 
 
+def mvnormal_product_cuda(A: torch.Tensor, P: torch.Tensor) -> torch.Tensor:
+    """A (M, d) @ P (d, d) by the dense-Gaussian body's product
+    (fused_common.cuh ``mvnormal_body``, csrc/block_mm.cu
+    ``block_mm_mvnormal``): P staged in shared memory where it fits beside
+    A, else read in device memory.  Adds one to
+    ``mvnormal_product_cuda.launches``."""
+    if not (A.is_cuda and P.is_cuda):
+        raise ValueError(f"mvnormal_product_cuda needs CUDA tensors, got {A.device} and "
+                         f"{P.device}")
+    M, d = A.shape
+    if tuple(P.shape) != (d, d) or A.dtype != torch.float32 or P.dtype != torch.float32:
+        raise ValueError(f"expected float32 (M, d) and (d, d), got {tuple(A.shape)} and "
+                         f"{tuple(P.shape)}")
+    A, P = A.contiguous(), P.contiguous()
+    C = torch.empty(M, d, dtype=torch.float32, device=A.device)
+    fn = _build.function("block_mm", "block_mm_mvnormal", [ctypes.c_void_p] * 3
+                         + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+    err = _build.launch(fn, A.device, A.data_ptr(), P.data_ptr(), C.data_ptr(), M, d)
+    _build.check(err, "block_mm_mvnormal launch")
+    mvnormal_product_cuda.launches += 1
+    return C
+
+
+mvnormal_product_cuda.launches = 0
+
+
 def block_mm(A: torch.Tensor, B: torch.Tensor, config: int = 0, trans_b: bool = False):
     """The kernel for CUDA tensors, its plain version for CPU tensors."""
     if A.is_cuda:

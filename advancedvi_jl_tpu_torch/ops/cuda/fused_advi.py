@@ -13,13 +13,13 @@ algorithm constructors in one kernel,
 each with polynomial averaging, for two families:
 
 - mean-field, on hierarchical logistic regression, on its doubly-stochastic
-  minibatch version (``logreg_minibatch_spec``, ``logreg_minibatch_hbm_spec``)
-  or a diagonal Gaussian (``gaussian_spec``, ``normallognormal_spec``)
+  minibatch version (``logreg_minibatch_spec``, ``logreg_minibatch_hbm_spec``),
+  a dense Gaussian (``mvnormal_spec``) or a diagonal Gaussian
+  (``gaussian_spec``, ``normallognormal_spec``), d <= D_PAD_MAX
   (csrc/fused_advi_meanfield.cu, plain version ``fused_run_chunk_reference``);
-- full-rank, on the same logistic regressions, a dense Gaussian
-  (``mvnormal_spec``) or a diagonal Gaussian, d <= D_FULLRANK_MAX
-  (csrc/fused_advi_fullrank.cu, plain version
-  ``fused_fullrank_run_chunk_reference``);
+- full-rank, on the same logistic regressions, a dense Gaussian or a
+  diagonal Gaussian, d <= D_FULLRANK_MAX (csrc/fused_advi_fullrank.cu, plain
+  version ``fused_fullrank_run_chunk_reference``);
 
 and, in both families, on ANY target whose log density is a traceable
 function of torch ops (``ad_spec``, ``fused_spec_for``,
@@ -27,6 +27,14 @@ function of torch ops (``ad_spec``, ``fused_spec_for``,
 from the target's autograd graph at the engine's (n_samples, d) and built
 into the kernels at first use (ops/cuda/ad_body.py); its plain version
 replays the graph.
+
+The mean-field kernel keeps a launch in one block's shared memory where it
+fits; a dense model that does not fit (a wide design, a wide d or many
+samples) and the dense Gaussian run its kWide layout instead
+(csrc/fused_meanfield_body.cuh ``wide_layout``): the state rows and the row
+sums stay in shared memory, and the model's data, then the logits, then the
+draws, samples and gradients move to device memory, the last two into a
+workspace the wrapper allocates (``fused_layout``).
 
 The branch is chosen by the engine's attributes ``algo``, ``entropy``,
 ``grad_est`` and ``operator`` (JAX's string values) and passed to the kernel
@@ -124,6 +132,9 @@ MODEL_CODES = {LOGREG: 0, MVNORMAL: 1, GAUSSIAN: 2, LOGREG_MB: 3, LOGREG_MB_STAG
 # The JAX engine's bound on the full-rank width (its reason was TPU VMEM);
 # the port keeps it until an H100 measurement says otherwise.
 D_FULLRANK_MAX = 512
+# The JAX engines' bound on d (every fused engine): one block keeps the
+# state rows, 16 d floats with COCOB's, in shared memory (128 KB at 2,048)
+D_PAD_MAX = 2048
 _L2PI = math.log(2.0 * math.pi)
 
 # The kernels' branch switches, with the JAX engine's string values
@@ -163,16 +174,20 @@ GROUP_GAUSSIAN = "k4_gaussian"
 GROUP_MB = {LOGREG_MB: "k4_minibatch_inplace", LOGREG_MB_STAGED: "k4_minibatch_staged",
             LOGREG_MB_PREFETCH: "k4_minibatch_prefetch"}
 GROUP_AD = "k5_ad"
+# the mean-field and chains kernels only: the dense-Gaussian body, and the
+# kWide layout with an array in device memory (its tier >= 1)
+GROUP_MVNORMAL = "k4_mvnormal"
+GROUP_DEVICE_LAYOUT = "k1_device_layout"
 LAUNCH_GROUPS = ((GROUP_RULES, GROUP_VARGRAD, GROUP_GAUSSIAN) + tuple(GROUP_MB.values())
-                 + (GROUP_AD,))
+                 + (GROUP_AD, GROUP_MVNORMAL, GROUP_DEVICE_LAYOUT))
 
 
 @dataclass(frozen=True)
 class FusedModelSpec:
     """A target the fused engine inlines.  Model kinds: ``"logreg"``, with
     ``consts = (X (n_data, db), y (n_data,))`` float32, ``scalars =
-    (likeadj, prior_scale)`` and ``dim = db + 1``; ``"mvnormal"``
-    (full-rank engine only), with ``consts = (mean (d,), precision (d, d))``
+    (likeadj, prior_scale)`` and ``dim = db + 1``; ``"mvnormal"``,
+    with ``consts = (mean (d,), precision (d, d))``
     and ``scalars = (lognorm,)``; ``"gaussian"``, with ``consts = (mean
     (d,), inverse variance (d,))`` and ``scalars = (lognorm,)``; the three
     MINIBATCH_MODELS, with ``consts = (X_perm (nb * B, db), yX (nb, db))``,
@@ -298,8 +313,8 @@ def fused_spec_for(target) -> FusedModelSpec:
     """The fused spec of a target (JAX :1610-1650): a hand-derived spec
     where one exists (faster), otherwise ``ad_spec``.
 
-    Hand specs: models.normal.NormalTarget (``mvnormal_spec``, full-rank
-    engine), and a ``TransformedTarget`` over models.logreg.LogReg or
+    Hand specs: models.normal.NormalTarget (``mvnormal_spec``, both
+    families), and a ``TransformedTarget`` over models.logreg.LogReg or
     models.normallognormal.NormalLogNormal under the model's own
     ``unconstrained()`` transform.  A TransformedTarget under any other
     transform goes to ``ad_spec`` (the hand gradients hard-code the Exp
@@ -857,7 +872,8 @@ _ARGS_TAIL = (
     + [ctypes.c_int] * 4 + [ctypes.c_float]
     + [ctypes.c_void_p]
 )
-_MEANFIELD_ARGTYPES = _ARGS_HEAD + [ctypes.c_void_p] * 5 + _ARGS_TAIL
+_MEANFIELD_ARGTYPES = _ARGS_HEAD + [ctypes.c_void_p] * 5 + _ARGS_TAIL[:-1] \
+    + [ctypes.c_void_p] * 2  # the workspace, the stream
 _FULLRANK_ARGTYPES = _ARGS_HEAD + [ctypes.c_void_p] * 8 + _ARGS_TAIL
 # the fused kernels' builds with per-phase cycle counters (phase_cycles,
 # meanfield_phase_cycles)
@@ -868,7 +884,7 @@ PHASES = ("draws", "z", "model", "whitening", "rule")
 MF_PHASES = ("draws_z", "row_sums", "logits", "logpi", "grad", "rule", "elbo_wait")
 
 
-def _model_args(model: str, consts, scalars, d: int, dev, full_rank: bool, n: int = 0,
+def _model_args(model: str, consts, scalars, d: int, dev, n: int = 0,
                 ad: Optional[ADProgram] = None):
     """(c0, c1, n_data, db, batch, s0, s1) of a model, its shapes checked."""
     c0, c1 = consts
@@ -900,7 +916,7 @@ def _model_args(model: str, consts, scalars, d: int, dev, full_rank: bool, n: in
                     f"of 8, 16-byte aligned) and yX of nb rows, got {n_data} and {nb}"
                 )
         return c0, c1, n_data, db, batch, float(scalars[0]), float(scalars[1])
-    if model == MVNORMAL and full_rank:
+    if model == MVNORMAL:
         check_f32("mean", c0, (d,), dev)
         check_f32("precision", c1, (d, d), dev)
     elif model == GAUSSIAN:
@@ -909,6 +925,51 @@ def _model_args(model: str, consts, scalars, d: int, dev, full_rank: bool, n: in
     else:
         raise ValueError(f"no fused model {model!r} for this family")
     return c0, c1, 0, 0, 0, float(scalars[0]), 0.0
+
+
+# the mean-field kernels' model group of the dense Gaussian and the
+# device-memory layout (csrc/fused_meanfield_body.cuh ModelGroup kWide)
+KWIDE = 3
+
+
+def fused_layout(lib: str, body: Optional[str] = None, defines=()):
+    """``(code, n_data, db, batch, n, d, n_rows[, G]) -> (group, shared
+    bytes, workspace floats a block, tier)`` of a launch of the mean-field
+    (``lib`` "fused_advi_meanfield") or chains ("fused_chains", with G, the
+    chains a block) kernel: the C side's ``launch_layout``
+    (csrc/fused_meanfield_body.cuh).  The tier is -1 outside KWIDE."""
+    entry = "fused_chains_layout" if lib == "fused_chains" else "fused_advi_meanfield_layout"
+    ints = 8 if lib == "fused_chains" else 7
+    fn = _build.function(lib, entry, [ctypes.c_int] * ints + [ctypes.c_void_p],
+                         restype=None, body=body, defines=defines)
+
+    def query(*args):
+        out = (ctypes.c_longlong * 4)()
+        fn(*args, ctypes.addressof(out))
+        return tuple(int(v) for v in out)
+
+    return query
+
+
+def workspace(floats: int, dev, what: str) -> Optional[torch.Tensor]:
+    """The device workspace of a KWIDE launch (None when it needs none),
+    allocated on ``dev`` for this launch and returned to the caching
+    allocator after it (a later chunk reuses it).  A workspace the card
+    cannot hold raises, naming its bytes."""
+    if floats <= 0:
+        return None
+    try:
+        return torch.empty(floats, dtype=torch.float32, device=dev)
+    except torch.cuda.OutOfMemoryError as e:
+        raise RuntimeError(f"{what}: its device workspace of {4 * floats} bytes does not fit "
+                           f"the card's memory") from e
+
+
+def layout_groups(model: str, tier: int) -> Tuple[str, ...]:
+    """The LAUNCH_GROUPS a mean-field or chains launch adds by its model and
+    layout: GROUP_MVNORMAL, and GROUP_DEVICE_LAYOUT from tier 1."""
+    return (((GROUP_MVNORMAL,) if model == MVNORMAL else ())
+            + ((GROUP_DEVICE_LAYOUT,) if tier >= 1 else ()))
 
 
 def _check_branch_shape(branch: FusedBranch, d: int) -> Tuple[int, int, int, int]:
@@ -948,24 +1009,22 @@ def fused_run_chunk_cuda(
         raise ValueError(f"VarGrad needs n_samples >= 2, got {n}")
     n_rows = 8 + branch.ext_rows
     check_f32("state", state, (n_rows, d), dev)
-    c0, c1, n_data, db, batch, s0, s1 = _model_args(model, consts, scalars, d, dev, False, n,
-                                                    ad)
+    c0, c1, n_data, db, batch, s0, s1 = _model_args(model, consts, scalars, d, dev, n, ad)
     if noise is not None:
         check_f32("noise", noise, (steps, n, d), dev)
     code = MODEL_CODES[model]
     body = ad.source if model == AD else None
     defines = PHASE_CLOCKS if instrumented else ()
-    smem = _build.function(
-        "fused_advi_meanfield", "fused_advi_meanfield_smem_bytes",
-        [ctypes.c_int] * 7, restype=ctypes.c_size_t, body=body, defines=defines,
-    )(code, n_data, db, batch, n, d, n_rows)
+    group, smem, ws_floats, tier = fused_layout("fused_advi_meanfield", body, defines)(
+        code, n_data, db, batch, n, d, n_rows)
     if smem > _build.SMEM_LIMIT:
         raise ValueError(
-            f"the fused kernel keeps the model's data (a minibatch model: one "
-            f"staged slab), the draws and the state in shared memory: {smem} "
+            f"the fused kernel keeps the state rows, the row sums (a minibatch model: "
+            f"one staged slab) and what fits of the rest in shared memory: {smem} "
             f"bytes for n_data={n_data}, batch={batch}, d={d}, n={n}, {n_rows} "
             f"state rows is over the {_build.SMEM_LIMIT}-byte limit of one block"
         )
+    ws = workspace(ws_floats, dev, "fused_advi_meanfield")
     fn = _build.function("fused_advi_meanfield", "fused_advi_meanfield", _MEANFIELD_ARGTYPES,
                          body=body, defines=defines)
     out = torch.empty((n_rows, d), dtype=torch.float32, device=dev)
@@ -983,10 +1042,12 @@ def fused_run_chunk_cuda(
             noise.data_ptr() if noise is not None else None,
             n, d, steps, log_every, seed[0], seed[1], it0,
             hyp.lr, hyp.b1, hyp.b2, hyp.eps, hyp.avg_eta, hyp.clip_eps,
-            *codes, branch.cocob_alpha, stream,
+            *codes, branch.cocob_alpha, ws.data_ptr() if ws is not None else None, stream,
         )
-    _build.check(err, "fused_advi_meanfield launch")
+    _build.check(err, f"fused_advi_meanfield launch (group {group}, tier {tier})")
     _count(fused_run_chunk_cuda, model, branch)
+    for g in layout_groups(model, tier):
+        fused_run_chunk_cuda.group_launches[g] += 1
     return out, elbo, trace
 
 
@@ -1161,7 +1222,7 @@ def fused_fullrank_run_chunk_cuda(
     k = 4 + branch.ext_rows // 2
     check_f32("vec", vec, (k, d), dev)
     check_f32("mat", mat, (k, d, d), dev)
-    c0, c1, n_data, db, batch, s0, s1 = _model_args(model, consts, scalars, d, dev, True, n, ad)
+    c0, c1, n_data, db, batch, s0, s1 = _model_args(model, consts, scalars, d, dev, n, ad)
     if noise is not None:
         check_f32("noise", noise, (steps, n, d), dev)
     code = MODEL_CODES[model]
@@ -1367,10 +1428,10 @@ def ad_program(spec: FusedModelSpec, n_samples: int, family: str = MEANFIELD,
 class FusedADVI:
     """Whole-loop fused engine on a ``FusedModelSpec`` target, one kernel
     launch per ``steps`` chunk; the engine runs where the model's tensors
-    lie.  Mean-field takes the logreg and Gaussian models; full-rank takes
-    logreg, mvnormal and Gaussian at d <= D_FULLRANK_MAX; both take "ad"
-    specs (K5, traced and emitted at ``n_samples`` when the engine is
-    built).
+    lie.  Both families take every model (logreg, its minibatch versions,
+    mvnormal, Gaussian, and "ad" specs: K5, traced and emitted at
+    ``n_samples`` when the engine is built), mean-field at d <= D_PAD_MAX,
+    full-rank at d <= D_FULLRANK_MAX.
 
     By default it reproduces ADVI + STL + Adam + ClipScale + polynomial
     averaging.  The branch is the plain attributes ``algo``, ``entropy``,
@@ -1399,14 +1460,11 @@ class FusedADVI:
             raise ValueError(
                 f"family must be '{MEANFIELD}' or '{FULLRANK}', got {family!r}"
             )
-        ported = (LOGREG, GAUSSIAN) if family == MEANFIELD else (LOGREG, MVNORMAL, GAUSSIAN)
-        ported += MINIBATCH_MODELS + (AD,)
-        if model.model not in ported:
-            raise NotImplementedError(
-                f"fused model {model.model!r} is not ported for the {family} "
-                f"engine; it has {ported} (mvnormal is full-rank only, as in "
-                "the JAX engine)"
-            )
+        known = (LOGREG, MVNORMAL, GAUSSIAN) + MINIBATCH_MODELS + (AD,)
+        if model.model not in known:
+            raise ValueError(f"unknown fused model {model.model!r}; known: {known}")
+        if model.dim > D_PAD_MAX:
+            raise ValueError(f"fused engine supports dim <= {D_PAD_MAX}, got {model.dim}")
         if family == FULLRANK and model.dim > D_FULLRANK_MAX:
             raise ValueError(
                 f"the full-rank fused engine supports dim <= {D_FULLRANK_MAX}, "

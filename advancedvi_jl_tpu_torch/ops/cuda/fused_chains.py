@@ -53,6 +53,7 @@ from .fused_advi import (
     ALGO_DOG,
     ALGO_DOWG,
     AD,
+    D_PAD_MAX,
     DEFAULT_BRANCH,
     ENT_CF_ZERO,
     ENT_STL,
@@ -67,6 +68,7 @@ from .fused_advi import (
     MEANFIELD,
     MINIBATCH_MODELS,
     MODEL_CODES,
+    MVNORMAL,
     OP_CLIP,
     OP_NONE,
     OP_PROX,
@@ -84,6 +86,9 @@ from .fused_advi import (
     PHASE_CLOCKS,
     MF_PHASES,
     _trace_out,
+    fused_layout,
+    layout_groups,
+    workspace,
 )
 from .location_scale_kernels import (
     SeedLike,
@@ -99,7 +104,7 @@ _L2PI = math.log(2.0 * math.pi)
 # 0.0 .. 4.0 are the kernel's rule codes).
 RULE_CODES = dict(ALGO_CODES)
 MIXED = "mixed"  # the engine's ``algo`` once a per-chain rule list validated
-PORTED_MODELS = (LOGREG, GAUSSIAN) + MINIBATCH_MODELS + (AD,)
+PORTED_MODELS = (LOGREG, MVNORMAL, GAUSSIAN) + MINIBATCH_MODELS + (AD,)
 
 
 @dataclass(frozen=True)
@@ -304,7 +309,7 @@ _CHAINS_ARGTYPES = (
     + [ctypes.c_void_p, ctypes.c_uint64, ctypes.c_void_p, ctypes.c_void_p]
     + [ctypes.c_float] * 6
     + [ctypes.c_int] * 4 + [ctypes.c_float]
-    + [ctypes.c_void_p]
+    + [ctypes.c_void_p] * 2  # the workspace, the stream
 )
 
 
@@ -316,7 +321,7 @@ BLOCK_THREADS = 512
 
 
 def chains_per_block(model: str, n_chains: int, sms: int, d: int,
-                     block_bytes: Callable[[int], int]) -> int:
+                     block_bytes: Callable[[int], int], device_layout: bool = False) -> int:
     """G, the chains a block of one K6 launch: 1 while ``n_chains <= sms``
     (the single-chain body, one chain an SM), else the chains spread evenly
     over the fewest waves of ``sms`` blocks that G_max allows: W =
@@ -326,9 +331,10 @@ def chains_per_block(model: str, n_chains: int, sms: int, d: int,
     block.  While C <= SMs G_max that is min(G_max, ceil(C / SMs)); above,
     the fewest chains a block that keep the waves at W (a block of G chains
     takes longer than one of G - 1, so a G that fills no fewer waves is
-    slower).  1 for model "ad" (K5's body is placed for one chain) and for
-    d > 512."""
-    if model == AD or n_chains <= sms or d > BLOCK_THREADS:
+    slower).  1 for model "ad" (K5's body is placed for one chain), for
+    d > 512 and for a ``device_layout``: a chain whose arrays need the
+    device workspace (the kWide layout at tier 2 or 3) runs alone."""
+    if model == AD or n_chains <= sms or d > BLOCK_THREADS or device_layout:
         return 1
     g_max = 1
     for g in range(2, min(-(-n_chains // sms), MAX_CHAINS_PER_BLOCK) + 1):
@@ -420,8 +426,7 @@ def fused_chains_run_chunk_cuda(
     check_f32("state", state, (C, n_rows, d), dev)
     if lrs is not None:
         check_f32("lrs", lrs, (C,), dev)
-    c0, c1, n_data, db, batch, s0, s1 = _model_args(model, consts, scalars, d, dev, False, n,
-                                                    ad)
+    c0, c1, n_data, db, batch, s0, s1 = _model_args(model, consts, scalars, d, dev, n, ad)
     if noise is not None:
         check_f32("noise", noise, (steps, C, n, d), dev)
         noise = noise.transpose(0, 1).contiguous()  # the kernel's (C, steps, n, d)
@@ -431,15 +436,19 @@ def fused_chains_run_chunk_cuda(
     body = ad.source if model == AD else None
     defines = PHASE_CLOCKS if instrumented else ()
     smem_bytes = chains_smem_bytes(body)
-    G = chains_per_block(model, C, device_sms(dev), d,
-                         lambda g: smem_bytes(code, n_data, db, batch, n, d, n_rows, g))
-    smem = smem_bytes(code, n_data, db, batch, n, d, n_rows, G)
+    layout = fused_layout("fused_chains", body, defines)
+    shape = (code, n_data, db, batch, n, d, n_rows)
+    G = chains_per_block(model, C, device_sms(dev), d, lambda g: smem_bytes(*shape, g),
+                         layout(*shape, 1)[2] > 0)
+    group, smem, ws_floats, tier = layout(*shape, G)
     if smem > _build.SMEM_LIMIT:
         raise ValueError(
-            f"each chain's block keeps the model's data, the draws and the state in "
-            f"shared memory: {smem} bytes for n_data={n_data}, batch={batch}, d={d}, "
-            f"n={n}, {n_rows} state rows is over the {_build.SMEM_LIMIT}-byte limit"
+            f"each chain's block keeps its state rows, its row sums (a minibatch model: "
+            f"one staged slab) and what fits of the rest in shared memory: {smem} bytes "
+            f"for n_data={n_data}, batch={batch}, d={d}, n={n}, {n_rows} state rows is "
+            f"over the {_build.SMEM_LIMIT}-byte limit"
         )
+    ws = workspace(C * ws_floats, dev, "fused_chains")
     fn = _build.function("fused_chains", "fused_chains", _CHAINS_ARGTYPES, body=body,
                          defines=defines)
     if seeds.dtype != torch.int32 or tuple(seeds.shape) != (C, 2) or seeds.device != dev \
@@ -460,11 +469,11 @@ def fused_chains_run_chunk_cuda(
             lrs.data_ptr() if lrs is not None else None,
             rules.data_ptr() if rules is not None else None,
             hyp.lr, hyp.b1, hyp.b2, hyp.eps, hyp.avg_eta, hyp.clip_eps,
-            *codes, branch.cocob_alpha, stream,
+            *codes, branch.cocob_alpha, ws.data_ptr() if ws is not None else None, stream,
         )
-    _build.check(err, "fused_chains launch")
+    _build.check(err, f"fused_chains launch (group {group}, tier {tier}, G = {G})")
     fused_chains_run_chunk_cuda.launches += 1
-    for g in launch_groups(model, branch, rules):
+    for g in launch_groups(model, branch, rules) + layout_groups(model, tier):
         fused_chains_run_chunk_cuda.group_launches[g] += 1
     return out, elbo, (trace.T.contiguous() if trace is not None else None)
 
@@ -590,10 +599,9 @@ class FusedChainsADVI:
         if n_chains < 1 or n_samples < 1:
             raise ValueError(f"n_chains and n_samples must be >= 1, got {n_chains}, {n_samples}")
         if model.model not in PORTED_MODELS:
-            raise NotImplementedError(
-                f"fused model {model.model!r} is not ported for the chains engine; it "
-                f"has {PORTED_MODELS} (the mean-field engine's models)"
-            )
+            raise ValueError(f"unknown fused model {model.model!r}; known: {PORTED_MODELS}")
+        if model.dim > D_PAD_MAX:
+            raise ValueError(f"fused engine supports dim <= {D_PAD_MAX}, got {model.dim}")
         rules = self._rule_list or (optimizer,)
         self.n_rows = 14 if ALGO_COCOB in rules else 8
         self.ad = ad_program(model, n_samples, MEANFIELD, self.n_rows) \
@@ -816,12 +824,14 @@ class FusedChainsADVI:
             return 1
         _, _, n_data, db, batch, _, _ = _model_args(
             self.model.model, self.model.consts, self.model.scalars, self.dim,
-            self.model.device, False, self.n_samples)
+            self.model.device, self.n_samples)
         fn = chains_smem_bytes() if block_bytes is None else block_bytes
-        code, n, d, n_rows = MODEL_CODES[self.model.model], self.n_samples, self.dim, self.n_rows
+        shape = (MODEL_CODES[self.model.model], n_data, db, batch, self.n_samples, self.dim,
+                 self.n_rows)
+        device_layout = block_bytes is None and fused_layout("fused_chains")(*shape, 1)[2] > 0
         return chains_per_block(self.model.model, self.n_chains,
-                                device_sms(self.model.device) if sms is None else sms, d,
-                                lambda g: fn(code, n_data, db, batch, n, d, n_rows, g))
+                                device_sms(self.model.device) if sms is None else sms, self.dim,
+                                lambda g: fn(*shape, g), device_layout)
 
     def q(self, state: FusedChainsState, averaged: bool = True):
         """Stacked MeanFieldGaussian with (n_chains, d) leaves (averaged

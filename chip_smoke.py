@@ -186,7 +186,21 @@ Phases:
       ``compute_dtype="bfloat16"`` beside their f32 runs on one key; the
       bf16 product, K7b whole and over half the columns and the library's
       bf16 route (its casts and triangle included) by CUDA-graph replay at
-      256 x 1024 and 128 x 2048.
+      256 x 1024 and 128 x 2048;
+  (af) the mean-field and chains kernels beyond one block's shared memory
+      (the kWide group's device-memory layout: the d = 2,048 and the d =
+      512, n = 128 diagonal Gaussians, the 512 x 199 logreg, COCOB's 14 rows
+      on the 771 x 61 one, K6 at C = 8 on the d = 2,048 Gaussian) and on the
+      dense Gaussian at d = 62 and 512 (its body; prox, VarGrad and COCOB at
+      62; K6 at C = 8 and at 264, two chains a block), each against its
+      plain version: 50 noise steps, 200 Philox steps, chunked and traced
+      runs bitwise, chains 0, G - 1, G and C - 1 bitwise the single-chain
+      kernel; counted: the d = 62 dense Gaussian through
+      ``FusedADVI.optimize`` (2,000 steps, beside ``optimize`` on the same
+      key), ``FusedProxADVI``, ``FusedScoreGradVI`` and ``FusedChainsADVI``,
+      and every other configuration through its engine; each configuration's
+      200-step chunk beside its plain version, and the dense Gaussian body's
+      product alone beside ``torch.mm`` by CUDA-graph replay.
 
 With ``--parent CHECKOUT`` (e.g. a ``git archive`` of the parent commit
 under the ignored ``_archive/``) it then times K8, K7b, K7c, K7a, the K9 probes,
@@ -204,7 +218,7 @@ Every failed check raises and the script exits non-zero; it also exits
 non-zero without a CUDA device, or when the package is not beside it.  The
 line before the last is a JSON object of the kernels (launch counts from the
 main-path runs of (f), (g), (l), (o), (p), (s), (u), (w), (x), (y), (z),
-(aa), (ab), (ac), (ad) and (ae), errors, times, each time's bound on this card and
+(aa), (ab), (ac), (ad), (ae) and (af), errors, times, each time's bound on this card and
 the library call's time where the line has one); the last
 line is ``{"ok": true, "device": {...}}``.  It imports no JAX.
 """
@@ -1418,11 +1432,11 @@ print(json.dumps(smoke.ab_times(torch.device("cuda:0"))))
 """
 
 
-# The kernel libraries this tree edits against its parent: every other one
-# must compile to the parent's SASS.  K7b's product takes a column range
-# (the whole product is the range [0, d)); a library the parent lacks
-# (fullrank_bf16) has nothing to compare.
-AB_CHANGED = ("fullrank_sample",)
+# The kernel libraries whose kernels may compile to other SASS than the
+# parent's: none.  The mean-field and chains libraries gained instances
+# (the kWide group) that the parent lacks, which have nothing to compare;
+# every kernel both builds name must be the parent's.
+AB_CHANGED = ()
 
 
 def ab_parent(parent: Path):
@@ -3622,7 +3636,9 @@ MS_EVAL_SAMPLES = 20_000             # the warm-start check's ELBOs
 # the algorithms' draws, then Pathfinder's pooled draws a path and the ELBOs
 MS_SAMPLE_SHAPES = [(n, d) for n in (16, 32, 64) for d in (62, 256, 512)] + [
     ((2 * MS_PATH_DRAWS) // MS_PATHS, N_FEATURES + 2), (MS_EVAL_SAMPLES, N_FEATURES + 2)]
-MS_STEPS = 2_000         # tests/test_cross_algorithm.py's NGD run on the logreg
+# tests/test_cross_algorithm.py's NGD run on the logreg took 2,000 steps;
+# cut to 1,500 when (af) took the smoke past 1,000 s on a slow host
+MS_STEPS = 1_500
 MS_LOG_EVERY = 10        # the tail ELBO: the mean of the last 20 rows, 200 steps
 MS_GAUSS_D = 256         # tests/test_measure_space.py:265's width
 MS_GAUSS_STEPS = 400     # tests/test_measure_space.py:105's horizon
@@ -5585,6 +5601,351 @@ def phase_ae(dev, card):
     return counts, errs, times
 
 
+# ---------------------------------------------------------------------------
+# (af) the mean-field and chains kernels beyond one block's shared memory,
+# and the dense Gaussian on them
+# ---------------------------------------------------------------------------
+
+AF_NOISE_STEPS = 50
+AF_STEPS = 200            # the Philox comparisons and each timed chunk
+AF_MAIN_STEPS = 2_000     # mvnormal d = 62: FusedADVI.optimize beside optimize
+AF_SIDE_STEPS = 200       # each other counted engine run of (af)
+AF_CHAINS_C = 8
+AF_G_CHAINS = 264         # mvnormal d = 62 at two chains a block on 132 SMs
+AF_PRODUCT_SHAPES = ((N_SAMPLES, 62), (N_SAMPLES, 512))
+
+
+def mvn_target(dev, d):
+    """The dense Gaussian of (af): a well-conditioned NormalTarget."""
+    from advancedvi_jl_tpu_torch.models.normal import normal_fullrank_wellcond
+
+    return normal_fullrank_wellcond(3, d, device=dev)[0]
+
+
+def af_configs(dev):
+    """name -> (spec, n_samples): the configurations JAX's mean-field
+    engines take whose arrays one block's shared memory cannot hold (the
+    kWide group's device-memory tiers), COCOB's 14 state rows on a design
+    whose 8-row layout fits one block (tests/test_torch_kernels.py's plain
+    layout), and the dense Gaussian (P in shared memory at d = 62, in device
+    memory at 512), the d = 62 one that of ``mvn_target``."""
+    import advancedvi_jl_tpu_torch as avt
+    from advancedvi_jl_tpu_torch.models.logreg import make_logreg
+
+    def gauss(d, seed):
+        g = torch.Generator().manual_seed(seed)
+        return avt.gaussian_spec(torch.randn(d, generator=g).to(dev),
+                                 (0.5 + torch.rand(d, generator=g)).to(dev))
+
+    def mvn(d):
+        t = mvn_target(dev, d)
+        return avt.mvnormal_spec(t.mu, t.scale_tril)
+
+    wide = make_logreg(DATA_SEED, n_data=512, n_features=198, device=dev)
+    cocob = make_logreg(DATA_SEED, n_data=771, n_features=N_FEATURES, device=dev)
+    return {"gauss_d2048": (gauss(2048, 1), N_SAMPLES),
+            "gauss_d512_n128": (gauss(512, 2), 128),
+            "logreg_512x199": (avt.logreg_spec(wide.X, wide.y), N_SAMPLES),
+            "logreg_771x61_cocob": (avt.logreg_spec(cocob.X, cocob.y), N_SAMPLES),
+            "mvnormal_d62": (mvn(62), N_SAMPLES),
+            "mvnormal_d512": (mvn(512), N_SAMPLES)}
+
+
+def af_branch(name):
+    from advancedvi_jl_tpu_torch.ops.cuda.fused_advi import FusedBranch
+
+    return FusedBranch("cocob", "stl", "repgrad", "clip") if "cocob" in name else FusedBranch()
+
+
+def af_rows(d, dev, branch, seed=6):
+    """The initial rows of a comparison: locations 0.2 N(0, 1) (seeded),
+    scales 0.1, the rule's slots as the engine lays them out."""
+    from advancedvi_jl_tpu_torch.ops.cuda.fused_advi import FusedADVI, gaussian_spec
+
+    eng = FusedADVI(gaussian_spec(torch.zeros(d, device=dev), torch.ones(d, device=dev)))
+    eng.algo = branch.algo
+    g = torch.Generator().manual_seed(seed)
+    st = eng.init((0.2 * torch.randn(d, generator=g)).to(dev), 0.1 * torch.ones(d, device=dev))
+    return st.stacked()
+
+
+def af_compare(dev, name, spec, n, branch, rows=None):
+    """The kernel against its plain version on one configuration: 50
+    injected-noise steps (norm-wise rtol 1e-5, ELBO and trace rtol 1e-5),
+    200 Philox steps (1e-4), a 200-step run bitwise 60 + 140 and the traced
+    launch bitwise the untraced one.  Returns (the largest norm-wise
+    relative error, the launch's group and tier, the 200-step chunk's ms by
+    CUDA events and its plain version's)."""
+    from advancedvi_jl_tpu_torch.ops.cuda.fused_advi import (
+        MODEL_CODES, FusedHyper, _model_args, fused_layout, fused_run_chunk_cuda,
+        fused_run_chunk_reference,
+    )
+    from advancedvi_jl_tpu_torch.ops.cuda.location_scale_kernels import seed_words
+
+    d = spec.dim
+    rows = af_rows(d, dev, branch) if rows is None else rows
+    hyp, seed = FusedHyper(lr=LR), seed_words(SEED)
+    base = (spec.model, spec.consts, spec.scalars)
+    noise = torch.randn((AF_NOISE_STEPS, n, d),
+                        generator=torch.Generator().manual_seed(5)).to(dev)
+    args = (*base, rows, seed, 0, AF_NOISE_STEPS, n, hyp, noise, 5, branch)
+    k_rows, k_elbo, k_tr = fused_run_chunk_cuda(*args)
+    r_rows, r_elbo, r_tr = fused_run_chunk_reference(*args)
+    torch.cuda.synchronize()
+    worst = compare_tensors(f"(af) {name}, injected noise", list(k_rows), list(r_rows), 1e-5)
+    check(torch.allclose(k_elbo, r_elbo, rtol=1e-5, atol=1e-4) and
+          torch.allclose(k_tr, r_tr, rtol=1e-5, atol=1e-4),
+          f"(af) {name}: ELBO {float(k_elbo)} vs {float(r_elbo)} (or its trace) differs")
+    ph = (*base, rows, seed, 0, AF_STEPS, n, hyp, None, 0, branch)
+    k_rows, k_elbo, _ = fused_run_chunk_cuda(*ph)
+    ms = cuda_ms(lambda: fused_run_chunk_cuda(*ph), 3)
+    (r_rows, r_elbo, _), plain_ms = once_ms(lambda: fused_run_chunk_reference(*ph))
+    half, _, _ = fused_run_chunk_cuda(*base, rows, seed, 0, 60, n, hyp, None, 0, branch)
+    two, e2, _ = fused_run_chunk_cuda(*base, half, seed, 60, AF_STEPS - 60, n, hyp, None, 0,
+                                      branch)
+    t_rows, t_elbo, tr = fused_run_chunk_cuda(*base, rows, seed, 0, AF_STEPS, n, hyp, None, 50,
+                                              branch)
+    torch.cuda.synchronize()
+    worst = max(worst, compare_tensors(f"(af) {name}, Philox {AF_STEPS} steps", list(k_rows),
+                                       list(r_rows), 1e-4))
+    check(torch.allclose(k_elbo, r_elbo, rtol=1e-4, atol=1e-3),
+          f"(af) {name}: ELBO after {AF_STEPS} steps {float(k_elbo)} vs {float(r_elbo)}")
+    check(torch.equal(k_rows, two) and torch.equal(k_elbo, e2),
+          f"(af) {name}: the chunked run differs from the whole run")
+    check(torch.equal(k_rows, t_rows) and float(tr[-1]) == float(k_elbo),
+          f"(af) {name}: the traced run differs from the untraced one")
+    c0, c1, n_data, db, batch, _, _ = _model_args(spec.model, spec.consts, spec.scalars, d,
+                                                  rows.device, n)
+    group, smem, ws, tier = fused_layout("fused_advi_meanfield")(
+        MODEL_CODES[spec.model], n_data, db, batch, n, d, rows.shape[0])
+    say("af", config=name, d=d, n=n, algo=branch.algo, group=group, tier=tier, smem_bytes=smem,
+        workspace_bytes=4 * ws, max_rel_err=f"{worst:.3e}", chunked_bitwise=True)
+    return worst, group, tier, (ms, plain_ms)
+
+
+def af_chains_compare(dev, name, spec, C):
+    """K6 against its plain version (50 injected-noise steps, rtol 1e-5) and
+    chains 0, G - 1, G and C - 1 of a 200-step Philox run bitwise the
+    single-chain kernel keyed by their words.  Returns (the largest
+    norm-wise relative error, G)."""
+    from advancedvi_jl_tpu_torch.ops.cuda.fused_advi import fused_run_chunk_cuda
+    from advancedvi_jl_tpu_torch.ops.cuda.fused_chains import (
+        fused_chains_run_chunk_cuda, fused_chains_run_chunk_reference,
+    )
+    from advancedvi_jl_tpu_torch.ops.cuda.location_scale_kernels import chain_seed_words
+
+    eng, rows, seeds = chains_case(dev, spec, C)
+    d, G = spec.dim, eng.chains_per_block()
+    noise = torch.randn((AF_NOISE_STEPS, C, N_SAMPLES, d),
+                        generator=torch.Generator().manual_seed(7)).to(dev)
+    k_rows, k_elbo, _ = chains_run(fused_chains_run_chunk_cuda, eng, rows, seeds, 0,
+                                   AF_NOISE_STEPS, noise)
+    r_rows, r_elbo, _ = chains_run(fused_chains_run_chunk_reference, eng, rows, seeds, 0,
+                                   AF_NOISE_STEPS, noise)
+    torch.cuda.synchronize()
+    worst = compare_tensors(f"(af) {name}, injected noise", list(k_rows.flatten(0, 1)),
+                            list(r_rows.flatten(0, 1)), 1e-5)
+    check(torch.allclose(k_elbo, r_elbo, rtol=1e-5, atol=1e-4), f"(af) {name}: ELBOs differ")
+    p_rows, p_elbo, _ = chains_run(fused_chains_run_chunk_cuda, eng, rows, seeds, 0, AF_STEPS)
+    same = {}
+    for c in sorted({0, G - 1, G % C, C - 1}):
+        one, e1, _ = fused_run_chunk_cuda(spec.model, spec.consts, spec.scalars,
+                                          rows[c].contiguous(), chain_seed_words(SEED, c), 0,
+                                          AF_STEPS, N_SAMPLES, eng.hyp)
+        same[c] = bool(torch.equal(one, p_rows[c]) and torch.equal(e1, p_elbo[c]))
+    torch.cuda.synchronize()
+    say("af", config=name, chains=C, G=G, max_rel_err=f"{worst:.3e}",
+        chain_vs_single_bitwise=",".join(f"{c}:{v}" for c, v in same.items()))
+    check(all(same.values()), f"(af) {name}: a chain differs from the single-chain kernel")
+    return worst, G
+
+
+def af_bound(spec, n, d, steps, chains=1):
+    """(flops, bytes) of ``steps`` steps of a configuration: the model's
+    multiply-adds (the Gaussian 2 n d, the dense one n d^2 + 2 n d, logreg
+    2 n n_data db) and phase D's 3 n d, 2 flops each; the model's constants
+    read once, each chain's 8 state rows in and out."""
+    if spec.model == "logreg":
+        n_data, db = spec.consts[0].shape
+        model, consts = 2 * n * n_data * db, n_data * (db + 1)
+    elif spec.model == "mvnormal":
+        model, consts = n * d * d + 2 * n * d, d * d + d
+    else:
+        model, consts = 2 * n * d, 2 * d
+    return (2.0 * steps * chains * (model + 3 * n * d),
+            4.0 * (consts + chains * 16 * d))
+
+
+def once_ms(fn):
+    """(fn(), its milliseconds on the card by CUDA events): one call, for a
+    plain version whose run is also compared."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(stop)
+
+
+def af_times(dev, card, cfgs, chunk_ms, chains_spec):
+    """Each configuration's 200-step chunk beside its plain version
+    (``chunk_ms``, taken in ``af_compare``), K6 at C = 8 on the d = 2,048
+    Gaussian likewise, and the dense Gaussian body's product alone
+    (csrc/block_mm.cu block_mm_mvnormal) beside torch.mm(diff, P) by
+    CUDA-graph replay.  Returns {name: (ms, plain_ms, bound_ms, bound_by)}
+    and {shape: (product_ms, mm_ms)}."""
+    from advancedvi_jl_tpu_torch.ops.cuda.block_mm_kernels import mvnormal_product_cuda
+    from advancedvi_jl_tpu_torch.ops.cuda.fused_chains import (
+        fused_chains_run_chunk_cuda, fused_chains_run_chunk_reference,
+    )
+
+    out = {name: (*chunk_ms[name], *bound(*af_bound(spec, n, spec.dim, AF_STEPS)))
+           for name, (spec, n) in cfgs.items()}
+    eng, rows, seeds = chains_case(dev, chains_spec, AF_CHAINS_C)
+    ms = cuda_ms(lambda: chains_run(fused_chains_run_chunk_cuda, eng, rows, seeds, 0, AF_STEPS),
+                 3)
+    _, plain = once_ms(lambda: chains_run(fused_chains_run_chunk_reference, eng, rows, seeds, 0,
+                                          AF_STEPS))
+    out["chains_gauss_d2048"] = (ms, plain, *bound(*af_bound(
+        chains_spec, N_SAMPLES, chains_spec.dim, AF_STEPS, AF_CHAINS_C)))
+    for name, (ms, plain, b_ms, b_by) in out.items():
+        say("af", card=f"'{card}'", chunk=name, steps=AF_STEPS, kernel_ms=f"{ms:.4f}",
+            plain_ms=f"{plain:.2f}", bound_ms=f"{b_ms:.3g}", bound_by=b_by)
+    products = {}
+    for n, d in AF_PRODUCT_SHAPES:
+        g = torch.Generator().manual_seed(d)
+        diff = torch.randn(n, d, generator=g).to(dev)
+        P = cfgs["mvnormal_d62" if d == 62 else "mvnormal_d512"][0].consts[1]
+        got = mvnormal_product_cuda(diff, P)
+        want = torch.mm(diff.double(), P.double())
+        scale = torch.mm(diff.abs().double(), P.abs().double())
+        err = float(((got.double() - want).abs() / scale.clamp_min(1e-30)).max())
+        check(err < 4 * d * 6e-8, f"(af) the mvnormal product at {n} x {d} is {err} off")
+        products[(n, d)] = (graph_ms(lambda: mvnormal_product_cuda(diff, P)),
+                            graph_ms(lambda: torch.mm(diff, P)))
+        say("af", card=f"'{card}'", product=f"{n}x{d}x{d}", rel_err=f"{err:.2e}",
+            body_product_graph_ms=f"{products[(n, d)][0]:.5f}",
+            torch_mm_graph_ms=f"{products[(n, d)][1]:.5f}")
+    return out, products
+
+
+def af_main_path(dev, cfgs, chains_spec):
+    """The counted runs: the dense Gaussian at d = 62 through
+    FusedADVI.optimize (2,000 steps), FusedProxADVI, FusedScoreGradVI and
+    FusedChainsADVI (200 each), every other configuration through
+    FusedADVI.optimize and K6 at C = 8 on the d = 2,048 Gaussian (200);
+    then ``optimize`` on the same NormalTarget and Philox key beside the
+    fused run (averaged location within 1e-3, (g)'s bar).  Returns the
+    launch counts (each wrapper's and the mean-field and chains wrappers'
+    own GROUP_MVNORMAL and GROUP_DEVICE_LAYOUT counts)."""
+    import advancedvi_jl_tpu_torch as avt
+    from advancedvi_jl_tpu_torch.ops.cuda.fused_advi import (
+        GROUP_DEVICE_LAYOUT, GROUP_MVNORMAL, fused_run_chunk_cuda,
+    )
+    from advancedvi_jl_tpu_torch.ops.cuda.fused_chains import fused_chains_run_chunk_cuda
+
+    spec = cfgs["mvnormal_d62"][0]
+    d = spec.dim
+
+    def q0(dim):
+        return avt.MeanFieldGaussian(torch.zeros(dim, device=dev),
+                                     0.1 * torch.ones(dim, device=dev))
+
+    torch.cuda.synchronize()
+    reset_launches()
+    q_f, infos_f, _ = avt.FusedADVI(spec, n_samples=N_SAMPLES, lr=LR).optimize(
+        SEED, AF_MAIN_STEPS, q0(d), log_every=LOG_EVERY)
+    side = {"prox": avt.FusedProxADVI(spec, n_samples=N_SAMPLES, optimizer="descent", lr=LR),
+            "bbvi": avt.FusedScoreGradVI(spec, n_samples=N_SAMPLES, optimizer="adam", lr=LR,
+                                         operator="clip")}
+    tails = {}
+    for name, eng in side.items():
+        _, rows, _ = eng.optimize(SEED, AF_SIDE_STEPS, q0(d), log_every=LOG_EVERY)
+        tails[name] = rows[-1]["elbo"]
+    for name, (cfg, n) in cfgs.items():
+        if name == "mvnormal_d62":
+            continue
+        eng = avt.FusedADVI(cfg, n_samples=n, lr=LR)
+        eng.algo = af_branch(name).algo
+        _, rows, _ = eng.optimize(SEED, AF_SIDE_STEPS, q0(cfg.dim), log_every=LOG_EVERY)
+        tails[name] = rows[-1]["elbo"]
+    for name, cspec in (("chains_mvnormal_d62", spec), ("chains_gauss_d2048", chains_spec)):
+        eng, st = chains_engine(dev, cspec, AF_CHAINS_C, lr=LR)
+        _, trace = eng.run_chunk_traced(st, SEED, AF_SIDE_STEPS, log_every=LOG_EVERY)
+        tails[name] = float(trace[-1].min())
+    torch.cuda.synchronize()
+    counts = read_launches()
+    counts["mf_" + GROUP_MVNORMAL] = fused_run_chunk_cuda.group_launches[GROUP_MVNORMAL]
+    counts["mf_" + GROUP_DEVICE_LAYOUT] = fused_run_chunk_cuda.group_launches[GROUP_DEVICE_LAYOUT]
+    counts["chains_" + GROUP_DEVICE_LAYOUT] = \
+        fused_chains_run_chunk_cuda.group_launches[GROUP_DEVICE_LAYOUT]
+    check(all(math.isfinite(r["elbo"]) for r in infos_f) and
+          all(math.isfinite(v) for v in tails.values()), f"(af) a counted run diverged: {tails}")
+    for k in ("fused_advi_meanfield", "fused_chains", "mf_" + GROUP_MVNORMAL,
+              "mf_" + GROUP_DEVICE_LAYOUT, "chains_" + GROUP_DEVICE_LAYOUT):
+        check(counts[k] > 0, f"(af) the counted runs made no {k} launch")
+
+    target = mvn_target(dev, d)
+    alg = avt.KLMinRepGradDescent(entropy=avt.STL, n_samples=N_SAMPLES,
+                                  optimizer=avt.adam(LR), operator=avt.ClipScale())
+    t0 = time.perf_counter()
+    q_g, infos_g, _ = avt.optimize(SEED, alg, AF_MAIN_STEPS, target, q0(d), log_every=LOG_EVERY)
+    t_general = time.perf_counter() - t0
+    mu_err = max_err(q_f.location, q_g.location)
+    say("af", main="mvnormal_d62", steps=AF_MAIN_STEPS, fused_elbo_tail=tail_elbo(infos_f),
+        general_elbo_tail=tail_elbo(infos_g), averaged_location_max_abs_diff=f"{mu_err:.3e}",
+        general_seconds=f"{t_general:.2f}",
+        **{f"tail_{k}": f"{v:.2f}" for k, v in tails.items()},
+        **{f"{k}_launches": counts[k] for k in ("fused_advi_meanfield", "fused_chains",
+                                                "mf_" + GROUP_MVNORMAL,
+                                                "mf_" + GROUP_DEVICE_LAYOUT,
+                                                "chains_" + GROUP_DEVICE_LAYOUT)})
+    check(mu_err <= 1e-3, f"(af) fused vs general averaged location {mu_err} > 1e-3")
+    return counts
+
+
+def phase_af(dev, card):
+    """(af) The mean-field and chains kernels on what one block's shared
+    memory cannot hold, and on the dense Gaussian: each configuration
+    against its plain version (``af_compare``, ``af_chains_compare``), the
+    counted runs (``af_main_path``) and the times (``af_times``).  Returns
+    (the counted launches, the largest errors {kernel: err}, the times)."""
+    from advancedvi_jl_tpu_torch.ops.cuda.fused_advi import FusedBranch, KWIDE
+
+    t0 = time.perf_counter()
+    cfgs = af_configs(dev)
+    errs = {"mvnormal": 0.0, "wide": 0.0, "chains": 0.0}
+    chunk_ms = {}
+    for name, (spec, n) in cfgs.items():
+        err, group, tier, chunk_ms[name] = af_compare(dev, name, spec, n, af_branch(name))
+        check(group == KWIDE and (tier >= 1 or spec.model == "mvnormal"),
+              f"(af) {name} ran in group {group}, tier {tier}: not the kWide layout")
+        key = "mvnormal" if spec.model == "mvnormal" else "wide"
+        errs[key] = max(errs[key], err)
+    mv = cfgs["mvnormal_d62"][0]
+    for branch in (FusedBranch("descent", "closed_form_zero_grad", "repgrad", "prox"),
+                   FusedBranch("adam", "stl", "scoregrad", "clip"),
+                   FusedBranch("cocob", "stl", "repgrad", "clip")):
+        err, _, _, _ = af_compare(dev, f"mvnormal_d62_{branch.algo}_{branch.grad_est}", mv,
+                                  N_SAMPLES, branch)
+        errs["mvnormal"] = max(errs["mvnormal"], err)
+    chains_spec = cfgs["gauss_d2048"][0]
+    for name, spec, C in (("chains_gauss_d2048", chains_spec, AF_CHAINS_C),
+                          ("chains_mvnormal_d62", mv, AF_CHAINS_C),
+                          ("chains_mvnormal_d62_G2", mv, AF_G_CHAINS)):
+        err, G = af_chains_compare(dev, name, spec, C)
+        check(G == (2 if C == AF_G_CHAINS else 1), f"(af) {name}: {G} chains a block")
+        errs["chains"] = max(errs["chains"], err)
+    counts = af_main_path(dev, cfgs, chains_spec)
+    times, products = af_times(dev, card, cfgs, chunk_ms, chains_spec)
+    seconds = time.perf_counter() - t0
+    say("af", card=f"'{card}'", seconds=f"{seconds:.1f}",
+        **{f"max_rel_err_{k}": f"{v:.3e}" for k, v in errs.items()})
+    return counts, errs, times, products
+
+
 def main() -> int:
     parent = None  # --parent DIR: the A/B of the chunks against that checkout
     argv = sys.argv[1:]
@@ -5658,6 +6019,8 @@ def main() -> int:
     lap("ad")
     ae_counts, ae_err, ae_times = phase_ae(dev, card)
     lap("ae")
+    af_counts, af_err, af_times, _ = phase_af(dev, card)
+    lap("af")
     if parent is not None:
         ab_parent(parent)
         lap("parent")
@@ -5761,6 +6124,21 @@ def main() -> int:
                          "no Pallas kernel)",
                          ae_counts["fullrank_bf16"], ae_err["fullrank_bf16"], t["bf16_product"],
                          t["plain"], library_ms=t["library_mm_bf16"], bound_=(t["bound"], by)))
+    # (af): the dense Gaussian's body in the mean-field kernel (timed at d =
+    # 62), the kWide group's device-memory layout in the mean-field kernel
+    # (timed on the d = 2,048 Gaussian) and in K6 (C = 8 on it), each counted
+    # in (af)'s runs by its wrapper's own launch group
+    for name, source, replaces, launches, err, timed in (
+            ("fused_k4_mvnormal", "fused_common.cuh", f"{fused}1255",
+             af_counts["mf_k4_mvnormal"], af_err["mvnormal"], "mvnormal_d62"),
+            ("fused_advi_meanfield_wide", "fused_meanfield_body.cuh", f"{fused}681",
+             af_counts["mf_k1_device_layout"], af_err["wide"], "gauss_d2048"),
+            ("fused_chains_wide", "fused_chains.cu",
+             "advancedvi_jl_tpu/ops/pallas/fused_chains.py:525",
+             af_counts["chains_k1_device_layout"], af_err["chains"], "chains_gauss_d2048")):
+        ms, plain_ms, b_ms, b_by = af_times[timed]
+        kernels.append(entry(name, source, replaces, launches, err, ms, plain_ms,
+                             bound_=(b_ms, b_by)))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -217,8 +217,12 @@ def test_engine_checks(flagship):
         eng = FusedADVI(mb, family=family, n_samples=N_SAMPLES)
         assert eng.run_chunk(eng.init(torch.zeros(62), 0.1 * (
             torch.ones(62) if family == "meanfield" else torch.eye(62))), 0, 2).iteration == 2
-    with pytest.raises(NotImplementedError, match="full-rank only"):  # as in JAX
-        FusedADVI(spec.__class__(dim=2, consts=(), scalars=(), model="mvnormal"))
+    # the dense Gaussian runs on the mean-field engine too (K4's mvnormal
+    # body), as in JAX; both families refuse d > 2,048, as JAX does
+    mv = FusedADVI(avt.mvnormal_spec(torch.zeros(3), torch.eye(3)), n_samples=N_SAMPLES)
+    assert mv.run_chunk(mv.init(torch.zeros(3), torch.ones(3)), 0, 2).iteration == 2
+    with pytest.raises(ValueError, match="dim <= 2048"):
+        FusedADVI(avt.gaussian_spec(torch.zeros(2049), torch.ones(2049)))
     with pytest.raises(ValueError, match="ad_spec"):  # K5 needs the traced target
         FusedADVI(spec.__class__(dim=2, consts=(), scalars=(), model="ad"))
     eng = FusedADVI(spec, n_samples=N_SAMPLES)

@@ -1,0 +1,258 @@
+"""Port parity at the mean-field engines' envelope: the dense Gaussian
+(``mvnormal_spec``) on every mean-field engine and the chains engine, and the
+sizes whose arrays one block's shared memory cannot hold (on a card they run
+the kernels' device-memory layout, csrc/fused_meanfield_body.cuh
+``wide_layout``), run here through the kernels' plain PyTorch versions
+against the JAX engines in Pallas interpret mode on the same injected draws.
+The kernels themselves are held to the plain versions on a card
+(tests/test_torch_kernels.py, chip_smoke.py phase (af)).
+
+Tolerances are tests/test_fused_advi.py's: rtol 1e-5 and atol 1e-6 on the
+parameters and their averages, 1e-4 on the ELBO.  DoWG runs with r0 scale
+1e-2 for the reason given in tests/test_torch_prox_scoregrad.py.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from numpy.testing import assert_allclose
+
+import advancedvi_jl_tpu_torch as avt
+from advancedvi_jl_tpu.models.logreg import make_logreg as jax_make_logreg
+from advancedvi_jl_tpu.models.normal import normal_fullrank as jax_normal_fullrank
+from advancedvi_jl_tpu.ops.pallas import fused_advi as jfused
+from advancedvi_jl_tpu.ops.pallas import fused_chains as jchains
+from advancedvi_jl_tpu_torch import convert
+from advancedvi_jl_tpu_torch.ops.cuda import fused_advi as tfused
+from advancedvi_jl_tpu_torch.ops.cuda.fused_chains import FusedChainsADVI
+
+torch.set_num_threads(2)
+
+N = 10
+PARAMS = ("mu", "sig", "avg_mu", "avg_sig")
+TOL = dict(rtol=1e-5, atol=1e-6)
+ALPHA = 1e-2
+
+
+def _normal(d):
+    """JAX's normal_fullrank fixture (tests/test_fused_advi.py:388 at d = 6)
+    and the same target in the port."""
+    jt, _, _ = jax_normal_fullrank(jax.random.key(2), d)
+    tt = convert.normal_target_from_numpy(np.asarray(jt.mu), np.asarray(jt.scale_tril),
+                                          device="cpu")
+    return jt, tt
+
+
+def _gauss(d, seed=1):
+    rng = np.random.default_rng(seed)
+    mean = rng.standard_normal(d).astype(np.float32)
+    sd = (0.5 + rng.random(d)).astype(np.float32)
+    return (jfused.gaussian_spec(jnp.asarray(mean), jnp.asarray(sd)),
+            tfused.gaussian_spec(torch.from_numpy(mean), torch.from_numpy(sd)))
+
+
+def _logreg(n_data, n_features):
+    jprob = jax_make_logreg(jax.random.key(4), n_data=n_data, n_features=n_features)
+    tprob = convert.logreg_from_numpy(jprob.X, jprob.y, jprob.likeadj, jprob.prior_scale,
+                                      device="cpu")
+    return (jfused.logreg_spec(jprob.X, jprob.y, prior_scale=jprob.prior_scale,
+                               likeadj=float(jprob.likeadj)),
+            tfused.logreg_spec(tprob.X, tprob.y, prior_scale=tprob.prior_scale,
+                               likeadj=float(tprob.likeadj)))
+
+
+def _mvnormal(d):
+    jt, tt = _normal(d)
+    return (jfused.mvnormal_spec(jt.mu, jt.scale_tril),
+            tfused.mvnormal_spec(tt.mu, tt.scale_tril))
+
+
+def _start(d, seed=3):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(0, 0.3, d).astype(np.float32),
+            rng.uniform(0.3, 0.6, d).astype(np.float32))
+
+
+def _single(jspec, tspec, kind, steps, n=N, seed=0):
+    """The JAX engine (interpret mode) and the port's ``kind`` engine
+    ("advi", "prox": DoWG, "bbvi": VarGrad with Adam) on the same injected
+    draws; the JAX state comes back in the port's layout."""
+    d = tspec.dim
+    if kind == "advi":
+        jeng = jfused.FusedADVI(jspec, n_samples=n, lr=1e-3, interpret=True)
+        teng = tfused.FusedADVI(tspec, n_samples=n, lr=1e-3)
+    elif kind == "prox":
+        jeng = jfused.FusedProxADVI(jspec, n_samples=n, alpha=ALPHA, interpret=True)
+        teng = tfused.FusedProxADVI(tspec, n_samples=n, alpha=ALPHA)
+    else:
+        jeng = jfused.FusedScoreGradVI(jspec, n_samples=n, optimizer="adam", lr=1e-3,
+                                       operator="clip", interpret=True)
+        teng = tfused.FusedScoreGradVI(tspec, n_samples=n, optimizer="adam", lr=1e-3,
+                                       operator="clip")
+    loc, sd = _start(d)
+    noise = np.random.default_rng(seed).standard_normal((steps, n, d)).astype(np.float32)
+    js = jeng.run_chunk(jeng.init(jnp.asarray(loc), jnp.asarray(sd)), jax.random.key(1),
+                        steps=steps, noise=jnp.asarray(convert.pack_noise(noise)))
+    ts = teng.run_chunk(teng.init(torch.from_numpy(loc), torch.from_numpy(sd)), 1, steps,
+                        noise=torch.from_numpy(noise))
+    return convert.fused_state_from_numpy(js, d, device="cpu"), ts, js
+
+
+def _close(want, got, fields=PARAMS):
+    for f in fields:
+        assert_allclose(getattr(got, f).numpy(), getattr(want, f).numpy(), err_msg=f, **TOL)
+
+
+def _chains(jspec, tspec, n_chains, steps, n=N, seed=5):
+    """The chains engines on the same injected draws, each chain from its
+    own start."""
+    d = tspec.dim
+    rng = np.random.default_rng(seed)
+    locs = rng.normal(0, 0.3, (n_chains, d)).astype(np.float32)
+    sds = rng.uniform(0.3, 0.6, (n_chains, d)).astype(np.float32)
+    draws = rng.standard_normal((steps, n_chains, n, d)).astype(np.float32)
+    jeng = jchains.FusedChainsADVI(jspec, n_chains=n_chains, n_samples=n, interpret=True)
+    teng = FusedChainsADVI(tspec, n_chains=n_chains, n_samples=n)
+    js = jeng.run_chunk(jeng.init(jnp.asarray(locs), jnp.asarray(sds)), jax.random.key(1),
+                        steps, noise=jnp.asarray(convert.pack_chains_noise(draws)))
+    ts = teng.run_chunk(teng.init(torch.from_numpy(locs), torch.from_numpy(sds)), 1, steps,
+                        noise=torch.from_numpy(draws))
+    return convert.chains_state_from_numpy(js, n_chains, d, device="cpu"), ts
+
+
+@pytest.mark.parametrize("d", [6, 200])
+@pytest.mark.parametrize("kind", ["advi", "prox", "bbvi"])
+def test_mvnormal_on_the_meanfield_engines_matches_jax(kind, d):
+    """The dense Gaussian on FusedADVI, FusedProxADVI (DoWG) and
+    FusedScoreGradVI (VarGrad, Adam): JAX's fixture at d = 6 and at d = 200
+    (d_pad 256), 5 steps."""
+    jspec, tspec = _mvnormal(d)
+    want, got, js = _single(jspec, tspec, kind, 5)
+    _close(want, got)
+    assert_allclose(float(got.elbo), float(js.elbo), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("d", [6, 200])
+def test_mvnormal_on_the_chains_engine_matches_jax(d):
+    """Four chains of the dense Gaussian, each chain at the same bars."""
+    jspec, tspec = _mvnormal(d)
+    want, got = _chains(jspec, tspec, 4, 5)
+    _close(want, got)
+    assert_allclose(got.elbo.numpy(), want.elbo.numpy(), rtol=1e-4, atol=1e-4)
+
+
+def test_fused_spec_for_a_normal_target_runs_on_the_meanfield_engine():
+    """fused_spec_for routes a NormalTarget to mvnormal_spec, as JAX's does,
+    and the mean-field engine takes it and runs (the plain version here)."""
+    jt, _ = _normal(6)
+    target = convert.normal_target_from_numpy(np.asarray(jt.mu), np.asarray(jt.scale_tril),
+                                              device="cpu")
+    spec = avt.fused_spec_for(target)
+    assert spec.model == "mvnormal" and jfused.fused_spec_for(jt).step_factory is \
+        jfused._mvnormal_step_factory
+    eng = avt.FusedADVI(spec, n_samples=N)
+    q, rows, st = eng.optimize(0, 300, avt.MeanFieldGaussian(torch.zeros(6), torch.ones(6)),
+                               log_every=100)
+    assert st.iteration == 300 and all(np.isfinite(r["elbo"]) for r in rows)
+    assert rows[-1]["elbo"] > rows[0]["elbo"] and tuple(q.scale_diag.shape) == (6,)
+
+
+# the sizes JAX's mean-field engines take that one block's shared memory
+# cannot hold with every array in it (about 328 KB, 811 KB, 470 KB, 328 KB
+# and over 1 MB at 8 state rows)
+WIDE = {
+    "gaussian_d2048": lambda: _gauss(2048),
+    "gaussian_d512_n128": lambda: _gauss(512, seed=2),
+    "logreg_512x199": lambda: _logreg(512, 198),
+    "mvnormal_d512": lambda: _mvnormal(512),
+}
+
+
+@pytest.mark.parametrize("name", list(WIDE))
+def test_wide_configurations_match_jax(name):
+    """2 steps of each wide configuration, at the same bars."""
+    jspec, tspec = WIDE[name]()
+    n = 128 if name.endswith("n128") else N
+    want, got, js = _single(jspec, tspec, "advi", 2, n=n)
+    _close(want, got)
+    assert_allclose(float(got.elbo), float(js.elbo), rtol=1e-4, atol=1e-4)
+
+
+def test_wide_chains_match_jax():
+    """Eight chains of the d = 2,048 Gaussian (one chain a block on a card,
+    each with its slice of the device workspace), 2 steps."""
+    jspec, tspec = _gauss(2048)
+    want, got = _chains(jspec, tspec, 8, 2)
+    _close(want, got)
+    assert_allclose(got.elbo.numpy(), want.elbo.numpy(), rtol=1e-4, atol=1e-4)
+
+
+def _accepts(build) -> bool:
+    try:
+        build()
+    except ValueError:
+        return False
+    return True
+
+
+def _engines(engine, d, n=N, C=8):
+    """(JAX build, port build) of ``engine`` on a Gaussian of width d:
+    each builds the spec and the engine."""
+    rng = np.random.default_rng(0)
+    mean, sd = rng.standard_normal(d).astype(np.float32), np.ones(d, np.float32)
+
+    def jax_build():
+        spec = jfused.gaussian_spec(jnp.asarray(mean), jnp.asarray(sd))
+        if engine == "chains":
+            return jchains.FusedChainsADVI(spec, n_chains=C, n_samples=n, interpret=True)
+        if engine == "bbvi":
+            return jfused.FusedScoreGradVI(spec, n_samples=n, operator="clip", interpret=True)
+        cls = {"advi": jfused.FusedADVI, "prox": jfused.FusedProxADVI}[engine]
+        return cls(spec, n_samples=n, interpret=True)
+
+    def port_build():
+        spec = tfused.gaussian_spec(torch.from_numpy(mean), torch.from_numpy(sd))
+        if engine == "chains":
+            return FusedChainsADVI(spec, n_chains=C, n_samples=n)
+        if engine == "bbvi":
+            return tfused.FusedScoreGradVI(spec, n_samples=n, operator="clip")
+        cls = {"advi": tfused.FusedADVI, "prox": tfused.FusedProxADVI}[engine]
+        return cls(spec, n_samples=n)
+
+    return jax_build, port_build
+
+
+# (engine, d, n, chains, JAX accepts, the port accepts): each of JAX's
+# envelope edges and one step beyond it.  The port refuses what JAX refuses
+# for the algorithm or the kernels' layout: d > 2,048 (one block keeps the
+# state rows) and VarGrad with n < 2.  JAX's sample-count and chain-budget
+# caps were TPU VMEM budgets; the port keeps accepting beyond them (its
+# chains engine since the chains slice, tests/test_torch_fused_chains.py
+# test_fused_chains_validation's n_samples = 65 and 500 chains; the single-chain
+# engines never had the cap), so there the two differ by design.
+EDGES = [
+    ("advi", 2048, N, 8, True, True), ("advi", 2049, N, 8, False, False),
+    ("prox", 2048, N, 8, True, True), ("prox", 2049, N, 8, False, False),
+    ("bbvi", 2048, N, 8, True, True), ("bbvi", 2049, N, 8, False, False),
+    ("bbvi", 6, 2, 8, True, True), ("bbvi", 6, 1, 8, False, False),
+    ("advi", 6, 128, 8, True, True), ("advi", 6, 129, 8, False, True),
+    ("chains", 2048, N, 8, True, True), ("chains", 2049, N, 8, False, False),
+    ("chains", 6, 64, 8, True, True), ("chains", 6, 65, 8, False, True),
+    # c_pad d_pad = 16,384 (8 x 2,048; 128 x 128) and one chain beyond
+    ("chains", 2048, 8, 8, True, True), ("chains", 2048, 8, 9, False, True),
+    ("chains", 128, 8, 128, True, True), ("chains", 128, 8, 129, False, True),
+    # n_pad c_pad d_pad = 262,144 (16 x 8 x 2,048) and 8 samples beyond
+    ("chains", 2048, 16, 8, True, True), ("chains", 2048, 24, 8, False, True),
+]
+
+
+@pytest.mark.parametrize("engine,d,n,C,jax_ok,port_ok", EDGES,
+                         ids=[f"{e[0]}-d{e[1]}-n{e[2]}-C{e[3]}" for e in EDGES])
+def test_engines_accept_what_jax_accepts_at_its_edges(engine, d, n, C, jax_ok, port_ok):
+    """At every edge of JAX's envelope both accept; one step beyond, the
+    port refuses what JAX refuses but for the TPU budgets named above."""
+    jax_build, port_build = _engines(engine, d, n, C)
+    assert _accepts(jax_build) == jax_ok
+    assert _accepts(port_build) == port_ok

@@ -205,11 +205,23 @@ def test_fused_kernel_chunks_and_traces_bitwise(dev):
 
 
 def test_fused_kernel_refuses_oversized_shared_memory(dev):
-    X = torch.zeros(4096, 61, device=dev)
-    y = torch.zeros(4096, device=dev)
+    """A design beyond one block's shared memory (4,096 x 61, which JAX's
+    engine takes) runs on the kWide layout, the design read in device memory
+    and the logits in the workspace, within the plain version's tolerance;
+    what even that layout keeps in shared memory (the state rows and the
+    per-sample row sums) is refused past the limit: 8,400 samples."""
+    prob = make_logreg(11, n_data=4096, device=dev)
+    noise = torch.randn((20, N, 62), generator=torch.Generator().manual_seed(2)).to(dev)
+    args = ("logreg", (prob.X, prob.y), (1.0, 3.0), _rows(62, dev), (0, 0), 0, 20, N,
+            FusedHyper(), noise)
+    k_rows, k_elbo, _ = fused_run_chunk_cuda(*args)
+    r_rows, r_elbo, _ = fused_run_chunk_reference(*args)
+    torch.cuda.synchronize()
+    _norm_close(k_rows, r_rows, 1e-5)
+    assert torch.allclose(k_elbo, r_elbo, rtol=1e-5)
     with pytest.raises(ValueError, match="shared"):
-        fused_run_chunk_cuda("logreg", (X, y), (1.0, 3.0), _rows(62, dev), (0, 0), 0, 1, N,
-                             FusedHyper())
+        fused_run_chunk_cuda("logreg", (prob.X, prob.y), (1.0, 3.0), _rows(62, dev), (0, 0), 0,
+                             1, 8400, FusedHyper())
 
 
 def _rel(a, b) -> float:
@@ -797,22 +809,42 @@ def test_fused_branch_chunks_and_traces_bitwise(dev, family, model, branch):
 
 def test_cocob_rows_count_in_the_shared_memory_refusal(dev):
     """Mean-field: a design that fits beside 8 state rows but not beside
-    COCOB's 14 is refused for COCOB only.  Full-rank: when COCOB's 7 scale
-    matrices do not fit in shared memory they live in device memory, and
-    the kernel still matches its plain version."""
+    COCOB's 14 (JAX's engine takes both) runs COCOB on the kWide layout,
+    the design read in device memory, and matches its plain version: STL
+    COCOB within 1e-5; VarGrad COCOB, whose coefficients f_i - fbar cancel
+    log densities of the size of the ~770 data (its float32 plain version
+    is itself up to ~1e-5 from a float64 run here), no further from the
+    float64 run than twice the plain version is.  Full-rank: when COCOB's 7
+    scale matrices do not fit in shared memory they live in device memory,
+    and the kernel still matches its plain version."""
+    from advancedvi_jl_tpu_torch.ops.cuda.fused_advi import KWIDE, fused_layout
+
     smem = _build.function("fused_advi_meanfield", "fused_advi_meanfield_smem_bytes",
                            [ctypes.c_int] * 7, restype=ctypes.c_size_t)
     n_data = next(m for m in range(600, 1200)
                   if smem(0, m, 61, 0, N, 62, 8) <= _build.SMEM_LIMIT
                   < smem(0, m, 61, 0, N, 62, 14))
+    assert fused_layout("fused_advi_meanfield")(0, n_data, 61, 0, N, 62, 14)[:1] == (KWIDE,)
     X = torch.randn(n_data, 61, generator=torch.Generator().manual_seed(0)).to(dev) / 8
     y = (torch.rand(n_data, generator=torch.Generator().manual_seed(1)) < 0.5).float().to(dev)
     spec = logreg_spec(X, y)
-    adam = _engine(spec, "meanfield", FusedBranch())
-    assert adam.run_chunk(_init(adam, 0.1), 0, 2).iteration == 2
-    cocob = _engine(spec, "meanfield", VARGRAD[-2])
-    with pytest.raises(ValueError, match="shared"):
-        cocob.run_chunk(_init(cocob, 0.1), 0, 2)
+    noise = torch.randn((20, N, 62), generator=torch.Generator().manual_seed(2)).to(dev)
+    for branch in (FusedBranch("cocob", "stl", "repgrad", "clip"), VARGRAD[-2]):
+        rows = _init(_engine(spec, "meanfield", branch), 0.1).stacked()
+        args = ("logreg", spec.consts, spec.scalars, rows, (0, 0), 0, 20, N, FusedHyper(),
+                noise, 0, branch)
+        k_rows, _, _ = fused_run_chunk_cuda(*args)
+        r_rows, _, _ = fused_run_chunk_reference(*args)
+        torch.cuda.synchronize()
+        if branch.grad_est == "repgrad":
+            _norm_close(k_rows, r_rows, 1e-5)
+            continue
+        r64, _, _ = fused_run_chunk_reference(
+            "logreg", (X.double(), y.double()), spec.scalars, rows.double(), (0, 0), 0, 20, N,
+            FusedHyper(), noise.double(), 0, branch)
+        for a, b, c in zip(k_rows.double(), r_rows.double(), r64):
+            own = float((b - c).abs().max())
+            assert float((a - c).abs().max()) <= 2 * own + 1e-6 * float(c.abs().max())
 
     fr_smem = _build.function("fused_advi_fullrank", "fused_advi_fullrank_smem_bytes",
                               [ctypes.c_int] * 7, restype=ctypes.c_size_t)
@@ -1280,8 +1312,8 @@ def test_chains_shared_memory_is_the_single_chain_kernels(dev):
     of G chains the model's data once and G chains' arrays (the figures
     tests/test_torch_fused_chains.py's G_LAYOUTS hands the wrapper's rule),
     a design too large for the aligned layout (771 x 61) runs one chain a
-    block, and the wrapper refuses what does not fit one block (the TPU
-    caps' stand-in)."""
+    block, and what does not fit one chain's block runs the kWide layout,
+    one chain a block."""
     chains = _build.function("fused_chains", "fused_chains_smem_bytes", [ctypes.c_int] * 8,
                              restype=ctypes.c_size_t)
     single = _build.function("fused_advi_meanfield", "fused_advi_meanfield_smem_bytes",
@@ -1311,13 +1343,21 @@ def test_chains_shared_memory_is_the_single_chain_kernels(dev):
     plain = make_logreg(11, n_data=771, device=dev)
     assert FusedChainsADVI(logreg_spec(plain.X, plain.y), n_chains=4096,
                            n_samples=N).chains_per_block() == 1
-    from advancedvi_jl_tpu_torch.ops.cuda.fused_chains import FusedChainsADVI
+    from advancedvi_jl_tpu_torch.ops.cuda.fused_chains import (
+        FusedChainsADVI, fused_chains_run_chunk_cuda, fused_chains_run_chunk_reference)
 
+    # 200 samples of the flagship do not fit one chain's block: each chain
+    # runs the kWide layout with its own slice of the workspace
     prob = make_logreg(11, device=dev)
     eng = FusedChainsADVI(logreg_spec(prob.X, prob.y), n_chains=C8, n_samples=200)
     st = eng.init(torch.zeros(C8, prob.dim, device=dev), 0.1 * torch.ones(C8, prob.dim, device=dev))
-    with pytest.raises(ValueError, match="shared memory"):
-        eng.run_chunk(st, 0, 2)
+    assert eng.chains_per_block(132) == 1
+    args = (eng.model.model, eng.model.consts, eng.model.scalars, st.stacked(),
+            eng.chain_seeds(3), 0, 5, 200, eng.hyp)
+    k_rows, _, _ = fused_chains_run_chunk_cuda(*args)
+    r_rows, _, _ = fused_chains_run_chunk_reference(*args)
+    torch.cuda.synchronize()
+    _norm_close(list(k_rows.flatten(0, 1)), list(r_rows.flatten(0, 1)), 1e-4)
 
 
 @pytest.mark.parametrize("n,d,r", [(65_536, 256, 8), (10, 62, 8), (33, 5, 3), (300, 130, 17)])
@@ -1443,3 +1483,136 @@ def test_k5_body_matches_plain_version(dev, name, family):
             *args[:3], vec, mat, *args[3:], ad=prog)[:2]])
     torch.cuda.synchronize()
     assert float((k - r).abs().max()) <= 1e-5 * float(r.abs().max())
+
+
+# ---------------------------------------------------------------------------
+# The dense Gaussian and the kWide layout in the mean-field and chains
+# kernels (csrc/fused_meanfield_body.cuh wide_layout)
+# ---------------------------------------------------------------------------
+
+
+def _wide_spec(dev, name):
+    """(spec, n_samples) of a configuration JAX's mean-field engine takes
+    that one block's shared memory cannot hold, or of the dense Gaussian."""
+    if name.startswith("mvnormal"):
+        d, _, n = name[len("mvnormal_d"):].partition("_n")
+        _, mu, L = normal_fullrank_wellcond(3, int(d), device=dev)
+        return mvnormal_spec(mu, L), int(n) if n else N
+    if name == "logreg_512x199":
+        prob = make_logreg(11, n_data=512, n_features=198, device=dev)
+        return logreg_spec(prob.X, prob.y), N
+    d, n = (2048, N) if name == "gaussian_d2048" else (512, 128)
+    g = torch.Generator().manual_seed(d)
+    return gaussian_spec(torch.randn(d, generator=g).to(dev),
+                         (0.5 + torch.rand(d, generator=g)).to(dev)), n
+
+
+WIDE_CASES = ["gaussian_d2048", "gaussian_d512_n128", "logreg_512x199", "mvnormal_d62",
+              "mvnormal_d512", "mvnormal_d512_n128"]
+
+
+@pytest.mark.parametrize("name", WIDE_CASES)
+def test_wide_layout_and_mvnormal_match_plain_version(dev, name):
+    """Each configuration on the kWide group (its tier by its size) against
+    the plain version: 30 injected-noise steps within 1e-5 norm-wise, and a
+    chunked Philox run bitwise the whole run."""
+    from advancedvi_jl_tpu_torch.ops.cuda.fused_advi import GROUP_DEVICE_LAYOUT, GROUP_MVNORMAL
+
+    spec, n = _wide_spec(dev, name)
+    d = spec.dim
+    rows = _rows(d, dev)
+    noise = torch.randn((30, n, d), generator=torch.Generator().manual_seed(2)).to(dev)
+    args = (spec.model, spec.consts, spec.scalars, rows, (0, 0), 0, 30, n, FusedHyper(), noise)
+    before = dict(fused_run_chunk_cuda.group_launches)
+    k_rows, k_elbo, _ = fused_run_chunk_cuda(*args)
+    r_rows, r_elbo, _ = fused_run_chunk_reference(*args)
+    torch.cuda.synchronize()
+    _norm_close(k_rows, r_rows, 1e-5)
+    assert torch.allclose(k_elbo, r_elbo, rtol=1e-5, atol=1e-4)
+    after = fused_run_chunk_cuda.group_launches
+    assert after[GROUP_MVNORMAL] - before[GROUP_MVNORMAL] == int(spec.model == "mvnormal")
+    assert after[GROUP_DEVICE_LAYOUT] - before[GROUP_DEVICE_LAYOUT] == int(name != "mvnormal_d62")
+    base = (spec.model, spec.consts, spec.scalars)
+    whole, e1, _ = fused_run_chunk_cuda(*base, rows, (0, 7), 0, 40, n, FusedHyper())
+    half, _, _ = fused_run_chunk_cuda(*base, rows, (0, 7), 0, 15, n, FusedHyper())
+    two, e2, _ = fused_run_chunk_cuda(*base, half, (0, 7), 15, 25, n, FusedHyper())
+    torch.cuda.synchronize()
+    assert torch.equal(whole, two) and torch.equal(e1, e2)
+
+
+@pytest.mark.parametrize("name,C", [("mvnormal_d62", C8), ("mvnormal_d62", 264),
+                                    ("gaussian_d2048", C8), ("mvnormal_d512", C8)])
+def test_wide_chains_match_plain_version_and_the_single_chain_kernel(dev, name, C):
+    """K6 on the dense Gaussian (one chain a block, and two at C = 264 on
+    132 SMs, P staged once for the block) and on the kWide layout (one chain
+    a block, each with its slice of the workspace): 20 injected-noise steps
+    within 1e-5 of the plain version, and chains 0, G - 1, G and C - 1 of a
+    Philox run bitwise the single-chain kernel."""
+    from advancedvi_jl_tpu_torch.ops.cuda.fused_chains import (
+        FusedChainsADVI, fused_chains_run_chunk_cuda, fused_chains_run_chunk_reference)
+    from advancedvi_jl_tpu_torch.ops.cuda.location_scale_kernels import chain_seed_words
+
+    spec, n = _wide_spec(dev, name)
+    d = spec.dim
+    eng = FusedChainsADVI(spec, n_chains=C, n_samples=n)
+    g = torch.Generator().manual_seed(4)
+    st = eng.init((0.2 * torch.randn(C, d, generator=g)).to(dev), 0.1 * torch.ones(C, d, device=dev))
+    G = eng.chains_per_block()
+    if C == 264 and torch.cuda.get_device_properties(dev).multi_processor_count == 132:
+        assert G == 2
+    noise = torch.randn((20, C, n, d), generator=torch.Generator().manual_seed(2)).to(dev)
+    args = _chains_args(eng, st, 20, noise, 0)
+    k_rows, k_elbo, _ = fused_chains_run_chunk_cuda(*args)
+    r_rows, r_elbo, _ = fused_chains_run_chunk_reference(*args)
+    p_rows, p_elbo, _ = fused_chains_run_chunk_cuda(*_chains_args(eng, st, 30, None, 0))
+    torch.cuda.synchronize()
+    _norm_close(list(k_rows.flatten(0, 1)), list(r_rows.flatten(0, 1)), 1e-5)
+    assert torch.allclose(k_elbo, r_elbo, rtol=1e-5, atol=1e-4)
+    rows = st.stacked()
+    for c in sorted({0, G - 1, G % C, C - 1}):
+        one, e1, _ = fused_run_chunk_cuda(spec.model, spec.consts, spec.scalars,
+                                          rows[c].contiguous(), chain_seed_words(3, c), 0, 30,
+                                          n, eng.hyp)
+        assert torch.equal(one, p_rows[c]) and torch.equal(e1, p_elbo[c]), c
+
+
+def test_wide_workspace_is_returned_after_each_chunk(dev):
+    """The kWide workspace is allocated for a launch and handed back to the
+    caching allocator after it: chunk after chunk, the allocated bytes come
+    back to where they were and the reserved ones stop growing."""
+    from advancedvi_jl_tpu_torch.ops.cuda.fused_advi import fused_layout
+    from advancedvi_jl_tpu_torch.ops.cuda.fused_chains import FusedChainsADVI
+
+    spec, n = _wide_spec(dev, "gaussian_d2048")
+    assert fused_layout("fused_advi_meanfield")(MODEL_CODES["gaussian"], 0, 0, 0, n, 2048,
+                                                8)[2] == 3 * n * 2048
+    eng = FusedADVI(spec, n_samples=n)
+    ch = FusedChainsADVI(spec, n_chains=C8, n_samples=n)
+    st, cs = _init(eng, 0.1), ch.init(torch.zeros(C8, 2048), 0.1 * torch.ones(C8, 2048))
+    st, cs = eng.run_chunk(st, 0, 5), ch.run_chunk(cs, 0, 5)
+    torch.cuda.synchronize()
+    allocated, reserved = torch.cuda.memory_allocated(dev), torch.cuda.memory_reserved(dev)
+    for _ in range(3):
+        st, cs = eng.run_chunk(st, 0, 5), ch.run_chunk(cs, 0, 5)
+        torch.cuda.synchronize()
+        assert torch.cuda.memory_allocated(dev) == allocated
+        assert torch.cuda.memory_reserved(dev) == reserved
+
+
+def test_mvnormal_product_matches_torch_mm(dev):
+    """The dense Gaussian body's product alone (csrc/block_mm.cu
+    block_mm_mvnormal: P in shared memory at d = 62, in device memory at
+    512) against torch.mm in float64, within a few float32 roundings of a
+    d-term sum, two launches equal."""
+    from advancedvi_jl_tpu_torch.ops.cuda.block_mm_kernels import mvnormal_product_cuda
+
+    for n, d in ((N, 62), (N, 512), (64, 200), (3, 5)):
+        g = torch.Generator().manual_seed(d)
+        A = torch.randn(n, d, generator=g).to(dev)
+        P = torch.randn(d, d, generator=g).to(dev)
+        got, again = mvnormal_product_cuda(A, P), mvnormal_product_cuda(A, P)
+        torch.cuda.synchronize()
+        want = torch.mm(A.double(), P.double())
+        scale = torch.mm(A.abs().double(), P.abs().double())
+        assert torch.equal(got, again)
+        assert float(((got.double() - want).abs() / scale.clamp_min(1e-30)).max()) < 4 * d * 6e-8
