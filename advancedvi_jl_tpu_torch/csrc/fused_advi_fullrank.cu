@@ -54,7 +54,12 @@
 // 124,928-byte slab of 61 features, 20,480 of logits, 4 x 15,376 of
 // matrices, 8,192 of operators; 101,956 in place), 222,684 at d = 61;
 // COCOB's seven matrices do not, and go to device memory (166,124 bytes
-// left in shared).  The branch is a set of
+// left in shared).  A launch whose per-step arrays do not fit even with
+// both in device memory runs fused_advi_fullrank_tier_kernel, the same
+// body on a tiered layout (tier_layout): the model's data, then the logits
+// (K5: its scratch), then u, z, g and w leave shared memory in that order
+// for device memory, the last two into a workspace the wrapper allocates;
+// no sum changes its order.  The branch is a set of
 // runtime codes (avi::Branch), uniform over the launch, and one compiled
 // kernel serves
 // every branch: an instance with the flagship branch's codes constant, as
@@ -171,6 +176,72 @@ inline Placement place(int model, int n_data, int db, int batch, int n, int d, i
   return {mat, fits(mat, true)};
 }
 
+// The layout of a launch whose per-step arrays do not fit one block even
+// with the scale matrices and the panel operators in device memory (place()
+// put both there): the location rows, dmu, the row sums and the block
+// reduction stay in shared memory; the rest leaves it in this order, the
+// tier: 1 the model's data, read where it lies in device memory (logreg's X
+// and y; the staged transports' slab, read in the permuted design as the
+// in-place transport reads it, the prefetching one still pulling the next
+// slab into L2; K5's float constants, its unstaged program); 2 also the
+// logits (K5: its scratch, at a 16-byte offset), into the launch's device
+// workspace; 3 also u, z, g and w.  L's offsets are into shared memory or,
+// from their tier on, into the workspace of `ws` floats (a whole number of
+// float4s).
+struct TierLayout {
+  Layout L;
+  int tier, smem, ws;  // smem, ws: floats of shared memory and of workspace
+};
+
+__host__ __device__ inline TierLayout tier_layout_at(int model, int n_data, int db, int batch,
+                                                     int n, int d, int k, int tier) {
+  TierLayout T;
+  Layout& L = T.L;
+  int o = 0, w = 0;
+  const bool lr = model == avi::kLogReg;
+  const bool mb = avi::is_minibatch(model);
+  const bool data = tier < 1;  // the model's data in shared memory
+  L.X = o;   o += data ? (lr ? n_data * db : (avi::slab_staged(model) ? batch * db : 0)) : 0;
+  L.y = o;   o += lr ? (data ? n_data : 0) : (mb ? db : 0);  // labels, or yX[k]
+  int& ol = tier >= 2 ? w : o;
+  L.l = ol;  ol += lr ? n * n_data : (mb ? n * batch : 0);
+#ifdef AVI_AD_BODY
+  if (model == avi::kAD) {  // K5's scratch in the logits' tier; nothing staged
+    ol = avi::round4(ol);
+    L.ad = ol; ol += avi::ad::kScratch;
+    ol = avi::round4(ol);
+    L.adc = 0;
+  }
+#endif
+  int& od = tier >= 3 ? w : o;
+  L.u = od;  od += n * d;
+  L.z = od;  od += n * d;
+  L.g = od;  od += n * d;
+  L.w = od;  od += n * d;
+  L.vec = o; o += k * d;
+  L.dm = o;  o += d;
+  L.row = o; o += 6 * n + 1;
+  L.red = o; o += 2 * kWarps + 1;
+  L.mat = L.inv = o;
+  L.total = o;
+  T.tier = tier;
+  T.smem = o;
+  T.ws = avi::round4(w);
+  return T;
+}
+
+// The least tier whose shared part fits one block (tier 3 if none does: the
+// host refuses that launch).
+__host__ __device__ inline TierLayout tier_layout(int model, int n_data, int db, int batch,
+                                                  int n, int d, int k) {
+  TierLayout T;
+  for (int tier = 1; tier <= 3; ++tier) {
+    T = tier_layout_at(model, n_data, db, batch, n, d, k, tier);
+    if (sizeof(float) * static_cast<size_t>(T.smem) <= kSmemLimit) break;
+  }
+  return T;
+}
+
 // dC of lower entry (a, b): sum_i g_z[i, a] u[i, b] (the same arithmetic in
 // both passes of DoWG and DoG).
 __device__ __forceinline__ float lower_grad(const float* gs, const float* us, int n, int d,
@@ -213,309 +284,27 @@ __global__ void __maxnreg__(88) fused_advi_fullrank_kernel(
     const float* __restrict__ noise, float* inv_dev, int n, int d, int k, int steps,
     int log_every, uint32_t k0, uint32_t k1, unsigned long long it0, avi::Hyper h,
     avi::Branch br, Placement at) {
-#ifdef AVI_AD_BODY
-  model = avi::kAD;  // every other model's code drops out of this library
-#endif
-  extern __shared__ float smem[];
-  const Layout L = make_layout(model, n_data, db, batch, n, d, k, at.mat, at.inv);
-  const bool mat_in_smem = at.mat;
-  const bool logreg = model == avi::kLogReg;
-  const bool minibatch = avi::is_minibatch(model);
-  float* us = smem + L.u;
-  float* zs = smem + L.z;
-  float* gs = smem + L.g;
-  float* ws = smem + L.w;
-  float* mu = smem + L.vec;
-  float* m_mu = mu + d;
-  float* v_mu = mu + 2 * d;
-  float* a_mu = mu + 3 * d;
-  float* ext_mu = mu + 4 * d;  // COCOB: G, reward, theta of mu
-  float* dm = smem + L.dm;
-  float* beta_sq = smem + L.row;
-  float* tcol = beta_sq + n;
-  float* inv_sig2 = tcol + n;
-  float* logpi = inv_sig2 + n;
-  float* u2 = logpi + n;
-  float* ylogit = u2 + n;
-  float* logdet = ylogit + n;
-  float* red = smem + L.red;
-  float* eta_s = red + 2 * kWarps;
-  const size_t dd = static_cast<size_t>(d) * d;
-  float* sig = mat_in_smem ? smem + L.mat : mat_out;  // smem or device memory
-  float* m_sig = sig + dd;
-  float* v_sig = sig + 2 * dd;
-  float* a_sig = sig + 3 * dd;
-  float* ext_sig = sig + 4 * dd;  // COCOB: G, reward, theta of the scale
-  float* inv = at.inv ? smem + L.inv : inv_dev;   // the panel operators M_p
-  // no aligned beta copy here: the logreg products below read z and the logits' rows
-  const avi::LogReg lrm{smem + L.X, smem + L.y, smem + L.l, nullptr, n_data, db, n_data, 0,
-                        s0, s1};
-  avi::LogRegMB mbm{nullptr, smem + L.y, smem + L.l, nullptr, batch, db, 0, s0, s1};
-  const int nb = minibatch ? n_data / batch : 1;
-  const float* mean = c0;  // mvnormal: mean (d,) and precision (d, d)
-  const float* prec = c1;  // gaussian: mean (d,) and inverse variances (d,)
-  const float lognorm = s0;
+#define AVI_FR_TIERED 0
+#include "fused_fullrank_body.cuh"
+#undef AVI_FR_TIERED
+}
 
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  if (logreg) {
-    for (int i = tid; i < n_data * db; i += kThreads) smem[L.X + i] = c0[i];
-    for (int i = tid; i < n_data; i += kThreads) smem[L.y + i] = c1[i];
-  }
-  for (int i = tid; i < k * d; i += kThreads) mu[i] = vec_in[i];
-  for (size_t i = tid; i < k * dd; i += kThreads) sig[i] = mat_in[i];
-#ifdef AVI_AD_BODY
-  if (model == avi::kAD) avi::ad::ad_stage(c0, smem + L.adc, tid);
-#endif
-  __syncthreads();
-
-  const bool cf_zero = br.entropy == avi::kClosedFormZero;
-  const bool stl_zero = br.entropy == avi::kSTLZero;
-  const bool dist_rule = br.algo == avi::kDoWG || br.algo == avi::kDoG;
-  const bool cocob = br.algo == avi::kCOCOB;
-  const float inv_n = 1.0f / static_cast<float>(n);
-  const float ln_b1 = logf(h.b1);
-  const float ln_b2 = logf(h.b2);
-  const float ent_const = 0.5f * static_cast<float>(d) * kLog2Pi;
-  const float ent_closed = 0.5f * static_cast<float>(d) * (1.0f + kLog2Pi);
-  const int groups = (d + 3) / 4;
-  const int nd = n * d;
-  float elbo = 0.0f;
-#ifdef AVI_PHASE_CLOCKS
-  long long t_prev = clock64();
-#endif
-
-  for (int s = 0; s < steps; ++s) {
-    const unsigned long long it = it0 + static_cast<unsigned long long>(s);
-    // the minibatch slab of this step starts on its way (staged transports)
-    if (minibatch)
-      mbm.X = avi::minibatch_step_begin(model, c0, c1, batch, db, nb, it, smem + L.X,
-                                        smem + L.y, tid, kThreads);
-
-    // A: base draws, z = m + u C^T, |u|^2 per row, log det C
-    if (noise != nullptr) {
-      const float* src = noise + static_cast<size_t>(s) * nd;
-      for (int idx = tid; idx < nd; idx += kThreads) us[idx] = src[idx];
-    } else {
-      for (int pair = tid; pair < n * groups; pair += kThreads) {
-        const int i = pair / groups;
-        const int g = pair - i * groups;
-        float w[4];
-        avi::normals4(k0, k1, static_cast<uint32_t>(it), static_cast<uint32_t>(i),
-                      static_cast<uint32_t>(g), w);
-#pragma unroll
-        for (int p = 0; p < 4; ++p)
-          if (4 * g + p < d) us[i * d + 4 * g + p] = w[p];
-      }
-    }
-    __syncthreads();
-    AVI_PHASE(0);
-    // one warp per row a of C, its lanes along the row (coalesced), all
-    // sample rows at once: C is read once a step
-    for (int a = warp; a < d; a += kWarps) {
-      const float* cr = sig + static_cast<size_t>(a) * d;
-      for (int i0 = 0; i0 < n; i0 += kRowChunk) {
-        float acc[kRowChunk];
-#pragma unroll
-        for (int r = 0; r < kRowChunk; ++r) acc[r] = 0.0f;
-        for (int b = lane; b <= a; b += 32) {
-          const float cv = cr[b];
-#pragma unroll
-          for (int r = 0; r < kRowChunk; ++r)
-            if (i0 + r < n) acc[r] = fmaf(us[(i0 + r) * d + b], cv, acc[r]);
-        }
-#pragma unroll
-        for (int r = 0; r < kRowChunk; ++r) {
-          const float v = avi::warp_sum(acc[r]);
-          if (lane == 0 && i0 + r < n) zs[(i0 + r) * d + a] = __fadd_rn(v, mu[a]);
-        }
-      }
-    }
-    for (int i = warp; i < n; i += kWarps) {
-      float uu = 0.0f;
-      for (int j = lane; j < d; j += 32) {
-        const float v = us[i * d + j];
-        uu += v * v;
-      }
-      uu = avi::warp_sum(uu);
-      if (lane == 0) u2[i] = uu;
-    }
-    if (warp == kWarps - 1) {  // log det of the pre-update scale
-      float ld = 0.0f;
-      for (int j = lane; j < d; j += 32) ld += logf(sig[static_cast<size_t>(j) * d + j]);
-      ld = avi::warp_sum(ld);
-      if (lane == 0) *logdet = ld;
-    }
-    __syncthreads();
-    AVI_PHASE(1);
-
-    // B: log pi and its gradient
-    if (logreg) {
-      avi::logreg_rows(lrm, zs, n, d, beta_sq, tcol, inv_sig2, warp, kWarps, lane);
-      __syncthreads();
-      // one output a thread, k in order: block_mm spilled under the 88-register cap
-      avi::logreg_logits_each(lrm, zs, n, d, tid, kThreads);
-      __syncthreads();
-      avi::logreg_logpi(lrm, n, beta_sq, tcol, inv_sig2, logpi, warp, kWarps, lane);
-      __syncthreads();
-      avi::logreg_grad_each(lrm, zs, n, d, beta_sq, tcol, inv_sig2, gs, tid, kThreads);
-    } else if (minibatch) {
-      avi::logreg_mb_rows(mbm, zs, n, d, beta_sq, tcol, inv_sig2, ylogit, warp, kWarps, lane);
-      if (avi::slab_staged(model)) avi::cp_async_wait_all();  // this thread's copies landed
-      __syncthreads();
-      // one output a thread, k in order: block_mm spilled under the 88-register cap
-      avi::logreg_mb_logits_each(mbm, zs, n, d, tid, kThreads);
-      __syncthreads();
-      avi::logreg_mb_logpi(mbm, n, beta_sq, tcol, inv_sig2, ylogit, logpi, warp, kWarps, lane);
-      __syncthreads();
-      avi::logreg_mb_grad_each(mbm, zs, n, d, beta_sq, tcol, inv_sig2, gs, tid, kThreads);
-    } else if (model == avi::kGaussian) {
-      avi::gaussian_body(mean, prec, lognorm, zs, n, d, logpi, gs, warp, kWarps, lane);
-#ifdef AVI_AD_BODY
-    } else if (model == avi::kAD) {  // K5: log pi and its gradient
-      long long t_logpi = 0;  // the body's mark after log pi (unused here)
-      avi::ad::ad_body(c0, reinterpret_cast<const int*>(c1), smem + L.adc, zs, n, d, logpi, gs,
-                       smem + L.ad, tid, &t_logpi);
-#endif
-    } else {
-      for (int idx = tid; idx < nd; idx += kThreads) ws[idx] = zs[idx] - mean[idx % d];
-      __syncthreads();
-      // one thread per column a of P (coalesced), all sample rows at once:
-      // P is read once a step
-      for (int a = tid; a < d; a += kThreads) {
-        for (int i0 = 0; i0 < n; i0 += kRowChunk) {
-          float acc[kRowChunk];
-#pragma unroll
-          for (int r = 0; r < kRowChunk; ++r) acc[r] = 0.0f;
-#pragma unroll 4
-          for (int b = 0; b < d; ++b) {
-            const float pv = prec[static_cast<size_t>(b) * d + a];
-#pragma unroll
-            for (int r = 0; r < kRowChunk; ++r)
-              if (i0 + r < n) acc[r] = fmaf(ws[(i0 + r) * d + b], pv, acc[r]);
-          }
-#pragma unroll
-          for (int r = 0; r < kRowChunk; ++r)
-            if (i0 + r < n) gs[(i0 + r) * d + a] = -acc[r];
-        }
-      }
-      __syncthreads();
-      for (int i = warp; i < n; i += kWarps) {
-        float q = 0.0f;
-        for (int j = lane; j < d; j += 32) q += ws[i * d + j] * gs[i * d + j];
-        q = avi::warp_sum(q);
-        if (lane == 0) logpi[i] = 0.5f * q + lognorm;
-      }
-    }
-    __syncthreads();
-    AVI_PHASE(2);
-
-    // C: whitening w = C^{-T} u, in row form W = U C^{-1} (K8's mode C)
-    if (!cf_zero) {
-      for (int idx = tid; idx < nd; idx += kThreads) ws[idx] = us[idx];
-      __syncthreads();
-      avi::solve_right_rows(sig, d, ws, n, inv);
-    }
-    AVI_PHASE(3);
-
-    // D: g_z, dmu, then (DoWG, DoG) the global sums before any entry moves
-    for (int idx = tid; idx < nd; idx += kThreads)
-      gs[idx] = -inv_n * (cf_zero ? gs[idx] : gs[idx] + ws[idx]);
-    __syncthreads();
-    float part_g = 0.0f, part_x = 0.0f;
-    for (int a = tid; a < d; a += kThreads) {
-      float dmu = 0.0f;
-      for (int i = 0; i < n; ++i) dmu += gs[i * d + a];
-      dm[a] = dmu;
-      if (dist_rule) {
-        const float xm = mu[a] - m_mu[a];
-        part_g += dmu * dmu;
-        part_x += xm * xm;
-      }
-    }
-    if (dist_rule) {
-      for (int a = warp; a < d; a += kWarps)
-        for (int b = lane; b <= a; b += 32) {
-          const size_t e = static_cast<size_t>(a) * d + b;
-          float dc = lower_grad(gs, us, n, d, a, b);
-          if (stl_zero && a == b) dc += 1.0f / sig[e];
-          const float xs = sig[e] - m_sig[e];
-          part_g += dc * dc;
-          part_x += xs * xs;
-        }
-      const float2 tot = avi::block_sum2(part_g, part_x, red, kWarps);
-      if (tid == 0) *eta_s = avi::distance_rule_step(br.algo, tot.x, tot.y, v_mu[0], v_mu[1]);
-      __syncthreads();
-    }  // the other rules need no barrier: a thread reads back its own dm[a]
-
-    // D: the rule, the operator on the diagonal and the averaging
-    const float c = static_cast<float>(it) + 1.0f;
-    const float bc1 = 1.0f - expf(c * ln_b1);
-    const float bc2 = 1.0f - expf(c * ln_b2);
-    const float w = (h.avg_eta + 1.0f) / (c + h.avg_eta);
-    const float eta = br.algo == avi::kDescent ? h.lr : (dist_rule ? *eta_s : 0.0f);
-    for (int a = tid; a < d; a += kThreads) {
-      float G = 0.0f, R = 0.0f, T = 0.0f;
-      if (cocob) {
-        G = ext_mu[a];
-        R = ext_mu[d + a];
-        T = ext_mu[2 * d + a];
-      }
-      avi::rule_step(br, h, eta, bc1, bc2, mu[a], m_mu[a], v_mu[a], G, R, T, dm[a]);
-      if (cocob) {
-        ext_mu[a] = G;
-        ext_mu[d + a] = R;
-        ext_mu[2 * d + a] = T;
-      }
-      if (dist_rule && a >= 2) v_mu[a] = 0.0f;  // v_mu holds [v, r, 0, ...]
-      a_mu[a] = (1.0f - w) * a_mu[a] + w * mu[a];
-    }
-    for (int a = warp; a < d; a += kWarps) {  // the lower triangle, row by row
-      for (int b = lane; b <= a; b += 32) {
-        const size_t e = static_cast<size_t>(a) * d + b;
-        float dc = lower_grad(gs, us, n, d, a, b);
-        if (stl_zero && a == b) dc += 1.0f / sig[e];  // the pre-update diagonal
-        float x = sig[e], m = m_sig[e], v = v_sig[e];
-        float G = 0.0f, R = 0.0f, T = 0.0f;
-        if (cocob) {
-          G = ext_sig[e];
-          R = ext_sig[dd + e];
-          T = ext_sig[2 * dd + e];
-        }
-        avi::rule_step(br, h, eta, bc1, bc2, x, m, v, G, R, T, dc);
-        if (cocob) {
-          ext_sig[e] = G;
-          ext_sig[dd + e] = R;
-          ext_sig[2 * dd + e] = T;
-        }
-        if (a == b) x = avi::scale_operator(br.op, x, eta, h);
-        sig[e] = x;
-        m_sig[e] = m;
-        v_sig[e] = v;
-        a_sig[e] = (1.0f - w) * a_sig[e] + w * x;
-      }
-    }
-
-    // E: the step's ELBO estimate, energy + entropy value
-    if (tid == 0) {
-      float energy = 0.0f, uu = 0.0f;
-      for (int i = 0; i < n; ++i) {
-        energy += logpi[i];
-        uu += u2[i];
-      }
-      elbo = inv_n * energy +
-             (cf_zero ? *logdet + ent_closed : *logdet + inv_n * (0.5f * uu) + ent_const);
-      if (log_every > 0 && (s + 1) % log_every == 0) trace[(s + 1) / log_every - 1] = elbo;
-    }
-    __syncthreads();
-    AVI_PHASE(4);
-  }
-
-  for (int i = tid; i < k * d; i += kThreads) vec_out[i] = mu[i];
-  if (mat_in_smem)
-    for (size_t i = tid; i < k * dd; i += kThreads) mat_out[i] = sig[i];
-  if (tid == 0) *elbo_out = elbo;
+// The tiered layout (tier_layout, tiers 1-3): the same body with the scale
+// matrices and the panel operators in device memory and the per-step arrays
+// from `tier` on in the workspace `work`.  Its own kernel, so the one above
+// keeps its code; under 88 registers this one spilled, so ptxas takes the
+// 128 one block an SM allows.
+__global__ void __launch_bounds__(kThreads, 1) fused_advi_fullrank_tier_kernel(
+    int model, const float* __restrict__ c0, const float* __restrict__ c1,
+    int n_data, int db, int batch, float s0, float s1, const float* __restrict__ vec_in,
+    const float* __restrict__ mat_in, float* __restrict__ vec_out, float* mat_out,
+    float* __restrict__ elbo_out, float* __restrict__ trace,
+    const float* __restrict__ noise, float* inv_dev, int n, int d, int k, int steps,
+    int log_every, uint32_t k0, uint32_t k1, unsigned long long it0, avi::Hyper h,
+    avi::Branch br, float* __restrict__ work, int tier) {
+#define AVI_FR_TIERED 1
+#include "fused_fullrank_body.cuh"
+#undef AVI_FR_TIERED
 }
 
 #ifndef AVI_AD_BODY  // K5's libraries run the single-block kernel only
@@ -1276,14 +1065,35 @@ __global__ void __maxnreg__(128) fused_advi_fullrank_cluster_kernel(
 
 }  // namespace
 
-// The dynamic shared memory a launch uses: with the k scale matrices and
-// the whitening's panel operators in shared memory where they fit (place),
-// without them otherwise; k is 4, or 7 with COCOB.
+// The dynamic shared memory of a launch with every per-step array in
+// shared memory: with the k scale matrices and the whitening's panel
+// operators in shared memory where they fit (place), without them
+// otherwise; k is 4, or 7 with COCOB.  Above the limit, the launch takes
+// the tiered layout, fused_advi_fullrank_layout.
 extern "C" size_t fused_advi_fullrank_smem_bytes(int model, int n_data, int db, int batch,
                                                  int n, int d, int k) {
   const Placement at = place(model, n_data, db, batch, n, d, k);
   return sizeof(float) * static_cast<size_t>(
                              make_layout(model, n_data, db, batch, n, d, k, at.mat, at.inv).total);
+}
+
+// What a single-block launch takes: out[0] its tier (-1: every per-step
+// array in shared memory, fused_advi_fullrank_smem_bytes), out[1] its bytes
+// of dynamic shared memory, out[2] the floats of device workspace the
+// caller passes as `ws` (0: none).
+extern "C" void fused_advi_fullrank_layout(int model, int n_data, int db, int batch, int n,
+                                           int d, int k, long long* out) {
+  const size_t all = fused_advi_fullrank_smem_bytes(model, n_data, db, batch, n, d, k);
+  if (all <= kSmemLimit) {
+    out[0] = -1;
+    out[1] = static_cast<long long>(all);
+    out[2] = 0;
+    return;
+  }
+  const TierLayout T = tier_layout(model, n_data, db, batch, n, d, k);
+  out[0] = T.tier;
+  out[1] = static_cast<long long>(sizeof(float)) * T.smem;
+  out[2] = T.ws;
 }
 
 #ifdef AVI_PHASE_CLOCKS
@@ -1311,13 +1121,16 @@ extern "C" int fused_advi_fullrank_phase_cycles(unsigned long long* out) {
 // elbo_out: one float; trace: (steps / log_every,) or null when
 // log_every == 0; noise: (steps, n, d) or null for in-kernel Philox;
 // inv_scratch: tri_panels(d) x 32 x 32 floats of device memory for the
-// whitening's panel operators, used when they do not fit in shared memory.  algo,
+// whitening's panel operators, used when they do not fit in shared memory;
+// ws: the tiered layout's workspace of fused_advi_fullrank_layout's out[2]
+// floats (null when that is 0).  algo,
 // entropy, grad_est, op: the avi::Branch codes (grad_est must be the
 // reparameterization gradient).  Returns cudaGetLastError() after the
 // launch (0 on success), or cudaErrorInvalidValue for a launch the kernel
 // does not take.  Model 6 (a library built with AVI_AD_BODY): K5's
 // generated body at its (n, d), c0 = packed float constants, c1 = packed
-// int32 constants.
+// int32 constants (on the tiered layout only a body whose constants are not
+// staged, kStage 0).
 extern "C" int fused_advi_fullrank(
     int model, const float* c0, const float* c1, int n_data, int db, int batch, float s0,
     float s1, const float* vec_in, const float* mat_in, float* vec_out,
@@ -1325,7 +1138,7 @@ extern "C" int fused_advi_fullrank(
     int n, int d,
     int steps, int log_every, uint32_t seed0, uint32_t seed1, unsigned long long it0,
     float lr, float b1, float b2, float eps, float avg_eta, float clip_eps, int algo,
-    int entropy, int grad_est, int op, float cocob_alpha, cudaStream_t stream) {
+    int entropy, int grad_est, int op, float cocob_alpha, float* ws, cudaStream_t stream) {
   const int k = algo == avi::kCOCOB ? 7 : 4;
   const bool dist_rule = algo == avi::kDoWG || algo == avi::kDoG;
   const bool mb = avi::is_minibatch(model);
@@ -1339,16 +1152,33 @@ extern "C" int fused_advi_fullrank(
       (mb && (batch < 1 || batch % 8 != 0 || n_data % batch != 0 || n_data < batch ||
               reinterpret_cast<uintptr_t>(c0) % 16 != 0)))
     return static_cast<int>(cudaErrorInvalidValue);
+  long long lay[3];
+  fused_advi_fullrank_layout(model, n_data, db, batch, n, d, k, lay);
+  const size_t smem = static_cast<size_t>(lay[1]);
+  if (smem > kSmemLimit || (lay[2] > 0 && ws == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const avi::Hyper h{lr, b1, b2, eps, avg_eta, clip_eps};
+  const avi::Branch br{algo, entropy, grad_est, op, cocob_alpha};
+  if (lay[0] >= 0) {
+#ifdef AVI_AD_BODY  // the tiered layout stages no constants
+    if (avi::ad::kStage > 0) return static_cast<int>(cudaErrorInvalidValue);
+#endif
+    cudaError_t err = cudaFuncSetAttribute(fused_advi_fullrank_tier_kernel,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    fused_advi_fullrank_tier_kernel<<<1, kThreads, smem, stream>>>(
+        model, c0, c1, n_data, db, batch, s0, s1, vec_in, mat_in, vec_out, mat_out, elbo_out,
+        trace, noise, inv_scratch, n, d, k, steps, log_every, seed0, seed1, it0, h, br, ws,
+        static_cast<int>(lay[0]));
+    return static_cast<int>(cudaGetLastError());
+  }
   const Placement at = place(model, n_data, db, batch, n, d, k);
-  const size_t smem = fused_advi_fullrank_smem_bytes(model, n_data, db, batch, n, d, k);
-  if (smem > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
   // above 48 KB only after this call; without it the launch is refused
   cudaError_t err = cudaFuncSetAttribute(fused_advi_fullrank_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const avi::Hyper h{lr, b1, b2, eps, avg_eta, clip_eps};
-  const avi::Branch br{algo, entropy, grad_est, op, cocob_alpha};
   fused_advi_fullrank_kernel<<<1, kThreads, smem, stream>>>(
       model, c0, c1, n_data, db, batch, s0, s1, vec_in, mat_in, vec_out, mat_out, elbo_out,
       trace, noise, inv_scratch, n, d, k, steps, log_every, seed0, seed1, it0, h, br, at);

@@ -41,9 +41,12 @@
 // in dynamic shared memory for the whole chunk where they fit one block;
 // the dense Gaussian, and a dense launch that does not fit, run the kWide
 // group instead (fused_meanfield_body.cuh wide_layout): the state rows and
-// row sums stay in shared memory, and the model's data, then the logits,
-// then u, z and g move to device memory (the last two into a workspace the
-// wrapper allocates), each step's phases and sums unchanged.
+// row sums stay in shared memory, and the model's data, then the logits
+// (K5: its scratch), then u, z and g move to device memory (the last two
+// into a workspace the wrapper allocates), each step's phases and sums
+// unchanged.  A minibatch launch that does not fit runs the kMbWide group
+// (mb_layout): the logits, then the staged slab (read in place), then zb,
+// u, z and g leave shared memory in that order.
 //
 // The minibatch body (fused_common.cuh; its two products on block_mm, as
 // the flagship's) reads step it's slab k = it mod nb of the permuted
@@ -122,12 +125,12 @@ auto kernel_for(bool flagship_branch) {
   return flagship_branch ? fused_advi_meanfield_kernel<false, kGroup> : fused_advi_meanfield_kernel<true, kGroup>;
 }
 
-#ifndef AVI_AD_BODY
 // The kWide group (the dense Gaussian, and any dense model whose layout does
-// not fit one block: fused_meanfield_body.cuh wide_layout), every branch by
-// runtime codes, with its device workspace `ws` (wide_layout's floats, or
-// null when its tier keeps none).  Its own kernel, so the instances above
-// keep their signatures and their code.
+// not fit one block: fused_meanfield_body.cuh wide_layout; built with
+// AVI_AD_BODY, K5's body that does not fit), every branch by runtime codes,
+// with its device workspace `ws` (wide_layout's floats, or null when its
+// tier keeps none).  Its own kernel, so the instances above keep their
+// signatures and their code.
 __global__ void __launch_bounds__(kThreads, 1) fused_advi_meanfield_wide_kernel(
     int model, const float* __restrict__ c0, const float* __restrict__ c1, int n_data,
     int db, int batch, float s0, float s1, const float* __restrict__ state_in,
@@ -138,6 +141,22 @@ __global__ void __launch_bounds__(kThreads, 1) fused_advi_meanfield_wide_kernel(
   avi::mf::run_chunk<true, avi::mf::kWide>(model, c0, c1, n_data, db, batch, s0, s1, state_in,
                                            state_out, elbo_out, trace, noise, n, d, n_rows,
                                            steps, log_every, k0, k1, it0, h, br, ws);
+}
+
+#ifndef AVI_AD_BODY
+// The kMbWide group (a minibatch launch whose layout does not fit one block:
+// fused_meanfield_body.cuh mb_layout), every branch by runtime codes, with
+// its device workspace `ws` of mb_layout's floats.
+__global__ void __launch_bounds__(kThreads, 1) fused_advi_meanfield_mb_wide_kernel(
+    int model, const float* __restrict__ c0, const float* __restrict__ c1, int n_data,
+    int db, int batch, float s0, float s1, const float* __restrict__ state_in,
+    float* __restrict__ state_out, float* __restrict__ elbo_out, float* __restrict__ trace,
+    const float* __restrict__ noise, int n, int d, int n_rows, int steps, int log_every,
+    uint32_t k0, uint32_t k1, unsigned long long it0, avi::Hyper h, avi::Branch br,
+    float* __restrict__ ws) {
+  avi::mf::run_chunk<true, avi::mf::kMbWide>(model, c0, c1, n_data, db, batch, s0, s1,
+                                             state_in, state_out, elbo_out, trace, noise, n, d,
+                                             n_rows, steps, log_every, k0, k1, it0, h, br, ws);
 }
 #endif
 
@@ -186,7 +205,8 @@ extern "C" int fused_advi_meanfield_phase_cycles(unsigned long long* out) {
 // (steps, n, d) or null for in-kernel Philox.  algo, entropy, grad_est, op:
 // the avi::Branch codes.  Model 6 (a library built with AVI_AD_BODY): K5's
 // generated body at its (n, d), c0 = packed float constants, c1 = packed
-// int32 constants.  ws: the kWide group's device workspace of
+// int32 constants (on the kWide group only a body whose constants are not
+// staged, kStage 0).  ws: the kWide or kMbWide group's device workspace of
 // fused_advi_meanfield_layout's out[2] floats (null when that is 0).
 // Returns cudaGetLastError() after the launch (0 on success), or
 // cudaErrorInvalidValue for a launch the kernel does not take.
@@ -217,23 +237,29 @@ extern "C" int fused_advi_meanfield(
   const bool def = avi::is_default(algo, entropy, grad_est, op);
   const avi::Hyper h{lr, b1, b2, eps, avg_eta, clip_eps};
   const avi::Branch br{algo, entropy, grad_est, op, cocob_alpha};
-#ifdef AVI_AD_BODY  // the dense instances only: the body runs alone
-  if (lay[0] != avi::mf::kDense) return static_cast<int>(cudaErrorInvalidValue);
+  const int group = static_cast<int>(lay[0]);
+#ifdef AVI_AD_BODY  // the dense and kWide instances only: the body runs alone
+  if (group != avi::mf::kDense && (group != avi::mf::kWide || avi::ad::kStage > 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto wide = fused_advi_meanfield_wide_kernel;
+#else
+  const auto wide = group == avi::mf::kWide ? fused_advi_meanfield_wide_kernel
+                                            : fused_advi_meanfield_mb_wide_kernel;
+#endif
+  if (group == avi::mf::kWide || group == avi::mf::kMbWide) {
+    cudaError_t err = cudaFuncSetAttribute(wide, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    wide<<<1, kThreads, smem, stream>>>(model, c0, c1, n_data, db, batch, s0, s1, state_in,
+                                        state_out, elbo_out, trace, noise, n, d, n_rows, steps,
+                                        log_every, seed0, seed1, it0, h, br, ws);
+    return static_cast<int>(cudaGetLastError());
+  }
+#ifdef AVI_AD_BODY
   const auto kernel = kernel_for<avi::mf::kDense>(def);
 #else
   using avi::mf::kDensePlain;
   using avi::mf::kMinibatch;
-  const int group = static_cast<int>(lay[0]);
-  if (group == avi::mf::kWide) {
-    cudaError_t err = cudaFuncSetAttribute(fused_advi_meanfield_wide_kernel,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    fused_advi_meanfield_wide_kernel<<<1, kThreads, smem, stream>>>(
-        model, c0, c1, n_data, db, batch, s0, s1, state_in, state_out, elbo_out, trace, noise,
-        n, d, n_rows, steps, log_every, seed0, seed1, it0, h, br, ws);
-    return static_cast<int>(cudaGetLastError());
-  }
   const auto kernel = group == kMinibatch    ? kernel_for<kMinibatch>(def)
                       : group == kDensePlain ? kernel_for<kDensePlain>(def)
                                              : kernel_for<avi::mf::kDense>(def);

@@ -59,8 +59,9 @@
 // (AVI_AD_BODY) has its scratch and barriers placed for one chain and
 // keeps G = 1.  So does a design too large for the aligned layout (the
 // kDensePlain group): its G = 2 layout never fits one block; and so does a
-// launch of the kWide group that needs the device workspace
-// (fused_chains_wide_kernel, each chain its own slice of it).  The dense
+// launch of the kWide or kMbWide group that needs the device workspace
+// (fused_chains_wide_kernel and fused_chains_mb_wide_kernel, each chain its
+// own slice of it; K5's body on kWide too).  The dense
 // Gaussian, in the kWide group, runs G > 1 chains a block where their
 // layout fits, its P staged once for the block where it fits beside them.
 //
@@ -108,12 +109,13 @@ auto kernel_for(bool flagship_branch) {
   return flagship_branch ? fused_chains_kernel<false, kGroup> : fused_chains_kernel<true, kGroup>;
 }
 
-#ifndef AVI_AD_BODY
-// One chain a block of the kWide group (fused_meanfield_body.cuh
-// wide_layout): fused_advi_meanfield_wide_kernel's body keyed by chain c,
-// with chain c's slice of the device workspace, ws + c ws_floats.  Its own
-// kernel, so the instances above keep their signatures and their code.
-__global__ void __launch_bounds__(kThreads, 1) fused_chains_wide_kernel(
+// One chain a block of a group on the device workspace, kWide or kMbWide
+// (fused_meanfield_body.cuh wide_layout, mb_layout): the single-chain
+// kernel's body keyed by chain c, with chain c's slice of the device
+// workspace, ws + c ws_floats.  Each group its own kernel below, so the
+// instances above keep their signatures and their code.
+template <int kGroup>
+__device__ __forceinline__ void run_chain_on_workspace(
     int model, const float* __restrict__ c0, const float* __restrict__ c1, int n_data,
     int db, int batch, float s0, float s1, const float* __restrict__ state_in,
     float* __restrict__ state_out, float* __restrict__ elbo_out, float* __restrict__ trace,
@@ -129,10 +131,37 @@ __global__ void __launch_bounds__(kThreads, 1) fused_chains_wide_kernel(
   if (trace != nullptr) tr = trace + static_cast<size_t>(c) * (steps / log_every);
   const float* nz = nullptr;
   if (noise != nullptr) nz = noise + static_cast<size_t>(c) * steps * n * d;
-  avi::mf::run_chunk<true, avi::mf::kWide>(
+  avi::mf::run_chunk<true, kGroup>(
       model, c0, c1, n_data, db, batch, s0, s1, state_in + c * rows, state_out + c * rows,
       elbo_out + c, tr, nz, n, d, n_rows, steps, log_every, seeds[2 * c], seeds[2 * c + 1], it0,
       h, br, ws == nullptr ? nullptr : ws + c * ws_floats);
+}
+
+__global__ void __launch_bounds__(kThreads, 1) fused_chains_wide_kernel(
+    int model, const float* __restrict__ c0, const float* __restrict__ c1, int n_data,
+    int db, int batch, float s0, float s1, const float* __restrict__ state_in,
+    float* __restrict__ state_out, float* __restrict__ elbo_out, float* __restrict__ trace,
+    const float* __restrict__ noise, int n, int d, int n_rows, int steps, int log_every,
+    const uint32_t* __restrict__ seeds, unsigned long long it0, const float* __restrict__ lrs,
+    const int* __restrict__ rules, avi::Hyper h, avi::Branch br, float* __restrict__ ws,
+    long long ws_floats) {
+  run_chain_on_workspace<avi::mf::kWide>(
+      model, c0, c1, n_data, db, batch, s0, s1, state_in, state_out, elbo_out, trace, noise, n,
+      d, n_rows, steps, log_every, seeds, it0, lrs, rules, h, br, ws, ws_floats);
+}
+
+#ifndef AVI_AD_BODY
+__global__ void __launch_bounds__(kThreads, 1) fused_chains_mb_wide_kernel(
+    int model, const float* __restrict__ c0, const float* __restrict__ c1, int n_data,
+    int db, int batch, float s0, float s1, const float* __restrict__ state_in,
+    float* __restrict__ state_out, float* __restrict__ elbo_out, float* __restrict__ trace,
+    const float* __restrict__ noise, int n, int d, int n_rows, int steps, int log_every,
+    const uint32_t* __restrict__ seeds, unsigned long long it0, const float* __restrict__ lrs,
+    const int* __restrict__ rules, avi::Hyper h, avi::Branch br, float* __restrict__ ws,
+    long long ws_floats) {
+  run_chain_on_workspace<avi::mf::kMbWide>(
+      model, c0, c1, n_data, db, batch, s0, s1, state_in, state_out, elbo_out, trace, noise, n,
+      d, n_rows, steps, log_every, seeds, it0, lrs, rules, h, br, ws, ws_floats);
 }
 #endif
 
@@ -671,17 +700,35 @@ extern "C" int fused_chains(
   const bool def = rules == nullptr && avi::is_default(algo, entropy, grad_est, op);
   const avi::Hyper h{lr, b1, b2, eps, avg_eta, clip_eps};
   const avi::Branch br{algo, entropy, grad_est, op, cocob_alpha};
-#ifdef AVI_AD_BODY  // the dense instances only: the body runs alone
-  if (lay[0] != avi::mf::kDense) return static_cast<int>(cudaErrorInvalidValue);
+  const int group = static_cast<int>(lay[0]);
+#ifdef AVI_AD_BODY  // the dense and kWide instances only: the body runs alone
+  if (group != avi::mf::kDense && (group != avi::mf::kWide || avi::ad::kStage > 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto wide = fused_chains_wide_kernel;
+#else
+  const auto wide = group == avi::mf::kWide ? fused_chains_wide_kernel
+                                            : fused_chains_mb_wide_kernel;
+#endif
+  if (G == 1 && (group == avi::mf::kWide || group == avi::mf::kMbWide)) {
+    cudaError_t err = cudaFuncSetAttribute(wide, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    wide<<<n_chains, kThreads, smem, stream>>>(model, c0, c1, n_data, db, batch, s0, s1,
+                                               state_in, state_out, elbo_out, trace, noise, n,
+                                               d, n_rows, steps, log_every, seeds, it0, lrs,
+                                               rules, h, br, ws, lay[2]);
+    return static_cast<int>(cudaGetLastError());
+  }
+#ifdef AVI_AD_BODY
   const auto kernel = kernel_for<avi::mf::kDense>(def);
 #else
   using avi::mf::kDensePlain;
   using avi::mf::kMinibatch;
   using avi::mf::kWide;
-  const int group = static_cast<int>(lay[0]);
   if (G > 1) {
     // kWide's G-chain blocks run the dense Gaussian alone, with no workspace
-    if (group == kDensePlain || (group == kWide && model != avi::kMvNormal))
+    if (group == kDensePlain || group == avi::mf::kMbWide ||
+        (group == kWide && model != avi::kMvNormal))
       return static_cast<int>(cudaErrorInvalidValue);
     const auto gk = group == kMinibatch ? g_kernel_for<kMinibatch>(def)
                     : group == kWide    ? fused_chains_g_kernel<true, kWide>
@@ -692,16 +739,6 @@ extern "C" int fused_chains(
     gk<<<(n_chains + G - 1) / G, kThreads, smem, stream>>>(
         model, c0, c1, n_data, db, batch, s0, s1, state_in, state_out, elbo_out, trace, noise,
         n_chains, G, n, d, n_rows, steps, log_every, seeds, it0, lrs, rules, h, br);
-    return static_cast<int>(cudaGetLastError());
-  }
-  if (group == kWide) {
-    cudaError_t err = cudaFuncSetAttribute(fused_chains_wide_kernel,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    fused_chains_wide_kernel<<<n_chains, kThreads, smem, stream>>>(
-        model, c0, c1, n_data, db, batch, s0, s1, state_in, state_out, elbo_out, trace, noise, n,
-        d, n_rows, steps, log_every, seeds, it0, lrs, rules, h, br, ws, lay[2]);
     return static_cast<int>(cudaGetLastError());
   }
   const auto kernel = group == kMinibatch    ? kernel_for<kMinibatch>(def)

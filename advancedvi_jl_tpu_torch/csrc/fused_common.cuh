@@ -588,6 +588,24 @@ __device__ __forceinline__ const float* minibatch_step_begin(
   return stage;
 }
 
+// The top of a minibatch step whose staged slab does not fit in shared
+// memory (the tiered layouts): yX[k] into `yx`, and the rows of slab k read
+// where they lie in the permuted design, as the in-place transport reads
+// them; the prefetching transport still pulls slab (it + 1) mod nb into L2.
+// Returns the slab pointer the body reads.
+__device__ __forceinline__ const float* minibatch_step_in_place(
+    int model, const float* __restrict__ X, const float* __restrict__ yX, int B, int db,
+    int nb, unsigned long long it, float* yx, int tid, int threads) {
+  const int k = static_cast<int>(it % static_cast<unsigned long long>(nb));
+  const size_t slab = static_cast<size_t>(B) * db;
+  for (int j = tid; j < db; j += threads) yx[j] = yX[static_cast<size_t>(k) * db + j];
+  if (model == kMbPrefetch) {
+    const int kn = static_cast<int>((it + 1) % static_cast<unsigned long long>(nb));
+    prefetch_l2(X + static_cast<size_t>(kn) * slab, static_cast<int>(slab), tid, threads);
+  }
+  return X + static_cast<size_t>(k) * slab;
+}
+
 }  // namespace avi
 
 #ifdef AVI_AD_BODY  // the generated body's file name, e.g. ad_0123456789abcdef.cuh

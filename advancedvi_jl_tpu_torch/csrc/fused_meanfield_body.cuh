@@ -10,16 +10,17 @@
 // hands the body its block's pointers and constants; the body is a
 // forced-inline device function, so the single-chain kernel compiles to
 // what it was before the body moved here.
-// A launch of the kWide group (wide_layout below) keeps only the state
-// rows, the row sums and the block reduction in shared memory where the
-// rest does not fit, and reads the others through `ws`, its block's device
-// workspace.
+// A launch of the kWide or kMbWide group (wide_layout, mb_layout below)
+// keeps only the state rows, the row sums and the block reduction in shared
+// memory where the rest does not fit, and reads the others through `ws`, its
+// block's device workspace.
 // Built with AVI_AD_BODY, the model phase also takes K5's generated body
 // (model kAD, c0 and c1 its packed float and int constants in device memory,
 // its scratch after the layout's other arrays, then its float constants
-// staged in shared memory where the host found that they fit, ad_program);
-// every line of it is under that macro, so the other libraries compile as
-// without it.
+// staged in shared memory where the host found that they fit, ad_program;
+// on the kWide group the constants stay in device memory and the scratch
+// takes the logits' tier); every line of it is under that macro, so the
+// other libraries compile as without it.
 //
 // Built with AVI_PHASE_CLOCKS (fused_run_chunk_cuda(..., instrumented=True),
 // read by meanfield_phase_cycles in ops/cuda/fused_advi.py, and K6's
@@ -125,11 +126,12 @@ __host__ __device__ inline Layout layout_for(int model, int n_data, int db, int 
 // would not fit one block, as every design that fitted before block_mm
 // still fits), the minibatch logreg's three transports, or kWide: the dense
 // Gaussian (mvnormal), and every dense model whose plain layout does not fit
-// one block, on wide_layout.  Each instance compiles its group's bodies
-// alone, so ptxas allocates its registers for them alone; a library built
-// with a generated body runs that body alone (its C entry takes no other
-// model).
-enum ModelGroup { kDense = 0, kMinibatch = 1, kDensePlain = 2, kWide = 3 };
+// one block, on wide_layout; or kMbWide: the minibatch logreg whose
+// layout does not fit one block, on mb_layout.  Each instance compiles its
+// group's bodies alone, so ptxas allocates its registers for them alone; a
+// library built with a generated body runs that body alone (its C entry
+// takes no other model).
+enum ModelGroup { kDense = 0, kMinibatch = 1, kDensePlain = 2, kWide = 3, kMbWide = 4 };
 
 // The layout of a kWide launch.  The state rows, the step's gradient, the
 // row sums and the block reduction stay in shared memory (layout_for's);
@@ -139,9 +141,14 @@ enum ModelGroup { kDense = 0, kMinibatch = 1, kDensePlain = 2, kWide = 3 };
 // P; the Gaussian's constants are always read there); 2 also the logits,
 // into the launch's device workspace; 3 also u, z and g.  Logreg takes the
 // plain layout's strides (ldl = n_data, no zb), so every sum runs in the
-// kDensePlain order.  L.l, L.u, L.z and L.g are offsets into shared memory
-// or, from their tier on, into the block's workspace of `ws` floats; P is
-// the staged precision's offset (tier 0).
+// kDensePlain order.  K5's body (AVI_AD_BODY) reads its float constants in
+// device memory at every tier (tier 1: the unstaged program, ad_program),
+// and its scratch takes the logits' place: in the workspace from tier 2, at
+// a 16-byte offset (its products' float4 loads), the workspace a whole
+// number of float4s (each chain's slice stays aligned).  L.l, L.u, L.z and
+// L.g (and L.ad) are offsets into shared memory or, from their tier on, into
+// the block's workspace of `ws` floats; P is the staged precision's offset
+// (tier 0).
 struct WideLayout {
   Layout L;
   int tier, P, smem, ws;  // smem, ws: floats of shared memory and of workspace
@@ -157,6 +164,14 @@ __host__ __device__ inline WideLayout wide_layout_at(int model, int n_data, int 
   L.ldl = lr ? n_data : 0;
   int& ol = tier >= 2 ? w : o;
   L.l = ol;   ol += lr ? n * n_data : 0;
+#ifdef AVI_AD_BODY
+  if (model == avi::kAD) {  // K5's scratch in the logits' tier
+    ol = avi::round4(ol);
+    L.ad = ol;  ol += avi::ad::kScratch;
+    ol = avi::round4(ol);
+    L.adc = 0;  // nothing staged: kStage is 0 on this group
+  }
+#endif
   int& od = tier >= 3 ? w : o;
   L.u = od;   od += n * d;
   L.z = od;   od += n * d;
@@ -175,6 +190,9 @@ __host__ __device__ inline WideLayout wide_layout_at(int model, int n_data, int 
   W.tier = tier;
   W.smem = o;
   W.ws = w;
+#ifdef AVI_AD_BODY
+  if (model == avi::kAD) W.ws = avi::round4(w);
+#endif
   return W;
 }
 
@@ -190,9 +208,66 @@ __host__ __device__ inline WideLayout wide_layout(int model, int n_data, int n, 
   return W;
 }
 
+// The layout of a kMbWide launch: the minibatch logreg (layout_for's
+// arrays, the aligned beta copy zb included) where its layout does not fit
+// one block.  The state rows, the step's gradient, yX[k], the row sums and
+// the block reduction stay in shared memory; the rest leaves it in this
+// order, the tier: 1 the (n, B) logits, into the launch's device workspace;
+// 2 also the staged transports' slab, which the step then reads where it
+// lies in the permuted design, as the in-place transport does (the
+// prefetching one still pulls the next slab into L2); 3 also zb, u, z and
+// g, into the workspace.  Every product keeps its k order and its tiles
+// (block_mm's float4 loads of zb and of the logits' rows: every workspace
+// offset is a whole number of float4s, and so is the workspace, so each
+// chain's slice stays aligned).
+__host__ __device__ inline WideLayout mb_layout_at(int model, int n_data, int db, int batch,
+                                                   int n, int d, int n_rows, int tier) {
+  WideLayout W;
+  Layout& L = W.L;
+  int o = 0, w = 0;
+  (void)n_data;
+  L.ldl = batch;
+  L.ldz = avi::round4(db);
+  L.X = o;    o += tier < 2 && avi::slab_staged(model) ? batch * db : 0;
+  L.y = o;    o += db;  // yX[k]
+  o = avi::round4(o);
+  int& ol = tier >= 1 ? w : o;
+  L.l = ol;   ol += n * batch;  // B a multiple of 8: the rows stay aligned
+  int& od = tier >= 3 ? w : o;
+  L.zb = od;  od += n * L.ldz;
+  L.u = od;   od += n * d;
+  L.z = od;   od += n * d;
+  L.g = od;   od += n * d;
+  L.st = o;   o += n_rows * d;
+  L.grad = o; o += 2 * d;
+  L.row = o;  o += 7 * n + 1;
+  L.red = o;  o += 2 * kWarps + 1;
+  L.total = o;
+  W.P = -1;
+  W.tier = tier;
+  W.smem = o;
+  W.ws = avi::round4(w);
+  return W;
+}
+
+// The least tier whose shared part fits one block (tier 3 if none does: the
+// host refuses that launch).
+__host__ __device__ inline WideLayout mb_layout(int model, int n_data, int db, int batch, int n,
+                                                int d, int n_rows) {
+  WideLayout W;
+  for (int tier = 1; tier <= 3; ++tier) {
+    W = mb_layout_at(model, n_data, db, batch, n, d, n_rows, tier);
+    if (sizeof(float) * static_cast<size_t>(W.smem) <= kSmemLimit) break;
+  }
+  return W;
+}
+
 __host__ __device__ inline int model_group(int model, int n_data, int db, int batch, int n,
                                            int d, int n_rows) {
-  if (avi::is_minibatch(model)) return kMinibatch;
+  if (avi::is_minibatch(model)) {
+    const Layout L = layout_for(model, n_data, db, batch, n, d, n_rows, true);
+    return sizeof(float) * static_cast<size_t>(L.total) <= kSmemLimit ? kMinibatch : kMbWide;
+  }
   if (model == avi::kMvNormal) return kWide;
   const Layout L = layout_for(model, n_data, db, batch, n, d, n_rows, true);
   if (sizeof(float) * static_cast<size_t>(L.total) <= kSmemLimit) return kDense;
@@ -202,7 +277,7 @@ __host__ __device__ inline int model_group(int model, int n_data, int db, int ba
 
 // The layout of a launch with every array in shared memory: the aligned one
 // where it fits one block, else the plain one (its size beyond the limit
-// sends the launch to kWide).
+// sends the launch to kWide; a minibatch model's, to kMbWide).
 __host__ __device__ inline Layout make_layout(int model, int n_data, int db, int batch,
                                               int n, int d, int n_rows) {
   const int group = model_group(model, n_data, db, batch, n, d, n_rows);
@@ -212,14 +287,15 @@ __host__ __device__ inline Layout make_layout(int model, int n_data, int db, int
 
 // What a launch takes (the C entries' layout queries): out[0] its group,
 // out[1] the bytes of dynamic shared memory, out[2] the floats of device
-// workspace one block needs (0 but for kWide at tier 2 or 3), out[3]
-// kWide's tier (-1 in the other groups).
+// workspace one block needs (0 but for kWide at tier 2 or 3 and kMbWide),
+// out[3] the kWide or kMbWide tier (-1 in the other groups).
 __host__ __device__ inline void launch_layout(int model, int n_data, int db, int batch, int n,
                                               int d, int n_rows, long long* out) {
   const int group = model_group(model, n_data, db, batch, n, d, n_rows);
   out[0] = group;
-  if (group == kWide) {
-    const WideLayout W = wide_layout(model, n_data, n, d, n_rows);
+  if (group == kWide || group == kMbWide) {
+    const WideLayout W = group == kWide ? wide_layout(model, n_data, n, d, n_rows)
+                                        : mb_layout(model, n_data, db, batch, n, d, n_rows);
     out[1] = static_cast<long long>(sizeof(float)) * W.smem;
     out[2] = W.ws;
     out[3] = W.tier;
@@ -246,17 +322,25 @@ __device__ __forceinline__ void run_chunk(
   extern __shared__ float smem[];
   // the host picked the group by its fit; kWide takes the plain strides
   constexpr bool kAligned = kGroup != kDensePlain && kGroup != kWide;
-  const WideLayout W = kGroup == kWide ? wide_layout(model, n_data, n, d, n_rows) : WideLayout();
-  const Layout L = kGroup == kWide ? W.L
-                                   : layout_for<kGroup == kMinibatch>(model, n_data, db, batch,
-                                                                      n, d, n_rows, kAligned);
-  const bool logreg = kGroup != kMinibatch && model == avi::kLogReg;
-  const bool minibatch = kGroup == kMinibatch && avi::is_minibatch(model);
-  // kWide: the model's data in device memory from tier 1, the logits in the
-  // workspace from tier 2, u, z and g from tier 3
+  constexpr bool kMb = kGroup == kMinibatch || kGroup == kMbWide;
+  const WideLayout W = kGroup == kWide     ? wide_layout(model, n_data, n, d, n_rows)
+                       : kGroup == kMbWide ? mb_layout(model, n_data, db, batch, n, d, n_rows)
+                                           : WideLayout();
+  const Layout L = kGroup == kWide || kGroup == kMbWide
+                       ? W.L
+                       : layout_for<kGroup == kMinibatch>(model, n_data, db, batch, n, d, n_rows,
+                                                          kAligned);
+  const bool logreg = !kMb && model == avi::kLogReg;
+  const bool minibatch = kMb && avi::is_minibatch(model);
+  // kWide: the model's data in device memory from tier 1, the logits (K5:
+  // its scratch) in the workspace from tier 2, u, z and g from tier 3;
+  // kMbWide: the logits from tier 1, the slab read in place from tier 2,
+  // zb, u, z and g from tier 3
   const bool data_dev = kGroup == kWide && W.tier >= 1;
-  float* const lbase = kGroup == kWide && W.tier >= 2 ? ws : smem;
-  float* const dbase = kGroup == kWide && W.tier >= 3 ? ws : smem;
+  const bool slab_dev = kGroup == kMbWide && W.tier >= 2;
+  float* const lbase =
+      (kGroup == kWide && W.tier >= 2) || (kGroup == kMbWide && W.tier >= 1) ? ws : smem;
+  float* const dbase = (kGroup == kWide || kGroup == kMbWide) && W.tier >= 3 ? ws : smem;
   float* us = dbase + L.u;
   float* zs = dbase + L.z;
   float* gs = dbase + L.g;
@@ -284,9 +368,10 @@ __device__ __forceinline__ void run_chunk(
   float* eta_s = red + 2 * kWarps;
   const avi::LogReg lrm{data_dev ? c0 : smem + L.X, data_dev ? c1 : smem + L.y, lbase + L.l,
                         smem + L.zb, n_data, db, L.ldl, L.ldz, s0, s1};
-  float* zb = smem + L.zb;
+  float* zb = (kGroup == kMbWide ? dbase : smem) + L.zb;
   const int ldz = L.ldz;
-  avi::LogRegMB mbm{nullptr, smem + L.y, smem + L.l, zb, batch, db, ldz, s0, s1};
+  avi::LogRegMB mbm{nullptr, smem + L.y, (kGroup == kMbWide ? lbase : smem) + L.l, zb, batch,
+                    db, ldz, s0, s1};
   const int nb = minibatch ? n_data / batch : 1;
   const float* prec = data_dev ? c1 : smem + W.P;  // mvnormal's P (kWide only)
 
@@ -301,7 +386,7 @@ __device__ __forceinline__ void run_chunk(
     for (int i = tid; i < d * d; i += kThreads) smem[W.P + i] = c1[i];
   for (int i = tid; i < n_rows * d; i += kThreads) st[i] = state_in[i];
 #ifdef AVI_AD_BODY
-  if (model == avi::kAD) avi::ad::ad_stage(c0, smem + L.adc, tid);
+  if (model == avi::kAD && kGroup != kWide) avi::ad::ad_stage(c0, smem + L.adc, tid);
 #endif
   __syncthreads();
 
@@ -325,8 +410,10 @@ __device__ __forceinline__ void run_chunk(
     const unsigned long long it = it0 + static_cast<unsigned long long>(s);
     // the minibatch slab of this step starts on its way (staged transports)
     if (minibatch)
-      mbm.X = avi::minibatch_step_begin(model, c0, c1, batch, db, nb, it, smem + L.X,
-                                        smem + L.y, tid, kThreads);
+      mbm.X = slab_dev ? avi::minibatch_step_in_place(model, c0, c1, batch, db, nb, it,
+                                                      smem + L.y, tid, kThreads)
+                       : avi::minibatch_step_begin(model, c0, c1, batch, db, nb, it,
+                                                   smem + L.X, smem + L.y, tid, kThreads);
 
     // A: base draws and z = mu + sig * u (two roundings, as the plain version)
     if (noise != nullptr) {
@@ -397,7 +484,7 @@ __device__ __forceinline__ void run_chunk(
     } else if (model == avi::kAD) {  // K5: log pi and its gradient (VarGrad ignores gs)
       long long t_logpi = 0;
       avi::ad::ad_body(c0, reinterpret_cast<const int*>(c1), smem + L.adc, zs, n, d, logpi, gs,
-                       smem + L.ad, tid, &t_logpi);
+                       (kGroup == kWide ? lbase : smem) + L.ad, tid, &t_logpi);
 #ifdef AVI_PHASE_CLOCKS
       if (tid == 0) {  // the body's mark after log pi: phase 2 up to it, 3 the rest
         atomicAdd(&avi_mf_phase_cycles[2], static_cast<unsigned long long>(t_logpi - t_prev));
@@ -407,7 +494,7 @@ __device__ __forceinline__ void run_chunk(
 #endif
     } else if (kGroup == kWide && model == avi::kMvNormal) {  // VarGrad ignores gs
       avi::mvnormal_body<kThreads>(c0, prec, s0, zs, n, d, logpi, gs, tid, warp, kWarps, lane);
-    } else if (kGroup != kMinibatch) {
+    } else if (!kMb) {
       avi::gaussian_body(c0, c1, s0, zs, n, d, logpi, vargrad ? nullptr : gs, warp, kWarps,
                          lane);
     }

@@ -33,7 +33,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -119,14 +119,20 @@ def _atomic_write(path: Path, text: str) -> None:
     os.replace(tmp, path)
 
 
-def _compile(jobs: Sequence[Tuple[str, Path, Sequence[str]]]) -> None:
+Job = Tuple[str, Path, Tuple[str, ...]]  # (kernel, library, extra nvcc flags)
+
+
+def compile_jobs(jobs: Sequence[Job]) -> None:
     """Run one ``nvcc`` per (name, library, extra flags) whose library does
     not exist yet, all started together; each library and its ``.log``
-    appear atomically.  Raises on any failure."""
-    started = []
+    appear atomically.  Raises on any failure.  Jobs from ``kernel_jobs``
+    and ``generated_jobs`` may be mixed, so that every library a run needs
+    compiles at once."""
+    started, seen = [], set()
     for name, out, extra in jobs:
-        if out.exists():
+        if out.exists() or out in seen:
             continue
+        seen.add(out)
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [nvcc(), *NVCC_FLAGS, "-I", str(CSRC), *extra, "-o", str(tmp),
@@ -150,13 +156,19 @@ def _compile(jobs: Sequence[Tuple[str, Path, Sequence[str]]]) -> None:
 def build_all(names: Sequence[str] = KERNELS, defines: Sequence[str] = ()) -> Dict[str, Path]:
     """Compile the named kernels that have no up-to-date library, one
     ``nvcc`` process per source, all started together; returns their paths."""
+    jobs = kernel_jobs(names, defines)
+    compile_jobs(jobs)
+    return {name: out for name, out, _ in jobs}
+
+
+def kernel_jobs(names: Sequence[str] = KERNELS, defines: Sequence[str] = ()) -> List[Job]:
+    """``compile_jobs``' job of each named kernel (with ``-D`` of each of
+    ``defines``)."""
     for name in names:
         if name not in KERNELS + TEST_KERNELS:
             raise ValueError(f"unknown kernel {name!r}; known: {KERNELS + TEST_KERNELS}")
-    paths = {name: library_path(name, defines) for name in names}
     flags = tuple(f"-D{d}" for d in defines)
-    _compile([(name, out, flags) for name, out in paths.items()])
-    return paths
+    return [(name, library_path(name, defines), flags) for name in names]
 
 
 def build_generated(name: str, body: str, defines: Sequence[str] = ()) -> Path:
@@ -169,7 +181,15 @@ def build_generated_all(pairs: Sequence[Tuple[str, str]],
                         defines: Sequence[str] = ()) -> Dict[Tuple[str, str], Path]:
     """``build_generated`` of every (kernel, body) pair, one ``nvcc`` each,
     all started together; returns their paths."""
-    jobs, paths = [], {}
+    jobs = generated_jobs(pairs, defines)
+    compile_jobs(jobs)
+    return {pair: out for pair, (_, out, _) in zip(pairs, jobs)}
+
+
+def generated_jobs(pairs: Sequence[Tuple[str, str]], defines: Sequence[str] = ()) -> List[Job]:
+    """``compile_jobs``' job of every (kernel, body) pair, each body written
+    to its header under GEN_DIR."""
+    jobs = []
     for name, body in pairs:
         if name not in AD_KERNELS:
             raise ValueError(f"kernel {name!r} takes no generated body; those that do: "
@@ -177,11 +197,10 @@ def build_generated_all(pairs: Sequence[Tuple[str, str]],
         header = body_path(body)
         if not header.exists() or header.read_text() != body:
             _atomic_write(header, body)
-        out = paths[(name, body)] = generated_library_path(name, body, defines)
-        jobs.append((name, out, ("-I", str(GEN_DIR), f"-DAVI_AD_BODY={header.name}",
-                                 *(f"-D{d}" for d in defines))))
-    _compile(jobs)
-    return paths
+        jobs.append((name, generated_library_path(name, body, defines),
+                     ("-I", str(GEN_DIR), f"-DAVI_AD_BODY={header.name}",
+                      *(f"-D{d}" for d in defines))))
+    return jobs
 
 
 def function(name: str, symbol: str, argtypes: Sequence, restype=ctypes.c_int,

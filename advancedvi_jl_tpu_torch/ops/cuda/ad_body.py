@@ -56,9 +56,13 @@ reduction's terms on its lanes; the block product's tiles as
 csrc/block_mm.cuh maps them).  A loop needs no ``__syncthreads()`` before it
 when nothing it touches was written since the last barrier by another
 thread, and nothing it writes was read there by another thread; such loops
-of one shape run as one loop.  The intermediates live in the block's shared
-memory, first fit at 16-byte offsets, a node's floats handed to another only
-across a barrier after their last read: ``scratch`` floats in all.
+of one shape run as one loop.  The intermediates live in the body's scratch,
+first fit at 16-byte offsets, a node's floats handed to another only across
+a barrier after their last read: ``scratch`` floats in all.  The scratch
+base is a generic pointer, 16-byte aligned: the block's shared memory where
+it fits beside the engine's arrays, else the launch's device workspace (the
+kernels' tiered layouts); the loops, the barriers and the race model are the
+same on either, and so are the bits.
 ``race_check`` runs the same model over the finished plan with the scratch
 offsets and asserts that no element is shared between threads with no
 barrier between them; ``emit`` runs it on every body.  The float constants
@@ -1192,7 +1196,7 @@ class ADProgram:
     d: int
     source: str          # the generated header (avi::ad::ad_body)
     digest: str          # sha256 of ``source``, 16 hex digits
-    scratch: int         # floats of shared memory the body uses
+    scratch: int         # floats of scratch the body uses (shared or device memory)
     madds: int           # multiply-adds of its products (mm, mv) a call
     loops: int           # loops emitted (a block_mm call is one)
     barriers: int
@@ -1329,11 +1333,11 @@ __device__ __forceinline__ void ad_stage(const float* __restrict__ cf, float* cs
 }}
 
 // log pi (n,) into logpi and grad log pi (n, d) into gs of the samples zs
-// (n, d), all three in shared memory; cf and ci: the packed constants in
-// device memory, cs: cf's copy in shared memory (ad_stage) when kStage > 0;
-// s: kScratch floats of shared memory, 16-byte aligned.  Every thread of the
-// block calls it; the caller puts a barrier before (zs) and after (logpi,
-// gs).  An AVI_PHASE_CLOCKS build has thread 0 store the SM clock in *clk
+// (n, d), each in shared or device memory; cf and ci: the packed constants
+// in device memory, cs: cf's copy in shared memory (ad_stage) when kStage >
+// 0; s: kScratch floats of shared or device memory, 16-byte aligned.  Every
+// thread of the block calls it; the caller puts a barrier before (zs) and
+// after (logpi, gs).  An AVI_PHASE_CLOCKS build has thread 0 store the SM clock in *clk
 // at the barrier after which log pi is complete.
 __device__ __forceinline__ void ad_body(const float* __restrict__ cf,
                                         const int* __restrict__ ci, const float* cs,

@@ -30,11 +30,18 @@ replays the graph.
 
 The mean-field kernel keeps a launch in one block's shared memory where it
 fits; a dense model that does not fit (a wide design, a wide d or many
-samples) and the dense Gaussian run its kWide layout instead
-(csrc/fused_meanfield_body.cuh ``wide_layout``): the state rows and the row
-sums stay in shared memory, and the model's data, then the logits, then the
-draws, samples and gradients move to device memory, the last two into a
-workspace the wrapper allocates (``fused_layout``).
+samples, K5's body included) and the dense Gaussian run its kWide layout
+instead (csrc/fused_meanfield_body.cuh ``wide_layout``): the state rows and
+the row sums stay in shared memory, and the model's data, then the logits
+(K5: its scratch), then the draws, samples and gradients move to device
+memory, the last two into a workspace the wrapper allocates
+(``fused_layout``).  A minibatch launch that does not fit runs the kMbWide
+layout (``mb_layout``): the logits, then the staged slab (read where it
+lies), then the beta copy, draws, samples and gradients.  The full-rank
+kernel's single-block launches do the same after its scale matrices and
+panel operators (csrc/fused_advi_fullrank.cu ``tier_layout``,
+``fullrank_layout``): the model's data, then the logits (K5: its scratch),
+then u, z, g and the whitened draws.
 
 The branch is chosen by the engine's attributes ``algo``, ``entropy``,
 ``grad_est`` and ``operator`` (JAX's string values) and passed to the kernel
@@ -175,11 +182,17 @@ GROUP_MB = {LOGREG_MB: "k4_minibatch_inplace", LOGREG_MB_STAGED: "k4_minibatch_s
             LOGREG_MB_PREFETCH: "k4_minibatch_prefetch"}
 GROUP_AD = "k5_ad"
 # the mean-field and chains kernels only: the dense-Gaussian body, and the
-# kWide layout with an array in device memory (its tier >= 1)
+# kWide layout with an array in device memory (its tier >= 1), a hand model's
+# or K5's body's; the kMbWide layout of the minibatch transports
 GROUP_MVNORMAL = "k4_mvnormal"
 GROUP_DEVICE_LAYOUT = "k1_device_layout"
+GROUP_AD_DEVICE_LAYOUT = "k5_device_layout"
+GROUP_MB_DEVICE_LAYOUT = "k4_minibatch_device_layout"
+# the full-rank single-block kernel on its tiered layout (tier >= 1)
+GROUP_FR_DEVICE_LAYOUT = "k3_fullrank_device_layout"
 LAUNCH_GROUPS = ((GROUP_RULES, GROUP_VARGRAD, GROUP_GAUSSIAN) + tuple(GROUP_MB.values())
-                 + (GROUP_AD, GROUP_MVNORMAL, GROUP_DEVICE_LAYOUT))
+                 + (GROUP_AD, GROUP_MVNORMAL, GROUP_DEVICE_LAYOUT, GROUP_AD_DEVICE_LAYOUT,
+                    GROUP_MB_DEVICE_LAYOUT, GROUP_FR_DEVICE_LAYOUT))
 
 
 @dataclass(frozen=True)
@@ -927,9 +940,11 @@ def _model_args(model: str, consts, scalars, d: int, dev, n: int = 0,
     return c0, c1, 0, 0, 0, float(scalars[0]), 0.0
 
 
-# the mean-field kernels' model group of the dense Gaussian and the
-# device-memory layout (csrc/fused_meanfield_body.cuh ModelGroup kWide)
+# the mean-field kernels' model groups of the dense Gaussian and the
+# device-memory layout, and of the minibatch transports' device-memory
+# layout (csrc/fused_meanfield_body.cuh ModelGroup kWide, kMbWide)
 KWIDE = 3
+KMB_WIDE = 4
 
 
 def fused_layout(lib: str, body: Optional[str] = None, defines=()):
@@ -937,7 +952,8 @@ def fused_layout(lib: str, body: Optional[str] = None, defines=()):
     bytes, workspace floats a block, tier)`` of a launch of the mean-field
     (``lib`` "fused_advi_meanfield") or chains ("fused_chains", with G, the
     chains a block) kernel: the C side's ``launch_layout``
-    (csrc/fused_meanfield_body.cuh).  The tier is -1 outside KWIDE."""
+    (csrc/fused_meanfield_body.cuh).  The tier is -1 outside KWIDE and
+    KMB_WIDE."""
     entry = "fused_chains_layout" if lib == "fused_chains" else "fused_advi_meanfield_layout"
     ints = 8 if lib == "fused_chains" else 7
     fn = _build.function(lib, entry, [ctypes.c_int] * ints + [ctypes.c_void_p],
@@ -952,7 +968,7 @@ def fused_layout(lib: str, body: Optional[str] = None, defines=()):
 
 
 def workspace(floats: int, dev, what: str) -> Optional[torch.Tensor]:
-    """The device workspace of a KWIDE launch (None when it needs none),
+    """The device workspace of a tiered launch (None when it needs none),
     allocated on ``dev`` for this launch and returned to the caching
     allocator after it (a later chunk reuses it).  A workspace the card
     cannot hold raises, naming its bytes."""
@@ -965,11 +981,16 @@ def workspace(floats: int, dev, what: str) -> Optional[torch.Tensor]:
                            f"the card's memory") from e
 
 
-def layout_groups(model: str, tier: int) -> Tuple[str, ...]:
+def layout_groups(model: str, group: int, tier: int) -> Tuple[str, ...]:
     """The LAUNCH_GROUPS a mean-field or chains launch adds by its model and
-    layout: GROUP_MVNORMAL, and GROUP_DEVICE_LAYOUT from tier 1."""
-    return (((GROUP_MVNORMAL,) if model == MVNORMAL else ())
-            + ((GROUP_DEVICE_LAYOUT,) if tier >= 1 else ()))
+    layout: GROUP_MVNORMAL, and from tier 1 GROUP_DEVICE_LAYOUT (KWIDE, a
+    hand model), GROUP_AD_DEVICE_LAYOUT (KWIDE, K5's body) or
+    GROUP_MB_DEVICE_LAYOUT (KMB_WIDE)."""
+    tiered = ()
+    if tier >= 1:
+        tiered = (GROUP_MB_DEVICE_LAYOUT if group == KMB_WIDE else
+                  GROUP_AD_DEVICE_LAYOUT if model == AD else GROUP_DEVICE_LAYOUT,)
+    return ((GROUP_MVNORMAL,) if model == MVNORMAL else ()) + tiered
 
 
 def _check_branch_shape(branch: FusedBranch, d: int) -> Tuple[int, int, int, int]:
@@ -1019,10 +1040,10 @@ def fused_run_chunk_cuda(
         code, n_data, db, batch, n, d, n_rows)
     if smem > _build.SMEM_LIMIT:
         raise ValueError(
-            f"the fused kernel keeps the state rows, the row sums (a minibatch model: "
-            f"one staged slab) and what fits of the rest in shared memory: {smem} "
-            f"bytes for n_data={n_data}, batch={batch}, d={d}, n={n}, {n_rows} "
-            f"state rows is over the {_build.SMEM_LIMIT}-byte limit of one block"
+            f"the fused kernel keeps the state rows, the row sums and the block "
+            f"reduction in shared memory at its last tier: {smem} bytes for "
+            f"n_data={n_data}, batch={batch}, d={d}, n={n}, {n_rows} state rows is "
+            f"over the {_build.SMEM_LIMIT}-byte limit of one block"
         )
     ws = workspace(ws_floats, dev, "fused_advi_meanfield")
     fn = _build.function("fused_advi_meanfield", "fused_advi_meanfield", _MEANFIELD_ARGTYPES,
@@ -1046,7 +1067,7 @@ def fused_run_chunk_cuda(
         )
     _build.check(err, f"fused_advi_meanfield launch (group {group}, tier {tier})")
     _count(fused_run_chunk_cuda, model, branch)
-    for g in layout_groups(model, tier):
+    for g in layout_groups(model, group, tier):
         fused_run_chunk_cuda.group_launches[g] += 1
     return out, elbo, trace
 
@@ -1180,6 +1201,24 @@ def check_cluster(model: str, d: int, n: int, branch: FusedBranch, cs: int,
 _CLUSTER_ACTIVE: Dict[tuple, int] = {}
 
 
+def fullrank_layout(body: Optional[str] = None, defines=()):
+    """``(code, n_data, db, batch, n, d, k) -> (tier, shared bytes,
+    workspace floats)`` of a single-block launch of the full-rank kernel
+    (the library built with ``body``, if any): csrc/fused_advi_fullrank.cu's
+    ``fused_advi_fullrank_layout``.  The tier is -1 where every per-step
+    array fits in shared memory (place()), else ``tier_layout``'s."""
+    fn = _build.function("fused_advi_fullrank", "fused_advi_fullrank_layout",
+                         [ctypes.c_int] * 7 + [ctypes.c_void_p], restype=None, body=body,
+                         defines=defines)
+
+    def query(*args):
+        out = (ctypes.c_longlong * 3)()
+        fn(*args, ctypes.addressof(out))
+        return tuple(int(v) for v in out)
+
+    return query
+
+
 def cluster_max_active(code: int, n_data: int, db: int, n: int, d: int, k: int, cs: int,
                        defines=()) -> int:
     """``cudaOccupancyMaxActiveClusters`` of the cluster kernel at this
@@ -1208,7 +1247,8 @@ def fused_fullrank_run_chunk_cuda(
     the card cannot schedule raises.  Adds one to
     ``fused_fullrank_run_chunk_cuda.launches`` per single-block launch and
     to ``cluster_launches`` per cluster launch, and to each of the branch's
-    LAUNCH_GROUPS in ``group_launches``.  ``instrumented`` launches the
+    LAUNCH_GROUPS in ``group_launches`` (GROUP_FR_DEVICE_LAYOUT for a
+    single-block launch on the tiered layout).  ``instrumented`` launches the
     build with per-phase cycle counters instead (PHASE_CLOCKS; read them
     with ``phase_cycles`` or ``cluster_phase_cycles``)."""
     dev = vec.device
@@ -1234,18 +1274,20 @@ def fused_fullrank_run_chunk_cuda(
           else check_cluster(model, d, n, branch, cluster, block_bytes))
     body = ad.source if model == AD else None  # "ad" runs on one block
     defines = PHASE_CLOCKS if instrumented else ()
+    tier, ws = -1, None
     if cs == 1:
         entry, extra = "fused_advi_fullrank", ()
         panels = -(-d // PANEL)
-        smem = _build.function("fused_advi_fullrank", "fused_advi_fullrank_smem_bytes",
-                               [ctypes.c_int] * 7, restype=ctypes.c_size_t, body=body,
-                               defines=defines)(code, n_data, db, batch, n, d, k)
+        tier, smem, ws_floats = fullrank_layout(body, defines)(code, n_data, db, batch, n, d, k)
         if smem > _build.SMEM_LIMIT:
             raise ValueError(
-                f"the full-rank fused kernel keeps the draws and the model's "
-                f"per-step arrays in shared memory: {smem} bytes for d={d}, n={n} "
-                f"is over the {_build.SMEM_LIMIT}-byte limit of one block"
+                f"the full-rank fused kernel keeps the location rows, the row sums and "
+                f"the block reduction in shared memory at its last tier: {smem} bytes "
+                f"for d={d}, n={n}, {k} location rows is over the {_build.SMEM_LIMIT}-byte "
+                "limit of one block"
             )
+        ws = workspace(ws_floats, dev, "fused_advi_fullrank")
+        extra = (ws.data_ptr() if ws is not None else None,)
     else:  # the layout's size was checked by the rule or check_cluster
         entry, extra = "fused_advi_fullrank_cluster", (cs,)
         panels = cs * max(len(ps) for ps in cluster_panels(d, cs))
@@ -1253,8 +1295,10 @@ def fused_fullrank_run_chunk_cuda(
             raise RuntimeError(f"the card cannot schedule a cluster of {cs} blocks of "
                                f"{block_bytes(cs)} bytes of shared memory "
                                "(cudaOccupancyMaxActiveClusters = 0)")
+    # the single-block entry takes the workspace, the cluster's its size
     fn = _build.function("fused_advi_fullrank", entry,
-                         _FULLRANK_ARGTYPES[:-1] + [ctypes.c_int] * len(extra) + [ctypes.c_void_p],
+                         _FULLRANK_ARGTYPES[:-1]
+                         + [ctypes.c_void_p if cs == 1 else ctypes.c_int, ctypes.c_void_p],
                          body=body, defines=defines)
     vec_out = torch.empty_like(vec)
     mat_out = torch.empty_like(mat)
@@ -1276,9 +1320,11 @@ def fused_fullrank_run_chunk_cuda(
             hyp.lr, hyp.b1, hyp.b2, hyp.eps, hyp.avg_eta, hyp.clip_eps,
             *codes, branch.cocob_alpha, *extra, stream,
         )
-    _build.check(err, f"{entry} launch (cluster={cs})")
+    _build.check(err, f"{entry} launch (cluster={cs}, tier {tier})")
     _count(fused_fullrank_run_chunk_cuda, model, branch,
            "launches" if cs == 1 else "cluster_launches")
+    if tier >= 1:
+        fused_fullrank_run_chunk_cuda.group_launches[GROUP_FR_DEVICE_LAYOUT] += 1
     return vec_out, mat_out, elbo, trace
 
 
@@ -1372,18 +1418,31 @@ def _round4(x: int) -> int:
 
 
 def ad_smem_bytes(family: str, n: int, d: int, scratch: int, rows: int, stage: int = 0) -> int:
-    """Dynamic shared memory of a launch on model "ad" (the kernels'
-    make_layout for kAD): the draws, samples and gradients, ``rows`` state
-    rows (mean-field and each chain's block; the full-rank kernel's (rows,
-    d) location rows, its scale matrices and the whitening's panel operators
-    left out, as they go to device memory when they do not fit), the
-    per-row sums, the block reduction, the generated body's scratch (at a
-    16-byte offset) and its ``stage`` floats of staged constants."""
+    """Dynamic shared memory of a launch on model "ad" with every array in
+    shared memory (the kernels' make_layout for kAD): the draws, samples and
+    gradients, ``rows`` state rows (mean-field and each chain's block; the
+    full-rank kernel's (rows, d) location rows, its scale matrices and the
+    whitening's panel operators left out, as they go to device memory when
+    they do not fit), the per-row sums, the block reduction, the generated
+    body's scratch (at a 16-byte offset) and its ``stage`` floats of staged
+    constants."""
+    return 4 * (_round4(_round4(_ad_kept(family, n, d, rows) + _ad_arrays(family, n, d))
+                        + scratch) + stage)
+
+
+def _ad_arrays(family: str, n: int, d: int) -> int:
+    """Floats of the per-step (n, d) arrays: u, z, g (and the full-rank w)."""
+    return (3 if family == MEANFIELD else 4) * n * d
+
+
+def _ad_kept(family: str, n: int, d: int, rows: int) -> int:
+    """Floats that stay in shared memory at the last tier: the ``rows``
+    state (location) rows, the step's gradient, the row sums and the block
+    reduction (fused_meanfield_body.cuh wide_layout_at, fused_advi_fullrank.cu
+    tier_layout_at)."""
     if family == MEANFIELD:
-        floats = 3 * n * d + rows * d + 2 * d + 7 * n + 1 + 33
-    else:
-        floats = 4 * n * d + rows * d + d + 6 * n + 1 + 33
-    return 4 * (_round4(_round4(floats) + scratch) + stage)
+        return rows * d + 2 * d + 7 * n + 1 + 33
+    return rows * d + d + 6 * n + 1 + 33
 
 
 def _fullrank_extras(nbytes: int, rows: int, d: int) -> int:
@@ -1398,11 +1457,15 @@ def _fullrank_extras(nbytes: int, rows: int, d: int) -> int:
 def ad_program(spec: FusedModelSpec, n_samples: int, family: str = MEANFIELD,
                rows: int = 8) -> ADProgram:
     """The K5 program of an "ad" spec at ``n_samples`` rows (traced and
-    emitted once), checked to fit one block's shared memory beside the
-    engine's arrays: ValueError otherwise, never a smaller body.  Its float
-    constants are staged in shared memory where they fit beside the rest
-    (for the full-rank family: without moving the scale matrices or the
-    panel operators out of shared memory), else read from device memory."""
+    emitted once).  Its float constants are staged in shared memory where
+    they fit beside the engine's arrays (for the full-rank family: without
+    moving the scale matrices or the panel operators out of shared memory),
+    else read from device memory.  Where the arrays do not fit one block
+    even so, the kernels take the unstaged body on their tiered layout (the
+    body's scratch, then u, z, g (and w) in a device workspace); ValueError
+    only where even the last tier's shared arrays, the state (location)
+    rows, the step's gradient and the row sums, do not fit, never a smaller
+    body."""
     if spec.ad is None:
         raise ValueError("a spec of model 'ad' carries its traced target: build it with "
                          "ad_spec, fused_spec_for or FusedModelSpec.from_log_density")
@@ -1415,12 +1478,13 @@ def ad_program(spec: FusedModelSpec, n_samples: int, family: str = MEANFIELD,
         with_stage += _fullrank_extras(need, rows, d)
     if with_stage <= _build.SMEM_LIMIT:
         return staged
-    if need > _build.SMEM_LIMIT:
+    last = 4 * _ad_kept(family, n, d, rows)
+    if last > _build.SMEM_LIMIT:
         raise ValueError(
-            f"K5's body of {spec.ad.name} at n_samples={n_samples}, d={spec.dim} needs "
-            f"{prog.scratch} floats of scratch: {need} bytes of shared memory with the "
-            f"{family} engine's arrays, over the {_build.SMEM_LIMIT}-byte limit of one "
-            "block (fewer samples, or a hand-derived spec)"
+            f"K5's body of {spec.ad.name} at n_samples={n_samples}, d={spec.dim}: the "
+            f"{family} engine's last tier keeps {rows} state rows, the step's gradient "
+            f"and the row sums in shared memory, {last} bytes, over the "
+            f"{_build.SMEM_LIMIT}-byte limit of one block (fewer samples)"
         )
     return prog
 

@@ -333,7 +333,8 @@ def chains_per_block(model: str, n_chains: int, sms: int, d: int,
     takes longer than one of G - 1, so a G that fills no fewer waves is
     slower).  1 for model "ad" (K5's body is placed for one chain), for
     d > 512 and for a ``device_layout``: a chain whose arrays need the
-    device workspace (the kWide layout at tier 2 or 3) runs alone."""
+    device workspace (the kWide layout at tier 2 or 3, the kMbWide one at
+    any tier) runs alone."""
     if model == AD or n_chains <= sms or d > BLOCK_THREADS or device_layout:
         return 1
     g_max = 1
@@ -443,10 +444,10 @@ def fused_chains_run_chunk_cuda(
     group, smem, ws_floats, tier = layout(*shape, G)
     if smem > _build.SMEM_LIMIT:
         raise ValueError(
-            f"each chain's block keeps its state rows, its row sums (a minibatch model: "
-            f"one staged slab) and what fits of the rest in shared memory: {smem} bytes "
-            f"for n_data={n_data}, batch={batch}, d={d}, n={n}, {n_rows} state rows is "
-            f"over the {_build.SMEM_LIMIT}-byte limit"
+            f"each chain's block keeps its state rows, its row sums and the block "
+            f"reduction in shared memory at its last tier: {smem} bytes for "
+            f"n_data={n_data}, batch={batch}, d={d}, n={n}, {n_rows} state rows is over "
+            f"the {_build.SMEM_LIMIT}-byte limit"
         )
     ws = workspace(C * ws_floats, dev, "fused_chains")
     fn = _build.function("fused_chains", "fused_chains", _CHAINS_ARGTYPES, body=body,
@@ -473,7 +474,7 @@ def fused_chains_run_chunk_cuda(
         )
     _build.check(err, f"fused_chains launch (group {group}, tier {tier}, G = {G})")
     fused_chains_run_chunk_cuda.launches += 1
-    for g in launch_groups(model, branch, rules) + layout_groups(model, tier):
+    for g in launch_groups(model, branch, rules) + layout_groups(model, group, tier):
         fused_chains_run_chunk_cuda.group_launches[g] += 1
     return out, elbo, (trace.T.contiguous() if trace is not None else None)
 

@@ -33,7 +33,7 @@ Phases:
   (d) the fused kernel against its plain version with injected noise;
   (e) the fused kernel with in-kernel Philox: chunking, tracing, plain version;
   (f) the general path on the card;  (g) the fused engine on the card, and beside
-      the general path on one key to 4,000 steps;
+      the general path on one key to AGREE_HORIZON steps;
   (h) steps/s of both paths and each kernel's time beside its plain version
       (the sampler also by CUDA-graph replay, without the wrapper's host time,
       beside an empty kernel of its geometry: the launch floor; behind a
@@ -127,7 +127,7 @@ Phases:
       be one that (i) or (z) checks); NGD (with and without the
       posdef correction, and on the Stein path), sqrt-NGD, Wass (eigh and
       Newton-Schulz) and BaM through ``optimize`` on the flagship logreg
-      (d = 62, 2,000 steps) against (l)'s fused full-rank tail, and on a
+      (d = 62, MS_STEPS steps) against (l)'s fused full-rank tail, and on a
       d = 256 dense Gaussian (the error halved in 400 steps; BaM's spectrum
       after 150); ``WithTermination(alg, elbo_at_least(x))`` for ADVI and
       NGD, stopping at the dense run's step with its whole state bitwise;
@@ -164,13 +164,13 @@ Phases:
       RAM; the ingested chunk's time beside the hand one;
   (ad) the device mesh (parallel/): a one-rank NCCL group and its (1 x 1)
       mesh, counted: the flagship with ``mc_axis`` and ``data_axis`` through
-      ``optimize(mesh=)`` for 1,000 steps, full-rank and low-rank ADVI for
+      ``optimize(mesh=)`` for MESH_STEPS, full-rank and low-rank ADVI for
       200, ``FusedChainsADVI.run_sharded`` at C = 64, each bitwise its run
       without a mesh; then two ranks spawned on the card over gloo
       (``chip_smoke.py --mesh-rank RANK PORT DIR``): K7a, K7b and K7c at each
       rank's row offset against their plain versions and the whole draw's
       rows, and, counted, the flagship on the (1 x 2) "mc" and (2 x 1) "data"
-      meshes for 500 steps (the ranks equal, within rtol 1e-5 of one
+      meshes for MESH_RANK_STEPS (the ranks equal, within rtol 1e-5 of one
       process) and ``run_sharded`` at C = 1,024 (bitwise ``run_chunk``);
   (ae) a family's parameters over the mesh and compute_dtype="bfloat16":
       the bf16 sampling product (csrc/fullrank_bf16.cu) against its plain
@@ -200,7 +200,25 @@ Phases:
       key), ``FusedProxADVI``, ``FusedScoreGradVI`` and ``FusedChainsADVI``,
       and every other configuration through its engine; each configuration's
       200-step chunk beside its plain version, and the dense Gaussian body's
-      product alone beside ``torch.mm`` by CUDA-graph replay.
+      product alone beside ``torch.mm`` by CUDA-graph replay;
+  (ag) the tiered layouts (what one block's shared memory could not hold
+      before them, each on the tier its size gives): K5's body on the
+      mean-field kernel's kWide group (the d = 2,048 quartic, tier 3; the
+      8,192 x 4 logistic fn_target, tier 2) and on K6 at C = 8; the three
+      minibatch transports on a 4,096 x 61 design at B = 1,024, n = 10 and
+      at B = 512, n = 128 (the kMbWide group: the logits, then the staged
+      slab, in device memory) and K6's staged transport at C = 8; the
+      full-rank single-block kernel's tier_layout (the staged and
+      prefetching slab at B = 1,024, d = 62; the d = 512, n = 128 dense
+      Gaussian under Adam, DoWG and DoG on one block; the 512 x 199 logreg
+      under DoWG; K5 at d = 256, n = 64 and d = 512, n = 128), each against
+      its plain version at (af)'s bars (65 noise steps on the minibatch
+      transports), with its group, tier, shared and workspace bytes and its
+      200-step chunk beside its bound and its plain version's; counted:
+      FusedADVI, FusedChainsADVI and FusedProxADVI through their entry
+      points on one configuration of each new instance; then where the
+      tiers start, each part's chunk at its last shared-memory size and at
+      its first workspace size (``[ag] edge=``).
 
 With ``--parent CHECKOUT`` (e.g. a ``git archive`` of the parent commit
 under the ignored ``_archive/``) it then times K8, K7b, K7c, K7a, the K9 probes,
@@ -218,7 +236,7 @@ Every failed check raises and the script exits non-zero; it also exits
 non-zero without a CUDA device, or when the package is not beside it.  The
 line before the last is a JSON object of the kernels (launch counts from the
 main-path runs of (f), (g), (l), (o), (p), (s), (u), (w), (x), (y), (z),
-(aa), (ab), (ac), (ad), (ae) and (af), errors, times, each time's bound on this card and
+(aa), (ab), (ac), (ad), (ae), (af) and (ag), errors, times, each time's bound on this card and
 the library call's time where the line has one); the last
 line is ``{"ok": true, "device": {...}}``.  It imports no JAX.
 """
@@ -242,11 +260,15 @@ ROOT = Path(__file__).resolve().parent
 N_DATA, N_FEATURES, N_SAMPLES, LR, DATA_SEED = 208, 60, 10, 1e-3, 11
 SEED = 0
 FUSED_STEPS = 20_000
-GENERAL_STEPS = 2_000
+# The depth cut: the general paths are host-bound, and a slow host took the
+# smoke past its 1,200 s limit, so their step counts here and in the phases'
+# constants below were cut (each notes its count before); every bar is as it was.
+GENERAL_STEPS = 1_000  # (2,000 before the depth cut)
 # (g): the general path warm-started on to here beside the fused engine on
 # the same key (the general path ran on to 20,000 before; cut to keep the run
-# inside its time target)
-AGREE_HORIZON = 4_000
+# inside its time target, then from 4,000 to 3,000).  The tail ELBO's last 20
+# rows must all lie after GENERAL_STEPS.
+AGREE_HORIZON = 3_000
 LOG_EVERY = 100
 TAIL_ROWS = 20  # ELBO at a horizon: mean of the last 20 logged rows
 SAMPLER_SHAPE = (65_536, 512)
@@ -257,8 +279,8 @@ FR_SHAPE = (FR_N, FR_D)
 FR_WIDE_SHAPE = (128, 2048)  # bench_fullrank_flopbound's second size: K7b timed there too
 FR_GENERAL_STEPS = 500
 FR_FUSED_D = 512
-FR_AGREE_STEPS = 2_000  # fused vs general, logreg d = 62
-FR_MV_STEPS = 1_000     # fused vs general, mvnormal d = 512
+FR_AGREE_STEPS = 1_000  # fused vs general, logreg d = 62 (2,000 before the cut)
+FR_MV_STEPS = 500       # fused vs general, mvnormal d = 512 (1,000 before the cut)
 
 
 def fail(msg: str) -> None:
@@ -287,6 +309,21 @@ def cuda_ms(fn, reps: int) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def once_ms(fn):
+    """(fn(), its milliseconds on the card by CUDA events): one call, no
+    warm-up.  A plain version's 200-step chunk is timed so: a host-bound
+    Python loop of seconds, whose kernels and shapes the comparisons before
+    it have already run (a warm-up call doubled its cost)."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(stop)
 
 
 def graph_ms(fn, calls: int = 50, replays: int = 5) -> float:
@@ -386,12 +423,22 @@ def ptxas_entries(log: str) -> dict:
     return {k: " ".join(v) for k, v in out.items()}
 
 
+# the kernels whose per-phase cycle counters (h), (m), (u) and (w) read
+CLOCKED_KERNELS = ("fused_advi_meanfield", "fused_advi_fullrank", "fused_chains")
+
+
 def phase_b():
+    """Build every kernel, and the AVI_PHASE_CLOCKS builds of
+    CLOCKED_KERNELS with them: one nvcc per library, all started together."""
     from advancedvi_jl_tpu_torch.ops.cuda import _build
+    from advancedvi_jl_tpu_torch.ops.cuda.fused_advi import PHASE_CLOCKS
 
     t0 = time.perf_counter()
-    paths = _build.build_all()  # one nvcc per source, all started together
-    say("b", kernels=len(paths), build_s=f"{time.perf_counter() - t0:.2f}")
+    jobs = _build.kernel_jobs()
+    _build.compile_jobs(jobs + _build.kernel_jobs(CLOCKED_KERNELS, PHASE_CLOCKS))
+    paths = {name: out for name, out, _ in jobs}
+    say("b", kernels=len(paths), clocked=len(CLOCKED_KERNELS),
+        build_s=f"{time.perf_counter() - t0:.2f}")
     for name, path in paths.items():
         log = path.with_suffix(".log").read_text()
         ptxas = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
@@ -817,7 +864,7 @@ def phase_h(dev, card):
                        1000)
     args = flagship_chunk_args(dev)
     fk_ms = cuda_ms(lambda: fused_run_chunk_cuda(*args), 20)
-    fr_ms = cuda_ms(lambda: fused_run_chunk_reference(*args), 1)
+    fr_ms = once_ms(lambda: fused_run_chunk_reference(*args))[1]
     # events over back-to-back calls time the wrapper's host work (the kernel
     # is ~2 us), as the host clock does; the graph replay times the card
     # alone; behind an op, what the launch adds after a kernel that writes m
@@ -1433,9 +1480,10 @@ print(json.dumps(smoke.ab_times(torch.device("cuda:0"))))
 
 
 # The kernel libraries whose kernels may compile to other SASS than the
-# parent's: none.  The mean-field and chains libraries gained instances
-# (the kWide group) that the parent lacks, which have nothing to compare;
-# every kernel both builds name must be the parent's.
+# parent's: none.  The mean-field, chains and full-rank libraries gained
+# instances (the kWide group, then the kMbWide group and the full-rank
+# kernel's tiered one) that the parent lacks, which have nothing to
+# compare; every kernel both builds name must be the parent's.
 AB_CHANGED = ()
 
 
@@ -1769,7 +1817,7 @@ def phase_m(dev, card):
         d = args[3].shape[1]
         model = args[0]
         k_ms = cuda_ms(lambda: fused_fullrank_run_chunk_cuda(*args, cluster=1), 10)
-        p_ms = cuda_ms(lambda: fused_fullrank_run_chunk_reference(*args), 1)
+        p_ms = once_ms(lambda: fused_fullrank_run_chunk_reference(*args))[1]
         k_ms2 = cuda_ms(lambda: fused_fullrank_run_chunk_cuda(*args, cluster=1), 10)
         # the chunk's bound: z, the whitening and dC (three (n, d) x triangle
         # products) and the model (the logreg's two (n, 208, 61) products, or
@@ -1854,8 +1902,8 @@ def phase_m(dev, card):
 
 NLN_DIMS = 10            # make_normallognormal(n_dims=10): d = 11
 NLN_STEPS = 50_000       # full-rank proximal ADVI against the analytic optimum
-NLN_GENERAL_STEPS = 1_000
-AGREE_STEPS = 2_000      # fused vs general on one key
+NLN_GENERAL_STEPS = 500  # (1,000 before the depth cut)
+AGREE_STEPS = 1_000      # fused vs general on one key (2,000 before the cut)
 # DoWG and DoG start with r0 = 1e-6 (1 + |x0|): their first steps move the
 # scale by less than its float32 rounding, so there the plain version in
 # float32 is itself ~1e-3 from float64.  Their kernel/plain comparisons
@@ -2189,7 +2237,7 @@ def phase_q(dev, card):
         args = (spec.model, spec.consts, spec.scalars, *rows, seed, 0, 200, N_SAMPLES, eng.hyp,
                 None, 0, branch)
         k_ms = cuda_ms(lambda: kern(*args), 10)
-        p_ms = cuda_ms(lambda: plain(*args), 1)
+        p_ms = once_ms(lambda: plain(*args))[1]
         k_ms2 = cuda_ms(lambda: kern(*args), 10)
         best = min(k_ms, k_ms2)
         say("q", card=f"'{card}'", engine=name, d=spec.dim, chunk_steps=200,
@@ -2228,7 +2276,8 @@ MB_AGREE_STEPS = MB_N // MB_B  # one epoch: fused and general see the same batch
 MB_GENERAL_STEPS = 500
 BNN_N, BNN_IN, BNN_HIDDEN, BNN_B, BNN_SAMPLES = 16_384, 32, 256, 2048, 16  # bench_large.py
 BNN_STEPS = 200
-SN_STEPS = 2_000              # subsampled normals: tests/test_subsampling.py:91-106
+SN_STEPS = 1_000              # subsampled normals: tests/test_subsampling.py:91-106 (2,000
+                              # before the depth cut)
 TRANSPORTS = ("inplace", "staged", "prefetch")
 F32_FLOPS, HBM_BYTES = 67e12, 3.35e12  # H100 SXM peaks: float32 without tensor cores, HBM
 
@@ -2606,7 +2655,7 @@ def phase_u(dev, card, lr_state):
                       eng.hyp)
 
         k_ms = cuda_ms(lambda: chunk(fused_run_chunk_cuda), 10)
-        p_ms = cuda_ms(lambda: chunk(fused_run_chunk_reference), 1)
+        p_ms = once_ms(lambda: chunk(fused_run_chunk_reference))[1]
         k_ms2 = cuda_ms(lambda: chunk(fused_run_chunk_cuda), 10)
         walk[0] = 0
         fixed_ms = cuda_ms(lambda: chunk(fused_run_chunk_cuda, 0), 10)
@@ -2656,11 +2705,12 @@ CHAINS_C = 8                   # phase (v): tests/test_fused_chains.py's 8-row s
 CHAINS_SWEEP = (1, 8, 32, 128, 256, 512, 1024, 4096)
 CHAINS_MAIN_C, CHAINS_MAIN_STEPS = 64, 20_000
 CHAINS_WIDE_C = 1024           # several chains a block: the counted run and its checks
-CHAINS_GENERAL_C, CHAINS_GENERAL_STEPS = 4, 500
+CHAINS_GENERAL_C, CHAINS_GENERAL_STEPS = 4, 200  # (500 before the depth cut)
 MIXED_RULES = ["adam", "descent", "dowg", "dog", "cocob", "adam", "dowg", "cocob"]
 LR_SHAPE = (65_536, 256, 8)    # BENCH_NOTES' low-rank sampler shape (n, d, r)
-LR_D, LR_R, LR_STEPS = 12, 2, 3_000  # tests/test_lowrank_advi.py's convergence case
-LR_FLAGSHIP_R, LR_FLAGSHIP_STEPS = 8, 2_000
+LR_D, LR_R, LR_STEPS = 12, 2, 1_000  # tests/test_lowrank_advi.py's convergence case (3,000
+                                     # steps before the depth cut)
+LR_FLAGSHIP_R, LR_FLAGSHIP_STEPS = 8, 500  # (2,000 before the depth cut)
 
 
 def chains_engine(dev, spec, n_chains, seed=4, **kw):
@@ -2842,7 +2892,7 @@ def phase_w(dev, card):
     """The chains paths at full width, counted: 64 jittered chains of the
     flagship (locations 0.5 N(0, 1), scales 0.1) for 20,000 steps through
     FusedChainsADVI (every chain finite and above -150 at its tail, bench.py's
-    ``converged``), and optimize_chains at C = 4 for 500 steps (chain c equal
+    ``converged``), and optimize_chains at C = 4 for CHAINS_GENERAL_STEPS (chain c equal
     to ``optimize`` keyed by chain_seed_words(seed, c), bit for bit); then
     1,024 jittered chains for 20,000 steps (several chains a block), counted
     apart, with the same checks.  Then 200-step chunks at C in CHAINS_SWEEP
@@ -2950,7 +3000,7 @@ def phase_w(dev, card):
             out[fn] = chains_run(fn, e, rows, seeds, 0, 200)
 
         k_ms = cuda_ms(lambda: timed(kern), 5)
-        p_ms = cuda_ms(lambda: timed(plain), 1)
+        p_ms = once_ms(lambda: timed(plain))[1]
         timed_ms[C] = (k_ms, p_ms)
         k, r = out[kern], out[plain]
         rel = compare_tensors(f"chains C = {C}, Philox, 200 steps",
@@ -3304,8 +3354,8 @@ def ad_build(dev, cases, extra=()):
     import ctypes
 
     from advancedvi_jl_tpu_torch.ops.cuda import _build
-    from advancedvi_jl_tpu_torch.ops.cuda.fused_advi import _fullrank_extras, ad_program, \
-        ad_smem_bytes
+    from advancedvi_jl_tpu_torch.ops.cuda.fused_advi import PHASE_CLOCKS, _fullrank_extras, \
+        ad_program, ad_smem_bytes
 
     progs = {name: {"meanfield": ad_program(spec, N_SAMPLES, "meanfield", 8),
                     "fullrank": ad_program(spec, N_SAMPLES, "fullrank", 4)}
@@ -3313,9 +3363,13 @@ def ad_build(dev, cases, extra=()):
     kernels = (("fused_advi_meanfield", "meanfield", 8), ("fused_chains", "meanfield", 8),
                ("fused_advi_fullrank", "fullrank", 4))
     t0 = time.perf_counter()
-    paths = _build.build_generated_all([(k, progs[name][fam].source) for name in progs
-                                        for k, fam, _ in kernels]
-                                       + [(k, prog.source) for k, prog in extra])
+    pairs = ([(k, progs[name][fam].source) for name in progs for k, fam, _ in kernels]
+             + [(k, prog.source) for k, prog in extra])
+    jobs = _build.generated_jobs(pairs)
+    # with them, the flagship body's AVI_PHASE_CLOCKS build (ad_times' split)
+    _build.compile_jobs(jobs + _build.generated_jobs(
+        [("fused_advi_meanfield", progs["logreg"]["meanfield"].source)], PHASE_CLOCKS))
+    paths = {pair: out for pair, (_, out, _) in zip(pairs, jobs)}
     say("y", libraries=len(paths), build_s=f"{time.perf_counter() - t0:.2f}")
     for kern, prog in extra:
         path = paths[(kern, prog.source)]
@@ -3523,7 +3577,7 @@ def ad_times(dev, card, progs):
     for _ in range(2):
         hand_ms.append(cuda_ms(lambda: fa.fused_run_chunk_cuda(*hand_args), 20))
         ad_ms.append(cuda_ms(lambda: fa.fused_run_chunk_cuda(*ad_args, ad=prog), 20))
-    plain_ms = cuda_ms(lambda: fa.fused_run_chunk_reference(*ad_args, ad=prog), 1)
+    plain_ms = once_ms(lambda: fa.fused_run_chunk_reference(*ad_args, ad=prog))[1]
     d = prog.d
     vec, mat = ad_rows(d, dev, "fullrank")
     fr = progs["fullrank"]
@@ -3595,11 +3649,11 @@ def rng_checks(dev):
     check(spread < 0.02, f"64 chains' averaged locations spread {spread} >= 0.02")
 
 
-def phase_y(dev, card):
-    """K5: build (with (ac)'s ingested flagship), hold against the plain
-    version and the hand body, the counted main path, the times; then the
-    RNG checks.  Returns also (ac)'s ingested model, its spec and its
-    mean-field program."""
+def phase_y(dev, card, extra=()):
+    """K5: build (with (ac)'s ingested flagship and ``extra``'s (kernel,
+    program) pairs: (ag)'s), hold against the plain version and the hand
+    body, the counted main path, the times; then the RNG checks.  Returns
+    also (ac)'s ingested model, its spec and its mean-field program."""
     import advancedvi_jl_tpu_torch as avt
     from advancedvi_jl_tpu_torch.ops.cuda.fused_advi import ad_program
 
@@ -3607,7 +3661,7 @@ def phase_y(dev, card):
     m = ingested_flagship(dev)
     ing_spec = avt.fused_spec_for(m.target)
     ing_prog = ad_program(ing_spec, N_SAMPLES, "meanfield", 8)
-    progs = ad_build(dev, cases, extra=[("fused_advi_meanfield", ing_prog)])
+    progs = ad_build(dev, cases, extra=[("fused_advi_meanfield", ing_prog), *extra])
     err = 0.0
     for name, spec in cases.items():
         for family in ("meanfield", "fullrank"):
@@ -3637,15 +3691,16 @@ MS_EVAL_SAMPLES = 20_000             # the warm-start check's ELBOs
 MS_SAMPLE_SHAPES = [(n, d) for n in (16, 32, 64) for d in (62, 256, 512)] + [
     ((2 * MS_PATH_DRAWS) // MS_PATHS, N_FEATURES + 2), (MS_EVAL_SAMPLES, N_FEATURES + 2)]
 # tests/test_cross_algorithm.py's NGD run on the logreg took 2,000 steps;
-# cut to 1,500 when (af) took the smoke past 1,000 s on a slow host
-MS_STEPS = 1_500
+# cut to 1,500 when (af) took the smoke past 1,000 s on a slow host, and to
+# 700 when the smoke ran past its 1,200 s limit on one (GENERAL_STEPS' note)
+MS_STEPS = 700
 MS_LOG_EVERY = 10        # the tail ELBO: the mean of the last 20 rows, 200 steps
 MS_GAUSS_D = 256         # tests/test_measure_space.py:265's width
 MS_GAUSS_STEPS = 400     # tests/test_measure_space.py:105's horizon
 MS_BAM_STEPS = 150       # tests/test_measure_space.py:265's run
 MS_TIMED_STEPS = 20
 MS_TIMED_DIMS = (62, 256, 512)
-MS_TERM_STEPS = 400
+MS_TERM_STEPS = 200       # (400 before the depth cut)
 MS_WARM_STEPS = 20
 
 
@@ -3992,8 +4047,9 @@ def phase_z(dev, card, fr_ref):
 
 # (aa): the rest of the location-scale family and its objectives
 AA_DRAW_SHAPE = (65_536, N_FEATURES + 2)
-AA_STEPS = 2_000                  # the antithetic and plain flagship runs
-AA_SHORT_STEPS = 1_000            # each IWELBO and Student-t / Laplace run: the smoke's time
+AA_STEPS = 600                    # the antithetic and plain flagship runs (2,000 until (ag),
+                                  # 1,500 until the depth cut)
+AA_SHORT_STEPS = 300              # each IWELBO and Student-t / Laplace run (1,000, then 600)
 AA_SIDE_STEPS = 500               # antithetic on the full-rank and low-rank families
 AA_LOG_EVERY = 10                 # the tail: the last 20 rows, 200 steps
 AA_VAR_ESTIMATES = 200
@@ -4390,15 +4446,17 @@ def phase_aa(dev, card):
 
 
 # (ab): the other families on the flagship, and the random-effects model
-AB_STEPS = 1_000                  # each mixture and block-diagonal run of (ab)
-AB_FLOW_STEPS = 500               # each flow run (1,000 took (ab) past its 90 s on an H100)
+AB_STEPS = 400                    # each mixture and block-diagonal run of (ab) (1,000 until (ag),
+                                  # 600 until the depth cut)
+AB_FLOW_STEPS = 300               # each flow run (1,000 took (ab) past its 90 s on an H100; 500
+                                  # until (ag) took the smoke past 1,000 s)
 AB_LOG_EVERY = 10                 # the first and last 20 rows are the bars
 AB_MIX_K, AB_MIXFR_K = 4, 2       # mean-field and full-rank mixture components
 AB_BLOCKS = 2                     # block-diagonal: 2 blocks of 31
 AB_FLOW_LAYERS = 8                # planar and radial
 AB_COUPLING_LAYERS, AB_COUPLING_H = 4, 64
 AB_RE_N, AB_RE_B, AB_RE_DRAWS = 4_096, 512, 16   # random effects: rows, batch, draws
-AB_RE_STEPS, AB_RE_LR, AB_RE_LOG_EVERY = 6_000, 2e-2, 100
+AB_RE_STEPS, AB_RE_LR, AB_RE_LOG_EVERY = 1_600, 2e-2, 100  # (6,000 before the depth cut)
 AB_RE_S0, AB_RE_SZ, AB_RE_SY = 2.0, 1.0, 0.5     # prior sd of mu, z | mu, y | z
 # every K7a shape the counted runs launch: the mixtures over (n, K d), the
 # block-diagonal u and the flows' base at (n, d), the random effects' global
@@ -4466,9 +4524,9 @@ def ab_run(alg, steps, target, q0, tally, log_every=AB_LOG_EVERY):
 def ab_flagship(dev, tally):
     """(ab) The other families on the flagship logreg (d = 62) through
     ``optimize``, 10 draws a component or a step, Adam(1e-3) and polynomial
-    averaging: 1,000 steps each of the mixtures with MixtureELBO (STL) and
+    averaging: AB_STEPS each of the mixtures with MixtureELBO (STL) and
     ClipScale and the block-diagonal family with RepGradELBO (STL) and
-    ClipScale; 500 each of the planar and radial flows (8 layers) and the
+    ClipScale; AB_FLOW_STEPS each of the planar and radial flows (8 layers) and the
     coupling flow (4 layers, h = 64) with FlowELBO (the Monte-Carlo entropy,
     and STL for the coupling flow; no operator, as JAX's ClipScale takes no
     flow), each flow's base at scale 0.1 as the flagship's q0.  Every ELBO
@@ -4559,7 +4617,7 @@ def ab_random_effects(dev, tally):
     """(ab) The random-effects model at N = 4,096 rows:
     GlobalLocalFamily(MeanFieldGaussian(1), per_datapoint_meanfield(N)) with
     ReshufflingBatchSubsampling(B = 512), 16 draws, Adam(2e-2), ClipScale,
-    6,000 steps (750 epochs) through ``optimize``.  Bars (JAX's): every
+    AB_RE_STEPS steps (200 epochs) through ``optimize``.  Bars (JAX's): every
     local mean and the global mean within 0.08 of the exact posterior mean,
     every local sd within rtol 0.2 of Lambda_ii^-1/2 (the global sd, 0.0156
     here, is held only in the CPU test at N = 48); and one draw's global and
@@ -4625,7 +4683,7 @@ def phase_ab(dev, card):
 # ---------------------------------------------------------------------------
 
 AC_FUSED_STEPS = 20_000           # the ingested flagship through K5, as (g) and (y)
-AC_GENERAL_STEPS, AC_SAVE_AT = 2_000, 1_000
+AC_GENERAL_STEPS, AC_SAVE_AT = 1_000, 500  # (2,000 and 1,000 before the depth cut)
 AC_LOG_EVERY = 10                 # the first and last 20 rows are the bars
 AC_STREAM_STEPS = 1_000
 # every K7a shape (ac)'s counted runs launch: the ingested flagship, the
@@ -4728,9 +4786,9 @@ def ac_fused(dev, tally, m, prog):
 def ac_general(dev, tally, m):
     """(ac) The ingested flagship on the general path: KLMinRepGradDescent
     (STL, 10 draws, Adam(1e-3), ClipScale) through ``optimize`` with a
-    ProgressMeter, 2,000 steps, its callback writing the state at step
-    1,000 with ``save_state``; that state restored onto a fresh template
-    with ``restore_state`` and run on to 2,000: its state, output and rows
+    ProgressMeter, AC_GENERAL_STEPS steps, its callback writing the state at
+    step AC_SAVE_AT with ``save_state``; that state restored onto a fresh
+    template with ``restore_state`` and run on to the end: its state, output and rows
     bitwise the uninterrupted run's.  Every row finite and the last 20
     rows' mean above the first 20's.  Returns steps/s of the uninterrupted
     run."""
@@ -4784,7 +4842,7 @@ def ac_general(dev, tally, m):
 def ac_local(dev, tally):
     """(ac) The random-effects model through ``ppl.ingest`` in local mode at
     (ab)'s size: q_init() a GlobalLocalFamily, B = 512, 16 draws,
-    Adam(2e-2), ClipScale, 6,000 steps; (ab)'s bars.  Returns steps/s."""
+    Adam(2e-2), ClipScale, AB_RE_STEPS steps; (ab)'s bars.  Returns steps/s."""
     import numpy as np
 
     import advancedvi_jl_tpu_torch as avt
@@ -4928,9 +4986,9 @@ def ac_chunk_times(dev, card, prog):
 # The device mesh (parallel/): one NCCL rank, and two gloo ranks on the card
 # ---------------------------------------------------------------------------
 
-MESH_STEPS = 1_000                # the flagship under the one-rank mesh
+MESH_STEPS = 500                  # the flagship under the one-rank mesh (1,000 before the cut)
 MESH_SIDE_STEPS = 200             # full-rank and low-rank ADVI under it
-MESH_RANK_STEPS = 500             # the flagship on each two-rank mesh
+MESH_RANK_STEPS = 250             # the flagship on each two-rank mesh (500 before the cut)
 MESH_CHAINS = (64, CHAINS_WIDE_C)  # run_sharded on one rank, on two (G = 8 at one)
 MESH_CHAIN_STEPS = 200
 MESH_RTOL, MESH_ATOL = 1e-5, 1e-6  # tests/test_parallel.py's bars
@@ -5776,19 +5834,6 @@ def af_bound(spec, n, d, steps, chains=1):
             4.0 * (consts + chains * 16 * d))
 
 
-def once_ms(fn):
-    """(fn(), its milliseconds on the card by CUDA events): one call, for a
-    plain version whose run is also compared."""
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    out = fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return out, start.elapsed_time(stop)
-
-
 def af_times(dev, card, cfgs, chunk_ms, chains_spec):
     """Each configuration's 200-step chunk beside its plain version
     (``chunk_ms``, taken in ``af_compare``), K6 at C = 8 on the d = 2,048
@@ -5946,6 +5991,495 @@ def phase_af(dev, card):
     return counts, errs, times, products
 
 
+
+# ---------------------------------------------------------------------------
+# (ag) the tiered layouts: K5's body on the mean-field and chains kernels'
+# kWide group, the minibatch transports' kMbWide group and the full-rank
+# single-block kernel's tier_layout
+# ---------------------------------------------------------------------------
+
+AG_NOISE_STEPS = 50
+AG_MB_NOISE_STEPS = 65    # the minibatch transports' bar, phase (r)'s
+AG_STEPS = 200            # the Philox comparisons and each timed chunk
+AG_SIDE_STEPS = 200       # each counted engine run
+AG_CHAINS_C = 8
+AG_MB_N = 4096            # the 4,096 x 61 design of the minibatch configurations
+# Full-rank DoWG on the logreg runs away, as JAX's does: on the 512 x 199
+# design its accumulator v (the sum of r^2 |g|^2) reached 5.7e21 after 50
+# injected-noise steps from r0 scale 1e-4 (PERF.md section 6); its comparisons
+# run the window before that, as tests/test_torch_kernels.py's full-rank
+# logreg DoWG cases do (30 steps)
+AG_DOWG_LOGREG_STEPS = 30
+
+
+def ag_quartic(dev, d):
+    """The anisotropic quartic well at width d through
+    ``FusedModelSpec.from_log_density`` (tests/test_torch_fused_envelope_k5.py)."""
+    import advancedvi_jl_tpu_torch as avt
+
+    data = {"anchor": torch.linspace(-1.0, 1.0, d, device=dev),
+            "w": torch.linspace(1.0, 5.0, d, device=dev)}
+
+    def logp(theta, dat):
+        r = theta - dat["anchor"]
+        return -(r * r * dat["w"]).sum(-1) - 0.1 * (r ** 4).sum(-1)
+
+    return avt.FusedModelSpec.from_log_density(logp, d, data=data)
+
+
+def ag_wide_logreg(dev):
+    """An 8,192 x 4 logistic fn_target: its body's (10, 8,192) logits alone
+    are over one block's shared memory."""
+    import advancedvi_jl_tpu_torch as avt
+
+    X = torch.randn(8192, 4, generator=torch.Generator().manual_seed(0)).to(dev)
+    return avt.ad_spec(avt.fn_target(
+        lambda t, dat: -torch.log1p(torch.exp(t @ dat.T)).sum(-1), 4, X))
+
+
+def ag_minibatch(dev, batch, transport):
+    import advancedvi_jl_tpu_torch as avt
+    from advancedvi_jl_tpu_torch.models.logreg import make_logreg
+
+    prob = make_logreg(DATA_SEED, n_data=AG_MB_N, n_features=N_FEATURES, device=dev)
+    kw = dict(batch_size=batch, generator=3)
+    if transport == "inplace":
+        return avt.logreg_minibatch_spec(prob.X, prob.y, **kw)
+    return avt.logreg_minibatch_hbm_spec(prob.X, prob.y, prefetch=transport == "prefetch", **kw)
+
+
+def ag_configs(dev):
+    """name -> (family, spec, n_samples, algo, alpha): the configurations
+    JAX's engines take that one block's shared memory could not hold before
+    the tiered layouts: K5 at d = 2,048 and on the 8,192 x
+    4 design; every minibatch transport at B = 1,024 (n = 10) and at B =
+    512 (n = 128) on the 4,096 x 61 design; the full-rank kernel's staged
+    and prefetching slab at B = 1,024, the d = 512, n = 128 dense Gaussian
+    under Adam, DoWG and DoG (one block), the 512 x 199 logreg under DoWG
+    and K5 at d = 256, n = 64 and d = 512, n = 128.  DoWG and DoG start at
+    r0 scale 1e-2 (1e-4 on the logreg, held over AG_DOWG_LOGREG_STEPS)."""
+    import advancedvi_jl_tpu_torch as avt
+    from advancedvi_jl_tpu_torch.models.logreg import make_logreg
+
+    wide = make_logreg(DATA_SEED, n_data=512, n_features=198, device=dev)
+    mv = mvn_target(dev, 512)
+    mvn = avt.mvnormal_spec(mv.mu, mv.scale_tril)
+    cfgs = {"mf_k5_quartic_d2048": ("meanfield", ag_quartic(dev, 2048), N_SAMPLES, "adam", 0.0),
+            "mf_k5_wide_logreg": ("meanfield", ag_wide_logreg(dev), N_SAMPLES, "adam", 0.0)}
+    for tr in TRANSPORTS:
+        cfgs[f"mf_mb_{tr}_B1024"] = ("meanfield", ag_minibatch(dev, 1024, tr), N_SAMPLES,
+                                     "adam", 0.0)
+        cfgs[f"mf_mb_{tr}_B512_n128"] = ("meanfield", ag_minibatch(dev, 512, tr), 128, "adam",
+                                         0.0)
+    for tr in ("staged", "prefetch"):
+        cfgs[f"fr_mb_{tr}_B1024"] = ("fullrank", ag_minibatch(dev, 1024, tr), N_SAMPLES,
+                                     "adam", 0.0)
+    for algo in ("adam", "dowg", "dog"):
+        cfgs[f"fr_mvnormal_d512_n128_{algo}"] = ("fullrank", mvn, 128, algo, 1e-2)
+    cfgs["fr_logreg_512x199_dowg"] = ("fullrank", avt.logreg_spec(wide.X, wide.y), N_SAMPLES,
+                                      "dowg", 1e-4)
+    cfgs["fr_k5_quartic_d256_n64"] = ("fullrank", ag_quartic(dev, 256), 64, "adam", 0.0)
+    cfgs["fr_k5_quartic_d512_n128"] = ("fullrank", ag_quartic(dev, 512), 128, "adam", 0.0)
+    return cfgs
+
+
+# Where the tiers start (ag_edges): K5's quartic at n = 10 keeps every array
+# in shared memory up to d = 1,448 (232,192 bytes, its constants unstaged)
+# and takes the kWide group's tier 3 from d = 1,456 (233,472 bytes).
+AG_K5_EDGE = (1448, 1456)
+
+
+def ag_edge_configs(dev):
+    """part -> ((last shared-memory configuration), (first workspace
+    configuration)), as ``ag_configs``' entries: K5's quartic at
+    AG_K5_EDGE; the staged transport at n = 10 at the largest B whose
+    layout fits one block and at B + 8 (the kMbWide group's tier 1); the
+    full-rank d = 512 dense Gaussian under Adam at the largest n whose
+    per-step arrays fit and at n + 1 (tier 3), on one block."""
+    import advancedvi_jl_tpu_torch as avt
+    from advancedvi_jl_tpu_torch.ops.cuda.fused_advi import (
+        MODEL_CODES, fullrank_layout, fused_layout)
+
+    staged = MODEL_CODES["logreg_minibatch_staged"]
+    B = max(b for b in range(8, 2049, 8) if fused_layout("fused_advi_meanfield")(
+        staged, 8 * b, N_FEATURES + 1, b, N_SAMPLES, N_FEATURES + 2, 8)[3] == -1)
+    n = max(m for m in range(1, 129) if fullrank_layout()(
+        MODEL_CODES["mvnormal"], 0, 0, 0, m, FR_FUSED_D, 4)[0] == -1)
+    mv = mvn_target(dev, FR_FUSED_D)
+    mvn = avt.mvnormal_spec(mv.mu, mv.scale_tril)
+
+    def staged_spec(batch):
+        from advancedvi_jl_tpu_torch.models.logreg import make_logreg
+
+        prob = make_logreg(DATA_SEED, n_data=8 * batch, n_features=N_FEATURES, device=dev)
+        return avt.logreg_minibatch_hbm_spec(prob.X, prob.y, batch_size=batch, prefetch=False,
+                                             generator=3)
+
+    return {"k5_quartic": tuple(("meanfield", ag_quartic(dev, d), N_SAMPLES, "adam", 0.0)
+                                for d in AG_K5_EDGE),
+            "mb_staged": tuple(("meanfield", staged_spec(b), N_SAMPLES, "adam", 0.0)
+                               for b in (B, B + 8)),
+            "fr_mvnormal_d512": tuple(("fullrank", mvn, m, "adam", 0.0) for m in (n, n + 1))}
+
+
+def ag_edges(dev, card, edges):
+    """Where the tiers stop paying: each part's 200-step chunk (CUDA events)
+    at its last shared-memory size and at its first workspace size, side by
+    side, with each launch's group and tier."""
+    out = {}
+    for part, pair in edges.items():
+        row = []
+        for cfg in pair:
+            eng = ag_engine(cfg)
+            rows = ag_rows(eng, dev)
+            ms = cuda_ms(lambda: ag_launch(eng, rows, 0, AG_STEPS), 1)
+            group, tier, smem, ws = ag_layout(eng)
+            size = (f"d={eng.dim}" if part == "k5_quartic" else
+                    f"B={cfg[1].consts[0].shape[0] // cfg[1].consts[1].shape[0]}"
+                    if part == "mb_staged" else f"n={eng.n_samples}")
+            row.append((size, group, tier, smem, ws, ms))
+        out[part] = row
+        (a, b) = row
+        say("ag", card=f"'{card}'", edge=part, steps=AG_STEPS,
+            last_shared=f"{a[0]}:group{a[1]}:tier{a[2]}:{a[3]}B:{a[5]:.4f}ms",
+            first_workspace=f"{b[0]}:group{b[1]}:tier{b[2]}:{b[3]}B+{b[4]}B:{b[5]:.4f}ms",
+            ratio=f"{b[5] / a[5]:.3f}")
+    return out
+
+
+def ag_programs(cfgs, edges=None):
+    """The (kernel, program) pairs of (ag)'s K5 configurations (and of
+    ``edges``' K5 quartics), the chains kernel's for the d = 2,048 quartic
+    too: (y) builds them with its own."""
+    from advancedvi_jl_tpu_torch.ops.cuda.fused_advi import ad_program
+
+    pairs = []
+    named = list(cfgs.items()) + [(f"edge_{i}", cfg) for i, cfg in
+                                  enumerate((edges or {}).get("k5_quartic", ()))]
+    for name, (family, spec, n, _, _) in named:
+        if spec.model == "ad":
+            prog = ad_program(spec, n, family, 8 if family == "meanfield" else 4)
+            kern = "fused_advi_meanfield" if family == "meanfield" else "fused_advi_fullrank"
+            pairs.append((kern, prog))
+            if name == "mf_k5_quartic_d2048":
+                pairs.append(("fused_chains", prog))
+    return pairs
+
+
+def ag_engine(cfg):
+    """The configuration's engine: FusedADVI, or FusedProxADVI for DoWG and
+    DoG (closed-form zero-gradient entropy, prox)."""
+    import advancedvi_jl_tpu_torch as avt
+
+    family, spec, n, algo, alpha = cfg
+    if algo == "adam":
+        return avt.FusedADVI(spec, family=family, n_samples=n, lr=LR)
+    return avt.FusedProxADVI(spec, family=family, n_samples=n, optimizer=algo, alpha=alpha)
+
+
+def ag_rows(eng, dev):
+    """The initial rows: locations 0.2 N(0, 1) (seeded), scales 0.1."""
+    d = eng.dim
+    g = torch.Generator().manual_seed(6)
+    loc = (0.2 * torch.randn(d, generator=g)).to(dev)
+    st = eng.init(loc, 0.1 * (torch.ones(d, device=dev) if eng.family == "meanfield"
+                              else torch.eye(d, device=dev)))
+    return (st.stacked(),) if eng.family == "meanfield" else st.stacked_fullrank()
+
+
+def ag_launch(eng, rows, it0, steps, noise=None, log_every=0, plain=False):
+    """One chunk of the engine's kernel (or its plain version) from
+    ``rows``: (rows..., elbo, trace); the full-rank kernel on one block."""
+    from advancedvi_jl_tpu_torch.ops.cuda.fused_advi import (
+        fused_fullrank_run_chunk_cuda, fused_fullrank_run_chunk_reference, fused_run_chunk_cuda,
+        fused_run_chunk_reference)
+    from advancedvi_jl_tpu_torch.ops.cuda.location_scale_kernels import seed_words
+
+    spec = eng.model
+    consts = spec.consts if eng.ad is None else eng.ad.consts
+    args = (seed_words(SEED), it0, steps, eng.n_samples, eng.hyp, noise, log_every,
+            eng.branch(), eng.ad)
+    if eng.family == "meanfield":
+        fn = fused_run_chunk_reference if plain else fused_run_chunk_cuda
+        r, e, t = fn(spec.model, consts, spec.scalars, rows[0], *args)
+        return r, e, t
+    if plain:
+        return fused_fullrank_run_chunk_reference(spec.model, consts, spec.scalars, *rows, *args)
+    return fused_fullrank_run_chunk_cuda(spec.model, consts, spec.scalars, *rows, *args,
+                                         cluster=1)
+
+
+def ag_layout(eng):
+    """(group, tier, shared bytes, workspace bytes) of the engine's launch
+    (the full-rank kernel's group: -1)."""
+    from advancedvi_jl_tpu_torch.ops.cuda.fused_advi import (
+        MODEL_CODES, _model_args, fullrank_layout, fused_layout)
+
+    spec, ad, n, d = eng.model, eng.ad, eng.n_samples, eng.dim
+    consts = spec.consts if ad is None else ad.consts
+    _, _, n_data, db, batch, _, _ = _model_args(spec.model, consts, spec.scalars, d,
+                                                consts[0].device, n, ad)
+    body = None if ad is None else ad.source
+    code = MODEL_CODES[spec.model]
+    if eng.family == "meanfield":
+        group, smem, ws, tier = fused_layout("fused_advi_meanfield", body)(
+            code, n_data, db, batch, n, d, 8)
+        return group, tier, smem, 4 * ws
+    tier, smem, ws = fullrank_layout(body)(code, n_data, db, batch, n, d, 4)
+    return -1, tier, smem, 4 * ws
+
+
+def ag_plain_key(cfg):
+    """Configurations whose plain versions are one computation: the
+    minibatch transports of one family, batch and sample count (one
+    permutation of one design; the plain version reads the slab where it
+    lies whatever the transport)."""
+    family, spec, n, _, _ = cfg
+    if not spec.model.startswith("logreg_minibatch"):
+        return None
+    X, yX = spec.consts
+    return family, X.shape[0] // yX.shape[0], n
+
+
+def ag_compare(dev, name, cfg, plain_runs):
+    """The kernel against its plain version on one configuration: 50
+    injected-noise steps (65 on the minibatch transports; norm-wise rtol
+    1e-5, ELBO rtol 1e-5) and 200 Philox steps (1e-4, the timed chunk),
+    and that run bitwise its 60 + 140 chunks, the second traced (the
+    full-rank logreg under DoWG: AG_DOWG_LOGREG_STEPS for both
+    comparisons, 10 + 20).  ``plain_runs`` keeps the plain versions' runs
+    of the configurations that share them (``ag_plain_key``).  Returns
+    (the largest norm-wise relative error, the launch's (group, tier), the
+    200-step chunk's ms by CUDA events and its plain version's)."""
+    eng = ag_engine(cfg)
+    rows = ag_rows(eng, dev)
+    nr, n, d = len(rows), eng.n_samples, eng.dim
+    steps = AG_MB_NOISE_STEPS if eng.model.model.startswith("logreg_minibatch") \
+        else AG_NOISE_STEPS
+    philox, first, every = AG_STEPS, 60, 20
+    if eng.model.model == "logreg" and eng.algo == "dowg":
+        steps = philox = AG_DOWG_LOGREG_STEPS
+        first, every = 10, 10
+    noise = torch.randn((steps, n, d), generator=torch.Generator().manual_seed(5)).to(dev)
+    k = ag_launch(eng, rows, 0, steps, noise, 5)
+    key = ag_plain_key(cfg)
+    runs = plain_runs.get(key) if key is not None else None
+    if runs is None:
+        r_noise = ag_launch(eng, rows, 0, steps, noise, 5, plain=True)
+        r_timed, plain_ms = once_ms(lambda: ag_launch(eng, rows, 0, AG_STEPS, plain=True))
+        r_philox = r_timed if philox == AG_STEPS else ag_launch(eng, rows, 0, philox,
+                                                                  plain=True)
+        runs = (r_noise, r_philox, plain_ms)
+        if key is not None:
+            plain_runs[key] = runs
+    r, r_philox, plain_ms = runs
+    torch.cuda.synchronize()
+    worst = compare_tensors(f"(ag) {name}, injected noise", [t for x in k[:nr] for t in x],
+                            [t for x in r[:nr] for t in x], 1e-5)
+    check(torch.allclose(k[nr], r[nr], rtol=1e-5, atol=1e-4) and
+          torch.allclose(k[nr + 1], r[nr + 1], rtol=1e-5, atol=1e-4),
+          f"(ag) {name}: ELBO {float(k[nr])} vs {float(r[nr])} (or its trace) differs")
+    timed, ms = once_ms(lambda: ag_launch(eng, rows, 0, AG_STEPS))
+    k = timed if philox == AG_STEPS else ag_launch(eng, rows, 0, philox)
+    half = ag_launch(eng, rows, 0, first)
+    two = ag_launch(eng, half[:nr], first, philox - first, None, every)
+    torch.cuda.synchronize()
+    r = r_philox
+    worst = max(worst, compare_tensors(f"(ag) {name}, Philox {philox} steps",
+                                       [t for x in k[:nr] for t in x],
+                                       [t for x in r[:nr] for t in x], 1e-4))
+    check(torch.allclose(k[nr], r[nr], rtol=1e-4, atol=1e-3),
+          f"(ag) {name}: ELBO after {philox} steps {float(k[nr])} vs {float(r[nr])}")
+    check(all(torch.equal(a, b) for a, b in zip(k[:nr + 1], two[:nr + 1])) and
+          float(two[nr + 1][-1]) == float(k[nr]),
+          f"(ag) {name}: the chunked and traced run differs from the whole run")
+    group, tier, smem, ws = ag_layout(eng)
+    say("ag", config=name, family=eng.family, d=d, n=n, algo=eng.algo, group=group, tier=tier,
+        smem_bytes=smem, workspace_bytes=ws, max_rel_err=f"{worst:.3e}", chunked_bitwise=True)
+    return worst, (group, tier), (ms, plain_ms)
+
+
+def ag_chains_compare(dev, name, spec):
+    """K6 at C = 8 against its plain version (50 injected-noise steps, rtol
+    1e-5) and chains 0, G - 1, G and C - 1 of a 200-step Philox run bitwise
+    the single-chain kernel keyed by their words.  Returns (the largest
+    norm-wise relative error, (group, tier), the 200-step chunk's ms and its
+    plain version's)."""
+    from advancedvi_jl_tpu_torch.ops.cuda.fused_advi import (
+        MODEL_CODES, _model_args, fused_layout, fused_run_chunk_cuda)
+    from advancedvi_jl_tpu_torch.ops.cuda.fused_chains import (
+        fused_chains_run_chunk_cuda, fused_chains_run_chunk_reference)
+    from advancedvi_jl_tpu_torch.ops.cuda.location_scale_kernels import chain_seed_words
+
+    C = AG_CHAINS_C
+    eng, rows, seeds = chains_case(dev, spec, C)
+    d, G = spec.dim, eng.chains_per_block()
+    consts = spec.consts if eng.ad is None else eng.ad.consts
+    noise = torch.randn((AG_NOISE_STEPS, C, N_SAMPLES, d),
+                        generator=torch.Generator().manual_seed(7)).to(dev)
+    k_rows, k_elbo, _ = chains_run(fused_chains_run_chunk_cuda, eng, rows, seeds, 0,
+                                   AG_NOISE_STEPS, noise)
+    r_rows, r_elbo, _ = chains_run(fused_chains_run_chunk_reference, eng, rows, seeds, 0,
+                                   AG_NOISE_STEPS, noise)
+    torch.cuda.synchronize()
+    worst = compare_tensors(f"(ag) {name}, injected noise", list(k_rows.flatten(0, 1)),
+                            list(r_rows.flatten(0, 1)), 1e-5)
+    check(torch.allclose(k_elbo, r_elbo, rtol=1e-5, atol=1e-4), f"(ag) {name}: ELBOs differ")
+    (p_rows, p_elbo, _), ms = once_ms(lambda: chains_run(fused_chains_run_chunk_cuda, eng, rows,
+                                                         seeds, 0, AG_STEPS))
+    _, plain_ms = once_ms(lambda: chains_run(fused_chains_run_chunk_reference, eng, rows, seeds,
+                                             0, AG_STEPS))
+    same = {}
+    for c in sorted({0, G - 1, G % C, C - 1}):
+        one, e1, _ = fused_run_chunk_cuda(spec.model, consts, spec.scalars,
+                                          rows[c].contiguous(), chain_seed_words(SEED, c), 0,
+                                          AG_STEPS, N_SAMPLES, eng.hyp, ad=eng.ad)
+        same[c] = bool(torch.equal(one, p_rows[c]) and torch.equal(e1, p_elbo[c]))
+    torch.cuda.synchronize()
+    _, _, n_data, db, batch, _, _ = _model_args(spec.model, consts, spec.scalars, d, dev,
+                                                N_SAMPLES, eng.ad)
+    group, smem, ws, tier = fused_layout("fused_chains", None if eng.ad is None
+                                         else eng.ad.source)(
+        MODEL_CODES[spec.model], n_data, db, batch, N_SAMPLES, d, 8, G)
+    say("ag", config=name, chains=C, G=G, group=group, tier=tier, smem_bytes=smem,
+        workspace_bytes_a_chain=4 * ws, max_rel_err=f"{worst:.3e}",
+        chain_vs_single_bitwise=",".join(f"{c}:{v}" for c, v in same.items()))
+    check(all(same.values()), f"(ag) {name}: a chain differs from the single-chain kernel")
+    return worst, (group, tier), (ms, plain_ms)
+
+
+def ag_bound(cfg, steps, eng, chains=1):
+    """(flops, bytes) of ``steps`` steps of a configuration: the model's
+    multiply-adds (logreg 2 n n_data db, the minibatch body 2 n B db, the
+    dense Gaussian n d^2, K5 its products, the diagonal terms 2 n d) and
+    the family's (mean-field phase D's 3 n d; full-rank z, the whitening and
+    dC, n d^2 / 2 each, and the rule's 4 d^2), 2 flops each; the model's
+    constants (a minibatch model: the slabs the steps read) read once, each
+    chain's state in and out."""
+    family, spec, n, _, _ = cfg
+    d = spec.dim
+    if spec.model == "logreg":
+        n_data, db = spec.consts[0].shape
+        model, consts = 2 * n * n_data * db, n_data * (db + 1)
+    elif spec.model == "mvnormal":
+        model, consts = n * d * d, d * d + d
+    elif spec.model == "ad":
+        model, consts = eng.ad.madds + 2 * n * d, eng.ad.consts[0].numel()
+    else:
+        X, yX = spec.consts
+        nb, db = yX.shape
+        B = X.shape[0] // nb
+        model, consts = 2 * n * B * db, min(steps, nb) * (B + 1) * db
+    fam, state = (3 * n * d, 16 * d) if family == "meanfield" else \
+        (3 * n * d * d // 2 + 4 * d * d, 8 * d * d + 8 * d)
+    return 2.0 * steps * chains * (model + fam), 4.0 * (consts + chains * state)
+
+
+def ag_main_path(dev, cfgs):
+    """The counted runs, each through the engine a user calls: FusedADVI's
+    optimize on K5's d = 2,048 quartic (the kWide group), on the staged
+    transport at B = 1,024 (kMbWide) and on K5's d = 256, n = 64 quartic,
+    full-rank (the tiered single-block kernel), and FusedChainsADVI's traced
+    chunks at C = 8 on the first two, 200 steps each.  Returns the launch
+    counts of the wrappers' own tier groups."""
+    import advancedvi_jl_tpu_torch as avt
+    from advancedvi_jl_tpu_torch.ops.cuda.fused_advi import (
+        GROUP_AD_DEVICE_LAYOUT, GROUP_FR_DEVICE_LAYOUT, GROUP_MB_DEVICE_LAYOUT,
+        fused_fullrank_run_chunk_cuda, fused_run_chunk_cuda)
+    from advancedvi_jl_tpu_torch.ops.cuda.fused_chains import fused_chains_run_chunk_cuda
+
+    def q0(d, family="meanfield"):
+        if family == "meanfield":
+            return avt.MeanFieldGaussian(torch.zeros(d, device=dev),
+                                         0.1 * torch.ones(d, device=dev))
+        return avt.FullRankGaussian(torch.zeros(d, device=dev), 0.1 * torch.eye(d, device=dev))
+
+    tails = {}
+    torch.cuda.synchronize()
+    reset_launches()
+    for name in ("mf_k5_quartic_d2048", "mf_mb_staged_B1024", "fr_k5_quartic_d256_n64"):
+        family, spec, _, _, _ = cfgs[name]
+        eng = ag_engine(cfgs[name])
+        _, rows, _ = eng.optimize(SEED, AG_SIDE_STEPS, q0(spec.dim, family),
+                                  log_every=LOG_EVERY)
+        tails[name] = rows[-1]["elbo"]
+    for name in ("mf_k5_quartic_d2048", "mf_mb_staged_B1024"):
+        eng, st = chains_engine(dev, cfgs[name][1], AG_CHAINS_C, lr=LR)
+        _, trace = eng.run_chunk_traced(st, SEED, AG_SIDE_STEPS, log_every=LOG_EVERY)
+        tails["chains_" + name[3:]] = float(trace[-1].min())
+    torch.cuda.synchronize()
+    counts = read_launches()
+    counts["mf_" + GROUP_AD_DEVICE_LAYOUT] = fused_run_chunk_cuda.group_launches[
+        GROUP_AD_DEVICE_LAYOUT]
+    counts["mf_" + GROUP_MB_DEVICE_LAYOUT] = fused_run_chunk_cuda.group_launches[
+        GROUP_MB_DEVICE_LAYOUT]
+    counts["chains_" + GROUP_AD_DEVICE_LAYOUT] = fused_chains_run_chunk_cuda.group_launches[
+        GROUP_AD_DEVICE_LAYOUT]
+    counts["chains_" + GROUP_MB_DEVICE_LAYOUT] = fused_chains_run_chunk_cuda.group_launches[
+        GROUP_MB_DEVICE_LAYOUT]
+    counts["fr_" + GROUP_FR_DEVICE_LAYOUT] = fused_fullrank_run_chunk_cuda.group_launches[
+        GROUP_FR_DEVICE_LAYOUT]
+    keys = [k for k in counts if k.startswith(("mf_", "chains_", "fr_"))]
+    say("ag", main="counted", steps=AG_SIDE_STEPS,
+        **{f"tail_{k}": f"{v:.2f}" for k, v in tails.items()},
+        **{f"{k}_launches": counts[k] for k in keys})
+    check(all(math.isfinite(v) for v in tails.values()), f"(ag) a counted run diverged: {tails}")
+    for k in keys:
+        check(counts[k] > 0, f"(ag) the counted runs made no {k} launch")
+    return counts
+
+
+def phase_ag(dev, card, cfgs=None, edges=None):
+    """(ag) The tiered layouts: each configuration of ``ag_configs``
+    against its plain version on the tier its size gives (``ag_compare``),
+    K6 at C = 8 on K5's d = 2,048 quartic and on the staged transport at B =
+    1,024 (``ag_chains_compare``), the counted runs (``ag_main_path``) and
+    each 200-step chunk's time beside its bound and its plain version's.
+    Then ``ag_edges``.  The K5 libraries are built in (y)
+    (``ag_programs``).  Returns (the counted launches, the largest errors
+    {layout: err}, {layout: (ms, plain_ms, bound_ms, bound_by)} of the
+    chunk each kernel line is timed at)."""
+    from advancedvi_jl_tpu_torch.ops.cuda.fused_advi import KMB_WIDE, KWIDE
+
+    t0 = time.perf_counter()
+    cfgs = ag_configs(dev) if cfgs is None else cfgs
+    edges = ag_edge_configs(dev) if edges is None else edges
+    errs = {"k5_wide": 0.0, "mb_wide": 0.0, "fr_tier": 0.0, "chains_k5": 0.0, "chains_mb": 0.0}
+    times, plain_runs = {}, {}
+    for name, cfg in cfgs.items():
+        err, (group, tier), (ms, plain_ms) = ag_compare(dev, name, cfg, plain_runs)
+        family, spec, n, _, _ = cfg
+        if family == "fullrank":
+            key = "fr_tier"
+            check(tier >= 1, f"(ag) {name} ran on the untiered layout")
+        elif spec.model == "ad":
+            key = "k5_wide"
+            check(group == KWIDE and tier >= 2, f"(ag) {name} ran in group {group}, tier {tier}")
+        else:
+            key = "mb_wide"
+            check(group == KMB_WIDE or (name == "mf_mb_inplace_B1024" and tier == -1),
+                  f"(ag) {name} ran in group {group}, tier {tier}")
+        errs[key] = max(errs[key], err)
+        times[name] = (ms, plain_ms, *bound(*ag_bound(cfg, AG_STEPS, ag_engine(cfg))))
+    for name, key in (("mf_k5_quartic_d2048", "chains_k5"), ("mf_mb_staged_B1024", "chains_mb")):
+        cfg = cfgs[name]
+        err, (group, tier), (ms, plain_ms) = ag_chains_compare(dev, "chains_" + name[3:], cfg[1])
+        check(group in (KWIDE, KMB_WIDE) and tier >= 2, f"(ag) chains_{name[3:]}: tier {tier}")
+        errs[key] = max(errs[key], err)
+        eng = ag_engine(cfg)
+        times["chains_" + name[3:]] = (ms, plain_ms, *bound(*ag_bound(
+            cfg, AG_STEPS, eng, AG_CHAINS_C)))
+    counts = ag_main_path(dev, cfgs)
+    ag_edges(dev, card, edges)
+    for name, (ms, plain, b_ms, b_by) in times.items():
+        say("ag", card=f"'{card}'", chunk=name, steps=AG_STEPS, kernel_ms=f"{ms:.4f}",
+            plain_ms=f"{plain:.2f}", bound_ms=f"{b_ms:.3g}", bound_by=b_by)
+    seconds = time.perf_counter() - t0
+    say("ag", card=f"'{card}'", seconds=f"{seconds:.1f}",
+        **{f"max_rel_err_{k}": f"{v:.3e}" for k, v in errs.items()})
+    return counts, errs, times
+
+
 def main() -> int:
     parent = None  # --parent DIR: the A/B of the chunks against that checkout
     argv = sys.argv[1:]
@@ -6005,7 +6539,9 @@ def main() -> int:
     lap("w")
     lowrank_counts, lowrank_err, lowrank_times, issue = phase_x(dev, card)
     lap("x")
-    k5_launches, k5_err, k5_ms, k5_plain_ms, k5_bound, ingested = phase_y(dev, card)
+    ag_cfgs, ag_edge_cfgs = ag_configs(dev), ag_edge_configs(dev)  # built with (y)'s bodies
+    k5_launches, k5_err, k5_ms, k5_plain_ms, k5_bound, ingested = phase_y(
+        dev, card, ag_programs(ag_cfgs, ag_edge_cfgs))
     lap("y")
     ms_launches, ms_samp_err = phase_z(dev, card, fr_ref)
     lap("z")
@@ -6021,6 +6557,8 @@ def main() -> int:
     lap("ae")
     af_counts, af_err, af_times, _ = phase_af(dev, card)
     lap("af")
+    ag_counts, ag_err, ag_times = phase_ag(dev, card, ag_cfgs, ag_edge_cfgs)
+    lap("ag")
     if parent is not None:
         ab_parent(parent)
         lap("parent")
@@ -6137,6 +6675,29 @@ def main() -> int:
              "advancedvi_jl_tpu/ops/pallas/fused_chains.py:525",
              af_counts["chains_k1_device_layout"], af_err["chains"], "chains_gauss_d2048")):
         ms, plain_ms, b_ms, b_by = af_times[timed]
+        kernels.append(entry(name, source, replaces, launches, err, ms, plain_ms,
+                             bound_=(b_ms, b_by)))
+    # (ag): the tiered layouts' instances, each counted in (ag)'s runs by its
+    # wrapper's own launch group and timed at one of its configurations: K5's
+    # body on kWide (the d = 2,048 quartic, mean-field and K6 at C = 8), the
+    # minibatch transports' kMbWide (the staged slab at B = 1,024, likewise)
+    # and the full-rank single-block kernel's tiers (the d = 512, n = 128
+    # dense Gaussian under Adam)
+    chains = "advancedvi_jl_tpu/ops/pallas/fused_chains.py:525"
+    for name, source, replaces, launches, err, timed in (
+            ("fused_k5_ad_wide", "fused_meanfield_body.cuh", f"{fused}1504",
+             ag_counts["mf_k5_device_layout"], ag_err["k5_wide"], "mf_k5_quartic_d2048"),
+            ("fused_chains_k5_wide", "fused_chains.cu", chains,
+             ag_counts["chains_k5_device_layout"], ag_err["chains_k5"], "chains_k5_quartic_d2048"),
+            ("fused_k4_minibatch_wide", "fused_meanfield_body.cuh", f"{fused}997",
+             ag_counts["mf_k4_minibatch_device_layout"], ag_err["mb_wide"], "mf_mb_staged_B1024"),
+            ("fused_chains_mb_wide", "fused_chains.cu", chains,
+             ag_counts["chains_k4_minibatch_device_layout"], ag_err["chains_mb"],
+             "chains_mb_staged_B1024"),
+            ("fused_advi_fullrank_tier", "fused_advi_fullrank.cu", f"{fused}681",
+             ag_counts["fr_k3_fullrank_device_layout"], ag_err["fr_tier"],
+             "fr_mvnormal_d512_n128_adam")):
+        ms, plain_ms, b_ms, b_by = ag_times[timed]
         kernels.append(entry(name, source, replaces, launches, err, ms, plain_ms,
                              bound_=(b_ms, b_by)))
     print(json.dumps({"kernels": kernels}), flush=True)

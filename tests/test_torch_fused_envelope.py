@@ -1,11 +1,14 @@
-"""Port parity at the mean-field engines' envelope: the dense Gaussian
+"""Port parity at the fused engines' envelope: the dense Gaussian
 (``mvnormal_spec``) on every mean-field engine and the chains engine, and the
 sizes whose arrays one block's shared memory cannot hold (on a card they run
-the kernels' device-memory layout, csrc/fused_meanfield_body.cuh
-``wide_layout``), run here through the kernels' plain PyTorch versions
+the kernels' device-memory layouts: csrc/fused_meanfield_body.cuh
+``wide_layout`` and, for the minibatch transports, ``mb_layout``;
+csrc/fused_advi_fullrank.cu ``tier_layout`` for the full-rank family's
+single-block launches), run here through the kernels' plain PyTorch versions
 against the JAX engines in Pallas interpret mode on the same injected draws.
 The kernels themselves are held to the plain versions on a card
-(tests/test_torch_kernels.py, chip_smoke.py phase (af)).
+(tests/test_torch_kernels.py, chip_smoke.py phases (af) and (ag)).  K5's
+bodies at the envelope: tests/test_torch_fused_envelope_k5.py.
 
 Tolerances are tests/test_fused_advi.py's: rtol 1e-5 and atol 1e-6 on the
 parameters and their averages, 1e-4 on the ELBO.  DoWG runs with r0 scale
@@ -26,6 +29,7 @@ from advancedvi_jl_tpu.ops.pallas import fused_advi as jfused
 from advancedvi_jl_tpu.ops.pallas import fused_chains as jchains
 from advancedvi_jl_tpu_torch import convert
 from advancedvi_jl_tpu_torch.ops.cuda import fused_advi as tfused
+from advancedvi_jl_tpu_torch.ops.cuda.fused_advi import MINIBATCH_MODELS
 from advancedvi_jl_tpu_torch.ops.cuda.fused_chains import FusedChainsADVI
 
 torch.set_num_threads(2)
@@ -75,27 +79,32 @@ def _start(d, seed=3):
             rng.uniform(0.3, 0.6, d).astype(np.float32))
 
 
-def _single(jspec, tspec, kind, steps, n=N, seed=0):
+def _single(jspec, tspec, kind, steps, n=N, seed=0, family="meanfield"):
     """The JAX engine (interpret mode) and the port's ``kind`` engine
-    ("advi", "prox": DoWG, "bbvi": VarGrad with Adam) on the same injected
-    draws; the JAX state comes back in the port's layout."""
+    ("advi", "prox": DoWG, "dog": prox with DoG, "bbvi": VarGrad with Adam)
+    on the same injected draws; the JAX state comes back in the port's
+    layout."""
     d = tspec.dim
+    kw = dict(family=family, n_samples=n)
     if kind == "advi":
-        jeng = jfused.FusedADVI(jspec, n_samples=n, lr=1e-3, interpret=True)
-        teng = tfused.FusedADVI(tspec, n_samples=n, lr=1e-3)
-    elif kind == "prox":
-        jeng = jfused.FusedProxADVI(jspec, n_samples=n, alpha=ALPHA, interpret=True)
-        teng = tfused.FusedProxADVI(tspec, n_samples=n, alpha=ALPHA)
-    else:
+        jeng = jfused.FusedADVI(jspec, lr=1e-3, interpret=True, **kw)
+        teng = tfused.FusedADVI(tspec, lr=1e-3, **kw)
+    elif kind in ("prox", "dog"):
+        algo = "dog" if kind == "dog" else "dowg"
+        jeng = jfused.FusedProxADVI(jspec, optimizer=algo, alpha=ALPHA, interpret=True, **kw)
+        teng = tfused.FusedProxADVI(tspec, optimizer=algo, alpha=ALPHA, **kw)
+    else:  # VarGrad: mean-field only
         jeng = jfused.FusedScoreGradVI(jspec, n_samples=n, optimizer="adam", lr=1e-3,
                                        operator="clip", interpret=True)
         teng = tfused.FusedScoreGradVI(tspec, n_samples=n, optimizer="adam", lr=1e-3,
                                        operator="clip")
     loc, sd = _start(d)
+    scale = sd if family == "meanfield" else np.diag(sd)
     noise = np.random.default_rng(seed).standard_normal((steps, n, d)).astype(np.float32)
-    js = jeng.run_chunk(jeng.init(jnp.asarray(loc), jnp.asarray(sd)), jax.random.key(1),
-                        steps=steps, noise=jnp.asarray(convert.pack_noise(noise)))
-    ts = teng.run_chunk(teng.init(torch.from_numpy(loc), torch.from_numpy(sd)), 1, steps,
+    js = jeng.run_chunk(jeng.init(jnp.asarray(loc), jnp.asarray(scale)), jax.random.key(1),
+                        steps=steps,
+                        noise=jnp.asarray(convert.pack_noise(noise, d_pad=jeng.d_pad)))
+    ts = teng.run_chunk(teng.init(torch.from_numpy(loc), torch.from_numpy(scale)), 1, steps,
                         noise=torch.from_numpy(noise))
     return convert.fused_state_from_numpy(js, d, device="cpu"), ts, js
 
@@ -256,3 +265,91 @@ def test_engines_accept_what_jax_accepts_at_its_edges(engine, d, n, C, jax_ok, p
     jax_build, port_build = _engines(engine, d, n, C)
     assert _accepts(jax_build) == jax_ok
     assert _accepts(port_build) == port_ok
+
+
+# ---------------------------------------------------------------------------
+# The minibatch transports and the full-rank family beyond one block
+# ---------------------------------------------------------------------------
+
+
+def _minibatch(n_data, batch, transport, n_features=60):
+    """JAX's minibatch spec (its own permutation) of make_logreg(key 4) and
+    the port's spec of ``transport`` on the same packed consts."""
+    jprob = jax_make_logreg(jax.random.key(4), n_data=n_data, n_features=n_features)
+    jspec = jfused.logreg_minibatch_spec(jprob.X, jprob.y, batch_size=batch,
+                                         key=jax.random.key(2))
+    tspec = convert.minibatch_spec_from_numpy(*jspec.consts, n_data, batch, jprob.prior_scale,
+                                              transport, device="cpu", db=jprob.dim - 1)
+    return jspec, tspec
+
+
+# (n_data, B, n): the minibatch sizes JAX takes whose logits or staged slab
+# one block's shared memory cannot hold (the kMbWide group on a card: a
+# 1,024-row slab of 61 features is 249,856 bytes; 128 rows of 512 logits
+# are 262,144)
+MB_WIDE = [(4096, 1024, N), (4096, 512, 128)]
+
+
+@pytest.mark.parametrize("transport", MINIBATCH_MODELS)
+@pytest.mark.parametrize("n_data,batch,n", MB_WIDE, ids=[f"B{b}-n{n}" for _, b, n in MB_WIDE])
+def test_wide_minibatch_transports_match_jax(n_data, batch, n, transport):
+    """Each transport at B = 1,024 (n = 10) and at B = 512 (n = 128) on a
+    4,096 x 61 design, 2 steps (batches 0 and 1)."""
+    jspec, tspec = _minibatch(n_data, batch, transport)
+    want, got, js = _single(jspec, tspec, "advi", 2, n=n)
+    _close(want, got)
+    assert_allclose(float(got.elbo), float(js.elbo), rtol=1e-4, atol=1e-4)
+
+
+# (name, spec builder, n, kind): the full-rank engine's configurations that
+# run on its single-block kernel's tiered layout on a card: the staged
+# transports' 1,024-row slab (d = 62), the d = 512, n = 128 dense Gaussian
+# (forced to one block there) under Adam, DoWG and DoG, and the 512 x 199
+# logreg under DoWG (on one block by its rule)
+FR_WIDE = {
+    "mb_staged_B1024": (lambda: _minibatch(4096, 1024, tfused.LOGREG_MB_STAGED), N, "advi"),
+    "mb_prefetch_B1024": (lambda: _minibatch(4096, 1024, tfused.LOGREG_MB_PREFETCH), N,
+                          "advi"),
+    "mvnormal_d512_n128_adam": (lambda: _mvnormal(512), 128, "advi"),
+    "mvnormal_d512_n128_dowg": (lambda: _mvnormal(512), 128, "prox"),
+    "mvnormal_d512_n128_dog": (lambda: _mvnormal(512), 128, "dog"),
+    "logreg_512x199_dowg": (lambda: _logreg(512, 198), N, "prox"),
+}
+
+
+@pytest.mark.parametrize("name", list(FR_WIDE))
+def test_wide_fullrank_configurations_match_jax(name):
+    """2 steps of each on the full-rank engines, at the same bars."""
+    build, n, kind = FR_WIDE[name]
+    jspec, tspec = build()
+    want, got, js = _single(jspec, tspec, kind, 2, n=n, family="fullrank")
+    _close(want, got)
+    assert_allclose(float(got.elbo), float(js.elbo), rtol=1e-4, atol=1e-4)
+
+
+def _logreg_xy(n_data=64, n_features=4):
+    jprob = jax_make_logreg(jax.random.key(4), n_data=n_data, n_features=n_features)
+    tprob = convert.logreg_from_numpy(jprob.X, jprob.y, jprob.likeadj, jprob.prior_scale,
+                                      device="cpu")
+    return jprob, tprob
+
+
+# What the port refuses, each beside JAX's answer: the envelope's widths
+# (EDGES above, tests/test_torch_fused_envelope_k5.py EDGES) and VarGrad's
+# n >= 2, and here the minibatch builders' batch: a multiple of 8, at most
+# n_data (JAX ops/pallas/fused_advi.py:1090-1141).  Nothing else: no
+# configuration inside JAX's envelope is refused for shared memory.
+BATCH_EDGES = [(8, True), (12, False), (64, True), (72, False)]
+
+
+@pytest.mark.parametrize("batch,ok", BATCH_EDGES, ids=[f"B{b}" for b, _ in BATCH_EDGES])
+def test_minibatch_builders_refuse_what_jax_refuses(batch, ok):
+    """The two minibatch builders at B = 8 and 64 (= n_data) accept, as
+    JAX's do; B = 12 (not a multiple of 8) and 72 (over n_data) are refused
+    by both."""
+    jprob, tprob = _logreg_xy()
+    builds = (lambda: jfused.logreg_minibatch_spec(jprob.X, jprob.y, batch_size=batch),
+              lambda: jfused.logreg_minibatch_hbm_spec(jprob.X, jprob.y, batch_size=batch),
+              lambda: tfused.logreg_minibatch_spec(tprob.X, tprob.y, batch),
+              lambda: tfused.logreg_minibatch_hbm_spec(tprob.X, tprob.y, batch))
+    assert [_accepts(b) for b in builds] == [ok] * 4

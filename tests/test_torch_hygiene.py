@@ -173,6 +173,7 @@ def test_fused_sources_keep_k5_under_its_macro():
     """Every line that K5 adds to the fused kernels sits under AVI_AD_BODY,
     so the libraries built without a body compile as before."""
     for name in ("fused_common.cuh", "fused_meanfield_body.cuh", "fused_advi_fullrank.cu",
+                 "fused_fullrank_body.cuh",
                  "fused_advi_meanfield.cu", "fused_chains.cu"):
         depth, guarded = 0, []
         for line in (_build.CSRC / name).read_text().splitlines():

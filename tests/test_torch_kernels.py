@@ -605,25 +605,33 @@ def test_fullrank_cluster_launches_are_counted_apart(dev):
 
 def test_fused_fullrank_kernel_refuses_oversized_shared_memory(dev):
     """At d = 512 the largest sample count whose per-step arrays fit one
-    block runs, with the whitening's panel operators in device memory (they
-    no longer fit beside), and matches its plain version; one sample more is
-    refused before launch.  Descent, whose state is linear in the gradients:
-    Adam's m / sqrt(v) magnifies their float32 rounding over 27 samples."""
+    block runs with every array in shared memory (the whitening's panel
+    operators in device memory: they no longer fit beside), and one sample
+    more, which the kernel once refused, runs on its tiered layout (u, z, g
+    and w in the device workspace); both match their plain version.
+    Descent, whose state is linear in the gradients: Adam's m / sqrt(v)
+    magnifies their float32 rounding over 27 samples."""
+    from advancedvi_jl_tpu_torch.ops.cuda.fused_advi import (
+        GROUP_FR_DEVICE_LAYOUT, fullrank_layout)
+
     spec, vec, mat = _fullrank_case("mvnormal", dev)
     smem = _build.function("fused_advi_fullrank", "fused_advi_fullrank_smem_bytes",
                            [ctypes.c_int] * 7, restype=ctypes.c_size_t)
     n = max(m for m in range(1, 128) if smem(1, 0, 0, 0, m, 512, 4) <= _build.SMEM_LIMIT)
     assert smem(1, 0, 0, 0, n, 512, 4) + 4 * 16 * 1024 > _build.SMEM_LIMIT
-    noise = torch.randn((20, n, 512), generator=torch.Generator().manual_seed(2)).to(dev)
-    args = (spec.model, spec.consts, spec.scalars, vec, mat, (0, 0), 0, 20, n, FusedHyper(),
-            noise, 0, FusedBranch("descent"))
-    kv, km, _, _ = fused_fullrank_run_chunk_cuda(*args)
-    rv, rm, _, _ = fused_fullrank_run_chunk_reference(*args)
-    torch.cuda.synchronize()
-    _norm_close(list(kv) + list(km), list(rv) + list(rm), 1e-5)
-    with pytest.raises(ValueError, match="shared"):
-        fused_fullrank_run_chunk_cuda(spec.model, spec.consts, spec.scalars, vec, mat,
-                                      (0, 0), 0, 1, n + 1, FusedHyper())
+    assert fullrank_layout()(1, 0, 0, 0, n, 512, 4)[0] == -1
+    assert fullrank_layout()(1, 0, 0, 0, n + 1, 512, 4)[0] == 3
+    for m in (n, n + 1):
+        noise = torch.randn((20, m, 512), generator=torch.Generator().manual_seed(2)).to(dev)
+        args = (spec.model, spec.consts, spec.scalars, vec, mat, (0, 0), 0, 20, m,
+                FusedHyper(), noise, 0, FusedBranch("descent"))
+        before = fused_fullrank_run_chunk_cuda.group_launches[GROUP_FR_DEVICE_LAYOUT]
+        kv, km, _, _ = fused_fullrank_run_chunk_cuda(*args, cluster=1)
+        rv, rm, _, _ = fused_fullrank_run_chunk_reference(*args)
+        torch.cuda.synchronize()
+        assert fused_fullrank_run_chunk_cuda.group_launches[GROUP_FR_DEVICE_LAYOUT] == \
+            before + (m > n)
+        _norm_close(list(kv) + list(km), list(rv) + list(rm), 1e-5)
 
 
 def test_built_libraries_report_no_spills(dev):
@@ -998,28 +1006,47 @@ def test_minibatch_shapes_match_plain_version(dev, n, batch, features):
 
 def test_minibatch_staged_slab_refused_at_the_shared_memory_edge(dev):
     """The staged transports keep one B-row slab in shared memory, beside
-    (mean-field) the aligned beta copy: in each fused kernel the largest B
-    that fits runs, B + 8 is refused before launch, and the in-place
-    transport takes B + 8; the full-rank kernel keeps a 512-row slab of 61
-    features and its four d = 62 scale matrices in shared memory."""
+    (mean-field) the aligned beta copy, where it fits: in each fused kernel
+    the largest B that fits runs there, and B + 8, which the kernels once
+    refused, runs on its device-memory tier (the mean-field kMbWide group's
+    tier 1, the logits in the workspace; the full-rank tiered layout's tier
+    1, the slab read in place); both match their plain version after 9
+    injected-noise steps (rtol 1e-5) and equal the in-place transport's
+    bits.  The full-rank kernel keeps a 512-row slab of 61 features and its
+    four d = 62 scale matrices in shared memory."""
+    from advancedvi_jl_tpu_torch.ops.cuda.fused_advi import (
+        KMB_WIDE, MODEL_CODES, fullrank_layout, fused_layout)
+
     mf = _build.function("fused_advi_meanfield", "fused_advi_meanfield_smem_bytes",
                          [ctypes.c_int] * 7, restype=ctypes.c_size_t)
     fr = _build.function("fused_advi_fullrank", "fused_advi_fullrank_smem_bytes",
                          [ctypes.c_int] * 7, restype=ctypes.c_size_t)
     assert fr(4, 4096, 61, 512, N, 62, 4) == 226884
+    code = MODEL_CODES["logreg_minibatch_staged"]
     for family, smem, k in (("meanfield", mf, 8), ("fullrank", fr, 4)):
         B = max(b for b in range(8, 2048, 8)
-                if smem(4, 8 * b, 61, b, N, 62, k) <= _build.SMEM_LIMIT)
-        ok = _mb_specs(dev, n_data=4 * B, batch=B)[1]
-        eng = FusedADVI(ok, family=family, n_samples=N)
-        assert eng.run_chunk(_init(eng, 0.1), 0, 2).iteration == 2, family
-        big = _mb_specs(dev, n_data=4 * (B + 8), batch=B + 8)
-        for spec in big[1:]:
-            eng = FusedADVI(spec, family=family, n_samples=N)
-            with pytest.raises(ValueError, match="shared"):
-                eng.run_chunk(_init(eng, 0.1), 0, 2)
-        eng = FusedADVI(big[0], family=family, n_samples=N)
-        assert eng.run_chunk(_init(eng, 0.1), 0, 2).iteration == 2, family
+                if smem(code, 8 * b, 61, b, N, 62, k) <= _build.SMEM_LIMIT)
+        for batch, tiered in ((B, False), (B + 8, True)):
+            if family == "meanfield":
+                group, _, _, tier = fused_layout("fused_advi_meanfield")(
+                    code, 4 * batch, 61, batch, N, 62, k)
+                assert (group == KMB_WIDE, tier) == (tiered, 1 if tiered else -1)
+            else:
+                assert fullrank_layout()(code, 4 * batch, 61, batch, N, 62, k)[0] == \
+                    (1 if tiered else -1)
+            specs = _mb_specs(dev, n_data=4 * batch, batch=batch)
+            noise = torch.randn((9, N, 62), generator=torch.Generator().manual_seed(2)).to(dev)
+            outs = []
+            for spec in (specs[1], specs[0]):
+                eng = FusedADVI(spec, family=family, n_samples=N)
+                outs.append(eng.run_chunk(_init(eng, 0.1), 0, 9, noise=noise))
+            plain = FusedADVI(specs[1], family=family, n_samples=N, interpret=True)
+            want = plain.run_chunk(_init(plain, 0.1), 0, 9, noise=noise)
+            torch.cuda.synchronize()
+            fields = ("mu", "sig", "m_mu", "v_mu", "m_sig", "v_sig", "avg_mu", "avg_sig")
+            _norm_close([getattr(outs[0], f) for f in fields], [getattr(want, f) for f in fields],
+                        1e-5)
+            assert all(torch.equal(getattr(outs[0], f), getattr(outs[1], f)) for f in fields)
 
 
 def test_probe_kernels_equal_their_plain_versions(dev):
@@ -1616,3 +1643,184 @@ def test_mvnormal_product_matches_torch_mm(dev):
         scale = torch.mm(A.abs().double(), P.abs().double())
         assert torch.equal(got, again)
         assert float(((got.double() - want).abs() / scale.clamp_min(1e-30)).max()) < 4 * d * 6e-8
+
+
+# ---------------------------------------------------------------------------
+# The tiered layouts: K5's body on the mean-field and chains kernels' kWide
+# group, the minibatch transports' kMbWide group, and the full-rank
+# single-block kernel's tier_layout
+# ---------------------------------------------------------------------------
+
+
+def _quartic_target(d, dev):
+    import advancedvi_jl_tpu_torch as avt
+
+    anchor = torch.linspace(-1.0, 1.0, d, device=dev)
+    w = torch.linspace(1.0, 5.0, d, device=dev)
+    return avt.fn_target(lambda t, a: -((t - a["anchor"]) ** 2 * a["w"]).sum(-1)
+                         - 0.1 * ((t - a["anchor"]) ** 4).sum(-1), d,
+                         {"anchor": anchor, "w": w})
+
+
+def _wide_logreg_target(dev):
+    import advancedvi_jl_tpu_torch as avt
+
+    X = torch.randn(8192, 4, generator=torch.Generator().manual_seed(0)).to(dev)
+    return avt.fn_target(lambda t, dat: -torch.log1p(torch.exp(t @ dat.T)).sum(-1), 4, X)
+
+
+def _tier_spec(dev, name):
+    """(spec, n_samples, branch, alpha) of a configuration on a tiered
+    layout."""
+    from advancedvi_jl_tpu_torch.ops.cuda.fused_advi import ad_spec
+
+    if name.startswith("ad_quartic_d"):
+        d, n = (int(x) for x in name[len("ad_quartic_d"):].split("_n"))
+        return ad_spec(_quartic_target(d, dev)), n, FusedBranch(), 1e-6
+    if name == "ad_wide_logreg":
+        return ad_spec(_wide_logreg_target(dev)), N, FusedBranch(), 1e-6
+    if name.startswith("mb_"):  # mb_<transport>_B<batch>_n<n>[_db<db>]
+        parts = name.split("_")
+        transport = ("inplace", "staged", "prefetch").index(parts[1])
+        batch, n = int(parts[2][1:]), int(parts[3][1:])
+        features = int(parts[4][2:]) - 1 if len(parts) > 4 else 60
+        n_data = 4096 if batch * 4 <= 4096 else 4 * batch
+        return _mb_specs(dev, n_data=n_data, batch=batch, n_features=features)[transport], n, \
+            FusedBranch(), 1e-6
+    if name.startswith("mvnormal_d512_n128"):
+        _, mu, L = normal_fullrank_wellcond(3, 512, device=dev)
+        algo = name.rsplit("_", 1)[1]
+        branch = FusedBranch() if algo == "adam" else \
+            FusedBranch(algo, "closed_form_zero_grad", "repgrad", "prox")
+        return mvnormal_spec(mu, L), 128, branch, 1e-2
+    n_data, feats = {"logreg_512x199_dowg": (512, 198), "logreg_4096x61_n16": (4096, 60)}[name]
+    prob = make_logreg(11, n_data=n_data, n_features=feats, device=dev)
+    n = 16 if name.endswith("n16") else N
+    branch = FusedBranch("dowg", "closed_form_zero_grad", "repgrad", "prox") \
+        if name.endswith("dowg") else FusedBranch()
+    return logreg_spec(prob.X, prob.y), n, branch, 1e-4
+
+
+# (family, configuration, group (mean-field) and tier): each tier of each
+# new layout where its size puts it
+TIER_CASES = [
+    ("meanfield", "ad_wide_logreg", 3, 2), ("meanfield", "ad_quartic_d2048_n10", 3, 3),
+    ("meanfield", "mb_staged_B800_n10", 4, 1), ("meanfield", "mb_staged_B1024_n10", 4, 2),
+    ("meanfield", "mb_prefetch_B1024_n10", 4, 2), ("meanfield", "mb_inplace_B512_n128", 4, 1),
+    ("meanfield", "mb_staged_B512_n128", 4, 2), ("meanfield", "mb_staged_B64_n32_db512", 4, 3),
+    ("fullrank", "mb_staged_B1024_n10", None, 1), ("fullrank", "mb_prefetch_B1024_n10", None, 1),
+    ("fullrank", "logreg_512x199_dowg", None, 1), ("fullrank", "logreg_4096x61_n16", None, 2),
+    ("fullrank", "mvnormal_d512_n128_adam", None, 3),
+    ("fullrank", "mvnormal_d512_n128_dowg", None, 3),
+    ("fullrank", "mvnormal_d512_n128_dog", None, 3),
+    ("fullrank", "ad_quartic_d256_n64", None, 3),
+]
+
+
+@pytest.mark.parametrize("family,name,group,tier", TIER_CASES,
+                         ids=[f"{c[0]}-{c[1]}" for c in TIER_CASES])
+def test_tiered_layouts_match_plain_version(dev, family, name, group, tier):
+    """Each configuration runs on the tier its size gives (the launch's
+    layout query and its launch group say so), matches the plain version
+    after 20 injected-noise steps (norm-wise 1e-5; DoWG and DoG with r0
+    scale 1e-2, 1e-4 on the logreg), and a 40-step Philox run equals its 15
+    + 25 chunks and its traced run bit for bit (the logreg under full-rank
+    DoWG, which runs away as JAX's does: 30 steps, 10 + 20, as _case's 20 +
+    10).  The full-rank
+    configurations run on one block (cluster=1)."""
+    from advancedvi_jl_tpu_torch.ops.cuda.fused_advi import (
+        GROUP_AD_DEVICE_LAYOUT, GROUP_FR_DEVICE_LAYOUT, GROUP_MB_DEVICE_LAYOUT, MODEL_CODES,
+        FusedProxADVI, _model_args, fullrank_layout, fused_layout)
+
+    spec, n, branch, alpha = _tier_spec(dev, name)
+    eng = FusedProxADVI(spec, family=family, n_samples=n, optimizer=branch.algo, alpha=alpha) \
+        if branch.operator == "prox" else FusedADVI(spec, family=family, n_samples=n)
+    ad = eng.ad
+    d = spec.dim
+    st = eng.init(0.1 * torch.randn(d, generator=torch.Generator().manual_seed(1)).to(dev),
+                  0.1 * (torch.ones(d, device=dev) if family == "meanfield"
+                         else torch.eye(d, device=dev)))
+    consts = spec.consts if ad is None else ad.consts
+    body = None if ad is None else ad.source
+    c0, c1, n_data, db, batch, _, _ = _model_args(spec.model, consts, spec.scalars, d, dev, n, ad)
+    code = MODEL_CODES[spec.model]
+    if family == "meanfield":
+        rows = (st.stacked(),)
+        got = fused_layout("fused_advi_meanfield", body)(code, n_data, db, batch, n, d, 8)
+        assert (got[0], got[3]) == (group, tier)
+        kern, plain = fused_run_chunk_cuda, fused_run_chunk_reference
+        counted = GROUP_AD_DEVICE_LAYOUT if ad is not None else GROUP_MB_DEVICE_LAYOUT
+    else:
+        rows = st.stacked_fullrank()
+        assert fullrank_layout(body)(code, n_data, db, batch, n, d, 4)[0] == tier
+        kern = lambda *a: fused_fullrank_run_chunk_cuda(*a, cluster=1)  # noqa: E731
+        plain, counted = fused_fullrank_run_chunk_reference, GROUP_FR_DEVICE_LAYOUT
+    nr = len(rows)
+    base = (spec.model, consts, spec.scalars)
+    hyp = eng.hyp
+    noise = torch.randn((20, n, d), generator=torch.Generator().manual_seed(2)).to(dev)
+    counter = (fused_run_chunk_cuda if family == "meanfield"
+               else fused_fullrank_run_chunk_cuda).group_launches
+    was = counter[counted]
+    k = kern(*base, *rows, (0, 0), 0, 20, n, hyp, noise, 0, branch, ad)
+    r = plain(*base, *rows, (0, 0), 0, 20, n, hyp, noise, 0, branch, ad)
+    torch.cuda.synchronize()
+    assert counter[counted] == was + 1
+    _norm_close([t for x in k[:nr] for t in x], [t for x in r[:nr] for t in x], 1e-5)
+    assert torch.allclose(k[nr], r[nr], rtol=1e-5, atol=1e-4)
+    total, first = (30, 10) if spec.model == "logreg" and branch.algo == "dowg" else (40, 15)
+    whole = kern(*base, *rows, (0, 7), 0, total, n, hyp, None, 0, branch, ad)
+    half = kern(*base, *rows, (0, 7), 0, first, n, hyp, None, 0, branch, ad)
+    two = kern(*base, *half[:nr], (0, 7), first, total - first, n, hyp, None, 0, branch, ad)
+    traced = kern(*base, *rows, (0, 7), 0, total, n, hyp, None, 10, branch, ad)
+    torch.cuda.synchronize()
+    for a, b, c in zip(whole[:nr + 1], two[:nr + 1], traced[:nr + 1]):
+        assert bool(torch.isfinite(a).all())
+        assert torch.equal(a, b) and torch.equal(a, c)
+    assert float(traced[nr + 1][-1]) == float(whole[nr])
+
+
+@pytest.mark.parametrize("name,group,tier", [("ad_quartic_d2048_n10", 3, 3),
+                                             ("mb_staged_B1024_n10", 4, 2)])
+def test_tiered_chains_match_plain_version_and_the_single_chain_kernel(dev, name, group, tier):
+    """K6 at C = 8 on K5's quartic at d = 2,048 (kWide) and on the staged
+    transport at B = 1,024 (kMbWide), one chain a block on its slice of the
+    workspace: 20 injected-noise steps within 1e-5 of the plain version,
+    and chains 0, 3 and 7 of a Philox run bitwise the single-chain kernel."""
+    from advancedvi_jl_tpu_torch.ops.cuda.fused_advi import (
+        GROUP_AD_DEVICE_LAYOUT, GROUP_MB_DEVICE_LAYOUT, MODEL_CODES, _model_args, fused_layout)
+    from advancedvi_jl_tpu_torch.ops.cuda.fused_chains import (
+        FusedChainsADVI, fused_chains_run_chunk_cuda, fused_chains_run_chunk_reference)
+    from advancedvi_jl_tpu_torch.ops.cuda.location_scale_kernels import chain_seed_words
+
+    spec, n, _, _ = _tier_spec(dev, name)
+    d = spec.dim
+    eng = FusedChainsADVI(spec, n_chains=C8, n_samples=n)
+    ad = eng.ad
+    consts = spec.consts if ad is None else ad.consts
+    c0, c1, n_data, db, batch, _, _ = _model_args(spec.model, consts, spec.scalars, d, dev, n, ad)
+    got = fused_layout("fused_chains", None if ad is None else ad.source)(
+        MODEL_CODES[spec.model], n_data, db, batch, n, d, 8, 1)
+    assert (got[0], got[3]) == (group, tier) and eng.chains_per_block() == 1
+    g = torch.Generator().manual_seed(4)
+    st = eng.init((0.2 * torch.randn(C8, d, generator=g)).to(dev),
+                  0.1 * torch.ones(C8, d, device=dev))
+    noise = torch.randn((20, C8, n, d), generator=torch.Generator().manual_seed(2)).to(dev)
+    counted = GROUP_AD_DEVICE_LAYOUT if ad is not None else GROUP_MB_DEVICE_LAYOUT
+    was = fused_chains_run_chunk_cuda.group_launches[counted]
+    args = list(_chains_args(eng, st, 20, noise, 0)) + [ad]
+    args[1] = consts
+    k_rows, k_elbo, _ = fused_chains_run_chunk_cuda(*args)
+    r_rows, r_elbo, _ = fused_chains_run_chunk_reference(*args)
+    pargs = list(_chains_args(eng, st, 30, None, 0)) + [ad]
+    pargs[1] = consts
+    p_rows, p_elbo, _ = fused_chains_run_chunk_cuda(*pargs)
+    torch.cuda.synchronize()
+    assert fused_chains_run_chunk_cuda.group_launches[counted] == was + 2
+    _norm_close(list(k_rows.flatten(0, 1)), list(r_rows.flatten(0, 1)), 1e-5)
+    assert torch.allclose(k_elbo, r_elbo, rtol=1e-5, atol=1e-4)
+    rows = st.stacked()
+    for c in (0, 3, C8 - 1):
+        one, e1, _ = fused_run_chunk_cuda(spec.model, consts, spec.scalars, rows[c].contiguous(),
+                                          chain_seed_words(3, c), 0, 30, n, eng.hyp, ad=ad)
+        assert torch.equal(one, p_rows[c]) and torch.equal(e1, p_elbo[c]), c
