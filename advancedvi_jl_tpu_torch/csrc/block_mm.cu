@@ -11,15 +11,20 @@
 // float4s), 2 and 3 the same tiles on the plain layout (scalar loads), 4
 // and 5 K5's flagship logits' and gradient's (5 x 2 and 2 x 2, k in order,
 // A as float4s), 6 and 7 the minibatch body's logits and gradient (10 x 4
-// over 4 lanes and 10 x 2 over 16, A as float4s).  block_mm_mvnormal runs
-// the dense-Gaussian body's product (fused_common.cuh mvnormal_body: config
-// 3's tile, P copied to shared memory where it fits beside A, else read
-// where it lies in device memory).  Bound on an H100:
+// over 4 lanes and 10 x 2 over 16, A as float4s).  Bound on an H100:
 // shared-memory loads (see block_mm.cuh); the copies in and out are a few
-// KB.
+// KB.  block_mm_mvnormal runs the dense-Gaussian body's product
+// (csrc/mvnormal_product.cuh, fused_common.cuh mvnormal_stream_body) on the
+// layout the mean-field kernel's kMvn instance takes at n = M rows and 8
+// state rows (fused_meanfield_body.cuh mvn_layout): A in shared memory
+// below tier 3 (where the body keeps z), else read in device memory; P
+// staged at tier 0, else streamed through the TMA ring; the same plan, so
+// its time is the body's product's.  Bound on an H100: one SM's
+// multiply-adds, and from tier 1 P's bytes from L2 (mvnormal_product.cuh).
 #include <cuda_runtime.h>
 
 #include "block_mm.cuh"
+#include "fused_meanfield_body.cuh"
 
 namespace {
 
@@ -43,6 +48,26 @@ __global__ void __launch_bounds__(kThreads)
   avi::block_mm<kThreads, TM, TN, KS, kVecA, kVecB>(
       M, N, K, As, lda, 1, b_in_place ? B : Bs, trans_b ? 1 : ldb, trans_b ? ldb : 1, tid,
       [=](int i, int j, float v) { C[i * N + j] = v; });
+}
+
+// One block: C (M, d) = A (M, d) P (d, ld) by the kMvn body's product.
+__global__ void __launch_bounds__(kThreads, 1)
+    block_mm_mvnormal_kernel(const float* __restrict__ A, const float* __restrict__ P,
+                             float* __restrict__ C, int M, int d) {
+  extern __shared__ float4 smem4[];  // 16-byte aligned
+  float* smem = reinterpret_cast<float*>(smem4);
+  const avi::mf::MvnLayout V = avi::mf::mvn_layout(M, d, 8);
+  const int tid = threadIdx.x;
+  float* As = smem + V.W.L.z;
+  if (V.W.tier < 3)
+    for (int i = tid; i < M * d; i += kThreads) As[i] = A[i];
+  uint32_t fill = 0;
+  // the ring reads this product's blocks alone: nothing is left in flight
+  avi::mvn::stage_or_start<kThreads>(V.S, smem, P, d, tid, avi::mvn::product_blocks(V.S, M, d));
+  __syncthreads();
+  avi::mvn::product<kThreads>(
+      V.S, smem, V.W.tier < 3 ? As : A, M, d, P, fill, tid,
+      [=](int i, int j, float v) { C[i * d + j] = v; }, false);
 }
 
 template <int TM, int TN, int KS, bool kVecA, bool kVecB>
@@ -85,18 +110,33 @@ extern "C" int block_mm_run(const float* A, const float* B, float* C, int M, int
   }
 }
 
-// C (M, d) = A (M, d) P (d, d), both row-major, as mvnormal_body forms
-// -grad: P in shared memory where it fits beside A, else read in device
-// memory.  Returns cudaGetLastError() after the launch, or
-// cudaErrorInvalidValue for a call the kernel does not take.
+// C (M, d) = A (M, d) P, as mvnormal_stream_body forms -grad: A row-major,
+// P (d, d) with rows of round4(d) floats, 16-byte aligned, on the kMvn
+// layout at n = M (block_mm_mvnormal_layout).  Returns cudaGetLastError()
+// after the launch, or cudaErrorInvalidValue for a call the kernel does not
+// take.
 extern "C" int block_mm_mvnormal(const float* A, const float* P, float* C, int M, int d,
                                  cudaStream_t stream) {
-  if (M < 1 || d < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t a_bytes = sizeof(float) * static_cast<size_t>(avi::round4(M * d));
-  const size_t p_bytes = sizeof(float) * static_cast<size_t>(d) * d;
-  const int in_place = a_bytes + p_bytes > kSmemLimit;
-  const size_t smem = in_place ? a_bytes : a_bytes + p_bytes;
+  if (M < 1 || d < 1 || d > 4 * kThreads || reinterpret_cast<uintptr_t>(P) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = sizeof(float) * static_cast<size_t>(avi::mf::mvn_layout(M, d, 8).S.end);
   if (smem > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(
-      launch<10, 1, 8, false, false>(A, P, C, M, d, d, d, d, 0, smem, in_place, stream));
+  cudaError_t err = cudaFuncSetAttribute(block_mm_mvnormal_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  block_mm_mvnormal_kernel<<<1, kThreads, smem, stream>>>(A, P, C, M, d);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The plan block_mm_mvnormal runs at (M, d), the kMvn body's at n = M:
+// out = {tier, rows a thread, rows a pass, P's rows a ring stage (0: staged),
+// shared bytes}.
+extern "C" void block_mm_mvnormal_layout(int M, int d, long long* out) {
+  const avi::mf::MvnLayout V = avi::mf::mvn_layout(M, d, 8);
+  out[0] = V.W.tier;
+  out[1] = V.S.tm;
+  out[2] = V.S.pm;
+  out[3] = V.S.rows;
+  out[4] = static_cast<long long>(sizeof(float)) * V.S.end;
 }

@@ -39,8 +39,11 @@
 // the flagship shape, over the 48 KB static limit), the labels, the draws,
 // the logits and the 8 (d,) state rows (14 with COCOB's accumulators) live
 // in dynamic shared memory for the whole chunk where they fit one block;
-// the dense Gaussian, and a dense launch that does not fit, run the kWide
-// group instead (fused_meanfield_body.cuh wide_layout): the state rows and
+// a dense launch that does not fit runs the kWide group instead
+// (fused_meanfield_body.cuh wide_layout), and the dense Gaussian its own
+// instance of it, kMvn (mvn_layout: its precision staged in shared memory,
+// or streamed by rows through the TMA ring of csrc/mvnormal_product.cuh,
+// beside u, z and g in shared memory or in the workspace): the state rows and
 // row sums stay in shared memory, and the model's data, then the logits
 // (K5: its scratch), then u, z and g move to device memory (the last two
 // into a workspace the wrapper allocates), each step's phases and sums
@@ -125,9 +128,10 @@ auto kernel_for(bool flagship_branch) {
   return flagship_branch ? fused_advi_meanfield_kernel<false, kGroup> : fused_advi_meanfield_kernel<true, kGroup>;
 }
 
-// The kWide group (the dense Gaussian, and any dense model whose layout does
-// not fit one block: fused_meanfield_body.cuh wide_layout; built with
-// AVI_AD_BODY, K5's body that does not fit), every branch by runtime codes,
+// The kWide group (any dense model whose layout does not fit one block:
+// fused_meanfield_body.cuh wide_layout; built with AVI_AD_BODY, K5's body
+// that does not fit; its dense-Gaussian branch no launch takes, kMvn having
+// that model), every branch by runtime codes,
 // with its device workspace `ws` (wide_layout's floats, or null when its
 // tier keeps none).  Its own kernel, so the instances above keep their
 // signatures and their code.
@@ -144,6 +148,21 @@ __global__ void __launch_bounds__(kThreads, 1) fused_advi_meanfield_wide_kernel(
 }
 
 #ifndef AVI_AD_BODY
+// The kMvn group: the dense Gaussian alone (fused_meanfield_body.cuh
+// mvn_layout, its product csrc/mvnormal_product.cuh), every branch by runtime
+// codes, with its device workspace `ws` (tier 3's u, z and g, or null).
+__global__ void __launch_bounds__(kThreads, 1) fused_advi_meanfield_mvn_kernel(
+    int model, const float* __restrict__ c0, const float* __restrict__ c1, int n_data,
+    int db, int batch, float s0, float s1, const float* __restrict__ state_in,
+    float* __restrict__ state_out, float* __restrict__ elbo_out, float* __restrict__ trace,
+    const float* __restrict__ noise, int n, int d, int n_rows, int steps, int log_every,
+    uint32_t k0, uint32_t k1, unsigned long long it0, avi::Hyper h, avi::Branch br,
+    float* __restrict__ ws) {
+  avi::mf::run_chunk<true, avi::mf::kMvn>(model, c0, c1, n_data, db, batch, s0, s1, state_in,
+                                          state_out, elbo_out, trace, noise, n, d, n_rows,
+                                          steps, log_every, k0, k1, it0, h, br, ws);
+}
+
 // The kMbWide group (a minibatch launch whose layout does not fit one block:
 // fused_meanfield_body.cuh mb_layout), every branch by runtime codes, with
 // its device workspace `ws` of mb_layout's floats.
@@ -194,7 +213,8 @@ extern "C" int fused_advi_meanfield_phase_cycles(unsigned long long* out) {
 
 // model 0: logreg, c0 = X (n_data, db), c1 = y (n_data,), s0 = likeadj,
 // s1 = prior_scale, d = db + 1; model 1: dense Gaussian, c0 = mean (d,), c1
-// = precision (d, d), s0 = lognorm; model 2: diagonal Gaussian, c0 = mean (d,),
+// = precision (d, d) with rows of round4(d) floats, 16-byte aligned, s0 =
+// lognorm; model 2: diagonal Gaussian, c0 = mean (d,),
 // c1 = inverse variances (d,), s0 = lognorm; models 3-5: minibatch logreg
 // (in place, staged, staged + prefetch), c0 = permuted X (n_data, db) with
 // n_data a multiple of batch and 16-byte aligned, c1 = yX (n_data / batch,
@@ -227,7 +247,8 @@ extern "C" int fused_advi_meanfield(
   if (!known || (dist_rule && d < 2) ||
       (grad_est == avi::kScoreGrad && n < 2) ||
       (mb && (batch < 1 || batch % 8 != 0 || n_data % batch != 0 || n_data < batch ||
-              reinterpret_cast<uintptr_t>(c0) % 16 != 0)))
+              reinterpret_cast<uintptr_t>(c0) % 16 != 0)) ||
+      (model == avi::kMvNormal && (d > kThreads * 4 || reinterpret_cast<uintptr_t>(c1) % 16 != 0)))
     return static_cast<int>(cudaErrorInvalidValue);
   long long lay[4];
   avi::mf::launch_layout(model, n_data, db, batch, n, d, n_rows, lay);
@@ -243,10 +264,11 @@ extern "C" int fused_advi_meanfield(
     return static_cast<int>(cudaErrorInvalidValue);
   const auto wide = fused_advi_meanfield_wide_kernel;
 #else
-  const auto wide = group == avi::mf::kWide ? fused_advi_meanfield_wide_kernel
-                                            : fused_advi_meanfield_mb_wide_kernel;
+  const auto wide = group == avi::mf::kWide  ? fused_advi_meanfield_wide_kernel
+                    : group == avi::mf::kMvn ? fused_advi_meanfield_mvn_kernel
+                                             : fused_advi_meanfield_mb_wide_kernel;
 #endif
-  if (group == avi::mf::kWide || group == avi::mf::kMbWide) {
+  if (group == avi::mf::kWide || group == avi::mf::kMbWide || group == avi::mf::kMvn) {
     cudaError_t err = cudaFuncSetAttribute(wide, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);

@@ -62,8 +62,11 @@
 // launch of the kWide or kMbWide group that needs the device workspace
 // (fused_chains_wide_kernel and fused_chains_mb_wide_kernel, each chain its
 // own slice of it; K5's body on kWide too).  The dense
-// Gaussian, in the kWide group, runs G > 1 chains a block where their
-// layout fits, its P staged once for the block where it fits beside them.
+// Gaussian, in its own kMvn group, runs G > 1 chains a block where their
+// layout fits, its P staged once for the block where it fits beside them
+// and else streamed through the product's ring (chains_mvn_stream); its
+// product keeps each output's k order whatever the rows, so the promise
+// holds (csrc/mvnormal_product.cuh).
 //
 // Layouts: state (C, n_rows, d), chain c's rows as the single-chain kernel's;
 // elbo (C,); trace (C, steps / log_every), chain-major, so each chain's ELBO
@@ -151,6 +154,19 @@ __global__ void __launch_bounds__(kThreads, 1) fused_chains_wide_kernel(
 }
 
 #ifndef AVI_AD_BODY
+__global__ void __launch_bounds__(kThreads, 1) fused_chains_mvn_kernel(
+    int model, const float* __restrict__ c0, const float* __restrict__ c1, int n_data,
+    int db, int batch, float s0, float s1, const float* __restrict__ state_in,
+    float* __restrict__ state_out, float* __restrict__ elbo_out, float* __restrict__ trace,
+    const float* __restrict__ noise, int n, int d, int n_rows, int steps, int log_every,
+    const uint32_t* __restrict__ seeds, unsigned long long it0, const float* __restrict__ lrs,
+    const int* __restrict__ rules, avi::Hyper h, avi::Branch br, float* __restrict__ ws,
+    long long ws_floats) {
+  run_chain_on_workspace<avi::mf::kMvn>(
+      model, c0, c1, n_data, db, batch, s0, s1, state_in, state_out, elbo_out, trace, noise, n,
+      d, n_rows, steps, log_every, seeds, it0, lrs, rules, h, br, ws, ws_floats);
+}
+
 __global__ void __launch_bounds__(kThreads, 1) fused_chains_mb_wide_kernel(
     int model, const float* __restrict__ c0, const float* __restrict__ c1, int n_data,
     int db, int batch, float s0, float s1, const float* __restrict__ state_in,
@@ -229,13 +245,15 @@ __host__ __device__ inline ChainsLayout chains_layout(int model, int n_data, int
   return L;
 }
 
-// Where a block of G chains of the dense Gaussian stages P (d, d): after
-// the layout's arrays, once for the block, where it fits beside them (-1:
-// the chains read it in device memory).
-__host__ __device__ inline int chains_p_offset(const ChainsLayout& L, int d) {
-  const int o = avi::round4(L.total);
-  return sizeof(float) * (static_cast<size_t>(o) + static_cast<size_t>(d) * d) <= kSmemLimit
-             ? o : -1;
+// Where a block of G chains of the dense Gaussian keeps its product's
+// arrays (csrc/mvnormal_product.cuh) for its M = G n rows: after the
+// layout's arrays, P staged once for the block where it fits beside them,
+// else the ring that streams it from device memory.
+__host__ __device__ inline avi::mvn::Stream chains_mvn_stream(const ChainsLayout& L, int M,
+                                                              int d) {
+  const int limit = static_cast<int>(kSmemLimit / sizeof(float));
+  const avi::mvn::Stream S = avi::mvn::stream_at<kThreads>(L.total, M, d, true, limit);
+  return S.end <= limit ? S : avi::mvn::stream_at<kThreads>(L.total, M, d, false, limit);
 }
 
 // G chains of the single-chain body (run_chunk) in one block; see the design
@@ -252,15 +270,16 @@ __global__ void __launch_bounds__(kThreads, 1) fused_chains_g_kernel(
     avi::Branch br) {
   using avi::mf::kMinibatch;
   if (!kGeneral) br = avi::kDefaultBranch;  // every switch below is then constant
+  if (kGroup == avi::mf::kMvn) model = avi::kMvNormal;
   extern __shared__ float smem[];
   // G > 1 runs the aligned dense and the minibatch groups only: a design
   // whose aligned layout does not fit one chain's block (kDensePlain) leaves
   // no room for a second chain's logits, so the host never picks G > 1 there
   constexpr bool kAligned = true;
   const ChainsLayout L = chains_layout(model, n_data, db, batch, n, d, n_rows, kAligned, G);
-  // kWide runs the dense Gaussian here, its P staged where it fits
-  const int p_at = kGroup == avi::mf::kWide ? chains_p_offset(L, d) : -1;
-  const float* prec = p_at >= 0 ? smem + p_at : c1;
+  // kMvn runs the dense Gaussian here, the product's plan for the G n rows
+  const avi::mvn::Stream S =
+      kGroup == avi::mf::kMvn ? chains_mvn_stream(L, G * n, d) : avi::mvn::Stream();
   const bool logreg = kGroup != kMinibatch && model == avi::kLogReg;
   const bool minibatch = kGroup == kMinibatch && avi::is_minibatch(model);
   const int chain0 = blockIdx.x * G;
@@ -311,8 +330,8 @@ __global__ void __launch_bounds__(kThreads, 1) fused_chains_g_kernel(
     seed_s[2 * c] = seeds[2 * (chain0 + c)];
     seed_s[2 * c + 1] = seeds[2 * (chain0 + c) + 1];
   }
-  if (kGroup == avi::mf::kWide && p_at >= 0)
-    for (int i = tid; i < d * d; i += kThreads) smem[p_at + i] = c1[i];
+  uint32_t fill = 0;  // kMvn: the ring's blocks of P read so far
+  if (kGroup == avi::mf::kMvn) avi::mvn::stage_or_start<kThreads>(S, smem, c1, d, tid);
   __syncthreads();
 
   const bool vargrad = br.grad_est == avi::kScoreGrad;
@@ -413,8 +432,9 @@ __global__ void __launch_bounds__(kThreads, 1) fused_chains_g_kernel(
       __syncthreads();
       AVI_MF_PHASE(2);
       avi::logreg_mb_logpi(mbm, gn, beta_sq, tcol, inv_sig2, ylogit, logpi, warp, kWarps, lane);
-    } else if (kGroup == avi::mf::kWide) {  // the dense Gaussian, VarGrad ignores gs
-      avi::mvnormal_body<kThreads>(c0, prec, s0, zs, gn, d, logpi, gs, tid, warp, kWarps, lane);
+    } else if (kGroup == avi::mf::kMvn) {  // the dense Gaussian, VarGrad ignores gs
+      avi::mvnormal_stream_body<kThreads>(c0, c1, S, smem, fill, s0, zs, gn, d, logpi, gs, tid,
+                                          warp, kWarps, lane);
     } else if (kGroup != kMinibatch) {
       avi::gaussian_body(c0, c1, s0, zs, gn, d, logpi, vargrad ? nullptr : gs, warp, kWarps,
                          lane);
@@ -604,6 +624,7 @@ __global__ void __launch_bounds__(kThreads, 1) fused_chains_g_kernel(
   float* st_out = state_out + static_cast<size_t>(chain0) * srow;
   for (int i = tid; i < gc * srow; i += kThreads) st_out[i] = st[i];
   if (ce >= 0 && ce < gc) elbo_out[chain0 + ce] = elbo;
+  if (kGroup == avi::mf::kMvn) avi::mvn::drain(S, smem, fill, tid);
 }
 
 template <int kGroup>
@@ -617,7 +638,7 @@ auto g_kernel_for(bool flagship_branch) {
 // The dynamic shared memory of a block of G chains (chains_per_block): at
 // G = 1 the single-chain kernel's layout with every array in shared memory
 // (fused_advi_meanfield_smem_bytes), else ChainsLayout's (the dense
-// Gaussian's with P where it fits beside).
+// Gaussian's with its product's arrays after it, chains_mvn_stream).
 extern "C" size_t fused_chains_smem_bytes(int model, int n_data, int db, int batch, int n,
                                           int d, int n_rows, int chains_per_block) {
   if (chains_per_block == 1)
@@ -627,15 +648,16 @@ extern "C" size_t fused_chains_smem_bytes(int model, int n_data, int db, int bat
   const bool aligned = group != avi::mf::kDensePlain && group != avi::mf::kWide;
   const ChainsLayout L =
       chains_layout(model, n_data, db, batch, n, d, n_rows, aligned, chains_per_block);
-  const int p_at = model == avi::kMvNormal ? chains_p_offset(L, d) : -1;
-  return sizeof(float) * static_cast<size_t>(p_at >= 0 ? p_at + d * d : L.total);
+  return sizeof(float) * static_cast<size_t>(model == avi::kMvNormal
+                                                 ? chains_mvn_stream(L, chains_per_block * n, d).end
+                                                 : L.total);
 }
 
 // What a launch at G chains a block takes: at G = 1 the single-chain
 // kernel's launch_layout (out[0] group, out[1] bytes of shared memory, out[2]
-// floats of device workspace a chain, out[3] the kWide tier), else its group,
-// fused_chains_smem_bytes, no workspace and tier -1 (kWide's G-chain blocks,
-// the dense Gaussian's, read P in device memory where it does not fit).
+// floats of device workspace a chain, out[3] the kWide or kMvn tier), else its
+// group, fused_chains_smem_bytes, no workspace and tier -1 (kMvn's G-chain
+// blocks stream P from device memory where it does not fit).
 extern "C" void fused_chains_layout(int model, int n_data, int db, int batch, int n, int d,
                                     int n_rows, int chains_per_block, long long* out) {
   avi::mf::launch_layout(model, n_data, db, batch, n, d, n_rows, out);
@@ -690,7 +712,8 @@ extern "C" int fused_chains(
       (rules == nullptr && algo == avi::kCOCOB && n_rows != 14) ||
       (grad_est == avi::kScoreGrad && n < 2) || (log_every > 0 && steps % log_every != 0) ||
       (mb && (batch < 1 || batch % 8 != 0 || n_data % batch != 0 || n_data < batch ||
-              reinterpret_cast<uintptr_t>(c0) % 16 != 0)))
+              reinterpret_cast<uintptr_t>(c0) % 16 != 0)) ||
+      (model == avi::kMvNormal && (d > kThreads * 4 || reinterpret_cast<uintptr_t>(c1) % 16 != 0)))
     return static_cast<int>(cudaErrorInvalidValue);
   long long lay[4];
   fused_chains_layout(model, n_data, db, batch, n, d, n_rows, G, lay);
@@ -706,10 +729,11 @@ extern "C" int fused_chains(
     return static_cast<int>(cudaErrorInvalidValue);
   const auto wide = fused_chains_wide_kernel;
 #else
-  const auto wide = group == avi::mf::kWide ? fused_chains_wide_kernel
-                                            : fused_chains_mb_wide_kernel;
+  const auto wide = group == avi::mf::kWide  ? fused_chains_wide_kernel
+                    : group == avi::mf::kMvn ? fused_chains_mvn_kernel
+                                             : fused_chains_mb_wide_kernel;
 #endif
-  if (G == 1 && (group == avi::mf::kWide || group == avi::mf::kMbWide)) {
+  if (G == 1 && (group == avi::mf::kWide || group == avi::mf::kMbWide || group == avi::mf::kMvn)) {
     cudaError_t err = cudaFuncSetAttribute(wide, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -726,13 +750,12 @@ extern "C" int fused_chains(
   using avi::mf::kMinibatch;
   using avi::mf::kWide;
   if (G > 1) {
-    // kWide's G-chain blocks run the dense Gaussian alone, with no workspace
-    if (group == kDensePlain || group == avi::mf::kMbWide ||
-        (group == kWide && model != avi::kMvNormal))
+    // kMvn's G-chain blocks run the dense Gaussian, with no workspace
+    if (group == kDensePlain || group == avi::mf::kMbWide || group == kWide)
       return static_cast<int>(cudaErrorInvalidValue);
-    const auto gk = group == kMinibatch ? g_kernel_for<kMinibatch>(def)
-                    : group == kWide    ? fused_chains_g_kernel<true, kWide>
-                                        : g_kernel_for<avi::mf::kDense>(def);
+    const auto gk = group == kMinibatch      ? g_kernel_for<kMinibatch>(def)
+                    : group == avi::mf::kMvn ? fused_chains_g_kernel<true, avi::mf::kMvn>
+                                             : g_kernel_for<avi::mf::kDense>(def);
     cudaError_t err = cudaFuncSetAttribute(gk, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);

@@ -15,8 +15,8 @@
 // the diagonal-Gaussian body _gaussian_step_factory, the rules
 // _adam_candidate, _dowg_step, _dog_step and _cocob_update (fused_advi.py:
 // 242-281), and, in the mean-field and chains kernels, the dense-Gaussian
-// body _mvnormal_step_factory (mvnormal_body; the full-rank kernel has its
-// own).  The bodies work on one block's shared-memory arrays: samples
+// body _mvnormal_step_factory (mvnormal_stream_body on csrc/
+// mvnormal_product.cuh; the full-rank kernel has its own).  The bodies work on one block's shared-memory arrays: samples
 // z (n, d) (for logreg d = db + 1, beta in lanes 0..db-1, t = log sigma in
 // lane db), and fill per-row log pi and grad log pi (n, d).  Each phase is a
 // loop over the block's threads; the caller puts a __syncthreads() between
@@ -28,6 +28,7 @@
 #include <cuda_runtime.h>
 
 #include "block_mm.cuh"
+#include "mvnormal_product.cuh"
 
 namespace avi {
 
@@ -195,8 +196,11 @@ __device__ __forceinline__ void gaussian_body(const float* __restrict__ mean,
   }
 }
 
-// K4's dense-Gaussian body (_mvnormal_step_factory) in the mean-field and
-// chains kernels: diff = z - m in place of the samples z (no later phase of
+// K4's former dense-Gaussian body (_mvnormal_step_factory), compiled only
+// into the kWide instances' branch for model kMvNormal, which no launch takes
+// since the dense Gaussian has its own instances (mvnormal_stream_body, the
+// kMvn group): kept so that kWide's code for its other models stays the
+// same.  diff = z - m in place of the samples z (no later phase of
 // those kernels reads z on this model), grad = -diff P by block_mm (10 rows
 // x 1 column a thread, k over 8 lanes: the logreg gradient's tile; P is
 // (d, d) row-major, in shared memory where the host
@@ -216,6 +220,36 @@ __device__ __forceinline__ void mvnormal_body(const float* __restrict__ mean, co
   block_mm<kThreads, 10, 1, 8, false, false>(
       n, d, d, z, d, 1, P, d, 1, tid, [=](int i, int j, float v) { g[i * d + j] = -v; });
   __syncthreads();
+  for (int i = warp; i < n; i += warps) {
+    float q = 0.0f;
+    for (int j = lane; j < d; j += 32) q += z[i * d + j] * g[i * d + j];
+    q = warp_sum(q);
+    if (lane == 0) logpi[i] = 0.5f * q + lognorm;
+  }
+}
+
+// K4's dense-Gaussian body (_mvnormal_step_factory) in the mean-field and
+// chains kernels' kMvn instances: diff = z - m in place of the samples z (no
+// later phase of those kernels reads z on this model), grad = -diff P by
+// mvn::product (csrc/mvnormal_product.cuh: P by rows, staged or streamed
+// through the TMA ring as S places it, each output one fmaf chain with k in
+// order), then one warp a row: log pi = sum_j diff grad / 2 + lognorm.  z
+// and g may lie in shared or device memory; S's plan is for M rows (the
+// block's most), of which n run here.  Every thread of the block calls it;
+// barriers inside, the caller puts one after.  What bounds it on an H100:
+// the product's n d^2 multiply-adds on one SM, and at tiers >= 1 P's d^2
+// floats crossing from L2 into the SM each step (1 MB at d = 512).
+template <int kThreads>
+__device__ __forceinline__ void mvnormal_stream_body(const float* __restrict__ mean,
+                                                     const float* P, const mvn::Stream& S,
+                                                     float* smem, uint32_t& fill, float lognorm,
+                                                     float* z, int n, int d, float* logpi,
+                                                     float* g, int tid, int warp, int warps,
+                                                     int lane) {
+  for (int idx = tid; idx < n * d; idx += kThreads) z[idx] = __fsub_rn(z[idx], mean[idx % d]);
+  __syncthreads();
+  mvn::product<kThreads>(S, smem, z, n, d, P, fill, tid,
+                         [=](int i, int j, float v) { g[i * d + j] = -v; });
   for (int i = warp; i < n; i += warps) {
     float q = 0.0f;
     for (int j = lane; j < d; j += 32) q += z[i * d + j] * g[i * d + j];

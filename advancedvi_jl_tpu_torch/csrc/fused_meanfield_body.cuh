@@ -124,14 +124,17 @@ __host__ __device__ inline Layout layout_for(int model, int n_data, int db, int 
 // models (logreg with the aligned layout, the diagonal Gaussian), logreg
 // with the plain layout (no zb, no padding: a design whose aligned layout
 // would not fit one block, as every design that fitted before block_mm
-// still fits), the minibatch logreg's three transports, or kWide: the dense
-// Gaussian (mvnormal), and every dense model whose plain layout does not fit
-// one block, on wide_layout; or kMbWide: the minibatch logreg whose
+// still fits), the minibatch logreg's three transports, or kWide: every
+// dense model whose plain layout does not fit one block, on wide_layout (its
+// dense-Gaussian branch, and wide_layout's tier 0, stay compiled so that its
+// code is as before, though kMvn now takes that model); or kMbWide: the
+// minibatch logreg whose
 // layout does not fit one block, on mb_layout.  Each instance compiles its
 // group's bodies alone, so ptxas allocates its registers for them alone; a
 // library built with a generated body runs that body alone (its C entry
-// takes no other model).
-enum ModelGroup { kDense = 0, kMinibatch = 1, kDensePlain = 2, kWide = 3, kMbWide = 4 };
+// takes no other model).  kMvn: the dense Gaussian (mvnormal) alone, on
+// mvn_layout; its own instances, so that kWide's keep their code.
+enum ModelGroup { kDense = 0, kMinibatch = 1, kDensePlain = 2, kWide = 3, kMbWide = 4, kMvn = 5 };
 
 // The layout of a kWide launch.  The state rows, the step's gradient, the
 // row sums and the block reduction stay in shared memory (layout_for's);
@@ -208,6 +211,35 @@ __host__ __device__ inline WideLayout wide_layout(int model, int n_data, int n, 
   return W;
 }
 
+// The layout of a kMvn launch: wide_layout_at's arrays for the model (the
+// state rows, the step's gradient, the row sums and the block reduction in
+// shared memory; u, z and g there too, or from tier 3 in the device
+// workspace), then the product's place (mvnormal_product.cuh stream_at):
+// at tier 0 P staged in shared memory, from tier 1 the ring that streams
+// it from device memory; each with the panel of diff's rows.  Tier 2 moves
+// nothing of this model, so the tiers are 0, 1 and 3; tiers 0 and 1 take
+// the product's whole plan (a ring cut to fit there would cost a barrier
+// every few rows of P), tier 3 cuts it to fit (3 if nothing fits: the host
+// refuses that launch).
+struct MvnLayout {
+  WideLayout W;
+  avi::mvn::Stream S;
+};
+
+__host__ __device__ inline MvnLayout mvn_layout(int n, int d, int n_rows) {
+  MvnLayout V;
+  for (int tier = 0; tier <= 3; tier += tier == 1 ? 2 : 1) {
+    V.W = wide_layout_at(avi::kMvNormal, 0, n, d, n_rows, tier == 0 ? 1 : tier);
+    V.W.tier = tier;
+    V.S = avi::mvn::stream_at<kThreads>(V.W.smem, n, d, tier == 0,
+                                         static_cast<int>(kSmemLimit / sizeof(float)), tier == 3);
+    V.W.smem = V.S.end;
+    V.W.L.total = V.S.end;
+    if (sizeof(float) * static_cast<size_t>(V.S.end) <= kSmemLimit) break;
+  }
+  return V;
+}
+
 // The layout of a kMbWide launch: the minibatch logreg (layout_for's
 // arrays, the aligned beta copy zb included) where its layout does not fit
 // one block.  The state rows, the step's gradient, yX[k], the row sums and
@@ -268,7 +300,7 @@ __host__ __device__ inline int model_group(int model, int n_data, int db, int ba
     const Layout L = layout_for(model, n_data, db, batch, n, d, n_rows, true);
     return sizeof(float) * static_cast<size_t>(L.total) <= kSmemLimit ? kMinibatch : kMbWide;
   }
-  if (model == avi::kMvNormal) return kWide;
+  if (model == avi::kMvNormal) return kMvn;
   const Layout L = layout_for(model, n_data, db, batch, n, d, n_rows, true);
   if (sizeof(float) * static_cast<size_t>(L.total) <= kSmemLimit) return kDense;
   const Layout P = layout_for(model, n_data, db, batch, n, d, n_rows, false);
@@ -287,15 +319,16 @@ __host__ __device__ inline Layout make_layout(int model, int n_data, int db, int
 
 // What a launch takes (the C entries' layout queries): out[0] its group,
 // out[1] the bytes of dynamic shared memory, out[2] the floats of device
-// workspace one block needs (0 but for kWide at tier 2 or 3 and kMbWide),
-// out[3] the kWide or kMbWide tier (-1 in the other groups).
+// workspace one block needs (0 but for kWide and kMvn at tier 2 or 3 and
+// kMbWide), out[3] the kWide, kMbWide or kMvn tier (-1 in the other groups).
 __host__ __device__ inline void launch_layout(int model, int n_data, int db, int batch, int n,
                                               int d, int n_rows, long long* out) {
   const int group = model_group(model, n_data, db, batch, n, d, n_rows);
   out[0] = group;
-  if (group == kWide || group == kMbWide) {
-    const WideLayout W = group == kWide ? wide_layout(model, n_data, n, d, n_rows)
-                                        : mb_layout(model, n_data, db, batch, n, d, n_rows);
+  if (group == kWide || group == kMbWide || group == kMvn) {
+    const WideLayout W = group == kWide  ? wide_layout(model, n_data, n, d, n_rows)
+                         : group == kMvn ? mvn_layout(n, d, n_rows).W
+                                         : mb_layout(model, n_data, db, batch, n, d, n_rows);
     out[1] = static_cast<long long>(sizeof(float)) * W.smem;
     out[2] = W.ws;
     out[3] = W.tier;
@@ -319,14 +352,18 @@ __device__ __forceinline__ void run_chunk(
 #ifdef AVI_AD_BODY
   model = avi::kAD;  // every other model's code drops out of this library
 #endif
+  if (kGroup == kMvn) model = avi::kMvNormal;  // likewise in the dense Gaussian's instances
   extern __shared__ float smem[];
-  // the host picked the group by its fit; kWide takes the plain strides
-  constexpr bool kAligned = kGroup != kDensePlain && kGroup != kWide;
+  // the host picked the group by its fit; kWide and kMvn take the plain strides
+  constexpr bool kMv = kGroup == kMvn;
+  constexpr bool kAligned = kGroup != kDensePlain && kGroup != kWide && !kMv;
   constexpr bool kMb = kGroup == kMinibatch || kGroup == kMbWide;
+  const MvnLayout V = kMv ? mvn_layout(n, d, n_rows) : MvnLayout();
   const WideLayout W = kGroup == kWide     ? wide_layout(model, n_data, n, d, n_rows)
                        : kGroup == kMbWide ? mb_layout(model, n_data, db, batch, n, d, n_rows)
+                       : kMv               ? V.W
                                            : WideLayout();
-  const Layout L = kGroup == kWide || kGroup == kMbWide
+  const Layout L = kGroup == kWide || kGroup == kMbWide || kMv
                        ? W.L
                        : layout_for<kGroup == kMinibatch>(model, n_data, db, batch, n, d, n_rows,
                                                           kAligned);
@@ -336,11 +373,11 @@ __device__ __forceinline__ void run_chunk(
   // its scratch) in the workspace from tier 2, u, z and g from tier 3;
   // kMbWide: the logits from tier 1, the slab read in place from tier 2,
   // zb, u, z and g from tier 3
-  const bool data_dev = kGroup == kWide && W.tier >= 1;
+  const bool data_dev = (kGroup == kWide || kMv) && W.tier >= 1;
   const bool slab_dev = kGroup == kMbWide && W.tier >= 2;
   float* const lbase =
       (kGroup == kWide && W.tier >= 2) || (kGroup == kMbWide && W.tier >= 1) ? ws : smem;
-  float* const dbase = (kGroup == kWide || kGroup == kMbWide) && W.tier >= 3 ? ws : smem;
+  float* const dbase = (kGroup == kWide || kGroup == kMbWide || kMv) && W.tier >= 3 ? ws : smem;
   float* us = dbase + L.u;
   float* zs = dbase + L.z;
   float* gs = dbase + L.g;
@@ -384,6 +421,8 @@ __device__ __forceinline__ void run_chunk(
   }
   if (kGroup == kWide && model == avi::kMvNormal && !data_dev)
     for (int i = tid; i < d * d; i += kThreads) smem[W.P + i] = c1[i];
+  uint32_t fill = 0;  // kMvn: the ring's blocks of P read so far
+  if (kMv) avi::mvn::stage_or_start<kThreads>(V.S, smem, c1, d, tid);
   for (int i = tid; i < n_rows * d; i += kThreads) st[i] = state_in[i];
 #ifdef AVI_AD_BODY
   if (model == avi::kAD && kGroup != kWide) avi::ad::ad_stage(c0, smem + L.adc, tid);
@@ -494,6 +533,9 @@ __device__ __forceinline__ void run_chunk(
 #endif
     } else if (kGroup == kWide && model == avi::kMvNormal) {  // VarGrad ignores gs
       avi::mvnormal_body<kThreads>(c0, prec, s0, zs, n, d, logpi, gs, tid, warp, kWarps, lane);
+    } else if (kMv) {  // VarGrad ignores gs
+      avi::mvnormal_stream_body<kThreads>(c0, c1, V.S, smem, fill, s0, zs, n, d, logpi, gs, tid,
+                                          warp, kWarps, lane);
     } else if (!kMb) {
       avi::gaussian_body(c0, c1, s0, zs, n, d, logpi, vargrad ? nullptr : gs, warp, kWarps,
                          lane);
@@ -621,6 +663,7 @@ __device__ __forceinline__ void run_chunk(
 
   for (int i = tid; i < n_rows * d; i += kThreads) state_out[i] = st[i];
   if (tid == kElbo) *elbo_out = elbo;
+  if (kMv) avi::mvn::drain(V.S, smem, fill, tid);
 }
 
 }  // namespace mf

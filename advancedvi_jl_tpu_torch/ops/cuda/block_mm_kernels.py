@@ -79,10 +79,14 @@ block_mm_cuda.launches = 0
 
 def mvnormal_product_cuda(A: torch.Tensor, P: torch.Tensor) -> torch.Tensor:
     """A (M, d) @ P (d, d) by the dense-Gaussian body's product
-    (fused_common.cuh ``mvnormal_body``, csrc/block_mm.cu
-    ``block_mm_mvnormal``): P staged in shared memory where it fits beside
-    A, else read in device memory.  Adds one to
-    ``mvnormal_product_cuda.launches``."""
+    (csrc/mvnormal_product.cuh, the kMvn instances' ``mvnormal_stream_body``;
+    csrc/block_mm.cu ``block_mm_mvnormal``) on the plan the mean-field
+    kernel takes at n = M (``mvnormal_product_layout``): P staged in shared
+    memory at tier 0, else streamed by rows through the TMA ring, P's rows
+    padded to round4(d) floats once per tensor (``kernel_precision``).
+    Adds one to ``mvnormal_product_cuda.launches``."""
+    from advancedvi_jl_tpu_torch.ops.cuda.fused_advi import kernel_precision
+
     if not (A.is_cuda and P.is_cuda):
         raise ValueError(f"mvnormal_product_cuda needs CUDA tensors, got {A.device} and "
                          f"{P.device}")
@@ -90,14 +94,27 @@ def mvnormal_product_cuda(A: torch.Tensor, P: torch.Tensor) -> torch.Tensor:
     if tuple(P.shape) != (d, d) or A.dtype != torch.float32 or P.dtype != torch.float32:
         raise ValueError(f"expected float32 (M, d) and (d, d), got {tuple(A.shape)} and "
                          f"{tuple(P.shape)}")
-    A, P = A.contiguous(), P.contiguous()
+    A, Pk = A.contiguous(), kernel_precision(P)
     C = torch.empty(M, d, dtype=torch.float32, device=A.device)
     fn = _build.function("block_mm", "block_mm_mvnormal", [ctypes.c_void_p] * 3
                          + [ctypes.c_int] * 2 + [ctypes.c_void_p])
-    err = _build.launch(fn, A.device, A.data_ptr(), P.data_ptr(), C.data_ptr(), M, d)
+    err = _build.launch(fn, A.device, A.data_ptr(), Pk.data_ptr(), C.data_ptr(), M, d)
     _build.check(err, "block_mm_mvnormal launch")
     mvnormal_product_cuda.launches += 1
     return C
+
+
+def mvnormal_product_layout(M: int, d: int) -> dict:
+    """The plan ``mvnormal_product_cuda`` and the kMvn body run at n = M
+    rows and width d (csrc/block_mm.cu ``block_mm_mvnormal_layout``): its
+    tier (0: P staged in shared memory), rows a thread, rows a pass over P,
+    P's rows a ring stage (0: staged) and shared bytes."""
+    fn = _build.function("block_mm", "block_mm_mvnormal_layout", [ctypes.c_int] * 2
+                         + [ctypes.c_void_p], restype=None)
+    out = (ctypes.c_longlong * 5)()
+    fn(M, d, ctypes.addressof(out))
+    return dict(zip(("tier", "tile_rows", "pass_rows", "ring_rows", "smem_bytes"),
+                    (int(v) for v in out)))
 
 
 mvnormal_product_cuda.launches = 0

@@ -30,8 +30,12 @@ replays the graph.
 
 The mean-field kernel keeps a launch in one block's shared memory where it
 fits; a dense model that does not fit (a wide design, a wide d or many
-samples, K5's body included) and the dense Gaussian run its kWide layout
-instead (csrc/fused_meanfield_body.cuh ``wide_layout``): the state rows and
+samples, K5's body included) runs its kWide layout
+instead (csrc/fused_meanfield_body.cuh ``wide_layout``), and the dense
+Gaussian its own instance of that layout, kMvn (``mvn_layout``: the
+precision staged in shared memory, or streamed by rows through a TMA ring,
+csrc/mvnormal_product.cuh; the kernels take it with rows of round4(d)
+floats, ``kernel_precision``): the state rows and
 the row sums stay in shared memory, and the model's data, then the logits
 (K5: its scratch), then the draws, samples and gradients move to device
 memory, the last two into a workspace the wrapper allocates
@@ -104,6 +108,7 @@ from __future__ import annotations
 import ctypes
 import math
 import warnings
+import weakref
 from dataclasses import dataclass, replace
 from typing import Any, Callable, Dict, Optional, Tuple
 
@@ -940,11 +945,37 @@ def _model_args(model: str, consts, scalars, d: int, dev, n: int = 0,
     return c0, c1, 0, 0, 0, float(scalars[0]), 0.0
 
 
-# the mean-field kernels' model groups of the dense Gaussian and the
-# device-memory layout, and of the minibatch transports' device-memory
-# layout (csrc/fused_meanfield_body.cuh ModelGroup kWide, kMbWide)
+# the mean-field kernels' model groups of the device-memory layout, of the
+# minibatch transports' device-memory layout and of the dense Gaussian
+# (csrc/fused_meanfield_body.cuh ModelGroup kWide, kMbWide, kMvn)
 KWIDE = 3
 KMB_WIDE = 4
+KMVN = 5
+
+_KERNEL_PRECISION: dict = {}
+
+
+def kernel_precision(P: torch.Tensor) -> torch.Tensor:
+    """The dense Gaussian's precision P (d, d) as the mean-field and chains
+    kernels read it (csrc/mvnormal_product.cuh): rows of round4(d) floats,
+    zeros beyond column d, 16-byte aligned, so that every row is whole
+    16-byte units for the TMA copies.  P itself where it already is (d a
+    multiple of 4, contiguous and aligned); else a copy, made once per
+    tensor and kept while the tensor lives and is not changed in place, so
+    a chunk's launch copies nothing."""
+    d = P.shape[0]
+    ld = _round4(d)
+    if ld == d and P.is_contiguous() and P.data_ptr() % 16 == 0:
+        return P
+    key = id(P)
+    hit = _KERNEL_PRECISION.get(key)
+    if hit is not None and hit[0]() is P and hit[1] == P._version:
+        return hit[2]
+    out = P.new_zeros(d, ld)
+    out[:, :d] = P
+    _KERNEL_PRECISION[key] = (weakref.ref(P, lambda _: _KERNEL_PRECISION.pop(key, None)),
+                              P._version, out)
+    return out
 
 
 def fused_layout(lib: str, body: Optional[str] = None, defines=()):
@@ -953,7 +984,7 @@ def fused_layout(lib: str, body: Optional[str] = None, defines=()):
     (``lib`` "fused_advi_meanfield") or chains ("fused_chains", with G, the
     chains a block) kernel: the C side's ``launch_layout``
     (csrc/fused_meanfield_body.cuh).  The tier is -1 outside KWIDE and
-    KMB_WIDE."""
+    KMB_WIDE and KMVN."""
     entry = "fused_chains_layout" if lib == "fused_chains" else "fused_advi_meanfield_layout"
     ints = 8 if lib == "fused_chains" else 7
     fn = _build.function(lib, entry, [ctypes.c_int] * ints + [ctypes.c_void_p],
@@ -1031,6 +1062,8 @@ def fused_run_chunk_cuda(
     n_rows = 8 + branch.ext_rows
     check_f32("state", state, (n_rows, d), dev)
     c0, c1, n_data, db, batch, s0, s1 = _model_args(model, consts, scalars, d, dev, n, ad)
+    if model == MVNORMAL:
+        c1 = kernel_precision(c1)
     if noise is not None:
         check_f32("noise", noise, (steps, n, d), dev)
     code = MODEL_CODES[model]

@@ -81,6 +81,7 @@ from .fused_advi import (
     _cocob_update,
     _f32,
     _model_args,
+    kernel_precision,
     _model_logpi_grad,
     _prox,
     PHASE_CLOCKS,
@@ -428,6 +429,8 @@ def fused_chains_run_chunk_cuda(
     if lrs is not None:
         check_f32("lrs", lrs, (C,), dev)
     c0, c1, n_data, db, batch, s0, s1 = _model_args(model, consts, scalars, d, dev, n, ad)
+    if model == MVNORMAL:
+        c1 = kernel_precision(c1)
     if noise is not None:
         check_f32("noise", noise, (steps, C, n, d), dev)
         noise = noise.transpose(0, 1).contiguous()  # the kernel's (C, steps, n, d)

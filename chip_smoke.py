@@ -1290,7 +1290,9 @@ def ab_chunks(dev):
     and 1,024 on the hand body and on the staged 16k spec, and at C = 1,024
     with VarGrad (clip), on the in-place and prefetch 16k specs and on the
     diagonal Gaussian at d = 11 (and C = 4,224: 32 chains a block) and
-    d = 512.  Returns
+    d = 512; the dense Gaussian (phase (af)'s targets) at d = 62, 512 and
+    2,048 with n = 10 and at d = 512 with n = 128, and K6 at C = 8 on the
+    d = 512 one (the d = 512 chunk with its phase split).  Returns
     ({name: (launch, reps)}, {name: (args, ad, walk)} of the chunks whose
     mean-field phase split the A/B takes, (the flagship's K5 programs))."""
     import advancedvi_jl_tpu_torch as avt
@@ -1362,6 +1364,18 @@ def ab_chunks(dev):
         e, rows, seeds = chains_case(dev, sp, C, **kw)
         out[tag] = (lambda e=e, r=rows, sd=seeds: chains_run(
             fused_chains_run_chunk_cuda, e, r, sd, 0, 200), 5 if C > 64 else 10)
+    for d, n in ((62, N_SAMPLES), (512, N_SAMPLES), (2048, N_SAMPLES), (512, 128)):
+        t = mvn_target(dev, d)
+        sp = avt.mvnormal_spec(t.mu, t.scale_tril)
+        tag = f"mvnormal_d{d}" + ("" if n == N_SAMPLES else f"_n{n}")
+        args = (sp.model, sp.consts, sp.scalars, initial_rows(d, dev), seed_words(SEED), 0, 200,
+                n, fa.FusedHyper(lr=LR))
+        out[tag] = (lambda a=args: fa.fused_run_chunk_cuda(*a), 3)
+        if (d, n) == (512, N_SAMPLES):
+            splits[tag] = (args, None, False)
+            e, rows, seeds = chains_case(dev, sp, AF_CHAINS_C)
+            out["chains8_" + tag] = (lambda e=e, r=rows, sd=seeds: chains_run(
+                fused_chains_run_chunk_cuda, e, r, sd, 0, 200), 3)
     return out, splits, (mf, fr)
 
 
@@ -1437,6 +1451,11 @@ def ab_times(dev):
     for i, x in probe_inputs(dev).items():
         out[f"probe{i}_host_us"] = host_us(lambda: probe_cuda(i, x, device=dev))
     out["optimize_advi_step_ms"] = optimize_step_ms(dev)
+    from advancedvi_jl_tpu_torch.ops.cuda.block_mm_kernels import mvnormal_product_cuda
+    for n, d in ((N_SAMPLES, 62), (N_SAMPLES, 512)):  # the dense body's product alone
+        g = torch.Generator().manual_seed(d + n)
+        diff, P = torch.randn(n, d, generator=g).to(dev), torch.randn(d, d, generator=g).to(dev)
+        out[f"mvnormal_product_{n}x{d}_graph"] = graph_ms(lambda: mvnormal_product_cuda(diff, P))
     for name, (fn, reps) in chunks.items():
         out[name] = cuda_ms(fn, reps)
     for name, (args, ad, walk) in splits.items():
@@ -1482,8 +1501,10 @@ print(json.dumps(smoke.ab_times(torch.device("cuda:0"))))
 # The kernel libraries whose kernels may compile to other SASS than the
 # parent's: none.  The mean-field, chains and full-rank libraries gained
 # instances (the kWide group, then the kMbWide group and the full-rank
-# kernel's tiered one) that the parent lacks, which have nothing to
-# compare; every kernel both builds name must be the parent's.
+# kernel's tiered one, then the dense Gaussian's kMvn instances, which
+# replace K6's fused_chains_g_kernel<1, kWide>) that the parent lacks,
+# which have nothing to compare; every kernel both builds name must be the
+# parent's.
 AB_CHANGED = ()
 
 
@@ -2713,12 +2734,12 @@ LR_D, LR_R, LR_STEPS = 12, 2, 1_000  # tests/test_lowrank_advi.py's convergence 
 LR_FLAGSHIP_R, LR_FLAGSHIP_STEPS = 8, 500  # (2,000 before the depth cut)
 
 
-def chains_engine(dev, spec, n_chains, seed=4, **kw):
+def chains_engine(dev, spec, n_chains, seed=4, n_samples=N_SAMPLES, **kw):
     """A FusedChainsADVI and its initial state: locations 0.2 N(0, 1) (seeded)
     and scales 0.1."""
     import advancedvi_jl_tpu_torch as avt
 
-    eng = avt.FusedChainsADVI(spec, n_chains=n_chains, n_samples=N_SAMPLES, **kw)
+    eng = avt.FusedChainsADVI(spec, n_chains=n_chains, n_samples=n_samples, **kw)
     g = torch.Generator().manual_seed(seed)
     st = eng.init((0.2 * torch.randn(n_chains, spec.dim, generator=g)).to(dev),
                   0.1 * torch.ones(n_chains, spec.dim, device=dev))
@@ -2736,8 +2757,8 @@ def chains_case(dev, spec, n_chains, **kw):
 def chains_run(fn, eng, rows, seeds, it0, steps, noise=None, log_every=0, **kw):
     consts = eng.model.consts if eng.ad is None else eng.ad.consts  # K5: the engine's program
     return fn(eng.model.model, consts, eng.model.scalars, rows, seeds, it0, steps,
-              N_SAMPLES, eng.hyp, noise, log_every, eng.branch(), eng.lrs, eng.rules, eng.ad,
-              **kw)
+              eng.n_samples, eng.hyp, noise, log_every, eng.branch(), eng.lrs, eng.rules,
+              eng.ad, **kw)
 
 
 def chains_split(phase, name, eng, rows, seeds, chunk_ms, launches=4):
@@ -5669,8 +5690,13 @@ AF_STEPS = 200            # the Philox comparisons and each timed chunk
 AF_MAIN_STEPS = 2_000     # mvnormal d = 62: FusedADVI.optimize beside optimize
 AF_SIDE_STEPS = 200       # each other counted engine run of (af)
 AF_CHAINS_C = 8
-AF_G_CHAINS = 264         # mvnormal d = 62 at two chains a block on 132 SMs
-AF_PRODUCT_SHAPES = ((N_SAMPLES, 62), (N_SAMPLES, 512))
+AF_G_CHAINS = 264         # mvnormal d = 62 and 512 at two chains a block on 132 SMs
+# the dense Gaussian's product alone (n x d), by graph replay beside torch.mm:
+# both sides of the tier-0 edge (P staged below about d = 214 at n = 10)
+AF_PRODUCT_SHAPES = ((N_SAMPLES, 62), (N_SAMPLES, 200), (N_SAMPLES, 231), (N_SAMPLES, 512),
+                     (N_SAMPLES, 1024), (N_SAMPLES, 2048), (128, 512))
+SM_CLOCK_MHZ = 1980       # an H100 SXM SM's boost clock: the one-SM floor's clock
+SM_FMA_LANES = 128        # FP32 multiply-adds an SM issues a clock
 
 
 def mvn_target(dev, d):
@@ -5685,8 +5711,10 @@ def af_configs(dev):
     engines take whose arrays one block's shared memory cannot hold (the
     kWide group's device-memory tiers), COCOB's 14 state rows on a design
     whose 8-row layout fits one block (tests/test_torch_kernels.py's plain
-    layout), and the dense Gaussian (P in shared memory at d = 62, in device
-    memory at 512), the d = 62 one that of ``mvn_target``."""
+    layout), and the dense Gaussian on its kMvn instances (P in shared
+    memory at d = 62, streamed through the product's ring at 512 and 2,048,
+    and at d = 512, n = 128 with u, z and g in the workspace), each that of
+    ``mvn_target``."""
     import advancedvi_jl_tpu_torch as avt
     from advancedvi_jl_tpu_torch.models.logreg import make_logreg
 
@@ -5706,7 +5734,9 @@ def af_configs(dev):
             "logreg_512x199": (avt.logreg_spec(wide.X, wide.y), N_SAMPLES),
             "logreg_771x61_cocob": (avt.logreg_spec(cocob.X, cocob.y), N_SAMPLES),
             "mvnormal_d62": (mvn(62), N_SAMPLES),
-            "mvnormal_d512": (mvn(512), N_SAMPLES)}
+            "mvnormal_d512": (mvn(512), N_SAMPLES),
+            "mvnormal_d2048": (mvn(2048), N_SAMPLES),
+            "mvnormal_d512_n128": (mvn(512), 128)}
 
 
 def af_branch(name):
@@ -5781,20 +5811,20 @@ def af_compare(dev, name, spec, n, branch, rows=None):
     return worst, group, tier, (ms, plain_ms)
 
 
-def af_chains_compare(dev, name, spec, C):
+def af_chains_compare(dev, name, spec, C, n=N_SAMPLES):
     """K6 against its plain version (50 injected-noise steps, rtol 1e-5) and
     chains 0, G - 1, G and C - 1 of a 200-step Philox run bitwise the
-    single-chain kernel keyed by their words.  Returns (the largest
-    norm-wise relative error, G)."""
+    single-chain kernel keyed by their words, n samples a step.  Returns
+    (the largest norm-wise relative error, G)."""
     from advancedvi_jl_tpu_torch.ops.cuda.fused_advi import fused_run_chunk_cuda
     from advancedvi_jl_tpu_torch.ops.cuda.fused_chains import (
         fused_chains_run_chunk_cuda, fused_chains_run_chunk_reference,
     )
     from advancedvi_jl_tpu_torch.ops.cuda.location_scale_kernels import chain_seed_words
 
-    eng, rows, seeds = chains_case(dev, spec, C)
+    eng, rows, seeds = chains_case(dev, spec, C, n_samples=n)
     d, G = spec.dim, eng.chains_per_block()
-    noise = torch.randn((AF_NOISE_STEPS, C, N_SAMPLES, d),
+    noise = torch.randn((AF_NOISE_STEPS, C, n, d),
                         generator=torch.Generator().manual_seed(7)).to(dev)
     k_rows, k_elbo, _ = chains_run(fused_chains_run_chunk_cuda, eng, rows, seeds, 0,
                                    AF_NOISE_STEPS, noise)
@@ -5809,10 +5839,10 @@ def af_chains_compare(dev, name, spec, C):
     for c in sorted({0, G - 1, G % C, C - 1}):
         one, e1, _ = fused_run_chunk_cuda(spec.model, spec.consts, spec.scalars,
                                           rows[c].contiguous(), chain_seed_words(SEED, c), 0,
-                                          AF_STEPS, N_SAMPLES, eng.hyp)
+                                          AF_STEPS, n, eng.hyp)
         same[c] = bool(torch.equal(one, p_rows[c]) and torch.equal(e1, p_elbo[c]))
     torch.cuda.synchronize()
-    say("af", config=name, chains=C, G=G, max_rel_err=f"{worst:.3e}",
+    say("af", config=name, chains=C, G=G, n=n, max_rel_err=f"{worst:.3e}",
         chain_vs_single_bitwise=",".join(f"{c}:{v}" for c, v in same.items()))
     check(all(same.values()), f"(af) {name}: a chain differs from the single-chain kernel")
     return worst, G
@@ -5834,45 +5864,68 @@ def af_bound(spec, n, d, steps, chains=1):
             4.0 * (consts + chains * 16 * d))
 
 
+def af_product(dev, card, n, d):
+    """The dense Gaussian body's product alone (csrc/mvnormal_product.cuh
+    through csrc/block_mm.cu block_mm_mvnormal, on the kMvn layout at n
+    rows) at n x d on a random P that is not symmetric: within 4 d 6e-8 of
+    float64 ``torch.mm`` per element (relative to |diff| |P|), two launches
+    bitwise, and its time by graph replay beside ``torch.mm(diff, P)``'s.
+    Returns (product_ms, mm_ms, rel_err, bound_ms, bound_by)."""
+    from advancedvi_jl_tpu_torch.ops.cuda.block_mm_kernels import (
+        mvnormal_product_cuda, mvnormal_product_layout,
+    )
+
+    g = torch.Generator().manual_seed(d + n)
+    diff = torch.randn(n, d, generator=g).to(dev)
+    P = torch.randn(d, d, generator=g).to(dev)
+    got, again = mvnormal_product_cuda(diff, P), mvnormal_product_cuda(diff, P)
+    want = torch.mm(diff.double(), P.double())
+    scale = torch.mm(diff.abs().double(), P.abs().double())
+    err = float(((got.double() - want).abs() / scale.clamp_min(1e-30)).max())
+    check(err < 4 * d * 6e-8, f"(af) the mvnormal product at {n} x {d} is {err} off")
+    check(torch.equal(got, again), f"(af) two mvnormal products at {n} x {d} differ")
+    ms = graph_ms(lambda: mvnormal_product_cuda(diff, P))
+    mm_ms = graph_ms(lambda: torch.mm(diff, P))
+    b_ms, b_by = bound(2.0 * n * d * d, 4.0 * (2 * n * d + d * d))
+    plan = mvnormal_product_layout(n, d)
+    say("af", card=f"'{card}'", product=f"{n}x{d}x{d}", rel_err=f"{err:.2e}",
+        body_product_graph_ms=f"{ms:.5f}", torch_mm_graph_ms=f"{mm_ms:.5f}",
+        bound_ms=f"{b_ms:.3g}", bound_by=b_by,
+        one_sm_fma_floor_ms=f"{n * d * d / (SM_FMA_LANES * SM_CLOCK_MHZ * 1e3):.5f}",
+        **{k: v for k, v in plan.items()})
+    return ms, mm_ms, err, b_ms, b_by
+
+
 def af_times(dev, card, cfgs, chunk_ms, chains_spec):
     """Each configuration's 200-step chunk beside its plain version
     (``chunk_ms``, taken in ``af_compare``), K6 at C = 8 on the d = 2,048
-    Gaussian likewise, and the dense Gaussian body's product alone
-    (csrc/block_mm.cu block_mm_mvnormal) beside torch.mm(diff, P) by
-    CUDA-graph replay.  Returns {name: (ms, plain_ms, bound_ms, bound_by)}
-    and {shape: (product_ms, mm_ms)}."""
-    from advancedvi_jl_tpu_torch.ops.cuda.block_mm_kernels import mvnormal_product_cuda
+    Gaussian and on each dense Gaussian (the plain version timed beside
+    the two the kernels line names: a plain chunk is seconds of host time,
+    and each dense one is held to it in ``af_chains_compare``), and the
+    dense Gaussian body's product alone at AF_PRODUCT_SHAPES
+    (``af_product``).  Returns {name: (ms, plain_ms or nan, bound_ms,
+    bound_by)} and {shape: af_product's tuple}."""
     from advancedvi_jl_tpu_torch.ops.cuda.fused_chains import (
         fused_chains_run_chunk_cuda, fused_chains_run_chunk_reference,
     )
 
     out = {name: (*chunk_ms[name], *bound(*af_bound(spec, n, spec.dim, AF_STEPS)))
            for name, (spec, n) in cfgs.items()}
-    eng, rows, seeds = chains_case(dev, chains_spec, AF_CHAINS_C)
-    ms = cuda_ms(lambda: chains_run(fused_chains_run_chunk_cuda, eng, rows, seeds, 0, AF_STEPS),
-                 3)
-    _, plain = once_ms(lambda: chains_run(fused_chains_run_chunk_reference, eng, rows, seeds, 0,
-                                          AF_STEPS))
-    out["chains_gauss_d2048"] = (ms, plain, *bound(*af_bound(
-        chains_spec, N_SAMPLES, chains_spec.dim, AF_STEPS, AF_CHAINS_C)))
+    chained = [("chains_gauss_d2048", chains_spec, N_SAMPLES)] + [
+        (f"chains_{name}", *cfgs[name]) for name in cfgs if name.startswith("mvnormal")]
+    for name, spec, n in chained:
+        eng, rows, seeds = chains_case(dev, spec, AF_CHAINS_C, n_samples=n)
+        ms = cuda_ms(lambda: chains_run(fused_chains_run_chunk_cuda, eng, rows, seeds, 0,
+                                        AF_STEPS), 3)
+        plain = math.nan
+        if name in ("chains_gauss_d2048", "chains_mvnormal_d512"):
+            _, plain = once_ms(lambda: chains_run(fused_chains_run_chunk_reference, eng, rows,
+                                                  seeds, 0, AF_STEPS))
+        out[name] = (ms, plain, *bound(*af_bound(spec, n, spec.dim, AF_STEPS, AF_CHAINS_C)))
     for name, (ms, plain, b_ms, b_by) in out.items():
         say("af", card=f"'{card}'", chunk=name, steps=AF_STEPS, kernel_ms=f"{ms:.4f}",
             plain_ms=f"{plain:.2f}", bound_ms=f"{b_ms:.3g}", bound_by=b_by)
-    products = {}
-    for n, d in AF_PRODUCT_SHAPES:
-        g = torch.Generator().manual_seed(d)
-        diff = torch.randn(n, d, generator=g).to(dev)
-        P = cfgs["mvnormal_d62" if d == 62 else "mvnormal_d512"][0].consts[1]
-        got = mvnormal_product_cuda(diff, P)
-        want = torch.mm(diff.double(), P.double())
-        scale = torch.mm(diff.abs().double(), P.abs().double())
-        err = float(((got.double() - want).abs() / scale.clamp_min(1e-30)).max())
-        check(err < 4 * d * 6e-8, f"(af) the mvnormal product at {n} x {d} is {err} off")
-        products[(n, d)] = (graph_ms(lambda: mvnormal_product_cuda(diff, P)),
-                            graph_ms(lambda: torch.mm(diff, P)))
-        say("af", card=f"'{card}'", product=f"{n}x{d}x{d}", rel_err=f"{err:.2e}",
-            body_product_graph_ms=f"{products[(n, d)][0]:.5f}",
-            torch_mm_graph_ms=f"{products[(n, d)][1]:.5f}")
+    products = {(n, d): af_product(dev, card, n, d) for n, d in AF_PRODUCT_SHAPES}
     return out, products
 
 
@@ -5926,10 +5979,12 @@ def af_main_path(dev, cfgs, chains_spec):
     counts["mf_" + GROUP_DEVICE_LAYOUT] = fused_run_chunk_cuda.group_launches[GROUP_DEVICE_LAYOUT]
     counts["chains_" + GROUP_DEVICE_LAYOUT] = \
         fused_chains_run_chunk_cuda.group_launches[GROUP_DEVICE_LAYOUT]
+    counts["chains_" + GROUP_MVNORMAL] = fused_chains_run_chunk_cuda.group_launches[GROUP_MVNORMAL]
     check(all(math.isfinite(r["elbo"]) for r in infos_f) and
           all(math.isfinite(v) for v in tails.values()), f"(af) a counted run diverged: {tails}")
     for k in ("fused_advi_meanfield", "fused_chains", "mf_" + GROUP_MVNORMAL,
-              "mf_" + GROUP_DEVICE_LAYOUT, "chains_" + GROUP_DEVICE_LAYOUT):
+              "mf_" + GROUP_DEVICE_LAYOUT, "chains_" + GROUP_DEVICE_LAYOUT,
+              "chains_" + GROUP_MVNORMAL):
         check(counts[k] > 0, f"(af) the counted runs made no {k} launch")
 
     target = mvn_target(dev, d)
@@ -5946,7 +6001,8 @@ def af_main_path(dev, cfgs, chains_spec):
         **{f"{k}_launches": counts[k] for k in ("fused_advi_meanfield", "fused_chains",
                                                 "mf_" + GROUP_MVNORMAL,
                                                 "mf_" + GROUP_DEVICE_LAYOUT,
-                                                "chains_" + GROUP_DEVICE_LAYOUT)})
+                                                "chains_" + GROUP_DEVICE_LAYOUT,
+                                                "chains_" + GROUP_MVNORMAL)})
     check(mu_err <= 1e-3, f"(af) fused vs general averaged location {mu_err} > 1e-3")
     return counts
 
@@ -5957,16 +6013,22 @@ def phase_af(dev, card):
     against its plain version (``af_compare``, ``af_chains_compare``), the
     counted runs (``af_main_path``) and the times (``af_times``).  Returns
     (the counted launches, the largest errors {kernel: err}, the times)."""
-    from advancedvi_jl_tpu_torch.ops.cuda.fused_advi import FusedBranch, KWIDE
+    from advancedvi_jl_tpu_torch.ops.cuda.fused_advi import (
+        KMVN, KWIDE, FusedBranch, FusedHyper,
+    )
+    from advancedvi_jl_tpu_torch.ops.cuda.location_scale_kernels import seed_words
 
     t0 = time.perf_counter()
     cfgs = af_configs(dev)
-    errs = {"mvnormal": 0.0, "wide": 0.0, "chains": 0.0}
+    errs = {"mvnormal": 0.0, "wide": 0.0, "chains": 0.0, "chains_mvnormal": 0.0}
     chunk_ms = {}
     for name, (spec, n) in cfgs.items():
         err, group, tier, chunk_ms[name] = af_compare(dev, name, spec, n, af_branch(name))
-        check(group == KWIDE and (tier >= 1 or spec.model == "mvnormal"),
-              f"(af) {name} ran in group {group}, tier {tier}: not the kWide layout")
+        if spec.model == "mvnormal":
+            check(group == KMVN, f"(af) {name} ran in group {group}: not the kMvn instances")
+        else:
+            check(group == KWIDE and tier >= 1,
+                  f"(af) {name} ran in group {group}, tier {tier}: not the kWide layout")
         key = "mvnormal" if spec.model == "mvnormal" else "wide"
         errs[key] = max(errs[key], err)
     mv = cfgs["mvnormal_d62"][0]
@@ -5977,14 +6039,28 @@ def phase_af(dev, card):
                                   N_SAMPLES, branch)
         errs["mvnormal"] = max(errs["mvnormal"], err)
     chains_spec = cfgs["gauss_d2048"][0]
-    for name, spec, C in (("chains_gauss_d2048", chains_spec, AF_CHAINS_C),
-                          ("chains_mvnormal_d62", mv, AF_CHAINS_C),
-                          ("chains_mvnormal_d62_G2", mv, AF_G_CHAINS)):
-        err, G = af_chains_compare(dev, name, spec, C)
+    for name, spec, C, n in (("chains_gauss_d2048", chains_spec, AF_CHAINS_C, N_SAMPLES),
+                             ("chains_mvnormal_d62", mv, AF_CHAINS_C, N_SAMPLES),
+                             ("chains_mvnormal_d62_G2", mv, AF_G_CHAINS, N_SAMPLES),
+                             ("chains_mvnormal_d512", cfgs["mvnormal_d512"][0], AF_CHAINS_C,
+                              N_SAMPLES),
+                             ("chains_mvnormal_d512_G2", cfgs["mvnormal_d512"][0], AF_G_CHAINS,
+                              N_SAMPLES),
+                             ("chains_mvnormal_d2048", cfgs["mvnormal_d2048"][0], AF_CHAINS_C,
+                              N_SAMPLES),
+                             ("chains_mvnormal_d512_n128", cfgs["mvnormal_d512_n128"][0],
+                              AF_CHAINS_C, 128)):
+        err, G = af_chains_compare(dev, name, spec, C, n)
         check(G == (2 if C == AF_G_CHAINS else 1), f"(af) {name}: {G} chains a block")
-        errs["chains"] = max(errs["chains"], err)
+        key = "chains_mvnormal" if spec.model == "mvnormal" else "chains"
+        errs[key] = max(errs[key], err)
     counts = af_main_path(dev, cfgs, chains_spec)
     times, products = af_times(dev, card, cfgs, chunk_ms, chains_spec)
+    # the d = 512 dense step by phase (the AVI_PHASE_CLOCKS build of its instance)
+    spec = cfgs["mvnormal_d512"][0]
+    args = (spec.model, spec.consts, spec.scalars, af_rows(spec.dim, dev, FusedBranch()),
+            seed_words(SEED), 0, AF_STEPS, N_SAMPLES, FusedHyper(lr=LR))
+    mf_split("af", "mvnormal_d512", args, times["mvnormal_d512"][0])
     seconds = time.perf_counter() - t0
     say("af", card=f"'{card}'", seconds=f"{seconds:.1f}",
         **{f"max_rel_err_{k}": f"{v:.3e}" for k, v in errs.items()})
@@ -6555,7 +6631,7 @@ def main() -> int:
     lap("ad")
     ae_counts, ae_err, ae_times = phase_ae(dev, card)
     lap("ae")
-    af_counts, af_err, af_times, _ = phase_af(dev, card)
+    af_counts, af_err, af_times, af_products = phase_af(dev, card)
     lap("af")
     ag_counts, ag_err, ag_times = phase_ag(dev, card, ag_cfgs, ag_edge_cfgs)
     lap("ag")
@@ -6662,13 +6738,17 @@ def main() -> int:
                          "no Pallas kernel)",
                          ae_counts["fullrank_bf16"], ae_err["fullrank_bf16"], t["bf16_product"],
                          t["plain"], library_ms=t["library_mm_bf16"], bound_=(t["bound"], by)))
-    # (af): the dense Gaussian's body in the mean-field kernel (timed at d =
-    # 62), the kWide group's device-memory layout in the mean-field kernel
-    # (timed on the d = 2,048 Gaussian) and in K6 (C = 8 on it), each counted
-    # in (af)'s runs by its wrapper's own launch group
+    # (af): the dense Gaussian's instances (kMvn) in the mean-field kernel and
+    # in K6 (timed at d = 512, K6 at C = 8), the kWide group's device-memory
+    # layout in the mean-field kernel (timed on the d = 2,048 Gaussian) and
+    # in K6 (C = 8 on it), each counted in (af)'s runs by its wrapper's own
+    # launch group
     for name, source, replaces, launches, err, timed in (
-            ("fused_k4_mvnormal", "fused_common.cuh", f"{fused}1255",
-             af_counts["mf_k4_mvnormal"], af_err["mvnormal"], "mvnormal_d62"),
+            ("fused_k4_mvnormal", "fused_advi_meanfield.cu", f"{fused}1255",
+             af_counts["mf_k4_mvnormal"], af_err["mvnormal"], "mvnormal_d512"),
+            ("fused_chains_mvnormal", "fused_chains.cu", f"{fused}1255",
+             af_counts["chains_k4_mvnormal"], af_err["chains_mvnormal"],
+             "chains_mvnormal_d512"),
             ("fused_advi_meanfield_wide", "fused_meanfield_body.cuh", f"{fused}681",
              af_counts["mf_k1_device_layout"], af_err["wide"], "gauss_d2048"),
             ("fused_chains_wide", "fused_chains.cu",
@@ -6677,6 +6757,13 @@ def main() -> int:
         ms, plain_ms, b_ms, b_by = af_times[timed]
         kernels.append(entry(name, source, replaces, launches, err, ms, plain_ms,
                              bound_=(b_ms, b_by)))
+    # the dense Gaussian's product (csrc/mvnormal_product.cuh), run once a step
+    # inside each of the kMvn launches above; timed alone at 10 x 512 x 512
+    # by graph replay (its plain version is the library's torch.mm itself)
+    ms, mm_ms, err, b_ms, b_by = af_products[(N_SAMPLES, 512)]
+    kernels.append(entry("mvnormal_product", "mvnormal_product.cuh", f"{fused}1253",
+                         af_counts["mf_k4_mvnormal"] + af_counts["chains_k4_mvnormal"], err, ms,
+                         mm_ms, library_ms=mm_ms, bound_=(b_ms, b_by)))
     # (ag): the tiered layouts' instances, each counted in (ag)'s runs by its
     # wrapper's own launch group and timed at one of its configurations: K5's
     # body on kWide (the d = 2,048 quartic, mean-field and K6 at C = 8), the

@@ -131,25 +131,62 @@ def _chains(jspec, tspec, n_chains, steps, n=N, seed=5):
     return convert.chains_state_from_numpy(js, n_chains, d, device="cpu"), ts
 
 
-@pytest.mark.parametrize("d", [6, 200])
+@pytest.mark.parametrize("d", [6, 200, 512])
 @pytest.mark.parametrize("kind", ["advi", "prox", "bbvi"])
 def test_mvnormal_on_the_meanfield_engines_matches_jax(kind, d):
     """The dense Gaussian on FusedADVI, FusedProxADVI (DoWG) and
-    FusedScoreGradVI (VarGrad, Adam): JAX's fixture at d = 6 and at d = 200
-    (d_pad 256), 5 steps."""
+    FusedScoreGradVI (VarGrad, Adam): JAX's fixture at d = 6, at d = 200
+    (d_pad 256) and at d = 512 (on a card: P streamed through the product's
+    ring), 5 steps."""
     jspec, tspec = _mvnormal(d)
     want, got, js = _single(jspec, tspec, kind, 5)
     _close(want, got)
     assert_allclose(float(got.elbo), float(js.elbo), rtol=1e-4, atol=1e-4)
 
 
-@pytest.mark.parametrize("d", [6, 200])
+@pytest.mark.parametrize("d", [6, 200, 512])
 def test_mvnormal_on_the_chains_engine_matches_jax(d):
     """Four chains of the dense Gaussian, each chain at the same bars."""
     jspec, tspec = _mvnormal(d)
     want, got = _chains(jspec, tspec, 4, 5)
     _close(want, got)
     assert_allclose(got.elbo.numpy(), want.elbo.numpy(), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("d", [5, 62, 512])
+def test_the_kernels_padded_precision_keeps_the_plain_version_bitwise(d):
+    """The precision as the mean-field and chains wrappers hand it to the
+    kernels (``kernel_precision``: rows of round4(d) floats, zeros beyond
+    d, one copy per tensor; P itself where d is a multiple of 4) holds P's
+    values bit for bit: the plain version on its first d columns gives the
+    bits it gives on P (10 injected-noise steps, and the body alone)."""
+    _, tspec = _mvnormal(d)
+    mean, P = tspec.consts
+    kp = tfused.kernel_precision(P)
+    ld = -(-d // 4) * 4
+    assert tuple(kp.shape) == (d, ld) and kp.data_ptr() % 16 == 0
+    assert torch.equal(kp[:, :d], P) and not kp[:, d:].any()
+    assert tfused.kernel_precision(P) is kp and (kp is P) == (ld == d)
+    if ld != d:  # changed in place: copied again
+        P2 = P.clone()
+        first = tfused.kernel_precision(P2)
+        P2[0, 0] += 1.0
+        again = tfused.kernel_precision(P2)
+        assert again is not first and float(again[0, 0]) == float(P2[0, 0])
+    rng = np.random.default_rng(d)
+    z = torch.from_numpy(rng.standard_normal((N, d)).astype(np.float32))
+    for a, b in zip(tfused.mvnormal_logpi_grad(z, mean, kp[:, :d], *tspec.scalars),
+                    tfused.mvnormal_logpi_grad(z, mean, P, *tspec.scalars)):
+        assert torch.equal(a, b)
+    eng = avt.FusedADVI(tspec, n_samples=N)
+    st = eng.init(torch.zeros(d), 0.5 * torch.ones(d)).stacked()
+    noise = torch.from_numpy(rng.standard_normal((10, N, d)).astype(np.float32))
+    hyp = tfused.FusedHyper()
+    runs = [tfused.fused_run_chunk_reference("mvnormal", consts, tspec.scalars, st, (0, 1), 0,
+                                             10, N, hyp, noise, 5)
+            for consts in ((mean, kp[:, :d]), (mean, P))]
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
 
 
 def test_fused_spec_for_a_normal_target_runs_on_the_meanfield_engine():

@@ -397,7 +397,9 @@ def test_the_reshuffle_library_is_the_ports_own(tmp_path):
     there has the port's library name) and the port's data module names no
     file of the JAX package.  The snapshot leaves out the two libraries the
     JAX package builds into its own tree (utils/data.py:37, ops/native_ffi.py:46),
-    which its tests, running beside this one, may build meanwhile."""
+    which its tests, running beside this one, may build meanwhile, and
+    takes regular files only: building one of those libraries, or a first
+    import writing a ``__pycache__``, changes its directory's time."""
     from advancedvi_jl_tpu_torch.utils import data
 
     jax_tree = ROOT / "advancedvi_jl_tpu"
@@ -407,7 +409,7 @@ def test_the_reshuffle_library_is_the_ports_own(tmp_path):
     def snapshot():
         return {str(p): (p.stat().st_size, p.stat().st_mtime_ns)
                 for p in jax_tree.rglob("*")
-                if "__pycache__" not in p.parts and p not in jax_builds}
+                if p.is_file() and "__pycache__" not in p.parts and p not in jax_builds}
 
     before = snapshot()
     code = (

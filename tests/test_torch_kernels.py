@@ -1142,7 +1142,7 @@ def _chains_engine(dev, kw, spec=None):
 def _chains_args(eng, st, steps, noise, log_every):
     return (eng.model.model, eng.model.consts, eng.model.scalars,
             st.stacked(with_ext=eng.n_rows == 14), eng.chain_seeds(3), st.iteration, steps,
-            N, eng.hyp, noise, log_every, eng.branch(), eng.lrs, eng.rules)
+            eng.n_samples, eng.hyp, noise, log_every, eng.branch(), eng.lrs, eng.rules)
 
 
 @pytest.mark.parametrize("case", list(CHAIN_CASES))
@@ -1535,14 +1535,15 @@ def _wide_spec(dev, name):
 
 
 WIDE_CASES = ["gaussian_d2048", "gaussian_d512_n128", "logreg_512x199", "mvnormal_d62",
-              "mvnormal_d512", "mvnormal_d512_n128"]
+              "mvnormal_d512", "mvnormal_d512_n128", "mvnormal_d2048"]
 
 
 @pytest.mark.parametrize("name", WIDE_CASES)
 def test_wide_layout_and_mvnormal_match_plain_version(dev, name):
-    """Each configuration on the kWide group (its tier by its size) against
-    the plain version: 30 injected-noise steps within 1e-5 norm-wise, and a
-    chunked Philox run bitwise the whole run."""
+    """Each configuration on the kWide group, or the dense Gaussian on its
+    kMvn instance (its tier by its size), against the plain version: 30
+    injected-noise steps within 1e-5 norm-wise, and a chunked Philox run and
+    a traced one bitwise the whole run."""
     from advancedvi_jl_tpu_torch.ops.cuda.fused_advi import GROUP_DEVICE_LAYOUT, GROUP_MVNORMAL
 
     spec, n = _wide_spec(dev, name)
@@ -1563,18 +1564,23 @@ def test_wide_layout_and_mvnormal_match_plain_version(dev, name):
     whole, e1, _ = fused_run_chunk_cuda(*base, rows, (0, 7), 0, 40, n, FusedHyper())
     half, _, _ = fused_run_chunk_cuda(*base, rows, (0, 7), 0, 15, n, FusedHyper())
     two, e2, _ = fused_run_chunk_cuda(*base, half, (0, 7), 15, 25, n, FusedHyper())
+    traced, e3, trace = fused_run_chunk_cuda(*base, rows, (0, 7), 0, 40, n, FusedHyper(), None, 10)
     torch.cuda.synchronize()
     assert torch.equal(whole, two) and torch.equal(e1, e2)
+    assert torch.equal(whole, traced) and torch.equal(e1, e3) and float(trace[-1]) == float(e1)
 
 
 @pytest.mark.parametrize("name,C", [("mvnormal_d62", C8), ("mvnormal_d62", 264),
-                                    ("gaussian_d2048", C8), ("mvnormal_d512", C8)])
+                                    ("gaussian_d2048", C8), ("mvnormal_d512", C8),
+                                    ("mvnormal_d512", 264), ("mvnormal_d2048", C8),
+                                    ("mvnormal_d512_n128", C8)])
 def test_wide_chains_match_plain_version_and_the_single_chain_kernel(dev, name, C):
     """K6 on the dense Gaussian (one chain a block, and two at C = 264 on
-    132 SMs, P staged once for the block) and on the kWide layout (one chain
-    a block, each with its slice of the workspace): 20 injected-noise steps
-    within 1e-5 of the plain version, and chains 0, G - 1, G and C - 1 of a
-    Philox run bitwise the single-chain kernel."""
+    132 SMs: at d = 62 P staged once for the block, at d = 512 streamed
+    through the product's ring) and on the kWide layout (one chain a block,
+    each with its slice of the workspace): 20 injected-noise steps within
+    1e-5 of the plain version, and chains 0, G - 1, G and C - 1 of a Philox
+    run bitwise the single-chain kernel."""
     from advancedvi_jl_tpu_torch.ops.cuda.fused_chains import (
         FusedChainsADVI, fused_chains_run_chunk_cuda, fused_chains_run_chunk_reference)
     from advancedvi_jl_tpu_torch.ops.cuda.location_scale_kernels import chain_seed_words
@@ -1626,23 +1632,47 @@ def test_wide_workspace_is_returned_after_each_chunk(dev):
         assert torch.cuda.memory_reserved(dev) == reserved
 
 
-def test_mvnormal_product_matches_torch_mm(dev):
-    """The dense Gaussian body's product alone (csrc/block_mm.cu
-    block_mm_mvnormal: P in shared memory at d = 62, in device memory at
-    512) against torch.mm in float64, within a few float32 roundings of a
-    d-term sum, two launches equal."""
+@pytest.mark.parametrize("n", [1, N, 128])
+@pytest.mark.parametrize("d", [5, 62, 101, 231, 512, 2048])
+def test_mvnormal_product_matches_torch_mm(dev, n, d):
+    """The dense Gaussian body's product alone (csrc/mvnormal_product.cuh
+    through csrc/block_mm.cu block_mm_mvnormal, on the kMvn plan at n rows:
+    P staged in shared memory below about d = 214 at n = 10, streamed
+    through the TMA ring above; d % 4 != 0 on P's padded rows) on a random P
+    that is not symmetric, against torch.mm in float64, within a few float32
+    roundings of a d-term sum; two launches equal."""
     from advancedvi_jl_tpu_torch.ops.cuda.block_mm_kernels import mvnormal_product_cuda
 
-    for n, d in ((N, 62), (N, 512), (64, 200), (3, 5)):
-        g = torch.Generator().manual_seed(d)
-        A = torch.randn(n, d, generator=g).to(dev)
-        P = torch.randn(d, d, generator=g).to(dev)
-        got, again = mvnormal_product_cuda(A, P), mvnormal_product_cuda(A, P)
-        torch.cuda.synchronize()
-        want = torch.mm(A.double(), P.double())
-        scale = torch.mm(A.abs().double(), P.abs().double())
-        assert torch.equal(got, again)
-        assert float(((got.double() - want).abs() / scale.clamp_min(1e-30)).max()) < 4 * d * 6e-8
+    g = torch.Generator().manual_seed(d + n)
+    A = torch.randn(n, d, generator=g).to(dev)
+    P = torch.randn(d, d, generator=g).to(dev)
+    got, again = mvnormal_product_cuda(A, P), mvnormal_product_cuda(A, P)
+    torch.cuda.synchronize()
+    want = torch.mm(A.double(), P.double())
+    scale = torch.mm(A.abs().double(), P.abs().double())
+    assert torch.equal(got, again)
+    assert float(((got.double() - want).abs() / scale.clamp_min(1e-30)).max()) < 4 * d * 6e-8
+
+
+@pytest.mark.parametrize("d,tier", [(62, 0), (200, 0), (231, 1), (512, 1), (1024, 3),
+                                    (2048, 3)])
+def test_mvnormal_runs_on_its_own_instances_and_the_products_plan(dev, d, tier):
+    """The dense Gaussian takes the kMvn group on the mean-field and chains
+    kernels at every width, on the tier its size gives at n = 10; the
+    product's launcher runs the plan of that tier (the same shared bytes),
+    and below the last tier a ring stage holds at least 32 KB of P."""
+    from advancedvi_jl_tpu_torch.ops.cuda.block_mm_kernels import mvnormal_product_layout
+    from advancedvi_jl_tpu_torch.ops.cuda.fused_advi import KMVN, fused_layout
+
+    code = MODEL_CODES["mvnormal"]
+    group, smem, ws, got_tier = fused_layout("fused_advi_meanfield")(code, 0, 0, 0, N, d, 8)
+    assert (group, got_tier) == (KMVN, tier)
+    assert fused_layout("fused_chains")(code, 0, 0, 0, N, d, 8, 1)[::3] == (KMVN, tier)
+    plan = mvnormal_product_layout(N, d)
+    assert (plan["tier"], plan["smem_bytes"]) == (tier, smem)
+    assert ws == (3 * N * d if tier == 3 else 0)
+    stage_bytes = 4 * plan["ring_rows"] * (-(-d // 4) * 4)
+    assert (plan["ring_rows"] == 0) if tier == 0 else stage_bytes >= (32768 if tier < 3 else 1)
 
 
 # ---------------------------------------------------------------------------
