@@ -421,19 +421,23 @@ class FullRankPlan(NamedTuple):
 
 
 def fullrank_plan(n: int, d: int, sms: int, col0: int = 0,
-                  ncols: Optional[int] = None) -> FullRankPlan:
+                  ncols: Optional[int] = None, tile_cost: int = 0) -> FullRankPlan:
     """The product's cut of (n, d) over at most ``sms`` blocks (the card's
     SMs: one block an SM).  ``col0, ncols``: the output columns [col0, col0
     + ncols) alone (C's rows there; the whole product for ncols None): a
     segment's col0 is C's row, and column tile j sums k below the range's
     end or its own, whichever comes first.  The whole product's table does
-    not depend on the range arguments."""
+    not depend on the range arguments.  ``tile_cost``: steps' worth of work
+    that each tile's epilogue costs, laid before its first step so that the
+    cut balances it too and counts it in the block of the tile's first
+    piece, which adds a cut tile's pieces (a block whose range holds none of
+    a tile's steps takes no piece of it)."""
     ncols = d - col0 if ncols is None else ncols
     end = col0 + ncols
     row_tiles, col_tiles = -(-n // FR_TILE), -(-ncols // FR_TILE)
     # column tile j sums k < min(end, col0 + 64 (j + 1)): C's row c stops at k = c
     tile_steps = [-(-min(end, col0 + FR_TILE * (j + 1)) // FR_STEP) for j in range(col_tiles)]
-    total = row_tiles * sum(tile_steps)
+    total = row_tiles * (sum(tile_steps) + col_tiles * tile_cost)
     blocks = max(1, min(sms, total // FR_MIN_STEPS))
     starts = [b * total // blocks for b in range(blocks + 1)]
     per_block = [[] for _ in range(blocks)]
@@ -442,6 +446,7 @@ def fullrank_plan(n: int, d: int, sms: int, col0: int = 0,
     for j in range(col_tiles):
         for i in range(row_tiles):
             tile = j * row_tiles + i
+            at += tile_cost  # the epilogue's cost, in the block of the tile's first piece
             end_at = at + tile_steps[j]
             while starts[b + 1] <= at:
                 b += 1
@@ -468,20 +473,21 @@ def fullrank_plan(n: int, d: int, sms: int, col0: int = 0,
                         torch.tensor(words, dtype=torch.int32))
 
 
-_FR_PLANS = {}  # (n, d, col0, ncols, device index) -> (plan, its table on the card)
+_FR_PLANS = {}  # (n, d, col0, ncols, device index, tile cost) -> (plan, its table on the card)
 _FR_ARGTYPES = (
     [ctypes.c_void_p] * 7
     + [ctypes.c_int] * 4 + [ctypes.c_uint32] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 )
 
 
-def _card_plan(n: int, d: int, device: torch.device, col0: int = 0, ncols: Optional[int] = None):
+def _card_plan(n: int, d: int, device: torch.device, col0: int = 0, ncols: Optional[int] = None,
+               tile_cost: int = 0):
     ncols = d if ncols is None else ncols
-    key = (n, d, col0, ncols, device.index)
+    key = (n, d, col0, ncols, device.index, tile_cost)
     hit = _FR_PLANS.get(key)
     if hit is None:
         sms = torch.cuda.get_device_properties(device).multi_processor_count
-        plan = fullrank_plan(n, d, sms, col0, ncols)
+        plan = fullrank_plan(n, d, sms, col0, ncols, tile_cost)
         hit = _FR_PLANS[key] = (plan, plan.table.to(device))
     return hit
 
@@ -627,16 +633,51 @@ def fullrank_bf16_reference(u: torch.Tensor, location: torch.Tensor, scale: torc
     return fullrank_affine_reference(bf16_round(u), location, bf16_round(scale), cols)
 
 
-_BF16_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_BF16_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_BF16_F64_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+BF16_ROUTES = ("tma", "loads")
+# steps' worth of work a tile's epilogue costs the bf16 product's plan
+BF16_TILE_COST = 2
+
+
+def bf16_route(n: int, d: int, aligned: bool) -> Optional[str]:
+    """How csrc/fullrank_bf16.cu stages a float32 product of n draws at width
+    d, chosen by shape before the launch: "tma" (2-D tensor copies) where a
+    row of d floats is a whole number of 16-byte units and u and C start on
+    16 bytes (``aligned``), else "loads" (each warpgroup loads its own
+    steps from device memory); None where there is nothing to launch
+    (n = 0)."""
+    if n == 0:
+        return None
+    return "tma" if d % 4 == 0 and aligned else "loads"
+
+
+_BF16_WORK = {}  # (n, d, col0, ncols, device index, slots) -> the plan's workspace and flags
+
+
+def _bf16_work(key, slots: int, device: torch.device):
+    """The bf16 product's workspace for one plan: ``slots`` 64 x 64 partial
+    sums and a flag each, the flags zero when made; every launch leaves them
+    so (the piece that adds a tile's partial sums clears their flags), so no
+    launch needs a memset.  Launches of one plan on one stream share them."""
+    hit = _BF16_WORK.get(key)
+    if hit is None:
+        hit = _BF16_WORK[key] = (
+            torch.empty(max(slots, 1) * FR_TILE * FR_TILE, dtype=torch.float32, device=device),
+            torch.zeros(max(slots, 1), dtype=torch.int32, device=device))
+    return hit
 
 
 def fullrank_bf16_cuda(u: torch.Tensor, location: torch.Tensor, scale: torch.Tensor,
                        cols=None) -> torch.Tensor:
     """Launch csrc/fullrank_bf16.cu on the current stream: z (n, ncols), the
     bfloat16 product's columns ``cols`` (all d for None) for given draws u
-    (n, d); float32 parameters on the tensor cores, float64 ones summed in
-    double.  Only the lower triangle of ``scale`` is read.  Adds one to
-    ``fullrank_bf16_cuda.launches`` per launch."""
+    (n, d); float32 parameters on the tensor cores (wgmma over
+    ``fullrank_plan``'s stream-K cut with BF16_TILE_COST, staged by
+    ``bf16_route``'s route), float64 ones summed in double.  Only the lower
+    triangle of ``scale`` is read.  Adds one to ``fullrank_bf16_cuda.launches``
+    per launch, and a float32 launch to
+    ``fullrank_bf16_cuda.route_launches[route]``."""
     if not location.is_cuda:
         raise ValueError(f"fullrank_bf16_cuda needs GPU tensors, got {location.device}")
     dev, dtype = location.device, location.dtype
@@ -652,19 +693,31 @@ def fullrank_bf16_cuda(u: torch.Tensor, location: torch.Tensor, scale: torch.Ten
                              f"got {t.dtype} {tuple(t.shape)} on {t.device}")
     if dtype == torch.float64 and n > 65535:
         raise ValueError(f"the float64 product takes at most 65,535 rows, got {n}")
-    symbol = "fullrank_bf16" if dtype == torch.float32 else "fullrank_bf16_f64"
-    fn = _build.function("fullrank_bf16", symbol, _BF16_ARGTYPES)
     z = torch.empty((n, ncols), dtype=dtype, device=dev)
     if n == 0 or ncols == 0:
         return z
+    if dtype == torch.float64:
+        fn = _build.function("fullrank_bf16", "fullrank_bf16_f64", _BF16_F64_ARGTYPES)
+        err = _build.launch(fn, dev, u.data_ptr(), scale.data_ptr(), location.data_ptr(),
+                            z.data_ptr(), n, d, col0, ncols)
+        _build.check(err, "fullrank_bf16 launch")
+        fullrank_bf16_cuda.launches += 1
+        return z
+    fn = _build.function("fullrank_bf16", "fullrank_bf16", _BF16_ARGTYPES)
+    route = bf16_route(n, d, u.data_ptr() % 16 == 0 and scale.data_ptr() % 16 == 0)
+    plan, table = _card_plan(n, d, dev, col0, ncols, BF16_TILE_COST)
+    work, flags = _bf16_work((n, d, col0, ncols, dev.index, plan.slots), plan.slots, dev)
     err = _build.launch(fn, dev, u.data_ptr(), scale.data_ptr(), location.data_ptr(),
-                        z.data_ptr(), n, d, col0, ncols)
+                        z.data_ptr(), work.data_ptr(), flags.data_ptr(), table.data_ptr(),
+                        plan.blocks, n, d, col0, ncols, int(route == "tma"))
     _build.check(err, "fullrank_bf16 launch")
     fullrank_bf16_cuda.launches += 1
+    fullrank_bf16_cuda.route_launches[route] += 1
     return z
 
 
 fullrank_bf16_cuda.launches = 0
+fullrank_bf16_cuda.route_launches = dict.fromkeys(BF16_ROUTES, 0)
 
 
 def fullrank_bf16_raw(u, location, scale, cols=None):

@@ -184,9 +184,11 @@ Phases:
       1e-5 of one process, each rank forming only its columns, block and
       components); full-rank ADVI at d = 1024 and the BNN of (s) with
       ``compute_dtype="bfloat16"`` beside their f32 runs on one key; the
-      bf16 product, K7b whole and over half the columns and the library's
-      bf16 route (its casts and triangle included) by CUDA-graph replay at
-      256 x 1024 and 128 x 2048;
+      bf16 product (its route, registers and spills, wgmma and no mma.sync
+      in its float32 kernels' SASS, two calls bitwise), K7b whole and over
+      half the columns, the library's bf16 route (its casts and triangle
+      included) and the bare bf16 GEMM on operands already cast by
+      CUDA-graph replay at 256 x 1024 and 128 x 2048;
   (af) the mean-field and chains kernels beyond one block's shared memory
       (the kWide group's device-memory layout: the d = 2,048 and the d =
       512, n = 128 diagonal Gaussians, the 512 x 199 logreg, COCOB's 14 rows
@@ -1395,8 +1397,9 @@ def walking(fn, args, step=200):
 def ab_times(dev):
     """The A/B's side of one checkout, run in a child process with that
     checkout's package: K8 at 256 x 1024 in both modes (events and graph
-    replay), K7b at 256 x 1024 and 128 x 2048 (graph replay), K7c at
-    65,536 x 256, rank 8 (graph replay), K7a at 10 x 62
+    replay), K7b at 256 x 1024 and 128 x 2048 (graph replay), the bf16
+    product at both shapes whole and over half the columns and at 10 x 62
+    (graph replay), K7c at 65,536 x 256, rank 8 (graph replay), K7a at 10 x 62
     (graph replay, behind a kernel that writes m, host time a call), each K9
     probe (graph replay, host time a call), a step of flagship ADVI through
     ``optimize`` (``optimize_step_ms``), every chunk of ``ab_chunks``, and
@@ -1429,6 +1432,18 @@ def ab_times(dev):
         loc = torch.randn(d, generator=torch.Generator().manual_seed(d)).to(dev)
         out[f"fullrank_sample_{n}x{d}_graph"] = graph_ms(
             lambda: fullrank_sample_cuda(seed_words(SEED), 1, loc, Cf, n))
+    from advancedvi_jl_tpu_torch.ops.cuda.location_scale_kernels import (
+        fullrank_bf16_cuda, fullrank_draw,
+    )
+    # the bf16 product, whole and half the columns, and at the flagship's width
+    for n, d in (FR_SHAPE, FR_WIDE_SHAPE, (N_SAMPLES, N_FEATURES + 2)):
+        _, Cf = factor(d, dev)
+        loc = torch.randn(d, generator=torch.Generator().manual_seed(d)).to(dev)
+        u = fullrank_draw(seed_words(SEED), 1, loc, n)
+        out[f"fullrank_bf16_{n}x{d}_graph"] = graph_ms(lambda: fullrank_bf16_cuda(u, loc, Cf))
+        if d > N_FEATURES + 2:
+            out[f"fullrank_bf16_{n}x{d}_half_graph"] = graph_ms(
+                lambda: fullrank_bf16_cuda(u, loc, Cf, (0, d // 2)))
     n, d, r = LR_SHAPE  # K7c by graph replay
     g = torch.Generator().manual_seed(3)
     loc, D = torch.randn(d, generator=g).to(dev), (0.5 + torch.rand(d, generator=g)).to(dev)
@@ -1502,9 +1517,10 @@ print(json.dumps(smoke.ab_times(torch.device("cuda:0"))))
 # parent's: none.  The mean-field, chains and full-rank libraries gained
 # instances (the kWide group, then the kMbWide group and the full-rank
 # kernel's tiered one, then the dense Gaussian's kMvn instances, which
-# replace K6's fused_chains_g_kernel<1, kWide>) that the parent lacks,
-# which have nothing to compare; every kernel both builds name must be the
-# parent's.
+# replace K6's fused_chains_g_kernel<1, kWide>) that the parent lacks, and
+# the bf16 product's wgmma kernels replace its mma.sync ones, so those have
+# nothing to compare; every kernel both builds name (the bf16 library's
+# float64 kernel too) must be the parent's.
 AB_CHANGED = ()
 
 
@@ -5408,7 +5424,10 @@ def ae_kernels(dev, card):
             errs["fullrank_bf16"] = max(errs["fullrank_bf16"], max_err(z, zr))
             worst_rel = max(worst_rel, rel)
     say("ae", bf16_product_shapes=len(AE_BF16_SHAPES + FR_SAMPLE_SHAPES), with_half_ranges=True,
-        worst_rel_err=worst_rel, worst_max_abs_err=errs["fullrank_bf16"], upper_triangle="nan")
+        worst_rel_err=worst_rel, worst_max_abs_err=errs["fullrank_bf16"], upper_triangle="nan",
+        route_launches=",".join(f"{k}:{v}"
+                                for k, v in lsk.fullrank_bf16_cuda.route_launches.items()))
+    ae_bf16_build()
     for n, d, c0, nc in AE_K7B_RANGES:
         C = nan_factor(d, dev)
         loc = torch.randn(d, generator=torch.Generator().manual_seed(d)).to(dev)
@@ -5435,6 +5454,13 @@ def ae_kernels(dev, card):
         _, C = factor(d, dev)
         loc = torch.randn(d, generator=torch.Generator().manual_seed(d)).to(dev)
         u = lsk.fullrank_draw(seed, 1, loc, n)
+        z = lsk.fullrank_bf16_cuda(u, loc, C)
+        z2 = lsk.fullrank_bf16_cuda(u, loc, C)
+        torch.cuda.synchronize()
+        route = lsk.bf16_route(n, d, u.data_ptr() % 16 == 0 and C.data_ptr() % 16 == 0)
+        say("ae", bf16_product=f"{n}x{d}", route=route, bitwise_two_calls=bool(torch.equal(z, z2)))
+        check(torch.equal(z, z2), f"(ae) bf16 product at {n}x{d}: two calls differ")
+        ub, Cb = u.bfloat16(), torch.tril(C).bfloat16()
         t = {"bf16_product": graph_ms(lambda: lsk.fullrank_bf16_cuda(u, loc, C)),
              "bf16_product_half": graph_ms(lambda: lsk.fullrank_bf16_cuda(u, loc, C,
                                                                            (0, d // 2))),
@@ -5449,6 +5475,9 @@ def ae_kernels(dev, card):
              # triangle and the location inside the timed graph
              "library_mm_bf16": graph_ms(lambda: torch.mm(
                  u.bfloat16(), torch.tril(C).bfloat16().T, out_dtype=torch.float32) + loc),
+             # the bare GEMM on operands already cast (twice the triangle's multiply-adds)
+             "library_mm_bf16_bare": graph_ms(lambda: torch.mm(ub, Cb.T,
+                                                                out_dtype=torch.float32)),
              "plain": cuda_ms(lambda: lsk.fullrank_bf16_reference(u, loc, C), 20)}
         # the triangle's multiply-adds at the bf16 peak; u, C's triangle and m
         # read once, z written once, as float32
@@ -5460,6 +5489,31 @@ def ae_kernels(dev, card):
         say("ae", times_graph_ms=f"{n}x{d}", card=f"'{card}'",
             **{k: f"{v:.6f}" for k, v in t.items()}, bound_by=by)
     return errs, times
+
+
+def ae_bf16_build():
+    """(ae) The bf16 product's library as built: each kernel's registers and
+    spills (none may spill), and its float32 kernels' SASS: wgmma (HGMMA)
+    and no mma.sync (HMMA)."""
+    from advancedvi_jl_tpu_torch.ops.cuda import _build
+
+    path = _build.build("fullrank_bf16")
+    for entry, text in ptxas_entries(path.with_suffix(".log").read_text()).items():
+        name = "bf16_wgmma_kernel" if "wgmma" in entry else "bf16_product_f64_kernel"
+        if "wgmma" in entry:
+            name += "<tma>" if "ILb1E" in entry else "<loads>"
+        say("ae", bf16_kernel=name, ptxas=f"'{text}'")
+        check(" 0 bytes spill stores, 0 bytes spill loads" in text, f"(ae) {name} spills: {text}")
+    wgmma = {fn: text for fn, text in sass_functions(path).items() if "bf16_wgmma_kernel" in fn}
+    check(len(wgmma) == 2, f"(ae) {len(wgmma)} float32 bf16 kernels in the SASS, want 2")
+    for fn, text in wgmma.items():
+        ops = [ins[2] for ins in sass_instructions(text)]
+        count = {op: sum(o.startswith(op) for o in ops) for op in ("HGMMA", "HMMA", "UTMALDG",
+                                                                   "UTMASTG")}
+        say("ae", bf16_sass="tma" if "ILb1E" in fn else "loads",
+            **{k.lower(): v for k, v in count.items()})
+        check(count["HGMMA"] > 0 and count["HMMA"] == 0,
+              f"(ae) bf16 float32 kernel {fn}: HGMMA {count['HGMMA']}, HMMA {count['HMMA']}")
 
 
 def ae_shares(shares, rows, rank, parts=2):

@@ -308,6 +308,100 @@ def test_bf16_product_matches_plain_version(dev, n, d):
     assert _rel(z64, fullrank_bf16_reference(u.double(), loc.double(), C.double())) <= 1e-12
 
 
+def _bf16_case(n, d, dev):
+    """u, m and C (NaN above the diagonal) of a bf16 product at (n, d)."""
+    _, _, L = normal_fullrank_wellcond(n, d, device="cpu")
+    loc = torch.randn(d, generator=torch.Generator().manual_seed(d)).to(dev)
+    C = (L + torch.triu(torch.full((d, d), float("nan")), 1)).to(dev)
+    u = torch.randn(n, d, generator=torch.Generator().manual_seed(n))
+    return u.to(dev), loc, C
+
+
+# each route of the float32 product (bf16_route): TMA where d % 4 == 0, the
+# warpgroups' own loads where it is not; the main path's shapes and a few cut
+# ones
+BF16_BITWISE_SHAPES = [(256, 1024), (128, 2048), (300, 1000), (33, 100), (33, 62), (300, 5)]
+
+
+@pytest.mark.parametrize("n,d", BF16_BITWISE_SHAPES)
+def test_bf16_product_gives_the_same_bits_on_every_call(dev, n, d):
+    """Two calls of one shape and range give bitwise equal z: a tile cut over
+    blocks adds its pieces in piece order, whichever block ends first."""
+    from advancedvi_jl_tpu_torch.ops.cuda.location_scale_kernels import fullrank_bf16_cuda
+
+    u, loc, C = _bf16_case(n, d, dev)
+    for cols in [None] + _cut_ranges(d):
+        z = fullrank_bf16_cuda(u, loc, C, cols)
+        z2 = fullrank_bf16_cuda(u, loc, C, cols)
+        torch.cuda.synchronize()
+        assert torch.isfinite(z).all() and torch.equal(z2, z), cols
+
+
+@pytest.mark.parametrize("n,d", [(256, 1024), (128, 2048), (33, 62)])
+def test_bf16_product_leaves_its_flags_at_zero(dev, n, d):
+    """The workspace's flags need no memset: a call on injected draws right
+    after a K7b launch (whose draw launch zeroes K7b's own counters, not
+    these), and two calls back to back inside one CUDA graph, replayed
+    twice, equal a fresh call bit for bit, and every flag reads zero after
+    them."""
+    from advancedvi_jl_tpu_torch.ops.cuda import location_scale_kernels as lsk
+
+    u, loc, C = _bf16_case(n, d, dev)
+    u2 = torch.randn(n, d, generator=torch.Generator().manual_seed(n + 1)).to(dev)
+    fresh = lsk.fullrank_bf16_cuda(u, loc, C)
+    fresh2 = lsk.fullrank_bf16_cuda(u2, loc, C)
+    lsk.fullrank_sample_cuda(seed_words(3), 4, loc, C, n)
+    after = lsk.fullrank_bf16_cuda(u, loc, C)
+    torch.cuda.synchronize()
+    assert torch.equal(after, fresh)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(stream):
+        lsk.fullrank_bf16_cuda(u, loc, C)  # the plan and workspace exist before the capture
+        stream.synchronize()
+        # relaxed: the wrapper sets the kernel's shared-memory attribute on every call
+        with torch.cuda.graph(graph, stream=stream, capture_error_mode="relaxed"):
+            za = lsk.fullrank_bf16_cuda(u, loc, C)
+            zb = lsk.fullrank_bf16_cuda(u2, loc, C)
+    torch.cuda.current_stream().wait_stream(stream)
+    for _ in range(2):
+        za.zero_()
+        zb.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(za, fresh) and torch.equal(zb, fresh2)
+    plan, _ = lsk._card_plan(n, d, dev, 0, d, lsk.BF16_TILE_COST)
+    _, flags = lsk._BF16_WORK[(n, d, 0, d, dev.index, plan.slots)]
+    assert int(flags.abs().sum()) == 0
+
+
+@pytest.mark.parametrize("n,d,offset,route", [(256, 1024, 0, "tma"), (300, 100, 0, "tma"),
+                                              (33, 62, 0, "loads"), (7, 33, 0, "loads"),
+                                              (33, 100, 1, "loads")])
+def test_bf16_product_routes_by_shape(dev, n, d, offset, route):
+    """The float32 product takes bf16_route's route (a u that does not start
+    on 16 bytes goes by the loads though d % 4 == 0), counted per route,
+    and either route meets the plain version within 1e-6 norm-wise."""
+    from advancedvi_jl_tpu_torch.ops.cuda.location_scale_kernels import (
+        bf16_route, fullrank_bf16_cuda, fullrank_bf16_reference,
+    )
+
+    u, loc, C = _bf16_case(n, d, dev)
+    if offset:  # the same u one float past an aligned start: contiguous, not 16-byte aligned
+        buf = torch.empty(n * d + offset, device=dev)
+        buf[offset:] = u.reshape(-1)
+        u = buf[offset:].view(n, d)
+    assert bf16_route(n, d, u.data_ptr() % 16 == 0 and C.data_ptr() % 16 == 0) == route
+    before = dict(fullrank_bf16_cuda.route_launches)
+    for cols in [None] + _cut_ranges(d):
+        z = fullrank_bf16_cuda(u, loc, C, cols)
+        zr = fullrank_bf16_reference(u, loc, C, cols)
+        torch.cuda.synchronize()
+        assert torch.isfinite(z).all() and _rel(z, zr) <= 1e-6, cols
+    assert fullrank_bf16_cuda.route_launches[route] == before[route] + 1 + len(_cut_ranges(d))
+
+
 def test_fullrank_sampler_autograd_on_the_card(dev):
     d = 62
     loc = torch.zeros(d, device=dev, requires_grad=True)
