@@ -83,11 +83,12 @@
 //   so back to back launches and CUDA-graph replays need no memset, also
 //   where no draw launch comes first (injected draws).
 // - The launch.  Programmatic Dependent Launch: the blocks start while the
-//   launch before them ends (K7b's draws, which trigger at their start, or
-//   this product's last launch), set up their barriers and ask for their
-//   first stages' C, and wait (griddepcontrol.wait) before u, z, m or the
-//   workspace; each block lets the next launch start at once, which then
-//   overlaps this one's last blocks (a cut tile's owners).
+//   launch before them ends and set up their barriers; every thread waits
+//   (griddepcontrol.wait) before it reads u, C, m, z or the workspace, since
+//   the launch before may have written any of them (K7b's draws write u; the
+//   packed layout's unpacking, or a scatter into the scale's diagonal, write
+//   C just before the product).  Each block lets the next launch start at
+//   once, which then overlaps this one's last blocks (a cut tile's owners).
 //
 // Float64 parameters (JAX accumulates in f64 there): one thread an output on
 // the CUDA cores, the bf16-rounded operands widened to double and summed in
@@ -376,8 +377,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   const uint32_t bars = smem_addr(mlocs + kLocBytes / 4);  // full[kStages], empty[kStages]
 
   // the next launch on the stream may start its blocks as SMs free up: it
-  // waits (griddepcontrol.wait) for this grid before it touches u, z or the
-  // workspace
+  // waits (griddepcontrol.wait) for this grid before it reads or writes
+  // device memory
   asm volatile("griddepcontrol.launch_dependents;\n" ::);
   const int tid = threadIdx.x;
   const int lo = plan[blockIdx.x];
@@ -400,23 +401,10 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (!kTma || (tid & 31) != 0) return;
     asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&tu)) : "memory");
     asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&tc)) : "memory");
-    // C is no output of the launch this one may overlap (K7b's draws, or
-    // this product's last launch): the first kStages stages' C is asked for
-    // before the wait, u after it
-    uint32_t unit = 0;
-    for (int s = lo; s < hi && unit < kStages; ++s) {
-      const Segment sg = segment(segs, s);
-      for (int step = sg.step0; step < sg.step1 && unit < kStages; ++step, ++unit) {
-        const uint32_t full = bars + 8 * unit;
-        asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(full),
-                     "r"(kStageBytes)
-                     : "memory");
-        tma_load(smem_addr(ring + unit * kStageBytes + 4 * kOpFloats), &tc, step * kStep,
-                 sg.col0, full);
-      }
-    }
+    // u and C may be outputs of the launch before this one (K7b's draws, a
+    // kernel that just wrote the factor): no copy before the wait
     asm volatile("griddepcontrol.wait;\n" ::: "memory");
-    unit = 0;
+    uint32_t unit = 0;
     for (int s = lo; s < hi; ++s) {
       const Segment sg = segment(segs, s);
       for (int step = sg.step0; step < sg.step1; ++step, ++unit) {
@@ -428,11 +416,11 @@ __global__ void __launch_bounds__(kThreads, 1)
           // (generic proxy) before the copies' writes
           bar_wait(bars + 8 * (kStages + st), (unit / kStages - 1) & 1);
           asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-          asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(full),
-                       "r"(kStageBytes)
-                       : "memory");
-          tma_load(dst + 4 * kOpFloats, &tc, step * kStep, sg.col0, full);
         }
+        asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(full),
+                     "r"(kStageBytes)
+                     : "memory");
+        tma_load(dst + 4 * kOpFloats, &tc, step * kStep, sg.col0, full);
         tma_load(dst, &tu, step * kStep, sg.row0, full);
       }
     }
@@ -441,7 +429,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   // the consumer warpgroups: group g takes the range's steps unit with
   // unit % 2 == g, and the epilogue of every other piece
-  asm volatile("griddepcontrol.wait;\n" ::: "memory");  // u, z and the workspace are free
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");  // u, C, m, z and the workspace are ready
   const int g = tid >> 7;   // this warpgroup
   const int t = tid & 127;  // this thread in it
   const int lane = t & 31;

@@ -269,8 +269,9 @@ class FullRankLocationScale:
 
     def _factor(self) -> torch.Tensor:
         """The factor a sampling product reads: the dense scale as stored (its
-        lower triangle read), a packed one unpacked."""
-        return self.scale if self.layout == "dense" else self.tril_scale()
+        lower triangle read), a packed one unpacked (contiguous: where d is
+        not a whole number of tiles the unpacked grid's corner is a view)."""
+        return self.scale if self.layout == "dense" else self.tril_scale().contiguous()
 
     def scale_diag_view(self) -> torch.Tensor:
         """Diagonal of the effective scale, whatever the layout."""

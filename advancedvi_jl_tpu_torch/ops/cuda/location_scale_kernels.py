@@ -473,7 +473,20 @@ def fullrank_plan(n: int, d: int, sms: int, col0: int = 0,
                         torch.tensor(words, dtype=torch.int32))
 
 
-_FR_PLANS = {}  # (n, d, col0, ncols, device index, tile cost) -> (plan, its table on the card)
+class CardPlan(NamedTuple):
+    """A plan with its table on the card; for the bf16 product also its
+    workspace: ``slots`` 64 x 64 partial sums and a flag each, the flags
+    zero when made and left so by every launch (the piece that adds a
+    tile's partial sums clears their flags), so no launch needs a memset.
+    Launches of one plan on one stream share them."""
+
+    plan: FullRankPlan
+    table: torch.Tensor
+    work: Optional[torch.Tensor]
+    flags: Optional[torch.Tensor]
+
+
+_FR_PLANS = {}  # (n, d, col0, ncols, device index, bf16) -> CardPlan
 _FR_ARGTYPES = (
     [ctypes.c_void_p] * 7
     + [ctypes.c_int] * 4 + [ctypes.c_uint32] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
@@ -481,14 +494,23 @@ _FR_ARGTYPES = (
 
 
 def _card_plan(n: int, d: int, device: torch.device, col0: int = 0, ncols: Optional[int] = None,
-               tile_cost: int = 0):
+               bf16: bool = False) -> CardPlan:
+    """K7b's plan of the product's columns [col0, col0 + ncols) on
+    ``device``, or with ``bf16`` the bf16 product's (BF16_TILE_COST) with
+    its workspace; made once a key."""
     ncols = d if ncols is None else ncols
-    key = (n, d, col0, ncols, device.index, tile_cost)
+    key = (n, d, col0, ncols, device.index, bf16)
     hit = _FR_PLANS.get(key)
     if hit is None:
         sms = torch.cuda.get_device_properties(device).multi_processor_count
-        plan = fullrank_plan(n, d, sms, col0, ncols, tile_cost)
-        hit = _FR_PLANS[key] = (plan, plan.table.to(device))
+        plan = fullrank_plan(n, d, sms, col0, ncols, BF16_TILE_COST if bf16 else 0)
+        table = plan.table.to(device)  # read by the bf16 product before its launch's wait
+        work = flags = None
+        if bf16:
+            slots = max(plan.slots, 1)
+            work = torch.empty(slots * FR_TILE * FR_TILE, dtype=torch.float32, device=device)
+            flags = torch.zeros(slots, dtype=torch.int32, device=device)
+        hit = _FR_PLANS[key] = CardPlan(plan, table, work, flags)
     return hit
 
 
@@ -520,7 +542,7 @@ def fullrank_sample_cuda(
     tiles = slots = blocks = 0
     table = work = None
     if product and ncols:
-        plan, table = _card_plan(n, d, dev, col0, ncols)
+        plan, table, _, _ = _card_plan(n, d, dev, col0, ncols)
         tiles, slots, blocks = plan.tiles, plan.slots, plan.blocks
         # the partial sums, then one int32 counter a tile
         work = torch.empty(slots * FR_TILE * FR_TILE + tiles, dtype=torch.float32, device=dev)
@@ -652,22 +674,6 @@ def bf16_route(n: int, d: int, aligned: bool) -> Optional[str]:
     return "tma" if d % 4 == 0 and aligned else "loads"
 
 
-_BF16_WORK = {}  # (n, d, col0, ncols, device index, slots) -> the plan's workspace and flags
-
-
-def _bf16_work(key, slots: int, device: torch.device):
-    """The bf16 product's workspace for one plan: ``slots`` 64 x 64 partial
-    sums and a flag each, the flags zero when made; every launch leaves them
-    so (the piece that adds a tile's partial sums clears their flags), so no
-    launch needs a memset.  Launches of one plan on one stream share them."""
-    hit = _BF16_WORK.get(key)
-    if hit is None:
-        hit = _BF16_WORK[key] = (
-            torch.empty(max(slots, 1) * FR_TILE * FR_TILE, dtype=torch.float32, device=device),
-            torch.zeros(max(slots, 1), dtype=torch.int32, device=device))
-    return hit
-
-
 def fullrank_bf16_cuda(u: torch.Tensor, location: torch.Tensor, scale: torch.Tensor,
                        cols=None) -> torch.Tensor:
     """Launch csrc/fullrank_bf16.cu on the current stream: z (n, ncols), the
@@ -705,8 +711,7 @@ def fullrank_bf16_cuda(u: torch.Tensor, location: torch.Tensor, scale: torch.Ten
         return z
     fn = _build.function("fullrank_bf16", "fullrank_bf16", _BF16_ARGTYPES)
     route = bf16_route(n, d, u.data_ptr() % 16 == 0 and scale.data_ptr() % 16 == 0)
-    plan, table = _card_plan(n, d, dev, col0, ncols, BF16_TILE_COST)
-    work, flags = _bf16_work((n, d, col0, ncols, dev.index, plan.slots), plan.slots, dev)
+    plan, table, work, flags = _card_plan(n, d, dev, col0, ncols, bf16=True)
     err = _build.launch(fn, dev, u.data_ptr(), scale.data_ptr(), location.data_ptr(),
                         z.data_ptr(), work.data_ptr(), flags.data_ptr(), table.data_ptr(),
                         plan.blocks, n, d, col0, ncols, int(route == "tma"))

@@ -4,6 +4,8 @@
 Run from the root of a checkout, on a machine with a CUDA card:
 
     python3 chip_smoke.py [--parent OTHER_CHECKOUT]
+    python3 chip_smoke.py --ab OTHER_CHECKOUT
+    python3 chip_smoke.py --bf16-tile-cost
 
 It builds the port's CUDA kernels from advancedvi_jl_tpu_torch/csrc with
 nvcc, holds each kernel against its plain PyTorch version on the card, and
@@ -232,7 +234,12 @@ its flagship and minibatch chunks (the other checkout needs the
 redesign has), and compares the SASS of every kernel both builds have: each
 library but those this tree edits (``AB_CHANGED``) must be the parent's.
 The other checkout is copied under this one's ``build/ab_parent`` and timed
-there, never built or written in place.
+there, never built or written in place.  ``--ab CHECKOUT`` runs that A/B
+alone, without the smoke's phases: once as above and once without the bf16
+product's rows (to tell an effect of its launches on the rows after them
+from the host's noise).  ``--bf16-tile-cost`` times the bf16 product by
+graph replay at ``BF16_SWEEP_SHAPES`` with its plan's tile cost at
+``BF16_TILE_COST`` and at 0 (K7b's plan), in the order cost, 0, 0, cost.
 
 Every failed check raises and the script exits non-zero; it also exits
 non-zero without a CUDA device, or when the package is not beside it.  The
@@ -1394,12 +1401,18 @@ def walking(fn, args, step=200):
     return call
 
 
-def ab_times(dev):
+# the bf16 product's shapes beyond (ae)'s in the A/B and the tile-cost sweep,
+# timed whole: the flagship's 10 x 62 (the loads route), a small TMA shape,
+# and the flagship's d under 256 draws
+BF16_SMALL_SHAPES = [(N_SAMPLES, N_FEATURES + 2), (33, 100), (256, N_FEATURES + 2)]
+
+
+def ab_times(dev, bf16=True):
     """The A/B's side of one checkout, run in a child process with that
     checkout's package: K8 at 256 x 1024 in both modes (events and graph
     replay), K7b at 256 x 1024 and 128 x 2048 (graph replay), the bf16
-    product at both shapes whole and over half the columns and at 10 x 62
-    (graph replay), K7c at 65,536 x 256, rank 8 (graph replay), K7a at 10 x 62
+    product (unless ``bf16`` is false) at both shapes whole and over half
+    the columns and at ``BF16_SMALL_SHAPES`` (graph replay), K7c at 65,536 x 256, rank 8 (graph replay), K7a at 10 x 62
     (graph replay, behind a kernel that writes m, host time a call), each K9
     probe (graph replay, host time a call), a step of flagship ADVI through
     ``optimize`` (``optimize_step_ms``), every chunk of ``ab_chunks``, and
@@ -1435,13 +1448,13 @@ def ab_times(dev):
     from advancedvi_jl_tpu_torch.ops.cuda.location_scale_kernels import (
         fullrank_bf16_cuda, fullrank_draw,
     )
-    # the bf16 product, whole and half the columns, and at the flagship's width
-    for n, d in (FR_SHAPE, FR_WIDE_SHAPE, (N_SAMPLES, N_FEATURES + 2)):
+    # the bf16 product, whole and half the columns, and at small shapes
+    for n, d in (FR_SHAPE, FR_WIDE_SHAPE, *BF16_SMALL_SHAPES) if bf16 else ():
         _, Cf = factor(d, dev)
         loc = torch.randn(d, generator=torch.Generator().manual_seed(d)).to(dev)
         u = fullrank_draw(seed_words(SEED), 1, loc, n)
         out[f"fullrank_bf16_{n}x{d}_graph"] = graph_ms(lambda: fullrank_bf16_cuda(u, loc, Cf))
-        if d > N_FEATURES + 2:
+        if (n, d) not in BF16_SMALL_SHAPES:
             out[f"fullrank_bf16_{n}x{d}_half_graph"] = graph_ms(
                 lambda: fullrank_bf16_cuda(u, loc, Cf, (0, d // 2)))
     n, d, r = LR_SHAPE  # K7c by graph replay
@@ -1509,7 +1522,7 @@ spec = importlib.util.spec_from_file_location("chip_smoke", sys.argv[1])
 smoke = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(smoke)
 torch.backends.cuda.matmul.allow_tf32 = False
-print(json.dumps(smoke.ab_times(torch.device("cuda:0"))))
+print(json.dumps(smoke.ab_times(torch.device("cuda:0"), bf16=sys.argv[2] == "1")))
 """
 
 
@@ -1524,15 +1537,17 @@ print(json.dumps(smoke.ab_times(torch.device("cuda:0"))))
 AB_CHANGED = ()
 
 
-def ab_parent(parent: Path):
-    """The A/B: ``ab_times`` with the parent checkout's package and with
-    this one's, a fresh process each, in the order parent, this, this,
-    parent (each builds its kernels under its own build/kernels); the
-    parent's side runs in ``parent_copy``'s copy of it."""
+def ab_parent(parent: Path, bf16: bool = True):
+    """The A/B: ``ab_times`` (``bf16``: with the bf16 product's rows) with
+    the parent checkout's package and with this one's, a fresh process
+    each, in the order parent, this, this, parent (each builds its kernels
+    under its own build/kernels); the parent's side runs in
+    ``parent_copy``'s copy of it."""
     parent = parent_copy(parent)
     runs = {"parent": [], "this": []}
     for tag, path in (("parent", parent), ("this", ROOT), ("this", ROOT), ("parent", parent)):
-        proc = subprocess.run([sys.executable, "-c", AB_CHILD, str(ROOT / "chip_smoke.py")],
+        proc = subprocess.run([sys.executable, "-c", AB_CHILD, str(ROOT / "chip_smoke.py"),
+                               str(int(bf16))],
                               cwd=path, capture_output=True, text=True, timeout=900)
         check(proc.returncode == 0, f"A/B in {path}: {proc.stderr[-2000:]}")
         runs[tag].append(json.loads(proc.stdout.strip().splitlines()[-1]))
@@ -1551,7 +1566,7 @@ def ab_parent(parent: Path):
         if key.startswith("ptxas"):
             say("parent", lib=key, parent=f"'{runs['parent'][0][key]}'", this=f"'{runs['this'][0][key]}'")
             continue
-        say("parent", chunk=key, parent_ms=",".join(f"{r[key]:.7g}" for r in runs["parent"]),
+        say("parent", bf16_rows=bf16, chunk=key, parent_ms=",".join(f"{r[key]:.7g}" for r in runs["parent"]),
             this_ms=",".join(f"{r[key]:.7g}" for r in runs["this"]))
     check(not differ, f"SASS of kernels this change does not edit differs: {differ}")
 
@@ -6610,9 +6625,52 @@ def phase_ag(dev, card, cfgs=None, edges=None):
     return counts, errs, times
 
 
+BF16_SWEEP_SHAPES = [FR_SHAPE, FR_WIDE_SHAPE] + BF16_SMALL_SHAPES
+
+
+def bf16_tile_cost_sweep(dev, card):
+    """``--bf16-tile-cost``: the bf16 product by graph replay at each of
+    BF16_SWEEP_SHAPES (the first two also over their first d // 2 columns)
+    with the plan's tile cost at BF16_TILE_COST and at 0, in the order
+    cost, 0, 0, cost, each plan made anew."""
+    from advancedvi_jl_tpu_torch.ops.cuda import location_scale_kernels as lsk
+
+    cost = lsk.BF16_TILE_COST
+    times = {}
+    try:
+        for tc in (cost, 0, 0, cost):
+            lsk.BF16_TILE_COST = tc
+            lsk._FR_PLANS.clear()
+            for n, d in BF16_SWEEP_SHAPES:
+                _, C = factor(d, dev)
+                loc = torch.randn(d, generator=torch.Generator().manual_seed(d)).to(dev)
+                u = lsk.fullrank_draw(lsk.seed_words(SEED), 1, loc, n)
+                ranges = [None] + ([(0, d // 2)] if (n, d) not in BF16_SMALL_SHAPES else [])
+                for cols in ranges:
+                    key = f"{n}x{d}" + ("" if cols is None else "_half")
+                    times.setdefault((key, tc), []).append(
+                        graph_ms(lambda: lsk.fullrank_bf16_cuda(u, loc, C, cols)))
+    finally:
+        lsk.BF16_TILE_COST = cost
+        lsk._FR_PLANS.clear()
+    for (key, tc), ms in times.items():
+        say("bf16", card=f"'{card}'", shape=key, tile_cost=tc,
+            graph_ms=",".join(f"{t:.7g}" for t in ms))
+
+
 def main() -> int:
     parent = None  # --parent DIR: the A/B of the chunks against that checkout
     argv = sys.argv[1:]
+    if argv[:1] == ["--ab"] and len(argv) == 2:  # the A/B alone, with and without bf16 rows
+        phase_a()
+        torch.backends.cuda.matmul.allow_tf32 = False
+        for bf16 in (True, False):
+            ab_parent(Path(argv[1]).resolve(), bf16)
+        return 0
+    if argv == ["--bf16-tile-cost"]:
+        card = phase_a()
+        bf16_tile_cost_sweep(torch.device("cuda:0"), card)
+        return 0
     if argv[:1] == ["--mesh-rank"] and len(argv) == 4:  # one of (ad)'s two ranks
         return mesh_rank(int(argv[1]), int(argv[2]), Path(argv[3]))
     if argv[:1] == ["--family-rank"] and len(argv) == 4:  # one of (ae)'s two ranks
@@ -6622,7 +6680,8 @@ def main() -> int:
         if not (parent / "advancedvi_jl_tpu_torch" / "__init__.py").is_file():
             fail(f"--parent {parent}: no advancedvi_jl_tpu_torch/ there")
     elif argv:
-        fail(f"usage: python3 chip_smoke.py [--parent CHECKOUT], got {sys.argv[1:]}")
+        fail("usage: python3 chip_smoke.py [--parent CHECKOUT | --ab CHECKOUT | "
+             f"--bf16-tile-cost], got {sys.argv[1:]}")
     seconds = {}  # wall seconds of each phase, printed before the kernels line
     last = [time.perf_counter()]
 

@@ -176,3 +176,18 @@ def test_kernel_order_of_sums_matches_plain_version_and_jax(n, d, cols):
     for ref in (want.numpy(), jax_z):
         err = np.linalg.norm(got.numpy().astype(np.float64) - ref) / np.linalg.norm(ref)
         assert err <= 1e-6
+
+
+@pytest.mark.parametrize("d", [5, 62, 100, 128])
+def test_packed_factor_is_contiguous_for_the_kernels(d):
+    """The sampling kernels read the factor through a raw pointer (their
+    wrappers refuse a view): the packed layout's unpacked factor is
+    contiguous also where d is not a whole number of tiles, and equals the
+    dense layout's."""
+    import advancedvi_jl_tpu_torch as avt
+
+    L = torch.tril(torch.randn(d, d, generator=torch.Generator().manual_seed(d)))
+    loc = torch.zeros(d)
+    fp = avt.FullRankGaussian(loc, L, compute_dtype="bfloat16", layout="packed")._factor()
+    fd = avt.FullRankGaussian(loc, L, compute_dtype="bfloat16")._factor()
+    assert fp.is_contiguous() and torch.equal(fp, fd)

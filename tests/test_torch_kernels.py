@@ -371,9 +371,40 @@ def test_bf16_product_leaves_its_flags_at_zero(dev, n, d):
         graph.replay()
         torch.cuda.synchronize()
         assert torch.equal(za, fresh) and torch.equal(zb, fresh2)
-    plan, _ = lsk._card_plan(n, d, dev, 0, d, lsk.BF16_TILE_COST)
-    _, flags = lsk._BF16_WORK[(n, d, 0, d, dev.index, plan.slots)]
-    assert int(flags.abs().sum()) == 0
+    assert int(lsk._card_plan(n, d, dev, bf16=True).flags.abs().sum()) == 0
+
+
+@pytest.mark.parametrize("n,d", [(256, 1024), (128, 2048), (33, 100), (33, 62)])
+def test_bf16_product_reads_the_factor_the_launch_before_wrote(dev, n, d):
+    """The product starts while the launch before it ends (Programmatic
+    Dependent Launch) but reads C only after it: behind a copy that writes
+    C over NaN, behind the packed layout's unpacking of C (the family's
+    sample: draws, unpacking, product) and behind a scatter into the
+    scale's diagonal (``from_base`` after ``with_scale_diag``), z equals
+    the product of a C written long before, bit for bit."""
+    import advancedvi_jl_tpu_torch as avt
+    from advancedvi_jl_tpu_torch.ops.cuda.location_scale_kernels import fullrank_bf16_cuda
+
+    u, loc, C = _bf16_case(n, d, dev)
+    L = torch.tril(C)
+    want = fullrank_bf16_cuda(u, loc, L)
+    written = torch.full((d, d), float("nan"), device=dev)
+    written.copy_(L)
+    z = fullrank_bf16_cuda(u, loc, written)
+    torch.cuda.synchronize()
+    assert torch.equal(z, want)
+    qd = avt.FullRankGaussian(loc, L, compute_dtype="bfloat16")
+    qp = avt.FullRankGaussian(loc, L, compute_dtype="bfloat16", layout="packed")
+    zd, ud = qd.sample_with_base(7, n)
+    zp, up = qp.sample_with_base(7, n)
+    torch.cuda.synchronize()
+    assert torch.equal(up, ud) and torch.equal(zp, zd) and torch.isfinite(zp).all()
+    diag = 0.5 + torch.rand(d, generator=torch.Generator().manual_seed(d)).to(dev)
+    want = fullrank_bf16_cuda(u, loc, torch.diagonal_scatter(L, diag))
+    torch.cuda.synchronize()
+    zs = qd.with_scale_diag(diag).from_base(u)
+    torch.cuda.synchronize()
+    assert torch.equal(zs, want)
 
 
 @pytest.mark.parametrize("n,d,offset,route", [(256, 1024, 0, "tma"), (300, 100, 0, "tma"),
