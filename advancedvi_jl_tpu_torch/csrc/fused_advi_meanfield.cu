@@ -98,8 +98,12 @@
 // SMs is later work.
 //
 // The body of the kernel is csrc/fused_meanfield_body.cuh, which the chains
-// kernel (csrc/fused_chains.cu, K6) instantiates too.
-#include "fused_meanfield_body.cuh"
+// kernel (csrc/fused_chains.cu, K6) instantiates too.  The diagonal Gaussian
+// (model 2) runs none of the phases above: its kGauss instance,
+// fused_advi_meanfield_gauss_kernel (csrc/fused_gauss_body.cuh), draws,
+// forms the gradient and applies the rule column by column in one pass a
+// step, with no u, z or g arrays and no workspace at any width.
+#include "fused_gauss_body.cuh"
 
 namespace {
 
@@ -128,10 +132,9 @@ auto kernel_for(bool flagship_branch) {
   return flagship_branch ? fused_advi_meanfield_kernel<false, kGroup> : fused_advi_meanfield_kernel<true, kGroup>;
 }
 
-// The kWide group (any dense model whose layout does not fit one block:
-// fused_meanfield_body.cuh wide_layout; built with AVI_AD_BODY, K5's body
-// that does not fit; its dense-Gaussian branch no launch takes, kMvn having
-// that model), every branch by runtime codes,
+// The kWide group (logreg and K5's body where the layout does not fit one
+// block: fused_meanfield_body.cuh wide_layout; the Gaussians have their
+// kMvn and kGauss instances), every branch by runtime codes,
 // with its device workspace `ws` (wide_layout's floats, or null when its
 // tier keeps none).  Its own kernel, so the instances above keep their
 // signatures and their code.
@@ -177,6 +180,18 @@ __global__ void __launch_bounds__(kThreads, 1) fused_advi_meanfield_mb_wide_kern
                                              state_in, state_out, elbo_out, trace, noise, n, d,
                                              n_rows, steps, log_every, k0, k1, it0, h, br, ws);
 }
+
+// The kGauss group: the diagonal Gaussian alone (csrc/fused_gauss_body.cuh,
+// one column-fused pass a step; every branch by runtime codes), one chain.
+__global__ void __launch_bounds__(kThreads, 1) fused_advi_meanfield_gauss_kernel(
+    const float* __restrict__ c0, const float* __restrict__ c1, float s0,
+    const float* __restrict__ state_in, float* __restrict__ state_out,
+    float* __restrict__ elbo_out, float* __restrict__ trace, const float* __restrict__ noise,
+    int n, int d, int n_rows, int steps, int log_every, uint32_t k0, uint32_t k1,
+    unsigned long long it0, avi::Hyper h, avi::Branch br) {
+  avi::gauss::run_chunk(c0, c1, s0, state_in, state_out, elbo_out, trace, noise, 1, 1, n, d,
+                        n_rows, steps, log_every, nullptr, k0, k1, it0, nullptr, nullptr, h, br);
+}
 #endif
 
 }  // namespace
@@ -186,6 +201,7 @@ __global__ void __launch_bounds__(kThreads, 1) fused_advi_meanfield_mb_wide_kern
 // takes the kWide group's layout, fused_advi_meanfield_layout.
 extern "C" size_t fused_advi_meanfield_smem_bytes(int model, int n_data, int db, int batch,
                                                   int n, int d, int n_rows) {
+  if (model == avi::kGaussian) return avi::gauss::smem_bytes(n, d, n_rows, 1);
   return sizeof(float) *
          static_cast<size_t>(make_layout(model, n_data, db, batch, n, d, n_rows).total);
 }
@@ -259,6 +275,17 @@ extern "C" int fused_advi_meanfield(
   const avi::Hyper h{lr, b1, b2, eps, avg_eta, clip_eps};
   const avi::Branch br{algo, entropy, grad_est, op, cocob_alpha};
   const int group = static_cast<int>(lay[0]);
+#ifndef AVI_AD_BODY
+  if (group == avi::mf::kGauss) {
+    const auto gk = fused_advi_meanfield_gauss_kernel;
+    cudaError_t err = cudaFuncSetAttribute(gk, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    gk<<<1, kThreads, smem, stream>>>(c0, c1, s0, state_in, state_out, elbo_out, trace, noise, n,
+                                      d, n_rows, steps, log_every, seed0, seed1, it0, h, br);
+    return static_cast<int>(cudaGetLastError());
+  }
+#endif
 #ifdef AVI_AD_BODY  // the dense and kWide instances only: the body runs alone
   if (group != avi::mf::kDense && (group != avi::mf::kWide || avi::ad::kStage > 0))
     return static_cast<int>(cudaErrorInvalidValue);

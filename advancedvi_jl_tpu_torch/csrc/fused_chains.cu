@@ -66,14 +66,18 @@
 // layout fits, its P staged once for the block where it fits beside them
 // and else streamed through the product's ring (chains_mvn_stream); its
 // product keeps each output's k order whatever the rows, so the promise
-// holds (csrc/mvnormal_product.cuh).
+// holds (csrc/mvnormal_product.cuh).  The diagonal Gaussian runs its own
+// kGauss body (csrc/fused_gauss_body.cuh; fused_chains_gauss_kernel one chain
+// a block, fused_chains_g_kernel<1, kGauss> G chains at any d): one
+// column-fused pass a step with no (n, d) arrays, every sum of a chain in an
+// order of (n, d) alone, so the promise holds there too.
 //
 // Layouts: state (C, n_rows, d), chain c's rows as the single-chain kernel's;
 // elbo (C,); trace (C, steps / log_every), chain-major, so each chain's ELBO
 // thread writes its own row (the wrapper hands out the (steps / log_every,
 // C) view); noise (C, steps, n, d); seeds (C, 2); lrs (C,) or null; rules
 // (C,) or null.
-#include "fused_meanfield_body.cuh"
+#include "fused_gauss_body.cuh"
 
 namespace {
 
@@ -178,6 +182,19 @@ __global__ void __launch_bounds__(kThreads, 1) fused_chains_mb_wide_kernel(
   run_chain_on_workspace<avi::mf::kMbWide>(
       model, c0, c1, n_data, db, batch, s0, s1, state_in, state_out, elbo_out, trace, noise, n,
       d, n_rows, steps, log_every, seeds, it0, lrs, rules, h, br, ws, ws_floats);
+}
+
+// The kGauss group (csrc/fused_gauss_body.cuh), one chain a block: the
+// single-chain kernel's body keyed by chain c's words, with its lr and rule.
+__global__ void __launch_bounds__(kThreads, 1) fused_chains_gauss_kernel(
+    const float* __restrict__ c0, const float* __restrict__ c1, float s0,
+    const float* __restrict__ state_in, float* __restrict__ state_out,
+    float* __restrict__ elbo_out, float* __restrict__ trace, const float* __restrict__ noise,
+    int n_chains, int n, int d, int n_rows, int steps, int log_every,
+    const uint32_t* __restrict__ seeds, unsigned long long it0, const float* __restrict__ lrs,
+    const int* __restrict__ rules, avi::Hyper h, avi::Branch br) {
+  avi::gauss::run_chunk(c0, c1, s0, state_in, state_out, elbo_out, trace, noise, n_chains, 1, n,
+                        d, n_rows, steps, log_every, seeds, 0u, 0u, it0, lrs, rules, h, br);
 }
 #endif
 
@@ -627,6 +644,25 @@ __global__ void __launch_bounds__(kThreads, 1) fused_chains_g_kernel(
   if (kGroup == avi::mf::kMvn) avi::mvn::drain(S, smem, fill, tid);
 }
 
+#ifndef AVI_AD_BODY
+// G chains of the kGauss group a block (csrc/fused_gauss_body.cuh): each
+// chain's sums in the single-chain order, whatever G, so chain c equals the
+// single-chain kernel keyed by its words, bit for bit.  Its own body, not
+// the one above: no u, z or g arrays, no model's data to share.
+template <>
+__global__ void __launch_bounds__(kThreads, 1) fused_chains_g_kernel<true, avi::mf::kGauss>(
+    int model, const float* __restrict__ c0, const float* __restrict__ c1, int n_data,
+    int db, int batch, float s0, float s1, const float* __restrict__ state_in,
+    float* __restrict__ state_out, float* __restrict__ elbo_out, float* __restrict__ trace,
+    const float* __restrict__ noise, int n_chains, int G, int n, int d, int n_rows, int steps,
+    int log_every, const uint32_t* __restrict__ seeds, unsigned long long it0,
+    const float* __restrict__ lrs, const int* __restrict__ rules, avi::Hyper h,
+    avi::Branch br) {
+  avi::gauss::run_chunk(c0, c1, s0, state_in, state_out, elbo_out, trace, noise, n_chains, G, n,
+                        d, n_rows, steps, log_every, seeds, 0u, 0u, it0, lrs, rules, h, br);
+}
+#endif
+
 template <int kGroup>
 auto g_kernel_for(bool flagship_branch) {
   return flagship_branch ? fused_chains_g_kernel<false, kGroup>
@@ -638,9 +674,11 @@ auto g_kernel_for(bool flagship_branch) {
 // The dynamic shared memory of a block of G chains (chains_per_block): at
 // G = 1 the single-chain kernel's layout with every array in shared memory
 // (fused_advi_meanfield_smem_bytes), else ChainsLayout's (the dense
-// Gaussian's with its product's arrays after it, chains_mvn_stream).
+// Gaussian's with its product's arrays after it, chains_mvn_stream); the
+// diagonal Gaussian's at any G its kGauss layout (gauss::layout_for).
 extern "C" size_t fused_chains_smem_bytes(int model, int n_data, int db, int batch, int n,
                                           int d, int n_rows, int chains_per_block) {
+  if (model == avi::kGaussian) return avi::gauss::smem_bytes(n, d, n_rows, chains_per_block);
   if (chains_per_block == 1)
     return sizeof(float) *
            static_cast<size_t>(make_layout(model, n_data, db, batch, n, d, n_rows).total);
@@ -685,7 +723,8 @@ extern "C" int fused_chains_phase_cycles(unsigned long long* out) {
 // The models, their constants and the state rows of each chain are those of
 // fused_advi_meanfield (see there).  ceil(n_chains / chains_per_block)
 // blocks of chains_per_block chains (1 <= G <= kMaxChains; G > 1 needs
-// d <= 512 and a library without a generated body); n_rows is 8, or 14
+// d <= 512, but on the diagonal Gaussian's kGauss group, and a library
+// without a generated body); n_rows is 8, or 14
 // when any chain runs COCOB (the other chains carry the six ext rows
 // through).  algo: the launch's rule code, ignored when rules is not null
 // (a mixed sweep; the caller checks d >= 2 for its DoWG and DoG chains).
@@ -707,7 +746,8 @@ extern "C" int fused_chains(
   known = model == avi::kAD && n == avi::ad::kN && d == avi::ad::kD && G == 1;
 #endif
   if (!known || (dist_rule && d < 2) ||
-      n_chains < 1 || G < 1 || G > kMaxChains || (G > 1 && d > kThreads) ||
+      n_chains < 1 || G < 1 || G > kMaxChains ||
+      (G > 1 && d > kThreads && model != avi::kGaussian) ||
       (n_rows != 8 && n_rows != 14) ||
       (rules == nullptr && algo == avi::kCOCOB && n_rows != 14) ||
       (grad_est == avi::kScoreGrad && n < 2) || (log_every > 0 && steps % log_every != 0) ||
@@ -729,6 +769,26 @@ extern "C" int fused_chains(
     return static_cast<int>(cudaErrorInvalidValue);
   const auto wide = fused_chains_wide_kernel;
 #else
+  if (group == avi::mf::kGauss) {  // G chains a block of its own layout, any d
+    if (G == 1) {
+      cudaError_t err = cudaFuncSetAttribute(
+          fused_chains_gauss_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(smem));
+      if (err != cudaSuccess) return static_cast<int>(err);
+      fused_chains_gauss_kernel<<<n_chains, kThreads, smem, stream>>>(
+          c0, c1, s0, state_in, state_out, elbo_out, trace, noise, n_chains, n, d, n_rows, steps,
+          log_every, seeds, it0, lrs, rules, h, br);
+    } else {
+      const auto gk = fused_chains_g_kernel<true, avi::mf::kGauss>;
+      cudaError_t err = cudaFuncSetAttribute(gk, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                             static_cast<int>(smem));
+      if (err != cudaSuccess) return static_cast<int>(err);
+      gk<<<(n_chains + G - 1) / G, kThreads, smem, stream>>>(
+          model, c0, c1, n_data, db, batch, s0, s1, state_in, state_out, elbo_out, trace, noise,
+          n_chains, G, n, d, n_rows, steps, log_every, seeds, it0, lrs, rules, h, br);
+    }
+    return static_cast<int>(cudaGetLastError());
+  }
   const auto wide = group == avi::mf::kWide  ? fused_chains_wide_kernel
                     : group == avi::mf::kMvn ? fused_chains_mvn_kernel
                                              : fused_chains_mb_wide_kernel;

@@ -12,7 +12,8 @@
 // the minibatch logreg body _logreg_mb_math (fused_advi.py:925-984) with
 // its three slab transports (_logreg_mb_step_factory :987,
 // _logreg_mb_hbm_step_factory :997, _logreg_mb_hbm_db_step_factory :1029),
-// the diagonal-Gaussian body _gaussian_step_factory, the rules
+// the diagonal-Gaussian body _gaussian_step_factory (the full-rank
+// kernels'; the mean-field and chains kernels' is fused_gauss_body.cuh), the rules
 // _adam_candidate, _dowg_step, _dog_step and _cocob_update (fused_advi.py:
 // 242-281), and, in the mean-field and chains kernels, the dense-Gaussian
 // body _mvnormal_step_factory (mvnormal_stream_body on csrc/
@@ -177,9 +178,13 @@ __device__ __forceinline__ float scale_operator(int op, float s, float eta, cons
   return s;
 }
 
-// K4's diagonal-Gaussian body (_gaussian_step_factory), one warp per sample
-// row: log pi = -sum_j (z - m)^2 v / 2 + lognorm and, when g is not null,
-// grad = -(z - m) v.  mean and iv (the inverse variances) are (d,) arrays.
+// K4's diagonal-Gaussian body (_gaussian_step_factory) in the full-rank
+// kernels, one warp per sample row: log pi = -sum_j (z - m)^2 v / 2 +
+// lognorm and, when g is not null, grad = -(z - m) v.  mean and iv (the
+// inverse variances) are (d,) arrays.  The mean-field and chains kernels run
+// the diagonal Gaussian on their kGauss group instead (csrc/fused_gauss_body.cuh:
+// one column-fused pass a step); their kDense instances keep this call
+// compiled, though no launch takes it there, so that their code is as before.
 __device__ __forceinline__ void gaussian_body(const float* __restrict__ mean,
                                               const float* __restrict__ iv, float lognorm,
                                               const float* z, int n, int d, float* logpi,
@@ -193,38 +198,6 @@ __device__ __forceinline__ void gaussian_body(const float* __restrict__ mean,
     }
     q = warp_sum(q);
     if (lane == 0) logpi[i] = -0.5f * q + lognorm;
-  }
-}
-
-// K4's former dense-Gaussian body (_mvnormal_step_factory), compiled only
-// into the kWide instances' branch for model kMvNormal, which no launch takes
-// since the dense Gaussian has its own instances (mvnormal_stream_body, the
-// kMvn group): kept so that kWide's code for its other models stays the
-// same.  diff = z - m in place of the samples z (no later phase of
-// those kernels reads z on this model), grad = -diff P by block_mm (10 rows
-// x 1 column a thread, k over 8 lanes: the logreg gradient's tile; P is
-// (d, d) row-major, in shared memory where the host
-// staged it, else in device memory; no float4 loads, so z and P need no
-// alignment), then one warp a row: log pi = sum_j diff grad / 2 + lognorm.
-// z and g may lie in shared or device memory.  Every thread of the block
-// calls it; two barriers inside, the caller puts one after.  What bounds it
-// on an H100: the product's n d^2 multiply-adds from shared memory (d = 62)
-// or P's d^2 floats from L2 each step (d = 512: 1 MB, L2-resident).
-template <int kThreads>
-__device__ __forceinline__ void mvnormal_body(const float* __restrict__ mean, const float* P,
-                                              float lognorm, float* z, int n, int d,
-                                              float* logpi, float* g, int tid, int warp,
-                                              int warps, int lane) {
-  for (int idx = tid; idx < n * d; idx += kThreads) z[idx] = __fsub_rn(z[idx], mean[idx % d]);
-  __syncthreads();
-  block_mm<kThreads, 10, 1, 8, false, false>(
-      n, d, d, z, d, 1, P, d, 1, tid, [=](int i, int j, float v) { g[i * d + j] = -v; });
-  __syncthreads();
-  for (int i = warp; i < n; i += warps) {
-    float q = 0.0f;
-    for (int j = lane; j < d; j += 32) q += z[i * d + j] * g[i * d + j];
-    q = warp_sum(q);
-    if (lane == 0) logpi[i] = 0.5f * q + lognorm;
   }
 }
 

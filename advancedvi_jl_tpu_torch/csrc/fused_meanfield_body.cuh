@@ -13,7 +13,8 @@
 // A launch of the kWide or kMbWide group (wide_layout, mb_layout below)
 // keeps only the state rows, the row sums and the block reduction in shared
 // memory where the rest does not fit, and reads the others through `ws`, its
-// block's device workspace.
+// block's device workspace.  The diagonal Gaussian runs none of this: its
+// kGauss group is csrc/fused_gauss_body.cuh, one column-fused pass a step.
 // Built with AVI_AD_BODY, the model phase also takes K5's generated body
 // (model kAD, c0 and c1 its packed float and int constants in device memory,
 // its scratch after the layout's other arrays, then its float constants
@@ -121,27 +122,29 @@ __host__ __device__ inline Layout layout_for(int model, int n_data, int db, int 
 }
 
 // The model groups a kernel is instantiated for (kGroup): the dense data
-// models (logreg with the aligned layout, the diagonal Gaussian), logreg
-// with the plain layout (no zb, no padding: a design whose aligned layout
-// would not fit one block, as every design that fitted before block_mm
-// still fits), the minibatch logreg's three transports, or kWide: every
-// dense model whose plain layout does not fit one block, on wide_layout (its
-// dense-Gaussian branch, and wide_layout's tier 0, stay compiled so that its
-// code is as before, though kMvn now takes that model); or kMbWide: the
-// minibatch logreg whose
-// layout does not fit one block, on mb_layout.  Each instance compiles its
-// group's bodies alone, so ptxas allocates its registers for them alone; a
-// library built with a generated body runs that body alone (its C entry
-// takes no other model).  kMvn: the dense Gaussian (mvnormal) alone, on
-// mvn_layout; its own instances, so that kWide's keep their code.
-enum ModelGroup { kDense = 0, kMinibatch = 1, kDensePlain = 2, kWide = 3, kMbWide = 4, kMvn = 5 };
+// models (logreg with the aligned layout; the diagonal Gaussian's body stays
+// compiled in, though kGauss now takes that model, so that their code is as
+// before), logreg with the plain layout (no zb, no padding: a design whose
+// aligned layout would not fit one block, as every design that fitted
+// before block_mm still fits), the minibatch logreg's three transports, or
+// kWide: logreg and K5's body where the plain layout does not fit one
+// block, on wide_layout; or kMbWide: the minibatch logreg whose layout does
+// not fit one block, on mb_layout.  Each instance compiles its group's
+// bodies alone, so ptxas allocates its registers for them alone; a library
+// built with a generated body runs that body alone (its C entry takes no
+// other model).  kMvn: the dense Gaussian (mvnormal) alone, on mvn_layout;
+// its own instances, so that kWide's keep their code.  kGauss: the
+// diagonal Gaussian alone (csrc/fused_gauss_body.cuh: no u, z or g arrays,
+// so it needs no tiers and no workspace at any width).
+enum ModelGroup {
+  kDense = 0, kMinibatch = 1, kDensePlain = 2, kWide = 3, kMbWide = 4, kMvn = 5, kGauss = 6
+};
 
 // The layout of a kWide launch.  The state rows, the step's gradient, the
 // row sums and the block reduction stay in shared memory (layout_for's);
 // what does not fit beside them leaves shared memory in this order, the
-// tier: 0 nothing (mvnormal only: P staged in shared memory); 1 the model's
-// data, read where it lies in device memory (logreg's X and y, mvnormal's
-// P; the Gaussian's constants are always read there); 2 also the logits,
+// tier: 1 the model's data, read where it lies in device memory (logreg's X
+// and y; kMvn's mvn_layout reads mvnormal's P there); 2 also the logits,
 // into the launch's device workspace; 3 also u, z and g.  Logreg takes the
 // plain layout's strides (ldl = n_data, no zb), so every sum runs in the
 // kDensePlain order.  K5's body (AVI_AD_BODY) reads its float constants in
@@ -150,11 +153,10 @@ enum ModelGroup { kDense = 0, kMinibatch = 1, kDensePlain = 2, kWide = 3, kMbWid
 // a 16-byte offset (its products' float4 loads), the workspace a whole
 // number of float4s (each chain's slice stays aligned).  L.l, L.u, L.z and
 // L.g (and L.ad) are offsets into shared memory or, from their tier on, into
-// the block's workspace of `ws` floats; P is the staged precision's offset
-// (tier 0).
+// the block's workspace of `ws` floats.
 struct WideLayout {
   Layout L;
-  int tier, P, smem, ws;  // smem, ws: floats of shared memory and of workspace
+  int tier, smem, ws;  // smem, ws: floats of shared memory and of workspace
 };
 
 __host__ __device__ inline WideLayout wide_layout_at(int model, int n_data, int n, int d,
@@ -183,12 +185,6 @@ __host__ __device__ inline WideLayout wide_layout_at(int model, int n_data, int 
   L.grad = o; o += 2 * d;
   L.row = o;  o += 7 * n + 1;
   L.red = o;  o += 2 * kWarps + 1;
-  W.P = -1;
-  if (tier == 0) {
-    o = avi::round4(o);
-    W.P = o;
-    o += d * d;
-  }
   L.total = o;
   W.tier = tier;
   W.smem = o;
@@ -204,7 +200,7 @@ __host__ __device__ inline WideLayout wide_layout_at(int model, int n_data, int 
 __host__ __device__ inline WideLayout wide_layout(int model, int n_data, int n, int d,
                                                   int n_rows) {
   WideLayout W;
-  for (int tier = model == avi::kMvNormal ? 0 : 1; tier <= 3; ++tier) {
+  for (int tier = 1; tier <= 3; ++tier) {
     W = wide_layout_at(model, n_data, n, d, n_rows, tier);
     if (sizeof(float) * static_cast<size_t>(W.smem) <= kSmemLimit) break;
   }
@@ -275,7 +271,6 @@ __host__ __device__ inline WideLayout mb_layout_at(int model, int n_data, int db
   L.row = o;  o += 7 * n + 1;
   L.red = o;  o += 2 * kWarps + 1;
   L.total = o;
-  W.P = -1;
   W.tier = tier;
   W.smem = o;
   W.ws = avi::round4(w);
@@ -301,6 +296,7 @@ __host__ __device__ inline int model_group(int model, int n_data, int db, int ba
     return sizeof(float) * static_cast<size_t>(L.total) <= kSmemLimit ? kMinibatch : kMbWide;
   }
   if (model == avi::kMvNormal) return kMvn;
+  if (model == avi::kGaussian) return kGauss;
   const Layout L = layout_for(model, n_data, db, batch, n, d, n_rows, true);
   if (sizeof(float) * static_cast<size_t>(L.total) <= kSmemLimit) return kDense;
   const Layout P = layout_for(model, n_data, db, batch, n, d, n_rows, false);
@@ -317,10 +313,84 @@ __host__ __device__ inline Layout make_layout(int model, int n_data, int db, int
   return layout_for(model, n_data, db, batch, n, d, n_rows, aligned);
 }
 
+}  // namespace mf
+
+// The layout of the kGauss group's launches (its body is
+// csrc/fused_gauss_body.cuh), here so that launch_layout can answer for it.
+namespace gauss {
+
+using mf::kThreads;
+
+// One chain's step split over threads, a rule of (n, d): `groups` 4-column
+// groups, `width` lanes a column slice (the power of two at or above
+// groups, at most 32), `slices` column slices of a row, and R row blocks
+// of `rows` rows (row block r: rows r rows .. r rows + rows - 1) so that the
+// R slices x width threads of a chain's row blocks fill at most one block.
+struct Split {
+  int groups, width, slices, lanes, R, rows;
+};
+
+__host__ __device__ inline Split split_for(int n, int d) {
+  Split S;
+  S.groups = (d + 3) / 4;
+  S.width = 1;
+  while (S.width < S.groups && S.width < 32) S.width *= 2;
+  S.slices = (S.groups + S.width - 1) / S.width;
+  S.lanes = S.slices * S.width;
+  int blocks = kThreads / S.lanes;
+  if (blocks > n) blocks = n;
+  if (blocks < 1) blocks = 1;
+  S.rows = (n + blocks - 1) / blocks;
+  S.R = (n + S.rows - 1) / S.rows;  // every block holds a row
+  return S;
+}
+
+// Offsets (in floats) of a block of G chains' shared-memory arrays, each
+// chain's part at c times its size: the state rows (8, or 14 with COCOB);
+// the row blocks' dmu and dsig (2 R rows of d); each row's slices' log pi
+// and |u|^2 partials (lpp, uup: n x slices each); the slices' log det
+// partials; VarGrad's coefficients; DoWG's and DoG's 32-column partials
+// (wpc of |g|^2, then wpc of |x - x0|^2 a chain), their eta; the chains'
+// learning rates, rule codes and seed words.
+struct Layout {
+  Split S;
+  int wpc;
+  int st, part, lpp, uup, ldp, coef, distp, eta, lr, algo, seed, total;
+};
+
+__host__ __device__ inline Layout layout_for(int n, int d, int n_rows, int G) {
+  Layout L;
+  L.S = split_for(n, d);
+  L.wpc = (d + 31) / 32;
+  int o = 0;
+  L.st = o;    o += G * n_rows * d;
+  L.part = o;  o += G * 2 * L.S.R * d;
+  L.lpp = o;   o += G * n * L.S.slices;
+  L.uup = o;   o += G * n * L.S.slices;
+  L.ldp = o;   o += G * L.S.slices;
+  L.coef = o;  o += G * n;
+  L.distp = o; o += G * 2 * L.wpc;
+  L.eta = o;   o += G;
+  L.lr = o;    o += G;
+  L.algo = o;  o += G;
+  L.seed = o;  o += 2 * G;
+  L.total = o;
+  return L;
+}
+
+__host__ __device__ inline size_t smem_bytes(int n, int d, int n_rows, int G) {
+  return sizeof(float) * static_cast<size_t>(layout_for(n, d, n_rows, G).total);
+}
+
+}  // namespace gauss
+
+namespace mf {
+
 // What a launch takes (the C entries' layout queries): out[0] its group,
 // out[1] the bytes of dynamic shared memory, out[2] the floats of device
 // workspace one block needs (0 but for kWide and kMvn at tier 2 or 3 and
 // kMbWide), out[3] the kWide, kMbWide or kMvn tier (-1 in the other groups).
+// kGauss: gauss::layout_for's bytes at one chain, no workspace, tier -1.
 __host__ __device__ inline void launch_layout(int model, int n_data, int db, int batch, int n,
                                               int d, int n_rows, long long* out) {
   const int group = model_group(model, n_data, db, batch, n, d, n_rows);
@@ -332,6 +402,10 @@ __host__ __device__ inline void launch_layout(int model, int n_data, int db, int
     out[1] = static_cast<long long>(sizeof(float)) * W.smem;
     out[2] = W.ws;
     out[3] = W.tier;
+  } else if (group == kGauss) {
+    out[1] = static_cast<long long>(gauss::smem_bytes(n, d, n_rows, 1));
+    out[2] = 0;
+    out[3] = -1;
   } else {
     out[1] = static_cast<long long>(sizeof(float)) *
              make_layout(model, n_data, db, batch, n, d, n_rows).total;
@@ -410,7 +484,6 @@ __device__ __forceinline__ void run_chunk(
   avi::LogRegMB mbm{nullptr, smem + L.y, (kGroup == kMbWide ? lbase : smem) + L.l, zb, batch,
                     db, ldz, s0, s1};
   const int nb = minibatch ? n_data / batch : 1;
-  const float* prec = data_dev ? c1 : smem + W.P;  // mvnormal's P (kWide only)
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -419,8 +492,6 @@ __device__ __forceinline__ void run_chunk(
     for (int i = tid; i < n_data * db; i += kThreads) smem[L.X + i] = c0[i];
     for (int i = tid; i < n_data; i += kThreads) smem[L.y + i] = c1[i];
   }
-  if (kGroup == kWide && model == avi::kMvNormal && !data_dev)
-    for (int i = tid; i < d * d; i += kThreads) smem[W.P + i] = c1[i];
   uint32_t fill = 0;  // kMvn: the ring's blocks of P read so far
   if (kMv) avi::mvn::stage_or_start<kThreads>(V.S, smem, c1, d, tid);
   for (int i = tid; i < n_rows * d; i += kThreads) st[i] = state_in[i];
@@ -531,12 +602,10 @@ __device__ __forceinline__ void run_chunk(
       }
 #endif
 #endif
-    } else if (kGroup == kWide && model == avi::kMvNormal) {  // VarGrad ignores gs
-      avi::mvnormal_body<kThreads>(c0, prec, s0, zs, n, d, logpi, gs, tid, warp, kWarps, lane);
     } else if (kMv) {  // VarGrad ignores gs
       avi::mvnormal_stream_body<kThreads>(c0, c1, V.S, smem, fill, s0, zs, n, d, logpi, gs, tid,
                                           warp, kWarps, lane);
-    } else if (!kMb) {
+    } else if (!kMb && kGroup != kWide) {  // kWide takes no Gaussian: kGauss has it
       avi::gaussian_body(c0, c1, s0, zs, n, d, logpi, vargrad ? nullptr : gs, warp, kWarps,
                          lane);
     }

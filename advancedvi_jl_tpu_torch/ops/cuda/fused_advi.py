@@ -29,7 +29,9 @@ into the kernels at first use (ops/cuda/ad_body.py); its plain version
 replays the graph.
 
 The mean-field kernel keeps a launch in one block's shared memory where it
-fits; a dense model that does not fit (a wide design, a wide d or many
+fits; the diagonal Gaussian always does, on its own kGauss instances
+(csrc/fused_gauss_body.cuh: one column-fused pass a step, no u, z or g
+arrays); a dense model that does not fit (a wide design, a wide d or many
 samples, K5's body included) runs its kWide layout
 instead (csrc/fused_meanfield_body.cuh ``wide_layout``), and the dense
 Gaussian its own instance of that layout, kMvn (``mvn_layout``: the
@@ -946,11 +948,14 @@ def _model_args(model: str, consts, scalars, d: int, dev, n: int = 0,
 
 
 # the mean-field kernels' model groups of the device-memory layout, of the
-# minibatch transports' device-memory layout and of the dense Gaussian
-# (csrc/fused_meanfield_body.cuh ModelGroup kWide, kMbWide, kMvn)
+# minibatch transports' device-memory layout, of the dense Gaussian and of
+# the diagonal Gaussian (csrc/fused_meanfield_body.cuh ModelGroup kWide,
+# kMbWide, kMvn, kGauss; the last csrc/fused_gauss_body.cuh, one
+# column-fused pass a step, no workspace at any width)
 KWIDE = 3
 KMB_WIDE = 4
 KMVN = 5
+KGAUSS = 6
 
 _KERNEL_PRECISION: dict = {}
 
@@ -984,7 +989,8 @@ def fused_layout(lib: str, body: Optional[str] = None, defines=()):
     (``lib`` "fused_advi_meanfield") or chains ("fused_chains", with G, the
     chains a block) kernel: the C side's ``launch_layout``
     (csrc/fused_meanfield_body.cuh).  The tier is -1 outside KWIDE and
-    KMB_WIDE and KMVN."""
+    KMB_WIDE and KMVN; the diagonal Gaussian takes KGAUSS, with no
+    workspace."""
     entry = "fused_chains_layout" if lib == "fused_chains" else "fused_advi_meanfield_layout"
     ints = 8 if lib == "fused_chains" else 7
     fn = _build.function(lib, entry, [ctypes.c_int] * ints + [ctypes.c_void_p],

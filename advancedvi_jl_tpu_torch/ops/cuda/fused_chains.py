@@ -316,7 +316,8 @@ _CHAINS_ARGTYPES = (
 
 # Chains a block at most (csrc/fused_chains.cu kMaxChains: their ELBO
 # threads are lanes of one warp), and the block's threads (kThreads: G > 1
-# maps one lane of a chain to a thread, so it needs d <= 512).
+# maps one lane of a chain to a thread, so it needs d <= 512, but on the
+# diagonal Gaussian's kGauss group).
 MAX_CHAINS_PER_BLOCK = 32
 BLOCK_THREADS = 512
 
@@ -333,10 +334,12 @@ def chains_per_block(model: str, n_chains: int, sms: int, d: int,
     the fewest chains a block that keep the waves at W (a block of G chains
     takes longer than one of G - 1, so a G that fills no fewer waves is
     slower).  1 for model "ad" (K5's body is placed for one chain), for
-    d > 512 and for a ``device_layout``: a chain whose arrays need the
-    device workspace (the kWide layout at tier 2 or 3, the kMbWide one at
-    any tier) runs alone."""
-    if model == AD or n_chains <= sms or d > BLOCK_THREADS or device_layout:
+    d > 512 but on the diagonal Gaussian (its kGauss blocks take the G
+    chains' 4-column groups in turn, csrc/fused_gauss_body.cuh) and for a
+    ``device_layout``: a chain whose arrays need the device workspace (the
+    kWide layout at tier 2 or 3, the kMbWide one at any tier) runs alone."""
+    if model == AD or n_chains <= sms or device_layout or \
+            (d > BLOCK_THREADS and model != GAUSSIAN):
         return 1
     g_max = 1
     for g in range(2, min(-(-n_chains // sms), MAX_CHAINS_PER_BLOCK) + 1):

@@ -192,9 +192,9 @@ Phases:
       included) and the bare bf16 GEMM on operands already cast by
       CUDA-graph replay at 256 x 1024 and 128 x 2048;
   (af) the mean-field and chains kernels beyond one block's shared memory
-      (the kWide group's device-memory layout: the d = 2,048 and the d =
-      512, n = 128 diagonal Gaussians, the 512 x 199 logreg, COCOB's 14 rows
-      on the 771 x 61 one, K6 at C = 8 on the d = 2,048 Gaussian) and on the
+      (the kWide group's device-memory layout: the 512 x 199 logreg,
+      COCOB's 14 rows on the 771 x 61 one, K6 at C = 8 on the 512 x 199
+      logreg; the diagonal Gaussians it held before kGauss are (ah)'s) and on the
       dense Gaussian at d = 62 and 512 (its body; prox, VarGrad and COCOB at
       62; K6 at C = 8 and at 264, two chains a block), each against its
       plain version: 50 noise steps, 200 Philox steps, chunked and traced
@@ -222,7 +222,19 @@ Phases:
       FusedADVI, FusedChainsADVI and FusedProxADVI through their entry
       points on one configuration of each new instance; then where the
       tiers start, each part's chunk at its last shared-memory size and at
-      its first workspace size (``[ag] edge=``).
+      its first workspace size (``[ag] edge=``);
+  (ah) the diagonal Gaussian's kGauss group (csrc/fused_gauss_body.cuh, one
+      column-fused pass a step): its three instances' registers and spills;
+      Adam, descent-prox, DoWG, COCOB and VarGrad at d = 62, 512 and 2,048
+      (n = 10) and d = 512 (n = 128) against the plain version (50 noise
+      steps, 200 Philox steps, chunked and traced runs bitwise; VarGrad's
+      noise steps against float64 where its coefficients cancel); K6 at
+      C = 8 (d = 2,048), 1,024 (d = 512, G = 4) and 4,224 (d = 11, G =
+      32), chains 0, G - 1, G and C - 1 bitwise the single-chain kernel;
+      counted: FusedADVI, FusedProxADVI, FusedScoreGradVI and
+      FusedChainsADVI on it; each chunk's time beside its bound (the draws'
+      instructions at the issue rate) and its one-SM floor, the d = 11,
+      2,048 and 512 x 128 steps split by phase and K6's at C = 4,224.
 
 With ``--parent CHECKOUT`` (e.g. a ``git archive`` of the parent commit
 under the ignored ``_archive/``) it then times K8, K7b, K7c, K7a, the K9 probes,
@@ -245,7 +257,7 @@ Every failed check raises and the script exits non-zero; it also exits
 non-zero without a CUDA device, or when the package is not beside it.  The
 line before the last is a JSON object of the kernels (launch counts from the
 main-path runs of (f), (g), (l), (o), (p), (s), (u), (w), (x), (y), (z),
-(aa), (ab), (ac), (ad), (ae), (af) and (ag), errors, times, each time's bound on this card and
+(aa), (ab), (ac), (ad), (ae), (af), (ag) and (ah), errors, times, each time's bound on this card and
 the library call's time where the line has one); the last
 line is ``{"ok": true, "device": {...}}``.  It imports no JAX.
 """
@@ -255,6 +267,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import difflib
 import json
 import math
 import subprocess
@@ -1301,9 +1314,20 @@ def ab_chunks(dev):
     diagonal Gaussian at d = 11 (and C = 4,224: 32 chains a block) and
     d = 512; the dense Gaussian (phase (af)'s targets) at d = 62, 512 and
     2,048 with n = 10 and at d = 512 with n = 128, and K6 at C = 8 on the
-    d = 512 one (the d = 512 chunk with its phase split).  Returns
-    ({name: (launch, reps)}, {name: (args, ad, walk)} of the chunks whose
-    mean-field phase split the A/B takes, (the flagship's K5 programs))."""
+    d = 512 one (the d = 512 chunk with its phase split); the diagonal
+    Gaussian ((ah)'s targets) at d = 11, 2,048 and 512 x 128 (each with its
+    phase split), at d = 2,048 under descent-prox and COCOB and at n = 128,
+    and K6 at C = 8 on it; kWide's configurations: the 512 x 199 logreg,
+    COCOB on the 771 x 61 one, K5's quartic at d = 2,048 and K6 at C = 8 on
+    the 512 x 199 logreg; (p)'s full-rank chunk on the d = 11 Gaussian.
+    Returns ({name: (launch, reps)}, {name: (args, ad, walk)} of the chunks
+    whose mean-field phase split the A/B takes, (the flagship's K5
+    programs, the quartic's), {name: args} of the Gaussian chunks whose
+    final state the A/B holds bitwise to the parent's: those where one
+    thread holds a column's whole loop over the rows, under the rules with
+    no sum across columns, {name: ("chains", (engine, rows, seeds)) or
+    ("fullrank", args)} of the K6 and full-rank chunks whose phase split
+    it takes: K6 at C = 4,224 on the d = 11 Gaussian and (p)'s chunk)."""
     import advancedvi_jl_tpu_torch as avt
     from advancedvi_jl_tpu_torch.ops.cuda import fused_advi as fa
     from advancedvi_jl_tpu_torch.ops.cuda.fused_chains import fused_chains_run_chunk_cuda
@@ -1316,6 +1340,7 @@ def ab_chunks(dev):
     fr = fa.ad_program(spec, N_SAMPLES, "fullrank", 4)
     vec, mat = ad_rows(prob.dim, dev, "fullrank")
     ad_args = ("ad", mf.consts, ()) + hand[3:]
+    other = {}  # the chains and full-rank chunks whose phase split the A/B takes
     out = {
         "flagship_hand": (lambda: fa.fused_run_chunk_cuda(*hand), 20),
         "flagship_ad": (lambda: fa.fused_run_chunk_cuda(*ad_args, ad=mf), 20),
@@ -1326,6 +1351,12 @@ def ab_chunks(dev):
     for name, args in fullrank_chunk_args(dev).items():
         out[f"fullrank_{name}"] = (lambda a=args: fa.fused_fullrank_run_chunk_cuda(*a), 10)
     engines = slice_engines(dev)
+    eng, q0 = engines["prox_fullrank_nln"]  # (p)'s chunk: the full-rank Gaussian at d = 11
+    args = (eng.model.model, eng.model.consts, eng.model.scalars,
+            *eng.init(q0.location, q0.scale_matrix()).stacked_fullrank(), seed_words(SEED), 0,
+            200, N_SAMPLES, eng.hyp, None, 0, eng.branch())
+    out["fullrank_prox_nln"] = (lambda a=args: fa.fused_fullrank_run_chunk_cuda(*a), 10)
+    other["fullrank_prox_nln"] = ("fullrank", args)
     for name in ("prox", "bbvi"):  # prox-DoWG; VarGrad (DoWG, clip)
         eng, q0 = engines[name]
         args = (eng.model.model, eng.model.consts, eng.model.scalars,
@@ -1373,6 +1404,8 @@ def ab_chunks(dev):
         e, rows, seeds = chains_case(dev, sp, C, **kw)
         out[tag] = (lambda e=e, r=rows, sd=seeds: chains_run(
             fused_chains_run_chunk_cuda, e, r, sd, 0, 200), 5 if C > 64 else 10)
+        if tag == "chains4224_gaussian11":  # its step by phase, block 0's thread 0
+            other[tag] = ("chains", (e, rows, seeds))
     for d, n in ((62, N_SAMPLES), (512, N_SAMPLES), (2048, N_SAMPLES), (512, 128)):
         t = mvn_target(dev, d)
         sp = avt.mvnormal_spec(t.mu, t.scale_tril)
@@ -1385,7 +1418,42 @@ def ab_chunks(dev):
             e, rows, seeds = chains_case(dev, sp, AF_CHAINS_C)
             out["chains8_" + tag] = (lambda e=e, r=rows, sd=seeds: chains_run(
                 fused_chains_run_chunk_cuda, e, r, sd, 0, 200), 3)
-    return out, splits, (mf, fr)
+    branches, bitwise = ah_branches(), {}
+    for tag, d, n, b in (("gauss_d11", 11, N_SAMPLES, "adam"),
+                         ("gauss_d2048", 2048, N_SAMPLES, "adam"),
+                         ("gauss_d512_n128", 512, 128, "adam"),
+                         ("gauss_d2048_descent_prox", 2048, N_SAMPLES, "descent_prox"),
+                         ("gauss_d2048_cocob", 2048, N_SAMPLES, "cocob"),
+                         ("gauss_d2048_n128", 2048, 128, "adam")):
+        sp = ah_spec(dev, d)
+        args = (sp.model, sp.consts, sp.scalars, af_rows(d, dev, branches[b]), seed_words(SEED),
+                0, 200, n, fa.FusedHyper(lr=LR), None, 0, branches[b])
+        out[tag] = (lambda a=args: fa.fused_run_chunk_cuda(*a), 5 if n == N_SAMPLES else 3)
+        if tag in ("gauss_d11", "gauss_d2048", "gauss_d512_n128"):
+            splits[tag] = (args, None, False)
+        if d == 2048:  # one thread a column's whole loop over the rows (kGauss's R = 1)
+            bitwise[tag] = args
+    e, rows, seeds = chains_case(dev, ah_spec(dev, 2048), AF_CHAINS_C)
+    out["chains8_gauss_d2048"] = (lambda e=e, r=rows, sd=seeds: chains_run(
+        fused_chains_run_chunk_cuda, e, r, sd, 0, 200), 3)
+    from advancedvi_jl_tpu_torch.models.logreg import make_logreg
+
+    wide = make_logreg(DATA_SEED, n_data=512, n_features=198, device=dev)
+    cocob = make_logreg(DATA_SEED, n_data=771, n_features=N_FEATURES, device=dev)
+    wide_spec = avt.logreg_spec(wide.X, wide.y)
+    for tag, sp, b in (("wide_logreg_512x199", wide_spec, "adam"),
+                       ("wide_logreg_771x61_cocob", avt.logreg_spec(cocob.X, cocob.y), "cocob")):
+        args = (sp.model, sp.consts, sp.scalars, af_rows(sp.dim, dev, branches[b]),
+                seed_words(SEED), 0, 200, N_SAMPLES, fa.FusedHyper(lr=LR), None, 0, branches[b])
+        out[tag] = (lambda a=args: fa.fused_run_chunk_cuda(*a), 3)
+    e, rows, seeds = chains_case(dev, wide_spec, AF_CHAINS_C)
+    out["chains8_wide_logreg_512x199"] = (lambda e=e, r=rows, sd=seeds: chains_run(
+        fused_chains_run_chunk_cuda, e, r, sd, 0, 200), 3)
+    quartic = fa.ad_program(ag_quartic(dev, 2048), N_SAMPLES, "meanfield", 8)
+    args = ("ad", quartic.consts, (), initial_rows(2048, dev), seed_words(SEED), 0, 200,
+            N_SAMPLES, fa.FusedHyper(lr=LR))
+    out["wide_k5_quartic_d2048"] = (lambda a=args: fa.fused_run_chunk_cuda(*a, ad=quartic), 3)
+    return out, splits, (mf, fr, quartic), bitwise, other
 
 
 def walking(fn, args, step=200):
@@ -1415,10 +1483,12 @@ def ab_times(dev, bf16=True):
     the columns and at ``BF16_SMALL_SHAPES`` (graph replay), K7c at 65,536 x 256, rank 8 (graph replay), K7a at 10 x 62
     (graph replay, behind a kernel that writes m, host time a call), each K9
     probe (graph replay, host time a call), a step of flagship ADVI through
-    ``optimize`` (``optimize_step_ms``), every chunk of ``ab_chunks``, and
-    the mean-field phase split of
-    the flagship hand and ad chunks and of the mean-field minibatch
-    chunks."""
+    ``optimize`` (``optimize_step_ms``), every chunk of ``ab_chunks``, the
+    mean-field phase split of
+    the flagship hand and ad chunks, of the mean-field minibatch
+    chunks and of the diagonal Gaussian's, and a digest of each bitwise
+    Gaussian chunk's final state (``digest_<chunk>``) beside its ELBO
+    (``elbo_<chunk>``)."""
     from advancedvi_jl_tpu_torch.ops.cuda import _build
     from advancedvi_jl_tpu_torch.ops.cuda.location_scale_kernels import (
         fullrank_sample_cuda, lowrank_sample_cuda, meanfield_sample_cuda, seed_words,
@@ -1426,14 +1496,20 @@ def ab_times(dev, bf16=True):
     from advancedvi_jl_tpu_torch.ops.cuda.probe_kernels import probe_cuda, probe_inputs
     from advancedvi_jl_tpu_torch.ops.cuda.trisolve_kernels import solve_right_cuda
 
+    import hashlib
+
+    from advancedvi_jl_tpu_torch.ops.cuda import fused_advi as fa
+
     _build.build_all()
-    chunks, splits, (mf, fr) = ab_chunks(dev)
+    chunks, splits, (mf, fr, quartic), bitwise, other = ab_chunks(dev)
     pairs = [(k, mf.source) for k in ("fused_advi_meanfield", "fused_chains")] + \
         [("fused_advi_fullrank", fr.source)]
-    libs = _build.build_generated_all(pairs)
+    libs = _build.build_generated_all(pairs + [("fused_advi_meanfield", quartic.source)])
     C, V = trisolve_args(dev)
     out = {}
-    for (kern, _), path in libs.items():  # the flagship's K5 libraries: registers and spills
+    for (kern, body), path in libs.items():  # the flagship's K5 libraries: registers and spills
+        if body == quartic.source:
+            continue
         out[f"ptxas_k5_{kern}"] = " | ".join(
             ln.strip() for ln in path.with_suffix(".log").read_text().splitlines()
             if "spill" in ln or "registers" in ln)
@@ -1491,6 +1567,18 @@ def ab_times(dev, bf16=True):
         total = sum(cycles)
         for phase, c in zip(MF_PHASES, cycles):
             out[f"split_{name}_{phase}_us"] = 1e3 * out[name] / 200 * c / total
+    for name, (kind, what) in other.items():
+        if kind == "chains":
+            cycles, phases = chains_phase_cycles_of(*what), MF_PHASES
+        else:
+            cycles, phases = fullrank_phase_cycles_of(what), fa.PHASES
+        total = sum(cycles)
+        for phase, c in zip(phases, cycles):
+            out[f"split_{name}_{phase}_us"] = 1e3 * out[name] / 200 * c / total
+    for name, args in bitwise.items():
+        rows, elbo, _ = fa.fused_run_chunk_cuda(*args)
+        out[f"digest_{name}"] = hashlib.sha256(rows.cpu().numpy().tobytes()).hexdigest()[:16]
+        out[f"elbo_{name}"] = float(elbo)
     return out
 
 
@@ -1526,15 +1614,17 @@ print(json.dumps(smoke.ab_times(torch.device("cuda:0"), bf16=sys.argv[2] == "1")
 """
 
 
-# The kernel libraries whose kernels may compile to other SASS than the
-# parent's: none.  The mean-field, chains and full-rank libraries gained
-# instances (the kWide group, then the kMbWide group and the full-rank
-# kernel's tiered one, then the dense Gaussian's kMvn instances, which
-# replace K6's fused_chains_g_kernel<1, kWide>) that the parent lacks, and
-# the bf16 product's wgmma kernels replace its mma.sync ones, so those have
-# nothing to compare; every kernel both builds name (the bf16 library's
-# float64 kernel too) must be the parent's.
-AB_CHANGED = ()
+# The kernels that may compile to other SASS than the parent's: the kWide
+# instances, whose dense- and diagonal-Gaussian branches (and wide_layout's
+# tier 0) went when those models took their kMvn and kGauss instances; the
+# A/B times kWide's remaining configurations beside the parent's.  The
+# libraries gained instances before (the kWide group, then the kMbWide
+# group and the full-rank kernel's tiered one, then the dense Gaussian's
+# kMvn instances, now the diagonal Gaussian's kGauss ones) that the parent
+# lacks, and the bf16 product's wgmma kernels replace its mma.sync ones, so
+# those have nothing to compare; every other kernel both builds name (the
+# bf16 library's float64 kernel too) must be the parent's.
+AB_CHANGED = ("fused_advi_meanfield_wide_kernel", "fused_chains_wide_kernel")
 
 
 def ab_parent(parent: Path, bf16: bool = True):
@@ -1553,22 +1643,40 @@ def ab_parent(parent: Path, bf16: bool = True):
         runs[tag].append(json.loads(proc.stdout.strip().splitlines()[-1]))
     from advancedvi_jl_tpu_torch.ops.cuda import _build
 
-    differ = []
+    differ, unequal = [], []
     for lib in _build.KERNELS:  # every kernel both libraries have
         if not list((parent / "build" / "kernels").glob(f"lib{lib}-*.so")):
             say("parent", sass=lib, parent_has_no_library=True)
             continue
-        for fn, same in sass_equal(built_library(parent, lib), built_library(ROOT, lib)):
+        old, new = sass_functions(built_library(parent, lib)), sass_functions(
+            built_library(ROOT, lib))
+        for fn in (fn for fn in old if fn in new):
+            same = old[fn] == new[fn]
             say("parent", sass=f"{lib}:{fn}", equal=same)
-            if not same and lib not in AB_CHANGED:
+            if not same and not any(k in fn for k in AB_CHANGED):
                 differ.append(f"{lib}:{fn}")
+                for ln in list(difflib.unified_diff(old[fn].splitlines(), new[fn].splitlines(),
+                                                    "parent", "this", lineterm="", n=0))[:24]:
+                    print(f"    {ln}", flush=True)
     for key in runs["this"][0]:
         if key.startswith("ptxas"):
             say("parent", lib=key, parent=f"'{runs['parent'][0][key]}'", this=f"'{runs['this'][0][key]}'")
             continue
+        if key.startswith(("digest_", "elbo_")):  # the Gaussian chunks held to the parent's
+            p, t = [r[key] for r in runs["parent"]], [r[key] for r in runs["this"]]
+            if key.startswith("digest_"):
+                same = len(set(p + t)) == 1
+            else:
+                same = all(abs(x - p[0]) <= 1e-4 * abs(p[0]) for x in p + t)
+            say("parent", chunk=key, parent=",".join(map(str, p)), this=",".join(map(str, t)),
+                same=same)
+            if not same:
+                unequal.append(key)
+            continue
         say("parent", bf16_rows=bf16, chunk=key, parent_ms=",".join(f"{r[key]:.7g}" for r in runs["parent"]),
             this_ms=",".join(f"{r[key]:.7g}" for r in runs["this"]))
     check(not differ, f"SASS of kernels this change does not edit differs: {differ}")
+    check(not unequal, f"Gaussian chunks not bitwise the parent's (ELBO within 1e-4): {unequal}")
 
 
 def built_library(checkout: Path, name: str) -> Path:
@@ -1585,7 +1693,9 @@ def built_library(checkout: Path, name: str) -> Path:
 def sass_functions(lib: Path) -> dict:
     """{kernel: its SASS text} of a library, by ``cuobjdump -sass``; a kernel
     in an anonymous namespace is named without the namespace's per-file
-    hash, so two builds of one kernel from edited files share its name."""
+    hash, so two builds of one kernel from edited files share its name.
+    Each line's runs of blanks are one blank: cuobjdump pads every line to
+    a column that a longer instruction elsewhere in the library moves."""
     import re
     import shutil
 
@@ -1601,15 +1711,8 @@ def sass_functions(lib: Path) -> dict:
                           ln.split("Function :", 1)[1].strip())
             out[name] = []
         elif name is not None:
-            out[name].append(ln.strip())
+            out[name].append(" ".join(ln.split()))
     return {k: "\n".join(v) for k, v in out.items()}
-
-
-def sass_equal(a: Path, b: Path):
-    """(kernel, whether its SASS is the same) for each kernel of both
-    libraries, in order."""
-    fa, fb = sass_functions(a), sass_functions(b)
-    return [(fn, fa[fn] == fb[fn]) for fn in fa if fn in fb]
 
 
 def parent_copy(parent: Path) -> Path:
@@ -1649,6 +1752,42 @@ def mf_phase_cycles(args, ad=None, launches=4, walk=False):
     stop.record()
     torch.cuda.synchronize()
     return list(fa.meanfield_phase_cycles(ad).values()), start.elapsed_time(stop) / launches
+
+
+def chains_phase_cycles_of(eng, rows, seeds, launches=4):
+    """SM cycles of block 0's thread 0 of the chains kernel in each phase
+    (MF_PHASES), summed over ``launches`` 200-step chunks of the
+    instrumented build after one to warm it."""
+    from advancedvi_jl_tpu_torch.ops.cuda.fused_chains import (
+        chains_phase_cycles, fused_chains_run_chunk_cuda,
+    )
+
+    def run():
+        return chains_run(fused_chains_run_chunk_cuda, eng, rows, seeds, 0, 200,
+                          instrumented=True)
+
+    run()
+    torch.cuda.synchronize()
+    chains_phase_cycles()  # the counters restart at zero
+    for _ in range(launches):
+        run()
+    return list(chains_phase_cycles().values())
+
+
+def fullrank_phase_cycles_of(args, launches=4):
+    """SM cycles of thread 0 of the single-block full-rank kernel in each
+    phase (PHASES), summed over ``launches`` chunks ``args`` of the
+    instrumented build after one to warm it."""
+    from advancedvi_jl_tpu_torch.ops.cuda.fused_advi import (
+        fused_fullrank_run_chunk_cuda, phase_cycles,
+    )
+
+    fused_fullrank_run_chunk_cuda(*args, instrumented=True, cluster=1)
+    torch.cuda.synchronize()
+    phase_cycles()  # the counters restart at zero
+    for _ in range(launches):
+        fused_fullrank_run_chunk_cuda(*args, instrumented=True, cluster=1)
+    return list(phase_cycles().values())
 
 
 def mf_split(phase, name, args, chunk_ms, ad=None, walk=False):
@@ -3164,7 +3303,8 @@ def generator_instructions(card) -> dict:
     the function draws n ceil(d / 4) groups (K7c: u1's and u2's, n
     ceil(r / 4)) whatever a kernel redraws, and adds one instruction a
     multiply-add (z = u s + m; K7b's triangle product, K7c's r terms).
-    Returns {name: issue_ms}."""
+    Returns {name: issue_ms}, with the lane group's instructions, the SM
+    clock and the SMs (``lane_group``, ``mhz``, ``sms``)."""
     import tempfile
 
     from advancedvi_jl_tpu_torch.ops.cuda import _build
@@ -3203,6 +3343,7 @@ def generator_instructions(card) -> dict:
             probe_draw=paths["draw_group"], probe_store=paths["store_group"],
             thread_instructions=f"{instr:.4g}", sm_clock_mhz=mhz, sms=sms,
             issue_ms=f"{out[name]:.4g}")
+    out.update(lane_group=group, mhz=mhz, sms=sms)  # (ah)'s bounds count the same way
     return out
 
 
@@ -3349,7 +3490,6 @@ def kernel_bounds():
         "fused_advi_fullrank": nln,
         "fused_k3_rules": (2.0 * 200 * 2 * logreg, x_bytes + 4.0 * 16 * d),
         "fused_k3_vargrad": (2.0 * 200 * logreg, x_bytes + 4.0 * 16 * d),
-        "fused_k4_gaussian": nln,
         # CHAINS_MAIN_C and CHAINS_WIDE_C chains of the flagship step: the
         # design read once, each chain's state in and out
         "fused_chains": (2.0 * 200 * CHAINS_MAIN_C * 2 * logreg,
@@ -5778,19 +5918,15 @@ def mvn_target(dev, d):
 def af_configs(dev):
     """name -> (spec, n_samples): the configurations JAX's mean-field
     engines take whose arrays one block's shared memory cannot hold (the
-    kWide group's device-memory tiers), COCOB's 14 state rows on a design
-    whose 8-row layout fits one block (tests/test_torch_kernels.py's plain
-    layout), and the dense Gaussian on its kMvn instances (P in shared
-    memory at d = 62, streamed through the product's ring at 512 and 2,048,
-    and at d = 512, n = 128 with u, z and g in the workspace), each that of
-    ``mvn_target``."""
+    kWide group's device-memory tiers: the 512 x 199 logreg; the diagonal
+    Gaussians that took them before their kGauss group are (ah)'s), COCOB's
+    14 state rows on a design whose 8-row layout fits one block
+    (tests/test_torch_kernels.py's plain layout), and the dense Gaussian on
+    its kMvn instances (P in shared memory at d = 62, streamed through the
+    product's ring at 512 and 2,048, and at d = 512, n = 128 with u, z and g
+    in the workspace), each that of ``mvn_target``."""
     import advancedvi_jl_tpu_torch as avt
     from advancedvi_jl_tpu_torch.models.logreg import make_logreg
-
-    def gauss(d, seed):
-        g = torch.Generator().manual_seed(seed)
-        return avt.gaussian_spec(torch.randn(d, generator=g).to(dev),
-                                 (0.5 + torch.rand(d, generator=g)).to(dev))
 
     def mvn(d):
         t = mvn_target(dev, d)
@@ -5798,9 +5934,7 @@ def af_configs(dev):
 
     wide = make_logreg(DATA_SEED, n_data=512, n_features=198, device=dev)
     cocob = make_logreg(DATA_SEED, n_data=771, n_features=N_FEATURES, device=dev)
-    return {"gauss_d2048": (gauss(2048, 1), N_SAMPLES),
-            "gauss_d512_n128": (gauss(512, 2), 128),
-            "logreg_512x199": (avt.logreg_spec(wide.X, wide.y), N_SAMPLES),
+    return {"logreg_512x199": (avt.logreg_spec(wide.X, wide.y), N_SAMPLES),
             "logreg_771x61_cocob": (avt.logreg_spec(cocob.X, cocob.y), N_SAMPLES),
             "mvnormal_d62": (mvn(62), N_SAMPLES),
             "mvnormal_d512": (mvn(512), N_SAMPLES),
@@ -5967,8 +6101,8 @@ def af_product(dev, card, n, d):
 
 def af_times(dev, card, cfgs, chunk_ms, chains_spec):
     """Each configuration's 200-step chunk beside its plain version
-    (``chunk_ms``, taken in ``af_compare``), K6 at C = 8 on the d = 2,048
-    Gaussian and on each dense Gaussian (the plain version timed beside
+    (``chunk_ms``, taken in ``af_compare``), K6 at C = 8 on the 512 x 199
+    logreg and on each dense Gaussian (the plain version timed beside
     the two the kernels line names: a plain chunk is seconds of host time,
     and each dense one is held to it in ``af_chains_compare``), and the
     dense Gaussian body's product alone at AF_PRODUCT_SHAPES
@@ -5980,14 +6114,14 @@ def af_times(dev, card, cfgs, chunk_ms, chains_spec):
 
     out = {name: (*chunk_ms[name], *bound(*af_bound(spec, n, spec.dim, AF_STEPS)))
            for name, (spec, n) in cfgs.items()}
-    chained = [("chains_gauss_d2048", chains_spec, N_SAMPLES)] + [
+    chained = [("chains_logreg_512x199", chains_spec, N_SAMPLES)] + [
         (f"chains_{name}", *cfgs[name]) for name in cfgs if name.startswith("mvnormal")]
     for name, spec, n in chained:
         eng, rows, seeds = chains_case(dev, spec, AF_CHAINS_C, n_samples=n)
         ms = cuda_ms(lambda: chains_run(fused_chains_run_chunk_cuda, eng, rows, seeds, 0,
                                         AF_STEPS), 3)
         plain = math.nan
-        if name in ("chains_gauss_d2048", "chains_mvnormal_d512"):
+        if name in ("chains_logreg_512x199", "chains_mvnormal_d512"):
             _, plain = once_ms(lambda: chains_run(fused_chains_run_chunk_reference, eng, rows,
                                                   seeds, 0, AF_STEPS))
         out[name] = (ms, plain, *bound(*af_bound(spec, n, spec.dim, AF_STEPS, AF_CHAINS_C)))
@@ -6002,7 +6136,7 @@ def af_main_path(dev, cfgs, chains_spec):
     """The counted runs: the dense Gaussian at d = 62 through
     FusedADVI.optimize (2,000 steps), FusedProxADVI, FusedScoreGradVI and
     FusedChainsADVI (200 each), every other configuration through
-    FusedADVI.optimize and K6 at C = 8 on the d = 2,048 Gaussian (200);
+    FusedADVI.optimize and K6 at C = 8 on the 512 x 199 logreg (200);
     then ``optimize`` on the same NormalTarget and Philox key beside the
     fused run (averaged location within 1e-3, (g)'s bar).  Returns the
     launch counts (each wrapper's and the mean-field and chains wrappers'
@@ -6038,7 +6172,7 @@ def af_main_path(dev, cfgs, chains_spec):
         eng.algo = af_branch(name).algo
         _, rows, _ = eng.optimize(SEED, AF_SIDE_STEPS, q0(cfg.dim), log_every=LOG_EVERY)
         tails[name] = rows[-1]["elbo"]
-    for name, cspec in (("chains_mvnormal_d62", spec), ("chains_gauss_d2048", chains_spec)):
+    for name, cspec in (("chains_mvnormal_d62", spec), ("chains_logreg_512x199", chains_spec)):
         eng, st = chains_engine(dev, cspec, AF_CHAINS_C, lr=LR)
         _, trace = eng.run_chunk_traced(st, SEED, AF_SIDE_STEPS, log_every=LOG_EVERY)
         tails[name] = float(trace[-1].min())
@@ -6107,8 +6241,8 @@ def phase_af(dev, card):
         err, _, _, _ = af_compare(dev, f"mvnormal_d62_{branch.algo}_{branch.grad_est}", mv,
                                   N_SAMPLES, branch)
         errs["mvnormal"] = max(errs["mvnormal"], err)
-    chains_spec = cfgs["gauss_d2048"][0]
-    for name, spec, C, n in (("chains_gauss_d2048", chains_spec, AF_CHAINS_C, N_SAMPLES),
+    chains_spec = cfgs["logreg_512x199"][0]  # kWide tier 1: one chain a block
+    for name, spec, C, n in (("chains_logreg_512x199", chains_spec, AF_CHAINS_C, N_SAMPLES),
                              ("chains_mvnormal_d62", mv, AF_CHAINS_C, N_SAMPLES),
                              ("chains_mvnormal_d62_G2", mv, AF_G_CHAINS, N_SAMPLES),
                              ("chains_mvnormal_d512", cfgs["mvnormal_d512"][0], AF_CHAINS_C,
@@ -6625,6 +6759,378 @@ def phase_ag(dev, card, cfgs=None, edges=None):
     return counts, errs, times
 
 
+# ---------------------------------------------------------------------------
+# (ah) the diagonal Gaussian's kGauss group (csrc/fused_gauss_body.cuh)
+# ---------------------------------------------------------------------------
+
+AH_NOISE_STEPS = 50
+AH_STEPS = 200             # the Philox comparisons, each timed chunk, each counted run
+AH_SHAPES = ((62, N_SAMPLES), (512, N_SAMPLES), (2048, N_SAMPLES), (512, 128))
+# the timed chunks: the d = 11 one (phase (n)'s width) too
+AH_TIMED = ((11, N_SAMPLES),) + AH_SHAPES
+# K6: (C, d) one chain a block at C = 8, G = 4 at C = 1,024 (d = 512), 32 at 4,224 (d = 11)
+AH_CHAINS = ((8, 2048), (1024, 512), (4224, 11))
+# the rules that one launch of the plain chains version runs side by side
+AH_RULES = ("adam", "dowg", "cocob")
+
+
+def ah_spec(dev, d):
+    """The diagonal Gaussian of (ah) at width d: a seeded mean and standard
+    deviations in [0.5, 1.5)."""
+    import advancedvi_jl_tpu_torch as avt
+
+    g = torch.Generator().manual_seed(d)
+    return avt.gaussian_spec(torch.randn(d, generator=g).to(dev),
+                             (0.5 + torch.rand(d, generator=g)).to(dev))
+
+
+def ah_branches():
+    """name -> FusedBranch: Adam/STL/clip, descent with the closed-form zero
+    entropy and the prox, DoWG and COCOB (STL, clip), VarGrad (Adam, clip)."""
+    from advancedvi_jl_tpu_torch.ops.cuda.fused_advi import FusedBranch
+
+    return {"adam": FusedBranch(),
+            "descent_prox": FusedBranch("descent", "closed_form_zero_grad", "repgrad", "prox"),
+            "dowg": FusedBranch("dowg", "stl", "repgrad", "clip"),
+            "cocob": FusedBranch("cocob", "stl", "repgrad", "clip"),
+            "vargrad": FusedBranch("adam", "stl", "scoregrad", "clip")}
+
+
+def ah_rows(d, dev, algo):
+    """af_rows' start for ``algo``, padded with zero rows to 14 (a chain of
+    the plain chains version that runs COCOB beside it)."""
+    from advancedvi_jl_tpu_torch.ops.cuda.fused_advi import FusedBranch
+
+    st = af_rows(d, dev, FusedBranch(algo))
+    return torch.cat([st, st.new_zeros(14 - st.shape[0], d)])
+
+
+def elbo_atol(spec, atol):
+    """An ELBO bar's absolute part: ``atol``, or 8 float32 ulps of the size of
+    the ELBO's terms where that is larger (the log density's constant
+    |lognorm| and the entropy's d-sized sum: a d = 2,048 Gaussian near its
+    optimum has an ELBO of about 3 from terms of about 3,000, whose float32
+    roundings no order of the sums avoids)."""
+    return max(atol, 8 * 2.0 ** -23 * (abs(float(spec.scalars[0])) + spec.dim))
+
+
+def ah_check_group(name, n, d, n_rows):
+    from advancedvi_jl_tpu_torch.ops.cuda.fused_advi import KGAUSS, MODEL_CODES, fused_layout
+
+    group, _, ws, tier = fused_layout("fused_advi_meanfield")(MODEL_CODES["gaussian"], 0, 0, 0,
+                                                              n, d, n_rows)
+    check((group, ws, tier) == (KGAUSS, 0, -1),
+          f"(ah) {name}: group {group}, workspace {ws}, tier {tier}: not kGauss")
+
+
+def ah_compare(dev, d, n):
+    """Every branch of ``ah_branches`` on the kGauss group at (d, n) against
+    the plain version: 50 injected-noise steps (norm-wise rtol 1e-5, ELBO
+    and trace rtol 1e-5), 200 Philox steps (1e-4), a 200-step run bitwise
+    60 + 140 and the traced launch bitwise the untraced one.  Adam, DoWG and
+    COCOB start from af_rows' state after WARM steps of the kernel (DoWG's
+    cold start is rounding-dominated, phase (n)) and are held to one launch
+    of the plain chains version running the three rules side by side on the
+    same draws; descent-prox and VarGrad each to the single-chain plain
+    version.  VarGrad's coefficients f_i - fbar cancel log densities of the
+    size of d (the float32 plain version is itself up to ~1e-5 from float64
+    there), so its noise steps are held to a float64 run of the plain
+    version: each row within 1e-5 of it norm-wise, or no further from it
+    than twice the float32 plain version is (tests/test_torch_kernels.py's
+    bar for VarGrad COCOB on the 771 x 61 logreg).  The ELBO bars' absolute parts grow to ``elbo_atol``'s float32
+    resolution of the ELBO's terms at wide d.  Returns (the largest
+    norm-wise relative error, {branch: the Philox chunk's final rows}) and
+    checks each launch's group."""
+    from advancedvi_jl_tpu_torch.ops.cuda.fused_advi import (
+        ALGO_CODES, FusedHyper, fused_run_chunk_cuda, fused_run_chunk_reference,
+    )
+    from advancedvi_jl_tpu_torch.ops.cuda.fused_chains import fused_chains_run_chunk_reference
+    from advancedvi_jl_tpu_torch.ops.cuda.location_scale_kernels import seed_words
+    import numpy as np
+
+    spec = ah_spec(dev, d)
+    base = (spec.model, spec.consts, spec.scalars)
+    hyp, seed = FusedHyper(lr=LR), seed_words(SEED)
+    branches = ah_branches()
+    atol_n, atol_p = elbo_atol(spec, 1e-4), elbo_atol(spec, 1e-3)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    noise = torch.randn((AH_NOISE_STEPS, n, d), generator=gen, device=dev)
+    worst, tag = 0.0, f"(ah) d = {d}, n = {n}"
+
+    def kern(rows, it0, steps, b, noise=None, log_every=0):
+        return fused_run_chunk_cuda(*base, rows, seed, it0, steps, n, hyp, noise, log_every, b)
+
+    def own(name, b, rows, it0, k_noise, k_philox):
+        """The kernel's chunked and traced runs against its own whole run."""
+        half, _, _ = kern(rows, it0, 60, b)
+        two, e2, _ = kern(half, it0 + 60, AH_STEPS - 60, b)
+        t_rows, _, tr = kern(rows, it0, AH_STEPS, b, None, 50)
+        one, e1 = k_philox[:2]
+        check(torch.equal(one, two) and torch.equal(e1, e2),
+              f"{tag} {name}: the chunked run differs from the whole run")
+        check(torch.equal(one, t_rows) and float(tr[-1]) == float(e1),
+              f"{tag} {name}: the traced run differs from the untraced one")
+        check(torch.equal(k_noise[0], kern(rows, it0, AH_NOISE_STEPS, b, noise)[0]),
+              f"{tag} {name}: the traced noise run differs from the untraced one")
+
+    # Adam, DoWG and COCOB: the plain chains version, three chains on one draw
+    rows = {a: ah_rows(d, dev, a) for a in AH_RULES}
+    for a in AH_RULES:  # WARM steps of the kernel from af_rows' start
+        nr = 14 if a == "cocob" else 8
+        rows[a][:nr] = kern(rows[a][:nr].contiguous(), 0, WARM, branches[a])[0]
+    state = torch.stack([rows[a] for a in AH_RULES])
+    words = np.array([seed] * len(AH_RULES), dtype=np.uint32).view(np.int32)
+    seeds = torch.from_numpy(words).to(dev)
+    codes = torch.tensor([ALGO_CODES[a] for a in AH_RULES], dtype=torch.int32, device=dev)
+    C = len(AH_RULES)
+    chains_noise = noise[:, None].expand(-1, C, -1, -1).contiguous()
+    r_noise = fused_chains_run_chunk_reference(*base, state, seeds, WARM, AH_NOISE_STEPS, n, hyp,
+                                               chains_noise, 5, branches["adam"], None, codes)
+    r_philox = fused_chains_run_chunk_reference(*base, state, seeds, WARM, AH_STEPS, n, hyp, None,
+                                                0, branches["adam"], None, codes)
+    finals = {}
+    for c, a in enumerate(AH_RULES):
+        nr = 14 if a == "cocob" else 8
+        start = rows[a][:nr].contiguous()
+        ah_check_group(f"{a} d = {d}", n, d, nr)
+        k_noise = kern(start, WARM, AH_NOISE_STEPS, branches[a], noise, 5)
+        k_philox = kern(start, WARM, AH_STEPS, branches[a])
+        torch.cuda.synchronize()
+        worst = max(worst, compare_tensors(f"{tag} {a}, injected noise", list(k_noise[0]),
+                                           list(r_noise[0][c, :nr]), 1e-5))
+        check(torch.allclose(k_noise[1], r_noise[1][c], rtol=1e-5, atol=atol_n) and
+              torch.allclose(k_noise[2], r_noise[2][:, c], rtol=1e-5, atol=atol_n),
+              f"{tag} {a}: ELBO {float(k_noise[1])} vs {float(r_noise[1][c])} (or its trace)")
+        worst = max(worst, compare_tensors(f"{tag} {a}, Philox {AH_STEPS} steps",
+                                           list(k_philox[0]), list(r_philox[0][c, :nr]), 1e-4))
+        check(torch.allclose(k_philox[1], r_philox[1][c], rtol=1e-4, atol=atol_p),
+              f"{tag} {a}: ELBO after {AH_STEPS} steps {float(k_philox[1])} vs "
+              f"{float(r_philox[1][c])}")
+        own(a, branches[a], start, WARM, k_noise, k_philox)
+        finals[a] = k_philox[0]
+    # descent-prox and VarGrad: the single-chain plain version
+    for a in ("descent_prox", "vargrad"):
+        b = branches[a]
+        start = af_rows(d, dev, b)
+        ah_check_group(f"{a} d = {d}", n, d, start.shape[0])
+        k_noise = kern(start, 0, AH_NOISE_STEPS, b, noise, 5)
+        r_n = fused_run_chunk_reference(*base, start, seed, 0, AH_NOISE_STEPS, n, hyp, noise, 5, b)
+        k_philox = kern(start, 0, AH_STEPS, b)
+        r_p = fused_run_chunk_reference(*base, start, seed, 0, AH_STEPS, n, hyp, None, 0, b)
+        torch.cuda.synchronize()
+        if a == "vargrad":
+            base64 = (spec.model, tuple(t.double() for t in spec.consts), spec.scalars)
+            r64 = fused_run_chunk_reference(*base64, start.double(), seed, 0, AH_NOISE_STEPS, n,
+                                            hyp, noise.double(), 5, b)[0]
+            for i, (k, r, w) in enumerate(zip(k_noise[0].double(), r_n[0].double(), r64)):
+                own_err = float((r - w).abs().max())
+                got = float((k - w).abs().max())
+                check(got <= max(2 * own_err, 1e-5 * float(w.abs().max())),
+                      f"{tag} vargrad, injected noise: row {i} {got:.3e} from float64, the "
+                      f"plain version {own_err:.3e}")
+                worst = max(worst, float((k - r).abs().max()) / max(float(r.abs().max()), 1e-30))
+        else:
+            worst = max(worst, compare_tensors(f"{tag} {a}, injected noise", list(k_noise[0]),
+                                               list(r_n[0]), 1e-5))
+        check(torch.allclose(k_noise[1], r_n[1], rtol=1e-5, atol=atol_n) and
+              torch.allclose(k_noise[2], r_n[2], rtol=1e-5, atol=atol_n),
+              f"{tag} {a}: ELBO {float(k_noise[1])} vs {float(r_n[1])} (or its trace)")
+        worst = max(worst, compare_tensors(f"{tag} {a}, Philox {AH_STEPS} steps",
+                                           list(k_philox[0]), list(r_p[0]), 1e-4))
+        check(torch.allclose(k_philox[1], r_p[1], rtol=1e-4, atol=atol_p),
+              f"{tag} {a}: ELBO after {AH_STEPS} steps {float(k_philox[1])} vs {float(r_p[1])}")
+        own(a, b, start, 0, k_noise, k_philox)
+        finals[a] = k_philox[0]
+    say("ah", config=f"gauss_d{d}_n{n}", branches=",".join(branches), warm=WARM,
+        max_rel_err=f"{worst:.3e}", chunked_bitwise=True, traced_bitwise=True)
+    return worst, finals
+
+
+def ah_chains_compare(dev, C, d, n=N_SAMPLES):
+    """K6 on the kGauss group at C chains: 50 injected-noise steps (norm-wise
+    rtol 1e-5, ELBO 1e-5) against the plain version, and chains 0, G - 1, G
+    and C - 1 of a 200-step Philox run bitwise the single-chain kernel
+    keyed by their words.  Returns (the largest norm-wise relative error,
+    G)."""
+    from advancedvi_jl_tpu_torch.ops.cuda.fused_advi import fused_run_chunk_cuda
+    from advancedvi_jl_tpu_torch.ops.cuda.fused_chains import (
+        fused_chains_run_chunk_cuda, fused_chains_run_chunk_reference,
+    )
+    from advancedvi_jl_tpu_torch.ops.cuda.location_scale_kernels import chain_seed_words
+
+    spec = ah_spec(dev, d)
+    eng, rows, seeds = chains_case(dev, spec, C, n_samples=n)
+    G = eng.chains_per_block()
+    gen = torch.Generator(device=dev).manual_seed(7)
+    noise = torch.randn((AH_NOISE_STEPS, C, n, d), generator=gen, device=dev)
+    k_rows, k_elbo, _ = chains_run(fused_chains_run_chunk_cuda, eng, rows, seeds, 0,
+                                   AH_NOISE_STEPS, noise)
+    r_rows, r_elbo, _ = chains_run(fused_chains_run_chunk_reference, eng, rows, seeds, 0,
+                                   AH_NOISE_STEPS, noise)
+    del noise
+    torch.cuda.synchronize()
+    name = f"chains{C}_gauss_d{d}"
+    worst = compare_tensors(f"(ah) {name}, injected noise", list(k_rows.flatten(0, 1)),
+                            list(r_rows.flatten(0, 1)), 1e-5)
+    check(torch.allclose(k_elbo, r_elbo, rtol=1e-5, atol=1e-4), f"(ah) {name}: ELBOs differ")
+    p_rows, p_elbo, _ = chains_run(fused_chains_run_chunk_cuda, eng, rows, seeds, 0, AH_STEPS)
+    same = {}
+    for c in sorted({0, G - 1, G % C, C - 1}):
+        one, e1, _ = fused_run_chunk_cuda(spec.model, spec.consts, spec.scalars,
+                                          rows[c].contiguous(), chain_seed_words(SEED, c), 0,
+                                          AH_STEPS, n, eng.hyp)
+        same[c] = bool(torch.equal(one, p_rows[c]) and torch.equal(e1, p_elbo[c]))
+    torch.cuda.synchronize()
+    say("ah", config=name, chains=C, G=G, n=n, max_rel_err=f"{worst:.3e}",
+        chain_vs_single_bitwise=",".join(f"{c}:{v}" for c, v in same.items()))
+    check(all(same.values()), f"(ah) {name}: a chain differs from the single-chain kernel")
+    return worst, G
+
+
+def ah_issue_ms(n, d, steps, issue, chains=1, sms=None):
+    """The instructions of ``steps`` steps at (n, d) over the card's issue
+    rate (``generator_instructions``' lane group, clock and SMs): each
+    lane group of four normals, and five a column and row (z, diff, the
+    gradient's three terms) beside it; with ``sms`` = 1 the one-SM floor."""
+    instr = steps * chains * (n * -(-d // 4) * issue["lane_group"] + 5 * n * d)
+    return instr / 32 / ((sms or issue["sms"]) * SM_ISSUE * issue["mhz"] * 1e6) * 1e3
+
+
+def ah_bound(n, d, steps, issue, chains=1):
+    """(bound_ms, bound_by) of ``steps`` steps of ``chains`` chains: af_bound's
+    multiply-adds (the model's 2 n d and the gradient's 3 n d a step, 2
+    flops each) and bytes (the constants read once, each chain's 8 state
+    rows in and out) beside the draws' and the elementwise terms'
+    instructions at the issue rate."""
+    return bound(2.0 * steps * chains * 5 * n * d, 4.0 * (2 * d + chains * 16 * d),
+                 ah_issue_ms(n, d, steps, issue, chains))
+
+
+def ah_times(dev, card, issue):
+    """Each Gaussian chunk on kGauss (Adam, AH_STEPS steps, CUDA events):
+    the mean-field kernel at AH_TIMED and K6 at AH_CHAINS, beside its bound
+    (ah_bound) and its one-SM floor (the same instructions at one SM's issue
+    rate); the plain version beside the d = 2,048 mean-field chunk.  Returns
+    {name: (ms, plain_ms or nan, bound_ms, bound_by)}."""
+    from advancedvi_jl_tpu_torch.ops.cuda.fused_advi import (
+        FusedBranch, FusedHyper, fused_run_chunk_cuda, fused_run_chunk_reference,
+    )
+    from advancedvi_jl_tpu_torch.ops.cuda.fused_chains import fused_chains_run_chunk_cuda
+    from advancedvi_jl_tpu_torch.ops.cuda.location_scale_kernels import seed_words
+
+    out = {}
+    for d, n in AH_TIMED:
+        spec = ah_spec(dev, d)
+        args = (spec.model, spec.consts, spec.scalars, af_rows(d, dev, FusedBranch()),
+                seed_words(SEED), 0, AH_STEPS, n, FusedHyper(lr=LR))
+        name = f"gauss_d{d}" + ("" if n == N_SAMPLES else f"_n{n}")
+        ms = cuda_ms(lambda: fused_run_chunk_cuda(*args), 5)
+        plain = once_ms(lambda: fused_run_chunk_reference(*args))[1] if d == 2048 else math.nan
+        out[name] = (ms, plain, *ah_bound(n, d, AH_STEPS, issue))
+        if (d, n) in ((11, N_SAMPLES), (2048, N_SAMPLES), (512, 128)):
+            mf_split("ah", name, args, ms)
+        say("ah", card=f"'{card}'", chunk=name, steps=AH_STEPS,
+            one_sm_floor_ms=f"{ah_issue_ms(n, d, AH_STEPS, issue, sms=1):.4f}")
+    for C, d in AH_CHAINS:
+        eng, rows, seeds = chains_case(dev, ah_spec(dev, d), C)
+        ms = cuda_ms(lambda: chains_run(fused_chains_run_chunk_cuda, eng, rows, seeds, 0,
+                                        AH_STEPS), 3)
+        name = f"chains{C}_gauss_d{d}"
+        out[name] = (ms, math.nan, *ah_bound(N_SAMPLES, d, AH_STEPS, issue, C))
+        if C == 4224:
+            chains_split("ah", name, eng, rows, seeds, ms)
+    for name, (ms, plain, b_ms, b_by) in out.items():
+        say("ah", card=f"'{card}'", chunk=name, steps=AH_STEPS, kernel_ms=f"{ms:.4f}",
+            plain_ms=f"{plain:.2f}", bound_ms=f"{b_ms:.4g}", bound_by=b_by)
+    return out
+
+
+def ah_main_path(dev):
+    """The counted runs on kGauss: FusedADVI.optimize on the d = 2,048 (n =
+    10) and d = 512 (n = 128) Gaussians, FusedProxADVI and FusedScoreGradVI
+    on the d = 2,048 one, and FusedChainsADVI traced chunks at AH_CHAINS,
+    AH_STEPS steps each: every ELBO row finite.  Returns the mean-field and
+    chains wrappers' GROUP_GAUSSIAN counts (mf_k4_gaussian,
+    chains_k4_gaussian)."""
+    import advancedvi_jl_tpu_torch as avt
+    from advancedvi_jl_tpu_torch.ops.cuda.fused_advi import GROUP_GAUSSIAN, fused_run_chunk_cuda
+    from advancedvi_jl_tpu_torch.ops.cuda.fused_chains import fused_chains_run_chunk_cuda
+
+    def q0(d):
+        return avt.MeanFieldGaussian(torch.zeros(d, device=dev), 0.1 * torch.ones(d, device=dev))
+
+    wide, many = ah_spec(dev, 2048), ah_spec(dev, 512)
+    runs = {"advi_d2048": (avt.FusedADVI(wide, n_samples=N_SAMPLES, lr=LR), 2048),
+            "advi_d512_n128": (avt.FusedADVI(many, n_samples=128, lr=LR), 512),
+            "prox_d2048": (avt.FusedProxADVI(wide, n_samples=N_SAMPLES), 2048),
+            "bbvi_d2048": (avt.FusedScoreGradVI(wide, n_samples=N_SAMPLES, operator="clip"),
+                           2048)}
+    chains = {C: chains_engine(dev, ah_spec(dev, d), C, lr=LR) for C, d in AH_CHAINS}
+    torch.cuda.synchronize()
+    reset_launches()
+    tails = {}
+    for name, (eng, d) in runs.items():
+        _, rows, _ = eng.optimize(SEED, AH_STEPS, q0(d), log_every=LOG_EVERY)
+        check(all(math.isfinite(r["elbo"]) for r in rows), f"(ah) {name}: an ELBO row diverged")
+        tails[name] = rows[-1]["elbo"]
+    for C, (eng, st) in chains.items():
+        _, trace = eng.run_chunk_traced(st, SEED, AH_STEPS, log_every=LOG_EVERY)
+        check(bool(torch.isfinite(trace).all()), f"(ah) chains{C}: an ELBO row diverged")
+        tails[f"chains{C}"] = float(trace[-1].min())
+    torch.cuda.synchronize()
+    counts = {"mf_k4_gaussian": fused_run_chunk_cuda.group_launches[GROUP_GAUSSIAN],
+              "chains_k4_gaussian": fused_chains_run_chunk_cuda.group_launches[GROUP_GAUSSIAN]}
+    check(all(v > 0 for v in counts.values()), f"(ah) the counted runs made no kGauss launch: "
+                                               f"{counts}")
+    say("ah", main="kGauss", steps=AH_STEPS, **{f"tail_{k}": f"{v:.2f}" for k, v in tails.items()},
+        **{f"{k}_launches": v for k, v in counts.items()})
+    return counts
+
+
+def ah_ptxas():
+    """The kGauss instances' registers and spills (each library's ptxas
+    log): none may spill."""
+    from advancedvi_jl_tpu_torch.ops.cuda import _build
+
+    import re
+
+    found = 0
+    for lib in ("fused_advi_meanfield", "fused_chains"):
+        log = _build.library_path(lib).with_suffix(".log").read_text()
+        for entry, text in ptxas_entries(log).items():
+            short = re.search(r"fused_\w+?_gauss_kernel", entry)
+            if short or entry.endswith(",6>"):
+                found += 1
+                say("ah", instance=short.group(0) if short else entry, ptxas=f"'{text}'")
+                check(" 0 bytes spill stores, 0 bytes spill loads" in text,
+                      f"(ah) the kGauss instance {entry} spills: {text}")
+    check(found == 3, f"(ah) {found} kGauss instances in the ptxas logs, not 3")
+
+
+def phase_ah(dev, card, issue):
+    """(ah) The diagonal Gaussian on its kGauss group: the instances'
+    registers (``ah_ptxas``), every branch at AH_SHAPES against the plain
+    version (``ah_compare``; phase (n) holds the d = 11 branches), K6 at
+    AH_CHAINS (``ah_chains_compare``), the counted runs (``ah_main_path``)
+    and the times (``ah_times``).  Returns (the counted launches, the
+    largest error, the times)."""
+    t0 = time.perf_counter()
+    ah_ptxas()
+    worst = 0.0
+    for d, n in AH_SHAPES:
+        worst = max(worst, ah_compare(dev, d, n)[0])
+    for C, d in AH_CHAINS:
+        err, G = ah_chains_compare(dev, C, d)
+        check(G == {8: 1, 1024: 4, 4224: 32}[C] or torch.cuda.get_device_properties(
+            dev).multi_processor_count != 132, f"(ah) chains{C}: {G} chains a block")
+        worst = max(worst, err)
+    counts = ah_main_path(dev)
+    times = ah_times(dev, card, issue)
+    say("ah", card=f"'{card}'", seconds=f"{time.perf_counter() - t0:.1f}",
+        max_rel_err=f"{worst:.3e}")
+    return counts, worst, times
+
+
 BF16_SWEEP_SHAPES = [FR_SHAPE, FR_WIDE_SHAPE] + BF16_SMALL_SHAPES
 
 
@@ -6748,6 +7254,8 @@ def main() -> int:
     lap("af")
     ag_counts, ag_err, ag_times = phase_ag(dev, card, ag_cfgs, ag_edge_cfgs)
     lap("ag")
+    ah_counts, ah_err, ah_times = phase_ah(dev, card, issue)
+    lap("ah")
     if parent is not None:
         ab_parent(parent)
         lap("parent")
@@ -6807,11 +7315,18 @@ def main() -> int:
                          bound_=(b_ms, b_by)))
     for name, group, source, line, timed in (
             ("fused_k3_rules", "k3_rules", "fused_common.cuh", 556, "prox"),
-            ("fused_k3_vargrad", "k3_vargrad", "fused_advi_meanfield.cu", 489, "bbvi"),
-            ("fused_k4_gaussian", "k4_gaussian", "fused_common.cuh", 1204,
-             "prox_fullrank_nln")):
+            ("fused_k3_vargrad", "k3_vargrad", "fused_advi_meanfield.cu", 489, "bbvi")):
         kernels.append(entry(name, source, f"{fused}{line}", slice_counts[group],
                              slice_err[group], *slice_times[timed]))
+    # K4's diagonal Gaussian on its kGauss instances (mean-field and K6),
+    # counted in (ah)'s runs by the two wrappers' GROUP_GAUSSIAN, timed on the
+    # d = 2,048 mean-field chunk, its bound counting the draws' instructions;
+    # the full-rank kernels' call of gaussian_body runs inside
+    # fused_advi_fullrank's chunk above
+    ms, plain_ms, b_ms, b_by = ah_times["gauss_d2048"]
+    kernels.append(entry("fused_k4_gaussian", "fused_gauss_body.cuh", f"{fused}1204",
+                         ah_counts["mf_k4_gaussian"] + ah_counts["chains_k4_gaussian"], ah_err,
+                         ms, plain_ms, bound_=(b_ms, b_by)))
     for tr, line in (("inplace", 987), ("staged", 997), ("prefetch", 1029)):
         ms, plain_ms, b_ms, b_by = mb_times[tr]
         kernels.append(entry(f"fused_k4_minibatch_{tr}", "fused_common.cuh", f"{fused}{line}",
@@ -6863,10 +7378,11 @@ def main() -> int:
              af_counts["chains_k4_mvnormal"], af_err["chains_mvnormal"],
              "chains_mvnormal_d512"),
             ("fused_advi_meanfield_wide", "fused_meanfield_body.cuh", f"{fused}681",
-             af_counts["mf_k1_device_layout"], af_err["wide"], "gauss_d2048"),
+             af_counts["mf_k1_device_layout"], af_err["wide"], "logreg_512x199"),
             ("fused_chains_wide", "fused_chains.cu",
              "advancedvi_jl_tpu/ops/pallas/fused_chains.py:525",
-             af_counts["chains_k1_device_layout"], af_err["chains"], "chains_gauss_d2048")):
+             af_counts["chains_k1_device_layout"], af_err["chains"],
+             "chains_logreg_512x199")):
         ms, plain_ms, b_ms, b_by = af_times[timed]
         kernels.append(entry(name, source, replaces, launches, err, ms, plain_ms,
                              bound_=(b_ms, b_by)))

@@ -369,15 +369,17 @@ def test_fused_chains_validation(flagship):
 # the model's data once plus G chains' arrays (tests/test_torch_kernels.py
 # holds the kernel's count to these figures on the card).  The largest G
 # whose block fits 232,448 bytes: the flagship logreg (72,800 bytes one
-# chain, 220,544 eight), the diagonal Gaussian (capped at 32 chains, the
-# ELBO threads of one warp) and at d = 512, the three minibatch transports
+# chain, 220,544 eight), the diagonal Gaussian on its kGauss layout (each
+# chain's state rows, row-block gradients and slice partials, nothing
+# shared: capped at 32 chains, the ELBO threads of one warp, at d = 11, and
+# 6 at d = 512), the three minibatch transports
 # at n = 16,384, B = 512 (the staged slab 125 KB), and a design too large
 # for the aligned layout (771 x 61, the kDensePlain group: one chain).
 G_LAYOUTS = {
     "flagship": (("logreg", 208, 61, 0, 10, 62, 8), (72800, 51584, 21120), 8),
     "flagship-cocob": (("logreg", 208, 61, 0, 10, 62, 14), (74288, 51584, 22608), 8),
-    "gaussian": (("gaussian", 0, 0, 0, 10, 11, 8), (2176, 0, 2072), MAX_CHAINS_PER_BLOCK),
-    "gaussian-512": (("gaussian", 0, 0, 0, 10, 512, 8), (82336, 0, 82352), 2),
+    "gaussian": (("gaussian", 0, 0, 0, 10, 11, 8), (1384, 0, 1384), MAX_CHAINS_PER_BLOCK),
+    "gaussian-512": (("gaussian", 0, 0, 0, 10, 512, 8), (33292, 0, 33292), 6),
     "inplace": (("logreg_minibatch", 16384, 61, 512, 10, 62, 8), (33632, 256, 33280), 6),
     "staged": (("logreg_minibatch_staged", 16384, 61, 512, 10, 62, 8),
                (158560, 125184, 33280), 3),
@@ -453,10 +455,12 @@ def test_chains_per_block_asks_the_kernel_for_the_engines_layout(flagship):
 
 def test_chains_per_block_is_one_for_ad_and_wide_chains(flagship):
     """K5's generated body is placed for one chain, and a block of several
-    chains maps one lane a thread (d <= 512)."""
+    chains maps one lane a thread (d <= 512) but on the diagonal Gaussian,
+    whose kGauss block takes the chains' 4-column groups in turn (any d)."""
     small = _block_bytes("gaussian")
     assert chains_per_block("ad", 4096, 132, 62, small) == 1
-    assert chains_per_block("gaussian", 4096, 132, 513, small) == 1
+    assert chains_per_block("logreg", 4096, 132, 513, small) == 1
+    assert chains_per_block("gaussian", 4096, 132, 513, small) > 1
     assert chains_per_block("gaussian", 4096, 132, 512, small) > 1
     _, tprob, _, spec = flagship
     assert [FusedChainsADVI(spec, n_chains=C).chains_per_block(

@@ -1353,12 +1353,15 @@ G_CASES = {
     "prox": (CHAIN_CASES["prox-dowg"], "logreg"),
     "gaussian": (dict(), "gaussian-11"),
     "gaussian-512": (dict(), "gaussian-512"),
+    "gaussian-2048": (dict(), "gaussian-2048"),
     "inplace-minibatch": (dict(), "inplace"),
     "prefetch-minibatch": (dict(), "prefetch"),
 }
-# the largest G each layout fits where it is below 32 (the flagship's is 8)
+# the largest G each layout fits where it is below 32 (the flagship's is 8;
+# the diagonal Gaussian's kGauss block, csrc/fused_gauss_body.cuh, 6 at
+# d = 512 and 2 at 2,048)
 G_CAPS = {"staged-minibatch": 3, "prefetch-minibatch": 3, "inplace-minibatch": 6,
-          "gaussian-512": 2}
+          "gaussian-512": 6, "gaussian-2048": 2}
 
 
 def _g_spec(dev, which):
@@ -1462,8 +1465,9 @@ def test_chains_blocks_of_g_chains_match_plain_version(dev, case):
 def test_chains_shared_memory_is_the_single_chain_kernels(dev):
     """A block of one chain takes the single-chain kernel's layout, a block
     of G chains the model's data once and G chains' arrays (the figures
-    tests/test_torch_fused_chains.py's G_LAYOUTS hands the wrapper's rule),
-    a design too large for the aligned layout (771 x 61) runs one chain a
+    tests/test_torch_fused_chains.py's G_LAYOUTS hands the wrapper's rule;
+    the diagonal Gaussian's kGauss layout G chains' arrays and nothing
+    shared), a design too large for the aligned layout (771 x 61) runs one chain a
     block, and what does not fit one chain's block runs the kWide layout,
     one chain a block."""
     chains = _build.function("fused_chains", "fused_chains_smem_bytes", [ctypes.c_int] * 8,
@@ -1478,9 +1482,9 @@ def test_chains_shared_memory_is_the_single_chain_kernels(dev):
             (0, (2600, 20, 0, 10, 21, 8), (326176, 218400, 107672)),
             (0, (3400, 16, 0, 10, 17, 8), (370336, 231200, 139032)),
             (0, (771, 61, 0, 10, 62, 8), (232384, 191208, 41080)),
-            (2, (0, 0, 0, 10, 11, 8), (2176, 0, 2072)),
-            (2, (0, 0, 0, 10, 512, 8), (82336, 0, 82352)),
-            (2, (0, 0, 0, 10, 512, 14), (94624, 0, 94640)),
+            (2, (0, 0, 0, 10, 11, 8), (1384, 0, 1384)),
+            (2, (0, 0, 0, 10, 512, 8), (33292, 0, 33292)),
+            (2, (0, 0, 0, 10, 512, 14), (45580, 0, 45580)),
             (3, (4096, 61, 512, 10, 62, 8), (33632, 256, 33280)),
             (3, (16384, 61, 512, 10, 62, 8), (33632, 256, 33280)),
             (4, (4096, 61, 512, 16, 62, 14), (178504, 125184, 53224)),
@@ -1665,8 +1669,9 @@ WIDE_CASES = ["gaussian_d2048", "gaussian_d512_n128", "logreg_512x199", "mvnorma
 
 @pytest.mark.parametrize("name", WIDE_CASES)
 def test_wide_layout_and_mvnormal_match_plain_version(dev, name):
-    """Each configuration on the kWide group, or the dense Gaussian on its
-    kMvn instance (its tier by its size), against the plain version: 30
+    """Each configuration on the kWide group, the dense Gaussian on its
+    kMvn instance (its tier by its size), or the diagonal Gaussian at the
+    sizes that took kWide before its kGauss group, against the plain version: 30
     injected-noise steps within 1e-5 norm-wise, and a chunked Philox run and
     a traced one bitwise the whole run."""
     from advancedvi_jl_tpu_torch.ops.cuda.fused_advi import GROUP_DEVICE_LAYOUT, GROUP_MVNORMAL
@@ -1684,7 +1689,9 @@ def test_wide_layout_and_mvnormal_match_plain_version(dev, name):
     assert torch.allclose(k_elbo, r_elbo, rtol=1e-5, atol=1e-4)
     after = fused_run_chunk_cuda.group_launches
     assert after[GROUP_MVNORMAL] - before[GROUP_MVNORMAL] == int(spec.model == "mvnormal")
-    assert after[GROUP_DEVICE_LAYOUT] - before[GROUP_DEVICE_LAYOUT] == int(name != "mvnormal_d62")
+    # the diagonal Gaussian runs its kGauss group, on no device-memory tier
+    tiered = name != "mvnormal_d62" and spec.model != "gaussian"
+    assert after[GROUP_DEVICE_LAYOUT] - before[GROUP_DEVICE_LAYOUT] == int(tiered)
     base = (spec.model, spec.consts, spec.scalars)
     whole, e1, _ = fused_run_chunk_cuda(*base, rows, (0, 7), 0, 40, n, FusedHyper())
     half, _, _ = fused_run_chunk_cuda(*base, rows, (0, 7), 0, 15, n, FusedHyper())
@@ -1735,16 +1742,18 @@ def test_wide_chains_match_plain_version_and_the_single_chain_kernel(dev, name, 
 
 
 def test_wide_workspace_is_returned_after_each_chunk(dev):
-    """The kWide workspace is allocated for a launch and handed back to the
+    """The kWide workspace (K5's quartic at d = 2,048, n = 10: its scratch,
+    u, z and g on tier 3) is allocated for a launch and handed back to the
     caching allocator after it: chunk after chunk, the allocated bytes come
     back to where they were and the reserved ones stop growing."""
-    from advancedvi_jl_tpu_torch.ops.cuda.fused_advi import fused_layout
+    from advancedvi_jl_tpu_torch.ops.cuda.fused_advi import KWIDE, fused_layout
     from advancedvi_jl_tpu_torch.ops.cuda.fused_chains import FusedChainsADVI
 
-    spec, n = _wide_spec(dev, "gaussian_d2048")
-    assert fused_layout("fused_advi_meanfield")(MODEL_CODES["gaussian"], 0, 0, 0, n, 2048,
-                                                8)[2] == 3 * n * 2048
+    spec, n, _, _ = _tier_spec(dev, "ad_quartic_d2048_n10")
     eng = FusedADVI(spec, n_samples=n)
+    group, _, ws, tier = fused_layout("fused_advi_meanfield", eng.ad.source)(
+        MODEL_CODES["ad"], 0, 0, 0, n, 2048, 8)
+    assert (group, tier) == (KWIDE, 3) and ws >= 3 * n * 2048
     ch = FusedChainsADVI(spec, n_chains=C8, n_samples=n)
     st, cs = _init(eng, 0.1), ch.init(torch.zeros(C8, 2048), 0.1 * torch.ones(C8, 2048))
     st, cs = eng.run_chunk(st, 0, 5), ch.run_chunk(cs, 0, 5)
@@ -1755,6 +1764,115 @@ def test_wide_workspace_is_returned_after_each_chunk(dev):
         torch.cuda.synchronize()
         assert torch.cuda.memory_allocated(dev) == allocated
         assert torch.cuda.memory_reserved(dev) == reserved
+
+
+# The diagonal Gaussian's kGauss group (csrc/fused_gauss_body.cuh): every
+# width JAX takes at n = 10 (d = 11: the normal-lognormal's width; 62: one
+# slice of 16 lanes; 512 and 2,048: four and sixteen 32-lane slices) and
+# d = 512 at n = 128, under every kind of rule
+GAUSS_SHAPES = [(11, N), (62, N), (512, N), (2048, N), (512, 128)]
+GAUSS_BRANCHES = {
+    "adam": FusedBranch(),
+    "descent-prox": PROX[0],
+    "dowg": FusedBranch("dowg", "stl", "repgrad", "clip"),
+    "cocob": COCOB_FR,
+    "vargrad": FusedBranch("adam", "stl", "scoregrad", "clip"),
+}
+
+
+def _gauss_engine(dev, d, n, branch):
+    g = torch.Generator().manual_seed(d)
+    spec = gaussian_spec(torch.randn(d, generator=g).to(dev),
+                         (0.5 + torch.rand(d, generator=g)).to(dev))
+    eng = FusedADVI(spec, n_samples=n, lr=1e-3)
+    eng.algo, eng.entropy, eng.grad_est, eng.operator = (
+        branch.algo, branch.entropy, branch.grad_est, branch.operator)
+    eng.alpha = 1e-2  # DoWG's r0 scale: see tests/test_torch_prox_scoregrad.py
+    st = eng.init((0.2 * torch.randn(d, generator=g)).to(dev), 0.1 * torch.ones(d, device=dev))
+    return spec, eng, st.stacked()
+
+
+@pytest.mark.parametrize("branch", list(GAUSS_BRANCHES))
+@pytest.mark.parametrize("d,n", GAUSS_SHAPES, ids=[f"d{d}-n{n}" for d, n in GAUSS_SHAPES])
+def test_gauss_group_matches_plain_version(dev, d, n, branch):
+    """kGauss at each width and branch, on no workspace: 30 injected-noise
+    steps within 1e-5 norm-wise of the plain version (ELBO and trace too),
+    40 Philox steps within 1e-4, and bitwise its 15 + 25 chunks and its
+    traced run.  DoWG starts after 300 steps of the kernel (its cold start
+    is rounding-dominated: chip_smoke.py's WARM).  VarGrad's coefficients
+    cancel log densities of the size of d, so its noise steps are held to a
+    float64 run of the plain version: each row within 1e-5 of it
+    norm-wise, or no further from it than twice the float32 plain version
+    is (the bar of VarGrad COCOB on the 771 x 61 logreg);
+    the ELBO's absolute bar grows to 8 float32 ulps of its terms' size
+    (|lognorm| + d) where that is larger than 1e-4."""
+    from advancedvi_jl_tpu_torch.ops.cuda.fused_advi import KGAUSS, GROUP_GAUSSIAN, fused_layout
+
+    b = GAUSS_BRANCHES[branch]
+    spec, eng, rows = _gauss_engine(dev, d, n, b)
+    group, _, ws, tier = fused_layout("fused_advi_meanfield")(MODEL_CODES["gaussian"], 0, 0, 0,
+                                                              n, d, rows.shape[0])
+    assert (group, ws, tier) == (KGAUSS, 0, -1)
+    base, hyp = (spec.model, spec.consts, spec.scalars), eng.hyp
+    it0 = 0
+    if b.algo == "dowg":
+        rows, _, _ = fused_run_chunk_cuda(*base, rows, (0, 9), 0, 300, n, hyp, None, 0, b)
+        it0 = 300
+    atol = max(1e-4, 8 * 2.0 ** -23 * (abs(spec.scalars[0]) + d))
+    noise = torch.randn((30, n, d), generator=torch.Generator().manual_seed(2)).to(dev)
+    was = fused_run_chunk_cuda.group_launches[GROUP_GAUSSIAN]
+    args = (*base, rows, (0, 5), it0, 30, n, hyp, noise, 5, b)
+    k_rows, k_elbo, k_tr = fused_run_chunk_cuda(*args)
+    r_rows, r_elbo, r_tr = fused_run_chunk_reference(*args)
+    whole, e1, _ = fused_run_chunk_cuda(*base, rows, (0, 7), it0, 40, n, hyp, None, 0, b)
+    plain, e0, _ = fused_run_chunk_reference(*base, rows, (0, 7), it0, 40, n, hyp, None, 0, b)
+    half, _, _ = fused_run_chunk_cuda(*base, rows, (0, 7), it0, 15, n, hyp, None, 0, b)
+    two, e2, _ = fused_run_chunk_cuda(*base, half, (0, 7), it0 + 15, 25, n, hyp, None, 0, b)
+    traced, e3, trace = fused_run_chunk_cuda(*base, rows, (0, 7), it0, 40, n, hyp, None, 10, b)
+    torch.cuda.synchronize()
+    assert fused_run_chunk_cuda.group_launches[GROUP_GAUSSIAN] == was + 5
+    if b.grad_est == "scoregrad":
+        r64, _, _ = fused_run_chunk_reference(
+            spec.model, tuple(t.double() for t in spec.consts), spec.scalars, rows.double(),
+            (0, 5), it0, 30, n, hyp, noise.double(), 5, b)
+        for a_, b_, c_ in zip(k_rows.double(), r_rows.double(), r64):
+            own = float((b_ - c_).abs().max())
+            assert float((a_ - c_).abs().max()) <= max(2 * own, 1e-5 * float(c_.abs().max()))
+    else:
+        _norm_close(k_rows, r_rows, 1e-5)
+    assert torch.allclose(k_elbo, r_elbo, rtol=1e-5, atol=atol)
+    assert torch.allclose(k_tr, r_tr, rtol=1e-5, atol=atol)
+    _norm_close(whole, plain, 1e-4)
+    assert torch.allclose(e1, e0, rtol=1e-4, atol=max(atol, 1e-3))
+    assert torch.equal(whole, two) and torch.equal(e1, e2)
+    assert torch.equal(whole, traced) and torch.equal(e1, e3) and float(trace[-1]) == float(e1)
+
+
+def test_gauss_group_needs_no_workspace_at_any_width(dev):
+    """The widest Gaussian JAX takes, d = 2,048 and n = 128 with COCOB's 14
+    state rows, on the mean-field kernel and on K6 at any G: the kGauss
+    group with no workspace, the kernel's count of its shared memory
+    (gauss::layout_for: 14 and 2 rows of d, 2 x 128 x 16 slice partials,
+    16, 128, 2 x 64, 5), and 10 injected-noise steps within 1e-5 of the plain
+    version."""
+    from advancedvi_jl_tpu_torch.ops.cuda.fused_advi import KGAUSS, fused_layout
+
+    code, n, d = MODEL_CODES["gaussian"], 128, 2048
+    floats = 14 * d + 2 * d + 2 * n * 16 + 16 + n + 2 * 64 + 5
+    assert fused_layout("fused_advi_meanfield")(code, 0, 0, 0, n, d, 14) == \
+        (KGAUSS, 4 * floats, 0, -1)
+    for G in (1, 2):
+        assert fused_layout("fused_chains")(code, 0, 0, 0, n, d, 14, G) == \
+            (KGAUSS, 4 * G * floats, 0, -1)
+    spec, eng, rows = _gauss_engine(dev, d, n, COCOB_FR)
+    noise = torch.randn((10, n, d), generator=torch.Generator().manual_seed(3)).to(dev)
+    args = (spec.model, spec.consts, spec.scalars, rows, (0, 1), 0, 10, n, eng.hyp, noise, 0,
+            COCOB_FR)
+    k_rows, k_elbo, _ = fused_run_chunk_cuda(*args)
+    r_rows, r_elbo, _ = fused_run_chunk_reference(*args)
+    torch.cuda.synchronize()
+    _norm_close(k_rows, r_rows, 1e-5)
+    assert torch.allclose(k_elbo, r_elbo, rtol=1e-5, atol=1e-4)
 
 
 @pytest.mark.parametrize("n", [1, N, 128])
