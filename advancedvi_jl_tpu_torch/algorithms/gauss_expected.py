@@ -12,7 +12,9 @@ algorithms/gauss_expected.py; reference gauss_expected_grad_hess.jl:20-80).
 Under a device mesh with ``mc_axis`` each rank draws its rows; the three
 means become its rows' means weighted by rows / n, summed over the axis
 and averaged over the others (``reduce_shares``: a data axis's blocks),
-and the solve runs on every rank.
+and the solve runs on every rank.  The rows are the estimate's split terms
+(``terms_split``): a target whose data axis is ``mc_axis`` evaluates them
+on every row of its data.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ from ..core.problem import (
 )
 from ..families.location_scale import FullRankLocationScale
 from ..objectives.repgradelbo import draw_with_base, mc_share
-from ..parallel.mesh import reduce_shares
+from ..parallel.mesh import reduce_shares, terms_split
 
 
 def check_capability_at_least_grad(prob: Any, alg_name: str) -> None:
@@ -73,13 +75,14 @@ def gaussian_expected_grad_hess(
         )
     q_draw, rows = mc_share(q, n_samples, mc_axis)
     z, u = draw_with_base(q_draw, key, n_samples, noise, rows)  # one K7b launch on the card
-    if order == ORDER_GRAD or hessian == "stein":
-        # Stein/Price identity: E[hess] = C^-T E[u grad(C u + m)^T]
-        logpi, grads = log_density_and_grad(prob, z)
-        means = [torch.mean(logpi), torch.mean(grads, dim=0), (u.T @ grads) / z.shape[0]]
-    else:
-        logpi, grads, hesses = log_density_grad_and_hess(prob, z)
-        means = [torch.mean(logpi), torch.mean(grads, dim=0), torch.mean(hesses, dim=0)]
+    with terms_split(mc_axis):
+        if order == ORDER_GRAD or hessian == "stein":
+            # Stein/Price identity: E[hess] = C^-T E[u grad(C u + m)^T]
+            logpi, grads = log_density_and_grad(prob, z)
+            means = [torch.mean(logpi), torch.mean(grads, dim=0), (u.T @ grads) / z.shape[0]]
+        else:
+            logpi, grads, hesses = log_density_grad_and_hess(prob, z)
+            means = [torch.mean(logpi), torch.mean(grads, dim=0), torch.mean(hesses, dim=0)]
     if rows is not None:
         means = [m * (rows[1] / n_samples) for m in means]
     logpi_avg, grad, hess = reduce_shares(means, mc_axis)  # as they are outside a mesh

@@ -38,7 +38,7 @@ from ..objectives.repgradelbo import RepGradELBO, draw_with_base, mc_share
 from ..objectives.subsampled import SubsampledObjective
 from ..ops.cuda.location_scale_kernels import PhiloxKey, SeedLike, seed_words
 from ..ops.sqrtm import _symmetrize, sqrtm_newton_schulz
-from ..parallel.mesh import all_gather_rows, reduce_shares
+from ..parallel.mesh import all_gather_rows, reduce_shares, terms_split
 from .gauss_expected import (
     check_capability_at_least_grad,
     gaussian_expected_grad_hess,
@@ -315,7 +315,8 @@ class FisherMinBatchMatch(MeasureSpaceAlgorithm):
         C = q.tril_scale()
         q_draw, rows = mc_share(q, n, self.mc_axis)
         z, u = draw_with_base(q_draw, PhiloxKey(state.seed, state.iteration), n, noise, rows)
-        logpi, grads = log_density_and_grad(prob_sub, z)
+        with terms_split(self.mc_axis):  # a target with its data on mc_axis takes every row
+            logpi, grads = log_density_and_grad(prob_sub, z)
         # under a mesh: a data axis's blocks averaged, then every rank's rows
         # in order (the batch moments need them all)
         logpi, grads = reduce_shares([logpi, grads], self.mc_axis, sum_mc=False)

@@ -25,7 +25,8 @@ Warm start: pass the returned ``state`` back as ``state=``.
 ``mesh`` (``parallel.make_vi_mesh``): the run happens under the mesh
 (``parallel.mesh.use_mesh``), its state initialised on every rank and
 broadcast from the first; the objective's ``mc_axis`` splits the draws and
-the target's ``data_axis`` the data.  The reduced ELBO is the same on every
+the target's ``data_axis`` the data (where both are one axis, each rank
+evaluates its draws on every row).  The reduced ELBO is the same on every
 rank, so every rank raises a divergence at the same step and returns the
 same output.
 

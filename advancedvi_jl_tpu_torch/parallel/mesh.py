@@ -10,6 +10,15 @@ Two mesh axes map the two embarrassingly parallel axes of VI:
   block of the data (or of the step's minibatch), and the blocks' sums are
   summed over the axis (``data_psum``).
 
+A target's data axis may be the axis that splits the estimate's terms (an
+objective's ``mc_axis``, a mixture's ``ep_axis``; ``terms_split``).  Its
+ranks then hold different draws, and each evaluates its own draws on every
+row of the data: ``shard_axis0`` keeps the whole data and ``data_psum`` is
+the identity over that axis.  That is the same work as the blocks (n_j
+draws on n rows against n draws on n_j rows), the data are whole on every
+rank already (a row block is a view of them), no draw and no gradient
+crosses the axis, and each draw's log density has the one-process value.
+
 Everything else (the variational parameters, the optimizer and averager
 states) is replicated.  The mesh is a ``torch.distributed`` ``DeviceMesh``
 of shape (n_data, n_mc) named ("data", "mc") over the default process
@@ -38,8 +47,7 @@ and hands each rank its share (the axis size times the exact gradient,
 which the average in ``reduce_shares`` makes exact, whether the computation
 after the gather is replicated or takes a data block a rank).  A mixture's
 components split the ELBO's terms, so ``reduce_shares`` sums over
-``ep_axis`` as over "mc".  A target's data axis cannot be an axis that
-splits the terms (``terms_split``): its ranks hold different draws.
+``ep_axis`` as over "mc".
 
 Outside a mesh, or for an axis the active mesh lacks, every helper is a
 no-op (JAX's ``shard_axis0`` rule), so an object configured with
@@ -170,8 +178,12 @@ def rows_of(n: int, axis: Optional[str]) -> Optional[Tuple[int, int]]:
 
 
 def mc_rows(n: int, axis: Optional[str]) -> Optional[Tuple[int, int]]:
-    """``rows_of`` for n Monte-Carlo draws; raises where a rank would draw
-    none (its share's mean would be empty)."""
+    """``rows_of`` for n Monte-Carlo draws, None on an axis of one rank too
+    (its rank holds every row, and the estimate takes the path without a
+    mesh, bit for bit); raises where a rank would draw none (its share's
+    mean would be empty)."""
+    if axis_size(axis) == 1:
+        return None
     rows = rows_of(n, axis)
     if rows is not None and rows[1] == 0:
         raise ValueError(
@@ -181,10 +193,20 @@ def mc_rows(n: int, axis: Optional[str]) -> Optional[Tuple[int, int]]:
     return rows
 
 
+def data_split(axis: Optional[str]) -> Optional[str]:
+    """The axis over which a target's data rows split here: ``axis``, or
+    None outside a mesh with that axis and while the axis splits the
+    running estimate's terms (``terms_split``), where each rank evaluates
+    the draws it holds on every row."""
+    if mesh_of(axis) is None or axis in _SPLIT:
+        return None
+    return axis
+
+
 def shard_axis0(x: torch.Tensor, axis: Optional[str]) -> torch.Tensor:
-    """This rank's row block of axis 0 of ``x`` over ``axis`` (a view); ``x``
-    outside a mesh with that axis."""
-    rows = rows_of(x.shape[0], axis)
+    """This rank's row block of axis 0 of a target's data ``x`` over the data
+    axis ``axis`` (a view); ``x`` where ``data_split`` finds no split."""
+    rows = rows_of(x.shape[0], data_split(axis))
     if rows is None:
         return x
     return x.narrow(0, rows[0], rows[1])
@@ -247,9 +269,9 @@ _SPLIT: List[Optional[str]] = []
 def terms_split(axis: Optional[str]):
     """While the body runs, the ranks of ``axis`` evaluate different terms
     of the estimate (the draws' rows over an objective's ``mc_axis``, a
-    mixture's components over ``ep_axis``): a target's ``data_psum`` over
-    that same axis refuses, since it would add up the likelihoods of
-    different draws."""
+    mixture's components over ``ep_axis``): a target whose data axis is
+    that same axis evaluates each rank's draws on every row of its data
+    (``data_split``)."""
     _SPLIT.append(axis)
     try:
         yield
@@ -261,19 +283,13 @@ def data_psum(x: torch.Tensor, axis: Optional[str]) -> torch.Tensor:
     """Sum over the data axis of a partial log-likelihood (one value a
     draw): every rank gets the full sum, and the gradient reaches this
     rank's block scaled by the axis size; ``reduce_shares``' average over
-    the axis makes the gradient the sum of the blocks'.  ``x`` outside a
-    mesh with that axis.  Refused over an axis of more than one rank whose
-    ranks hold different draws (``terms_split``)."""
-    axes = mesh_of(axis)
+    the axis makes the gradient the sum of the blocks'.  ``x`` where
+    ``data_split`` finds no split (outside a mesh with that axis, and over
+    an axis that splits the estimate's terms, whose ranks evaluated their
+    own draws on every row)."""
+    axes = mesh_of(data_split(axis))
     if axes is None:
         return x
-    if axis in _SPLIT and axes.size[axis] > 1:
-        raise ValueError(
-            f"the target's data_axis {axis!r} is also the axis that splits the estimate's "
-            "draws (the objective's mc_axis) or a mixture's components (ep_axis): its ranks "
-            "hold different draws, whose likelihoods a sum over it would add up; put the "
-            "data on another mesh axis"
-        )
     return _DataPsum.apply(x, axes, axis)
 
 

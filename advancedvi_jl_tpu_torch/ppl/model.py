@@ -59,7 +59,7 @@ import torch
 
 from ..core.factorized import _first_tensor, _map_data
 from ..core.problem import ORDER_AUTOGRAD, fn_target
-from ..parallel.mesh import data_psum, mesh_of, rows_of, shard_axis0
+from ..parallel.mesh import data_psum, data_split, rows_of, shard_axis0
 from ..core.transforms import (
     Blockwise,
     Identity,
@@ -297,7 +297,7 @@ class PPLTarget:
         return ORDER_AUTOGRAD
 
     def log_density(self, theta: torch.Tensor) -> torch.Tensor:
-        if mesh_of(self.data_axis) is not None:
+        if data_split(self.data_axis) is not None:
             return self._sharded_log_density(theta)
 
         def one(th):

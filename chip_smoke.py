@@ -174,6 +174,12 @@ Phases:
       rows, and, counted, the flagship on the (1 x 2) "mc" and (2 x 1) "data"
       meshes for MESH_RANK_STEPS (the ranks equal, within rtol 1e-5 of one
       process) and ``run_sharded`` at C = 1,024 (bitwise ``run_chunk``);
+      then the same-axis group, the flagship's rows on the axis that splits
+      the terms (``SAME_AXIS_RUNS``): its general ADVI with ``mc_axis`` and
+      20 NGD and 20 BaM steps on (1 x 2), the K = 4 mixture with
+      ``ep_axis="data"`` on (2 x 1), each counted, its ranks equal, within
+      rtol 1e-5, atol 1e-6 of one process (on injected draws and after the
+      run), its ELBOs finite, with its steps/s and launches;
   (ae) a family's parameters over the mesh and compute_dtype="bfloat16":
       the bf16 sampling product (csrc/fullrank_bf16.cu) against its plain
       version at (ae)'s and K7b's test shapes (NaN above C's diagonal) and
@@ -5185,10 +5191,16 @@ MESH_CHAINS = (64, CHAINS_WIDE_C)  # run_sharded on one rank, on two (G = 8 at o
 MESH_CHAIN_STEPS = 200
 MESH_RTOL, MESH_ATOL = 1e-5, 1e-6  # tests/test_parallel.py's bars
 MESH_RANKS_TIMEOUT = 300
-# each sampler at a row offset: the global (n, d) or (n, d, r) draw, two
-# ranks drawing half its rows each
-MESH_ROW_SHAPES = {"meanfield_sample": (N_SAMPLES, N_FEATURES + 2),
-                   "fullrank_sample": FR_SHAPE, "lowrank_sample": LR_SHAPE}
+# each sampler at a row offset: the global (n, d) or (n, d, r) draws, two
+# ranks drawing half their rows each (K7b's second: the same-axis NGD and BaM)
+MESH_ROW_SHAPES = {"meanfield_sample": [(N_SAMPLES, N_FEATURES + 2)],
+                   "fullrank_sample": [FR_SHAPE, (N_SAMPLES, N_FEATURES + 2)],
+                   "lowrank_sample": [LR_SHAPE]}
+# the same-axis group: the target's rows on the axis that splits the terms
+# (the objective's "mc" on the (1 x 2) mesh, the mixture's ep_axis "data" on
+# (2 x 1)); its steps and its mesh (n_data, n_mc)
+SAME_AXIS_RUNS = {"advi": (200, (1, 2)), "ngd": (20, (1, 2)), "bam": (20, (1, 2)),
+                  "mixture": (100, (2, 1))}
 
 
 def mesh_flagship_run(dev, steps, mesh, family="meanfield"):
@@ -5240,7 +5252,7 @@ def mesh_rows(dev, rank, parts=2):
     from advancedvi_jl_tpu_torch.parallel.mesh import block
 
     seed, it, worst = lsk.seed_words(SEED), 6, {}
-    for name, shape in MESH_ROW_SHAPES.items():
+    for name, shape in ((k, t) for k, ts in MESH_ROW_SHAPES.items() for t in ts):
         n, d = shape[:2]
         row0, k = block(n, parts, rank)
         g = torch.Generator().manual_seed(d)
@@ -5264,7 +5276,7 @@ def mesh_rows(dev, rank, parts=2):
         z_plain = bool(torch.equal(mine[0], ref[0]))
         z_whole = bool(torch.equal(mine[0], whole[0][rows]))
         rel = rel_err(mine[0], ref[0])
-        worst[name] = max_err(mine[0], ref[0])
+        worst[name] = max(worst.get(name, 0.0), max_err(mine[0], ref[0]))
         say("ad", rank=rank, kernel=name, shape="x".join(map(str, shape)), rows=f"{row0}+{k}",
             u_bitwise=u_ok, z_bitwise_plain=z_plain, z_bitwise_whole_rows=z_whole,
             z_rel_err_plain=rel, z_max_abs_err_whole=max_err(mine[0], whole[0][rows]))
@@ -5281,8 +5293,8 @@ def mesh_rank(rank: int, port: int, outdir: Path) -> int:
     """(ad) One of two ranks sharing the card over gloo (``chip_smoke.py
     --mesh-rank RANK PORT OUTDIR``): the samplers at its row offset, the
     flagship on the (1 x 2) and (2 x 1) meshes, ``run_sharded`` at
-    C = 1,024; writes its results and its main-path launches and launch
-    shapes to OUTDIR/rank<RANK>.pt."""
+    C = 1,024, the same-axis group (``same_axis_rank``); writes its results
+    and its main-path launches and launch shapes to OUTDIR/rank<RANK>.pt."""
     import torch.distributed as dist
 
     import advancedvi_jl_tpu_torch as avt
@@ -5307,11 +5319,134 @@ def mesh_rank(rank: int, port: int, outdir: Path) -> int:
         new = eng.run_sharded(st, SEED, MESH_CHAIN_STEPS, mesh)
         torch.cuda.synchronize()
     out["chains"] = [new.stacked().cpu(), new.elbo.cpu()]
+    out["same_axis"] = same_axis_rank(dev, tally)
     out["launches"], out["shapes"] = dict(tally.counts), tally.shapes
     torch.save(out, outdir / f"rank{rank}.pt")
     distributed.sync_hosts("written")
     dist.destroy_process_group()
     return 0
+
+
+def same_axis_problem(dev, name):
+    """(algorithm, target, initial family) of one same-axis run on the
+    flagship, its rows on the axis that splits the terms: "advi" the
+    flagship's general ADVI (STL, Adam, ClipScale, averaging) with
+    ``mc_axis="mc"``, "ngd" and "bam" from N(0, 0.1^2 I) with
+    ``mc_axis="mc"``, "mixture" (ab)'s K = 4 mean-field mixture with
+    ``MixtureELBO(ep_axis="data")``; N_SAMPLES draws each."""
+    import advancedvi_jl_tpu_torch as avt
+
+    axis = avt.DATA_AXIS if name == "mixture" else avt.MC_AXIS
+    prob = dataclasses.replace(flagship(dev), data_axis=axis).unconstrained()
+    d, zeros = prob.dim, torch.zeros(prob.dim, device=dev)
+    if name == "advi":
+        return (avt.KLMinRepGradDescent(entropy=avt.STL, n_samples=N_SAMPLES,
+                                        optimizer=avt.adam(LR), operator=avt.ClipScale(),
+                                        mc_axis=axis),
+                prob, avt.MeanFieldGaussian(zeros, 0.1 * torch.ones(d, device=dev)))
+    if name == "mixture":
+        return (avt.ParamSpaceSGD(avt.MixtureELBO(n_samples=N_SAMPLES, entropy="stl",
+                                                  ep_axis=axis),
+                                  avt.adam(LR), avt.PolynomialAveraging(), avt.ClipScale()),
+                prob, avt.mixture_meanfield(SEED, d, AB_MIX_K, 0.1, 0.1, device=dev))
+    alg = (avt.KLMinNaturalGradDescent(stepsize=0.05, n_samples=N_SAMPLES, mc_axis=axis)
+           if name == "ngd" else avt.FisherMinBatchMatch(n_samples=N_SAMPLES, mc_axis=axis))
+    return alg, prob, avt.FullRankGaussian(zeros, 0.1 * torch.eye(d, device=dev))
+
+
+def same_axis_injected(dev, name, mesh):
+    """One gradient estimate ("advi", "mixture") or one step ("ngd", "bam")
+    of the same-axis run on fixed base draws injected as ``noise``, under
+    ``mesh`` (None: one process): its tensors on the host."""
+    from contextlib import nullcontext
+
+    from advancedvi_jl_tpu_torch.parallel.mesh import use_mesh
+
+    alg, prob, q0 = same_axis_problem(dev, name)
+    shape = (AB_MIX_K, N_SAMPLES, prob.dim) if name == "mixture" else (N_SAMPLES, prob.dim)
+    u = torch.randn(*shape, generator=torch.Generator().manual_seed(5)).to(dev)
+    with nullcontext() if mesh is None else use_mesh(mesh):
+        if name in ("ngd", "bam"):
+            st, info = alg.step(alg.init(SEED, q0, prob), noise=u)
+            out = [st.q.location, st.q.scale, info["elbo"]]
+        else:
+            grad, _, info = alg.objective.value_and_grad(q0, prob, None, noise=u)
+            out = ae_leaves(grad) + [info["elbo"]]
+    return [t.detach().cpu() for t in out]
+
+
+def same_axis_run(dev, name, mesh):
+    """The same-axis run through ``optimize`` under ``mesh`` (None: one
+    process), a row a step: (its family's tensors on the host, its ELBOs,
+    seconds)."""
+    import advancedvi_jl_tpu_torch as avt
+
+    alg, prob, q0 = same_axis_problem(dev, name)
+    steps = SAME_AXIS_RUNS[name][0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    q, rows, _ = avt.optimize(SEED, alg, steps, prob, q0, mesh=mesh, log_every=1)
+    torch.cuda.synchronize()
+    return ae_leaves(q), [r["elbo"] for r in rows], time.perf_counter() - t0
+
+
+def same_axis_rank(dev, tally):
+    """(ad) A rank's same-axis group: each run's injected-draws estimate and
+    its counted ``optimize`` run, with the run's own launches and launch
+    shapes (added to ``tally``'s too)."""
+    import advancedvi_jl_tpu_torch as avt
+
+    meshes = {s: avt.make_vi_mesh(n_mc=s[1], n_data=s[0]) for s in ((1, 2), (2, 1))}
+    out = {}
+    for name, (_, shape) in SAME_AXIS_RUNS.items():
+        injected = same_axis_injected(dev, name, meshes[shape])
+        run = Tally()
+        with run.run():
+            leaves, elbos, secs = same_axis_run(dev, name, meshes[shape])
+        tally.counts.update(run.counts)
+        for kernel, seen in run.shapes.items():
+            tally.shapes.setdefault(kernel, set()).update(seen)
+        out[name] = {"injected": injected, "leaves": leaves, "elbos": elbos, "seconds": secs,
+                     "launches": {k: v for k, v in run.counts.items() if v},
+                     "shapes": {k: sorted(v) for k, v in run.shapes.items() if v}}
+    return out
+
+
+def same_axis_check(res, ref):
+    """(ad) Each same-axis run of the two ranks (``res``) against one process
+    on the card (``ref``: each run's injected-draws estimate and
+    ``same_axis_run`` without a mesh): the ranks equal; the injected-draws
+    estimate within MESH_RTOL, MESH_ATOL; the run's family within them too
+    and its ELBOs finite.  Prints each run's steps/s and launches."""
+    for name, (steps, shape) in SAME_AXIS_RUNS.items():
+        inj, (leaves, elbos, secs) = ref[name]
+        got = [r["same_axis"][name] for r in res]
+        equal = all(torch.equal(a, b) for a, b in zip(got[0]["injected"] + got[0]["leaves"],
+                                                       got[1]["injected"] + got[1]["leaves"]))
+        equal = equal and got[0]["elbos"] == got[1]["elbos"]
+        inj_err = max(max_err(a, b) for a, b in zip(got[0]["injected"], inj))
+        inj_close = all(torch.allclose(a, b, rtol=MESH_RTOL, atol=MESH_ATOL)
+                        for a, b in zip(got[0]["injected"], inj))
+        run_err = max(max_err(a, b) for a, b in zip(got[0]["leaves"], leaves))
+        run_close = all(torch.allclose(a, b, rtol=MESH_RTOL, atol=MESH_ATOL)
+                        for a, b in zip(got[0]["leaves"], leaves))
+        finite = all(math.isfinite(e) for e in got[0]["elbos"])
+        launches = ",".join(f"{k}:{v}" for k, v in sorted(got[0]["launches"].items()))
+        shapes = ",".join(f"{k}@" + "+".join("x".join(map(str, t)) for t in v)
+                          for k, v in sorted(got[0]["shapes"].items()))
+        say("ad", same_axis=name, mesh=f"{shape[0]}x{shape[1]}", steps=steps,
+            ranks_equal=equal, injected_max_abs_diff=inj_err, injected_within_rtol=inj_close,
+            run_max_abs_diff=run_err, run_within_rtol=run_close, tail_finite=finite,
+            elbo=got[0]["elbos"][-1], one_process_elbo=elbos[-1],
+            steps_per_s=f"{steps / max(r['seconds'] for r in got):.1f}",
+            one_process_steps_per_s=f"{steps / secs:.1f}",
+            rank0_launches=launches, rank0_shapes=shapes)
+        check(equal, f"(ad) the ranks of the same-axis {name} run differ")
+        check(inj_close, f"(ad) same-axis {name} on injected draws is over rtol {MESH_RTOL} "
+                         f"from one process (max abs diff {inj_err})")
+        check(run_close, f"(ad) the same-axis {name} run is over rtol {MESH_RTOL} from one "
+                         f"process (max abs diff {run_err})")
+        check(finite, f"(ad) the same-axis {name} run's ELBOs are not all finite")
 
 
 def mesh_one_rank(dev, tally):
@@ -5364,8 +5499,9 @@ def mesh_two_ranks(dev, outdir: Path):
     MESH_RANKS_TIMEOUT (killed past it); their flagship runs within
     MESH_RTOL of the one-process run and the same on both ranks,
     ``run_sharded`` at C = 1,024 bit for bit the one-process
-    ``run_chunk``.  Returns (the ranks' launches, their launch shapes, each
-    K7's largest z error on either rank)."""
+    ``run_chunk``, the same-axis group by ``same_axis_check``.  Returns (the
+    ranks' launches, their launch shapes, each K7's largest z error on
+    either rank)."""
     import shutil
 
     from advancedvi_jl_tpu_torch.parallel.distributed import free_port
@@ -5380,6 +5516,8 @@ def mesh_two_ranks(dev, outdir: Path):
     q1, rows1, _ = mesh_flagship_run(dev, MESH_RANK_STEPS, None)
     eng, st = mesh_chains(dev, MESH_CHAINS[1])
     ref_chains = eng.run_chunk(st, SEED, MESH_CHAIN_STEPS)
+    same_ref = {name: (same_axis_injected(dev, name, None), same_axis_run(dev, name, None))
+                for name in SAME_AXIS_RUNS}
     torch.cuda.synchronize()
     outs = []
     try:
@@ -5413,6 +5551,7 @@ def mesh_two_ranks(dev, outdir: Path):
     say("ad", two_ranks_run_sharded=MESH_CHAINS[1], chains_a_rank=MESH_CHAINS[1] // 2,
         one_process_G=eng.chains_per_block(), bitwise_run_chunk=same)
     check(same, "(ad) run_sharded over two ranks differs from run_chunk")
+    same_axis_check(res, same_ref)
     launches = collections.Counter()
     shapes = collections.defaultdict(set)
     for r in res:
@@ -5438,8 +5577,10 @@ def phase_ad(dev, card):
     ranks, rank_shapes, k7_err = mesh_two_ranks(dev, ROOT / "build" / "mesh_ranks")
     counts = tally.counts + ranks
     checked = checked_shapes()
-    for name, (n, *rest) in MESH_ROW_SHAPES.items():
-        checked[name] = checked[name] + [(block(n, 2, r)[1], *rest) for r in range(2)]
+    checked["meanfield_sample"] = checked["meanfield_sample"] + AB_K7A_SHAPES  # the mixture's
+    for name, shapes in MESH_ROW_SHAPES.items():
+        checked[name] = checked[name] + [(block(n, 2, r)[1], *rest)
+                                         for n, *rest in shapes for r in range(2)]
     for kernel in MESH_ROW_SHAPES:
         seen = tally.shapes[kernel] | rank_shapes.get(kernel, set())
         say("ad", **{f"{kernel}_shapes": ",".join("x".join(map(str, t)) for t in sorted(seen))})
@@ -7288,7 +7429,8 @@ def main() -> int:
         entry("fullrank_sample", "fullrank_sample.cu",
               "advancedvi_jl_tpu/ops/pallas/location_scale_kernels.py:110",
               fr_counts["fullrank_sample"] + ms_launches + aa_counts["fullrank_sample"]
-              + ad_counts["fullrank_sample"] + ae_counts["fullrank_sample"],
+              + ad_counts["fullrank_sample"] + ad_ranks["fullrank_sample"]
+              + ae_counts["fullrank_sample"],
               max(fr_samp_err, ms_samp_err, aa_err["fullrank_sample"],
                   ad_k7_err["fullrank_sample"], ae_err["fullrank_sample"]),
               *fr_times["fullrank_sample"]),

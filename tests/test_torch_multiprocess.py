@@ -15,14 +15,13 @@ over ``MixtureELBO(ep_axis=)``), where each rank also records the share its
 products formed (``shares<R>.pt``).
 
 The ranks are this file run as a script (``__main__`` below), launched once
-by a module-scoped fixture: ``python tests/test_torch_multiprocess.py RANK
-WORLD PORT OUTDIR``.  A rank reads OUTDIR/inputs/jax.npz, writes
+by a module-scoped fixture through ``torch_ranks.run_ranks``:
+``python tests/test_torch_multiprocess.py RANK WORLD PORT OUTDIR``.  A rank reads OUTDIR/inputs/jax.npz, writes
 ``rank<R>.pt`` (its results), and rank 0 alone writes ``ckpt.npz`` (after
 ``sync_hosts``).
 """
 
 import os
-import subprocess
 import sys
 
 import numpy as np
@@ -33,8 +32,8 @@ import advancedvi_jl_tpu_torch as avt
 from advancedvi_jl_tpu_torch.models.logreg import LogReg, make_logreg
 from advancedvi_jl_tpu_torch.models.normal import normal_fullrank
 from advancedvi_jl_tpu_torch.ops.cuda.location_scale_kernels import PhiloxKey
+from torch_ranks import close, equal, leaves, run_ranks, under
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORLD = 4
 MESHES = ((1, 4), (2, 2), (4, 1))  # (n_data, n_mc)
 MC, DATA = avt.MC_AXIS, avt.DATA_AXIS
@@ -45,20 +44,6 @@ TIMEOUT = 300
 # ---------------------------------------------------------------------------
 # Scenarios: every rank runs them under a mesh, the tests without one
 # ---------------------------------------------------------------------------
-
-
-def _under(mesh):
-    from contextlib import nullcontext
-
-    from advancedvi_jl_tpu_torch.parallel.mesh import use_mesh
-
-    return nullcontext() if mesh is None else use_mesh(mesh)
-
-
-def _leaves(tree):
-    from advancedvi_jl_tpu_torch.core.pytree import tree_leaves
-
-    return [t.detach().clone() for t in tree_leaves(tree)]
 
 
 def objectives(mesh):
@@ -80,10 +65,10 @@ def objectives(mesh):
         "iwelbo_plain": (avt.IWELBO(n_samples=64, dreg=False, mc_axis=MC), qm),
     }
     out = {}
-    with _under(mesh):
+    with under(mesh):
         for name, (obj, q) in cases.items():
             grad, _, info = obj.value_and_grad(q, target, key)
-            out[name] = _leaves(grad) + [info["elbo"].detach().clone()]
+            out[name] = leaves(grad) + [info["elbo"].detach().clone()]
     return out
 
 
@@ -118,12 +103,12 @@ def jax_objectives(mesh, inputs):
     family = {"meanfield": convert.meanfield_from_numpy(loc, sd, device="cpu"),
               "fullrank": convert.fullrank_from_numpy(loc, C, device="cpu")}
     out = {}
-    with _under(mesh):
+    with under(mesh):
         for name, (cls, kw, fam) in JAX_OBJECTIVES.items():
             obj = getattr(avt, cls)(n_samples=JAX_N, mc_axis=MC, **kw)
             grad, _, info = obj.value_and_grad(family[fam], target, None,
                                                noise=torch.from_numpy(inputs[name]))
-            out[name] = _leaves(grad) + [info["elbo"].detach().clone()]
+            out[name] = leaves(grad) + [info["elbo"].detach().clone()]
     return out
 
 
@@ -146,7 +131,7 @@ def measure_space(mesh):
             ("bam_logreg", FisherMinBatchMatch(n_samples=16, mc_axis=MC), None)):
         target = logreg if seed is None else normal_fullrank(seed, 5, device="cpu")[0]
         d = target.dim
-        with _under(mesh):
+        with under(mesh):
             st = alg.init(0, avt.FullRankGaussian(torch.zeros(d), 0.1 * torch.eye(d)), target)
             st, info = alg.step(st)
         extra = [info["covweighted_fisher"]] if name.startswith("bam") else []
@@ -231,7 +216,7 @@ def logreg_density(mesh):
                               data_axis=DATA)
     w = torch.randn(2, bnn.dim, generator=torch.Generator().manual_seed(2))
     out = []
-    with _under(mesh):
+    with under(mesh):
         for target, th in ((prob, torch.from_numpy(theta)), (bnn, w)):
             value, grad = log_density_and_grad(target, th)
             out += [value] + reduce_shares([grad], None)
@@ -273,7 +258,7 @@ def ppl_density(mesh):
     for name, (model, data) in cases.items():
         m = ppl.ingest(model, data=data, data_axis=DATA, device="cpu")
         theta = torch.randn(3, m.target.dim, generator=torch.Generator().manual_seed(1))
-        with _under(mesh):
+        with under(mesh):
             value, grad = log_density_and_grad(m.target, theta)
             (grad,) = reduce_shares([grad], None)
         out[name] = [value, grad]
@@ -386,21 +371,18 @@ def port_family_case(case, fam_axis, mc_axis):
 
 def ep_on_data(mesh):
     """MixtureELBO with ``ep_axis="data"`` on a target whose rows are over
-    "data" too: the refusal's message where "data" has more than one rank,
-    else the gradient leaves and the ELBO."""
+    "data" too (each rank evaluates its components' draws on every row):
+    the gradient leaves and the ELBO."""
     from advancedvi_jl_tpu_torch import convert
 
     a = family_arrays("ep")
     q = convert.mixture_meanfield_from_numpy(a["logits"], a["locations"], a["scales"],
                                              device="cpu")
     u = torch.randn(q.n_components, FA_MIX_N, q.dim, generator=torch.Generator().manual_seed(4))
-    try:
-        with _under(mesh):
-            grad, _, info = avt.MixtureELBO(n_samples=FA_MIX_N, ep_axis=DATA).value_and_grad(
-                q, port_logreg(q.dim), None, noise=u)
-    except ValueError as e:
-        return str(e)
-    return _leaves(grad) + [info["elbo"].detach().clone()]
+    with under(mesh):
+        grad, _, info = avt.MixtureELBO(n_samples=FA_MIX_N, ep_axis=DATA).value_and_grad(
+            q, port_logreg(q.dim), None, noise=u)
+    return leaves(grad) + [info["elbo"].detach().clone()]
 
 
 class _CountingTarget:
@@ -453,13 +435,13 @@ def family_shares(mesh, inputs, shape):
             target = _CountingTarget(target, seen)
         undo = _recording(seen)
         try:
-            with _under(mesh):
+            with under(mesh):
                 grad, _, info = obj.value_and_grad(q, target, None,
                                                    noise=torch.from_numpy(inputs[f"fa_{case}"]))
         finally:
             for mod, name, raw in undo:
                 setattr(mod, name, raw)
-        out[case] = _leaves(grad) + [info["elbo"].detach().clone()]
+        out[case] = leaves(grad) + [info["elbo"].detach().clone()]
         shares[case] = [s for s in seen if s is not None]
     return out, shares
 
@@ -621,32 +603,9 @@ def write_jax_inputs(outdir):
 def ranks(tmp_path_factory):
     """Run the four ranks once; their results, in rank order, and the
     output directory."""
-    from advancedvi_jl_tpu_torch.parallel.distributed import free_port
-
     outdir = str(tmp_path_factory.mktemp("torch_multiprocess"))
     write_jax_inputs(outdir)
-    port = free_port()
-    env = {k: v for k, v in os.environ.items() if k not in ("MASTER_ADDR", "MASTER_PORT",
-                                                            "RANK", "WORLD_SIZE")}
-    env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
-    env["OMP_NUM_THREADS"] = "1"
-    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), str(r), str(WORLD),
-                               str(port), outdir], cwd=ROOT, env=env, stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True)
-             for r in range(WORLD)]
-    outs = []
-    try:
-        for p in procs:
-            outs.append(p.communicate(timeout=TIMEOUT)[0])
-    except subprocess.TimeoutExpired:
-        for p in procs:
-            p.kill()
-            p.communicate()
-        pytest.fail(f"the {WORLD} ranks did not finish in {TIMEOUT} s")
-    for r, (p, out) in enumerate(zip(procs, outs)):
-        assert p.returncode == 0, f"rank {r} failed (rc {p.returncode}):\n{out[-4000:]}"
-    return [torch.load(os.path.join(outdir, f"rank{r}.pt"), weights_only=False)
-            for r in range(WORLD)], outdir
+    return run_ranks(__file__, WORLD, outdir, TIMEOUT), outdir
 
 
 @pytest.fixture(scope="module")
@@ -658,31 +617,11 @@ def reference():
     return out
 
 
-def _close(got, want, rtol, atol=0.0):
-    for a, b in zip(got, want):
-        np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=rtol, atol=atol)
-
-
-def _equal(a, b):
-    if isinstance(a, dict):
-        assert a.keys() == b.keys()
-        for k in a:
-            _equal(a[k], b[k])
-    elif isinstance(a, (list, tuple)):
-        assert len(a) == len(b)
-        for x, y in zip(a, b):
-            _equal(x, y)
-    elif isinstance(a, torch.Tensor):
-        assert torch.equal(a, b)
-    else:
-        assert a == b
-
-
 def test_every_rank_returns_the_same_bits(ranks):
     """Replicated outputs: each rank's results equal rank 0's exactly."""
     results, _ = ranks
     for r in range(1, WORLD):
-        _equal(results[r], results[0])
+        equal(results[r], results[0])
 
 
 @pytest.mark.parametrize("shape", MESHES)
@@ -693,8 +632,8 @@ def test_sharded_objective_equals_one_process(ranks, reference, shape, case):
     the one-process estimate (JAX: rtol 1e-5, atol 1e-6)."""
     got = ranks[0][0][("objectives", shape)][case]
     want = reference["objectives"][case]
-    _close(got[:-1], want[:-1], rtol=1e-5, atol=1e-6)
-    _close(got[-1:], want[-1:], rtol=1e-5)
+    close(got[:-1], want[:-1], rtol=1e-5, atol=1e-6)
+    close(got[-1:], want[-1:], rtol=1e-5)
 
 
 @pytest.mark.parametrize("shape", MESHES)
@@ -704,13 +643,13 @@ def test_sharded_measure_space_steps_equal_one_process(ranks, reference, shape):
     on the logistic regression with its rows over "data"."""
     got = ranks[0][0][("measure_space", shape)]
     want = reference["measure_space"]
-    _close(got["ngd"][:2], want["ngd"][:2], rtol=1e-5, atol=1e-6)
-    _close(got["ngd"][2:], want["ngd"][2:], rtol=1e-5)
-    _close(got["bam"][:2], want["bam"][:2], rtol=5e-4, atol=5e-5)
-    _close(got["bam"][3:], want["bam"][3:], rtol=1e-4)
+    close(got["ngd"][:2], want["ngd"][:2], rtol=1e-5, atol=1e-6)
+    close(got["ngd"][2:], want["ngd"][2:], rtol=1e-5)
+    close(got["bam"][:2], want["bam"][:2], rtol=5e-4, atol=5e-5)
+    close(got["bam"][3:], want["bam"][3:], rtol=1e-4)
     # the logistic regression's rows over "data" too
-    _close(got["ngd_logreg"][:2], want["ngd_logreg"][:2], rtol=1e-5, atol=1e-6)
-    _close(got["bam_logreg"][:2], want["bam_logreg"][:2], rtol=5e-4, atol=5e-5)
+    close(got["ngd_logreg"][:2], want["ngd_logreg"][:2], rtol=1e-5, atol=1e-6)
+    close(got["bam_logreg"][:2], want["bam_logreg"][:2], rtol=5e-4, atol=5e-5)
 
 
 @pytest.mark.parametrize("shape", MESHES)
@@ -719,8 +658,8 @@ def test_optimize_under_a_mesh_equals_one_process(ranks, reference, shape):
     on (2, 2) also 500 steps, within 0.1 of the target's mean."""
     got = ranks[0][0][("optimize", shape)]
     want = reference["optimize"]
-    _close(got[50][:2], want[50][:2], rtol=1e-5, atol=1e-6)
-    _close(got[50][2:], want[50][2:], rtol=1e-5, atol=1e-5)
+    close(got[50][:2], want[50][:2], rtol=1e-5, atol=1e-6)
+    close(got[50][2:], want[50][2:], rtol=1e-5, atol=1e-5)
     if shape == (2, 2):
         assert float(torch.linalg.norm(got[500][0] - want["mu"])) < 0.1
         assert np.isfinite(float(got[500][2]))
@@ -733,7 +672,7 @@ def test_subsampled_logreg_over_the_data_axis(ranks, reference, shape):
     got = ranks[0][0][("subsampled_logreg", shape)]
     want = reference["subsampled_logreg"]
     assert np.isfinite(float(got[2])) and int(got[3]) >= 40
-    _close(got[:2], want[:2], rtol=1e-5, atol=1e-6)
+    close(got[:2], want[:2], rtol=1e-5, atol=1e-6)
 
 
 @pytest.mark.parametrize("shape", MESHES)
@@ -742,7 +681,7 @@ def test_run_sharded_is_run_chunk_bit_for_bit(ranks, reference, shape):
     chain order, with the per-chain ELBO trace: the one-rank run bit for
     bit."""
     got = ranks[0][0][("chains", shape)]
-    _equal(got, reference["chains"])
+    equal(got, reference["chains"])
 
 
 @pytest.mark.parametrize("shape", MESHES)
@@ -751,7 +690,7 @@ def test_ingested_models_over_the_data_axis(ranks, reference, shape, case):
     """``ppl.ingest(..., data_axis="data")``: the log density (the blocks'
     likelihoods summed) and its gradient equal the one-process target's."""
     got = ranks[0][0][("ppl_density", shape)][case]
-    _close(got, reference["ppl_density"][case], rtol=1e-5, atol=1e-5)
+    close(got, reference["ppl_density"][case], rtol=1e-5, atol=1e-5)
 
 
 def test_run_sharded_refuses_as_the_jax_engine(ranks):
@@ -800,13 +739,13 @@ def test_logreg_over_the_data_axis_matches_jax(ranks):
         value, grad = jax.jit(jax.vmap(jax.value_and_grad(prob.log_density)))(
             jnp.asarray(theta))
     got = ranks[0][0][("logreg_density", (4, 1))]
-    _close(got[:2], [np.asarray(value), np.asarray(grad)], rtol=1e-5, atol=1e-5)
+    close(got[:2], [np.asarray(value), np.asarray(grad)], rtol=1e-5, atol=1e-5)
 
 
 def test_bnn_over_the_data_axis_equals_one_process(ranks, reference):
     """The BNN's log density and gradient with its rows over "data" equal
     the one-process target's."""
-    _close(ranks[0][0][("logreg_density", (4, 1))][2:], reference["logreg_density"][2:],
+    close(ranks[0][0][("logreg_density", (4, 1))][2:], reference["logreg_density"][2:],
            rtol=1e-5, atol=1e-5)
 
 
@@ -844,8 +783,8 @@ def test_sharded_objective_matches_jax(ranks, jax_sharded, shape, case):
     got = ranks[0][0][("jax_objectives", shape)][case]
     want = jax_sharded[case]
     assert len(got) == len(want)
-    _close(got[:-1], want[:-1], rtol=1e-5, atol=1e-6)
-    _close(got[-1:], want[-1:], rtol=1e-5)
+    close(got[:-1], want[:-1], rtol=1e-5, atol=1e-6)
+    close(got[-1:], want[-1:], rtol=1e-5)
 
 
 # JAX's mesh refuses 6 blocks or components over its 8 devices ("dim_size=2
@@ -906,12 +845,12 @@ def test_family_axis_matches_jax(ranks, jax_family_axes, shape, case):
     want = jax_family_axes[case]
     assert len(got) == len(want)
     if FAMILY_CASES[case][4] == "bfloat16":  # (location, scale) gradients
-        _close(got[:1], want[:1], rtol=1e-5, atol=1e-6)
+        close(got[:1], want[:1], rtol=1e-5, atol=1e-6)
         diff = np.abs(np.asarray(got[1]) - want[1])
         assert (diff <= _bf16_ulp(want[1])).all(), diff.max()
     else:
-        _close(got[:-1], want[:-1], rtol=1e-5, atol=1e-6)
-    _close(got[-1:], want[-1:], rtol=1e-5)
+        close(got[:-1], want[:-1], rtol=1e-5, atol=1e-6)
+    close(got[-1:], want[-1:], rtol=1e-5)
 
 
 @pytest.mark.parametrize("shape", MESHES)
@@ -943,10 +882,8 @@ def test_each_rank_forms_only_its_share(ranks, shape, case):
 def test_mixture_over_the_data_axis_of_its_target(ranks, reference, shape):
     """``MixtureELBO(ep_axis="data")`` on a target whose rows are over
     "data": where that axis has more than one rank its ranks hold different
-    components' draws, and the target's sum over it refuses (a ValueError
-    naming the axis); on one rank of "data" the one-process estimate."""
+    components' draws, and each evaluates its own on every row; on every
+    mesh the one-process estimate (JAX: rtol 1e-5, atol 1e-6)."""
     got = ranks[0][0][("ep_on_data", shape)]
-    if shape[0] > 1:
-        assert isinstance(got, str) and "data_axis 'data'" in got and "ep_axis" in got, got
-    else:
-        _close(got, reference["ep_on_data"], rtol=1e-5, atol=1e-6)
+    assert not isinstance(got, str), got
+    close(got, reference["ep_on_data"], rtol=1e-5, atol=1e-6)
